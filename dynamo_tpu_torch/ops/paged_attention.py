@@ -1,0 +1,209 @@
+"""Decode attention over the paged KV cache: ONE ragged kernel.
+
+Port of dynamo_tpu/ops/paged_attention.py. The Pallas TPU kernel
+`_ragged_decode_kernel` becomes a CUDA C++ kernel for Hopper
+(dynamo_tpu_torch/csrc/ragged_decode_attention.cu), bound with ctypes.
+Beside it lives its plain PyTorch version (a page gather plus the masked
+flash state in f32): the wrapper takes it only for CPU tensors, which is
+how the CPU tests run; for CUDA tensors it launches the kernel or raises.
+
+The kernel returns the UNNORMALISED flash state (acc, m, l) of each row over
+the first lens[s] tokens of its pages; consumers pick the mode:
+
+- prefix rows (`decode_paged_attention_prefix`): `lens` counts valid kv
+  BEFORE the current token; fold the token itself with
+  `combine_self_attention` (the deferred-write decode hot path);
+- inclusive rows (`decode_paged_attention`): `lens` INCLUDES the current
+  token (already written into the pages); normalise by l.
+
+Layout contract, as in the JAX package: caches are [L, Hkv, P, ps, hd], so
+one (layer, head, page) slice is a contiguous [ps, hd] block. The layer is a
+Python int (the port's layer loop is a Python loop), so no per-layer slice
+is ever copied.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+NEG_INF = -1e30
+
+# launches of the CUDA kernel since import (or since a caller reset it);
+# chip_smoke.py reads it to prove the main path went through the kernel
+KERNEL_LAUNCHES = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_HEAD_DIMS = (32, 64, 128)
+_G_MAX = 8
+
+
+def _ragged_plain(q, k_cache, v_cache, layer: int, page_table, lens):
+    """The plain PyTorch version of the kernel: same outputs, computed by a
+    page gather and a masked flash state in f32.
+
+    Mirrors the TPU kernel's semantics exactly: it walks
+    max(ceil(lens/ps), 1) whole pages per row, tokens past lens[s] have K
+    and V SELECTED to zero (recycled page tails may hold NaN) and scores
+    -1e30, so an empty row ends with m = -1e30, l = ps and acc = 0."""
+    s, h, hd = q.shape
+    _, hkv, _, ps, _ = k_cache.shape
+    g = h // hkv
+    pb = page_table.shape[1]
+    ids = page_table.reshape(-1).long()
+    k = k_cache[layer].index_select(1, ids).reshape(hkv, s, pb * ps, hd)
+    v = v_cache[layer].index_select(1, ids).reshape(hkv, s, pb * ps, hd)
+    k = k.permute(1, 0, 2, 3).float()                  # [S, Hkv, T, hd]
+    v = v.permute(1, 0, 2, 3).float()
+    pos = torch.arange(pb * ps, device=q.device)
+    lens = lens.long()
+    valid = pos[None, :] < lens[:, None]               # [S, T]
+    n_pages = torch.clamp((lens + ps - 1) // ps, min=1)
+    walked = pos[None, :] < (n_pages * ps)[:, None]    # pages the kernel reads
+    vmask = valid[:, None, :, None]
+    k = torch.where(vmask, k, torch.zeros((), dtype=k.dtype, device=k.device))
+    v = torch.where(vmask, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    qf = q.float().reshape(s, hkv, g, hd) * (hd ** -0.5)
+    sc = torch.einsum("skgd,sktd->skgt", qf, k)
+    sc = torch.where(valid[:, None, None, :], sc,
+                     torch.full((), NEG_INF, device=q.device))
+    m = torch.where(walked[:, None, None, :], sc,
+                    torch.full((), float("-inf"), device=q.device)).amax(-1)
+    p = torch.where(walked[:, None, None, :], torch.exp(sc - m[..., None]),
+                    torch.zeros((), device=q.device))
+    l = p.sum(-1)
+    acc = torch.einsum("skgt,sktd->skgd", p, v)
+    return (acc.reshape(s, h, hd), m.reshape(s, h, 1), l.reshape(s, h, 1))
+
+
+def _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens):
+    dev = q.device
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("page_table", page_table), ("lens", lens)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"kernel takes float32/bfloat16, got {q.dtype}")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(f"cache dtype {k_cache.dtype}/{v_cache.dtype} != "
+                        f"q dtype {q.dtype}")
+    if page_table.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise TypeError("page_table and lens must be int32")
+    s, h, hd = q.shape
+    if k_cache.dim() != 5 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"caches must be [L, Hkv, P, ps, hd], got "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    nl, hkv, _, _, khd = k_cache.shape
+    if khd != hd or hd not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} (cache {khd}) not in "
+                         f"{_KERNEL_HEAD_DIMS}")
+    if h % hkv or h // hkv > _G_MAX:
+        raise ValueError(f"num_heads {h} / num_kv_heads {hkv}: need a GQA "
+                         f"group of at most {_G_MAX}")
+    if not 0 <= layer < nl:
+        raise ValueError(f"layer {layer} outside [0, {nl})")
+    if page_table.dim() != 2 or page_table.shape[0] != s \
+            or lens.shape != (s,):
+        raise ValueError(f"page_table {tuple(page_table.shape)} / lens "
+                         f"{tuple(lens.shape)} do not match {s} rows")
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    """The kernel's C entry point, built and loaded on first use."""
+    from dynamo_tpu_torch.ops import build
+    fn = build.load("ragged_decode_attention").ragged_decode_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return fn
+
+
+def _ragged_kernel(q, k_cache, v_cache, layer: int, page_table, lens):
+    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+    global KERNEL_LAUNCHES
+    _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens)
+    fn = _kernel_fn()
+    s, h, hd = q.shape
+    _, hkv, p, ps, _ = k_cache.shape
+    acc = torch.empty((s, h, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((s, h, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((s, h, 1), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             page_table.data_ptr(), lens.data_ptr(), acc.data_ptr(),
+             m.data_ptr(), l.data_ptr(), s, h, hkv, p, ps, hd,
+             page_table.shape[1], layer, hd ** -0.5, _DTYPE_CODE[q.dtype],
+             stream)
+    if err != 0:
+        raise RuntimeError(f"ragged_decode_attention launch failed: CUDA "
+                           f"error {err}")
+    KERNEL_LAUNCHES += 1
+    return acc, m, l
+
+
+def ragged_decode_attention(
+    q: torch.Tensor,           # [S, H, hd] — one query token per sequence
+    k_cache: torch.Tensor,     # [L, Hkv, P, ps, hd] (whole stack)
+    v_cache: torch.Tensor,
+    layer: int,                # which layer's pages to read
+    page_table: torch.Tensor,  # [S, Pb] int32
+    lens: torch.Tensor,        # [S] int32 — valid tokens in row s's pages
+):
+    """THE dispatcher: the CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors. Returns the unnormalised flash state (acc [S,H,hd] f32,
+    m [S,H,1], l [S,H,1]) of each row over the first lens[s] tokens of its
+    pages."""
+    if q.is_cuda:
+        return _ragged_kernel(q, k_cache, v_cache, int(layer), page_table,
+                              lens)
+    if k_cache.is_cuda or page_table.is_cuda or lens.is_cuda:
+        raise ValueError("q is on the CPU but the cache or tables are on "
+                         "CUDA")
+    return _ragged_plain(q, k_cache, v_cache, int(layer), page_table, lens)
+
+
+def decode_paged_attention_prefix(q, k_cache, v_cache, layer: int,
+                                  page_table, prefix_lens):
+    """Prefix-mode view of the ragged kernel: lens counts valid kv BEFORE
+    the current token, so the engine can defer all cache writes to one
+    scatter per step. Returns the unnormalised state (acc, m, l); fold the
+    current token via combine_self_attention."""
+    return ragged_decode_attention(q, k_cache, v_cache, layer, page_table,
+                                   prefix_lens)
+
+
+def combine_self_attention(q, k_new, v_new, acc, m, l):
+    """Fold the current token's kv into the prefix flash state.
+
+    q [S, H, hd]; k_new/v_new [S, Hkv, hd]; acc [S, H, hd] f32
+    UNNORMALISED; m/l [S, H, 1]. Returns normalised attention [S, H, hd] in
+    q.dtype. Safe for empty prefixes (m = -1e30): the result is exactly the
+    new token's value row."""
+    s, h, hd = q.shape
+    g = h // k_new.shape[1]
+    kn = k_new.repeat_interleave(g, dim=1).float()       # [S, H, hd]
+    vn = v_new.repeat_interleave(g, dim=1).float()
+    s_self = (q.float() * kn).sum(-1, keepdim=True) * (hd ** -0.5)
+    m2 = torch.maximum(m, s_self)
+    a = torch.exp(m - m2)
+    b = torch.exp(s_self - m2)
+    out = (acc * a + vn * b) / (l * a + b)
+    return out.to(q.dtype)
+
+
+def decode_paged_attention(q, k_cache, v_cache, page_table, kv_lens):
+    """Inclusive-mode view of the ragged kernel: [S, H, hd] attention of
+    each decode token over its pages, kv_lens INCLUDING the current token.
+    The per-layer [Hkv, P, ps, hd] cache rides as a `cache[None]` view with
+    layer 0; padding rows (kv_len 0) are clamped to 1 so 1/l stays finite
+    (their output is ignored)."""
+    kv_lens = torch.clamp(kv_lens, min=1).to(torch.int32)
+    acc, _, l = ragged_decode_attention(q, k_cache[None], v_cache[None], 0,
+                                        page_table, kv_lens)
+    return (acc / l).to(q.dtype)
