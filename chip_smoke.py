@@ -6,17 +6,29 @@
 Phases (any failed check exits non-zero; nothing is caught):
 
 1. Device: the card's name and power limit (nvidia-smi), then the build of
-   every CUDA kernel in dynamo_tpu_torch/csrc/ with nvcc for sm_90a.
-2. Kernel vs plain: the ragged decode attention kernel against its plain
-   PyTorch version on the same inputs, in prefix and inclusive modes, at
-   head dims 64 and 128, f32 and bf16 caches, 8 and 32 rows at the
-   llama3-8b head geometry (32 q heads, 8 kv heads), ragged lengths
-   including 0, 1, ps, ps+1 and a full table, recycled page tails filled
-   with NaN. Both compute in f32, so only summation order differs:
-   rtol = atol = 1e-4 for f32 caches and 2e-3 for bf16 caches.
+   every CUDA kernel in dynamo_tpu_torch/csrc/ with nvcc for sm_90a, one
+   nvcc per source, all started together.
+2. Kernels vs plain versions, on the same inputs:
+   a. the ragged decode attention kernel against its plain PyTorch version,
+      in prefix and inclusive modes, at head dims 64 and 128, f32 and bf16
+      caches, 8 and 32 rows at the llama3-8b head geometry (32 q heads, 8
+      kv heads), ragged lengths including 0, 1, ps, ps+1 and a full table,
+      recycled page tails filled with NaN. Both compute in f32, so only
+      summation order differs: rtol = atol = 1e-4 for f32 caches and 2e-3
+      for bf16 caches;
+   b. its int8 mode (int8 pages + per-row f32 scales) the same way, with an
+      f32 q (rtol = atol = 1e-4) and a bf16 q (2e-3, the bf16 outputs of
+      combine_self_attention round to bf16), tails holding garbage int8
+      values and NaN / inf scales;
+   c. the legacy decode kernel against its plain version at hd 32/64/128 x
+      f32/bf16/int8 caches (the parity geometry of tests/test_ragged_kernel
+      with 32 q / 8 kv heads, ps 8, NaN-poisoned tails; normalised outputs
+      within 1e-4 for f32 and int8 caches, 1e-2 for bf16 outputs), and
+      against the ragged kernel's inclusive view on the same inputs.
 3. Small reference: the `tiny` model in f32, decode logits on the card
    (the kernel) against the same step on the CPU (the plain version),
-   within 1e-3, and the same greedy tokens from both engines.
+   within 1e-3, and the same greedy tokens from both engines; then the
+   same with kv_quant="int8".
 4. Main path: the llama3-8b card at full width with random bf16 weights,
    NativeEngine on cuda (default EngineConfig) -> NativeEngineWorker ->
    LocalPipeline.generate_chat, answering 8 chat requests (100-600
@@ -26,15 +38,32 @@ Phases (any failed check exits non-zero; nothing is caught):
    launch count must equal num_layers x decode steps run, and one greedy
    request served twice must give the same tokens. Prints TTFT, decode
    tokens/s and peak memory.
-5. Kernel at the main path's shapes, on the engine's own cache after the
-   run (page table over the pages the run wrote, lens mid-decode): the
-   kernel against its plain version on layers 0, L/2 and L-1 (tolerance
-   2e-3 for bf16), then CUDA-event times of the kernel, its plain version,
-   gather + scaled_dot_product_attention as a yardstick, and the bound (KV
-   bytes over 3.35 TB/s).
+5. int8 serving: the same path and checks with EngineConfig(kv_quant=
+   "int8") on the same weights; also prints kv_page_bytes.
+6. Kernels at the main path's shapes, on the engines' own caches after the
+   runs (the bf16 cache right after phase 4, then freed so that phase 5's
+   peak memory is its own; page table over the pages the run wrote, lens
+   mid-decode): the ragged kernel (bf16 cache, then int8 cache) against
+   its plain version on layers 0, L/2 and L-1 (tolerance 2e-3 for a bf16
+   q), then CUDA-event times of the kernel (its launches captured in one
+   CUDA graph and replayed, so its wrapper's host work cannot pace it; the
+   eager per-call time is printed beside), its plain version, the library
+   yardstick for the same function (page gather, dequantised for int8, +
+   scaled_dot_product_attention) and the bound (valid K/V bytes, plus
+   scales for int8, over 3.35 TB/s). The legacy kernel is timed the same
+   way at the decode A/B's shapes, hd 128 (llama3-8b heads) and hd 64
+   (llama3-1b heads).
+7. The int8 parity gate: dynamo_tpu_torch/bench.run_kv_quant_parity at
+   llama3-8b on the main path's weights; it must pass its thresholds.
+8. The decode A/B: dynamo_tpu_torch/bench.run_decode_kernel_ab at the
+   llama3-8b and llama3-1b head geometries (8 rows, ps 64, Pb 4); the
+   legacy, unified and unified + fused-tail arms must sample identical
+   tokens. Prints the step times and ratios.
 
-The second-to-last line of output is one JSON object with the kernel
-records, the line before it the nvidia-smi reading, and the last line
+Each path (4, 5, and the A/B at each geometry) runs with every kernel's
+launch count set to 0 just before it and read just after. The third line
+from the end of the output is one JSON object with the kernel records, the
+second from the end the nvidia-smi reading, and the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -63,17 +92,33 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n: int, warmup: int = 3) -> float:
+def cuda_ms(fn, n: int, warmup: int = 3, graph: bool = False) -> float:
+    """CUDA-event time per call of fn(0) .. fn(n - 1), after `warmup`
+    calls. With graph=True the n calls are captured in one CUDA graph and
+    the events time its replay: a kernel wrapper's host work (argument
+    checks, allocation, the ctypes call; tens of microseconds) then cannot
+    pace a kernel that runs about as long, and the time is the device's."""
     import torch
     for i in range(warmup):
         fn(i)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(n):
-        fn(i)
-    end.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(n):
+                fn(i)
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for i in range(n):
+            fn(i)
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
 
@@ -161,9 +206,149 @@ def phase_kernel() -> float:
     return worst
 
 
-# -- phase 3: tiny f32 card vs CPU ---------------------------------------------
+def compare(label: str, pairs, tol: float) -> list:
+    """Every (name, got, want) pair finite and within rtol = atol = tol;
+    returns the max abs errors."""
+    import torch
+    errs = []
+    for name, a, b in pairs:
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite {name}")
+        err = float((a.float() - b.float()).abs().max())
+        check(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol),
+              f"{label}: {name} differs from its reference by {err}")
+        errs.append(err)
+    return errs
 
-def phase_small_reference() -> None:
+
+def quantize_case(k, v, pt, lens, seed: int):
+    """int8 pages + f32 scales of float caches k/v [L, Hkv, P, ps, hd] (no
+    NaN), then every slot at or past a row's length overwritten with
+    garbage int8 values and NaN (k) / inf (v) scales."""
+    import torch
+    from dynamo_tpu_torch.ops.kv_quant import quantize_rows
+    (kq, ks), (vq, vs) = quantize_rows(k), quantize_rows(v)
+    nl, hkv, p, ps, hd = k.shape
+    pb = pt.shape[1]
+    pos = torch.arange(pb * ps, device="cuda")
+    tail = pos[None, :] >= lens[:, None]
+    slots = (pt.long()[:, pos // ps] * ps + pos % ps)[tail]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for c in (kq, vq):
+        flat = c.view(nl, hkv, p * ps, hd)
+        flat[:, :, slots] = torch.randint(
+            -128, 128, flat[:, :, slots].shape, generator=g, device="cuda",
+            dtype=torch.int8)
+    ks.view(nl, hkv, p * ps)[:, :, slots] = float("nan")
+    vs.view(nl, hkv, p * ps)[:, :, slots] = float("inf")
+    return kq, vq, ks, vs
+
+
+def phase_kernel_int8() -> float:
+    """The ragged kernel's int8 mode against its plain version (2b)."""
+    import torch
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    worst = 0.0
+    for hd in (64, 128):
+        for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-3)):
+            for s in (8, 32):
+                q, k, v, k_new, v_new, pt, lens = kernel_case(
+                    hd, torch.float32, s, seed=3 * hd + s)
+                # kernel_case NaN-poisons the tails; quantize clean values
+                k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+                kq, vq, ks, vs = quantize_case(k, v, pt, lens, seed=s)
+                q, k_new, v_new = (t.to(qdt) for t in (q, k_new, v_new))
+                layer, ps, ok = 1, k.shape[3], lens > 0
+                acc, m, l = pa.decode_paged_attention_prefix(
+                    q, kq, vq, layer, pt, lens, ks, vs)
+                pacc, pm, pl_ = pa._ragged_plain(q, kq, vq, layer, pt, lens,
+                                                 ks, vs)
+                out = pa.combine_self_attention(q, k_new, v_new, acc, m, l)
+                pout = pa.combine_self_attention(q, k_new, v_new, pacc, pm,
+                                                 pl_)
+                inc = pa.decode_paged_attention(q, kq[layer], vq[layer], pt,
+                                                lens, ks[layer], vs[layer])
+                a2, _, l2 = pa._ragged_plain(
+                    q, kq[layer][None], vq[layer][None], 0, pt,
+                    torch.clamp(lens, min=1), ks[layer][None],
+                    vs[layer][None])
+                pinc = (a2 / l2).to(q.dtype)
+                torch.cuda.synchronize()
+                label = f"int8 kernel hd={hd} q {str(qdt)[6:]} S={s}"
+                check(bool((m[~ok] == -1e30).all())
+                      and bool((l[~ok] == ps).all()),
+                      f"{label}: empty rows must keep m = -1e30 and l = {ps}")
+                errs = compare(label, [
+                    ("acc", acc, pacc), ("m", m, pm), ("l", l, pl_),
+                    ("prefix+self", out, pout),
+                    ("inclusive", inc[ok], pinc[ok])], tol)
+                worst = max(worst, max(errs))
+                print(f"{label} lens={lens.tolist()[:6]}... max_abs_err "
+                      f"acc/m/l/prefix/inclusive = "
+                      f"{' '.join(f'{e:.3g}' for e in errs)} (tol {tol})",
+                      flush=True)
+    return worst
+
+
+def legacy_case(hd: int, kind: str, seed: int):
+    """The parity geometry of tests/test_ragged_kernel.py:41-59 at 32 q / 8
+    kv heads: 3 rows of 4 distinct pages (ps 8), lens 5 / 17 / 32, NaN in
+    every tail slot (NaN / inf scales for int8)."""
+    import torch
+    from dynamo_tpu_torch.ops.kv_quant import quantize_rows
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s, h, hkv, p, ps, pb = 3, 32, 8, 16, 8, 4
+    q = torch.randn((s, h, hd), generator=g, device="cuda")
+    k = torch.randn((hkv, p, ps, hd), generator=g, device="cuda")
+    v = torch.randn((hkv, p, ps, hd), generator=g, device="cuda")
+    pt = ((torch.arange(s * pb, device="cuda").reshape(s, pb) * 7) % p).to(
+        torch.int32)
+    lens = torch.tensor([5, 17, 32], dtype=torch.int32, device="cuda")
+    pos = torch.arange(pb * ps, device="cuda")
+    tail = pos[None, :] >= lens[:, None]
+    slots = (pt.long()[:, pos // ps] * ps + pos % ps)[tail]
+    ks = vs = None
+    if kind == "int8":
+        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+        ks.view(hkv, p * ps)[:, slots] = float("nan")
+        vs.view(hkv, p * ps)[:, slots] = float("inf")
+    else:
+        for c in (k, v):
+            c.view(hkv, p * ps, hd)[:, slots] = float("nan")
+        if kind == "bf16":
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    return q, k, v, ks, vs, pt, lens
+
+
+def phase_legacy() -> float:
+    """The legacy kernel against its plain version and against the ragged
+    kernel's inclusive view (2c)."""
+    import torch
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import paged_attention_oracle as leg
+    worst = 0.0
+    for hd in (32, 64, 128):
+        for kind, tol in (("f32", 1e-4), ("bf16", 1e-2), ("int8", 1e-4)):
+            q, k, v, ks, vs, pt, lens = legacy_case(hd, kind, seed=hd)
+            got = leg.decode_paged_attention_legacy(q, k, v, pt, lens, ks,
+                                                    vs)
+            want = leg._legacy_plain(q, k, v, pt, lens, ks, vs)
+            ragged = pa.decode_paged_attention(q, k, v, pt, lens, ks, vs)
+            torch.cuda.synchronize()
+            label = f"legacy kernel hd={hd} {kind}"
+            check(got.dtype == q.dtype and got.shape == q.shape,
+                  f"{label}: output {got.dtype} {tuple(got.shape)}")
+            errs = compare(label, [("plain", got, want),
+                                   ("ragged inclusive", got, ragged)], tol)
+            worst = max(worst, errs[0])
+            print(f"{label} lens={lens.tolist()}: max_abs_err vs plain "
+                  f"{errs[0]:.3g}, vs the ragged kernel {errs[1]:.3g} "
+                  f"(tol {tol})", flush=True)
+    return worst
+
+
+# -- phase 3: tiny f32 card vs CPU --------------------------------------------
+
+def phase_small_reference(kv_quant: str = "") -> None:
     import torch
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import NativeEngine
@@ -173,7 +358,7 @@ def phase_small_reference() -> None:
     params = llama.init_params(cfg, "cpu", seed=0)
     ecfg = EngineConfig(page_size=8, num_pages=64, max_slots=4,
                         max_prefill_chunk=32, prefill_buckets=(8, 16, 32),
-                        max_model_len=512)
+                        max_model_len=512, kv_quant=kv_quant)
     engines = {dev: NativeEngine(
         cfg, ecfg, device=dev,
         params={"embed": params["embed"].to(dev),
@@ -185,8 +370,9 @@ def phase_small_reference() -> None:
     prompt = list(range(5, 45))
     sp = SamplingParams(max_tokens=12, temperature=0.0)
     outs = {dev: e.generate(prompt, sp, "r") for dev, e in engines.items()}
+    label = f"tiny f32{' kv_quant=' + kv_quant if kv_quant else ''}"
     check(outs["cpu"] == outs["cuda"],
-          f"tiny f32 greedy tokens differ: cpu {outs['cpu']} cuda "
+          f"{label} greedy tokens differ: cpu {outs['cpu']} cuda "
           f"{outs['cuda']}")
     # one decode step over the CPU engine's cache (the greedy run's prompt
     # sits in pages 0..6), on both devices from identical inputs
@@ -198,12 +384,12 @@ def phase_small_reference() -> None:
                           device=dev)
         pre = torch.tensor([37, 0], dtype=torch.int32, device=dev)
         pos = torch.tensor([37, 0], dtype=torch.int32, device=dev)
-        logits[dev] = llama.decode_forward(e.params, cfg, tok, cache, pt,
-                                           pre, pos)[0].cpu()
+        logits[dev] = llama.decode_forward(e.params, e.model_cfg, tok, cache,
+                                           pt, pre, pos)[0].cpu()
     err = float((logits["cpu"] - logits["cuda"]).abs().max())
     check(bool(torch.isfinite(logits["cuda"]).all()) and err < 1e-3,
-          f"tiny f32 decode logits cuda vs cpu differ by {err}")
-    print(f"small reference: tiny f32 greedy tokens identical on cuda and "
+          f"{label} decode logits cuda vs cpu differ by {err}")
+    print(f"small reference: {label} greedy tokens identical on cuda and "
           f"cpu ({outs['cuda']}); decode logits max_abs_err {err:.3g}",
           flush=True)
 
@@ -258,7 +444,19 @@ def chat_requests(model: str) -> list:
     return reqs
 
 
-async def serve_main_path(smi: str):
+def reset_launch_counts() -> None:
+    """Every kernel wrapper's launch count to 0 (just before a path)."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import paged_attention_oracle as leg
+    pa.KERNEL_LAUNCHES = 0
+    leg.KERNEL_LAUNCHES = 0
+
+
+async def serve_main_path(smi: str, kv_quant: str = "", params=None):
+    """Phase 4 (kv_quant "") or 5 (kv_quant "int8"), on the given weights
+    or on random ones from seed 0. Returns (engine, kernel launches,
+    prompt lengths, max_tokens, {wall_s, ttft_mean_ms, ttft_max_ms,
+    decode_tok_s, per_request_tok_s, peak_gib, kv_page_bytes})."""
     import torch
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import NativeEngine
@@ -272,11 +470,13 @@ async def serve_main_path(smi: str):
     card = build_card("llama3-8b")
     cfg = card.model_config()
     t0 = time.perf_counter()
-    engine = NativeEngine(cfg, EngineConfig(),
+    engine = NativeEngine(cfg, EngineConfig(kv_quant=kv_quant),
                           eos_token_ids=set(card.eos_token_ids), seed=0,
-                          device="cuda")
+                          params=params, device="cuda")
     torch.cuda.synchronize()
-    print(f"main path: {cfg.name} {cfg.dtype} weights + KV cache ready in "
+    name = "int8 serving" if kv_quant else "main path"
+    print(f"{name}: {cfg.name} {cfg.dtype} weights + "
+          f"{engine.cache['k'].dtype} KV cache ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     worker = await NativeEngineWorker(engine).start()
     timed = TimedEngine(worker)
@@ -290,7 +490,7 @@ async def serve_main_path(smi: str):
         return aggregate_chat_chunks(chunks)
 
     torch.cuda.reset_peak_memory_stats()
-    pa.KERNEL_LAUNCHES = 0
+    reset_launch_counts()
     steps0 = engine.decode_window_steps
     t_run = time.perf_counter()
     results = await asyncio.gather(*(one(i, r)
@@ -307,35 +507,39 @@ async def serve_main_path(smi: str):
         n_prompt.append(agg.usage.prompt_tokens)
         check(ch.finish_reason == "stop" or (ch.finish_reason == "length"
                                              and n == max_tokens),
-              f"request {i} finished {ch.finish_reason!r} with {n} tokens")
+              f"{name}: request {i} finished {ch.finish_reason!r} with {n} "
+              "tokens")
         check(timed.stamps[f"req-{i}"]["tokens"] == n,
               f"request {i}: usage says {n} tokens, frames carried "
               f"{timed.stamps[f'req-{i}']['tokens']}")
     check(min(n_prompt) >= 100 and max(n_prompt) <= 600,
           f"prompt lengths {n_prompt} outside 100-600")
-    check(engine.logits_nonfinite_steps() == 0, "non-finite logits sampled")
+    check(engine.logits_nonfinite_steps() == 0,
+          f"{name}: non-finite logits sampled")
     decode_tokens = sum(r.usage.completion_tokens for r in results) \
         - len(results)
     need = cfg.num_layers * decode_tokens / engine.cfg.decode_steps
     check(launches == cfg.num_layers * window_steps and launches >= need,
-          f"kernel launches {launches}: expected num_layers x decode steps "
-          f"= {cfg.num_layers} x {window_steps}, and at least {need:.0f}")
+          f"{name}: kernel launches {launches}: expected num_layers x "
+          f"decode steps = {cfg.num_layers} x {window_steps}, and at least "
+          f"{need:.0f}")
     m = engine.metrics()
     st = [timed.stamps[f"req-{i}"] for i in range(len(results))]
     ttft = [s["first"] - s["start"] for s in st]
     per_req = [(s["tokens"] - 1) / (s["last"] - s["first"]) for s in st]
     agg_rate = decode_tokens / (max(s["last"] for s in st)
                                 - min(s["first"] for s in st))
-    print(f"main path: 8 chat requests, prompts {n_prompt} tokens, "
+    print(f"{name}: 8 chat requests, prompts {n_prompt} tokens, "
           f"completion tokens {[r.usage.completion_tokens for r in results]}"
           f", finish {[r.choices[0].finish_reason for r in results]}; "
           f"wall {wall:.3f} s; decode windows {m.decode_windows}, window "
           f"steps {window_steps}, mixed steps {m.mixed_steps}; kernel "
           f"launches {launches}", flush=True)
-    print(f"main path [{smi}]: TTFT mean {sum(ttft) / len(ttft) * 1e3:.1f}"
+    print(f"{name} [{smi}]: TTFT mean {sum(ttft) / len(ttft) * 1e3:.1f}"
           f" ms, max {max(ttft) * 1e3:.1f} ms; decode {agg_rate:.1f} tok/s "
           f"aggregate, {sum(per_req) / len(per_req):.1f} tok/s per request;"
-          f" peak memory {peak / 2**30:.2f} GiB", flush=True)
+          f" peak memory {peak / 2**30:.2f} GiB; kv_page_bytes "
+          f"{m.kv_page_bytes} (kv_quant_bits {m.kv_quant_bits})", flush=True)
 
     # determinism: one greedy request served twice on the idle engine
     req = requests[0]
@@ -345,26 +549,73 @@ async def serve_main_path(smi: str):
         frames = [f async for f in worker.generate(pre, Context(pre.request_id))]
         runs.append([t for f in frames for t in f.token_ids])
     check(runs[0] == runs[1] and len(runs[0]) == max_tokens,
-          f"greedy request not deterministic: {runs[0][:8]}... vs "
+          f"{name}: greedy request not deterministic: {runs[0][:8]}... vs "
           f"{runs[1][:8]}...")
-    print(f"main path: greedy request served twice, same {len(runs[0])} "
+    print(f"{name}: greedy request served twice, same {len(runs[0])} "
           "tokens", flush=True)
     await worker.stop()
-    return engine, launches, n_prompt, max_tokens
+    stats = {"wall_s": wall, "ttft_mean_ms": sum(ttft) / len(ttft) * 1e3,
+             "ttft_max_ms": max(ttft) * 1e3, "decode_tok_s": agg_rate,
+             "per_request_tok_s": sum(per_req) / len(per_req),
+             "peak_gib": peak / 2**30, "kv_page_bytes": m.kv_page_bytes}
+    return engine, launches, n_prompt, max_tokens, stats
 
 
-# -- phase 5: the kernel at the main path's shapes ----------------------------
+# -- phase 6: the kernels at their paths' shapes ------------------------------
 
-def phase_timing(engine, n_prompt, max_tokens):
+def kv_bytes(lens, hkv: int, hd: int, esz: int, quant: bool) -> int:
+    """Bytes of the valid K/V rows (plus their two f32 scales when
+    quantized) that one call must read."""
+    per_row = hd * esz + (4 if quant else 0)
+    return int(lens.sum()) * hkv * 2 * per_row
+
+
+def bound(nbytes: int, flops: int, dtype: str) -> dict:
+    byte_ms = nbytes / H100_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def sdpa_yardstick(q, k_cache, v_cache, pt, lens, k_scale=None,
+                   v_scale=None):
+    """The library call for the same function: the rows' pages gathered
+    (and dequantised to q's dtype for int8) + one
+    scaled_dot_product_attention. Normalised [S, H, 1, hd]."""
     import torch
     import torch.nn.functional as F
+    from dynamo_tpu_torch.ops.kv_quant import gather_dequant
+    from dynamo_tpu_torch.ops.attention import gather_pages
+    s = q.shape[0]
+    if k_scale is not None:
+        k = gather_dequant(k_cache, k_scale, pt, q.dtype)
+        v = gather_dequant(v_cache, v_scale, pt, q.dtype)
+    else:
+        k, v = gather_pages(k_cache, pt), gather_pages(v_cache, pt)
+    pos = torch.arange(k.shape[2], device=q.device)
+    mask = (pos[None, :] < lens[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q[:, :, None, :], k.transpose(0, 1), v.transpose(0, 1),
+        attn_mask=mask, enable_gqa=True)
+
+
+def phase_timing(engine, n_prompt, max_tokens):
+    """The ragged kernel at the main path's shapes, on the engine's own
+    cache (bf16 or int8 with scales): kernel vs plain on layers 0, L/2 and
+    L-1, then CUDA-event times of the kernel, its plain version and the
+    library yardstick, and the bound."""
+    import torch
     from dynamo_tpu_torch.engine.scheduler import next_bucket
+    from dynamo_tpu_torch.models.llama import torch_dtype
     from dynamo_tpu_torch.ops import paged_attention as pa
     cfg, ecfg = engine.model_cfg, engine.cfg
     s, h, hkv, hd = (ecfg.max_slots, cfg.num_heads, cfg.num_kv_heads,
                      cfg.head_dim)
     ps, nl = ecfg.page_size, cfg.num_layers
     kc, vc = engine.cache["k"], engine.cache["v"]
+    ks, vs = engine.cache.get("k_scale"), engine.cache.get("v_scale")
+    quant = ks is not None
+    label = "int8 cache" if quant else f"{str(kc.dtype)[6:]} cache"
     # the decode plan of the run's 8 requests halfway through their tokens:
     # page-table width bucketed as the scheduler does, lens mid-decode, and
     # distinct pages per row, first the pages the run wrote KV into (in a
@@ -373,66 +624,143 @@ def phase_timing(engine, n_prompt, max_tokens):
                      engine.scheduler.page_buckets)
     g = torch.Generator(device="cuda").manual_seed(7)
     wrote = kc[0, :, :ecfg.num_pages].ne(0).any(-1).any(-1).any(0)
-    check(int(wrote.sum()) > 0, "the main path wrote no KV page")
+    check(int(wrote.sum()) > 0, f"{label}: the run wrote no KV page")
     perm = torch.randperm(ecfg.num_pages, generator=g, device="cuda")
     perm = perm[torch.argsort((~wrote[perm]).to(torch.int8), stable=True)]
     pt = perm[:s * pb].to(torch.int32).reshape(s, pb)
     lens = torch.tensor([n + max_tokens // 2 for n in n_prompt],
                         dtype=torch.int32, device="cuda")
-    q = torch.randn((s, h, hd), generator=g, device="cuda").to(kc.dtype)
+    qdt = torch_dtype(cfg)
+    q = torch.randn((s, h, hd), generator=g, device="cuda").to(qdt)
     # the kernel against its plain version on these inputs (untimed; the
-    # main path's launch count was read before)
-    tol = 2e-3 if kc.dtype == torch.bfloat16 else 1e-4
+    # path's launch count was read before)
+    tol = 2e-3 if qdt == torch.bfloat16 else 1e-4
     errs = []
     layers = sorted({0, nl // 2, nl - 1})
     for layer in layers:
-        got = pa.decode_paged_attention_prefix(q, kc, vc, layer, pt, lens)
-        want = pa._ragged_plain(q, kc, vc, layer, pt, lens)
-        for name, a, b in zip(("acc", "m", "l"), got, want):
-            check(bool(torch.isfinite(a).all()),
-                  f"main-path shapes, layer {layer}: non-finite {name}")
-            err = float((a - b).abs().max())
-            check(torch.allclose(a, b, rtol=tol, atol=tol),
-                  f"main-path shapes, layer {layer}: {name} differs from "
-                  f"the plain version by {err}")
-            errs.append(err)
-    print(f"kernel at the main path's shapes ({int(wrote.sum())} pages "
-          f"written by the run): layers {layers} max_abs_err "
-          f"acc/m/l = {' '.join(f'{e:.3g}' for e in errs)} (tol {tol})",
-          flush=True)
+        got = pa.decode_paged_attention_prefix(q, kc, vc, layer, pt, lens,
+                                               ks, vs)
+        want = pa._ragged_plain(q, kc, vc, layer, pt, lens, ks, vs)
+        errs += compare(f"{label} at the main path's shapes, layer {layer}",
+                        zip(("acc", "m", "l"), got, want), tol)
+    print(f"ragged kernel, {label} at the main path's shapes "
+          f"({int(wrote.sum())} pages written by the run): layers {layers} "
+          f"max_abs_err acc/m/l = {' '.join(f'{e:.3g}' for e in errs)} "
+          f"(tol {tol})", flush=True)
     n = 200
+
     # each launch reads another layer's pages, as the model does: the KV
     # of one layer (~12 MB here) would otherwise sit in the 50 MB L2
     kernel_ms = cuda_ms(lambda i: pa.decode_paged_attention_prefix(
-        q, kc, vc, i % nl, pt, lens), n)
+        q, kc, vc, i % nl, pt, lens, ks, vs), n, graph=True)
+    eager_ms = cuda_ms(lambda i: pa.decode_paged_attention_prefix(
+        q, kc, vc, i % nl, pt, lens, ks, vs), n)
     plain_ms = cuda_ms(lambda i: pa._ragged_plain(
-        q, kc, vc, i % nl, pt, lens), 20)
-    pos = torch.arange(pb * ps, device="cuda")
-    mask = (pos[None, :] < lens[:, None])[:, None, None, :]
-
-    def library(i):
-        ids = pt.reshape(-1).long()
-        k = kc[i % nl].index_select(1, ids).reshape(hkv, s, pb * ps, hd)
-        v = vc[i % nl].index_select(1, ids).reshape(hkv, s, pb * ps, hd)
-        return F.scaled_dot_product_attention(
-            q[:, :, None, :], k.transpose(0, 1), v.transpose(0, 1),
-            attn_mask=mask, enable_gqa=True)
-    library_ms = cuda_ms(library, n)
-    tot = int(lens.sum())
+        q, kc, vc, i % nl, pt, lens, ks, vs), 20)
+    library_ms = cuda_ms(lambda i: sdpa_yardstick(
+        q, kc[i % nl], vc[i % nl], pt, lens,
+        *((ks[i % nl], vs[i % nl]) if quant else ())), n)
     esz = kc.element_size()
-    nbytes = (tot * hkv * hd * 2 * esz + q.numel() * esz + pt.numel() * 4
+    nbytes = (kv_bytes(lens, hkv, hd, esz, quant)
+              + q.numel() * q.element_size() + pt.numel() * 4
               + lens.numel() * 4 + s * h * (hd + 2) * 4)
-    flops = 4 * tot * h * hd
-    byte_ms = nbytes / H100_BYTES_PER_S * 1e3
-    op_ms = flops / PEAK_FLOPS[cfg.dtype] * 1e3
-    print(f"timing (S={s}, H={h}, Hkv={hkv}, hd={hd}, {cfg.dtype}, ps={ps}, "
-          f"Pb={pb}, lens={lens.tolist()}): kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, gather+sdpa {library_ms:.4f} ms, bound "
-          f"{max(byte_ms, op_ms):.4f} ms ({nbytes} bytes)", flush=True)
-    return max(errs), {
-        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(byte_ms, op_ms),
-        "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+    b = bound(nbytes, 4 * int(lens.sum()) * h * hd, cfg.dtype)
+    print(f"timing ragged kernel, {label} (S={s}, H={h}, Hkv={hkv}, "
+          f"hd={hd}, q {cfg.dtype}, ps={ps}, Pb={pb}, lens={lens.tolist()}):"
+          f" kernel {kernel_ms:.4f} ms (graph replay; {eager_ms:.4f} ms per "
+          f"eager call), plain {plain_ms:.4f} ms, "
+          f"gather{'+dequant' if quant else ''}+sdpa {library_ms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({nbytes} bytes)", flush=True)
+    return max(errs), {"ms": kernel_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, **b}
+
+
+def phase_legacy_timing(model: str):
+    """The legacy kernel at the decode A/B's shapes for a model's head
+    geometry (f32 q and caches, 8 rows, ps 64, Pb 4, lens from the A/B's
+    seed): kernel vs plain, then CUDA-event times of the kernel, its plain
+    version, the library yardstick and the bound. One cache is 4-8 MB, so
+    the timed launches cycle over copies of it that together exceed the
+    50 MB L2, as the A/B's head projection flushes it between steps."""
+    import torch
+    from dynamo_tpu_torch.bench import PAGE_KWARGS, decode_ab_inputs
+    from dynamo_tpu_torch.engine.config import get_model_config
+    from dynamo_tpu_torch.ops import paged_attention_oracle as leg
+    cfg = get_model_config(model)
+    arrs = decode_ab_inputs(cfg, 8, PAGE_KWARGS["page_size"])
+    arrs.pop("w_head")
+    t = {k: torch.from_numpy(a).cuda() for k, a in arrs.items()}
+    q, k, v, pt, lens = t["q"], t["k"], t["v"], t["pt"], t["lens"]
+    s, h, hd = q.shape
+    hkv = k.shape[0]
+    got = leg.decode_paged_attention_legacy(q, k, v, pt, lens)
+    want = leg._legacy_plain(q, k, v, pt, lens)
+    err = compare(f"legacy kernel at the {model} A/B shapes",
+                  [("out", got, want)], 1e-4)[0]
+    copies = -(-(128 << 20) // (2 * k.numel() * 4))
+    ks = [k.clone() for _ in range(copies)]
+    vs = [v.clone() for _ in range(copies)]
+    kernel_ms = cuda_ms(lambda i: leg.decode_paged_attention_legacy(
+        q, ks[i % copies], vs[i % copies], pt, lens), 200, graph=True)
+    eager_ms = cuda_ms(lambda i: leg.decode_paged_attention_legacy(
+        q, ks[i % copies], vs[i % copies], pt, lens), 200)
+    plain_ms = cuda_ms(lambda i: leg._legacy_plain(
+        q, ks[i % copies], vs[i % copies], pt, lens), 20)
+    library_ms = cuda_ms(lambda i: sdpa_yardstick(
+        q, ks[i % copies], vs[i % copies], pt, lens), 200)
+    del ks, vs
+    nbytes = (kv_bytes(lens, hkv, hd, 4, False) + 2 * q.numel() * 4
+              + pt.numel() * 4 + lens.numel() * 4)
+    b = bound(nbytes, 4 * int(lens.sum()) * h * hd, "float32")
+    print(f"timing legacy kernel, {model} heads (S={s}, H={h}, Hkv={hkv}, "
+          f"hd={hd}, f32, ps={k.shape[2]}, Pb={pt.shape[1]}, "
+          f"lens={lens.tolist()}, {copies} cache copies): max_abs_err vs "
+          f"plain {err:.3g} (tol 1e-4); kernel {kernel_ms:.4f} ms (graph "
+          f"replay; {eager_ms:.4f} ms per eager call), plain "
+          f"{plain_ms:.4f} ms, gather+sdpa {library_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({nbytes} bytes)", flush=True)
+    return err, {"ms": kernel_ms, "plain_ms": plain_ms,
+                 "library_ms": library_ms, **b}
+
+
+# -- phase 7: the int8 parity gate --------------------------------------------
+
+def phase_parity(engine) -> dict:
+    from dynamo_tpu_torch.bench import run_kv_quant_parity
+    t0 = time.perf_counter()
+    verdict = run_kv_quant_parity(engine.model_cfg, params=engine.params,
+                                  device="cuda",
+                                  logf=lambda m: print(m, flush=True))
+    check(verdict["pass"], f"kv_quant parity gate failed: {verdict}")
+    print(f"parity gate at {engine.model_cfg.name}: {json.dumps(verdict)} "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    return verdict
+
+
+# -- phase 8: the decode A/B --------------------------------------------------
+
+def phase_ab(model: str) -> tuple:
+    """run_decode_kernel_ab at a model's head geometry, its own path: the
+    launch counts are set to 0 just before and read just after."""
+    import torch
+    from dynamo_tpu_torch.bench import run_decode_kernel_ab
+    from dynamo_tpu_torch.engine.config import get_model_config
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import paged_attention_oracle as leg
+    cfg = get_model_config(model)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    res = run_decode_kernel_ab(cfg, rows=8, device="cuda",
+                               logf=lambda m: print(m, flush=True))
+    torch.cuda.synchronize()
+    launches = {"legacy": leg.KERNEL_LAUNCHES, "ragged": pa.KERNEL_LAUNCHES}
+    check(res["tokens_identical"], f"A/B at {model}: tokens differ")
+    check(launches["legacy"] > 0 and launches["ragged"] > 0,
+          f"A/B at {model}: kernel launches {launches}")
+    res.pop("tokens")
+    print(f"A/B at {model} heads: {json.dumps(res)}; launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return res, launches
 
 
 def main() -> int:
@@ -457,17 +785,50 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    max_err = phase_kernel()
+    err_bf16 = phase_kernel()
+    err_int8 = phase_kernel_int8()
+    err_legacy = phase_legacy()
     phase_small_reference()
-    engine, launches, n_prompt, max_tokens = asyncio.run(
+    phase_small_reference("int8")
+    engine, launches, n_prompt, max_tokens, _ = asyncio.run(
         serve_main_path(smi))
     main_err, timing = phase_timing(engine, n_prompt, max_tokens)
-    record = {"name": "ragged_decode_attention", "route": "cuda",
+    # the int8 engine shares the weights; the bf16 cache goes first, so
+    # the int8 run's peak memory is its own
+    engine.cache = None
+    torch.cuda.empty_cache()
+    engine_q, launches_q, n_prompt_q, _, _ = asyncio.run(
+        serve_main_path(smi, "int8", params=engine.params))
+    main_err_q, timing_q = phase_timing(engine_q, n_prompt_q, max_tokens)
+    del engine_q
+    torch.cuda.empty_cache()
+    legacy = {model: phase_legacy_timing(model)
+              for model in ("llama3-8b", "llama3-1b")}
+    phase_parity(engine)
+    del engine
+    torch.cuda.empty_cache()
+    ab = {model: phase_ab(model) for model in ("llama3-8b", "llama3-1b")}
+
+    ragged = {"name": "ragged_decode_attention", "route": "cuda",
               "source": "dynamo_tpu_torch/csrc/ragged_decode_attention.cu",
               "replaces": "dynamo_tpu/ops/paged_attention.py:88",
-              "launches": launches, "max_abs_err": max(max_err, main_err),
-              **timing}
-    print(json.dumps({"kernels": [record]}), flush=True)
+              "launches": launches,
+              "max_abs_err": max(err_bf16, main_err), **timing,
+              "int8": {"launches": launches_q,
+                       "max_abs_err": max(err_int8, main_err_q),
+                       **timing_q}}
+    records = [ragged]
+    for model, row, line in (("llama3-8b", 2, 37), ("llama3-1b", 3, 116)):
+        err, tm = legacy[model]
+        records.append({
+            "name": f"legacy_decode_attention (hd "
+                    f"{ab[model][0]['head_dim']}, row {row})",
+            "route": "cuda",
+            "source": "dynamo_tpu_torch/csrc/legacy_decode_attention.cu",
+            "replaces": f"dynamo_tpu/ops/paged_attention_oracle.py:{line}",
+            "launches": ab[model][1]["legacy"],
+            "max_abs_err": max(err_legacy, err), **tm})
+    print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,13 @@
 """Model + engine configuration.
 
 Copied from dynamo_tpu/engine/config.py and trimmed to what the port's
-first slice serves: dense Llama-family models on one device. The model
+slices serve: dense Llama-family models on one device. The model
 registry keeps the dense Llama geometries; the engine knobs keep paging,
-batching, the decode window and mixed steps. The port always runs its
-decode through the hand-written kernel, so there is no `decode_kernel`
-knob; configs whose decode the kernel cannot serve (attention soft-caps,
-sliding windows, query-scale overrides) are rejected with
-NotImplementedError by `check_supported`.
+batching, the decode window, mixed steps and int8 KV pages (`kv_quant`).
+The port always runs its decode through the hand-written kernel, so there
+is no `decode_kernel` knob; configs whose decode the kernel cannot serve
+(attention soft-caps, sliding windows, query-scale overrides) are rejected
+with NotImplementedError by `check_supported`.
 """
 from __future__ import annotations
 
@@ -36,6 +36,10 @@ class ModelConfig:
     max_model_len: int = 2048
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
+    # KV-cache page quantization (ops/kv_quant.py): "" = pages in `dtype`,
+    # "int8" = int8 pages with one f32 scale per row. A non-empty
+    # EngineConfig.kv_quant overrides it at engine construction.
+    kv_quant: str = ""
 
     @property
     def q_per_kv(self) -> int:
@@ -82,6 +86,10 @@ class EngineConfig:
     # alternating scheduler only (mixed_token_budget=0): longest run of
     # prefill steps while decodes are active; 0 = unbounded
     max_prefill_streak: int = 2
+    # KV-cache page quantization, the deployment knob: "" keeps the model
+    # config's mode, "int8" stores int8 pages + per-row f32 scales (about
+    # half the bytes per page; ops/kv_quant.py)
+    kv_quant: str = ""
 
 
 # -- named architectures ------------------------------------------------------

@@ -12,10 +12,11 @@ The decode window is the JAX package's kernel-mode body
 (dynamo_tpu/engine/engine.py:2308-2321): the cache is read-only inside each
 step (the ragged kernel in prefix mode plus combine_self_attention), and
 each step's new kv rows are scattered into the cache in place
-(`_scatter_new_kv`) before the next step. Every position, prefix length,
-write slot and sampling counter of a window is known on the host when the
-window starts, so they are uploaded once and the loop never waits on the
-device. A slot that samples eos mid-window keeps writing inside its own
+(`_scatter_new_kv`; on an int8 cache the rows quantize there and their
+values and scales land together) before the next step. Every position,
+prefix length, write slot and sampling counter of a window is known on the
+host when the window starts, so they are uploaded once and the loop never
+waits on the device. A slot that samples eos mid-window keeps writing inside its own
 pages until the window ends (the JAX window drops those writes); nothing
 reads them, and its pages are freed at commit.
 
@@ -46,6 +47,10 @@ from dynamo_tpu_torch.engine.scheduler import (
 )
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.llama import AttnMetadata
+from dynamo_tpu_torch.ops.attention import write_slots
+from dynamo_tpu_torch.ops.kv_quant import (
+    is_quantized_cache, page_bytes, quantize_rows, validate_mode,
+)
 
 
 @dataclasses.dataclass
@@ -86,6 +91,12 @@ class NativeEngine:
     ):
         self.device = resolve_device(device)
         check_supported(model_cfg)
+        # KV-cache quantization is a deployment knob: a non-empty
+        # EngineConfig.kv_quant overrides the model config's
+        if engine_cfg.kv_quant:
+            model_cfg = dataclasses.replace(
+                model_cfg, kv_quant=validate_mode(engine_cfg.kv_quant))
+        self.kv_quant = validate_mode(model_cfg.kv_quant)
         self.model_cfg = model_cfg
         self.cfg = engine_cfg
         self.eos_token_ids = set(eos_token_ids or ())
@@ -188,6 +199,13 @@ class NativeEngine:
         m.decode_host_syncs = self.decode_host_syncs
         m.mixed_steps = self.mixed_steps
         m.decode_stall_steps = self.decode_stall_steps
+        # KV representation: bytes one page occupies on the device (k + v,
+        # plus scales when quantized) and the quantized bit width (0 = none)
+        mc = self.model_cfg
+        m.kv_page_bytes = page_bytes(
+            mc.num_layers, mc.num_kv_heads, self.cfg.page_size, mc.head_dim,
+            llama.torch_dtype(mc).itemsize, bool(self.kv_quant))
+        m.kv_quant_bits = 8 if self.kv_quant == "int8" else 0
         return m
 
     def logits_nonfinite_steps(self) -> int:
@@ -406,16 +424,20 @@ class NativeEngine:
 def _scatter_new_kv(cache, k_news, v_news, write_idx):
     """One in-place scatter of all layers' new kv rows (deferred write).
 
-    cache {k, v}: [L, Hkv, P, ps, hd]; k_news/v_news [L, S, Hkv, hd];
+    cache {k, v[, k_scale, v_scale]}: [L, Hkv, P, ps, hd] (+ [L, Hkv, P,
+    ps] scales); k_news/v_news [L, S, Hkv, hd] full-precision rows;
     write_idx [S] flat token slots (<0 = dropped: those rows land in the
-    cache's last page, the scratch page no page table references)."""
+    cache's last page, the scratch page no page table references). On an
+    int8 cache the rows quantize here and the int8 values and f32 scales
+    scatter together."""
     l, hkv, p, ps, hd = cache["k"].shape  # dynalint: kv-codec (shape only)
-    idx = write_idx.long()
-    scratch = (p - 1) * ps + torch.arange(idx.shape[0],
-                                          device=idx.device) % ps
-    idx = torch.where(idx >= 0, idx, scratch)
+    idx = write_slots(write_idx, p, ps)
     for key, new in (("k", k_news), ("v", v_news)):
         flat = cache[key].view(l, hkv, p * ps, hd)
+        if is_quantized_cache(cache):
+            new, scale = quantize_rows(new)   # [L,S,Hkv,hd] / [L,S,Hkv]
+            cache[f"{key}_scale"].view(l, hkv, p * ps).index_copy_(
+                2, idx, scale.permute(0, 2, 1))
         flat.index_copy_(2, idx, new.permute(0, 2, 1, 3).to(flat.dtype))
     return cache
 

@@ -128,6 +128,10 @@ class EngineMetrics:
     decode_host_syncs: int = 0
     mixed_steps: int = 0
     decode_stall_steps: int = 0
+    # KV representation (ops/kv_quant.py): bytes one page occupies on the
+    # device (k + v + scales) and the quantized bit width (0 = unquantized)
+    kv_page_bytes: int = 0
+    kv_quant_bits: int = 0
 
 
 def window_ladder(decode_steps: int) -> List[int]:

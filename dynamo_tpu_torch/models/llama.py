@@ -8,10 +8,13 @@ layer `lax.scan` becomes a Python loop over layer slices. Big products stay
 gate activation run in f32 as there.
 
 The KV cache is {"k", "v"}: [L, Hkv, P, ps, hd] and is updated IN PLACE
-(the JAX functions return updated copies). Its last page is a scratch page
-that no page table references: writes with index < 0 land there
-(ops/attention.write_kv_pages), so `init_cache` callers ask for one page
-more than the allocator hands out.
+(the JAX functions return updated copies). With `cfg.kv_quant == "int8"`
+it is {"k", "v", "k_scale", "v_scale"}: int8 values and one f32 scale per
+row, [L, Hkv, P, ps] (ops/kv_quant.py); rows quantize as they are written
+and the attention paths read the int8 pages with their scales. Its last
+page is a scratch page that no page table references: writes with index
+< 0 land there (ops/attention.write_kv_pages{,_quant}), so `init_cache`
+callers ask for one page more than the allocator hands out.
 
 Decode attention always goes through the ragged decode kernel
 (ops/paged_attention.py): `decode_forward` in prefix mode plus
@@ -28,7 +31,10 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.config import ModelConfig, check_supported
-from dynamo_tpu_torch.ops.attention import paged_attention, write_kv_pages
+from dynamo_tpu_torch.ops.attention import (
+    paged_attention, write_kv_pages, write_kv_pages_quant,
+)
+from dynamo_tpu_torch.ops.kv_quant import is_quantized_cache, validate_mode
 from dynamo_tpu_torch.ops.paged_attention import (
     combine_self_attention, decode_paged_attention,
     decode_paged_attention_prefix,
@@ -133,11 +139,18 @@ def params_from_jax(tree: Params, cfg: ModelConfig, device="cpu") -> Params:
 
 def init_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                device="cuda") -> Dict[str, torch.Tensor]:
-    """Zeroed {"k", "v"} caches [L, Hkv, num_pages, ps, hd]. The last page
-    is the scratch page for dropped writes: callers hand out at most
-    num_pages - 1 pages."""
+    """Zeroed {"k", "v"} caches [L, Hkv, num_pages, ps, hd], in the model
+    dtype, or int8 with zeroed f32 {"k_scale", "v_scale"} [L, Hkv,
+    num_pages, ps] when cfg.kv_quant == "int8". The last page is the
+    scratch page for dropped writes: callers hand out at most num_pages - 1
+    pages."""
     shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, page_size,
              cfg.head_dim)
+    if validate_mode(cfg.kv_quant):
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
     dt = torch_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
@@ -223,14 +236,17 @@ def decode_forward(
     # only sampled ids  # dynalint: disable-next-line=R1
     x = params["embed"][tokens.long()][:, None]          # [B, 1, D]
     pos = positions[:, None]
+    # int8 caches hand the kernel the whole scale stacks; it folds them
+    # into its scores and probabilities
+    ks, vs = cache.get("k_scale"), cache.get("v_scale")
     k_news, v_news = [], []
     for l in range(cfg.num_layers):
         q, k, v = _qkv(x, lp, l, cfg, pos)
         k_new, v_new = k[:, 0], v[:, 0]                  # [B, Hkv, hd]
-        # dynalint: kv-codec — the port's pages hold model-dtype values
+        # dynalint: kv-codec — the kernel reads int8 pages with their scales
         acc, m, lsum = decode_paged_attention_prefix(
             q[:, 0].contiguous(), cache["k"], cache["v"], l, page_table,
-            prefix_lens)
+            prefix_lens, ks, vs)
         attn = combine_self_attention(q[:, 0], k_new, v_new, acc, m, lsum)
         x = _block_tail(x, attn[:, None], lp, l, cfg)
         k_news.append(k_new)
@@ -243,7 +259,7 @@ def forward(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,            # [B, Tq] int
-    cache: Dict[str, torch.Tensor],  # {"k","v"}: [L, Hkv, P, ps, hd]
+    cache: Dict[str, torch.Tensor],  # {"k","v"[,"k_scale","v_scale"]}
     meta: AttnMetadata,
     last_idx: Optional[torch.Tensor] = None,  # [B]: logits of one column
 ) -> tuple:
@@ -256,18 +272,27 @@ def forward(
     lp = params["layers"]
     # admission validated the ids  # dynalint: disable-next-line=R1
     x = params["embed"][tokens.long()]                   # [B, Tq, D]
+    quant = is_quantized_cache(cache)
     for l in range(cfg.num_layers):
         q, k, v = _qkv(x, lp, l, cfg, meta.positions)
-        # dynalint: kv-codec — the port's pages hold model-dtype values
+        # dynalint: kv-codec — per-layer views; the write and attention
+        # helpers below quantize / dequantize when scales ride along
         kc, vc = cache["k"][l], cache["v"][l]
-        write_kv_pages(kc, vc, k, v, meta.write_idx)
+        if quant:
+            # capture-time quantization: each row against its own max
+            # dynalint: kv-codec — the scale rows of this layer's pages
+            ksc, vsc = cache["k_scale"][l], cache["v_scale"][l]
+            write_kv_pages_quant(kc, vc, ksc, vsc, k, v, meta.write_idx)
+        else:
+            ksc = vsc = None
+            write_kv_pages(kc, vc, k, v, meta.write_idx)
         if tq == 1:
             attn = decode_paged_attention(
                 q[:, 0].contiguous(), kc, vc, meta.page_table,
-                meta.kv_lens)[:, None]
+                meta.kv_lens, ksc, vsc)[:, None]
         else:
             attn = paged_attention(q, kc, vc, meta.page_table, meta.kv_lens,
-                                   meta.positions)
+                                   meta.positions, ksc, vsc)
         x = _block_tail(x, attn, lp, l, cfg)
     if last_idx is not None:
         x = x[torch.arange(b, device=x.device), last_idx.long()][:, None]

@@ -20,6 +20,12 @@ Layout contract, as in the JAX package: caches are [L, Hkv, P, ps, hd], so
 one (layer, head, page) slice is a contiguous [ps, hd] block. The layer is a
 Python int (the port's layer loop is a Python loop), so no per-layer slice
 is ever copied.
+
+int8 caches (kv_quant="int8", ops/kv_quant.py) come with per-row f32 scales
+k_scale / v_scale, [L, Hkv, P, ps] for the whole stack ([Hkv, P, ps] for the
+inclusive per-layer view). The scales fold into the scores (score * s_k,
+before the mask) and the probabilities (p * s_v, inside the accumulator
+product), as in the TPU kernel; l sums the bare probabilities.
 """
 from __future__ import annotations
 
@@ -34,19 +40,23 @@ NEG_INF = -1e30
 # chip_smoke.py reads it to prove the main path went through the kernel
 KERNEL_LAUNCHES = 0
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 _G_MAX = 8
 
 
-def _ragged_plain(q, k_cache, v_cache, layer: int, page_table, lens):
+def _ragged_plain(q, k_cache, v_cache, layer: int, page_table, lens,
+                  k_scale=None, v_scale=None):
     """The plain PyTorch version of the kernel: same outputs, computed by a
     page gather and a masked flash state in f32.
 
     Mirrors the TPU kernel's semantics exactly: it walks
     max(ceil(lens/ps), 1) whole pages per row, tokens past lens[s] have K
-    and V SELECTED to zero (recycled page tails may hold NaN) and scores
-    -1e30, so an empty row ends with m = -1e30, l = ps and acc = 0."""
+    and V (and, for an int8 cache, their scales) SELECTED to zero (recycled
+    page tails may hold NaN) and scores -1e30, so an empty row ends with
+    m = -1e30, l = ps and acc = 0. An int8 cache folds its scales into the
+    scores (before the mask) and the probabilities of the accumulator
+    product."""
     s, h, hd = q.shape
     _, hkv, _, ps, _ = k_cache.shape
     g = h // hkv
@@ -62,22 +72,60 @@ def _ragged_plain(q, k_cache, v_cache, layer: int, page_table, lens):
     n_pages = torch.clamp((lens + ps - 1) // ps, min=1)
     walked = pos[None, :] < (n_pages * ps)[:, None]    # pages the kernel reads
     vmask = valid[:, None, :, None]
-    k = torch.where(vmask, k, torch.zeros((), dtype=k.dtype, device=k.device))
-    v = torch.where(vmask, v, torch.zeros((), dtype=v.dtype, device=v.device))
+    zero = torch.zeros((), device=q.device)
+    k = torch.where(vmask, k, zero)
+    v = torch.where(vmask, v, zero)
     qf = q.float().reshape(s, hkv, g, hd) * (hd ** -0.5)
     sc = torch.einsum("skgd,sktd->skgt", qf, k)
+    if k_scale is not None:
+        def gathered(scale):                           # [S, Hkv, 1, T]
+            sg = scale[layer].index_select(1, ids).reshape(hkv, s, pb * ps)
+            return torch.where(valid[:, None, :], sg.permute(1, 0, 2),
+                               zero)[:, :, None, :]
+        sk, sv = gathered(k_scale), gathered(v_scale)
+        sc = sc * sk                                   # K dequant fold
     sc = torch.where(valid[:, None, None, :], sc,
                      torch.full((), NEG_INF, device=q.device))
     m = torch.where(walked[:, None, None, :], sc,
                     torch.full((), float("-inf"), device=q.device)).amax(-1)
     p = torch.where(walked[:, None, None, :], torch.exp(sc - m[..., None]),
-                    torch.zeros((), device=q.device))
+                    zero)
     l = p.sum(-1)
-    acc = torch.einsum("skgt,sktd->skgd", p, v)
+    pv = p * sv if k_scale is not None else p          # V dequant fold
+    acc = torch.einsum("skgt,sktd->skgd", pv, v)
     return (acc.reshape(s, h, hd), m.reshape(s, h, 1), l.reshape(s, h, 1))
 
 
-def _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens):
+def _check_scales(k_cache, v_cache, k_scale, v_scale):
+    """Caches and scales a CUDA kernel takes: model-dtype caches without
+    scales, or int8 caches with contiguous f32 scales of their shape minus
+    hd, on the caches' device."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    quant = k_cache.dtype == torch.int8 or v_cache.dtype == torch.int8
+    if k_scale is None:
+        if quant:
+            raise TypeError("an int8 cache needs its k_scale/v_scale")
+        return
+    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+        raise TypeError(f"scales go with int8 caches, got "
+                        f"{k_cache.dtype}/{v_cache.dtype}")
+    want = tuple(k_cache.shape[:-1])
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != cache "
+                             f"shape minus hd {want}")
+        if t.device != k_cache.device:
+            raise ValueError(f"{name} is on {t.device}, the cache on "
+                             f"{k_cache.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens,
+                       k_scale=None, v_scale=None):
     dev = q.device
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
                     ("page_table", page_table), ("lens", lens)):
@@ -87,11 +135,13 @@ def _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens):
             raise ValueError(f"{name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"kernel takes float32/bfloat16, got {q.dtype}")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel takes float32/bfloat16 q, got {q.dtype}")
+    if k_scale is None and v_scale is None and (
+            k_cache.dtype != q.dtype or v_cache.dtype != q.dtype):
         raise TypeError(f"cache dtype {k_cache.dtype}/{v_cache.dtype} != "
                         f"q dtype {q.dtype}")
+    _check_scales(k_cache, v_cache, k_scale, v_scale)
     if page_table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("page_table and lens must be int32")
     s, h, hd = q.shape
@@ -119,15 +169,24 @@ def _kernel_fn():
     from dynamo_tpu_torch.ops import build
     fn = build.load("ragged_decode_attention").ragged_decode_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     return fn
 
 
-def _ragged_kernel(q, k_cache, v_cache, layer: int, page_table, lens):
+def _ptr(t):
+    """A tensor's device address for ctypes; None (a null pointer) for an
+    absent optional tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def _ragged_kernel(q, k_cache, v_cache, layer: int, page_table, lens,
+                   k_scale=None, v_scale=None):
     """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
     global KERNEL_LAUNCHES
-    _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens)
+    _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens,
+                       k_scale, v_scale)
     fn = _kernel_fn()
     s, h, hd = q.shape
     _, hkv, p, ps, _ = k_cache.shape
@@ -136,10 +195,10 @@ def _ragged_kernel(q, k_cache, v_cache, layer: int, page_table, lens):
     l = torch.empty((s, h, 1), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             page_table.data_ptr(), lens.data_ptr(), acc.data_ptr(),
-             m.data_ptr(), l.data_ptr(), s, h, hkv, p, ps, hd,
-             page_table.shape[1], layer, hd ** -0.5, _DTYPE_CODE[q.dtype],
-             stream)
+             _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
+             lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), s,
+             h, hkv, p, ps, hd, page_table.shape[1], layer, hd ** -0.5,
+             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ragged_decode_attention launch failed: CUDA "
                            f"error {err}")
@@ -154,6 +213,8 @@ def ragged_decode_attention(
     layer: int,                # which layer's pages to read
     page_table: torch.Tensor,  # [S, Pb] int32
     lens: torch.Tensor,        # [S] int32 — valid tokens in row s's pages
+    k_scale: torch.Tensor = None,  # [L, Hkv, P, ps] f32 (int8 cache)
+    v_scale: torch.Tensor = None,
 ):
     """THE dispatcher: the CUDA kernel for CUDA tensors, its plain version
     for CPU tensors. Returns the unnormalised flash state (acc [S,H,hd] f32,
@@ -161,21 +222,24 @@ def ragged_decode_attention(
     pages."""
     if q.is_cuda:
         return _ragged_kernel(q, k_cache, v_cache, int(layer), page_table,
-                              lens)
-    if k_cache.is_cuda or page_table.is_cuda or lens.is_cuda:
+                              lens, k_scale, v_scale)
+    if any(t is not None and t.is_cuda for t in
+           (k_cache, v_cache, page_table, lens, k_scale, v_scale)):
         raise ValueError("q is on the CPU but the cache or tables are on "
                          "CUDA")
-    return _ragged_plain(q, k_cache, v_cache, int(layer), page_table, lens)
+    return _ragged_plain(q, k_cache, v_cache, int(layer), page_table, lens,
+                         k_scale, v_scale)
 
 
 def decode_paged_attention_prefix(q, k_cache, v_cache, layer: int,
-                                  page_table, prefix_lens):
+                                  page_table, prefix_lens, k_scale=None,
+                                  v_scale=None):
     """Prefix-mode view of the ragged kernel: lens counts valid kv BEFORE
     the current token, so the engine can defer all cache writes to one
     scatter per step. Returns the unnormalised state (acc, m, l); fold the
     current token via combine_self_attention."""
     return ragged_decode_attention(q, k_cache, v_cache, layer, page_table,
-                                   prefix_lens)
+                                   prefix_lens, k_scale, v_scale)
 
 
 def combine_self_attention(q, k_new, v_new, acc, m, l):
@@ -197,13 +261,16 @@ def combine_self_attention(q, k_new, v_new, acc, m, l):
     return out.to(q.dtype)
 
 
-def decode_paged_attention(q, k_cache, v_cache, page_table, kv_lens):
+def decode_paged_attention(q, k_cache, v_cache, page_table, kv_lens,
+                           k_scale=None, v_scale=None):
     """Inclusive-mode view of the ragged kernel: [S, H, hd] attention of
     each decode token over its pages, kv_lens INCLUDING the current token.
-    The per-layer [Hkv, P, ps, hd] cache rides as a `cache[None]` view with
-    layer 0; padding rows (kv_len 0) are clamped to 1 so 1/l stays finite
-    (their output is ignored)."""
+    The per-layer [Hkv, P, ps, hd] cache (and [Hkv, P, ps] scales) ride as
+    `[None]` views with layer 0; padding rows (kv_len 0) are clamped to 1
+    so 1/l stays finite (their output is ignored)."""
     kv_lens = torch.clamp(kv_lens, min=1).to(torch.int32)
-    acc, _, l = ragged_decode_attention(q, k_cache[None], v_cache[None], 0,
-                                        page_table, kv_lens)
+    acc, _, l = ragged_decode_attention(
+        q, k_cache[None], v_cache[None], 0, page_table, kv_lens,
+        None if k_scale is None else k_scale[None],
+        None if v_scale is None else v_scale[None])
     return (acc / l).to(q.dtype)

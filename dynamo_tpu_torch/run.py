@@ -14,7 +14,8 @@ Outputs (engines):
   out=echo           deterministic token-echo engine (no hardware)
 
 Model: a registry name ("tiny", "llama3-1b", "llama3-8b", "llama3-70b").
-The engine runs on CUDA unless `--device cpu` is given. The OpenAI HTTP
+The engine runs on CUDA unless `--device cpu` is given; `--kv-quant int8`
+stores the KV cache as int8 pages with per-row scales. The OpenAI HTTP
 frontend (in=http) and control-plane endpoints (in=endpoint) come with a
 later slice.
 """
@@ -53,7 +54,8 @@ async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
     eng_cfg = EngineConfig(
         page_size=card.kv_page_size, num_pages=args.num_pages,
         max_slots=args.max_slots, max_prefill_chunk=args.max_prefill_chunk,
-        max_model_len=min(card.context_length, model_cfg.max_model_len))
+        max_model_len=min(card.context_length, model_cfg.max_model_len),
+        kv_quant=args.kv_quant)
     engine = NativeEngine(model_cfg, eng_cfg,
                           eos_token_ids=set(card.eos_token_ids),
                           device=args.device)
@@ -123,6 +125,11 @@ async def amain(argv=None) -> None:
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--max-slots", type=int, default=8)
     p.add_argument("--max-prefill-chunk", type=int, default=512)
+    p.add_argument("--kv-quant", default="", choices=("", "int8"),
+                   help="KV-cache page quantization: int8 pages + per-row "
+                        "f32 scales, about half the bytes per page "
+                        "(ops/kv_quant.py; parity-gated by "
+                        "dynamo_tpu_torch/bench.py)")
     p.add_argument("--echo-delay", type=float, default=0.0)
     p.add_argument("-v", "--verbose", action="store_true")
     args = p.parse_args(argv)

@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch/H100 port spends its time.
 
-    python3 tools/torch_decode_profile.py [--windows 2]
+    python3 tools/torch_decode_profile.py [--windows 2] [--kv-quant int8]
 
 Builds the port's llama3-8b NativeEngine on one card (random bf16 weights,
-default EngineConfig) and admits chip_smoke.py's 8 chat requests (its
-`chat_requests`, through the chat template). It calls `engine.step()`
-until a step is a pure decode window with nothing left waiting, so all 8
-requests are in decode slots; then it times `--windows` more steps with the
-host clock (each ending in a synchronize) and traces one more with
-torch.profiler. Prints the window's wall time per decode step, the
-device-busy share (sum of kernel time over wall time), and the kernels that
+default EngineConfig; `--kv-quant int8` for int8 KV pages) and admits
+chip_smoke.py's 8 chat requests (its `chat_requests`, through the chat
+template). It calls `engine.step()` until a step is a pure decode window
+with nothing left waiting, so all 8 requests are in decode slots; then it
+times `--windows` more steps with the host clock (each ending in a
+synchronize) and traces one more with torch.profiler. Prints the window's
+wall time per decode step, the device-busy share (sum of kernel time over wall time), and the kernels that
 take the most device time. Imports only the port (dynamo_tpu_torch), torch
 and chip_smoke.py.
 """
@@ -37,13 +37,15 @@ def main() -> int:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--windows", type=int, default=2)
+    p.add_argument("--kv-quant", default="", choices=("", "int8"))
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("torch_decode_profile: needs a CUDA card", file=sys.stderr)
         return 2
     smi = nvidia_smi()
     card = build_card("llama3-8b")
-    engine = NativeEngine(card.model_config(), EngineConfig(),
+    engine = NativeEngine(card.model_config(),
+                          EngineConfig(kv_quant=args.kv_quant),
                           eos_token_ids=set(card.eos_token_ids), seed=0,
                           device="cuda")
     pre = OpenAIPreprocessor(card)
