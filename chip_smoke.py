@@ -9,17 +9,22 @@ Phases (any failed check exits non-zero; nothing is caught):
    every CUDA kernel in dynamo_tpu_torch/csrc/ with nvcc for sm_90a, one
    nvcc per source, all started together.
 2. Kernels vs plain versions, on the same inputs:
-   a. the ragged decode attention kernel against its plain PyTorch version,
-      in prefix and inclusive modes, at head dims 64 and 128, f32 and bf16
-      caches, 8 and 32 rows at the llama3-8b head geometry (32 q heads, 8
-      kv heads), ragged lengths including 0, 1, ps, ps+1 and a full table,
-      recycled page tails filled with NaN. Both compute in f32, so only
-      summation order differs: rtol = atol = 1e-4 for f32 caches and 2e-3
-      for bf16 caches;
-   b. its int8 mode (int8 pages + per-row f32 scales) the same way, with an
-      f32 q (rtol = atol = 1e-4) and a bf16 q (2e-3, the bf16 outputs of
-      combine_self_attention round to bf16), tails holding garbage int8
-      values and NaN / inf scales;
+   a. the ragged decode attention kernel (split-KV blocks + merge, one
+      call) against its plain PyTorch version, in prefix and inclusive
+      modes, f32 and bf16 caches: 8 and 32 rows at the llama3-8b head
+      geometry (32 q heads, 8 kv heads) at hd 64 and 128 with ragged lengths
+      including 0, 1, ps, ps+1 and a full table; then at hd 128 lens on and
+      around the split boundaries the host picks at Pb 12, one row of 1000
+      and one of Pb * ps = 4096 tokens, 8 rows up to max_model_len (2048)
+      at Pb 32, GQA groups of 1, 4 and 8, and an all-empty batch (m = -1e30
+      and l = ps exactly on every empty row); recycled page tails filled
+      with NaN. Both compute the f32 state, so only summation order
+      differs: rtol = atol = 1e-4 for f32 caches and 2e-3 for bf16 caches.
+      The prefix fold and the inclusive division are compared in f32, before
+      the one cast to q's dtype that both sides share (fold_f32);
+   b. its int8 mode (int8 pages + per-row f32 scales) on the same cases,
+      with an f32 q (rtol = atol = 1e-4) and a bf16 q (2e-3), tails holding
+      garbage int8 values and NaN / inf scales;
    c. the legacy decode kernel against its plain version at hd 32/64/128 x
       f32/bf16/int8 caches (the parity geometry of tests/test_ragged_kernel
       with 32 q / 8 kv heads, ps 8, NaN-poisoned tails; normalised outputs
@@ -50,7 +55,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    eager per-call time is printed beside), its plain version, the library
    yardstick for the same function (page gather, dequantised for int8, +
    scaled_dot_product_attention) and the bound (valid K/V bytes, plus
-   scales for int8, over 3.35 TB/s). The legacy kernel is timed the same
+   scales for int8, over 3.35 TB/s). Then the same at the full context
+   (8 rows of 1536-2048 tokens, Pb 32; kernel vs plain on layer 0, the
+   kernel's share of its bound). The legacy kernel is timed the same
    way at the decode A/B's shapes, hd 128 (llama3-8b heads) and hd 64
    (llama3-1b heads).
 7. The int8 parity gate: dynamo_tpu_torch/bench.run_kv_quant_parity at
@@ -125,12 +132,48 @@ def cuda_ms(fn, n: int, warmup: int = 3, graph: bool = False) -> float:
 
 # -- phase 2: kernel vs plain ---------------------------------------------------
 
-def kernel_case(hd: int, dtype, s: int, seed: int):
-    """Random cache + disjoint per-row page tables + ragged lens, with every
-    token slot at or past a row's length filled with NaN."""
+PS = 64  # the kernel cases' page size, the engine's default
+
+
+def ragged_cases() -> list:
+    """The ragged kernel's phase-2 cases: (label, hd, S, H, Hkv, Pb, lens or
+    None for ragged lens 0, 1, ps, ps + 1, the full table, then random).
+    First 8 and 32 rows at the llama3-8b head geometry and hd 64 / 128;
+    then, at hd 128, the split-KV schedule's edges: lens on and around the
+    split boundaries the host picks at the main path's Pb 12, one row (the
+    case split-KV exists for) of 1000 tokens and of the full Pb * ps =
+    4096, 8 rows up to the engine's max_model_len of 2048 at its Pb bucket
+    of 32, GQA groups of 1, 4 and 8, and an all-empty batch."""
+    import torch
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    cases = [(f"S={s}", hd, s, 32, 8, 8, None)
+             for hd in (64, 128) for s in (8, 32)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b = pa._pages_per_split(8, 8, 12, sms) * PS   # tokens per split
+    cases += [
+        (f"S=8 split boundaries ({b} tokens a split)", 128, 8, 32, 8, 12,
+         [b - 1, b, b + 1, 2 * b, 2 * b + 1, 3 * b - 1, 12 * PS,
+          12 * PS - 1]),
+        ("S=1 1000 tokens", 128, 1, 32, 8, 64, [1000]),
+        ("S=1 4096 tokens", 128, 1, 32, 8, 64, [64 * PS]),
+        ("S=8 max_model_len", 128, 8, 32, 8, 32,
+         [2048, 1536, 1600, 1700, 1800, 1900, 2000, 2047]),
+        ("GQA 1", 128, 4, 8, 8, 8, None),
+        ("GQA 4", 128, 4, 32, 8, 8, None),
+        ("GQA 8", 128, 4, 64, 8, 8, None),
+        ("all empty", 128, 8, 32, 8, 12, [0] * 8),
+    ]
+    return cases
+
+
+def kernel_case(hd: int, dtype, s: int, seed: int, h: int = 32,
+                hkv: int = 8, pb: int = 8, lens=None):
+    """Random cache + disjoint per-row page tables + ragged lens (or the
+    given ones), with every token slot at or past a row's length filled
+    with NaN."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    h, hkv, ps, pb, nl = 32, 8, 64, 8, 2
+    ps, nl = PS, 2
     p = s * pb + 1
     k = torch.randn((nl, hkv, p, ps, hd), generator=g, device="cuda")
     v = torch.randn((nl, hkv, p, ps, hd), generator=g, device="cuda")
@@ -139,8 +182,10 @@ def kernel_case(hd: int, dtype, s: int, seed: int):
     pt = pt.reshape(s, pb)
     special = [0, 1, ps, ps + 1, pb * ps]
     rand = torch.randint(0, pb * ps + 1, (s,), generator=g, device="cuda")
-    lens = torch.tensor([special[i] if i < len(special) else int(rand[i])
-                         for i in range(s)], dtype=torch.int32, device="cuda")
+    if lens is None:
+        lens = [special[i] if i < len(special) else int(rand[i])
+                for i in range(s)]
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     pos = torch.arange(pb * ps, device="cuda")
     tail = pos[None, :] >= lens[:, None]                       # [S, Pb*ps]
     slots = (pt.long()[:, pos // ps] * ps + pos % ps)[tail]
@@ -152,57 +197,74 @@ def kernel_case(hd: int, dtype, s: int, seed: int):
     return (*cast, pt, lens)
 
 
+def fold_f32(pa, q, k_new, v_new, got, want):
+    """The prefix rows' self-term fold (combine_self_attention) of the
+    kernel's state and of the plain version's, both in f32: with a bf16 q
+    the fold ends in one cast to bf16, shared code, and two f32 values a
+    hair apart round a whole bf16 step (2**-8 relative) apart where they
+    straddle a rounding midpoint, more than rtol = atol = 2e-3 allows below
+    |x| = 0.95. So the states are held to the tolerance before that cast."""
+    f32 = [t.float() for t in (q, k_new, v_new)]
+    return (pa.combine_self_attention(*f32, *got),
+            pa.combine_self_attention(*f32, *want))
+
+
+def inclusive_f32(pa, q, k, v, pt, lens, ks=None, vs=None):
+    """The inclusive view (lens include the current token) of a per-layer
+    cache: the kernel's acc / l and the plain version's, in f32 (see
+    fold_f32). The public wrapper's output must be exactly the kernel's
+    acc / l cast to q's dtype."""
+    import torch
+    sc = () if ks is None else (ks[None], vs[None])
+    lens1 = torch.clamp(lens, min=1)
+    acc, _, l = pa.ragged_decode_attention(q, k[None], v[None], 0, pt, lens1,
+                                           *sc)
+    inc = pa.decode_paged_attention(q, k, v, pt, lens, ks, vs)
+    check(torch.allclose(inc, (acc / l).to(q.dtype), rtol=0, atol=0,
+                         equal_nan=True),  # padding rows may read NaN
+          "decode_paged_attention is not the kernel's acc / l")
+    pacc, _, pl_ = pa._ragged_plain(q, k[None], v[None], 0, pt, lens1, *sc)
+    return acc / l, pacc / pl_
+
+
 def phase_kernel() -> float:
     import torch
     from dynamo_tpu_torch.ops import paged_attention as pa
     worst = 0.0
-    for hd in (64, 128):
+    for ci, (name, hd, s, h, hkv, pb, lens_) in enumerate(ragged_cases()):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-3)):
-            for s in (8, 32):
-                q, k, v, k_new, v_new, pt, lens = kernel_case(
-                    hd, dtype, s, seed=hd + s)
-                layer = 1
-                ok = lens > 0
-                ps = k.shape[3]
-                # prefix mode: the kernel's flash state + the self-term
-                acc, m, l = pa.decode_paged_attention_prefix(
-                    q, k, v, layer, pt, lens)
-                pacc, pm, pl_ = pa._ragged_plain(q, k, v, layer, pt, lens)
-                out = pa.combine_self_attention(q, k_new, v_new, acc, m, l)
-                pout = pa.combine_self_attention(q, k_new, v_new, pacc, pm,
-                                                 pl_)
-                # inclusive mode: lens include the current token
-                inc = pa.decode_paged_attention(q, k[layer], v[layer], pt,
-                                                lens)
-                a2, _, l2 = pa._ragged_plain(
-                    q, k[layer][None], v[layer][None], 0, pt,
-                    torch.clamp(lens, min=1))
-                pinc = (a2 / l2).to(q.dtype)
-                torch.cuda.synchronize()
-                # all rows of the flash state (an empty row walks one masked
-                # page: m = -1e30, l = ps); inclusive rows with lens >= 1
-                pairs = [("acc", acc, pacc), ("m", m, pm), ("l", l, pl_),
-                         ("prefix+self", out.float(), pout.float()),
-                         ("inclusive", inc[ok].float(), pinc[ok].float())]
-                check(bool((m[~ok] == -1e30).all())
-                      and bool((l[~ok] == ps).all()),
-                      f"hd={hd} {dtype} S={s}: empty rows must keep "
-                      f"m = -1e30 and l = {ps}")
-                errs = []
-                for name, a, b in pairs:
-                    check(bool(torch.isfinite(a).all()),
-                          f"hd={hd} {dtype} S={s}: non-finite {name}")
-                    err = float((a - b).abs().max())
-                    close = torch.allclose(a, b, rtol=tol, atol=tol)
-                    check(close, f"hd={hd} {dtype} S={s}: {name} differs "
-                          f"from the plain version by {err}")
-                    errs.append(err)
-                worst = max(worst, max(errs))
-                print(f"kernel hd={hd} {str(dtype)[6:]} S={s} "
-                      f"lens={lens.tolist()[:6]}... max_abs_err "
-                      f"acc/m/l/prefix/inclusive = "
-                      f"{' '.join(f'{e:.3g}' for e in errs)} (tol {tol})",
-                      flush=True)
+            q, k, v, k_new, v_new, pt, lens = kernel_case(
+                hd, dtype, s, seed=hd + s + 1000 * ci, h=h, hkv=hkv,
+                pb=pb, lens=lens_)
+            layer = 1
+            ok = lens > 0
+            ps = k.shape[3]
+            # prefix mode: the kernel's flash state + the self-term
+            acc, m, l = pa.decode_paged_attention_prefix(
+                q, k, v, layer, pt, lens)
+            pacc, pm, pl_ = pa._ragged_plain(q, k, v, layer, pt, lens)
+            out, pout = fold_f32(pa, q, k_new, v_new, (acc, m, l),
+                                 (pacc, pm, pl_))
+            # inclusive mode: lens include the current token
+            inc, pinc = inclusive_f32(pa, q, k[layer], v[layer], pt, lens)
+            torch.cuda.synchronize()
+            # all rows of the flash state (an empty row walks one masked
+            # page: m = -1e30, l = ps); inclusive rows with lens >= 1
+            label = f"kernel hd={hd} {str(dtype)[6:]} {name}"
+            check(bool((m[~ok] == -1e30).all())
+                  and bool((l[~ok] == ps).all()),
+                  f"{label}: empty rows must keep m = -1e30 and l = {ps}")
+            pairs = [("acc", acc, pacc), ("m", m, pm), ("l", l, pl_),
+                     ("prefix+self", out, pout)]
+            if bool(ok.any()):
+                pairs.append(("inclusive", inc[ok], pinc[ok]))
+            errs = compare(label, pairs, tol)
+            worst = max(worst, max(errs))
+            print(f"{label} (H={h}, Hkv={hkv}, Pb={pb}) "
+                  f"lens={lens.tolist()[:8]}... max_abs_err "
+                  f"acc/m/l/prefix/inclusive = "
+                  f"{' '.join(f'{e:.3g}' for e in errs)} (tol {tol})",
+                  flush=True)
     return worst
 
 
@@ -248,44 +310,40 @@ def phase_kernel_int8() -> float:
     import torch
     from dynamo_tpu_torch.ops import paged_attention as pa
     worst = 0.0
-    for hd in (64, 128):
+    for ci, (name, hd, s, h, hkv, pb, lens_) in enumerate(ragged_cases()):
         for qdt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-3)):
-            for s in (8, 32):
-                q, k, v, k_new, v_new, pt, lens = kernel_case(
-                    hd, torch.float32, s, seed=3 * hd + s)
-                # kernel_case NaN-poisons the tails; quantize clean values
-                k, v = torch.nan_to_num(k), torch.nan_to_num(v)
-                kq, vq, ks, vs = quantize_case(k, v, pt, lens, seed=s)
-                q, k_new, v_new = (t.to(qdt) for t in (q, k_new, v_new))
-                layer, ps, ok = 1, k.shape[3], lens > 0
-                acc, m, l = pa.decode_paged_attention_prefix(
-                    q, kq, vq, layer, pt, lens, ks, vs)
-                pacc, pm, pl_ = pa._ragged_plain(q, kq, vq, layer, pt, lens,
-                                                 ks, vs)
-                out = pa.combine_self_attention(q, k_new, v_new, acc, m, l)
-                pout = pa.combine_self_attention(q, k_new, v_new, pacc, pm,
-                                                 pl_)
-                inc = pa.decode_paged_attention(q, kq[layer], vq[layer], pt,
-                                                lens, ks[layer], vs[layer])
-                a2, _, l2 = pa._ragged_plain(
-                    q, kq[layer][None], vq[layer][None], 0, pt,
-                    torch.clamp(lens, min=1), ks[layer][None],
-                    vs[layer][None])
-                pinc = (a2 / l2).to(q.dtype)
-                torch.cuda.synchronize()
-                label = f"int8 kernel hd={hd} q {str(qdt)[6:]} S={s}"
-                check(bool((m[~ok] == -1e30).all())
-                      and bool((l[~ok] == ps).all()),
-                      f"{label}: empty rows must keep m = -1e30 and l = {ps}")
-                errs = compare(label, [
-                    ("acc", acc, pacc), ("m", m, pm), ("l", l, pl_),
-                    ("prefix+self", out, pout),
-                    ("inclusive", inc[ok], pinc[ok])], tol)
-                worst = max(worst, max(errs))
-                print(f"{label} lens={lens.tolist()[:6]}... max_abs_err "
-                      f"acc/m/l/prefix/inclusive = "
-                      f"{' '.join(f'{e:.3g}' for e in errs)} (tol {tol})",
-                      flush=True)
+            q, k, v, k_new, v_new, pt, lens = kernel_case(
+                hd, torch.float32, s, seed=3 * hd + s + 1000 * ci, h=h,
+                hkv=hkv, pb=pb, lens=lens_)
+            # kernel_case NaN-poisons the tails; quantize clean values
+            k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+            kq, vq, ks, vs = quantize_case(k, v, pt, lens, seed=s)
+            q, k_new, v_new = (t.to(qdt) for t in (q, k_new, v_new))
+            layer, ps, ok = 1, k.shape[3], lens > 0
+            acc, m, l = pa.decode_paged_attention_prefix(
+                q, kq, vq, layer, pt, lens, ks, vs)
+            pacc, pm, pl_ = pa._ragged_plain(q, kq, vq, layer, pt, lens,
+                                             ks, vs)
+            out, pout = fold_f32(pa, q, k_new, v_new, (acc, m, l),
+                                 (pacc, pm, pl_))
+            inc, pinc = inclusive_f32(pa, q, kq[layer], vq[layer], pt, lens,
+                                      ks[layer], vs[layer])
+            torch.cuda.synchronize()
+            label = f"int8 kernel hd={hd} q {str(qdt)[6:]} {name}"
+            check(bool((m[~ok] == -1e30).all())
+                  and bool((l[~ok] == ps).all()),
+                  f"{label}: empty rows must keep m = -1e30 and l = {ps}")
+            pairs = [("acc", acc, pacc), ("m", m, pm), ("l", l, pl_),
+                     ("prefix+self", out, pout)]
+            if bool(ok.any()):
+                pairs.append(("inclusive", inc[ok], pinc[ok]))
+            errs = compare(label, pairs, tol)
+            worst = max(worst, max(errs))
+            print(f"{label} (H={h}, Hkv={hkv}, Pb={pb}) "
+                  f"lens={lens.tolist()[:8]}... max_abs_err "
+                  f"acc/m/l/prefix/inclusive = "
+                  f"{' '.join(f'{e:.3g}' for e in errs)} (tol {tol})",
+                  flush=True)
     return worst
 
 
@@ -671,8 +729,59 @@ def phase_timing(engine, n_prompt, max_tokens):
           f"eager call), plain {plain_ms:.4f} ms, "
           f"gather{'+dequant' if quant else ''}+sdpa {library_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({nbytes} bytes)", flush=True)
-    return max(errs), {"ms": kernel_ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, **b}
+    full_err, full = phase_timing_full_context(engine, q, perm, label)
+    return max(errs + [full_err]), {
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        **b, "full_context": full}
+
+
+def phase_timing_full_context(engine, q, perm, label: str):
+    """The ragged kernel at the full context on the same cache: 8 rows
+    (max_slots) of 1536 to max_model_len (2048) tokens, the decode batch
+    long chats produce, Pb bucketed as the scheduler does (32), distinct
+    pages from `perm`, layers cycled so that each launch misses the L2.
+    Kernel vs plain on layer 0, then graph-replay time, the library
+    yardstick and the bound."""
+    import torch
+    from dynamo_tpu_torch.engine.scheduler import next_bucket
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    cfg, ecfg = engine.model_cfg, engine.cfg
+    s, h, hkv, hd = q.shape[0], cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    ps, nl = ecfg.page_size, cfg.num_layers
+    kc, vc = engine.cache["k"], engine.cache["v"]
+    ks, vs = engine.cache.get("k_scale"), engine.cache.get("v_scale")
+    quant = ks is not None
+    top = ecfg.max_model_len
+    pb = next_bucket(-(-top // ps), engine.scheduler.page_buckets)
+    check(s * pb <= ecfg.num_pages, f"{label}: {s} x {pb} pages > "
+          f"{ecfg.num_pages}")
+    pt = perm[:s * pb].to(torch.int32).reshape(s, pb)
+    lens = torch.tensor([1536 + (top - 1536) * i // (s - 1)
+                         for i in range(s)], dtype=torch.int32, device="cuda")
+    tol = 2e-3 if q.dtype == torch.bfloat16 else 1e-4
+    got = pa.decode_paged_attention_prefix(q, kc, vc, 0, pt, lens, ks, vs)
+    want = pa._ragged_plain(q, kc, vc, 0, pt, lens, ks, vs)
+    errs = compare(f"{label} at the full context", zip(("acc", "m", "l"),
+                                                        got, want), tol)
+    kernel_ms = cuda_ms(lambda i: pa.decode_paged_attention_prefix(
+        q, kc, vc, i % nl, pt, lens, ks, vs), 200, graph=True)
+    library_ms = cuda_ms(lambda i: sdpa_yardstick(
+        q, kc[i % nl], vc[i % nl], pt, lens,
+        *((ks[i % nl], vs[i % nl]) if quant else ())), 50)
+    nbytes = (kv_bytes(lens, hkv, hd, kc.element_size(), quant)
+              + q.numel() * q.element_size() + pt.numel() * 4
+              + lens.numel() * 4 + s * h * (hd + 2) * 4)
+    b = bound(nbytes, 4 * int(lens.sum()) * h * hd, cfg.dtype)
+    share = b["bound_ms"] / kernel_ms
+    print(f"timing ragged kernel, {label} at the full context (S={s}, "
+          f"Pb={pb}, lens={lens.tolist()}): max_abs_err acc/m/l = "
+          f"{' '.join(f'{e:.3g}' for e in errs)} (tol {tol}); kernel "
+          f"{kernel_ms:.4f} ms (graph replay), "
+          f"gather{'+dequant' if quant else ''}+sdpa {library_ms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({nbytes} bytes), "
+          f"{share:.1%} of the bound", flush=True)
+    return max(errs), {"ms": kernel_ms, "bound_ms": b["bound_ms"],
+                       "library_ms": library_ms, "share_of_bound": share}
 
 
 def phase_legacy_timing(model: str):

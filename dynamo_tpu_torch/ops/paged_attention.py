@@ -7,6 +7,13 @@ Beside it lives its plain PyTorch version (a page gather plus the masked
 flash state in f32): the wrapper takes it only for CPU tensors, which is
 how the CPU tests run; for CUDA tensors it launches the kernel or raises.
 
+The kernel is split-KV over whole pages: one block per (run of pages, kv
+head, row) writes a partial flash state, and a second small kernel merges
+each row's partials (both launched by the one C call). The host picks the
+run length from shapes only (`_pages_per_split`), never from lens, so a call
+needs no host sync and can be captured in a CUDA graph. `_ragged_split_plain`
+and `_merge_splits_plain` restate the split rules in PyTorch for the tests.
+
 The kernel returns the UNNORMALISED flash state (acc, m, l) of each row over
 the first lens[s] tokens of its pages; consumers pick the mode:
 
@@ -96,6 +103,79 @@ def _ragged_plain(q, k_cache, v_cache, layer: int, page_table, lens,
     return (acc.reshape(s, h, hd), m.reshape(s, h, 1), l.reshape(s, h, 1))
 
 
+def _ragged_split_plain(q, k_cache, v_cache, layer: int, page_table, lens,
+                        pages_per_split: int, k_scale=None, v_scale=None):
+    """The kernel's split rules in PyTorch: split i attends pages
+    [i * pps, (i + 1) * pps) of each row's table. A split whose first page
+    is at or past the row's walked pages (max(ceil(len / ps), 1)) holds the
+    neutral state m = -1e30, l = 0, acc = 0; an empty row's split 0 walks
+    its one masked page. Returns [splits, S, H, hd] / [splits, S, H, 1]
+    states for `_merge_splits_plain`."""
+    pb = page_table.shape[1]
+    ps = k_cache.shape[3]
+    lens = torch.clamp(lens.long(), 0, pb * ps)
+    n_pages = torch.clamp((lens + ps - 1) // ps, min=1)
+    parts = []
+    for p0 in range(0, pb, pages_per_split):
+        sub = page_table[:, p0:p0 + pages_per_split].contiguous()
+        sub_lens = torch.clamp(lens - p0 * ps, 0, sub.shape[1] * ps)
+        acc, m, l = _ragged_plain(q, k_cache, v_cache, layer, sub,
+                                  sub_lens.to(torch.int32), k_scale, v_scale)
+        live = (p0 < n_pages)[:, None, None]
+        parts.append((torch.where(live, acc, 0.0),
+                      torch.where(live, m, NEG_INF),
+                      torch.where(live, l, 0.0)))
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+def _merge_splits_plain(acc, m, l):
+    """The merge kernel's function: m = max m_i, l = sum l_i e^(m_i - m),
+    acc = sum acc_i e^(m_i - m), summed in split order as the kernel does."""
+    mx = m.amax(0)
+    out_acc = torch.zeros_like(acc[0])
+    out_l = torch.zeros_like(l[0])
+    for i in range(acc.shape[0]):
+        f = torch.exp(m[i] - mx)
+        out_l = out_l + l[i] * f
+        out_acc = out_acc + acc[i] * f
+    return out_acc, mx, out_l
+
+
+# blocks the host aims to put on the card per call: two waves of two
+# resident blocks per SM (a bf16 block's ring is ~100 KB of shared memory)
+_BLOCKS_PER_SM = 4
+
+
+def _pages_per_split(s: int, hkv: int, pb: int, sm_count: int) -> int:
+    """Pages one split block walks, from shapes only (never from lens, so
+    the call needs no host sync): enough splits of each row's Pb pages that
+    S * Hkv * splits reaches ~_BLOCKS_PER_SM blocks per SM, each split at
+    least one page. The grid's splits = ceil(Pb / result) cover every page."""
+    want = -(-_BLOCKS_PER_SM * sm_count // max(s * hkv, 1))
+    splits = max(1, min(pb, want))
+    return -(-pb // splits)
+
+
+_RING_STAGES = 3
+_SMEM_MAX = 232448          # 227 KB: the most a block may opt in to
+
+
+def _ring_smem_bytes(q_dtype, cache_dtype, hd: int, pps: int) -> int:
+    """Dynamic shared memory of one split block (the kernel's Layout):
+    NS stages of K and V rows padded by 16 bytes (+ int8 scales), the
+    warps' probabilities and rescale factors, an f32 copy of q when q is
+    f32, and the split's page ids."""
+    esz = torch.empty((), dtype=cache_dtype).element_size()
+    ct = 32 if esz == 4 else 64          # tokens a stage
+    nwarp = ct // 8                      # 8 tokens a warp
+    stage = 2 * ct * (hd * esz + 16) + (2 * ct * 4 if esz == 1 else 0)
+    q_s = (hd * 16 if q_dtype == torch.bfloat16      # q's A fragments
+           else _G_MAX * (hd + 4) * 4)               # prescaled f32 q
+    fixed = (_RING_STAGES * stage + nwarp * _G_MAX * 8 * 4
+             + nwarp * _G_MAX * 4 + q_s)
+    return fixed + -(-pps * 4 // 16) * 16
+
+
 def _check_scales(k_cache, v_cache, k_scale, v_scale):
     """Caches and scales a CUDA kernel takes: model-dtype caches without
     scales, or int8 caches with contiguous f32 scales of their shape minus
@@ -161,6 +241,13 @@ def _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens,
             or lens.shape != (s,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / lens "
                          f"{tuple(lens.shape)} do not match {s} rows")
+    pb = page_table.shape[1]
+    if pb < 1:
+        raise ValueError("page_table needs at least one page per row")
+    smem = _ring_smem_bytes(q.dtype, k_cache.dtype, hd, pb)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"a split block would need {smem} bytes of shared "
+                         f"memory, over the {_SMEM_MAX} a block may use")
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,10 +256,15 @@ def _kernel_fn():
     from dynamo_tpu_torch.ops import build
     fn = build.load("ragged_decode_attention").ragged_decode_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _ptr(t):
@@ -183,22 +275,35 @@ def _ptr(t):
 
 def _ragged_kernel(q, k_cache, v_cache, layer: int, page_table, lens,
                    k_scale=None, v_scale=None):
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+    """Launch the split kernel and, when a row has more than one split, the
+    merge kernel on PyTorch's current stream (no sync); one call."""
     global KERNEL_LAUNCHES
     _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens,
                        k_scale, v_scale)
     fn = _kernel_fn()
     s, h, hd = q.shape
     _, hkv, p, ps, _ = k_cache.shape
-    acc = torch.empty((s, h, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((s, h, 1), dtype=torch.float32, device=q.device)
-    l = torch.empty((s, h, 1), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pb = page_table.shape[1]
+    dev = q.device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    pps = _pages_per_split(s, hkv, pb, _sm_count(index))
+    splits = -(-pb // pps)
+    acc = torch.empty((s, h, hd), dtype=torch.float32, device=dev)
+    m = torch.empty((s, h, 1), dtype=torch.float32, device=dev)
+    l = torch.empty((s, h, 1), dtype=torch.float32, device=dev)
+    part = (None, None, None)
+    if splits > 1:             # scratch for the split states
+        part = (torch.empty((splits, s, h, hd), dtype=torch.float32,
+                            device=dev),
+                torch.empty((splits, s, h), dtype=torch.float32, device=dev),
+                torch.empty((splits, s, h), dtype=torch.float32, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), page_table.data_ptr(),
-             lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), s,
-             h, hkv, p, ps, hd, page_table.shape[1], layer, hd ** -0.5,
-             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], stream)
+             lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+             *(_ptr(t) for t in part), s, h, hkv, p, ps, hd, pb, pps, layer,
+             hd ** -0.5, _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
+             stream)
     if err != 0:
         raise RuntimeError(f"ragged_decode_attention launch failed: CUDA "
                            f"error {err}")

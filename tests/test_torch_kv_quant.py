@@ -501,3 +501,64 @@ def test_run_kv_quant_int8_on_cpu(tmp_path, capsys):
                        "--kv-quant", "int8"]))
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["completion_tokens"] == 5
+
+
+# -- the kernel's split-KV schedule, int8 ---------------------------------------
+
+def _int8_split_geometry(hd, seed):
+    """Seven rows of six disjoint int8 pages (ps 8), lens 0, 1, on the page
+    and split boundaries of 1- and 3-page splits and one past them, and the
+    full table; garbage int8 values in every slot at or past a row's length
+    and a finite stale scale there."""
+    rng = np.random.default_rng(seed)
+    s, h, hkv, ps, pb, nl = 7, 8, 4, 8, 6, 2
+    if hd == 128:
+        h, hkv = 4, 2  # keep interpret-mode runtime down at the wide head
+    p = s * pb + 1
+    q = rng.standard_normal((s, h, hd)).astype(np.float32)
+    k = rng.integers(-127, 128, (nl, hkv, p, ps, hd), dtype=np.int8)
+    v = rng.integers(-127, 128, (nl, hkv, p, ps, hd), dtype=np.int8)
+    ks = rng.uniform(0.01, 0.05, (nl, hkv, p, ps)).astype(np.float32)
+    vs = rng.uniform(0.01, 0.05, (nl, hkv, p, ps)).astype(np.float32)
+    pt = (rng.permutation(s * pb) + 1).reshape(s, pb).astype(np.int32)
+    lens = np.array([0, 1, 8, 9, 24, 25, 48], np.int32)
+    stale = np.zeros(ks.shape, bool)
+    for i in range(s):
+        for t in range(lens[i], pb * ps):
+            stale[:, :, pt[i, t // ps], t % ps] = True
+    ks[stale] = 0.03
+    vs[stale] = 0.03
+    return q, k, v, ks, vs, pt, lens, stale
+
+
+@pytest.mark.parametrize("pps", [1, 3])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("bf16_q", [False, True])
+def test_int8_split_merge_matches(hd, bf16_q, pps):
+    """The int8 split rules merged back equal the unsplit plain version with
+    NaN / inf stale scales, and (f32 q) the Pallas kernel in interpret mode
+    with finite ones; the empty row keeps m = -1e30, l = ps, acc = 0."""
+    q, k, v, ks, vs, pt, lens, stale = _int8_split_geometry(
+        hd, seed=300 + hd + pps)
+    layer, ps = 1, k.shape[3]
+    tq = _t(q).to(torch.bfloat16) if bf16_q else _t(q)
+    ks_bad, vs_bad = ks.copy(), vs.copy()
+    ks_bad[stale] = np.nan
+    vs_bad[stale] = np.inf
+    args = (tq, _t(k), _t(v), layer, _t(pt), _t(lens))
+    got = tpa._merge_splits_plain(*tpa._ragged_split_plain(
+        *args, pps, _t(ks_bad), _t(vs_bad)))
+    unsplit = tpa._ragged_plain(*args, _t(ks_bad), _t(vs_bad))
+    for a, b in zip(got, unsplit):
+        assert torch.isfinite(a).all()
+        _close(a, b.numpy())
+    assert bool((got[1][0] == tpa.NEG_INF).all())
+    assert bool((got[2][0] == ps).all()) and not got[0][0].any()
+    if not bf16_q:
+        want = jpa.decode_paged_attention_prefix(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+            jnp.asarray([layer], jnp.int32), jnp.asarray(pt),
+            jnp.asarray(lens), interpret=True, k_scale=jnp.asarray(ks),
+            v_scale=jnp.asarray(vs))
+        for a, b in zip(got, want):
+            _close(a, b)

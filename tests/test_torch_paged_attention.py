@@ -175,3 +175,113 @@ def test_build_is_keyed_on_the_source():
     assert path.parent.parts[-2:] == ("build", "dynamo_tpu_torch")
     assert path == build.library_path("ragged_decode_attention")
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+
+
+# -- the kernel's split-KV schedule --------------------------------------------
+
+def _split_geometry(hd, bf16, seed):
+    """Seven rows of six disjoint pages (ps 8): lens 0 and 1, on the page
+    and split boundaries of 1- and 3-page splits and one past them, and the
+    full table; NaN in every slot at or past a row's length."""
+    rng = np.random.default_rng(seed)
+    s, h, hkv, ps, pb, nl = 7, 8, 4, 8, 6, 2
+    if hd == 128:
+        h, hkv = 4, 2  # keep interpret-mode runtime down at the wide head
+    p = s * pb + 1
+    q = rng.standard_normal((s, h, hd)).astype(np.float32)
+    k = rng.standard_normal((nl, hkv, p, ps, hd)).astype(np.float32)
+    v = rng.standard_normal((nl, hkv, p, ps, hd)).astype(np.float32)
+    pt = (rng.permutation(s * pb) + 1).reshape(s, pb).astype(np.int32)
+    lens = np.array([0, 1, 8, 9, 24, 25, 48], np.int32)
+    for i in range(s):
+        for t in range(lens[i], pb * ps):
+            k[:, :, pt[i, t // ps], t % ps] = np.nan
+            v[:, :, pt[i, t // ps], t % ps] = np.nan
+    arrs = [q, k, v]
+    if bf16:
+        arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                for a in arrs]
+    return (*arrs, pt, lens)
+
+
+@pytest.mark.parametrize("pps", [1, 3])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_split_merge_matches_unsplit_and_pallas(hd, bf16, pps):
+    """The kernel's split rules (neutral state past the walked pages, the
+    empty row's one masked page) merged back equal the unsplit plain version
+    and the Pallas kernel in interpret mode, every row's f32 state."""
+    q, k, v, pt, lens = _split_geometry(hd, bf16, seed=200 + hd + pps)
+    (jq, jk, jv), (tq, tk, tv) = _inputs([q, k, v], bf16)
+    layer, ps = 1, k.shape[3]
+    tpt, tlens = torch.from_numpy(pt), torch.from_numpy(lens)
+    parts = tpa._ragged_split_plain(tq, tk, tv, layer, tpt, tlens, pps)
+    assert parts[0].shape[0] == -(-pt.shape[1] // pps)
+    # splits past a row's walked pages hold the neutral state
+    n_pages = np.maximum(-(-lens // ps), 1)
+    for i in range(parts[0].shape[0]):
+        idle = torch.from_numpy(i * pps >= n_pages)
+        assert bool((parts[1][i][idle] == tpa.NEG_INF).all())
+        assert not parts[2][i][idle].any() and not parts[0][i][idle].any()
+    got = tpa._merge_splits_plain(*parts)
+    unsplit = tpa._ragged_plain(tq, tk, tv, layer, tpt, tlens)
+    jacc, jm, jl = jpa.decode_paged_attention_prefix(
+        jq, jk, jv, jnp.asarray([layer], jnp.int32), jnp.asarray(pt),
+        jnp.asarray(lens), interpret=True)
+    for a, b, c in zip(got, unsplit, (jacc, jm, jl)):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=TOL_F32,
+                                   atol=TOL_F32)
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=TOL_F32,
+                                   atol=TOL_F32)
+    # the empty row merges to exactly m = -1e30, l = ps, acc = 0
+    assert bool((got[1][0] == tpa.NEG_INF).all())
+    assert bool((got[2][0] == ps).all()) and not got[0][0].any()
+
+
+@pytest.mark.parametrize("s,hkv,pb,sms", [
+    (8, 8, 12, 132),     # the main path's decode batch
+    (8, 8, 32, 132),     # the same at the full 2048-token context
+    (1, 8, 64, 132),     # one row of 4096 tokens
+    (32, 8, 8, 132), (512, 8, 32, 132), (1, 1, 1, 132), (3, 2, 7, 1),
+    (4, 8, 5, 78),
+])
+def test_pages_per_split_covers_every_page(s, hkv, pb, sms):
+    """The host's split count: from shapes alone, at least one page a
+    split, every page of Pb in exactly one split, never an empty grid, and
+    at least half the blocks it aims for."""
+    pps = tpa._pages_per_split(s, hkv, pb, sms)
+    splits = -(-pb // pps)
+    assert 1 <= pps <= pb and splits >= 1
+    assert (splits - 1) * pps < pb <= splits * pps
+    want = min(pb, -(-tpa._BLOCKS_PER_SM * sms // (s * hkv)))
+    assert 2 * splits >= want
+    assert pps == tpa._pages_per_split(s, hkv, pb, sms)
+
+
+def test_pages_per_split_at_the_main_path_shapes():
+    assert tpa._pages_per_split(8, 8, 12, 132) == 2     # 6 splits
+    assert tpa._pages_per_split(8, 8, 32, 132) == 4     # 8 splits
+    assert tpa._pages_per_split(1, 8, 64, 132) == 1     # 64 splits
+    assert tpa._pages_per_split(512, 8, 32, 132) == 32  # one split
+
+
+def test_ring_fits_shared_memory():
+    """Every supported geometry's split block fits the 227 KB a block may
+    opt in to; the wrapper refuses a page table wider than that allows."""
+    for qdt, cdt in ((torch.float32, torch.float32),
+                     (torch.bfloat16, torch.bfloat16),
+                     (torch.float32, torch.int8),
+                     (torch.bfloat16, torch.int8)):
+        for hd in (32, 64, 128):
+            assert tpa._ring_smem_bytes(qdt, cdt, hd, 1024) <= tpa._SMEM_MAX
+    # bf16 at hd 128: 3 stages of 64 rows of K and V, 272 bytes a row; 8
+    # warps' probabilities and rescale factors; q's A fragments; 12 page ids
+    assert tpa._ring_smem_bytes(torch.bfloat16, torch.bfloat16, 128, 12) \
+        == 3 * 2 * 64 * 272 + 8 * 8 * 8 * 4 + 8 * 8 * 4 + 128 * 16 + 48
+    q = torch.zeros((1, 8, 128))
+    k = torch.zeros((1, 8, 2, 8, 128))
+    wide = torch.zeros((1, 40000), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        tpa._check_kernel_args(q, k, k, 0, wide,
+                               torch.zeros((1,), dtype=torch.int32))

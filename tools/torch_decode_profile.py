@@ -86,9 +86,13 @@ def main() -> int:
     print(f"traced window: {steps} steps, wall {wall * 1e3:.2f} ms, device "
           f"busy {busy_us / 1e3:.2f} ms ({busy_us / 1e3 / (wall * 1e3):.1%}"
           f" of wall), {sum(e.count for e in dev)} kernel launches")
-    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
-              f"{e.key[:90]}")
+    ranked = sorted(dev, key=lambda e: -e.self_device_time_total)
+    # the top 15, then the port's own kernels wherever they rank
+    own = ("ragged_split_kernel", "merge_splits_kernel", "legacy_decode")
+    for i, e in enumerate(ranked):
+        if i < 15 or any(k in e.key for k in own):
+            print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x"
+                  f"  {e.key[:90]}")
     print(smi)
     return 0
 
