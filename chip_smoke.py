@@ -7,7 +7,9 @@ Phases (any failed check exits non-zero; nothing is caught):
 
 1. Device: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel in dynamo_tpu_torch/csrc/ with nvcc for sm_90a, one
-   nvcc per source, all started together.
+   nvcc per source, all started together; each register / spill line of
+   the build is printed with the kernel instantiation it belongs to, and a
+   spill fails the run.
 2. Kernels vs plain versions, on the same inputs:
    a. the ragged decode attention kernel (split-KV blocks + merge, one
       call) against its plain PyTorch version, in prefix and inclusive
@@ -29,7 +31,11 @@ Phases (any failed check exits non-zero; nothing is caught):
       f32/bf16/int8 caches (the parity geometry of tests/test_ragged_kernel
       with 32 q / 8 kv heads, ps 8, NaN-poisoned tails; normalised outputs
       within 1e-4 for f32 and int8 caches, 1e-2 for bf16 outputs), and
-      against the ragged kernel's inclusive view on the same inputs.
+      against the ragged kernel's inclusive view on the same inputs; then
+      its cluster schedule's cases (legacy_cases: S = 1 at 2048 tokens, 8
+      rows up to max_model_len, lens on block-assignment boundaries, an
+      all-clamped batch, GQA 1/4/8, ps 8/64/128) with f32, bf16 and int8
+      caches (int8 with an f32 and a bf16 q), against both.
 3. Small reference: the `tiny` model in f32, decode logits on the card
    (the kernel) against the same step on the CPU (the plain version),
    within 1e-3, and the same greedy tokens from both engines; then the
@@ -57,9 +63,11 @@ Phases (any failed check exits non-zero; nothing is caught):
    scaled_dot_product_attention) and the bound (valid K/V bytes, plus
    scales for int8, over 3.35 TB/s). Then the same at the full context
    (8 rows of 1536-2048 tokens, Pb 32; kernel vs plain on layer 0, the
-   kernel's share of its bound). The legacy kernel is timed the same
-   way at the decode A/B's shapes, hd 128 (llama3-8b heads) and hd 64
-   (llama3-1b heads).
+   kernel's share of its bound). The legacy kernel on layer 0 against its
+   plain version and the ragged kernel's inclusive view at both shapes,
+   and for the bf16 cache its full-context time beside the ragged
+   kernel's. The legacy kernel is timed the same way at the decode A/B's
+   shapes, hd 128 (llama3-8b heads) and hd 64 (llama3-1b heads).
 7. The int8 parity gate: dynamo_tpu_torch/bench.run_kv_quant_parity at
    llama3-8b on the main path's weights; it must pass its thresholds.
 8. The decode A/B: dynamo_tpu_torch/bench.run_decode_kernel_ab at the
@@ -97,6 +105,50 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def demangle(names) -> dict:
+    """{mangled: readable} for kernel entry names, by cu++filt beside the
+    toolkit's nvcc (or c++filt); a name stays mangled where neither runs.
+    The readable form drops the return type, the anonymous namespace and
+    the parameter list: `legacy_cluster_kernel<float, signed char, 128>`."""
+    import os
+    import shutil
+    from dynamo_tpu_torch.ops import build
+    names = sorted(names)
+    tool = next((t for t in (
+        os.path.join(os.path.dirname(build._nvcc()), "cu++filt"),
+        shutil.which("c++filt") or "") if t and os.path.exists(t)), None)
+    out = {n: n for n in names}
+    if tool is None or not names:
+        return out
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or len(lines) != len(names):
+        return out
+    for n, d in zip(names, lines):
+        for noise in ("(anonymous namespace)::", "<unnamed>::", "(int)"):
+            d = d.replace(noise, "")
+        d = d.split("(")[0]
+        out[n] = d[5:] if d.startswith("void ") else d
+    return out
+
+
+def ptxas_lines(log: str) -> list:
+    """The register and spill lines of an `nvcc -Xptxas=-v` build log, each
+    prefixed with the entry function it belongs to (the `Compiling entry
+    function` line before it)."""
+    import re
+    pairs, entry = [], "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        elif "registers" in line or "spill" in line:
+            pairs.append((entry, line.replace("ptxas info    :", "").strip()))
+    names = demangle({e for e, _ in pairs})
+    return [f"{names[e]}: {text}" for e, text in pairs]
 
 
 def cuda_ms(fn, n: int, warmup: int = 3, graph: bool = False) -> float:
@@ -167,13 +219,14 @@ def ragged_cases() -> list:
 
 
 def kernel_case(hd: int, dtype, s: int, seed: int, h: int = 32,
-                hkv: int = 8, pb: int = 8, lens=None):
+                hkv: int = 8, pb: int = 8, lens=None, ps: int = PS,
+                min_len: int = 0):
     """Random cache + disjoint per-row page tables + ragged lens (or the
-    given ones), with every token slot at or past a row's length filled
-    with NaN."""
+    given ones), with every token slot at or past a row's length (at least
+    min_len) filled with NaN."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    ps, nl = PS, 2
+    nl = 2
     p = s * pb + 1
     k = torch.randn((nl, hkv, p, ps, hd), generator=g, device="cuda")
     v = torch.randn((nl, hkv, p, ps, hd), generator=g, device="cuda")
@@ -187,7 +240,7 @@ def kernel_case(hd: int, dtype, s: int, seed: int, h: int = 32,
                 for i in range(s)]
     lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     pos = torch.arange(pb * ps, device="cuda")
-    tail = pos[None, :] >= lens[:, None]                       # [S, Pb*ps]
+    tail = pos[None, :] >= torch.clamp(lens, min=min_len)[:, None]
     slots = (pt.long()[:, pos // ps] * ps + pos % ps)[tail]
     for c in (k, v):
         c.view(nl, hkv, p * ps, hd)[:, :, slots] = float("nan")
@@ -377,28 +430,89 @@ def legacy_case(hd: int, kind: str, seed: int):
     return q, k, v, ks, vs, pt, lens
 
 
-def phase_legacy() -> float:
-    """The legacy kernel against its plain version and against the ragged
-    kernel's inclusive view (2c)."""
+def legacy_cases() -> list:
+    """The legacy kernel's cluster-schedule cases: (label, hd, S, H, Hkv,
+    ps, Pb, lens or None for kernel_case's ragged lens). Block r of a row's
+    cluster of C = min(Pb, 8) blocks walks pages r, r + C, ...: one row of
+    the full 2048 tokens (Pb 32, 4 pages a block), 8 rows up to
+    max_model_len, lens on and around the block-assignment boundaries at
+    the main path's Pb 12 (one page: rank 0 alone; C pages: every block one
+    page; C + 1: rank 0 a second page), an all-clamped batch (lens 0 -> 1),
+    GQA groups of 1, 4 and 8, and page sizes 8, 64 and 128 (128: two f32
+    half-page stages a page at hd 128)."""
+    b = 8 * PS  # tokens of one page for each block of a Pb-12 cluster
+    return [
+        ("S=1 2048 tokens", 128, 1, 32, 8, PS, 32, [2048]),
+        ("S=8 max_model_len", 128, 8, 32, 8, PS, 32,
+         [2048, 1536, 1600, 1700, 1800, 1900, 2000, 2047]),
+        ("block boundaries", 128, 8, 32, 8, PS, 12,
+         [PS - 1, PS, PS + 1, b - 1, b, b + 1, b + PS, 12 * PS]),
+        ("all clamped", 128, 8, 32, 8, PS, 12, [0] * 8),
+        ("GQA 1", 128, 4, 8, 8, PS, 8, None),
+        ("GQA 4", 128, 4, 32, 8, PS, 8, None),
+        ("GQA 8", 128, 4, 64, 8, PS, 8, None),
+        ("ps 8", 64, 8, 32, 8, 8, 32, None),
+        ("ps 128", 128, 8, 32, 8, 128, 16, None),
+    ]
+
+
+def legacy_check(label, q, k, v, pt, lens, ks, vs, tol) -> list:
+    """The legacy kernel's output against its plain version and against
+    the ragged kernel's inclusive view; returns the two max abs errors."""
     import torch
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import paged_attention_oracle as leg
+    got = leg.decode_paged_attention_legacy(q, k, v, pt, lens, ks, vs)
+    want = leg._legacy_plain(q, k, v, pt, torch.clamp(lens, min=1), ks, vs)
+    ragged = pa.decode_paged_attention(q, k, v, pt, lens, ks, vs)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"{label}: output {got.dtype} {tuple(got.shape)}")
+    return compare(label, [("plain", got, want),
+                           ("ragged inclusive", got, ragged)], tol)
+
+
+LEGACY_KINDS = (("f32", 1e-4), ("bf16", 1e-2), ("int8", 1e-4),
+                ("int8 q bf16", 1e-2))
+
+
+def phase_legacy() -> float:
+    """The legacy kernel against its plain version and against the ragged
+    kernel's inclusive view (2c): the parity geometry, then the cluster
+    schedule's cases, each with f32, bf16 and int8 caches (int8 with an f32
+    and a bf16 q)."""
+    import torch
     worst = 0.0
     for hd in (32, 64, 128):
         for kind, tol in (("f32", 1e-4), ("bf16", 1e-2), ("int8", 1e-4)):
             q, k, v, ks, vs, pt, lens = legacy_case(hd, kind, seed=hd)
-            got = leg.decode_paged_attention_legacy(q, k, v, pt, lens, ks,
-                                                    vs)
-            want = leg._legacy_plain(q, k, v, pt, lens, ks, vs)
-            ragged = pa.decode_paged_attention(q, k, v, pt, lens, ks, vs)
-            torch.cuda.synchronize()
             label = f"legacy kernel hd={hd} {kind}"
-            check(got.dtype == q.dtype and got.shape == q.shape,
-                  f"{label}: output {got.dtype} {tuple(got.shape)}")
-            errs = compare(label, [("plain", got, want),
-                                   ("ragged inclusive", got, ragged)], tol)
+            errs = legacy_check(label, q, k, v, pt, lens, ks, vs, tol)
             worst = max(worst, errs[0])
             print(f"{label} lens={lens.tolist()}: max_abs_err vs plain "
+                  f"{errs[0]:.3g}, vs the ragged kernel {errs[1]:.3g} "
+                  f"(tol {tol})", flush=True)
+    for ci, (name, hd, s, h, hkv, ps, pb, lens_) in enumerate(
+            legacy_cases()):
+        for kind, tol in LEGACY_KINDS:
+            dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+            # a row of length 0 reads its token 0: tails from the clamp
+            q, k, v, _, _, pt, lens = kernel_case(
+                hd, dtype, s, seed=7 * hd + s + 1000 * ci, h=h, hkv=hkv,
+                pb=pb, lens=lens_, ps=ps, min_len=1)
+            ks = vs = None
+            if kind.startswith("int8"):
+                k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+                k, v, ks, vs = quantize_case(k, v, pt,
+                                             torch.clamp(lens, min=1), seed=s)
+                ks, vs = ks[1], vs[1]
+                if kind.endswith("bf16"):
+                    q = q.to(torch.bfloat16)
+            label = f"legacy kernel hd={hd} {kind} {name}"
+            errs = legacy_check(label, q, k[1], v[1], pt, lens, ks, vs, tol)
+            worst = max(worst, errs[0])
+            print(f"{label} (H={h}, Hkv={hkv}, ps={ps}, Pb={pb}) "
+                  f"lens={lens.tolist()[:8]}: max_abs_err vs plain "
                   f"{errs[0]:.3g}, vs the ragged kernel {errs[1]:.3g} "
                   f"(tol {tol})", flush=True)
     return worst
@@ -705,6 +819,15 @@ def phase_timing(engine, n_prompt, max_tokens):
           f"({int(wrote.sum())} pages written by the run): layers {layers} "
           f"max_abs_err acc/m/l = {' '.join(f'{e:.3g}' for e in errs)} "
           f"(tol {tol})", flush=True)
+    # the legacy kernel on the same inputs, against its plain version and
+    # the ragged kernel's inclusive view (layer 0; normalised outputs in
+    # q's dtype, so bf16's 1e-2)
+    sc0 = (ks[0], vs[0]) if quant else (None, None)
+    lerrs = legacy_check(f"legacy kernel, {label} at the main path's shapes",
+                         q, kc[0], vc[0], pt, lens, *sc0, 1e-2)
+    print(f"legacy kernel, {label} at the main path's shapes, layer 0: "
+          f"max_abs_err vs plain {lerrs[0]:.3g}, vs the ragged kernel "
+          f"{lerrs[1]:.3g} (tol 0.01)", flush=True)
     n = 200
 
     # each launch reads another layer's pages, as the model does: the KV
@@ -729,10 +852,12 @@ def phase_timing(engine, n_prompt, max_tokens):
           f"eager call), plain {plain_ms:.4f} ms, "
           f"gather{'+dequant' if quant else ''}+sdpa {library_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({nbytes} bytes)", flush=True)
-    full_err, full = phase_timing_full_context(engine, q, perm, label)
+    full_err, full, legacy_full = phase_timing_full_context(engine, q, perm,
+                                                            label)
     return max(errs + [full_err]), {
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        **b, "full_context": full}
+        **b, "full_context": full}, max(lerrs[0], legacy_full.pop("err")), \
+        legacy_full
 
 
 def phase_timing_full_context(engine, q, perm, label: str):
@@ -741,10 +866,14 @@ def phase_timing_full_context(engine, q, perm, label: str):
     long chats produce, Pb bucketed as the scheduler does (32), distinct
     pages from `perm`, layers cycled so that each launch misses the L2.
     Kernel vs plain on layer 0, then graph-replay time, the library
-    yardstick and the bound."""
+    yardstick and the bound. The legacy kernel on layer 0 against its
+    plain version and the ragged kernel's inclusive view, and for a bf16
+    cache its graph-replay time and bound beside the ragged kernel's.
+    Returns (ragged error, ragged record, legacy record with "err")."""
     import torch
     from dynamo_tpu_torch.engine.scheduler import next_bucket
     from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import paged_attention_oracle as leg
     cfg, ecfg = engine.model_cfg, engine.cfg
     s, h, hkv, hd = q.shape[0], cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     ps, nl = ecfg.page_size, cfg.num_layers
@@ -780,35 +909,73 @@ def phase_timing_full_context(engine, q, perm, label: str):
           f"gather{'+dequant' if quant else ''}+sdpa {library_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({nbytes} bytes), "
           f"{share:.1%} of the bound", flush=True)
+    sc0 = (ks[0], vs[0]) if quant else (None, None)
+    lerrs = legacy_check(f"legacy kernel, {label} at the full context", q,
+                         kc[0], vc[0], pt, lens, *sc0, 1e-2)
+    legacy_full = {"err": lerrs[0]}
+    msg = ""
+    if not quant:
+        leg_ms = cuda_ms(lambda i: leg.decode_paged_attention_legacy(
+            q, kc[i % nl], vc[i % nl], pt, lens), 200, graph=True)
+        lbytes = (kv_bytes(lens, hkv, hd, kc.element_size(), False)
+                  + 2 * q.numel() * q.element_size() + pt.numel() * 4
+                  + lens.numel() * 4)
+        lb = bound(lbytes, 4 * int(lens.sum()) * h * hd, cfg.dtype)
+        legacy_full.update(ms=leg_ms, bound_ms=lb["bound_ms"],
+                           library_ms=library_ms,
+                           share_of_bound=lb["bound_ms"] / leg_ms)
+        msg = (f"; kernel {leg_ms:.4f} ms (graph replay; the ragged kernel "
+               f"{kernel_ms:.4f} ms), bound {lb['bound_ms']:.4f} ms "
+               f"({lbytes} bytes), {lb['bound_ms'] / leg_ms:.1%} of the "
+               f"bound")
+    print(f"legacy kernel, {label} at the full context, layer 0: "
+          f"max_abs_err vs plain {lerrs[0]:.3g}, vs the ragged kernel "
+          f"{lerrs[1]:.3g} (tol 0.01){msg}", flush=True)
     return max(errs), {"ms": kernel_ms, "bound_ms": b["bound_ms"],
-                       "library_ms": library_ms, "share_of_bound": share}
+                       "library_ms": library_ms,
+                       "share_of_bound": share}, legacy_full
+
+
+def legacy_ab_inputs(model: str) -> dict:
+    """The decode A/B's legacy-kernel inputs for a model's head geometry
+    on the card (f32 q and caches, 8 rows, ps 64, Pb 4, lens from the A/B's
+    seed), with copies of the caches that together exceed the 50 MB L2
+    (one cache is 4-8 MB; the A/B's head projection flushes the L2 between
+    steps), and the bytes one call must move (K/V rows below the lengths,
+    q, tables, output)."""
+    import torch
+    from dynamo_tpu_torch.bench import PAGE_KWARGS, decode_ab_inputs
+    from dynamo_tpu_torch.engine.config import get_model_config
+    arrs = decode_ab_inputs(get_model_config(model), 8,
+                            PAGE_KWARGS["page_size"])
+    arrs.pop("w_head")
+    t = {k: torch.from_numpy(a).cuda() for k, a in arrs.items()}
+    k, v, lens = t["k"], t["v"], t["lens"]
+    copies = -(-(128 << 20) // (2 * k.numel() * 4))
+    return {"q": t["q"], "k": k, "v": v, "pt": t["pt"], "lens": lens,
+            "ks": [k.clone() for _ in range(copies)],
+            "vs": [v.clone() for _ in range(copies)],
+            "nbytes": (kv_bytes(lens, k.shape[0], k.shape[3], 4, False)
+                       + 2 * t["q"].numel() * 4 + t["pt"].numel() * 4
+                       + lens.numel() * 4)}
 
 
 def phase_legacy_timing(model: str):
     """The legacy kernel at the decode A/B's shapes for a model's head
-    geometry (f32 q and caches, 8 rows, ps 64, Pb 4, lens from the A/B's
-    seed): kernel vs plain, then CUDA-event times of the kernel, its plain
-    version, the library yardstick and the bound. One cache is 4-8 MB, so
-    the timed launches cycle over copies of it that together exceed the
-    50 MB L2, as the A/B's head projection flushes it between steps."""
-    import torch
-    from dynamo_tpu_torch.bench import PAGE_KWARGS, decode_ab_inputs
-    from dynamo_tpu_torch.engine.config import get_model_config
+    geometry (legacy_ab_inputs): kernel vs plain, then CUDA-event times of
+    the kernel (cycling the cache copies), its plain version, the library
+    yardstick and the bound."""
     from dynamo_tpu_torch.ops import paged_attention_oracle as leg
-    cfg = get_model_config(model)
-    arrs = decode_ab_inputs(cfg, 8, PAGE_KWARGS["page_size"])
-    arrs.pop("w_head")
-    t = {k: torch.from_numpy(a).cuda() for k, a in arrs.items()}
-    q, k, v, pt, lens = t["q"], t["k"], t["v"], t["pt"], t["lens"]
+    a = legacy_ab_inputs(model)
+    q, k, v, pt, lens = a["q"], a["k"], a["v"], a["pt"], a["lens"]
+    ks, vs = a["ks"], a["vs"]
     s, h, hd = q.shape
     hkv = k.shape[0]
+    copies = len(ks)
     got = leg.decode_paged_attention_legacy(q, k, v, pt, lens)
     want = leg._legacy_plain(q, k, v, pt, lens)
     err = compare(f"legacy kernel at the {model} A/B shapes",
                   [("out", got, want)], 1e-4)[0]
-    copies = -(-(128 << 20) // (2 * k.numel() * 4))
-    ks = [k.clone() for _ in range(copies)]
-    vs = [v.clone() for _ in range(copies)]
     kernel_ms = cuda_ms(lambda i: leg.decode_paged_attention_legacy(
         q, ks[i % copies], vs[i % copies], pt, lens), 200, graph=True)
     eager_ms = cuda_ms(lambda i: leg.decode_paged_attention_legacy(
@@ -817,9 +984,8 @@ def phase_legacy_timing(model: str):
         q, ks[i % copies], vs[i % copies], pt, lens), 20)
     library_ms = cuda_ms(lambda i: sdpa_yardstick(
         q, ks[i % copies], vs[i % copies], pt, lens), 200)
-    del ks, vs
-    nbytes = (kv_bytes(lens, hkv, hd, 4, False) + 2 * q.numel() * 4
-              + pt.numel() * 4 + lens.numel() * 4)
+    nbytes = a["nbytes"]
+    del a, ks, vs
     b = bound(nbytes, 4 * int(lens.sum()) * h * hd, "float32")
     print(f"timing legacy kernel, {model} heads (S={s}, H={h}, Hkv={hkv}, "
           f"hd={hd}, f32, ps={k.shape[2]}, Pb={pt.shape[1]}, "
@@ -827,7 +993,8 @@ def phase_legacy_timing(model: str):
           f"plain {err:.3g} (tol 1e-4); kernel {kernel_ms:.4f} ms (graph "
           f"replay; {eager_ms:.4f} ms per eager call), plain "
           f"{plain_ms:.4f} ms, gather+sdpa {library_ms:.4f} ms, bound "
-          f"{b['bound_ms']:.4f} ms ({nbytes} bytes)", flush=True)
+          f"{b['bound_ms']:.4f} ms ({nbytes} bytes), "
+          f"{b['bound_ms'] / kernel_ms:.1%} of the bound", flush=True)
     return err, {"ms": kernel_ms, "plain_ms": plain_ms,
                  "library_ms": library_ms, **b}
 
@@ -890,9 +1057,10 @@ def main() -> int:
     print(f"build: {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for line in ptxas_lines(log):
+            print(f"  {name}: {line}", flush=True)
+            check(" 0 bytes spill stores" in line or "spill" not in line,
+                  f"{name}: ptxas spills: {line}")
 
     err_bf16 = phase_kernel()
     err_int8 = phase_kernel_int8()
@@ -901,14 +1069,17 @@ def main() -> int:
     phase_small_reference("int8")
     engine, launches, n_prompt, max_tokens, _ = asyncio.run(
         serve_main_path(smi))
-    main_err, timing = phase_timing(engine, n_prompt, max_tokens)
+    main_err, timing, leg_err, legacy_full = phase_timing(engine, n_prompt,
+                                                          max_tokens)
     # the int8 engine shares the weights; the bf16 cache goes first, so
     # the int8 run's peak memory is its own
     engine.cache = None
     torch.cuda.empty_cache()
     engine_q, launches_q, n_prompt_q, _, _ = asyncio.run(
         serve_main_path(smi, "int8", params=engine.params))
-    main_err_q, timing_q = phase_timing(engine_q, n_prompt_q, max_tokens)
+    main_err_q, timing_q, leg_err_q, _ = phase_timing(engine_q, n_prompt_q,
+                                                      max_tokens)
+    err_legacy = max(err_legacy, leg_err, leg_err_q)
     del engine_q
     torch.cuda.empty_cache()
     legacy = {model: phase_legacy_timing(model)
@@ -929,6 +1100,8 @@ def main() -> int:
     records = [ragged]
     for model, row, line in (("llama3-8b", 2, 37), ("llama3-1b", 3, 116)):
         err, tm = legacy[model]
+        if row == 2:  # hd 128 at the full context, beside the ragged kernel
+            tm = {**tm, "full_context": legacy_full}
         records.append({
             "name": f"legacy_decode_attention (hd "
                     f"{ab[model][0]['head_dim']}, row {row})",

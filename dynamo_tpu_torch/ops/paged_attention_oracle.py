@@ -1,5 +1,5 @@
-"""The legacy decode kernel: normalised paged decode attention, one block
-per (row, kv head), whole pages per step.
+"""The legacy decode kernel: normalised paged decode attention, a row's
+pages spread over a thread-block cluster.
 
 Port of dynamo_tpu/ops/paged_attention_oracle.py. The JAX package keeps two
 frozen Pallas kernels there behind `decode_paged_attention_legacy`:
@@ -12,10 +12,20 @@ packed kernel's). Beside it lives its plain PyTorch version; the wrapper
 takes it only for CPU tensors, and for CUDA tensors launches the kernel or
 raises.
 
-It is written apart from the ragged kernel (ops/paged_attention.py) with a
-schedule of its own, so it serves as a second-schedule oracle: the two
-agreeing on the same inputs is evidence for both. It also runs the legacy
-arm of the decode A/B (dynamo_tpu_torch/bench.py:run_decode_kernel_ab).
+The schedule: one launch of (C, Hkv, S) blocks in clusters of C =
+min(Pb, 8) blocks along the page axis (`_cluster_size`, from shapes only).
+Block r of a cluster walks pages r, r + C, ... of its row through a
+two-stage ring of bulk asynchronous copies (`_stage_tokens` tokens a stage)
+and keeps a partial flash state in shared memory; the cluster merges the C
+partials through distributed shared memory and writes the normalised
+output. `_cluster_partials_plain` and `_cluster_merge_plain` restate that
+schedule in PyTorch for the tests.
+
+It is written apart from the ragged kernel (ops/paged_attention.py: split
+blocks with device-memory scratch, a second merge kernel, a cp.async ring)
+with a schedule of its own, so it serves as a second-schedule oracle: the
+two agreeing on the same inputs is evidence for both. It also runs the
+legacy arm of the decode A/B (dynamo_tpu_torch/bench.py:run_decode_kernel_ab).
 Nothing on the serving path calls it.
 """
 from __future__ import annotations
@@ -34,15 +44,49 @@ KERNEL_LAUNCHES = 0
 
 # shared memory a block of the card may take (Hopper: 227 KB)
 _SMEM_MAX = 232448
+# the kernel's constants (legacy_decode_attention.cu)
+_NW = 4              # warps a block
+_NS = 2              # stages in flight
+_GT = 8              # tokens a warp group
+_CLUSTER_MAX = 8     # blocks a cluster, the portable maximum
+_STAGE_CAP = 32768   # bytes of K + V a stage
 
 
-def _smem_bytes(elem_size: int, hd: int, ps: int) -> int:
-    """The kernel's dynamic shared memory per block: two K and two V page
-    buffers, two scale buffers of each kind, the page's scores and the
-    per-head alpha and l (legacy_decode_attention.cu:smem_bytes; a launch
-    that asks for more than the card has fails with a CUDA error)."""
-    return (4 * ps * hd * elem_size + 4 * ps * 4 + _G_MAX * ps * 4
-            + 2 * _G_MAX * 4)
+def _cluster_size(pb: int) -> int:
+    """Blocks of a row's cluster: one per page up to the portable 8, from
+    the page-table width alone (never from lens, so no host sync)."""
+    return min(pb, _CLUSTER_MAX)
+
+
+def _stage_tokens(ps: int, hd: int, elem_size: int) -> int:
+    """Tokens of one ring stage: the page, halved while its K + V exceed
+    32 KB and it stays a multiple of 8 tokens (stage_tokens in the .cu)."""
+    ct = ps
+    while 2 * ct * hd * elem_size > _STAGE_CAP and ct % 16 == 0:
+        ct //= 2
+    return ct
+
+
+def _smem_bytes(elem_size: int, hd: int, ps: int, pb: int) -> int:
+    """A block's dynamic shared memory (the .cu's Layout): 128 bytes of
+    stage barriers; the ring of two stages of K and V rows (+ the int8
+    scale rows), at least the warps' f32 states it is reused for; the
+    partials the block gathers from its cluster (acc for its outputs from
+    every block, at most G_MAX * hd / 128 + 7 chunks of 128 f32; (m, l) of
+    every block and head); the warps' probabilities, rescale factors and
+    (m, l); the block's page ids. A
+    launch that asks for more than the card has fails with a CUDA error."""
+    quant = elem_size == 1
+    ct = _stage_tokens(ps, hd, elem_size)
+    stage = 2 * ct * hd * elem_size + (2 * ct * 4 if quant else 0)
+    ring = max(_NS * stage, _NW * _G_MAX * hd * 4)
+    nt = 32 * _NW
+    gather = ((_G_MAX * hd // nt + _CLUSTER_MAX - 1) * nt * 4
+              + 2 * _CLUSTER_MAX * _G_MAX * 4)
+    fixed = (128 + ring + gather + _NW * _G_MAX * _GT * 4
+             + _NW * _G_MAX * 4 + 2 * _NW * _G_MAX * 4)
+    n_pid = -(-pb // _cluster_size(pb))
+    return fixed + -(-n_pid * 4 // 16) * 16
 
 
 def _legacy_plain(q, k_cache, v_cache, page_table, kv_lens, k_scale=None,
@@ -86,6 +130,72 @@ def _legacy_plain(q, k_cache, v_cache, page_table, kv_lens, k_scale=None,
     return out.reshape(s, h, hd).to(q.dtype)
 
 
+def _cluster_partials_plain(q, k_cache, v_cache, page_table, kv_lens,
+                            k_scale=None, v_scale=None):
+    """The kernel's per-block partials in PyTorch: block r of a row's
+    cluster attends pages r, r + C, ... (C = _cluster_size(Pb)) over the
+    tokens below the clamped length, with the int8 folds. Every page but
+    the row's last is full, so those tokens are a prefix of the block's
+    pages. A block with none holds m = -1e30, l = 0, acc = 0. Returns f32
+    acc [C, S, H, hd], m and l [C, S, H, 1] for `_cluster_merge_plain`."""
+    s, h, hd = q.shape
+    hkv, _, ps, _ = k_cache.shape
+    g = h // hkv
+    pb = page_table.shape[1]
+    c = _cluster_size(pb)
+    lens = torch.clamp(kv_lens.long(), 1, pb * ps)
+    zero = torch.zeros((), device=q.device)
+    qf = q.float().reshape(s, hkv, g, hd) * (hd ** -0.5)
+    parts = []
+    for r in range(c):
+        sub = page_table[:, r::c]
+        first = torch.arange(r, pb, c, device=q.device) * ps   # [n]
+        # valid tokens of each of the block's pages, then their sum
+        n_sub = torch.clamp(lens[:, None] - first[None, :], 0, ps).sum(1)
+        ids = sub.reshape(-1).long()
+        n = sub.shape[1]
+
+        def gather(cache):                         # [S, Hkv, n * ps, ...]
+            return cache.index_select(1, ids).reshape(
+                hkv, s, n * ps, *cache.shape[3:]).transpose(0, 1).float()
+
+        valid = torch.arange(n * ps, device=q.device)[None, :] \
+            < n_sub[:, None]                        # [S, n * ps]
+        k = torch.where(valid[:, None, :, None], gather(k_cache), zero)
+        v = torch.where(valid[:, None, :, None], gather(v_cache), zero)
+        sc = torch.einsum("skgd,sktd->skgt", qf, k)
+        if k_scale is not None:
+            sk = torch.where(valid[:, None, :], gather(k_scale), zero)
+            sv = torch.where(valid[:, None, :], gather(v_scale), zero)
+            sc = sc * sk[:, :, None, :]                # K dequant fold
+        sc = torch.where(valid[:, None, None, :], sc,
+                         torch.full((), NEG_INF, device=q.device))
+        m = sc.amax(-1, keepdim=True)                 # -1e30 on idle blocks
+        p = torch.where(valid[:, None, None, :], torch.exp(sc - m), zero)
+        l = p.sum(-1, keepdim=True)
+        if k_scale is not None:
+            p = p * sv[:, :, None, :]                  # V dequant fold
+        acc = torch.einsum("skgt,sktd->skgd", p, v)
+        parts.append((acc.reshape(s, h, hd), m.reshape(s, h, 1),
+                      l.reshape(s, h, 1)))
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+def _cluster_merge_plain(acc, m, l, dtype):
+    """The cluster's merge: M = max m_c, then sum_c acc_c e^(m_c - M) /
+    sum_c l_c e^(m_c - M), summed in rank order, cast to `dtype`. Rank 0
+    always holds token 0, so the sum of l is at least 1 and every m is
+    finite."""
+    mx = m.amax(0)
+    f = torch.exp(m - mx)                              # [C, S, H, 1]
+    out = torch.zeros_like(acc[0])
+    den = torch.zeros_like(l[0])
+    for c in range(acc.shape[0]):
+        out = out + acc[c] * f[c]
+        den = den + l[c] * f[c]
+    return (out / den).to(dtype)
+
+
 def _check_kernel_args(q, k_cache, v_cache, page_table, kv_lens,
                        k_scale=None, v_scale=None):
     dev = q.device
@@ -119,7 +229,12 @@ def _check_kernel_args(q, k_cache, v_cache, page_table, kv_lens,
             or kv_lens.shape != (s,):
         raise ValueError(f"page_table {tuple(page_table.shape)} / kv_lens "
                          f"{tuple(kv_lens.shape)} do not match {s} rows")
-    smem = _smem_bytes(k_cache.element_size(), hd, ps)
+    if ps % _GT:
+        raise ValueError(f"page size {ps} is not a multiple of {_GT} tokens")
+    pb = page_table.shape[1]
+    if pb < 1:
+        raise ValueError("page_table needs at least one page per row")
+    smem = _smem_bytes(k_cache.element_size(), hd, ps, pb)
     if smem > _SMEM_MAX:
         raise ValueError(f"page size {ps} at hd {hd} needs {smem} bytes of "
                          f"shared memory, over the card's {_SMEM_MAX}")
@@ -172,11 +287,12 @@ def decode_paged_attention_legacy(
     """The legacy decode attention: [S, H, hd] in q's dtype, NORMALISED,
     each row over the first kv_lens[s] tokens of its pages (kv_lens
     clamped to at least 1). The CUDA kernel for CUDA tensors, its plain
-    version for CPU tensors."""
-    kv_lens = torch.clamp(kv_lens, min=1).to(torch.int32)
+    version for CPU tensors. The kernel clamps kv_lens itself, so a CUDA
+    call is the one launch."""
     if q.is_cuda:
-        return _legacy_kernel(q, k_cache, v_cache, page_table, kv_lens,
-                              k_scale, v_scale)
+        return _legacy_kernel(q, k_cache, v_cache, page_table,
+                              kv_lens.to(torch.int32), k_scale, v_scale)
+    kv_lens = torch.clamp(kv_lens, min=1).to(torch.int32)
     if any(t is not None and t.is_cuda for t in
            (k_cache, v_cache, page_table, kv_lens, k_scale, v_scale)):
         raise ValueError("q is on the CPU but the cache or tables are on "
