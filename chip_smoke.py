@@ -41,19 +41,40 @@ Phases (any failed check exits non-zero; nothing is caught):
    within 1e-3, and the same greedy tokens from both engines; then the
    same with kv_quant="int8".
 4. Main path: the llama3-8b card at full width with random bf16 weights,
-   NativeEngine on cuda (default EngineConfig) -> NativeEngineWorker ->
-   LocalPipeline.generate_chat, answering 8 chat requests (100-600
-   byte-token prompts, max_tokens 64, half greedy and half sampled with
-   temperature 0.8, top_k 50 and a seed). Every request must finish with 64
-   tokens or a stop, no sampled logits may be non-finite, the kernel's
-   launch count must equal num_layers x decode steps run, and one greedy
-   request served twice must give the same tokens. Prints TTFT, decode
-   tokens/s and peak memory.
-5. int8 serving: the same path and checks with EngineConfig(kv_quant=
-   "int8") on the same weights; also prints kv_page_bytes.
+   NativeEngine on cuda (default EngineConfig: pipeline_depth 2, every
+   decode window one replay of a captured CUDA graph) ->
+   NativeEngineWorker -> LocalPipeline.generate_chat, answering 8 chat
+   requests (100-600 byte-token prompts, max_tokens 64, half greedy and
+   half sampled with temperature 0.8, top_k 50 and a seed) twice: the
+   first run captures the window graphs, the second runs on the warm
+   engine. Each run is its own path and must finish every request with 64
+   tokens or a stop, sample no non-finite logits, run one graph replay per
+   decode window (decode_dispatches == decode_windows == replays), overlap
+   windows (pipeline_overlapped > 0) and reuse staged plans
+   (decode_plan_uploads < decode_windows), and launch the kernel
+   num_layers x decode steps times (each replay adds the calls its graph
+   captured) plus the launches of the eager warm-ups before captures; the
+   first run captures at most 6 graphs (the ladder 8, 2, 1 x greedy,
+   fused). One greedy request served twice must give the same tokens.
+   Prints TTFT, decode tokens/s, peak memory, graphs captured, capture
+   seconds, the graph pool's bytes and the engine's host-phase split, per
+   run.
+4b. Graph vs eager, on the main path's engine: for the greedy variant (the
+   8 requests all greedy) and the fused one (the main path's mix), the next
+   decode window of all 8 runs once as the graph replay and once as the
+   eager `_engine_decode_window` on a clone of the cache and inputs; the
+   tokens must be identical, and the largest cache difference (all pages
+   but the scratch page) is printed. The fused variant's next window is
+   traced with torch.profiler (the ragged split kernel must appear
+   num_layers x nw times) and four engine steps after it are timed
+   untraced: ms per decode step and the device-busy share.
+4c. The 8 requests at pipeline_depth 1 on the same weights (the phase-4
+   checks): each token stream must equal the depth-2 capturing run's.
+5. int8 serving: phases 4 and 4b with EngineConfig(kv_quant="int8") on
+   the same weights; also prints kv_page_bytes.
 6. Kernels at the main path's shapes, on the engines' own caches after the
-   runs (the bf16 cache right after phase 4, then freed so that phase 5's
-   peak memory is its own; page table over the pages the run wrote, lens
+   runs (the bf16 cache after phase 4b, then freed so that the peak memory
+   of phases 4c and 5 is their own; page table over the pages the run wrote, lens
    mid-decode): the ragged kernel (bf16 cache, then int8 cache) against
    its plain version on layers 0, L/2 and L-1 (tolerance 2e-3 for a bf16
    q), then CUDA-event times of the kernel (its launches captured in one
@@ -75,8 +96,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    legacy, unified and unified + fused-tail arms must sample identical
    tokens. Prints the step times and ratios.
 
-Each path (4, 5, and the A/B at each geometry) runs with every kernel's
-launch count set to 0 just before it and read just after. The third line
+Each path (each run of 4, 4c and 5, and the A/B at each geometry) runs
+with every kernel's launch count set to 0 just before it and read just
+after. The third line
 from the end of the output is one JSON object with the kernel records, the
 second from the end the nvidia-smi reading, and the last line
 {"ok": true, "device": {...}}.
@@ -600,15 +622,15 @@ def prompt_text(n_chars: int, seed: int) -> str:
     return "".join(rng.choice(letters, n_chars))
 
 
-def chat_requests(model: str) -> list:
+def chat_requests(model: str, sampled: bool = True) -> list:
     """The main path's 8 chat requests: 100-600 byte-token prompts after
     the chat template, MAX_TOKENS each; even ones greedy, odd ones sampled
-    (temperature 0.8, top_k 50, a seed each)."""
+    (temperature 0.8, top_k 50, a seed each), or all greedy."""
     from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
     reqs = []
     for i, n in enumerate((80, 150, 220, 290, 360, 430, 500, 575)):
         kw = {}
-        if i % 2:
+        if sampled and i % 2:
             kw = dict(temperature=0.8, seed=1234 + i, ext={"top_k": 50})
         reqs.append(ChatCompletionRequest(
             model=model, max_tokens=MAX_TOKENS,
@@ -624,94 +646,153 @@ def reset_launch_counts() -> None:
     leg.KERNEL_LAUNCHES = 0
 
 
-async def serve_main_path(smi: str, kv_quant: str = "", params=None):
-    """Phase 4 (kv_quant "") or 5 (kv_quant "int8"), on the given weights
-    or on random ones from seed 0. Returns (engine, kernel launches,
-    prompt lengths, max_tokens, {wall_s, ttft_mean_ms, ttft_max_ms,
-    decode_tok_s, per_request_tok_s, peak_gib, kv_page_bytes})."""
+COUNTERS = ("decode_windows", "decode_window_steps", "decode_dispatches",
+            "decode_host_syncs", "decode_plan_uploads", "pipeline_windows",
+            "pipeline_overlapped", "pipeline_fallbacks", "mixed_steps")
+
+
+async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
+                    smi: str) -> dict:
+    """One run of the requests through the pipeline, as its own path: the
+    launch counts are set to 0 just before it and read just after. Checks
+    every request, the kernel launches (num_layers x decode steps, the
+    graph replays' launches plus those of the warm-ups before captures),
+    one graph replay per decode window and, at depth 2, the pipeline's
+    overlap and reused plans. Returns the run's record and token ids."""
     import torch
-    from dynamo_tpu_torch.engine.config import EngineConfig
-    from dynamo_tpu_torch.engine.engine import NativeEngine
-    from dynamo_tpu_torch.llm.pipeline import LocalPipeline
-    from dynamo_tpu_torch.llm.worker import NativeEngineWorker
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.protocols.delta import aggregate_chat_chunks
-    from dynamo_tpu_torch.run import build_card
     from dynamo_tpu_torch.runtime.engine import Context
-
-    card = build_card("llama3-8b")
-    cfg = card.model_config()
-    t0 = time.perf_counter()
-    engine = NativeEngine(cfg, EngineConfig(kv_quant=kv_quant),
-                          eos_token_ids=set(card.eos_token_ids), seed=0,
-                          params=params, device="cuda")
-    torch.cuda.synchronize()
-    name = "int8 serving" if kv_quant else "main path"
-    print(f"{name}: {cfg.name} {cfg.dtype} weights + "
-          f"{engine.cache['k'].dtype} KV cache ready in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    worker = await NativeEngineWorker(engine).start()
-    timed = TimedEngine(worker)
-    pipe = LocalPipeline(card, timed)
-    max_tokens = MAX_TOKENS
-    requests = chat_requests(card.name)
+    cfg, gr = engine.model_cfg, engine.graphs
 
     async def one(i: int, req):
         chunks = [c async for c in pipe.generate_chat(
-            req, Context(f"req-{i}"))]
+            req, Context(f"{tag}-{i}"))]
         return aggregate_chat_chunks(chunks)
 
+    engine.phases.reset()
     torch.cuda.reset_peak_memory_stats()
+    before = {k: getattr(engine, k) for k in COUNTERS}
+    g0 = (gr.captured, gr.warmup_seconds + gr.capture_seconds, gr.replays,
+          gr.warmup_launches, gr.warmup_seconds)
     reset_launch_counts()
-    steps0 = engine.decode_window_steps
     t_run = time.perf_counter()
     results = await asyncio.gather(*(one(i, r)
                                      for i, r in enumerate(requests)))
     wall = time.perf_counter() - t_run
     launches = pa.KERNEL_LAUNCHES
-    window_steps = engine.decode_window_steps - steps0
     peak = torch.cuda.max_memory_allocated()
-
+    d = {k: getattr(engine, k) - v for k, v in before.items()}
+    captured, cap_s, replays, warm, warm_s = (
+        gr.captured - g0[0], gr.warmup_seconds + gr.capture_seconds - g0[1],
+        gr.replays - g0[2], gr.warmup_launches - g0[3],
+        gr.warmup_seconds - g0[4])
     n_prompt = []
     for i, agg in enumerate(results):
         ch = agg.choices[0]
         n = agg.usage.completion_tokens
         n_prompt.append(agg.usage.prompt_tokens)
         check(ch.finish_reason == "stop" or (ch.finish_reason == "length"
-                                             and n == max_tokens),
+                                             and n == MAX_TOKENS),
               f"{name}: request {i} finished {ch.finish_reason!r} with {n} "
               "tokens")
-        check(timed.stamps[f"req-{i}"]["tokens"] == n,
-              f"request {i}: usage says {n} tokens, frames carried "
-              f"{timed.stamps[f'req-{i}']['tokens']}")
+        check(timed.stamps[f"{tag}-{i}"]["tokens"] == n,
+              f"{name}: request {i}: usage says {n} tokens, frames carried "
+              f"{timed.stamps[f'{tag}-{i}']['tokens']}")
     check(min(n_prompt) >= 100 and max(n_prompt) <= 600,
           f"prompt lengths {n_prompt} outside 100-600")
     check(engine.logits_nonfinite_steps() == 0,
           f"{name}: non-finite logits sampled")
     decode_tokens = sum(r.usage.completion_tokens for r in results) \
         - len(results)
+    steps = d["decode_window_steps"]
     need = cfg.num_layers * decode_tokens / engine.cfg.decode_steps
-    check(launches == cfg.num_layers * window_steps and launches >= need,
+    check(launches == cfg.num_layers * steps + warm and launches >= need,
           f"{name}: kernel launches {launches}: expected num_layers x "
-          f"decode steps = {cfg.num_layers} x {window_steps}, and at least "
-          f"{need:.0f}")
+          f"decode steps = {cfg.num_layers} x {steps} plus {warm} of the "
+          f"warm-ups, and at least {need:.0f}")
+    check(d["decode_dispatches"] == d["decode_windows"] == replays > 0,
+          f"{name}: {d['decode_windows']} decode windows, "
+          f"{d['decode_dispatches']} dispatches, {replays} graph replays")
+    if engine.cfg.pipeline_depth > 1:
+        check(d["pipeline_overlapped"] > 0
+              and d["decode_plan_uploads"] < d["decode_windows"],
+              f"{name}: pipeline counters {d}")
+    st = [timed.stamps[f"{tag}-{i}"] for i in range(len(results))]
+    ttft = [x["first"] - x["start"] for x in st]
+    per_req = [(x["tokens"] - 1) / (x["last"] - x["first"]) for x in st]
+    agg_rate = decode_tokens / (max(x["last"] for x in st)
+                                - min(x["first"] for x in st))
     m = engine.metrics()
-    st = [timed.stamps[f"req-{i}"] for i in range(len(results))]
-    ttft = [s["first"] - s["start"] for s in st]
-    per_req = [(s["tokens"] - 1) / (s["last"] - s["first"]) for s in st]
-    agg_rate = decode_tokens / (max(s["last"] for s in st)
-                                - min(s["first"] for s in st))
-    print(f"{name}: 8 chat requests, prompts {n_prompt} tokens, "
-          f"completion tokens {[r.usage.completion_tokens for r in results]}"
-          f", finish {[r.choices[0].finish_reason for r in results]}; "
-          f"wall {wall:.3f} s; decode windows {m.decode_windows}, window "
-          f"steps {window_steps}, mixed steps {m.mixed_steps}; kernel "
-          f"launches {launches}", flush=True)
-    print(f"{name} [{smi}]: TTFT mean {sum(ttft) / len(ttft) * 1e3:.1f}"
-          f" ms, max {max(ttft) * 1e3:.1f} ms; decode {agg_rate:.1f} tok/s "
-          f"aggregate, {sum(per_req) / len(per_req):.1f} tok/s per request;"
-          f" peak memory {peak / 2**30:.2f} GiB; kv_page_bytes "
-          f"{m.kv_page_bytes} (kv_quant_bits {m.kv_quant_bits})", flush=True)
+    pool = gr.pool_bytes()
+    print(f"{name} ({tag} run, pipeline_depth "
+          f"{engine.cfg.pipeline_depth}): 8 chat requests, prompts "
+          f"{n_prompt} tokens, completion tokens "
+          f"{[r.usage.completion_tokens for r in results]}, finish "
+          f"{[r.choices[0].finish_reason for r in results]}; wall "
+          f"{wall:.3f} s; counters {json.dumps(d)}; graph replays "
+          f"{replays}; kernel launches {launches} (warm-ups {warm})",
+          flush=True)
+    print(f"{name} ({tag} run) [{smi}]: TTFT mean "
+          f"{sum(ttft) / len(ttft) * 1e3:.1f} ms, max {max(ttft) * 1e3:.1f}"
+          f" ms; decode {agg_rate:.1f} tok/s aggregate, "
+          f"{sum(per_req) / len(per_req):.1f} tok/s per request; peak memory"
+          f" {peak / 2**30:.2f} GiB; kv_page_bytes {m.kv_page_bytes} "
+          f"(kv_quant_bits {m.kv_quant_bits}); graphs captured {captured} "
+          f"in {cap_s:.3f} s ({warm_s:.3f} s of it eager warm-ups), "
+          f"{gr.captured} held, pool {pool} bytes",
+          flush=True)
+    print(f"{name} ({tag} run) host phases: "
+          f"{json.dumps(engine.phases.split())}", flush=True)
+    return {"ids": [x["ids"] for x in st], "launches": launches,
+            "n_prompt": n_prompt, "captured": captured, "stats": {
+                "wall_s": wall, "ttft_mean_ms": sum(ttft) / len(ttft) * 1e3,
+                "ttft_max_ms": max(ttft) * 1e3, "decode_tok_s": agg_rate,
+                "per_request_tok_s": sum(per_req) / len(per_req),
+                "peak_gib": peak / 2**30, "kv_page_bytes": m.kv_page_bytes,
+                "graphs_captured": captured, "capture_s": cap_s,
+                "warmup_s": warm_s,
+                "pool_bytes": pool}}
+
+
+async def serve_main_path(smi: str, kv_quant: str = "", params=None,
+                          depth: int = 2):
+    """Phase 4 (kv_quant "") or 5 (kv_quant "int8"), on the given weights
+    or on random ones from seed 0: the 8 requests served twice, the first
+    run capturing the window graphs and the second on the warm engine,
+    then one greedy request served twice. Returns (engine, capturing run,
+    warm run)."""
+    import torch
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.llm.pipeline import LocalPipeline
+    from dynamo_tpu_torch.llm.worker import NativeEngineWorker
+    from dynamo_tpu_torch.run import build_card
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    card = build_card("llama3-8b")
+    cfg = card.model_config()
+    t0 = time.perf_counter()
+    engine = NativeEngine(cfg, EngineConfig(kv_quant=kv_quant,
+                                            pipeline_depth=depth),
+                          eos_token_ids=set(card.eos_token_ids), seed=0,
+                          params=params, device="cuda")
+    torch.cuda.synchronize()
+    name = "int8 serving" if kv_quant else "main path"
+    if depth != 2:
+        name += f" at depth {depth}"
+    print(f"{name}: {cfg.name} {cfg.dtype} weights + "
+          f"{engine.cache['k'].dtype} KV cache ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    worker = await NativeEngineWorker(engine).start()
+    timed = TimedEngine(worker)
+    pipe = LocalPipeline(card, timed)
+    requests = chat_requests(card.name)
+    first = await serve_run(engine, pipe, timed, requests, "req", name, smi)
+    # the ladder (8, 2, 1) x {greedy, fused} at the run's one Pb
+    check(first["captured"] <= 6,
+          f"{name}: {first['captured']} graphs captured in one run")
+    warm = await serve_run(engine, pipe, timed, requests, "warm", name, smi)
 
     # determinism: one greedy request served twice on the idle engine
     req = requests[0]
@@ -720,17 +801,186 @@ async def serve_main_path(smi: str, kv_quant: str = "", params=None):
         pre, _ = pipe.preprocessor.preprocess_chat(req, f"det-{r}")
         frames = [f async for f in worker.generate(pre, Context(pre.request_id))]
         runs.append([t for f in frames for t in f.token_ids])
-    check(runs[0] == runs[1] and len(runs[0]) == max_tokens,
+    check(runs[0] == runs[1] and len(runs[0]) == MAX_TOKENS,
           f"{name}: greedy request not deterministic: {runs[0][:8]}... vs "
           f"{runs[1][:8]}...")
     print(f"{name}: greedy request served twice, same {len(runs[0])} "
           "tokens", flush=True)
     await worker.stop()
-    stats = {"wall_s": wall, "ttft_mean_ms": sum(ttft) / len(ttft) * 1e3,
-             "ttft_max_ms": max(ttft) * 1e3, "decode_tok_s": agg_rate,
-             "per_request_tok_s": sum(per_req) / len(per_req),
-             "peak_gib": peak / 2**30, "kv_page_bytes": m.kv_page_bytes}
-    return engine, launches, n_prompt, max_tokens, stats
+    return engine, first, warm
+
+
+# -- phase 4b: one window as a graph replay and as the eager function ---------
+
+def cache_diff(a: dict, b: dict) -> float:
+    """Largest |a - b| over two caches' values and scales, layer by layer
+    (a whole f32 copy of a bf16 cache would not fit beside it), on every
+    page but the last: the scratch page that absorbs dropped writes (a
+    capture's warm-up writes its rows there) and that no page table
+    lists."""
+    worst = 0.0
+    for key in a:
+        for layer in range(a[key].shape[0]):
+            worst = max(worst, float((a[key][layer][:, :-1].float()
+                                      - b[key][layer][:, :-1].float()
+                                      ).abs().max()))
+    return worst
+
+
+def phase_graph_vs_eager(engine, label: str) -> dict:
+    """For each window variant of the main path (greedy: the 8 requests all
+    greedy; fused: the main path's mix, every top_p 1): admit the 8
+    requests, step the engine until every one decodes, then run the next
+    decode window twice from the same state: as the engine's graph replay
+    (captured first if new) and as an eager `_engine_decode_window` on a
+    clone of the cache and of the staged inputs. The tokens must be
+    identical; prints the largest difference in the cache. For the fused
+    variant, the next window's replay is traced with torch.profiler (the
+    ragged split kernel must appear num_layers x nw times) and the steps
+    after it are timed untraced: ms per decode step and the device-busy
+    share. The requests are aborted at the end."""
+    import torch
+    from dynamo_tpu_torch.engine.engine import _engine_decode_window
+    from dynamo_tpu_torch.engine.scheduler import DecodePlan
+    from dynamo_tpu_torch.engine.window_graph import HostCopies
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.worker import to_engine_request
+    from dynamo_tpu_torch.run import build_card
+    card = build_card("llama3-8b")
+    pre = OpenAIPreprocessor(card)
+    cfg = engine.model_cfg
+    out = {}
+    for variant in ("greedy", "fused"):
+        rids = []
+        for i, req in enumerate(chat_requests(card.name,
+                                              variant == "fused")):
+            er = to_engine_request(pre.preprocess_chat(
+                req, f"{label}-{variant}-{i}")[0])
+            engine.add_request(er)
+            rids.append(er.request_id)
+        while engine.scheduler.waiting or engine._pipeline is not None:
+            engine.step()
+        with engine._on_stream():
+            plan = engine.scheduler.schedule()
+            check(isinstance(plan, DecodePlan)
+                  and all(q is not None for q in plan.seqs),
+                  f"{label} {variant}: the next step is not a full decode "
+                  "window")
+            samp = engine._sampling_arrays(plan.seqs)
+            greedy = engine._samp_cache.all_greedy
+            fused = not greedy and engine._samp_cache.fused_eligible
+            check((greedy, fused) == (variant == "greedy",
+                                      variant == "fused"),
+                  f"{label} {variant}: plan greedy={greedy} fused={fused}")
+            staged = engine._stage_window(plan, samp, None, False, greedy,
+                                          fused)
+            engine._sync_stream()
+            bufs = {k: v.clone() for k, v in staged["bufs"].items()}
+            cache0 = {k: v.clone() for k, v in engine.cache.items()}
+            outs = engine._dispatch_staged(staged)
+            engine._dec_state = staged["sig"]
+            toks_g = HostCopies.wait(engine._copy_outs_async(outs))[0]
+            toks_e = _engine_decode_window(
+                cfg, engine._eos_vec, engine.params, cache0, bufs["tokens"],
+                bufs["positions"], bufs["counters"], bufs["page_table"],
+                bufs["max_pos"], bufs["temperature"], bufs["top_k"],
+                bufs["top_p"], bufs["seeds"], bufs["min_tokens"],
+                bufs["ignore_eos"], bufs["stop_ids"], n_steps=staged["nw"],
+                page_size=engine.cfg.page_size, greedy=greedy,
+                fused=fused)[0].cpu().numpy()
+            torch.cuda.synchronize()
+            diff = cache_diff(engine.cache, cache0)
+            del cache0
+            torch.cuda.empty_cache()
+            check((toks_g == toks_e).all(),
+                  f"{label} {variant}: graph tokens {toks_g.T.tolist()} != "
+                  f"eager {toks_e.T.tolist()}")
+            rec = {"nw": staged["nw"], "cache_max_abs_diff": diff}
+            print(f"graph vs eager, {label} {variant} window (S "
+                  f"{len(plan.seqs)}, Pb {plan.page_table.shape[1]}, nw "
+                  f"{staged['nw']}): tokens identical "
+                  f"({toks_g.size}); largest cache difference {diff:.6g}",
+                  flush=True)
+            engine._commit_window(plan, toks_g)
+            if variant == "fused":
+                rec.update(trace_window(engine, staged["key"]))
+        for rid in rids:
+            engine.abort(rid)
+        while engine.has_work():
+            engine.step()
+        engine._sync_stream()
+        out[variant] = rec
+    return out
+
+
+def trace_window(engine, key) -> dict:
+    """The next window of the engine's requests, one graph replay of the
+    program `key`, traced with torch.profiler; then four engine steps
+    timed with the profiler off. Returns the kernel counts, device-busy ms of
+    the traced window, the untraced ms per decode step and the share."""
+    from torch.profiler import ProfilerActivity, profile
+    from dynamo_tpu_torch.engine.window_graph import HostCopies
+    cfg = engine.model_cfg
+    with engine._on_stream():
+        plan = engine.scheduler.schedule()
+        samp = engine._sampling_arrays(plan.seqs)
+        staged = engine._stage_window(plan, samp, None, False, False, True)
+        check(staged["key"] == key, f"traced window key {staged['key']} != "
+              f"{key}")
+        engine._sync_stream()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            outs = engine._dispatch_staged(staged)
+            toks = HostCopies.wait(engine._copy_outs_async(outs))[0]
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        engine._dec_state = staged["sig"]
+        engine._commit_window(plan, toks)
+    dev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    split = sum(e.count for e in dev if "ragged_split_kernel" in e.key)
+    nw = staged["nw"]
+    check(split == cfg.num_layers * nw,
+          f"traced window: ragged_split_kernel ran {split} times, expected "
+          f"num_layers x nw = {cfg.num_layers} x {nw}")
+    # untraced: four pipelined engine steps, ending in a synchronize
+    steps0 = engine.decode_window_steps
+    t0 = time.perf_counter()
+    for _ in range(4):
+        engine.step()
+    engine._sync_stream()
+    wall = time.perf_counter() - t0
+    steps = engine.decode_window_steps - steps0
+    ms_step = wall * 1e3 / steps
+    rec = {"ragged_split_in_trace": split, "kernels_in_trace": sum(
+        e.count for e in dev), "traced_window_ms": traced_ms,
+        "device_busy_ms": busy_ms, "untraced_ms_per_step": ms_step,
+        "busy_share": busy_ms / nw / ms_step,
+        "traced_busy_share": busy_ms / traced_ms}
+    print(f"traced window (nw {nw}): {rec['kernels_in_trace']} kernels, "
+          f"ragged split kernel {split}x = num_layers x nw; device busy "
+          f"{busy_ms:.3f} ms of {traced_ms:.3f} ms wall "
+          f"({rec['traced_busy_share']:.1%}); untraced "
+          f"{ms_step:.3f} ms per decode step over {steps} steps, device "
+          f"busy {rec['busy_share']:.1%} of it", flush=True)
+    return rec
+
+
+def phase_depth_one(smi: str, params, depth_two: dict) -> None:
+    """The 8 requests served at pipeline_depth=1 on the main path's weights
+    (its own path, with the same checks): each request's token stream must
+    equal the depth-2 capturing run's."""
+    import torch
+    engine1, first1, _ = asyncio.run(serve_main_path(smi, params=params,
+                                                     depth=1))
+    for i, (a, b) in enumerate(zip(first1["ids"], depth_two["ids"])):
+        check(a == b, f"request {i}: depth 1 {a[:8]}... != depth 2 "
+              f"{b[:8]}...")
+    print(f"pipeline_depth 1 and 2: the 8 token streams are identical "
+          f"({sum(len(a) for a in first1['ids'])} tokens)", flush=True)
+    engine1.cache = None
+    del engine1
+    torch.cuda.empty_cache()
 
 
 # -- phase 6: the kernels at their paths' shapes ------------------------------
@@ -1067,18 +1317,22 @@ def main() -> int:
     err_legacy = phase_legacy()
     phase_small_reference()
     phase_small_reference("int8")
-    engine, launches, n_prompt, max_tokens, _ = asyncio.run(
-        serve_main_path(smi))
-    main_err, timing, leg_err, legacy_full = phase_timing(engine, n_prompt,
-                                                          max_tokens)
-    # the int8 engine shares the weights; the bf16 cache goes first, so
-    # the int8 run's peak memory is its own
+    engine, first, _ = asyncio.run(serve_main_path(smi))
+    graph_bf16 = phase_graph_vs_eager(engine, "bf16")
+    main_err, timing, leg_err, legacy_full = phase_timing(
+        engine, first["n_prompt"], MAX_TOKENS)
+    # the other engines share the weights; the bf16 cache goes first, so
+    # their runs' peak memory is their own
     engine.cache = None
     torch.cuda.empty_cache()
-    engine_q, launches_q, n_prompt_q, _, _ = asyncio.run(
+    phase_depth_one(smi, engine.params, first)
+    engine_q, first_q, _ = asyncio.run(
         serve_main_path(smi, "int8", params=engine.params))
-    main_err_q, timing_q, leg_err_q, _ = phase_timing(engine_q, n_prompt_q,
-                                                      max_tokens)
+    graph_int8 = phase_graph_vs_eager(engine_q, "int8")
+    main_err_q, timing_q, leg_err_q, _ = phase_timing(
+        engine_q, first_q["n_prompt"], MAX_TOKENS)
+    print(f"window graphs: {json.dumps({'bf16': graph_bf16, 'int8': graph_int8})}",
+          flush=True)
     err_legacy = max(err_legacy, leg_err, leg_err_q)
     del engine_q
     torch.cuda.empty_cache()
@@ -1092,9 +1346,9 @@ def main() -> int:
     ragged = {"name": "ragged_decode_attention", "route": "cuda",
               "source": "dynamo_tpu_torch/csrc/ragged_decode_attention.cu",
               "replaces": "dynamo_tpu/ops/paged_attention.py:88",
-              "launches": launches,
+              "launches": first["launches"],
               "max_abs_err": max(err_bf16, main_err), **timing,
-              "int8": {"launches": launches_q,
+              "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),
                        **timing_q}}
     records = [ragged]

@@ -62,9 +62,7 @@ def check_supported(cfg: ModelConfig) -> None:
 class EngineConfig:
     """Serving engine knobs (continuous batching, paging, buckets).
 
-    Field meanings and defaults are those of the JAX package's EngineConfig.
-    The port's engine is the synchronous dispatch -> fetch -> commit loop
-    (the JAX package's pipeline_depth=1, token-identical at any depth)."""
+    Field meanings and defaults are those of the JAX package's EngineConfig."""
 
     page_size: int = 64                 # tokens per KV page
     num_pages: int = 512                # device pages per engine
@@ -90,6 +88,15 @@ class EngineConfig:
     # config's mode, "int8" stores int8 pages + per-row f32 scales (about
     # half the bytes per page; ops/kv_quant.py)
     kv_quant: str = ""
+    # decode pipeline depth: 2 = the overlapped host/device loop (the engine
+    # dispatches the follow-up window from the device carry, then fetches
+    # and commits the in-flight one while the device runs it); 1 = the fully
+    # synchronous dispatch -> fetch -> commit loop. Streams are
+    # token-identical at any depth: the engine falls back to a synchronous
+    # window whenever a commit changes slot membership, and logprob /
+    # repetition-penalty plans never pipeline. Values > 2 only deepen the
+    # scheduler's page lookahead.
+    pipeline_depth: int = 2
 
 
 # -- named architectures ------------------------------------------------------

@@ -11,6 +11,11 @@ reference runs). A `torch.Generator` cannot reproduce those draws.
 
 Uint32 arithmetic runs in int64 tensors masked to 32 bits, which works on
 every device torch supports.
+
+`sample_logits` and the samplers copy nothing between host and device and
+never wait on the device, so the engine can capture them in a CUDA graph:
+constants are Python scalars or filled on the device, and the eos ban takes
+a [V] mask the engine builds once (`eos_mask`).
 """
 from __future__ import annotations
 
@@ -220,9 +225,8 @@ def _uniform01(keys: torch.Tensor, v: int) -> torch.Tensor:
                           (idx & _MASK32)[None, :])
     bits = ((b1 ^ b2) >> 9) | 0x3F800000        # 1.0f's exponent
     f = bits.to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.tensor(_TINY_F32, dtype=torch.float32, device=keys.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=keys.device) - tiny
-    return torch.maximum(tiny, f * span + tiny)
+    # maxval - minval rounds to 1.0 in f32, as in jax.random.uniform
+    return torch.clamp(f * (1.0 - _TINY_F32) + _TINY_F32, min=_TINY_F32)
 
 
 def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -288,24 +292,37 @@ def sample_fused(logits, temperature, top_k, keys):
     return torch.where(temperature <= 0.0, greedy_tok, sampled).to(torch.int32)
 
 
-def sample_logits(logits, eos_ids, temperature, top_k, top_p, seeds,
+def eos_mask(eos_ids, vocab: int, device) -> torch.Tensor:
+    """[V] bool mask of the eos ids, or None when there are none. Built once
+    per engine (the JAX window builds its `eos_vec` once per program): the
+    index copy from a Python list must not run inside a captured window."""
+    if not eos_ids:
+        return None
+    mask = torch.zeros((vocab,), dtype=torch.bool, device=device)
+    mask[torch.tensor(sorted(eos_ids), device=device)] = True
+    return mask
+
+
+def sample_logits(logits, eos, temperature, top_k, top_p, seeds,
                   counters, min_tokens, seen=None, rep_penalty=None,
                   with_lp=False, greedy=False, fused=False):
     """Shared tail of every engine step: repetition penalty (optional) +
     eos ban below min_tokens + sample (+ logprobs when with_lp).
 
-    Returns (tokens [B] int32, sampled_lp [B], top_ids [B, K], top_lps
-    [B, K]); the lp outputs are None unless with_lp. Logprobs are taken
-    over the penalised, pre-temperature, pre-ban distribution."""
+    `eos` is the engine's [V] bool mask from `eos_mask` (None = no eos), or
+    a tuple of eos ids, turned into that mask here (outside a captured
+    window only). Returns (tokens [B] int32, sampled_lp [B], top_ids
+    [B, K], top_lps [B, K]); the lp outputs are None unless with_lp.
+    Logprobs are taken over the penalised, pre-temperature, pre-ban
+    distribution."""
+    if not isinstance(eos, torch.Tensor):
+        eos = eos_mask(eos, logits.shape[-1], logits.device)
     if rep_penalty is not None:
         logits = apply_repetition_penalty(logits, seen, rep_penalty)
     basis = logits
-    if eos_ids:
+    if eos is not None:
         ban = (counters < min_tokens)[:, None]      # [B, 1]
-        eos_mask = torch.zeros((logits.shape[-1],), dtype=torch.bool,
-                               device=logits.device)
-        eos_mask[list(eos_ids)] = True
-        logits = torch.where(ban & eos_mask[None, :],
+        logits = torch.where(ban & eos[None, :],
                              torch.full((), NEG_INF, device=logits.device),
                              logits)
     if greedy:

@@ -4,9 +4,9 @@ Copied from dynamo_tpu/engine/scheduler.py, trimmed to the slice: one
 aggregated engine on one device. The disaggregation hooks (remote
 allocations, parked prefill-only sequences, early-decode gates), the KV
 tiers (host/disk offload, the shared pool), tiered-KV streaming, sequence
-parallelism, multimodal spans and the pipelined-decode page lookahead are
-left out. Planning is otherwise the JAX package's, decision for decision,
-so both engines plan the same steps for the same requests:
+parallelism and multimodal spans are left out. Planning is otherwise the
+JAX package's, decision for decision, so both engines plan the same steps
+for the same requests:
 
 - every device step has a bucketed shape: prefill chunk lengths from
   `prefill_buckets`, page-table widths from `page_bucket_ladder`, decode
@@ -16,7 +16,10 @@ so both engines plan the same steps for the same requests:
   single-token decode row plus a token-budgeted prefill chunk; pure prefill
   runs only with no active decode, pure decode whenever nothing waits;
 - alternating policy (mixed_token_budget = 0): prefill-priority with a
-  bounded streak.
+  bounded streak;
+- pipelined decode (pipeline_depth > 1): a decode plan pre-allocates, best
+  effort and never preempting, the pages of the windows the engine may run
+  off it before the first commits.
 """
 from __future__ import annotations
 
@@ -107,6 +110,9 @@ class DecodePlan:
     max_pos: np.ndarray = None  # [S]
     # window length chosen by the scheduler (a window_ladder rung)
     n_window: int = 1
+    # hidden stop ids per slot, -1 padded; K is a pow2 bucket of the longest
+    # list (>= 8 once any slot has one), 0 when no slot has any
+    stop_ids: np.ndarray = None  # [S, K]
 
 
 @dataclasses.dataclass
@@ -126,6 +132,17 @@ class EngineMetrics:
     window_wasted_steps: int = 0
     decode_windows: int = 0
     decode_host_syncs: int = 0
+    # device programs launched for decode windows (one CUDA-graph replay
+    # each on the card; must equal decode_windows), and windows that staged
+    # fresh plan arrays (flat while windows climb = zero steady-state uploads)
+    decode_dispatches: int = 0
+    decode_plan_uploads: int = 0
+    # the two-deep pipeline: windows committed through it, of those the
+    # commits that ran while a follow-up executed, and follow-ups discarded
+    # because a commit changed slot membership
+    pipeline_windows: int = 0
+    pipeline_overlapped: int = 0
+    pipeline_fallbacks: int = 0
     mixed_steps: int = 0
     decode_stall_steps: int = 0
     # KV representation (ops/kv_quant.py): bytes one page occupies on the
@@ -592,6 +609,18 @@ class Scheduler:
         active = [s for s in self.running if s is not None]
         if not active:
             return None
+        # pipeline lookahead: the engine dispatches up to pipeline_depth
+        # windows against THIS plan's page table before the first commits,
+        # so their pages are allocated (and listed in the table) now. Best
+        # effort: speculation never preempts; a failed allocation only means
+        # no follow-up window chains off this plan
+        if self.cfg.pipeline_depth > 1:
+            for seq in active:
+                limit = (len(seq.prompt)
+                         + self.params[seq.request_id].max_tokens)
+                self._ensure_pages(seq, min(
+                    seq.total_len + n_window * self.cfg.pipeline_depth,
+                    limit))
         s_count = self.cfg.max_slots
         # table width bucketed by each request's ADMISSION-TIME page limit,
         # so it never changes mid-request
@@ -608,6 +637,13 @@ class Scheduler:
         write_idx = np.full((s_count, 1), -1, np.int32)
         max_pos = np.full((s_count,), -1, np.int32)
         seqs: List[Optional[SequenceState]] = [None] * s_count
+        longest_stops = max((len(self.params[s.request_id].stop_token_ids)
+                             for s in active), default=0)
+        k_stops = 0
+        if longest_stops:
+            k_stops = next_bucket(longest_stops,
+                                  pow2_buckets(max(longest_stops, 8)))
+        stop_ids = np.full((s_count, k_stops), -1, np.int32)
         for seq in active:
             i = seq.slot
             seqs[i] = seq
@@ -620,11 +656,14 @@ class Scheduler:
             write_idx[i, 0] = seq.flat_index(pos, ps)
             max_pos[i] = (len(seq.prompt)
                           + self.params[seq.request_id].max_tokens - 1)
+            stops = self.params[seq.request_id].stop_token_ids
+            if stops:
+                stop_ids[i, :len(stops)] = list(stops)
         return DecodePlan(
             seqs=seqs, tokens=tokens, positions=positions,
             page_table=page_table, kv_lens=kv_lens, write_idx=write_idx,
             last_idx=np.zeros((s_count,), np.int32), max_pos=max_pos,
-            n_window=n_window)
+            n_window=n_window, stop_ids=stop_ids)
 
     def _preempt_one(self) -> None:
         """Evict one running seq back to waiting under MEMORY pressure:

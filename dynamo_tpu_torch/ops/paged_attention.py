@@ -44,8 +44,13 @@ import torch
 NEG_INF = -1e30
 
 # launches of the CUDA kernel since import (or since a caller reset it);
-# chip_smoke.py reads it to prove the main path went through the kernel
+# chip_smoke.py reads it to prove the main path went through the kernel. A
+# call made while its stream is being captured into a CUDA graph launches
+# nothing and counts in CAPTURED_CALLS instead; the graph's owner
+# (engine/window_graph.py) adds the calls it captured to KERNEL_LAUNCHES on
+# every replay
 KERNEL_LAUNCHES = 0
+CAPTURED_CALLS = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -277,7 +282,7 @@ def _ragged_kernel(q, k_cache, v_cache, layer: int, page_table, lens,
                    k_scale=None, v_scale=None):
     """Launch the split kernel and, when a row has more than one split, the
     merge kernel on PyTorch's current stream (no sync); one call."""
-    global KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, CAPTURED_CALLS
     _check_kernel_args(q, k_cache, v_cache, layer, page_table, lens,
                        k_scale, v_scale)
     fn = _kernel_fn()
@@ -307,7 +312,10 @@ def _ragged_kernel(q, k_cache, v_cache, layer: int, page_table, lens,
     if err != 0:
         raise RuntimeError(f"ragged_decode_attention launch failed: CUDA "
                            f"error {err}")
-    KERNEL_LAUNCHES += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED_CALLS += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return acc, m, l
 
 
@@ -355,9 +363,12 @@ def combine_self_attention(q, k_new, v_new, acc, m, l):
     q.dtype. Safe for empty prefixes (m = -1e30): the result is exactly the
     new token's value row."""
     s, h, hd = q.shape
-    g = h // k_new.shape[1]
-    kn = k_new.repeat_interleave(g, dim=1).float()       # [S, H, hd]
-    vn = v_new.repeat_interleave(g, dim=1).float()
+    hkv = k_new.shape[1]
+    # each kv head serves h // hkv consecutive q heads (a view + copy: no
+    # host-side size computation, so the fold can run in a captured graph)
+    kn = k_new[:, :, None].expand(s, hkv, h // hkv, hd).reshape(s, h, hd)
+    vn = v_new[:, :, None].expand(s, hkv, h // hkv, hd).reshape(s, h, hd)
+    kn, vn = kn.float(), vn.float()                      # [S, H, hd]
     s_self = (q.float() * kn).sum(-1, keepdim=True) * (hd ** -0.5)
     m2 = torch.maximum(m, s_self)
     a = torch.exp(m - m2)

@@ -140,31 +140,37 @@ def test_pallas_interpret_oracle_token_identical(jax_params):
         decode_steps=2)
 
 
-def test_scheduler_plans_match():
+@pytest.mark.parametrize("depth", [1, 2])
+def test_scheduler_plans_match(depth):
     """The copied scheduler plans the same steps as the JAX one: plan kind,
-    tokens, positions, kv lengths and window sizes, step for step."""
+    tokens, positions, kv lengths, page tables (with the pipelined decode's
+    page lookahead at depth 2), window sizes and stop ids, step for
+    step."""
     from dynamo_tpu.engine.scheduler import Scheduler as JScheduler
     from dynamo_tpu_torch.engine.scheduler import Scheduler as TScheduler
-    cfg = dict(ENGINE_KW, num_pages=40)
-    js = JScheduler(JEngineConfig(pipeline_depth=1, **cfg))
+    cfg = dict(ENGINE_KW, num_pages=40, pipeline_depth=depth)
+    js = JScheduler(JEngineConfig(**cfg))
     ts = TScheduler(TEngineConfig(**cfg))
     rng = np.random.default_rng(4)
     for i, n in enumerate((12, 50, 7, 33, 90)):
         prompt = rng.integers(3, 250, n).tolist()
-        js.add_request(JRequest(f"r{i}", prompt,
-                                JSamplingParams(max_tokens=6 + i)))
-        ts.add_request(TRequest(f"r{i}", prompt,
-                                TSamplingParams(max_tokens=6 + i)))
+        stops = tuple(range(300, 300 + i % 3 * 5))
+        js.add_request(JRequest(f"r{i}", prompt, JSamplingParams(
+            max_tokens=6 + i, stop_token_ids=stops)))
+        ts.add_request(TRequest(f"r{i}", prompt, TSamplingParams(
+            max_tokens=6 + i, stop_token_ids=stops)))
     for step in range(60):
         jp, tp = js.schedule(), ts.schedule()
         assert type(jp).__name__ == type(tp).__name__, step
         if jp is None:
             break
-        for f in ("tokens", "positions", "kv_lens", "last_idx"):
+        for f in ("tokens", "positions", "kv_lens", "last_idx",
+                  "page_table"):
             np.testing.assert_array_equal(getattr(tp, f), getattr(jp, f))
         tok = 3 + step
         if type(jp).__name__ == "DecodePlan":
             assert tp.n_window == jp.n_window
+            np.testing.assert_array_equal(tp.stop_ids, jp.stop_ids)
             for s in (js, ts):
                 for seq in [x for x in s.running if x is not None]:
                     s.commit_decode_token(seq, tok)
