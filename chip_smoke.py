@@ -36,10 +36,25 @@ Phases (any failed check exits non-zero; nothing is caught):
       rows up to max_model_len, lens on block-assignment boundaries, an
       all-clamped batch, GQA 1/4/8, ps 8/64/128) with f32, bf16 and int8
       caches (int8 with an f32 and a bf16 q), against both.
+   d. the W8A16 kernel (csrc/w8a16_gemm.cu) against its plain version
+      (`x @ wmat(w)`, computed in f32 from the same rounded weights) at
+      every llama3-8b projection shape (wq, wk, wv, wo, w_gate, w_up,
+      w_down, lm_head) at M = 1, 3, 8 and 16 with a bf16 x (max |diff| <=
+      1e-2 * max |y|) and at M = 1 and 8 with an f32 x (rtol = atol =
+      1e-4); at an odd N and a K the split does not divide (1000 x 333,
+      4100 x 1031), f32 and bf16; at M = 512 (w_gate) through the route
+      ops/quant.linear takes there (the dequantize entry, bit-identical to
+      `wmat`, + torch.matmul) and through the kernel. Then CUDA-event times
+      over replayed graphs (weights cycled past the L2) at M = 8 for each
+      shape: the kernel, its bound (its bytes over 3.35 TB/s), its share of
+      the bound, the plain version, and the library yardstick
+      (torch.matmul against the bf16 weight of the same shape, twice the
+      bytes); both routes at M = 16 and 512; the dequantize entry alone.
 3. Small reference: the `tiny` model in f32, decode logits on the card
-   (the kernel) against the same step on the CPU (the plain version),
+   (the kernels) against the same step on the CPU (the plain versions),
    within 1e-3, and the same greedy tokens from both engines; then the
-   same with kv_quant="int8".
+   same with kv_quant="int8", and with quant="int8" (int8 weights: the
+   W8A16 kernel on the card).
 4. Main path: the llama3-8b card at full width with random bf16 weights,
    NativeEngine on cuda (default EngineConfig: pipeline_depth 2, every
    decode window one replay of a captured CUDA graph) ->
@@ -96,7 +111,26 @@ Phases (any failed check exits non-zero; nothing is caught):
    legacy, unified and unified + fused-tail arms must sample identical
    tokens. Prints the step times and ratios.
 
-Each path (each run of 4, 4c and 5, and the A/B at each geometry) runs
+9. The HTTP path at full width: HttpService (frontend/service.py) on a
+   localhost port in front of LocalPipeline -> NativeEngineWorker ->
+   NativeEngine, llama3-8b with random weights from seed 0 and
+   quant="int8", bf16 KV pages, the default EngineConfig. The 8 requests
+   go over HTTP, 4 streamed (SSE, with usage) and 4 unary, half greedy and
+   half sampled, twice (the first run captures the window graphs). Each
+   run: every request finishes with 64 tokens or a stop, no non-finite
+   logits, one graph replay per window, every window graph holding
+   (7 L + 1) x nw W8A16 launches and L x nw ragged ones, the replays
+   adding (7 L + 1) per decode step (the warm-ups and the prefill steps'
+   head products come on top), GET /metrics showing llm_ttft_seconds_count
+   equal to the choices served and a nonzero llm_itl_seconds_count.
+   Prints the TTFT and ITL p50 / p90 from the histograms beside the
+   client-side TTFT of the streamed requests, decode tokens/s, peak
+   memory and weight_bytes against phase 4's bf16 engine.
+10. The entry point: `python -m dynamo_tpu_torch.run in=http:0 out=native
+   tiny --quant int8` as a subprocess on the card; its READY line, one
+   streamed chat ending in [DONE], then the subprocess is stopped.
+
+Each path (each run of 4, 4c, 5 and 9, and the A/B at each geometry) runs
 with every kernel's launch count set to 0 just before it and read just
 after. The third line
 from the end of the output is one JSON object with the kernel records, the
@@ -106,7 +140,10 @@ second from the end the nvidia-smi reading, and the last line
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -540,31 +577,209 @@ def phase_legacy() -> float:
     return worst
 
 
+# -- phase 2d: the W8A16 kernel ---------------------------------------------------
+
+def projection_shapes(cfg) -> dict:
+    """{name: (K, N)} of a model's seven projections and its head."""
+    d, hd = cfg.hidden_size, cfg.head_dim
+    h, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+    return {"wq": (d, h * hd), "wk": (d, hkv * hd), "wv": (d, hkv * hd),
+            "wo": (h * hd, d), "w_gate": (d, f), "w_up": (d, f),
+            "w_down": (f, d), "lm_head": (d, cfg.vocab_size)}
+
+
+def quant_weight(k: int, n: int, seed: int) -> dict:
+    """A random [K, N] weight, N(0, 1/K) as init_params draws it, quantized
+    on the card (ops/quant.quantize_int8)."""
+    import torch
+    from dynamo_tpu_torch.ops.quant import quantize_int8
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((k, n), generator=g, device="cuda") * k ** -0.5
+    qw = quantize_int8(w)
+    qw["s"] = qw["s"].reshape(-1)
+    return qw
+
+
+def w8a16_check(label: str, x, w, got) -> float:
+    """The kernel's output `got` against the plain version on the same
+    inputs, computed in f32 from the weights rounded to x's dtype (`wmat`):
+    f32 x within rtol = atol = 1e-4; bf16 x (both sides' single rounding
+    to bf16 at the end) max |diff| <= 1e-2 * max |y|. Returns max |diff|."""
+    import torch
+    from dynamo_tpu_torch.ops.quant import wmat
+    want = x.float() @ wmat(w, x.dtype).float()
+    check(got.dtype == x.dtype and got.shape == want.shape,
+          f"{label}: output {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    err = float((got.float() - want).abs().max())
+    if x.dtype == torch.float32:
+        ok = torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+        tol = "rtol = atol = 1e-4"
+    else:
+        ok = err <= 1e-2 * float(want.abs().max())
+        tol = f"1e-2 x max|y| = {1e-2 * float(want.abs().max()):.3g}"
+    check(ok, f"{label}: differs from the plain version by {err} ({tol})")
+    return err
+
+
+def phase_w8a16() -> tuple:
+    """2d: the W8A16 kernel against its plain version, then its times.
+    Returns (max abs error, the timing record, the dequantize record)."""
+    import torch
+    from dynamo_tpu_torch.engine.config import get_model_config
+    from dynamo_tpu_torch.ops import quant
+    cfg = get_model_config("llama3-8b")
+    shapes = projection_shapes(cfg)
+    worst = 0.0
+    for si, (name, (k, n)) in enumerate(shapes.items()):
+        w = quant_weight(k, n, seed=si)
+        g = torch.Generator(device="cuda").manual_seed(100 + si)
+        for m, dt in ((1, torch.bfloat16), (3, torch.bfloat16),
+                      (8, torch.bfloat16), (16, torch.bfloat16),
+                      (1, torch.float32), (8, torch.float32)):
+            x = torch.randn((m, k), generator=g, device="cuda").to(dt)
+            got = quant.w8a16_gemm(x, w["q"], w["s"])
+            torch.cuda.synchronize()
+            err = w8a16_check(f"w8a16 {name} M={m} {str(dt)[6:]}", x, w, got)
+            worst = max(worst, err)
+        splits, per = quant.gemm_config(
+            8, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+        print(f"w8a16 kernel {name} (K={k}, N={n}; at M 8 bf16 {splits} "
+              f"splits of {per * quant._MMA_CHUNK_K} rows): M = 1/3/8/16 "
+              f"bf16 and 1/8 f32 within tolerance, max_abs_err so far "
+              f"{worst:.3g}", flush=True)
+        del w
+    for k, n in ((1000, 333), (4100, 1031)):
+        w = quant_weight(k, n, seed=k)
+        g = torch.Generator(device="cuda").manual_seed(n)
+        for m in (1, 3, 8, 16):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, k), generator=g, device="cuda").to(dt)
+                got = quant.w8a16_gemm(x, w["q"], w["s"])
+                torch.cuda.synchronize()
+                worst = max(worst, w8a16_check(
+                    f"w8a16 K={k} N={n} M={m} {str(dt)[6:]}", x, w, got))
+        print(f"w8a16 kernel at K={k}, N={n} (odd N, a partial chunk of K): "
+              f"M = 1/3/8/16 f32 and bf16 within tolerance", flush=True)
+    # M = 512: the route linear takes (dequantize + matmul), bit-identical
+    # dequantize, and the kernel itself
+    k, n = shapes["w_gate"]
+    w = quant_weight(k, n, seed=77)
+    x = torch.randn((512, k), device="cuda").to(torch.bfloat16)
+    deq = quant.dequantize(w, torch.bfloat16)
+    check(torch.equal(deq, quant.wmat(w, torch.bfloat16)),
+          "w8a16 dequantize is not bit-identical to wmat")
+    via_linear = quant.linear(x, w)
+    check(torch.equal(via_linear, x @ quant.wmat(w, torch.bfloat16)),
+          "linear at M = 512 is not the dequantize + matmul route")
+    worst = max(worst, w8a16_check("w8a16 w_gate M=512 bf16 (kernel)", x, w,
+                                   quant.w8a16_gemm(x, w["q"], w["s"])))
+    print("w8a16 at M = 512 (w_gate): the dequantize entry is bit-identical "
+          "to wmat, linear's route equals wmat + torch.matmul exactly, and "
+          "the kernel is within tolerance", flush=True)
+    timing, dequant_rec = w8a16_timing(cfg, shapes)
+    return worst, timing, dequant_rec
+
+
+def w8a16_timing(cfg, shapes) -> tuple:
+    """CUDA-event times over replayed graphs at M = 8 for each projection
+    shape, with the weights cycled over copies that together exceed the
+    50 MB L2 (a decode step reads each weight once): the kernel, its bound,
+    the plain version (`x @ wmat(w)`), and torch.matmul against the bf16
+    weight of the same shape. Then both routes at M = 16 and 512 (w_gate)
+    and the dequantize entry alone. Returns the kernel's record (one decode
+    step's W8A16 work: 7 projections x L + the head) and the dequantize
+    entry's."""
+    import torch
+    from dynamo_tpu_torch.ops import quant
+    bf16 = torch.bfloat16
+    per_shape = {}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for si, (name, (k, n)) in enumerate(shapes.items()):
+        copies = max(1, -(-(128 << 20) // (k * n)))
+        ws = [quant_weight(k, n, seed=si) for _ in range(copies)]
+        lib_copies = max(1, -(-(128 << 20) // (2 * k * n)))
+        wb = [quant.wmat(ws[0], bf16) for _ in range(lib_copies)]
+        x = torch.randn((8, k), device="cuda").to(bf16)
+        kernel_ms = cuda_ms(lambda i: quant.w8a16_gemm(
+            x, ws[i % copies]["q"], ws[i % copies]["s"]), 40, graph=True)
+        plain_ms = cuda_ms(lambda i: x @ quant.wmat(ws[i % copies], bf16), 10)
+        lib_ms = cuda_ms(lambda i: x @ wb[i % lib_copies], 40, graph=True)
+        nbytes = k * n + 4 * n + 2 * 8 * k + 2 * 8 * n
+        b = bound(nbytes, 2 * 8 * k * n, "bfloat16")
+        per_shape[name] = {"K": k, "N": n, "ms": kernel_ms,
+                           "plain_ms": plain_ms, "library_ms": lib_ms,
+                           **b, "share_of_bound": b["bound_ms"] / kernel_ms}
+        reps = 1 if name == "lm_head" else cfg.num_layers
+        for key, v in (("ms", kernel_ms), ("plain_ms", plain_ms),
+                       ("library_ms", lib_ms), ("bound_ms", b["bound_ms"])):
+            tot[key] += reps * v
+        print(f"timing w8a16 kernel {name} (M=8, K={k}, N={n}, bf16 x, "
+              f"{copies} weight copies): kernel {kernel_ms:.4f} ms (graph "
+              f"replay), bound {b['bound_ms']:.4f} ms ({nbytes} bytes), "
+              f"{b['bound_ms'] / kernel_ms:.1%} of the bound; plain "
+              f"(wmat + matmul) {plain_ms:.4f} ms; torch.matmul on the bf16 "
+              f"weight {lib_ms:.4f} ms", flush=True)
+        del ws, wb
+        torch.cuda.empty_cache()
+    # the large-M routes at w_gate's shape
+    k, n = shapes["w_gate"]
+    w = quant_weight(k, n, seed=5)
+    routes = {}
+    for m in (16, 512):
+        x = torch.randn((m, k), device="cuda").to(bf16)
+        routes[f"M={m}"] = {
+            "kernel_ms": cuda_ms(lambda i: quant.w8a16_gemm(
+                x, w["q"], w["s"]), 10, graph=True),
+            "dequant_matmul_ms": cuda_ms(
+                lambda i: x @ quant.dequantize(w, bf16), 10, graph=True)}
+    deq_ms = cuda_ms(lambda i: quant.dequantize(w, bf16), 20, graph=True)
+    deq_plain = cuda_ms(lambda i: quant.wmat(w, bf16), 10)
+    deq_b = bound(k * n + 4 * n + 2 * k * n, k * n, "bfloat16")
+    print(f"w8a16 routes at w_gate (K={k}, N={n}), chosen at M <= "
+          f"{quant.GEMV_MAX_M}: {json.dumps(routes)}; the dequantize entry "
+          f"alone {deq_ms:.4f} ms (plain wmat {deq_plain:.4f} ms, bound "
+          f"{deq_b['bound_ms']:.4f} ms)", flush=True)
+    print(f"w8a16 per decode step (7 x {cfg.num_layers} projections + the "
+          f"head, M = 8): kernel {tot['ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.1%}), "
+          f"plain {tot['plain_ms']:.3f} ms, torch.matmul on bf16 weights "
+          f"{tot['library_ms']:.3f} ms", flush=True)
+    timing = {**tot, "bound_by": "bytes", "per_shape": per_shape,
+              "large_m_routes": routes}
+    dequant = {"ms": deq_ms, "plain_ms": deq_plain, "library_ms": None,
+               "shape": [k, n], **deq_b}
+    return timing, dequant
+
+
 # -- phase 3: tiny f32 card vs CPU --------------------------------------------
 
-def phase_small_reference(kv_quant: str = "") -> None:
+def tree_to(tree, dev):
+    """A parameter tree (with quantized {"q", "s"} leaves) on `dev`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_small_reference(kv_quant: str = "", quant: str = "") -> None:
     import torch
     from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
     from dynamo_tpu_torch.engine.engine import NativeEngine
     from dynamo_tpu_torch.engine.scheduler import SamplingParams
     from dynamo_tpu_torch.models import llama
-    cfg = ModelConfig(dtype="float32", max_model_len=512)
+    cfg = ModelConfig(dtype="float32", max_model_len=512, quant=quant)
     params = llama.init_params(cfg, "cpu", seed=0)
     ecfg = EngineConfig(page_size=8, num_pages=64, max_slots=4,
                         max_prefill_chunk=32, prefill_buckets=(8, 16, 32),
                         max_model_len=512, kv_quant=kv_quant)
-    engines = {dev: NativeEngine(
-        cfg, ecfg, device=dev,
-        params={"embed": params["embed"].to(dev),
-                "final_norm": params["final_norm"].to(dev),
-                "lm_head": params["lm_head"].to(dev),
-                "layers": {k: t.to(dev) for k, t in
-                           params["layers"].items()}})
-        for dev in ("cpu", "cuda")}
+    engines = {dev: NativeEngine(cfg, ecfg, device=dev,
+                                 params=tree_to(params, dev))
+               for dev in ("cpu", "cuda")}
     prompt = list(range(5, 45))
     sp = SamplingParams(max_tokens=12, temperature=0.0)
     outs = {dev: e.generate(prompt, sp, "r") for dev, e in engines.items()}
-    label = f"tiny f32{' kv_quant=' + kv_quant if kv_quant else ''}"
+    label = (f"tiny f32{' kv_quant=' + kv_quant if kv_quant else ''}"
+             f"{' quant=' + quant if quant else ''}")
     check(outs["cpu"] == outs["cuda"],
           f"{label} greedy tokens differ: cpu {outs['cpu']} cuda "
           f"{outs['cuda']}")
@@ -642,9 +857,14 @@ def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0 (just before a path)."""
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import paged_attention_oracle as leg
+    from dynamo_tpu_torch.ops import quant
     pa.KERNEL_LAUNCHES = 0
     leg.KERNEL_LAUNCHES = 0
+    quant.KERNEL_LAUNCHES = 0
+    quant.DEQUANT_LAUNCHES = 0
 
+
+RAGGED, W8A16 = "ragged_decode_attention", "w8a16_gemm"
 
 COUNTERS = ("decode_windows", "decode_window_steps", "decode_dispatches",
             "decode_host_syncs", "decode_plan_uploads", "pipeline_windows",
@@ -674,7 +894,7 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
     torch.cuda.reset_peak_memory_stats()
     before = {k: getattr(engine, k) for k in COUNTERS}
     g0 = (gr.captured, gr.warmup_seconds + gr.capture_seconds, gr.replays,
-          gr.warmup_launches, gr.warmup_seconds)
+          gr.warmup_launches[RAGGED], gr.warmup_seconds)
     reset_launch_counts()
     t_run = time.perf_counter()
     results = await asyncio.gather(*(one(i, r)
@@ -685,7 +905,7 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
     d = {k: getattr(engine, k) - v for k, v in before.items()}
     captured, cap_s, replays, warm, warm_s = (
         gr.captured - g0[0], gr.warmup_seconds + gr.capture_seconds - g0[1],
-        gr.replays - g0[2], gr.warmup_launches - g0[3],
+        gr.replays - g0[2], gr.warmup_launches[RAGGED] - g0[3],
         gr.warmup_seconds - g0[4])
     n_prompt = []
     for i, agg in enumerate(results):
@@ -756,12 +976,12 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
 
 
 async def serve_main_path(smi: str, kv_quant: str = "", params=None,
-                          depth: int = 2):
+                          depth: int = 2, quant: str = ""):
     """Phase 4 (kv_quant "") or 5 (kv_quant "int8"), on the given weights
-    or on random ones from seed 0: the 8 requests served twice, the first
-    run capturing the window graphs and the second on the warm engine,
-    then one greedy request served twice. Returns (engine, capturing run,
-    warm run)."""
+    or on random ones from seed 0 (int8 weights with quant "int8"): the 8
+    requests served twice, the first run capturing the window graphs and
+    the second on the warm engine, then one greedy request served twice.
+    Returns (engine, capturing run, warm run)."""
     import torch
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import NativeEngine
@@ -771,7 +991,7 @@ async def serve_main_path(smi: str, kv_quant: str = "", params=None,
     from dynamo_tpu_torch.runtime.engine import Context
 
     card = build_card("llama3-8b")
-    cfg = card.model_config()
+    cfg = dataclasses.replace(card.model_config(), quant=quant)
     t0 = time.perf_counter()
     engine = NativeEngine(cfg, EngineConfig(kv_quant=kv_quant,
                                             pipeline_depth=depth),
@@ -779,9 +999,11 @@ async def serve_main_path(smi: str, kv_quant: str = "", params=None,
                           params=params, device="cuda")
     torch.cuda.synchronize()
     name = "int8 serving" if kv_quant else "main path"
+    if quant:
+        name += f" with {quant} weights"
     if depth != 2:
         name += f" at depth {depth}"
-    print(f"{name}: {cfg.name} {cfg.dtype} weights + "
+    print(f"{name}: {cfg.name} {quant or cfg.dtype} weights + "
           f"{engine.cache['k'].dtype} KV cache ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     worker = await NativeEngineWorker(engine).start()
@@ -1144,6 +1366,8 @@ def phase_timing_full_context(engine, q, perm, label: str):
                                                         got, want), tol)
     kernel_ms = cuda_ms(lambda i: pa.decode_paged_attention_prefix(
         q, kc, vc, i % nl, pt, lens, ks, vs), 200, graph=True)
+    plain_ms = cuda_ms(lambda i: pa._ragged_plain(
+        q, kc, vc, i % nl, pt, lens, ks, vs), 10)
     library_ms = cuda_ms(lambda i: sdpa_yardstick(
         q, kc[i % nl], vc[i % nl], pt, lens,
         *((ks[i % nl], vs[i % nl]) if quant else ())), 50)
@@ -1155,7 +1379,7 @@ def phase_timing_full_context(engine, q, perm, label: str):
     print(f"timing ragged kernel, {label} at the full context (S={s}, "
           f"Pb={pb}, lens={lens.tolist()}): max_abs_err acc/m/l = "
           f"{' '.join(f'{e:.3g}' for e in errs)} (tol {tol}); kernel "
-          f"{kernel_ms:.4f} ms (graph replay), "
+          f"{kernel_ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, "
           f"gather{'+dequant' if quant else ''}+sdpa {library_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({nbytes} bytes), "
           f"{share:.1%} of the bound", flush=True)
@@ -1167,22 +1391,25 @@ def phase_timing_full_context(engine, q, perm, label: str):
     if not quant:
         leg_ms = cuda_ms(lambda i: leg.decode_paged_attention_legacy(
             q, kc[i % nl], vc[i % nl], pt, lens), 200, graph=True)
+        leg_plain = cuda_ms(lambda i: leg._legacy_plain(
+            q, kc[i % nl], vc[i % nl], pt, lens), 10)
         lbytes = (kv_bytes(lens, hkv, hd, kc.element_size(), False)
                   + 2 * q.numel() * q.element_size() + pt.numel() * 4
                   + lens.numel() * 4)
         lb = bound(lbytes, 4 * int(lens.sum()) * h * hd, cfg.dtype)
         legacy_full.update(ms=leg_ms, bound_ms=lb["bound_ms"],
-                           library_ms=library_ms,
+                           plain_ms=leg_plain, library_ms=library_ms,
                            share_of_bound=lb["bound_ms"] / leg_ms)
         msg = (f"; kernel {leg_ms:.4f} ms (graph replay; the ragged kernel "
-               f"{kernel_ms:.4f} ms), bound {lb['bound_ms']:.4f} ms "
+               f"{kernel_ms:.4f} ms), plain {leg_plain:.4f} ms, bound "
+               f"{lb['bound_ms']:.4f} ms "
                f"({lbytes} bytes), {lb['bound_ms'] / leg_ms:.1%} of the "
                f"bound")
     print(f"legacy kernel, {label} at the full context, layer 0: "
           f"max_abs_err vs plain {lerrs[0]:.3g}, vs the ragged kernel "
           f"{lerrs[1]:.3g} (tol 0.01){msg}", flush=True)
     return max(errs), {"ms": kernel_ms, "bound_ms": b["bound_ms"],
-                       "library_ms": library_ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
                        "share_of_bound": share}, legacy_full
 
 
@@ -1289,6 +1516,317 @@ def phase_ab(model: str) -> tuple:
     return res, launches
 
 
+# -- phase 9: the HTTP path at full width, int8 weights -------------------------
+
+async def _http(port: int, method: str, path: str, body=None) -> tuple:
+    """One HTTP/1.1 request to localhost; (status, headers, body bytes),
+    reading by content-length or chunked transfer (the server keeps
+    connections alive)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        data = json.dumps(body).encode() if body is not None else b""
+        writer.write(f"{method} {path} HTTP/1.1\r\nhost: localhost\r\n"
+                     "content-type: application/json\r\n"
+                     f"content-length: {len(data)}\r\n\r\n".encode() + data)
+        await writer.drain()
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
+        lines = head.split("\r\n")
+        status = int(lines[0].split(" ")[1])
+        headers = {k.strip().lower(): v.strip() for k, _, v in
+                   (x.partition(":") for x in lines[1:] if ":" in x)}
+        if headers.get("transfer-encoding") != "chunked":
+            n = int(headers.get("content-length", "0"))
+            return status, headers, await reader.readexactly(n)
+        out = b""
+        while True:
+            size = int((await reader.readuntil(b"\r\n")).strip(), 16)
+            if size == 0:
+                await reader.readuntil(b"\r\n")
+                return status, headers, out
+            out += await reader.readexactly(size)
+            await reader.readexactly(2)
+    finally:
+        writer.close()
+        await writer.wait_closed()
+
+
+async def _sse(port: int, body: dict) -> tuple:
+    """A streamed chat: (parsed frames, ended with [DONE], seconds to the
+    first frame with content or None, seconds to the first frame). With
+    random weights and the byte tokenizer most sampled ids (>= 259) print
+    nothing, so a stream can end without content."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    t0 = time.perf_counter()
+    first, frames, done = None, [], False
+    first_frame = None
+    try:
+        data = json.dumps(body).encode()
+        writer.write(b"POST /v1/chat/completions HTTP/1.1\r\nhost: localhost"
+                     b"\r\ncontent-type: application/json\r\ncontent-length: "
+                     + str(len(data)).encode() + b"\r\n\r\n" + data)
+        await writer.drain()
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
+        check(" 200 " in head.split("\r\n")[0], f"SSE status: {head[:40]}")
+        buf = b""
+        while True:
+            size = int((await reader.readuntil(b"\r\n")).strip(), 16)
+            if size == 0:
+                break
+            buf += await reader.readexactly(size)
+            await reader.readexactly(2)
+            while b"\n\n" in buf:
+                block, buf = buf.split(b"\n\n", 1)
+                payload = "\n".join(line[5:].lstrip(" ") for line in
+                                    block.decode().split("\n")
+                                    if line.startswith("data:"))
+                if payload == "[DONE]":
+                    done = True
+                    continue
+                frame = json.loads(payload)
+                if first_frame is None:
+                    first_frame = time.perf_counter() - t0
+                if first is None and any(
+                        (c.get("delta") or {}).get("content")
+                        for c in frame.get("choices", [])):
+                    first = time.perf_counter() - t0
+                frames.append(frame)
+    finally:
+        writer.close()
+        await writer.wait_closed()
+    return frames, done, first, first_frame
+
+
+def hist_counts(text: str, name: str) -> int:
+    """The sum of a histogram's _count series in a /metrics text."""
+    return sum(int(m.group(1)) for m in re.finditer(
+        rf"^{name}_count{{[^}}]*}} (\d+)$", text, re.M))
+
+
+async def http_run(svc, engine, timed, tag: str, smi: str) -> dict:
+    """One run of the 8 requests over HTTP, its own path (launch counts 0
+    just before, read just after): 4 streamed, 4 unary, checked as the
+    phase-9 docstring says."""
+    import torch
+    from dynamo_tpu_torch.observability.serving import SERVING
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import quant
+    cfg, gr = engine.model_cfg, engine.graphs
+    name = f"HTTP path ({tag} run)"
+    bodies = []
+    for i, req in enumerate(chat_requests(cfg.name)):
+        body = req.to_json(exclude_none=True)
+        if i < 4:
+            body.update(stream=True,
+                        stream_options={"include_usage": True})
+        bodies.append(body)
+    SERVING.reset()
+    timed.stamps.clear()
+    before = {k: getattr(engine, k) for k in COUNTERS}
+    g0 = (gr.replays, dict(gr.warmup_launches), dict(gr.replay_launches))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t_run = time.perf_counter()
+
+    async def unary(body):
+        status, _, raw = await _http(svc.port, "POST",
+                                     "/v1/chat/completions", body)
+        check(status == 200, f"{name}: status {status}: {raw[:200]}")
+        return json.loads(raw)
+
+    results = await asyncio.gather(*(
+        _sse(svc.port, b) if b.get("stream") else unary(b) for b in bodies))
+    wall = time.perf_counter() - t_run
+    launches = {RAGGED: pa.KERNEL_LAUNCHES, W8A16: quant.KERNEL_LAUNCHES,
+                "w8a16_dequant": quant.DEQUANT_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    d = {k: getattr(engine, k) - v for k, v in before.items()}
+    replays = gr.replays - g0[0]
+    warm = {k: v - g0[1][k] for k, v in gr.warmup_launches.items()}
+    replayed = {k: v - g0[2][k] for k, v in gr.replay_launches.items()}
+    finishes, client_ttft, first_frames, completion = [], [], [], []
+    for i, res in enumerate(results):
+        if isinstance(res, tuple):
+            frames, done, first, first_frame = res
+            check(done, f"{name}: stream {i} did not end with [DONE]")
+            first_frames.append(first_frame)
+            fin = [c["finish_reason"] for f in frames
+                   for c in f.get("choices", []) if c.get("finish_reason")]
+            usage = next(f["usage"] for f in frames if f.get("usage"))
+            if first is not None:
+                client_ttft.append(first)
+        else:
+            fin = [res["choices"][0]["finish_reason"]]
+            usage = res["usage"]
+        n = usage["completion_tokens"]
+        check(len(fin) == 1 and (fin[0] == "stop" or (
+            fin[0] == "length" and n == MAX_TOKENS)),
+            f"{name}: request {i} finished {fin} with {n} tokens")
+        finishes.append(fin[0])
+        completion.append(n)
+    check(engine.logits_nonfinite_steps() == 0,
+          f"{name}: non-finite logits sampled")
+    check(d["decode_dispatches"] == d["decode_windows"] == replays > 0,
+          f"{name}: {d['decode_windows']} decode windows, "
+          f"{d['decode_dispatches']} dispatches, {replays} graph replays")
+    nl, steps = cfg.num_layers, d["decode_window_steps"]
+    for key, calls in gr.captured_calls().items():
+        nw = key[4]
+        check(calls[W8A16] == (7 * nl + 1) * nw and calls[RAGGED] == nl * nw,
+              f"{name}: graph {key} holds {calls}, expected "
+              f"{(7 * nl + 1) * nw} W8A16 and {nl * nw} ragged launches")
+    check(replayed[W8A16] == (7 * nl + 1) * steps
+          and replayed[RAGGED] == nl * steps
+          and launches[RAGGED] == nl * steps + warm[RAGGED],
+          f"{name}: replays added {replayed} launches over {steps} decode "
+          f"steps; ragged launches {launches[RAGGED]} (warm-ups "
+          f"{warm[RAGGED]})")
+    eager_w8 = launches[W8A16] - replayed[W8A16] - warm[W8A16]
+    check(eager_w8 >= 0, f"{name}: W8A16 launches {launches[W8A16]} < "
+          f"replays {replayed[W8A16]} + warm-ups {warm[W8A16]}")
+    status, _, raw = await _http(svc.port, "GET", "/metrics")
+    text = raw.decode()
+    n_ttft = hist_counts(text, "llm_ttft_seconds")
+    n_itl = hist_counts(text, "llm_itl_seconds")
+    check(status == 200 and n_ttft == len(bodies) and n_itl > 0,
+          f"{name}: /metrics llm_ttft_seconds_count {n_ttft} (choices "
+          f"{len(bodies)}), llm_itl_seconds_count {n_itl}")
+    labels = (cfg.name, "standard")
+    q = {f"{h}_p{int(p * 100)}_ms": getattr(SERVING, h).quantile(p, *labels)
+         * 1e3 for h in ("ttft", "itl") for p in (0.5, 0.9)}
+    st = list(timed.stamps.values())
+    decode_tokens = sum(completion) - len(completion)
+    rate = decode_tokens / (max(x["last"] for x in st)
+                            - min(x["first"] for x in st))
+    m = engine.metrics()
+    rec = {"wall_s": wall, **q,
+           # streams that printed text (see _sse), and every stream's first
+           # frame (a text frame or, with no text, its finish frame)
+           "client_ttft_ms": [t * 1e3 for t in client_ttft],
+           "client_first_frame_ms": [t * 1e3 for t in first_frames],
+           "decode_tok_s": rate, "peak_gib": peak / 2**30,
+           "weight_bytes": m.weight_bytes,
+           "weight_quant_bits": m.weight_quant_bits,
+           "launches": launches, "warmup_launches": warm,
+           "replay_launches": replayed, "eager_w8a16_launches": eager_w8,
+           "decode_steps": steps, "ttft_count": n_ttft, "itl_count": n_itl,
+           "counters": d}
+    print(f"{name}: 8 chat requests over HTTP (4 SSE, 4 unary), completion "
+          f"tokens {completion}, finish {finishes}; wall {wall:.3f} s; "
+          f"counters {json.dumps(d)}; graph replays {replays}; launches "
+          f"{json.dumps(launches)} = replays {json.dumps(replayed)} "
+          f"((7 x {nl} + 1) x {steps} W8A16, {nl} x {steps} ragged) + "
+          f"warm-ups {json.dumps(warm)} + {eager_w8} W8A16 head products of "
+          f"prefill steps", flush=True)
+    print(f"{name} [{smi}]: histograms TTFT p50 {q['ttft_p50_ms']:.1f} ms, "
+          f"p90 {q['ttft_p90_ms']:.1f} ms, ITL p50 {q['itl_p50_ms']:.2f} ms,"
+          f" p90 {q['itl_p90_ms']:.2f} ms (llm_ttft_seconds_count {n_ttft}, "
+          f"llm_itl_seconds_count {n_itl}); client: first text frame of "
+          f"the streams {[round(t, 1) for t in rec['client_ttft_ms']]} ms "
+          f"({len(client_ttft)} of 4 streams printed text), first frame "
+          f"{[round(t, 1) for t in rec['client_first_frame_ms']]} ms; "
+          f"decode {rate:.1f} tok/s "
+          f"aggregate; peak memory {peak / 2**30:.2f} GiB; weight_bytes "
+          f"{m.weight_bytes}", flush=True)
+    return rec
+
+
+async def phase_http(smi: str, bf16: dict) -> dict:
+    """Phase 9: the int8-weight llama3-8b engine behind HttpService, the
+    8 requests twice; `bf16` holds phase 4's weight_bytes and peak memory
+    to print beside this engine's."""
+    import torch
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.llm.pipeline import LocalPipeline
+    from dynamo_tpu_torch.llm.worker import NativeEngineWorker
+    from dynamo_tpu_torch.run import build_card
+    card = build_card("llama3-8b")
+    cfg = dataclasses.replace(card.model_config(), quant="int8")
+    t0 = time.perf_counter()
+    engine = NativeEngine(cfg, EngineConfig(), seed=0, device="cuda",
+                          eos_token_ids=set(card.eos_token_ids))
+    torch.cuda.synchronize()
+    print(f"HTTP path: {cfg.name} int8 weights + bf16 KV cache ready in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    worker = await NativeEngineWorker(engine).start()
+    timed = TimedEngine(worker)
+    svc = await HttpService("127.0.0.1", 0).start()
+    svc.models.add(card.name, LocalPipeline(card, timed), card.model_type)
+    try:
+        runs = {tag: await http_run(svc, engine, timed, tag, smi)
+                for tag in ("capturing", "warm")}
+    finally:
+        await svc.stop()
+        await worker.stop()
+    first = runs["capturing"]
+    print(f"HTTP path: weight_bytes {first['weight_bytes']} (int8) against "
+          f"{bf16['weight_bytes']} (bf16, phase 4): "
+          f"{first['weight_bytes'] / bf16['weight_bytes']:.3f}x; peak memory"
+          f" {first['peak_gib']:.2f} GiB against {bf16['peak_gib']:.2f} GiB",
+          flush=True)
+    engine.cache = None
+    del engine
+    torch.cuda.empty_cache()
+    return runs
+
+
+# -- phase 10: the entry point as a process ---------------------------------------
+
+def phase_entry_point() -> dict:
+    """`python -m dynamo_tpu_torch.run in=http:0 out=native tiny --quant
+    int8` on the card: READY, one streamed chat ending in [DONE], then the
+    process is stopped."""
+    import queue
+    import signal
+    import threading
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http:0",
+           "out=native", "tiny", "--quant", "int8"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    # a thread drains the process's output (a full pipe would block it)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [
+        lines.put(x) for x in iter(proc.stdout.readline, "")], daemon=True)
+    reader.start()
+    try:
+        line, deadline = "", time.monotonic() + 300
+        while not line.startswith("READY"):
+            left = deadline - time.monotonic()
+            check(left > 0 and proc.poll() is None,
+                  f"entry point: no READY line (exit {proc.poll()})")
+            try:
+                line = lines.get(timeout=min(left, 5.0))
+            except queue.Empty:
+                continue
+        m = re.match(r"READY http=:(\d+) model=tiny", line)
+        check(m is not None, f"entry point: {line!r}")
+        ready_s = time.perf_counter() - t0
+        frames, done, first, _ = asyncio.run(asyncio.wait_for(_sse(
+            int(m.group(1)), {"model": "tiny", "stream": True,
+                              "max_tokens": 8, "messages": [
+                                  {"role": "user", "content": "hello"}]}),
+            120))
+        check(done and frames, "entry point: the stream did not end with "
+              "[DONE]")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(timeout=10)
+    print(f"entry point: `{' '.join(cmd[1:])}` READY in {ready_s:.1f} s, "
+          f"one streamed chat ({len(frames)} frames, first text frame "
+          f"{'none' if first is None else f'{first * 1e3:.1f} ms'}) ended "
+          f"with [DONE]; process stopped (exit {proc.returncode})",
+          flush=True)
+    return {"ready_s": ready_s, "frames": len(frames)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1315,9 +1853,13 @@ def main() -> int:
     err_bf16 = phase_kernel()
     err_int8 = phase_kernel_int8()
     err_legacy = phase_legacy()
+    err_w8, w8_timing, dequant_timing = phase_w8a16()
     phase_small_reference()
     phase_small_reference("int8")
+    phase_small_reference(quant="int8")
     engine, first, _ = asyncio.run(serve_main_path(smi))
+    bf16_ref = {"weight_bytes": engine.metrics().weight_bytes,
+                "peak_gib": first["stats"]["peak_gib"]}
     graph_bf16 = phase_graph_vs_eager(engine, "bf16")
     main_err, timing, leg_err, legacy_full = phase_timing(
         engine, first["n_prompt"], MAX_TOKENS)
@@ -1342,6 +1884,10 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     ab = {model: phase_ab(model) for model in ("llama3-8b", "llama3-1b")}
+    http = asyncio.run(phase_http(smi, bf16_ref))
+    entry = phase_entry_point()
+    print(f"HTTP path: {json.dumps({'runs': http, 'entry_point': entry})}",
+          flush=True)
 
     ragged = {"name": "ragged_decode_attention", "route": "cuda",
               "source": "dynamo_tpu_torch/csrc/ragged_decode_attention.cu",
@@ -1364,6 +1910,19 @@ def main() -> int:
             "replaces": f"dynamo_tpu/ops/paged_attention_oracle.py:{line}",
             "launches": ab[model][1]["legacy"],
             "max_abs_err": max(err_legacy, err), **tm})
+    first_http = http["capturing"]
+    source = "dynamo_tpu_torch/csrc/w8a16_gemm.cu"
+    records.append({
+        "name": "w8a16_gemm", "route": "cuda", "source": source,
+        "replaces": "dynamo_tpu/ops/quant.py:70 (wmat, fused by XLA into the "
+                    "matmul; no Pallas kernel)",
+        "launches": first_http["launches"][W8A16], "max_abs_err": err_w8,
+        **w8_timing})
+    records.append({
+        "name": "w8a16_dequant", "route": "cuda", "source": source,
+        "replaces": "dynamo_tpu/ops/quant.py:70 (wmat; no Pallas kernel)",
+        "launches": first_http["launches"]["w8a16_dequant"],
+        "max_abs_err": 0.0, **dequant_timing})
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

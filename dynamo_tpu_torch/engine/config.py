@@ -4,6 +4,7 @@ Copied from dynamo_tpu/engine/config.py and trimmed to what the port's
 slices serve: dense Llama-family models on one device. The model
 registry keeps the dense Llama geometries; the engine knobs keep paging,
 batching, the decode window, mixed steps and int8 KV pages (`kv_quant`).
+`quant` keeps the JAX meaning (weight-only int8, ops/quant.py).
 The port always runs its decode through the hand-written kernel, so there
 is no `decode_kernel` knob; configs whose decode the kernel cannot serve
 (attention soft-caps, sliding windows, query-scale overrides) are rejected
@@ -36,6 +37,10 @@ class ModelConfig:
     max_model_len: int = 2048
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
+    # weight-only quantization for serving (ops/quant.py): "" = weights in
+    # `dtype`; "int8" = the seven projections and lm_head as int8 with
+    # per-output-channel f32 scales (about half the bytes of bf16)
+    quant: str = ""
     # KV-cache page quantization (ops/kv_quant.py): "" = pages in `dtype`,
     # "int8" = int8 pages with one f32 scale per row. A non-empty
     # EngineConfig.kv_quant overrides it at engine construction.

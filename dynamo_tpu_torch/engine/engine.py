@@ -23,6 +23,12 @@ On the card each window variant is ONE captured CUDA graph
 (engine/window_graph.py), the counterpart of the JAX engine's jitted
 window programs: `decode_dispatches` counts one replay per window.
 
+With ModelConfig.quant == "int8" the weights are int8 with per-output-
+channel scales (ops/quant.py): an unquantized `params` tree is quantized
+on its device, as the JAX engine quantizes on the host
+(dynamo_tpu/engine/engine.py:289-297). A decode window's projections then
+run the W8A16 kernel inside the window's graph.
+
 With pipeline_depth >= 2 (the default) the decode loop is two-deep, as in
 the JAX package: a step that finds a window in flight dispatches its
 follow-up from the device carry first, then fetches and commits the
@@ -63,6 +69,9 @@ from dynamo_tpu_torch.ops.attention import write_slots
 from dynamo_tpu_torch.observability.metrics import PhaseTimer
 from dynamo_tpu_torch.ops.kv_quant import (
     is_quantized_cache, page_bytes, quantize_rows, validate_mode,
+)
+from dynamo_tpu_torch.ops.quant import (
+    is_quantized, quantize_params, validate_mode as validate_quant,
 )
 
 
@@ -110,6 +119,7 @@ class NativeEngine:
             model_cfg = dataclasses.replace(
                 model_cfg, kv_quant=validate_mode(engine_cfg.kv_quant))
         self.kv_quant = validate_mode(model_cfg.kv_quant)
+        self.quant = validate_quant(model_cfg.quant)
         self.model_cfg = model_cfg
         self.cfg = engine_cfg
         self.eos_token_ids = set(eos_token_ids or ())
@@ -117,8 +127,13 @@ class NativeEngine:
         self._eos_vec = eos_mask(self.eos_token_ids, model_cfg.vocab_size,
                                  self.device)
         self.scheduler = Scheduler(engine_cfg)
-        self.params = (params if params is not None else
-                       llama.init_params(model_cfg, self.device, seed))
+        if params is None:
+            params = llama.init_params(model_cfg, self.device, seed)
+        elif self.quant and not is_quantized(params["layers"]["wq"]):
+            # a loader may hand an already-quantized tree; otherwise
+            # quantize where the weights live, one layer slice at a time
+            params = quantize_params(params)
+        self.params = params
         # every device op of the engine runs on its own stream, whichever
         # thread calls step(): window graphs are captured and replayed there
         self._stream = (torch.cuda.Stream(self.device)
@@ -288,6 +303,10 @@ class NativeEngine:
             mc.num_layers, mc.num_kv_heads, self.cfg.page_size, mc.head_dim,
             llama.torch_dtype(mc).itemsize, bool(self.kv_quant))
         m.kv_quant_bits = 8 if self.kv_quant == "int8" else 0
+        # weight representation: device bytes of the whole parameter tree
+        # (int8 values + f32 scales where quantized) and the bit width
+        m.weight_bytes = _tree_bytes(self.params)
+        m.weight_quant_bits = 8 if self.quant == "int8" else 0
         return m
 
     def logits_nonfinite_steps(self) -> int:
@@ -695,6 +714,12 @@ class NativeEngine:
             ev.top_logprobs = [(int(t), float(v))
                                for t, v in zip(top_ids[:k], top_lps[:k])]
         return ev
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
 
 
 def _scatter_new_kv(cache, k_news, v_news, write_idx):

@@ -149,6 +149,10 @@ class EngineMetrics:
     # device (k + v + scales) and the quantized bit width (0 = unquantized)
     kv_page_bytes: int = 0
     kv_quant_bits: int = 0
+    # weight representation (ops/quant.py): device bytes of the parameter
+    # tree (int8 values + f32 scales where quantized) and the bit width
+    weight_bytes: int = 0
+    weight_quant_bits: int = 0
 
 
 def window_ladder(decode_steps: int) -> List[int]:

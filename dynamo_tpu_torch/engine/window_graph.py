@@ -25,8 +25,9 @@ takes the host's launch work out of the step.
   graph: `HostCopies` copies them to pinned host memory right after each
   replay.
 - Launch counts. A kernel wrapper called during capture launches nothing
-  and counts a captured call (ops/paged_attention.py); each replay adds the
-  calls its graph holds to the wrapper's launch count.
+  and counts a captured call (ops/paged_attention.py, ops/quant.py); each
+  replay adds the calls its graph holds to each wrapper's launch count
+  (`KERNELS` names them).
 
 On CPU tensors `run` calls the program directly: the tests run the same
 function eagerly, as a kernel's wrapper takes its plain version for CPU
@@ -41,6 +42,20 @@ from typing import Callable, Dict, Optional
 import torch
 
 from dynamo_tpu_torch.ops import paged_attention as pa
+from dynamo_tpu_torch.ops import quant
+
+# every kernel a window program can launch: name -> (its wrapper's module,
+# the launch counter, the captured-call counter)
+KERNELS = {
+    "ragged_decode_attention": (pa, "KERNEL_LAUNCHES", "CAPTURED_CALLS"),
+    "w8a16_gemm": (quant, "KERNEL_LAUNCHES", "CAPTURED_CALLS"),
+    "w8a16_dequant": (quant, "DEQUANT_LAUNCHES", "DEQUANT_CAPTURED"),
+}
+
+
+def _counts(which: int) -> Dict[str, int]:
+    """{kernel: its launch count (which=1) or captured calls (which=2)}."""
+    return {name: getattr(k[0], k[which]) for name, k in KERNELS.items()}
 
 
 class WindowGraphs:
@@ -52,13 +67,17 @@ class WindowGraphs:
         # the engine's stream: warm-up, capture and every replay run on it
         self.stream = stream
         self._inputs: Dict[tuple, Dict[str, torch.Tensor]] = {}
-        self._graphs: Dict[tuple, tuple] = {}   # key -> (graph, outs, calls)
+        # key -> (graph, outs, {kernel: calls captured})
+        self._graphs: Dict[tuple, tuple] = {}
         self._pool = None
         self.captured = 0           # graphs captured since the last reset
         self.warmup_seconds = 0.0   # wall time of the eager warm-ups
         self.capture_seconds = 0.0  # wall time of the captures
         self.replays = 0
-        self.warmup_launches = 0    # kernel launches of the eager warm-ups
+        # kernel launches of the eager warm-ups, and those the replays added,
+        # by kernel
+        self.warmup_launches = {name: 0 for name in KERNELS}
+        self.replay_launches = {name: 0 for name in KERNELS}
 
     def inputs(self, shapes: tuple,
                spec: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
@@ -84,7 +103,10 @@ class WindowGraphs:
                 rec = self._capture(key, program, bufs)
             graph, outs, calls = rec
             graph.replay()
-        pa.KERNEL_LAUNCHES += calls
+        for name, n in calls.items():
+            mod, attr = KERNELS[name][:2]
+            setattr(mod, attr, getattr(mod, attr) + n)
+            self.replay_launches[name] += n
         self.replays += 1
         return outs
 
@@ -94,23 +116,29 @@ class WindowGraphs:
         # and launches, writes only the scratch page, changes no carry
         idle = {name: t.clone() for name, t in bufs.items()}
         idle["max_pos"].fill_(-1)
-        n0 = pa.KERNEL_LAUNCHES
+        n0 = _counts(1)
         program(idle)
         self.stream.synchronize()
-        self.warmup_launches += pa.KERNEL_LAUNCHES - n0
+        for name, n in _counts(1).items():
+            self.warmup_launches[name] += n - n0[name]
         t1 = time.perf_counter()
         self.warmup_seconds += t1 - t0
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        c0 = pa.CAPTURED_CALLS
+        c0 = _counts(2)
         with torch.cuda.graph(graph, pool=self._pool, stream=self.stream):
             outs = program(bufs)
-        rec = (graph, outs, pa.CAPTURED_CALLS - c0)
+        rec = (graph, outs, {name: n - c0[name]
+                             for name, n in _counts(2).items()})
         self._graphs[key] = rec
         self.captured += 1
         self.capture_seconds += time.perf_counter() - t1
         return rec
+
+    def captured_calls(self) -> Dict[tuple, Dict[str, int]]:
+        """{graph key: {kernel: calls its graph holds}} of the graphs held."""
+        return {key: dict(rec[2]) for key, rec in self._graphs.items()}
 
     def pool_bytes(self) -> int:
         """Device bytes held by the graphs' shared memory pool."""

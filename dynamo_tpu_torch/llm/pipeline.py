@@ -2,21 +2,23 @@
 
 Copied from dynamo_tpu/llm/pipeline.py for the slice: `Pipeline` (render +
 tokenize, stream token frames from an engine, incremental detokenisation
-with the stop-string jail, OpenAI delta chunks) and `LocalPipeline` (the
-engine in-process). The pipeline-graph segment, the serving histograms and
-the remote sink come with the frontend slice; here the sink is the engine
-itself.
+with the stop-string jail, OpenAI delta chunks, the TTFT / ITL histograms
+observed at the frame boundary) and `LocalPipeline` (the engine
+in-process). The pipeline-graph segment and the remote sink come with the
+endpoint slice; here the sink is the engine itself.
 """
 from __future__ import annotations
 
 import asyncio
 import copy
 import logging
+import time
 from typing import AsyncIterator, Optional
 
 from dynamo_tpu_torch.llm.backend import BackendPostprocessor
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+from dynamo_tpu_torch.observability.serving import SERVING
 from dynamo_tpu_torch.protocols.common import (
     EngineOutput, FinishReason, PreprocessedRequest,
 )
@@ -27,6 +29,7 @@ from dynamo_tpu_torch.protocols.openai import (
     ChatCompletionRequest, CompletionRequest, Usage,
 )
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context
+from dynamo_tpu_torch.runtime.qos import qos_label
 
 log = logging.getLogger("dynamo_tpu_torch.pipeline")
 
@@ -160,6 +163,14 @@ class Pipeline:
                 await q.put((i, None, None))
 
         pumps = [asyncio.create_task(pump(i)) for i in range(n)]
+        # serving-path latency histograms (observability/serving.py): TTFT
+        # = request start -> first token-carrying frame, ITL = gap between
+        # successive token frames, both per choice stream at the frame
+        # (commit) boundary; unclassed requests label as the policy default
+        model_label = pre.model or self.card.name
+        qos = qos_label(context.baggage)
+        t_start = time.monotonic()
+        last_emit: dict = {}
         posts = [BackendPostprocessor(tokenizer, pre.stop.stop or ())
                  for _ in range(n)]
         shapers = [_LogprobShaper(kind, self._token_str,
@@ -189,6 +200,16 @@ class Pipeline:
                 if err is not None or i in finishes:
                     continue
                 n_out += len(frame.token_ids)
+                if frame.token_ids:
+                    now = time.monotonic()
+                    prev = last_emit.get(i)
+                    if prev is None:
+                        SERVING.ttft.observe(model_label, qos,
+                                             value=now - t_start)
+                    else:
+                        SERVING.itl.observe(model_label, qos,
+                                            value=now - prev)
+                    last_emit[i] = now
                 res = posts[i].process(frame)
                 lp_obj = shapers[i].push(frame, posts[i].last_pieces,
                                          res.text)

@@ -3,8 +3,12 @@
 Port of dynamo_tpu/models/llama.py. Parameters are a plain dict of tensors
 stacked over layers, with the JAX package's names and layouts ("wq" is
 [L, D, H*hd], ...), so `params_from_jax` is a dtype/device move and the
-layer `lax.scan` becomes a Python loop over layer slices. Big products stay
-`torch.matmul` (the JAX package leaves them to XLA); norms, RoPE and the
+layer `lax.scan` becomes a Python loop over layer slices. Every projection
+and the head go through `ops/quant.linear`: a plain weight is one
+`torch.matmul` (the JAX package leaves it to XLA); with `cfg.quant ==
+"int8"` the seven projections and lm_head are {"q": int8 [L, d_in, d_out],
+"s": f32 [L, 1, d_out]} leaves, the JAX quantized tree's layout, and on the
+card a decode step's products run the W8A16 kernel. Norms, RoPE and the
 gate activation run in f32 as there.
 
 The KV cache is {"k", "v"}: [L, Hkv, P, ps, hd] and is updated IN PLACE
@@ -39,6 +43,10 @@ from dynamo_tpu_torch.ops.paged_attention import (
     combine_self_attention, decode_paged_attention,
     decode_paged_attention_prefix,
 )
+from dynamo_tpu_torch.ops.quant import (
+    QUANT_KEYS, is_quantized, linear, quantize_int8,
+)
+from dynamo_tpu_torch.ops.quant import validate_mode as validate_quant
 
 Params = Dict[str, Any]
 
@@ -80,8 +88,11 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
     copy of the weights ever exists. Dense weights are N(0, 1/fan_in) and
     norms ones, the JAX package's recipe; the values differ from its
     jax.random draws (tests hand both packages the same weights through
-    `params_from_jax`)."""
+    `params_from_jax`). With cfg.quant == "int8" the same draws are
+    quantized one layer slice at a time on `device` (ops/quant.py), so the
+    tree equals `quantize_params` of the unquantized one."""
     check_supported(cfg)
+    quant = validate_quant(cfg.quant)
     dt = torch_dtype(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -97,6 +108,8 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
             layers[key] = torch.ones((n,) + shape, dtype=dt, device=device)
         else:
             layers[key] = dense((n,) + shape, shape[0])
+        if quant and key in QUANT_KEYS:
+            layers[key] = quantize_int8(layers[key])
     params: Params = {
         "embed": dense((cfg.vocab_size, cfg.hidden_size), cfg.hidden_size),
         "layers": layers,
@@ -104,8 +117,8 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
                                  device=device),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = dense((cfg.hidden_size, cfg.vocab_size),
-                                  cfg.hidden_size)
+        head = dense((cfg.hidden_size, cfg.vocab_size), cfg.hidden_size)
+        params["lm_head"] = quantize_int8(head) if quant else head
     return params
 
 
@@ -113,11 +126,18 @@ def params_from_jax(tree: Params, cfg: ModelConfig, device="cpu") -> Params:
     """The weight bridge: the JAX package's stacked-over-layers parameter
     pytree (`dynamo_tpu/models/llama.py:init_params` layout), given as
     numpy arrays, -> the port's parameters on `device` in the model dtype.
-    Layouts are identical; only dtype and device change."""
+    Layouts are identical; only dtype and device change. A quantized JAX
+    tree's {"q": int8, "s": f32} leaves cross exactly, as torch int8 and
+    f32."""
     check_supported(cfg)
     dt = torch_dtype(cfg)
 
     def conv(a):
+        if is_quantized(a):
+            return {"q": torch.from_numpy(np.array(a["q"], dtype=np.int8)).to(
+                        device),
+                    "s": torch.from_numpy(np.array(a["s"], dtype=np.float32)
+                                          ).to(device)}
         # numpy has no bfloat16: widen through f32 (exact), cast on device
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
             device=device, dtype=dt)
@@ -179,11 +199,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _layer_w(lp: Params, key: str, l: int):
+    """Layer l's slice of a stacked weight, plain or quantized."""
+    w = lp[key]
+    if is_quantized(w):
+        return {"q": w["q"][l], "s": w["s"][l]}
+    return w[l]
+
+
 def _dense_mlp(x: torch.Tensor, lp: Params, l: int) -> torch.Tensor:
-    gate = x @ lp["w_gate"][l]
-    up = x @ lp["w_up"][l]
+    gate = linear(x, _layer_w(lp, "w_gate", l))
+    up = linear(x, _layer_w(lp, "w_up", l))
     act = F.silu(gate.float()).to(gate.dtype) * up
-    return act @ lp["w_down"][l]
+    return linear(act, _layer_w(lp, "w_down", l))
 
 
 def _qkv(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig,
@@ -193,9 +221,9 @@ def _qkv(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig,
     b, t, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = rms_norm(x, lp["attn_norm"][l], cfg.rms_norm_eps)
-    q = (xn @ lp["wq"][l]).reshape(b, t, h, hd)
-    k = (xn @ lp["wk"][l]).reshape(b, t, hkv, hd)
-    v = (xn @ lp["wv"][l]).reshape(b, t, hkv, hd)
+    q = linear(xn, _layer_w(lp, "wq", l)).reshape(b, t, h, hd)
+    k = linear(xn, _layer_w(lp, "wk", l)).reshape(b, t, hkv, hd)
+    v = linear(xn, _layer_w(lp, "wv", l)).reshape(b, t, hkv, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -203,7 +231,7 @@ def _qkv(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig,
 def _block_tail(x, attn, lp: Params, l: int, cfg: ModelConfig):
     """Output projection + residual + MLP + residual for layer l."""
     b, t = x.shape[:2]
-    x = x + attn.reshape(b, t, -1) @ lp["wo"][l]
+    x = x + linear(attn.reshape(b, t, -1), _layer_w(lp, "wo", l))
     xn = rms_norm(x, lp["mlp_norm"][l], cfg.rms_norm_eps)
     return x + _dense_mlp(xn, lp, l)
 
@@ -212,7 +240,7 @@ def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor):
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = (params["embed"].T if cfg.tie_word_embeddings
             else params["lm_head"])
-    return (x @ head).float()
+    return linear(x, head).float()
 
 
 def decode_forward(

@@ -1,10 +1,10 @@
 """OpenAI delta generation + SSE aggregation.
 
 Copied from dynamo_tpu/protocols/delta.py (the import of the port's
-dataclass types aside, unchanged; the completions aggregator comes with
-the HTTP frontend). Reference equivalents: the delta generators turning backend frames into
-chat/completion stream chunks and the aggregators folding an SSE stream back
-into a unary response for non-streaming clients (reference:
+dataclass types aside, unchanged). Reference equivalents: the delta
+generators turning backend frames into chat/completion stream chunks and
+the aggregators folding an SSE stream back into a unary response for
+non-streaming clients (reference:
 lib/llm/src/protocols/openai/chat_completions/{delta,aggregator}.rs and
 completions/{delta,aggregator}.rs).
 """
@@ -120,4 +120,35 @@ def aggregate_chat_chunks(
                                 content="".join(pieces.get(i, []))),
             finish_reason=finishes.get(i),
             logprobs=({"content": logprobs[i]} if i in logprobs else None))
+            for i in idxs])
+
+
+def aggregate_completion_chunks(
+        chunks: Iterable[CompletionResponse]) -> CompletionResponse:
+    pieces: dict = {}
+    finishes: dict = {}
+    logprobs: dict = {}
+    rid, created, model, usage = None, None, None, None
+    for c in chunks:
+        rid, created, model = c.id, c.created, c.model
+        usage = c.usage or usage
+        for choice in c.choices:
+            i = choice.index
+            if choice.text:
+                pieces.setdefault(i, []).append(choice.text)
+            if choice.finish_reason:
+                finishes[i] = choice.finish_reason
+            if choice.logprobs:
+                agg = logprobs.setdefault(i, {
+                    "text_offset": [], "token_logprobs": [], "tokens": [],
+                    "top_logprobs": []})
+                for k in agg:
+                    agg[k].extend(choice.logprobs.get(k) or [])
+    idxs = sorted(set(pieces) | set(finishes)) or [0]
+    return CompletionResponse(
+        id=rid or new_response_id("cmpl"), created=created or now(),
+        model=model or "", usage=usage,
+        choices=[CompletionChoice(
+            index=i, text="".join(pieces.get(i, [])),
+            finish_reason=finishes.get(i), logprobs=logprobs.get(i))
             for i in idxs])

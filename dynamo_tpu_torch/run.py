@@ -4,6 +4,9 @@ Port of dynamo_tpu/run.py for the slice: one process that wires an input to
 an engine and runs it.
 
 Inputs:
+  in=http[:PORT]     OpenAI HTTP frontend (default port 8080; 0 picks a free
+                     port); prints `READY http=:<port> model=<name>` and
+                     serves until interrupted
   in=text            interactive chat REPL
   in=stdin           one prompt from stdin -> streamed completion -> exit
   in=batch:FILE      JSONL prompts ({"prompt": ...}) -> JSONL completions
@@ -14,15 +17,17 @@ Outputs (engines):
   out=echo           deterministic token-echo engine (no hardware)
 
 Model: a registry name ("tiny", "llama3-1b", "llama3-8b", "llama3-70b").
-The engine runs on CUDA unless `--device cpu` is given; `--kv-quant int8`
-stores the KV cache as int8 pages with per-row scales. The OpenAI HTTP
-frontend (in=http) and control-plane endpoints (in=endpoint) come with a
-later slice.
+The engine runs on CUDA unless `--device cpu` is given; `--quant int8`
+stores the seven projections and the head as int8 with per-output-channel
+scales (ops/quant.py; on the card every decode projection runs the W8A16
+kernel); `--kv-quant int8` stores the KV cache as int8 pages with per-row
+scales. Control-plane endpoints (in=endpoint) come with a later slice.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import logging
 import sys
@@ -51,6 +56,8 @@ async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
         raise SystemExit(f"unknown out={out_spec!r}")
     from dynamo_tpu_torch.engine.engine import NativeEngine
     model_cfg = card.model_config()
+    if args.quant:
+        model_cfg = dataclasses.replace(model_cfg, quant=args.quant)
     eng_cfg = EngineConfig(
         page_size=card.kv_page_size, num_pages=args.num_pages,
         max_slots=args.max_slots, max_prefill_chunk=args.max_prefill_chunk,
@@ -60,6 +67,17 @@ async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
                           eos_token_ids=set(card.eos_token_ids),
                           device=args.device)
     return await NativeEngineWorker(engine).start()
+
+
+async def run_http(pipe: LocalPipeline, card, port: int) -> None:
+    from dynamo_tpu_torch.frontend.service import HttpService
+    service = await HttpService(port=port).start()
+    service.models.add(card.name, pipe, card.model_type)
+    print(f"READY http=:{service.port} model={card.name}", flush=True)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await service.stop()
 
 
 async def _stream_chat(pipe: LocalPipeline, card, prompt: str,
@@ -125,6 +143,10 @@ async def amain(argv=None) -> None:
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--max-slots", type=int, default=8)
     p.add_argument("--max-prefill-chunk", type=int, default=512)
+    p.add_argument("--quant", default="", choices=("", "int8"),
+                   help="weight-only quantization: int8 projections and "
+                        "head with per-output-channel f32 scales, half "
+                        "the weight bytes of bf16 (ops/quant.py)")
     p.add_argument("--kv-quant", default="", choices=("", "int8"),
                    help="KV-cache page quantization: int8 pages + per-row "
                         "f32 scales, about half the bytes per page "
@@ -148,7 +170,11 @@ async def amain(argv=None) -> None:
     engine = await build_engine(out_spec, card, args)
     pipe = LocalPipeline(card, engine)
     try:
-        if in_spec == "text":
+        if in_spec == "http" or (in_spec.startswith("http:")
+                                 and in_spec[5:].isdigit()):
+            port = int(in_spec[5:]) if in_spec != "http" else 8080
+            await run_http(pipe, card, port)
+        elif in_spec == "text":
             await run_text(pipe, card, args.max_tokens)
         elif in_spec == "stdin":
             await run_stdin(pipe, card, args.max_tokens)

@@ -1,10 +1,11 @@
 """Multi-tenant QoS: the class table and the engine's preemption policy.
 
-Copied from dynamo_tpu/runtime/qos.py, trimmed to what the engine scheduler
-and the worker call: QosClass / QosPolicy / DEFAULT_POLICY, the baggage
-accessor `qos_of`, `select_victim`, and the process-wide QOS_STATS
-counters. Admission control and weighted-fair ordering come with the
-frontend slice.
+Copied from dynamo_tpu/runtime/qos.py, trimmed to what the engine scheduler,
+the worker and the serving histograms call: QosClass / QosPolicy /
+DEFAULT_POLICY, the baggage accessors `qos_of` and `qos_label`,
+`select_victim`, and the process-wide QOS_STATS counters. Admission
+control, weighted-fair ordering and the x-qos-class header come with the
+admission slice.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ class QosClass:
     classes for preemption and queue bypass (higher preempts lower);
     `preempt_budget` bounds OUTSTANDING cross-class preemptions this class
     may cause (0 = never preempts). The JAX table's admission and SLO
-    budgets come with the frontend slice."""
+    budgets come with the admission slice."""
 
     name: str
     priority: int
@@ -69,6 +70,14 @@ def qos_of(baggage: Optional[dict]) -> str:
         return ""
     v = baggage.get(QOS_KEY)
     return v if isinstance(v, str) else ""
+
+
+def qos_label(baggage: Optional[dict],
+              policy: Optional[QosPolicy] = None) -> str:
+    """Metrics label for the request's class: the resolved class name
+    (unknown/unclassed requests label as the policy default, so the
+    per-class histograms partition every request exactly once)."""
+    return (policy or DEFAULT_POLICY).resolve(qos_of(baggage)).name
 
 
 def seq_priority(seq, policy: QosPolicy = DEFAULT_POLICY) -> int:

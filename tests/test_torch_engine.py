@@ -308,26 +308,37 @@ def _imports(path: pathlib.Path):
                 yield node.module
 
 
+# the JAX stack, the JAX package, and the packages the machine with the
+# card may lack (the port depends on torch and numpy only)
+BANNED_ROOTS = ("jax", "jaxlib", "flax", "dynamo_tpu", "pydantic", "jinja2",
+                "xxhash", "msgpack")
+
+
+def _banned(path: pathlib.Path):
+    return [mod for mod in _imports(path)
+            if mod.split(".")[0] in BANNED_ROOTS]
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "dynamo_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    bad = []
-    for f in files:
-        for mod in _imports(f):
-            root = mod.split(".")[0]
-            if root in ("jax", "jaxlib", "flax") or root == "dynamo_tpu":
-                bad.append(f"{f.relative_to(REPO)}: {mod}")
+    bad = [f"{f.relative_to(REPO)}: {mod}" for f in files
+           for mod in _banned(f)]
     assert not bad, bad
 
 
 def test_import_rule_catches_violations(tmp_path):
-    """The walker above sees every import form."""
+    """The walker above sees every import form, and the rule rejects the
+    JAX package and the dependencies the port may not have."""
     f = tmp_path / "m.py"
     f.write_text("import jax.numpy as jnp\nfrom dynamo_tpu.engine import "
-                 "config\nfrom jax import lax\nimport dynamo_tpu_torch\n")
+                 "config\nfrom jax import lax\nimport dynamo_tpu_torch\n"
+                 "import pydantic\nfrom msgpack import packb\n")
     assert list(_imports(f)) == ["jax.numpy", "dynamo_tpu.engine", "jax",
-                                 "dynamo_tpu_torch"]
+                                 "dynamo_tpu_torch", "pydantic", "msgpack"]
+    assert _banned(f) == ["jax.numpy", "dynamo_tpu.engine", "jax",
+                          "pydantic", "msgpack"]
 
 
 def test_echo_engine_through_local_pipeline():

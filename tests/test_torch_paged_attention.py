@@ -169,7 +169,7 @@ def test_build_is_keyed_on_the_source():
     """Every kernel builds from csrc/ into build/dynamo_tpu_torch/, under a
     name that changes with the source or the flags."""
     assert build.sources() == ["legacy_decode_attention",
-                               "ragged_decode_attention"]
+                               "ragged_decode_attention", "w8a16_gemm"]
     path = build.library_path("ragged_decode_attention")
     assert path.parent == build.BUILD_DIR
     assert path.parent.parts[-2:] == ("build", "dynamo_tpu_torch")

@@ -2,10 +2,12 @@
 """Where a decode step of the PyTorch/H100 port spends its time.
 
     python3 tools/torch_decode_profile.py [--windows 3] [--kv-quant int8]
+        [--quant int8]
 
 The JAX tool's two passes (tools/decode_profile.py, docs/PERF.md §1) over
 the port's llama3-8b NativeEngine on one card (random bf16 weights from
-seed 0, default EngineConfig; `--kv-quant int8` for int8 KV pages), each
+seed 0, default EngineConfig; `--kv-quant int8` for int8 KV pages,
+`--quant int8` for int8 weights through the W8A16 kernel), each
 with chip_smoke.py's 8 chat requests (its `chat_requests`, through the chat
 template) admitted at once:
 
@@ -22,12 +24,15 @@ Each pass calls `engine.step()` until no request waits and a decode window
 has run (it captures the window's graph), times `--windows` steps with the
 host clock (ending in a synchronize) and traces one more with
 torch.profiler. Prints one JSON line per pass and the kernels that take the
-most device time. Imports only the port (dynamo_tpu_torch), torch and
+most device time, and the traced step's device time in the weight products
+(`gemm_ms_traced`: cuBLAS's kernels for bf16 weights, the W8A16 kernel for
+int8 ones). Imports only the port (dynamo_tpu_torch), torch and
 chip_smoke.py.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -40,7 +45,13 @@ COUNTERS = ("decode_windows", "decode_window_steps", "decode_dispatches",
             "pipeline_overlapped", "pipeline_fallbacks")
 
 
-def run_pass(card, params, kv_quant: str, depth: int, windows: int) -> dict:
+# kernel-name fragments of the weight products: cuBLAS's GEMMs and the port's
+# W8A16 kernels
+GEMM_KERNELS = ("gemm", "Gemm", "nvjet", "cutlass", "xmma", "w8a16")
+
+
+def run_pass(cfg, card, params, kv_quant: str, depth: int,
+             windows: int) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -50,7 +61,7 @@ def run_pass(card, params, kv_quant: str, depth: int, windows: int) -> dict:
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.llm.worker import to_engine_request
 
-    engine = NativeEngine(card.model_config(),
+    engine = NativeEngine(cfg,
                           EngineConfig(kv_quant=kv_quant,
                                        pipeline_depth=depth),
                           eos_token_ids=set(card.eos_token_ids),
@@ -94,7 +105,8 @@ def run_pass(card, params, kv_quant: str, depth: int, windows: int) -> dict:
     rec = {
         "pass": "attribution" if depth == 1 else "overlap",
         "pipeline_depth": depth, "profile_sync": engine.profile_sync,
-        "kv_quant": kv_quant or "bf16", "timed_steps": windows,
+        "kv_quant": kv_quant or "bf16", "quant": cfg.quant or "bf16",
+        "timed_steps": windows,
         "decode_steps": steps, "wall_ms": wall * 1e3,
         "ms_per_decode_step": ms_step, "counters": d,
         "host_ms_per_window": {k: v["seconds"] * 1e3 / windows
@@ -107,6 +119,8 @@ def run_pass(card, params, kv_quant: str, depth: int, windows: int) -> dict:
         "busy_share_untraced": busy_ms / traced_steps / ms_step,
         "busy_share_traced": busy_ms / (traced_wall * 1e3),
         "kernels_traced": sum(e.count for e in dev),
+        "gemm_ms_traced": sum(e.self_device_time_total for e in dev
+                              if any(k in e.key for k in GEMM_KERNELS)) / 1e3,
         "graphs_captured": captured, "pool_bytes": engine.graphs.pool_bytes(),
     }
     ranked = sorted(dev, key=lambda e: -e.self_device_time_total)
@@ -129,26 +143,30 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--windows", type=int, default=3)
     p.add_argument("--kv-quant", default="", choices=("", "int8"))
+    p.add_argument("--quant", default="", choices=("", "int8"))
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("torch_decode_profile: needs a CUDA card", file=sys.stderr)
         return 2
     smi = nvidia_smi()
     card = build_card("llama3-8b")
-    params = llama.init_params(card.model_config(), "cuda", seed=0)
+    cfg = dataclasses.replace(card.model_config(), quant=args.quant)
+    params = llama.init_params(cfg, "cuda", seed=0)
     print(f"device: {smi}; torch {torch.__version__}", flush=True)
     for depth in (1, 2):
-        rec = run_pass(card, params, args.kv_quant, depth, args.windows)
+        rec = run_pass(cfg, card, params, args.kv_quant, depth, args.windows)
         torch.cuda.empty_cache()
-        print(f"{rec['pass']} pass ({rec['kv_quant']}, pipeline_depth "
+        print(f"{rec['pass']} pass ({rec['quant']} weights, "
+              f"{rec['kv_quant']} KV pages, pipeline_depth "
               f"{depth}, profile_sync {rec['profile_sync']}): "
               f"{rec['decode_steps']} decode steps in {rec['wall_ms']:.2f} ms"
               f" = {rec['ms_per_decode_step']:.3f} ms per decode step; "
               f"device busy {rec['device_busy_ms_per_step']:.3f} ms a step "
               f"({rec['busy_share_untraced']:.1%} of the untraced step, "
               f"{rec['busy_share_traced']:.1%} of the traced one); host ms "
-              f"per window {json.dumps(rec['host_ms_per_window'])}",
-              flush=True)
+              f"per window {json.dumps(rec['host_ms_per_window'])}; weight "
+              f"products {rec['gemm_ms_traced']:.3f} ms of the traced "
+              f"{rec['traced_decode_steps']} steps", flush=True)
         for ms, n, key in rec["top_kernels"]:
             print(f"  {ms:9.3f} ms  {n:6d}x  {key}", flush=True)
         print(json.dumps({k: v for k, v in rec.items()
