@@ -129,10 +129,58 @@ Phases (any failed check exits non-zero; nothing is caught):
 10. The entry point: `python -m dynamo_tpu_torch.run in=http:0 out=native
    tiny --quant int8` as a subprocess on the card; its READY line, one
    streamed chat ending in [DONE], then the subprocess is stopped.
+11. The distributed path at full width, as processes through the entry
+   points: `python -m dynamo_tpu_torch.runtime.transports.server --port 0`
+   (READY control-plane=:<port>); two workers started together,
+   `python -m dynamo_tpu_torch.run in=endpoint:dynamo.llm.generate
+   out=native llama3-8b --control-host 127.0.0.1 --control-port <port>`
+   (llama3-8b at full width and depth, the same bf16 weights from seed 0 in
+   both, bf16 KV pages, the default EngineConfig; each READY line names
+   the card it runs on, which must be this card); two frontends,
+   `python -m dynamo_tpu_torch.frontend.serve --port 0 --control-port
+   <port>`, one KV-routed and one with --no-kv-routing, each listing
+   llama3-8b with two instances. First a warm-up round through the
+   KV-routed frontend, the traffic below on 4 other system prompts, so
+   that the window graphs are captured before the measured rounds. Traffic
+   through the KV-routed frontend:
+   4 system prompts of 1024 byte-tokens (16 pages of 64), each followed
+   by 4 distinct user turns of 64-192 byte-tokens, 16 chat requests of
+   max_tokens 32 (8 greedy, 8 sampled with temperature 0.8, top_k 50 and
+   a seed; 8 streamed, 8 unary). Wave 1 sends one request per prefix,
+   concurrently; once the router scores every prefix on some worker
+   (POST /router/match), wave 2 sends the other 12 concurrently. Checks:
+   every request finishes with 32 tokens or a stop; each wave-2 request
+   went to the worker that served its prefix in wave 1 with >= 16 matched
+   pages (the router's decisions, GET /router/state, keyed by the
+   x-request-id each request carries); llm_router_fallbacks is 0; the
+   workers' own counters, their $STATS scraped over the control plane
+   before and after the traffic, sum to exactly what one engine serving
+   the 16 requests in the same order counts (engine/scheduler.py
+   `_match_prefix`: a prompt of len tokens looks up min(hits + 1,
+   (len - 1) // 64) pages and hits the leading ones already stored). The
+   template `<|system|>S</s><|user|>U</s><|assistant|>` puts 1046 tokens
+   before a user turn, and the turns differ from their first byte, so a
+   wave-1 request hits 0 of 1 page, a wave-2 request 16 of 17: 192 hits
+   of 208 lookups over 16 admitted requests (`expected_prefix_hits`
+   derives this from the token ids). Every worker ran one graph replay
+   per decode window (decode_dispatches == decode_windows) and launched
+   the ragged kernel layers x its decode steps + its warm-up launches
+   times, more than 0 in all. Then the contrast, printed and not gated:
+   the --no-kv-routing frontend over 4 fresh prefixes of the same shapes
+   (round-robin), both frontends' prefix hit shares and TTFT p50 / p90
+   from llm_ttft_seconds (the bucket counts each round added), labelled
+   as two replicas sharing one H100. Then
+   one greedy request twice through the router (logprobs on): equal
+   bodies apart from id / created. Then SIGTERM to both workers: each
+   drains, deregisters (both frontends' instance counts fall to 0),
+   prints `EXIT ... logits_nonfinite_steps=0` and exits 0; the frontends
+   and the server then exit 0 on SIGINT. Each worker process is its own
+   path: its launch counts start at 0 with the process and are read from
+   its $STATS.
 
-Each path (each run of 4, 4c, 5 and 9, and the A/B at each geometry) runs
-with every kernel's launch count set to 0 just before it and read just
-after. The third line
+Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, and each
+worker process of 11) runs with every kernel's launch count set to 0 just
+before it and read just after. The third line
 from the end of the output is one JSON object with the kernel records, the
 second from the end the nvidia-smi reading, and the last line
 {"ok": true, "device": {...}}.
@@ -1518,16 +1566,23 @@ def phase_ab(model: str) -> tuple:
 
 # -- phase 9: the HTTP path at full width, int8 weights -------------------------
 
-async def _http(port: int, method: str, path: str, body=None) -> tuple:
+def _head(method: str, path: str, data: bytes, extra=None) -> bytes:
+    """An HTTP/1.1 request head for localhost (+ `extra` headers)."""
+    lines = "".join(f"{k}: {v}\r\n" for k, v in (extra or {}).items())
+    return (f"{method} {path} HTTP/1.1\r\nhost: localhost\r\n"
+            "content-type: application/json\r\n" + lines +
+            f"content-length: {len(data)}\r\n\r\n").encode() + data
+
+
+async def _http(port: int, method: str, path: str, body=None,
+                extra=None) -> tuple:
     """One HTTP/1.1 request to localhost; (status, headers, body bytes),
     reading by content-length or chunked transfer (the server keeps
     connections alive)."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     try:
         data = json.dumps(body).encode() if body is not None else b""
-        writer.write(f"{method} {path} HTTP/1.1\r\nhost: localhost\r\n"
-                     "content-type: application/json\r\n"
-                     f"content-length: {len(data)}\r\n\r\n".encode() + data)
+        writer.write(_head(method, path, data, extra))
         await writer.drain()
         head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
         lines = head.split("\r\n")
@@ -1550,7 +1605,7 @@ async def _http(port: int, method: str, path: str, body=None) -> tuple:
         await writer.wait_closed()
 
 
-async def _sse(port: int, body: dict) -> tuple:
+async def _sse(port: int, body: dict, extra=None) -> tuple:
     """A streamed chat: (parsed frames, ended with [DONE], seconds to the
     first frame with content or None, seconds to the first frame). With
     random weights and the byte tokenizer most sampled ids (>= 259) print
@@ -1560,10 +1615,8 @@ async def _sse(port: int, body: dict) -> tuple:
     first, frames, done = None, [], False
     first_frame = None
     try:
-        data = json.dumps(body).encode()
-        writer.write(b"POST /v1/chat/completions HTTP/1.1\r\nhost: localhost"
-                     b"\r\ncontent-type: application/json\r\ncontent-length: "
-                     + str(len(data)).encode() + b"\r\n\r\n" + data)
+        writer.write(_head("POST", "/v1/chat/completions",
+                           json.dumps(body).encode(), extra))
         await writer.drain()
         head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
         check(" 200 " in head.split("\r\n")[0], f"SSE status: {head[:40]}")
@@ -1827,6 +1880,477 @@ def phase_entry_point() -> dict:
     return {"ready_s": ready_s, "frames": len(frames)}
 
 
+# -- phase 11: the distributed path ---------------------------------------------
+
+DIST_EP = "dynamo.llm.generate"
+DIST_MAX_TOKENS = 32
+
+
+class Child:
+    """A subprocess of the phase (`python -m <args>` from the checkout's
+    root) whose merged output a thread drains into a queue."""
+
+    def __init__(self, name: str, args: list):
+        import queue
+        import threading
+        self.name = name
+        self.lines: list = []
+        self._q: queue.Queue = queue.Queue()
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "DYN_LEASE_TTL_S": "30"}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=self._drain, daemon=True)
+        self._reader.start()
+
+    def _drain(self) -> None:
+        for line in iter(self.proc.stdout.readline, ""):
+            self.lines.append(line.rstrip("\n"))
+            self._q.put(line.rstrip("\n"))
+
+    def tail(self, n: int = 25) -> str:
+        return "\n".join(self.lines[-n:])
+
+    def wait_line(self, prefix: str, timeout: float) -> str:
+        """The first line (from now) that starts with `prefix`; fails the
+        run if the process exits first or the time runs out."""
+        import queue
+        deadline = time.monotonic() + timeout
+        while True:
+            left = deadline - time.monotonic()
+            check(left > 0, f"{self.name}: no {prefix!r} line in "
+                  f"{timeout:.0f} s; last output:\n{self.tail()}")
+            try:
+                line = self._q.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                check(self.proc.poll() is None,
+                      f"{self.name} exited ({self.proc.returncode}) before "
+                      f"{prefix!r}; last output:\n{self.tail()}")
+                continue
+            if line.startswith(prefix):
+                return line
+
+    def stop(self, sig, timeout: float) -> int:
+        """Send `sig` (None: send nothing), wait for the exit; kill after
+        `timeout`. Returns the exit code."""
+        if self.proc.poll() is None:
+            if sig is not None:
+                self.proc.send_signal(sig)
+            try:
+                self.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self._reader.join(timeout=10)
+        return self.proc.returncode
+
+
+def dist_text(n: int, seed: int) -> str:
+    """n printable characters from a seed; the first one is chosen by the
+    seed so that two texts of different seeds differ from their first
+    byte."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz,.  "))
+    head = "ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"[seed % 36]
+    return head + "".join(rng.choice(letters, n - 1))
+
+
+def dist_requests(model: str, first_prefix: int, sys_len: int) -> list:
+    """16 chat bodies over 4 system prompts of `sys_len` byte-tokens (seeds
+    first_prefix..first_prefix+3), each followed by 4 distinct user turns
+    of 64-192 byte-tokens: (prefix, turn, body). Request i = 4 p + u is
+    greedy when i is even and sampled otherwise (temperature 0.8, top_k
+    50, a seed), streamed (SSE, with usage) when i // 2 is even and unary
+    otherwise."""
+    out = []
+    for p in range(4):
+        system = dist_text(sys_len, 1000 + first_prefix + p)
+        for u in range(4):
+            i = 4 * p + u
+            body = {"model": model, "max_tokens": DIST_MAX_TOKENS,
+                    "messages": [
+                        {"role": "system", "content": system},
+                        {"role": "user", "content": dist_text(
+                            64 + 32 * u + 7 * p, 4 * u + p)}]}
+            if i % 2:
+                body.update(temperature=0.8, seed=4321 + i,
+                            ext={"top_k": 50})
+            if (i // 2) % 2 == 0:
+                body.update(stream=True,
+                            stream_options={"include_usage": True})
+            out.append((first_prefix + p, u, body))
+    return out
+
+
+def expected_prefix_hits(token_lists, page: int) -> tuple:
+    """(hits, lookups) of one engine serving the prompts in this order
+    with nothing evicted, counted as the port scheduler counts them
+    (engine/scheduler.py `_prefix_walk` / `_match_prefix`): of a prompt's
+    first n_full = (len - 1) // page full pages, the leading ones an
+    earlier prompt already stored are hits, and it looks up
+    min(hits + 1, n_full) pages."""
+    stored, hits, lookups = set(), 0, 0
+    for toks in token_lists:
+        n_full = (len(toks) - 1) // page
+        h = 0
+        while h < n_full and tuple(toks[:(h + 1) * page]) in stored:
+            h += 1
+        hits += h
+        lookups += min(h + 1, n_full)
+        stored.update(tuple(toks[:(i + 1) * page])
+                      for i in range(len(toks) // page))
+    return hits, lookups
+
+
+def _ttft_buckets(text: str) -> dict:
+    """{upper bound: cumulative count} of a /metrics text's
+    llm_ttft_seconds buckets, summed over its label series."""
+    cum: dict = {}
+    for m in re.finditer(r'^llm_ttft_seconds_bucket\{[^}]*le="([^"]+)"\} '
+                         r'(\d+)$', text, re.M):
+        le = float(m.group(1))
+        cum[le] = cum.get(le, 0) + int(m.group(2))
+    return cum
+
+
+def _ttft_quantiles(after: str, before: str = "") -> dict:
+    """TTFT p50 / p90 (ms) of the requests observed between two /metrics
+    texts of one frontend, from the llm_ttft_seconds bucket counts (the
+    registry's estimator)."""
+    from dynamo_tpu_torch.observability.metrics import _bucket_quantile
+    old = _ttft_buckets(before)
+    cum = {le: n - old.get(le, 0) for le, n in _ttft_buckets(after).items()}
+    bounds = sorted(cum)
+    counts = [cum[b] - (cum[bounds[i - 1]] if i else 0)
+              for i, b in enumerate(bounds)]
+    total = cum[bounds[-1]] if bounds else 0
+    return {f"ttft_p{int(q * 100)}_ms":
+            _bucket_quantile(bounds, counts, total, q) * 1e3
+            for q in (0.5, 0.9)}
+
+
+async def _dist_send(port: int, body: dict, rid: str) -> dict:
+    """One chat request with an x-request-id; its finish reason,
+    completion tokens and (unary) the body."""
+    extra = {"x-request-id": rid}
+    if body.get("stream"):
+        frames, done, _, _ = await _sse(port, body, extra)
+        check(done, f"{rid}: the stream did not end with [DONE]")
+        fin = [c["finish_reason"] for f in frames
+               for c in f.get("choices", []) if c.get("finish_reason")]
+        usage = next(f["usage"] for f in frames if f.get("usage"))
+        out = {"finish": fin, "tokens": usage["completion_tokens"]}
+    else:
+        status, _, raw = await _http(port, "POST", "/v1/chat/completions",
+                                     body, extra)
+        check(status == 200, f"{rid}: status {status}: {raw[:200]}")
+        res = json.loads(raw)
+        out = {"finish": [c["finish_reason"] for c in res["choices"]],
+               "tokens": res["usage"]["completion_tokens"], "body": res}
+    check(len(out["finish"]) == 1 and (out["finish"][0] == "stop" or (
+        out["finish"][0] == "length" and out["tokens"] == DIST_MAX_TOKENS)),
+        f"{rid}: finished {out['finish']} with {out['tokens']} tokens")
+    return out
+
+
+async def _get_json(port: int, path: str, body=None) -> dict:
+    status, _, raw = await _http(port, "POST" if body else "GET", path, body)
+    check(status == 200, f"{path}: status {status}: {raw[:200]}")
+    return json.loads(raw)
+
+
+async def _poll(what: str, fn, timeout: float, poll_s: float = 0.2):
+    """Await fn() until it returns a true value, for at most `timeout`."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = await fn()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"{what}: not within "
+              f"{timeout:.0f} s")
+        await asyncio.sleep(poll_s)
+
+
+async def _scrape(client, n: int) -> dict:
+    """{worker id: its $STATS reply} of all n workers, over the control
+    plane."""
+    async def all_of():
+        got = await client.scrape_stats(timeout=10.0)
+        return got if len(got) == n else None
+    return await _poll("scraping $STATS of every worker", all_of, 60)
+
+
+def _delta(after: dict, before: dict, key: str) -> int:
+    return sum(after[w][key] - before[w][key] for w in after)
+
+
+async def _waves(port: int, reqs: list, model: str, tag: str) -> tuple:
+    """Wave 1 (one request per prefix, concurrently), then, once the
+    router at `port` scores every prefix on some worker (a frontend
+    without KV routing has no router: the wait is skipped), wave 2 (the
+    other 12, concurrently). Returns ({request id: result}, the request
+    ids in order)."""
+    first = [(p, u, b) for p, u, b in reqs if u == 0]
+    rest = [(p, u, b) for p, u, b in reqs if u != 0]
+    rid = lambda p, u: f"{tag}-p{p}-u{u}"  # noqa: E731
+    res = dict(zip([rid(p, u) for p, u, _ in first], await asyncio.gather(
+        *(_dist_send(port, b, rid(p, u)) for p, u, b in first))))
+    state = await _get_json(port, "/router/state")
+    if state["models"][model]["kv_routed"]:
+        async def every_prefix_scores():
+            for p, u, b in rest:
+                if u != 1:
+                    continue
+                m = await _get_json(port, "/router/match", {
+                    "model": model, "messages": b["messages"]})
+                if not m["scores"]:
+                    return False
+            return True
+        await _poll(f"{tag}: the router scoring every prefix",
+                    every_prefix_scores, 60)
+    res.update(zip([rid(p, u) for p, u, _ in rest], await asyncio.gather(
+        *(_dist_send(port, b, rid(p, u)) for p, u, b in rest))))
+    return res, [rid(p, u) for p, u, _ in first + rest]
+
+
+async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
+                            model: str, sys_len: int, n_layers: int,
+                            smi: str, on_card: bool = True) -> dict:
+    """Phase 11's traffic and checks against running processes (see the
+    phase docstring). `on_card=False` (workers on the CPU, a rehearsal of
+    the phase) skips the kernel-launch checks: CPU tensors take the
+    kernels' plain versions."""
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    name = "distributed path"
+    card = ModelDeploymentCard(name=model, arch=model)
+    pre = OpenAIPreprocessor(card)
+
+    async def models_listed(port):
+        got = await _get_json(port, "/v1/models")
+        state = await _get_json(port, "/router/state")
+        return ([m["id"] for m in got["data"]] == [model]
+                and len(state["models"].get(model, {}).get("instances",
+                                                           {})) == 2)
+    for port in (fe_port, fe2_port):
+        await _poll(f"frontend :{port} listing {model} with 2 instances",
+                    lambda: models_listed(port), 120)
+
+    rt = await DistributedRuntime.connect("127.0.0.1", cp_port)
+    try:
+        client = await rt.namespace("dynamo").component("llm").endpoint(
+            "generate").client().start()
+        # a warm-up round of the same shapes on other prefixes captures
+        # the window graphs, so that neither measured round pays for them
+        t0 = time.perf_counter()
+        await _waves(fe_port, dist_requests(model, 8, sys_len), model,
+                     "warm")
+        warm_s = time.perf_counter() - t0
+        s0 = await _scrape(client, 2)
+        text0 = (await _http(fe_port, "GET", "/metrics"))[2].decode()
+        routed = dist_requests(model, 0, sys_len)
+        t0 = time.perf_counter()
+        res, order = await _waves(fe_port, routed, model, "kv")
+        wall = time.perf_counter() - t0
+        s1 = await _scrape(client, 2)
+        state = await _get_json(fe_port, "/router/state")
+        text = (await _http(fe_port, "GET", "/metrics"))[2].decode()
+
+        # the router's side: wave 2 on its prefix's wave-1 worker, with
+        # the prefix's pages matched there
+        dec = {d["request_id"]: d
+               for d in state["models"][model]["decisions"]}
+        check(all(r in dec for r in order),
+              f"{name}: decisions missing for "
+              f"{[r for r in order if r not in dec]}")
+        page = card.kv_page_size
+        tokens = {(p, u): pre.preprocess_chat(
+            ChatCompletionRequest.from_json(b))[0].token_ids
+            for p, u, b in routed}
+        shared = []
+        for (p, u), toks in tokens.items():
+            if u == 0:
+                continue
+            d, d0 = dec[f"kv-p{p}-u{u}"], dec[f"kv-p{p}-u0"]
+            toks0 = tokens[(p, 0)]
+            common = next(i for i, (a, c) in enumerate(zip(toks, toks0))
+                          if a != c)
+            shared.append(common // page)
+            check(d["worker_id"] == d0["worker_id"]
+                  and d["overlap_blocks"] >= sys_len // page,
+                  f"{name}: kv-p{p}-u{u} went to {d['worker_id']} with "
+                  f"{d['overlap_blocks']} matched pages (its prefix was "
+                  f"served by {d0['worker_id']}; {common // page} pages "
+                  f"shared)")
+        fallbacks = re.search(r"^llm_router_fallbacks (\S+)$", text, re.M)
+        check(fallbacks is not None and float(fallbacks.group(1)) == 0,
+              f"{name}: llm_router_fallbacks "
+              f"{fallbacks and fallbacks.group(1)}")
+
+        # the workers' side: their summed prefix hits are one engine's
+        want_hits, want_lookups = expected_prefix_hits(
+            [tokens[k] for k in sorted(tokens, key=lambda k: (k[1] > 0, k))],
+            page)
+        hits = _delta(s1, s0, "gpu_prefix_cache_hits")
+        lookups = _delta(s1, s0, "gpu_prefix_cache_lookups")
+        admitted = _delta(s1, s0, "requests_admitted")
+        per_worker = {w: s1[w]["requests_admitted"]
+                      - s0[w]["requests_admitted"] for w in s1}
+        check((hits, lookups, admitted) == (want_hits, want_lookups, 16),
+              f"{name}: the workers hit {hits} of {lookups} prefix pages "
+              f"over {admitted} requests; one engine serving the 16 in "
+              f"order hits {want_hits} of {want_lookups}")
+        for w, st in s1.items():
+            check(st["decode_dispatches"] == st["decode_windows"],
+                  f"{name}: worker {w} ran {st['decode_windows']} decode "
+                  f"windows in {st['decode_dispatches']} dispatches")
+        routed_q = _ttft_quantiles(text, text0)
+
+        # the contrast: the other frontend, round-robin, fresh prefixes
+        s2 = s1
+        res2, _ = await _waves(fe2_port, dist_requests(model, 4, sys_len),
+                               model, "rr")
+        s3 = await _scrape(client, 2)
+        text2 = (await _http(fe2_port, "GET", "/metrics"))[2].decode()
+        rr_hits = _delta(s3, s2, "gpu_prefix_cache_hits")
+        rr_lookups = _delta(s3, s2, "gpu_prefix_cache_lookups")
+        rr_q = _ttft_quantiles(text2)
+
+        # one greedy request twice through the router: the same tokens
+        # (the logprobs of every sampled token equal too)
+        greedy = dict(routed[4 * 2 + 2][2], logprobs=True)
+        greedy.pop("stream", None)
+        greedy.pop("stream_options", None)
+        twice = [await _dist_send(fe_port, greedy, f"greedy-{i}")
+                 for i in range(2)]
+        strip = [{k: v for k, v in t["body"].items()
+                  if k not in ("id", "created")} for t in twice]
+        check(strip[0] == strip[1], f"{name}: one greedy request twice "
+              f"gave {strip[0]} and {strip[1]}")
+        s4 = await _scrape(client, 2)
+        await client.stop()
+    finally:
+        await rt.shutdown()
+    launches = {}
+    for w, st in s4.items():
+        k = st["kernel_launches"][RAGGED]
+        warm = st["graph_warmup_launches"][RAGGED]
+        check(not on_card or k == n_layers * st["decode_window_steps"] + warm,
+              f"{name}: worker {w} launched the ragged kernel {k} times "
+              f"over {st['decode_window_steps']} decode steps x {n_layers} "
+              f"layers + {warm} in warm-ups")
+        launches[w] = k
+    check(not on_card or sum(launches.values()) > 0,
+          f"{name}: no ragged launches")
+    rec = {"warmup_s": warm_s, "wall_s": wall,
+           "per_worker_requests": per_worker,
+           "decisions": {r: [dec[r]["worker_id"], dec[r]["overlap_blocks"]]
+                         for r in order},
+           "prefix_hits": hits, "prefix_lookups": lookups,
+           "expected": [want_hits, want_lookups],
+           "kv_routed": {"hit_share": hits / lookups, **routed_q},
+           "round_robin": {"hit_share": rr_hits / rr_lookups,
+                           "hits": rr_hits, "lookups": rr_lookups, **rr_q},
+           "launches": launches, "decode_window_steps": {
+               w: st["decode_window_steps"] for w, st in s4.items()},
+           "decode_windows": {w: st["decode_windows"]
+                              for w, st in s4.items()}}
+    print(f"{name}: after a warm-up round of the same shapes "
+          f"({warm_s:.3f} s), 16 chat requests (8 SSE, 8 unary; 8 greedy, "
+          f"8 sampled) over 4 system prompts of {sys_len} byte-tokens "
+          f"answered in {wall:.3f} s; requests per worker {json.dumps(per_worker)}; "
+          f"every wave-2 request on its prefix's worker with >= "
+          f"{min(shared)} matched pages; prefix hits {hits} of {lookups} "
+          f"(one engine in order: {want_hits} of {want_lookups}); router "
+          f"fall-backs 0; ragged launches {json.dumps(launches)}",
+          flush=True)
+    print(f"{name} [two replicas sharing one card: {smi}]: KV-routed "
+          f"frontend prefix hit share {hits / lookups:.4f}, TTFT p50 "
+          f"{routed_q['ttft_p50_ms']:.1f} ms, p90 "
+          f"{routed_q['ttft_p90_ms']:.1f} ms; round-robin frontend "
+          f"(--no-kv-routing, 4 fresh prefixes) hit share "
+          f"{rr_hits / rr_lookups:.4f}, TTFT p50 {rr_q['ttft_p50_ms']:.1f} "
+          f"ms, p90 {rr_q['ttft_p90_ms']:.1f} ms (llm_ttft_seconds)",
+          flush=True)
+    return rec
+
+
+def phase_distributed(smi: str, model: str = "llama3-8b",
+                      sys_len: int = 1024, device_args=(),
+                      device_name: str = None) -> dict:
+    """Phase 11 (see the docstring at the top): the control-plane server,
+    two `run.py in=endpoint` workers and two frontends as processes, the
+    traffic and the checks, then SIGTERM to both workers (each drains,
+    deregisters and exits 0). Every child is stopped in the `finally`."""
+    import signal
+    from dynamo_tpu_torch.engine.config import get_model_config
+    children = []
+    t0 = time.perf_counter()
+    try:
+        server = Child("control plane", [
+            "dynamo_tpu_torch.runtime.transports.server", "--host",
+            "127.0.0.1", "--port", "0"])
+        children.append(server)
+        cp_port = int(server.wait_line("READY control-plane=:", 120)
+                      .rsplit(":", 1)[1])
+        workers = [Child(f"worker {i}", [
+            "dynamo_tpu_torch.run", f"in=endpoint:{DIST_EP}", "out=native",
+            model, "--control-host", "127.0.0.1", "--control-port",
+            str(cp_port), *device_args]) for i in range(2)]
+        children += workers
+        ready = [w.wait_line("READY endpoint=", 900) for w in workers]
+        ready_s = time.perf_counter() - t0
+        for line in ready:
+            dev = line.split(" device=", 1)[1]
+            check(dev == device_name, f"worker on {dev!r}, expected "
+                  f"{device_name!r}: {line}")
+        fronts = [Child(f"frontend{tag}", [
+            "dynamo_tpu_torch.frontend.serve", "--host", "127.0.0.1",
+            "--port", "0", "--control-host", "127.0.0.1", "--control-port",
+            str(cp_port), *extra]) for tag, extra in (
+                ("", ()), (" (no KV routing)", ("--no-kv-routing",)))]
+        children += fronts
+        fe_ports = [int(f.wait_line("READY http=:", 120).rsplit(":", 1)[1])
+                    for f in fronts]
+        rec = asyncio.run(asyncio.wait_for(drive_distributed(
+            cp_port, fe_ports[0], fe_ports[1], model, sys_len,
+            get_model_config(model).num_layers, smi,
+            on_card=device_name != "cpu"), 900))
+        rec["ready_s"] = ready_s
+        # drain: SIGTERM both workers; each deregisters and exits 0
+        for w in workers:
+            w.proc.send_signal(signal.SIGTERM)
+        codes = [w.stop(None, 120) for w in workers]
+        check(codes == [0, 0], f"workers exited {codes} after SIGTERM:\n"
+              + "\n".join(w.tail() for w in workers))
+        for w in workers:
+            exits = [x for x in w.lines if x.startswith("EXIT ")]
+            check(len(exits) == 1 and " logits_nonfinite_steps=0 "
+                  in exits[0], f"{w.name}: {exits or w.tail()}")
+
+        async def deregistered():
+            async def empty(port):
+                st = await _get_json(port, "/router/state")
+                return not st["models"].get(model, {}).get("instances")
+            for port in fe_ports:
+                await _poll(f"frontend :{port} dropping both instances",
+                            lambda: empty(port), 60)
+        asyncio.run(deregistered())
+        rest = [c.stop(signal.SIGINT, 60) for c in fronts + [server]]
+        check(rest == [0, 0, 0], f"frontends and server exited {rest}")
+        print(f"distributed path: workers READY in {ready_s:.1f} s, drained "
+              f"on SIGTERM and exited {codes}; both frontends showed 0 "
+              f"instances; frontends and server exited {rest}", flush=True)
+        return rec
+    finally:
+        for c in reversed(children):
+            c.stop(signal.SIGKILL, 30)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1888,12 +2412,15 @@ def main() -> int:
     entry = phase_entry_point()
     print(f"HTTP path: {json.dumps({'runs': http, 'entry_point': entry})}",
           flush=True)
+    dist = phase_distributed(smi, device_name=torch.cuda.get_device_name(0))
+    print(f"distributed path: {json.dumps(dist)}", flush=True)
 
     ragged = {"name": "ragged_decode_attention", "route": "cuda",
               "source": "dynamo_tpu_torch/csrc/ragged_decode_attention.cu",
               "replaces": "dynamo_tpu/ops/paged_attention.py:88",
               "launches": first["launches"],
               "max_abs_err": max(err_bf16, main_err), **timing,
+              "distributed_launches": dist["launches"],
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),
                        **timing_q}}

@@ -232,6 +232,11 @@ class NativeEngine:
         files."""
         self._sync_stream()
 
+    def drain_kv_events(self):
+        """The allocator's stored / removed page events since the last
+        drain (host bookkeeping only: no device sync)."""
+        return self.scheduler.allocator.drain_events()
+
     def has_work(self) -> bool:
         s = self.scheduler
         return (self._pipeline is not None or bool(s.waiting)

@@ -1,26 +1,35 @@
 """Host-side paged KV cache bookkeeping: page allocator + per-sequence state.
 
 Copied from dynamo_tpu/engine/kv_cache.py, trimmed to the slice: the
-host-tier eviction hook, multimodal salts and the stored/removed KV events
-(consumed by the KV-aware router, not ported yet) are left out. Free pages are
+host-tier eviction hook and multimodal salts are left out. Free pages are
 reclaimable by content hash (prefix cache); in-flight pages are ref-counted
 and shared between sequences with identical prefixes. Only integer
 bookkeeping happens here; the device tensors live in the engine.
 
+The allocator records the KV events the router consumes, in the JAX
+package's order and at its points (kv_cache.py:86, :121, :150):
+("stored", page, seq_hash, parent_hash, tokens_hash) when a page is sealed
+and ("removed", page, seq_hash, 0, 0) when a reusable page is recycled;
+`drain_events` hands them over.
+
 Page hashes chain hash(parent_seq_hash, page_token_ids) as in the JAX
 package, but over BLAKE2b-64 from the standard library instead of xxh3:
-the port depends on nothing beyond torch and numpy. The hash only has to
-agree within one engine until the KV-aware router is ported.
+the port depends on nothing beyond torch and numpy. `tokens_hash` is the
+content-only page hash (BLAKE2b-64 under its own key) that keys the
+router's radix tree; the port's router computes it from query tokens with
+the same function (kv_router/protocols.compute_page_hashes). Neither
+hash matches the JAX package's, so a port worker and a JAX router never
+agree on hashes.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
-def _hash64(parts: Sequence[bytes]) -> int:
-    h = hashlib.blake2b(digest_size=8, key=b"dynamo-page-1337")
+def _hash64(parts: Sequence[bytes], key: bytes = b"dynamo-page-1337") -> int:
+    h = hashlib.blake2b(digest_size=8, key=key)
     for p in parts:
         h.update(p)
     return int.from_bytes(h.digest(), "little")
@@ -34,6 +43,12 @@ def page_hash(parent: int, tokens: Sequence[int]) -> int:
     """Chained content hash of one full page of tokens."""
     return _hash64((parent.to_bytes(8, "little", signed=False),
                     _token_bytes(tokens)))
+
+
+def tokens_hash(tokens: Sequence[int]) -> int:
+    """Content-only (unchained) page hash: computable from query tokens
+    alone, it keys the router's radix tree."""
+    return _hash64((_token_bytes(tokens),), key=b"dynamo-tokens-1337")
 
 
 @dataclasses.dataclass
@@ -58,6 +73,9 @@ class PageAllocator:
         self._reusable_order: List[int] = []  # LRU eviction order (page ids)
         # live (ref_count>0) full pages by hash, for inflight sharing
         self._live: Dict[int, int] = {}
+        # (kind, page, seq_hash, parent_seq_hash, tokens_hash); tokens_hash=0
+        # for "removed" (removal is keyed by the chained hash)
+        self.events: List[Tuple[str, int, int, int, int]] = []
 
     # -- stats ---------------------------------------------------------------
     @property
@@ -90,6 +108,7 @@ class PageAllocator:
             if info.ref_count == 0 and info.seq_hash is not None \
                     and self._reusable.get(info.seq_hash) == pid:
                 del self._reusable[info.seq_hash]
+                self.events.append(("removed", pid, info.seq_hash, 0, 0))
                 info.seq_hash = None
                 return pid
         raise MemoryError("KV cache exhausted: no free or reusable pages")
@@ -119,6 +138,8 @@ class PageAllocator:
         info = self.pages[pid]
         info.seq_hash = sh
         self._live[sh] = pid
+        self.events.append(("stored", pid, sh, parent_hash,
+                            tokens_hash(tokens)))
         return sh
 
     def free(self, pid: int) -> None:
@@ -139,6 +160,10 @@ class PageAllocator:
                 self._reusable_order.append(pid)
         else:
             self._free.append(pid)
+
+    def drain_events(self) -> List[Tuple[str, int, int, int, int]]:
+        ev, self.events = self.events, []
+        return ev
 
 
 @dataclasses.dataclass

@@ -128,6 +128,12 @@ class EngineMetrics:
     num_requests_waiting: int = 0
     gpu_cache_usage_perc: float = 0.0
     gpu_prefix_cache_hit_rate: float = 0.0
+    # the counts behind the hit rate (full pages matched / looked up at
+    # admission) and the requests admitted, so that per-worker figures add
+    # up across workers
+    gpu_prefix_cache_hits: int = 0
+    gpu_prefix_cache_lookups: int = 0
+    requests_admitted: int = 0
     window_slot_steps: int = 0
     window_wasted_steps: int = 0
     decode_windows: int = 0
@@ -207,6 +213,7 @@ class Scheduler:
         self.page_buckets = page_bucket_ladder(max_pages_per_seq)
         self._prefix_hits = 0
         self._prefix_lookups = 0
+        self._admitted = 0
         self._prefill_streak = 0
         self.mixed_token_budget = cfg.mixed_token_budget
         # QoS class table + per-class outstanding cross-class-preemption
@@ -236,6 +243,7 @@ class Scheduler:
                             epoch=next(self._epoch_seq),
                             qos=req.qos or "", qos_prio=qos_cls.priority)
         self.params[req.request_id] = req.params
+        self._admitted += 1
         self._match_prefix(seq)
         return seq
 
@@ -757,4 +765,7 @@ class Scheduler:
             gpu_prefix_cache_hit_rate=(
                 self._prefix_hits / self._prefix_lookups
                 if self._prefix_lookups else 0.0),
+            gpu_prefix_cache_hits=self._prefix_hits,
+            gpu_prefix_cache_lookups=self._prefix_lookups,
+            requests_admitted=self._admitted,
         )

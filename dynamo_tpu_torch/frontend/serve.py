@@ -1,0 +1,74 @@
+"""Standalone OpenAI HTTP frontend: watches the model registry and serves.
+
+Copied from dynamo_tpu/frontend/serve.py: connect to the control plane,
+watch the registered models (frontend/discovery.ModelWatcher), route each
+request of a KV-routed model to the worker that holds the longest cached
+prefix of it (kv_router/router.KvRouter), and serve the OpenAI routes.
+`--no-kv-routing` dispatches round-robin instead. The admission, deadline
+and QoS environment knobs are left out with the reliability slice.
+
+Usage:
+  python -m dynamo_tpu_torch.frontend.serve --port 0 \\
+      --control-host 127.0.0.1 --control-port <port>
+(prints `READY http=:<port>`).
+"""
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+
+from dynamo_tpu_torch.frontend.discovery import ModelWatcher
+from dynamo_tpu_torch.frontend.service import HttpService
+from dynamo_tpu_torch.kv_router.router import KvRouter
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+
+async def run_frontend(runtime, host: str = "0.0.0.0", port: int = 8080,
+                       kv_routing: bool = True) -> HttpService:
+    service = await HttpService(host, port).start()
+
+    async def make_router(component, client, card):
+        return await KvRouter(component, client,
+                              block_size=card.kv_page_size).start()
+
+    service.watcher = await ModelWatcher(
+        runtime, service.models,
+        make_router=make_router if kv_routing else None).start()
+    return service
+
+
+async def amain(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8080,
+                   help="0 picks a free port (printed on the READY line)")
+    p.add_argument("--control-host", default="127.0.0.1")
+    p.add_argument("--control-port", type=int, default=5550)
+    p.add_argument("--worker-id", default=None)
+    p.add_argument("--no-kv-routing", action="store_true")
+    args = p.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    runtime = await DistributedRuntime.connect(
+        args.control_host, args.control_port, args.worker_id)
+    service = await run_frontend(runtime, args.host, args.port,
+                                 kv_routing=not args.no_kv_routing)
+    print(f"READY http=:{service.port}", flush=True)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await service.watcher.stop()
+        await service.stop()
+        await runtime.shutdown()
+
+
+def main() -> None:
+    try:
+        asyncio.run(amain())
+    except KeyboardInterrupt:
+        pass
+
+
+if __name__ == "__main__":
+    main()

@@ -14,12 +14,24 @@ Requests are validated by the port's dataclass protocols
 does not fit answers 422 with the error shape {"error": {"message",
 "code"}}, as the JAX service's does (its message text is pydantic's).
 
+With a model watcher attached (`service.watcher`, frontend/serve.py), GET
+/metrics also shows the control-plane gauges `llm_cp_*`
+(runtime/cpstats.py) and the router gauges `llm_router_*`
+(kv_router/stats.py), folded at render as the JAX service folds them
+(service.py:169-177, :326-328), and two JSON routes show the KV routers:
+GET /router/state (per model: its instances and their status, the
+router's applied events and its recent decisions) and POST /router/match
+(`{"model", "messages"}` or `{"model", "prompt"}`: each worker's matched
+pages for that request's tokens, as the router would score it). A request
+may name its id with an `x-request-id` header; the router's decisions are
+keyed by it.
+
 Left out, each with the later slice that brings its module: admission
 control and 429 shedding, the reliability counters, the KV-pool
 prefetcher, QoS classes from the x-qos-class header (every request runs in
 the policy's default class), tracing spans, and the fault, integrity,
-drain, KV-transfer, control-plane, router, pool, ledger, autoscaler and
-fail-slow gauges. Reference equivalent: the axum HttpService (reference:
+drain, KV-transfer, pool, ledger, autoscaler and fail-slow gauges.
+Reference equivalent: the axum HttpService (reference:
 lib/llm/src/http/service/service_v2.rs:23-130, openai.rs:132-540).
 """
 from __future__ import annotations
@@ -32,6 +44,9 @@ from typing import AsyncIterator, Dict, Optional, Protocol
 
 from dynamo_tpu_torch.frontend.http import (
     HttpError, HttpServer, Request, Response, StreamingResponse,
+)
+from dynamo_tpu_torch.kv_router.stats import (
+    ROUTER_STATS, RouterScoringStats,
 )
 from dynamo_tpu_torch.llm.tool_calls import (
     TOOL_CALL_TAG, apply_tool_calls, could_be_tool_call_prefix,
@@ -48,6 +63,7 @@ from dynamo_tpu_torch.protocols.openai import (
     ChatStreamChoice, CompletionRequest, ModelInfo, ModelList,
     ValidationError,
 )
+from dynamo_tpu_torch.runtime.cpstats import CP_STATS, ControlPlaneStats
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.qos import DEFAULT_POLICY, QOS_KEY
 
@@ -104,6 +120,11 @@ class HttpService:
         self._duration = m.histogram(
             "llm_http_service_request_duration_seconds",
             "request duration", ("model",))
+        # the model watcher of a frontend over the control plane (None for
+        # in-process pipelines); its gauges are folded at render
+        self.watcher = None
+        self._cp = {}
+        self._router = {}
         s = self.server
         s.route("POST", "/v1/chat/completions", self._chat)
         s.route("POST", "/v1/completions", self._completions)
@@ -111,6 +132,8 @@ class HttpService:
         s.route("GET", "/metrics", self._metrics)
         s.route("GET", "/health", self._health)
         s.route("GET", "/live", self._health)
+        s.route("GET", "/router/state", self._router_state)
+        s.route("POST", "/router/match", self._router_match)
 
     @property
     def port(self) -> int:
@@ -135,10 +158,71 @@ class HttpService:
         return Response.json(self.models.list_models().to_json())
 
     async def _metrics(self, req: Request) -> Response:
-        # the serving-path latency histograms (TTFT / ITL) live on the
-        # process-global SERVING registry, observed in the pipelines
+        if self.watcher is not None:
+            self._refresh_router_gauges()
+        # the serving-path latency histograms (TTFT / ITL / schedule) live
+        # on the process-global SERVING registry, observed where they occur
         return Response.text(self.registry.render() + SERVING.render(),
                              content_type="text/plain; version=0.0.4")
+
+    def _refresh_router_gauges(self) -> None:
+        """Fold the process-global control-plane and router counters into
+        this registry's gauges (made at the first render with a watcher)."""
+        m = self.registry
+        if not self._cp:
+            self._cp = {
+                name: m.gauge(f"llm_cp_{name}",
+                              f"control plane: {name.replace('_', ' ')}")
+                for name in ControlPlaneStats.FIELDS}
+            self._router = {
+                name: m.gauge(f"llm_router_{name}",
+                              f"router: {name.replace('_', ' ')}")
+                for name in RouterScoringStats.FIELDS}
+        for name, value in CP_STATS.snapshot().items():
+            self._cp[name].set(value=float(value))
+        for name, value in ROUTER_STATS.snapshot().items():
+            self._router[name].set(value=float(value))
+
+    def _pipeline(self, name: str):
+        if self.watcher is not None:
+            for p in self.watcher.pipelines.values():
+                if p.card.name == name:
+                    return p
+        raise HttpError(404, f"model '{name}' not found")
+
+    async def _router_state(self, req: Request) -> Response:
+        if self.watcher is None:
+            raise HttpError(404, "no model watcher")
+        models = {}
+        for p in self.watcher.pipelines.values():
+            router = p.router
+            models[p.card.name] = {
+                "kv_routed": router is not None,
+                "instances": {w: info.get("status", "ready")
+                              for w, info in p.client.instances.items()},
+                "events_applied": router.events_applied if router else 0,
+                "decisions": list(router.decisions) if router else []}
+        return Response.json({"models": models,
+                              "router": ROUTER_STATS.snapshot()})
+
+    async def _router_match(self, req: Request) -> Response:
+        body = req.json()
+        p = self._pipeline(body.get("model", ""))
+        if p.router is None:
+            raise HttpError(404, f"model '{p.card.name}' is not KV-routed")
+        try:
+            if "messages" in body:
+                pre, _ = p.preprocessor.preprocess_chat(
+                    ChatCompletionRequest.from_json(body))
+            else:
+                pre, _ = p.preprocessor.preprocess_completion(
+                    CompletionRequest.from_json(body))
+        except ValidationError as e:
+            raise HttpError(422, str(e.errors[:3]))
+        match = p.router.find_matches_for_tokens(pre.token_ids)
+        return Response.json({
+            "scores": match.scores, "isl": len(pre.token_ids),
+            "required_blocks": -(-len(pre.token_ids) // p.router.block_size)})
 
     async def _chat(self, req: Request):
         try:
@@ -171,7 +255,8 @@ class HttpService:
         t0 = time.perf_counter()
         # the class rides Context.baggage; without the admission slice
         # every request runs in the policy default
-        ctx = Context(baggage={QOS_KEY: DEFAULT_POLICY.default})
+        ctx = Context(http_req.headers.get("x-request-id") or None,
+                      baggage={QOS_KEY: DEFAULT_POLICY.default})
         self._inflight.inc(model)
 
         finished = False

@@ -37,6 +37,14 @@ class ModelDeploymentCard:
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ModelDeploymentCard":
+        """The card a registry entry carries (its `to_dict` form); fields
+        the port's card does not have (a JAX card's model_path, ...) are
+        left out."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
     def model_config(self) -> ModelConfig:
         return get_model_config(self.arch)
 

@@ -3,9 +3,18 @@
 Copied from dynamo_tpu/llm/pipeline.py for the slice: `Pipeline` (render +
 tokenize, stream token frames from an engine, incremental detokenisation
 with the stop-string jail, OpenAI delta chunks, the TTFT / ITL histograms
-observed at the frame boundary) and `LocalPipeline` (the engine
-in-process). The pipeline-graph segment and the remote sink come with the
-endpoint slice; here the sink is the engine itself.
+observed at the frame boundary), `LocalPipeline` (the engine in-process)
+and `RemotePipeline` with its `RemoteEngineSink` (a worker endpoint on the
+control plane, optionally KV-routed; pipeline.py:276-347). The
+pipeline-graph segment is left out: the sink is called directly.
+
+The remote sink is the JAX package's raw single-dispatch path
+(`reliability=False`); its default, the reliability layer
+(frontend/reliability.ReliableClient: migration, retries, the circuit
+breaker, deadlines), comes with a later slice. As in the JAX raw path, a
+routing failure is logged and the request goes out by the client's plain
+policy; each such fall-back adds one to ROUTER_STATS.fallbacks, which the
+frontend's /metrics shows as llm_router_fallbacks.
 """
 from __future__ import annotations
 
@@ -15,12 +24,14 @@ import logging
 import time
 from typing import AsyncIterator, Optional
 
+from dynamo_tpu_torch.kv_router.stats import ROUTER_STATS
 from dynamo_tpu_torch.llm.backend import BackendPostprocessor
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
 from dynamo_tpu_torch.observability.serving import SERVING
 from dynamo_tpu_torch.protocols.common import (
-    EngineOutput, FinishReason, PreprocessedRequest,
+    EngineOutput, FinishReason, PreprocessedRequest, output_from_wire,
+    to_wire,
 )
 from dynamo_tpu_torch.protocols.delta import (
     ChatDeltaGenerator, CompletionDeltaGenerator,
@@ -243,3 +254,44 @@ class LocalPipeline(Pipeline):
     def _token_stream(self, pre: PreprocessedRequest,
                       context: Context) -> AsyncIterator[EngineOutput]:
         return self.engine.generate(pre, context)
+
+
+class RemoteEngineSink:
+    """Sink: a remote worker endpoint, KV-aware routed when a router is
+    given, round-robin otherwise (the JAX package's
+    `RemoteEngineSink(reliability=False)` at its default policy)."""
+
+    def __init__(self, client, router=None):
+        self.client = client
+        self.router = router
+
+    async def generate(self, pre: PreprocessedRequest, context: Context):
+        instance = None
+        if self.router is not None:
+            try:
+                instance = await self.router.schedule(
+                    pre.token_ids, request_id=pre.request_id)
+            except Exception:  # noqa: BLE001 — counted, then plain policy
+                ROUTER_STATS.fallbacks += 1
+                log.exception("kv routing failed; falling back to "
+                              "round-robin")
+        stream = await self.client.generate(
+            to_wire(pre), context, instance=instance, policy="round_robin")
+        async for frame in stream:
+            yield output_from_wire(frame)
+
+
+class RemotePipeline(Pipeline):
+    """Engine is a remote worker endpoint, optionally KV-aware routed: what
+    the discovery watcher (frontend/discovery.py) builds per registered
+    model, a runtime Client plus an optional KvRouter."""
+
+    def __init__(self, card: ModelDeploymentCard, client, router=None):
+        super().__init__(card)
+        self.client = client
+        self.router = router
+        self.sink = RemoteEngineSink(client, router)
+
+    def _token_stream(self, pre: PreprocessedRequest,
+                      context: Context) -> AsyncIterator[EngineOutput]:
+        return self.sink.generate(pre, context)

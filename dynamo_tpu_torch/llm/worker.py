@@ -1,12 +1,20 @@
-"""LLM worker: serves a token-level engine to a pipeline.
+"""LLM worker: serves a token-level engine to a pipeline or an endpoint.
 
-Copied from dynamo_tpu/llm/worker.py for the slice: `NativeEngineWorker`
-(async request fan-in, the engine step loop in an executor thread,
-per-request frame fan-out) and `EchoTokenEngine` (the deterministic
-no-hardware engine). KV-event and metrics publishers, tracing and the
-profiler hook come with the runtime slice. Requests are
-PreprocessedRequest objects and frames EngineOutput objects (in-process;
-the JAX package passes their dict forms over its wire).
+Copied from dynamo_tpu/llm/worker.py: `NativeEngineWorker` (async request
+fan-in, the engine step loop in an executor thread, per-request frame
+fan-out, and from its step loop the allocator's KV events and the engine's
+metrics for the router, :225-280), `EchoTokenEngine` (the deterministic
+no-hardware engine), `serve_llm_worker` (:362-396) and
+`install_graceful_drain` (:398-446). Requests arrive as PreprocessedRequest
+objects in-process or as their dict forms over the wire; frames are
+EngineOutput objects (runtime/component.py sends their dict forms).
+
+The publishers run on the event loop, after the executor step returns:
+the events come from the host allocator, so draining them adds no device
+sync to a decode window. The worker drains the events after every step
+whether or not a publisher is wired, so a worker serving a local pipeline
+does not accumulate them. Tracing, the profiler hook, multimodal parts,
+mid-stream resume and the shared KV pool's publisher are left out.
 """
 from __future__ import annotations
 
@@ -15,8 +23,11 @@ import logging
 from typing import Dict, Optional
 
 from dynamo_tpu_torch.engine.scheduler import EngineRequest, SamplingParams
+from dynamo_tpu_torch.kv_router.publisher import (
+    KvEventPublisher, KvMetricsPublisher,
+)
 from dynamo_tpu_torch.protocols.common import (
-    EngineOutput, FinishReason, PreprocessedRequest,
+    EngineOutput, FinishReason, PreprocessedRequest, preprocessed_from_wire,
 )
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context
 from dynamo_tpu_torch.runtime.qos import qos_of
@@ -51,8 +62,9 @@ class EchoTokenEngine(AsyncEngine):
     def __init__(self, delay_s: float = 0.0):
         self.delay_s = delay_s
 
-    async def generate(self, request: PreprocessedRequest,
-                       context: Context):
+    async def generate(self, request, context: Context):
+        if isinstance(request, dict):
+            request = preprocessed_from_wire(request)
         prompt = request.token_ids
         n = request.stop.max_tokens or len(prompt)
         emitted = 0
@@ -71,10 +83,13 @@ class EchoTokenEngine(AsyncEngine):
 
 class NativeEngineWorker(AsyncEngine):
     """Serves a NativeEngine: async request fan-in, device step loop,
-    per-request frame fan-out."""
+    per-request frame fan-out, KV event + metrics publication."""
 
     def __init__(self, engine):
         self.engine = engine
+        self.metrics_publisher = KvMetricsPublisher()
+        # wired by serve_llm_worker once the worker has a runtime identity
+        self.event_publisher: Optional[KvEventPublisher] = None
         self._queues: Dict[str, asyncio.Queue] = {}
         self._wake = asyncio.Event()
         self._loop_task: Optional[asyncio.Task] = None
@@ -125,6 +140,7 @@ class NativeEngineWorker(AsyncEngine):
             if not self.engine.has_work():
                 self._wake.clear()
                 if not self._pending_adds:
+                    self.metrics_publisher.update(self.engine.metrics())
                     try:
                         await asyncio.wait_for(self._wake.wait(), timeout=1.0)
                     except asyncio.TimeoutError:
@@ -153,6 +169,10 @@ class NativeEngineWorker(AsyncEngine):
                                   if ev.top_logprobs is not None else None),
                     finish_reason=(FinishReason(ev.finish_reason)
                                    if ev.finish_reason else None)))
+            self.metrics_publisher.update(self.engine.metrics())
+            events = self.engine.drain_kv_events()
+            if self.event_publisher is not None and events:
+                await self.event_publisher.publish_allocator_events(events)
 
     # -- AsyncEngine ----------------------------------------------------------
 
@@ -185,8 +205,9 @@ class NativeEngineWorker(AsyncEngine):
                 self._pending_aborts.append(request_id)
                 self._wake.set()
 
-    async def generate(self, request: PreprocessedRequest,
-                       context: Context):
+    async def generate(self, request, context: Context):
+        if isinstance(request, dict):
+            request = preprocessed_from_wire(request)
         if request.request_id in self._queues:
             # a second dispatch of a live id would clobber the first
             # stream's frame queue
@@ -205,3 +226,74 @@ class NativeEngineWorker(AsyncEngine):
                 yield frame
         finally:
             self._queues.pop(request.request_id, None)
+
+    # -- stats ----------------------------------------------------------------
+
+    def stats_handler(self) -> dict:
+        """The endpoint's $STATS reply: the engine's latest metrics (the
+        router's load inputs) and the kernel launch counts of this process
+        (each wrapper's count, which the window graphs' replays add to,
+        and the launches of the eager warm-ups before captures)."""
+        from dynamo_tpu_torch.engine.window_graph import KERNELS
+        graphs = self.engine.graphs
+        return {**self.metrics_publisher.stats_handler(),
+                "decode_window_steps": self.engine.decode_window_steps,
+                "kernel_launches": {
+                    name: getattr(mod, attr)
+                    for name, (mod, attr, _) in KERNELS.items()},
+                "graph_warmup_launches": dict(graphs.warmup_launches)}
+
+
+async def serve_llm_worker(runtime, namespace: str, component: str,
+                           engine: AsyncEngine, endpoint: str = "generate"):
+    """Register + serve an LLM engine endpoint with stats wired up.
+
+    Also wires the KV event publisher of an engine worker (built before
+    the runtime existed): without it a KV-routed frontend receives no
+    overlap data from the worker. The worker id is
+    the runtime's: that is the instance id routers see in the event stream
+    and the instance table. The model card rides the model registry
+    (frontend/discovery.register_model); the JAX package also copies it
+    into the instance key, which nothing in the port reads."""
+    comp = runtime.namespace(namespace).component(component)
+    ep = comp.endpoint(endpoint)
+    if getattr(engine, "event_publisher", "absent") is None:
+        engine.event_publisher = KvEventPublisher(comp, runtime.worker_id)
+    stats = getattr(engine, "stats_handler", None)
+    return await ep.serve(engine, stats_handler=stats)
+
+
+def install_graceful_drain(runtime, served) -> None:
+    """SIGTERM / SIGINT -> graceful drain for a serving worker process:
+    mark the instance DRAINING (routers fence it out of new assignments
+    while the request subject stays up), let in-flight response streams
+    finish (bounded by DYN_DRAIN_TIMEOUT_S, default 30 s), cut whatever is
+    left, deregister, then shut the runtime down so the process exits
+    cleanly. A second signal skips the wait for in-flight streams."""
+    import os
+    import signal as _signal
+
+    timeout_s = float(os.environ.get("DYN_DRAIN_TIMEOUT_S", "30"))
+    loop = asyncio.get_running_loop()
+    # the loop holds only weak task refs: keep the drain task here
+    state = {"task": None, "force": False}
+
+    async def drain():
+        log.warning("SIGTERM: draining — fencing instance, then up to "
+                    "%.0fs for %d in-flight stream(s)", timeout_s,
+                    len(served.inflight))
+        try:
+            await served.drain(timeout_s=timeout_s, poll_s=0.2,
+                               force=lambda: state["force"])
+        except Exception:  # noqa: BLE001 — exit cleanly regardless
+            log.exception("drain failed; shutting down anyway")
+        await runtime.shutdown()
+
+    def on_signal():
+        if state["task"] is None:
+            state["task"] = asyncio.ensure_future(drain())
+        else:
+            state["force"] = True  # escalate: stop waiting on streams
+
+    for sig in (_signal.SIGTERM, _signal.SIGINT):
+        loop.add_signal_handler(sig, on_signal)

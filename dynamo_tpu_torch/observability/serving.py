@@ -1,10 +1,11 @@
-"""Serving-path latency histograms: time to first token and inter-token
-latency.
+"""Serving-path latency histograms: time to first token, inter-token
+latency and the router's decision time.
 
-Copied from dynamo_tpu/observability/serving.py, trimmed to the two
-histograms the port's serving path observes (llm/pipeline._drive_n): the
-queue-wait, schedule and transfer histograms wait for the admission,
-router and disagg slices that observe them. One process-global registry,
+Copied from dynamo_tpu/observability/serving.py, trimmed to the histograms
+the port's serving path observes (TTFT and ITL in llm/pipeline._drive_n,
+the schedule decision in kv_router/router.KvRouter.schedule): the
+queue-wait and transfer histograms wait for the admission and disagg
+slices that observe them. One process-global registry,
 `SERVING`; the HTTP frontend appends `SERVING.render()` to its own
 registry's output on GET /metrics.
 
@@ -23,6 +24,8 @@ TTFT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                 1.0, 2.5, 5.0, 10.0, 30.0, float("inf"))
 ITL_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                0.5, 1.0, float("inf"))
+SCHEDULE_BUCKETS = (0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
+                    0.01, 0.05, 0.1, float("inf"))
 
 
 class ServingMetrics:
@@ -33,6 +36,7 @@ class ServingMetrics:
       (runtime/qos.py; unclassed requests label as the policy default).
     - llm_itl_seconds{model, qos}: the gap between successive
       token-carrying frames of one choice stream (the commit boundary).
+    - llm_schedule_seconds: one KvRouter.schedule decision.
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
@@ -45,6 +49,9 @@ class ServingMetrics:
             "llm_itl_seconds",
             "inter-token latency at the frame boundary",
             ("model", "qos"), buckets=ITL_BUCKETS)
+        self.schedule = r.histogram(
+            "llm_schedule_seconds", "worker-selection decision time",
+            buckets=SCHEDULE_BUCKETS)
 
     def render(self) -> str:
         return self.registry.render()

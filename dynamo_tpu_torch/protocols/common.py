@@ -79,3 +79,47 @@ class EngineOutput:
     # ERROR frames only — False: deterministic per-REQUEST rejection;
     # True/None: instance-scoped failure, retryable on another worker
     retryable: Optional[bool] = None
+
+
+# -- wire forms ----------------------------------------------------------------
+# The JAX package sends these models over its data plane as
+# `model_dump(exclude_none=True)` and rebuilds them with `model_validate`;
+# the port's dataclasses take the same dict forms.
+
+def to_wire(obj):
+    """The dict form of a protocol dataclass, None fields left out at every
+    depth (pydantic's exclude_none), enums as their values; anything else
+    passes through."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = {}
+        for f in dataclasses.fields(obj):
+            v = to_wire(getattr(obj, f.name))
+            if v is not None:
+                out[f.name] = v
+        return out
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    return obj
+
+
+def _known(cls, d: dict) -> dict:
+    """The keys of `d` that name fields of `cls` (unknown keys are ignored,
+    as pydantic ignores extra fields)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
+
+def preprocessed_from_wire(d: dict) -> PreprocessedRequest:
+    d = _known(PreprocessedRequest, d)
+    for name, cls in (("sampling", SamplingOptions), ("stop", StopConditions),
+                      ("output", OutputOptions)):
+        if name in d:
+            d[name] = cls(**_known(cls, d[name]))
+    return PreprocessedRequest(**d)
+
+
+def output_from_wire(d: dict) -> EngineOutput:
+    d = _known(EngineOutput, d)
+    if d.get("finish_reason") is not None:
+        d["finish_reason"] = FinishReason(d["finish_reason"])
+    return EngineOutput(**d)

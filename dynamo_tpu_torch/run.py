@@ -10,6 +10,14 @@ Inputs:
   in=text            interactive chat REPL
   in=stdin           one prompt from stdin -> streamed completion -> exit
   in=batch:FILE      JSONL prompts ({"prompt": ...}) -> JSONL completions
+  in=endpoint:NS.COMP.EP  serve the engine as a control-plane endpoint
+                     (worker mode; --control-host / --control-port name the
+                     server of `python -m dynamo_tpu_torch.runtime.
+                     transports.server`): registers the instance and the
+                     model (KV-routed), publishes KV events and metrics,
+                     prints `READY endpoint=... model=... worker=...
+                     device=...`, drains on SIGTERM and prints an `EXIT`
+                     line with the engine's non-finite logit steps
   in=none            build the engine and exit
 
 Outputs (engines):
@@ -21,7 +29,8 @@ The engine runs on CUDA unless `--device cpu` is given; `--quant int8`
 stores the seven projections and the head as int8 with per-output-channel
 scales (ops/quant.py; on the card every decode projection runs the W8A16
 kernel); `--kv-quant int8` stores the KV cache as int8 pages with per-row
-scales. Control-plane endpoints (in=endpoint) come with a later slice.
+scales. A frontend for endpoint workers is `python -m
+dynamo_tpu_torch.frontend.serve`.
 """
 from __future__ import annotations
 
@@ -78,6 +87,42 @@ async def run_http(pipe: LocalPipeline, card, port: int) -> None:
         await asyncio.Event().wait()
     finally:
         await service.stop()
+
+
+async def run_endpoint(engine, card, spec: str, args) -> None:
+    from dynamo_tpu_torch.frontend.discovery import register_model
+    from dynamo_tpu_torch.llm.worker import (
+        install_graceful_drain, serve_llm_worker,
+    )
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    try:
+        ns, comp, ep = spec.split(".", 2)
+    except ValueError:
+        raise SystemExit("in=endpoint needs NS.COMPONENT.ENDPOINT")
+    runtime = await DistributedRuntime.connect(
+        args.control_host, args.control_port)
+    served = await serve_llm_worker(runtime, ns, comp, engine, endpoint=ep)
+    # KV-routed: the worker publishes its allocator's events (the JAX
+    # run.py registers kv_routed=False, so its frontend never routes by KV)
+    await register_model(runtime.kv, card.name, ns, comp, card, endpoint=ep,
+                         model_type=card.model_type, kv_routed=True)
+    install_graceful_drain(runtime, served)
+    device = "none"
+    if isinstance(engine, NativeEngineWorker):
+        dev = engine.engine.device
+        device = dev.type
+        if dev.type == "cuda":
+            import torch
+            device = torch.cuda.get_device_name(dev)
+    print(f"READY endpoint={spec} model={card.name} "
+          f"worker={runtime.worker_id} device={device}", flush=True)
+    await runtime.shutdown_event.wait()
+    if isinstance(engine, NativeEngineWorker):
+        m = engine.engine.metrics()
+        print(f"EXIT worker={runtime.worker_id} "
+              f"logits_nonfinite_steps="
+              f"{engine.engine.logits_nonfinite_steps()} "
+              f"requests_admitted={m.requests_admitted}", flush=True)
 
 
 async def _stream_chat(pipe: LocalPipeline, card, prompt: str,
@@ -153,6 +198,8 @@ async def amain(argv=None) -> None:
                         "(ops/kv_quant.py; parity-gated by "
                         "dynamo_tpu_torch/bench.py)")
     p.add_argument("--echo-delay", type=float, default=0.0)
+    p.add_argument("--control-host", default="127.0.0.1")
+    p.add_argument("--control-port", type=int, default=5550)
     p.add_argument("-v", "--verbose", action="store_true")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
@@ -170,7 +217,10 @@ async def amain(argv=None) -> None:
     engine = await build_engine(out_spec, card, args)
     pipe = LocalPipeline(card, engine)
     try:
-        if in_spec == "http" or (in_spec.startswith("http:")
+        if in_spec.startswith("endpoint:"):
+            await run_endpoint(engine, card, in_spec[len("endpoint:"):],
+                               args)
+        elif in_spec == "http" or (in_spec.startswith("http:")
                                  and in_spec[5:].isdigit()):
             port = int(in_spec[5:]) if in_spec != "http" else 8080
             await run_http(pipe, card, port)

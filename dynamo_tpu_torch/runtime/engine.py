@@ -2,27 +2,31 @@
 
 Copied from dynamo_tpu/runtime/engine.py, trimmed to the slice:
 `generate(request, Context) -> AsyncIterator`, where the Context carries
-the request id, baggage and a cooperative stop signal. Kill, deadlines,
-child contexts and the trace context come with the runtime and
-reliability slices.
+the request id, baggage, a cooperative stop signal and an optional
+end-to-end deadline (it crosses process boundaries as remaining seconds:
+runtime/component.py). Kill, child contexts and the trace context come
+with the reliability and tracing slices.
 """
 from __future__ import annotations
 
 import abc
 import asyncio
+import time
 import uuid
 from typing import Any, AsyncIterator, Dict, Optional
 
 
 class Context:
-    """Request envelope: id, typed baggage, and a cooperative stop signal
-    ("finish the current response gracefully and end the stream")."""
+    """Request envelope: id, typed baggage, a cooperative stop signal
+    ("finish the current response gracefully and end the stream") and an
+    optional deadline."""
 
     def __init__(self, request_id: Optional[str] = None,
                  baggage: Optional[Dict[str, Any]] = None):
         self.id = request_id or uuid.uuid4().hex
         self.baggage: Dict[str, Any] = dict(baggage or {})
         self._stopped = asyncio.Event()
+        self._deadline: Optional[float] = None
 
     def stop_generating(self) -> None:
         self._stopped.set()
@@ -34,6 +38,24 @@ class Context:
     async def wait_stopped(self) -> None:
         await self._stopped.wait()
 
+    # -- deadline ------------------------------------------------------------
+    def set_deadline(self, timeout_s: float) -> None:
+        """Arm (or tighten) the end-to-end deadline: timeout_s from now."""
+        dl = time.monotonic() + timeout_s
+        if self._deadline is None or dl < self._deadline:
+            self._deadline = dl
+
+    def time_remaining(self) -> Optional[float]:
+        """Seconds left before the deadline (>= 0), None when unbounded."""
+        if self._deadline is None:
+            return None
+        return max(0.0, self._deadline - time.monotonic())
+
+    @property
+    def deadline_expired(self) -> bool:
+        return self._deadline is not None \
+            and time.monotonic() >= self._deadline
+
 
 class AsyncEngine(abc.ABC):
     """A streaming request->response engine."""
@@ -41,3 +63,13 @@ class AsyncEngine(abc.ABC):
     @abc.abstractmethod
     def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
         """Return an async iterator of response frames."""
+
+
+class FnEngine(AsyncEngine):
+    """Wrap an async generator function as an engine."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
+        return self._fn(request, context)

@@ -19,6 +19,14 @@ JAX package's, each on a localhost port, driven by the same client
     the JAX service's for the same requests.
 (d) `python -m dynamo_tpu_torch.run in=http:0 out=native tiny --device
     cpu` prints READY and answers one streamed request.
+(e) The distributed path: a worker served on an in-process memory plane
+    (`serve_llm_worker`, the model registered KV-routed) behind each
+    package's `run_frontend` (frontend/serve.py: ModelWatcher ->
+    RemotePipeline -> KvRouter). The port's watcher discovers the
+    registered model and drops it when it is unregistered; a routed chat
+    over HTTP, unary and streamed, greedy and seeded-sampled, gives the
+    same bodies and frames as the JAX frontend over the JAX worker on the
+    same weights, apart from id and created.
 """
 import asyncio
 import json
@@ -495,3 +503,122 @@ def test_run_in_http_serves_a_request():
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=30)
+
+
+# -- (e): the routed path ----------------------------------------------------
+
+def _routed_modules(pkg: str) -> dict:
+    if pkg == "jax":
+        from dynamo_tpu.frontend import discovery, serve
+        from dynamo_tpu.runtime import distributed
+        from dynamo_tpu.runtime.transports import memory
+    else:
+        from dynamo_tpu_torch.frontend import discovery, serve
+        from dynamo_tpu_torch.runtime import distributed
+        from dynamo_tpu_torch.runtime.transports import memory
+    return {**_modules(pkg), "discovery": discovery, "serve": serve,
+            "distributed": distributed, "memory": memory}
+
+
+async def _serve_routed(pkg, jax_params, fn):
+    """Run fn(port) against pkg's run_frontend on a memory plane, in front
+    of one NativeEngineWorker served as ns.llm.generate (tiny, f32, the
+    bridged weights), the model registered KV-routed."""
+    m = _routed_modules(pkg)
+    if pkg == "jax":
+        engine = JNativeEngine(JCFG, JEngineConfig(**ENGINE_KW), seed=0)
+    else:
+        engine = TNativeEngine(TCFG, TEngineConfig(**ENGINE_KW), device="cpu",
+                               params=params_from_jax(jax_params, TCFG))
+    card = m["card"].ModelDeploymentCard(
+        name="tiny", arch="tiny", context_length=512, model_type="both",
+        kv_page_size=ENGINE_KW["page_size"])  # the router's block size
+    DRT = m["distributed"].DistributedRuntime
+    plane = m["memory"].MemoryPlane()
+    wrt = await DRT.create_local(plane, "w0")
+    frt = await DRT.create_local(plane, "fe")
+    worker = await m["worker"].NativeEngineWorker(engine).start()
+    await m["worker"].serve_llm_worker(wrt, "ns", "llm", worker)
+    await m["discovery"].register_model(wrt.kv, "tiny", "ns", "llm", card,
+                                        model_type="both", kv_routed=True)
+    svc = await m["serve"].run_frontend(frt, HOST, 0)
+    watcher = getattr(svc, "watcher", None) or svc._watcher
+    try:
+        return await fn(svc.port, wrt, m, watcher)
+    finally:
+        await watcher.stop()
+        await svc.stop()
+        await frt.shutdown()
+        await wrt.shutdown()
+        await worker.stop()
+
+
+ROUTED_CASES = [{"max_tokens": 10},
+                {"max_tokens": 9, "temperature": 0.9, "seed": 5,
+                 "ext": {"top_k": 30}}]
+
+
+def test_routed_chat_equals_jax_frontend(jax_params):
+    async def drive(port, wrt, m, watcher):
+        out = []
+        for kw in ROUTED_CASES:
+            body = _body("/v1/chat/completions", kw, False)
+            status, got = await _post(port, "/v1/chat/completions", body)
+            assert status == 200, got
+            out.append(_strip(got))
+            out.append(_strip(await _stream(
+                port, "/v1/chat/completions",
+                _body("/v1/chat/completions", kw, True))))
+        return out
+
+    want, got = (asyncio.run(asyncio.wait_for(
+        _serve_routed(pkg, jax_params, drive), 120))
+        for pkg in ("jax", "torch"))
+    want, got = list(want), list(got)
+    assert got == want
+    assert want[0]["choices"][0]["message"]["content"]
+    assert want[0]["usage"]["completion_tokens"] == 10
+
+
+def test_model_watcher_discovers_and_drops_models(jax_params):
+    async def drive(port, wrt, m, watcher):
+        status, raw = await request(HOST, port, "GET", "/v1/models")
+        assert status == 200
+        assert [x["id"] for x in json.loads(raw)["data"]] == ["tiny"]
+        state = json.loads((await request(HOST, port, "GET",
+                                          "/router/state"))[1])
+        assert state["models"]["tiny"]["kv_routed"] is True
+        assert list(state["models"]["tiny"]["instances"]) == ["w0"]
+        # the router scores the served prefix after one request
+        body = _body("/v1/chat/completions", {"max_tokens": 4}, False)
+        body["messages"][0]["content"] = CONTENT * 3
+        status, _ = await _post(port, "/v1/chat/completions", body)
+        assert status == 200
+        for _ in range(200):
+            status, match = await _post(port, "/router/match", body)
+            if match["scores"]:
+                break
+            await asyncio.sleep(0.01)
+        # every full page of the prompt (its template adds 25 bytes)
+        assert status == 200 and match["scores"] == {
+            "w0": (len(CONTENT * 3) + 25) // ENGINE_KW["page_size"]}
+        assert match["isl"] == len(CONTENT * 3) + 25
+        decision = json.loads((await request(
+            HOST, port, "GET", "/router/state"))[1])["models"]["tiny"][
+                "decisions"][-1]
+        assert decision["worker_id"] == "w0"
+        metrics = (await request(HOST, port, "GET", "/metrics"))[1].decode()
+        assert re.search(r"^llm_router_fallbacks 0(\.0)?$", metrics, re.M)
+        assert "llm_cp_watch_events_applied" in metrics
+        await m["discovery"].unregister_model(wrt.kv, "tiny", "both")
+        for _ in range(200):
+            status, raw = await request(HOST, port, "GET", "/v1/models")
+            if not json.loads(raw)["data"]:
+                break
+            await asyncio.sleep(0.01)
+        assert json.loads(raw)["data"] == []
+        assert not watcher.pipelines
+        return True
+
+    assert asyncio.run(asyncio.wait_for(
+        _serve_routed("torch", jax_params, drive), 120))
