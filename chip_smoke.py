@@ -178,9 +178,59 @@ Phases (any failed check exits non-zero; nothing is caught):
    path: its launch counts start at 0 with the process and are read from
    its $STATS.
 
+12. The disaggregated deployment at full width, as processes through the
+   SDK's one command: `python -m dynamo_tpu_torch.sdk.serve
+   dynamo_tpu_torch.examples.disagg.graph:Frontend -f <config>
+   --start-control-plane --control-port 0`, the config being
+   dynamo_tpu_torch/examples/disagg/config.json (llama3-8b at full width
+   and depth, bf16 weights from seed 0 in both workers, bf16 KV pages, ps
+   64, max_model_len 16384; decode max_slots 16, max_local_prefill_length
+   1000, max_prefill_queue_size 2; prefill max_slots 8; max_prefill_chunk
+   512) with one cut: num_pages 1024 per engine in place of 2048, two
+   engines sharing one card. The supervisor starts the control plane, the
+   PrefillWorker, the DecodeWorker (each printing the card it runs on,
+   which must be this card) and the KV-routed Frontend. Before that, an
+   aggregated NativeEngine with the decode worker's config on the same
+   seed-0 weights serves round A's prompts one at a time, first plainly
+   with each token's top logprobs, then through its own disaggregation
+   hooks in one process (a prefill-only run, extract, inject into the
+   up-front allocation, activation: the reference tokens), and is freed.
+   Traffic: a warm-up of 42 chats one at a time, one for each window
+   graph rounds A and B can replay (greedy or sampled x the page buckets
+   3-48 of their rows x window rungs 1, 2, 8 by max_tokens 2, 3, 32; see
+   WARM_BUCKETS); round A, the 4 greedy long
+   chats of 1100-2560 bytes, one at a time through the decode worker's
+   endpoint (token ids in every frame); round B, 12 chats at once through
+   the frontend: 8 long ones of 1100-2990 bytes with no shared prefix and
+   4 short ones of 100-600, max_tokens 32, half greedy and half sampled
+   (temperature 0.8, top_k 50, seeded), half SSE and half unary. Checks:
+   every request finishes with 32 tokens or a stop; each of round A's
+   streams equals the plain aggregated engine's up to its first
+   difference, where the two tokens are a near tie in the aggregated
+   engine's logprobs (within two bf16 ulps of the top logit, `NEAR_TIE`),
+   and equals the reference tokens; every short request is prefilled locally,
+   every round-A request remotely, and each round-B long request as
+   `prefill_remote(len, prefix hit, queue depth)` decides on the values
+   the decode worker recorded (its prompt length equal to the client's
+   token count); the prefill worker completed every remote request; the
+   pages received equal the remote requests' uncached pages and the pages
+   verified, with no mismatch; salvages, full re-prefills, overlap
+   fall-backs, prefill timeouts, link timeouts, prefill failures and
+   llm_router_fallbacks are all 0; the prefill worker launched the ragged
+   kernel 0 times, the decode worker layers x decode steps + warm-up
+   launches times, one replay per decode window, no graph reset, and no
+   new graph during rounds A and B. Then SIGTERM to the supervisor: the frontend
+   stops, each worker drains (EXIT lines with logits_nonfinite_steps=0),
+   every service and the supervisor exit 0. Reported: TTFT of round A
+   (client), round B's llm_ttft_seconds p50 / p90 and the client TTFT of
+   its streamed remote and local requests, early first emits, each
+   transfer's pages, MiB, ms and GB/s (send side), enqueue to activation,
+   each worker's peak memory, the phase's seconds. The services' whole
+   output goes to build/disagg_supervisor.log.
+
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, and each
-worker process of 11) runs with every kernel's launch count set to 0 just
-before it and read just after. The third line
+worker process of 11 and 12) runs with every kernel's launch count set to 0
+just before it and read just after. The third line
 from the end of the output is one JSON object with the kernel records, the
 second from the end the nvidia-smi reading, and the last line
 {"ok": true, "device": {...}}.
@@ -190,6 +240,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -1890,7 +1941,7 @@ class Child:
     """A subprocess of the phase (`python -m <args>` from the checkout's
     root) whose merged output a thread drains into a queue."""
 
-    def __init__(self, name: str, args: list):
+    def __init__(self, name: str, args: list, session: bool = False):
         import queue
         import threading
         self.name = name
@@ -1898,9 +1949,13 @@ class Child:
         self._q: queue.Queue = queue.Queue()
         root = os.path.dirname(os.path.abspath(__file__))
         env = {**os.environ, "DYN_LEASE_TTL_S": "30"}
+        # session: a process group of its own, so that kill() also reaches
+        # the processes it started (a supervisor's services)
+        self.session = session
         self.proc = subprocess.Popen(
             [sys.executable, "-m", *args], cwd=root, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=session)
         self._reader = threading.Thread(target=self._drain, daemon=True)
         self._reader.start()
 
@@ -1942,6 +1997,12 @@ class Child:
             except subprocess.TimeoutExpired:
                 self.proc.kill()
                 self.proc.wait(timeout=30)
+        if self.session:
+            import signal
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
         self._reader.join(timeout=10)
         return self.proc.returncode
 
@@ -2033,15 +2094,17 @@ def _ttft_quantiles(after: str, before: str = "") -> dict:
 
 async def _dist_send(port: int, body: dict, rid: str) -> dict:
     """One chat request with an x-request-id; its finish reason,
-    completion tokens and (unary) the body."""
+    completion tokens, (streamed) the seconds to its first frame and
+    (unary) the body."""
     extra = {"x-request-id": rid}
     if body.get("stream"):
-        frames, done, _, _ = await _sse(port, body, extra)
+        frames, done, _, first_frame = await _sse(port, body, extra)
         check(done, f"{rid}: the stream did not end with [DONE]")
         fin = [c["finish_reason"] for f in frames
                for c in f.get("choices", []) if c.get("finish_reason")]
         usage = next(f["usage"] for f in frames if f.get("usage"))
-        out = {"finish": fin, "tokens": usage["completion_tokens"]}
+        out = {"finish": fin, "tokens": usage["completion_tokens"],
+               "ttft_s": first_frame}
     else:
         status, _, raw = await _http(port, "POST", "/v1/chat/completions",
                                      body, extra)
@@ -2050,7 +2113,8 @@ async def _dist_send(port: int, body: dict, rid: str) -> dict:
         out = {"finish": [c["finish_reason"] for c in res["choices"]],
                "tokens": res["usage"]["completion_tokens"], "body": res}
     check(len(out["finish"]) == 1 and (out["finish"][0] == "stop" or (
-        out["finish"][0] == "length" and out["tokens"] == DIST_MAX_TOKENS)),
+        out["finish"][0] == "length"
+        and out["tokens"] == body["max_tokens"])),
         f"{rid}: finished {out['finish']} with {out['tokens']} tokens")
     return out
 
@@ -2351,6 +2415,511 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
             c.stop(signal.SIGKILL, 30)
 
 
+# -- phase 12: the disaggregated deployment --------------------------------------
+
+DISAGG_NS = "dynamo-demo"
+DISAGG_GRAPH = "dynamo_tpu_torch.examples.disagg.graph:Frontend"
+DISAGG_PAGES = 1024   # per engine; the reference deployment gives each 2048
+# chat user-turn lengths in bytes (byte tokens; the template adds 25). A
+# decode window's graph is keyed by its rows' variant (all greedy, or
+# sampled), the page bucket of its longest row (admission-time pages of
+# prompt + max_tokens) and its window rung (the smallest of 8, 2, 1 that
+# covers the row nearest its end), and rounds A and B reach buckets 3, 6,
+# 8, 12 (the short chats) and 24, 32, 48 (the long ones) at any rung, as
+# the rows' timing falls. The warm-up sends one chat alone for each
+# variant x bucket x rung: a user turn inside the bucket at each of its
+# max_tokens, which set the rung of its windows (1, 2, then 8): 2, 3 and
+# 32 for a local prefill, one more for a remote one, whose activation step
+# samples its second token
+WARM_BUCKETS = (120, 280, 400, 600, 1200, 1800, 2400)
+WARM_MAX_TOKENS = (2, 3, DIST_MAX_TOKENS)
+ROUND_A = (1100, 1400, 2100, 2560)
+ROUND_B_LONG = tuple(1100 + 270 * i for i in range(8))     # 1100-2990
+ROUND_B_SHORT = (100, 270, 430, 600)
+
+
+def disagg_config(model: str, device: str, scale: float,
+                  max_model_len: int = 0) -> dict:
+    """config.json with its one listed cut (num_pages 1024 per engine, two
+    engines sharing one card); a rehearsal on the CPU (`device` "cpu", a
+    small model) shrinks the prompts and the threshold together by `scale`
+    and may set the engines' max_model_len."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "dynamo_tpu_torch", "examples", "disagg",
+                        "config.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["Frontend"]["port"] = 0
+    for svc in ("DecodeWorker", "PrefillWorker"):
+        cfg[svc].update(model=model, device=device, num_pages=DISAGG_PAGES)
+        if max_model_len:
+            cfg[svc]["max_model_len"] = max_model_len
+    cfg["DecodeWorker"]["max_local_prefill_length"] = int(1000 * scale)
+    return cfg
+
+
+def disagg_body(model: str, n: int, seed: int, sampled: bool,
+                stream: bool, scale: float,
+                max_tokens: int = DIST_MAX_TOKENS) -> dict:
+    body = {"model": model, "max_tokens": max_tokens,
+            "messages": [{"role": "user",
+                          "content": dist_text(max(8, int(n * scale)),
+                                               seed)}]}
+    if sampled:
+        body.update(temperature=0.8, seed=777 + seed, ext={"top_k": 50})
+    if stream:
+        body.update(stream=True, stream_options={"include_usage": True})
+    return body
+
+
+def round_b(model: str, scale: float) -> list:
+    """(request id, body, long?) of round B: 8 long chats and 4 short ones
+    with no shared prefix, half greedy / half sampled, half SSE / half
+    unary."""
+    out = []
+    for i, n in enumerate(ROUND_B_LONG + ROUND_B_SHORT):
+        long_ = i < len(ROUND_B_LONG)
+        out.append((f"B-{i}", disagg_body(model, n, 300 + i, i % 2 == 1,
+                                          (i // 2) % 2 == 0, scale), long_))
+    return out
+
+
+async def drive_disagg(cp_port: int, fe_port: int, model: str, scale: float,
+                       n_layers: int, reference: dict, pre, page: int,
+                       threshold: int, smi: str, on_card: bool) -> dict:
+    """Phase 12's traffic and checks against the running deployment (see
+    the phase docstring)."""
+    from dynamo_tpu_torch.disagg.router import DisaggregatedRouter
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    name = "disaggregated deployment"
+    router = DisaggregatedRouter(threshold, 2)
+
+    async def listed():
+        got = await _get_json(fe_port, "/v1/models")
+        return [m["id"] for m in got["data"]] == [model]
+    await _poll(f"frontend :{fe_port} listing {model}", listed, 120)
+    rt = await DistributedRuntime.connect("127.0.0.1", cp_port)
+    try:
+        dec_client = await rt.namespace(DISAGG_NS).component(
+            "backend").endpoint("generate").client().start()
+        pre_client = await rt.namespace(DISAGG_NS).component(
+            "prefill").endpoint("stats").client().start()
+
+        async def scrape():
+            (d,) = (await _scrape(dec_client, 1)).values()
+            (p,) = (await _scrape(pre_client, 1)).values()
+            return d, p
+
+        # warm-up: one chat at a time for every window graph rounds A and
+        # B can replay (see WARM_BUCKETS), and the prefill shapes
+        t0 = time.perf_counter()
+        for i, n in enumerate(WARM_BUCKETS):
+            prompt = pre.preprocess_chat(ChatCompletionRequest.from_json(
+                disagg_body(model, n, 0, False, False, scale)))[0]
+            remote = router.prefill_remote(len(prompt.token_ids), 0, 0)
+            for sampled in (False, True):
+                for j, mt in enumerate(WARM_MAX_TOKENS):
+                    mt += remote and mt < DIST_MAX_TOKENS
+                    await _dist_send(fe_port, disagg_body(
+                        model, n, 1000 + 6 * i + 3 * sampled + j, sampled,
+                        False, scale, mt),
+                        f"W-{n}-{'s' if sampled else 'g'}{mt}")
+        warm_s = time.perf_counter() - t0
+        d0, p0 = await scrape()
+        text0 = (await _http(fe_port, "GET", "/metrics"))[2].decode()
+
+        # round A: the 4 greedy long chats one at a time, through the
+        # decode worker's endpoint (token ids in every frame), each against
+        # the plain aggregated engine's stream (equal up to a near tie) and
+        # the reference engine's (equal)
+        a_ttft, a_tokens, a_div = {}, {}, {}
+        t0 = time.perf_counter()
+        for i, rid in enumerate(reference):
+            req = dict(reference[rid]["pre"], request_id=rid)
+            t1 = time.perf_counter()
+            toks, finish, first = [], None, None
+            async for frame in await dec_client.generate(req):
+                if frame.get("token_ids") and first is None:
+                    first = time.perf_counter() - t1
+                toks.extend(frame.get("token_ids", ()))
+                finish = frame.get("finish_reason") or finish
+            check(finish == "stop" or (finish == "length" and len(toks)
+                                         == DIST_MAX_TOKENS),
+                  f"{name}: {rid} finished {finish} after {len(toks)} "
+                  "tokens")
+            agg, tops = reference[rid]["aggregated"]
+            a_div[rid] = divergence(toks, agg, tops)
+            check(a_div[rid] is None or a_div[rid][1] <= NEAR_TIE,
+                  f"{name}: {rid} left the plain aggregated engine's stream "
+                  f"at (position, logprob gap) {a_div[rid]}, past a near "
+                  f"tie ({NEAR_TIE}): {toks} against {agg}")
+            check(toks == reference[rid]["tokens"], f"{name}: {rid} gave "
+                  f"{toks}, the reference engine {reference[rid]['tokens']}")
+            a_ttft[rid], a_tokens[rid] = first, len(toks)
+        a_wall = time.perf_counter() - t0
+        d1, p1 = await scrape()
+
+        # round B: 12 chats at once through the KV-routed frontend
+        reqs = round_b(model, scale)
+        t0 = time.perf_counter()
+
+        async def one(rid, body):
+            t1 = time.perf_counter()
+            res = await _dist_send(fe_port, body, rid)
+            return res, time.perf_counter() - t1
+        got = await asyncio.gather(*(one(rid, b) for rid, b, _ in reqs))
+        b_wall = time.perf_counter() - t0
+
+        # a stream ends once its pages are committed, a moment before the
+        # prefill worker's last ack lands and it counts the item completed
+        async def settled():
+            d, p = await scrape()
+            return (d, p) if (p["prefill"]["completed"]
+                              + p["prefill"]["failed"]
+                              >= d["disagg"]["remote_prefills"]) else None
+        d2, p2 = await _poll(f"{name}: the prefill worker settling every "
+                             "item", settled, 60)
+        text2 = (await _http(fe_port, "GET", "/metrics"))[2].decode()
+        await dec_client.stop()
+        await pre_client.stop()
+    finally:
+        await rt.shutdown()
+
+    # the decisions: round A all remote; round B's long ones as the router
+    # decides on the length, prefix hit and queue depth the decode worker
+    # saw; every short request local
+    dec = d2["disagg"]["decisions"]
+    tokens = {rid: len(reference[rid]["pre"]["token_ids"])
+              for rid in reference}
+    for rid, body, _ in reqs:
+        tokens[rid] = len(pre.preprocess_chat(
+            ChatCompletionRequest.from_json(body))[0].token_ids)
+    for rid in list(reference) + [r for r, _, _ in reqs]:
+        check(rid in dec, f"{name}: no decision recorded for {rid}")
+        check(dec[rid]["prompt_len"] == tokens[rid], f"{name}: {rid} "
+              f"decided on {dec[rid]['prompt_len']} tokens, sent "
+              f"{tokens[rid]}")
+    check(all(dec[rid]["remote"] for rid in reference),
+          f"{name}: round A not all remote: "
+          f"{ {r: dec[r] for r in reference} }")
+    for rid, _, long_ in reqs:
+        d = dec[rid]
+        if long_:
+            want = router.prefill_remote(d["prompt_len"], d["prefix_hit"],
+                                         d["queue_depth"])
+            check(d["remote"] == want, f"{name}: {rid} decided {d}, the "
+                  f"router says remote={want}")
+        else:
+            check(not d["remote"], f"{name}: short {rid} went remote: {d}")
+    remote = [r for r in list(reference) + [r for r, _, _ in reqs]
+              if dec[r]["remote"]]
+
+    # the transfer: completions, pages, integrity and no fall-back
+    def delta(a, b, *path):
+        for k in path:
+            a, b = a[k], b[k]
+        return a - b
+    n_remote = delta(d2, d0, "disagg", "remote_prefills")
+    completed = delta(p2, p0, "prefill", "completed")
+    check(n_remote == len(remote) == completed, f"{name}: {n_remote} "
+          f"remote prefills, {len(remote)} remote decisions, the prefill "
+          f"worker completed {completed}")
+    want_pages = sum(-(-dec[r]["prompt_len"] // page)
+                     - dec[r]["prefix_hit"] // page for r in remote)
+    received = delta(d2, d0, "disagg", "received_pages")
+    verified = delta(d2, d0, "disagg", "integrity", "pages_verified")
+    mismatches = delta(d2, d0, "disagg", "integrity", "mismatches")
+    check(received == want_pages == verified and mismatches == 0,
+          f"{name}: received {received} pages, the remote requests' "
+          f"uncached pages {want_pages}, verified {verified}, mismatches "
+          f"{mismatches}")
+    fallbacks = {k: d2["disagg"][k] for k in (
+        "salvaged_prefills", "full_reprefills", "overlap_fallbacks",
+        "prefill_timeouts", "majority_committed_full_reprefills")}
+    fallbacks["link_timeouts"] = p2["prefill"]["kv_transfer"]["link_timeouts"]
+    fallbacks["prefill_failed"] = p2["prefill"]["failed"]
+    rf = re.search(r"^llm_router_fallbacks (\S+)$", text2, re.M)
+    fallbacks["llm_router_fallbacks"] = float(rf.group(1)) if rf else None
+    check(all(v == 0 for v in fallbacks.values()),
+          f"{name}: fall-backs {fallbacks}")
+
+    # the kernels: the prefill worker never launched the ragged kernel;
+    # the decode worker launched it layers x decode steps + warm-ups, one
+    # replay per window, and its graphs were never dropped (an inject
+    # writes in place); rounds A and B replayed the warm-up's graphs only
+    pk = p2["kernel_launches"][RAGGED]
+    dk = d2["kernel_launches"][RAGGED]
+    dwarm = d2["graph_warmup_launches"][RAGGED]
+    check(pk == 0, f"{name}: the prefill worker launched the ragged "
+          f"kernel {pk} times")
+    check(not on_card or (dk == n_layers * d2["decode_window_steps"] + dwarm
+                          and dk > 0),
+          f"{name}: the decode worker launched the ragged kernel {dk} "
+          f"times over {d2['decode_window_steps']} decode steps x "
+          f"{n_layers} layers + {dwarm} in warm-ups")
+    check(d2["decode_dispatches"] == d2["decode_windows"],
+          f"{name}: {d2['decode_windows']} decode windows in "
+          f"{d2['decode_dispatches']} dispatches")
+    graphs = [d["disagg"]["graphs"] for d in (d0, d1, d2)]
+    resets = [d["disagg"]["graph_resets"] for d in (d0, d2)]
+    keys = [d["disagg"]["graph_keys"] for d in (d0, d1, d2)]
+    new_keys = {"round A": [k for k in keys[1] if k not in keys[0]],
+                "round B": [k for k in keys[2] if k not in keys[1]]}
+    check(resets[0] == resets[1] and graphs[0] <= graphs[1] <= graphs[2],
+          f"{name}: graphs {graphs}, resets {resets}")
+    check(not on_card or graphs[2] == graphs[0], f"{name}: rounds A and B "
+          f"captured {graphs[1] - graphs[0]} and {graphs[2] - graphs[1]} "
+          f"graphs after the warm-up: {new_keys}; the warm-up's {keys[0]}")
+
+    # reported: TTFT (remote / local), transfers, activation, memory
+    import numpy as np
+
+    def quantiles(xs):
+        return ({"n": len(xs), "p50": float(np.percentile(xs, 50)),
+                 "p90": float(np.percentile(xs, 90))} if xs else {"n": 0})
+    sse_ttft = {kind: quantiles([r["ttft_s"] * 1e3 for (rid, b, _), (r, _)
+                                 in zip(reqs, got) if b.get("stream")
+                                 and dec[rid]["remote"] == (kind == "remote")])
+                for kind in ("remote", "local")}
+    xfers = {r: p2["prefill"]["transfers"][r] for r in remote
+             if r in p2["prefill"]["transfers"]}
+    for x in xfers.values():
+        x["mib"] = x["bytes"] / 2 ** 20
+        x["gb_s"] = x["bytes"] / (x["ms"] * 1e6) if x["ms"] else None
+    rec = {
+        "warmup_s": warm_s, "round_a_s": a_wall, "round_b_s": b_wall,
+        "remote": remote, "decisions": {r: dec[r] for r in dec
+                                        if r.startswith(("A-", "B-"))},
+        "round_a_ttft_ms": {r: t * 1e3 for r, t in a_ttft.items()},
+        "round_a_divergence_from_plain_aggregated": a_div,
+        "aggregated_top2_gap_median": float(np.median(
+            [t[0][1] - t[1][1] for ref in reference.values()
+             for t in ref["aggregated"][1]])),
+        "round_b_latency_ms": {rid: t * 1e3 for (rid, _, _), (_, t)
+                               in zip(reqs, got)},
+        "round_b_client_ttft_ms": sse_ttft,
+        "llm_ttft": _ttft_quantiles(text2, text0),
+        "early_first_emits": delta(d2, d0, "disagg", "early_first_emits"),
+        "transfers": xfers,
+        "activation_ms": {r: d2["disagg"]["activation_ms"].get(r)
+                          for r in remote},
+        "pages": received, "fallbacks": fallbacks,
+        "graphs": graphs, "warmup_graph_keys": keys[0],
+        "launches": {"decode": dk, "prefill": pk},
+        "decode_window_steps": d2["decode_window_steps"],
+        "peak_gib": {"decode": d2["disagg"]["peak_bytes"] / 2 ** 30,
+                     "prefill": p2["prefill"]["peak_bytes"] / 2 ** 30}}
+    gbs = [x["gb_s"] for x in xfers.values() if x["gb_s"]]
+    print(f"{name} [{smi}]: warm-up {warm_s:.3f} s; round A (4 greedy long "
+          f"chats, one at a time) token-identical to the reference engine "
+          f"(its disaggregation hooks in one process); against the plain "
+          f"aggregated engine, the first (position, logprob gap) where a "
+          f"stream left it {json.dumps(a_div)} (null: identical; tolerance "
+          f"{NEAR_TIE}; its median top-1/top-2 gap "
+          f"{rec['aggregated_top2_gap_median']:.4f}) of "
+          f"{json.dumps(a_tokens)} tokens, client TTFT "
+          f"ms {json.dumps(rec['round_a_ttft_ms'])}; round B "
+          f"(12 at once) in {b_wall:.3f} s, remote {len(remote)} of "
+          f"{len(reference) + len(reqs)}, {received} pages received = "
+          f"verified, 0 mismatches, fall-backs 0; llm_ttft_seconds p50 "
+          f"{rec['llm_ttft']['ttft_p50_ms']:.1f} ms p90 "
+          f"{rec['llm_ttft']['ttft_p90_ms']:.1f} ms (round B, at the "
+          f"frontend), client TTFT of the streamed requests (ms) "
+          f"{json.dumps(sse_ttft)}; early first emits "
+          f"{rec['early_first_emits']}; transfer GB/s "
+          f"{min(gbs) if gbs else 0:.3f}-{max(gbs) if gbs else 0:.3f}; "
+          f"graphs {graphs}; ragged launches decode {dk} prefill {pk}; "
+          f"peak GiB decode {rec['peak_gib']['decode']:.2f} prefill "
+          f"{rec['peak_gib']['prefill']:.2f}", flush=True)
+    return rec
+
+
+# a greedy stream of the deployment may leave the plain aggregated engine's
+# only at a near tie: where the one-token prefill that writes the first
+# token's KV (the disaggregated path) and the decode window (the aggregated
+# one) round differently in bf16, the two may pick either of two tokens
+# whose logits differ by at most two bf16 ulps at the top logit's magnitude
+# (weights N(0, 1/fan_in) over a unit-RMS hidden state give logits ~N(0, 1);
+# the top of 128256 sits in [4, 8), where an ulp is 2^-5). A fault in the
+# pages moves the logits by far more than that
+NEAR_TIE = 2.0 ** -4 + 1e-5     # + the f32 rounding of two log-softmaxes
+
+
+def aggregated_run(engine, rid: str, req) -> tuple:
+    """The plain aggregated engine's stream for `req`, with each token's
+    top logprobs ([(token id, logprob)], best first)."""
+    from dynamo_tpu_torch.engine.sampler import TOP_LOGPROBS
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest
+    engine.add_request(EngineRequest(rid, req.prompt, dataclasses.replace(
+        req.params, logprobs=TOP_LOGPROBS)))
+    toks, tops, done = [], [], False
+    while not done:
+        for ev in engine.step():
+            if ev.request_id == rid:
+                if ev.token is not None:
+                    toks.append(ev.token)
+                    tops.append(ev.top_logprobs)
+                done |= ev.finished
+    return toks, tops
+
+
+def divergence(toks: list, agg: list, tops: list):
+    """None when a stream equals the aggregated engine's `agg`; else the
+    first position where it left it and the logprob gap there between the
+    aggregated engine's best token and the stream's (inf when the stream's
+    token is not among the top logprobs, or one stream stopped first)."""
+    for j, (x, y) in enumerate(zip(toks, agg)):
+        if x != y:
+            return j, tops[j][0][1] - dict(tops[j]).get(x, -math.inf)
+    return None if len(toks) == len(agg) else (min(len(toks), len(agg)),
+                                               math.inf)
+
+
+def disagg_reference(engine, rid: str, req) -> list:
+    """The disaggregated path inside one engine: a prefill-only run parks
+    the prompt's pages, an up-front allocation takes them (extract + inject
+    on the same engine) and activates with the first token, and the request
+    decodes to its end: the computation the two workers split between
+    them, step for step (the one-token chunk that writes the first token's
+    KV is a prefill step there too). Returns the emitted tokens."""
+    import dataclasses as dc
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest
+    first = None
+    engine.add_request(dc.replace(req, request_id=f"{rid}-p",
+                                  prefill_only=True))
+    while first is None:
+        for ev in engine.step():
+            if ev.request_id == f"{rid}-p":
+                first = ev.token
+    p = req.params
+    if first in p.stop_token_ids or (not p.ignore_eos and first
+                                     in engine.eos_token_ids):
+        engine.release_parked(f"{rid}-p")
+        return []
+    if p.max_tokens <= 1:
+        engine.release_parked(f"{rid}-p")
+        return [first]
+    alloc = engine.allocate_remote(EngineRequest(rid, req.prompt, p))
+    start = alloc.num_cached_tokens // engine.cfg.page_size
+    pages = engine.extract_pages(
+        engine.scheduler.parked[f"{rid}-p"].pages[start:])
+    engine.inject_pages(alloc.page_ids[start:], pages["k"], pages["v"],
+                        pages.get("k_scale"), pages.get("v_scale"),
+                        ready=pages["ready"])
+    engine.release_parked(f"{rid}-p")
+    engine.activate_remote(rid, first)
+    out, done = [first], False
+    while not done:
+        for ev in engine.step():
+            if ev.request_id == rid:
+                if ev.token is not None:
+                    out.append(ev.token)
+                done |= ev.finished
+    return out
+
+
+def phase_disagg(smi: str, model: str = "llama3-8b", device: str = "cuda",
+                 scale: float = 1.0, device_name: str = None,
+                 max_model_len: int = 0) -> dict:
+    """Phase 12 (see the docstring at the top): the reference tokens from an
+    aggregated engine, then the SDK supervisor serving the disaggregated
+    graph as processes, the traffic and the checks, then SIGTERM to the
+    supervisor (every service drains and exits 0)."""
+    import signal
+    import torch
+    from dynamo_tpu_torch.engine.config import get_model_config
+    from dynamo_tpu_torch.examples.disagg.graph import _build
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.worker import to_engine_request
+    from dynamo_tpu_torch.protocols.common import to_wire
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    t_phase = time.perf_counter()
+    cfg = disagg_config(model, device, scale, max_model_len)
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    path = os.path.join(root, "build", "disagg_config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    # the card the decode worker registers (its context is the engine's
+    # max_model_len, so no prompt's max_tokens is clamped)
+    card = dataclasses.replace(
+        ModelDeploymentCard(name=model, arch=model),
+        context_length=cfg["DecodeWorker"]["max_model_len"])
+    pre = OpenAIPreprocessor(card)
+    # the references: an aggregated engine with the decode worker's config
+    # on the same seed-0 weights serves round A's prompts one at a time,
+    # first plainly with its top logprobs, then through its own
+    # disaggregation hooks
+    from dynamo_tpu_torch.engine.scheduler import Scheduler
+    _, engine = _build(cfg["DecodeWorker"])
+    reference = {}
+    for i, n in enumerate(ROUND_A):
+        body = disagg_body(model, n, 200 + i, False, False, scale)
+        p, _ = pre.preprocess_chat(ChatCompletionRequest.from_json(body),
+                                   request_id=f"A-{i}")
+        req = to_engine_request(p)
+        reference[p.request_id] = {
+            "pre": to_wire(p), "req": req,
+            "aggregated": aggregated_run(engine, f"agg-{i}", req)}
+    # a fresh page allocator: no prefix of the plain runs is reused
+    engine.scheduler = Scheduler(engine.cfg)
+    engine._dec_state = None
+    for rid, ref in reference.items():
+        ref["tokens"] = disagg_reference(engine, rid, ref.pop("req"))
+    del engine
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    children = []
+    try:
+        sup = Child("disagg supervisor", [
+            "dynamo_tpu_torch.sdk.serve", DISAGG_GRAPH, "-f", path,
+            "--start-control-plane", "--control-port", "0"], session=True)
+        children.append(sup)
+        ready = sup.wait_line("READY graph=", 900)
+        ready_s = time.perf_counter() - t_phase
+        cp_port = int(ready.rsplit("control-port=", 1)[1])
+        fe_port = int(next(x for x in sup.lines if "FRONTEND http=:" in x)
+                      .rsplit(":", 1)[1])
+        for tag in ("DECODE", "PREFILL"):
+            line = next(x for x in sup.lines if f"] {tag} device=" in x)
+            dev = line.split(" device=", 1)[1].split(" engine_id=")[0]
+            check(dev == device_name, f"{tag} worker on {dev!r}, expected "
+                  f"{device_name!r}: {line}")
+        rec = asyncio.run(asyncio.wait_for(drive_disagg(
+            cp_port, fe_port, model, scale,
+            get_model_config(model).num_layers, reference, pre,
+            card.kv_page_size, cfg["DecodeWorker"][
+                "max_local_prefill_length"], smi, device == "cuda"), 900))
+        sup.proc.send_signal(signal.SIGTERM)
+        code = sup.stop(None, 300)
+        exits = [x for x in sup.lines if x.startswith("EXIT service=")]
+        check(code == 0 and len(exits) == 4
+              and all(x.endswith(" code=0") for x in exits),
+              f"supervisor exited {code}: {exits}\n{sup.tail()}")
+        for tag in ("decode", "prefill"):
+            line = [x for x in sup.lines if f"] EXIT {tag} " in x]
+            check(len(line) == 1 and "logits_nonfinite_steps=0" in line[0],
+                  f"{tag} worker: {line or sup.tail()}")
+        rec["ready_s"] = ready_s
+        rec["phase_s"] = time.perf_counter() - t_phase
+        print(f"disaggregated deployment: READY in {ready_s:.1f} s; SIGTERM "
+              f"drained every service: {exits}; phase {rec['phase_s']:.1f} "
+              f"s", flush=True)
+        return rec
+    finally:
+        # a failed check leaves the deployment up: SIGTERM lets the
+        # supervisor stop its services; then the whole group is killed
+        for c in reversed(children):
+            c.stop(signal.SIGTERM, 120)
+        if children:
+            # the services' whole output, for reading after the run
+            with open(os.path.join(root, "build", "disagg_supervisor.log"),
+                      "w") as f:
+                f.write("\n".join(children[0].lines) + "\n")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2414,6 +2983,8 @@ def main() -> int:
           flush=True)
     dist = phase_distributed(smi, device_name=torch.cuda.get_device_name(0))
     print(f"distributed path: {json.dumps(dist)}", flush=True)
+    disagg = phase_disagg(smi, device_name=torch.cuda.get_device_name(0))
+    print(f"disaggregated deployment: {json.dumps(disagg)}", flush=True)
 
     ragged = {"name": "ragged_decode_attention", "route": "cuda",
               "source": "dynamo_tpu_torch/csrc/ragged_decode_attention.cu",
@@ -2421,6 +2992,7 @@ def main() -> int:
               "launches": first["launches"],
               "max_abs_err": max(err_bf16, main_err), **timing,
               "distributed_launches": dist["launches"],
+              "disagg_launches": disagg["launches"],
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),
                        **timing_q}}

@@ -37,9 +37,23 @@ changes slot membership discards the follow-up and re-plans. Streams are
 token-identical to the synchronous loop (docs/PERF.md §3 has the
 argument). Prefill and mixed steps stay eager.
 
+Disaggregation (dynamo_tpu/engine/engine.py:1700-1811, :2087-2104): a
+prefill-only request parks after its prefill with its pages held
+(`extract_pages` reads them); the decode side allocates a remote request's
+pages up front (`allocate_remote`), takes its KV (`inject_pages`) and
+enters it into the normal flow (`activate_remote`, or the early-decode
+gate `preactivate_remote`, polled by `has_work`). Inject writes every
+cache leaf in place with `index_copy_` on the engine's stream, so the
+captured window graphs and the device carry stay valid; an activated
+sequence enters `waiting`, on which `_pipeline_ok` and `_pipeline_step`
+already gate, so no window in flight reads or is re-dispatched over it.
+Padded page ids point at the scratch page (`num_pages`): extract reads
+the last real page there, as the JAX engine clamps, and inject writes the
+padding into the scratch page where the JAX engine drops it.
+
 Left out of this slice: speculative decoding, pipeline/tensor parallelism,
-streaming, the KV tiers and pool, vision, page extract/inject and the
-gather decode window.
+streaming, the KV tiers and pool, vision, the tp shard inject
+(`inject_pages_shard`) and the gather decode window.
 """
 from __future__ import annotations
 
@@ -239,6 +253,11 @@ class NativeEngine:
 
     def has_work(self) -> bool:
         s = self.scheduler
+        if s.overlap_gates:
+            # early decode: activate every gated remote sequence whose
+            # committed frontier covers its transfer list, on the thread
+            # that applies the injects, before planning
+            s.poll_overlap_gates()
         return (self._pipeline is not None or bool(s.waiting)
                 or any(x is not None for x in s.running))
 
@@ -320,6 +339,118 @@ class NativeEngine:
         with self._on_stream():
             return int(self._nonfinite.item())
 
+    # -- disaggregation ------------------------------------------------------
+
+    def allocate_remote(self, req: EngineRequest):
+        """Decode side: allocate a remote prefill's pages up front."""
+        return self.scheduler.add_remote(self._validate_prompt(req))
+
+    def activate_remote(self, request_id: str, first_token: int) -> None:
+        self.scheduler.activate_remote(request_id, first_token)
+
+    def preactivate_remote(self, request_id: str, first_token: int,
+                           needed_pages: int, frontier_fn) -> None:
+        """Decode side, early decode: activate the sequence once
+        `frontier_fn()` reports every transferred page committed."""
+        self.scheduler.preactivate_remote(request_id, first_token,
+                                          needed_pages, frontier_fn)
+
+    def cancel_overlap(self, request_id: str) -> bool:
+        return self.scheduler.cancel_overlap(request_id)
+
+    def release_remote(self, request_id: str) -> None:
+        self.scheduler.release_remote(request_id)
+
+    def salvage_remote(self, request_id: str, valid_pages: int,
+                       first_token=None) -> int:
+        """Decode side: keep the committed prefix of a failed transfer and
+        prefill the rest locally; returns the salvaged token count."""
+        return self.scheduler.salvage_remote(request_id, valid_pages,
+                                             first_token=first_token)
+
+    def release_parked(self, request_id: str) -> None:
+        self.scheduler.release_parked(request_id)
+
+    def _bucket_ids(self, page_ids) -> np.ndarray:
+        """A page-id list padded to its page-ladder bucket with
+        `num_pages` (the scratch page's index)."""
+        n = max(len(page_ids), 1)
+        nb = next_bucket(n, self.scheduler.page_buckets)
+        out = np.full((nb,), self.cfg.num_pages, np.int64)
+        out[:len(page_ids)] = page_ids
+        return out
+
+    def extract_pages(self, page_ids) -> dict:
+        """Gather whole KV pages of every cache leaf on the engine's stream:
+        values [L, Hkv, Nb, ps, hd] and, on an int8 cache, the scales [L,
+        Hkv, Nb, ps], in the stored representation. Nb is the ids' page
+        bucket; padding rows repeat the last real page (the JAX clamp), so
+        the scratch page is never read as data. "ready" is an event on the
+        engine's stream after the gather (None on the CPU): a reader on
+        another stream waits on it."""
+        ids = np.minimum(self._bucket_ids(page_ids), self.cfg.num_pages - 1)
+        with self._on_stream():
+            idx = self._dev(ids)
+            # dynalint: kv-codec (whole pages keep the stored representation)
+            out = {key: arr.index_select(2, idx)
+                   for key, arr in self.cache.items()}
+            out["ready"] = self._record_event()
+        return out
+
+    def inject_pages(self, page_ids, k_pages, v_pages, k_scale=None,
+                     v_scale=None, ready=None) -> None:
+        """Write whole KV pages into this engine's cache at `page_ids`, in
+        place (`index_copy_` on every leaf, on the engine's stream, after
+        `ready` when given), so the window graphs captured over the cache
+        and the device carry stay valid. The pages' bucket may be larger
+        than the id list (the sender's ladder): the padding rows go to the
+        scratch page. An int8 cache needs the scale stacks and an
+        unquantized one refuses them: both sides of a transfer run the same
+        kv_quant mode."""
+        if self.kv_quant and k_scale is None:
+            raise ValueError(
+                "this engine stores int8 KV pages (kv_quant="
+                f"{self.kv_quant!r}) but the sender shipped no scales; "
+                "both sides of a transfer must run the same kv_quant mode")
+        if not self.kv_quant and k_scale is not None:
+            raise ValueError(
+                "sender shipped quantized KV pages but this engine's "
+                "cache is unquantized; both sides of a transfer must run "
+                "the same kv_quant mode")
+        nb = k_pages.shape[2]
+        if len(page_ids) > nb:
+            raise ValueError(
+                f"{len(page_ids)} dst pages but only {nb} pages sent")
+        ids = np.full((nb,), self.cfg.num_pages, np.int64)
+        ids[:len(page_ids)] = page_ids
+        pages = {"k": k_pages, "v": v_pages}
+        if k_scale is not None:
+            pages.update(k_scale=k_scale, v_scale=v_scale)
+        with self._on_stream():
+            if ready is not None:
+                self._stream.wait_event(ready)
+            idx = self._dev(ids)
+            # dynalint: kv-codec (whole pages keep the stored representation)
+            for key, arr in self.cache.items():
+                src = pages[key]
+                if src.dtype != arr.dtype or src.shape[3:] != arr.shape[3:]:
+                    raise ValueError(
+                        f"{key} pages of {src.dtype} {tuple(src.shape)} do "
+                        f"not fit a {arr.dtype} cache {tuple(arr.shape)}")
+                src = src.to(self.device, non_blocking=True)
+                arr.index_copy_(2, idx, src)
+                if self._stream is not None:
+                    # the source may come from another stream's allocation
+                    src.record_stream(self._stream)
+
+    def _record_event(self):
+        """An event recorded on the engine's stream (None on the CPU)."""
+        if self._stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        return ev
+
     # -- internals -----------------------------------------------------------
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -382,6 +513,16 @@ class NativeEngine:
             events.append(self._postprocess_row(seq, tok, lps, i))
         return events
 
+    def _postprocess_row(self, seq, tok, lps, i) -> StepOutput:
+        if seq.prefill_only:
+            # disaggregated prefill: the first token goes to the transfer
+            # layer; stop conditions run on the decode side
+            return StepOutput(seq.request_id, tok, True, "prefill_done")
+        if lps is None:
+            return self._postprocess(seq, tok)
+        return self._postprocess(seq, tok, float(lps[0][i]), lps[1][i],
+                                 lps[2][i])
+
     def _run_mixed(self, plan: MixedPlan) -> List[StepOutput]:
         """One fused prefill+decode step: decode rows and prefill chunk
         rows share one [Bb, Tb] forward + sample. Decode rows sample with
@@ -411,12 +552,6 @@ class NativeEngine:
         self._dec_state = None
         self.mixed_steps += 1
         return events
-
-    def _postprocess_row(self, seq, tok, lps, i) -> StepOutput:
-        if lps is None:
-            return self._postprocess(seq, tok)
-        return self._postprocess(seq, tok, float(lps[0][i]), lps[1][i],
-                                 lps[2][i])
 
     def _run_decode(self, plan: DecodePlan) -> List[StepOutput]:
         """The synchronous decode window: stage, dispatch, fetch, commit."""

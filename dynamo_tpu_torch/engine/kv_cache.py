@@ -181,6 +181,7 @@ class SequenceState:
     # bumped on every preempt-and-readmit (the sampler's host caches key
     # slots by (request_id, epoch))
     epoch: int = 0
+    prefill_only: bool = False  # park after prefill instead of decoding
     # multi-tenant QoS (runtime/qos.py): class name + resolved priority,
     # queue-bypass count (bounded by the aging limit) and the preemptor's
     # class while this sequence waits as a preemption victim

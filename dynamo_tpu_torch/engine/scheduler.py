@@ -1,12 +1,15 @@
 """Continuous-batching scheduler for the port's engine.
 
 Copied from dynamo_tpu/engine/scheduler.py, trimmed to the slice: one
-aggregated engine on one device. The disaggregation hooks (remote
-allocations, parked prefill-only sequences, early-decode gates), the KV
-tiers (host/disk offload, the shared pool), tiered-KV streaming, sequence
-parallelism and multimodal spans are left out. Planning is otherwise the
-JAX package's, decision for decision, so both engines plan the same steps
-for the same requests:
+engine on one device, aggregated or one side of a disaggregated pair. The
+disaggregation hooks are the JAX package's (:72 `prefill_only`, :94
+`RemoteAllocation`, :373-376 `remote` / `parked`, :534-683 the decode and
+prefill sides, :844-845 abort, :987 the slot a prefill-only row does not
+take, :1065-1069 the memory dead end, :1220-1222 parking). The KV tiers
+(host/disk offload, the shared pool, and their matches inside the prefix
+walk), tiered-KV streaming, sequence parallelism and multimodal spans are
+left out. Planning is otherwise the JAX package's, decision for decision,
+so both engines plan the same steps for the same requests:
 
 - every device step has a bucketed shape: prefill chunk lengths from
   `prefill_buckets`, page-table widths from `page_bucket_ladder`, decode
@@ -63,8 +66,25 @@ class EngineRequest:
     request_id: str
     prompt: List[int]
     params: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    # prefill-only: run chunked prefill, sample the first token, then park
+    # the sequence (pages held) instead of taking a decode slot: the
+    # prefill half of disaggregated serving
+    prefill_only: bool = False
     # multi-tenant QoS class name (runtime/qos.py); "" = the policy default
     qos: str = ""
+
+
+@dataclasses.dataclass
+class RemoteAllocation:
+    """Decode-side up-front allocation for a remotely prefilled request."""
+
+    request_id: str
+    page_ids: List[int]
+    num_cached_tokens: int   # prefix-hit tokens already valid decode-side
+    # admission epoch of the allocated sequence: every transfer chunk
+    # carries it, and the decode side fences out a stale sender whose
+    # chunks would land in pages released and reallocated since
+    alloc_epoch: int = 0
 
 
 @dataclasses.dataclass
@@ -207,6 +227,17 @@ class Scheduler:
         self.waiting: deque[SequenceState] = deque()
         self.running: List[Optional[SequenceState]] = [None] * cfg.max_slots
         self.params: Dict[str, SamplingParams] = {}
+        # disaggregation state: decode-side sequences awaiting a remote
+        # prefill, and prefill-side sequences parked (prefill done, pages
+        # held) until the transfer reads their KV
+        self.remote: Dict[str, SequenceState] = {}
+        self.parked: Dict[str, SequenceState] = {}
+        # early-decode gates: rid -> (first_token, needed_pages,
+        # frontier_fn). The sequence stays in self.remote (chunk injects
+        # and the epoch fence still see it) until poll_overlap_gates
+        # finds every transferred page committed.
+        self.overlap_gates: Dict[str, tuple] = {}
+        self.overlap_activations = 0
         ps = cfg.page_size
         self.prefill_buckets = list(cfg.prefill_buckets)
         max_pages_per_seq = -(-cfg.max_model_len // ps)
@@ -241,6 +272,7 @@ class Scheduler:
         seq = SequenceState(request_id=req.request_id,
                             prompt=list(req.prompt),
                             epoch=next(self._epoch_seq),
+                            prefill_only=req.prefill_only,
                             qos=req.qos or "", qos_prio=qos_cls.priority)
         self.params[req.request_id] = req.params
         self._admitted += 1
@@ -273,6 +305,114 @@ class Scheduler:
         if idx < len(self.waiting):
             QOS_STATS.sched_bypasses += 1
         self.waiting.insert(idx, seq)
+
+    # -- disaggregation: decode side -----------------------------------------
+
+    def peek_prefix(self, tokens: List[int]) -> int:
+        """Longest locally cached prefix (tokens), without allocating: the
+        prefix hit of the local-vs-remote prefill decision."""
+        matches, _ = self._prefix_walk(tokens)
+        return len(matches) * self.cfg.page_size
+
+    def add_remote(self, req: EngineRequest) -> Optional[RemoteAllocation]:
+        """Allocate decode-side pages for the whole prompt up front and hold
+        the sequence until the remote prefill lands. None when the pages
+        are not free right now (the caller prefills locally)."""
+        seq = self._admit(req)
+        if not self._ensure_pages(seq, len(seq.prompt)):
+            self.finish(seq)   # return the shared prefix pages
+            return None
+        self.remote[req.request_id] = seq
+        return RemoteAllocation(
+            request_id=req.request_id, page_ids=list(seq.pages),
+            num_cached_tokens=seq.num_cached, alloc_epoch=seq.epoch)
+
+    def activate_remote(self, request_id: str, first_token: int
+                        ) -> SequenceState:
+        """The remote prefill's KV is injected: seed the first generated
+        token and enter the normal flow (a one-token prefill chunk writes
+        that token's KV, then the sequence takes a decode slot)."""
+        self.overlap_gates.pop(request_id, None)
+        seq = self.remote.pop(request_id)
+        n = len(seq.prompt)
+        seq.num_cached = n
+        seq.num_computed = n
+        seq.output.append(int(first_token))
+        self._seal_full_pages(seq)  # stored events for the injected pages
+        self.waiting.appendleft(seq)
+        return seq
+
+    def release_remote(self, request_id: str) -> None:
+        """Drop a pending remote allocation (prefill failed, client gone)."""
+        self.overlap_gates.pop(request_id, None)
+        seq = self.remote.pop(request_id, None)
+        if seq is not None:
+            self.finish(seq)
+
+    # -- early decode over the committed frontier ----------------------------
+
+    def preactivate_remote(self, request_id: str, first_token: int,
+                           needed_pages: int, frontier_fn) -> None:
+        """Arm an early-decode gate: the sequence activates as soon as
+        `frontier_fn()` (the transfer's committed pages for this
+        allocation's epoch) reaches `needed_pages`, the length of the
+        transfer list, instead of waiting for the completion notify."""
+        if request_id not in self.remote:
+            raise KeyError(f"request {request_id!r} not pending remote")
+        self.overlap_gates[request_id] = (int(first_token),
+                                          max(0, needed_pages), frontier_fn)
+
+    def cancel_overlap(self, request_id: str) -> bool:
+        """Disarm a gate: True when it was still pending (the caller owns
+        salvage or fallback), False when it had opened already."""
+        return self.overlap_gates.pop(request_id, None) is not None
+
+    def poll_overlap_gates(self) -> int:
+        """Activate every gated sequence whose committed frontier covers
+        its transfer list; returns how many activated."""
+        activated = 0
+        for rid in list(self.overlap_gates):
+            first_token, needed, frontier_fn = self.overlap_gates[rid]
+            if rid not in self.remote:
+                del self.overlap_gates[rid]
+                continue
+            if frontier_fn() >= needed:
+                del self.overlap_gates[rid]
+                self.activate_remote(rid, first_token)
+                self.overlap_activations += 1
+                activated += 1
+        return activated
+
+    def salvage_remote(self, request_id: str, valid_pages: int,
+                       first_token: Optional[int] = None) -> int:
+        """An unrecoverable remote prefill after a partial transfer: keep
+        the first `valid_pages` pages (verified and injected before their
+        chunks were acked) and re-enter the prefill flow for the rest, with
+        at least one token left to prefill. `first_token` (the early-decode
+        path, where the first token was already emitted) is seeded as
+        output[0]. Returns the prompt tokens salvaged."""
+        self.overlap_gates.pop(request_id, None)
+        seq = self.remote.pop(request_id)
+        ps = self.cfg.page_size
+        n = len(seq.prompt)
+        valid = max(0, min(valid_pages * ps, n - 1))
+        valid = max(valid, seq.num_cached)   # never below the prefix hit
+        seq.num_cached = valid
+        seq.num_computed = valid
+        if first_token is not None:
+            seq.output.append(int(first_token))
+        self._seal_full_pages(seq)
+        self.waiting.appendleft(seq)
+        return valid
+
+    # -- disaggregation: prefill side ----------------------------------------
+
+    def release_parked(self, request_id: str) -> None:
+        """Free a parked prefill-only sequence's pages once its KV is
+        read; its full pages stay in the reuse pool by content hash."""
+        seq = self.parked.pop(request_id, None)
+        if seq is not None:
+            self.finish(seq)
 
     def _prefix_walk(self, tokens: List[int]):
         """Cached full-page prefix matches, stopping at the first miss;
@@ -324,6 +464,12 @@ class Scheduler:
             if seq is not None and seq.request_id == request_id:
                 self.finish(seq)
                 return True
+        if request_id in self.remote:
+            self.release_remote(request_id)
+            return True
+        if request_id in self.parked:
+            self.release_parked(request_id)
+            return True
         return False
 
     # -- planning ------------------------------------------------------------
@@ -405,11 +551,14 @@ class Scheduler:
             cap = min(cap, chunk_cap)
         n = min(n_toks - seq.num_cached, cap)
         is_last = seq.num_cached + n == n_toks
-        if is_last and slots_left <= 0:
-            return "slot"   # the final chunk needs a decode slot
+        takes_slot = is_last and not seq.prefill_only
+        if takes_slot and slots_left <= 0:
+            # the final chunk needs a decode slot (a prefill-only sequence
+            # parks instead)
+            return "slot"
         if not self._ensure_pages(seq, seq.num_cached + n):
             return "memory"
-        return n, is_last, is_last
+        return n, is_last, takes_slot
 
     def _collect_prefill_batch(self, slots_left: int,
                                chunk_cap: Optional[int] = None,
@@ -465,8 +614,11 @@ class Scheduler:
                     self._collect_prefill_batch(slots_left)
         if not batch:
             if head_block == "memory":
+                # only a true dead end raises: no running decode, no
+                # parked or remote sequence whose pages will be released
                 head = self.waiting[0]
-                if not any(s is not None for s in self.running):
+                if not any(s is not None for s in self.running) \
+                        and not self.parked and not self.remote:
                     raise MemoryError(
                         f"prompt of {len(head.all_tokens)} tokens cannot "
                         f"fit in {self.cfg.num_pages} pages of "
@@ -585,6 +737,10 @@ class Scheduler:
             if sampled_token is None:
                 raise ValueError("final prefill chunk committed without a "
                                  "sampled token")
+            if seq.prefill_only:
+                # park with pages held until the transfer reads the KV
+                self.parked[seq.request_id] = seq
+                return int(sampled_token)
             slot = self._free_slot()
             if slot < 0:
                 raise RuntimeError("final prefill chunk scheduled without a "

@@ -16,7 +16,12 @@ takes the host's launch work out of the step.
   and loads the kernel library and takes its one-time shared-memory opt-in
   and cuBLAS's lazy set-up out of the capture. Then the program is captured
   on the same stream, into one memory pool that every window graph shares
-  (they replay one after another on one stream).
+  (they replay one after another on one stream). The capture runs in the
+  thread-local error mode, so CUDA work of another thread (a second engine
+  in the process) does not invalidate it, and holds `capture_lock`: code
+  that stages device memory for this engine from another thread (the KV
+  receiver's host-to-device copies) takes it too, so none of its
+  allocations overlaps a capture.
 - Buffers. Inputs are static buffers, one set per shape (`inputs`), shared
   by the variants of that shape; the engine uploads a plan into them. The
   program writes its final (token, position, counter) carry back into its
@@ -36,6 +41,7 @@ fails raises, and nothing falls back to eager.
 """
 from __future__ import annotations
 
+import threading
 import time
 from typing import Callable, Dict, Optional
 
@@ -70,7 +76,10 @@ class WindowGraphs:
         # key -> (graph, outs, {kernel: calls captured})
         self._graphs: Dict[tuple, tuple] = {}
         self._pool = None
+        # held for each capture (see the module docstring)
+        self.capture_lock = threading.Lock()
         self.captured = 0           # graphs captured since the last reset
+        self.resets = 0             # times every graph was dropped
         self.warmup_seconds = 0.0   # wall time of the eager warm-ups
         self.capture_seconds = 0.0  # wall time of the captures
         self.replays = 0
@@ -127,7 +136,9 @@ class WindowGraphs:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         c0 = _counts(2)
-        with torch.cuda.graph(graph, pool=self._pool, stream=self.stream):
+        with self.capture_lock, torch.cuda.graph(
+                graph, pool=self._pool, stream=self.stream,
+                capture_error_mode="thread_local"):
             outs = program(bufs)
         rec = (graph, outs, {name: n - c0[name]
                              for name, n in _counts(2).items()})
@@ -154,6 +165,7 @@ class WindowGraphs:
         self._graphs.clear()
         self._pool = None
         self.captured = 0
+        self.resets += 1
 
 
 class HostCopies:

@@ -26,11 +26,18 @@ pages for that request's tokens, as the router would score it). A request
 may name its id with an `x-request-id` header; the router's decisions are
 keyed by it.
 
+GET /metrics also shows the KV data-plane integrity gauges
+`llm_kv_integrity_*` and the KV-transfer gauges `llm_kv_transfer_*`
+(runtime/integrity.py STATS / XFER_STATS, :124-128 and :134-150 of the
+JAX service), refreshed at render. They count this process's transfers:
+a frontend in front of worker processes shows 0, and the workers report
+theirs in $STATS (disagg/worker.py).
+
 Left out, each with the later slice that brings its module: admission
 control and 429 shedding, the reliability counters, the KV-pool
 prefetcher, QoS classes from the x-qos-class header (every request runs in
-the policy's default class), tracing spans, and the fault, integrity,
-drain, KV-transfer, pool, ledger, autoscaler and fail-slow gauges.
+the policy's default class), tracing spans, and the fault, drain,
+per-stream transfer, pool, ledger, autoscaler and fail-slow gauges.
 Reference equivalent: the axum HttpService (reference:
 lib/llm/src/http/service/service_v2.rs:23-130, openai.rs:132-540).
 """
@@ -64,6 +71,9 @@ from dynamo_tpu_torch.protocols.openai import (
     ValidationError,
 )
 from dynamo_tpu_torch.runtime.cpstats import CP_STATS, ControlPlaneStats
+from dynamo_tpu_torch.runtime.integrity import (
+    STATS as INTEGRITY, XFER_STATS, IntegrityStats, KvTransferStats,
+)
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.qos import DEFAULT_POLICY, QOS_KEY
 
@@ -125,6 +135,17 @@ class HttpService:
         self.watcher = None
         self._cp = {}
         self._router = {}
+        # KV data-plane integrity and transfer volume (wire bytes: int8
+        # pages plus scales on an int8 cache), refreshed at render
+        self._integrity = {
+            f.name: m.gauge(f"llm_kv_integrity_{f.name}",
+                            f"kv data-plane integrity: {f.name}")
+            for f in dataclasses.fields(IntegrityStats)}
+        self._kv_xfer = {
+            f.name: m.gauge(f"llm_kv_transfer_{f.name}",
+                            f"kv transfer: cumulative {f.name} "
+                            "(wire representation)")
+            for f in dataclasses.fields(KvTransferStats)}
         s = self.server
         s.route("POST", "/v1/chat/completions", self._chat)
         s.route("POST", "/v1/completions", self._completions)
@@ -160,6 +181,10 @@ class HttpService:
     async def _metrics(self, req: Request) -> Response:
         if self.watcher is not None:
             self._refresh_router_gauges()
+        for gauges, stats in ((self._integrity, INTEGRITY),
+                              (self._kv_xfer, XFER_STATS)):
+            for name, value in stats.snapshot().items():
+                gauges[name].set(value=float(value))
         # the serving-path latency histograms (TTFT / ITL / schedule) live
         # on the process-global SERVING registry, observed where they occur
         return Response.text(self.registry.render() + SERVING.render(),

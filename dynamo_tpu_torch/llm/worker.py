@@ -3,7 +3,9 @@
 Copied from dynamo_tpu/llm/worker.py: `NativeEngineWorker` (async request
 fan-in, the engine step loop in an executor thread, per-request frame
 fan-out, and from its step loop the allocator's KV events and the engine's
-metrics for the router, :225-280), `EchoTokenEngine` (the deterministic
+metrics for the router, :225-280), `submit` (:147-154: `fn(engine)` run
+on the step loop between device steps, the one way the disaggregation
+layer touches the engine), `EchoTokenEngine` (the deterministic
 no-hardware engine), `serve_llm_worker` (:362-396) and
 `install_graceful_drain` (:398-446). Requests arrive as PreprocessedRequest
 objects in-process or as their dict forms over the wire; frames are
@@ -13,8 +15,8 @@ The publishers run on the event loop, after the executor step returns:
 the events come from the host allocator, so draining them adds no device
 sync to a decode window. The worker drains the events after every step
 whether or not a publisher is wired, so a worker serving a local pipeline
-does not accumulate them. Tracing, the profiler hook, multimodal parts,
-mid-stream resume and the shared KV pool's publisher are left out.
+does not accumulate them. Tracing, the profiler hook, multimodal parts
+and the shared KV pool's publisher are left out.
 """
 from __future__ import annotations
 
@@ -38,19 +40,22 @@ log = logging.getLogger("dynamo_tpu_torch.worker")
 def to_engine_request(pre: PreprocessedRequest,
                        qos: str = "") -> EngineRequest:
     s, st, out = pre.sampling, pre.stop, pre.output
+    # resume from a prefix: the committed tokens ride in token_ids and are
+    # charged against the original budgets
+    resume = pre.resume_committed or 0
     return EngineRequest(
         request_id=pre.request_id,
         prompt=list(pre.token_ids),
         qos=qos,
         params=SamplingParams(
-            max_tokens=max(1, st.max_tokens or 16),
+            max_tokens=max(1, (st.max_tokens or 16) - resume),
             temperature=s.temperature if s.temperature is not None else 0.0,
             top_k=s.top_k or 0,
             top_p=s.top_p if s.top_p is not None else 1.0,
             seed=s.seed or 0,
             ignore_eos=st.ignore_eos,
             stop_token_ids=tuple(st.stop_token_ids_hidden or ()),
-            min_tokens=max(0, st.min_tokens or 0),
+            min_tokens=max(0, (st.min_tokens or 0) - resume),
             repetition_penalty=s.repetition_penalty or 1.0,
             logprobs=out.logprobs,
         ))
@@ -85,6 +90,10 @@ class NativeEngineWorker(AsyncEngine):
     """Serves a NativeEngine: async request fan-in, device step loop,
     per-request frame fan-out, KV event + metrics publication."""
 
+    # discovery role on the instance key (None: an aggregated worker, a
+    # wildcard); the disagg workers set "decode" / "prefill"
+    serving_role: Optional[str] = None
+
     def __init__(self, engine):
         self.engine = engine
         self.metrics_publisher = KvMetricsPublisher()
@@ -98,6 +107,7 @@ class NativeEngineWorker(AsyncEngine):
         # runs in the executor thread
         self._pending_adds: list = []
         self._pending_aborts: list = []
+        self._pending_ops: list = []
 
     async def start(self) -> "NativeEngineWorker":
         self._loop_task = asyncio.create_task(self._step_loop())
@@ -113,10 +123,29 @@ class NativeEngineWorker(AsyncEngine):
             self._loop_task = None
         self.engine.close()
 
+    def submit(self, fn) -> asyncio.Future:
+        """Stage `fn(engine)` to run between device steps; returns a future
+        of its result. The only safe way to touch engine state from outside
+        the step loop."""
+        fut = asyncio.get_running_loop().create_future()
+        self._pending_ops.append((fn, fut))
+        self._wake.set()
+        return fut
+
     # -- engine loop ----------------------------------------------------------
 
     def _apply_pending(self) -> None:
-        """Apply staged adds/aborts; runs only between device steps."""
+        """Apply staged ops/adds/aborts; runs only between device steps."""
+        ops, self._pending_ops = self._pending_ops, []
+        for fn, fut in ops:
+            try:
+                result = fn(self.engine)
+            except Exception as e:  # surfaced to the submitter
+                if not fut.done():
+                    fut.set_exception(e)
+            else:
+                if not fut.done():
+                    fut.set_result(result)
         adds, self._pending_adds = self._pending_adds, []
         for req in adds:
             try:
@@ -139,7 +168,7 @@ class NativeEngineWorker(AsyncEngine):
             self._apply_pending()
             if not self.engine.has_work():
                 self._wake.clear()
-                if not self._pending_adds:
+                if not self._pending_adds and not self._pending_ops:
                     self.metrics_publisher.update(self.engine.metrics())
                     try:
                         await asyncio.wait_for(self._wake.wait(), timeout=1.0)
@@ -260,7 +289,11 @@ async def serve_llm_worker(runtime, namespace: str, component: str,
     if getattr(engine, "event_publisher", "absent") is None:
         engine.event_publisher = KvEventPublisher(comp, runtime.worker_id)
     stats = getattr(engine, "stats_handler", None)
-    return await ep.serve(engine, stats_handler=stats)
+    # the serving role on the instance key (llm/worker.py:383-393): the
+    # disagg workers describe themselves, aggregated ones carry none
+    role = getattr(engine, "serving_role", None)
+    return await ep.serve(engine, stats_handler=stats,
+                          metadata={"role": role} if role else None)
 
 
 def install_graceful_drain(runtime, served) -> None:

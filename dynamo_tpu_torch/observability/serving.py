@@ -3,9 +3,10 @@ latency and the router's decision time.
 
 Copied from dynamo_tpu/observability/serving.py, trimmed to the histograms
 the port's serving path observes (TTFT and ITL in llm/pipeline._drive_n,
-the schedule decision in kv_router/router.KvRouter.schedule): the
-queue-wait and transfer histograms wait for the admission and disagg
-slices that observe them. One process-global registry,
+the schedule decision in kv_router/router.KvRouter.schedule, a disagg page
+transfer in disagg/transfer.py and disagg/remote_transfer.py): the
+queue-wait histogram waits for the admission slice that observes it. One
+process-global registry,
 `SERVING`; the HTTP frontend appends `SERVING.render()` to its own
 registry's output on GET /metrics.
 
@@ -26,6 +27,8 @@ ITL_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                0.5, 1.0, float("inf"))
 SCHEDULE_BUCKETS = (0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
                     0.01, 0.05, 0.1, float("inf"))
+TRANSFER_BUCKETS = (0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0,
+                    float("inf"))
 
 
 class ServingMetrics:
@@ -37,6 +40,8 @@ class ServingMetrics:
     - llm_itl_seconds{model, qos}: the gap between successive
       token-carrying frames of one choice stream (the commit boundary).
     - llm_schedule_seconds: one KvRouter.schedule decision.
+    - llm_kv_transfer_seconds: one disagg page transfer, send side
+      (local or remote backend), staging -> last ack.
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None):
@@ -52,6 +57,10 @@ class ServingMetrics:
         self.schedule = r.histogram(
             "llm_schedule_seconds", "worker-selection decision time",
             buckets=SCHEDULE_BUCKETS)
+        self.kv_transfer = r.histogram(
+            "llm_kv_transfer_seconds",
+            "disagg KV page transfer, send side (stage -> last ack)",
+            buckets=TRANSFER_BUCKETS)
 
     def render(self) -> str:
         return self.registry.render()

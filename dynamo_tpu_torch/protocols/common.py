@@ -4,7 +4,7 @@ Copied from dynamo_tpu/protocols/common.py. The JAX package declares these
 as pydantic models because they double as a wire schema; the port's first
 slice runs frontend, worker and engine in one process and depends on
 nothing beyond torch and numpy, so they are dataclasses here. Multimodal
-parts and mid-stream migration fields come with the slices that use them.
+parts come with the slice that uses them.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ class FinishReason(str, enum.Enum):
     LENGTH = "length"        # max_tokens reached
     CANCELLED = "cancelled"  # client disconnect / stop_generating
     ERROR = "error"
+    PREFILL_DONE = "prefill_done"  # disagg: prefill-only run finished
 
 
 @dataclasses.dataclass
@@ -62,6 +63,11 @@ class PreprocessedRequest:
     model: str = ""
     mdc_sum: str = ""
     annotations: List[str] = dataclasses.field(default_factory=list)
+    # resume from a prefix: token_ids holds the prompt plus the last
+    # `resume_committed` tokens already emitted to the client, which are
+    # charged against the original stop budgets (the disagg early-decode
+    # fallback re-prefills this way)
+    resume_committed: int = 0
 
 
 @dataclasses.dataclass

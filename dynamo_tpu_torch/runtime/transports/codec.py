@@ -14,13 +14,23 @@ in insertion order, tuples as arrays), and `unpackb(b)` the same objects as
 as lists). So the port's control plane and the JAX one speak one wire
 format. Extension types, float32 packing and the streaming Unpacker are
 left out; `unpackb` still reads a float32 that another packer wrote.
+
+KV page frames carry 100+ MiB of bin payload. `pack_parts(obj)` gives the
+same bytes as a list of buffers in which every bin payload of at least
+64 KiB is the caller's own buffer (a writer sends them with
+`writelines`, no copy), and `unpackb(data, zero_copy=True)` returns bin
+payloads as read-only memoryview slices of `data` instead of copies.
+Neither loops over a payload's elements.
 """
 from __future__ import annotations
 
 import struct
 from typing import Any
 
-__all__ = ["packb", "unpackb"]
+__all__ = ["packb", "pack_parts", "unpackb"]
+
+# bin payloads at least this long stay their own buffer in pack_parts
+_BIG = 64 * 1024
 
 _U8, _U16, _U32, _U64 = (struct.Struct(f) for f in (">B", ">H", ">I", ">Q"))
 _I8, _I16, _I32, _I64 = (struct.Struct(f) for f in (">b", ">h", ">i", ">q"))
@@ -72,7 +82,10 @@ def _pack_len(n: int, fix: int, fix_max: int, codes: bytes,
         raise ValueError("object too large to pack")
 
 
-def _pack(obj: Any, out: bytearray) -> None:
+def _pack(obj: Any, out: bytearray, parts=None) -> None:
+    """Append obj's encoding to `out`; with a `parts` list, large bin
+    payloads are appended to it as their own buffers (after flushing
+    `out`'s bytes there) instead of being copied into `out`."""
     if obj is None:
         out.append(0xC0)
     elif obj is True:
@@ -91,18 +104,23 @@ def _pack(obj: Any, out: bytearray) -> None:
             _pack_len(len(data), 0, 0, b"\xd9\xda\xdb", out)
         out += data
     elif isinstance(obj, (bytes, bytearray, memoryview)):
-        data = bytes(obj)
-        _pack_len(len(data), 0, 0, b"\xc4\xc5\xc6", out)
-        out += data
+        data = memoryview(obj).cast("B")
+        _pack_len(data.nbytes, 0, 0, b"\xc4\xc5\xc6", out)
+        if parts is not None and data.nbytes >= _BIG:
+            parts.append(bytes(out))
+            del out[:]
+            parts.append(data)
+        else:
+            out += data
     elif isinstance(obj, (list, tuple)):
         _pack_len(len(obj), 0x90, 16, b"\xdc\xdd", out)
         for item in obj:
-            _pack(item, out)
+            _pack(item, out, parts)
     elif isinstance(obj, dict):
         _pack_len(len(obj), 0x80, 16, b"\xde\xdf", out)
         for k, v in obj.items():
-            _pack(k, out)
-            _pack(v, out)
+            _pack(k, out, parts)
+            _pack(v, out, parts)
     else:
         raise TypeError(f"can not serialize {type(obj).__name__!r} object")
 
@@ -114,12 +132,25 @@ def packb(obj: Any) -> bytes:
     return bytes(out)
 
 
-class _Reader:
-    __slots__ = ("buf", "pos")
+def pack_parts(obj: Any) -> list:
+    """packb(obj) as a list of buffers whose concatenation is those bytes;
+    bin payloads of 64 KiB or more are the caller's buffers, not copies."""
+    parts: list = []
+    out = bytearray()
+    _pack(obj, out, parts)
+    if out or not parts:
+        parts.append(bytes(out))
+    return parts
 
-    def __init__(self, buf: bytes):
+
+class _Reader:
+    __slots__ = ("buf", "pos", "view")
+
+    def __init__(self, buf: bytes, zero_copy: bool = False):
         self.buf = buf
         self.pos = 0
+        # bin payloads as slices of this view (zero_copy) or as copies
+        self.view = memoryview(buf).toreadonly() if zero_copy else None
 
     def take(self, n: int) -> bytes:
         end = self.pos + n
@@ -178,6 +209,11 @@ def _unpack(r: _Reader) -> Any:
     kind, ls = sized
     n = r.num(ls)
     if kind == "bin":
+        if r.view is not None:
+            start, r.pos = r.pos, r.pos + n
+            if r.pos > len(r.buf):
+                raise ValueError("Unpack failed: incomplete input")
+            return r.view[start:r.pos]
         return r.take(n)
     if kind == "str":
         return r.take(n).decode("utf-8")
@@ -196,10 +232,11 @@ def _unpack_map(r: _Reader, n: int) -> dict:
     return out
 
 
-def unpackb(data: bytes) -> Any:
+def unpackb(data: bytes, zero_copy: bool = False) -> Any:
     """The object MessagePack bytes encode (msgpack.unpackb(data,
-    raw=False)); trailing bytes are an error."""
-    r = _Reader(bytes(data))
+    raw=False)); trailing bytes are an error. With zero_copy, bin payloads
+    are read-only memoryviews into `data`."""
+    r = _Reader(data if isinstance(data, bytes) else bytes(data), zero_copy)
     obj = _unpack(r)
     if r.pos != len(r.buf):
         raise ValueError("Unpack failed: extra data")
