@@ -228,9 +228,50 @@ Phases (any failed check exits non-zero; nothing is caught):
    each worker's peak memory, the phase's seconds. The services' whole
    output goes to build/disagg_supervisor.log.
 
-Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, and each
-worker process of 11 and 12) runs with every kernel's launch count set to 0
-just before it and read just after. The third line
+13. The KV tiers at full width (engine/offload.py, engine/kv_pool.py): one
+   set of llama3-8b weights from seed 0 shared by every engine, bf16, page
+   64, 8 slots, max_model_len 4096. Engines: T (num_pages 160, host_pages
+   48 pinned, disk_pages 256 under build/kv_tiers), O (num_pages 512, no
+   tier: every turn-2 prefix is an HBM hit) and R (num_pages 160, no tier:
+   evicted prefixes are recomputed). Traffic, one request at a time, greedy,
+   32 tokens (ignore_eos): 8 conversations with histories of 1536-2048
+   random token ids (seeded); turn 1 serves each history, turn 2 each history
+   + its 32 generated ids + a 64-token question. T and O first serve a
+   warm-up of two requests at the shortest and longest page bucket the
+   turns reach. Turn 1 seals ~224 pages against T's 160, so T's earliest
+   pages go to host and on to disk, and turn 2 promotes them back and
+   onboards them. Checks: T's streams equal O's in both turns; each turn-2
+   request's prefix hits in T and in O equal the sealed pages of its turn-1
+   stream, (len + 31) // 64, derived from the token ids, and turn 1 hits
+   nothing; T offloaded, spilled to disk and promoted from disk, onboarded
+   as many pages as its host tier hit, and dropped, failed, mismatched and
+   quarantined none; conversation 0's onboarded pages in T's cache are
+   byte-equal to O's; no window graph is captured after the warm-up; the
+   ragged kernel launches num_layers x decode steps in each engine's turns.
+   The same with int8 KV pages on T (num_pages 64, so that 4 conversations
+   overflow it and each leaves HBM whole before its turn 2: a turn-2 walk
+   whose own later pages are still in HBM evicts them for its onboards and
+   stops there, as the JAX scheduler does) and O, 4 conversations: equal streams, int8 values and
+   scales byte-equal. The shared pool: P1 and P2 (num_pages 160) attach
+   one SharedKvPool; P1 serves 4 histories and publishes them, then serves
+   them again from its own HBM; P2 serves the same 4, fetching from the
+   pool: its streams equal P1's second run's (the same prefix hits and
+   tail), it fetched sum((len - 1) // 64) pages, and the pool quarantined
+   and rejected nothing. Tentpole 0 on T (`phase_failed_capture`): a
+   window program that raises inside its capture, then one that breaks the
+   capture with a host sync, each through `engine.graphs.run`: each raises,
+   leaves no graph and no pool taking the stream's allocations; the real
+   program under the same key then captures and replays the eager window's
+   tokens. Reported: turn-2 (and turn-1) TTFT p50 / p90 of T, O, R (and
+   int8 T, O), where R's turn-2 streams first leave O's, pages and MiB
+   offloaded and onboarded, D2H and H2D GB/s, an onboard's verify, H2D and
+   inject ms, settle ms, disk spill and promote ms a page, pinned host
+   bytes, peak memory during each engine's run (earlier engines still
+   alive), the phase's seconds.
+
+Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
+worker process of 11 and 12, and each engine's turns in 13) runs with every
+kernel's launch count set to 0 just before it and read just after. The third line
 from the end of the output is one JSON object with the kernel records, the
 second from the end the nvidia-smi reading, and the last line
 {"ok": true, "device": {...}}.
@@ -1161,7 +1202,6 @@ def phase_graph_vs_eager(engine, label: str) -> dict:
     after it are timed untraced: ms per decode step and the device-busy
     share. The requests are aborted at the end."""
     import torch
-    from dynamo_tpu_torch.engine.engine import _engine_decode_window
     from dynamo_tpu_torch.engine.scheduler import DecodePlan
     from dynamo_tpu_torch.engine.window_graph import HostCopies
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
@@ -1169,7 +1209,6 @@ def phase_graph_vs_eager(engine, label: str) -> dict:
     from dynamo_tpu_torch.run import build_card
     card = build_card("llama3-8b")
     pre = OpenAIPreprocessor(card)
-    cfg = engine.model_cfg
     out = {}
     for variant in ("greedy", "fused"):
         rids = []
@@ -1201,14 +1240,7 @@ def phase_graph_vs_eager(engine, label: str) -> dict:
             outs = engine._dispatch_staged(staged)
             engine._dec_state = staged["sig"]
             toks_g = HostCopies.wait(engine._copy_outs_async(outs))[0]
-            toks_e = _engine_decode_window(
-                cfg, engine._eos_vec, engine.params, cache0, bufs["tokens"],
-                bufs["positions"], bufs["counters"], bufs["page_table"],
-                bufs["max_pos"], bufs["temperature"], bufs["top_k"],
-                bufs["top_p"], bufs["seeds"], bufs["min_tokens"],
-                bufs["ignore_eos"], bufs["stop_ids"], n_steps=staged["nw"],
-                page_size=engine.cfg.page_size, greedy=greedy,
-                fused=fused)[0].cpu().numpy()
+            toks_e = eager_window(engine, staged, bufs, cache0)
             torch.cuda.synchronize()
             diff = cache_diff(engine.cache, cache0)
             del cache0
@@ -1232,6 +1264,21 @@ def phase_graph_vs_eager(engine, label: str) -> dict:
         engine._sync_stream()
         out[variant] = rec
     return out
+
+
+def eager_window(engine, staged, bufs, cache):
+    """The staged window as an eager `_engine_decode_window` on `bufs` and
+    `cache` (copies of the staged inputs and of the cache): its tokens."""
+    from dynamo_tpu_torch.engine.engine import _engine_decode_window
+    rp, with_lp, greedy, fused, nw = staged["key"][:5]
+    return _engine_decode_window(
+        engine.model_cfg, engine._eos_vec, engine.params, cache,
+        bufs["tokens"], bufs["positions"], bufs["counters"],
+        bufs["page_table"], bufs["max_pos"], bufs["temperature"],
+        bufs["top_k"], bufs["top_p"], bufs["seeds"], bufs["min_tokens"],
+        bufs["ignore_eos"], bufs["stop_ids"], n_steps=nw,
+        page_size=engine.cfg.page_size, greedy=greedy,
+        fused=fused)[0].cpu().numpy()
 
 
 def trace_window(engine, key) -> dict:
@@ -2920,6 +2967,468 @@ def phase_disagg(smi: str, model: str = "llama3-8b", device: str = "cuda",
                 f.write("\n".join(children[0].lines) + "\n")
 
 
+# -- phase 13: the KV tiers -----------------------------------------------------
+
+TIER_MAX_TOKENS = 32
+TIER_QUESTION = 64
+# llama3-8b on the card: T's HBM, host and disk pages, O's HBM pages, the
+# int8 T's HBM pages, the shared-pool engines' pages and the history
+# lengths in tokens; `tier_sizes` scales them for a rehearsal on the CPU
+TIER_SIZES = dict(t_pages=160, host=48, disk=256, o_pages=512, t8_pages=64,
+                  p_pages=160, lo=1536, hi=2048, convs=8, convs8=4)
+
+
+def tier_sizes(scale: float) -> dict:
+    s = dict(TIER_SIZES)
+    if scale != 1.0:
+        for k in ("t_pages", "host", "o_pages", "t8_pages", "p_pages",
+                  "lo", "hi"):
+            s[k] = max(2, int(s[k] * scale))
+        s["o_pages"] = max(s["o_pages"], 64)
+    return s
+
+
+def tier_tokens(length: int, seed: int, vocab: int) -> list:
+    """`length` random token ids from a seed."""
+    import numpy as np
+    return np.random.default_rng(seed).integers(
+        1, vocab, size=length).tolist()
+
+
+def tier_histories(n: int, lo: int, hi: int, seed: int, vocab: int) -> list:
+    """n conversation histories of lo-hi random token ids (from a seed)."""
+    import numpy as np
+    lens = np.random.default_rng(seed).integers(lo, hi + 1, size=n)
+    return [tier_tokens(int(x), seed + 1 + i, vocab)
+            for i, x in enumerate(lens)]
+
+
+def tier_serve(engine, rid: str, prompt: list) -> dict:
+    """One request alone on the engine, greedy, TIER_MAX_TOKENS tokens
+    (ignore_eos): its tokens, its TTFT (add_request to the first token's
+    event, host clock) and its prefix hits (full pages matched in any
+    tier)."""
+    from dynamo_tpu_torch.engine.scheduler import (
+        EngineRequest, SamplingParams,
+    )
+    hits0 = engine.scheduler._prefix_hits
+    t0 = time.perf_counter()
+    engine.add_request(EngineRequest(rid, list(prompt), SamplingParams(
+        max_tokens=TIER_MAX_TOKENS, temperature=0.0, ignore_eos=True)))
+    out, ttft, done = [], None, False
+    while not done:
+        for ev in engine.step():
+            if ev.request_id != rid:
+                continue
+            if ev.token is not None:
+                out.append(ev.token)
+                ttft = ttft or time.perf_counter() - t0
+            done |= ev.finished
+    while engine.has_work():
+        engine.step()
+    return {"tokens": out, "ttft_s": ttft,
+            "hits": engine.scheduler._prefix_hits - hits0}
+
+
+def page_chain(tokens: list, n: int, page: int) -> list:
+    from dynamo_tpu_torch.engine.kv_cache import page_hash
+    parent, out = 0, []
+    for i in range(n):
+        parent = page_hash(parent, tokens[i * page:(i + 1) * page])
+        out.append(parent)
+    return out
+
+
+def same_pages(a, b, tokens: list, n: int, label: str) -> int:
+    """The n leading pages of `tokens` in engine a's cache and in engine
+    b's (found by hash, wherever they sit), byte for byte on every leaf.
+    Returns the bytes compared."""
+    import torch
+    hashes = page_chain(tokens, n, a.cfg.page_size)
+    ids = []
+    for eng in (a, b):
+        pids = [eng.scheduler.allocator.lookup(h) for h in hashes]
+        check(None not in pids, f"{label}: a page is not in HBM: {pids}")
+        ids.append(pids)
+    pa, pb = a.extract_pages(ids[0]), b.extract_pages(ids[1])
+    if a.device.type == "cuda":
+        torch.cuda.synchronize()
+    nbytes = 0
+    for key in a.cache:
+        x, y = pa[key][:, :, :n], pb[key][:, :, :n]
+        check(x.dtype == y.dtype and x.shape == y.shape
+              and torch.equal(x.contiguous().view(torch.uint8),
+                              y.contiguous().view(torch.uint8)),
+              f"{label}: {key} of {n} onboarded pages differ from the "
+              "oracle's")
+        nbytes += x.numel() * x.element_size()
+    return nbytes
+
+
+def tier_run(engine, name: str, histories: list, questions: list,
+             vocab: int, warm: bool = True, after_turn2=None) -> dict:
+    """Phase 13's traffic on one engine as its own path: a warm-up of two
+    requests (random prompts at the shortest and the longest page bucket
+    the turns reach, so that every window graph is captured first), then
+    turn 1 (each history, one at a time) and turn 2 (history + its 32
+    generated ids + a 64-token question, in order). The launch counts are
+    set to 0 after the warm-up and read at the end: num_layers x decode
+    steps, and no graph captured (with warm=True)."""
+    import torch
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    gr, cfg = engine.graphs, engine.model_cfg
+    ps = engine.cfg.page_size
+    if warm:
+        lo = min(len(h) for h in histories)
+        hi = max(len(h) for h in histories) + TIER_MAX_TOKENS + TIER_QUESTION
+        for i, n in enumerate((lo, hi)):
+            tier_serve(engine, f"{name}-warm-{i}",
+                       tier_tokens(n, 9000 + i, vocab))
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    g0 = (gr.captured, gr.warmup_launches[RAGGED])
+    steps0 = engine.decode_window_steps
+    t0 = time.perf_counter()
+    turn1 = [tier_serve(engine, f"{name}-c{i}-t1", h)
+             for i, h in enumerate(histories)]
+    turn2 = []
+    for i, h in enumerate(histories):
+        turn2.append(tier_serve(engine, f"{name}-c{i}-t2",
+                                h + turn1[i]["tokens"] + questions[i]))
+        if after_turn2 is not None:
+            after_turn2(i, turn2[-1])
+    wall = time.perf_counter() - t0
+    launches = pa.KERNEL_LAUNCHES
+    steps = engine.decode_window_steps - steps0
+    captured = gr.captured - g0[0]
+    warm_launches = gr.warmup_launches[RAGGED] - g0[1]
+    for i, h in enumerate(histories):
+        check(len(turn1[i]["tokens"]) == TIER_MAX_TOKENS
+              and len(turn2[i]["tokens"]) == TIER_MAX_TOKENS,
+              f"{name}: conversation {i} stopped early")
+    if engine.device.type == "cuda":
+        check(launches == cfg.num_layers * steps + warm_launches
+              and steps > 0,
+              f"{name}: ragged launches {launches}, expected num_layers x "
+              f"decode steps = {cfg.num_layers} x {steps} + {warm_launches}")
+        if warm:
+            check(captured == 0, f"{name}: {captured} window graphs "
+                  "captured after the warm-up")
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if engine.device.type == "cuda" else 0.0)
+    return {"turn1": turn1, "turn2": turn2, "launches": launches,
+            "decode_steps": steps, "captured": captured, "wall_s": wall,
+            "peak_gib": peak}
+
+
+def quantiles(xs: list) -> dict:
+    import numpy as np
+    return {"p50_ms": float(np.percentile(xs, 50)) * 1e3,
+            "p90_ms": float(np.percentile(xs, 90)) * 1e3}
+
+
+def first_difference(a: list, b: list):
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def pool_recording(engine) -> bool:
+    """Does a fresh allocation on the engine's stream land in a graph
+    memory pool (segment pool id other than (0, 0))?"""
+    import torch
+    with engine._on_stream():
+        t = torch.empty(64 << 20, dtype=torch.uint8, device=engine.device)
+        ptr = t.data_ptr()
+        for seg in torch.cuda.memory_snapshot():
+            if seg["address"] <= ptr < seg["address"] + seg["total_size"]:
+                return tuple(seg["segment_pool_id"]) != (0, 0)
+    return True
+
+
+def phase_failed_capture(engine, vocab: int) -> dict:
+    """Tentpole 0 on the card: 8 greedy requests decode; their next window
+    is run through `engine.graphs.run` under a new key with a program that
+    raises partway through its capture (after the whole window program),
+    then with one that breaks the capture (a host sync inside it). Each
+    must raise, leave no graph under the key, and leave the stream's
+    allocations outside every graph pool. Then the real program under the
+    same key captures and replays: its tokens must equal the eager
+    window's on clones of the cache and inputs. The requests are aborted
+    at the end."""
+    import torch
+    from dynamo_tpu_torch.engine.scheduler import (
+        DecodePlan, EngineRequest, SamplingParams,
+    )
+    gr = engine.graphs
+    rids = []
+    for i in range(engine.cfg.max_slots):
+        rid = f"fc-{i}"
+        engine.add_request(EngineRequest(rid, tier_tokens(
+            100 + 40 * i, 7000 + i, vocab), SamplingParams(
+                max_tokens=64, temperature=0.0, ignore_eos=True)))
+        rids.append(rid)
+    while engine.scheduler.waiting or engine._pipeline is not None:
+        engine.step()
+    out = {}
+    with engine._on_stream():
+        plan = engine.scheduler.schedule()
+        check(isinstance(plan, DecodePlan)
+              and all(q is not None for q in plan.seqs),
+              "failed capture: the next step is not a full decode window")
+        samp = engine._sampling_arrays(plan.seqs)
+        staged = engine._stage_window(plan, samp, None, False, True, False)
+        program = engine._window_program(staged)
+        key = ("failed-capture",) + staged["key"]
+        for kind in ("raise", "sync"):
+            captured0 = gr.captured
+
+            def bad(b, kind=kind):
+                outs = program(b)
+                if torch.cuda.is_current_stream_capturing():
+                    if kind == "raise":
+                        raise RuntimeError("injected failure inside capture")
+                    b["tokens"].sum().item()   # a host sync: not capturable
+                return outs
+            try:
+                gr.run(key, bad, staged["bufs"])
+            except RuntimeError as e:
+                out[kind] = str(e).splitlines()[0][:160]
+            else:
+                check(False, f"failed capture ({kind}): run did not raise")
+            check(key not in gr.captured_calls() and gr.captured == captured0,
+                  f"failed capture ({kind}): a graph was kept")
+            check(not pool_recording(engine),
+                  f"failed capture ({kind}): the graph pool still takes the "
+                  "engine stream's allocations")
+        engine._sync_stream()
+        want = eager_window(
+            engine, staged, {k: v.clone() for k, v in staged["bufs"].items()},
+            {k: v.clone() for k, v in engine.cache.items()})
+        captured0 = gr.captured
+        outs = gr.run(key, program, staged["bufs"])
+        got = outs[0].cpu().numpy()
+        check(gr.captured == captured0 + 1,
+              "failed capture: the next run did not capture")
+        check((got == want).all(),
+              f"failed capture: the replay after the failures gave "
+              f"{got.T.tolist()}, the eager window {want.T.tolist()}")
+        check(not pool_recording(engine),
+              "failed capture: the pool is recording after the replay")
+    engine._dec_state = None
+    for rid in rids:
+        engine.abort(rid)
+    while engine.has_work():
+        engine.step()
+    engine._sync_stream()
+    out["tokens_equal"] = int(got.size)
+    print(f"failed capture: both failures raised ({json.dumps(out)}), no "
+          f"graph kept, pool not recording; the next capture replayed "
+          f"{got.size} tokens equal to the eager window", flush=True)
+    return out
+
+
+def phase_tiers(smi: str, model: str = "llama3-8b", device: str = "cuda",
+                scale: float = 1.0, device_name: str = None) -> dict:
+    """Phase 13 (see the docstring at the top)."""
+    import shutil
+    import torch
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.engine.kv_pool import POOL_STATS, SharedKvPool
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.run import build_card
+    from dynamo_tpu_torch.runtime.integrity import STATS as INTEGRITY
+    t_phase = time.perf_counter()
+    sz = tier_sizes(scale)
+    card = build_card(model)
+    cfg = card.model_config()
+    vocab = cfg.vocab_size
+    root = os.path.dirname(os.path.abspath(__file__))
+    disk_root = os.path.join(root, "build", "kv_tiers")
+    shutil.rmtree(disk_root, ignore_errors=True)
+    params = llama.init_params(cfg, device, 0)
+    ps = card.kv_page_size
+    hists = tier_histories(sz["convs"], sz["lo"], sz["hi"], 100, vocab)
+    questions = [tier_tokens(TIER_QUESTION, 200 + i, vocab)
+                 for i in range(sz["convs"])]
+    expect = [(len(h) + TIER_MAX_TOKENS - 1) // ps for h in hists]
+    i0 = dataclasses.asdict(INTEGRITY)
+
+    def build(num_pages, host=0, disk=0, tag="", kv_quant=""):
+        return NativeEngine(cfg, EngineConfig(
+            page_size=ps, num_pages=num_pages, host_pages=host,
+            disk_pages=disk, kv_quant=kv_quant, max_model_len=4096,
+            disk_dir=os.path.join(disk_root, tag) if disk else None),
+            params=params, eos_token_ids=set(card.eos_token_ids),
+            device=device)
+
+    def gate_hits(run, label, exp):
+        got = [r["hits"] for r in run["turn2"]]
+        check(got == exp, f"{label}: turn-2 prefix hits {got}, expected "
+              f"{exp} (the sealed pages of each turn-1 stream)")
+        check(all(r["hits"] == 0 for r in run["turn1"]),
+              f"{label}: a turn-1 request hit a cached page")
+
+    rec = {"sizes": sz, "expected_hits": expect}
+    # O: every turn-2 prefix is an HBM hit
+    oracle = build(sz["o_pages"])
+    o = tier_run(oracle, "O", hists, questions, vocab)
+    gate_hits(o, "O", expect)
+    # T: HBM -> host -> disk and back
+    tiered = build(sz["t_pages"], sz["host"], sz["disk"], "T")
+    checked = {}
+
+    def t_after(i, r):
+        if i == 0:
+            checked["bytes"] = same_pages(
+                tiered, oracle, hists[0] + o["turn1"][0]["tokens"],
+                expect[0], "T conversation 0")
+    t = tier_run(tiered, "T", hists, questions, vocab, after_turn2=t_after)
+    gate_hits(t, "T", expect)
+    for turn in ("turn1", "turn2"):
+        for i in range(len(hists)):
+            check(t[turn][i]["tokens"] == o[turn][i]["tokens"],
+                  f"T {turn} conversation {i}: stream differs from O's at "
+                  f"{first_difference(t[turn][i]['tokens'], o[turn][i]['tokens'])}")
+    hp = tiered.host_pool
+    st = dataclasses.asdict(hp.stats)
+    integ = {k: v - i0[k] for k, v in dataclasses.asdict(INTEGRITY).items()}
+    check(st["offloaded"] > 0 and st["disk_offloaded"] > 0
+          and st["disk_hits"] > 0 and st["onboarded"] == st["host_hits"] > 0
+          and st["put_dropped"] == 0 and st["failed"] == 0
+          and integ["mismatches"] == 0 and integ["quarantined"] == 0,
+          f"T tier counters {st}, integrity {integ}")
+    times = hp.times.snapshot()
+    failed_capture = (phase_failed_capture(tiered, vocab)
+                      if device == "cuda" else None)
+    tiered.close()
+    rec["T"] = {"stats": st, "integrity": integ, "times": times,
+                "pinned_bytes": hp.pinned_bytes,
+                "page_bytes": tiered.metrics().kv_page_bytes,
+                "onboard_checked_bytes": checked["bytes"]}
+    del tiered, hp, oracle
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # R: the same traffic with no tier, every evicted prefix recomputed
+    recompute = build(sz["t_pages"])
+    r = tier_run(recompute, "R", hists, questions, vocab, warm=False)
+    r_diff = [first_difference(r["turn2"][i]["tokens"],
+                               o["turn2"][i]["tokens"])
+              for i in range(len(hists))]
+    del recompute
+    # int8 pages through both tiers
+    n8 = sz["convs8"]
+    o8e = build(sz["o_pages"], kv_quant="int8")
+    o8 = tier_run(o8e, "O int8", hists[:n8], questions, vocab)
+    t8e = build(sz["t8_pages"], sz["host"], sz["disk"], "T8", "int8")
+    checked8 = {}
+
+    def t8_after(i, r8):
+        if i == 0:
+            checked8["bytes"] = same_pages(
+                t8e, o8e, hists[0] + o8["turn1"][0]["tokens"], expect[0],
+                "T int8 conversation 0")
+    t8 = tier_run(t8e, "T int8", hists[:n8], questions, vocab,
+                  after_turn2=t8_after)
+    gate_hits(o8, "O int8", expect[:n8])
+    gate_hits(t8, "T int8", expect[:n8])
+    for turn in ("turn1", "turn2"):
+        for i in range(n8):
+            check(t8[turn][i]["tokens"] == o8[turn][i]["tokens"],
+                  f"T int8 {turn} conversation {i}: stream differs from "
+                  "O int8's")
+    st8 = dataclasses.asdict(t8e.host_pool.stats)
+    check(st8["offloaded"] > 0 and st8["onboarded"] == st8["host_hits"] > 0
+          and st8["put_dropped"] == 0 and st8["failed"] == 0,
+          f"T int8 tier counters {st8}")
+    rec["T_int8"] = {"stats": st8, "times": t8e.host_pool.times.snapshot(),
+                     "pinned_bytes": t8e.host_pool.pinned_bytes,
+                     "onboard_checked_bytes": checked8["bytes"]}
+    t8e.close()
+    del t8e, o8e
+    # the shared pool: P1 publishes, P2 fetches
+    POOL_STATS.reset()
+    pool = SharedKvPool(capacity_pages=4 * 64)
+    p1 = build(sz["p_pages"])
+    p1.attach_kv_pool(pool, "P1")
+    p_hists = hists[:4]
+    first = [tier_serve(p1, f"P1-{i}", h) for i, h in enumerate(p_hists)]
+    p1.drain_kv_events()
+    p1._pool_stream.drain()
+    again = [tier_serve(p1, f"P1-again-{i}", h)
+             for i, h in enumerate(p_hists)]
+    p2 = build(sz["p_pages"])
+    p2.attach_kv_pool(pool, "P2", publish=False)
+    served = [tier_serve(p2, f"P2-{i}", h) for i, h in enumerate(p_hists)]
+    want_fetch = sum((len(h) - 1) // ps for h in p_hists)
+    pst = POOL_STATS.snapshot()
+    for i in range(len(p_hists)):
+        check(served[i]["tokens"] == again[i]["tokens"],
+              f"P2 request {i}: stream differs from P1's at "
+              f"{first_difference(served[i]['tokens'], again[i]['tokens'])}")
+    check(p2.scheduler.pool_fetched_pages == want_fetch
+          and pst["quarantined"] == 0 and pst["quant_rejected"] == 0
+          and p1._pool_stream.failed == 0,
+          f"P2 fetched {p2.scheduler.pool_fetched_pages} pages, expected "
+          f"{want_fetch}; pool {pst}")
+    rec["pool"] = {"stats": pst, "fetched": want_fetch,
+                   "p2_equals_p1_first": sum(
+                       served[i]["tokens"] == first[i]["tokens"]
+                       for i in range(len(p_hists))),
+                   "p2_ttft": quantiles([x["ttft_s"] for x in served]),
+                   "p1_first_ttft": quantiles([x["ttft_s"] for x in first])}
+    p1.close()
+    p2.close()
+    del p1, p2, pool, params
+    shutil.rmtree(disk_root, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    for label, run in (("T", t), ("O", o), ("R", r), ("T int8", t8),
+                       ("O int8", o8)):
+        rec.setdefault("runs", {})[label] = {
+            "turn2_ttft": quantiles([x["ttft_s"] for x in run["turn2"]]),
+            "turn1_ttft": quantiles([x["ttft_s"] for x in run["turn1"]]),
+            "turn2_hits": [x["hits"] for x in run["turn2"]],
+            "launches": run["launches"], "decode_steps": run["decode_steps"],
+            "captured": run["captured"], "wall_s": run["wall_s"],
+            "peak_gib": run["peak_gib"]}
+    rec["R_first_difference"] = r_diff
+    rec["failed_capture"] = failed_capture
+    tm = rec["T"]["times"]
+    rec["rates"] = {
+        "d2h_gb_s": tm["d2h_bytes"] / tm["d2h_s"] / 1e9 if tm["d2h_s"] else 0,
+        "h2d_gb_s": tm["h2d_bytes"] / tm["h2d_s"] / 1e9 if tm["h2d_s"] else 0,
+        "verify_ms_per_page": tm["verify_s"] / max(1, tm["verify_pages"]) * 1e3,
+        "onboard_split_ms_per_batch": {
+            "verify": tm["verify_s"] / max(1, tm["onboard_batches"]) * 1e3,
+            "h2d": tm["h2d_s"] / max(1, tm["onboard_batches"]) * 1e3,
+            "inject": tm["inject_s"] / max(1, tm["onboard_batches"]) * 1e3},
+        "spill_ms_per_page": tm["spill_s"] / max(1, tm["spill_pages"]) * 1e3,
+        "promote_ms_per_page": (tm["promote_s"] / max(1, tm["promote_pages"])
+                                * 1e3),
+        "settle_ms": tm["settle_s"] * 1e3}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    st = rec["T"]["stats"]
+    mib = rec["T"]["page_bytes"] / 2**20
+    print(f"KV tiers [{smi}]: T/O/R turn-2 TTFT p50 / p90 "
+          + ", ".join(f"{k} {v['turn2_ttft']['p50_ms']:.1f} / "
+                      f"{v['turn2_ttft']['p90_ms']:.1f} ms"
+                      for k, v in rec["runs"].items())
+          + f"; T offloaded {st['offloaded']} pages "
+          f"({st['offloaded'] * mib:.0f} MiB), onboarded {st['onboarded']} "
+          f"({st['onboarded'] * mib:.0f} MiB), disk spills "
+          f"{st['disk_offloaded']}, disk hits {st['disk_hits']}; "
+          f"rates {json.dumps(rec['rates'])}; pinned host "
+          f"{rec['T']['pinned_bytes']} bytes; R's turn-2 first difference "
+          f"from O {r_diff}; pool fetched {want_fetch} pages, P2 == P1's "
+          f"repeat; phase {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2985,6 +3494,8 @@ def main() -> int:
     print(f"distributed path: {json.dumps(dist)}", flush=True)
     disagg = phase_disagg(smi, device_name=torch.cuda.get_device_name(0))
     print(f"disaggregated deployment: {json.dumps(disagg)}", flush=True)
+    tiers = phase_tiers(smi, device_name=torch.cuda.get_device_name(0))
+    print(f"KV tiers: {json.dumps(tiers)}", flush=True)
 
     ragged = {"name": "ragged_decode_attention", "route": "cuda",
               "source": "dynamo_tpu_torch/csrc/ragged_decode_attention.cu",
@@ -2993,6 +3504,8 @@ def main() -> int:
               "max_abs_err": max(err_bf16, main_err), **timing,
               "distributed_launches": dist["launches"],
               "disagg_launches": disagg["launches"],
+              "tiers_launches": {k: v["launches"]
+                                 for k, v in tiers["runs"].items()},
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),
                        **timing_q}}

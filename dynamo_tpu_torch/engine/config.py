@@ -13,6 +13,7 @@ with NotImplementedError by `check_supported`.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +79,13 @@ class EngineConfig:
     # together in one device step; 1 = one sequence per step
     max_prefill_batch: int = 8
     max_model_len: int = 2048
+    # host-DRAM KV tier capacity in pages (0 = tier off); evicted HBM pages
+    # spill here and return on prefix hits (engine/offload.py)
+    host_pages: int = 0
+    # disk tier below DRAM: DRAM evictions spill down, prefix hits promote
+    # back up. Requires host_pages > 0. disk_dir None = a temp directory.
+    disk_pages: int = 0
+    disk_dir: Optional[str] = None
     # decode steps run per window: the sampled token feeds the next step on
     # the device, and the window's tokens cross to the host in one copy
     decode_steps: int = 8

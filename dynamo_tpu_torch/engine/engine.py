@@ -51,9 +51,22 @@ Padded page ids point at the scratch page (`num_pages`): extract reads
 the last real page there, as the JAX engine clamps, and inject writes the
 padding into the scratch page where the JAX engine drops it.
 
+The KV tiers (dynamo_tpu/engine/engine.py:136-166, :1635-1698,
+:1942-2080): with `host_pages > 0` a page the allocator recycles is queued
+(`_offload_page`) and its extraction enqueued on the engine's stream at the
+next cache write (`_process_offloads`, right after `schedule()`, at the top
+of a pipeline step and before an inject), the copy to its host slot running
+on engine/offload.py's CopyStream thread. A prefix hit in the host tier
+(or, below it, the disk tier or an attached shared pool, engine/kv_pool.py)
+gets a fresh HBM page that `_process_onboards` / `_process_pool_injects`
+fill with `inject_pages` before the step that reads it; on the card each
+page leaves its pinned slot in one DMA on the onboard stream, and its slot
+stays pinned until that copy is done. The pipeline does not start or
+continue a window while offloads, onboards or pool injects are pending.
+
 Left out of this slice: speculative decoding, pipeline/tensor parallelism,
-streaming, the KV tiers and pool, vision, the tp shard inject
-(`inject_pages_shard`) and the gather decode window.
+streaming, vision, the tp shard inject (`inject_pages_shard`) and the gather
+decode window.
 """
 from __future__ import annotations
 
@@ -68,6 +81,7 @@ from dynamo_tpu_torch.engine.config import (
     EngineConfig, ModelConfig, check_supported,
 )
 from dynamo_tpu_torch.engine.kv_cache import SequenceState
+from dynamo_tpu_torch.engine.offload import CopyStream, HostKvPool
 from dynamo_tpu_torch.engine.sampler import (
     RepPenaltyCache, SamplingArrayCache, eos_mask, sample_logits,
     seen_token_mask,
@@ -140,7 +154,25 @@ class NativeEngine:
         # the eos ban's [V] mask, built once (no host copy inside a window)
         self._eos_vec = eos_mask(self.eos_token_ids, model_cfg.vocab_size,
                                  self.device)
-        self.scheduler = Scheduler(engine_cfg)
+        # host KV tier: evicted HBM pages spill to a host slab (and below it
+        # to disk) and come back on prefix hits instead of being recomputed
+        if engine_cfg.disk_pages > 0 and engine_cfg.host_pages <= 0:
+            raise ValueError("disk_pages > 0 requires host_pages > 0: the "
+                             "disk tier sits below the host tier")
+        self.host_pool = None
+        if engine_cfg.host_pages > 0:
+            page_shape = (model_cfg.num_layers, model_cfg.num_kv_heads,
+                          engine_cfg.page_size, model_cfg.head_dim)
+            # the slabs store the device representation verbatim: int8
+            # pages + f32 scale rows on an int8 cache
+            self.host_pool = HostKvPool(
+                engine_cfg.host_pages, page_shape,
+                torch.int8 if self.kv_quant else llama.torch_dtype(model_cfg),
+                disk_pages=engine_cfg.disk_pages,
+                disk_dir=engine_cfg.disk_dir,
+                scale_shape=page_shape[:-1] if self.kv_quant else None,
+                pin=self.device.type == "cuda")
+        self.scheduler = Scheduler(engine_cfg, host_pool=self.host_pool)
         if params is None:
             params = llama.init_params(model_cfg, self.device, seed)
         elif self.quant and not is_quantized(params["layers"]["wq"]):
@@ -154,6 +186,24 @@ class NativeEngine:
                         if self.device.type == "cuda" else None)
         self.graphs = WindowGraphs(self.device, self._stream)
         self._host_copies = HostCopies()
+        # the KV tiers: offloads wait here until the next cache write
+        # extracts them; onboard copies run on a stream of their own
+        # (_onboards_in_flight: their events, for the copy and inject times)
+        self._pending_offloads: list = []
+        self._onboards_in_flight: list = []
+        self._copy_stream = None
+        self._h2d_stream = None
+        if self.host_pool is not None:
+            self.scheduler.allocator.on_evict = self._offload_page
+            self._copy_stream = CopyStream(self.host_pool, self.device,
+                                           self.graphs.capture_lock)
+            self.scheduler.settle_hashes = self._copy_stream.settle
+        if self._stream is not None:
+            self._h2d_stream = torch.cuda.Stream(self.device)
+        # the shared KV pool (engine/kv_pool.py): attach_kv_pool wires it
+        self.kv_pool = None
+        self.kv_pool_source = ""
+        self._pool_stream = None
         self._dec_state = None   # the last window's sig: its carry is live
         self._pipeline = None    # the in-flight window (pipeline_depth >= 2)
         # one page past the allocator's range: the scratch page that
@@ -242,14 +292,26 @@ class NativeEngine:
 
     def close(self) -> None:
         """Wait for the device work the engine enqueued (a discarded
-        follow-up window may still run); the engine owns no threads or
-        files."""
+        follow-up window may still run) and stop the tier threads (the
+        offload copies and the pool publisher drain first)."""
         self._sync_stream()
+        self._retire_onboards(wait=True)
+        if self._copy_stream is not None:
+            self._copy_stream.close()
+            self._copy_stream = None
+            self.host_pool.close()
+        if self._pool_stream is not None:
+            self._pool_stream.close()
+            self._pool_stream = None
 
     def drain_kv_events(self):
         """The allocator's stored / removed page events since the last
-        drain (host bookkeeping only: no device sync)."""
-        return self.scheduler.allocator.drain_events()
+        drain (host bookkeeping only: no device sync). With a shared pool
+        attached, the newly sealed pages are published into it too."""
+        events = self.scheduler.allocator.drain_events()
+        if self._pool_stream is not None and events:
+            self._publish_pool_pages(events)
+        return events
 
     def has_work(self) -> bool:
         s = self.scheduler
@@ -270,10 +332,14 @@ class NativeEngine:
         in-flight window's outputs while the follow-up executes. Events for
         a pipelined window arrive one step() call after its dispatch."""
         with self._on_stream():
+            self._retire_onboards()
             if self._pipeline is not None:
                 return self._pipeline_step()
             with self.phases.phase("plan"):
                 plan = self.scheduler.schedule()
+            self._process_offloads()  # save evicted pages before overwrite
+            self._process_onboards()  # host-tier pages the plan may read
+            self._process_pool_injects()  # shared-pool pages it may read
             if plan is None:
                 return []
             if isinstance(plan, MixedPlan):
@@ -331,6 +397,12 @@ class NativeEngine:
         # (int8 values + f32 scales where quantized) and the bit width
         m.weight_bytes = _tree_bytes(self.params)
         m.weight_quant_bits = 8 if self.quant == "int8" else 0
+        if self.host_pool is not None:
+            m.kv_host_pages_used = self.host_pool.used
+            m.kv_host_pages_total = self.host_pool.capacity
+            if self.host_pool.disk is not None:
+                m.kv_disk_pages_used = self.host_pool.disk.used
+                m.kv_disk_pages_total = self.host_pool.disk.capacity
         return m
 
     def logits_nonfinite_steps(self) -> int:
@@ -417,6 +489,10 @@ class NativeEngine:
                 "sender shipped quantized KV pages but this engine's "
                 "cache is unquantized; both sides of a transfer must run "
                 "the same kv_quant mode")
+        # evicted-but-unsaved pages reach the host tier before this write
+        # can overwrite them (an inject may land on an evicted page)
+        if self._pending_offloads:
+            self._process_offloads()
         nb = k_pages.shape[2]
         if len(page_ids) > nb:
             raise ValueError(
@@ -450,6 +526,206 @@ class NativeEngine:
         ev = torch.cuda.Event()
         ev.record(self._stream)
         return ev
+
+    # -- KV tiers (engine/offload.py) ----------------------------------------
+
+    def _offload_page(self, pid: int, seq_hash: int) -> None:
+        """Allocator eviction hook: queue the page for the host tier. Its
+        extraction is enqueued at the next cache write (_process_offloads),
+        before anything can overwrite it."""
+        self._pending_offloads.append((pid, seq_hash))
+
+    def _process_offloads(self) -> None:
+        """Enqueue the extraction of every page evicted since the last cache
+        write, in device order; the copies to host slots and the checksums
+        run on the CopyStream thread, so the step loop never waits on an
+        offload."""
+        pending, self._pending_offloads = self._pending_offloads, []
+        if self._copy_stream is None or not pending:
+            return
+        max_b = self.scheduler.page_buckets[-1]
+        for start in range(0, len(pending), max_b):
+            chunk = pending[start:start + max_b]
+            self._copy_stream.submit(
+                self._extract_page_major([pid for pid, _ in chunk]),
+                [h for _, h in chunk])
+
+    def _extract_page_major(self, page_ids) -> dict:
+        """Gather whole pages of every cache leaf into page-major blocks
+        ([N, L, Hkv, ps, hd] values, [N, L, Hkv, ps] scales: one contiguous
+        run per page) on the engine's stream, with a "ready" event after
+        the gather (None on the CPU, where the gather is done on return)."""
+        with self._on_stream():
+            idx = self._dev(np.asarray(page_ids, np.int64))
+            # dynalint: kv-codec (whole pages keep the stored representation)
+            out = {key: arr.movedim(2, 0).index_select(0, idx)
+                   for key, arr in self.cache.items()}
+            out["ready"] = self._record_event()
+        return out
+
+    def _process_onboards(self) -> None:
+        """Write the host-tier pages _match_prefix claimed into their HBM
+        pages before the device step that reads them."""
+        pending = self.scheduler.drain_onboards()
+        max_b = self.scheduler.page_buckets[-1]
+        for start in range(0, len(pending), max_b):
+            chunk = pending[start:start + max_b]
+            hashes = [h for _, h in chunk]
+            got = [self.host_pool.get(h) for h in hashes]
+            self._onboard([pid for pid, _ in chunk], got, hashes)
+            self.host_pool.stats.onboarded += len(chunk)
+
+    def _onboard(self, page_ids, pages, unpin=()) -> None:
+        """Write host pages ((k, v[, k_scale, v_scale]) per page) into the
+        cache at `page_ids` with `inject_pages`, then unpin `unpin`. On the
+        CPU the pages are stacked (copied) first. On the card each page's
+        leaves are copied out of its slab slot, one DMA each, on the onboard
+        stream (which waits for no window in flight); the inject waits for
+        that copy's event on the engine's stream, and the slots are unpinned
+        only once the copy has completed, so no put can overwrite a slot
+        the copy still reads."""
+        n_leaves = len(pages[0])
+        if self._h2d_stream is None:
+            stacks = [torch.stack([p[leaf] for p in pages], dim=2)
+                      for leaf in range(n_leaves)]
+            for h in unpin:
+                self.host_pool.unpin(h)
+            self.inject_pages(page_ids, *stacks)
+            return
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.cuda.stream(self._h2d_stream):
+            ev[0].record(self._h2d_stream)
+            blocks = [torch.empty((len(pages),) + tuple(pages[0][leaf].shape),
+                                  dtype=pages[0][leaf].dtype,
+                                  device=self.device)
+                      for leaf in range(n_leaves)]
+            for i, p in enumerate(pages):
+                for leaf in range(n_leaves):
+                    blocks[leaf][i].copy_(p[leaf], non_blocking=True)
+            ev[1].record(self._h2d_stream)
+        # [N, L, Hkv, ...] -> the [L, Hkv, N, ...] layout inject_pages takes
+        self.inject_pages(page_ids, *(b.movedim(0, 2) for b in blocks),
+                          ready=ev[1])
+        ev[2].record(self._stream)
+        ev[1].synchronize()
+        for h in unpin:
+            self.host_pool.unpin(h)
+        nbytes = sum(b.numel() * b.element_size() for b in blocks)
+        self._onboards_in_flight.append((ev, nbytes))
+
+    def _retire_onboards(self, wait: bool = False) -> None:
+        """Account the copy and inject times of onboards whose injects have
+        completed (all of them with wait=True)."""
+        keep = []
+        t = self.host_pool.times if self.host_pool is not None else None
+        for ev, nbytes in self._onboards_in_flight:
+            if wait:
+                ev[2].synchronize()
+            elif not ev[2].query():
+                keep.append((ev, nbytes))
+                continue
+            if t is not None:
+                t.h2d_s += ev[0].elapsed_time(ev[1]) / 1e3
+                t.h2d_bytes += nbytes
+                t.inject_s += ev[1].elapsed_time(ev[2]) / 1e3
+                t.onboard_batches += 1
+        self._onboards_in_flight = keep
+
+    # -- the shared KV pool (engine/kv_pool.py) ------------------------------
+
+    def attach_kv_pool(self, pool, source_id: str,
+                       publish: bool = True) -> None:
+        """Join a shared KV pool: the prefix walk gains the pool below the
+        host and disk tiers, and (publish=True) every full page this engine
+        seals is published into it off the step loop."""
+        from dynamo_tpu_torch.engine.kv_pool import PoolPublishStream
+        self.kv_pool = pool
+        self.kv_pool_source = source_id
+        self.scheduler.kv_pool = pool
+        self.scheduler.kv_pool_mode = self.kv_quant
+        if publish:
+            self._pool_stream = PoolPublishStream(
+                pool, source_id, mode=self.kv_quant, device=self.device,
+                lock=self.graphs.capture_lock)
+
+    def _publish_pool_pages(self, events) -> None:
+        """Tee newly sealed full pages into the shared pool, at event-drain
+        time: the extraction is enqueued after the steps that sealed them
+        and before any later write. A page whose seal is gone (recycled
+        since) is skipped: its contents are no longer the hash's. Hashes
+        already in the pool only record this source (no copy)."""
+        alloc = self.scheduler.allocator
+        ship_ids, ship_metas = [], []
+        for kind, pid, sh, parent, th in events:
+            if kind != "stored" or alloc.pages[pid].seq_hash != sh:
+                continue
+            if sh in self.kv_pool:
+                self.kv_pool.note_source(self.kv_pool_source, sh, parent, th)
+            else:
+                ship_ids.append(pid)
+                ship_metas.append((sh, parent, th))
+        max_b = self.scheduler.page_buckets[-1]
+        for start in range(0, len(ship_ids), max_b):
+            self._pool_stream.submit(
+                self._extract_page_major(ship_ids[start:start + max_b]),
+                ship_metas[start:start + max_b])
+
+    def _process_pool_injects(self) -> None:
+        """Write the shared-pool pages _match_prefix claimed into HBM before
+        the device step that reads them. Their bytes were verified at the
+        claim (SharedKvPool.fetch), so this is transport only. A claim whose
+        page no longer carries the claimed seal (the sequence was released
+        and the page recycled) is skipped."""
+        pending = self.scheduler.drain_pool_injects()
+        alloc = self.scheduler.allocator
+        pending = [(pid, arrays) for pid, h, arrays in pending
+                   if alloc.pages[pid].seq_hash == h]
+        max_b = self.scheduler.page_buckets[-1]
+        for start in range(0, len(pending), max_b):
+            chunk = pending[start:start + max_b]
+            self._onboard([pid for pid, _ in chunk],
+                          [arrays for _, arrays in chunk])
+
+    def prefetch_pool_pages(self, tokens) -> int:
+        """Warm this prompt's leading pool-resident pages into HBM now,
+        sealed into the allocator's reusable pool (ref_count 0, keyed by
+        hash), so a later admission's prefix walk hits HBM. Every fetch is
+        verified at the claim; a failure keeps the pages warmed before it.
+        Warmed pages belong to no request, so a prefetch that races a
+        cancel leaks nothing. Runs between device steps; returns the pages
+        warmed."""
+        from dynamo_tpu_torch.engine.kv_cache import page_hash
+        from dynamo_tpu_torch.engine.kv_pool import POOL_STATS
+        sch = self.scheduler
+        if sch.kv_pool is None:
+            return 0
+        ps = self.cfg.page_size
+        parent, warmed, pids = 0, 0, []
+        for i in range(len(tokens) // ps):
+            toks = list(tokens[i * ps:(i + 1) * ps])
+            h = page_hash(parent, toks)
+            if sch.allocator.lookup(h) is not None \
+                    or (sch.host_pool is not None and h in sch.host_pool):
+                parent = h
+                continue   # already warm in a local tier
+            if h not in sch.kv_pool or not sch.allocator.can_allocate(1):
+                break
+            got = sch._pool_claim(h)
+            if got is None:
+                break
+            pid = sch.allocator.allocate()
+            sch.allocator.seal(pid, parent, toks)
+            sch.pending_pool_injects.append((pid, h, got))
+            pids.append(pid)
+            warmed += 1
+            parent = h
+        if warmed:
+            self._process_pool_injects()
+            for pid in pids:
+                # into the reuse pool: content and hash stay until evicted
+                sch.allocator.free(pid)
+            POOL_STATS.prefetch_pages += warmed
+        return warmed
 
     # -- internals -----------------------------------------------------------
 
@@ -688,7 +964,9 @@ class NativeEngine:
         """May `plan` enter the overlapped pipeline? Only hot-path windows
         (no logprobs, no penalties), nothing waiting for admission, and only
         when a follow-up window could run off this plan's page tables."""
-        if self.cfg.pipeline_depth < 2 or self.scheduler.waiting:
+        sch = self.scheduler
+        if self.cfg.pipeline_depth < 2 or sch.waiting or sch.pending_onboards \
+                or sch.pending_pool_injects or self._pending_offloads:
             return False
         if self._wants_logprobs(plan.seqs) \
                 or self._rep_penalty_arrays(plan.seqs) is not None:
@@ -760,9 +1038,14 @@ class NativeEngine:
            committed position inside pages the staged table owned, and the
            re-run overwrites them."""
         pend, self._pipeline = self._pipeline, None
+        self._process_offloads()
+        self._process_onboards()
+        self._process_pool_injects()
         plan, staged = pend["plan"], pend["staged"]
         follow = None
-        if pend.get("drain") or self.scheduler.waiting:
+        sch = self.scheduler
+        if pend.get("drain") or sch.waiting or sch.pending_onboards \
+                or sch.pending_pool_injects:
             pass    # flagged reconcile or an admission pending: commit the
             #         in-flight window, then re-plan
         elif not self._membership_intact(plan) or self._slots_grown(plan):

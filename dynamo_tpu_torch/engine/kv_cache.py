@@ -1,7 +1,9 @@
 """Host-side paged KV cache bookkeeping: page allocator + per-sequence state.
 
 Copied from dynamo_tpu/engine/kv_cache.py, trimmed to the slice: the
-host-tier eviction hook and multimodal salts are left out. Free pages are
+multimodal salts are left out. `on_evict(pid, seq_hash)` (the host tier's
+hook, engine/offload.py) fires when a reusable page is recycled, before
+its hash is dropped. Free pages are
 reclaimable by content hash (prefix cache); in-flight pages are ref-counted
 and shared between sequences with identical prefixes. Only integer
 bookkeeping happens here; the device tensors live in the engine.
@@ -66,6 +68,9 @@ class PageAllocator:
     def __init__(self, num_pages: int, page_size: int):
         self.num_pages = num_pages
         self.page_size = page_size
+        # called as on_evict(page_id, seq_hash) when a reusable page is
+        # recycled, while its contents are still intact (the host tier)
+        self.on_evict = None
         self.pages: List[PageInfo] = [PageInfo() for _ in range(num_pages)]
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
         # seq_hash -> page id, for pages whose ref_count dropped to 0
@@ -107,6 +112,8 @@ class PageAllocator:
             info = self.pages[pid]
             if info.ref_count == 0 and info.seq_hash is not None \
                     and self._reusable.get(info.seq_hash) == pid:
+                if self.on_evict is not None:
+                    self.on_evict(pid, info.seq_hash)
                 del self._reusable[info.seq_hash]
                 self.events.append(("removed", pid, info.seq_hash, 0, 0))
                 info.seq_hash = None

@@ -5,10 +5,11 @@ engine on one device, aggregated or one side of a disaggregated pair. The
 disaggregation hooks are the JAX package's (:72 `prefill_only`, :94
 `RemoteAllocation`, :373-376 `remote` / `parked`, :534-683 the decode and
 prefill sides, :844-845 abort, :987 the slot a prefill-only row does not
-take, :1065-1069 the memory dead end, :1220-1222 parking). The KV tiers
-(host/disk offload, the shared pool, and their matches inside the prefix
-walk), tiered-KV streaming, sequence parallelism and multimodal spans are
-left out. Planning is otherwise the JAX package's, decision for decision,
+take, :1065-1069 the memory dead end, :1220-1222 parking), and so are the KV
+tier hooks (:335-350 `host_pool` / `settle_hashes`, :690-805 the tiered
+prefix walk, `_pool_claim`, the host and pool branches of `_match_prefix`,
+the onboard and pool-inject queues). Tiered-KV streaming, sequence
+parallelism and multimodal spans are left out. Planning is otherwise the JAX package's, decision for decision,
 so both engines plan the same steps for the same requests:
 
 - every device step has a bucketed shape: prefill chunk lengths from
@@ -179,6 +180,12 @@ class EngineMetrics:
     # tree (int8 values + f32 scales where quantized) and the bit width
     weight_bytes: int = 0
     weight_quant_bits: int = 0
+    # KV tier occupancy (engine/offload.py): host-DRAM and disk pages held
+    # and their capacities (0 with the tier off)
+    kv_host_pages_used: int = 0
+    kv_host_pages_total: int = 0
+    kv_disk_pages_used: int = 0
+    kv_disk_pages_total: int = 0
 
 
 def window_ladder(decode_steps: int) -> List[int]:
@@ -221,9 +228,28 @@ def next_bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 class Scheduler:
-    def __init__(self, cfg: EngineConfig):
+    def __init__(self, cfg: EngineConfig, host_pool=None):
         self.cfg = cfg
         self.allocator = PageAllocator(cfg.num_pages, cfg.page_size)
+        # host KV tier (engine/offload.py HostKvPool); None = tier off
+        self.host_pool = host_pool
+        # set by the engine to CopyStream.settle: a prefix walk waits only
+        # for the in-flight offload copies of the hashes it looks up
+        self.settle_hashes = None
+        # (pid, seq_hash) pairs whose HBM page the engine fills from the
+        # host tier before the next device step
+        self.pending_onboards: list = []
+        # the shared KV pool (engine/kv_pool.py SharedKvPool; wired by
+        # engine.attach_kv_pool): the tier below host and disk in the walk
+        self.kv_pool = None
+        self.kv_pool_mode = ""   # this engine's kv_quant mode for fetches
+        # (pid, seq_hash, verified host arrays) claimed from the shared pool
+        # by _match_prefix; the engine injects them before the next step
+        # and skips a page that no longer carries the claimed seal (its
+        # sequence was released and the page recycled in between)
+        self.pending_pool_injects: list = []
+        self.pool_fetched_pages = 0
+        self._pool_quant_logged = False
         self.waiting: deque[SequenceState] = deque()
         self.running: List[Optional[SequenceState]] = [None] * cfg.max_slots
         self.params: Dict[str, SamplingParams] = {}
@@ -415,31 +441,111 @@ class Scheduler:
             self.finish(seq)
 
     def _prefix_walk(self, tokens: List[int]):
-        """Cached full-page prefix matches, stopping at the first miss;
-        always leaves >= 1 token to recompute. Returns
-        ([(page_id, chained_hash)], n_full)."""
+        """Cached full-page prefix matches, stopping at the first miss in
+        every tier; always leaves >= 1 token to recompute. Returns
+        ([(kind, page_id or None, chained_hash, page_tokens)], n_full), kind
+        "hbm", "host" (host or disk tier) or "pool" (the shared pool)."""
         ps = self.cfg.page_size
         n_full = (len(tokens) - 1) // ps
-        parent, out = 0, []
+        parent, hashes = 0, []
         for i in range(n_full):
             parent = page_hash(parent, tokens[i * ps:(i + 1) * ps])
-            pid = self.allocator.lookup(parent)
-            if pid is None:
+            hashes.append(parent)
+        # settle ONLY the copies this walk could hit: in-flight copies of
+        # our hashes land before the tier lookups, unrelated ones are not
+        # waited for
+        if self.settle_hashes is not None and hashes:
+            self.settle_hashes(hashes)
+        out = []
+        for i, h in enumerate(hashes):
+            toks = tokens[i * ps:(i + 1) * ps]
+            pid = self.allocator.lookup(h)
+            if pid is not None:
+                out.append(("hbm", pid, h, toks))
+            elif self.host_pool is not None and h in self.host_pool:
+                out.append(("host", None, h, toks))
+            elif self.kv_pool is not None and h in self.kv_pool:
+                out.append(("pool", None, h, toks))
+            else:
                 break
-            out.append((pid, parent))
         return out, n_full
 
+    def _pool_claim(self, seq_hash: int):
+        """Verified host copies of one shared-pool page, or None: a checksum
+        mismatch quarantines the entry pool-side, and an entry of another
+        kv_quant mode is rejected by name; both walk as a miss."""
+        from dynamo_tpu_torch.engine.kv_pool import PoolQuantMismatch
+        try:
+            return self.kv_pool.fetch(seq_hash, self.kv_pool_mode)
+        except PoolQuantMismatch as e:
+            if not self._pool_quant_logged:
+                self._pool_quant_logged = True
+                import logging
+                logging.getLogger("dynamo_tpu_torch.kv_pool").warning(
+                    "shared-pool fetch rejected: %s (further mismatches "
+                    "on this engine logged at debug)", e)
+            return None
+
     def _match_prefix(self, seq: SequenceState) -> None:
-        """Share resident full pages (prefix hit)."""
+        """Share resident full pages; claim host-tier and shared-pool pages
+        into fresh HBM pages that the engine fills before the next step.
+
+        Each hash is re-resolved when it is applied: an allocation below can
+        evict a reusable page the walk saw in HBM. The eviction only queues
+        the page for offload, so at re-resolution the hash is in no tier and
+        the match ends there (the rest is recomputed); trusting the walk's
+        page id would alias one physical page under two prefix positions."""
         ps = self.cfg.page_size
         matches, n_full = self._prefix_walk(seq.all_tokens)
         self._prefix_lookups += min(len(matches) + 1, n_full)
-        for pid, h in matches:
-            self.allocator.share(pid)
+        if self.host_pool is not None:
+            # the pins below verify one page at a time; hash them ahead, in
+            # threads (the port's addition: same outcome, same counters)
+            self.host_pool.preverify([h for kind, _, h, _ in matches
+                                      if kind == "host"])
+        parent = 0
+        for _kind, _pid, h, toks in matches:
+            pid = self.allocator.lookup(h)
+            if pid is not None:
+                self.allocator.share(pid)
+            elif self.host_pool is not None:
+                # pin() checks residency, verifies the bytes and pins in one
+                # step, so a racing CopyStream eviction cannot take the slot
+                if not self.allocator.can_allocate(1):
+                    break
+                if not self.host_pool.pin(h):
+                    break
+                pid = self.allocator.allocate()
+                self.allocator.seal(pid, parent, toks)
+                self.pending_onboards.append((pid, h))
+                self.host_pool.stats.host_hits += 1
+            elif self.kv_pool is not None and self.allocator.can_allocate(1):
+                # each page is one committed unit: a claim that fails keeps
+                # the pages claimed before it and recomputes the rest
+                got = self._pool_claim(h)
+                if got is None:
+                    break
+                pid = self.allocator.allocate()
+                self.allocator.seal(pid, parent, toks)
+                self.pending_pool_injects.append((pid, h, got))
+                self.pool_fetched_pages += 1
+            else:
+                break
             seq.pages.append(pid)
             seq.page_hashes.append(h)
             seq.num_cached += ps
             self._prefix_hits += 1
+            parent = h
+        if self.host_pool is not None:
+            self.host_pool.forget_verified()
+
+    def drain_onboards(self) -> list:
+        out, self.pending_onboards = self.pending_onboards, []
+        return out
+
+    def drain_pool_injects(self) -> list:
+        out, self.pending_pool_injects = self.pending_pool_injects, []
+        return out
 
     def finish(self, seq: SequenceState) -> None:
         if seq.preempted_by:

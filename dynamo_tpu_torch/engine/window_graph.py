@@ -16,7 +16,8 @@ takes the host's launch work out of the step.
   and loads the kernel library and takes its one-time shared-memory opt-in
   and cuBLAS's lazy set-up out of the capture. Then the program is captured
   on the same stream, into one memory pool that every window graph shares
-  (they replay one after another on one stream). The capture runs in the
+  (they replay one after another on one stream; after a capture that failed
+  to end, later graphs share a fresh one). The capture runs in the
   thread-local error mode, so CUDA work of another thread (a second engine
   in the process) does not invalidate it, and holds `capture_lock`: code
   that stages device memory for this engine from another thread (the KV
@@ -37,7 +38,9 @@ takes the host's launch work out of the step.
 On CPU tensors `run` calls the program directly: the tests run the same
 function eagerly, as a kernel's wrapper takes its plain version for CPU
 tensors. On the card every window is one replay; a capture or replay that
-fails raises, and nothing falls back to eager.
+fails raises, and nothing falls back to eager. A failed capture is taken
+apart before it raises (the pool no longer takes the stream's allocations,
+the half-built graph is dropped), so the next `run` captures afresh.
 """
 from __future__ import annotations
 
@@ -76,6 +79,7 @@ class WindowGraphs:
         # key -> (graph, outs, {kernel: calls captured})
         self._graphs: Dict[tuple, tuple] = {}
         self._pool = None
+        self._pools = set()     # every pool the held graphs live in
         # held for each capture (see the module docstring)
         self.capture_lock = threading.Lock()
         self.captured = 0           # graphs captured since the last reset
@@ -132,14 +136,29 @@ class WindowGraphs:
             self.warmup_launches[name] += n - n0[name]
         t1 = time.perf_counter()
         self.warmup_seconds += t1 - t0
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        pool = (self._pool if self._pool is not None
+                else torch.cuda.graph_pool_handle())
         graph = torch.cuda.CUDAGraph()
         c0 = _counts(2)
-        with self.capture_lock, torch.cuda.graph(
-                graph, pool=self._pool, stream=self.stream,
-                capture_error_mode="thread_local"):
-            outs = program(bufs)
+        # torch.cuda.graph's entry, spelled out so that a capture that fails
+        # can be taken apart (_discard)
+        with self.capture_lock:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            ended = False
+            try:
+                try:
+                    outs = program(bufs)
+                finally:
+                    # raises when the capture was invalidated
+                    graph.capture_end()
+                    ended = True
+            except BaseException:
+                self._discard(graph, pool, ended)
+                raise
+        self._pool = pool
+        self._pools.add(pool)
         rec = (graph, outs, {name: n - c0[name]
                              for name, n in _counts(2).items()})
         self._graphs[key] = rec
@@ -147,16 +166,40 @@ class WindowGraphs:
         self.capture_seconds += time.perf_counter() - t1
         return rec
 
+    def _discard(self, graph, pool, ended: bool) -> None:
+        """Undo a capture that raised, so the next one starts as if this had
+        never begun. The allocator stops routing the stream's allocations
+        into the pool (a capture that failed in `capture_end` never told
+        it to), and the graph's use of the pool is released: by the graph
+        itself where its capture ended, else here. The allocator refuses to
+        record into a pool again after a capture into it failed to end, so
+        then the next graph starts a fresh pool (`_pool` None); the graphs
+        captured before keep theirs."""
+        dev = self.device.index
+        if dev is None:
+            dev = torch.cuda.current_device()
+        end = (getattr(torch._C, "_cuda_endAllocateToPool", None)
+               or torch._C._cuda_endAllocateCurrentStreamToPool)
+        try:
+            end(dev, pool)
+        except RuntimeError:
+            pass    # capture_end had ended the routing already
+        if ended:
+            graph.reset()
+        else:
+            torch._C._cuda_releasePool(dev, pool)
+            self._pool = None
+
     def captured_calls(self) -> Dict[tuple, Dict[str, int]]:
         """{graph key: {kernel: calls its graph holds}} of the graphs held."""
         return {key: dict(rec[2]) for key, rec in self._graphs.items()}
 
     def pool_bytes(self) -> int:
-        """Device bytes held by the graphs' shared memory pool."""
-        if self._pool is None:
+        """Device bytes held by the graphs' memory pools."""
+        if not self._pools:
             return 0
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg["segment_pool_id"]) == tuple(self._pool))
+                   if tuple(seg["segment_pool_id"]) in self._pools)
 
     def reset(self) -> None:
         """Drop every graph and its pool: they hold the addresses of the
@@ -164,6 +207,7 @@ class WindowGraphs:
         stream, so no replay is still reading them."""
         self._graphs.clear()
         self._pool = None
+        self._pools = set()
         self.captured = 0
         self.resets += 1
 

@@ -27,17 +27,20 @@ may name its id with an `x-request-id` header; the router's decisions are
 keyed by it.
 
 GET /metrics also shows the KV data-plane integrity gauges
-`llm_kv_integrity_*` and the KV-transfer gauges `llm_kv_transfer_*`
+`llm_kv_integrity_*`, the KV-transfer gauges `llm_kv_transfer_*`
 (runtime/integrity.py STATS / XFER_STATS, :124-128 and :134-150 of the
-JAX service), refreshed at render. They count this process's transfers:
+JAX service) and the shared KV pool's `llm_kv_pool_*` (engine/kv_pool.py
+POOL_STATS, :178-185 and :329-331), refreshed at render. A `prefetcher`
+(engine/kv_pool.AdmissionPrefetcher, JAX :74-81, :412-424, :447-448)
+warms each request's matched pool pages into its worker's HBM. They count this process's transfers:
 a frontend in front of worker processes shows 0, and the workers report
 theirs in $STATS (disagg/worker.py).
 
 Left out, each with the later slice that brings its module: admission
-control and 429 shedding, the reliability counters, the KV-pool
-prefetcher, QoS classes from the x-qos-class header (every request runs in
+control and 429 shedding, the reliability counters, QoS classes from the x-qos-class header (every request runs in
 the policy's default class), tracing spans, and the fault, drain,
-per-stream transfer, pool, ledger, autoscaler and fail-slow gauges.
+per-stream transfer, cross-host pool (`llm_kv_pool_remote_*`,
+`llm_pool_ring_*`), ledger, autoscaler and fail-slow gauges.
 Reference equivalent: the axum HttpService (reference:
 lib/llm/src/http/service/service_v2.rs:23-130, openai.rs:132-540).
 """
@@ -52,6 +55,7 @@ from typing import AsyncIterator, Dict, Optional, Protocol
 from dynamo_tpu_torch.frontend.http import (
     HttpError, HttpServer, Request, Response, StreamingResponse,
 )
+from dynamo_tpu_torch.engine.kv_pool import POOL_STATS, KvPoolStats
 from dynamo_tpu_torch.kv_router.stats import (
     ROUTER_STATS, RouterScoringStats,
 )
@@ -115,10 +119,17 @@ class ModelManager:
 
 class HttpService:
     def __init__(self, host: str = "0.0.0.0", port: int = 8080,
-                 registry: Optional[MetricsRegistry] = None):
+                 registry: Optional[MetricsRegistry] = None,
+                 prefetcher=None):
+        """prefetcher: an AdmissionPrefetcher (engine/kv_pool.py); each
+        request's matched shared-pool pages are warmed into its target
+        worker's HBM while it waits for admission, best-effort."""
         self.server = HttpServer(host, port)
         self.models = ModelManager()
         self.registry = registry or MetricsRegistry()
+        self.prefetcher = prefetcher
+        # prefetch tasks run on past their request: held until done
+        self._prefetches: set = set()
         m = self.registry
         self._requests = m.counter(
             "llm_http_service_requests_total",
@@ -146,6 +157,12 @@ class HttpService:
                             f"kv transfer: cumulative {f.name} "
                             "(wire representation)")
             for f in dataclasses.fields(KvTransferStats)}
+        # the shared KV pool (engine/kv_pool.py POOL_STATS): residency,
+        # dedup, fetch and admission-prefetch outcomes, folded at render
+        self._kv_pool = {
+            name: m.gauge(f"llm_kv_pool_{name}",
+                          f"shared kv pool: {name.replace('_', ' ')}")
+            for name in KvPoolStats.FIELDS}
         s = self.server
         s.route("POST", "/v1/chat/completions", self._chat)
         s.route("POST", "/v1/completions", self._completions)
@@ -182,7 +199,8 @@ class HttpService:
         if self.watcher is not None:
             self._refresh_router_gauges()
         for gauges, stats in ((self._integrity, INTEGRITY),
-                              (self._kv_xfer, XFER_STATS)):
+                              (self._kv_xfer, XFER_STATS),
+                              (self._kv_pool, POOL_STATS)):
             for name, value in stats.snapshot().items():
                 gauges[name].set(value=float(value))
         # the serving-path latency histograms (TTFT / ITL / schedule) live
@@ -280,6 +298,16 @@ class HttpService:
         t0 = time.perf_counter()
         # the class rides Context.baggage; without the admission slice
         # every request runs in the policy default
+        if self.prefetcher is not None:
+            # the admission window is free time to move matched pool pages
+            # into the target worker's HBM; with no admission control here
+            # the window closes at once, so a warm that lands counts late
+            done = asyncio.Event()
+            task = asyncio.create_task(self.prefetcher.prefetch(oai_req,
+                                                                done))
+            self._prefetches.add(task)
+            task.add_done_callback(self._prefetches.discard)
+            done.set()
         ctx = Context(http_req.headers.get("x-request-id") or None,
                       baggage={QOS_KEY: DEFAULT_POLICY.default})
         self._inflight.inc(model)

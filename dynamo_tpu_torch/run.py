@@ -29,7 +29,9 @@ The engine runs on CUDA unless `--device cpu` is given; `--quant int8`
 stores the seven projections and the head as int8 with per-output-channel
 scales (ops/quant.py; on the card every decode projection runs the W8A16
 kernel); `--kv-quant int8` stores the KV cache as int8 pages with per-row
-scales. A frontend for endpoint workers is `python -m
+scales; `--host-pages N` gives the engine a host-DRAM KV tier of N pages
+(pinned on the card: at llama3-8b 8,388,608 bytes a bf16 page, 4,325,376
+an int8 one). A frontend for endpoint workers is `python -m
 dynamo_tpu_torch.frontend.serve`.
 """
 from __future__ import annotations
@@ -71,7 +73,7 @@ async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
         page_size=card.kv_page_size, num_pages=args.num_pages,
         max_slots=args.max_slots, max_prefill_chunk=args.max_prefill_chunk,
         max_model_len=min(card.context_length, model_cfg.max_model_len),
-        kv_quant=args.kv_quant)
+        host_pages=args.host_pages, kv_quant=args.kv_quant)
     engine = NativeEngine(model_cfg, eng_cfg,
                           eos_token_ids=set(card.eos_token_ids),
                           device=args.device)
@@ -197,6 +199,10 @@ async def amain(argv=None) -> None:
                         "f32 scales, about half the bytes per page "
                         "(ops/kv_quant.py; parity-gated by "
                         "dynamo_tpu_torch/bench.py)")
+    p.add_argument("--host-pages", type=int, default=0,
+                   help="host-DRAM KV tier in pages (0 = off): evicted KV "
+                        "pages spill to pinned host memory and come back on "
+                        "prefix hits (engine/offload.py)")
     p.add_argument("--echo-delay", type=float, default=0.0)
     p.add_argument("--control-host", default="127.0.0.1")
     p.add_argument("--control-port", type=int, default=5550)

@@ -12,7 +12,8 @@ abandoned for a local prefill.
 xxh3-64 (the port depends on torch and numpy only), so the frames carry it
 under their own key (`SUMS_KEY`). `hashlib` releases the GIL while it
 hashes a buffer of more than 2 KiB, so the transfer hashes a chunk's
-pages in a thread pool (disagg/transfer.py). The per-stream counters of
+pages in a thread pool (disagg/transfer.py). `tensor_checksum` feeds it
+the bytes of CPU tensors: the KV tiers' slab pages. The per-stream counters of
 the sharded transfer wait for the tp slice.
 
 Counters live on the process-global ``STATS`` and ``XFER_STATS`` and render
@@ -52,6 +53,15 @@ def page_checksum(*arrays) -> int:
         for buf in _blocks(np.asarray(a)):
             h.update(buf)
     return int.from_bytes(h.digest(), "little")
+
+
+def tensor_checksum(*tensors) -> int:
+    """`page_checksum` over the raw bytes of CPU tensors (any dtype,
+    bfloat16 included): the KV tiers' pages (engine/offload.py,
+    engine/kv_pool.py)."""
+    import torch
+    return page_checksum(*(t.contiguous().reshape(-1).view(torch.uint8)
+                           .numpy() for t in tensors))
 
 
 class IntegrityError(ValueError):
