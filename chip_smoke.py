@@ -54,7 +54,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    (the kernels) against the same step on the CPU (the plain versions),
    within 1e-3, and the same greedy tokens from both engines; then the
    same with kv_quant="int8", and with quant="int8" (int8 weights: the
-   W8A16 kernel on the card).
+   W8A16 kernel on the card); then `tiny-moe` (4 experts, top 2) in f32
+   and with quant="int8" (the grouped kernel's f32 path on the card).
 4. Main path: the llama3-8b card at full width with random bf16 weights,
    NativeEngine on cuda (default EngineConfig: pipeline_depth 2, every
    decode window one replay of a captured CUDA graph) ->
@@ -128,7 +129,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    memory and weight_bytes against phase 4's bf16 engine.
 10. The entry point: `python -m dynamo_tpu_torch.run in=http:0 out=native
    tiny --quant int8` as a subprocess on the card; its READY line, one
-   streamed chat ending in [DONE], then the subprocess is stopped.
+   streamed chat ending in [DONE], then the subprocess is stopped; then the
+   same for `tiny-moe --quant int8`.
 11. The distributed path at full width, as processes through the entry
    points: `python -m dynamo_tpu_torch.runtime.transports.server --port 0`
    (READY control-plane=:<port>); two workers started together,
@@ -269,9 +271,33 @@ Phases (any failed check exits non-zero; nothing is caught):
    bytes, peak memory during each engine's run (earlier engines still
    alive), the phase's seconds.
 
+14. Mixture-of-experts serving, in a child process (`chip_smoke.py
+   --phase-moe`: earlier phases keep device memory here, and Mixtral's
+   ~44 GiB of int8 weights need the card to itself; the child's failure
+   fails the run). First the grouped W8A16 kernel (csrc/w8a16_moe_gemm.cu)
+   against its plain version at Mixtral's expert shapes (gate and up
+   4096 -> 14336, down 14336 -> 4096), one layer's 8 experts, bf16 x of 8
+   rows an expert, with all 8 experts active, 2 (one live slot) and none:
+   the W8A16 phase's tolerance, exact zeros for inactive experts (their
+   output memory NaN-filled just before); CUDA-event times over replayed
+   graphs per routing (kernel, bound, share, plain, torch.matmul on bf16
+   copies of the active experts) and the prefill route (dequantize +
+   torch.matmul at 256 rows an expert). Then mixtral-8x7b, quant="int8",
+   bf16 KV pages, random weights from seed 0, full width and all 32
+   layers, the default EngineConfig, serves phase 4's 8 chats through
+   LocalPipeline twice (capturing, then warm) with phase 4's gates, plus:
+   moe_routed_tokens in the band derived from the token ids and prefix
+   hits (MoeCounts.check), 0 pairs dropped by decode windows, every
+   window graph holding 3 x 32 x nw grouped, (4 x 32 + 1) x nw W8A16 and
+   32 x nw ragged launches, the replays adding 3 x 32 grouped launches a
+   decode step; graph and eager windows give identical tokens (phase 4b).
+   Reported: TTFT p50 / p90 per run, warm decode tok/s, the untraced ms
+   per decode step, the drop rate, weight_bytes and peak memory.
+
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
-worker process of 11 and 12, and each engine's turns in 13) runs with every
-kernel's launch count set to 0 just before it and read just after. The third line
+worker process of 11 and 12, each engine's turns in 13, and each run of 14)
+runs with every kernel's launch count set to 0 just before it and read just
+after. The third line
 from the end of the output is one JSON object with the kernel records, the
 second from the end the nvidia-smi reading, and the last line
 {"ok": true, "device": {...}}.
@@ -901,13 +927,15 @@ def tree_to(tree, dev):
     return tree.to(dev)
 
 
-def phase_small_reference(kv_quant: str = "", quant: str = "") -> None:
+def phase_small_reference(kv_quant: str = "", quant: str = "",
+                          model: str = "tiny") -> None:
     import torch
-    from dynamo_tpu_torch.engine.config import EngineConfig, ModelConfig
+    from dynamo_tpu_torch.engine.config import EngineConfig, get_model_config
     from dynamo_tpu_torch.engine.engine import NativeEngine
     from dynamo_tpu_torch.engine.scheduler import SamplingParams
     from dynamo_tpu_torch.models import llama
-    cfg = ModelConfig(dtype="float32", max_model_len=512, quant=quant)
+    cfg = dataclasses.replace(get_model_config(model), dtype="float32",
+                              max_model_len=512, quant=quant)
     params = llama.init_params(cfg, "cpu", seed=0)
     ecfg = EngineConfig(page_size=8, num_pages=64, max_slots=4,
                         max_prefill_chunk=32, prefill_buckets=(8, 16, 32),
@@ -918,7 +946,7 @@ def phase_small_reference(kv_quant: str = "", quant: str = "") -> None:
     prompt = list(range(5, 45))
     sp = SamplingParams(max_tokens=12, temperature=0.0)
     outs = {dev: e.generate(prompt, sp, "r") for dev, e in engines.items()}
-    label = (f"tiny f32{' kv_quant=' + kv_quant if kv_quant else ''}"
+    label = (f"{model} f32{' kv_quant=' + kv_quant if kv_quant else ''}"
              f"{' quant=' + quant if quant else ''}")
     check(outs["cpu"] == outs["cuda"],
           f"{label} greedy tokens differ: cpu {outs['cpu']} cuda "
@@ -1002,9 +1030,10 @@ def reset_launch_counts() -> None:
     leg.KERNEL_LAUNCHES = 0
     quant.KERNEL_LAUNCHES = 0
     quant.DEQUANT_LAUNCHES = 0
+    quant.MOE_LAUNCHES = 0
 
 
-RAGGED, W8A16 = "ragged_decode_attention", "w8a16_gemm"
+RAGGED, W8A16, MOE = "ragged_decode_attention", "w8a16_gemm", "w8a16_moe_gemm"
 
 COUNTERS = ("decode_windows", "decode_window_steps", "decode_dispatches",
             "decode_host_syncs", "decode_plan_uploads", "pipeline_windows",
@@ -1012,13 +1041,16 @@ COUNTERS = ("decode_windows", "decode_window_steps", "decode_dispatches",
 
 
 async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
-                    smi: str) -> dict:
+                    smi: str, seen_prompts=None) -> dict:
     """One run of the requests through the pipeline, as its own path: the
     launch counts are set to 0 just before it and read just after. Checks
     every request, the kernel launches (num_layers x decode steps, the
     graph replays' launches plus those of the warm-ups before captures),
     one graph replay per decode window and, at depth 2, the pipeline's
-    overlap and reused plans. Returns the run's record and token ids."""
+    overlap and reused plans; on an MoE engine also the expert dispatch's
+    counts (`moe_counts`; seen_prompts: the prompt token ids the engine
+    served before, extended here). Returns the run's record and token
+    ids."""
     import torch
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.protocols.delta import aggregate_chat_chunks
@@ -1035,12 +1067,22 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
     before = {k: getattr(engine, k) for k in COUNTERS}
     g0 = (gr.captured, gr.warmup_seconds + gr.capture_seconds, gr.replays,
           gr.warmup_launches[RAGGED], gr.warmup_seconds)
+    if cfg.is_moe:
+        moe = MoeCounts(engine)
     reset_launch_counts()
     t_run = time.perf_counter()
-    results = await asyncio.gather(*(one(i, r)
-                                     for i, r in enumerate(requests)))
+    try:
+        results = await asyncio.gather(*(one(i, r)
+                                         for i, r in enumerate(requests)))
+    finally:
+        if cfg.is_moe:
+            moe.detach()
     wall = time.perf_counter() - t_run
     launches = pa.KERNEL_LAUNCHES
+    from dynamo_tpu_torch.ops import quant
+    all_launches = {RAGGED: launches, W8A16: quant.KERNEL_LAUNCHES,
+                    "w8a16_dequant": quant.DEQUANT_LAUNCHES,
+                    MOE: quant.MOE_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     d = {k: getattr(engine, k) - v for k, v in before.items()}
     captured, cap_s, replays, warm, warm_s = (
@@ -1078,6 +1120,11 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
         check(d["pipeline_overlapped"] > 0
               and d["decode_plan_uploads"] < d["decode_windows"],
               f"{name}: pipeline counters {d}")
+    moe_rec = None
+    if cfg.is_moe:
+        moe_rec = moe.check(name, pipe, requests, results,
+                            [] if seen_prompts is None else seen_prompts,
+                            replays=gr.replay_launches)
     st = [timed.stamps[f"{tag}-{i}"] for i in range(len(results))]
     ttft = [x["first"] - x["start"] for x in st]
     per_req = [(x["tokens"] - 1) / (x["last"] - x["first"]) for x in st]
@@ -1105,9 +1152,13 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
     print(f"{name} ({tag} run) host phases: "
           f"{json.dumps(engine.phases.split())}", flush=True)
     return {"ids": [x["ids"] for x in st], "launches": launches,
-            "n_prompt": n_prompt, "captured": captured, "stats": {
+            "n_prompt": n_prompt, "captured": captured, "moe": moe_rec,
+            "all_launches": all_launches,
+            "stats": {
                 "wall_s": wall, "ttft_mean_ms": sum(ttft) / len(ttft) * 1e3,
-                "ttft_max_ms": max(ttft) * 1e3, "decode_tok_s": agg_rate,
+                "ttft_max_ms": max(ttft) * 1e3,
+                **{f"ttft_{k}": v for k, v in quantiles(ttft).items()},
+                "decode_tok_s": agg_rate,
                 "per_request_tok_s": sum(per_req) / len(per_req),
                 "peak_gib": peak / 2**30, "kv_page_bytes": m.kv_page_bytes,
                 "graphs_captured": captured, "capture_s": cap_s,
@@ -1116,12 +1167,14 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
 
 
 async def serve_main_path(smi: str, kv_quant: str = "", params=None,
-                          depth: int = 2, quant: str = ""):
+                          depth: int = 2, quant: str = "",
+                          model: str = "llama3-8b"):
     """Phase 4 (kv_quant "") or 5 (kv_quant "int8"), on the given weights
     or on random ones from seed 0 (int8 weights with quant "int8"): the 8
     requests served twice, the first run capturing the window graphs and
     the second on the warm engine, then one greedy request served twice.
-    Returns (engine, capturing run, warm run)."""
+    Phase 14 serves `model` mixtral-8x7b the same way. Returns (engine,
+    capturing run, warm run)."""
     import torch
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import NativeEngine
@@ -1130,7 +1183,7 @@ async def serve_main_path(smi: str, kv_quant: str = "", params=None,
     from dynamo_tpu_torch.run import build_card
     from dynamo_tpu_torch.runtime.engine import Context
 
-    card = build_card("llama3-8b")
+    card = build_card(model)
     cfg = dataclasses.replace(card.model_config(), quant=quant)
     t0 = time.perf_counter()
     engine = NativeEngine(cfg, EngineConfig(kv_quant=kv_quant,
@@ -1139,6 +1192,8 @@ async def serve_main_path(smi: str, kv_quant: str = "", params=None,
                           params=params, device="cuda")
     torch.cuda.synchronize()
     name = "int8 serving" if kv_quant else "main path"
+    if model != "llama3-8b":
+        name = model
     if quant:
         name += f" with {quant} weights"
     if depth != 2:
@@ -1150,11 +1205,14 @@ async def serve_main_path(smi: str, kv_quant: str = "", params=None,
     timed = TimedEngine(worker)
     pipe = LocalPipeline(card, timed)
     requests = chat_requests(card.name)
-    first = await serve_run(engine, pipe, timed, requests, "req", name, smi)
+    seen = []
+    first = await serve_run(engine, pipe, timed, requests, "req", name, smi,
+                            seen)
     # the ladder (8, 2, 1) x {greedy, fused} at the run's one Pb
     check(first["captured"] <= 6,
           f"{name}: {first['captured']} graphs captured in one run")
-    warm = await serve_run(engine, pipe, timed, requests, "warm", name, smi)
+    warm = await serve_run(engine, pipe, timed, requests, "warm", name, smi,
+                           seen)
 
     # determinism: one greedy request served twice on the idle engine
     req = requests[0]
@@ -1189,7 +1247,8 @@ def cache_diff(a: dict, b: dict) -> float:
     return worst
 
 
-def phase_graph_vs_eager(engine, label: str) -> dict:
+def phase_graph_vs_eager(engine, label: str, model: str = "llama3-8b"
+                         ) -> dict:
     """For each window variant of the main path (greedy: the 8 requests all
     greedy; fused: the main path's mix, every top_p 1): admit the 8
     requests, step the engine until every one decodes, then run the next
@@ -1207,7 +1266,7 @@ def phase_graph_vs_eager(engine, label: str) -> dict:
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.llm.worker import to_engine_request
     from dynamo_tpu_torch.run import build_card
-    card = build_card("llama3-8b")
+    card = build_card(model)
     pre = OpenAIPreprocessor(card)
     out = {}
     for variant in ("greedy", "fused"):
@@ -1924,16 +1983,16 @@ async def phase_http(smi: str, bf16: dict) -> dict:
 
 # -- phase 10: the entry point as a process ---------------------------------------
 
-def phase_entry_point() -> dict:
-    """`python -m dynamo_tpu_torch.run in=http:0 out=native tiny --quant
-    int8` on the card: READY, one streamed chat ending in [DONE], then the
-    process is stopped."""
+def phase_entry_point(model: str = "tiny") -> dict:
+    """`python -m dynamo_tpu_torch.run in=http:0 out=native <model> --quant
+    int8` on the card (tiny, then tiny-moe): READY, one streamed chat
+    ending in [DONE], then the process is stopped."""
     import queue
     import signal
     import threading
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "dynamo_tpu_torch.run", "in=http:0",
-           "out=native", "tiny", "--quant", "int8"]
+           "out=native", model, "--quant", "int8"]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -1952,11 +2011,11 @@ def phase_entry_point() -> dict:
                 line = lines.get(timeout=min(left, 5.0))
             except queue.Empty:
                 continue
-        m = re.match(r"READY http=:(\d+) model=tiny", line)
+        m = re.match(rf"READY http=:(\d+) model={model}\b", line)
         check(m is not None, f"entry point: {line!r}")
         ready_s = time.perf_counter() - t0
         frames, done, first, _ = asyncio.run(asyncio.wait_for(_sse(
-            int(m.group(1)), {"model": "tiny", "stream": True,
+            int(m.group(1)), {"model": model, "stream": True,
                               "max_tokens": 8, "messages": [
                                   {"role": "user", "content": "hello"}]}),
             120))
@@ -3429,6 +3488,288 @@ def phase_tiers(smi: str, model: str = "llama3-8b", device: str = "cuda",
     return rec
 
 
+# -- phase 14: mixture-of-experts serving (mixtral-8x7b, int8 experts) ----------
+
+MOE_RESULT = "PHASE14 "    # the child's result line: this prefix, then JSON
+
+
+class MoeCounts:
+    """An MoE engine's expert-dispatch counts over one serving run: the
+    routed and dropped pairs its committed programs added, and the drops
+    that decode windows added (the engine's window fetch is wrapped for the
+    run; `detach` unwraps it)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.routed0 = engine.moe_routed_tokens
+        self.dropped0 = engine.moe_dropped_tokens
+        self.steps0 = engine.decode_window_steps
+        self.replays0 = dict(engine.graphs.replay_launches)
+        self.window_dropped = 0.0
+        fetch = engine._fetch_and_commit
+
+        def counted(plan, handle):
+            d0 = engine.moe_dropped_tokens
+            try:
+                return fetch(plan, handle)
+            finally:
+                self.window_dropped += engine.moe_dropped_tokens - d0
+        engine._fetch_and_commit = counted
+
+    def detach(self) -> None:
+        del self.engine._fetch_and_commit
+
+    def check(self, name: str, pipe, requests, results, seen: list,
+              replays: dict) -> dict:
+        """The run's gates. Routed pairs: k x num_layers per real token
+        each step routes, the prompt tokens actually prefilled (the prompt
+        less the pages an earlier prompt stored, `expected_prefix_hits`
+        from the token ids) plus the decode rows written: n - 1 for a
+        stream of n tokens (a stop token counted in n), or n when the last
+        token of a stream that ran to max_tokens was fed by a window step
+        (its row is written at max_pos, the JAX rule; whether a window or
+        the host's commit came first is not visible outside the engine),
+        so the count must lie in that band. Decode windows drop nothing (a
+        decode row is one token a batch row: capacity 1, and its top-k
+        experts are distinct). Every window graph holds 3 x num_layers x
+        nw grouped launches, (4 x num_layers + 1) x nw W8A16 ones with int8
+        weights and num_layers x nw ragged ones; the replays add 3 x
+        num_layers grouped launches a decode step."""
+        eng = self.engine
+        cfg, ps = eng.model_cfg, eng.cfg.page_size
+        prompts = [pipe.preprocessor.preprocess_chat(r, f"moe-{i}")[0]
+                   .token_ids for i, r in enumerate(requests)]
+        hits = (expected_prefix_hits(seen + prompts, ps)[0]
+                - expected_prefix_hits(seen, ps)[0])
+        seen.extend(prompts)
+        prefilled = sum(len(p) for p in prompts) - ps * hits
+        fins = [r.choices[0].finish_reason for r in results]
+        rows = sum(r.usage.completion_tokens + (f == "stop") - 1
+                   for r, f in zip(results, fins))
+        per = cfg.num_experts_per_tok * cfg.num_layers
+        lo = per * (prefilled + rows)
+        hi = lo + per * fins.count("length")
+        routed = eng.moe_routed_tokens - self.routed0
+        dropped = eng.moe_dropped_tokens - self.dropped0
+        check(lo <= routed <= hi and routed % per == 0,
+              f"{name}: moe_routed_tokens added {routed}, expected k x "
+              f"layers = {per} x (prefilled {prefilled} + decode rows "
+              f"{rows} .. + {fins.count('length')}) = {lo} .. {hi}")
+        check(self.window_dropped == 0,
+              f"{name}: decode windows dropped {self.window_dropped} pairs")
+        nl, steps = cfg.num_layers, eng.decode_window_steps - self.steps0
+        for key, calls in eng.graphs.captured_calls().items():
+            nw = key[4]
+            w8 = (4 * nl + 1) * nw if eng.quant else 0
+            check(calls[MOE] == 3 * nl * nw and calls[RAGGED] == nl * nw
+                  and calls[W8A16] == w8,
+                  f"{name}: graph {key} holds {calls}, expected "
+                  f"{3 * nl * nw} grouped, {w8} W8A16 and {nl * nw} ragged "
+                  "launches")
+        added = replays[MOE] - self.replays0[MOE]
+        check(added == 3 * nl * steps,
+              f"{name}: the replays added {added} grouped launches over "
+              f"{steps} decode steps, expected {3 * nl * steps}")
+        rec = {"routed": routed, "dropped": dropped,
+               "window_dropped": self.window_dropped,
+               "expected_routed": [lo, hi], "prefilled_tokens": prefilled,
+               "prefix_hit_pages": hits, "decode_rows": rows,
+               "drop_rate": dropped / routed if routed else 0.0}
+        print(f"{name}: MoE dispatch routed {routed:.0f} (token, expert) "
+              f"pairs in {lo}..{hi} = {per} x (prefilled {prefilled} "
+              f"tokens + {rows}..{rows + fins.count('length')} decode "
+              f"rows), dropped {dropped:.0f} ({rec['drop_rate']:.3%}), "
+              f"0 by decode windows; every window graph holds 3 x {nl} x "
+              f"nw grouped launches", flush=True)
+        return rec
+
+
+def moe_kernel_phase() -> tuple:
+    """14.1: the grouped W8A16 kernel against its plain version at
+    Mixtral's three expert shapes (gate and up 4096 -> 14336, down 14336 ->
+    4096), one layer's slice of 8 experts, bf16 x of M = 8 rows an expert,
+    under three routings: all 8 experts active, 2 (one live slot) and none.
+    Active experts within the W8A16 phase's tolerance, inactive ones exact
+    zeros (y's memory is filled with NaN just before, so an unwritten tile
+    shows). Then CUDA-event times over replayed graphs per routing: the
+    kernel, its bound (the active experts' weights and scales, their x, all
+    of y, over 3.35 TB/s), the plain version and torch.matmul on bf16
+    copies of the active experts; and the prefill route (dequantize +
+    torch.matmul, M = 256 rows an expert: a 512-token chunk of one batch
+    row). Returns (max abs error, the kernel's record)."""
+    import torch
+    from dynamo_tpu_torch.engine.config import get_model_config
+    from dynamo_tpu_torch.ops import quant
+    cfg = get_model_config("mixtral-8x7b")
+    e, d, f = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    shapes = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    routings = {"all 8 active": list(range(e)), "2 active": [2, 5],
+                "none active": []}
+    m, bf16 = 8, torch.bfloat16
+    worst, per_shape = 0.0, {}
+    for si, (name, (k, n)) in enumerate(shapes.items()):
+        g = torch.Generator(device="cuda").manual_seed(300 + si)
+        q = torch.empty((e, k, n), dtype=torch.int8, device="cuda")
+        s = torch.empty((e, 1, n), dtype=torch.float32, device="cuda")
+        for j in range(e):
+            part = quant.quantize_int8(torch.randn(
+                (k, n), generator=g, device="cuda", dtype=bf16) * k ** -0.5)
+            q[j].copy_(part["q"])
+            s[j].copy_(part["s"])
+        x = torch.randn((e, m, k), generator=g, device="cuda").to(bf16)
+        rec = {}
+        for label, ids in routings.items():
+            active = torch.zeros((e,), dtype=torch.int32, device="cuda")
+            active[ids] = 1
+            poison = torch.full((e, m, n), float("nan"), dtype=bf16,
+                                device="cuda")
+            del poison
+            got = quant.grouped_w8a16(x, q, s, active)
+            torch.cuda.synchronize()
+            for j in range(e):
+                if j in ids:
+                    worst = max(worst, w8a16_check(
+                        f"grouped {name} expert {j} ({label})", x[j],
+                        {"q": q[j], "s": s[j].reshape(-1)}, got[j]))
+                else:
+                    check(bool((got[j] == 0).all()),
+                          f"grouped {name} expert {j} ({label}): an "
+                          "inactive expert's output is not exact zeros")
+            ms = cuda_ms(lambda i: quant.grouped_w8a16(x, q, s, active), 20,
+                         graph=True)
+            plain = cuda_ms(lambda i: quant.grouped_w8a16_plain(
+                x, q, s, active), 3)
+            lib = None
+            if ids:
+                xa = x[ids].contiguous()
+                wa = quant.wmat({"q": q[ids], "s": s[ids]}, bf16)
+                lib = cuda_ms(lambda i: torch.matmul(xa, wa), 20, graph=True)
+                del xa, wa
+            a = len(ids)
+            nbytes = a * (k * n + 4 * n + 2 * m * k) + 2 * e * m * n
+            b = bound(nbytes, 2 * m * k * n * a, "bfloat16")
+            rec[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                          **b, "share_of_bound": b["bound_ms"] / ms,
+                          "active": a}
+            print(f"timing grouped w8a16 {name} (E={e}, M={m}, K={k}, "
+                  f"N={n}, {label}): kernel {ms:.4f} ms (graph replay), "
+                  f"bound {b['bound_ms']:.4f} ms ({nbytes} bytes), "
+                  f"{b['bound_ms'] / ms:.1%} of the bound; plain "
+                  f"{plain:.4f} ms; torch.matmul on the active experts' "
+                  f"bf16 weights {'n/a' if lib is None else f'{lib:.4f}'}"
+                  " ms", flush=True)
+        xp = torch.randn((e, 256, k), generator=g, device="cuda").to(bf16)
+        every = torch.full((e,), 256, dtype=torch.int32, device="cuda")
+        rec["prefill_route_ms"] = cuda_ms(lambda i: quant.grouped_linear(
+            xp, {"q": q, "s": s}, every), 5, graph=True)
+        per_shape[name] = rec
+        del q, s, x, xp
+        torch.cuda.empty_cache()
+    nl = cfg.num_layers
+    step = {key: nl * sum(per_shape[p]["all 8 active"][key] for p in shapes)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    one_slot = {key: nl * sum(per_shape[p]["2 active"][key] for p in shapes)
+                for key in ("ms", "bound_ms")}
+    prefill = nl * sum(per_shape[p]["prefill_route_ms"] for p in shapes)
+    print(f"grouped w8a16 per decode step (3 x {nl} launches, every expert "
+          f"active): kernel {step['ms']:.3f} ms, bound "
+          f"{step['bound_ms']:.3f} ms ({step['bound_ms'] / step['ms']:.1%}),"
+          f" plain {step['plain_ms']:.3f} ms, torch.matmul on bf16 experts "
+          f"{step['library_ms']:.3f} ms; one live slot (2 active): "
+          f"{one_slot['ms']:.3f} ms against {one_slot['bound_ms']:.3f}; "
+          f"the prefill route's expert products for one 512-token chunk "
+          f"(dequantize + torch.matmul): {prefill:.3f} ms", flush=True)
+    return worst, {**step, "bound_by": "bytes", "one_live_slot": one_slot,
+                   "prefill_route_ms_per_step": prefill,
+                   "per_shape": per_shape}
+
+
+def phase_moe(smi: str) -> dict:
+    """Phase 14, in its own process: the kernel (moe_kernel_phase), then
+    mixtral-8x7b with int8 weights at full width and depth, bf16 KV pages,
+    random weights from seed 0, the default EngineConfig, serving the 8
+    chats twice through LocalPipeline (serve_main_path: every phase-4 gate,
+    plus MoeCounts' gates), one window as graph and eager
+    (phase_graph_vs_eager, with the traced window and the untraced ms per
+    decode step)."""
+    import torch
+    t0 = time.perf_counter()
+    err, kernel = moe_kernel_phase()
+    torch.cuda.empty_cache()
+    engine, first, warm = asyncio.run(serve_main_path(
+        smi, quant="int8", model="mixtral-8x7b"))
+    graph = phase_graph_vs_eager(engine, "mixtral-8x7b int8",
+                                 model="mixtral-8x7b")
+    m = engine.metrics()
+    rec = {"kernel": kernel, "max_abs_err": err,
+           "launches": first["all_launches"],
+           "warm_launches": warm["all_launches"],
+           "runs": {"capturing": {**first["stats"], **first["moe"]},
+                    "warm": {**warm["stats"], **warm["moe"]}},
+           "graph_vs_eager": graph, "weight_bytes": m.weight_bytes,
+           "drop_rate": engine.moe_drop_rate(),
+           "phase_s": time.perf_counter() - t0}
+    print(f"mixtral-8x7b int8 [{smi}]: weight_bytes {m.weight_bytes}, "
+          f"TTFT p50 / p90 capturing {first['stats']['ttft_p50_ms']:.1f} / "
+          f"{first['stats']['ttft_p90_ms']:.1f} ms, warm "
+          f"{warm['stats']['ttft_p50_ms']:.1f} / "
+          f"{warm['stats']['ttft_p90_ms']:.1f} ms; warm decode "
+          f"{warm['stats']['decode_tok_s']:.1f} tok/s; untraced "
+          f"{graph['fused']['untraced_ms_per_step']:.3f} ms a decode step; "
+          f"peak {max(first['stats']['peak_gib'], warm['stats']['peak_gib']):.2f}"
+          f" GiB; drop rate {rec['drop_rate']:.4%}; phase "
+          f"{rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
+def moe_main() -> int:
+    """`chip_smoke.py --phase-moe`: phase 14 alone, in the process main()
+    starts for it, on kernels main() has built; its last line is the
+    result (MOE_RESULT + JSON)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase-moe: CUDA is not available",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = phase_moe(nvidia_smi())
+    print(MOE_RESULT + json.dumps(rec), flush=True)
+    return 0
+
+
+def phase_moe_child() -> dict:
+    """Phase 14 in a child process: the engines of earlier phases keep
+    device memory in this one, and Mixtral's ~44 GiB of int8 weights need
+    the card to itself. The child's output passes through; a non-zero exit
+    or a missing result line fails the run."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase-moe"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    result = None
+    try:
+        for line in proc.stdout:
+            if line.startswith(MOE_RESULT):
+                result = json.loads(line[len(MOE_RESULT):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    check(rc == 0 and result is not None,
+          f"phase 14 (mixtral-8x7b, child process) exited {rc}"
+          f"{'' if result is not None else ' without its result line'}")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3459,6 +3800,8 @@ def main() -> int:
     phase_small_reference()
     phase_small_reference("int8")
     phase_small_reference(quant="int8")
+    phase_small_reference(model="tiny-moe")
+    phase_small_reference(quant="int8", model="tiny-moe")
     engine, first, _ = asyncio.run(serve_main_path(smi))
     bf16_ref = {"weight_bytes": engine.metrics().weight_bytes,
                 "peak_gib": first["stats"]["peak_gib"]}
@@ -3487,7 +3830,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ab = {model: phase_ab(model) for model in ("llama3-8b", "llama3-1b")}
     http = asyncio.run(phase_http(smi, bf16_ref))
-    entry = phase_entry_point()
+    entry = {model: phase_entry_point(model) for model in ("tiny", "tiny-moe")}
     print(f"HTTP path: {json.dumps({'runs': http, 'entry_point': entry})}",
           flush=True)
     dist = phase_distributed(smi, device_name=torch.cuda.get_device_name(0))
@@ -3496,6 +3839,8 @@ def main() -> int:
     print(f"disaggregated deployment: {json.dumps(disagg)}", flush=True)
     tiers = phase_tiers(smi, device_name=torch.cuda.get_device_name(0))
     print(f"KV tiers: {json.dumps(tiers)}", flush=True)
+    moe = phase_moe_child()
+    print(f"mixture of experts: {json.dumps(moe)}", flush=True)
 
     ragged = {"name": "ragged_decode_attention", "route": "cuda",
               "source": "dynamo_tpu_torch/csrc/ragged_decode_attention.cu",
@@ -3535,6 +3880,13 @@ def main() -> int:
         "replaces": "dynamo_tpu/ops/quant.py:70 (wmat; no Pallas kernel)",
         "launches": first_http["launches"]["w8a16_dequant"],
         "max_abs_err": 0.0, **dequant_timing})
+    records.append({
+        "name": MOE, "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/w8a16_moe_gemm.cu",
+        "replaces": "dynamo_tpu/ops/moe.py:77 (the expert einsums over "
+                    "wmat, fused by XLA; no Pallas kernel)",
+        "launches": moe["launches"][MOE],
+        "max_abs_err": moe["max_abs_err"], **moe["kernel"]})
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3544,4 +3896,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(moe_main() if sys.argv[1:] == ["--phase-moe"] else main())

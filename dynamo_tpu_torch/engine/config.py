@@ -1,8 +1,10 @@
 """Model + engine configuration.
 
 Copied from dynamo_tpu/engine/config.py and trimmed to what the port's
-slices serve: dense Llama-family models on one device. The model
-registry keeps the dense Llama geometries; the engine knobs keep paging,
+slices serve: Llama-family models on one device, dense or mixture-of-
+experts (Mixtral-style top-k routing, ops/moe.py). The model registry keeps
+the dense Llama geometries and the MoE ones (`tiny-moe`, `mixtral-8x7b`);
+the engine knobs keep paging,
 batching, the decode window, mixed steps and int8 KV pages (`kv_quant`).
 `quant` keeps the JAX meaning (weight-only int8, ops/quant.py).
 The port always runs its decode through the hand-written kernel, so there
@@ -18,7 +20,7 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyper-parameters for a dense decoder-only transformer."""
+    """Architecture hyper-parameters for a decoder-only transformer."""
 
     name: str = "tiny"
     vocab_size: int = 256
@@ -46,10 +48,25 @@ class ModelConfig:
     # "int8" = int8 pages with one f32 scale per row. A non-empty
     # EngineConfig.kv_quant overrides it at engine construction.
     kv_quant: str = ""
+    # MoE (Mixtral-style); num_experts == 0 means dense MLP.
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    # "dispatch" = capacity-based dispatch (ops/moe.py, serving default);
+    # "dense" = every expert computes every token (exact, E/k x FLOPs —
+    # oracle for tests)
+    moe_impl: str = "dispatch"
+    moe_capacity_factor: float = 2.0
 
     @property
     def q_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+
+MOE_IMPLS = ("dispatch", "dense")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -59,6 +76,9 @@ def check_supported(cfg: ModelConfig) -> None:
             f"model {cfg.name!r} uses attention soft-caps / sliding windows /"
             " query-scale overrides; the ragged decode kernel has no hooks "
             "for them and the port has no gather decode path")
+    if cfg.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r} (supported: "
+                         f"{', '.join(MOE_IMPLS)})")
     if cfg.num_heads % cfg.num_kv_heads:
         raise ValueError(f"num_heads {cfg.num_heads} is not a multiple of "
                          f"num_kv_heads {cfg.num_kv_heads}")
@@ -115,8 +135,12 @@ class EngineConfig:
 # -- named architectures ------------------------------------------------------
 
 _CONFIGS = {
-    # test-size model
+    # test-size models
     "tiny": ModelConfig(),
+    "tiny-moe": ModelConfig(
+        name="tiny-moe", num_experts=4, num_experts_per_tok=2,
+        intermediate_size=256,
+    ),
     # Llama-3.2-1B-class
     "llama3-1b": ModelConfig(
         name="llama3-1b", vocab_size=128256, hidden_size=2048,
@@ -133,6 +157,12 @@ _CONFIGS = {
         name="llama3-70b", vocab_size=128256, hidden_size=8192,
         intermediate_size=28672, num_layers=80, num_heads=64, num_kv_heads=8,
         head_dim=128, rope_theta=500000.0, max_model_len=16384,
+    ),
+    "mixtral-8x7b": ModelConfig(
+        name="mixtral-8x7b", vocab_size=32000, hidden_size=4096,
+        intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
+        head_dim=128, rope_theta=1e6, max_model_len=16384,
+        num_experts=8, num_experts_per_tok=2,
     ),
 }
 

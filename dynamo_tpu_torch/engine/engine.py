@@ -29,6 +29,15 @@ on its device, as the JAX engine quantizes on the host
 (dynamo_tpu/engine/engine.py:289-297). A decode window's projections then
 run the W8A16 kernel inside the window's graph.
 
+Mixture-of-experts models (dynamo_tpu/engine/engine.py:245-247, :711-725,
+:1935-1940): with moe_impl="dispatch" every program returns the summed
+(dropped, routed) pair counts of its expert dispatch as outputs, a window
+the sum over its steps, and the host adds them to `moe_dropped_tokens` /
+`moe_routed_tokens` when it reads that program's tokens; a program whose
+outputs are never read (a graph's warm-up, a discarded follow-up window)
+counts nothing, as in the JAX engine. The window routes only its writable
+rows (`valid`), prefill and mixed steps only their real positions.
+
 With pipeline_depth >= 2 (the default) the decode loop is two-deep, as in
 the JAX package: a step that finds a window in flight dispatches its
 follow-up from the device carry first, then fetches and commits the
@@ -64,14 +73,15 @@ page leaves its pinned slot in one DMA on the onboard stream, and its slot
 stays pinned until that copy is done. The pipeline does not start or
 continue a window while offloads, onboards or pool injects are pending.
 
-Left out of this slice: speculative decoding, pipeline/tensor parallelism,
-streaming, vision, the tp shard inject (`inject_pages_shard`) and the gather
-decode window.
+Left out of this slice: speculative decoding, pipeline/tensor/expert
+parallelism, streaming, vision, the tp shard inject (`inject_pages_shard`)
+and the gather decode window.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 from typing import Dict, List, Optional, Set
 
 import numpy as np
@@ -234,6 +244,11 @@ class NativeEngine:
         self.pipeline_fallbacks = 0   # follow-ups discarded at reconcile
         self.mixed_steps = 0
         self.decode_stall_steps = 0
+        # MoE capacity accounting: (token, expert) pairs the dispatch routed
+        # and dropped over capacity, summed from committed programs
+        self.moe_dropped_tokens = 0.0
+        self.moe_routed_tokens = 0.0
+        self._moe_drop_warned = False
         # host wall time per decode-loop phase (tools/torch_decode_profile);
         # profile_sync isolates device time from fetch (attribution runs
         # only: it defeats the overlap it measures)
@@ -404,6 +419,30 @@ class NativeEngine:
                 m.kv_disk_pages_used = self.host_pool.disk.used
                 m.kv_disk_pages_total = self.host_pool.disk.capacity
         return m
+
+    def moe_drop_rate(self) -> float:
+        """Fraction of routed (token, expert) assignments dropped over
+        expert capacity since engine start (0.0 for non-MoE models)."""
+        if self.moe_routed_tokens <= 0:
+            return 0.0
+        return self.moe_dropped_tokens / self.moe_routed_tokens
+
+    def _account_moe(self, counts) -> None:
+        """Add one committed program's (dropped, routed) pair counts; warn
+        once when more than 1% of the pairs were dropped (capacity drops
+        are invisible in the output otherwise)."""
+        self.moe_dropped_tokens += float(counts[0])
+        self.moe_routed_tokens += float(counts[1])
+        rate = self.moe_drop_rate()
+        if rate > 0.01 and not self._moe_drop_warned \
+                and self.moe_routed_tokens > 1000:
+            self._moe_drop_warned = True
+            logging.getLogger(__name__).warning(
+                "MoE dispatch dropping %.2f%% of (token, expert) "
+                "assignments over capacity (capacity_factor=%s); "
+                "outputs are degraded — raise moe_capacity_factor or "
+                "use moe_impl='dense'", rate * 100,
+                self.model_cfg.moe_capacity_factor)
 
     def logits_nonfinite_steps(self) -> int:
         """Steps whose sampled logits held NaN or inf (waits for the
@@ -755,7 +794,7 @@ class NativeEngine:
             self._sampling_arrays(reqs, mixed=mixed)
         rp = self._rep_penalty_arrays(reqs, mixed=mixed)
         with_lp = self._wants_logprobs(reqs)
-        toks, lp, top_ids, top_lps = _engine_step(
+        toks, lp, top_ids, top_lps, moe = _engine_step(
             self.model_cfg, self._eos_vec, self.params, self.cache,
             self._dev(plan.tokens), self._dev(plan.positions),
             self._dev(plan.page_table), self._dev(plan.kv_lens),
@@ -767,6 +806,9 @@ class NativeEngine:
             with_lp=with_lp, greedy=bool(np.all(temp <= 0.0)),
             nonfinite=self._nonfinite)
         out = toks.cpu().numpy()
+        if moe is not None:
+            # read after the tokens' copy, which waited for the step
+            self._account_moe(moe.cpu().numpy())
         self._last_logprobs = ((lp.cpu().numpy(), top_ids.cpu().numpy(),
                                 top_lps.cpu().numpy()) if with_lp else None)
         return out
@@ -953,8 +995,10 @@ class NativeEngine:
         """Blocking output fetch + host commit for one window."""
         with self.phases.phase("fetch"):
             # the one intended host sync per decode window
-            toks, lps, top_ids, top_lps = HostCopies.wait(handle)
+            toks, lps, top_ids, top_lps, moe = HostCopies.wait(handle)
         self.decode_host_syncs += 1
+        if moe is not None:
+            self._account_moe(moe)
         with self.phases.phase("commit"):
             return self._commit_window(plan, toks, lps, top_ids, top_lps)
 
@@ -1173,12 +1217,13 @@ def _engine_step(cfg: ModelConfig, eos, params, cache, tokens,
                  nonfinite=None):
     """forward + last-position logits + sample for one prefill or mixed
     step (eos: the engine's [V] eos mask or None). Returns (tokens [B]
-    int32, sampled_lp, top_ids, top_lps), the lp outputs None unless
-    with_lp. The cache is updated in place."""
+    int32, sampled_lp, top_ids, top_lps, moe), the lp outputs None unless
+    with_lp, moe the MoE dispatch's [dropped, routed] f32 counts or None.
+    The cache is updated in place."""
     meta = AttnMetadata(positions=positions, page_table=page_table,
                         kv_lens=kv_lens, write_idx=write_idx)
-    last, _ = llama.forward(params, cfg, tokens, cache, meta,
-                            last_idx=last_idx)          # [B, V] f32
+    last, _, aux = llama.forward(params, cfg, tokens, cache, meta,
+                                 last_idx=last_idx, with_aux=True)
     if nonfinite is not None:
         nonfinite += (~torch.isfinite(last)).any()
     seen = (seen_token_mask(hist, cfg.vocab_size)
@@ -1186,7 +1231,15 @@ def _engine_step(cfg: ModelConfig, eos, params, cache, tokens,
     return sample_logits(last, eos, temperature, top_k, top_p, seeds,
                          counters, min_tokens, seen=seen,
                          rep_penalty=rep_penalty, with_lp=with_lp,
-                         greedy=greedy)
+                         greedy=greedy) + (_moe_counts(aux),)
+
+
+def _moe_counts(aux: dict):
+    """A program's MoE aux as one [dropped, routed] f32 tensor (None
+    without an MoE dispatch), so it crosses to the host in one copy."""
+    if not aux:
+        return None
+    return torch.stack([aux["moe_dropped"], aux["moe_routed"]])
 
 
 def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
@@ -1211,8 +1264,10 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
     scratch page) once the slot is past max_pos or dead. A slot dies when
     it samples an eos id (unless ignore_eos) or a stop id.
 
-    Returns (tokens [N, S] int32, lps, top_ids, top_lps, (tok_f, pos_f,
-    ctr_f)), still on the device; the lp outputs are None unless with_lp.
+    Returns (tokens [N, S] int32, lps, top_ids, top_lps, moe, (tok_f,
+    pos_f, ctr_f)), still on the device; the lp outputs are None unless
+    with_lp; moe is the MoE dispatch's [dropped, routed] f32 counts summed
+    over the window's steps (each step routes its writable rows), or None.
     Nothing here copies between host and device or waits on the device, so
     the window can be captured in a CUDA graph."""
     s = tokens.shape[0]
@@ -1222,6 +1277,7 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
     tok, pos, ctr = tokens, positions, counters
     alive = max_pos >= 0
     outs = []
+    moe = None
     for _ in range(n_steps):
         writable = (pos <= max_pos) & alive
         prefix = torch.minimum(torch.clamp(pos, min=0), max_pos + 1)
@@ -1230,9 +1286,13 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
                                             min=0).long() // page_size]
         write_idx = torch.where(writable,
                                 page * page_size + pos % page_size, -1)
-        logits, k_news, v_news = llama.decode_forward(
-            params, cfg, tok, cache, page_table, prefix, pos)
+        logits, k_news, v_news, aux = llama.decode_forward(
+            params, cfg, tok, cache, page_table, prefix, pos,
+            valid=writable, with_aux=True)
         _scatter_new_kv(cache, k_news, v_news, write_idx)
+        if aux:
+            counts = _moe_counts(aux)
+            moe = counts if moe is None else moe + counts
         if nonfinite is not None:
             nonfinite += (~torch.isfinite(logits)).any()
         nxt, lp, top_ids, top_lps = sample_logits(
@@ -1250,7 +1310,7 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
         tok, pos, ctr = nxt, pos + 1, ctr + 1
     toks = torch.stack([o[0] for o in outs])
     if not with_lp:
-        return toks, None, None, None, (tok, pos, ctr)
+        return toks, None, None, None, moe, (tok, pos, ctr)
     return (toks, torch.stack([o[1] for o in outs]),
             torch.stack([o[2] for o in outs]),
-            torch.stack([o[3] for o in outs]), (tok, pos, ctr))
+            torch.stack([o[3] for o in outs]), moe, (tok, pos, ctr))

@@ -34,6 +34,9 @@ takes the host's launch work out of the step.
   and counts a captured call (ops/paged_attention.py, ops/quant.py); each
   replay adds the calls its graph holds to each wrapper's launch count
   (`KERNELS` names them).
+- Outputs of MoE windows include the window's summed expert-dispatch
+  counts; like the tokens they are copied out after each replay, so a
+  warm-up or a replay whose outputs are never read counts nothing.
 
 On CPU tensors `run` calls the program directly: the tests run the same
 function eagerly, as a kernel's wrapper takes its plain version for CPU
@@ -59,6 +62,7 @@ KERNELS = {
     "ragged_decode_attention": (pa, "KERNEL_LAUNCHES", "CAPTURED_CALLS"),
     "w8a16_gemm": (quant, "KERNEL_LAUNCHES", "CAPTURED_CALLS"),
     "w8a16_dequant": (quant, "DEQUANT_LAUNCHES", "DEQUANT_CAPTURED"),
+    "w8a16_moe_gemm": (quant, "MOE_LAUNCHES", "MOE_CAPTURED"),
 }
 
 

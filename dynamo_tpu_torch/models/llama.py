@@ -1,4 +1,4 @@
-"""Llama-family decoder in PyTorch (dense models).
+"""Llama-family decoder in PyTorch (dense and mixture-of-experts models).
 
 Port of dynamo_tpu/models/llama.py. Parameters are a plain dict of tensors
 stacked over layers, with the JAX package's names and layouts ("wq" is
@@ -10,6 +10,16 @@ and the head go through `ops/quant.linear`: a plain weight is one
 "s": f32 [L, 1, d_out]} leaves, the JAX quantized tree's layout, and on the
 card a decode step's products run the W8A16 kernel. Norms, RoPE and the
 gate activation run in f32 as there.
+
+MoE models (`cfg.num_experts > 0`, Mixtral-style) carry a router [L, D, E]
+in the model dtype and stacked expert weights w_gate / w_up [L, E, D, F],
+w_down [L, E, F, D] (int8 with scales [L, E, 1, F] / [L, E, 1, D] under
+quant="int8"). The MLP of each layer is then `ops/moe.moe_dispatch_mlp`
+(moe_impl="dispatch", the serving default: top-k routing into a fixed
+expert capacity; on the card a decode step's expert products run the
+grouped W8A16 kernel) or `_moe_mlp` (moe_impl="dense": every expert on
+every token, the exact oracle). `valid` masks padding out of the routing,
+and with_aux returns the dispatch's summed (dropped, routed) pair counts.
 
 The KV cache is {"k", "v"}: [L, Hkv, P, ps, hd] and is updated IN PLACE
 (the JAX functions return updated copies). With `cfg.kv_quant == "int8"`
@@ -39,12 +49,13 @@ from dynamo_tpu_torch.ops.attention import (
     paged_attention, write_kv_pages, write_kv_pages_quant,
 )
 from dynamo_tpu_torch.ops.kv_quant import is_quantized_cache, validate_mode
+from dynamo_tpu_torch.ops.moe import moe_dispatch_mlp, top_k
 from dynamo_tpu_torch.ops.paged_attention import (
     combine_self_attention, decode_paged_attention,
     decode_paged_attention_prefix,
 )
 from dynamo_tpu_torch.ops.quant import (
-    QUANT_KEYS, is_quantized, linear, quantize_int8,
+    QUANT_KEYS, grouped_linear, is_quantized, linear, quantize_int8,
 )
 from dynamo_tpu_torch.ops.quant import validate_mode as validate_quant
 
@@ -53,8 +64,7 @@ Params = Dict[str, Any]
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
-_LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
-               "w_up", "w_down")
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -75,11 +85,19 @@ class AttnMetadata:
 # -- init ---------------------------------------------------------------------
 
 def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Each layer leaf's shape per layer: an MoE model's router [D, E] and
+    expert stacks [E, d_in, d_out] in place of the dense MLP's."""
     d, hd = cfg.hidden_size, cfg.head_dim
     h, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
-    return {"attn_norm": (d,), "wq": (d, h * hd), "wk": (d, hkv * hd),
-            "wv": (d, hkv * hd), "wo": (h * hd, d), "mlp_norm": (d,),
-            "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    shapes = {"attn_norm": (d,), "wq": (d, h * hd), "wk": (d, hkv * hd),
+              "wv": (d, hkv * hd), "wo": (h * hd, d), "mlp_norm": (d,),
+              "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    if cfg.is_moe:
+        e = cfg.num_experts
+        shapes["router"] = (d, e)
+        for key in _EXPERT_KEYS:
+            shapes[key] = (e,) + shapes[key]
+    return shapes
 
 
 def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
@@ -90,7 +108,10 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
     jax.random draws (tests hand both packages the same weights through
     `params_from_jax`). With cfg.quant == "int8" the same draws are
     quantized one layer slice at a time on `device` (ops/quant.py), so the
-    tree equals `quantize_params` of the unquantized one."""
+    tree equals `quantize_params` of the unquantized one. An MoE model's
+    expert stacks are drawn (and quantized) one (layer, expert) slice at a
+    time into their stack, in both modes, so no model-dtype stack of them
+    ever exists beside the int8 one (Mixtral's is 30.1 GB in bf16)."""
     check_supported(cfg)
     quant = validate_quant(cfg.quant)
     dt = torch_dtype(cfg)
@@ -101,11 +122,34 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
         w = torch.randn(shape, generator=gen, device=device, dtype=dt)
         return w.mul_(fan_in ** -0.5)
 
+    def expert_stack(shape):
+        """[n, E, d_in, d_out], drawn slice by slice (quantized as drawn)."""
+        full = (n,) + shape
+        if quant:
+            stack = {"q": torch.empty(full, dtype=torch.int8, device=device),
+                     "s": torch.empty(full[:-2] + (1, full[-1]),
+                                      dtype=torch.float32, device=device)}
+        else:
+            stack = torch.empty(full, dtype=dt, device=device)
+        for i in range(n):
+            for j in range(shape[0]):
+                w = dense(shape[1:], shape[1])
+                if not quant:
+                    stack[i, j].copy_(w)
+                    continue
+                part = quantize_int8(w)
+                stack["q"][i, j].copy_(part["q"])
+                stack["s"][i, j].copy_(part["s"])
+        return stack
+
     n = cfg.num_layers
     layers = {}
     for key, shape in _layer_shapes(cfg).items():
         if len(shape) == 1:
             layers[key] = torch.ones((n,) + shape, dtype=dt, device=device)
+        elif len(shape) == 3:
+            layers[key] = expert_stack(shape)
+            continue
         else:
             layers[key] = dense((n,) + shape, shape[0])
         if quant and key in QUANT_KEYS:
@@ -128,7 +172,9 @@ def params_from_jax(tree: Params, cfg: ModelConfig, device="cpu") -> Params:
     numpy arrays, -> the port's parameters on `device` in the model dtype.
     Layouts are identical; only dtype and device change. A quantized JAX
     tree's {"q": int8, "s": f32} leaves cross exactly, as torch int8 and
-    f32."""
+    f32. An MoE tree carries its router (in the model dtype) and its expert
+    stacks; a tree whose experts do not match the config (a router on a
+    dense config, none on an MoE one, another expert count) is refused."""
     check_supported(cfg)
     dt = torch_dtype(cfg)
 
@@ -143,13 +189,25 @@ def params_from_jax(tree: Params, cfg: ModelConfig, device="cpu") -> Params:
             device=device, dtype=dt)
 
     layers = tree["layers"]
-    missing = [k for k in _LAYER_KEYS if k not in layers]
+    shapes = _layer_shapes(cfg)
+    kind = "an MoE" if cfg.is_moe else "a dense"
+    missing = [k for k in shapes if k not in layers]
     if missing:
-        raise ValueError(f"not a dense Llama parameter tree: missing "
-                         f"{missing}")
+        raise ValueError(f"not {kind} Llama parameter tree for "
+                         f"{cfg.name!r}: missing {missing}")
+    if "router" in layers and not cfg.is_moe:
+        raise ValueError(f"the tree has a router (an MoE tree) but "
+                         f"{cfg.name!r} is a dense config")
+    for k, shape in shapes.items():
+        leaf = layers[k]
+        got = tuple(np.shape(leaf["q"] if is_quantized(leaf) else leaf))[1:]
+        if len(shape) > 1 and got != shape:
+            raise ValueError(f"layer leaf {k!r} has per-layer shape {got}; "
+                             f"{cfg.name!r} ({kind} config, "
+                             f"{cfg.num_experts} experts) needs {shape}")
     out: Params = {
         "embed": conv(tree["embed"]),
-        "layers": {k: conv(layers[k]) for k in _LAYER_KEYS},
+        "layers": {k: conv(layers[k]) for k in shapes},
         "final_norm": conv(tree["final_norm"]),
     }
     if not cfg.tie_word_embeddings:
@@ -214,6 +272,41 @@ def _dense_mlp(x: torch.Tensor, lp: Params, l: int) -> torch.Tensor:
     return linear(act, _layer_w(lp, "w_down", l))
 
 
+def _moe_mlp(x: torch.Tensor, lp: Params, l: int,
+             cfg: ModelConfig) -> torch.Tensor:
+    """Dense-compute MoE (JAX `_moe_mlp`): top-k routing, every expert
+    evaluated on every token, the outputs combined with the routing weights
+    (zero for the experts not chosen) in f32. Exact, E / k times the
+    dispatch's FLOPs: the oracle of `moe_impl="dense"`."""
+    b, t, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    logits = x.float() @ lp["router"][l].float()            # [B, T, E]
+    weights, idx = top_k(logits, k)
+    weights = torch.softmax(weights, dim=-1)
+    combine = (weights[..., None] * F.one_hot(idx, e).float()).sum(-2)
+    xe = x.reshape(1, b * t, d).expand(e, b * t, d).contiguous()
+    every = torch.full((e,), b * t, dtype=torch.int32, device=x.device)
+    gate = grouped_linear(xe, _layer_w(lp, "w_gate", l), every)
+    up = grouped_linear(xe, _layer_w(lp, "w_up", l), every)
+    act = F.silu(gate.float()).to(x.dtype) * up
+    down = grouped_linear(act, _layer_w(lp, "w_down", l), every)
+    out = (down.float().view(e, b, t, d)
+           * combine.permute(2, 0, 1)[..., None]).sum(0)
+    return out.to(x.dtype)
+
+
+def _mlp(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig, valid):
+    """Layer l's MLP: (output, (dropped, routed) or None). The counts come
+    from the MoE dispatch only."""
+    if not cfg.is_moe:
+        return _dense_mlp(x, lp, l), None
+    if cfg.moe_impl == "dense":
+        return _moe_mlp(x, lp, l, cfg), None
+    layer = {key: _layer_w(lp, key, l) for key in ("router",) + _EXPERT_KEYS}
+    return moe_dispatch_mlp(x, layer, cfg, cfg.moe_capacity_factor,
+                            return_dropped=True, valid=valid)
+
+
 def _qkv(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig,
          positions: torch.Tensor):
     """Attention-norm + q/k/v projections + RoPE for layer l:
@@ -228,12 +321,23 @@ def _qkv(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig,
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _block_tail(x, attn, lp: Params, l: int, cfg: ModelConfig):
-    """Output projection + residual + MLP + residual for layer l."""
+def _block_tail(x, attn, lp: Params, l: int, cfg: ModelConfig, valid=None):
+    """Output projection + residual + MLP + residual for layer l; returns
+    (x, the MoE dispatch's (dropped, routed) or None)."""
     b, t = x.shape[:2]
     x = x + linear(attn.reshape(b, t, -1), _layer_w(lp, "wo", l))
     xn = rms_norm(x, lp["mlp_norm"][l], cfg.rms_norm_eps)
-    return x + _dense_mlp(xn, lp, l)
+    mlp, drops = _mlp(xn, lp, l, cfg, valid)
+    return x + mlp, drops
+
+
+def _moe_aux(drops: list) -> dict:
+    """The layers' (dropped, routed) counts summed, as the JAX package
+    returns them under with_aux; {} without an MoE dispatch."""
+    if not drops:
+        return {}
+    return {"moe_dropped": torch.stack([d for d, _ in drops]).sum(),
+            "moe_routed": torch.stack([r for _, r in drops]).sum()}
 
 
 def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor):
@@ -251,14 +355,18 @@ def decode_forward(
     page_table: torch.Tensor,    # [B, Pb] int32
     prefix_lens: torch.Tensor,   # [B] int32 — valid kv BEFORE this token
     positions: torch.Tensor,     # [B] — absolute position of this token
+    valid: Optional[torch.Tensor] = None,  # [B] bool, real (non-pad) slots
+    with_aux: bool = False,
 ) -> tuple:
     """Deferred-write decode step: the KV cache is READ-ONLY.
 
     Returns (last_logits [B, V] f32, k_new [L, B, Hkv, hd],
-    v_new [L, B, Hkv, hd]); the caller scatters the new kv rows into the
+    v_new [L, B, Hkv, hd]), plus the aux dict with with_aux (the MoE
+    dispatch's summed counts); the caller scatters the new kv rows into the
     cache in one update per step. Attention is the ragged kernel in prefix
     mode over the cached prefix plus an explicit self-term for the current
-    token (combine_self_attention), exact because decode is causal."""
+    token (combine_self_attention), exact because decode is causal. An MoE
+    dispatch routes only the `valid` rows."""
     lp = params["layers"]
     # ids validated at admission (engine._validate_prompt); decode feeds
     # only sampled ids  # dynalint: disable-next-line=R1
@@ -267,7 +375,8 @@ def decode_forward(
     # int8 caches hand the kernel the whole scale stacks; it folds them
     # into its scores and probabilities
     ks, vs = cache.get("k_scale"), cache.get("v_scale")
-    k_news, v_news = [], []
+    token_valid = None if valid is None else valid[:, None]
+    k_news, v_news, drops = [], [], []
     for l in range(cfg.num_layers):
         q, k, v = _qkv(x, lp, l, cfg, pos)
         k_new, v_new = k[:, 0], v[:, 0]                  # [B, Hkv, hd]
@@ -276,11 +385,14 @@ def decode_forward(
             q[:, 0].contiguous(), cache["k"], cache["v"], l, page_table,
             prefix_lens, ks, vs)
         attn = combine_self_attention(q[:, 0], k_new, v_new, acc, m, lsum)
-        x = _block_tail(x, attn[:, None], lp, l, cfg)
+        x, d = _block_tail(x, attn[:, None], lp, l, cfg, token_valid)
         k_news.append(k_new)
         v_news.append(v_new)
+        if d is not None:
+            drops.append(d)
     logits = _lm_head(params, cfg, x)[:, 0]
-    return logits, torch.stack(k_news), torch.stack(v_news)
+    out = (logits, torch.stack(k_news), torch.stack(v_news))
+    return out + (_moe_aux(drops),) if with_aux else out
 
 
 def forward(
@@ -290,17 +402,23 @@ def forward(
     cache: Dict[str, torch.Tensor],  # {"k","v"[,"k_scale","v_scale"]}
     meta: AttnMetadata,
     last_idx: Optional[torch.Tensor] = None,  # [B]: logits of one column
+    with_aux: bool = False,
 ) -> tuple:
     """One paged forward step; writes this step's kv into the cache in
-    place. Returns (logits, cache): logits [B, Tq, V] f32, or [B, V] for
+    place. Returns (logits, cache), plus the aux dict with with_aux (the
+    MoE dispatch's summed counts): logits [B, Tq, V] f32, or [B, V] for
     column last_idx[b] of each row when last_idx is given (the engine's
     step samples one position per row, and the full [B, Tq, V] block of a
-    128k vocabulary is gigabytes)."""
+    128k vocabulary is gigabytes). An MoE dispatch routes only the real
+    positions (write_idx >= 0)."""
     b, tq = tokens.shape
     lp = params["layers"]
     # admission validated the ids  # dynalint: disable-next-line=R1
     x = params["embed"][tokens.long()]                   # [B, Tq, D]
     quant = is_quantized_cache(cache)
+    # real (non-padding) positions: padding slots carry write_idx < 0
+    token_valid = meta.write_idx >= 0
+    drops = []
     for l in range(cfg.num_layers):
         q, k, v = _qkv(x, lp, l, cfg, meta.positions)
         # dynalint: kv-codec — per-layer views; the write and attention
@@ -321,8 +439,12 @@ def forward(
         else:
             attn = paged_attention(q, kc, vc, meta.page_table, meta.kv_lens,
                                    meta.positions, ksc, vsc)
-        x = _block_tail(x, attn, lp, l, cfg)
+        x, d = _block_tail(x, attn, lp, l, cfg, token_valid)
+        if d is not None:
+            drops.append(d)
     if last_idx is not None:
         x = x[torch.arange(b, device=x.device), last_idx.long()][:, None]
-        return _lm_head(params, cfg, x)[:, 0], cache
-    return _lm_head(params, cfg, x), cache
+        logits = _lm_head(params, cfg, x)[:, 0]
+    else:
+        logits = _lm_head(params, cfg, x)
+    return (logits, cache, _moe_aux(drops)) if with_aux else (logits, cache)

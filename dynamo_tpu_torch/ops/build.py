@@ -2,9 +2,10 @@
 
 Each source compiles with `nvcc` for `sm_90a` into a shared library with a
 plain C interface, loaded with ctypes. Libraries land in
-`<checkout>/build/dynamo_tpu_torch/`, named by a hash of the source and the
-compiler flags, so a fresh checkout builds what it needs at first use and an
-edited source never loads a stale library. `build()` starts one `nvcc` per
+`<checkout>/build/dynamo_tpu_torch/`, named by a hash of the source, the
+shared headers (`csrc/*.cuh`) and the compiler flags, so a fresh checkout
+builds what it needs at first use and an edited source or header never
+loads a stale library. `build()` starts one `nvcc` per
 source, all at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -46,8 +47,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The library of csrc/<name>.cu, named by a hash of the source, the
+    headers beside it (csrc/*.cuh, which a source may include) and the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = hashlib.sha256(h.digest()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

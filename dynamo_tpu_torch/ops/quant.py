@@ -23,6 +23,18 @@ Every matmul site calls `linear(x, w)`:
 There is no try/except and no quiet fallback: a CUDA tensor launches a
 kernel or raises.
 
+The expert products of a mixture-of-experts layer (ops/moe.py) call
+`grouped_linear(x, w, active)` on the capacity buffer x [E, M, K] and one
+layer's expert slice w ([E, K, N], or {"q": [E, K, N], "s": [E, 1, N]}):
+- a plain weight: one batched `torch.matmul` over the experts;
+- a quantized weight on CPU tensors: the grouped kernel's plain version
+  (`wmat` per expert + matmul, zeros where active[e] == 0);
+- on CUDA tensors, M <= GROUPED_MAX_M (decode: B * C rows an expert with
+  C = 1) launches the grouped W8A16 kernel (csrc/w8a16_moe_gemm.cu), which
+  reads only the experts some row was routed to; larger M (prefill and
+  mixed steps) dequantizes each expert with the dequantize entry and hands
+  its rows to `torch.matmul`.
+
 Why a kernel: XLA fuses the dequantize into the matmul's operand pipeline
 and PyTorch does not. An eager `(q.float() * s).to(bf16)` then
 `torch.matmul` at decode would read the int8 weight, write it as bf16 and
@@ -39,7 +51,10 @@ import torch
 
 QUANT_MODES = ("", "int8")
 
-# the layer projections quantized (the byte carriers), as in the JAX package
+# the layer projections quantized (the byte carriers), as in the JAX package;
+# on MoE models w_gate / w_up / w_down are the stacked expert tensors
+# [L, E, d_in, d_out], quantized by the same rule (scales [L, E, 1, d_out],
+# per layer, expert and output channel); the router stays in the model dtype
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 # rows up to which a CUDA product runs the W8A16 kernel: the decode step's
@@ -58,6 +73,15 @@ KERNEL_LAUNCHES = 0
 CAPTURED_CALLS = 0
 DEQUANT_LAUNCHES = 0
 DEQUANT_CAPTURED = 0
+MOE_LAUNCHES = 0
+MOE_CAPTURED = 0
+
+# rows of one expert's capacity buffer up to which a CUDA expert product runs
+# the grouped kernel: B * C at decode, where C = 1, for up to 16 slots (the
+# disaggregated decode worker's max_slots) in passes of 8 rows. A prefill or
+# mixed step's buffer holds C = T * k / E * capacity_factor rows per batch
+# row and, past this, takes the dequantize + matmul route.
+GROUPED_MAX_M = 16
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' tiles (csrc/w8a16_gemm.cu). The tensor-core kernel (bf16 x):
@@ -170,6 +194,17 @@ def _lib():
 
 
 @functools.lru_cache(maxsize=None)
+def _moe_lib():
+    """The grouped kernel's C entry point, built and loaded on first use."""
+    from dynamo_tpu_torch.ops import build
+    lib = build.load("w8a16_moe_gemm")
+    lib.w8a16_moe_gemm.restype = ctypes.c_int
+    lib.w8a16_moe_gemm.argtypes = ([ctypes.c_void_p] * 5
+                                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
@@ -192,12 +227,13 @@ def _split(chunks: int, want: int, most: int) -> tuple:
 
 
 def gemm_config(m: int, k: int, n: int, sm_count: int,
-                dtype=torch.bfloat16) -> tuple:
+                dtype=torch.bfloat16, groups: int = 1) -> tuple:
     """The kernel's grid over K from shapes only (so a call needs no host
     sync and can be captured): (splits, chunks a split). Their sums are
     added in split order, inside their cluster (bf16 x) or in a second pass
-    (f32 x)."""
-    tiles_m = -(-m // rows_per_pass(m, dtype))
+    (f32 x). `groups`: the grouped kernel's experts, each with its own
+    tiles (all counted: which are active is known only on the device)."""
+    tiles_m = -(-m // rows_per_pass(m, dtype)) * groups
     if dtype == torch.float32:
         tiles = -(-n // _F32_TILE_N) * tiles_m
         want = -(-_F32_BLOCKS_PER_SM * sm_count // tiles)
@@ -267,6 +303,94 @@ def dequantize(w: Dict[str, torch.Tensor], dt: torch.dtype) -> torch.Tensor:
     else:
         DEQUANT_LAUNCHES += 1
     return out
+
+
+def _check_grouped(x, q, s, active):
+    """What the grouped entry takes: x [E, M, K] contiguous f32/bf16, q
+    [E, K, N] contiguous int8, s contiguous f32 with E * N values ([E, 1, N]
+    or [E, N]), active [E] contiguous int32, all on one device."""
+    dev = q.device
+    if q.dtype != torch.int8 or q.dim() != 3 or not q.is_contiguous():
+        raise TypeError(f"q must be a contiguous [E, K, N] int8 tensor, got "
+                        f"{q.dtype} {tuple(q.shape)}")
+    e, k, n = q.shape
+    if (s.dtype != torch.float32 or s.numel() != e * n
+            or not s.is_contiguous() or s.device != dev):
+        raise TypeError(f"s must be contiguous f32 with {e} x {n} values on "
+                        f"{dev}, got {s.dtype} {tuple(s.shape)} on "
+                        f"{s.device}")
+    if (active.dtype != torch.int32 or tuple(active.shape) != (e,)
+            or not active.is_contiguous() or active.device != dev):
+        raise TypeError(f"active must be a contiguous [{e}] int32 tensor on "
+                        f"{dev}, got {active.dtype} {tuple(active.shape)}")
+    if x.device != dev:
+        raise ValueError(f"x is on {x.device}, q on {dev}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if (x.dim() != 3 or x.shape[0] != e or x.shape[2] != k
+            or not x.is_contiguous() or x.shape[1] < 1):
+        raise ValueError(f"x must be contiguous [{e}, M >= 1, {k}], got "
+                         f"{tuple(x.shape)}")
+
+
+def grouped_w8a16_plain(x, q, s, active) -> torch.Tensor:
+    """The grouped kernel's plain version: `wmat` per expert and a matmul,
+    exact zeros for every expert with active[e] == 0."""
+    y = torch.matmul(x, wmat({"q": q, "s": s.reshape(q.shape[0], 1, -1)},
+                             x.dtype))
+    return torch.where((active > 0).view(-1, 1, 1), y,
+                       torch.zeros((), dtype=y.dtype, device=y.device))
+
+
+def grouped_w8a16(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                  active: torch.Tensor) -> torch.Tensor:
+    """y[e] = x[e] @ (f32(q[e]) * s[e]) with f32 accumulation, in x's dtype,
+    for the experts with active[e] > 0 and zeros for the others: the grouped
+    kernel on PyTorch's current stream for CUDA tensors (no sync: `active`
+    is read on the device), its plain version for CPU tensors."""
+    global MOE_LAUNCHES, MOE_CAPTURED
+    if not x.is_cuda:
+        if q.is_cuda:
+            raise ValueError("x is on the CPU but the weight is on CUDA")
+        return grouped_w8a16_plain(x, q, s, active)
+    _check_grouped(x, q, s, active)
+    e, m, k = x.shape
+    n = q.shape[2]
+    dev = x.device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if x.dtype == torch.bfloat16:
+        splits, per = gemm_config(m, k, n, _sm_count(index), x.dtype,
+                                  groups=e)
+    else:
+        splits, per = 1, -(-k // _F32_CHUNK_K)
+    y = torch.empty((e, m, n), dtype=x.dtype, device=dev)
+    err = _moe_lib().w8a16_moe_gemm(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), active.data_ptr(),
+        y.data_ptr(), e, m, k, n, splits, per, rows_per_pass(m, x.dtype),
+        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"w8a16_moe_gemm launch failed: CUDA error {err}")
+    if torch.cuda.is_current_stream_capturing():
+        MOE_CAPTURED += 1
+    else:
+        MOE_LAUNCHES += 1
+    return y
+
+
+def grouped_linear(x: torch.Tensor, w, active: torch.Tensor) -> torch.Tensor:
+    """x [E, M, K] @ w expert by expert: w plain [E, K, N] or quantized
+    {"q": [E, K, N] int8, "s": [E, 1, N] f32}; active [E] int32, the rows
+    routed to each expert (see the module docstring for the routes)."""
+    if not is_quantized(w):
+        return torch.matmul(x, w)
+    if not x.is_cuda or x.shape[1] <= GROUPED_MAX_M:
+        return grouped_w8a16(x, w["q"], w["s"], active)
+    y = torch.empty(x.shape[:2] + (w["q"].shape[2],), dtype=x.dtype,
+                    device=x.device)
+    for i in range(x.shape[0]):
+        torch.matmul(x[i], dequantize({"q": w["q"][i], "s": w["s"][i]},
+                                      x.dtype), out=y[i])
+    return y
 
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:

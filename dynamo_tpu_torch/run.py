@@ -24,11 +24,13 @@ Outputs (engines):
   out=native         the in-process PyTorch engine (random-init weights)
   out=echo           deterministic token-echo engine (no hardware)
 
-Model: a registry name ("tiny", "llama3-1b", "llama3-8b", "llama3-70b").
-The engine runs on CUDA unless `--device cpu` is given; `--quant int8`
-stores the seven projections and the head as int8 with per-output-channel
-scales (ops/quant.py; on the card every decode projection runs the W8A16
-kernel); `--kv-quant int8` stores the KV cache as int8 pages with per-row
+Model: a registry name ("tiny", "tiny-moe", "llama3-1b", "llama3-8b",
+"llama3-70b", "mixtral-8x7b"). The engine runs on CUDA unless `--device
+cpu` is given; `--quant int8` stores the seven projections and the head as
+int8 with per-output-channel scales (ops/quant.py; on the card every
+decode projection runs the W8A16 kernel, and an MoE model's expert
+products the grouped W8A16 kernel), which is how mixtral-8x7b fits one
+H100; `--kv-quant int8` stores the KV cache as int8 pages with per-row
 scales; `--host-pages N` gives the engine a host-DRAM KV tier of N pages
 (pinned on the card: at llama3-8b 8,388,608 bytes a bf16 page, 4,325,376
 an int8 one). A frontend for endpoint workers is `python -m

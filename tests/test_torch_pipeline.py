@@ -291,7 +291,7 @@ def _run_port(params, cfg, cache, arrs, eos, stop_ids):
     tcache = {k: torch.cat([torch.from_numpy(v.copy()),
                             torch.zeros_like(torch.from_numpy(v[:, :, :1]))],
                            dim=2) for k, v in cache.items()}
-    toks, _, _, _, carry = tengine._engine_decode_window(
+    toks, _, _, _, _, carry = tengine._engine_decode_window(
         cfg, eos_mask(eos, cfg.vocab_size, "cpu"), params, tcache,
         t["tokens"], t["positions"], t["counters"], t["page_table"],
         t["max_pos"], t["temperature"], t["top_k"], t["top_p"], t["seeds"],

@@ -404,7 +404,8 @@ def test_stats_reply_carries_engine_metrics(jax_params):
             assert stats["gpu_prefix_cache_lookups"] == 1 + 3
             assert stats["decode_windows"] == m.decode_windows > 0
             assert set(stats["kernel_launches"]) == {
-                "ragged_decode_attention", "w8a16_gemm", "w8a16_dequant"}
+                "ragged_decode_attention", "w8a16_gemm", "w8a16_dequant",
+                "w8a16_moe_gemm"}
             assert stats["decode_window_steps"] > 0
             # every field the router reads comes through
             assert WorkerMetrics.from_dict(stats).kv_total_blocks == \
