@@ -42,19 +42,33 @@ Phases (any failed check exits non-zero; nothing is caught):
       w_down, lm_head) at M = 1, 3, 8 and 16 with a bf16 x (max |diff| <=
       1e-2 * max |y|) and at M = 1 and 8 with an f32 x (rtol = atol =
       1e-4); at an odd N and a K the split does not divide (1000 x 333,
-      4100 x 1031), f32 and bf16; at M = 512 (w_gate) through the route
-      ops/quant.linear takes there (the dequantize entry, bit-identical to
-      `wmat`, + torch.matmul) and through the kernel. Then CUDA-event times
-      over replayed graphs (weights cycled past the L2) at M = 8 for each
-      shape: the kernel, its bound (its bytes over 3.35 TB/s), its share of
-      the bound, the plain version, and the library yardstick
-      (torch.matmul against the bf16 weight of the same shape, twice the
-      bytes); both routes at M = 16 and 512; the dequantize entry alone.
+      4100 x 1031), f32 and bf16. Then the tensor-core kernel
+      (csrc/w8a16_large_m.cu, the route past GEMV_MAX_M rows) against the
+      plain version at the same eight shapes at M = 9, 16, 64, 100, 512
+      and 2048, bf16, its output memory NaN-filled before each call, within
+      the bf16 tolerance; at the odd shapes linear past GEMV_MAX_M raises
+      (TMA needs N % 16 == 0 and K % 8 == 0). At M = 512 (w_gate) linear
+      launches the tensor-core kernel once and the dequantize entry never,
+      and its output is no longer bit-equal to the dequantize + matmul
+      route; an f32 x keeps that route (the entry bit-identical to `wmat`).
+      Then CUDA-event times over replayed graphs (weights cycled past the
+      L2) at M = 8 for each shape: the decode kernel, its bound (its bytes
+      over 3.35 TB/s), its share of the bound, the plain version, and the
+      library yardstick (torch.matmul against the bf16 weight of the same
+      shape, twice the bytes); the tensor-core kernel at w_gate at M = 16,
+      128 and 512 beside its bound (the larger of its bytes over 3.35 TB/s
+      and 2 M K N over 989 TFLOP/s), the plain version, the library and
+      the old route (dequantize + torch.matmul); the switch-point table
+      (both kernels at M = 8, 9, 16, 32, 64 for w_gate and wk); one
+      512-token prefill step's 7 x 32 products on the new kernel, the old
+      route and torch.matmul on bf16 weights; the dequantize entry alone.
 3. Small reference: the `tiny` model in f32, decode logits on the card
    (the kernels) against the same step on the CPU (the plain versions),
    within 1e-3, and the same greedy tokens from both engines; then the
    same with kv_quant="int8", and with quant="int8" (int8 weights: the
-   W8A16 kernel on the card); then `tiny-moe` (4 experts, top 2) in f32
+   W8A16 kernel on the card, and past GEMV_MAX_M rows the f32 route's
+   dequantize entry, which this run must launch and the tensor-core
+   kernel must not); then `tiny-moe` (4 experts, top 2) in f32
    and with quant="int8" (the grouped kernel's f32 path on the card).
 4. Main path: the llama3-8b card at full width with random bf16 weights,
    NativeEngine on cuda (default EngineConfig: pipeline_depth 2, every
@@ -121,9 +135,13 @@ Phases (any failed check exits non-zero; nothing is caught):
    run: every request finishes with 64 tokens or a stop, no non-finite
    logits, one graph replay per window, every window graph holding
    (7 L + 1) x nw W8A16 launches and L x nw ragged ones, the replays
-   adding (7 L + 1) per decode step (the warm-ups and the prefill steps'
-   head products come on top), GET /metrics showing llm_ttft_seconds_count
-   equal to the choices served and a nonzero llm_itl_seconds_count.
+   adding (7 L + 1) per decode step (the warm-ups come on top); the
+   prefill and mixed steps launch the tensor-core kernel exactly as their
+   shapes derive (7 L a step of B x T rows past GEMV_MAX_M, the head when
+   its B rows are past it; `int8_product_launches`), the decode kernel
+   eagerly for the rest, and the dequantize entry 0 times; GET /metrics
+   showing llm_ttft_seconds_count equal to the choices served and a
+   nonzero llm_itl_seconds_count.
    Prints the TTFT and ITL p50 / p90 from the histograms beside the
    client-side TTFT of the streamed requests, decode tokens/s, peak
    memory and weight_bytes against phase 4's bf16 engine.
@@ -281,8 +299,13 @@ Phases (any failed check exits non-zero; nothing is caught):
    the W8A16 phase's tolerance, exact zeros for inactive experts (their
    output memory NaN-filled just before); CUDA-event times over replayed
    graphs per routing (kernel, bound, share, plain, torch.matmul on bf16
-   copies of the active experts) and the prefill route (dequantize +
-   torch.matmul at 256 rows an expert). Then mixtral-8x7b, quant="int8",
+   copies of the active experts). Then the tensor-core kernel's grouped
+   call (the prefill route) at 256 and 2048 rows an expert under the same
+   three routings: active experts within the tolerance, inactive ones
+   exact zeros on NaN-filled memory; kernel, bound, plain, library, and
+   the old route (every expert dequantized + torch.matmul) re-timed in the
+   same call; a 512-token chunk's expert products (3 x 32 launches at 256
+   rows an expert) new against old. Then mixtral-8x7b, quant="int8",
    bf16 KV pages, random weights from seed 0, full width and all 32
    layers, the default EngineConfig, serves phase 4's 8 chats through
    LocalPipeline twice (capturing, then warm) with phase 4's gates, plus:
@@ -290,7 +313,11 @@ Phases (any failed check exits non-zero; nothing is caught):
    hits (MoeCounts.check), 0 pairs dropped by decode windows, every
    window graph holding 3 x 32 x nw grouped, (4 x 32 + 1) x nw W8A16 and
    32 x nw ragged launches, the replays adding 3 x 32 grouped launches a
-   decode step; graph and eager windows give identical tokens (phase 4b).
+   decode step; the prefill and mixed steps launching the tensor-core
+   kernel exactly as their shapes derive (3 x 32 grouped where B x C rows
+   an expert pass GROUPED_MAX_M, 4 x 32 dense where B x T pass
+   GEMV_MAX_M, the head where B does) and the dequantize entry 0 times;
+   graph and eager windows give identical tokens (phase 4b).
    Reported: TTFT p50 / p90 per run, warm decode tok/s, the untraced ms
    per decode step, the drop rate, weight_bytes and peak memory.
 
@@ -827,24 +854,104 @@ def phase_w8a16() -> tuple:
                     f"w8a16 K={k} N={n} M={m} {str(dt)[6:]}", x, w, got))
         print(f"w8a16 kernel at K={k}, N={n} (odd N, a partial chunk of K): "
               f"M = 1/3/8/16 f32 and bf16 within tolerance", flush=True)
-    # M = 512: the route linear takes (dequantize + matmul), bit-identical
-    # dequantize, and the kernel itself
+    large_worst = large_m_checks(shapes)
+    # M = 512: linear's route is the tensor-core kernel (one launch, no
+    # dequantize), no longer bit-equal to the dequantize + matmul route
+    # (its scale multiplies the f32 sum, not each weight); an f32 x keeps
+    # the dequantize route, whose entry is bit-identical to wmat
+    bf16 = torch.bfloat16
     k, n = shapes["w_gate"]
     w = quant_weight(k, n, seed=77)
-    x = torch.randn((512, k), device="cuda").to(torch.bfloat16)
-    deq = quant.dequantize(w, torch.bfloat16)
-    check(torch.equal(deq, quant.wmat(w, torch.bfloat16)),
+    x = torch.randn((512, k), device="cuda").to(bf16)
+    deq = quant.dequantize(w, bf16)
+    check(torch.equal(deq, quant.wmat(w, bf16)),
           "w8a16 dequantize is not bit-identical to wmat")
+    before = (quant.LARGE_M_LAUNCHES, quant.DEQUANT_LAUNCHES)
     via_linear = quant.linear(x, w)
-    check(torch.equal(via_linear, x @ quant.wmat(w, torch.bfloat16)),
-          "linear at M = 512 is not the dequantize + matmul route")
-    worst = max(worst, w8a16_check("w8a16 w_gate M=512 bf16 (kernel)", x, w,
-                                   quant.w8a16_gemm(x, w["q"], w["s"])))
-    print("w8a16 at M = 512 (w_gate): the dequantize entry is bit-identical "
-          "to wmat, linear's route equals wmat + torch.matmul exactly, and "
-          "the kernel is within tolerance", flush=True)
-    timing, dequant_rec = w8a16_timing(cfg, shapes)
-    return worst, timing, dequant_rec
+    torch.cuda.synchronize()
+    check((quant.LARGE_M_LAUNCHES, quant.DEQUANT_LAUNCHES)
+          == (before[0] + 1, before[1]),
+          f"linear at M = 512 launched {quant.LARGE_M_LAUNCHES - before[0]} "
+          f"tensor-core and {quant.DEQUANT_LAUNCHES - before[1]} dequantize "
+          "kernels, expected 1 and 0")
+    check(torch.equal(via_linear, quant.large_m_gemm(x, w["q"], w["s"])),
+          "linear at M = 512 is not the tensor-core kernel's output")
+    check(not torch.equal(via_linear, x @ quant.wmat(w, bf16)),
+          "linear at M = 512 still equals the dequantize + matmul route bit "
+          "for bit")
+    large_worst = max(large_worst, w8a16_check(
+        "w8a16 w_gate M=512 bf16 (linear)", x, w, via_linear))
+    x32 = x.float()
+    check(torch.equal(quant.linear(x32, w), x32 @ quant.wmat(w, x32.dtype)),
+          "linear at M = 512 with an f32 x is not the dequantize + matmul "
+          "route")
+    worst = max(worst, w8a16_check("w8a16 w_gate M=512 bf16 (decode kernel)",
+                                   x, w, quant.w8a16_gemm(x, w["q"], w["s"])))
+    print("w8a16 at M = 512 (w_gate): linear launches the tensor-core "
+          "kernel once and no dequantize (within tolerance, not bit-equal "
+          "to the dequantize route); an f32 x takes the dequantize entry, "
+          "bit-identical to wmat; the decode kernel is within tolerance",
+          flush=True)
+    del w, x, x32, deq, via_linear
+    timing, dequant_rec, large_rec = w8a16_timing(cfg, shapes)
+    return worst, timing, dequant_rec, {"max_abs_err": large_worst,
+                                        **large_rec}
+
+
+# rows of x the tensor-core kernel is held to its plain version at: past
+# the decode rows, a prefill bucket's, an odd count, a 512-token chunk, a
+# long prompt's
+LARGE_M_ROWS = (9, 16, 64, 100, 512, 2048)
+
+
+def large_m_checks(shapes) -> float:
+    """2d: the tensor-core W8A16 kernel (csrc/w8a16_large_m.cu) against its
+    plain version at the eight llama3-8b shapes and LARGE_M_ROWS, bf16 x,
+    its output memory filled with NaN just before each call (an unwritten
+    tile shows); the W8A16 bf16 tolerance. Then the shapes TMA cannot take
+    (odd N): linear past the switch point raises, while the decode kernel
+    serves them at M <= 8 (above). Returns the largest |diff|."""
+    import torch
+    from dynamo_tpu_torch.ops import quant
+    bf16 = torch.bfloat16
+    worst = 0.0
+    for si, (name, (k, n)) in enumerate(shapes.items()):
+        w = quant_weight(k, n, seed=200 + si)
+        g = torch.Generator(device="cuda").manual_seed(400 + si)
+        for m in LARGE_M_ROWS:
+            x = torch.randn((m, k), generator=g, device="cuda").to(bf16)
+            poison = torch.full((1, m, n), float("nan"), dtype=bf16,
+                                device="cuda")
+            del poison
+            got = quant.large_m_gemm(x, w["q"], w["s"])
+            torch.cuda.synchronize()
+            worst = max(worst, w8a16_check(
+                f"w8a16_large_m {name} M={m}", x, w, got))
+            del x, got
+        tile_m, splits, per, grid = quant.large_m_config(
+            1, 512, k, n, torch.cuda.get_device_properties(0)
+            .multi_processor_count)
+        print(f"w8a16_large_m {name} (K={k}, N={n}; at M 512 tiles of "
+              f"{tile_m} rows, {splits} splits of {per} k-blocks, {grid} "
+              f"blocks): M = "
+              f"{'/'.join(map(str, LARGE_M_ROWS))} within tolerance, no NaN "
+              f"left, max_abs_err so far {worst:.3g}", flush=True)
+        del w
+        torch.cuda.empty_cache()
+    for k, n in ((1000, 333), (4100, 1031)):
+        w = quant_weight(k, n, seed=k)
+        x = torch.randn((quant.GEMV_MAX_M + 1, k), device="cuda").to(bf16)
+        raised = None
+        try:
+            quant.linear(x, w)
+        except ValueError as e:
+            raised = str(e)
+        check(raised is not None and "N % 16" in raised,
+              f"linear at K={k}, N={n}, M={quant.GEMV_MAX_M + 1} did not "
+              f"refuse the shape TMA cannot take: {raised}")
+        print(f"w8a16_large_m at K={k}, N={n}: linear past M = "
+              f"{quant.GEMV_MAX_M} raises ({raised})", flush=True)
+    return worst
 
 
 def w8a16_timing(cfg, shapes) -> tuple:
@@ -888,34 +995,160 @@ def w8a16_timing(cfg, shapes) -> tuple:
               f"weight {lib_ms:.4f} ms", flush=True)
         del ws, wb
         torch.cuda.empty_cache()
-    # the large-M routes at w_gate's shape
-    k, n = shapes["w_gate"]
-    w = quant_weight(k, n, seed=5)
-    routes = {}
-    for m in (16, 512):
-        x = torch.randn((m, k), device="cuda").to(bf16)
-        routes[f"M={m}"] = {
-            "kernel_ms": cuda_ms(lambda i: quant.w8a16_gemm(
-                x, w["q"], w["s"]), 10, graph=True),
-            "dequant_matmul_ms": cuda_ms(
-                lambda i: x @ quant.dequantize(w, bf16), 10, graph=True)}
-    deq_ms = cuda_ms(lambda i: quant.dequantize(w, bf16), 20, graph=True)
-    deq_plain = cuda_ms(lambda i: quant.wmat(w, bf16), 10)
-    deq_b = bound(k * n + 4 * n + 2 * k * n, k * n, "bfloat16")
-    print(f"w8a16 routes at w_gate (K={k}, N={n}), chosen at M <= "
-          f"{quant.GEMV_MAX_M}: {json.dumps(routes)}; the dequantize entry "
-          f"alone {deq_ms:.4f} ms (plain wmat {deq_plain:.4f} ms, bound "
-          f"{deq_b['bound_ms']:.4f} ms)", flush=True)
     print(f"w8a16 per decode step (7 x {cfg.num_layers} projections + the "
           f"head, M = 8): kernel {tot['ms']:.3f} ms, bound "
           f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.1%}), "
           f"plain {tot['plain_ms']:.3f} ms, torch.matmul on bf16 weights "
           f"{tot['library_ms']:.3f} ms", flush=True)
-    timing = {**tot, "bound_by": "bytes", "per_shape": per_shape,
-              "large_m_routes": routes}
+    timing = {**tot, "bound_by": "bytes", "per_shape": per_shape}
+    large, dequant = large_m_timing(cfg, shapes)
+    return timing, dequant, large
+
+
+def large_m_bound(groups: int, m: int, k: int, n: int) -> dict:
+    """The tensor-core kernel's bound for `groups` active groups: bytes K N
+    + 4 N + 2 M K + 2 M N a group over 3.35 TB/s against 2 M K N
+    operations a group over 989 TFLOP/s, the larger."""
+    return bound(groups * (k * n + 4 * n + 2 * m * k + 2 * m * n),
+                 groups * 2 * m * k * n, "bfloat16")
+
+
+def weight_copies(k: int, n: int, nbytes: int = 1) -> int:
+    """Copies of a [K, N] weight of `nbytes` an element that together pass
+    128 MiB, so that cycling through them keeps each read out of the 50 MB
+    L2, as a forward pass reads each weight once."""
+    return max(1, -(-(128 << 20) // (nbytes * k * n)))
+
+
+def large_m_timing(cfg, shapes) -> tuple:
+    """2d's times of the prefill route, CUDA-event means over replayed
+    graphs with the weights cycled past the L2, all in this one call:
+    - w_gate at M = 16 / 128 / 512: the tensor-core kernel, its bound, the
+      plain version (`x @ wmat(w)`), the library (torch.matmul on the bf16
+      weight) and the old route (the dequantize entry + torch.matmul);
+    - the switch-point table: the decode kernel and the tensor-core kernel
+      at M = 8, 9, 16, 32, 64 for w_gate and wk;
+    - one 512-token llama3-8b prefill step's int8 products (7 x 32
+      weights at M = 512): the tensor-core kernel, the old route and
+      torch.matmul on bf16 weights, each shape timed once and summed over
+      the layer and the 32 layers;
+    - the dequantize entry alone at w_gate (plain: wmat; library: the old
+      route's torch.matmul at M = 512, the product it feeds).
+    Returns (the kernel's record, the dequantize entry's record)."""
+    import torch
+    from dynamo_tpu_torch.ops import quant
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def weights(k, n, seed):
+        copies = weight_copies(k, n)
+        ws = [quant_weight(k, n, seed=seed + i) for i in range(copies)]
+        return ws, copies
+
+    def routes(x, ws, copies, with_plain):
+        rec = {
+            "ms": cuda_ms(lambda i: quant.large_m_gemm(
+                x, ws[i % copies]["q"], ws[i % copies]["s"]), 20,
+                graph=True),
+            "old_route_ms": cuda_ms(lambda i: x @ quant.dequantize(
+                ws[i % copies], bf16), 10, graph=True)}
+        if with_plain:
+            rec["plain_ms"] = cuda_ms(
+                lambda i: x @ quant.wmat(ws[i % copies], bf16), 5)
+        wb = [quant.wmat(ws[i], bf16)
+              for i in range(weight_copies(*ws[0]["q"].shape, 2))]
+        rec["library_ms"] = cuda_ms(lambda i: x @ wb[i % len(wb)], 20,
+                                    graph=True)
+        return rec
+
+    # w_gate at M = 16 / 128 / 512
+    k, n = shapes["w_gate"]
+    ws, copies = weights(k, n, 5)
+    per_m = {}
+    for m in (16, 128, 512):
+        x = torch.randn((m, k), device="cuda").to(bf16)
+        rec = routes(x, ws, copies, True)
+        b = large_m_bound(1, m, k, n)
+        rec.update(b, share_of_bound=b["bound_ms"] / rec["ms"],
+                   config=list(quant.large_m_config(1, m, k, n, sms)))
+        per_m[f"M={m}"] = rec
+        print(f"timing w8a16_large_m w_gate (M={m}, K={k}, N={n}, "
+              f"{copies} weight copies): kernel {rec['ms']:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"{rec['share_of_bound']:.1%} of the bound; plain "
+              f"{rec['plain_ms']:.4f} ms; torch.matmul on the bf16 weight "
+              f"{rec['library_ms']:.4f} ms; old route (dequantize + "
+              f"torch.matmul) {rec['old_route_ms']:.4f} ms", flush=True)
+    deq_ms = cuda_ms(lambda i: quant.dequantize(ws[i % copies], bf16), 20,
+                     graph=True)
+    deq_plain = cuda_ms(lambda i: quant.wmat(ws[i % copies], bf16), 10)
+    deq_b = bound(k * n + 4 * n + 2 * k * n, k * n, "bfloat16")
+    # no one PyTorch call computes the dequantize alone; the route's
+    # library time (torch.matmul on the bf16 weight at M = 512, the product
+    # the entry fed) stands beside it
     dequant = {"ms": deq_ms, "plain_ms": deq_plain, "library_ms": None,
+               "route_ms": per_m["M=512"]["old_route_ms"],
+               "route_library_ms": per_m["M=512"]["library_ms"],
                "shape": [k, n], **deq_b}
-    return timing, dequant
+    print(f"w8a16 dequantize entry alone at w_gate: {deq_ms:.4f} ms (plain "
+          f"wmat {deq_plain:.4f} ms, bound {deq_b['bound_ms']:.4f} ms)",
+          flush=True)
+    del ws
+    torch.cuda.empty_cache()
+
+    # the switch point: both kernels at the first rows past the decode step
+    switch = {}
+    for name in ("w_gate", "wk"):
+        k, n = shapes[name]
+        ws, copies = weights(k, n, 40)
+        switch[name] = {}
+        for m in (8, 9, 16, 32, 64):
+            x = torch.randn((m, k), device="cuda").to(bf16)
+            switch[name][m] = {
+                "decode_ms": cuda_ms(lambda i: quant.w8a16_gemm(
+                    x, ws[i % copies]["q"], ws[i % copies]["s"]), 20,
+                    graph=True),
+                "large_m_ms": cuda_ms(lambda i: quant.large_m_gemm(
+                    x, ws[i % copies]["q"], ws[i % copies]["s"]), 20,
+                    graph=True)}
+        print(f"switch point, {name} (K={k}, N={n}): " + "; ".join(
+            f"M={m} decode {v['decode_ms']:.4f} / tensor-core "
+            f"{v['large_m_ms']:.4f} ms" for m, v in switch[name].items())
+            + f" (GEMV_MAX_M = {quant.GEMV_MAX_M})", flush=True)
+        del ws
+        torch.cuda.empty_cache()
+
+    # one 512-token prefill step's int8 products: 7 x L weights at M = 512
+    layer = {"wq": 1, "wk": 2, "wo": 1, "w_gate": 2, "w_down": 1}
+    step = {"ms": 0.0, "old_route_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0}
+    by_shape = {}
+    for name, reps in layer.items():
+        k, n = shapes[name]
+        ws, copies = weights(k, n, 60)
+        x = torch.randn((512, k), device="cuda").to(bf16)
+        rec = routes(x, ws, copies, False)
+        rec.update(large_m_bound(1, 512, k, n))
+        by_shape[name] = rec
+        for key in step:
+            step[key] += cfg.num_layers * reps * rec[key]
+        del ws
+        torch.cuda.empty_cache()
+    print(f"one 512-token llama3-8b prefill step's int8 products (7 x "
+          f"{cfg.num_layers} at M = 512): tensor-core kernel "
+          f"{step['ms']:.3f} ms, old route (dequantize + torch.matmul) "
+          f"{step['old_route_ms']:.3f} ms, torch.matmul on bf16 weights "
+          f"{step['library_ms']:.3f} ms, bound {step['bound_ms']:.3f} ms",
+          flush=True)
+    main = per_m["M=512"]
+    record = {"ms": main["ms"], "plain_ms": main["plain_ms"],
+              "library_ms": main["library_ms"],
+              "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+              "shape": "w_gate (K 4096, N 14336) at M = 512",
+              "old_route_ms": main["old_route_ms"], "per_m": per_m,
+              "switch_point": switch, "prefill_step": {**step,
+                                                       "by_shape": by_shape}}
+    return record, dequant
 
 
 # -- phase 3: tiny f32 card vs CPU --------------------------------------------
@@ -928,7 +1161,7 @@ def tree_to(tree, dev):
 
 
 def phase_small_reference(kv_quant: str = "", quant: str = "",
-                          model: str = "tiny") -> None:
+                          model: str = "tiny") -> dict:
     import torch
     from dynamo_tpu_torch.engine.config import EngineConfig, get_model_config
     from dynamo_tpu_torch.engine.engine import NativeEngine
@@ -945,7 +1178,13 @@ def phase_small_reference(kv_quant: str = "", quant: str = "",
                for dev in ("cpu", "cuda")}
     prompt = list(range(5, 45))
     sp = SamplingParams(max_tokens=12, temperature=0.0)
-    outs = {dev: e.generate(prompt, sp, "r") for dev, e in engines.items()}
+    outs = {"cpu": engines["cpu"].generate(prompt, sp, "r")}
+    # the card's run is a path of its own: the f32 route of int8 weights
+    # (the decode kernel's f32 body, the dequantize entry + torch.matmul
+    # past GEMV_MAX_M rows)
+    reset_launch_counts()
+    outs["cuda"] = engines["cuda"].generate(prompt, sp, "r")
+    launches = launch_counts()
     label = (f"{model} f32{' kv_quant=' + kv_quant if kv_quant else ''}"
              f"{' quant=' + quant if quant else ''}")
     check(outs["cpu"] == outs["cuda"],
@@ -967,8 +1206,9 @@ def phase_small_reference(kv_quant: str = "", quant: str = "",
     check(bool(torch.isfinite(logits["cuda"]).all()) and err < 1e-3,
           f"{label} decode logits cuda vs cpu differ by {err}")
     print(f"small reference: {label} greedy tokens identical on cuda and "
-          f"cpu ({outs['cuda']}); decode logits max_abs_err {err:.3g}",
-          flush=True)
+          f"cpu ({outs['cuda']}); decode logits max_abs_err {err:.3g}; "
+          f"the card's run launched {json.dumps(launches)}", flush=True)
+    return launches
 
 
 # -- phase 4: main path ---------------------------------------------------------
@@ -1021,6 +1261,15 @@ def chat_requests(model: str, sampled: bool = True) -> list:
     return reqs
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import quant
+    return {RAGGED: pa.KERNEL_LAUNCHES, W8A16: quant.KERNEL_LAUNCHES,
+            DEQUANT: quant.DEQUANT_LAUNCHES, MOE: quant.MOE_LAUNCHES,
+            LARGE_M: quant.LARGE_M_LAUNCHES}
+
+
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0 (just before a path)."""
     from dynamo_tpu_torch.ops import paged_attention as pa
@@ -1031,13 +1280,100 @@ def reset_launch_counts() -> None:
     quant.KERNEL_LAUNCHES = 0
     quant.DEQUANT_LAUNCHES = 0
     quant.MOE_LAUNCHES = 0
+    quant.LARGE_M_LAUNCHES = 0
 
 
 RAGGED, W8A16, MOE = "ragged_decode_attention", "w8a16_gemm", "w8a16_moe_gemm"
+LARGE_M, DEQUANT = "w8a16_large_m", "w8a16_dequant"
+
+
+class StepShapes:
+    """The (rows, tokens a row) of every prefill and mixed step an engine
+    runs while attached: its device step is wrapped for the run, `detach`
+    unwraps it."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.shapes = []
+        run = engine._run_device_step
+
+        def recorded(plan, reqs, mixed=False):
+            self.shapes.append(tuple(plan.tokens.shape))
+            return run(plan, reqs, mixed=mixed)
+        engine._run_device_step = recorded
+
+    def detach(self) -> None:
+        del self.engine._run_device_step
+
+
+def int8_product_launches(cfg, shapes) -> dict:
+    """The W8A16 launches an int8-weight engine's prefill and mixed steps
+    of `shapes` make, derived from their shapes and the routes of
+    ops/quant.py: each step of B rows x T tokens runs its layer
+    projections at M = B x T (7 a layer, or wq / wk / wv / wo on an MoE
+    model, whose experts run grouped at M = B x C rows an expert with the
+    dispatch's capacity C = max(int(T k / E x factor), 1)) and its head at
+    M = B (the last position of each row). Past GEMV_MAX_M (GROUPED_MAX_M
+    for the experts) a product is one tensor-core launch (w8a16_large_m),
+    at or below it a decode-kernel launch; the dequantize entry is never
+    launched."""
+    from dynamo_tpu_torch.ops import quant
+    nl = cfg.num_layers
+    large = w8 = moe = 0
+    for b, t in shapes:
+        dense = (4 if cfg.is_moe else 7) * nl
+        if b * t > quant.GEMV_MAX_M:
+            large += dense
+        else:
+            w8 += dense
+        if cfg.is_moe:
+            cap = max(int(t * cfg.num_experts_per_tok / cfg.num_experts
+                          * cfg.moe_capacity_factor), 1)
+            if b * cap > quant.GROUPED_MAX_M:
+                large += 3 * nl
+            else:
+                moe += 3 * nl
+        if b > quant.GEMV_MAX_M:
+            large += 1
+        else:
+            w8 += 1
+    return {LARGE_M: large, W8A16: w8, MOE: moe, DEQUANT: 0}
 
 COUNTERS = ("decode_windows", "decode_window_steps", "decode_dispatches",
             "decode_host_syncs", "decode_plan_uploads", "pipeline_windows",
             "pipeline_overlapped", "pipeline_fallbacks", "mixed_steps")
+
+
+def prefill_launch_check(name: str, engine, shapes, launches: dict,
+                         warm0: dict, replay0: dict) -> dict:
+    """A run's int8 products outside the decode windows, from its launch
+    counts: on an int8-weight engine the tensor-core kernel launched
+    exactly as `int8_product_launches` derives from the run's prefill and
+    mixed step shapes, the decode kernels' eager launches (the counts less
+    what the window graphs' warm-ups and replays added) exactly as derived,
+    and the dequantize entry never; a bf16 engine launches neither of the
+    first two. Returns the record (the step shapes and the counts)."""
+    gr = engine.graphs
+    eager = {k: launches[k] - (gr.warmup_launches[k] - warm0[k])
+             - (gr.replay_launches[k] - replay0[k])
+             for k in (W8A16, MOE, LARGE_M, DEQUANT)}
+    if not engine.quant:
+        check(launches[LARGE_M] == 0 and launches[DEQUANT] == 0,
+              f"{name}: a bf16-weight engine launched int8 products "
+              f"{launches}")
+        return {"shapes": shapes}
+    want = int8_product_launches(engine.model_cfg, shapes)
+    got = {LARGE_M: launches[LARGE_M], DEQUANT: launches[DEQUANT],
+           W8A16: eager[W8A16], MOE: eager[MOE]}
+    check(got == want and eager[LARGE_M] == launches[LARGE_M],
+          f"{name}: prefill / mixed steps {shapes} launched {got} (eager; "
+          f"{launches} in all), expected {want} from their shapes")
+    print(f"{name}: {len(shapes)} prefill / mixed steps (rows x tokens "
+          f"{shapes}) launched the tensor-core W8A16 kernel "
+          f"{got[LARGE_M]} times, the decode kernels {got[W8A16]} + "
+          f"{got[MOE]} (grouped) times eagerly, the dequantize entry 0 "
+          "times, as their shapes derive", flush=True)
+    return {"shapes": shapes, **got}
 
 
 async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
@@ -1052,7 +1388,6 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
     served before, extended here). Returns the run's record and token
     ids."""
     import torch
-    from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.protocols.delta import aggregate_chat_chunks
     from dynamo_tpu_torch.runtime.engine import Context
     cfg, gr = engine.model_cfg, engine.graphs
@@ -1067,22 +1402,24 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
     before = {k: getattr(engine, k) for k in COUNTERS}
     g0 = (gr.captured, gr.warmup_seconds + gr.capture_seconds, gr.replays,
           gr.warmup_launches[RAGGED], gr.warmup_seconds)
+    w0, r0 = dict(gr.warmup_launches), dict(gr.replay_launches)
     if cfg.is_moe:
         moe = MoeCounts(engine)
+    step_shapes = StepShapes(engine)
     reset_launch_counts()
     t_run = time.perf_counter()
     try:
         results = await asyncio.gather(*(one(i, r)
                                          for i, r in enumerate(requests)))
     finally:
+        step_shapes.detach()
         if cfg.is_moe:
             moe.detach()
     wall = time.perf_counter() - t_run
-    launches = pa.KERNEL_LAUNCHES
-    from dynamo_tpu_torch.ops import quant
-    all_launches = {RAGGED: launches, W8A16: quant.KERNEL_LAUNCHES,
-                    "w8a16_dequant": quant.DEQUANT_LAUNCHES,
-                    MOE: quant.MOE_LAUNCHES}
+    all_launches = launch_counts()
+    launches = all_launches[RAGGED]
+    int8_steps = prefill_launch_check(name, engine, step_shapes.shapes,
+                                      all_launches, w0, r0)
     peak = torch.cuda.max_memory_allocated()
     d = {k: getattr(engine, k) - v for k, v in before.items()}
     captured, cap_s, replays, warm, warm_s = (
@@ -1153,7 +1490,7 @@ async def serve_run(engine, pipe, timed, requests, tag: str, name: str,
           f"{json.dumps(engine.phases.split())}", flush=True)
     return {"ids": [x["ids"] for x in st], "launches": launches,
             "n_prompt": n_prompt, "captured": captured, "moe": moe_rec,
-            "all_launches": all_launches,
+            "all_launches": all_launches, "prefill_steps": int8_steps,
             "stats": {
                 "wall_s": wall, "ttft_mean_ms": sum(ttft) / len(ttft) * 1e3,
                 "ttft_max_ms": max(ttft) * 1e3,
@@ -1818,8 +2155,6 @@ async def http_run(svc, engine, timed, tag: str, smi: str) -> dict:
     phase-9 docstring says."""
     import torch
     from dynamo_tpu_torch.observability.serving import SERVING
-    from dynamo_tpu_torch.ops import paged_attention as pa
-    from dynamo_tpu_torch.ops import quant
     cfg, gr = engine.model_cfg, engine.graphs
     name = f"HTTP path ({tag} run)"
     bodies = []
@@ -1834,6 +2169,7 @@ async def http_run(svc, engine, timed, tag: str, smi: str) -> dict:
     before = {k: getattr(engine, k) for k in COUNTERS}
     g0 = (gr.replays, dict(gr.warmup_launches), dict(gr.replay_launches))
     torch.cuda.reset_peak_memory_stats()
+    step_shapes = StepShapes(engine)
     reset_launch_counts()
     t_run = time.perf_counter()
 
@@ -1843,11 +2179,14 @@ async def http_run(svc, engine, timed, tag: str, smi: str) -> dict:
         check(status == 200, f"{name}: status {status}: {raw[:200]}")
         return json.loads(raw)
 
-    results = await asyncio.gather(*(
-        _sse(svc.port, b) if b.get("stream") else unary(b) for b in bodies))
+    try:
+        results = await asyncio.gather(*(
+            _sse(svc.port, b) if b.get("stream") else unary(b)
+            for b in bodies))
+    finally:
+        step_shapes.detach()
     wall = time.perf_counter() - t_run
-    launches = {RAGGED: pa.KERNEL_LAUNCHES, W8A16: quant.KERNEL_LAUNCHES,
-                "w8a16_dequant": quant.DEQUANT_LAUNCHES}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     d = {k: getattr(engine, k) - v for k, v in before.items()}
     replays = gr.replays - g0[0]
@@ -1890,9 +2229,9 @@ async def http_run(svc, engine, timed, tag: str, smi: str) -> dict:
           f"{name}: replays added {replayed} launches over {steps} decode "
           f"steps; ragged launches {launches[RAGGED]} (warm-ups "
           f"{warm[RAGGED]})")
-    eager_w8 = launches[W8A16] - replayed[W8A16] - warm[W8A16]
-    check(eager_w8 >= 0, f"{name}: W8A16 launches {launches[W8A16]} < "
-          f"replays {replayed[W8A16]} + warm-ups {warm[W8A16]}")
+    prefill = prefill_launch_check(name, engine, step_shapes.shapes, launches,
+                                   g0[1], g0[2])
+    eager_w8 = prefill[W8A16]
     status, _, raw = await _http(svc.port, "GET", "/metrics")
     text = raw.decode()
     n_ttft = hist_counts(text, "llm_ttft_seconds")
@@ -1918,6 +2257,7 @@ async def http_run(svc, engine, timed, tag: str, smi: str) -> dict:
            "weight_quant_bits": m.weight_quant_bits,
            "launches": launches, "warmup_launches": warm,
            "replay_launches": replayed, "eager_w8a16_launches": eager_w8,
+           "prefill_steps": prefill,
            "decode_steps": steps, "ttft_count": n_ttft, "itl_count": n_itl,
            "counters": d}
     print(f"{name}: 8 chat requests over HTTP (4 SSE, 4 unary), completion "
@@ -1925,8 +2265,9 @@ async def http_run(svc, engine, timed, tag: str, smi: str) -> dict:
           f"counters {json.dumps(d)}; graph replays {replays}; launches "
           f"{json.dumps(launches)} = replays {json.dumps(replayed)} "
           f"((7 x {nl} + 1) x {steps} W8A16, {nl} x {steps} ragged) + "
-          f"warm-ups {json.dumps(warm)} + {eager_w8} W8A16 head products of "
-          f"prefill steps", flush=True)
+          f"warm-ups {json.dumps(warm)} + the prefill and mixed steps' "
+          f"{prefill[LARGE_M]} tensor-core and {eager_w8} decode-kernel "
+          "W8A16 launches", flush=True)
     print(f"{name} [{smi}]: histograms TTFT p50 {q['ttft_p50_ms']:.1f} ms, "
           f"p90 {q['ttft_p90_ms']:.1f} ms, ITL p50 {q['itl_p50_ms']:.2f} ms,"
           f" p90 {q['itl_p90_ms']:.2f} ms (llm_ttft_seconds_count {n_ttft}, "
@@ -2355,7 +2696,26 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
                   f"{name}: kv-p{p}-u{u} went to {d['worker_id']} with "
                   f"{d['overlap_blocks']} matched pages (its prefix was "
                   f"served by {d0['worker_id']}; {common // page} pages "
-                  f"shared)")
+                  f"shared); the selector's terms for it: "
+                  f"{json.dumps(d.get('candidates'))}; for kv-p{p}-u0: "
+                  f"{json.dumps(d0.get('candidates'))}")
+        # the selector's margin on each decision: the winner's logit less
+        # the best other candidate's, and where each load snapshot came
+        # from (scraped this cycle, carried forward, defaulted)
+        margins, sources = [], {}
+        for p, u in tokens:
+            cands = dec[f"kv-p{p}-u{u}"].get("candidates") or []
+            won = [c["logit"] for c in cands
+                   if c["worker_id"] == dec[f"kv-p{p}-u{u}"]["worker_id"]]
+            rest = [c["logit"] for c in cands
+                    if c["worker_id"] != dec[f"kv-p{p}-u{u}"]["worker_id"]]
+            if won and rest:
+                margins.append(round(won[0] - max(rest), 4))
+            for c in cands:
+                sources[c["snapshot"]] = sources.get(c["snapshot"], 0) + 1
+        print(f"{name}: router decisions' logit margins (winner less the "
+              f"best other) {sorted(margins)}; candidate snapshots "
+              f"{json.dumps(sources)}", flush=True)
         fallbacks = re.search(r"^llm_router_fallbacks (\S+)$", text, re.M)
         check(fallbacks is not None and float(fallbacks.group(1)) == 0,
               f"{name}: llm_router_fallbacks "
@@ -3606,7 +3966,7 @@ def moe_kernel_phase() -> tuple:
     routings = {"all 8 active": list(range(e)), "2 active": [2, 5],
                 "none active": []}
     m, bf16 = 8, torch.bfloat16
-    worst, per_shape = 0.0, {}
+    worst, large_worst, per_shape = 0.0, 0.0, {}
     for si, (name, (k, n)) in enumerate(shapes.items()):
         g = torch.Generator(device="cuda").manual_seed(300 + si)
         q = torch.empty((e, k, n), dtype=torch.int8, device="cuda")
@@ -3658,12 +4018,16 @@ def moe_kernel_phase() -> tuple:
                   f"{plain:.4f} ms; torch.matmul on the active experts' "
                   f"bf16 weights {'n/a' if lib is None else f'{lib:.4f}'}"
                   " ms", flush=True)
-        xp = torch.randn((e, 256, k), generator=g, device="cuda").to(bf16)
-        every = torch.full((e,), 256, dtype=torch.int32, device="cuda")
-        rec["prefill_route_ms"] = cuda_ms(lambda i: quant.grouped_linear(
-            xp, {"q": q, "s": s}, every), 5, graph=True)
+        large = {}
+        for mm in (256, 2048):
+            lw, lrec = moe_large_m(name, q, s, mm, routings, g)
+            large_worst = max(large_worst, lw)
+            large[f"M={mm}"] = lrec
+        rec["large_m"] = large
+        rec["prefill_route_ms"] = large["M=256"]["all 8 active"]["ms"]
+        rec["old_prefill_route_ms"] = large["M=256"]["old_route_ms"]
         per_shape[name] = rec
-        del q, s, x, xp
+        del q, s, x
         torch.cuda.empty_cache()
     nl = cfg.num_layers
     step = {key: nl * sum(per_shape[p]["all 8 active"][key] for p in shapes)
@@ -3671,6 +4035,11 @@ def moe_kernel_phase() -> tuple:
     one_slot = {key: nl * sum(per_shape[p]["2 active"][key] for p in shapes)
                 for key in ("ms", "bound_ms")}
     prefill = nl * sum(per_shape[p]["prefill_route_ms"] for p in shapes)
+    old_prefill = nl * sum(per_shape[p]["old_prefill_route_ms"]
+                           for p in shapes)
+    chunk = {key: nl * sum(per_shape[p]["large_m"]["M=256"]["all 8 active"]
+                           [key] for p in shapes)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     print(f"grouped w8a16 per decode step (3 x {nl} launches, every expert "
           f"active): kernel {step['ms']:.3f} ms, bound "
           f"{step['bound_ms']:.3f} ms ({step['bound_ms'] / step['ms']:.1%}),"
@@ -3678,10 +4047,88 @@ def moe_kernel_phase() -> tuple:
           f"{step['library_ms']:.3f} ms; one live slot (2 active): "
           f"{one_slot['ms']:.3f} ms against {one_slot['bound_ms']:.3f}; "
           f"the prefill route's expert products for one 512-token chunk "
-          f"(dequantize + torch.matmul): {prefill:.3f} ms", flush=True)
+          f"(3 x {nl} tensor-core launches, 256 rows an expert): "
+          f"{prefill:.3f} ms against the old route's (dequantize + "
+          f"torch.matmul, re-timed here) {old_prefill:.3f} ms; bound "
+          f"{chunk['bound_ms']:.3f} ms, torch.matmul on bf16 experts "
+          f"{chunk['library_ms']:.3f} ms", flush=True)
     return worst, {**step, "bound_by": "bytes", "one_live_slot": one_slot,
                    "prefill_route_ms_per_step": prefill,
-                   "per_shape": per_shape}
+                   "old_prefill_route_ms_per_step": old_prefill,
+                   "per_shape": per_shape}, {
+        "max_abs_err": large_worst, "chunk": chunk,
+        "old_route_ms_per_chunk": old_prefill}
+
+
+def moe_large_m(name: str, q, s, m: int, routings: dict, g) -> tuple:
+    """14.1: the tensor-core kernel's grouped call over one layer's 8
+    experts at M rows an expert, under each routing: active experts within
+    the W8A16 bf16 tolerance of the plain version, inactive ones exact
+    zeros (y's memory NaN-filled just before); then CUDA-event times over
+    replayed graphs: the kernel, its bound (the active experts' work and
+    bytes, and all of y), the plain version (`grouped_w8a16_plain`),
+    torch.matmul on bf16 copies of the active experts, and once the old
+    route as it ran (every expert dequantized + torch.matmul). Returns
+    (max |diff|, the record)."""
+    import torch
+    from dynamo_tpu_torch.ops import quant
+    bf16 = torch.bfloat16
+    e, k, n = q.shape
+    x = torch.randn((e, m, k), generator=g, device="cuda").to(bf16)
+    worst, rec = 0.0, {}
+    for label, ids in routings.items():
+        active = torch.zeros((e,), dtype=torch.int32, device="cuda")
+        active[ids] = m
+        poison = torch.full((e, m, n), float("nan"), dtype=bf16,
+                            device="cuda")
+        del poison
+        got = quant.grouped_linear(x, {"q": q, "s": s}, active)
+        torch.cuda.synchronize()
+        for j in range(e):
+            if j in ids:
+                worst = max(worst, w8a16_check(
+                    f"w8a16_large_m grouped {name} M={m} expert {j} "
+                    f"({label})", x[j], {"q": q[j], "s": s[j].reshape(-1)},
+                    got[j]))
+            else:
+                check(bool((got[j] == 0).all()),
+                      f"w8a16_large_m grouped {name} M={m} expert {j} "
+                      f"({label}): an inactive expert's output is not "
+                      "exact zeros")
+        del got
+        ms = cuda_ms(lambda i: quant.large_m_gemm(x, q, s, active), 5,
+                     graph=True)
+        plain = cuda_ms(lambda i: quant.grouped_w8a16_plain(
+            x, q, s, active), 2)
+        lib = None
+        if ids:
+            xa = x[ids].contiguous()
+            wa = quant.wmat({"q": q[ids], "s": s[ids]}, bf16)
+            lib = cuda_ms(lambda i: torch.matmul(xa, wa), 5, graph=True)
+            del xa, wa
+        # the active experts' weights, scales and x, and all of y (the
+        # inactive experts' rows are written as zeros)
+        a = len(ids)
+        b = bound(a * (k * n + 4 * n + 2 * m * k) + 2 * e * m * n,
+                  2 * m * k * n * a, "bfloat16")
+        rec[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib, **b,
+                      "share_of_bound": b["bound_ms"] / ms,
+                      "active": len(ids)}
+        print(f"timing w8a16_large_m grouped {name} (E={e}, M={m}, K={k}, "
+              f"N={n}, {label}): kernel {ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"{b['bound_ms'] / ms:.1%} of the bound; plain {plain:.4f} "
+              f"ms; torch.matmul on the active experts' bf16 weights "
+              f"{'n/a' if lib is None else f'{lib:.4f}'} ms", flush=True)
+    rec["old_route_ms"] = cuda_ms(lambda i: [
+        torch.matmul(x[j], quant.dequantize({"q": q[j], "s": s[j]}, bf16))
+        for j in range(e)], 2, graph=True)
+    print(f"timing the old prefill route for {name} (E={e}, M={m}: every "
+          f"expert dequantized + torch.matmul): {rec['old_route_ms']:.4f} ms",
+          flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return worst, rec
 
 
 def phase_moe(smi: str) -> dict:
@@ -3694,14 +4141,14 @@ def phase_moe(smi: str) -> dict:
     decode step)."""
     import torch
     t0 = time.perf_counter()
-    err, kernel = moe_kernel_phase()
+    err, kernel, large_m = moe_kernel_phase()
     torch.cuda.empty_cache()
     engine, first, warm = asyncio.run(serve_main_path(
         smi, quant="int8", model="mixtral-8x7b"))
     graph = phase_graph_vs_eager(engine, "mixtral-8x7b int8",
                                  model="mixtral-8x7b")
     m = engine.metrics()
-    rec = {"kernel": kernel, "max_abs_err": err,
+    rec = {"kernel": kernel, "max_abs_err": err, "large_m": large_m,
            "launches": first["all_launches"],
            "warm_launches": warm["all_launches"],
            "runs": {"capturing": {**first["stats"], **first["moe"]},
@@ -3796,10 +4243,14 @@ def main() -> int:
     err_bf16 = phase_kernel()
     err_int8 = phase_kernel_int8()
     err_legacy = phase_legacy()
-    err_w8, w8_timing, dequant_timing = phase_w8a16()
+    err_w8, w8_timing, dequant_timing, large_m = phase_w8a16()
     phase_small_reference()
     phase_small_reference("int8")
-    phase_small_reference(quant="int8")
+    f32_int8 = phase_small_reference(quant="int8")
+    check(f32_int8[DEQUANT] > 0 and f32_int8[LARGE_M] == 0,
+          f"tiny f32 int8 on the card launched {f32_int8}: an f32 x past "
+          "GEMV_MAX_M rows takes the dequantize entry, never the "
+          "tensor-core kernel")
     phase_small_reference(model="tiny-moe")
     phase_small_reference(quant="int8", model="tiny-moe")
     engine, first, _ = asyncio.run(serve_main_path(smi))
@@ -3878,8 +4329,24 @@ def main() -> int:
     records.append({
         "name": "w8a16_dequant", "route": "cuda", "source": source,
         "replaces": "dynamo_tpu/ops/quant.py:70 (wmat; no Pallas kernel)",
-        "launches": first_http["launches"]["w8a16_dequant"],
+        # its path is the f32 route now (phase 3's tiny f32 int8 run on
+        # the card); the serving runs launch it 0 times
+        "launches": f32_int8[DEQUANT],
+        "serving_launches": {"http": first_http["launches"][DEQUANT],
+                             "moe": moe["launches"][DEQUANT]},
         "max_abs_err": 0.0, **dequant_timing})
+    records.append({
+        "name": LARGE_M, "route": "cuda",
+        "source": "dynamo_tpu_torch/csrc/w8a16_large_m.cu",
+        "replaces": "dynamo_tpu/ops/quant.py:70 and dynamo_tpu/ops/moe.py:77 "
+                    "(wmat under the matmul and the expert einsums, fused by "
+                    "XLA; no Pallas kernel): the dequantize entry + "
+                    "torch.matmul route it takes over",
+        "launches": first_http["launches"][LARGE_M],
+        "moe_launches": moe["launches"][LARGE_M],
+        **large_m, "max_abs_err": max(large_m["max_abs_err"],
+                                      moe["large_m"]["max_abs_err"]),
+        "mixtral_chunk": moe["large_m"]})
     records.append({
         "name": MOE, "route": "cuda",
         "source": "dynamo_tpu_torch/csrc/w8a16_moe_gemm.cu",

@@ -63,6 +63,7 @@ KERNELS = {
     "w8a16_gemm": (quant, "KERNEL_LAUNCHES", "CAPTURED_CALLS"),
     "w8a16_dequant": (quant, "DEQUANT_LAUNCHES", "DEQUANT_CAPTURED"),
     "w8a16_moe_gemm": (quant, "MOE_LAUNCHES", "MOE_CAPTURED"),
+    "w8a16_large_m": (quant, "LARGE_M_LAUNCHES", "LARGE_M_CAPTURED"),
 }
 
 

@@ -98,6 +98,10 @@ class KvMetricsAggregator:
         # come from here, NOT from the bump-mutated working snapshot, so
         # optimistic bumps never compound across scrape windows
         self._last_scraped: Dict[str, WorkerMetrics] = {}
+        # where each worker's entry in the current snapshot came from:
+        # "scraped" this cycle, "carried" forward from its last scrape, or
+        # "defaulted" (never published: unit totals)
+        self.snapshot_source: Dict[str, str] = {}
 
     def on_update(self, cb) -> None:
         """cb(ProcessedEndpoints, removed_worker_ids) per scrape."""
@@ -106,6 +110,7 @@ class KvMetricsAggregator:
     async def scrape_once(self) -> ProcessedEndpoints:
         stats = await self.client.scrape_stats()
         workers: Dict[str, WorkerMetrics] = {}
+        sources: Dict[str, str] = {}
         for worker_id, payload in stats.items():
             try:
                 m = WorkerMetrics.from_dict(payload)
@@ -113,6 +118,7 @@ class KvMetricsAggregator:
                 continue
             workers[worker_id] = m
             self._last_scraped[worker_id] = dataclasses.replace(m)
+            sources[worker_id] = "scraped"
         # a live instance that failed this scrape resumes from its last
         # *pristine* snapshot (not the bump-mutated working copy); one that
         # never published stats is still routable, with unit totals so the
@@ -128,10 +134,12 @@ class KvMetricsAggregator:
             workers[worker_id] = (dataclasses.replace(last)
                                   if last is not None else WorkerMetrics(
                                       request_total_slots=1, kv_total_blocks=1))
+            sources[worker_id] = "carried" if last is not None else "defaulted"
         removed = set(self.endpoints.workers) - set(workers)
         for worker_id in removed:
             self._last_scraped.pop(worker_id, None)
         self.endpoints = ProcessedEndpoints(workers)
+        self.snapshot_source = sources
         for cb in self._listeners:
             cb(self.endpoints, removed)
         return self.endpoints

@@ -19,7 +19,10 @@ plane: the health-score eviction; with QoS: the class weight; and the
 per-decision `kv-hit-rate` events, which no JAX caller turns on.
 
 `decisions` keeps the last DECISION_LOG decisions (request id, the winner,
-its matched and required pages, every worker's score) for inspection.
+its matched and required pages, every worker's score, and every
+candidate's selector terms: matched pages, overlap share, kv_usage, active
+share, logit, and whether its load snapshot was scraped, carried forward
+or defaulted) for inspection.
 """
 from __future__ import annotations
 
@@ -205,9 +208,13 @@ class KvRouter:
         overlap = self.find_matches_for_tokens(tokens)
         sel = self.scheduler.schedule(len(tokens), overlap, exclude=exclude)
         SERVING.schedule.observe(value=time.monotonic() - t0)
+        sources = self.aggregator.snapshot_source
         self.decisions.append({
             "request_id": request_id, "worker_id": sel.worker_id,
             "overlap_blocks": sel.overlap_blocks,
             "required_blocks": sel.required_blocks,
-            "scores": dict(overlap.scores)})
+            "scores": dict(overlap.scores),
+            "candidates": [
+                {**c, "snapshot": sources.get(c["worker_id"], "unknown")}
+                for c in sel.candidates]})
         return sel.worker_id

@@ -49,6 +49,10 @@ class WorkerSelection:
     worker_id: str
     required_blocks: int
     overlap_blocks: int
+    # every candidate's terms as the selector computed them (worker_id,
+    # matched_blocks, overlap, kv_usage, active, logit), for the router's
+    # decision log
+    candidates: List[dict] = dataclasses.field(default_factory=list)
 
 
 class WorkerSelector(Protocol):
@@ -71,6 +75,7 @@ class DefaultWorkerSelector:
         isl = max(request.isl_tokens, 1)
         best_logit = float("-inf")
         best: List[str] = []
+        terms: List[dict] = []
         for worker_id, m in endpoints.workers.items():
             matched = request.overlap.scores.get(worker_id, 0)
             overlap_score = matched * block_size / isl
@@ -80,6 +85,9 @@ class DefaultWorkerSelector:
                            if m.request_total_slots else 0.0)
             logit = (self.OVERLAP_WEIGHT * overlap_score
                      - kv_usage - norm_active)
+            terms.append({"worker_id": worker_id, "matched_blocks": matched,
+                          "overlap": overlap_score, "kv_usage": kv_usage,
+                          "active": norm_active, "logit": logit})
             if logit > best_logit:
                 best_logit, best = logit, [worker_id]
             elif logit == best_logit:
@@ -88,7 +96,8 @@ class DefaultWorkerSelector:
         required = -(-isl // block_size)
         return WorkerSelection(
             worker_id=worker_id, required_blocks=required,
-            overlap_blocks=request.overlap.scores.get(worker_id, 0))
+            overlap_blocks=request.overlap.scores.get(worker_id, 0),
+            candidates=terms)
 
 
 class KvScheduler:

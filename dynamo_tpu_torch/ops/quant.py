@@ -17,9 +17,12 @@ Every matmul site calls `linear(x, w)`:
 - a quantized weight on CUDA tensors, chosen by the rows M of x:
   M <= GEMV_MAX_M (the decode step's slots) launches the hand-written
   W8A16 kernel (csrc/w8a16_gemm.cu), which dequantizes inside the product;
-  larger M (prefill and mixed steps) launches the same source's dequantize
-  entry into a bf16 / f32 scratch and hands the product to `torch.matmul`,
-  as the JAX package leaves that product to XLA.
+  a bf16 x past that (prefill and mixed steps) launches the tensor-core
+  W8A16 kernel (csrc/w8a16_large_m.cu: TMA ring, int8 widened in shared
+  memory, wgmma) with one group; an f32 x past that (only the card-side f32
+  parity runs) launches the dequantize entry of w8a16_gemm.cu into an f32
+  scratch and hands the product to `torch.matmul`, since a bf16 tensor-core
+  product cannot hold f32's accuracy.
 There is no try/except and no quiet fallback: a CUDA tensor launches a
 kernel or raises.
 
@@ -31,8 +34,10 @@ layer's expert slice w ([E, K, N], or {"q": [E, K, N], "s": [E, 1, N]}):
   (`wmat` per expert + matmul, zeros where active[e] == 0);
 - on CUDA tensors, M <= GROUPED_MAX_M (decode: B * C rows an expert with
   C = 1) launches the grouped W8A16 kernel (csrc/w8a16_moe_gemm.cu), which
-  reads only the experts some row was routed to; larger M (prefill and
-  mixed steps) dequantizes each expert with the dequantize entry and hands
+  reads only the experts some row was routed to; a bf16 x past that
+  (prefill and mixed steps) launches the tensor-core kernel once over all
+  E experts, which skips the inactive ones and writes their zeros; an f32
+  x past that dequantizes each expert with the dequantize entry and hands
   its rows to `torch.matmul`.
 
 Why a kernel: XLA fuses the dequantize into the matmul's operand pipeline
@@ -57,11 +62,15 @@ QUANT_MODES = ("", "int8")
 # per layer, expert and output channel); the router stays in the model dtype
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
-# rows up to which a CUDA product runs the W8A16 kernel: the decode step's
-# M = slots (EngineConfig.max_slots, 8 by default). Prefill and mixed steps
-# (M >= the smallest prefill bucket, 16) take the dequantize + matmul route;
-# chip_smoke.py times both routes at M = 16 and 512.
-GEMV_MAX_M = 8
+# rows up to which a CUDA product runs the W8A16 decode kernel: a decode
+# step's M = slots (EngineConfig.max_slots, 8 by default; the
+# disaggregated decode worker's 16). Past it a bf16 x takes the
+# tensor-core kernel (w8a16_large_m.cu). Placed from the card's times of
+# both kernels at M = 8, 9, 16, 32 and 64 (chip_smoke.py phase 2d, PERF.md
+# §6): up to 16 rows the decode kernel is faster at w_gate / w_up /
+# w_down, which carry ~81% of a layer's weight bytes; at 32 the
+# tensor-core kernel is.
+GEMV_MAX_M = 16
 
 # launches of the W8A16 GEMM kernel and of the dequantize entry since import
 # (or since a caller reset them), counted as ops/paged_attention.py counts
@@ -75,6 +84,8 @@ DEQUANT_LAUNCHES = 0
 DEQUANT_CAPTURED = 0
 MOE_LAUNCHES = 0
 MOE_CAPTURED = 0
+LARGE_M_LAUNCHES = 0
+LARGE_M_CAPTURED = 0
 
 # rows of one expert's capacity buffer up to which a CUDA expert product runs
 # the grouped kernel: B * C at decode, where C = 1, for up to 16 slots (the
@@ -97,6 +108,11 @@ _F32_TILE_N, _F32_CHUNK_K, _F32_BLOCKS_PER_SM = 256, 64, 2
 # rows of x a block pass: the f32 kernel's instantiations (a bf16 x always
 # takes 8, the MMA's n8)
 _ROWS = (1, 2, 4, 8)
+# the tensor-core kernel's tiles (csrc/w8a16_large_m.cu; the two must
+# agree): 128 columns and 64 k a stage; 128 rows of x up to M = 128, else
+# 256 (each weight tile widened once for twice the rows)
+_LM_TILE_N, _LM_TILE_K = 128, 64
+_LM_MIN_KBLOCKS = 4             # k-blocks of 64 a split over K, at least
 
 
 def validate_mode(mode: str) -> str:
@@ -201,6 +217,18 @@ def _moe_lib():
     lib.w8a16_moe_gemm.restype = ctypes.c_int
     lib.w8a16_moe_gemm.argtypes = ([ctypes.c_void_p] * 5
                                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _large_m_lib():
+    """The tensor-core kernel's C entry point, built and loaded on first
+    use."""
+    from dynamo_tpu_torch.ops import build
+    lib = build.load("w8a16_large_m")
+    lib.w8a16_large_m.restype = ctypes.c_int
+    lib.w8a16_large_m.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                                  + [ctypes.c_void_p])
     return lib
 
 
@@ -377,6 +405,139 @@ def grouped_w8a16(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return y
 
 
+def large_m_tile_m(m: int) -> int:
+    """Rows of x a tile of the tensor-core kernel: 128 up to M = 128, else
+    256 (fewer widenings of each weight tile and fewer bytes of x and q
+    per output; at M <= 128 the second slab would only hold TMA's
+    zeros)."""
+    return 128 if m <= 128 else 256
+
+
+def large_m_units(groups: int, m: int, k: int, n: int, tile_m: int,
+                  splits: int, per: int) -> list:
+    """The kernel's units of work in its scheduler's order (csrc/
+    w8a16_large_m.cu `unit_at`), from shapes only: (group, row tile,
+    column tile, first k-block, end k-block) with the row tile fastest
+    (blocks that run together share a weight tile through the L2), then
+    the split over K, then the column tile, then the group."""
+    tm = -(-m // tile_m)
+    tn = -(-n // _LM_TILE_N)
+    nk = -(-k // _LM_TILE_K)
+    units = []
+    for u in range(groups * tm * tn * splits):
+        rest = u // tm
+        split = rest % splits
+        rest //= splits
+        kb0 = split * per
+        units.append((rest // tn, u % tm, rest % tn, kb0,
+                      min(nk, kb0 + per)))
+    return units
+
+
+def large_m_config(groups: int, m: int, k: int, n: int,
+                   sm_count: int) -> tuple:
+    """(tile rows, splits, k-blocks a split, blocks) of the tensor-core
+    kernel, from shapes only (no host sync; capturable). Fewer output
+    tiles than half the SMs (wk and wv of a prefill step, any narrow
+    product at a few hundred rows) split K so that about one unit runs per
+    SM, each split at least _LM_MIN_KBLOCKS k-blocks; their f32 sums meet
+    in a scratch the reduce kernel adds in split order. The persistent
+    grid is one block an SM (a block's shared memory leaves room for no
+    second one), never more than the units; block b walks units b,
+    b + grid, b + 2 grid, ..."""
+    tile_m = large_m_tile_m(m)
+    tiles = groups * -(-m // tile_m) * -(-n // _LM_TILE_N)
+    nk = -(-k // _LM_TILE_K)
+    splits, per = 1, nk
+    if 2 * tiles < sm_count:
+        per = max(_LM_MIN_KBLOCKS, -(-nk // (sm_count // tiles)))
+        splits = -(-nk // per)
+        per = -(-nk // splits)
+    return tile_m, splits, per, max(1, min(tiles * splits, sm_count))
+
+
+def _check_large_m(x, q, s, active):
+    """What the tensor-core entry takes: x [G, M, K] contiguous bf16 with
+    M >= 1, q [G, K, N] contiguous int8 with N % 16 == 0 and K % 8 == 0
+    (TMA's 16-byte row strides), s contiguous f32 with G * N values, x, q
+    and s 16-byte aligned, active None or a contiguous [G] int32 tensor,
+    all on one device."""
+    dev = q.device
+    if q.dtype != torch.int8 or q.dim() != 3 or not q.is_contiguous():
+        raise TypeError(f"q must be a contiguous [G, K, N] int8 tensor, got "
+                        f"{q.dtype} {tuple(q.shape)}")
+    g, k, n = q.shape
+    if n % 16 or k % 8:
+        raise ValueError(f"the tensor-core W8A16 kernel needs N % 16 == 0 "
+                         f"and K % 8 == 0 (TMA row strides), got K={k}, "
+                         f"N={n}")
+    if (s.dtype != torch.float32 or s.numel() != g * n
+            or not s.is_contiguous() or s.device != dev):
+        raise TypeError(f"s must be contiguous f32 with {g} x {n} values on "
+                        f"{dev}, got {s.dtype} {tuple(s.shape)} on "
+                        f"{s.device}")
+    if active is not None and (
+            active.dtype != torch.int32 or tuple(active.shape) != (g,)
+            or not active.is_contiguous() or active.device != dev):
+        raise TypeError(f"active must be a contiguous [{g}] int32 tensor on "
+                        f"{dev}, got {active.dtype} {tuple(active.shape)}")
+    if x.device != dev:
+        raise ValueError(f"x is on {x.device}, q on {dev}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core W8A16 kernel takes a bfloat16 x, "
+                        f"got {x.dtype}")
+    if (x.dim() != 3 or x.shape[0] != g or x.shape[2] != k
+            or not x.is_contiguous() or x.shape[1] < 1):
+        raise ValueError(f"x must be contiguous [{g}, M >= 1, {k}], got "
+                         f"{tuple(x.shape)}")
+    if x.data_ptr() % 16 or q.data_ptr() % 16 or s.data_ptr() % 16:
+        raise ValueError("x, q and s must be 16-byte aligned (TMA, the "
+                         "reduce's vector loads)")
+
+
+def large_m_gemm(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                 active=None) -> torch.Tensor:
+    """y[g] = x[g] @ (f32(q[g]) * s[g]), f32 accumulation, bf16 y, for the
+    groups with active[g] > 0 (every group when active is None) and zeros
+    for the others. Dense: x [M, K], q [K, N], s [1, N] or [N] -> [M, N];
+    grouped: x [G, M, K], q [G, K, N], s [G, 1, N] or [G, N] -> [G, M, N].
+    The tensor-core kernel on PyTorch's current stream for CUDA tensors (no
+    sync: `active` is read on the device; the grid comes from shapes only),
+    its plain version (`grouped_w8a16_plain`) for CPU tensors."""
+    global LARGE_M_LAUNCHES, LARGE_M_CAPTURED
+    dense = q.dim() == 2
+    xg, qg = (x.unsqueeze(0), q.unsqueeze(0)) if dense else (x, q)
+    if not x.is_cuda:
+        if q.is_cuda:
+            raise ValueError("x is on the CPU but the weight is on CUDA")
+        act = (torch.ones((qg.shape[0],), dtype=torch.int32)
+               if active is None else active)
+        y = grouped_w8a16_plain(xg, qg, s, act)
+        return y[0] if dense else y
+    _check_large_m(xg, qg, s, active)
+    g, m, k = xg.shape
+    n = qg.shape[2]
+    dev = x.device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    tile_m, splits, per, grid = large_m_config(g, m, k, n,
+                                               _sm_count(index))
+    y = torch.empty((g, m, n), dtype=torch.bfloat16, device=dev)
+    part = (torch.empty((splits, g, m, n), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    err = _large_m_lib().w8a16_large_m(
+        xg.data_ptr(), qg.data_ptr(), s.data_ptr(),
+        None if active is None else active.data_ptr(), y.data_ptr(),
+        None if part is None else part.data_ptr(), g, m, k, n, tile_m,
+        splits, per, grid, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"w8a16_large_m launch failed: CUDA error {err}")
+    if torch.cuda.is_current_stream_capturing():
+        LARGE_M_CAPTURED += 1
+    else:
+        LARGE_M_LAUNCHES += 1
+    return y[0] if dense else y
+
+
 def grouped_linear(x: torch.Tensor, w, active: torch.Tensor) -> torch.Tensor:
     """x [E, M, K] @ w expert by expert: w plain [E, K, N] or quantized
     {"q": [E, K, N] int8, "s": [E, 1, N] f32}; active [E] int32, the rows
@@ -385,6 +546,8 @@ def grouped_linear(x: torch.Tensor, w, active: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, w)
     if not x.is_cuda or x.shape[1] <= GROUPED_MAX_M:
         return grouped_w8a16(x, w["q"], w["s"], active)
+    if x.dtype == torch.bfloat16:
+        return large_m_gemm(x.contiguous(), w["q"], w["s"], active)
     y = torch.empty(x.shape[:2] + (w["q"].shape[2],), dtype=x.dtype,
                     device=x.device)
     for i in range(x.shape[0]):
@@ -407,6 +570,8 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if x2.shape[0] <= GEMV_MAX_M:
         y = w8a16_gemm(x2, w["q"], w["s"])
+    elif x2.dtype == torch.bfloat16:
+        y = large_m_gemm(x2, w["q"], w["s"])
     else:
         y = x2 @ dequantize(w, x.dtype)
     return y.reshape(*lead, y.shape[-1])

@@ -130,7 +130,10 @@ async def run_endpoint(engine, card, spec: str, args) -> None:
 
 
 async def _stream_chat(pipe: LocalPipeline, card, prompt: str,
-                       max_tokens: int, out=sys.stdout) -> None:
+                       max_tokens: int) -> None:
+    # the stream in use at the call, not the one at import (a caller may
+    # have replaced sys.stdout since)
+    out = sys.stdout
     req = ChatCompletionRequest(
         model=card.name, stream=True, max_tokens=max_tokens,
         messages=[{"role": "user", "content": prompt}])

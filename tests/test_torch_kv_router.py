@@ -172,7 +172,7 @@ def test_indexer_overlap_counts_equal(seed):
     assert any(len(s[0]) >= 2 for s in want if not s[0] == "removed")
 
 
-async def _router_trace(pkg: str, seed: int) -> list:
+async def _router_trace(pkg: str, seed: int, decisions=None) -> list:
     m = _pkg(pkg)
     DRT = m["distributed"].DistributedRuntime
     plane = m["memory"].MemoryPlane()
@@ -216,6 +216,8 @@ async def _router_trace(pkg: str, seed: int) -> list:
                 res = router.find_matches_for_tokens(step[1])
                 worker = await router.schedule(step[1])
                 trace.append((dict(sorted(res.scores.items())), worker))
+                if decisions is not None:
+                    decisions.append((len(step[1]), router.decisions[-1]))
             elif kind == "drain":
                 await served[step[1]].mark_draining()
                 while step[1] not in client.draining_ids():
@@ -267,3 +269,105 @@ def test_router_hashes_match_worker_hashes():
     assert stored == compute_page_hashes(toks, PAGE)
     assert len(stored) == len(toks) // PAGE
     assert not set(stored) & set(jax_hashes(toks, PAGE))
+
+
+# -- the decision log's selector terms ----------------------------------------
+
+def _reference_logit(c: dict) -> float:
+    """The JAX selector's formula (dynamo_tpu/kv_router/scheduler.py
+    DefaultWorkerSelector) on one candidate's recorded terms."""
+    from dynamo_tpu.kv_router.scheduler import DefaultWorkerSelector
+    w = DefaultWorkerSelector().overlap_weight
+    return w * c["overlap"] - c["kv_usage"] - c["active"]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_decision_terms_reproduce_the_winner(seed):
+    """Every decision of the router trace records each candidate's terms
+    as the selector computed them; the reference's formula on those terms
+    gives the recorded logit, and the winner is a candidate of the highest
+    logit. The snapshot of each is the scrape's."""
+    decisions = []
+    asyncio.run(asyncio.wait_for(_router_trace("torch", seed, decisions),
+                                 60))
+    assert decisions
+    for isl, d in decisions:
+        cands = {c["worker_id"]: c for c in d["candidates"]}
+        assert d["worker_id"] in cands
+        for wid, c in cands.items():
+            assert c["matched_blocks"] == d["scores"].get(wid, 0)
+            assert c["overlap"] == c["matched_blocks"] * PAGE / max(isl, 1)
+            assert 0.0 <= c["kv_usage"] and 0.0 <= c["active"]
+            assert c["logit"] == pytest.approx(_reference_logit(c),
+                                               rel=0, abs=1e-12)
+            assert c["snapshot"] == "scraped"
+        best = max(_reference_logit(c) for c in cands.values())
+        assert _reference_logit(cands[d["worker_id"]]) == pytest.approx(
+            best, rel=0, abs=1e-12)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_selector_terms_match_the_reference_selector(seed):
+    """On the same snapshot and overlap, the port's recorded terms equal
+    the reference formula on the raw inputs, and the JAX selector picks
+    the same worker (no ties: distinct random loads)."""
+    from dynamo_tpu.kv_router import indexer as jidx, scheduler as jsch
+    from dynamo_tpu.kv_router import scoring as jsc
+    from dynamo_tpu_torch.kv_router import indexer as tidx
+    from dynamo_tpu_torch.kv_router import scheduler as tsch
+    from dynamo_tpu_torch.kv_router import scoring as tsc
+    rng = np.random.default_rng(seed)
+    raw = {f"w{i}": {"request_active_slots": int(rng.integers(0, 8)),
+                     "request_total_slots": 8,
+                     "kv_active_blocks": int(rng.integers(0, 500)),
+                     "kv_total_blocks": 512} for i in range(4)}
+    scores = {f"w{i}": int(rng.integers(0, 12)) for i in range(4)
+              if rng.random() < 0.7}
+    isl = 64
+    sel = tsch.DefaultWorkerSelector(rng=random.Random(seed)).select_worker(
+        tsc.ProcessedEndpoints({w: tsc.WorkerMetrics(**m)
+                                for w, m in raw.items()}),
+        tsch.SchedulingRequest(isl, tidx.MatchResult(dict(scores))), PAGE)
+    want = jsch.DefaultWorkerSelector(rng=random.Random(seed)).select_worker(
+        jsc.ProcessedEndpoints({w: jsc.WorkerMetrics(**m)
+                                for w, m in raw.items()}),
+        jsch.SchedulingRequest(isl, jidx.MatchResult(dict(scores))), PAGE)
+    assert sel.worker_id == want.worker_id
+    assert [c["worker_id"] for c in sel.candidates] == list(raw)
+    for c in sel.candidates:
+        m = raw[c["worker_id"]]
+        assert c["overlap"] == scores.get(c["worker_id"], 0) * PAGE / isl
+        assert c["kv_usage"] == m["kv_active_blocks"] / m["kv_total_blocks"]
+        assert c["active"] == (m["request_active_slots"]
+                               / m["request_total_slots"])
+        assert c["logit"] == _reference_logit(c)
+
+
+def test_aggregator_records_each_snapshot_source():
+    """A worker whose stats came in this scrape is "scraped", one that
+    missed it resumes from its last scrape ("carried"), one that never
+    published gets unit totals ("defaulted")."""
+    from dynamo_tpu_torch.kv_router.publisher import KvMetricsAggregator
+
+    class Client:
+        def __init__(self):
+            self.stats = {}
+
+        async def scrape_stats(self):
+            return dict(self.stats)
+
+        def instance_ids(self):
+            return ["w0", "w1", "w2"]
+
+    client = Client()
+    agg = KvMetricsAggregator(client)
+    client.stats = {"w0": METRICS["w0"], "w1": METRICS["w1"]}
+    asyncio.run(agg.scrape_once())
+    assert agg.snapshot_source == {"w0": "scraped", "w1": "scraped",
+                                   "w2": "defaulted"}
+    client.stats = {"w0": METRICS["w0"]}
+    asyncio.run(agg.scrape_once())
+    assert agg.snapshot_source == {"w0": "scraped", "w1": "carried",
+                                   "w2": "defaulted"}
+    assert agg.endpoints.workers["w1"].kv_active_blocks == 0
+    assert agg.endpoints.workers["w2"].kv_total_blocks == 1

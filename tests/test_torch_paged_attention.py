@@ -170,7 +170,7 @@ def test_build_is_keyed_on_the_source():
     name that changes with the source or the flags."""
     assert build.sources() == ["legacy_decode_attention",
                                "ragged_decode_attention", "w8a16_gemm",
-                               "w8a16_moe_gemm"]
+                               "w8a16_large_m", "w8a16_moe_gemm"]
     path = build.library_path("ragged_decode_attention")
     assert path.parent == build.BUILD_DIR
     assert path.parent.parts[-2:] == ("build", "dynamo_tpu_torch")

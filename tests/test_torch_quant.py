@@ -300,9 +300,11 @@ def test_rows_per_pass_and_route():
     assert [tquant.rows_per_pass(m) for m in (1, 2, 3, 4, 5, 8, 9, 512)] \
         == [1, 2, 4, 4, 8, 8, 8, 8]
     assert tquant.rows_per_pass(3, torch.bfloat16) == 8
-    # the decode step's slots take the kernel; prefill buckets start at 16
+    # the decode step's slots take the decode kernel, up to the 16 slots of
+    # a disaggregated decode worker; past that the tensor-core kernel,
+    # which is faster from 32 rows on (PERF.md §6's switch-point table)
     assert tquant.GEMV_MAX_M >= TEngineConfig().max_slots
-    assert tquant.GEMV_MAX_M < min(TEngineConfig().prefill_buckets)
+    assert 16 <= tquant.GEMV_MAX_M < 32
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):

@@ -405,7 +405,7 @@ def test_stats_reply_carries_engine_metrics(jax_params):
             assert stats["decode_windows"] == m.decode_windows > 0
             assert set(stats["kernel_launches"]) == {
                 "ragged_decode_attention", "w8a16_gemm", "w8a16_dequant",
-                "w8a16_moe_gemm"}
+                "w8a16_moe_gemm", "w8a16_large_m"}
             assert stats["decode_window_steps"] > 0
             # every field the router reads comes through
             assert WorkerMetrics.from_dict(stats).kv_total_blocks == \
