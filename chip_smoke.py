@@ -36,32 +36,44 @@ Phases (any failed check exits non-zero; nothing is caught):
       rows up to max_model_len, lens on block-assignment boundaries, an
       all-clamped batch, GQA 1/4/8, ps 8/64/128) with f32, bf16 and int8
       caches (int8 with an f32 and a bf16 q), against both.
-   d. the W8A16 kernel (csrc/w8a16_gemm.cu) against its plain version
-      (`x @ wmat(w)`, computed in f32 from the same rounded weights) at
-      every llama3-8b projection shape (wq, wk, wv, wo, w_gate, w_up,
-      w_down, lm_head) at M = 1, 3, 8 and 16 with a bf16 x (max |diff| <=
-      1e-2 * max |y|) and at M = 1 and 8 with an f32 x (rtol = atol =
-      1e-4); at an odd N and a K the split does not divide (1000 x 333,
-      4100 x 1031), f32 and bf16. Then the tensor-core kernel
-      (csrc/w8a16_large_m.cu, the route past GEMV_MAX_M rows) against the
-      plain version at the same eight shapes at M = 9, 16, 64, 100, 512
-      and 2048, bf16, its output memory NaN-filled before each call, within
-      the bf16 tolerance; at the odd shapes linear past GEMV_MAX_M raises
-      (TMA needs N % 16 == 0 and K % 8 == 0). At M = 512 (w_gate) linear
-      launches the tensor-core kernel once and the dequantize entry never,
-      and its output is no longer bit-equal to the dequantize + matmul
-      route; an f32 x keeps that route (the entry bit-identical to `wmat`).
-      Then CUDA-event times over replayed graphs (weights cycled past the
-      L2) at M = 8 for each shape: the decode kernel, its bound (its bytes
-      over 3.35 TB/s), its share of the bound, the plain version, and the
-      library yardstick (torch.matmul against the bf16 weight of the same
-      shape, twice the bytes); the tensor-core kernel at w_gate at M = 16,
-      128 and 512 beside its bound (the larger of its bytes over 3.35 TB/s
-      and 2 M K N over 989 TFLOP/s), the plain version, the library and
-      the old route (dequantize + torch.matmul); the switch-point table
-      (both kernels at M = 8, 9, 16, 32, 64 for w_gate and wk); one
-      512-token prefill step's 7 x 32 products on the new kernel, the old
-      route and torch.matmul on bf16 weights; the dequantize entry alone.
+   d. the grouped W8A16 decode kernel (csrc/w8a16_gemm.cu `w8a16_group`)
+      against its plain version (`x @ wmat(w)`, computed in f32 from the
+      same rounded weights) at every llama3-8b group of products that
+      share an input (wq | wk | wv, wo, w_gate | w_up, w_down, lm_head)
+      and at odd groups (1000 x 333, 4100 x 1031, and 333 | 1031 | 128 of
+      one K = 1000: N % 16 != 0 streams without TMA), M = 1, 3, 8, 9 and
+      16, bf16 x, its output memory NaN-filled just before each call, max
+      |diff| <= 1e-2 * max |y|, and a second call bit-equal to the first;
+      the per-weight entry (its f32 CUDA-core kernel at M = 1 and 8 with
+      rtol = atol = 1e-4 at every shape and M = 1, 3, 8, 16 at the odd
+      ones; its register-ring bf16 kernel, the old decode kernel, at M =
+      8). Then the tensor-core kernel (csrc/w8a16_large_m.cu, the route
+      past GEMV_MAX_M rows) against the plain version at the eight shapes
+      at M = 9, 16, 64, 100, 512 and 2048, bf16, its output memory
+      NaN-filled before each call, within the bf16 tolerance; at the odd
+      shapes linear past GEMV_MAX_M raises (TMA needs N % 16 == 0 and K %
+      8 == 0). At M = 512 (w_gate) linear launches the tensor-core kernel
+      once and the dequantize entry never, and its output is no longer
+      bit-equal to the dequantize + matmul route; an f32 x keeps that route
+      (the entry bit-identical to `wmat`); at M = 8 linear_group is one
+      grouped launch. Then CUDA-event times over replayed graphs (weights
+      cycled past the L2) for each group at M = 8: the grouped kernel, its
+      bound (its bytes over 3.35 TB/s), its share of the bound, the
+      grouped kernel at M = 16, the old per-weight kernel (one launch a
+      weight), the plain version, and torch.matmul on the bf16 weights
+      (separate products, and one product on the concatenated weight),
+      summed over a decode step; the launch-cost split at wk, w_gate and
+      lm_head (tools/torch_w8a16_probe.py: an empty launch of each
+      kernel's grid, the old grid streaming its weights only, both kernels
+      in full); the tensor-core kernel at w_gate at M =
+      16, 128 and 512 beside its bound (the larger of its bytes over 3.35
+      TB/s and 2 M K N over 989 TFLOP/s), the plain version, the library
+      and the old route (dequantize + torch.matmul); the switch-point table
+      (the grouped kernel up to M = 16, the old decode kernel and the
+      tensor-core kernel at M = 8, 9, 16, 32, 64 for w_gate and wk); one
+      512-token prefill step's 7 x 32 products on the tensor-core kernel,
+      the old route and torch.matmul on bf16 weights; the dequantize entry
+      alone.
 3. Small reference: the `tiny` model in f32, decode logits on the card
    (the kernels) against the same step on the CPU (the plain versions),
    within 1e-3, and the same greedy tokens from both engines; then the
@@ -134,14 +146,20 @@ Phases (any failed check exits non-zero; nothing is caught):
    half sampled, twice (the first run captures the window graphs). Each
    run: every request finishes with 64 tokens or a stop, no non-finite
    logits, one graph replay per window, every window graph holding
-   (7 L + 1) x nw W8A16 launches and L x nw ragged ones, the replays
-   adding (7 L + 1) per decode step (the warm-ups come on top); the
-   prefill and mixed steps launch the tensor-core kernel exactly as their
-   shapes derive (7 L a step of B x T rows past GEMV_MAX_M, the head when
-   its B rows are past it; `int8_product_launches`), the decode kernel
-   eagerly for the rest, and the dequantize entry 0 times; GET /metrics
+   (4 L + 1) x nw W8A16 launches (one a group of products that share an
+   input: q | k | v, o, gate | up, down, and the head;
+   `decode_w8a16_launches`, from the model's structure) and L x nw ragged
+   ones, the replays adding (4 L + 1) per decode step (the warm-ups come
+   on top); the prefill and mixed steps launch the tensor-core kernel
+   exactly as their shapes derive (7 L a step of B x T rows past
+   GEMV_MAX_M, the head when its B rows are past it;
+   `int8_product_launches`), the grouped decode kernel eagerly for the
+   rest (4 L a step at or below GEMV_MAX_M rows), and the dequantize
+   entry 0 times; GET /metrics
    showing llm_ttft_seconds_count equal to the choices served and a
-   nonzero llm_itl_seconds_count.
+   nonzero llm_itl_seconds_count. Then phase 4b on this engine (graph
+   and eager windows give identical tokens; the untraced ms a decode
+   step at int8 weights).
    Prints the TTFT and ITL p50 / p90 from the histograms beside the
    client-side TTFT of the streamed requests, decode tokens/s, peak
    memory and weight_bytes against phase 4's bf16 engine.
@@ -311,12 +329,14 @@ Phases (any failed check exits non-zero; nothing is caught):
    LocalPipeline twice (capturing, then warm) with phase 4's gates, plus:
    moe_routed_tokens in the band derived from the token ids and prefix
    hits (MoeCounts.check), 0 pairs dropped by decode windows, every
-   window graph holding 3 x 32 x nw grouped, (4 x 32 + 1) x nw W8A16 and
-   32 x nw ragged launches, the replays adding 3 x 32 grouped launches a
-   decode step; the prefill and mixed steps launching the tensor-core
-   kernel exactly as their shapes derive (3 x 32 grouped where B x C rows
-   an expert pass GROUPED_MAX_M, 4 x 32 dense where B x T pass
-   GEMV_MAX_M, the head where B does) and the dequantize entry 0 times;
+   window graph holding 3 x 32 x nw grouped, (2 x 32 + 1) x nw W8A16
+   (q | k | v, o and the head) and 32 x nw ragged launches, the replays
+   adding 3 x 32 grouped launches a decode step; the prefill and mixed
+   steps launching the tensor-core kernel exactly as their shapes derive
+   (3 x 32 grouped where B x C rows an expert pass GROUPED_MAX_M, 4 x 32
+   dense where B x T pass GEMV_MAX_M, the head where B does; 2 x 32
+   decode-kernel launches where B x T does not) and the dequantize entry
+   0 times;
    graph and eager windows give identical tokens (phase 4b).
    Reported: TTFT p50 / p90 per run, warm decode tok/s, the untraced ms
    per decode step, the drop rate, weight_bytes and peak memory.
@@ -815,45 +835,108 @@ def w8a16_check(label: str, x, w, got) -> float:
     return err
 
 
+# the products of a llama3-8b layer that share an input, in the order a
+# layer runs them, and the head: one launch of the grouped decode kernel
+# each (ops/quant.linear_group); the odd shapes, one weight or three of
+# one K (odd N streams without TMA, 128 through it)
+GROUPS = (("wq", "wk", "wv"), ("wo",), ("w_gate", "w_up"), ("w_down",),
+          ("lm_head",))
+GROUP_ROWS = (1, 3, 8, 9, 16)
+ODD_GROUPS = ((1000, (333,)), (4100, (1031,)), (1000, (333, 1031, 128)))
+
+
+def group_check(label: str, x, ws) -> float:
+    """The grouped kernel on the weights `ws` of one x, its output memory
+    NaN-filled just before the call (an unwritten value shows), each output
+    against the plain version (`w8a16_check`), and a second call bit-equal
+    to the first (a fixed order of every sum). Returns the largest
+    |diff|."""
+    import torch
+    from dynamo_tpu_torch.ops import quant
+    m = x.shape[0]
+    poison = [torch.full((m, w["q"].shape[1]), float("nan"),
+                         dtype=torch.bfloat16, device="cuda") for w in ws]
+    del poison
+    qs, ss = [w["q"] for w in ws], [w["s"] for w in ws]
+    got = quant.w8a16_group(x, qs, ss)
+    torch.cuda.synchronize()
+    err = max(w8a16_check(f"{label} weight {i}", x, w, y)
+              for i, (w, y) in enumerate(zip(ws, got)))
+    again = quant.w8a16_group(x, qs, ss)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{label}: two calls differ")
+    return err
+
+
+def group_checks(shapes) -> float:
+    """2d: the grouped decode kernel against its plain version at every
+    llama3-8b group and the odd groups, M = GROUP_ROWS, bf16 x. Returns the
+    largest |diff|."""
+    import torch
+    from dynamo_tpu_torch.ops import quant
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0
+    cases = [("|".join(names), shapes[names[0]][0],
+              [shapes[nm][1] for nm in names]) for names in GROUPS]
+    cases += [(f"odd {'|'.join(map(str, ns))}", k, list(ns))
+              for k, ns in ODD_GROUPS]
+    for ci, (label, k, ns) in enumerate(cases):
+        ws = [quant_weight(k, n, seed=500 + 10 * ci + i)
+              for i, n in enumerate(ns)]
+        g = torch.Generator(device="cuda").manual_seed(600 + ci)
+        for m in GROUP_ROWS:
+            x = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
+            worst = max(worst, group_check(f"w8a16_group {label} M={m}", x,
+                                           ws))
+        splits, per, per_block, blocks = quant.group_config(k, ns, sms)
+        print(f"w8a16 grouped kernel {label} (K={k}, N={ns}; {splits} "
+              f"splits of {per * quant._GRP_CHUNK_K} rows x {blocks} "
+              f"blocks of {per_block} tiles): M = "
+              f"{'/'.join(map(str, GROUP_ROWS))} within tolerance on "
+              f"NaN-filled outputs, repeat calls bit-equal, max_abs_err so "
+              f"far {worst:.3g}", flush=True)
+        del ws
+        torch.cuda.empty_cache()
+    return worst
+
+
 def phase_w8a16() -> tuple:
-    """2d: the W8A16 kernel against its plain version, then its times.
-    Returns (max abs error, the timing record, the dequantize record)."""
+    """2d: the W8A16 decode kernels against their plain versions, then
+    their times. Returns (max abs error, the timing record, the dequantize
+    record, the tensor-core kernel's record)."""
     import torch
     from dynamo_tpu_torch.engine.config import get_model_config
     from dynamo_tpu_torch.ops import quant
     cfg = get_model_config("llama3-8b")
     shapes = projection_shapes(cfg)
-    worst = 0.0
+    worst = group_checks(shapes)
+    # the per-weight entry: its CUDA-core kernel (f32 x, the f32 route)
+    # and its register-ring kernel (bf16 x; the old column of the times)
     for si, (name, (k, n)) in enumerate(shapes.items()):
         w = quant_weight(k, n, seed=si)
         g = torch.Generator(device="cuda").manual_seed(100 + si)
-        for m, dt in ((1, torch.bfloat16), (3, torch.bfloat16),
-                      (8, torch.bfloat16), (16, torch.bfloat16),
-                      (1, torch.float32), (8, torch.float32)):
+        for m, dt in ((8, torch.bfloat16), (1, torch.float32),
+                      (8, torch.float32)):
             x = torch.randn((m, k), generator=g, device="cuda").to(dt)
             got = quant.w8a16_gemm(x, w["q"], w["s"])
             torch.cuda.synchronize()
             err = w8a16_check(f"w8a16 {name} M={m} {str(dt)[6:]}", x, w, got)
             worst = max(worst, err)
-        splits, per = quant.gemm_config(
-            8, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
-        print(f"w8a16 kernel {name} (K={k}, N={n}; at M 8 bf16 {splits} "
-              f"splits of {per * quant._MMA_CHUNK_K} rows): M = 1/3/8/16 "
-              f"bf16 and 1/8 f32 within tolerance, max_abs_err so far "
-              f"{worst:.3g}", flush=True)
+        print(f"w8a16 per-weight entry {name} (K={k}, N={n}): M = 8 bf16 "
+              f"(the old kernel) and 1/8 f32 within tolerance", flush=True)
         del w
     for k, n in ((1000, 333), (4100, 1031)):
         w = quant_weight(k, n, seed=k)
         g = torch.Generator(device="cuda").manual_seed(n)
         for m in (1, 3, 8, 16):
-            for dt in (torch.float32, torch.bfloat16):
-                x = torch.randn((m, k), generator=g, device="cuda").to(dt)
-                got = quant.w8a16_gemm(x, w["q"], w["s"])
-                torch.cuda.synchronize()
-                worst = max(worst, w8a16_check(
-                    f"w8a16 K={k} N={n} M={m} {str(dt)[6:]}", x, w, got))
-        print(f"w8a16 kernel at K={k}, N={n} (odd N, a partial chunk of K): "
-              f"M = 1/3/8/16 f32 and bf16 within tolerance", flush=True)
+            x = torch.randn((m, k), generator=g, device="cuda")
+            got = quant.w8a16_gemm(x, w["q"], w["s"])
+            torch.cuda.synchronize()
+            worst = max(worst, w8a16_check(
+                f"w8a16 K={k} N={n} M={m} float32", x, w, got))
+        print(f"w8a16 per-weight entry at K={k}, N={n} (odd N, a partial "
+              f"chunk of K): M = 1/3/8/16 f32 within tolerance", flush=True)
     large_worst = large_m_checks(shapes)
     # M = 512: linear's route is the tensor-core kernel (one launch, no
     # dequantize), no longer bit-equal to the dequantize + matmul route
@@ -885,14 +968,24 @@ def phase_w8a16() -> tuple:
     check(torch.equal(quant.linear(x32, w), x32 @ quant.wmat(w, x32.dtype)),
           "linear at M = 512 with an f32 x is not the dequantize + matmul "
           "route")
-    worst = max(worst, w8a16_check("w8a16 w_gate M=512 bf16 (decode kernel)",
-                                   x, w, quant.w8a16_gemm(x, w["q"], w["s"])))
+    # linear_group at decode rows is one grouped launch, bit-equal to the
+    # kernel's own call on the same group (a group of two has another grid
+    # than one weight alone, so its sums run in another order)
+    xs = x[:8].contiguous()
+    before = quant.KERNEL_LAUNCHES
+    pair = quant.linear_group(xs, [w, w])
+    launched = quant.KERNEL_LAUNCHES - before
+    again = quant.w8a16_group(xs, [w["q"]] * 2, [w["s"]] * 2)
+    check(launched == 1 and torch.equal(pair[0], pair[1])
+          and all(torch.equal(a, b) for a, b in zip(pair, again)),
+          f"linear_group at M = 8 made {launched} launches, or differs "
+          "from the grouped kernel's own call")
     print("w8a16 at M = 512 (w_gate): linear launches the tensor-core "
           "kernel once and no dequantize (within tolerance, not bit-equal "
           "to the dequantize route); an f32 x takes the dequantize entry, "
-          "bit-identical to wmat; the decode kernel is within tolerance",
-          flush=True)
-    del w, x, x32, deq, via_linear
+          "bit-identical to wmat; at M = 8 linear_group is one grouped "
+          "launch", flush=True)
+    del w, x, x32, deq, via_linear, xs, pair, again
     timing, dequant_rec, large_rec = w8a16_timing(cfg, shapes)
     return worst, timing, dequant_rec, {"max_abs_err": large_worst,
                                         **large_rec}
@@ -909,8 +1002,9 @@ def large_m_checks(shapes) -> float:
     plain version at the eight llama3-8b shapes and LARGE_M_ROWS, bf16 x,
     its output memory filled with NaN just before each call (an unwritten
     tile shows); the W8A16 bf16 tolerance. Then the shapes TMA cannot take
-    (odd N): linear past the switch point raises, while the decode kernel
-    serves them at M <= 8 (above). Returns the largest |diff|."""
+    (odd N): linear past the switch point raises, while the grouped
+    decode kernel serves them at M <= 16 (group_checks). Returns the
+    largest |diff|."""
     import torch
     from dynamo_tpu_torch.ops import quant
     bf16 = torch.bfloat16
@@ -955,54 +1049,107 @@ def large_m_checks(shapes) -> float:
 
 
 def w8a16_timing(cfg, shapes) -> tuple:
-    """CUDA-event times over replayed graphs at M = 8 for each projection
-    shape, with the weights cycled over copies that together exceed the
-    50 MB L2 (a decode step reads each weight once): the kernel, its bound,
-    the plain version (`x @ wmat(w)`), and torch.matmul against the bf16
-    weight of the same shape. Then both routes at M = 16 and 512 (w_gate)
-    and the dequantize entry alone. Returns the kernel's record (one decode
-    step's W8A16 work: 7 projections x L + the head) and the dequantize
-    entry's."""
+    """CUDA-event times over replayed graphs for each llama3-8b group
+    (GROUPS) at M = 8, the weights cycled over copies of the group that
+    together pass 128 MiB (a decode step reads each weight once): the
+    grouped kernel (one launch), its bound (the group's weight and scale
+    bytes, x once and the outputs, over 3.35 TB/s), the old per-weight
+    kernel (one launch a weight, summed), the plain version (`x @ wmat(w)`
+    a weight), torch.matmul on the bf16 weights (separate products, and one
+    product on the concatenated weight), and the grouped kernel at M = 16.
+    Then the decode step's sums (L x the layer's groups + the head) and the
+    prefill route's times. Returns the kernel's record (one decode step's
+    W8A16 work), the dequantize entry's and the tensor-core kernel's."""
     import torch
     from dynamo_tpu_torch.ops import quant
     bf16 = torch.bfloat16
-    per_shape = {}
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for si, (name, (k, n)) in enumerate(shapes.items()):
-        copies = max(1, -(-(128 << 20) // (k * n)))
-        ws = [quant_weight(k, n, seed=si) for _ in range(copies)]
-        lib_copies = max(1, -(-(128 << 20) // (2 * k * n)))
-        wb = [quant.wmat(ws[0], bf16) for _ in range(lib_copies)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_group = {}
+    keys = ("ms", "m16_ms", "old_ms", "plain_ms", "library_ms",
+            "library_concat_ms", "bound_ms")
+    tot = {key: 0.0 for key in keys}
+    for gi, names in enumerate(GROUPS):
+        k = shapes[names[0]][0]
+        ns = [shapes[nm][1] for nm in names]
+        group_bytes = sum(k * n for n in ns)
+        copies = max(1, -(-(128 << 20) // group_bytes))
+        ws = [[quant_weight(k, n, seed=700 + 10 * gi + i)
+               for i, n in enumerate(ns)] for _ in range(copies)]
+        lib_copies = max(1, -(-(128 << 20) // (2 * group_bytes)))
+        wb = [[quant.wmat(w, bf16) for w in ws[0]]
+              for _ in range(lib_copies)]
+        wcat = [torch.cat(b, dim=1) for b in wb] if len(ns) > 1 else None
         x = torch.randn((8, k), device="cuda").to(bf16)
-        kernel_ms = cuda_ms(lambda i: quant.w8a16_gemm(
-            x, ws[i % copies]["q"], ws[i % copies]["s"]), 40, graph=True)
-        plain_ms = cuda_ms(lambda i: x @ quant.wmat(ws[i % copies], bf16), 10)
-        lib_ms = cuda_ms(lambda i: x @ wb[i % lib_copies], 40, graph=True)
-        nbytes = k * n + 4 * n + 2 * 8 * k + 2 * 8 * n
-        b = bound(nbytes, 2 * 8 * k * n, "bfloat16")
-        per_shape[name] = {"K": k, "N": n, "ms": kernel_ms,
-                           "plain_ms": plain_ms, "library_ms": lib_ms,
-                           **b, "share_of_bound": b["bound_ms"] / kernel_ms}
-        reps = 1 if name == "lm_head" else cfg.num_layers
-        for key, v in (("ms", kernel_ms), ("plain_ms", plain_ms),
-                       ("library_ms", lib_ms), ("bound_ms", b["bound_ms"])):
-            tot[key] += reps * v
-        print(f"timing w8a16 kernel {name} (M=8, K={k}, N={n}, bf16 x, "
-              f"{copies} weight copies): kernel {kernel_ms:.4f} ms (graph "
-              f"replay), bound {b['bound_ms']:.4f} ms ({nbytes} bytes), "
-              f"{b['bound_ms'] / kernel_ms:.1%} of the bound; plain "
-              f"(wmat + matmul) {plain_ms:.4f} ms; torch.matmul on the bf16 "
-              f"weight {lib_ms:.4f} ms", flush=True)
-        del ws, wb
+        x16 = torch.randn((16, k), device="cuda").to(bf16)
+
+        def grouped(xx, i):
+            c = ws[i % copies]
+            return quant.w8a16_group(xx, [w["q"] for w in c],
+                                     [w["s"] for w in c])
+        rec = {
+            "K": k, "N": ns,
+            "config": list(quant.group_config(k, ns, sms)),
+            "ms": cuda_ms(lambda i: grouped(x, i), 40, graph=True),
+            "m16_ms": cuda_ms(lambda i: grouped(x16, i), 40, graph=True),
+            "old_ms": cuda_ms(lambda i: [quant.w8a16_gemm(
+                x, w["q"], w["s"]) for w in ws[i % copies]], 40,
+                graph=True),
+            "plain_ms": cuda_ms(lambda i: [x @ quant.wmat(w, bf16)
+                                           for w in ws[i % copies]], 10),
+            "library_ms": cuda_ms(lambda i: [x @ b for b in
+                                             wb[i % lib_copies]], 40,
+                                  graph=True)}
+        rec["library_concat_ms"] = (
+            cuda_ms(lambda i: x @ wcat[i % lib_copies], 40, graph=True)
+            if wcat is not None else rec["library_ms"])
+        nbytes = sum(k * n + 4 * n + 2 * 8 * n for n in ns) + 2 * 8 * k
+        b = bound(nbytes, 2 * 8 * k * sum(ns), "bfloat16")
+        rec.update(b, share_of_bound=b["bound_ms"] / rec["ms"],
+                   m16_over_m8=rec["m16_ms"] / rec["ms"])
+        label = "|".join(names)
+        per_group[label] = rec
+        reps = 1 if names == ("lm_head",) else cfg.num_layers
+        for key in keys:
+            tot[key] += reps * rec[key]
+        print(f"timing w8a16 group {label} (M=8, K={k}, N={ns}, bf16 x, "
+              f"{copies} weight copies, grid {rec['config']}): grouped "
+              f"kernel {rec['ms']:.4f} ms (one launch), bound "
+              f"{b['bound_ms']:.4f} ms ({nbytes} bytes), "
+              f"{rec['share_of_bound']:.1%} of the bound; M = 16 "
+              f"{rec['m16_ms']:.4f} ms ({rec['m16_over_m8']:.3f}x M = 8); "
+              f"old per-weight kernel {rec['old_ms']:.4f} ms "
+              f"({len(ns)} launches); plain {rec['plain_ms']:.4f} ms; "
+              f"torch.matmul on bf16 weights {rec['library_ms']:.4f} ms "
+              f"separate, {rec['library_concat_ms']:.4f} ms concatenated",
+              flush=True)
+        del ws, wb, wcat
         torch.cuda.empty_cache()
-    print(f"w8a16 per decode step (7 x {cfg.num_layers} projections + the "
-          f"head, M = 8): kernel {tot['ms']:.3f} ms, bound "
-          f"{tot['bound_ms']:.3f} ms ({tot['bound_ms'] / tot['ms']:.1%}), "
-          f"plain {tot['plain_ms']:.3f} ms, torch.matmul on bf16 weights "
-          f"{tot['library_ms']:.3f} ms", flush=True)
-    timing = {**tot, "bound_by": "bytes", "per_shape": per_shape}
+    print(f"w8a16 per decode step ({len(GROUPS) - 1} x {cfg.num_layers} "
+          f"group launches + the head, M = 8): grouped kernel "
+          f"{tot['ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
+          f"({tot['bound_ms'] / tot['ms']:.1%}), M = 16 {tot['m16_ms']:.3f} "
+          f"ms, old per-weight kernel {tot['old_ms']:.3f} ms, plain "
+          f"{tot['plain_ms']:.3f} ms, torch.matmul on bf16 weights "
+          f"{tot['library_ms']:.3f} ms separate / "
+          f"{tot['library_concat_ms']:.3f} ms concatenated", flush=True)
+    timing = {**tot, "bound_by": "bytes", "per_group": per_group,
+              "launch_split": launch_split()}
     large, dequant = large_m_timing(cfg, shapes)
     return timing, dequant, large
+
+
+def launch_split() -> dict:
+    """2d: a decode launch's time split into parts at wk, w_gate and
+    lm_head, M = 8 (tools/torch_w8a16_probe.py: an empty launch of each
+    kernel's grid, the old kernel's grid streaming its weights only, both
+    kernels in full), one line a shape. Returns the probe's record."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_w8a16_probe.py")
+    spec = importlib.util.spec_from_file_location("torch_w8a16_probe", path)
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    return probe.measure(probe.build_probe(), nvidia_smi())
 
 
 def large_m_bound(groups: int, m: int, k: int, n: int) -> dict:
@@ -1105,14 +1252,21 @@ def large_m_timing(cfg, shapes) -> tuple:
         for m in (8, 9, 16, 32, 64):
             x = torch.randn((m, k), device="cuda").to(bf16)
             switch[name][m] = {
-                "decode_ms": cuda_ms(lambda i: quant.w8a16_gemm(
+                "old_decode_ms": cuda_ms(lambda i: quant.w8a16_gemm(
                     x, ws[i % copies]["q"], ws[i % copies]["s"]), 20,
                     graph=True),
                 "large_m_ms": cuda_ms(lambda i: quant.large_m_gemm(
                     x, ws[i % copies]["q"], ws[i % copies]["s"]), 20,
                     graph=True)}
+            if m <= 16:    # the grouped kernel's rows
+                switch[name][m]["decode_ms"] = cuda_ms(
+                    lambda i: quant.w8a16_group(
+                        x, [ws[i % copies]["q"]], [ws[i % copies]["s"]]),
+                    20, graph=True)
         print(f"switch point, {name} (K={k}, N={n}): " + "; ".join(
-            f"M={m} decode {v['decode_ms']:.4f} / tensor-core "
+            f"M={m} " + (f"grouped decode {v['decode_ms']:.4f} / "
+                         if "decode_ms" in v else "")
+            + f"old decode {v['old_decode_ms']:.4f} / tensor-core "
             f"{v['large_m_ms']:.4f} ms" for m, v in switch[name].items())
             + f" (GEMV_MAX_M = {quant.GEMV_MAX_M})", flush=True)
         del ws
@@ -1306,6 +1460,18 @@ class StepShapes:
         del self.engine._run_device_step
 
 
+def decode_w8a16_launches(cfg) -> int:
+    """The W8A16 decode-kernel launches of one int8-weight decode step,
+    from the model's structure: a layer's products that read the same
+    input run as one launch (ops/quant.linear_group) - the attention's q,
+    k and v projections, then its output projection; a dense MLP's gate
+    and up projections, then its down projection (an MoE layer's experts
+    run the grouped expert kernel instead) - and the head is one more."""
+    attention = 2                       # q | k | v, then o
+    mlp = 0 if cfg.is_moe else 2        # gate | up, then down
+    return (attention + mlp) * cfg.num_layers + 1
+
+
 def int8_product_launches(cfg, shapes) -> dict:
     """The W8A16 launches an int8-weight engine's prefill and mixed steps
     of `shapes` make, derived from their shapes and the routes of
@@ -1314,18 +1480,18 @@ def int8_product_launches(cfg, shapes) -> dict:
     model, whose experts run grouped at M = B x C rows an expert with the
     dispatch's capacity C = max(int(T k / E x factor), 1)) and its head at
     M = B (the last position of each row). Past GEMV_MAX_M (GROUPED_MAX_M
-    for the experts) a product is one tensor-core launch (w8a16_large_m),
-    at or below it a decode-kernel launch; the dequantize entry is never
-    launched."""
+    for the experts) a product is one tensor-core launch (w8a16_large_m);
+    at or below it the products that share an input are one decode-kernel
+    launch (4 a layer, or 2 on an MoE model: `decode_w8a16_launches`); the
+    dequantize entry is never launched."""
     from dynamo_tpu_torch.ops import quant
     nl = cfg.num_layers
     large = w8 = moe = 0
     for b, t in shapes:
-        dense = (4 if cfg.is_moe else 7) * nl
         if b * t > quant.GEMV_MAX_M:
-            large += dense
+            large += (4 if cfg.is_moe else 7) * nl
         else:
-            w8 += dense
+            w8 += decode_w8a16_launches(cfg) - 1
         if cfg.is_moe:
             cap = max(int(t * cfg.num_experts_per_tok / cfg.num_experts
                           * cfg.moe_capacity_factor), 1)
@@ -2218,12 +2384,13 @@ async def http_run(svc, engine, timed, tag: str, smi: str) -> dict:
           f"{name}: {d['decode_windows']} decode windows, "
           f"{d['decode_dispatches']} dispatches, {replays} graph replays")
     nl, steps = cfg.num_layers, d["decode_window_steps"]
+    per_step = decode_w8a16_launches(cfg)
     for key, calls in gr.captured_calls().items():
         nw = key[4]
-        check(calls[W8A16] == (7 * nl + 1) * nw and calls[RAGGED] == nl * nw,
+        check(calls[W8A16] == per_step * nw and calls[RAGGED] == nl * nw,
               f"{name}: graph {key} holds {calls}, expected "
-              f"{(7 * nl + 1) * nw} W8A16 and {nl * nw} ragged launches")
-    check(replayed[W8A16] == (7 * nl + 1) * steps
+              f"{per_step * nw} W8A16 and {nl * nw} ragged launches")
+    check(replayed[W8A16] == per_step * steps
           and replayed[RAGGED] == nl * steps
           and launches[RAGGED] == nl * steps + warm[RAGGED],
           f"{name}: replays added {replayed} launches over {steps} decode "
@@ -2264,7 +2431,7 @@ async def http_run(svc, engine, timed, tag: str, smi: str) -> dict:
           f"tokens {completion}, finish {finishes}; wall {wall:.3f} s; "
           f"counters {json.dumps(d)}; graph replays {replays}; launches "
           f"{json.dumps(launches)} = replays {json.dumps(replayed)} "
-          f"((7 x {nl} + 1) x {steps} W8A16, {nl} x {steps} ragged) + "
+          f"({per_step} x {steps} W8A16, {nl} x {steps} ragged) + "
           f"warm-ups {json.dumps(warm)} + the prefill and mixed steps' "
           f"{prefill[LARGE_M]} tensor-core and {eager_w8} decode-kernel "
           "W8A16 launches", flush=True)
@@ -2310,6 +2477,9 @@ async def phase_http(smi: str, bf16: dict) -> dict:
     finally:
         await svc.stop()
         await worker.stop()
+    # the int8-weight window as graph and eager (identical tokens), and
+    # the untraced ms a decode step
+    runs["graph_vs_eager"] = phase_graph_vs_eager(engine, "int8 weights")
     first = runs["capturing"]
     print(f"HTTP path: weight_bytes {first['weight_bytes']} (int8) against "
           f"{bf16['weight_bytes']} (bf16, phase 4): "
@@ -3920,7 +4090,7 @@ class MoeCounts:
         nl, steps = cfg.num_layers, eng.decode_window_steps - self.steps0
         for key, calls in eng.graphs.captured_calls().items():
             nw = key[4]
-            w8 = (4 * nl + 1) * nw if eng.quant else 0
+            w8 = decode_w8a16_launches(cfg) * nw if eng.quant else 0
             check(calls[MOE] == 3 * nl * nw and calls[RAGGED] == nl * nw
                   and calls[W8A16] == w8,
                   f"{name}: graph {key} holds {calls}, expected "
@@ -4033,7 +4203,7 @@ def moe_kernel_phase() -> tuple:
     step = {key: nl * sum(per_shape[p]["all 8 active"][key] for p in shapes)
             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     one_slot = {key: nl * sum(per_shape[p]["2 active"][key] for p in shapes)
-                for key in ("ms", "bound_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     prefill = nl * sum(per_shape[p]["prefill_route_ms"] for p in shapes)
     old_prefill = nl * sum(per_shape[p]["old_prefill_route_ms"]
                            for p in shapes)
@@ -4045,7 +4215,9 @@ def moe_kernel_phase() -> tuple:
           f"{step['bound_ms']:.3f} ms ({step['bound_ms'] / step['ms']:.1%}),"
           f" plain {step['plain_ms']:.3f} ms, torch.matmul on bf16 experts "
           f"{step['library_ms']:.3f} ms; one live slot (2 active): "
-          f"{one_slot['ms']:.3f} ms against {one_slot['bound_ms']:.3f}; "
+          f"{one_slot['ms']:.3f} ms against {one_slot['bound_ms']:.3f}, "
+          f"plain {one_slot['plain_ms']:.3f} ms, torch.matmul on the 2 "
+          f"active bf16 experts {one_slot['library_ms']:.3f} ms; "
           f"the prefill route's expert products for one 512-token chunk "
           f"(3 x {nl} tensor-core launches, 256 rows an expert): "
           f"{prefill:.3f} ms against the old route's (dequantize + "
@@ -4322,9 +4494,12 @@ def main() -> int:
     source = "dynamo_tpu_torch/csrc/w8a16_gemm.cu"
     records.append({
         "name": "w8a16_gemm", "route": "cuda", "source": source,
+        "kernel": "w8a16_group (one launch a group of products that share "
+                  "x)",
         "replaces": "dynamo_tpu/ops/quant.py:70 (wmat, fused by XLA into the "
                     "matmul; no Pallas kernel)",
-        "launches": first_http["launches"][W8A16], "max_abs_err": err_w8,
+        "launches": first_http["launches"][W8A16],
+        "moe_launches": moe["launches"][W8A16], "max_abs_err": err_w8,
         **w8_timing})
     records.append({
         "name": "w8a16_dequant", "route": "cuda", "source": source,

@@ -1,8 +1,11 @@
 // The W8A16 products' shared parts: the int8 -> float conversions and the
-// block bodies of the two kernels of w8a16_gemm.cu, which that file's
-// comment describes. w8a16_gemm.cu launches them over one weight,
-// w8a16_moe_gemm.cu over the experts of one layer. Included by both; every
-// definition has internal linkage.
+// block bodies of the per-weight kernels of w8a16_gemm.cu, which that
+// file's comment describes. w8a16_moe_gemm.cu launches them over the
+// experts of one layer (the serving user of mma_tile: the grouped expert
+// kernel); w8a16_gemm.cu over one weight (cuda_core_tile for an f32 x;
+// mma_tile only as chip_smoke.py's old column, since its grouped decode
+// kernel took the bf16 route). Included by both; every definition has
+// internal linkage.
 
 #pragma once
 

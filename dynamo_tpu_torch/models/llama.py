@@ -4,12 +4,14 @@ Port of dynamo_tpu/models/llama.py. Parameters are a plain dict of tensors
 stacked over layers, with the JAX package's names and layouts ("wq" is
 [L, D, H*hd], ...), so `params_from_jax` is a dtype/device move and the
 layer `lax.scan` becomes a Python loop over layer slices. Every projection
-and the head go through `ops/quant.linear`: a plain weight is one
-`torch.matmul` (the JAX package leaves it to XLA); with `cfg.quant ==
-"int8"` the seven projections and lm_head are {"q": int8 [L, d_in, d_out],
-"s": f32 [L, 1, d_out]} leaves, the JAX quantized tree's layout, and on the
-card a decode step's products run the W8A16 kernel. Norms, RoPE and the
-gate activation run in f32 as there.
+and the head go through `ops/quant.linear`, the products that share an
+input (wq | wk | wv, w_gate | w_up) through `ops/quant.linear_group`: a
+plain weight is one `torch.matmul` (the JAX package leaves it to XLA);
+with `cfg.quant == "int8"` the seven projections and lm_head are {"q":
+int8 [L, d_in, d_out], "s": f32 [L, 1, d_out]} leaves, the JAX quantized
+tree's layout, and on the card a decode step's products run the grouped
+W8A16 kernel, one launch a group. Norms, RoPE and the gate activation run
+in f32 as there.
 
 MoE models (`cfg.num_experts > 0`, Mixtral-style) carry a router [L, D, E]
 in the model dtype and stacked expert weights w_gate / w_up [L, E, D, F],
@@ -55,7 +57,8 @@ from dynamo_tpu_torch.ops.paged_attention import (
     decode_paged_attention_prefix,
 )
 from dynamo_tpu_torch.ops.quant import (
-    QUANT_KEYS, grouped_linear, is_quantized, linear, quantize_int8,
+    QUANT_KEYS, grouped_linear, is_quantized, linear, linear_group,
+    quantize_int8,
 )
 from dynamo_tpu_torch.ops.quant import validate_mode as validate_quant
 
@@ -266,8 +269,8 @@ def _layer_w(lp: Params, key: str, l: int):
 
 
 def _dense_mlp(x: torch.Tensor, lp: Params, l: int) -> torch.Tensor:
-    gate = linear(x, _layer_w(lp, "w_gate", l))
-    up = linear(x, _layer_w(lp, "w_up", l))
+    gate, up = linear_group(x, [_layer_w(lp, "w_gate", l),
+                                _layer_w(lp, "w_up", l)])
     act = F.silu(gate.float()).to(gate.dtype) * up
     return linear(act, _layer_w(lp, "w_down", l))
 
@@ -314,9 +317,11 @@ def _qkv(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig,
     b, t, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xn = rms_norm(x, lp["attn_norm"][l], cfg.rms_norm_eps)
-    q = linear(xn, _layer_w(lp, "wq", l)).reshape(b, t, h, hd)
-    k = linear(xn, _layer_w(lp, "wk", l)).reshape(b, t, hkv, hd)
-    v = linear(xn, _layer_w(lp, "wv", l)).reshape(b, t, hkv, hd)
+    q, k, v = linear_group(xn, [_layer_w(lp, key, l)
+                                for key in ("wq", "wk", "wv")])
+    q = q.reshape(b, t, h, hd)
+    k = k.reshape(b, t, hkv, hd)
+    v = v.reshape(b, t, hkv, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 

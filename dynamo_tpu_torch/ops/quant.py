@@ -10,19 +10,22 @@ w_down) and lm_head are quantized; norms and the embedding (a gather) stay
 in the model dtype. A quantized leaf is {"q": int8, "s": f32}, the JAX
 tree's layout, so `models/llama.params_from_jax` carries it across as is.
 
-Every matmul site calls `linear(x, w)`:
-- a plain weight: `x @ w`;
-- a quantized weight on CPU tensors: `x @ wmat(w, x.dtype)`, the plain
-  version (JAX's `wmat` followed by the matmul);
-- a quantized weight on CUDA tensors, chosen by the rows M of x:
-  M <= GEMV_MAX_M (the decode step's slots) launches the hand-written
-  W8A16 kernel (csrc/w8a16_gemm.cu), which dequantizes inside the product;
-  a bf16 x past that (prefill and mixed steps) launches the tensor-core
-  W8A16 kernel (csrc/w8a16_large_m.cu: TMA ring, int8 widened in shared
-  memory, wgmma) with one group; an f32 x past that (only the card-side f32
-  parity runs) launches the dequantize entry of w8a16_gemm.cu into an f32
-  scratch and hands the product to `torch.matmul`, since a bf16 tensor-core
-  product cannot hold f32's accuracy.
+Every matmul site calls `linear(x, w)`, or `linear_group(x, ws)` for the
+products that share one x (wq | wk | wv, w_gate | w_up):
+- plain weights: `x @ w`, one product a weight;
+- quantized weights on CPU tensors: `x @ wmat(w, x.dtype)` a weight, the
+  plain version (JAX's `wmat` followed by the matmul);
+- quantized weights on CUDA tensors, chosen by the rows M of x:
+  a bf16 x at M <= GEMV_MAX_M (the decode step's slots) launches the
+  grouped W8A16 decode kernel (csrc/w8a16_gemm.cu `w8a16_group`) once for
+  the whole group, which dequantizes inside the product; an f32 x there
+  (only the card-side f32 parity runs) launches that file's CUDA-core
+  kernel once a weight; a bf16 x past that (prefill and mixed steps)
+  launches the tensor-core W8A16 kernel (csrc/w8a16_large_m.cu: TMA ring,
+  int8 widened in shared memory, wgmma) once a weight; an f32 x past that
+  launches the dequantize entry of w8a16_gemm.cu into an f32 scratch and
+  hands the product to `torch.matmul`, since a bf16 tensor-core product
+  cannot hold f32's accuracy.
 There is no try/except and no quiet fallback: a CUDA tensor launches a
 kernel or raises.
 
@@ -62,22 +65,24 @@ QUANT_MODES = ("", "int8")
 # per layer, expert and output channel); the router stays in the model dtype
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
-# rows up to which a CUDA product runs the W8A16 decode kernel: a decode
+# rows up to which a CUDA product runs the W8A16 decode kernels: a decode
 # step's M = slots (EngineConfig.max_slots, 8 by default; the
-# disaggregated decode worker's 16). Past it a bf16 x takes the
-# tensor-core kernel (w8a16_large_m.cu). Placed from the card's times of
-# both kernels at M = 8, 9, 16, 32 and 64 (chip_smoke.py phase 2d, PERF.md
-# §6): up to 16 rows the decode kernel is faster at w_gate / w_up /
-# w_down, which carry ~81% of a layer's weight bytes; at 32 the
-# tensor-core kernel is.
+# disaggregated decode worker's 16), all of them in one pass of the
+# grouped kernel. Past it a bf16 x takes the tensor-core kernel
+# (w8a16_large_m.cu). Placed from the card's times at M = 8, 9, 16, 32 and
+# 64 (chip_smoke.py phase 2d, PERF.md §6): at 16 rows the grouped kernel
+# takes 0.0308 ms at w_gate against 0.0458 for the tensor-core kernel
+# (w_gate / w_up / w_down carry ~81% of a layer's weight bytes) and ties
+# it at wk (0.0095 / 0.0096); at 32 the tensor-core kernel is faster, and
+# the grouped kernel takes at most 16 rows.
 GEMV_MAX_M = 16
 
-# launches of the W8A16 GEMM kernel and of the dequantize entry since import
-# (or since a caller reset them), counted as ops/paged_attention.py counts
-# its kernel: a call made while its stream is being captured into a CUDA
-# graph launches nothing and counts in the *_CAPTURED counter instead; the
-# graph's owner (engine/window_graph.py) adds the captured calls on every
-# replay
+# launches of the W8A16 decode kernels (the grouped bf16 kernel and the
+# per-weight entry) and of the dequantize entry since import (or since a
+# caller reset them), counted as ops/paged_attention.py counts its kernel: a
+# call made while its stream is being captured into a CUDA graph launches
+# nothing and counts in the *_CAPTURED counter instead; the graph's owner
+# (engine/window_graph.py) adds the captured calls on every replay
 KERNEL_LAUNCHES = 0
 CAPTURED_CALLS = 0
 DEQUANT_LAUNCHES = 0
@@ -95,12 +100,13 @@ LARGE_M_CAPTURED = 0
 GROUPED_MAX_M = 16
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the kernels' tiles (csrc/w8a16_gemm.cu). The tensor-core kernel (bf16 x):
-# 128 columns and 8 warps a block, 128 rows of k a chunk, its splits over K
-# one thread-block cluster (at most 16), aiming at ~1.5 blocks per SM (two
-# fit by registers, so the grid stays within one wave) with at least 4
-# chunks a split. The CUDA-core kernel (f32 x): 256 columns, 64
-# rows, ~2 blocks per SM, splits added in a second pass.
+# the per-weight entry's tiles (csrc/w8a16_gemm.cu `w8a16_gemm`). Its
+# register-ring tensor-core kernel (bf16 x; on no route since the grouped
+# kernel, kept as the old column of chip_smoke's times): 128 columns and 8
+# warps a block, 128 rows of k a chunk, its splits over K one thread-block
+# cluster (at most 16), aiming at ~1.5 blocks per SM with at least 4 chunks
+# a split. The CUDA-core kernel (f32 x): 256 columns, 64 rows, ~2 blocks
+# per SM, splits added in a second pass.
 _MMA_TILE_N, _MMA_CHUNK_K = 128, 128
 _MMA_MAX_SPLITS, _MMA_MIN_CHUNKS = 16, 4
 _MMA_BLOCKS_PER_SM = 1.5
@@ -108,6 +114,27 @@ _F32_TILE_N, _F32_CHUNK_K, _F32_BLOCKS_PER_SM = 256, 64, 2
 # rows of x a block pass: the f32 kernel's instantiations (a bf16 x always
 # takes 8, the MMA's n8)
 _ROWS = (1, 2, 4, 8)
+# the grouped decode kernel's tiles (csrc/w8a16_gemm.cu `w8a16_group`; the
+# two must agree): 128 columns (one 128-byte TMA box row) by 64 k rows a
+# ring stage, up to 3 weights a launch, at most 8 splits over K (one
+# cluster, the portable limit) of at least 4 stages each. Three blocks fit
+# an SM (shared memory: 4 stages of a q and an x box, and the partial
+# sums). A split grid aims at 1.7 blocks an SM, a grid of whole tiles at
+# most 2 (PERF.md §6: a block streams at most ~12 GB/s, so more resident
+# blocks stream faster, while cluster grids of 240 blocks or more at 132
+# SMs ran up to 1.5x slower, the clusters not all placed at once)
+GROUP_MAX_W = 3
+_GRP_TILE_N, _GRP_CHUNK_K = 128, 64
+_GRP_MAX_SPLITS, _GRP_MIN_CHUNKS = 8, 4
+_GRP_SPLIT_BLOCKS_PER_SM, _GRP_TILE_BLOCKS_PER_SM = 1.7, 2
+# its dynamic shared memory a block (kGrpSmemBytes): the ring (a q box of
+# 64 x 128 bytes and an x box of 16 x 64 bf16 a stage), the four consumer
+# warps' partial sums (32 lanes x 65 f32), the ring's barriers and the
+# 1024-byte alignment slack
+_GRP_STAGES = 4
+GROUP_SMEM_BYTES = (_GRP_STAGES * (_GRP_CHUNK_K * _GRP_TILE_N + 16 * _GRP_CHUNK_K
+                                   * 2) + 4 * 32 * 65 * 4
+                    + 2 * 8 * _GRP_STAGES + 1024)
 # the tensor-core kernel's tiles (csrc/w8a16_large_m.cu; the two must
 # agree): 128 columns and 64 k a stage; 128 rows of x up to M = 128, else
 # 256 (each weight tile widened once for twice the rows)
@@ -206,6 +233,9 @@ def _lib():
     lib.w8a16_dequant.restype = ctypes.c_int
     lib.w8a16_dequant.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                                   + [ctypes.c_void_p])
+    lib.w8a16_group.restype = ctypes.c_int
+    lib.w8a16_group.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                                + [ctypes.c_void_p])
     return lib
 
 
@@ -308,6 +338,95 @@ def w8a16_gemm(x: torch.Tensor, q: torch.Tensor,
     index = torch.cuda.current_device() if dev.index is None else dev.index
     return _launch_gemm(x, q, s, *gemm_config(
         m, k, q.shape[1], _sm_count(index), x.dtype))
+
+
+def group_config(k: int, ns, sm_count: int) -> tuple:
+    """The grouped decode kernel's grid from shapes only (no host sync, so
+    a call can be captured): (splits over K, chunks of 64 rows a split,
+    column tiles a block, blocks). The weights' column tiles of 128 form
+    one column space of T tiles. With T at or past the split grid's aim
+    (1.7 blocks an SM), one split, and each block walks the same number of
+    tiles (the last ones one fewer), as few as keep at most 2 blocks an SM.
+    With fewer tiles, each tile's K is split into as many equal parts as
+    keep T x splits within that aim (at most 8, one cluster, each at least
+    4 chunks); the splits' sums are added in rank order inside their
+    cluster."""
+    tiles = sum(-(-n // _GRP_TILE_N) for n in ns)
+    chunks = -(-k // _GRP_CHUNK_K)
+    aim = int(_GRP_SPLIT_BLOCKS_PER_SM * sm_count)
+    if tiles >= aim:
+        per_block = -(-tiles // (_GRP_TILE_BLOCKS_PER_SM * sm_count))
+        return 1, chunks, per_block, -(-tiles // per_block)
+    want = min(aim // tiles, chunks // _GRP_MIN_CHUNKS)
+    splits, per = _split(chunks, want, _GRP_MAX_SPLITS)
+    return splits, per, 1, tiles
+
+
+def group_units(k: int, ns, splits: int, per: int, per_block: int,
+                blocks: int) -> list:
+    """The grouped kernel's work in its blocks' order (csrc/w8a16_gemm.cu
+    `w8a16_group_kernel`), from shapes only: for block (split, b), the
+    (weight, first column, first k row, end k row) of each tile it walks:
+    tiles b, b + blocks, ... (at most per_block), each over the split's K
+    range of `per` chunks of 64 rows."""
+    starts = [0]
+    for n in ns:
+        starts.append(starts[-1] + -(-n // _GRP_TILE_N))
+    units = []
+    for split in range(splits):
+        k_lo = split * per * _GRP_CHUNK_K
+        k_hi = min(k, k_lo + per * _GRP_CHUNK_K)
+        for b in range(blocks):
+            for t in range(b, min(starts[-1], b + per_block * blocks),
+                           blocks):
+                w = max(i for i in range(len(ns)) if starts[i] <= t)
+                units.append((w, (t - starts[w]) * _GRP_TILE_N, k_lo, k_hi))
+    return units
+
+
+def _check_group(x, qs, ss):
+    """What the grouped entry takes: 1 to GROUP_MAX_W weights of one K,
+    each as `_check_args` takes it, and a bf16 x of 1 to 16 rows."""
+    if not 1 <= len(qs) == len(ss) <= GROUP_MAX_W:
+        raise ValueError(f"the grouped W8A16 kernel takes 1 to "
+                         f"{GROUP_MAX_W} weights, got {len(qs)}")
+    for q, s in zip(qs, ss):
+        _check_args(x, q, s)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the grouped W8A16 kernel takes a bfloat16 x, got "
+                        f"{x.dtype}")
+    if x.shape[0] > 16:
+        raise ValueError(f"the grouped W8A16 kernel takes at most 16 rows, "
+                         f"got {x.shape[0]}")
+
+
+def w8a16_group(x: torch.Tensor, qs, ss) -> list:
+    """[x @ (f32(q_i) * s_i) for each weight] with f32 accumulation, bf16
+    outputs [M, N_i]: the grouped decode kernel, one launch on PyTorch's
+    current stream for up to GROUP_MAX_W weights that share x (no sync;
+    the grid from shapes only, `group_config`)."""
+    global KERNEL_LAUNCHES, CAPTURED_CALLS
+    _check_group(x, qs, ss)
+    m, k = x.shape
+    ns = [q.shape[1] for q in qs]
+    dev = x.device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    splits, per, per_block, _ = group_config(k, ns, _sm_count(index))
+    ys = [torch.empty((m, n), dtype=torch.bfloat16, device=dev) for n in ns]
+    pad = GROUP_MAX_W - len(qs)
+    err = _lib().w8a16_group(
+        x.data_ptr(), *[q.data_ptr() for q in qs], *[None] * pad,
+        *[s.data_ptr() for s in ss], *[None] * pad,
+        *[y.data_ptr() for y in ys], *[None] * pad, *ns, *[0] * pad,
+        len(qs), m, k, splits, per, per_block,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"w8a16_group launch failed: CUDA error {err}")
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED_CALLS += 1
+    else:
+        KERNEL_LAUNCHES += 1
+    return ys
 
 
 def dequantize(w: Dict[str, torch.Tensor], dt: torch.dtype) -> torch.Tensor:
@@ -558,8 +677,8 @@ def grouped_linear(x: torch.Tensor, w, active: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, w) -> torch.Tensor:
     """x [..., K] @ w, w plain [K, N] or quantized {"q": [K, N] int8, "s":
-    [1, N] f32}: the one call every matmul site makes (see the module
-    docstring for the routes)."""
+    [1, N] f32}: the one call every single-weight matmul site makes (see
+    the module docstring for the routes)."""
     if not is_quantized(w):
         return x @ w
     if not x.is_cuda:
@@ -568,10 +687,29 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
         return x @ wmat(w, x.dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if x2.shape[0] <= GEMV_MAX_M:
+    if x2.shape[0] <= GEMV_MAX_M and x2.dtype == torch.bfloat16:
+        y = w8a16_group(x2, [w["q"]], [w["s"]])[0]
+    elif x2.shape[0] <= GEMV_MAX_M:
         y = w8a16_gemm(x2, w["q"], w["s"])
     elif x2.dtype == torch.bfloat16:
         y = large_m_gemm(x2, w["q"], w["s"])
     else:
         y = x2 @ dequantize(w, x.dtype)
     return y.reshape(*lead, y.shape[-1])
+
+
+def linear_group(x: torch.Tensor, ws) -> list:
+    """[linear(x, w) for w in ws] for products that share x: on CUDA
+    tensors with quantized weights and a bf16 x of at most GEMV_MAX_M rows,
+    one launch of the grouped decode kernel for all of them (up to
+    GROUP_MAX_W); every other case is `linear` a weight (see the module
+    docstring for the routes)."""
+    if (x.is_cuda and x.dtype == torch.bfloat16
+            and 1 < len(ws) <= GROUP_MAX_W
+            and all(is_quantized(w) for w in ws)
+            and x.numel() // x.shape[-1] <= GEMV_MAX_M):
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        ys = w8a16_group(x2, [w["q"] for w in ws], [w["s"] for w in ws])
+        return [y.reshape(*lead, y.shape[-1]) for y in ys]
+    return [linear(x, w) for w in ws]

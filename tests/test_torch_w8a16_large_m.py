@@ -239,7 +239,8 @@ def entries(monkeypatch):
     """Every C entry point replaced by a recorder, every tensor reporting
     itself as CUDA (the wrappers' shape logic runs on CPU tensors), and the
     CUDA runtime queries answered as on one card."""
-    lib = types.SimpleNamespace(w8a16_gemm=_Entry(), w8a16_dequant=_Entry())
+    lib = types.SimpleNamespace(w8a16_gemm=_Entry(), w8a16_dequant=_Entry(),
+                                w8a16_group=_Entry())
     moe = types.SimpleNamespace(w8a16_moe_gemm=_Entry())
     large = types.SimpleNamespace(w8a16_large_m=_Entry())
     monkeypatch.setattr(tquant, "_lib", lambda: lib)
@@ -254,7 +255,8 @@ def entries(monkeypatch):
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     return types.SimpleNamespace(
         gemm=lib.w8a16_gemm.calls, dequant=lib.w8a16_dequant.calls,
-        moe=moe.w8a16_moe_gemm.calls, large=large.w8a16_large_m.calls)
+        group=lib.w8a16_group.calls, moe=moe.w8a16_moe_gemm.calls,
+        large=large.w8a16_large_m.calls)
 
 
 def _qw(shape, seed=0):
@@ -270,7 +272,7 @@ def test_bf16_past_the_switch_point_takes_the_new_kernel_once(entries, m):
     y = tquant.linear(torch.zeros((m, 64), dtype=torch.bfloat16), w)
     assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, 48)
     assert len(entries.large) == 1 and not entries.dequant
-    assert not entries.gemm and not entries.moe
+    assert not entries.gemm and not entries.group and not entries.moe
     assert tquant.LARGE_M_LAUNCHES == before + 1
     call = entries.large[0]
     config = tquant.large_m_config(1, m, 64, 48, 132)
@@ -285,8 +287,8 @@ def test_decode_rows_keep_the_decode_kernel(entries):
     w = _qw((64, 48))
     tquant.linear(torch.zeros((tquant.GEMV_MAX_M, 64),
                               dtype=torch.bfloat16), w)
-    assert len(entries.gemm) == 1 and not entries.large
-    assert not entries.dequant
+    assert len(entries.group) == 1 and not entries.large
+    assert not entries.dequant and not entries.gemm
 
 
 def test_grouped_bf16_is_one_launch_for_every_expert(entries):
@@ -297,7 +299,7 @@ def test_grouped_bf16_is_one_launch_for_every_expert(entries):
                               w, active)
     assert tuple(y.shape) == (4, m, 48) and y.dtype == torch.bfloat16
     assert len(entries.large) == 1 and not entries.dequant
-    assert not entries.moe and not entries.gemm
+    assert not entries.moe and not entries.gemm and not entries.group
     call = entries.large[0]
     assert call[3] == active.data_ptr()
     assert call[6:10] == (4, m, 64, 48)
