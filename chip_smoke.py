@@ -209,12 +209,52 @@ Phases (any failed check exits non-zero; nothing is caught):
    from llm_ttft_seconds (the bucket counts each round added), labelled
    as two replicas sharing one H100. Then
    one greedy request twice through the router (logprobs on): equal
-   bodies apart from id / created. Then SIGTERM to both workers: each
-   drains, deregisters (both frontends' instance counts fall to 0),
-   prints `EXIT ... logits_nonfinite_steps=0` and exits 0; the frontends
-   and the server then exit 0 on SIGINT. Each worker process is its own
-   path: its launch counts start at 0 with the process and are read from
-   its $STATS.
+   bodies apart from id / created. The frontends dispatch through the
+   reliability layer (frontend/reliability.py), as every frontend does.
+11k. A worker killed mid-wave: 8 greedy streamed chats on 8 fresh system
+   prompts of the same shapes (no prefix shared inside the wave, so that
+   every stream is admitted and prefilled at once), max_tokens 128,
+   logprobs with the top 8, through the KV-routed frontend, after a
+   warm-up wave of the same 8 requests: the router then sends each to the
+   worker that holds its prompt's pages, so every stream prefills one page
+   and all 8 decode together (a wave of fresh 1.2k-token prompts staggers
+   their starts by seconds, and the first streams end before the last
+   begin), and both workers hold the window graphs the wave replays. Once
+   every
+   stream holds at least 8 tokens at the client (logprob entries), the
+   router's decision log (GET /router/state, keyed by x-request-id, read
+   before the kill) names the worker holding each stream, and the worker
+   holding the most is SIGKILLed. Checks: every stream ends with
+   finish_reason length, 128 logprob entries, usage.completion_tokens 128
+   and [DONE], with no error frame, and its text before the kill is a
+   prefix of its final text; the frontend's
+   llm_reliability_migrations_total grew by the killed worker's streams;
+   the killed worker exited -9; once its lease expires /router/state lists
+   one instance. Then each migrated stream is replayed on the survivor
+   (the same body) and held against it position by position by its
+   logprobs (the token strings and the top-8 values, within two bf16 ulps
+   at the top logit's magnitude, as the ids are not on the wire): equal up
+   to the first difference d, and there a near tie (top-1 less top-2 <=
+   NEAR_TIE in both streams), as phase 12 holds its streams (the survivor
+   re-prefills prompt + committed tokens in bf16). Where the token strings
+   differ at d, d is the tie; where only the values differ (two ids of one
+   string were picked at d - 1), d - 1 is.
+   Printed: each stream's migration gap (client time across the kill from
+   the last frame before it), p50 and max, and the first-difference
+   positions.
+11s. Shedding: a third frontend process on the same control plane with
+   DYN_MAX_INFLIGHT=2 DYN_ADMISSION_QUEUE=0 DYN_RETRY_AFTER_S=1 (no GPU
+   work; the other frontends keep their environment). Two streams are held
+   open past their first frame, then two more requests answer 429 with
+   retry-after 1 and the body {"error": {"message": "server overloaded,
+   retry later", "code": 429}}, and llm_http_service_requests_total
+   {status="shed"} grows by 2; once the held streams end a request answers
+   200 and the in-flight gauge is back to 0.
+   Then SIGTERM to the survivor: it drains, deregisters (both first
+   frontends' instance counts fall to 0), prints `EXIT ...
+   logits_nonfinite_steps=0` and exits 0; the frontends and the server
+   then exit 0 on SIGINT. Each worker process is its own path: its launch
+   counts start at 0 with the process and are read from its $STATS.
 
 12. The disaggregated deployment at full width, as processes through the
    SDK's one command: `python -m dynamo_tpu_torch.sdk.serve
@@ -254,7 +294,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    pages received equal the remote requests' uncached pages and the pages
    verified, with no mismatch; salvages, full re-prefills, overlap
    fall-backs, prefill timeouts, link timeouts, prefill failures and
-   llm_router_fallbacks are all 0; the prefill worker launched the ragged
+   llm_router_fallbacks are all 0, and so are the frontend's reliability
+   migrations and retries and its hedges (the frontend dispatches through
+   the reliability layer); the prefill worker launched the ragged
    kernel 0 times, the decode worker layers x decode steps + warm-up
    launches times, one replay per decode window, no graph reset, and no
    new graph during rounds A and B. Then SIGTERM to the supervisor: the frontend
@@ -357,6 +399,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -2558,14 +2601,15 @@ class Child:
     """A subprocess of the phase (`python -m <args>` from the checkout's
     root) whose merged output a thread drains into a queue."""
 
-    def __init__(self, name: str, args: list, session: bool = False):
+    def __init__(self, name: str, args: list, session: bool = False,
+                 env=None):
         import queue
         import threading
         self.name = name
         self.lines: list = []
         self._q: queue.Queue = queue.Queue()
         root = os.path.dirname(os.path.abspath(__file__))
-        env = {**os.environ, "DYN_LEASE_TTL_S": "30"}
+        env = {**os.environ, "DYN_LEASE_TTL_S": "30", **(env or {})}
         # session: a process group of its own, so that kill() also reaches
         # the processes it started (a supervisor's services)
         self.session = session
@@ -2979,14 +3023,333 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
     return rec
 
 
+def reliability_counts(text: str) -> dict:
+    """The frontend's reliability counters in a /metrics text:
+    migrations, retries and hedges fired."""
+    out = {}
+    for key, metric in (("migrations", "llm_reliability_migrations_total"),
+                        ("retries", "llm_reliability_retries_total"),
+                        ("hedges", "llm_hedge_fired")):
+        m = re.search(rf"^{metric} (\S+)$", text, re.M)
+        check(m is not None, f"/metrics has no {metric}")
+        out[key] = float(m.group(1))
+    return out
+
+
+KILL_TOKENS = 128
+KILL_AT = 8        # every stream holds this many tokens at the kill
+KILL_TOP = 8       # top logprobs a token
+
+
+class Stream:
+    """One streamed chat read frame by frame: its logprob entries (the
+    token string, its logprob, the top values), text, finish reasons,
+    usage, error frames and each frame's arrival time."""
+
+    def __init__(self, rid: str):
+        self.rid = rid
+        self.entries: list = []
+        self.text = ""
+        self.finish: list = []
+        self.usage = None
+        self.done = False
+        self.errors: list = []
+        self.times: list = []
+        self.first_frame = asyncio.Event()
+
+    def feed(self, event: str, payload: str) -> None:
+        self.times.append(time.perf_counter())
+        self.first_frame.set()
+        if event == "error":
+            self.errors.append(payload)
+            return
+        if payload == "[DONE]":
+            self.done = True
+            return
+        frame = json.loads(payload)
+        if frame.get("usage"):
+            self.usage = frame["usage"]
+        for c in frame.get("choices", []):
+            self.text += (c.get("delta") or {}).get("content") or ""
+            for e in (c.get("logprobs") or {}).get("content") or ():
+                self.entries.append((e["token"], e["logprob"], sorted(
+                    (t["logprob"] for t in e["top_logprobs"]),
+                    reverse=True)))
+            if c.get("finish_reason"):
+                self.finish.append(c["finish_reason"])
+                if c["finish_reason"] == "error":
+                    self.errors.append(frame)
+
+
+async def _stream_into(port: int, body: dict, st: Stream,
+                       on_frame=None) -> Stream:
+    """Send a streamed chat (x-request-id st.rid) and feed every SSE
+    event into `st`, calling on_frame() after each."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(_head("POST", "/v1/chat/completions",
+                           json.dumps(body).encode(),
+                           {"x-request-id": st.rid}))
+        await writer.drain()
+        head = (await reader.readuntil(b"\r\n\r\n")).decode("latin-1")
+        check(" 200 " in head.split("\r\n")[0],
+              f"{st.rid}: SSE status {head[:40]}")
+        buf = b""
+        while True:
+            size = int((await reader.readuntil(b"\r\n")).strip(), 16)
+            if size == 0:
+                break
+            buf += await reader.readexactly(size)
+            await reader.readexactly(2)
+            while b"\n\n" in buf:
+                block, buf = buf.split(b"\n\n", 1)
+                lines = block.decode().split("\n")
+                event = next((x[6:].strip() for x in lines
+                              if x.startswith("event:")), "")
+                st.feed(event, "\n".join(x[5:].lstrip(" ") for x in lines
+                                         if x.startswith("data:")))
+                if on_frame is not None:
+                    on_frame()
+    finally:
+        writer.close()
+        await writer.wait_closed()
+    return st
+
+
+def kill_body(model: str, p: int, u: int, sys_len: int) -> dict:
+    """Phase 11k's request (prefix seed p, user turn u): the phase's
+    shapes, greedy, streamed with usage and the top logprobs."""
+    return {"model": model, "max_tokens": KILL_TOKENS, "stream": True,
+            "stream_options": {"include_usage": True}, "logprobs": True,
+            "top_logprobs": KILL_TOP, "messages": [
+                {"role": "system", "content": dist_text(sys_len, 1000 + p)},
+                {"role": "user", "content": dist_text(
+                    64 + 32 * u + 7 * p, 4 * u + p)}]}
+
+
+# a greedy stream of the deployment may leave the plain aggregated engine's
+# only at a near tie: where the one-token prefill that writes the first
+# token's KV (the disaggregated path) and the decode window (the aggregated
+# one) round differently in bf16, the two may pick either of two tokens
+# whose logits differ by at most two bf16 ulps at the top logit's magnitude
+# (weights N(0, 1/fan_in) over a unit-RMS hidden state give logits ~N(0, 1);
+# the top of 128256 sits in [4, 8), where an ulp is 2^-5). A fault in the
+# pages moves the logits by far more than that
+NEAR_TIE = 2.0 ** -4 + 1e-5     # + the f32 rounding of two log-softmaxes
+
+# two token positions are the same token in the same context when their
+# strings match and their top values agree within four bf16 ulps at the top
+# logit's magnitude: each of two workers' bf16 computations may round up to
+# two ulps away (a different context moves them by far more)
+SAME_CONTEXT = 2 * NEAR_TIE
+
+
+def first_difference_of(a: list, b: list):
+    """The first position where two streams' logprob entries differ (None
+    when they agree throughout and have the same length)."""
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x[0] != y[0] or abs(x[1] - y[1]) > SAME_CONTEXT or any(
+                abs(p - q) > SAME_CONTEXT for p, q in zip(x[2], y[2])):
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+async def drive_kill(fe_port: int, model: str, sys_len: int,
+                     workers: dict) -> dict:
+    """Phase 11k (see the docstring at the top): the wave, the kill of the
+    worker holding the most streams, the checks, the replay on the
+    survivor. `workers`: {worker id: Child}."""
+    name = "distributed path, worker killed mid-wave"
+    reqs = {f"kill-p{p}": kill_body(model, p, p % 2, sys_len)
+            for p in range(12, 20)}
+    # the warm-up wave, the same requests: their prompts' pages and the
+    # logprob window graphs are on the workers before the measured wave
+    t0 = time.perf_counter()
+    warm = await asyncio.gather(*(
+        _stream_into(fe_port, body, Stream(f"warm-{rid}"))
+        for rid, body in reqs.items()))
+    check(all(st.done and not st.errors for st in warm),
+          f"{name}: the warm-up wave: "
+          f"{[(st.rid, st.finish, st.errors[:1]) for st in warm]}")
+    warm_s = time.perf_counter() - t0
+    text0 = (await _http(fe_port, "GET", "/metrics"))[2].decode()
+    rel0 = reliability_counts(text0)
+    streams = {rid: Stream(rid) for rid in reqs}
+    ready = asyncio.Event()
+
+    def on_frame():
+        if all(len(s.entries) >= KILL_AT for s in streams.values()):
+            ready.set()
+    tasks = [asyncio.create_task(_stream_into(fe_port, body, streams[rid],
+                                              on_frame))
+             for rid, body in reqs.items()]
+    await asyncio.wait_for(ready.wait(), 300)
+    state = await _get_json(fe_port, "/router/state")
+    dec = {d["request_id"]: d["worker_id"]
+           for d in state["models"][model]["decisions"]}
+    check(all(r in dec for r in reqs), f"{name}: no decision for "
+          f"{[r for r in reqs if r not in dec]}")
+    held = {w: sorted(r for r in reqs if dec[r] == w) for w in workers}
+    killed = max(sorted(held), key=lambda w: len(held[w]))
+    at_kill = {rid: len(s.entries) for rid, s in streams.items()}
+    text_at_kill = {rid: s.text for rid, s in streams.items()}
+    t_kill = time.perf_counter()
+    workers[killed].proc.send_signal(signal.SIGKILL)
+    check(all(KILL_AT <= n < KILL_TOKENS for n in at_kill.values()),
+          f"{name}: token counts at the kill {at_kill}")
+    await asyncio.wait_for(asyncio.gather(*tasks), 600)
+    wave_s = time.perf_counter() - t_kill
+    for rid, st in streams.items():
+        check(not st.errors and st.done and st.finish == ["length"]
+              and len(st.entries) == KILL_TOKENS and st.usage
+              and st.usage["completion_tokens"] == KILL_TOKENS
+              and st.text.startswith(text_at_kill[rid]),
+              f"{name}: {rid} ended with errors {st.errors[:2]}, [DONE] "
+              f"{st.done}, finish {st.finish}, {len(st.entries)} entries, "
+              f"usage {st.usage}")
+    text1 = (await _http(fe_port, "GET", "/metrics"))[2].decode()
+    rel1 = reliability_counts(text1)
+    migrated = held[killed]
+    migrations = rel1["migrations"] - rel0["migrations"]
+    check(migrations == len(migrated), f"{name}: {migrations} migrations, "
+          f"the killed worker {killed} held {len(migrated)} streams "
+          f"{migrated}")
+    code = workers[killed].proc.wait(timeout=60)
+    check(code == -signal.SIGKILL, f"{name}: the killed worker exited "
+          f"{code}")
+
+    async def one_instance():
+        st = await _get_json(fe_port, "/router/state")
+        return len(st["models"].get(model, {}).get("instances", {})) == 1
+    t0 = time.perf_counter()
+    await _poll(f"{name}: /router/state listing one instance once the "
+                "lease expires", one_instance, 120, poll_s=0.5)
+    lease_s = time.perf_counter() - t0 + wave_s
+
+    # the migration gap: the client's time across the kill from the last
+    # frame before it to the frame the stream resumed with
+    gaps = {}
+    for rid in migrated:
+        ts = streams[rid].times
+        i = max(j for j, t in enumerate(ts) if t <= t_kill)
+        gaps[rid] = max(b - a for a, b in zip(ts[i:], ts[i + 1:]))
+    # each migrated stream against the same request served on the survivor
+    replays = dict(zip(migrated, await asyncio.gather(*(
+        _stream_into(fe_port, reqs[rid], Stream(f"replay-{rid}"))
+        for rid in migrated))))
+    firsts = {}
+    for rid in migrated:
+        a, b = streams[rid].entries, replays[rid].entries
+        check(replays[rid].done and len(b) == KILL_TOKENS,
+              f"{name}: the replay of {rid} gave {len(b)} entries")
+        d = first_difference_of(a, b)
+        firsts[rid] = None
+        if d is None:
+            continue
+        # the tokens differ at d: d itself is the tie. Only the values
+        # differ (equal strings): two ids of one string were picked at
+        # d - 1, which is the tie. Either way both streams must see it
+        case = "token" if a[d][0] != b[d][0] else "context"
+        at = d if case == "token" else d - 1
+        check(at >= 0, f"{name}: {rid} differs from its replay in the "
+              "values of its first token")
+        tie = max(x[2][0] - x[2][1] for x in (a[at], b[at]))
+        check(tie <= NEAR_TIE, f"{name}: {rid} leaves its replay at "
+              f"position {d} ({case} differs), and position {at} is no "
+              f"near tie in both streams (top-1 less top-2 up to "
+              f"{tie:.4f} > {NEAR_TIE}); killed at {at_kill[rid]}")
+        firsts[rid] = [d, case, round(tie, 5)]
+    rel2 = reliability_counts(
+        (await _http(fe_port, "GET", "/metrics"))[2].decode())
+    import numpy as np
+    g = sorted(gaps.values())
+    rec = {"killed": killed, "held": held, "tokens_at_kill": at_kill,
+           "migrations": migrations,
+           "retries": rel1["retries"] - rel0["retries"],
+           "replay_retries": rel2["retries"] - rel1["retries"],
+           "migration_gap_s": gaps,
+           "migration_gap_p50_s": float(np.percentile(g, 50)),
+           "migration_gap_max_s": max(g),
+           "first_difference": firsts, "warmup_s": warm_s,
+           "wave_s_after_kill": wave_s,
+           "kill_to_one_instance_s": lease_s}
+    print(f"{name}: killed {killed} holding {len(migrated)} of "
+          f"{len(reqs)} streams at {json.dumps(at_kill)} tokens; every "
+          f"stream ended with {KILL_TOKENS} tokens, length, [DONE], no error "
+          f"frame; migrations {migrations}, retries {rec['retries']}; "
+          f"migration gap p50 {rec['migration_gap_p50_s']:.3f} s max "
+          f"{rec['migration_gap_max_s']:.3f} s; against the replay on the "
+          f"survivor, first (position, what differs, top-2 gap) "
+          f"{json.dumps(firsts)} (null: equal throughout); one instance "
+          f"{lease_s:.1f} s after the kill", flush=True)
+    return rec
+
+
+async def drive_shed(port: int, model: str, sys_len: int) -> dict:
+    """Phase 11s (see the docstring at the top) against the shedding
+    frontend at `port`."""
+    name = "distributed path, shedding frontend"
+
+    async def listed():
+        got = await _get_json(port, "/v1/models")
+        return [m["id"] for m in got["data"]] == [model]
+    await _poll(f"{name}: listing {model}", listed, 120)
+    text0 = (await _http(port, "GET", "/metrics"))[2].decode()
+    held = [Stream(f"held-{i}") for i in range(2)]
+    tasks = [asyncio.create_task(_stream_into(
+        port, kill_body(model, 24 + i, 0, sys_len), st)) for i, st in
+        enumerate(held)]
+    for st in held:
+        await asyncio.wait_for(st.first_frame.wait(), 300)
+    small = {"model": model, "max_tokens": 4, "messages": [
+        {"role": "user", "content": dist_text(64, 31)}]}
+    shed = [await _http(port, "POST", "/v1/chat/completions", small,
+                        {"x-request-id": f"shed-{i}"}) for i in range(2)]
+    check(not any(t.done() for t in tasks), f"{name}: a held stream ended "
+          "before the two requests were shed")
+    for status, headers, raw in shed:
+        check(status == 429 and headers.get("retry-after") == "1"
+              and json.loads(raw) == {"error": {
+                  "message": "server overloaded, retry later",
+                  "code": 429}},
+              f"{name}: status {status}, retry-after "
+              f"{headers.get('retry-after')}, body {raw[:200]}")
+    await asyncio.wait_for(asyncio.gather(*tasks), 600)
+    for st in held:
+        check(st.done and st.finish == ["length"] and not st.errors,
+              f"{name}: held stream {st.rid}: {st.finish} {st.errors[:2]}")
+    status, _, raw = await _http(port, "POST", "/v1/chat/completions",
+                                 small, {"x-request-id": "after"})
+    check(status == 200, f"{name}: after the held streams, status "
+          f"{status}: {raw[:200]}")
+    text = (await _http(port, "GET", "/metrics"))[2].decode()
+
+    def sheds(t):
+        return sum(float(x) for x in re.findall(
+            r'^llm_http_service_requests_total\{[^}]*status="shed"\} '
+            r'(\S+)$', t, re.M))
+    inflight = re.findall(r"^llm_http_service_inflight_requests\{[^}]*\} "
+                          r"(\S+)$", text, re.M)
+    n = sheds(text) - sheds(text0)
+    check(n == 2 and inflight and all(float(x) == 0 for x in inflight),
+          f"{name}: {n} shed requests counted, in flight {inflight}")
+    print(f"{name} (DYN_MAX_INFLIGHT=2 DYN_ADMISSION_QUEUE=0 "
+          f"DYN_RETRY_AFTER_S=1): with 2 streams held, 2 requests answered "
+          f"429, retry-after 1, the JAX error body; "
+          f'llm_http_service_requests_total{{status="shed"}} +{n:.0f}; '
+          f"after the held streams ended, 200 and 0 in flight", flush=True)
+    return {"shed": n, "statuses": [s for s, _, _ in shed],
+            "retry_after": [h.get("retry-after") for _, h, _ in shed]}
+
+
 def phase_distributed(smi: str, model: str = "llama3-8b",
                       sys_len: int = 1024, device_args=(),
                       device_name: str = None) -> dict:
     """Phase 11 (see the docstring at the top): the control-plane server,
     two `run.py in=endpoint` workers and two frontends as processes, the
-    traffic and the checks, then SIGTERM to both workers (each drains,
+    traffic and the checks, 11k (one worker SIGKILLed mid-wave) and 11s (a
+    third, shedding frontend), then SIGTERM to the survivor (it drains,
     deregisters and exits 0). Every child is stopped in the `finally`."""
-    import signal
     from dynamo_tpu_torch.engine.config import get_model_config
     children = []
     t0 = time.perf_counter()
@@ -3021,16 +3384,38 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
             get_model_config(model).num_layers, smi,
             on_card=device_name != "cpu"), 900))
         rec["ready_s"] = ready_s
-        # drain: SIGTERM both workers; each deregisters and exits 0
-        for w in workers:
-            w.proc.send_signal(signal.SIGTERM)
-        codes = [w.stop(None, 120) for w in workers]
-        check(codes == [0, 0], f"workers exited {codes} after SIGTERM:\n"
-              + "\n".join(w.tail() for w in workers))
-        for w in workers:
-            exits = [x for x in w.lines if x.startswith("EXIT ")]
-            check(len(exits) == 1 and " logits_nonfinite_steps=0 "
-                  in exits[0], f"{w.name}: {exits or w.tail()}")
+        # 11k: SIGKILL the worker holding the most of a wave's streams
+        by_id = {line.split(" worker=", 1)[1].split()[0]: w
+                 for line, w in zip(ready, workers)}
+        t0 = time.perf_counter()
+        rec["kill"] = asyncio.run(asyncio.wait_for(drive_kill(
+            fe_ports[0], model, sys_len, by_id), 900))
+        rec["kill"]["phase_s"] = time.perf_counter() - t0
+        survivor = next(w for i, w in by_id.items()
+                        if i != rec["kill"]["killed"])
+        # 11s: a third frontend that sheds past 2 requests in flight
+        t0 = time.perf_counter()
+        shedding = Child("frontend (shedding)", [
+            "dynamo_tpu_torch.frontend.serve", "--host", "127.0.0.1",
+            "--port", "0", "--control-host", "127.0.0.1", "--control-port",
+            str(cp_port)], env={"DYN_MAX_INFLIGHT": "2",
+                                "DYN_ADMISSION_QUEUE": "0",
+                                "DYN_RETRY_AFTER_S": "1"})
+        children.append(shedding)
+        fronts.append(shedding)
+        shed_port = int(shedding.wait_line("READY http=:", 120)
+                        .rsplit(":", 1)[1])
+        rec["shed"] = asyncio.run(asyncio.wait_for(drive_shed(
+            shed_port, model, sys_len), 900))
+        rec["shed"]["phase_s"] = time.perf_counter() - t0
+        # drain: SIGTERM the survivor; it deregisters and exits 0
+        survivor.proc.send_signal(signal.SIGTERM)
+        codes = [survivor.stop(None, 120)]
+        check(codes == [0], f"the survivor exited {codes} after SIGTERM:\n"
+              + survivor.tail())
+        exits = [x for x in survivor.lines if x.startswith("EXIT ")]
+        check(len(exits) == 1 and " logits_nonfinite_steps=0 "
+              in exits[0], f"{survivor.name}: {exits or survivor.tail()}")
 
         async def deregistered():
             async def empty(port):
@@ -3041,9 +3426,10 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
                             lambda: empty(port), 60)
         asyncio.run(deregistered())
         rest = [c.stop(signal.SIGINT, 60) for c in fronts + [server]]
-        check(rest == [0, 0, 0], f"frontends and server exited {rest}")
-        print(f"distributed path: workers READY in {ready_s:.1f} s, drained "
-              f"on SIGTERM and exited {codes}; both frontends showed 0 "
+        check(rest == [0] * len(rest), f"frontends and server exited {rest}")
+        print(f"distributed path: workers READY in {ready_s:.1f} s; one "
+              f"killed mid-wave (-9), the survivor drained on SIGTERM and "
+              f"exited {codes[0]}; the routing frontends showed 0 "
               f"instances; frontends and server exited {rest}", flush=True)
         return rec
     finally:
@@ -3279,6 +3665,11 @@ async def drive_disagg(cp_port: int, fe_port: int, model: str, scale: float,
     fallbacks["llm_router_fallbacks"] = float(rf.group(1)) if rf else None
     check(all(v == 0 for v in fallbacks.values()),
           f"{name}: fall-backs {fallbacks}")
+    # the frontend dispatches through the reliability layer: no stream of
+    # the phase migrated, retried or hedged
+    reliability = reliability_counts(text2)
+    check(all(v == 0 for v in reliability.values()),
+          f"{name}: the frontend's reliability counters {reliability}")
 
     # the kernels: the prefill worker never launched the ragged kernel;
     # the decode worker launched it layers x decode steps + warm-ups, one
@@ -3341,7 +3732,7 @@ async def drive_disagg(cp_port: int, fe_port: int, model: str, scale: float,
         "activation_ms": {r: d2["disagg"]["activation_ms"].get(r)
                           for r in remote},
         "pages": received, "fallbacks": fallbacks,
-        "graphs": graphs, "warmup_graph_keys": keys[0],
+        "reliability": reliability, "graphs": graphs, "warmup_graph_keys": keys[0],
         "launches": {"decode": dk, "prefill": pk},
         "decode_window_steps": d2["decode_window_steps"],
         "peak_gib": {"decode": d2["disagg"]["peak_bytes"] / 2 ** 30,
@@ -3358,7 +3749,8 @@ async def drive_disagg(cp_port: int, fe_port: int, model: str, scale: float,
           f"ms {json.dumps(rec['round_a_ttft_ms'])}; round B "
           f"(12 at once) in {b_wall:.3f} s, remote {len(remote)} of "
           f"{len(reference) + len(reqs)}, {received} pages received = "
-          f"verified, 0 mismatches, fall-backs 0; llm_ttft_seconds p50 "
+          f"verified, 0 mismatches, fall-backs 0, 0 migrations, 0 retries, "
+          f"0 hedges; llm_ttft_seconds p50 "
           f"{rec['llm_ttft']['ttft_p50_ms']:.1f} ms p90 "
           f"{rec['llm_ttft']['ttft_p90_ms']:.1f} ms (round B, at the "
           f"frontend), client TTFT of the streamed requests (ms) "
@@ -3369,17 +3761,6 @@ async def drive_disagg(cp_port: int, fe_port: int, model: str, scale: float,
           f"peak GiB decode {rec['peak_gib']['decode']:.2f} prefill "
           f"{rec['peak_gib']['prefill']:.2f}", flush=True)
     return rec
-
-
-# a greedy stream of the deployment may leave the plain aggregated engine's
-# only at a near tie: where the one-token prefill that writes the first
-# token's KV (the disaggregated path) and the decode window (the aggregated
-# one) round differently in bf16, the two may pick either of two tokens
-# whose logits differ by at most two bf16 ulps at the top logit's magnitude
-# (weights N(0, 1/fan_in) over a unit-RMS hidden state give logits ~N(0, 1);
-# the top of 128256 sits in [4, 8), where an ulp is 2^-5). A fault in the
-# pages moves the logits by far more than that
-NEAR_TIE = 2.0 ** -4 + 1e-5     # + the f32 rounding of two log-softmaxes
 
 
 def aggregated_run(engine, rid: str, req) -> tuple:

@@ -9,9 +9,11 @@ a KvRouter), rebinding it on a re-registration and removing it on a
 delete. Watch events apply in per-tick batches coalesced per key; a
 watch-stream failure resumes with backoff and a snapshot resync.
 
-Left out with the reliability slice: the ReliableClient each pipeline is
-wrapped in (the port's pipelines take the raw single-dispatch path) and
-the reliability-snapshot publishers.
+Each pipeline dispatches through a ReliableClient of its own
+(frontend/reliability.py, :195-209) that shares the watcher's policy and
+metrics, so the migrations, retries and breaker events of every model
+land on one /metrics; one snapshot publisher per namespace puts those
+counters on the event plane under `frontend-<worker id>`.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import json
 import logging
 from typing import Dict, Optional
 
+from dynamo_tpu_torch.frontend.reliability import ReliableClient
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.pipeline import RemotePipeline
 from dynamo_tpu_torch.runtime.backoff import Backoff
@@ -63,13 +66,20 @@ async def unregister_model(kv, name: str, model_type: str = "chat") -> None:
 class ModelWatcher:
     """Watches the model registry and (de)registers pipelines live."""
 
-    def __init__(self, runtime, model_manager, make_router=None):
+    def __init__(self, runtime, model_manager, make_router=None,
+                 reliability_metrics=None, reliability_policy=None):
         """make_router: optional async (component, client, card) ->
         KvRouter enabling KV-aware routing for models registered with
-        kv_routed=True."""
+        kv_routed=True. reliability_metrics / reliability_policy: shared
+        by every pipeline's ReliableClient (HttpService.reliability is
+        the service's metrics)."""
         self.runtime = runtime
         self.models = model_manager
         self.make_router = make_router
+        self.reliability_metrics = reliability_metrics
+        self.reliability_policy = reliability_policy
+        # one reliability-snapshot publisher task per namespace served
+        self._rel_publishers: Dict[str, asyncio.Task] = {}
         self._task: Optional[asyncio.Task] = None
         self._owned: Dict[str, tuple] = {}  # key -> (client, router)
         self._values: Dict[str, bytes] = {}  # key -> last applied payload
@@ -147,6 +157,9 @@ class ModelWatcher:
         if self._task:
             self._task.cancel()
             self._task = None
+        for task in self._rel_publishers.values():
+            task.cancel()
+        self._rel_publishers.clear()
         for client, router in self._owned.values():
             if router is not None:
                 await router.stop()
@@ -170,7 +183,20 @@ class ModelWatcher:
         router = None
         if info.get("kv_routed") and self.make_router is not None:
             router = await self.make_router(comp, client, card)
-        pipeline = RemotePipeline(card, client, router=router)
+        reliable = ReliableClient(client, policy=self.reliability_policy,
+                                  router=router,
+                                  metrics=self.reliability_metrics)
+        ns = info["namespace"]
+        if self.reliability_metrics is not None \
+                and ns not in self._rel_publishers:
+            # the component carries this frontend's worker id: frontends
+            # sharing a namespace must not overwrite each other's snapshot
+            self._rel_publishers[ns] = \
+                self.reliability_metrics.start_publishing(
+                    self.runtime.namespace(ns).component(
+                        f"frontend-{self.runtime.worker_id}"))
+        pipeline = RemotePipeline(card, client, router=router,
+                                  reliability=reliable)
         self.models.add(info["name"], pipeline, info.get("model_type", "chat"))
         self._owned[key] = (client, router)
         self._values[key] = value

@@ -4,8 +4,20 @@ Copied from dynamo_tpu/frontend/serve.py: connect to the control plane,
 watch the registered models (frontend/discovery.ModelWatcher), route each
 request of a KV-routed model to the worker that holds the longest cached
 prefix of it (kv_router/router.KvRouter), and serve the OpenAI routes.
-`--no-kv-routing` dispatches round-robin instead. The admission, deadline
-and QoS environment knobs are left out with the reliability slice.
+`--no-kv-routing` dispatches round-robin instead. Every request goes
+through the reliability layer (frontend/reliability.py: migration,
+retries, the circuit breaker, deadlines).
+
+Environment knobs, read as the JAX frontend reads them (serve.py:23-50),
+also by `run.py in=http`:
+  DYN_MAX_INFLIGHT        concurrently admitted requests (0 / unset: no
+                          shedding); past it requests queue, then 429
+  DYN_ADMISSION_QUEUE     the wait line behind the cap (default 64)
+  DYN_RETRY_AFTER_S       the retry-after of a shed request (default 1)
+  DYN_REQUEST_DEADLINE_S  an end-to-end deadline armed on every request
+  DYN_QOS=1               class-aware weighted-fair admission over the
+                          default class table (runtime/qos.py); the
+                          x-qos-class header names a request's class
 
 Usage:
   python -m dynamo_tpu_torch.frontend.serve --port 0 \\
@@ -17,16 +29,39 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 
 from dynamo_tpu_torch.frontend.discovery import ModelWatcher
+from dynamo_tpu_torch.frontend.reliability import AdmissionControl
 from dynamo_tpu_torch.frontend.service import HttpService
 from dynamo_tpu_torch.kv_router.router import KvRouter
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.qos import DEFAULT_POLICY
+
+
+def service_options(env=None) -> dict:
+    """HttpService keyword arguments from the DYN_* knobs (see above)."""
+    env = os.environ if env is None else env
+    qos_policy = None
+    if env.get("DYN_QOS", "") not in ("", "0"):
+        qos_policy = DEFAULT_POLICY
+    admission = None
+    max_inflight = int(env.get("DYN_MAX_INFLIGHT", "0"))
+    if max_inflight > 0:
+        admission = AdmissionControl(
+            max_inflight,
+            max_queued=int(env.get("DYN_ADMISSION_QUEUE", "64")),
+            retry_after_s=int(env.get("DYN_RETRY_AFTER_S", "1")),
+            policy=qos_policy)
+    deadline = env.get("DYN_REQUEST_DEADLINE_S")
+    return {"admission": admission,
+            "default_deadline_s": float(deadline) if deadline else None,
+            "qos_policy": qos_policy}
 
 
 async def run_frontend(runtime, host: str = "0.0.0.0", port: int = 8080,
                        kv_routing: bool = True) -> HttpService:
-    service = await HttpService(host, port).start()
+    service = await HttpService(host, port, **service_options()).start()
 
     async def make_router(component, client, card):
         return await KvRouter(component, client,
@@ -34,7 +69,8 @@ async def run_frontend(runtime, host: str = "0.0.0.0", port: int = 8080,
 
     service.watcher = await ModelWatcher(
         runtime, service.models,
-        make_router=make_router if kv_routing else None).start()
+        make_router=make_router if kv_routing else None,
+        reliability_metrics=service.reliability).start()
     return service
 
 

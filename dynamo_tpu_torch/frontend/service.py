@@ -36,11 +36,31 @@ warms each request's matched pool pages into its worker's HBM. They count this p
 a frontend in front of worker processes shows 0, and the workers report
 theirs in $STATS (disagg/worker.py).
 
-Left out, each with the later slice that brings its module: admission
-control and 429 shedding, the reliability counters, QoS classes from the x-qos-class header (every request runs in
-the policy's default class), tracing spans, and the fault, drain,
+Admission (JAX :73-103, :425-446): with an `admission`
+(frontend/reliability.AdmissionControl, legacy or class-aware) a request
+past its caps answers 429 with a `retry-after` header and the error shape
+{"error": {"message", "code"}}, and counts as status="shed". A request's
+QoS class comes from its `x-qos-class` header (unknown or absent names
+resolve to the policy default) and rides Context.baggage (:394-401);
+`default_deadline_s` arms an end-to-end deadline on every request's
+Context, which the reliability layer enforces and the wire carries to the
+worker. Each request roots a trace (runtime/tracing.py; recorded only once
+TRACER.configure(enabled=True) switches it on) whose context rides the
+baggage too.
+
+GET /metrics also shows the reliability counters (`llm_reliability_*`,
+`llm_qos_shed_total`, on this service's registry: the discovery watcher
+shares them), the fault-injection gauges `llm_fault_site_hits` /
+`llm_fault_injections` (runtime/faults.py), the drain gauges `llm_drain_*`
+(runtime/component.DRAIN_STATS) and the fail-slow gauges `llm_health_*` /
+`llm_hedge_*` (runtime/health.py), folded at render (:115-133, :236-251).
+GET /health and /live answer 200 with the served models; the JAX service's
+health-gauge dict is assigned over its `_health` handler, so it answers
+500 there (ROADMAP §C), and the port keeps the gauges under another name.
+
+Left out, each with the later slice that brings its module: the
 per-stream transfer, cross-host pool (`llm_kv_pool_remote_*`,
-`llm_pool_ring_*`), ledger, autoscaler and fail-slow gauges.
+`llm_pool_ring_*`), streaming-decode, ledger and autoscaler gauges.
 Reference equivalent: the axum HttpService (reference:
 lib/llm/src/http/service/service_v2.rs:23-130, openai.rs:132-540).
 """
@@ -56,6 +76,9 @@ from dynamo_tpu_torch.frontend.http import (
     HttpError, HttpServer, Request, Response, StreamingResponse,
 )
 from dynamo_tpu_torch.engine.kv_pool import POOL_STATS, KvPoolStats
+from dynamo_tpu_torch.frontend.reliability import (
+    AdmissionShed, ReliabilityMetrics,
+)
 from dynamo_tpu_torch.kv_router.stats import (
     ROUTER_STATS, RouterScoringStats,
 )
@@ -74,12 +97,18 @@ from dynamo_tpu_torch.protocols.openai import (
     ChatStreamChoice, CompletionRequest, ModelInfo, ModelList,
     ValidationError,
 )
+from dynamo_tpu_torch.runtime import faults
+from dynamo_tpu_torch.runtime.component import DRAIN_STATS
 from dynamo_tpu_torch.runtime.cpstats import CP_STATS, ControlPlaneStats
+from dynamo_tpu_torch.runtime.health import (
+    HEALTH_STATS, HEDGE_STATS, HealthStats, HedgeStats,
+)
 from dynamo_tpu_torch.runtime.integrity import (
     STATS as INTEGRITY, XFER_STATS, IntegrityStats, KvTransferStats,
 )
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.qos import DEFAULT_POLICY, QOS_KEY
+from dynamo_tpu_torch.runtime.tracing import TRACE_KEY, TRACER
 
 log = logging.getLogger("dynamo_tpu_torch.frontend")
 
@@ -120,13 +149,28 @@ class ModelManager:
 class HttpService:
     def __init__(self, host: str = "0.0.0.0", port: int = 8080,
                  registry: Optional[MetricsRegistry] = None,
-                 prefetcher=None):
-        """prefetcher: an AdmissionPrefetcher (engine/kv_pool.py); each
+                 admission=None, default_deadline_s: Optional[float] = None,
+                 prefetcher=None, qos_policy=None):
+        """admission: an AdmissionControl (frontend/reliability.py); past
+        its caps a request answers 429 with retry-after.
+        default_deadline_s: the end-to-end deadline armed on every
+        request's Context.
+        prefetcher: an AdmissionPrefetcher (engine/kv_pool.py); each
         request's matched shared-pool pages are warmed into its target
-        worker's HBM while it waits for admission, best-effort."""
+        worker's HBM while it waits for admission, best-effort.
+        qos_policy: the QosPolicy that resolves the x-qos-class header
+        (None: DEFAULT_POLICY)."""
+        self.qos_policy = qos_policy or DEFAULT_POLICY
         self.server = HttpServer(host, port)
         self.models = ModelManager()
         self.registry = registry or MetricsRegistry()
+        # the reliability counters render on this service's /metrics; the
+        # discovery watcher's pipelines share them
+        self.reliability = ReliabilityMetrics(self.registry)
+        self.admission = admission
+        if self.admission is not None and self.admission.metrics is None:
+            self.admission.metrics = self.reliability
+        self.default_deadline_s = default_deadline_s
         self.prefetcher = prefetcher
         # prefetch tasks run on past their request: held until done
         self._prefetches: set = set()
@@ -163,6 +207,26 @@ class HttpService:
             name: m.gauge(f"llm_kv_pool_{name}",
                           f"shared kv pool: {name.replace('_', ' ')}")
             for name in KvPoolStats.FIELDS}
+        # failpoint hits and injections, drains, and the fail-slow plane's
+        # detection and hedging counters, folded at render
+        self._fault_hits = m.gauge(
+            "llm_fault_site_hits", "failpoint site evaluations", ("site",))
+        self._fault_injected = m.gauge(
+            "llm_fault_injections", "faults actually injected", ("site",))
+        self._drain = {
+            name: m.gauge(f"llm_drain_{name}", f"graceful drain: {name}")
+            for name in DRAIN_STATS.snapshot()}
+        self._health_gauges = {
+            name: m.gauge(f"llm_health_{name}",
+                          f"fail-slow detection: {name.replace('_', ' ')}")
+            for name in HealthStats.FIELDS}
+        self._hedge = {
+            name: m.gauge(f"llm_hedge_{name}",
+                          f"hedged dispatch: {name.replace('_', ' ')}")
+            for name in HedgeStats.FIELDS}
+        self._hedge_by_class = m.gauge(
+            "llm_hedge_fired_by_class",
+            "hedged dispatch: hedges fired per QoS class", ("qos",))
         s = self.server
         s.route("POST", "/v1/chat/completions", self._chat)
         s.route("POST", "/v1/completions", self._completions)
@@ -200,9 +264,20 @@ class HttpService:
             self._refresh_router_gauges()
         for gauges, stats in ((self._integrity, INTEGRITY),
                               (self._kv_xfer, XFER_STATS),
-                              (self._kv_pool, POOL_STATS)):
+                              (self._kv_pool, POOL_STATS),
+                              (self._drain, DRAIN_STATS),
+                              (self._health_gauges, HEALTH_STATS)):
             for name, value in stats.snapshot().items():
                 gauges[name].set(value=float(value))
+        snap = faults.REGISTRY.snapshot()
+        for site, n in snap["hits"].items():
+            self._fault_hits.set(site, value=float(n))
+        for site, n in snap["injected"].items():
+            self._fault_injected.set(site, value=float(n))
+        for name in HedgeStats.FIELDS:
+            self._hedge[name].set(value=float(getattr(HEDGE_STATS, name)))
+        for cls, n in HEDGE_STATS.fired_by_class.items():
+            self._hedge_by_class.set(cls, value=float(n))
         # the serving-path latency histograms (TTFT / ITL / schedule) live
         # on the process-global SERVING registry, observed where they occur
         return Response.text(self.registry.render() + SERVING.render(),
@@ -296,20 +371,58 @@ class HttpService:
                    model: str, start_stream):
         request_type = "stream" if oai_req.stream else "unary"
         t0 = time.perf_counter()
-        # the class rides Context.baggage; without the admission slice
-        # every request runs in the policy default
+        # the x-qos-class header names the tenant class; unknown or absent
+        # names resolve to the policy default. The resolved name rides
+        # Context.baggage across every wire hop, as the trace does.
+        qos_cls = self.qos_policy.resolve(
+            http_req.headers.get("x-qos-class", "")).name
+        # one trace per HTTP request, rooted before the admission wait; the
+        # root span ends in finish() below, where every exit funnels
+        trace = TRACER.start_trace()
+        # dynalint: span-ok=root-span-ends-in-the-idempotent-finish-callback
+        root = TRACER.begin_span("http.request", trace, model=model,
+                                 endpoint=endpoint,
+                                 request_type=request_type)
+        admitted = False
+        done = None
         if self.prefetcher is not None:
             # the admission window is free time to move matched pool pages
-            # into the target worker's HBM; with no admission control here
-            # the window closes at once, so a warm that lands counts late
+            # into the target worker's HBM; a warm that lands after it
+            # closes counts late
             done = asyncio.Event()
             task = asyncio.create_task(self.prefetcher.prefetch(oai_req,
                                                                 done))
             self._prefetches.add(task)
             task.add_done_callback(self._prefetches.discard)
+        if self.admission is not None:
+            try:
+                t_adm = time.monotonic()
+                await self.admission.acquire(qos=qos_cls)
+                admitted = True
+                wait = time.monotonic() - t_adm
+                SERVING.queue_wait.observe(qos_cls, value=wait)
+                TRACER.record_span("admission.wait",
+                                   root.context() if root else None, wait)
+            except AdmissionShed as e:
+                if done is not None:
+                    done.set()
+                    task.cancel()
+                self._requests.inc(model, endpoint, request_type, "shed")
+                TRACER.end_span(root, status="shed", error=True)
+                # class-aware Retry-After: scaled by the shedder's class
+                # queue depth; a constant in legacy mode
+                raise HttpError(
+                    429, "server overloaded, retry later",
+                    headers={"retry-after": str(e.retry_after_s)})
+        if done is not None:
             done.set()
         ctx = Context(http_req.headers.get("x-request-id") or None,
-                      baggage={QOS_KEY: DEFAULT_POLICY.default})
+                      baggage={QOS_KEY: qos_cls})
+        if root is not None:
+            ctx.trace = root.context()
+            ctx.baggage[TRACE_KEY] = ctx.trace.to_wire()
+        if self.default_deadline_s is not None:
+            ctx.set_deadline(self.default_deadline_s)
         self._inflight.inc(model)
 
         finished = False
@@ -321,9 +434,12 @@ class HttpService:
             if finished:
                 return
             finished = True
+            if admitted:
+                self.admission.release(qos=qos_cls)
             self._inflight.dec(model)
             self._requests.inc(model, endpoint, request_type, status)
             self._duration.observe(model, value=time.perf_counter() - t0)
+            TRACER.end_span(root, status=status, error=status == "error")
 
         try:
             chunk_gen = await _ensure_aiter(start_stream(ctx))

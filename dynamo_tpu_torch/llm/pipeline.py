@@ -8,12 +8,13 @@ and `RemotePipeline` with its `RemoteEngineSink` (a worker endpoint on the
 control plane, optionally KV-routed; pipeline.py:276-347). The
 pipeline-graph segment is left out: the sink is called directly.
 
-The remote sink is the JAX package's raw single-dispatch path
-(`reliability=False`); its default, the reliability layer
-(frontend/reliability.ReliableClient: migration, retries, the circuit
-breaker, deadlines), comes with a later slice. As in the JAX raw path, a
-routing failure is logged and the request goes out by the client's plain
-policy; each such fall-back adds one to ROUTER_STATS.fallbacks, which the
+By default the remote sink runs every request through the reliability
+layer (frontend/reliability.ReliableClient: mid-stream migration, retries
+with backoff, the circuit breaker that also ejects instances from the KV
+router's scoring, deadlines), as the JAX sink does (:276-298);
+`reliability=False` keeps the raw single-dispatch path. On either path a
+routing failure is logged and the request goes out by the load-balancing
+pick; each such fall-back adds one to ROUTER_STATS.fallbacks, which the
 frontend's /metrics shows as llm_router_fallbacks.
 """
 from __future__ import annotations
@@ -155,6 +156,12 @@ class Pipeline:
                                    + i * 0x1F123BB5) & 0x7FFFFFFF
             pres.append(clone)
         ctxs = [Context(p.request_id, context.baggage) for p in pres]
+        # the request's deadline bounds every choice stream (the JAX
+        # pipeline drops it here: ROADMAP §C)
+        remaining = context.time_remaining()
+        if remaining is not None:
+            for c in ctxs:
+                c.set_deadline(remaining)
 
         async def cascade_stop():
             await context.wait_stopped()
@@ -258,14 +265,29 @@ class LocalPipeline(Pipeline):
 
 class RemoteEngineSink:
     """Sink: a remote worker endpoint, KV-aware routed when a router is
-    given, round-robin otherwise (the JAX package's
-    `RemoteEngineSink(reliability=False)` at its default policy)."""
+    given, round-robin otherwise.
 
-    def __init__(self, client, router=None):
+    `reliability`: None builds a ReliableClient over the client and router
+    (the default); a ReliableClient is used as given (the discovery watcher
+    shares its policy and metrics across models); False keeps the raw
+    single-dispatch path."""
+
+    def __init__(self, client, router=None, reliability=None):
         self.client = client
         self.router = router
+        if reliability is False:
+            self.reliable = None
+        elif reliability is not None:
+            self.reliable = reliability
+        else:
+            from dynamo_tpu_torch.frontend.reliability import ReliableClient
+            self.reliable = ReliableClient(client, router=router)
 
     async def generate(self, pre: PreprocessedRequest, context: Context):
+        if self.reliable is not None:
+            async for frame in self.reliable.generate(pre, context):
+                yield output_from_wire(frame)
+            return
         instance = None
         if self.router is not None:
             try:
@@ -284,13 +306,15 @@ class RemoteEngineSink:
 class RemotePipeline(Pipeline):
     """Engine is a remote worker endpoint, optionally KV-aware routed: what
     the discovery watcher (frontend/discovery.py) builds per registered
-    model, a runtime Client plus an optional KvRouter."""
+    model, a runtime Client plus an optional KvRouter, through the
+    reliability layer unless `reliability=False`."""
 
-    def __init__(self, card: ModelDeploymentCard, client, router=None):
+    def __init__(self, card: ModelDeploymentCard, client, router=None,
+                 reliability=None):
         super().__init__(card)
         self.client = client
         self.router = router
-        self.sink = RemoteEngineSink(client, router)
+        self.sink = RemoteEngineSink(client, router, reliability=reliability)
 
     def _token_stream(self, pre: PreprocessedRequest,
                       context: Context) -> AsyncIterator[EngineOutput]:

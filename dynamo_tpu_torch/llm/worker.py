@@ -6,7 +6,7 @@ fan-out, and from its step loop the allocator's KV events and the engine's
 metrics for the router, :225-280), `submit` (:147-154: `fn(engine)` run
 on the step loop between device steps, the one way the disaggregation
 layer touches the engine), `EchoTokenEngine` (the deterministic
-no-hardware engine), `serve_llm_worker` (:362-396) and
+no-hardware engine; a migrated stream resumes mid-prompt, :96), `serve_llm_worker` (:362-396) and
 `install_graceful_drain` (:398-446). Requests arrive as PreprocessedRequest
 objects in-process or as their dict forms over the wire; frames are
 EngineOutput objects (runtime/component.py sends their dict forms).
@@ -70,10 +70,16 @@ class EchoTokenEngine(AsyncEngine):
     async def generate(self, request, context: Context):
         if isinstance(request, dict):
             request = preprocessed_from_wire(request)
-        prompt = request.token_ids
+        # resume from a prefix (a migrated stream): token_ids is the prompt
+        # plus the committed tokens, which for an echo are the prompt's own
+        # head, so the echo continues mid-prompt and the budget is charged
+        # for what was already emitted (JAX llm/worker.py:96)
+        resume = request.resume_committed or 0
+        prompt = (request.token_ids[:len(request.token_ids) - resume]
+                  if resume else request.token_ids)
         n = request.stop.max_tokens or len(prompt)
-        emitted = 0
-        for tok in prompt:
+        emitted = resume
+        for tok in prompt[resume:]:
             if emitted >= n or context.is_stopped:
                 break
             if self.delay_s:

@@ -4,8 +4,9 @@ latency and the router's decision time.
 Copied from dynamo_tpu/observability/serving.py, trimmed to the histograms
 the port's serving path observes (TTFT and ITL in llm/pipeline._drive_n,
 the schedule decision in kv_router/router.KvRouter.schedule, a disagg page
-transfer in disagg/transfer.py and disagg/remote_transfer.py): the
-queue-wait histogram waits for the admission slice that observes it. One
+transfer in disagg/transfer.py and disagg/remote_transfer.py, the
+admission wait in frontend/service.py) and `ttft_quantile`, the hedge
+trigger's live TTFT percentile (frontend/reliability.py). One
 process-global registry,
 `SERVING`; the HTTP frontend appends `SERVING.render()` to its own
 registry's output on GET /metrics.
@@ -25,6 +26,8 @@ TTFT_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
                 1.0, 2.5, 5.0, 10.0, 30.0, float("inf"))
 ITL_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
                0.5, 1.0, float("inf"))
+QUEUE_BUCKETS = (0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0,
+                 5.0, 30.0, float("inf"))
 SCHEDULE_BUCKETS = (0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
                     0.01, 0.05, 0.1, float("inf"))
 TRANSFER_BUCKETS = (0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0,
@@ -39,6 +42,7 @@ class ServingMetrics:
       (runtime/qos.py; unclassed requests label as the policy default).
     - llm_itl_seconds{model, qos}: the gap between successive
       token-carrying frames of one choice stream (the commit boundary).
+    - llm_queue_wait_seconds{qos}: admission-gate wait at the frontend.
     - llm_schedule_seconds: one KvRouter.schedule decision.
     - llm_kv_transfer_seconds: one disagg page transfer, send side
       (local or remote backend), staging -> last ack.
@@ -54,6 +58,10 @@ class ServingMetrics:
             "llm_itl_seconds",
             "inter-token latency at the frame boundary",
             ("model", "qos"), buckets=ITL_BUCKETS)
+        self.queue_wait = r.histogram(
+            "llm_queue_wait_seconds",
+            "admission-gate wait before the request runs", ("qos",),
+            buckets=QUEUE_BUCKETS)
         self.schedule = r.histogram(
             "llm_schedule_seconds", "worker-selection decision time",
             buckets=SCHEDULE_BUCKETS)
@@ -73,3 +81,15 @@ class ServingMetrics:
 
 
 SERVING = ServingMetrics()
+
+
+def ttft_quantile(q: float, qos: str = "") -> float:
+    """Live TTFT quantile: the QoS class's view when that class has
+    observations, the fleet-wide view otherwise; NaN only when the
+    histogram is empty. The hedge trigger's adaptive delay."""
+    v = float("nan")
+    if qos:
+        v = SERVING.ttft.quantile_label(q, "qos", qos)
+    if not (v == v):
+        v = SERVING.ttft.quantile_all(q)
+    return v

@@ -6,7 +6,8 @@ an engine and runs it.
 Inputs:
   in=http[:PORT]     OpenAI HTTP frontend (default port 8080; 0 picks a free
                      port); prints `READY http=:<port> model=<name>` and
-                     serves until interrupted
+                     serves until interrupted; honours the DYN_* admission,
+                     deadline and QoS knobs of frontend/serve.py
   in=text            interactive chat REPL
   in=stdin           one prompt from stdin -> streamed completion -> exit
   in=batch:FILE      JSONL prompts ({"prompt": ...}) -> JSONL completions
@@ -21,7 +22,8 @@ Inputs:
   in=none            build the engine and exit
 
 Outputs (engines):
-  out=native         the in-process PyTorch engine (random-init weights)
+  out=native         the in-process PyTorch engine (random-init weights, or
+                     `--weights FILE`, whose tensors set the model dtype)
   out=echo           deterministic token-echo engine (no hardware)
 
 Model: a registry name ("tiny", "tiny-moe", "llama3-1b", "llama3-8b",
@@ -67,24 +69,34 @@ async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
         return EchoTokenEngine(delay_s=args.echo_delay)
     if out_spec != "native":
         raise SystemExit(f"unknown out={out_spec!r}")
-    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.engine.engine import NativeEngine, resolve_device
     model_cfg = card.model_config()
     if args.quant:
         model_cfg = dataclasses.replace(model_cfg, quant=args.quant)
+    params = None
+    if args.weights:
+        import torch
+        params = torch.load(args.weights, map_location=resolve_device(
+            args.device), weights_only=True)
+        # the final norm is stored in the model dtype in every tree
+        dtype = str(params["final_norm"].dtype).removeprefix("torch.")
+        model_cfg = dataclasses.replace(model_cfg, dtype=dtype)
     eng_cfg = EngineConfig(
         page_size=card.kv_page_size, num_pages=args.num_pages,
         max_slots=args.max_slots, max_prefill_chunk=args.max_prefill_chunk,
         max_model_len=min(card.context_length, model_cfg.max_model_len),
         host_pages=args.host_pages, kv_quant=args.kv_quant)
-    engine = NativeEngine(model_cfg, eng_cfg,
+    engine = NativeEngine(model_cfg, eng_cfg, params=params,
                           eos_token_ids=set(card.eos_token_ids),
                           device=args.device)
     return await NativeEngineWorker(engine).start()
 
 
 async def run_http(pipe: LocalPipeline, card, port: int) -> None:
+    from dynamo_tpu_torch.frontend.serve import service_options
     from dynamo_tpu_torch.frontend.service import HttpService
-    service = await HttpService(port=port).start()
+    # the DYN_* admission, deadline and QoS knobs, as frontend/serve.py
+    service = await HttpService(port=port, **service_options()).start()
     service.models.add(card.name, pipe, card.model_type)
     print(f"READY http=:{service.port} model={card.name}", flush=True)
     try:
@@ -191,6 +203,12 @@ async def amain(argv=None) -> None:
     p.add_argument("io", nargs="+",
                    help="in=... out=... [model] (order-free key=value)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--weights", default="",
+                   help="the engine's parameters, a file torch.save wrote "
+                        "(the tree models/llama.py builds; its tensors set "
+                        "the model dtype); default: random weights from "
+                        "seed 0. A stop-gap until the checkpoint loaders "
+                        "(ROADMAP A6) are ported")
     p.add_argument("--max-tokens", type=int, default=256)
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--max-slots", type=int, default=8)

@@ -8,8 +8,11 @@ to track live instances and route random / round-robin / direct (:465-560).
 `Endpoint.serve` (:194-280) rebuilds the request Context, calls home over
 the data plane and pumps the engine's frames; `$STATS.{subject}` answers
 the stats handler. `ServedEndpoint.mark_draining` / `drain` (:307-360) are
-the graceful drain. Payloads are MessagePack through the port's codec
-(transports/codec.py), so the wire is the JAX package's.
+the graceful drain, counted on DRAIN_STATS (:44-57, :334-336; /metrics:
+llm_drain_*): a stream cut at the drain deadline ends without a finish
+frame, and the frontend's reliability layer migrates it. Payloads are
+MessagePack through the port's codec (transports/codec.py), so the wire is
+the JAX package's.
 
 Frames an engine yields may be dataclasses (the port's protocol objects):
 they cross the wire as their dict forms (protocols/common.to_wire), as the
@@ -46,6 +49,22 @@ DISPATCH_ACK_TIMEOUT_S = 30.0
 # routers stop NEW assignments while in-flight streams finish
 STATUS_READY = "ready"
 STATUS_DRAINING = "draining"
+
+
+class DrainStats:
+    """Process-local drain counters (/metrics: llm_drain_*)."""
+
+    def __init__(self):
+        self.drains_started = 0
+        self.drains_completed = 0
+        self.drained_streams = 0       # finished within the deadline
+        self.cancelled_streams = 0     # cut at the deadline (migrate)
+
+    def snapshot(self):
+        return dict(self.__dict__)
+
+
+DRAIN_STATS = DrainStats()
 
 
 def instance_status(info: Optional[Dict[str, Any]]) -> str:
@@ -242,7 +261,8 @@ class ServedEndpoint:
         """Maintenance shutdown of this instance: mark DRAINING, wait up to
         timeout_s for in-flight response streams (`force()` returning True
         skips the wait), cancel what is left, then deregister and unserve.
-        Returns a summary dict."""
+        Returns a summary dict; the counts land on DRAIN_STATS."""
+        DRAIN_STATS.drains_started += 1
         started_with = len(self.inflight)
         try:
             await self.mark_draining()
@@ -256,11 +276,16 @@ class ServedEndpoint:
             await asyncio.sleep(poll_s)
         cancelled = len(self.inflight)
         for task in list(self.inflight):
+            # the cut stream ends without a finish frame: the reliability
+            # layer migrates it with its committed prefix
             task.cancel()
+        DRAIN_STATS.drained_streams += max(0, started_with - cancelled)
+        DRAIN_STATS.cancelled_streams += cancelled
         if cancelled:
-            log.warning("drain %s: %d stream(s) cut at the deadline",
-                        self.worker_id, cancelled)
+            log.warning("drain %s: %d stream(s) cut at the deadline "
+                        "(migrating)", self.worker_id, cancelled)
         await self.shutdown()
+        DRAIN_STATS.drains_completed += 1
         return {"worker_id": self.worker_id, "inflight_at_start":
                 started_with, "cancelled": cancelled}
 

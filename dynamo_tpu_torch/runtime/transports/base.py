@@ -4,10 +4,12 @@ Messaging (the NATS role).
 Copied from dynamo_tpu/runtime/transports/base.py. Two implementations sit
 behind them, as in the JAX package: the in-process memory plane
 (transports/memory.py) and the TCP client of the standalone control-plane
-server (transports/tcp.py, transports/server.py). The fault-injection
-failpoint of the delivery streams (`QueueStream(failpoint=...)`,
-runtime/faults.py) is left out, and with it the stream subclasses that
-carried it: watches and subscriptions deliver through `QueueStream`.
+server (transports/tcp.py, transports/server.py). A delivery stream may
+carry a fault-injection failpoint (`QueueStream(failpoint=...)`,
+runtime/faults.py, :88-90): watches deliver through `WatchStream`, whose
+`watch.stream` site (:143) models the watch stream disconnecting;
+subscriptions deliver through a plain `QueueStream` (their faults are
+injected on the publish side, memory.py's `event.plane`).
 """
 from __future__ import annotations
 
@@ -50,19 +52,37 @@ class QueueStream:
 
     `next_batch()` awaits the first item and drains what is already queued
     (one consumer wake-up per tick of a churn storm), `depth()` is the live
-    backlog, `aclose()` tears the stream down deterministically."""
+    backlog, `aclose()` tears the stream down deterministically.
+
+    `failpoint`: a faults.py site evaluated once per delivery; an injected
+    drop raises FaultInjected into the consumer (the stream-disconnect
+    model). The watch pumps resume with backoff and a snapshot resync."""
 
     def __init__(self, queue: asyncio.Queue,
-                 on_close: Optional[Callable] = None):
+                 on_close: Optional[Callable] = None,
+                 failpoint: Optional[str] = None):
         self._q = queue
         self._on_close = on_close
         self._closed = False
+        self._failpoint = failpoint
+
+    def _fire(self) -> None:
+        if self._failpoint is None:
+            return
+        from dynamo_tpu_torch.runtime import faults
+        if not faults.REGISTRY.enabled:
+            return
+        out = faults.REGISTRY.decide(self._failpoint)
+        if out is not None and out.drop:
+            raise faults.FaultInjected(self._failpoint)
 
     def __aiter__(self):
         return self
 
     async def __anext__(self):
-        return await self._q.get()
+        item = await self._q.get()
+        self._fire()
+        return item
 
     async def next_batch(self, max_items: int = 4096,
                          timeout: Optional[float] = None) -> list:
@@ -81,6 +101,7 @@ class QueueStream:
                 batch.append(self._q.get_nowait())
             except asyncio.QueueEmpty:
                 break
+        self._fire()
         return batch
 
     def depth(self) -> int:
@@ -94,6 +115,15 @@ class QueueStream:
             res = self._on_close()
             if inspect.isawaitable(res):
                 await res
+
+
+class WatchStream(QueueStream):
+    """KV watch-event delivery; carries the `watch.stream` failpoint (an
+    injected drop is the watch stream disconnecting mid-flight)."""
+
+    def __init__(self, queue: asyncio.Queue,
+                 on_close: Optional[Callable] = None):
+        super().__init__(queue, on_close, failpoint="watch.stream")
 
 
 class KVStore(abc.ABC):

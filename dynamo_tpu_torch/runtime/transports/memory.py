@@ -2,10 +2,17 @@
 
 Copied from dynamo_tpu/runtime/transports/memory.py. The control-plane
 server (transports/server.py) holds its state in the same objects, so the
-semantics are the same in one process and across processes. Left out: the
-fault-injection hooks (memory.py:18, runtime/faults.py), the injected
-`LatencyModel` (:37) and the journal's restore helpers (transports/
-journal.py, with the durable server).
+semantics are the same in one process and across processes.
+
+Fault injection (runtime/faults.py; :18-37, :73-147, :208-243): every KV op
+fires `transport.send` and `discovery.store`, a lease keep-alive
+`discovery.heartbeat`, the lease watchdog `lease.expiry` (a drop
+force-expires the lease), a request `transport.send`, and a publish
+`transport.send` once and, for each subscriber, `transport.recv` and
+`event.plane` (a delay there reorders, a drop loses the event, a duplicate
+doubles it). Disarmed, each site costs one attribute read. Left out: the
+injected `LatencyModel` and the journal's restore helpers, whose one user
+is the durable server (transports/journal.py, ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -17,12 +24,23 @@ import uuid
 from collections import defaultdict
 from typing import Dict, List, Tuple
 
+from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.transports.base import (
     KVEntry, KVStore, Lease, Messaging, QueueStream, WatchEvent,
-    subject_matches,
+    WatchStream, subject_matches,
 )
 
 log = logging.getLogger("dynamo_tpu_torch.memory_plane")
+
+
+async def _lossy_fire(site: str):
+    """Failpoint of a fire-and-forget delivery: a drop loses the message
+    instead of raising (pub/sub has no error channel). None when the
+    message is lost, else the Outcome."""
+    try:
+        return await faults.REGISTRY.fire(site)
+    except faults.FaultInjected:
+        return None
 
 
 class MemoryKVStore(KVStore):
@@ -39,7 +57,15 @@ class MemoryKVStore(KVStore):
             if ev.key.startswith(prefix):
                 q.put_nowait(ev)
 
+    async def _op(self) -> None:
+        """The failpoints of one KV op (a drop raises a ConnectionError
+        into the caller)."""
+        if faults.REGISTRY.enabled:
+            await faults.REGISTRY.fire("transport.send")
+            await faults.REGISTRY.fire("discovery.store")
+
     async def put(self, key: str, value: bytes, lease_id: int = 0) -> None:
+        await self._op()
         self._data[key] = KVEntry(key, value, lease_id)
         if lease_id:
             self._lease_keys[lease_id].add(key)
@@ -52,13 +78,16 @@ class MemoryKVStore(KVStore):
         return True
 
     async def get(self, key: str):
+        await self._op()
         e = self._data.get(key)
         return e.value if e else None
 
     async def get_prefix(self, prefix: str) -> List[KVEntry]:
+        await self._op()
         return [e for k, e in sorted(self._data.items()) if k.startswith(prefix)]
 
     async def delete(self, key: str) -> None:
+        await self._op()
         e = self._data.pop(key, None)
         if e is not None:
             if e.lease_id:
@@ -78,6 +107,11 @@ class MemoryKVStore(KVStore):
         return lease
 
     def _keep_alive(self, lease_id: int, ttl: float) -> None:
+        if faults.REGISTRY.enabled:
+            try:
+                faults.REGISTRY.fire_sync("discovery.heartbeat")
+            except faults.FaultInjected:
+                return  # this heartbeat is lost: the deadline stays
         if lease_id in self._lease_deadline:
             self._lease_deadline[lease_id] = time.monotonic() + ttl
 
@@ -87,7 +121,14 @@ class MemoryKVStore(KVStore):
             if deadline is None:
                 return
             now = time.monotonic()
-            if now >= deadline:
+            forced = False
+            if faults.REGISTRY.enabled \
+                    and faults.REGISTRY.armed("lease.expiry"):
+                # a drop force-expires THIS lease now: armed with p over a
+                # fleet, each tick expires about p of the leases it visits
+                out = faults.REGISTRY.decide("lease.expiry")
+                forced = out is not None and out.drop
+            if now >= deadline or forced:
                 await self._expire(lease_id)
                 lease.lost.set()
                 return
@@ -116,7 +157,7 @@ class MemoryKVStore(KVStore):
             if entry in self._watchers:
                 self._watchers.remove(entry)
 
-        return snapshot, QueueStream(q, on_close=on_close)
+        return snapshot, WatchStream(q, on_close=on_close)
 
 
 class MemoryMessaging(Messaging):
@@ -143,15 +184,51 @@ class MemoryMessaging(Messaging):
         return unsubscribe
 
     async def request(self, subject, payload, timeout: float = 30.0):
+        if faults.REGISTRY.enabled:   # a drop: ConnectionError, retried by
+            await faults.REGISTRY.fire("transport.send")  # the reliability layer
         handler = self._handlers.get(subject)
         if handler is None:
             raise ConnectionError(f"no responder on subject {subject!r}")
         return await asyncio.wait_for(handler(payload), timeout)
 
     async def publish(self, subject, payload):
+        send_dup = False
+        if faults.REGISTRY.enabled:
+            out = await _lossy_fire("transport.send")
+            if out is None:
+                return  # lost on the wire: fire-and-forget
+            send_dup = out.duplicate
         for pattern, q in list(self._subs):
             if subject_matches(pattern, subject):
+                if faults.REGISTRY.enabled:
+                    out = await _lossy_fire("transport.recv")
+                    if out is None:
+                        continue  # lost for THIS subscriber only
+                    self._deliver_event_plane(q, subject, payload,
+                                              out.duplicate or send_dup)
+                else:
+                    q.put_nowait((subject, payload))
+
+    @staticmethod
+    def _deliver_event_plane(q, subject, payload, dup: bool) -> bool:
+        """One subscriber's delivery through the event.plane failpoint: a
+        delay is applied with call_later, so the delayed event arrives late
+        AND after later undelayed ones (lag makes reorder); a drop loses
+        it; a duplicate doubles it. False when the event was dropped."""
+        out = (faults.REGISTRY.decide("event.plane")
+               if faults.REGISTRY.armed("event.plane") else None)
+        if out is not None and out.drop:
+            return False
+        copies = 2 if (dup or (out is not None and out.duplicate)) else 1
+        if out is not None and out.delay_s > 0:
+            loop = asyncio.get_running_loop()
+            for _ in range(copies):
+                loop.call_later(out.delay_s, q.put_nowait,
+                                (subject, payload))
+        else:
+            for _ in range(copies):
                 q.put_nowait((subject, payload))
+        return True
 
     async def subscribe(self, subject):
         q: asyncio.Queue = asyncio.Queue()

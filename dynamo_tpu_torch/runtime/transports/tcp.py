@@ -9,6 +9,12 @@ with the HA standby: the list of member addresses, the role probe and the
 promotion-epoch echo (fencing); `connect` dials the one server and retries
 until its deadline.
 
+Fault injection (runtime/faults.py): every frame sent fires
+`transport.send` (a drop raises a ConnectionError into the caller;
+tcp.py:99-110), every keep-alive round `discovery.heartbeat` (a drop loses
+the round; :214-226), and watches deliver through `WatchStream`
+(`watch.stream`).
+
 Every task the client starts is held in `self._tasks` until it ends: the
 loop keeps tasks only weakly, and a request handler waiting on a
 call-home stream is otherwise reachable from nothing but a reference
@@ -22,8 +28,9 @@ import itertools
 import logging
 from typing import Dict, Optional
 
+from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.transports.base import (
-    KVEntry, KVStore, Lease, Messaging, QueueStream, WatchEvent,
+    KVEntry, KVStore, Lease, Messaging, QueueStream, WatchEvent, WatchStream,
 )
 from dynamo_tpu_torch.runtime.transports.wire import read_frame, write_frame
 
@@ -80,6 +87,8 @@ class ControlPlaneClient(KVStore, Messaging):
     # -- plumbing ------------------------------------------------------------
 
     async def _send(self, msg):
+        if faults.REGISTRY.enabled:   # a drop: ConnectionError (FaultInjected)
+            await faults.REGISTRY.fire("transport.send")
         async with self._write_lock:
             write_frame(self._writer, msg)
             # bounded: a peer that stops reading must not wedge every sender
@@ -184,6 +193,11 @@ class ControlPlaneClient(KVStore, Messaging):
             # dynalint: backoff-ok=TTL-paced lease renewal; a failed keepalive ends the loop (lease lost) instead of retrying
             while True:
                 await asyncio.sleep(ttl / 3)
+                if faults.REGISTRY.enabled:
+                    try:
+                        await faults.REGISTRY.fire("discovery.heartbeat")
+                    except faults.FaultInjected:
+                        continue  # this heartbeat round is lost
                 try:
                     ok = (await self._rpc({"op": "lease_keepalive",
                                            "lease": lease_id},
@@ -210,7 +224,7 @@ class ControlPlaneClient(KVStore, Messaging):
             except Exception:  # dynalint: swallow-ok=best-effort-unwatch
                 pass
 
-        return snapshot, QueueStream(q, on_close=on_close)
+        return snapshot, WatchStream(q, on_close=on_close)
 
     # -- Messaging -----------------------------------------------------------
 

@@ -27,6 +27,12 @@ JAX package's, each on a localhost port, driven by the same client
     over HTTP, unary and streamed, greedy and seeded-sampled, gives the
     same bodies and frames as the JAX frontend over the JAX worker on the
     same weights, apart from id and created.
+(f) Admission and deadlines through each package's run_frontend in front
+    of an echo worker: with DYN_MAX_INFLIGHT=1 DYN_ADMISSION_QUEUE=0
+    DYN_RETRY_AFTER_S=3 and one stream held, two more requests answer 429
+    with the JAX service's retry-after and body and count as shed, then a
+    request answers 200; a request past its 1 s deadline ends with the JAX
+    service's body and frames.
 """
 import asyncio
 import json
@@ -622,3 +628,193 @@ def test_model_watcher_discovers_and_drops_models(jax_params):
 
     assert asyncio.run(asyncio.wait_for(
         _serve_routed("torch", jax_params, drive), 120))
+
+
+# -- (f) admission and deadlines, through each package's run_frontend ---------
+
+def _wedging_echo(worker_mod, hang_after):
+    """The package's EchoTokenEngine, silent after `hang_after` tokens with
+    its transport up (a worker that stopped producing)."""
+    class Wedging(worker_mod.EchoTokenEngine):
+        async def generate(self, request, context):
+            n = 0
+            async for frame in super().generate(request, context):
+                yield frame
+                n += len(frame["token_ids"] if isinstance(frame, dict)
+                         else frame.token_ids)
+                if n >= hang_after:
+                    await asyncio.Event().wait()
+    return Wedging()
+
+
+async def _serve_echo(pkg, engine, env, monkeypatch, fn, policy=None):
+    """fn(port, svc) against pkg's run_frontend (the DYN_* knobs from
+    `env`) on a memory plane, in front of `engine` served as
+    ns.echo.generate with an `echo` model registered. `policy`: a
+    ReliabilityPolicy for the frontend's watcher in place of
+    run_frontend's default."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    m = _routed_modules(pkg)
+    card = m["card"].ModelDeploymentCard(
+        name="echo", arch="tiny", context_length=512, model_type="both",
+        kv_page_size=ENGINE_KW["page_size"])
+    DRT = m["distributed"].DistributedRuntime
+    plane = m["memory"].MemoryPlane()
+    wrt = await DRT.create_local(plane, "w0")
+    frt = await DRT.create_local(plane, "fe")
+    await m["worker"].serve_llm_worker(wrt, "ns", "echo", engine)
+    await m["discovery"].register_model(wrt.kv, "echo", "ns", "echo", card,
+                                        model_type="both")
+    if policy is None:
+        svc = await m["serve"].run_frontend(frt, HOST, 0)
+        watcher = getattr(svc, "watcher", None) or svc._watcher
+    else:
+        svc = await m["service"].HttpService(HOST, 0).start()
+        watcher = await m["discovery"].ModelWatcher(
+            frt, svc.models, reliability_metrics=svc.reliability,
+            reliability_policy=policy).start()
+    try:
+        for _ in range(200):
+            _, raw = await request(HOST, svc.port, "GET", "/v1/models")
+            if json.loads(raw)["data"]:
+                break
+            await asyncio.sleep(0.01)
+        return await fn(svc.port, svc)
+    finally:
+        for k in env:
+            monkeypatch.delenv(k)
+        await watcher.stop()
+        await svc.stop()
+        await frt.shutdown()
+        await wrt.shutdown()
+
+
+ECHO = {"model": "echo", "messages": [{"role": "user", "content": "hold"}],
+        "max_tokens": 200}
+
+
+def test_admission_shed_matches_jax(monkeypatch):
+    """DYN_MAX_INFLIGHT=1 DYN_ADMISSION_QUEUE=0 DYN_RETRY_AFTER_S=3: with
+    one stream held open, a second request answers 429 with retry-after 3
+    and the JAX service's body, counts as status="shed", and once the
+    held stream ends a request answers 200 and nothing stays in flight."""
+    env = {"DYN_MAX_INFLIGHT": "1", "DYN_ADMISSION_QUEUE": "0",
+           "DYN_RETRY_AFTER_S": "3"}
+
+    async def drive(port, svc):
+        held = sse_events(HOST, port, "/v1/chat/completions",
+                          {**ECHO, "stream": True})
+        first = await held.__anext__()
+        shed = [await request(HOST, port, "POST", "/v1/chat/completions",
+                              {**ECHO, "max_tokens": 2}, return_headers=True)
+                for _ in range(2)]
+        await held.aclose()
+        for _ in range(400):
+            if svc._inflight.get("echo") == 0:
+                break
+            await asyncio.sleep(0.01)
+        status, body = await _post(port, "/v1/chat/completions",
+                                   {**ECHO, "max_tokens": 2})
+        _, raw = await request(HOST, port, "GET", "/metrics")
+        sheds = re.findall(r'^llm_http_service_requests_total\{[^}]*'
+                           r'status="shed"\} (\S+)$', raw.decode(), re.M)
+        rel = re.findall(r"^llm_reliability_shed_requests_total (\S+)$",
+                         raw.decode(), re.M)
+        return (json.loads(first[1])["choices"][0]["delta"]["role"],
+                [(st, hdr.get("retry-after"), json.loads(b))
+                 for st, b, hdr in shed],
+                status, body["usage"]["completion_tokens"],
+                [float(x) for x in sheds], [float(x) for x in rel],
+                svc._inflight.get("echo"))
+
+    def one(pkg):
+        worker = _routed_modules(pkg)["worker"]
+        return asyncio.run(asyncio.wait_for(_serve_echo(
+            pkg, worker.EchoTokenEngine(delay_s=0.02), env, monkeypatch,
+            drive), 120))
+
+    want, got = one("jax"), one("torch")
+    assert got == want
+    assert got[1] == [(429, "3", {"error": {
+        "message": "server overloaded, retry later", "code": 429}})] * 2
+    assert got[2:] == (200, 2, [2.0], [2.0], 0)
+
+
+def test_reliability_snapshot_published_matches_jax(monkeypatch):
+    """The frontend's watcher publishes its reliability counters under
+    `ns.frontend-<worker id>.reliability` (one publisher per namespace,
+    every 2 s): after one shed request, a subscriber reads the same
+    subject and snapshot as from the JAX frontend."""
+    env = {"DYN_MAX_INFLIGHT": "1", "DYN_ADMISSION_QUEUE": "0"}
+
+    async def drive(port, svc):
+        watcher = getattr(svc, "watcher", None) or svc._watcher
+        sub = await watcher.runtime.namespace("ns").component(
+            "frontend-fe").subscribe("reliability")
+        held = sse_events(HOST, port, "/v1/chat/completions",
+                          {**ECHO, "stream": True})
+        await held.__anext__()
+        status, _ = await request(HOST, port, "POST",
+                                  "/v1/chat/completions",
+                                  {**ECHO, "max_tokens": 2})
+        await held.aclose()
+        try:
+            while True:   # the first snapshot taken after the shed
+                subject, snap = await sub.__anext__()
+                if snap["shed_requests"] >= 1:
+                    return (status, subject, snap,
+                            sorted(watcher._rel_publishers))
+        finally:
+            await sub.aclose()
+
+    def one(pkg):
+        worker = _routed_modules(pkg)["worker"]
+        return asyncio.run(asyncio.wait_for(_serve_echo(
+            pkg, worker.EchoTokenEngine(delay_s=0.02), env, monkeypatch,
+            drive), 120))
+
+    got = one("torch")
+    assert got == one("jax")
+    assert got[:2] == (429, "ns.frontend-fe.reliability")
+    assert got[2]["shed_requests"] == 1 and got[3] == ["ns"]
+
+
+def test_request_deadline_matches_jax(monkeypatch):
+    """DYN_REQUEST_DEADLINE_S=1 on the port: a worker that goes silent
+    after 3 tokens ends the request at its deadline; the unary body and the
+    SSE frames (finish_reason "error" after the 3 tokens' text) and the
+    llm_reliability_deadline_exceeded_total count equal the JAX service's
+    for the same 1 s deadline. The JAX pipeline drops the service's
+    deadline when it makes the per-choice contexts (ROADMAP §C), so its
+    deadline is armed by its reliability policy (`request_deadline_s`),
+    where the JAX layer enforces it."""
+    env = {"DYN_REQUEST_DEADLINE_S": "1.0"}
+
+    async def drive(port, svc):
+        status, body = await _post(port, "/v1/chat/completions", ECHO)
+        frames = await _stream(port, "/v1/chat/completions",
+                               {**ECHO, "stream": True})
+        _, raw = await request(HOST, port, "GET", "/metrics")
+        dl = re.findall(r"^llm_reliability_deadline_exceeded_total (\S+)$",
+                        raw.decode(), re.M)
+        return status, _strip(body), [_strip(f) for f in frames], dl
+
+    def one(pkg):
+        worker = _routed_modules(pkg)["worker"]
+        if pkg == "jax":
+            from dynamo_tpu.frontend.reliability import ReliabilityPolicy
+            return asyncio.run(asyncio.wait_for(_serve_echo(
+                pkg, _wedging_echo(worker, 3), {}, monkeypatch, drive,
+                policy=ReliabilityPolicy(request_deadline_s=1.0)), 120))
+        return asyncio.run(asyncio.wait_for(_serve_echo(
+            pkg, _wedging_echo(worker, 3), env, monkeypatch, drive), 120))
+
+    want, got = one("jax"), one("torch")
+    assert got == want
+    status, body, frames, dl = got
+    assert status == 200
+    assert body["choices"][0]["finish_reason"] == "error"
+    assert body["usage"]["completion_tokens"] == 3
+    assert frames[-1]["choices"][0]["finish_reason"] == "error"
+    assert [float(x) for x in dl] == [2.0]
