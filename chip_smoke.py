@@ -186,21 +186,32 @@ Phases (any failed check exits non-zero; nothing is caught):
    max_tokens 32 (8 greedy, 8 sampled with temperature 0.8, top_k 50 and
    a seed; 8 streamed, 8 unary). Wave 1 sends one request per prefix,
    concurrently; once the router scores every prefix on some worker
-   (POST /router/match), wave 2 sends the other 12 concurrently. Checks:
-   every request finishes with 32 tokens or a stop; each wave-2 request
-   went to the worker that served its prefix in wave 1 with >= 16 matched
-   pages (the router's decisions, GET /router/state, keyed by the
-   x-request-id each request carries); llm_router_fallbacks is 0; the
+   (POST /router/match), wave 2 sends the other 12 concurrently. Before
+   wave 1 both workers' $STATS read 0 active requests and the routers
+   scrape twice more, so that the warm-up's tail does not skew where the
+   prefixes land. Checks: every request finishes with 32 tokens or a
+   stop; for each of the 16 decisions (GET /router/state, keyed by the
+   x-request-id each request carries, in the router's order;
+   `routing_gate`): (a) each candidate's recorded matched pages equal
+   those derived from the token ids and from the worker that served the
+   prefix (a wave-2 request shares 16 pages with its prefix's wave-1
+   request; another worker holds them only after an earlier wave-2
+   request of that prefix went there, and may then read 0 or 16), and
+   (b) the chosen worker is an arg-max of the reference selector's
+   2 x overlap - kv_usage - active, recomputed from the recorded terms
+   (any of the maxima where they tie); llm_router_fallbacks is 0; (c) the
    workers' own counters, their $STATS scraped over the control plane
-   before and after the traffic, sum to exactly what one engine serving
-   the 16 requests in the same order counts (engine/scheduler.py
-   `_match_prefix`: a prompt of len tokens looks up min(hits + 1,
-   (len - 1) // 64) pages and hits the leading ones already stored). The
-   template `<|system|>S</s><|user|>U</s><|assistant|>` puts 1046 tokens
-   before a user turn, and the turns differ from their first byte, so a
-   wave-1 request hits 0 of 1 page, a wave-2 request 16 of 17: 192 hits
-   of 208 lookups over 16 admitted requests (`expected_prefix_hits`
-   derives this from the token ids). Every worker ran one graph replay
+   before and after the traffic, sum to the prefix hits and lookups
+   derived from where each request went (`routed_prefix_hits`;
+   engine/scheduler.py `_match_prefix`: a prompt of len tokens looks up
+   min(hits + 1, (len - 1) // 64) pages and hits the leading ones its
+   worker already stored). The template
+   `<|system|>S</s><|user|>U</s><|assistant|>` puts 1046 tokens before a
+   user turn, and the turns differ from their first byte, so a wave-1
+   request hits 0 of 1 page and a wave-2 request on its prefix's worker
+   16 of 17. Printed: how many wave-2 requests went to their prefix's
+   worker (the selector does not promise all 12 once one worker holds
+   most prefixes). Every worker ran one graph replay
    per decode window (decode_dispatches == decode_windows) and launched
    the ragged kernel layers x its decode steps + its warm-up launches
    times, more than 0 in all. Then the contrast, printed and not gated:
@@ -383,10 +394,59 @@ Phases (any failed check exits non-zero; nothing is caught):
    Reported: TTFT p50 / p90 per run, warm decode tok/s, the untraced ms
    per decode step, the drop rate, weight_bytes and peak memory.
 
+15. Checkpoints (models/loader.py, llm/gguf.py, llm/bpe.py, the card and
+   the chat template), under build/checkpoints (removed at the end), with
+   this script's own writers: safetensors (`write_safetensors`), config.json
+   (`hf_config`), tokenizer.json (`llama3_tokenizer_json`, its merges from
+   `train_merges`) and GGUF (`write_gguf`, with Q8_0 / Q4_K / Q6_K
+   quantizers), each from the port's seeded weights by the inverse of the
+   loaders' mapping (`hf_entries`, `write_llama_gguf`).
+   a. Every family, small (`small_family_config`: 2 layers, d 256, hd 64,
+   f32 weights whose norms and biases are redrawn from the seed): llama
+   untied and tied, qwen2 (q/k/v bias), phi3 (fused qkv and gate_up, hd
+   32), gemma (GeGLU, embed scale, (1 + w) norms), mixtral (4 experts, top
+   2) and a llama GGUF mixing F32, F16, Q8_0, Q4_K and Q6_K. Each loads on
+   the CPU and on the card (the HF directories' configs equal the written
+   ones and every leaf is bit-equal to it; the GGUF trees equal across the
+   devices) and is held to phase 3's rule (`device_reference`: the same
+   greedy tokens, decode logits within 1e-3); llama and qwen2 also load
+   with quant="int8" (quantized on each device as they load; the trees
+   equal across devices) and run the same rule; gemma's engine (bf16 on
+   the card, the default EngineConfig) runs phase 4b on its checkpoint
+   (graph and eager windows give identical tokens).
+   b. llama3-8b at full width and depth, from disk: with at least 17 GB
+   free under the phase's directory (else it fails with the bytes
+   needed), init_params(llama3-8b, seed 0) on the card is written tensor
+   by tensor (one D2H at a time) as a bf16 HF directory in 4 shards with
+   model.safetensors.index.json, config.json (LlamaForCausalLM, the
+   registry geometry, no rope_scaling, bos 128000, eos 128009), a
+   tokenizer.json of the Llama-3 form (byte-level BPE on the Llama-3 split
+   with ignore_merges, merges learned from a fixed corpus, the Llama-3
+   specials at 128000+) and tokenizer_config.json with Llama-3's chat
+   template. The reference: the card from the directory and an engine on
+   the in-memory weights (run.py's EngineConfig) serve 8 chats one at a
+   time (`checkpoint_chats`: greedy, 32 tokens, top-8 logprobs) through
+   LocalPipeline, and are freed. Then `load_model_dir` on cuda: every leaf
+   bit-equal to the written tree, RssAnon growth (sampled every 20 ms)
+   under 4 GiB. Then `python -m dynamo_tpu_torch.run in=http:0 out=native
+   <dir>` as a process: the 8 chats one at a time (4 SSE, 4 unary), each
+   finishing, each stream's logprob entries equal to the reference's or
+   first differing at a near tie (phase 11k's rule, printed), its text
+   equal to DecodeStream over the reference's ids; the ragged kernel
+   launched layers x decode steps + warm-ups times (the process's EXIT
+   line). Then quant="int8": the load's peak device memory under 16.06
+   GB, the tree byte-equal to init_params(llama3-8b, seed 0,
+   quant="int8"), and `run.py ... --quant int8` serving one chat held to
+   that tree's engine the same way (W8A16 launched, the dequantize entry
+   never). Printed: write seconds, load seconds and GB/s (the page cache
+   warm), RssAnon growth, READY seconds, TTFT p50 / p90
+   (llm_ttft_seconds), the tokenizer's encode ms per 1k prompt tokens,
+   the int8 load's seconds and peak.
+
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
-worker process of 11 and 12, each engine's turns in 13, and each run of 14)
-runs with every kernel's launch count set to 0 just before it and read just
-after. The third line
+worker process of 11 and 12, each engine's turns in 13, each run of 14,
+and each card run and run.py process of 15) runs with every kernel's
+launch count set to 0 just before it and read just after. The third line
 from the end of the output is one JSON object with the kernel records, the
 second from the end the nvidia-smi reading, and the last line
 {"ok": true, "device": {...}}.
@@ -400,6 +460,7 @@ import math
 import os
 import re
 import signal
+import struct
 import subprocess
 import sys
 import time
@@ -1359,36 +1420,52 @@ def tree_to(tree, dev):
 
 def phase_small_reference(kv_quant: str = "", quant: str = "",
                           model: str = "tiny") -> dict:
-    import torch
-    from dynamo_tpu_torch.engine.config import EngineConfig, get_model_config
-    from dynamo_tpu_torch.engine.engine import NativeEngine
-    from dynamo_tpu_torch.engine.scheduler import SamplingParams
+    from dynamo_tpu_torch.engine.config import get_model_config
     from dynamo_tpu_torch.models import llama
     cfg = dataclasses.replace(get_model_config(model), dtype="float32",
                               max_model_len=512, quant=quant)
     params = llama.init_params(cfg, "cpu", seed=0)
+    label = (f"{model} f32{' kv_quant=' + kv_quant if kv_quant else ''}"
+             f"{' quant=' + quant if quant else ''}")
+    return device_reference(cfg, {dev: tree_to(params, dev)
+                                  for dev in ("cpu", "cuda")}, label,
+                            kv_quant)
+
+
+def device_reference(cfg, trees: dict, label: str, kv_quant: str = ""
+                     ) -> dict:
+    """Phase 3's rule: engines on each device's tree ({device: params};
+    "cpu" first) give the same greedy tokens, and one decode step over the
+    CPU engine's cache gives decode logits within 1e-3 of the CPU's.
+    Returns the card's run's kernel launches ({} without a card)."""
+    import torch
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.engine.scheduler import SamplingParams
+    from dynamo_tpu_torch.models import llama
     ecfg = EngineConfig(page_size=8, num_pages=64, max_slots=4,
                         max_prefill_chunk=32, prefill_buckets=(8, 16, 32),
                         max_model_len=512, kv_quant=kv_quant)
-    engines = {dev: NativeEngine(cfg, ecfg, device=dev,
-                                 params=tree_to(params, dev))
-               for dev in ("cpu", "cuda")}
+    engines = {dev: NativeEngine(cfg, ecfg, device=dev, params=tree)
+               for dev, tree in trees.items()}
     prompt = list(range(5, 45))
     sp = SamplingParams(max_tokens=12, temperature=0.0)
     outs = {"cpu": engines["cpu"].generate(prompt, sp, "r")}
-    # the card's run is a path of its own: the f32 route of int8 weights
-    # (the decode kernel's f32 body, the dequantize entry + torch.matmul
-    # past GEMV_MAX_M rows)
-    reset_launch_counts()
-    outs["cuda"] = engines["cuda"].generate(prompt, sp, "r")
-    launches = launch_counts()
-    label = (f"{model} f32{' kv_quant=' + kv_quant if kv_quant else ''}"
-             f"{' quant=' + quant if quant else ''}")
-    check(outs["cpu"] == outs["cuda"],
-          f"{label} greedy tokens differ: cpu {outs['cpu']} cuda "
-          f"{outs['cuda']}")
+    launches = {}
+    for dev in engines:
+        if dev == "cpu":
+            continue
+        # the card's run is a path of its own (for int8 weights in f32:
+        # the decode kernel's f32 body, the dequantize entry +
+        # torch.matmul past GEMV_MAX_M rows)
+        reset_launch_counts()
+        outs[dev] = engines[dev].generate(prompt, sp, "r")
+        launches = launch_counts()
+        check(outs["cpu"] == outs[dev],
+              f"{label} greedy tokens differ: cpu {outs['cpu']} {dev} "
+              f"{outs[dev]}")
     # one decode step over the CPU engine's cache (the greedy run's prompt
-    # sits in pages 0..6), on both devices from identical inputs
+    # sits in pages 0..6), on every device from identical inputs
     logits = {}
     for dev, e in engines.items():
         cache = {k: t.to(dev) for k, t in engines["cpu"].cache.items()}
@@ -1399,12 +1476,15 @@ def phase_small_reference(kv_quant: str = "", quant: str = "",
         pos = torch.tensor([37, 0], dtype=torch.int32, device=dev)
         logits[dev] = llama.decode_forward(e.params, e.model_cfg, tok, cache,
                                            pt, pre, pos)[0].cpu()
-    err = float((logits["cpu"] - logits["cuda"]).abs().max())
-    check(bool(torch.isfinite(logits["cuda"]).all()) and err < 1e-3,
-          f"{label} decode logits cuda vs cpu differ by {err}")
-    print(f"small reference: {label} greedy tokens identical on cuda and "
-          f"cpu ({outs['cuda']}); decode logits max_abs_err {err:.3g}; "
-          f"the card's run launched {json.dumps(launches)}", flush=True)
+    err = max(float((logits["cpu"] - x).abs().max()) for x in
+              logits.values())
+    check(all(bool(torch.isfinite(x).all()) for x in logits.values())
+          and err < 1e-3, f"{label} decode logits differ by {err} across "
+          f"{list(engines)}")
+    print(f"small reference: {label} greedy tokens identical on "
+          f"{' and '.join(engines)} ({outs['cpu']}); decode logits "
+          f"max_abs_err {err:.3g}; the card's run launched "
+          f"{json.dumps(launches)}", flush=True)
     return launches
 
 
@@ -2726,6 +2806,107 @@ def expected_prefix_hits(token_lists, page: int) -> tuple:
     return hits, lookups
 
 
+def _routed_key(request_id: str) -> tuple:
+    """(prefix, turn) of a routed round's request id `kv-p<p>-u<u>`."""
+    m = re.fullmatch(r"kv-p(\d+)-u(\d+)", request_id)
+    return int(m.group(1)), int(m.group(2))
+
+
+def _leading_pages(toks: list, stored: set, page: int) -> int:
+    """The leading full pages of a prompt found in `stored`, counted as the
+    port scheduler counts its hits (of the first (len - 1) // page)."""
+    n_full, h = (len(toks) - 1) // page, 0
+    while h < n_full and tuple(toks[:(h + 1) * page]) in stored:
+        h += 1
+    return h
+
+
+def _prompt_pages(toks: list, page: int) -> set:
+    return {tuple(toks[:(i + 1) * page]) for i in range(len(toks) // page)}
+
+
+def routing_gate(name: str, tokens: dict, decisions: list,
+                 page: int) -> tuple:
+    """Phase 11's routing gate: what the reference's selector
+    (kv_router/scheduler.py DefaultWorkerSelector) promises, for each of
+    the routed round's 16 decisions in the order the router made them:
+    (a) each candidate's recorded matched_blocks equal the pages of the
+        request's prompt that candidate holds, derived from the token ids:
+        a wave-1 prefix is fresh (0 everywhere); a wave-2 request shares
+        the leading pages of its prefix's wave-1 request, which the worker
+        that served that request holds; another worker holds them only
+        once an earlier wave-2 request of the same prefix went there, and
+        then the router may not have applied its events yet (0 or them);
+    (b) the chosen worker is an arg-max of 2 x overlap - kv_usage - active,
+        recomputed here from the recorded matched pages, the prompt's
+        length and the recorded load terms (any of the maxima where they
+        tie), and each recorded logit equals the recomputed one.
+    Returns (how many wave-2 requests went to their prefix's worker, the
+    sorted set of pages a wave-2 request shares with its prefix)."""
+    went, held, on_prefix, shared = {}, {}, 0, set()
+    for d in decisions:
+        p, u = _routed_key(d["request_id"])
+        toks = tokens[(p, u)]
+        c = _leading_pages(toks, _prompt_pages(tokens[(p, 0)], page),
+                           page) if u else 0
+        prefix_w = went.get((p, 0))
+        check(u == 0 or prefix_w is not None,
+              f"{name}: {d['request_id']} decided before its prefix")
+        cands = d.get("candidates") or []
+        check(len(cands) == 2, f"{name}: {d['request_id']} was scored on "
+              f"{len(cands)} candidates")
+        isl = max(len(toks), 1)
+        logits = {}
+        for cand in cands:
+            w = cand["worker_id"]
+            allowed = ({0} if u == 0 else {c} if w == prefix_w
+                       else {0, c} if w in held.get(p, ()) else {0})
+            check(cand["matched_blocks"] in allowed,
+                  f"{name}: {d['request_id']}: the router matched "
+                  f"{cand['matched_blocks']} pages on {w}; the token ids "
+                  f"and where its prefix went derive {sorted(allowed)}: "
+                  f"{json.dumps(d)}")
+            logits[w] = (2.0 * (cand["matched_blocks"] * page / isl)
+                         - cand["kv_usage"] - cand["active"])
+            check(logits[w] == cand["logit"], f"{name}: {d['request_id']}"
+                  f": recorded logit {cand['logit']} on {w}, recomputed "
+                  f"{logits[w]}")
+        check(logits.get(d["worker_id"]) == max(logits.values()),
+              f"{name}: {d['request_id']} went to {d['worker_id']}, not "
+              f"an arg-max of the selector's logits {json.dumps(logits)}")
+        went[(p, u)] = d["worker_id"]
+        held.setdefault(p, set()).add(d["worker_id"])
+        if u:
+            shared.add(c)
+            on_prefix += d["worker_id"] == prefix_w
+    return on_prefix, sorted(shared)
+
+
+def routed_prefix_hits(tokens: dict, decisions: list, page: int) -> set:
+    """The (hits, lookups) totals the workers' $STATS may add over the
+    routed round, derived from where each request went (the decisions'
+    order): a request hits the leading pages of its prompt that its worker
+    stored for an earlier request and looks up min(hits + 1, (len - 1) //
+    page). Wave 1 finished before wave 2 was sent, so its pages are
+    stored; an earlier wave-2 request's pages on the same worker may not
+    be sealed yet when a later one is admitted, so that request counts
+    either way (a set of totals)."""
+    certain, maybe, totals = {}, {}, {(0, 0)}
+    for d in decisions:
+        p, u = _routed_key(d["request_id"])
+        toks, w = tokens[(p, u)], d["worker_id"]
+        n_full = (len(toks) - 1) // page
+        ways = set()
+        for stored in (certain.get(w, set()),
+                       certain.get(w, set()) | maybe.get(w, set())):
+            h = _leading_pages(toks, stored, page)
+            ways.add((h, min(h + 1, n_full)))
+        totals = {(a + h, b + k) for a, b in totals for h, k in ways}
+        (maybe if u else certain).setdefault(w, set()).update(
+            _prompt_pages(toks, page))
+    return totals
+
+
 def _ttft_buckets(text: str) -> dict:
     """{upper bound: cumulative count} of a /metrics text's
     llm_ttft_seconds buckets, summed over its label series."""
@@ -2875,6 +3056,16 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
         await _waves(fe_port, dist_requests(model, 8, sys_len), model,
                      "warm")
         warm_s = time.perf_counter() - t0
+
+        # the warm-up's tail must not skew where the prefixes land: both
+        # workers idle, then two more of the routers' scrapes (every 0.5
+        # s), so that their snapshots hold these reads and no bumps
+        async def idle():
+            got = await client.scrape_stats(timeout=10.0)
+            return len(got) == 2 and all(
+                st["request_active_slots"] == 0 for st in got.values())
+        await _poll(f"{name}: both workers idle after the warm-up", idle, 60)
+        await asyncio.sleep(1.5)
         s0 = await _scrape(client, 2)
         text0 = (await _http(fe_port, "GET", "/metrics"))[2].decode()
         routed = dist_requests(model, 0, sys_len)
@@ -2885,8 +3076,7 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
         state = await _get_json(fe_port, "/router/state")
         text = (await _http(fe_port, "GET", "/metrics"))[2].decode()
 
-        # the router's side: wave 2 on its prefix's wave-1 worker, with
-        # the prefix's pages matched there
+        # the router's side: every decision is the reference selector's
         dec = {d["request_id"]: d
                for d in state["models"][model]["decisions"]}
         check(all(r in dec for r in order),
@@ -2896,23 +3086,9 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
         tokens = {(p, u): pre.preprocess_chat(
             ChatCompletionRequest.from_json(b))[0].token_ids
             for p, u, b in routed}
-        shared = []
-        for (p, u), toks in tokens.items():
-            if u == 0:
-                continue
-            d, d0 = dec[f"kv-p{p}-u{u}"], dec[f"kv-p{p}-u0"]
-            toks0 = tokens[(p, 0)]
-            common = next(i for i, (a, c) in enumerate(zip(toks, toks0))
-                          if a != c)
-            shared.append(common // page)
-            check(d["worker_id"] == d0["worker_id"]
-                  and d["overlap_blocks"] >= sys_len // page,
-                  f"{name}: kv-p{p}-u{u} went to {d['worker_id']} with "
-                  f"{d['overlap_blocks']} matched pages (its prefix was "
-                  f"served by {d0['worker_id']}; {common // page} pages "
-                  f"shared); the selector's terms for it: "
-                  f"{json.dumps(d.get('candidates'))}; for kv-p{p}-u0: "
-                  f"{json.dumps(d0.get('candidates'))}")
+        decisions = [d for d in state["models"][model]["decisions"]
+                     if d["request_id"] in order]
+        on_prefix, shared = routing_gate(name, tokens, decisions, page)
         # the selector's margin on each decision: the winner's logit less
         # the best other candidate's, and where each load snapshot came
         # from (scraped this cycle, carried forward, defaulted)
@@ -2935,19 +3111,18 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
               f"{name}: llm_router_fallbacks "
               f"{fallbacks and fallbacks.group(1)}")
 
-        # the workers' side: their summed prefix hits are one engine's
-        want_hits, want_lookups = expected_prefix_hits(
-            [tokens[k] for k in sorted(tokens, key=lambda k: (k[1] > 0, k))],
-            page)
+        # the workers' side: their summed prefix hits are those derived
+        # from where each request went
+        want = routed_prefix_hits(tokens, decisions, page)
         hits = _delta(s1, s0, "gpu_prefix_cache_hits")
         lookups = _delta(s1, s0, "gpu_prefix_cache_lookups")
         admitted = _delta(s1, s0, "requests_admitted")
         per_worker = {w: s1[w]["requests_admitted"]
                       - s0[w]["requests_admitted"] for w in s1}
-        check((hits, lookups, admitted) == (want_hits, want_lookups, 16),
+        check((hits, lookups) in want and admitted == 16,
               f"{name}: the workers hit {hits} of {lookups} prefix pages "
-              f"over {admitted} requests; one engine serving the 16 in "
-              f"order hits {want_hits} of {want_lookups}")
+              f"over {admitted} requests; where the 16 went derives "
+              f"{sorted(want)}")
         for w, st in s1.items():
             check(st["decode_dispatches"] == st["decode_windows"],
                   f"{name}: worker {w} ran {st['decode_windows']} decode "
@@ -2995,7 +3170,7 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
            "decisions": {r: [dec[r]["worker_id"], dec[r]["overlap_blocks"]]
                          for r in order},
            "prefix_hits": hits, "prefix_lookups": lookups,
-           "expected": [want_hits, want_lookups],
+           "expected": sorted(want), "on_prefix_worker": on_prefix,
            "kv_routed": {"hit_share": hits / lookups, **routed_q},
            "round_robin": {"hit_share": rr_hits / rr_lookups,
                            "hits": rr_hits, "lookups": rr_lookups, **rr_q},
@@ -3007,10 +3182,12 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
           f"({warm_s:.3f} s), 16 chat requests (8 SSE, 8 unary; 8 greedy, "
           f"8 sampled) over 4 system prompts of {sys_len} byte-tokens "
           f"answered in {wall:.3f} s; requests per worker {json.dumps(per_worker)}; "
-          f"every wave-2 request on its prefix's worker with >= "
-          f"{min(shared)} matched pages; prefix hits {hits} of {lookups} "
-          f"(one engine in order: {want_hits} of {want_lookups}); router "
-          f"fall-backs 0; ragged launches {json.dumps(launches)}",
+          f"{on_prefix} of 12 wave-2 requests on their prefix's worker "
+          f"({shared} pages shared with it), every decision the selector's "
+          f"arg-max over its recorded terms with the matched pages derived "
+          f"from the token ids; prefix hits {hits} of {lookups} (derived "
+          f"from where each went: {sorted(want)}); router fall-backs 0; "
+          f"ragged launches {json.dumps(launches)}",
           flush=True)
     print(f"{name} [two replicas sharing one card: {smi}]: KV-routed "
           f"frontend prefix hit share {hits / lookups:.4f}, TTFT p50 "
@@ -4770,6 +4947,938 @@ def phase_moe_child() -> dict:
     return result
 
 
+# -- phase 15: checkpoints ----------------------------------------------------
+
+ST_CODES = {"float32": "F32", "float16": "F16", "bfloat16": "BF16",
+            "int8": "I8", "uint8": "U8", "int32": "I32", "int64": "I64"}
+
+
+def write_safetensors(path: str, entries: list) -> int:
+    """A .safetensors file from [(name, fetch)]: fetch() gives the tensor
+    (on any device), called twice: once for the header's shapes (a view
+    costs nothing), once to copy it to the host and write it, one tensor
+    at a time. Returns the file's bytes."""
+    import torch
+    header, off = {}, 0
+    for name, fetch in entries:
+        t = fetch()
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_CODES[str(t.dtype)[6:]],
+                        "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for name, fetch in entries:
+            t = fetch().contiguous().cpu()
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+    return 8 + len(head) + off
+
+
+HF_ARCH = {"llama": "LlamaForCausalLM", "qwen2": "Qwen2ForCausalLM",
+           "phi3": "Phi3ForCausalLM", "gemma": "GemmaForCausalLM",
+           "mixtral": "MixtralForCausalLM"}
+
+
+def hf_config(cfg, family: str, bos: int, eos: int) -> dict:
+    """config.json for `cfg`: what models/loader.config_from_hf maps back
+    onto it."""
+    out = {"architectures": [HF_ARCH[family]], "model_type": family,
+           "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+           "intermediate_size": cfg.intermediate_size,
+           "num_hidden_layers": cfg.num_layers,
+           "num_attention_heads": cfg.num_heads,
+           "num_key_value_heads": cfg.num_kv_heads,
+           "head_dim": cfg.head_dim, "rope_theta": cfg.rope_theta,
+           "rms_norm_eps": cfg.rms_norm_eps,
+           "max_position_embeddings": cfg.max_model_len,
+           "tie_word_embeddings": cfg.tie_word_embeddings,
+           "dtype": cfg.dtype, "bos_token_id": bos, "eos_token_id": eos}
+    if family == "gemma":
+        out["hidden_activation"] = "gelu_pytorch_tanh"
+    else:
+        out["hidden_act"] = "silu"
+    if family == "qwen2":
+        out["use_sliding_window"] = False
+    if family == "mixtral":
+        out.update(num_local_experts=cfg.num_experts,
+                   num_experts_per_tok=cfg.num_experts_per_tok)
+    return out
+
+
+def hf_entries(cfg, params, family: str) -> list:
+    """[(HF tensor name, fetch)] of a parameter tree: the inverse of
+    models/loader.py's mapping ([in, out] leaves back to [out, in], Phi-3's
+    q | k | v and gate | up fused, Mixtral's experts one by one)."""
+    import torch
+    lp = params["layers"]
+    out = [("model.embed_tokens.weight", lambda: params["embed"])]
+
+    def add(name, fn):
+        out.append((name, fn))
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        add(pre + "input_layernorm.weight", lambda i=i: lp["attn_norm"][i])
+        if family == "phi3":
+            add(pre + "self_attn.qkv_proj.weight", lambda i=i: torch.cat(
+                [lp[k][i].T for k in ("wq", "wk", "wv")]))
+        else:
+            for k in "qkv":
+                add(pre + f"self_attn.{k}_proj.weight",
+                    lambda i=i, k=k: lp[f"w{k}"][i].T)
+        if cfg.attn_bias:
+            for k in "qkv":
+                add(pre + f"self_attn.{k}_proj.bias",
+                    lambda i=i, k=k: lp[f"w{k}_b"][i])
+        add(pre + "self_attn.o_proj.weight", lambda i=i: lp["wo"][i].T)
+        add(pre + "post_attention_layernorm.weight",
+            lambda i=i: lp["mlp_norm"][i])
+        if cfg.is_moe:
+            moe = pre + "block_sparse_moe."
+            add(moe + "gate.weight", lambda i=i: lp["router"][i].T)
+            for e in range(cfg.num_experts):
+                for ours, theirs in (("w_gate", "w1"), ("w_up", "w3"),
+                                     ("w_down", "w2")):
+                    add(moe + f"experts.{e}.{theirs}.weight",
+                        lambda i=i, e=e, k=ours: lp[k][i, e].T)
+        elif family == "phi3":
+            add(pre + "mlp.gate_up_proj.weight", lambda i=i: torch.cat(
+                [lp["w_gate"][i].T, lp["w_up"][i].T]))
+            add(pre + "mlp.down_proj.weight", lambda i=i: lp["w_down"][i].T)
+        else:
+            for ours, theirs in (("w_gate", "gate"), ("w_up", "up"),
+                                 ("w_down", "down")):
+                add(pre + f"mlp.{theirs}_proj.weight",
+                    lambda i=i, k=ours: lp[k][i].T)
+    add("model.norm.weight", lambda: params["final_norm"])
+    if not cfg.tie_word_embeddings:
+        add("lm_head.weight", lambda: params["lm_head"].T)
+    return out
+
+
+def write_hf_dir(path: str, cfg, params, family: str, bos: int, eos: int,
+                 shards: int = 1) -> int:
+    """An HF-style directory: config.json and the tensors in `shards`
+    safetensors files (with model.safetensors.index.json past one).
+    Returns the bytes written."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(cfg, family, bos, eos), f, indent=1)
+    entries = hf_entries(cfg, params, family)
+    if shards == 1:
+        return write_safetensors(os.path.join(path, "model.safetensors"),
+                                 entries)
+    sizes = [f().numel() * f().element_size() for _, f in entries]
+    total, groups, acc = sum(sizes), [[] for _ in range(shards)], 0
+    for e, n in zip(entries, sizes):
+        groups[min(acc * shards // total, shards - 1)].append(e)
+        acc += n
+    names = [f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+             for k in range(shards)]
+    written = sum(write_safetensors(os.path.join(path, n), g)
+                  for n, g in zip(names, groups))
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": {
+            name: n for n, g in zip(names, groups) for name, _ in g}}, f)
+    return written
+
+
+# the Llama-3 pre-tokenizer pattern (its published tokenizer.json)
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|"
+                r"\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|"
+                r"\s+(?!\S)|\s+")
+LLAMA3_SPECIALS = {0: "<|begin_of_text|>", 1: "<|end_of_text|>",
+                   6: "<|start_header_id|>", 7: "<|end_header_id|>",
+                   9: "<|eot_id|>"}
+# Meta-Llama-3-8B-Instruct's chat template
+LLAMA3_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + "
+    "'<|end_header_id|>\n\n'+ message['content'] | trim + '<|eot_id|>' %}"
+    "{% if loop.index0 == 0 %}{% set content = bos_token + content %}"
+    "{% endif %}{{ content }}{% endfor %}{% if add_generation_prompt %}"
+    "{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}{% endif %}")
+TOKENIZER_CORPUS = (
+    "The quick brown fox jumps over the lazy dog. Serving a checkpoint "
+    "means reading its config, its tokenizer and its weights, then "
+    "answering chats token by token. It's 2026; we'll keep streams "
+    "identical, they're checked against the in-memory engine. Numbers "
+    "like 12345, 3.14159 and 1,000,000 split in runs of three. Unicode: "
+    "café, naïve, Ångström, 東京, 😀.\n\tIndented code: def f(x): return "
+    "x ** 2\r\n")
+
+
+def train_merges(corpus: str, n: int) -> list:
+    """A byte-level BPE's first n merges, learned deterministically: the
+    most frequent adjacent pair over the corpus's pre-tokens (the Llama-3
+    split), ties to the smallest pair."""
+    import collections
+    from dynamo_tpu_torch.llm.bpe import BYTES_CHAR, compile_onig
+    words = collections.Counter(
+        tuple(BYTES_CHAR[b] for b in m.group().encode())
+        for m in compile_onig(LLAMA3_SPLIT).finditer(corpus))
+    merges = []
+    for _ in range(n):
+        pairs = collections.Counter()
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = min(pairs.items(), key=lambda kv: (-kv[1], kv[0]))[0]
+        merges.append(best)
+        joined = collections.Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if w[i:i + 2] == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            joined[tuple(out)] += c
+        words = joined
+    return merges
+
+
+def llama3_tokenizer_json(vocab_size: int = 128256,
+                          n_merges: int = 600) -> dict:
+    """A tokenizer.json of the Llama-3 form: a byte-level BPE on the
+    Llama-3 split with ignore_merges, merges learned by `train_merges`
+    from a fixed corpus, ids past the merges filled with two- and
+    three-character byte strings up to 128000, and the Llama-3 special
+    tokens at 128000+ (the reserved ones named as Meta names them)."""
+    from dynamo_tpu_torch.llm.bpe import BYTES_CHAR
+    chars = sorted(BYTES_CHAR.values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    merges = train_merges(TOKENIZER_CORPUS * 3, n_merges)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    first = 128000
+    for a in chars:
+        for b in chars:
+            if len(vocab) >= first:
+                break
+            vocab.setdefault(a + b, len(vocab))
+    for a in chars:
+        for b in chars:
+            for c in chars:
+                if len(vocab) >= first:
+                    break
+                vocab.setdefault(a + b + c, len(vocab))
+    reserved = 0
+    added = []
+    for k in range(vocab_size - first):
+        name = LLAMA3_SPECIALS.get(k)
+        if name is None:
+            name = f"<|reserved_special_token_{reserved}|>"
+            reserved += 1
+        added.append({"id": first + k, "content": name, "single_word": False,
+                      "lstrip": False, "rstrip": False, "normalized": False,
+                      "special": True})
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": added, "normalizer": None,
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+                 "behavior": "Isolated", "invert": False},
+                {"type": "ByteLevel", "add_prefix_space": False,
+                 "trim_offsets": True, "use_regex": False}]},
+            "post_processor": None,
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                        "trim_offsets": True, "use_regex": True},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": False,
+                      "byte_fallback": False, "ignore_merges": True,
+                      "vocab": vocab, "merges": [list(m) for m in merges]}}
+
+
+# -- GGUF, written as tests/test_gguf.py writes it ----------------------------
+
+def _gguf_str(s: str) -> bytes:
+    b = s.encode()
+    return struct.pack("<Q", len(b)) + b
+
+
+def _gguf_value(vtype: int, v) -> bytes:
+    fmts = {0: "<B", 1: "<b", 2: "<H", 3: "<h", 4: "<I", 5: "<i", 6: "<f",
+            7: "<?", 10: "<Q", 11: "<q", 12: "<d"}
+    if vtype in fmts:
+        return struct.pack(fmts[vtype], v)
+    return _gguf_str(v)
+
+
+def write_gguf(path: str, metadata: dict, tensors: dict) -> None:
+    """metadata {key: (vtype, value) | (9, (etype, [values]))}; tensors
+    {name: (ggml type, row-major shape, raw bytes)}; alignment 32."""
+    align = 32
+    out = bytearray(b"GGUF" + struct.pack("<I", 3)
+                    + struct.pack("<QQ", len(tensors), len(metadata)))
+    for key, (vtype, value) in metadata.items():
+        out += _gguf_str(key) + struct.pack("<I", vtype)
+        if vtype == 9:
+            etype, values = value
+            out += struct.pack("<IQ", etype, len(values))
+            for v in values:
+                out += _gguf_value(etype, v)
+        else:
+            out += _gguf_value(vtype, value)
+    offset, blobs = 0, []
+    for name, (gtype, shape, raw) in tensors.items():
+        dims = list(reversed(shape))
+        out += _gguf_str(name) + struct.pack("<I", len(dims))
+        out += b"".join(struct.pack("<Q", d) for d in dims)
+        out += struct.pack("<IQ", gtype, offset)
+        blobs.append((offset, raw))
+        offset += (len(raw) + align - 1) // align * align
+    out += b"\x00" * (-len(out) % align)
+    data = bytearray(offset)
+    for off, raw in blobs:
+        data[off:off + len(raw)] = raw
+    with open(path, "wb") as f:
+        f.write(out + data)
+
+
+def q8_0_bytes(x):
+    """llama.cpp Q8_0: blocks of 32, an f16 scale and 32 int8 values."""
+    import numpy as np
+    flat = np.ascontiguousarray(x, np.float32).reshape(-1, 32)
+    d = np.abs(flat).max(axis=1, keepdims=True) / 127.0
+    d[d == 0] = 1.0
+    q = np.clip(np.round(flat / d), -127, 127).astype(np.int8)
+    blocks = np.concatenate([d.astype(np.float16).view(np.uint8),
+                             q.view(np.uint8)], axis=1)
+    return blocks.tobytes()
+
+
+def q4_k_bytes(x):
+    """llama.cpp Q4_K: super-blocks of 256 (f16 d, f16 dmin, 12 bytes of
+    6-bit scales and mins for 8 sub-blocks of 32, 128 nibble bytes);
+    value = d * sc * q - dmin * m."""
+    import numpy as np
+    v = np.ascontiguousarray(x, np.float32).reshape(-1, 8, 32)
+    lo = np.minimum(v.min(axis=2), 0.0)
+    scale = (v.max(axis=2) - lo) / 15.0
+    d = np.maximum(scale.max(axis=1), 1e-12) / 63.0
+    dmin = np.maximum((-lo).max(axis=1), 1e-12) / 63.0
+    d16, dmin16 = d.astype(np.float16), dmin.astype(np.float16)
+    sc = np.clip(np.round(scale / d16.astype(np.float32)[:, None]), 1, 63
+                 ).astype(np.uint8)
+    mn = np.clip(np.round(-lo / dmin16.astype(np.float32)[:, None]), 0, 63
+                 ).astype(np.uint8)
+    step = (d16.astype(np.float32)[:, None] * sc)[:, :, None]
+    off = (dmin16.astype(np.float32)[:, None] * mn)[:, :, None]
+    q = np.clip(np.round((v + off) / step), 0, 15).astype(np.uint8)
+    packed = np.empty((v.shape[0], 12), np.uint8)
+    packed[:, 0:4] = sc[:, 0:4] | ((sc[:, 4:8] >> 4) << 6)
+    packed[:, 4:8] = mn[:, 0:4] | ((mn[:, 4:8] >> 4) << 6)
+    packed[:, 8:12] = (sc[:, 4:8] & 0x0F) | ((mn[:, 4:8] & 0x0F) << 4)
+    nib = q.reshape(-1, 4, 2, 32)
+    qs = (nib[:, :, 0] | (nib[:, :, 1] << 4)).reshape(-1, 128)
+    return np.concatenate([d16[:, None].view(np.uint8),
+                           dmin16[:, None].view(np.uint8), packed, qs],
+                          axis=1).tobytes()
+
+
+def q6_k_bytes(x):
+    """llama.cpp Q6_K: super-blocks of 256 (128 low-nibble bytes, 64
+    high-2-bit bytes, 16 int8 scales, f16 d); value = d * sc * (q - 32)."""
+    import numpy as np
+    v = np.ascontiguousarray(x, np.float32).reshape(-1, 16, 16)
+    amax = np.abs(v).max(axis=2)
+    d = np.maximum(amax.max(axis=1), 1e-12) / (32.0 * 127.0)
+    d16 = d.astype(np.float16)
+    sc = np.clip(np.round(amax / 32.0 / d16.astype(np.float32)[:, None]),
+                 1, 127).astype(np.int8)
+    step = (d16.astype(np.float32)[:, None] * sc)[:, :, None]
+    q = (np.clip(np.round(v / step), -32, 31) + 32).astype(np.uint8)
+    q = q.reshape(-1, 2, 4, 32)          # half, quarter, l
+    ql = np.empty((q.shape[0], 2, 64), np.uint8)
+    ql[:, :, :32] = (q[:, :, 0] & 0x0F) | ((q[:, :, 2] & 0x0F) << 4)
+    ql[:, :, 32:] = (q[:, :, 1] & 0x0F) | ((q[:, :, 3] & 0x0F) << 4)
+    qh = ((q[:, :, 0] >> 4) | ((q[:, :, 1] >> 4) << 2)
+          | ((q[:, :, 2] >> 4) << 4) | ((q[:, :, 3] >> 4) << 6))
+    return np.concatenate([ql.reshape(-1, 128), qh.reshape(-1, 64),
+                           sc.view(np.uint8), d16[:, None].view(np.uint8)],
+                          axis=1).tobytes()
+
+
+GGML = {"F32": 0, "F16": 1, "Q8_0": 8, "Q4_K": 12, "Q6_K": 14}
+
+
+def write_llama_gguf(path: str, cfg, params) -> dict:
+    """A llama GGUF of a parameter tree (llm/gguf.py's mapping inverted)
+    mixing F32 norms, an F16 embedding, Q8_0 / Q4_K / Q6_K projections and
+    a Q6_K head. Returns {ggml type: tensors of that type}."""
+    import numpy as np
+    quant = {"F32": lambda a: a.astype(np.float32).tobytes(),
+             "F16": lambda a: a.astype(np.float16).tobytes(),
+             "Q8_0": q8_0_bytes, "Q4_K": q4_k_bytes, "Q6_K": q6_k_bytes}
+    tensors, kinds = {}, {}
+
+    def put(name, t, kind):
+        a = t.float().cpu().numpy()
+        tensors[name] = (GGML[kind], a.shape, quant[kind](a))
+        kinds[kind] = kinds.get(kind, 0) + 1
+    lp = params["layers"]
+    put("token_embd.weight", params["embed"], "F16")
+    put("output_norm.weight", params["final_norm"], "F32")
+    put("output.weight", params["lm_head"].T, "Q6_K")
+    for i in range(cfg.num_layers):
+        for name, key, kind in (
+                ("attn_q", "wq", "Q8_0"), ("attn_k", "wk", "Q4_K"),
+                ("attn_v", "wv", "F16"), ("attn_output", "wo", "Q8_0"),
+                ("ffn_gate", "w_gate", "Q4_K"), ("ffn_up", "w_up", "Q8_0"),
+                ("ffn_down", "w_down", "Q6_K")):
+            put(f"blk.{i}.{name}.weight", lp[key][i].T, kind)
+        put(f"blk.{i}.attn_norm.weight", lp["attn_norm"][i], "F32")
+        put(f"blk.{i}.ffn_norm.weight", lp["mlp_norm"][i], "F32")
+    tokens = (["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+              + [f"t{i}" for i in range(cfg.vocab_size - 259)])
+    write_gguf(path, {
+        "general.architecture": (8, "llama"),
+        "general.name": (8, "tiny-llama-gguf"),
+        "llama.embedding_length": (4, cfg.hidden_size),
+        "llama.block_count": (4, cfg.num_layers),
+        "llama.feed_forward_length": (4, cfg.intermediate_size),
+        "llama.attention.head_count": (4, cfg.num_heads),
+        "llama.attention.head_count_kv": (4, cfg.num_kv_heads),
+        "llama.attention.layer_norm_rms_epsilon": (6, cfg.rms_norm_eps),
+        "llama.rope.freq_base": (6, cfg.rope_theta),
+        "llama.context_length": (4, cfg.max_model_len),
+        "tokenizer.ggml.model": (8, "llama"),
+        "tokenizer.ggml.tokens": (9, (8, tokens)),
+        "tokenizer.ggml.bos_token_id": (4, 1),
+        "tokenizer.ggml.eos_token_id": (4, 2),
+    }, tensors)
+    return kinds
+
+
+# 15a's families: each one's departures from SMALL_BASE
+SMALL_KNOBS = {
+    "llama": {}, "llama_tied": dict(tie_word_embeddings=True),
+    "qwen2": dict(attn_bias=True),
+    "phi3": dict(num_heads=8, num_kv_heads=4, head_dim=32),
+    "gemma": dict(embed_scale=16.0, norm_plus_one=True, mlp_act="gelu_tanh",
+                  tie_word_embeddings=True, rms_norm_eps=1e-6),
+    "mixtral": dict(num_experts=4, num_experts_per_tok=2,
+                    intermediate_size=256),
+    "gguf": {}}
+SMALL_BASE = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                  num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+                  rope_theta=10000.0, max_model_len=2048, dtype="float32")
+
+
+def small_family_config(family: str):
+    """15a's tiny configs: hd 64 (Phi-3 at 32), widths whose rows the
+    K-quant blocks (256) and the kernels take."""
+    from dynamo_tpu_torch.engine.config import ModelConfig
+    return ModelConfig(name=family, **{**SMALL_BASE,
+                                       **SMALL_KNOBS.get(family, {})})
+
+
+def seeded_tree(cfg, seed: int):
+    """init_params on the CPU (f32), its norms and biases redrawn from the
+    seed so that every architecture branch changes the output."""
+    import torch
+    from dynamo_tpu_torch.models import llama
+    params = llama.init_params(cfg, "cpu", seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    shift = 1.0 if cfg.norm_plus_one else 0.0
+    for key, leaf in params["layers"].items():
+        if key.endswith("norm"):
+            leaf.copy_(torch.rand(leaf.shape, generator=gen) + 0.5 - shift)
+        elif key.endswith("_b"):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen) * 0.5)
+    params["final_norm"].copy_(
+        torch.rand(params["final_norm"].shape, generator=gen) + 0.5 - shift)
+    return params
+
+
+def same_trees(trees: dict) -> bool:
+    """Every device's tree equal to the first's."""
+    first, *rest = trees.values()
+    return all(trees_equal(first, t) for t in rest)
+
+
+def trees_equal(a, b) -> bool:
+    """Equal keys, dtypes, shapes and bits (compared on a's device)."""
+    import torch
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(trees_equal(a[k], b[k])
+                                            for k in a)
+    return a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+
+
+def phase_checkpoints_small(root: str, devices=("cpu", "cuda")) -> dict:
+    """15a (see the docstring at the top): tiny checkpoints of every
+    family and one mixed GGUF, written from seeded weights, loaded on each
+    device and held to phase 3's rule; llama and qwen2 also with int8
+    weights; gemma's engine runs one window as graph and as eager. Returns
+    the kernel launches of the card's runs, by label."""
+    import torch
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.llm.gguf import (
+        GGUFFile, config_from_gguf, load_params_from_gguf,
+    )
+    from dynamo_tpu_torch.models.loader import load_model_dir
+    launches = {}
+    for family in SMALL_KNOBS:
+        cfg = small_family_config(family)
+        params = seeded_tree(cfg, seed=15)
+        path = os.path.join(root, family + (".gguf" if family == "gguf"
+                                            else ""))
+        if family == "gguf":
+            kinds = write_llama_gguf(path, cfg, params)
+            g = GGUFFile(path)
+            cfg = dataclasses.replace(config_from_gguf(g), dtype="float32")
+            trees = {dev: load_params_from_gguf(g, cfg, device=dev)
+                     for dev in devices}
+            g.close()
+            check(same_trees(trees), "gguf: the trees loaded on "
+                  f"{devices} differ")
+            label = f"gguf ({json.dumps(kinds)})"
+        else:
+            write_hf_dir(path, cfg, params, family.split("_")[0], 1, 2)
+            trees = {}
+            for dev in devices:
+                # the f32 override: a checkpoint loads in bf16 by default
+                got, trees[dev] = load_model_dir(path, dtype=cfg.dtype,
+                                                 device=dev)
+                check(dataclasses.replace(got, name=cfg.name) == cfg,
+                      f"{family}: config_from_hf gave {got}, written {cfg}")
+                check(trees_equal(trees[dev], params),
+                      f"{family}: leaves loaded on {dev} differ from the "
+                      "written ones")
+            label = f"{family} checkpoint"
+        launches[label] = device_reference(cfg, trees, label)
+        if family in ("llama", "qwen2"):
+            qcfg = dataclasses.replace(cfg, quant="int8")
+            qtrees = {dev: load_model_dir(path, dtype=cfg.dtype, device=dev,
+                                          quant="int8")[1]
+                      for dev in devices}
+            check(same_trees(qtrees), f"{family}: int8 trees "
+                  "differ across devices")
+            launches[label + " int8"] = device_reference(
+                qcfg, qtrees, label + " quant=int8")
+        if family == "gemma" and "cuda" in devices:
+            _, bf16 = load_model_dir(path, dtype="bfloat16", device="cuda")
+            engine = NativeEngine(dataclasses.replace(cfg, dtype="bfloat16"),
+                                  EngineConfig(), params=bf16,
+                                  eos_token_ids={2}, device="cuda")
+            phase_graph_vs_eager(engine, "gemma checkpoint", model=path)
+            del engine, bf16
+        del trees
+        if "cuda" in devices:
+            torch.cuda.empty_cache()
+    return launches
+
+
+def rss_anon() -> tuple:
+    """(the process's anonymous resident bytes, where they were read): the
+    RssAnon line of /proc/self/status, or where a kernel's status has
+    none (a sandboxed one), resident less shared pages of
+    /proc/self/statm (the shared count holds the file-backed pages, the
+    mapped checkpoint among them)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("RssAnon:"):
+                return int(line.split()[1]) * 1024, "RssAnon"
+    with open("/proc/self/statm") as f:
+        _, resident, shared = (int(x) for x in f.read().split()[:3])
+    return ((resident - shared) * os.sysconf("SC_PAGE_SIZE"),
+            "statm resident - shared")
+
+
+class RssSampler:
+    """The largest growth of the anonymous resident memory (`rss_anon`)
+    over a block, sampled every 20 ms by a thread (the loader copies one
+    tensor at a time)."""
+
+    def __enter__(self):
+        import threading
+        self.base, self.source = rss_anon()
+        self.peak = self.base
+        self._stop = threading.Event()
+
+        def run():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, rss_anon()[0])
+        self._t = threading.Thread(target=run, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, rss_anon()[0])
+
+    @property
+    def growth(self) -> int:
+        return self.peak - self.base
+
+
+CKPT_TOKENS = 32
+CKPT_TOP = 8
+
+
+def checkpoint_chats(model: str) -> list:
+    """15b's 8 chats: a system prompt and a user turn of natural-looking
+    text, greedy, CKPT_TOKENS tokens, top logprobs; 4 streamed, 4 unary."""
+    words = ("the quick brown fox jumps over lazy dog serving checkpoint "
+             "tokens stream card kernel weights chat 2026 café 東京 😀 "
+             "it's we'll they're 12345").split()
+    import numpy as np
+    out = []
+    for i in range(8):
+        rng = np.random.default_rng(150 + i)
+        user = " ".join(rng.choice(words, 20 + 25 * i))
+        body = {"model": model, "max_tokens": CKPT_TOKENS, "temperature": 0.0,
+                "logprobs": True, "top_logprobs": CKPT_TOP, "messages": [
+                    {"role": "system", "content": "You answer briefly."},
+                    {"role": "user", "content": user}]}
+        if i % 2 == 0:
+            body.update(stream=True, stream_options={"include_usage": True})
+        out.append(body)
+    return out
+
+
+def _entries_of(content: list) -> list:
+    """(token, logprob, top values best first) of a logprobs content list
+    (Stream.entries' form)."""
+    return [(e["token"], e["logprob"], sorted(
+        (t["logprob"] for t in e["top_logprobs"]), reverse=True))
+        for e in content]
+
+
+async def reference_chats(card, engine, bodies: list) -> list:
+    """Each body through LocalPipeline on `engine` one at a time: [(logprob
+    entries, text, token ids)]."""
+    from dynamo_tpu_torch.llm.pipeline import LocalPipeline
+    from dynamo_tpu_torch.llm.worker import NativeEngineWorker
+    from dynamo_tpu_torch.protocols.delta import aggregate_chat_chunks
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.runtime.engine import Context
+    worker = await NativeEngineWorker(engine).start()
+    timed = TimedEngine(worker)
+    pipe = LocalPipeline(card, timed)
+    out = []
+    try:
+        for i, body in enumerate(bodies):
+            req = ChatCompletionRequest.from_json(
+                {k: v for k, v in body.items()
+                 if k not in ("stream", "stream_options")})
+            chunks = [c async for c in pipe.generate_chat(
+                req, Context(f"ref-{i}"))]
+            agg = aggregate_chat_chunks(chunks)
+            rid = next(r for r in timed.stamps if r.startswith(f"ref-{i}"))
+            out.append((_entries_of(agg.choices[0].logprobs["content"]),
+                        agg.choices[0].message.content,
+                        list(timed.stamps[rid]["ids"])))
+    finally:
+        await worker.stop()
+    return out
+
+
+async def served_chats(port: int, bodies: list) -> list:
+    """The bodies over HTTP one at a time: [(logprob entries, text)]."""
+    out = []
+    for i, body in enumerate(bodies):
+        if body.get("stream"):
+            st = await _stream_into(port, body, Stream(f"ckpt-{i}"))
+            check(st.done and not st.errors and len(st.finish) == 1,
+                  f"checkpoints: stream {i} ended {st.finish} "
+                  f"{st.errors} done={st.done}")
+            out.append((st.entries, st.text))
+        else:
+            status, _, raw = await _http(port, "POST", "/v1/chat/completions",
+                                         body)
+            check(status == 200, f"checkpoints: request {i}: {status} "
+                  f"{raw[:200]}")
+            res = json.loads(raw)
+            ch = res["choices"][0]
+            check(ch["finish_reason"] in ("stop", "length"),
+                  f"checkpoints: request {i} finished {ch['finish_reason']}")
+            out.append((_entries_of(ch["logprobs"]["content"]),
+                        ch["message"]["content"]))
+    return out
+
+
+def hold_to_reference(name: str, served: list, ref: list, tokenizer) -> list:
+    """Each served stream against the reference's: equal entries, or a
+    first difference at a near tie (phase 11k's rule), and the text equal
+    to DecodeStream over the reference's ids (up to the difference).
+    Returns the first differences (None where identical)."""
+    from dynamo_tpu_torch.llm.tokenizer import DecodeStream
+    firsts = []
+    for i, ((a, text), (b, _, ids)) in enumerate(zip(served, ref)):
+        check(len(b) == len(ids), f"{name}: reference {i} has {len(b)} "
+              f"entries for {len(ids)} ids")
+        d = first_difference_of(a, b)
+        ds = DecodeStream(tokenizer)
+        upto = len(ids) if d is None else d
+        want = "".join(ds.step(t) for t in ids[:upto])
+        if d is None:
+            check(text == want, f"{name}: chat {i}'s text {text!r} != "
+                  f"DecodeStream over the reference's ids {want!r}")
+            firsts.append(None)
+            continue
+        case = "token" if a[d][0] != b[d][0] else "context"
+        at = d if case == "token" else d - 1
+        check(at >= 0, f"{name}: chat {i} differs in its first token's "
+              "values")
+        tie = max(x[2][0] - x[2][1] for x in (a[at], b[at]))
+        check(tie <= NEAR_TIE and text.startswith(want),
+              f"{name}: chat {i} leaves the reference at {d} ({case}), "
+              f"top-1 less top-2 {tie:.4f} (near tie <= {NEAR_TIE})")
+        firsts.append([d, case, round(tie, 5)])
+        print(f"{name}: chat {i} first differs from the reference at "
+              f"token {d} ({case}), a near tie ({tie:.5f})", flush=True)
+    return firsts
+
+
+def serve_checkpoint(path: str, bodies: list, extra=(), name="") -> dict:
+    """`python -m dynamo_tpu_torch.run in=http:0 out=native <path>` as a
+    process: READY seconds, the bodies' results, its EXIT stats line."""
+    import signal
+    t0 = time.perf_counter()
+    proc = Child(name, ["dynamo_tpu_torch.run", "in=http:0", "out=native",
+                        path, *extra])
+    try:
+        line = proc.wait_line("READY http=:", 600)
+        ready_s = time.perf_counter() - t0
+        port = int(re.match(r"READY http=:(\d+)", line).group(1))
+        results = asyncio.run(asyncio.wait_for(served_chats(port, bodies),
+                                               600))
+        metrics = asyncio.run(_http(port, "GET", "/metrics"))[2].decode()
+        code = proc.stop(signal.SIGINT, 120)
+        exits = [x for x in proc.lines if x.startswith("EXIT ")]
+        check(code == 0 and len(exits) == 1, f"{name}: exit {code}, "
+              f"{exits or proc.tail()}")
+    finally:
+        proc.stop(signal.SIGKILL, 30)
+    m = re.match(r"EXIT logits_nonfinite_steps=(\d+) stats=(.*)$", exits[0])
+    check(m is not None and m.group(1) == "0", f"{name}: {exits[0][:300]}")
+    # the load inside READY, as run.py logs it
+    loads = [float(x.group(1)) for x in (
+        re.search(r"loaded .* in ([0-9.]+) s$", ln) for ln in proc.lines)
+        if x]
+    check(len(loads) == 1, f"{name}: run.py logged {len(loads)} loads")
+    return {"ready_s": ready_s, "load_s": loads[0], "results": results,
+            "metrics": metrics, "stats": json.loads(m.group(2))}
+
+
+def synchronize(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def served_config(card):
+    """The EngineConfig run.py builds for `card` with its default flags."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    return EngineConfig(page_size=card.kv_page_size, max_model_len=min(
+        card.context_length, card.model_config().max_model_len))
+
+
+def phase_checkpoint_8b(root: str, smi: str, cfg=None,
+                        device: str = "cuda") -> dict:
+    """15b (see the docstring at the top): llama3-8b at full width and
+    depth written to disk, loaded, and served by run.py as a process.
+    `cfg` and device "cpu" rehearse it on the CPU (a narrow model with
+    llama3-8b's vocabulary); the card-only checks (kernel launches, device
+    memory) are skipped there."""
+    import shutil
+    import torch
+    from dynamo_tpu_torch.engine.config import get_model_config
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.loader import load_model_dir
+    on_card = device == "cuda"
+    cfg = cfg or get_model_config("llama3-8b")
+    name = f"checkpoints, {cfg.name}"
+    extra = () if on_card else ("--device", "cpu")
+    need = 17 * 10 ** 9 if on_card else 10 ** 9
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    check(free >= need, f"{name}: {free} bytes free under {root}; the "
+          f"bf16 checkpoint needs {need} (16.06 GB and its tokenizer)")
+    path = os.path.join(root, "llama3-8b")
+    rec = {}
+    try:
+        params = llama.init_params(cfg, device, seed=0)
+        t0 = time.perf_counter()
+        nbytes = write_hf_dir(path, cfg, params, "llama", 128000, 128009,
+                              shards=4)
+        with open(os.path.join(path, "tokenizer.json"), "w") as f:
+            json.dump(llama3_tokenizer_json(), f)
+        with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+            json.dump({"chat_template": LLAMA3_TEMPLATE,
+                       "bos_token": "<|begin_of_text|>",
+                       "eos_token": "<|eot_id|>"}, f)
+        rec["write_s"] = time.perf_counter() - t0
+        rec["bytes"] = nbytes
+        print(f"{name}: wrote {nbytes} bytes (4 bf16 shards, "
+              f"tokenizer.json, chat template) in {rec['write_s']:.1f} s",
+              flush=True)
+
+        card = ModelDeploymentCard.from_hf_dir(path)
+        tok = card.load_tokenizer()
+        bodies = checkpoint_chats(card.name)
+        # the reference: this card, an engine on the in-memory weights
+        engine = NativeEngine(card.model_config(), served_config(card),
+                              params=params,
+                              eos_token_ids=set(card.eos_token_ids),
+                              device=device)
+        check(engine.model_cfg.dtype == "bfloat16",
+              f"{name}: the card's dtype {engine.model_cfg.dtype}")
+        ref = asyncio.run(reference_chats(card, engine, bodies))
+        engine.cache = None
+        del engine
+        empty_cache(device)
+        # the tokenizer on the request path: encode ms per 1k prompt tokens
+        from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+        from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+        pre = OpenAIPreprocessor(card, tok)
+        prompts = [pre._render_chat(ChatCompletionRequest.from_json(b))
+                   for b in bodies]
+        t0 = time.perf_counter()
+        n_tok = sum(len(tok.encode(p)) for p in prompts)
+        rec["encode_ms_per_1k"] = ((time.perf_counter() - t0) * 1e3
+                                   / n_tok * 1000)
+
+        # the loader on the card: bit-equal leaves, RssAnon growth
+        synchronize(device)
+        with RssSampler() as rss:
+            t0 = time.perf_counter()
+            lcfg, loaded = load_model_dir(path, device=device)
+            synchronize(device)
+            rec["load_s"] = time.perf_counter() - t0
+        rec["rss_anon_growth"] = rss.growth
+        rec["rss_source"] = rss.source
+        rec["load_gb_s"] = nbytes / rec["load_s"] / 1e9
+        check(dataclasses.replace(lcfg, name=cfg.name) == cfg,
+              f"{name}: config_from_hf gave {lcfg}")
+        check(trees_equal(loaded, params), f"{name}: loaded leaves differ "
+              "from the written ones")
+        check(rss.growth < 4 * 2 ** 30, f"{name}: anonymous memory "
+              f"({rss.source}) grew by {rss.growth} bytes while loading "
+              f"(limit 4 GiB)")
+        print(f"{name}: load_model_dir on {device} in {rec['load_s']:.2f} s "
+              f"({rec['load_gb_s']:.2f} GB/s, the page cache warm from the "
+              f"write), every leaf bit-equal to the written tree, "
+              f"anonymous memory growth {rss.growth / 2 ** 20:.1f} MiB "
+              f"({rss.source}) [{smi}]", flush=True)
+        del loaded, params
+        empty_cache(device)
+
+        # run.py as a process on the directory
+        served = serve_checkpoint(path, bodies, extra,
+                                  name=f"{name} (run.py)")
+        rec["ready_s"] = served["ready_s"]
+        rec["ready_load_s"] = served["load_s"]
+        rec["first_differences"] = hold_to_reference(
+            name, served["results"], ref, tok)
+        st = served["stats"]
+        k = st["kernel_launches"][RAGGED]
+        warm = st["graph_warmup_launches"].get(RAGGED, 0)
+        check(not on_card
+              or k == cfg.num_layers * st["decode_window_steps"] + warm > 0,
+              f"{name}: run.py launched the ragged kernel {k} times over "
+              f"{st['decode_window_steps']} decode steps x "
+              f"{cfg.num_layers} layers + {warm} in warm-ups")
+        rec["launches"] = st["kernel_launches"]
+        rec.update(_ttft_quantiles(served["metrics"]))
+        print(f"{name}: run.py READY in {rec['ready_s']:.1f} s, of which "
+              f"its load {rec['ready_load_s']:.2f} s (run.py's log); 8 "
+              f"chats (4 "
+              f"SSE, 4 unary) one at a time, every one finished, "
+              f"{sum(d is None for d in rec['first_differences'])} of 8 "
+              f"token-identical to the in-memory engine; TTFT p50 "
+              f"{rec['ttft_p50_ms']:.1f} ms (llm_ttft_seconds); encode "
+              f"{rec['encode_ms_per_1k']:.2f} ms per 1k prompt tokens "
+              f"(Python BPE on the host); ragged launches {k} [{smi}]",
+              flush=True)
+
+        # int8: quantized as it loads, below the bf16 tree's peak
+        synchronize(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        _, q8 = load_model_dir(path, device=device, quant="int8")
+        synchronize(device)
+        rec["int8_load_s"] = time.perf_counter() - t0
+        rec["int8_load_peak_bytes"] = (
+            torch.cuda.max_memory_allocated() - base if on_card else 0)
+        check(rec["int8_load_peak_bytes"] < 16.06e9, f"{name}: int8 load "
+              f"peaked at {rec['int8_load_peak_bytes']} bytes")
+        want = llama.init_params(dataclasses.replace(cfg, quant="int8"),
+                                 device, seed=0)
+        check(trees_equal(q8, want), f"{name}: the int8 load differs from "
+              "init_params(quant='int8')")
+        del q8
+        empty_cache(device)
+        qcard = ModelDeploymentCard.from_hf_dir(path)
+        engine = NativeEngine(
+            dataclasses.replace(qcard.model_config(), quant="int8"),
+            served_config(qcard), params=want,
+            eos_token_ids=set(qcard.eos_token_ids), device=device)
+        qref = asyncio.run(reference_chats(qcard, engine, bodies[:1]))
+        engine.cache = None
+        del engine, want
+        empty_cache(device)
+        qserved = serve_checkpoint(path, bodies[:1],
+                                   ("--quant", "int8") + extra,
+                                   name=f"{name} int8 (run.py)")
+        rec["int8_first_difference"] = hold_to_reference(
+            name + " int8", qserved["results"], qref, tok)[0]
+        rec["int8_ready_s"] = qserved["ready_s"]
+        rec["int8_launches"] = qserved["stats"]["kernel_launches"]
+        check(not on_card or (rec["int8_launches"][W8A16] > 0
+                              and rec["int8_launches"][DEQUANT] == 0),
+              f"{name} int8: run.py launched {rec['int8_launches']}")
+        same = rec["int8_first_difference"] is None
+        print(f"{name} int8: load_model_dir(quant='int8') in "
+              f"{rec['int8_load_s']:.2f} s, peak "
+              f"{rec['int8_load_peak_bytes'] / 1e9:.2f} GB on the card "
+              f"(bf16 tree 16.06 GB), byte-equal to init_params(quant="
+              f"'int8'); run.py --quant int8 READY in "
+              f"{rec['int8_ready_s']:.1f} s, one chat "
+              f"{'token-identical' if same else 'within a near tie'} "
+              f"[{smi}]", flush=True)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return rec
+
+
+def phase_checkpoints(smi: str) -> dict:
+    """Phase 15: 15a then 15b, under build/checkpoints (removed)."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    try:
+        small = phase_checkpoints_small(root)
+        big = phase_checkpoint_8b(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    big["phase_s"] = time.perf_counter() - t0
+    return {"small_launches": small, **big}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4845,6 +5954,17 @@ def main() -> int:
     print(f"KV tiers: {json.dumps(tiers)}", flush=True)
     moe = phase_moe_child()
     print(f"mixture of experts: {json.dumps(moe)}", flush=True)
+    ckpt = phase_checkpoints(smi)
+    print(f"checkpoints: {json.dumps(ckpt)}", flush=True)
+    small = ckpt["small_launches"]
+
+    def ckpt_launches(kernel: str) -> dict:
+        """A kernel's launches in phase 15's runs on the card: each small
+        checkpoint's, run.py's on llama3-8b (bf16, int8)."""
+        out = {label: got.get(kernel, 0) for label, got in small.items()}
+        out["llama3-8b run.py"] = ckpt["launches"][kernel]
+        out["llama3-8b run.py int8"] = ckpt["int8_launches"][kernel]
+        return out
 
     ragged = {"name": "ragged_decode_attention", "route": "cuda",
               "source": "dynamo_tpu_torch/csrc/ragged_decode_attention.cu",
@@ -4855,6 +5975,7 @@ def main() -> int:
               "disagg_launches": disagg["launches"],
               "tiers_launches": {k: v["launches"]
                                  for k, v in tiers["runs"].items()},
+              "checkpoint_launches": ckpt_launches(RAGGED),
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),
                        **timing_q}}
@@ -4880,7 +6001,8 @@ def main() -> int:
         "replaces": "dynamo_tpu/ops/quant.py:70 (wmat, fused by XLA into the "
                     "matmul; no Pallas kernel)",
         "launches": first_http["launches"][W8A16],
-        "moe_launches": moe["launches"][W8A16], "max_abs_err": err_w8,
+        "moe_launches": moe["launches"][W8A16],
+        "checkpoint_launches": ckpt_launches(W8A16), "max_abs_err": err_w8,
         **w8_timing})
     records.append({
         "name": "w8a16_dequant", "route": "cuda", "source": source,
@@ -4900,6 +6022,7 @@ def main() -> int:
                     "torch.matmul route it takes over",
         "launches": first_http["launches"][LARGE_M],
         "moe_launches": moe["launches"][LARGE_M],
+        "checkpoint_launches": ckpt_launches(LARGE_M),
         **large_m, "max_abs_err": max(large_m["max_abs_err"],
                                       moe["large_m"]["max_abs_err"]),
         "mixtral_chunk": moe["large_m"]})

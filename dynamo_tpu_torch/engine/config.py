@@ -7,10 +7,15 @@ the dense Llama geometries and the MoE ones (`tiny-moe`, `mixtral-8x7b`);
 the engine knobs keep paging,
 batching, the decode window, mixed steps and int8 KV pages (`kv_quant`).
 `quant` keeps the JAX meaning (weight-only int8, ops/quant.py).
-The port always runs its decode through the hand-written kernel, so there
-is no `decode_kernel` knob; configs whose decode the kernel cannot serve
-(attention soft-caps, sliding windows, query-scale overrides) are rejected
-with NotImplementedError by `check_supported`.
+The architecture knobs the checkpoint loaders set (models/loader.py,
+llm/gguf.py) keep the JAX meanings and defaults: q/k/v bias (Qwen2), the
+Gemma deltas (embedding scale, (1 + w) norms, tanh-GELU) and the Gemma-2
+post norms and final soft-cap. The port always runs its decode through the
+hand-written kernel, so there is no `decode_kernel` knob; configs whose
+decode the kernel cannot serve (attention soft-caps, sliding windows,
+query-scale overrides; on a CUDA device also dtypes other than f32 and
+bf16, and head dims and GQA groups outside the kernel's) are rejected by
+`check_supported`.
 """
 from __future__ import annotations
 
@@ -32,6 +37,15 @@ class ModelConfig:
     head_dim: int = 32
     rope_theta: float = 500000.0
     rms_norm_eps: float = 1e-5
+    attn_bias: bool = False      # q/k/v projection bias (Qwen2-style)
+    # Gemma-family architecture deltas (HF GemmaForCausalLM):
+    embed_scale: float = 0.0     # 0 = off; Gemma multiplies embeddings by
+    #                              sqrt(hidden_size) before the first layer
+    norm_plus_one: bool = False  # RMSNorm weight applied as (1 + w), in f32
+    mlp_act: str = "silu"        # "silu" | "gelu_tanh" (Gemma GeGLU)
+    # Gemma-2 deltas:
+    post_norms: bool = False     # extra post-attention / post-ffw RMSNorms
+    final_softcap: float = 0.0   # tanh soft-cap on lm-head logits (30.0)
     # Gemma-2 attention knobs the decode kernel has no hooks for; kept so a
     # config that sets them is refused by name instead of served wrongly
     attn_softcap: float = 0.0
@@ -67,10 +81,17 @@ class ModelConfig:
 
 
 MOE_IMPLS = ("dispatch", "dense")
+MLP_ACTS = ("silu", "gelu_tanh")
+# the model dtypes the port's CUDA kernels take
+CUDA_DTYPES = ("float32", "bfloat16")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for configs the port cannot serve."""
+def check_supported(cfg: ModelConfig, device=None) -> None:
+    """Raise NotImplementedError for configs the port cannot serve, and
+    ValueError for inconsistent ones. With a CUDA `device` (the engine's)
+    a model dtype the kernels cannot take, or a head dim or GQA group the
+    ragged decode kernel cannot take, is refused too; on the CPU the
+    kernels' plain versions serve any."""
     if cfg.attn_softcap or cfg.sliding_window or cfg.query_scale:
         raise NotImplementedError(
             f"model {cfg.name!r} uses attention soft-caps / sliding windows /"
@@ -79,9 +100,32 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r} (supported: "
                          f"{', '.join(MOE_IMPLS)})")
+    if cfg.mlp_act not in MLP_ACTS:
+        raise ValueError(f"unknown mlp_act {cfg.mlp_act!r} (supported: "
+                         f"{', '.join(MLP_ACTS)})")
+    if cfg.is_moe and cfg.mlp_act != "silu" and cfg.moe_impl == "dispatch":
+        # the JAX dispatch gates its experts with SiLU whatever mlp_act is
+        raise NotImplementedError(
+            f"model {cfg.name!r}: the MoE dispatch gates with SiLU only, "
+            f"not {cfg.mlp_act!r}")
     if cfg.num_heads % cfg.num_kv_heads:
         raise ValueError(f"num_heads {cfg.num_heads} is not a multiple of "
                          f"num_kv_heads {cfg.num_kv_heads}")
+    if device is None or not str(device).startswith("cuda"):
+        return
+    if cfg.dtype not in CUDA_DTYPES:
+        raise NotImplementedError(
+            f"model {cfg.name!r} in dtype {cfg.dtype} cannot run on CUDA: "
+            f"the port's kernels take {', '.join(CUDA_DTYPES)}")
+    from dynamo_tpu_torch.ops.paged_attention import (
+        _G_MAX, _KERNEL_HEAD_DIMS,
+    )
+    if cfg.head_dim not in _KERNEL_HEAD_DIMS or cfg.q_per_kv > _G_MAX:
+        raise NotImplementedError(
+            f"model {cfg.name!r} (head_dim {cfg.head_dim}, GQA group "
+            f"{cfg.q_per_kv}) cannot decode on CUDA: the ragged decode "
+            f"kernel takes head dims {_KERNEL_HEAD_DIMS} and GQA groups of "
+            f"at most {_G_MAX}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -150,7 +150,7 @@ class NativeEngine:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        check_supported(model_cfg)
+        check_supported(model_cfg, self.device)
         # KV-cache quantization is a deployment knob: a non-empty
         # EngineConfig.kv_quant overrides the model config's
         if engine_cfg.kv_quant:

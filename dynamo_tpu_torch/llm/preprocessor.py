@@ -1,10 +1,14 @@
 """OpenAI preprocessor: chat-template rendering + tokenization + defaults.
 
-Copied from dynamo_tpu/llm/preprocessor.py for the slice. Registry cards
-carry no chat template, so the JAX package renders its default template
-with jinja2; the port renders that same template directly in Python (same
-text, so the same token ids) and refuses cards that bring their own
-template. Image content parts come with the vision slice.
+Copied from dynamo_tpu/llm/preprocessor.py. A card that brings a chat
+template (a checkpoint's tokenizer_config.json or GGUF metadata) is
+rendered with jinja2 exactly as the JAX package renders it:
+`Environment(keep_trailing_newline=True)`, the `raise_exception` global,
+`render(messages=..., add_generation_prompt=True, bos_token="",
+eos_token="", tools=request.tools)`. jinja2 is imported only there (it is
+a declared requirement of the torch wheel). A card without a template (a
+registry model) renders the JAX default template directly in Python, with
+the same text. Image content parts come with the vision slice.
 """
 from __future__ import annotations
 
@@ -33,22 +37,40 @@ def render_default_template(messages) -> str:
                    for m in messages) + "<|assistant|>"
 
 
+def _raise_exception(message):
+    raise ValueError(message)
+
+
+def compile_template(source: str):
+    """A chat template compiled as the JAX preprocessor compiles it."""
+    import jinja2
+    env = jinja2.Environment(keep_trailing_newline=True)
+    env.globals["raise_exception"] = _raise_exception
+    return env.from_string(source)
+
+
 class OpenAIPreprocessor:
     def __init__(self, card: ModelDeploymentCard,
                  tokenizer: Optional[BaseTokenizer] = None):
         self.card = card
         self.tokenizer = tokenizer or card.load_tokenizer()
+        self._template = None
 
     def _render_chat(self, request: ChatCompletionRequest) -> str:
-        if self.card.chat_template:
-            raise NotImplementedError(
-                f"card {self.card.name!r} brings its own chat template; the "
-                "port renders only the default template")
         for m in request.messages:
             if not (m.content is None or isinstance(m.content, str)):
                 raise ValueError("content parts (images) are not supported "
                                  "by this model")
-        return render_default_template(request.messages)
+        if not self.card.chat_template:
+            return render_default_template(request.messages)
+        if self._template is None:
+            self._template = compile_template(self.card.chat_template)
+        msgs = [{"role": m.role, "content": m.content or "",
+                 **({"name": m.name} if m.name else {})}
+                for m in request.messages]
+        return self._template.render(
+            messages=msgs, add_generation_prompt=True, bos_token="",
+            eos_token="", tools=request.tools)
 
     def preprocess_chat(
         self, request: ChatCompletionRequest,

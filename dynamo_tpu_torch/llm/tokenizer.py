@@ -1,9 +1,10 @@
 """Tokenizer wrappers + incremental detokenization.
 
-Copied from dynamo_tpu/llm/tokenizer.py for the slice: the deterministic
-byte-level tokenizer (registry models have no tokenizer files) and the
-DecodeStream incremental decoder. The HF `tokenizers` wrapper comes with
-checkpoint loading.
+Copied from dynamo_tpu/llm/tokenizer.py: `HFTokenizer` for a checkpoint's
+tokenizer.json, the deterministic byte-level tokenizer (registry models
+have no tokenizer files) and the DecodeStream incremental decoder. Where
+the JAX HFTokenizer wraps the HF `tokenizers` package, the port's runs its
+own BPE (llm/bpe.py) with the same encode / decode semantics.
 """
 from __future__ import annotations
 
@@ -24,6 +25,28 @@ class BaseTokenizer(abc.ABC):
     @property
     @abc.abstractmethod
     def vocab_size(self) -> int: ...
+
+
+class HFTokenizer(BaseTokenizer):
+    """A tokenizer.json (llm/bpe.py): encode without added specials,
+    decode keeping them, as the JAX wrapper calls `tokenizers`."""
+
+    def __init__(self, path: str, eos_token_ids: Sequence[int] = (),
+                 bos_token_id: Optional[int] = None):
+        from dynamo_tpu_torch.llm.bpe import BPETokenizer
+        self._tok = BPETokenizer.from_file(path)
+        self.eos_token_ids = list(eos_token_ids)
+        self.bos_token_id = bos_token_id
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text)
+
+    def decode(self, ids: Sequence[int]) -> str:
+        return self._tok.decode(ids)
+
+    @property
+    def vocab_size(self) -> int:
+        return self._tok.vocab_size()
 
 
 class ByteTokenizer(BaseTokenizer):

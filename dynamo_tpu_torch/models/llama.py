@@ -13,6 +13,15 @@ tree's layout, and on the card a decode step's products run the grouped
 W8A16 kernel, one launch a group. Norms, RoPE and the gate activation run
 in f32 as there.
 
+The architecture knobs of checkpoint families follow the JAX lines dtype
+for dtype: q/k/v bias added after the projections (`attn_bias`, leaves
+wq_b / wk_b / wv_b [L, H*hd] / [L, Hkv*hd]), the gate activation SiLU or
+tanh-GELU (`mlp_act`), the embedding scale rounded to the activations'
+dtype (`embed_scale`), (1 + w) norms in f32 (`norm_plus_one`), the Gemma-2
+post-attention / post-MLP norms (`post_norms`, leaves post_attn_norm /
+post_mlp_norm [L, D]) and the tanh soft-cap on the f32 logits
+(`final_softcap`).
+
 MoE models (`cfg.num_experts > 0`, Mixtral-style) carry a router [L, D, E]
 in the model dtype and stacked expert weights w_gate / w_up [L, E, D, F],
 w_down [L, E, F, D] (int8 with scales [L, E, 1, F] / [L, E, 1, D] under
@@ -40,6 +49,8 @@ tensors the kernel's wrapper runs its plain version.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -68,6 +79,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 _EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+_BIAS_KEYS = (("wq_b", "wq"), ("wk_b", "wk"), ("wv_b", "wv"))
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -95,6 +107,10 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     shapes = {"attn_norm": (d,), "wq": (d, h * hd), "wk": (d, hkv * hd),
               "wv": (d, hkv * hd), "wo": (h * hd, d), "mlp_norm": (d,),
               "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    if cfg.post_norms:
+        shapes.update(post_attn_norm=(d,), post_mlp_norm=(d,))
+    if cfg.attn_bias:
+        shapes.update({key: (shapes[w][1],) for key, w in _BIAS_KEYS})
     if cfg.is_moe:
         e = cfg.num_experts
         shapes["router"] = (d, e)
@@ -114,7 +130,8 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
     tree equals `quantize_params` of the unquantized one. An MoE model's
     expert stacks are drawn (and quantized) one (layer, expert) slice at a
     time into their stack, in both modes, so no model-dtype stack of them
-    ever exists beside the int8 one (Mixtral's is 30.1 GB in bf16)."""
+    ever exists beside the int8 one (Mixtral's is 30.1 GB in bf16). Norm
+    weights are ones and q/k/v biases zeros, as in JAX."""
     check_supported(cfg)
     quant = validate_quant(cfg.quant)
     dt = torch_dtype(cfg)
@@ -149,7 +166,8 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
     layers = {}
     for key, shape in _layer_shapes(cfg).items():
         if len(shape) == 1:
-            layers[key] = torch.ones((n,) + shape, dtype=dt, device=device)
+            fill = torch.zeros if key.endswith("_b") else torch.ones
+            layers[key] = fill((n,) + shape, dtype=dt, device=device)
         elif len(shape) == 3:
             layers[key] = expert_stack(shape)
             continue
@@ -239,10 +257,45 @@ def init_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 # -- forward ------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+             plus_one: bool = False) -> torch.Tensor:
     xf = x.float()
     scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    if plus_one:
+        # Gemma stores the weight as a delta from 1 and applies it in f32
+        # before the downcast (HF GemmaRMSNorm)
+        return (xf * scale * (1.0 + w.float())).to(x.dtype)
     return (xf * scale).to(x.dtype) * w
+
+
+def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig):
+    return rms_norm(x, w, cfg.rms_norm_eps, cfg.norm_plus_one)
+
+
+def mlp_activation(gate: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """GLU gate activation in f32: SiLU (llama) or tanh-GELU (Gemma)."""
+    gf = gate.float()
+    if cfg.mlp_act == "gelu_tanh":
+        # jax.nn.gelu(approximate=True), term for term
+        a = gf * (0.5 * (1.0 + torch.tanh(
+            math.sqrt(2.0 / math.pi) * (gf + 0.044715 * gf ** 3))))
+    else:
+        a = F.silu(gf)
+    return a.to(gate.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype` (on the host), as a Python float."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def scale_embeds(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gemma multiplies embedding outputs by sqrt(hidden), the scale first
+    rounded to x's dtype as JAX does (bf16 sqrt(d) is not f32 sqrt(d))."""
+    if cfg.embed_scale:
+        return x * _rounded(cfg.embed_scale, x.dtype)
+    return x
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -268,10 +321,11 @@ def _layer_w(lp: Params, key: str, l: int):
     return w[l]
 
 
-def _dense_mlp(x: torch.Tensor, lp: Params, l: int) -> torch.Tensor:
+def _dense_mlp(x: torch.Tensor, lp: Params, l: int,
+               cfg: ModelConfig) -> torch.Tensor:
     gate, up = linear_group(x, [_layer_w(lp, "w_gate", l),
                                 _layer_w(lp, "w_up", l)])
-    act = F.silu(gate.float()).to(gate.dtype) * up
+    act = mlp_activation(gate, cfg) * up
     return linear(act, _layer_w(lp, "w_down", l))
 
 
@@ -291,7 +345,7 @@ def _moe_mlp(x: torch.Tensor, lp: Params, l: int,
     every = torch.full((e,), b * t, dtype=torch.int32, device=x.device)
     gate = grouped_linear(xe, _layer_w(lp, "w_gate", l), every)
     up = grouped_linear(xe, _layer_w(lp, "w_up", l), every)
-    act = F.silu(gate.float()).to(x.dtype) * up
+    act = mlp_activation(gate, cfg) * up
     down = grouped_linear(act, _layer_w(lp, "w_down", l), every)
     out = (down.float().view(e, b, t, d)
            * combine.permute(2, 0, 1)[..., None]).sum(0)
@@ -302,7 +356,7 @@ def _mlp(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig, valid):
     """Layer l's MLP: (output, (dropped, routed) or None). The counts come
     from the MoE dispatch only."""
     if not cfg.is_moe:
-        return _dense_mlp(x, lp, l), None
+        return _dense_mlp(x, lp, l, cfg), None
     if cfg.moe_impl == "dense":
         return _moe_mlp(x, lp, l, cfg), None
     layer = {key: _layer_w(lp, key, l) for key in ("router",) + _EXPERT_KEYS}
@@ -316,9 +370,12 @@ def _qkv(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig,
     q [B, T, H, hd], k/v [B, T, Hkv, hd]."""
     b, t, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    xn = rms_norm(x, lp["attn_norm"][l], cfg.rms_norm_eps)
+    xn = _norm(x, lp["attn_norm"][l], cfg)
     q, k, v = linear_group(xn, [_layer_w(lp, key, l)
                                 for key in ("wq", "wk", "wv")])
+    if cfg.attn_bias:
+        q, k, v = (y + lp[key][l] for y, (key, _) in zip((q, k, v),
+                                                          _BIAS_KEYS))
     q = q.reshape(b, t, h, hd)
     k = k.reshape(b, t, hkv, hd)
     v = v.reshape(b, t, hkv, hd)
@@ -330,9 +387,14 @@ def _block_tail(x, attn, lp: Params, l: int, cfg: ModelConfig, valid=None):
     """Output projection + residual + MLP + residual for layer l; returns
     (x, the MoE dispatch's (dropped, routed) or None)."""
     b, t = x.shape[:2]
-    x = x + linear(attn.reshape(b, t, -1), _layer_w(lp, "wo", l))
-    xn = rms_norm(x, lp["mlp_norm"][l], cfg.rms_norm_eps)
+    attn_out = linear(attn.reshape(b, t, -1), _layer_w(lp, "wo", l))
+    if cfg.post_norms:
+        attn_out = _norm(attn_out, lp["post_attn_norm"][l], cfg)
+    x = x + attn_out
+    xn = _norm(x, lp["mlp_norm"][l], cfg)
     mlp, drops = _mlp(xn, lp, l, cfg, valid)
+    if cfg.post_norms:
+        mlp = _norm(mlp, lp["post_mlp_norm"][l], cfg)
     return x + mlp, drops
 
 
@@ -346,10 +408,13 @@ def _moe_aux(drops: list) -> dict:
 
 
 def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor):
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    x = _norm(x, params["final_norm"], cfg)
     head = (params["embed"].T if cfg.tie_word_embeddings
             else params["lm_head"])
-    return linear(x, head).float()
+    logits = linear(x, head).float()
+    if cfg.final_softcap:
+        return torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits
 
 
 def decode_forward(
@@ -375,7 +440,7 @@ def decode_forward(
     lp = params["layers"]
     # ids validated at admission (engine._validate_prompt); decode feeds
     # only sampled ids  # dynalint: disable-next-line=R1
-    x = params["embed"][tokens.long()][:, None]          # [B, 1, D]
+    x = scale_embeds(params["embed"][tokens.long()], cfg)[:, None]
     pos = positions[:, None]
     # int8 caches hand the kernel the whole scale stacks; it folds them
     # into its scores and probabilities
@@ -419,7 +484,7 @@ def forward(
     b, tq = tokens.shape
     lp = params["layers"]
     # admission validated the ids  # dynalint: disable-next-line=R1
-    x = params["embed"][tokens.long()]                   # [B, Tq, D]
+    x = scale_embeds(params["embed"][tokens.long()], cfg)  # [B, Tq, D]
     quant = is_quantized_cache(cache)
     # real (non-padding) positions: padding slots carry write_idx < 0
     token_valid = meta.write_idx >= 0

@@ -152,24 +152,39 @@ def is_quantized(w: Any) -> bool:
     return isinstance(w, dict) and "q" in w and "s" in w
 
 
+_QUANT_BLOCK = 1 << 26   # elements of one quantize_int8 block (256 MiB f32)
+
+
 def quantize_int8(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[..., d_in, d_out] weight -> {"q": int8 same shape, "s": f32
     [..., 1, d_out]}, in f32 math on w's device. A stacked weight
     ([L, d_in, d_out]) is quantized one leading slice at a time, so the f32
     temporaries are one layer's, not the stack's (llama3-8b's w_gate stack
     is 7.5 GB in f32). Each slice's values are those of the whole-tensor
-    formula: the scale reduces over axis -2 only."""
-    if w.dim() > 2:
+    formula: the scale reduces over axis -2 only. For the same reason a
+    large matrix (lm_head: 4096 x 128256) is quantized in blocks of
+    columns, so its f32 temporaries are a block's."""
+    if w.dim() > 2 or w.numel() > _QUANT_BLOCK:
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
         s = torch.empty(w.shape[:-2] + (1, w.shape[-1]), dtype=torch.float32,
                         device=w.device)
-        for i in range(w.shape[0]):
-            part = quantize_int8(w[i])
-            q[i].copy_(part["q"])
-            s[i].copy_(part["s"])
+        if w.dim() > 2:
+            parts = [(i, w[i]) for i in range(w.shape[0])]
+        else:
+            cols = max(_QUANT_BLOCK // w.shape[0], 1)
+            parts = [((slice(None), slice(a, a + cols)), w[:, a:a + cols])
+                     for a in range(0, w.shape[1], cols)]
+        for at, part in parts:
+            got = quantize_int8(part)
+            q[at].copy_(got["q"])
+            s[at].copy_(got["s"])
         return {"q": q, "s": s}
     wf = w.float()
-    s = torch.clamp(wf.abs().amax(dim=-2, keepdim=True) / 127.0, min=1e-12)
+    # divided by a tensor on w's device, not by a Python scalar: CUDA takes
+    # a CPU scalar divisor as a multiply by its reciprocal, one bit off the
+    # quotient the CPU and the JAX package compute
+    div = torch.tensor(127.0, device=w.device)
+    s = torch.clamp(wf.abs().amax(dim=-2, keepdim=True) / div, min=1e-12)
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
 

@@ -6,8 +6,10 @@ an engine and runs it.
 Inputs:
   in=http[:PORT]     OpenAI HTTP frontend (default port 8080; 0 picks a free
                      port); prints `READY http=:<port> model=<name>` and
-                     serves until interrupted; honours the DYN_* admission,
-                     deadline and QoS knobs of frontend/serve.py
+                     serves until interrupted, then an `EXIT` line with the
+                     engine's $STATS (metrics, kernel launches); honours
+                     the DYN_* admission, deadline and QoS knobs of
+                     frontend/serve.py
   in=text            interactive chat REPL
   in=stdin           one prompt from stdin -> streamed completion -> exit
   in=batch:FILE      JSONL prompts ({"prompt": ...}) -> JSONL completions
@@ -22,14 +24,23 @@ Inputs:
   in=none            build the engine and exit
 
 Outputs (engines):
-  out=native         the in-process PyTorch engine (random-init weights, or
-                     `--weights FILE`, whose tensors set the model dtype)
+  out=native         the in-process PyTorch engine (the checkpoint's
+                     weights, or random weights from seed 0 for a registry
+                     model)
   out=echo           deterministic token-echo engine (no hardware)
 
-Model: a registry name ("tiny", "tiny-moe", "llama3-1b", "llama3-8b",
-"llama3-70b", "mixtral-8x7b"). The engine runs on CUDA unless `--device
-cpu` is given; `--quant int8` stores the seven projections and the head as
-int8 with per-output-channel scales (ops/quant.py; on the card every
+Model: an HF-style checkpoint directory (config.json, *.safetensors,
+tokenizer.json [, tokenizer_config.json with a chat template]), a `.gguf`
+file, or a registry name ("tiny", "tiny-moe", "llama3-1b", "llama3-8b",
+"llama3-70b", "mixtral-8x7b"). A checkpoint's config sets the
+architecture, its tokenizer and chat template the card's; its weights load
+onto the device the engine serves from (models/loader.py, llm/gguf.py),
+in bfloat16 as the JAX package serves them (config.json's dtype is not
+read) unless `--dtype float32` is given. The engine runs on CUDA
+unless `--device cpu` is given; `--quant int8` stores the seven
+projections and the head as
+int8 with per-output-channel scales (ops/quant.py; each layer slice of a
+checkpoint is quantized on the device as it loads; on the card every
 decode projection runs the W8A16 kernel, and an MoE model's expert
 products the grouped W8A16 kernel), which is how mixtral-8x7b fits one
 H100; `--kv-quant int8` stores the KV cache as int8 pages with per-row
@@ -45,7 +56,9 @@ import asyncio
 import dataclasses
 import json
 import logging
+import os
 import sys
+import time
 import uuid
 
 from dynamo_tpu_torch.engine.config import EngineConfig
@@ -60,8 +73,39 @@ log = logging.getLogger("dynamo_tpu_torch.run")
 
 
 def build_card(model_spec: str) -> ModelDeploymentCard:
+    if os.path.isdir(model_spec):
+        return ModelDeploymentCard.from_hf_dir(model_spec)
+    if model_spec.endswith(".gguf") and os.path.isfile(model_spec):
+        return ModelDeploymentCard.from_gguf(model_spec)
     return ModelDeploymentCard(name=model_spec, arch=model_spec,
                                tokenizer_kind="byte")
+
+
+def load_weights(card: ModelDeploymentCard, model_cfg, device):
+    """The checkpoint's parameters on `device` (int8 leaves quantized as
+    they load when model_cfg.quant says so), or None for a registry
+    model."""
+    from dynamo_tpu_torch.models.loader import (
+        checkpoint_kind, load_params_from_hf,
+    )
+    kind = checkpoint_kind(card.model_path)
+    if not kind:
+        return None
+    log.info("loading weights from %s", card.model_path)
+    t0 = time.perf_counter()
+    if kind == "gguf":
+        from dynamo_tpu_torch.llm.gguf import GGUFFile, load_params_from_gguf
+        g = GGUFFile(card.model_path)
+        try:
+            params = load_params_from_gguf(g, model_cfg, device=device)
+        finally:
+            g.close()
+    else:
+        params = load_params_from_hf(card.model_path, model_cfg,
+                                     device=device)
+    log.info("loaded %s in %.2f s", card.model_path,
+             time.perf_counter() - t0)
+    return params
 
 
 async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
@@ -71,16 +115,11 @@ async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
         raise SystemExit(f"unknown out={out_spec!r}")
     from dynamo_tpu_torch.engine.engine import NativeEngine, resolve_device
     model_cfg = card.model_config()
-    if args.quant:
-        model_cfg = dataclasses.replace(model_cfg, quant=args.quant)
-    params = None
-    if args.weights:
-        import torch
-        params = torch.load(args.weights, map_location=resolve_device(
-            args.device), weights_only=True)
-        # the final norm is stored in the model dtype in every tree
-        dtype = str(params["final_norm"].dtype).removeprefix("torch.")
-        model_cfg = dataclasses.replace(model_cfg, dtype=dtype)
+    if args.quant or args.dtype:
+        model_cfg = dataclasses.replace(model_cfg,
+                                        quant=args.quant or model_cfg.quant,
+                                        dtype=args.dtype or model_cfg.dtype)
+    params = load_weights(card, model_cfg, resolve_device(args.device))
     eng_cfg = EngineConfig(
         page_size=card.kv_page_size, num_pages=args.num_pages,
         max_slots=args.max_slots, max_prefill_chunk=args.max_prefill_chunk,
@@ -201,14 +240,12 @@ async def amain(argv=None) -> None:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("io", nargs="+",
-                   help="in=... out=... [model] (order-free key=value)")
+                   help="in=... out=... [model: checkpoint directory, "
+                        ".gguf file or registry name] (order-free)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    p.add_argument("--weights", default="",
-                   help="the engine's parameters, a file torch.save wrote "
-                        "(the tree models/llama.py builds; its tensors set "
-                        "the model dtype); default: random weights from "
-                        "seed 0. A stop-gap until the checkpoint loaders "
-                        "(ROADMAP A6) are ported")
+    p.add_argument("--dtype", default="", choices=("", "bfloat16", "float32"),
+                   help="the model dtype (default: the model config's, "
+                        "bfloat16 for every checkpoint, as in JAX)")
     p.add_argument("--max-tokens", type=int, default=256)
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--max-slots", type=int, default=8)
@@ -266,6 +303,12 @@ async def amain(argv=None) -> None:
             raise SystemExit(f"unknown in={in_spec!r}")
     finally:
         if isinstance(engine, NativeEngineWorker):
+            if in_spec.startswith("http"):
+                # what the served run did: the engine's metrics and the
+                # kernel launch counts (the $STATS an endpoint worker gives)
+                print(f"EXIT logits_nonfinite_steps="
+                      f"{engine.engine.logits_nonfinite_steps()} stats="
+                      f"{json.dumps(engine.stats_handler())}", flush=True)
             await engine.stop()
 
 

@@ -936,20 +936,36 @@ class _Proc:
         self._t.join(timeout=10)
 
 
-def test_worker_process_sigkilled_mid_stream(jax_params, tmp_path):
-    # run.py serves tiny at the card's geometry: pages of 64, 512 of them,
-    # 8 slots, chunks of 512, 2048 tokens of context; the oracle runs the
-    # JAX engine at that geometry on the same weights
-    weights = tmp_path / "tiny_f32.pt"
-    tcfg = dataclasses.replace(TCFG, max_model_len=2048)
-    torch.save(params_from_jax(jax_params, tcfg, "cpu"), weights)
+def _tiny_hf_dir(path):
+    """A float32 checkpoint of `tiny`'s geometry, written by transformers:
+    the port's workers (run.py --dtype float32) and the JAX oracle
+    (load_model_dir(dtype="float32")) load the same files."""
+    from transformers import LlamaConfig, LlamaForCausalLM
+    torch.manual_seed(0)
+    LlamaForCausalLM(LlamaConfig(
+        vocab_size=256, hidden_size=128, intermediate_size=256,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=32, rope_theta=500000.0, rms_norm_eps=1e-5,
+        max_position_embeddings=2048, tie_word_embeddings=False,
+        # about the JAX init's 1 / sqrt(fan_in) at d = 128
+        initializer_range=0.1, dtype="float32")).save_pretrained(
+            path, safe_serialization=True)
+    return str(path)
+
+
+def test_worker_process_sigkilled_mid_stream(tmp_path):
+    # run.py serves the checkpoint at the card's geometry: pages of 64, 512
+    # of them, 8 slots, chunks of 512, 2048 tokens of context; the oracle
+    # runs the JAX engine at that geometry on the same files
+    from dynamo_tpu.models.loader import load_model_dir
+    ckpt = _tiny_hf_dir(tmp_path / "tiny_f32")
+    jcfg, jparams = load_model_dir(ckpt, dtype="float32")
     max_tokens = 160
     oracle = JNativeEngine(
-        JModelConfig(dtype="float32", max_model_len=2048,
-                     decode_kernel="off"),
+        dataclasses.replace(jcfg, decode_kernel="off"),
         JEngineConfig(page_size=64, num_pages=512, max_slots=8,
                       max_prefill_chunk=512, max_model_len=2048),
-        seed=0).generate(PROMPT, JSamplingParams(
+        params=jparams).generate(PROMPT, JSamplingParams(
             max_tokens=max_tokens, temperature=0.0, ignore_eos=True), "o")
     procs = []
     try:
@@ -960,9 +976,8 @@ def test_worker_process_sigkilled_mid_stream(jax_params, tmp_path):
         workers = {}
         for _ in range(2):
             w = _Proc(["dynamo_tpu_torch.run", "in=endpoint:ns.llm.generate",
-                       "out=native", "tiny", "--device", "cpu",
-                       "--weights", str(weights),
-                       "--control-port", str(cp)])
+                       "out=native", ckpt, "--device", "cpu",
+                       "--dtype", "float32", "--control-port", str(cp)])
             procs.append(w)
             line = w.wait_line("READY endpoint=", 240)
             workers[line.split(" worker=", 1)[1].split()[0]] = w
