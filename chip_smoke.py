@@ -19,11 +19,17 @@ Phases (any failed check exits non-zero; nothing is caught):
       around the split boundaries the host picks at Pb 12, one row of 1000
       and one of Pb * ps = 4096 tokens, 8 rows up to max_model_len (2048)
       at Pb 32, GQA groups of 1, 4 and 8, and an all-empty batch (m = -1e30
-      and l = ps exactly on every empty row); recycled page tails filled
-      with NaN. Both compute the f32 state, so only summation order
-      differs: rtol = atol = 1e-4 for f32 caches and 2e-3 for bf16 caches.
-      The prefix fold and the inclusive division are compared in f32, before
-      the one cast to q's dtype that both sides share (fold_f32);
+      and l = ps exactly on every empty row); since PR 15 also 8 rows at
+      the heads of Gemma-7B (16 / 16 x 256), Phi-3-mini (32 / 32 x 96),
+      Gemma-2-9B (16 / 8 x 256) and GQA groups of 12 and 16 (hd 128);
+      recycled page tails filled with NaN. Both compute the f32 state, so
+      only summation order differs: rtol = atol = 1e-4 for f32 caches and
+      2e-3 for bf16 caches. The prefix fold and the inclusive division are
+      compared in f32, before the one cast to q's dtype that both sides
+      share (fold_f32). At those five geometries the kernel is then timed
+      (CUDA events over a replayed graph) at 8 rows of 400 tokens with bf16
+      and int8 pages beside its bound (K + V bytes over 3.35 TB/s), its
+      plain version and the library yardstick (gather + SDPA);
    b. its int8 mode (int8 pages + per-row f32 scales) on the same cases,
       with an f32 q (rtol = atol = 1e-4) and a bf16 q (2e-3), tails holding
       garbage int8 values and NaN / inf scales;
@@ -404,8 +410,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    a. Every family, small (`small_family_config`: 2 layers, d 256, hd 64,
    f32 weights whose norms and biases are redrawn from the seed): llama
    untied and tied, qwen2 (q/k/v bias), phi3 (fused qkv and gate_up, hd
-   32), gemma (GeGLU, embed scale, (1 + w) norms), mixtral (4 experts, top
-   2) and a llama GGUF mixing F32, F16, Q8_0, Q4_K and Q6_K. Each loads on
+   96, d 384), gemma (GeGLU, embed scale, (1 + w) norms, hd 256), mixtral
+   (4 experts, top 2) and a llama GGUF mixing F32, F16, Q8_0, Q4_K and
+   Q6_K; on the card each run launches the ragged kernel layers x decode
+   steps (+ warm-ups) times. Each loads on
    the CPU and on the card (the HF directories' configs equal the written
    ones and every leaf is bit-equal to it; the GGUF trees equal across the
    devices) and is held to phase 3's rule (`device_reference`: the same
@@ -443,12 +451,59 @@ Phases (any failed check exits non-zero; nothing is caught):
    (llm_ttft_seconds), the tokenizer's encode ms per 1k prompt tokens,
    the int8 load's seconds and peak.
 
+16. The gather decode windows and Gemma-2 (A5), under build/checkpoints
+   (removed at the end).
+   a. gemma-2-9b at full width and depth (google/gemma-2-9b's published
+   config.json: 42 layers, d 3584, 16 / 8 heads of 256, vocab 256000,
+   tied, GeGLU, sliding window 4096 on alternating layers, soft-caps 50 /
+   30, query_pre_attn_scalar 256; random bf16 weights from seed 0),
+   written by this script as a 4-shard HF directory with a Gemma-form
+   tokenizer.json (256000 ids: a Replace normalizer, BPE with byte
+   fallback) and Gemma's chat template. Traffic: 8 chats of 4.6k-7.4k
+   prompt tokens, greedy, 64 tokens, top-8 logprobs, 4 SSE and 4 unary,
+   one at a time (8 slots, 1024 pages), so that each is scheduled alike
+   in every run. The reference gate (run last), in f32 at full width and
+   depth (one slot, 125 pages; random f32 weights from seed 0): the
+   gather window against the same engine with `pregather = False` and
+   eager windows, the per-token deferred gather with no window buffer and
+   no graph, on the two longest chats: equal, or first differing at a
+   near tie (in
+   bf16 their summation-order difference, carried through 42 random
+   layers, drifts past any tie rule: PERF.md §6). Then the bf16 engine on
+   run.py's EngineConfig serves the 8 chats (0 ragged launches), gives the
+   untraced ms per decode step with the 8 prompts decoding together, the
+   base gather's ms a window and the peak memory, and the knobs'
+   sensitivity: one decode step past the window of the longest chat, its
+   logits with the windows removed, and with the attention soft-cap
+   removed, each differ from the served ones by more than SAME_CONTEXT.
+   Then `run.py in=http:0 out=native <dir> --num-pages 1024` serves the 8
+   chats three rounds (cold, a warm-up on the cached prefixes, the
+   measured round): every stream 64 tokens or a stop, no non-finite
+   logit, the cold round held to the bf16 engine's streams (equal, or
+   first differing at a near tie: hold_to_reference), the measured round
+   equal to the warm-up round (their prefix hits prefill only each
+   prompt's tail, in other bf16 roundings than the cold chunks: their
+   first differences from the engine are reported), the resolved path
+   gather, 0 ragged launches, one graph replay a window, no graph
+   captured in the measured round. Printed: write / load / READY s, TTFT
+   p50 / p90 cold and warm, ms per decode step, the base gather's ms,
+   peak memory.
+   b. The two windows at llama3-8b (random weights, seed 0): decode_kernel
+   "off" (the gather window) against "auto" (the kernel window), bf16 and
+   int8 pages, 8 slots, the 4 longest of phase 4's chats one at a time,
+   greedy with top-8 logprobs: on bf16 pages token-identical or first
+   differing at a near tie; on int8 pages, where the two windows compute
+   different functions by design, the first differences are reported;
+   the kernel's launches only on "auto"; each window's untraced ms per
+   decode step with the 8 prompts decoding together.
+
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
 worker process of 11 and 12, each engine's turns in 13, each run of 14,
-and each card run and run.py process of 15) runs with every kernel's
-launch count set to 0 just before it and read just after. The third line
-from the end of the output is one JSON object with the kernel records, the
-second from the end the nvidia-smi reading, and the last line
+each card run and run.py process of 15, and each engine of 16) runs with
+every kernel's launch count set to 0 just before it and read just after.
+The third line from the end of the output is one JSON object with the
+kernel records, the second from the end the nvidia-smi reading, and the
+last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -470,8 +525,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def check(cond: bool, msg: str) -> None:
+    """Fail the run: the message goes to standard output and to standard
+    error, so a reader of either end sees which gate failed."""
     if not cond:
         print(f"FAIL: {msg}", flush=True)
+        print(f"FAIL: {msg}", file=sys.stderr, flush=True)
         sys.exit(1)
 
 
@@ -591,7 +649,74 @@ def ragged_cases() -> list:
         ("GQA 8", 128, 4, 64, 8, 8, None),
         ("all empty", 128, 8, 32, 8, 12, [0] * 8),
     ]
+    cases += [(f"{name} heads", hd, 8, h, hkv, 8, None)
+              for name, h, hkv, hd in GEOMETRIES]
     return cases
+
+
+# the ragged kernel's geometries past llama's (hd 96 and 256, GQA groups
+# over 8): (name, q heads, kv heads, head dim)
+GEOMETRIES = (("gemma-7b", 16, 16, 256), ("phi3-mini", 32, 32, 96),
+              ("gemma-2-9b", 16, 8, 256), ("GQA 12", 96, 8, 128),
+              ("GQA 16", 128, 8, 128))
+
+
+def phase_kernel_geometries() -> dict:
+    """Phase 2a's timing of the kernel at GEOMETRIES: 8 rows of 400 tokens
+    (Pb 7 at ps 64), bf16 q with bf16 and with int8 pages, each launch on
+    another of 4 layers' pages; the kernel (a replayed graph), its plain
+    version, the library yardstick (gather + SDPA) and the bound (K + V
+    bytes, + scales for int8, over 3.35 TB/s). The kernel against its
+    plain version on these inputs first (2e-3, the bf16 tolerance)."""
+    import torch
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    out = {}
+    s, nl, pb, n_tok = 8, 4, 7, 400
+    for ci, (name, h, hkv, hd) in enumerate(GEOMETRIES):
+        g = torch.Generator(device="cuda").manual_seed(50 + ci)
+        p = s * pb + 1
+        k = torch.randn((nl, hkv, p, PS, hd), generator=g, device="cuda")
+        v = torch.randn((nl, hkv, p, PS, hd), generator=g, device="cuda")
+        q = torch.randn((s, h, hd), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        pt = torch.randperm(s * pb, generator=g, device="cuda").to(
+            torch.int32).reshape(s, pb)
+        lens = torch.full((s,), n_tok, dtype=torch.int32, device="cuda")
+        kq, vq, ks, vs = quantize_case(k, v, pt, lens, seed=ci)
+        for kind, kc, vc, sc in (
+                ("bf16", k.to(torch.bfloat16), v.to(torch.bfloat16), ()),
+                ("int8", kq, vq, (ks, vs))):
+            quant = bool(sc)
+            got = pa.decode_paged_attention_prefix(q, kc, vc, 0, pt, lens,
+                                                   *sc)
+            want = pa._ragged_plain(q, kc, vc, 0, pt, lens, *sc)
+            err = max(compare(f"{name} {kind} at 8 x {n_tok} tokens",
+                              zip(("acc", "m", "l"), got, want), 2e-3))
+
+            def layer_sc(i):
+                return (sc[0][i % nl], sc[1][i % nl]) if quant else ()
+            kernel_ms = cuda_ms(lambda i: pa.decode_paged_attention_prefix(
+                q, kc, vc, i % nl, pt, lens, *sc), 200, graph=True)
+            plain_ms = cuda_ms(lambda i: pa._ragged_plain(
+                q, kc, vc, i % nl, pt, lens, *sc), 20)
+            library_ms = cuda_ms(lambda i: sdpa_yardstick(
+                q, kc[i % nl], vc[i % nl], pt, lens, *layer_sc(i)), 100)
+            nbytes = kv_bytes(lens, hkv, hd, kc.element_size(), quant)
+            b = bound(nbytes, 4 * int(lens.sum()) * h * hd, "bfloat16")
+            rec = {"ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, **b,
+                   "share_of_bound": b["bound_ms"] / kernel_ms,
+                   "max_abs_err": err}
+            out[f"{name} {kind}"] = rec
+            print(f"timing ragged kernel, {name} heads ({h}/{hkv} x {hd}) "
+                  f"{kind} pages, 8 rows of {n_tok} tokens: max_abs_err "
+                  f"{err:.3g} (tol 2e-3); kernel {kernel_ms:.4f} ms (graph "
+                  f"replay), plain {plain_ms:.4f} ms, gather"
+                  f"{'+dequant' if quant else ''}+sdpa {library_ms:.4f} ms,"
+                  f" bound {b['bound_ms']:.4f} ms ({nbytes} bytes), "
+                  f"{rec['share_of_bound']:.1%} of the bound", flush=True)
+        del k, v, kq, vq, ks, vs
+    return out
 
 
 def kernel_case(hd: int, dtype, s: int, seed: int, h: int = 32,
@@ -1459,11 +1584,19 @@ def device_reference(cfg, trees: dict, label: str, kv_quant: str = ""
         # the decode kernel's f32 body, the dequantize entry +
         # torch.matmul past GEMV_MAX_M rows)
         reset_launch_counts()
-        outs[dev] = engines[dev].generate(prompt, sp, "r")
+        e = engines[dev]
+        outs[dev] = e.generate(prompt, sp, "r")
         launches = launch_counts()
         check(outs["cpu"] == outs[dev],
               f"{label} greedy tokens differ: cpu {outs['cpu']} {dev} "
               f"{outs[dev]}")
+        # the decode path the engine resolved launched the kernel layers x
+        # decode steps times (+ the graphs' warm-ups), or never (gather)
+        want = (cfg.num_layers * e.decode_window_steps
+                + e.graphs.warmup_launches[RAGGED]
+                if e.decode_path == "ragged" else 0)
+        check(launches[RAGGED] == want, f"{label}: {launches[RAGGED]} ragged "
+              f"launches on the {e.decode_path} path, expected {want}")
     # one decode step over the CPU engine's cache (the greedy run's prompt
     # sits in pages 0..6), on every device from identical inputs
     logits = {}
@@ -1963,7 +2096,8 @@ def eager_window(engine, staged, bufs, cache):
         bufs["top_k"], bufs["top_p"], bufs["seeds"], bufs["min_tokens"],
         bufs["ignore_eos"], bufs["stop_ids"], n_steps=nw,
         page_size=engine.cfg.page_size, greedy=greedy,
-        fused=fused)[0].cpu().numpy()
+        fused=fused, path=engine.decode_path,
+        window_bufs=staged.get("window_bufs"))[0].cpu().numpy()
 
 
 def trace_window(engine, key) -> dict:
@@ -4929,13 +5063,14 @@ def phase_moe_child() -> dict:
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--phase-moe"], cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    result = None
+    result, tail = None, []
     try:
         for line in proc.stdout:
             if line.startswith(MOE_RESULT):
                 result = json.loads(line[len(MOE_RESULT):])
             else:
                 print(line, end="", flush=True)
+                tail = (tail + [line.rstrip("\n")])[-25:]
         rc = proc.wait(timeout=60)
     finally:
         if proc.poll() is None:
@@ -4943,7 +5078,8 @@ def phase_moe_child() -> dict:
             proc.wait(timeout=60)
     check(rc == 0 and result is not None,
           f"phase 14 (mixtral-8x7b, child process) exited {rc}"
-          f"{'' if result is not None else ' without its result line'}")
+          f"{'' if result is not None else ' without its result line'}"
+          "; last output:\n" + "\n".join(tail))
     return result
 
 
@@ -4978,7 +5114,7 @@ def write_safetensors(path: str, entries: list) -> int:
 
 HF_ARCH = {"llama": "LlamaForCausalLM", "qwen2": "Qwen2ForCausalLM",
            "phi3": "Phi3ForCausalLM", "gemma": "GemmaForCausalLM",
-           "mixtral": "MixtralForCausalLM"}
+           "gemma2": "Gemma2ForCausalLM", "mixtral": "MixtralForCausalLM"}
 
 
 def hf_config(cfg, family: str, bos: int, eos: int) -> dict:
@@ -4995,10 +5131,15 @@ def hf_config(cfg, family: str, bos: int, eos: int) -> dict:
            "max_position_embeddings": cfg.max_model_len,
            "tie_word_embeddings": cfg.tie_word_embeddings,
            "dtype": cfg.dtype, "bos_token_id": bos, "eos_token_id": eos}
-    if family == "gemma":
+    if family in ("gemma", "gemma2"):
         out["hidden_activation"] = "gelu_pytorch_tanh"
     else:
         out["hidden_act"] = "silu"
+    if family == "gemma2":
+        out.update(attn_logit_softcapping=cfg.attn_softcap,
+                   final_logit_softcapping=cfg.final_softcap,
+                   query_pre_attn_scalar=round(cfg.query_scale ** -2),
+                   sliding_window=cfg.sliding_window)
     if family == "qwen2":
         out["use_sliding_window"] = False
     if family == "mixtral":
@@ -5032,8 +5173,15 @@ def hf_entries(cfg, params, family: str) -> list:
                 add(pre + f"self_attn.{k}_proj.bias",
                     lambda i=i, k=k: lp[f"w{k}_b"][i])
         add(pre + "self_attn.o_proj.weight", lambda i=i: lp["wo"][i].T)
-        add(pre + "post_attention_layernorm.weight",
-            lambda i=i: lp["mlp_norm"][i])
+        if cfg.post_norms:   # Gemma-2's four norms a layer
+            for ours, theirs in (("post_attn_norm", "post_attention"),
+                                 ("mlp_norm", "pre_feedforward"),
+                                 ("post_mlp_norm", "post_feedforward")):
+                add(pre + f"{theirs}_layernorm.weight",
+                    lambda i=i, k=ours: lp[k][i])
+        else:
+            add(pre + "post_attention_layernorm.weight",
+                lambda i=i: lp["mlp_norm"][i])
         if cfg.is_moe:
             moe = pre + "block_sparse_moe."
             add(moe + "gate.weight", lambda i=i: lp["router"][i].T)
@@ -5360,9 +5508,11 @@ def write_llama_gguf(path: str, cfg, params) -> dict:
 SMALL_KNOBS = {
     "llama": {}, "llama_tied": dict(tie_word_embeddings=True),
     "qwen2": dict(attn_bias=True),
-    "phi3": dict(num_heads=8, num_kv_heads=4, head_dim=32),
+    # Phi-3-mini's head dim (96; its hidden size is heads x 96) and
+    # Gemma-7B's (256), which the ragged kernel takes since PR 15
+    "phi3": dict(hidden_size=384, num_heads=4, num_kv_heads=4, head_dim=96),
     "gemma": dict(embed_scale=16.0, norm_plus_one=True, mlp_act="gelu_tanh",
-                  tie_word_embeddings=True, rms_norm_eps=1e-6),
+                  tie_word_embeddings=True, rms_norm_eps=1e-6, head_dim=256),
     "mixtral": dict(num_experts=4, num_experts_per_tok=2,
                     intermediate_size=256),
     "gguf": {}}
@@ -5372,8 +5522,8 @@ SMALL_BASE = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
 
 
 def small_family_config(family: str):
-    """15a's tiny configs: hd 64 (Phi-3 at 32), widths whose rows the
-    K-quant blocks (256) and the kernels take."""
+    """15a's tiny configs: hd 64 (Phi-3 at 96, Gemma at 256), widths whose
+    rows the K-quant blocks (256) and the kernels take."""
     from dynamo_tpu_torch.engine.config import ModelConfig
     return ModelConfig(name=family, **{**SMALL_BASE,
                                        **SMALL_KNOBS.get(family, {})})
@@ -5574,7 +5724,8 @@ async def reference_chats(card, engine, bodies: list) -> list:
             chunks = [c async for c in pipe.generate_chat(
                 req, Context(f"ref-{i}"))]
             agg = aggregate_chat_chunks(chunks)
-            rid = next(r for r in timed.stamps if r.startswith(f"ref-{i}"))
+            rid = next(r for r in timed.stamps
+                       if r == f"ref-{i}" or r.startswith(f"ref-{i}#"))
             out.append((_entries_of(agg.choices[0].logprobs["content"]),
                         agg.choices[0].message.content,
                         list(timed.stamps[rid]["ids"])))
@@ -5640,20 +5791,29 @@ def hold_to_reference(name: str, served: list, ref: list, tokenizer) -> list:
     return firsts
 
 
-def serve_checkpoint(path: str, bodies: list, extra=(), name="") -> dict:
+def serve_checkpoint(path: str, bodies: list, extra=(), name="",
+                     rounds: int = 1) -> dict:
     """`python -m dynamo_tpu_torch.run in=http:0 out=native <path>` as a
-    process: READY seconds, the bodies' results, its EXIT stats line."""
+    process: READY seconds, the bodies' results (served one at a time,
+    `rounds` times), its EXIT stats line.
+    "results" are the last round's, "rounds" each round's results, its
+    start (time.time()) and the /metrics text after it."""
     import signal
     t0 = time.perf_counter()
     proc = Child(name, ["dynamo_tpu_torch.run", "in=http:0", "out=native",
                         path, *extra])
+    per_round = []
     try:
         line = proc.wait_line("READY http=:", 600)
         ready_s = time.perf_counter() - t0
         port = int(re.match(r"READY http=:(\d+)", line).group(1))
-        results = asyncio.run(asyncio.wait_for(served_chats(port, bodies),
-                                               600))
-        metrics = asyncio.run(_http(port, "GET", "/metrics"))[2].decode()
+        for _ in range(rounds):
+            start = time.time()
+            results = asyncio.run(asyncio.wait_for(
+                served_chats(port, bodies), 600))
+            metrics = asyncio.run(_http(port, "GET", "/metrics"))[2].decode()
+            per_round.append({"start": start, "results": results,
+                              "metrics": metrics})
         code = proc.stop(signal.SIGINT, 120)
         exits = [x for x in proc.lines if x.startswith("EXIT ")]
         check(code == 0 and len(exits) == 1, f"{name}: exit {code}, "
@@ -5667,8 +5827,10 @@ def serve_checkpoint(path: str, bodies: list, extra=(), name="") -> dict:
         re.search(r"loaded .* in ([0-9.]+) s$", ln) for ln in proc.lines)
         if x]
     check(len(loads) == 1, f"{name}: run.py logged {len(loads)} loads")
-    return {"ready_s": ready_s, "load_s": loads[0], "results": results,
-            "metrics": metrics, "stats": json.loads(m.group(2))}
+    return {"ready_s": ready_s, "load_s": loads[0],
+            "results": per_round[-1]["results"],
+            "metrics": per_round[-1]["metrics"], "rounds": per_round,
+            "stats": json.loads(m.group(2))}
 
 
 def synchronize(device: str) -> None:
@@ -5879,6 +6041,572 @@ def phase_checkpoints(smi: str) -> dict:
     return {"small_launches": small, **big}
 
 
+# -- phase 16: the gather decode windows and Gemma-2 (A5) -----------------------
+
+# google/gemma-2-9b's published config.json (its architecture, widths,
+# vocabulary, soft-caps, query scale and sliding window), named here and not
+# fetched; the weights are random
+GEMMA2_9B_HF = {
+    "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+    "vocab_size": 256000, "hidden_size": 3584, "intermediate_size": 14336,
+    "num_hidden_layers": 42, "num_attention_heads": 16,
+    "num_key_value_heads": 8, "head_dim": 256,
+    "hidden_activation": "gelu_pytorch_tanh", "rms_norm_eps": 1e-06,
+    "rope_theta": 10000.0, "max_position_embeddings": 8192,
+    "sliding_window": 4096, "attn_logit_softcapping": 50.0,
+    "final_logit_softcapping": 30.0, "query_pre_attn_scalar": 256,
+    "tie_word_embeddings": True, "attention_bias": False,
+    "bos_token_id": 2, "eos_token_id": 1, "pad_token_id": 0,
+    "torch_dtype": "float32"}
+# Gemma's chat template (its tokenizer_config.json)
+GEMMA_TEMPLATE = (
+    "{{ bos_token }}{% if messages[0]['role'] == 'system' %}"
+    "{{ raise_exception('System role not supported') }}{% endif %}"
+    "{% for message in messages %}"
+    "{% if (message['role'] == 'user') != (loop.index0 % 2 == 0) %}"
+    "{{ raise_exception('Conversation roles must alternate "
+    "user/assistant/user/assistant/...') }}{% endif %}"
+    "{% if (message['role'] == 'assistant') %}{% set role = 'model' %}"
+    "{% else %}{% set role = message['role'] %}{% endif %}"
+    "{{ '<start_of_turn>' + role + '\n' + message['content'] | trim + "
+    "'<end_of_turn>\n' }}{% endfor %}{% if add_generation_prompt %}"
+    "{{'<start_of_turn>model\n'}}{% endif %}")
+GEMMA_SPECIALS = {0: "<pad>", 1: "<eos>", 2: "<bos>", 3: "<unk>",
+                  4: "<mask>", 106: "<start_of_turn>", 107: "<end_of_turn>"}
+LONG_WORDS = ("the quick brown fox jumps over lazy dog while the server "
+              "streams tokens from a long document about kernels, pages, "
+              "windows and caches; every chat reads thousands of words "
+              "before it answers").split()
+
+
+def train_spm_merges(corpus: str, n: int) -> list:
+    """The first n merges of a SentencePiece-style BPE (spaces as "▁",
+    each piece a word with its leading "▁"), learned deterministically:
+    the most frequent adjacent pair, ties to the smallest."""
+    import collections
+    words = collections.Counter(
+        tuple(w) for w in re.findall("▁?[^▁]+|▁", corpus.replace(" ", "▁")))
+    merges = []
+    for _ in range(n):
+        pairs = collections.Counter()
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = min(pairs.items(), key=lambda kv: (-kv[1], kv[0]))[0]
+        merges.append(best)
+        joined = collections.Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if w[i:i + 2] == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            joined[tuple(out)] += c
+        words = joined
+    return merges
+
+
+def gemma_tokenizer_json(vocab_size: int = 256000, n_merges: int = 400
+                         ) -> dict:
+    """A tokenizer.json of the Gemma form: BPE with byte fallback over text
+    whose spaces a Replace normalizer turns into "▁" (no pre-tokenizer),
+    the decoder Replace + ByteFallback + Fuse; Gemma's specials at their
+    ids, <0x00>-<0xFF> at 217-472, the corpus's characters and learned
+    merges, and inert filler pieces up to `vocab_size` ids."""
+    corpus = " ".join(LONG_WORDS) + " " + TOKENIZER_CORPUS
+    vocab = {name: i for i, name in GEMMA_SPECIALS.items()}
+    for i in range(5, 217):
+        vocab.setdefault(f"<unused{i}>", i)
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = 217 + b
+    merges = train_spm_merges(corpus * 3, n_merges)
+    for ch in sorted(set(corpus.replace(" ", "▁"))):
+        vocab.setdefault(ch, len(vocab))
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    filler = [chr(0x3400 + k) for k in range(640)]
+    for a in filler:
+        for b in filler:
+            if len(vocab) >= vocab_size:
+                break
+            vocab.setdefault("▁" + a + b, len(vocab))
+    added = [{"id": i, "content": name, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, name in sorted(GEMMA_SPECIALS.items())]
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": added,
+            "normalizer": {"type": "Replace", "pattern": {"String": " "},
+                           "content": "▁"},
+            "pre_tokenizer": None, "post_processor": None,
+            "decoder": {"type": "Sequence", "decoders": [
+                {"type": "Replace", "pattern": {"String": "▁"},
+                 "content": " "},
+                {"type": "ByteFallback"}, {"type": "Fuse"}]},
+            "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                      "continuing_subword_prefix": None,
+                      "end_of_word_suffix": None, "fuse_unk": True,
+                      "byte_fallback": True, "ignore_merges": False,
+                      "vocab": vocab, "merges": [list(m) for m in merges]}}
+
+
+def long_chats(card, tok, lo: int = 4600, hi: int = 7400,
+               max_tokens: int = 64) -> list:
+    """16a's 8 chats: one user turn each whose rendered prompt is lo..hi
+    tokens (evenly spaced), greedy, max_tokens, top-8 logprobs; even ones
+    streamed, odd ones unary."""
+    import numpy as np
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    pre = OpenAIPreprocessor(card, tok)
+    out = []
+    for i in range(8):
+        target = lo + (hi - lo) * i // 7
+        rng = np.random.default_rng(160 + i)
+        words = list(rng.choice(LONG_WORDS, target))
+        body = {}
+        for _ in range(6):
+            body = {"model": card.name, "max_tokens": max_tokens,
+                    "temperature": 0.0, "logprobs": True,
+                    "top_logprobs": CKPT_TOP, "messages": [
+                        {"role": "user", "content": " ".join(words)}]}
+            n = len(tok.encode(pre._render_chat(
+                ChatCompletionRequest.from_json(body))))
+            if abs(n - target) <= target // 50:
+                break
+            keep = max(1, int(len(words) * target / n))
+            words = (words * 2)[:keep]
+        body["n_prompt"] = n
+        if i % 2 == 0:
+            body.update(stream=True, stream_options={"include_usage": True})
+        out.append(body)
+    return out
+
+
+def steady_ms_per_step(engine, prompts: list, warm: int = 2,
+                       timed: int = 4) -> float:
+    """Untraced ms per decode step: the prompts (token ids) admitted
+    greedy with ignore_eos and room for the windows, stepped until every
+    one decodes, `warm` steps (captures), then `timed` pipelined steps
+    ending in a synchronize, over the decode steps they ran. The requests
+    are aborted after."""
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest, SamplingParams
+    n = (warm + timed + 2) * engine.cfg.decode_steps
+    for i, p in enumerate(prompts):
+        engine.add_request(EngineRequest(f"steady-{i}", list(p), SamplingParams(
+            max_tokens=n, temperature=0.0, ignore_eos=True)))
+    while engine.scheduler.waiting or engine._pipeline is not None:
+        engine.step()
+    for _ in range(warm):
+        engine.step()
+    engine._sync_stream()
+    steps0 = engine.decode_window_steps
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        engine.step()
+    engine._sync_stream()
+    ms = (time.perf_counter() - t0) * 1e3 / max(
+        1, engine.decode_window_steps - steps0)
+    for i in range(len(prompts)):
+        engine.abort(f"steady-{i}")
+    while engine.has_work():
+        engine.step()
+    engine._sync_stream()
+    return ms
+
+
+def sensitivity(engine, prompt: list, tol: float) -> dict:
+    """The gather path's knobs on the decode step one past the window: the
+    prompt (longer than the window) prefilled on a cache of its own, then
+    the next token's decode_forward logits with the served config, with
+    its windows removed and with its attention soft-cap removed. Each
+    variant must differ from the served logits by more than `tol`."""
+    import torch
+    from dynamo_tpu_torch.models import llama
+    cfg, ps = engine.model_cfg, engine.cfg.page_size
+    n = len(prompt) - 1
+    check(n > (cfg.sliding_window or 0), f"sensitivity: a {n}-token prefix "
+          f"does not pass the {cfg.sliding_window}-token window")
+    pages = -(-len(prompt) // ps)
+    dev = engine.device
+    cache = llama.init_cache(cfg, pages + 1, ps, dev)
+    pt = torch.arange(pages, dtype=torch.int32, device=dev)[None]
+    ids = torch.tensor(prompt, dtype=torch.int32, device=dev)
+    for c0 in range(0, n, 512):
+        c1 = min(n, c0 + 512)
+        pos = torch.arange(c0, c1, dtype=torch.int32, device=dev)[None]
+        meta = llama.AttnMetadata(pos, pt, torch.tensor([c1], dtype=torch.int32,
+                                                        device=dev), pos)
+        llama.forward(engine.params, cfg, ids[None, c0:c1], cache, meta,
+                      last_idx=torch.tensor([c1 - c0 - 1], device=dev),
+                      path="gather")
+    tok = ids[n:n + 1]
+    pre = torch.tensor([n], dtype=torch.int32, device=dev)
+    out = {}
+    for label, c in (("served", cfg),
+                     ("no windows", dataclasses.replace(cfg, sliding_window=0)),
+                     ("no attention soft-cap",
+                      dataclasses.replace(cfg, attn_softcap=0.0))):
+        out[label] = llama.decode_forward(engine.params, c, tok, cache, pt,
+                                          pre, pre, path="gather")[0][0]
+    rec = {}
+    for label in ("no windows", "no attention soft-cap"):
+        d = float((out[label] - out["served"]).abs().max())
+        rec[label] = d
+        check(d > tol, f"sensitivity: {label} moves the logits by {d} at "
+              f"position {n}, within the gate's {tol}")
+    del cache
+    return rec
+
+
+def phase_gemma2(root: str, smi: str, device: str = "cuda", hf=None,
+                 lo: int = 4600, hi: int = 7400) -> dict:
+    """16a (see the docstring at the top): gemma-2-9b at full width and
+    depth written to disk with its tokenizer and chat template; the gather
+    window held to the same engine's eager per-token deferred gather in
+    f32; the bf16 serving engine's step, base gather, memory and knobs;
+    then run.py serving the 8 long chats three rounds as a process, held
+    to that engine. `hf` (a narrow config.json), `lo` / `hi` (the prompts'
+    token counts) and device "cpu" rehearse it on the CPU (the card-only
+    checks skipped)."""
+    import shutil
+    import torch
+    from dynamo_tpu_torch.engine.engine import NativeEngine, _gather_base
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.loader import config_from_hf, load_model_dir
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    on_card = device == "cuda"
+    hf = hf or GEMMA2_9B_HF
+    cfg = config_from_hf(hf)
+    name = f"gemma-2 ({cfg.name})"
+    pages = 1024
+    extra = ("--num-pages", str(pages)) + (() if on_card else
+                                           ("--device", "cpu"))
+    need = 19 * 10 ** 9 if on_card else 10 ** 9
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    check(free >= need, f"{name}: {free} bytes free under {root}; the bf16 "
+          f"checkpoint needs {need}")
+    path = os.path.join(root, "gemma-2-9b")
+    rec = {}
+    try:
+        params = llama.init_params(cfg, device, seed=0)
+        t0 = time.perf_counter()
+        nbytes = write_hf_dir(path, cfg, params, "gemma2", 2, 1, shards=4)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(hf, f, indent=1)
+        with open(os.path.join(path, "tokenizer.json"), "w") as f:
+            json.dump(gemma_tokenizer_json(hf["vocab_size"]), f)
+        with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+            json.dump({"chat_template": GEMMA_TEMPLATE, "bos_token": "<bos>",
+                       "eos_token": "<eos>"}, f)
+        rec["write_s"] = time.perf_counter() - t0
+        rec["bytes"] = nbytes
+        card = ModelDeploymentCard.from_hf_dir(path)
+        tok = card.load_tokenizer()
+        bodies = long_chats(card, tok, lo, hi)
+        rec["prompt_tokens"] = [b.pop("n_prompt") for b in bodies]
+        served_cfg = dataclasses.replace(served_config(card), num_pages=pages)
+        print(f"{name}: wrote {nbytes} bytes (4 bf16 shards, a "
+              f"{hf['vocab_size']}-id Gemma-form tokenizer.json, Gemma's "
+              f"chat template) in {rec['write_s']:.1f} s; chats of "
+              f"{rec['prompt_tokens']} prompt tokens; EngineConfig "
+              f"{served_cfg}", flush=True)
+        synchronize(device)
+        t0 = time.perf_counter()
+        _, loaded = load_model_dir(path, device=device)
+        synchronize(device)
+        rec["load_s"] = time.perf_counter() - t0
+        check(trees_equal(loaded, params), f"{name}: loaded leaves differ "
+              "from the written ones")
+        del loaded
+        empty_cache(device)
+
+        # the bf16 serving engine in process (run.py's EngineConfig): the
+        # chats one at a time (run.py is held to these streams), then the
+        # step with the 8 prompts decoding together, the base gather, the
+        # peak memory and the knobs' sensitivity
+        engine = NativeEngine(card.model_config(), served_cfg, params=params,
+                              eos_token_ids=set(card.eos_token_ids),
+                              device=device)
+        check(engine.decode_path == "gather" and engine.pregather
+              and engine.model_cfg.dtype == "bfloat16",
+              f"{name}: the engine resolved {engine.decode_path} "
+              f"({engine.decode_path_reason}) in {engine.model_cfg.dtype}")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ref = asyncio.run(reference_chats(card, engine, bodies))
+        rec["engine_chats_s"] = time.perf_counter() - t0
+        check(launch_counts()[RAGGED] == 0, f"{name}: the engine launched "
+              f"the ragged kernel {launch_counts()[RAGGED]} times")
+        pre = OpenAIPreprocessor(card, tok)
+        prompts = [pre.preprocess_chat(ChatCompletionRequest.from_json(
+            {k: v for k, v in b.items() if k not in ("stream",
+                                                     "stream_options")}),
+            f"p{i}")[0].token_ids for i, b in enumerate(bodies)]
+        rec["ms_per_step"] = steady_ms_per_step(engine, prompts)
+        if on_card:
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        s = engine.cfg.max_slots
+        base_pb = engine.scheduler.page_buckets[-1]
+        kb, vb, _, _ = engine._window_bufs(s, base_pb,
+                                           max(engine._window_sizes))
+        table = torch.arange(s * base_pb, dtype=torch.int32,
+                             device=engine.device).reshape(s, base_pb)
+        lens = torch.tensor(rec["prompt_tokens"], dtype=torch.int32,
+                            device=engine.device)
+        if on_card:
+            rec["base_gather_ms"] = cuda_ms(
+                lambda i: _gather_base(engine.cache, table, kb, vb, lens), 3,
+                warmup=1)
+        rec["base_gather_bytes"] = 2 * kb.numel() * kb.element_size()
+        rec["sensitivity"] = sensitivity(engine, prompts[-1], SAME_CONTEXT)
+        print(f"{name}: load_model_dir {rec['load_s']:.2f} s, every leaf "
+              f"bit-equal; in process the 8 chats one at a time in "
+              f"{rec['engine_chats_s']:.1f} s; the gather window untraced "
+              f"{rec['ms_per_step']:.2f} ms per decode step with 8 slots "
+              f"live; the base gather {rec.get('base_gather_ms', 0):.2f} ms a"
+              f" window ({rec['base_gather_bytes']} bytes written, Pb "
+              f"{base_pb}); peak {rec.get('peak_gib', 0):.2f} GiB; one step "
+              f"past the window the logits move by {rec['sensitivity']} "
+              f"without the windows / the attention soft-cap (gate > "
+              f"{SAME_CONTEXT}) [{smi}]", flush=True)
+        engine.cache = None
+        del engine, kb, vb, params
+        empty_cache(device)
+
+        # run.py: a cold round (prefill, captures), a warm-up round on the
+        # cached prefixes, then the measured round; one chat at a time, as
+        # the in-process engine served them
+        served = serve_checkpoint(path, bodies, extra, name=f"{name} (run.py)",
+                                  rounds=3)
+        rec["ready_s"], rec["ready_load_s"] = served["ready_s"], served["load_s"]
+        st = served["stats"]
+        rounds = served["rounds"]
+        for k, rnd in enumerate(rounds):
+            for i, (entries, _) in enumerate(rnd["results"]):
+                check(0 < len(entries) <= 64, f"{name}: round {k} chat {i}: "
+                      f"{len(entries)} tokens")
+        # the cold round is the in-process engine's computation: held to
+        # it; the warm rounds prefill only each prompt's tail after a
+        # prefix hit (other bf16 roundings than the cold chunks): held to
+        # each other exactly, and to the engine only reported
+        rec["first_differences"] = hold_to_reference(
+            f"{name} cold round", rounds[0]["results"], ref, tok)
+        rec["warm_first_differences"] = [
+            first_difference_of(a, b) for (a, _), (b, _, _) in zip(
+                rounds[2]["results"], ref)]
+        check([r[0] for r in rounds[2]["results"]]
+              == [r[0] for r in rounds[1]["results"]],
+              f"{name}: the measured round's streams differ from the "
+              "warm-up round's")
+        check(st["decode_path"] == "gather", f"{name}: run.py resolved "
+              f"{st['decode_path']} ({st['decode_path_reason']})")
+        check(st["kernel_launches"][RAGGED] == 0, f"{name}: run.py launched "
+              f"the ragged kernel {st['kernel_launches'][RAGGED]} times")
+        g = st["graphs"]
+        check(not on_card or (g["replays"] == st["decode_windows"]
+                              == st["decode_dispatches"]
+                              == g["replay_paths"].get("gather", 0) > 0),
+              f"{name}: {g['replays']} replays ({g['replay_paths']}) for "
+              f"{st['decode_windows']} windows")
+        late = [t for t in g["capture_times"] if t >= rounds[2]["start"]]
+        check(not late, f"{name}: {len(late)} window graphs captured in the "
+              f"measured round (after the warm-up)")
+        rec["captured"] = g["captured"]
+        rec["cold"] = _ttft_quantiles(rounds[0]["metrics"])
+        rec["warm"] = _ttft_quantiles(rounds[2]["metrics"],
+                                      rounds[1]["metrics"])
+        rec["launches"] = st["kernel_launches"]
+        print(f"{name}: run.py READY in {rec['ready_s']:.1f} s (its load "
+              f"{rec['ready_load_s']:.2f} s); 3 rounds of the 8 chats one at "
+              f"a time (4 SSE, 4 unary), every stream 64 tokens or a stop; "
+              f"the cold round held to the in-process engine "
+              f"{rec['first_differences']}, the measured round equal to the "
+              f"warm-up round (first differences from the engine "
+              f"{rec['warm_first_differences']}, reported); path gather, "
+              f"ragged launches 0, {g['replays']} replays = windows, "
+              f"{g['captured']} graphs captured, none in the measured round;"
+              f" TTFT p50 / p90 cold {rec['cold']['ttft_p50_ms']:.1f} / "
+              f"{rec['cold']['ttft_p90_ms']:.1f} ms, warm "
+              f"{rec['warm']['ttft_p50_ms']:.1f} / "
+              f"{rec['warm']['ttft_p90_ms']:.1f} ms [{smi}]", flush=True)
+        # the two longest chats (the check takes ~17 s a chat on the card)
+        rec["f32"] = gather_window_f32(card, bodies[-2:],
+                                       rec["prompt_tokens"][-2:], device, smi)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return rec
+
+
+def gather_window_f32(card, bodies: list, prompt_tokens: list, device: str,
+                      smi: str) -> dict:
+    """16a's reference gate: the gather window against the same engine's
+    eager per-token deferred gather (`pregather = False`, eager windows:
+    no window buffer, no graph), at full width and depth in f32 (random
+    f32 weights from seed 0; one slot, so that the weights, the cache and
+    the base fit beside each other). In f32 the two differ by summation
+    order alone, so every stream must be equal or first differ at a near
+    tie; in bf16 that order difference, carried through 42 random layers,
+    moves the logprobs past two bf16 ulps within tens of tokens (PR 15's
+    call 5), a drift no tie rule separates from a fault. The window runs
+    first, the reference second; the cache holds one chat, so each chat's
+    prefill is cold in both."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.models import llama
+    cfg = dataclasses.replace(card.model_config(), dtype="float32")
+    ps = card.kv_page_size
+    # the longest chat and its 64 tokens, and room to spare
+    pages = -(-(max(prompt_tokens) + 64) // ps) + 8
+    params = llama.init_params(cfg, device, seed=0)
+    engine = NativeEngine(cfg, EngineConfig(
+        page_size=ps, num_pages=pages, max_slots=1,
+        max_model_len=cfg.max_model_len), params=params,
+        eos_token_ids=set(card.eos_token_ids), device=device)
+    t0 = time.perf_counter()
+    window = asyncio.run(reference_chats(card, engine, bodies))
+    engine.pregather = False
+    engine.graphs.eager = True
+    reference = asyncio.run(reference_chats(card, engine, bodies))
+    took = time.perf_counter() - t0
+    firsts = ab_entries("gemma-2 f32 window vs eager deferred gather",
+                        window, reference)
+    engine.cache = None
+    del engine, params
+    empty_cache(device)
+    print(f"gemma-2 (gemma2) f32, full width and depth, one slot, {pages} "
+          f"pages: the gather window against the eager per-token deferred "
+          f"gather on {len(bodies)} chats of {prompt_tokens} prompt tokens:"
+          f" first differences {firsts} ({took:.1f} s) [{smi}]", flush=True)
+    return {"first_differences": firsts, "pages": pages, "seconds": took}
+
+
+def ab_entries(name: str, a: list, b: list, gate: bool = True) -> list:
+    """Two engines' streams of the same chats: equal entries, or a first
+    difference at a near tie (hold_to_reference's rule, without text);
+    with gate=False the first differences and their gaps are only
+    returned."""
+    firsts = []
+    for i, ((x, _, _), (y, _, _)) in enumerate(zip(a, b)):
+        d = first_difference_of(x, y)
+        if d is None:
+            firsts.append(None)
+            continue
+        case = "token" if x[d][0] != y[d][0] else "context"
+        at = d if case == "token" else d - 1
+        check(at >= 0, f"{name}: chat {i} differs in its first token")
+        tie = max(e[2][0] - e[2][1] for e in (x[at], y[at]))
+        check(not gate or tie <= NEAR_TIE, f"{name}: chat {i} differs at "
+              f"{d} ({case}), top-1 less top-2 {tie:.4f} (near tie <= "
+              f"{NEAR_TIE})")
+        firsts.append([d, case, round(tie, 5)])
+    return firsts
+
+
+def phase_decode_windows_ab(smi: str, params=None,
+                            model: str = "llama3-8b",
+                            device: str = "cuda") -> dict:
+    """16b: the gather window (decode_kernel="off") against the ragged
+    kernel window ("auto") at `model` on the same weights, bf16 and int8
+    KV pages, 8 slots: the 4 longest of phase 4's 8 chats one at a time
+    (each scheduled alike in both engines), greedy (a near tie is a greedy
+    pick's notion) with top-8 logprobs; then each window's untraced ms per
+    decode step on the 8 chats' prompts, all 8 slots live. On bf16 pages the
+    streams must be token-identical or first differ at a near tie. On
+    int8 pages the two windows compute different functions by design (the
+    kernel window reads the rows its own window wrote quantized and folds
+    the scales in f32; the gather window holds its rows in full precision
+    until its end and reads the base dequantized to the model dtype, as
+    the JAX package's gather window does: ROADMAP.md §C), so their first
+    differences and gaps are reported, not gated; every stream must still
+    end, and every logit be finite."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.run import build_card
+    card = build_card(model)
+    cfg = card.model_config()
+    if params is None:
+        params = llama.init_params(cfg, device, seed=0)
+    reqs = chat_requests(card.name, sampled=False)
+    # the streams of the 4 longest chats (one at a time); the timing runs
+    # all 8 prompts together
+    bodies = [dict(r.to_json(exclude_none=True), logprobs=True,
+                   top_logprobs=CKPT_TOP) for r in reqs[4:]]
+    pre = OpenAIPreprocessor(card)
+    prompts = [pre.preprocess_chat(r, f"ab-{i}")[0].token_ids
+               for i, r in enumerate(reqs)]
+    out = {}
+    for kv in ("", "int8"):
+        runs = {}
+        for mode in ("auto", "off"):
+            engine = NativeEngine(
+                dataclasses.replace(cfg, decode_kernel=mode),
+                EngineConfig(kv_quant=kv), params=params,
+                eos_token_ids=set(card.eos_token_ids), device=device)
+            want = "ragged" if mode == "auto" else "gather"
+            check(engine.decode_path == want, f"16b {mode}: resolved "
+                  f"{engine.decode_path}")
+            reset_launch_counts()
+            streams = asyncio.run(reference_chats(card, engine, bodies))
+            ragged = launch_counts()[RAGGED]
+            check(device != "cuda" or (ragged > 0) == (mode == "auto"),
+                  f"16b {mode}: {ragged} ragged launches")
+            check(engine.logits_nonfinite_steps() == 0
+                  and all(0 < len(e) <= MAX_TOKENS for e, _, _ in streams),
+                  f"16b {mode} {kv or 'bf16'}: a stream was empty or a "
+                  "logit was not finite")
+            runs[mode] = {"streams": streams, "ragged_launches": ragged,
+                          "ms_per_step": steady_ms_per_step(engine,
+                                                            prompts)}
+            engine.cache = None
+            del engine
+            empty_cache(device)
+        label = f"decode windows {kv or 'bf16'} pages"
+        firsts = ab_entries(label, runs["auto"]["streams"],
+                            runs["off"]["streams"], gate=not kv)
+        out[kv or "bf16"] = {
+            "first_differences": firsts,
+            **{f"{m}_ms_per_step": runs[m]["ms_per_step"] for m in runs},
+            "auto_ragged_launches": runs["auto"]["ragged_launches"]}
+        print(f"{label} ({model}, 8 slots): the gather window (off) against "
+              f"the kernel window (auto): first differences [position, "
+              f"kind, top-1 less top-2] {firsts}"
+              f"{' (reported, not gated)' if kv else ''}; untraced "
+              f"{runs['off']['ms_per_step']:.3f} ms per decode step "
+              f"(gather) vs {runs['auto']['ms_per_step']:.3f} (kernel) "
+              f"[{smi}]", flush=True)
+    return out
+
+
+def phase_a5(smi: str) -> dict:
+    """Phase 16: 16a under build/checkpoints (removed), then 16b."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    try:
+        gemma2 = phase_gemma2(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t1 = time.perf_counter()
+    ab = phase_decode_windows_ab(smi)
+    return {"gemma2": gemma2, "gemma2_s": t1 - t0, "windows_ab": ab,
+            "windows_ab_s": time.perf_counter() - t1}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5904,6 +6632,7 @@ def main() -> int:
 
     err_bf16 = phase_kernel()
     err_int8 = phase_kernel_int8()
+    geometries = phase_kernel_geometries()
     err_legacy = phase_legacy()
     err_w8, w8_timing, dequant_timing, large_m = phase_w8a16()
     phase_small_reference()
@@ -5957,6 +6686,8 @@ def main() -> int:
     ckpt = phase_checkpoints(smi)
     print(f"checkpoints: {json.dumps(ckpt)}", flush=True)
     small = ckpt["small_launches"]
+    a5 = phase_a5(smi)
+    print(f"gather decode windows and gemma-2: {json.dumps(a5)}", flush=True)
 
     def ckpt_launches(kernel: str) -> dict:
         """A kernel's launches in phase 15's runs on the card: each small
@@ -5970,12 +6701,20 @@ def main() -> int:
               "source": "dynamo_tpu_torch/csrc/ragged_decode_attention.cu",
               "replaces": "dynamo_tpu/ops/paged_attention.py:88",
               "launches": first["launches"],
-              "max_abs_err": max(err_bf16, main_err), **timing,
+              "max_abs_err": max(err_bf16, main_err, *(
+                  g["max_abs_err"] for g in geometries.values())), **timing,
               "distributed_launches": dist["launches"],
               "disagg_launches": disagg["launches"],
               "tiers_launches": {k: v["launches"]
                                  for k, v in tiers["runs"].items()},
               "checkpoint_launches": ckpt_launches(RAGGED),
+              "a5_launches": {
+                  "gemma-2-9b run.py (gather)":
+                      a5["gemma2"]["launches"][RAGGED],
+                  **{f"llama3-8b {kv} auto window":
+                     v["auto_ragged_launches"]
+                     for kv, v in a5["windows_ab"].items()}},
+              "geometries": geometries,
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),
                        **timing_q}}

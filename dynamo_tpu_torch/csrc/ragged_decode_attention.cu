@@ -82,6 +82,20 @@
 //   come from ldmatrix.trans. For an int8 cache or an f32 q, P.V is f32
 //   FMAs: lane d owns hd / 32 lanes of every head's accumulator, reading V
 //   in the cache's type and the probabilities (times s_v) as broadcasts.
+// Geometries: head dims 32, 64, 96, 128 and 256 (one instantiation each;
+// hd 96 takes 6 k-steps of 16 in the score product and 3 accumulator lanes
+// of hd a thread on the CUDA cores; hd 256 rows are 528 bytes in bf16, a
+// 64-token stage 67.6 KB with K and V, so three stages and the rest of the
+// block fill 209 KB of the 227 KB a block may opt in to: one block an SM),
+// and GQA groups of up to 16. A block serves at most G_BLOCK = 8 query
+// heads (the rows of the score tile the fragments fill); a kv head with a
+// larger group is split over ceil(G / 8) blocks along the grid's head axis,
+// each reading the kv head's pages. So a group of 9-16 reads each K/V page
+// twice where a group of 8 reads it once: the two blocks of a kv head run
+// side by side on neighbouring blockIdx.y, so the second read mostly hits
+// the L2, but the bound still counts the bytes once. Templating the group
+// (16-row tiles with both fragment halves live) would read them once at
+// the price of twice the accumulator registers in every block.
 // What still holds it back: at the main path's shapes a block walks 1-2
 // stages, so the call is two launches plus a ring fill. At the full context
 // the copies with each block's prologue and the merge take most of the
@@ -102,8 +116,9 @@
 
 namespace {
 
-constexpr int NS = 3;     // ring stages
-constexpr int G_MAX = 8;  // query heads per kv head
+constexpr int NS = 3;        // ring stages
+constexpr int G_BLOCK = 8;   // query heads one block serves
+constexpr int G_LIMIT = 16;  // the largest GQA group a call takes
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;  // 227 KB a block may opt in to
@@ -142,34 +157,47 @@ __device__ __forceinline__ float i8_to_f32(unsigned biased, int k) {
 
 // N consecutive cache elements from shared memory, widened to f32 exactly
 // (f32 words reinterpreted, bf16 as the top half of an f32, int8 sign-
-// extended); one load of N * sizeof(T) bytes
+// extended); one load of N * sizeof(T) bytes when that is 1, 2, 4, 8 or 16
+// bytes, 16-byte loads for a multiple of 16 (f32 at hd 256), and one load
+// an element otherwise (hd 96: 3 elements a lane)
 template <typename T, int N>
 __device__ __forceinline__ void load_vals(const unsigned char* p, float* o) {
-  constexpr int B = N * static_cast<int>(sizeof(T));
-  unsigned w[(B + 3) / 4];
-  if constexpr (B == 16) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
-  } else if constexpr (B == 8) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    w[0] = u.x; w[1] = u.y;
-  } else if constexpr (B == 4) {
-    w[0] = *reinterpret_cast<const unsigned*>(p);
-  } else if constexpr (B == 2) {
-    w[0] = *reinterpret_cast<const unsigned short*>(p);
-  } else {
-    static_assert(B == 1, "1, 2, 4, 8 or 16 bytes");
-    w[0] = *p;
-  }
+  constexpr int ESZ = static_cast<int>(sizeof(T));
+  constexpr int B = N * ESZ;
+  if constexpr (B > 16 && B % 16 == 0) {
 #pragma unroll
-  for (int e = 0; e < N; ++e) {
-    if constexpr (std::is_same<T, float>::value) {
-      o[e] = __uint_as_float(w[e]);
-    } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      o[e] = __uint_as_float((e & 1) ? (w[e / 2] & 0xffff0000u)
-                                     : (w[e / 2] << 16));
+    for (int c = 0; c < B / 16; ++c)
+      load_vals<T, 16 / ESZ>(p + 16 * c, o + c * (16 / ESZ));
+    return;
+  } else if constexpr (B != 1 && B != 2 && B != 4 && B != 8 && B != 16) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) load_vals<T, 1>(p + e * ESZ, o + e);
+    return;
+  } else {
+    unsigned w[(B + 3) / 4];
+    if constexpr (B == 16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+    } else if constexpr (B == 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x; w[1] = u.y;
+    } else if constexpr (B == 4) {
+      w[0] = *reinterpret_cast<const unsigned*>(p);
+    } else if constexpr (B == 2) {
+      w[0] = *reinterpret_cast<const unsigned short*>(p);
     } else {
-      o[e] = i8_to_f32(w[e / 4] ^ 0x80808080u, e % 4);
+      w[0] = *p;
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      if constexpr (std::is_same<T, float>::value) {
+        o[e] = __uint_as_float(w[e]);
+      } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        o[e] = __uint_as_float((e & 1) ? (w[e / 2] & 0xffff0000u)
+                                       : (w[e / 2] << 16));
+      } else {
+        o[e] = i8_to_f32(w[e / 4] ^ 0x80808080u, e % 4);
+      }
     }
   }
 }
@@ -257,12 +285,20 @@ struct Layout {
   static constexpr int KV = CT * ROW;  // bytes of K (or V) in a stage
   static constexpr int STAGE = 2 * KV + (QUANT ? 2 * CT * 4 : 0);
   static constexpr int RING = NS * STAGE;
-  static constexpr int P_S = NWARP * G_MAX * WT * 4;
-  static constexpr int A_S = NWARP * G_MAX * 4;
+  static constexpr int P_S = NWARP * G_BLOCK * WT * 4;
+  static constexpr int A_S = NWARP * G_BLOCK * 4;
   // q: its A fragments (bf16 q), or an f32 copy prescaled by hd^-0.5
-  static constexpr int Q_S = MMA ? HD / 16 * 2 * 32 * 4 : G_MAX * (HD + 4) * 4;
+  static constexpr int Q_S =
+      MMA ? HD / 16 * 2 * 32 * 4 : G_BLOCK * (HD + 4) * 4;
   static constexpr int FIXED = RING + P_S + A_S + Q_S;
-  static_assert(NWARP * G_MAX * (HD + 2) * 4 <= RING,
+  // blocks an SM must hold, for __launch_bounds__ (0: unstated). At hd 96
+  // with an f32 q and an int8 cache, ptxas left alone keeps 64 registers
+  // for four blocks an SM and spills one; stating 1 lets it take 96
+  static constexpr int MIN_BLOCKS = (HD == 96 && QUANT && !MMA) ? 1 : 0;
+  static_assert(HD % 32 == 0, "hd a multiple of 32");
+  static_assert(FIXED + 16 <= static_cast<int>(SMEM_MAX),
+                "a block's ring fits the shared memory a block may use");
+  static_assert(NWARP * G_BLOCK * (HD + 2) * 4 <= RING,
                 "the warp states' merge reuses the ring");
   static_assert(STAGE % 16 == 0 && FIXED % 16 == 0, "16-byte alignment");
   static size_t bytes(int pps) {
@@ -273,7 +309,9 @@ struct Layout {
 // TQ: q's type (float or bf16); TC: the cache's (TQ itself, or int8 with
 // per-row scales).
 template <typename TQ, typename TC, int HD>
-__global__ void __launch_bounds__(Layout<TQ, TC, HD>::NT) ragged_split_kernel(
+__global__ void __launch_bounds__(Layout<TQ, TC, HD>::NT,
+                                  Layout<TQ, TC, HD>::MIN_BLOCKS)
+    ragged_split_kernel(
     const TQ* __restrict__ q,            // [S, H, HD]
     const TC* __restrict__ k_cache,      // [L, Hkv, P, ps, HD]
     const TC* __restrict__ v_cache,
@@ -299,17 +337,24 @@ __global__ void __launch_bounds__(Layout<TQ, TC, HD>::NT) ragged_split_kernel(
 
   // the merge kernel may launch now; it waits for this grid's results
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int split = blockIdx.x, j = blockIdx.y, s = blockIdx.z;
-  const int G = H / Hkv;
+  // blockIdx.y = j * HB + hb: kv head j, and block hb of its group's
+  // HB = ceil(G / G_BLOCK) blocks of at most G_BLOCK query heads
+  const int split = blockIdx.x, s = blockIdx.z;
+  const int G_ALL = H / Hkv;
+  const int HB = (G_ALL + G_BLOCK - 1) / G_BLOCK;
+  const int j = blockIdx.y / HB, hb = blockIdx.y % HB;
+  const int G = min(G_BLOCK, G_ALL - hb * G_BLOCK);  // this block's heads
+  const int h0 = j * G_ALL + hb * G_BLOCK;           // its first q head
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  const size_t row_out = ((size_t)split * S + s) * H + (size_t)j * G;
+  const size_t row_out = ((size_t)split * S + s) * H + (size_t)h0;
 
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* ring = smem;
-  float* p_s = reinterpret_cast<float*>(smem + Lay::RING);  // [NWARP][G_MAX][WT]
-  float* a_s = p_s + NWARP * G_MAX * WT;                    // [NWARP][G_MAX]
-  float* q_s = a_s + NWARP * G_MAX;  // [HD/16][2][32] or [G_MAX][HD + 4]
+  // [NWARP][G_BLOCK][WT]
+  float* p_s = reinterpret_cast<float*>(smem + Lay::RING);
+  float* a_s = p_s + NWARP * G_BLOCK * WT;  // [NWARP][G_BLOCK]
+  float* q_s = a_s + NWARP * G_BLOCK;  // [HD/16][2][32] or [G_BLOCK][HD + 4]
   int* pid_s = reinterpret_cast<int*>(q_s + (Lay::Q_S / 4));  // [pps]
 
   // the split's page ids (loaded beside lens, not after it) and the row's
@@ -387,14 +432,14 @@ __global__ void __launch_bounds__(Layout<TQ, TC, HD>::NT) ragged_split_kernel(
   // holding head gid at hd lanes 8 nt + 2 tig + i, i = 0, 1. Otherwise
   // lane d owns hd lanes d * DPL .. of every head.
   constexpr int NTL = HD / 8;
-  float acc[PV_MMA ? NTL : G_MAX][PV_MMA ? 2 : DPL];
+  float acc[PV_MMA ? NTL : G_BLOCK][PV_MMA ? 2 : DPL];
 #pragma unroll
-  for (int g = 0; g < (PV_MMA ? NTL : G_MAX); ++g)
+  for (int g = 0; g < (PV_MMA ? NTL : G_BLOCK); ++g)
 #pragma unroll
     for (int e = 0; e < (PV_MMA ? 2 : DPL); ++e) acc[g][e] = 0.f;
   float m_run = NEG_INF, l_run = 0.f;  // head gid's, over this warp's tokens
-  float* pw = p_s + warp * G_MAX * WT;
-  float* aw = a_s + warp * G_MAX;
+  float* pw = p_s + warp * G_BLOCK * WT;
+  float* aw = a_s + warp * G_BLOCK;
   const int rb = warp * WT;  // this warp's first row of a stage
 
 #pragma unroll
@@ -402,7 +447,7 @@ __global__ void __launch_bounds__(Layout<TQ, TC, HD>::NT) ragged_split_kernel(
 
   // q, while the first stages are in flight (the loop's first barrier
   // publishes it)
-  const TQ* q_row = q + ((size_t)s * H + (size_t)j * G) * HD;
+  const TQ* q_row = q + ((size_t)s * H + (size_t)h0) * HD;
   // bf16 q: the A fragment registers of k-step kk, (kk, h, lane) -> q_s
   unsigned* qf_s = reinterpret_cast<unsigned*>(q_s);
   if constexpr (MMA) {
@@ -415,7 +460,7 @@ __global__ void __launch_bounds__(Layout<TQ, TC, HD>::NT) ragged_split_kernel(
                       : 0u;
     }
   } else {
-    for (int i = tid; i < G_MAX * HD; i += NT) {
+    for (int i = tid; i < G_BLOCK * HD; i += NT) {
       const int g = i / HD, d = i % HD;
       q_s[g * (HD + 4) + d] =
           g < G ? static_cast<float>(q_row[g * HD + d]) * scale : 0.f;
@@ -541,7 +586,7 @@ __global__ void __launch_bounds__(Layout<TQ, TC, HD>::NT) ragged_split_kernel(
       }
       __syncwarp();
 #pragma unroll
-      for (int g = 0; g < G_MAX; ++g) {
+      for (int g = 0; g < G_BLOCK; ++g) {
         if (g < G) {
           const float a = aw[g];
 #pragma unroll
@@ -556,7 +601,7 @@ __global__ void __launch_bounds__(Layout<TQ, TC, HD>::NT) ragged_split_kernel(
           load_vals<TC, DPL>(vb + (rb + t + u) * ROW + lane * DPL * ESZ,
                              v[u]);
 #pragma unroll
-        for (int g = 0; g < G_MAX; ++g) {
+        for (int g = 0; g < G_BLOCK; ++g) {
           if (g < G) {
             const float4 p4 =
                 *reinterpret_cast<const float4*>(pw + g * WT + t);
@@ -576,43 +621,44 @@ __global__ void __launch_bounds__(Layout<TQ, TC, HD>::NT) ragged_split_kernel(
   // the warp states -> the block's (the ring is free again)
   copy_wait<0>();
   __syncthreads();
-  float* wacc = reinterpret_cast<float*>(ring);  // [NWARP][G_MAX][HD]
-  float* wm = wacc + NWARP * G_MAX * HD;         // [NWARP][G_MAX]
-  float* wl = wm + NWARP * G_MAX;
+  float* wacc = reinterpret_cast<float*>(ring);  // [NWARP][G_BLOCK][HD]
+  float* wm = wacc + NWARP * G_BLOCK * HD;       // [NWARP][G_BLOCK]
+  float* wl = wm + NWARP * G_BLOCK;
   if constexpr (PV_MMA) {
     if (gid < G) {
 #pragma unroll
       for (int nt = 0; nt < NTL; ++nt)
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          wacc[(warp * G_MAX + gid) * HD + nt * 8 + 2 * tig + i] = acc[nt][i];
+          wacc[(warp * G_BLOCK + gid) * HD + nt * 8 + 2 * tig + i] =
+              acc[nt][i];
     }
   } else {
 #pragma unroll
-    for (int g = 0; g < G_MAX; ++g) {
+    for (int g = 0; g < G_BLOCK; ++g) {
       if (g < G) {
 #pragma unroll
         for (int e = 0; e < DPL; ++e)
-          wacc[(warp * G_MAX + g) * HD + lane * DPL + e] = acc[g][e];
+          wacc[(warp * G_BLOCK + g) * HD + lane * DPL + e] = acc[g][e];
       }
     }
   }
   if (tig == 0 && gid < G) {
-    wm[warp * G_MAX + gid] = m_run;
-    wl[warp * G_MAX + gid] = l_run;
+    wm[warp * G_BLOCK + gid] = m_run;
+    wl[warp * G_BLOCK + gid] = l_run;
   }
   __syncthreads();
   for (int i = tid; i < G * HD; i += NT) {
     const int g = i / HD, d = i % HD;
     float m = wm[g];
 #pragma unroll
-    for (int w = 1; w < NWARP; ++w) m = fmaxf(m, wm[w * G_MAX + g]);
+    for (int w = 1; w < NWARP; ++w) m = fmaxf(m, wm[w * G_BLOCK + g]);
     float l = 0.f, a = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARP; ++w) {
-      const float f = expf(wm[w * G_MAX + g] - m);
-      l += wl[w * G_MAX + g] * f;
-      a += wacc[(w * G_MAX + g) * HD + d] * f;
+      const float f = expf(wm[w * G_BLOCK + g] - m);
+      l += wl[w * G_BLOCK + g] * f;
+      a += wacc[(w * G_BLOCK + g) * HD + d] * f;
     }
     acc_out[(row_out + g) * HD + d] = a;
     if (d == 0) {
@@ -688,7 +734,8 @@ int launch(const Args& a) {
   }
   const int splits = (a.Pb + a.pps - 1) / a.pps;
   const bool merge = splits > 1;
-  dim3 grid(splits, a.Hkv, a.S);
+  const int HB = (a.H / a.Hkv + G_BLOCK - 1) / G_BLOCK;
+  dim3 grid(splits, a.Hkv * HB, a.S);
   kernel<<<grid, Layout<TQ, TC, HD>::NT, smem, a.stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TC*>(a.k),
       static_cast<const TC*>(a.v), a.ks, a.vs, a.pt, a.lens,
@@ -720,8 +767,12 @@ int dispatch_hd(int hd, const Args& a) {
       return launch<TQ, TC, 32>(a);
     case 64:
       return launch<TQ, TC, 64>(a);
+    case 96:
+      return launch<TQ, TC, 96>(a);
     case 128:
       return launch<TQ, TC, 128>(a);
+    case 256:
+      return launch<TQ, TC, 256>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -742,7 +793,7 @@ extern "C" int ragged_decode_attention(
     int Pb, int pages_per_split, int layer, float scale, int q_dtype,
     int cache_dtype, void* stream) {
   if (S <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > G_MAX || ps <= 0 || Pb <= 0 ||
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > G_LIMIT || ps <= 0 || Pb <= 0 ||
       pages_per_split <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool quant = cache_dtype == 2;

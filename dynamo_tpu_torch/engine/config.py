@@ -10,12 +10,18 @@ batching, the decode window, mixed steps and int8 KV pages (`kv_quant`).
 The architecture knobs the checkpoint loaders set (models/loader.py,
 llm/gguf.py) keep the JAX meanings and defaults: q/k/v bias (Qwen2), the
 Gemma deltas (embedding scale, (1 + w) norms, tanh-GELU) and the Gemma-2
-post norms and final soft-cap. The port always runs its decode through the
-hand-written kernel, so there is no `decode_kernel` knob; configs whose
-decode the kernel cannot serve (attention soft-caps, sliding windows,
-query-scale overrides; on a CUDA device also dtypes other than f32 and
-bf16, and head dims and GQA groups outside the kernel's) are rejected by
-`check_supported`.
+post norms, final soft-cap, attention soft-cap, sliding windows
+(`sliding_window`, `sliding_pattern`, `layer_windows`) and query scale.
+
+`decode_kernel` picks the decode attention path as in JAX ("auto", "on",
+"off", "interpret"); the engine resolves it once, at build, with
+models/llama.decode_path. Unlike JAX, whose "auto" is the gather window
+everywhere, the port's "auto" (and "on", "interpret") is the ragged kernel
+wherever it serves the config; the attention knobs, and head dims or GQA
+groups the kernel cannot take, resolve to the gather window, with the
+reason named. `check_supported` refuses what neither path serves: on a
+CUDA device dtypes other than f32 and bf16, and an MoE dispatch gated by
+anything but SiLU.
 """
 from __future__ import annotations
 
@@ -46,11 +52,14 @@ class ModelConfig:
     # Gemma-2 deltas:
     post_norms: bool = False     # extra post-attention / post-ffw RMSNorms
     final_softcap: float = 0.0   # tanh soft-cap on lm-head logits (30.0)
-    # Gemma-2 attention knobs the decode kernel has no hooks for; kept so a
-    # config that sets them is refused by name instead of served wrongly
-    attn_softcap: float = 0.0
-    query_scale: float = 0.0
-    sliding_window: int = 0
+    attn_softcap: float = 0.0    # tanh soft-cap on attention logits (50.0)
+    query_scale: float = 0.0     # q scaling; 0 = default head_dim**-0.5
+    #                              (Gemma-2 uses query_pre_attn_scalar**-0.5)
+    sliding_window: int = 0      # sliding-window attention width; 0 = full
+    # which layers use the sliding window (only meaningful when
+    # sliding_window > 0): "alternate" = even layers sliding, odd global
+    # (the Gemma-2 pattern); "all" = every layer sliding
+    sliding_pattern: str = "alternate"
     max_model_len: int = 2048
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
@@ -70,10 +79,28 @@ class ModelConfig:
     # oracle for tests)
     moe_impl: str = "dispatch"
     moe_capacity_factor: float = 2.0
+    # decode attention path: "auto", "on" and "interpret" = the ragged
+    # kernel (its plain version on CPU tensors) wherever it serves the
+    # config, else the gather window; "off" = the gather window
+    # (models/llama.decode_path)
+    decode_kernel: str = "auto"
 
     @property
     def q_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    def layer_windows(self):
+        """Per-layer attention window as an int list: the sliding width
+        for sliding layers, a huge sentinel (2**30, effectively full) for
+        global layers. None when every layer is full-attention."""
+        if not self.sliding_window:
+            return None
+        full = 1 << 30
+        if self.sliding_pattern == "all":
+            return [self.sliding_window] * self.num_layers
+        # Gemma-2: even layers sliding, odd layers global
+        return [self.sliding_window if l % 2 == 0 else full
+                for l in range(self.num_layers)]
 
     @property
     def is_moe(self) -> bool:
@@ -82,6 +109,8 @@ class ModelConfig:
 
 MOE_IMPLS = ("dispatch", "dense")
 MLP_ACTS = ("silu", "gelu_tanh")
+DECODE_KERNEL_MODES = ("auto", "on", "off", "interpret")
+SLIDING_PATTERNS = ("alternate", "all")
 # the model dtypes the port's CUDA kernels take
 CUDA_DTYPES = ("float32", "bfloat16")
 
@@ -89,14 +118,16 @@ CUDA_DTYPES = ("float32", "bfloat16")
 def check_supported(cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError for configs the port cannot serve, and
     ValueError for inconsistent ones. With a CUDA `device` (the engine's)
-    a model dtype the kernels cannot take, or a head dim or GQA group the
-    ragged decode kernel cannot take, is refused too; on the CPU the
-    kernels' plain versions serve any."""
-    if cfg.attn_softcap or cfg.sliding_window or cfg.query_scale:
-        raise NotImplementedError(
-            f"model {cfg.name!r} uses attention soft-caps / sliding windows /"
-            " query-scale overrides; the ragged decode kernel has no hooks "
-            "for them and the port has no gather decode path")
+    a model dtype the kernels cannot take is refused too; on the CPU the
+    kernels' plain versions serve any. Head dims and GQA groups the ragged
+    kernel cannot take are no refusal: they decode through the gather
+    window (models/llama.decode_path)."""
+    if cfg.decode_kernel not in DECODE_KERNEL_MODES:
+        raise ValueError(f"unknown decode_kernel {cfg.decode_kernel!r} "
+                         f"(supported: {', '.join(DECODE_KERNEL_MODES)})")
+    if cfg.sliding_pattern not in SLIDING_PATTERNS:
+        raise ValueError(f"unknown sliding_pattern {cfg.sliding_pattern!r} "
+                         f"(supported: {', '.join(SLIDING_PATTERNS)})")
     if cfg.moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r} (supported: "
                          f"{', '.join(MOE_IMPLS)})")
@@ -117,15 +148,6 @@ def check_supported(cfg: ModelConfig, device=None) -> None:
         raise NotImplementedError(
             f"model {cfg.name!r} in dtype {cfg.dtype} cannot run on CUDA: "
             f"the port's kernels take {', '.join(CUDA_DTYPES)}")
-    from dynamo_tpu_torch.ops.paged_attention import (
-        _G_MAX, _KERNEL_HEAD_DIMS,
-    )
-    if cfg.head_dim not in _KERNEL_HEAD_DIMS or cfg.q_per_kv > _G_MAX:
-        raise NotImplementedError(
-            f"model {cfg.name!r} (head_dim {cfg.head_dim}, GQA group "
-            f"{cfg.q_per_kv}) cannot decode on CUDA: the ragged decode "
-            f"kernel takes head dims {_KERNEL_HEAD_DIMS} and GQA groups of "
-            f"at most {_G_MAX}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,16 +8,26 @@ row (`_engine_step`); decode runs a window of `decode_steps` iterations of
 feeding the next iteration on the device, with ONE device-to-host copy of
 the window's tokens at its end.
 
-The decode window is the JAX package's kernel-mode body
-(dynamo_tpu/engine/engine.py:2278-2358). It carries (token, position,
+The decode window is one of the JAX package's two window bodies
+(dynamo_tpu/engine/engine.py:2236-2371), after the decode path the engine
+resolves once, at build (models/llama.decode_path; `decode_path`,
+`decode_path_reason`, named in `metrics()`). It carries (token, position,
 counter, seen, alive) on the device and derives each step's attended
-prefix and write slot there; the cache is read-only inside each step (the
-ragged kernel in prefix mode plus combine_self_attention) and each step's
-new kv rows are scattered into the cache in place (`_scatter_new_kv`; on
-an int8 cache the rows quantize there). A slot that samples eos (unless
-ignore_eos) or a hidden stop id dies on the device and writes no more KV.
-The window returns its final (token, position, counter), so an unchanged
-slot set re-dispatches with zero uploads (`_stage_window`).
+prefix and write slot there; the cache is read-only inside each step. The
+ragged path's body (the kernel-mode body) runs the ragged kernel in prefix
+mode plus combine_self_attention and scatters each step's new kv rows into
+the cache in place (`_scatter_new_kv`; on an int8 cache the rows quantize
+there). The gather path's body (the pregather body) gathers each slot's
+valid pages into a base once a window (`_gather_base`; int8 pages
+dequantized there), keeps the window's rows in full precision in a small
+buffer, attends base + buffer + the current token in one softmax
+(ops/attention.decode_attention_split: Gemma-2's soft-cap, sliding
+windows and query scale live there) and scatters the window's rows into
+the cache once, at its end; its base width, the page bucket of the
+longest valid prefix, is part of the window's key. A slot that samples
+eos (unless ignore_eos) or a hidden stop id dies on the device and writes
+no more KV. The window returns its final (token, position, counter), so
+an unchanged slot set re-dispatches with zero uploads (`_stage_window`).
 
 On the card each window variant is ONE captured CUDA graph
 (engine/window_graph.py), the counterpart of the JAX engine's jitted
@@ -74,14 +84,15 @@ stays pinned until that copy is done. The pipeline does not start or
 continue a window while offloads, onboards or pool injects are pending.
 
 Left out of this slice: speculative decoding, pipeline/tensor/expert
-parallelism, streaming, vision, the tp shard inject (`inject_pages_shard`)
-and the gather decode window.
+parallelism, streaming, vision and the tp shard inject
+(`inject_pages_shard`).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import logging
+import math
 from typing import Dict, List, Optional, Set
 
 import numpy as np
@@ -106,7 +117,8 @@ from dynamo_tpu_torch.models.llama import AttnMetadata
 from dynamo_tpu_torch.ops.attention import write_slots
 from dynamo_tpu_torch.observability.metrics import PhaseTimer
 from dynamo_tpu_torch.ops.kv_quant import (
-    is_quantized_cache, page_bytes, quantize_rows, validate_mode,
+    dequantize_rows, is_quantized_cache, page_bytes, quantize_rows,
+    validate_mode,
 )
 from dynamo_tpu_torch.ops.quant import (
     is_quantized, quantize_params, validate_mode as validate_quant,
@@ -159,6 +171,24 @@ class NativeEngine:
         self.kv_quant = validate_mode(model_cfg.kv_quant)
         self.quant = validate_quant(model_cfg.quant)
         self.model_cfg = model_cfg
+        # the decode attention path, resolved once here and never switched
+        # after (models/llama.decode_path): "ragged" (the kernel) or
+        # "gather" (the attention knobs, a geometry the kernel cannot
+        # take, or decode_kernel="off"), with the reason
+        self.decode_path, self.decode_path_reason = llama.decode_path(
+            model_cfg)
+        if self.decode_path == "gather" and model_cfg.decode_kernel != "off":
+            logging.getLogger(__name__).warning(
+                "model %r, decode_kernel=%r: %s; decoding through the gather "
+                "window", model_cfg.name, model_cfg.decode_kernel,
+                self.decode_path_reason)
+        # the gather path's window form: True = the pregather window (the
+        # base gathered once a window, an in-window buffer, one writeback
+        # scatter: serving); False = the per-token deferred gather with a
+        # scatter every step (a reference the chip smoke run and the tests
+        # hold the window to)
+        self.pregather = self.decode_path == "gather"
+        self.decode_kernel_tag = ""   # the last window's path + tail
         self.cfg = engine_cfg
         self.eos_token_ids = set(eos_token_ids or ())
         # the eos ban's [V] mask, built once (no host copy inside a window)
@@ -401,6 +431,9 @@ class NativeEngine:
         m.pipeline_fallbacks = self.pipeline_fallbacks
         m.mixed_steps = self.mixed_steps
         m.decode_stall_steps = self.decode_stall_steps
+        m.decode_path = self.decode_path
+        m.decode_path_reason = self.decode_path_reason
+        m.decode_kernel_tag = self.decode_kernel_tag
         # KV representation: bytes one page occupies on the device (k + v,
         # plus scales when quantized) and the quantized bit width (0 = none)
         mc = self.model_cfg
@@ -804,7 +837,7 @@ class NativeEngine:
             hist=None if rp is None else self._dev(rp[0]),
             rep_penalty=None if rp is None else self._dev(rp[1]),
             with_lp=with_lp, greedy=bool(np.all(temp <= 0.0)),
-            nonfinite=self._nonfinite)
+            nonfinite=self._nonfinite, path=self.decode_path)
         out = toks.cpu().numpy()
         if moe is not None:
             # read after the tokens' copy, which waited for the step
@@ -893,6 +926,15 @@ class NativeEngine:
         return next((w for w in reversed(self._window_sizes)
                      if w >= max(1, plan.n_window)), self._window_sizes[0])
 
+    def _base_pb(self, plan: DecodePlan) -> int:
+        """The gather window's base width in pages: the bucket of the
+        valid kv at the window's start (the true length, not the
+        allocation), at most the plan's table width."""
+        base_lens = np.clip(plan.positions[:, 0], 0, plan.max_pos + 1)
+        pages = max(1, -(-int(base_lens.max()) // self.cfg.page_size))
+        return min(next_bucket(pages, self.scheduler.page_buckets),
+                   plan.page_table.shape[1])
+
     def _stage_window(self, plan: DecodePlan, samp, rp, with_lp: bool,
                       greedy: bool, fused: bool = False) -> dict:
         """Stage a decode window's inputs in the static buffers of its
@@ -902,15 +944,22 @@ class NativeEngine:
         are unchanged since the last window (and no penalty history needs
         refreshing), the buffers still hold this plan's arrays and the last
         window's final (token, position, counter) carry, so steady-state
-        windows upload NOTHING."""
+        windows upload NOTHING.
+
+        The gather window's base width (`_base_pb`) is part of its key, as
+        in the JAX engine: a follow-up window off this staging gathers the
+        same pages, and `_followup_fits` refuses one whose valid kv would
+        outgrow them. Its base and window buffers are views of two static
+        buffers every window graph shares (`_window_bufs`)."""
         temp, top_k, top_p, seeds, counters, min_toks = samp
         s, pb = plan.page_table.shape
         k_stops = plan.stop_ids.shape[1]
         hb = 0 if rp is None else rp[0].shape[1]
+        base_pb = self._base_pb(plan) if self.pregather else 0
         sig = (tuple((q.request_id, q.epoch) if q else None
                      for q in plan.seqs),
                tuple(len(q.pages) if q else 0 for q in plan.seqs),
-               pb, k_stops, rp is None, with_lp, greedy, fused)
+               pb, base_pb, k_stops, rp is None, with_lp, greedy, fused)
         shapes = (s, pb, k_stops, hb)
         i32, f32 = torch.int32, torch.float32
         spec = {"tokens": ((s,), i32), "positions": ((s,), i32),
@@ -943,13 +992,40 @@ class NativeEngine:
                         np.ascontiguousarray(arr)))
             self.decode_plan_uploads += 1
         nw = self._window_rung(plan)
-        return {"sig": sig, "bufs": bufs, "nw": nw,
-                "key": (rp is not None, with_lp, greedy, fused, nw) + shapes}
+        staged = {"sig": sig, "bufs": bufs, "nw": nw,
+                  "key": (rp is not None, with_lp, greedy, fused, nw)
+                  + shapes + (base_pb,),
+                  # which attention path + sampling tail the window runs
+                  "tag": self.decode_path + ("+fused" if fused else "")}
+        if self.pregather:
+            staged["window_bufs"] = self._window_bufs(s, base_pb, nw)
+        return staged
+
+    def _window_bufs(self, s: int, base_pb: int, nw: int) -> tuple:
+        """The gather window's (k_base, v_base, k_win, v_win): contiguous
+        views of static buffers sized once for the largest base the engine
+        can gather (max_slots rows of its largest page bucket) and its
+        longest window, shared by every window graph (they replay one
+        after another on one stream, and each gathers its base anew)."""
+        mc, ps = self.model_cfg, self.cfg.page_size
+        dt = llama.torch_dtype(mc)
+        lead = (mc.num_layers, mc.num_kv_heads, self.cfg.max_slots)
+        most = (self.scheduler.page_buckets[-1] * ps, max(self._window_sizes))
+        views = []
+        for name, width, n in (("base", base_pb * ps, most[0]),
+                               ("window", nw, most[1])):
+            shape = lead[:2] + (s, width, mc.head_dim)
+            size = math.prod(lead + (n, mc.head_dim))
+            for half in ("k", "v"):
+                flat = self.graphs.static(f"{half}_{name}", size, dt)
+                views.append(flat[:math.prod(shape)].view(shape))
+        return views[0], views[1], views[2], views[3]
 
     def _window_program(self, staged: dict):
         """The window as a function of its input buffers, for
         WindowGraphs.run: writes the final carry back into them."""
         rp, with_lp, greedy, fused, nw = staged["key"][:5]
+        window_bufs = staged.get("window_bufs")
 
         def program(b):
             *outs, carry = _engine_decode_window(
@@ -960,7 +1036,8 @@ class NativeEngine:
                 n_steps=nw, page_size=self.cfg.page_size,
                 hist=b.get("hist"), rep_penalty=b.get("rep_penalty"),
                 with_lp=with_lp, greedy=greedy, fused=fused,
-                nonfinite=b["nonfinite"])
+                nonfinite=b["nonfinite"], path=self.decode_path,
+                window_bufs=window_bufs)
             for name, t in zip(("tokens", "positions", "counters"), carry):
                 b[name].copy_(t)
             return tuple(outs)
@@ -972,9 +1049,10 @@ class NativeEngine:
         on the device."""
         with self.phases.phase("dispatch"):
             outs = self.graphs.run(staged["key"], self._window_program(staged),
-                                   staged["bufs"])
+                                   staged["bufs"], self.decode_path)
         self.decode_windows += 1
         self.decode_window_steps += staged["nw"]
+        self.decode_kernel_tag = staged["tag"]
         # one window == one device program (a graph replay on the card)
         self.decode_dispatches += 1
         if self.profile_sync:
@@ -1020,7 +1098,8 @@ class NativeEngine:
     def _followup_fits(self, plan: DecodePlan, next_index: int) -> bool:
         """Can window `next_index` (0 = the plan's own window) run entirely
         against the plan's staged page tables: its writes land in pages
-        listed at staging time, and some slot is still within budget?"""
+        listed at staging time, some slot is still within budget, and (the
+        gather window) the staged base width covers its valid kv?"""
         nw = self._window_rung(plan)
         live = np.array([q is not None for q in plan.seqs])
         if not live.any():
@@ -1033,7 +1112,16 @@ class NativeEngine:
         # exclusive end of this window's writes, clamped by each request's
         # admission budget (writes beyond max_pos are dropped on device)
         need = np.minimum(start + nw, plan.max_pos + 1)
-        return not np.any(need[live] > covered[live])
+        if np.any(need[live] > covered[live]):
+            return False
+        if self.pregather:
+            # the gather window's base: the staged base width must hold
+            # every slot's valid kv at the window's start
+            base_need = np.clip(start, 0, plan.max_pos + 1)
+            if int(base_need[live].max()) > \
+                    self._base_pb(plan) * self.cfg.page_size:
+                return False
+        return True
 
     def _prime_pipeline(self, plan: DecodePlan) -> List[StepOutput]:
         """Dispatch `plan`'s window and DEFER its commit: its outputs start
@@ -1214,7 +1302,7 @@ def _engine_step(cfg: ModelConfig, eos, params, cache, tokens,
                  positions, page_table, kv_lens, write_idx, last_idx,
                  temperature, top_k, top_p, seeds, counters, min_tokens,
                  hist=None, rep_penalty=None, with_lp=False, greedy=False,
-                 nonfinite=None):
+                 nonfinite=None, path=None):
     """forward + last-position logits + sample for one prefill or mixed
     step (eos: the engine's [V] eos mask or None). Returns (tokens [B]
     int32, sampled_lp, top_ids, top_lps, moe), the lp outputs None unless
@@ -1223,7 +1311,7 @@ def _engine_step(cfg: ModelConfig, eos, params, cache, tokens,
     meta = AttnMetadata(positions=positions, page_table=page_table,
                         kv_lens=kv_lens, write_idx=write_idx)
     last, _, aux = llama.forward(params, cfg, tokens, cache, meta,
-                                 last_idx=last_idx, with_aux=True)
+                                 last_idx=last_idx, with_aux=True, path=path)
     if nonfinite is not None:
         nonfinite += (~torch.isfinite(last)).any()
     seen = (seen_token_mask(hist, cfg.vocab_size)
@@ -1242,27 +1330,77 @@ def _moe_counts(aux: dict):
     return torch.stack([aux["moe_dropped"], aux["moe_routed"]])
 
 
+def _gather_base(cache, base_table, k_base, v_base, base_len) -> None:
+    """The gather window's base: each slot's first Pb_base pages, layer by
+    layer, into the static buffers k_base / v_base [L, Hkv, S, Pb_base *
+    ps, hd] in the model dtype, V's rows at or past base_len [S] zeroed (a
+    recycled page's stale tail may hold NaN, which 0 * NaN would carry
+    through the masked probabilities; K's are masked by the scores). An
+    int8 cache is dequantized here, once a window, one layer's pages at a
+    time (an f32 copy of the whole base would be tens of GB at Gemma-2-9B's
+    widths)."""
+    l, hkv, s, lb, hd = k_base.shape
+    ids = base_table.reshape(-1).long()
+    stale = (torch.arange(lb, device=ids.device)[None, :]
+             >= base_len.long()[:, None])[None, :, :, None]
+    for key, out in (("k", k_base), ("v", v_base)):
+        for layer in range(l):
+            # dynalint: kv-codec — the base gather reads one layer's pages
+            # and, for an int8 cache, dequantizes them with their scales
+            pages = cache[key][layer]
+            p, ps = pages.shape[1], pages.shape[2]
+            if is_quantized_cache(cache):
+                out[layer].view(hkv, -1, ps, hd).copy_(dequantize_rows(
+                    pages.index_select(1, ids),
+                    cache[f"{key}_scale"][layer].index_select(1, ids),
+                    out.dtype))
+            else:
+                # one row of ps * hd values a page
+                torch.index_select(pages.view(hkv, p, ps * hd), 1, ids,
+                                   out=out[layer].view(hkv, -1, ps * hd))
+            if key == "v":
+                out[layer].masked_fill_(stale, 0)
+
+
 def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
                           positions, counters, page_table, max_pos,
                           temperature, top_k, top_p, seeds, min_tokens,
                           ignore_eos, stop_ids, *, n_steps: int,
                           page_size: int, hist=None, rep_penalty=None,
                           with_lp=False, greedy=False, fused=False,
-                          nonfinite=None):
+                          nonfinite=None, path: str = "ragged",
+                          window_bufs: Optional[tuple] = None):
     """N decode iterations, the sampled token feeding the next on the
-    device: the JAX package's kernel-mode window body
-    (dynamo_tpu/engine/engine.py:2278-2358).
+    device: the JAX package's window bodies
+    (dynamo_tpu/engine/engine.py:2236-2371).
 
     tokens / positions / counters [S] are the fed token, its position and
     the sampling counter of step 0; max_pos [S] is the highest position a
     slot may write (-1 for padding); eos is the engine's [V] eos mask or
     None; ignore_eos [S] bool; stop_ids [S, K] hidden stop ids (-1
     padded). The carry (token, position, counter, seen, alive) stays on the
-    device: each step attends the prefix clip(pos, 0, max_pos + 1), runs
-    decode_forward with the cache read-only, then scatters the step's kv
-    rows into the cache in place at its write slot, dropped (into the
-    scratch page) once the slot is past max_pos or dead. A slot dies when
-    it samples an eos id (unless ignore_eos) or a stop id.
+    device: each step attends the prefix clip(pos, 0, max_pos + 1) and runs
+    decode_forward with the cache read-only. A slot dies when it samples an
+    eos id (unless ignore_eos) or a stop id; a dead slot, or one past
+    max_pos, writes its rows into the scratch page.
+
+    The decode path (`path`, models/llama.decode_path) picks the body:
+
+    - "ragged", or "gather" without `window_bufs` (the per-token deferred
+      gather): the JAX kernel-mode body. Each step's kv rows are scattered
+      into the cache in place at its write slot (`_scatter_new_kv`; an int8
+      cache quantizes them there).
+    - "gather" with `window_bufs` = (k_base, v_base [L, Hkv, S, Pb_base *
+      ps, hd], k_win, v_win [L, Hkv, S, n_steps, hd]), static buffers of
+      the model dtype: the JAX pregather body. The window gathers each
+      slot's first Pb_base pages once into the base (`_gather_base`; an
+      int8 cache dequantized there), valid up to base_len, the position at
+      the window's start (V's rows past it zeroed there, so the steps read
+      the base as it is); step t writes its full-precision rows at index t
+      of the window buffer; attention merges base, window and the current
+      token (decode_attention_split); the window's rows reach the cache in
+      one scatter at its end (int8 caches quantize them there). The caller
+      sizes Pb_base to cover every position the window attends.
 
     Returns (tokens [N, S] int32, lps, top_ids, top_lps, moe, (tok_f,
     pos_f, ctr_f)), still on the device; the lp outputs are None unless
@@ -1276,9 +1414,19 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
             if rep_penalty is not None else None)
     tok, pos, ctr = tokens, positions, counters
     alive = max_pos >= 0
+    pregather = path == "gather" and window_bufs is not None
+    if pregather:
+        k_base, v_base, k_win, v_win = window_bufs
+        base_pb = k_base.shape[3] // page_size
+        # valid kv at the window's start, fixed across it: the window
+        # buffer holds everything generated after it
+        base_len = torch.minimum(torch.clamp(pos, min=0), max_pos + 1)
+        _gather_base(cache, page_table[:, :base_pb], k_base, v_base,
+                     base_len)
+        write_idxs = []
     outs = []
     moe = None
-    for _ in range(n_steps):
+    for t in range(n_steps):
         writable = (pos <= max_pos) & alive
         prefix = torch.minimum(torch.clamp(pos, min=0), max_pos + 1)
         # flat global-cache slot of this step's row (-1 = dropped)
@@ -1286,10 +1434,25 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
                                             min=0).long() // page_size]
         write_idx = torch.where(writable,
                                 page * page_size + pos % page_size, -1)
-        logits, k_news, v_news, aux = llama.decode_forward(
-            params, cfg, tok, cache, page_table, prefix, pos,
-            valid=writable, with_aux=True)
-        _scatter_new_kv(cache, k_news, v_news, write_idx)
+        if pregather:
+            # in-window tokens so far: window index j is step j for every
+            # slot; entries j < win_len are valid
+            window = (k_base, v_base, k_win, v_win, base_len,
+                      prefix - base_len)
+            logits, k_news, v_news, aux = llama.decode_forward(
+                params, cfg, tok, cache, page_table, prefix, pos,
+                valid=writable, with_aux=True, window=window, path=path)
+            # this step's rows land at index t for every slot; a slot that
+            # may not write stores garbage there, but its win_len stops
+            # growing (or it is dead) and its writeback is dropped
+            k_win[:, :, :, t].copy_(k_news.transpose(1, 2))
+            v_win[:, :, :, t].copy_(v_news.transpose(1, 2))
+            write_idxs.append(write_idx)
+        else:
+            logits, k_news, v_news, aux = llama.decode_forward(
+                params, cfg, tok, cache, page_table, prefix, pos,
+                valid=writable, with_aux=True, path=path)
+            _scatter_new_kv(cache, k_news, v_news, write_idx)
         if aux:
             counts = _moe_counts(aux)
             moe = counts if moe is None else moe + counts
@@ -1308,6 +1471,15 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
             alive = alive & ~(nxt[:, None] == stop_ids).any(dim=1)
         outs.append((nxt, lp, top_ids, top_lps))
         tok, pos, ctr = nxt, pos + 1, ctr + 1
+    if pregather:
+        # end-of-window writeback: every step's rows into the paged cache
+        # in one scatter, slot-major ([L, Hkv, S, N, hd] -> [L, S * N, Hkv,
+        # hd] beside the write slots [S, N])
+        l, hkv, _, nw, hd = k_win.shape
+        def rows_of(w):
+            return w.permute(0, 2, 3, 1, 4).reshape(l, s * nw, hkv, hd)
+        _scatter_new_kv(cache, rows_of(k_win), rows_of(v_win),
+                        torch.stack(write_idxs, 1).reshape(-1))
     toks = torch.stack([o[0] for o in outs])
     if not with_lp:
         return toks, None, None, None, moe, (tok, pos, ctr)

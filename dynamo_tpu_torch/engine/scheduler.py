@@ -172,6 +172,11 @@ class EngineMetrics:
     pipeline_fallbacks: int = 0
     mixed_steps: int = 0
     decode_stall_steps: int = 0
+    # the decode attention path resolved at engine build ("ragged" |
+    # "gather") and why, and the last window's path + sampling tail
+    decode_path: str = ""
+    decode_path_reason: str = ""
+    decode_kernel_tag: str = ""
     # KV representation (ops/kv_quant.py): bytes one page occupies on the
     # device (k + v + scales) and the quantized bit width (0 = unquantized)
     kv_page_bytes: int = 0

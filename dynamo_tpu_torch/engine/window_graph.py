@@ -24,7 +24,11 @@ takes the host's launch work out of the step.
   receiver's host-to-device copies) takes it too, so none of its
   allocations overlaps a capture.
 - Buffers. Inputs are static buffers, one set per shape (`inputs`), shared
-  by the variants of that shape; the engine uploads a plan into them. The
+  by the variants of that shape; the engine uploads a plan into them.
+  Buffers that every graph shares whatever its shapes (`static`: the gather
+  window's base and window buffers, sized once for the largest window) are
+  allocated here too, outside every capture, so no graph's pool holds a
+  copy of them. The
   program writes its final (token, position, counter) carry back into its
   own input buffers, so a follow-up window replays with no copy at all.
   Outputs live in the pool and are valid until the next replay of any
@@ -33,7 +37,9 @@ takes the host's launch work out of the step.
 - Launch counts. A kernel wrapper called during capture launches nothing
   and counts a captured call (ops/paged_attention.py, ops/quant.py); each
   replay adds the calls its graph holds to each wrapper's launch count
-  (`KERNELS` names them).
+  (`KERNELS` names them). The replays are also counted by the decode path
+  their programs run ("ragged" or "gather": `replay_paths`); a gather
+  graph holds no ragged call.
 - Outputs of MoE windows include the window's summed expert-dispatch
   counts; like the tokens they are copied out after each replay, so a
   warm-up or a replay whose outputs are never read counts nothing.
@@ -41,7 +47,9 @@ takes the host's launch work out of the step.
 On CPU tensors `run` calls the program directly: the tests run the same
 function eagerly, as a kernel's wrapper takes its plain version for CPU
 tensors. On the card every window is one replay; a capture or replay that
-fails raises, and nothing falls back to eager. A failed capture is taken
+fails raises, and nothing falls back to eager. `eager = True` runs every
+window directly on the card too, graphs aside: a reference for the graph
+windows, which serving never sets. A failed capture is taken
 apart before it raises (the pool no longer takes the stream's allocations,
 the half-built graph is dropped), so the next `run` captures afresh.
 """
@@ -88,6 +96,7 @@ class WindowGraphs:
         # held for each capture (see the module docstring)
         self.capture_lock = threading.Lock()
         self.captured = 0           # graphs captured since the last reset
+        self.capture_times: list = []  # time.time() at each capture
         self.resets = 0             # times every graph was dropped
         self.warmup_seconds = 0.0   # wall time of the eager warm-ups
         self.capture_seconds = 0.0  # wall time of the captures
@@ -96,6 +105,9 @@ class WindowGraphs:
         # by kernel
         self.warmup_launches = {name: 0 for name in KERNELS}
         self.replay_launches = {name: 0 for name in KERNELS}
+        self.replay_paths: Dict[str, int] = {}   # decode path -> replays
+        self._static: Dict[str, torch.Tensor] = {}
+        self.eager = False   # run windows directly (a reference; see above)
 
     def inputs(self, shapes: tuple,
                spec: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
@@ -108,12 +120,29 @@ class WindowGraphs:
             self._inputs[shapes] = bufs
         return bufs
 
-    def run(self, key: tuple, program: Callable, bufs: Dict[str, torch.Tensor]):
-        """Run the window program `program(bufs)` keyed by `key`: directly on
-        the CPU; on the card as the replay of its graph, captured first if
-        the key is new. Returns the program's outputs (on the card, the
-        graph's pool tensors)."""
-        if self.device.type != "cuda":
+    def static(self, name: str, numel: int,
+               dtype: torch.dtype) -> torch.Tensor:
+        """A flat buffer of `numel` elements shared by every graph, made
+        once (zero-filled) at its first request; callers view prefixes of
+        it. A later request for more than it holds raises: it was sized
+        for the largest."""
+        buf = self._static.get(name)
+        if buf is None:
+            buf = self._static[name] = torch.zeros(numel, dtype=dtype,
+                                                   device=self.device)
+        if buf.numel() < numel or buf.dtype != dtype:
+            raise ValueError(f"static buffer {name!r} holds {buf.numel()} "
+                             f"{buf.dtype}, asked for {numel} {dtype}")
+        return buf
+
+    def run(self, key: tuple, program: Callable,
+            bufs: Dict[str, torch.Tensor], path: str = ""):
+        """Run the window program `program(bufs)` keyed by `key` (the
+        decode `path` it runs): directly on the CPU (or with `eager`); on
+        the card as the replay of its graph, captured first if the key is
+        new. Returns the program's outputs (on the card, the graph's pool
+        tensors)."""
+        if self.device.type != "cuda" or self.eager:
             return program(bufs)
         with torch.cuda.stream(self.stream):
             rec = self._graphs.get(key)
@@ -126,6 +155,7 @@ class WindowGraphs:
             setattr(mod, attr, getattr(mod, attr) + n)
             self.replay_launches[name] += n
         self.replays += 1
+        self.replay_paths[path] = self.replay_paths.get(path, 0) + 1
         return outs
 
     def _capture(self, key: tuple, program: Callable, bufs) -> tuple:
@@ -168,6 +198,7 @@ class WindowGraphs:
                              for name, n in _counts(2).items()})
         self._graphs[key] = rec
         self.captured += 1
+        self.capture_times.append(time.time())
         self.capture_seconds += time.perf_counter() - t1
         return rec
 
@@ -211,6 +242,7 @@ class WindowGraphs:
         cache they were captured over. The caller has synchronized the
         stream, so no replay is still reading them."""
         self._graphs.clear()
+        self.capture_times = []
         self._pool = None
         self._pools = set()
         self.captured = 0

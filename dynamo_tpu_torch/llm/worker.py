@@ -268,15 +268,23 @@ class NativeEngineWorker(AsyncEngine):
         """The endpoint's $STATS reply: the engine's latest metrics (the
         router's load inputs) and the kernel launch counts of this process
         (each wrapper's count, which the window graphs' replays add to,
-        and the launches of the eager warm-ups before captures)."""
+        and the launches of the eager warm-ups before captures), the decode
+        path the engine resolved and its window graphs' captures (with
+        their wall-clock times) and replays (by path)."""
         from dynamo_tpu_torch.engine.window_graph import KERNELS
         graphs = self.engine.graphs
         return {**self.metrics_publisher.stats_handler(),
                 "decode_window_steps": self.engine.decode_window_steps,
+                "decode_path": self.engine.decode_path,
+                "decode_path_reason": self.engine.decode_path_reason,
                 "kernel_launches": {
                     name: getattr(mod, attr)
                     for name, (mod, attr, _) in KERNELS.items()},
-                "graph_warmup_launches": dict(graphs.warmup_launches)}
+                "graph_warmup_launches": dict(graphs.warmup_launches),
+                "graphs": {"captured": graphs.captured,
+                           "capture_times": list(graphs.capture_times),
+                           "replays": graphs.replays,
+                           "replay_paths": dict(graphs.replay_paths)}}
 
 
 async def serve_llm_worker(runtime, namespace: str, component: str,

@@ -41,10 +41,17 @@ page is a scratch page that no page table references: writes with index
 < 0 land there (ops/attention.write_kv_pages{,_quant}), so `init_cache`
 callers ask for one page more than the allocator hands out.
 
-Decode attention always goes through the ragged decode kernel
-(ops/paged_attention.py): `decode_forward` in prefix mode plus
-`combine_self_attention`, `forward` with Tq == 1 in inclusive mode. On CPU
-tensors the kernel's wrapper runs its plain version.
+Decode attention takes the path `decode_path` resolves from the config
+(the port's `_decode_kernel_mode`, after dynamo_tpu/models/llama.py:45-83
+and dynamo_tpu/engine/engine.py:108-133): "ragged", the ragged decode
+kernel (ops/paged_attention.py; `decode_forward` in prefix mode plus
+`combine_self_attention`, `forward` with Tq == 1 in inclusive mode; on CPU
+tensors the kernel's wrapper runs its plain version), or "gather", the
+plain gather attention of ops/attention.py that carries Gemma-2's attention
+soft-cap, sliding windows and query scale (`decode_forward` with a window's
+base + buffer, `decode_attention_split`, or without, the per-step
+`decode_attention_deferred`; `forward` through `paged_attention`). Callers
+that resolved the path once (the engine) pass it as `path`.
 """
 from __future__ import annotations
 
@@ -59,13 +66,14 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.config import ModelConfig, check_supported
 from dynamo_tpu_torch.ops.attention import (
-    paged_attention, write_kv_pages, write_kv_pages_quant,
+    decode_attention_deferred, decode_attention_split, paged_attention,
+    write_kv_pages, write_kv_pages_quant,
 )
 from dynamo_tpu_torch.ops.kv_quant import is_quantized_cache, validate_mode
 from dynamo_tpu_torch.ops.moe import moe_dispatch_mlp, top_k
 from dynamo_tpu_torch.ops.paged_attention import (
     combine_self_attention, decode_paged_attention,
-    decode_paged_attention_prefix,
+    decode_paged_attention_prefix, kernel_geometry_reason,
 )
 from dynamo_tpu_torch.ops.quant import (
     QUANT_KEYS, grouped_linear, is_quantized, linear, linear_group,
@@ -84,6 +92,40 @@ _BIAS_KEYS = (("wq_b", "wq"), ("wk_b", "wk"), ("wv_b", "wv"))
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
+
+
+def decode_path(cfg: ModelConfig) -> tuple:
+    """Resolve the decode attention path: ("ragged" | "gather", reason).
+
+    "off" is the gather window. Attention soft-caps, sliding windows and
+    query scales live only in the gather paths (the TPU kernel has no hook
+    for them, and neither has its CUDA port), and so does a head dim or GQA
+    group the ragged kernel cannot take; those resolve to the gather window
+    with the reason named (the engine logs it once, at build). Otherwise
+    "auto", "on"
+    and "interpret" are the ragged kernel (on CPU tensors its plain
+    version). The same on every device, so a CPU run takes the path the
+    card takes.
+
+    This departs from JAX on purpose: its "auto" is the gather window
+    everywhere, on a TPU v5e measurement (dynamo_tpu/models/llama.py:
+    56-64); the port's "auto" keeps the hand-written kernel wherever it
+    serves the config (ROADMAP.md §C)."""
+    mode = cfg.decode_kernel
+    if mode == "off":
+        return "gather", "decode_kernel='off'"
+    knobs = [name for name in ("attn_softcap", "sliding_window",
+                               "query_scale") if getattr(cfg, name)]
+    reason = None
+    if knobs:
+        reason = (f"{', '.join(knobs)} set: the ragged kernel has no hook "
+                  f"for attention soft-caps, sliding windows or query "
+                  f"scales")
+    else:
+        reason = kernel_geometry_reason(cfg.head_dim, cfg.q_per_kv)
+    if reason is not None:
+        return "gather", reason
+    return "ragged", f"decode_kernel={mode!r}"
 
 
 @dataclasses.dataclass
@@ -417,6 +459,20 @@ def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor):
     return logits
 
 
+def _resolved(cfg: ModelConfig, path: Optional[str]) -> str:
+    """The caller's resolved decode path, or the config's; a ragged path
+    for a config whose decode the kernel cannot serve is refused rather
+    than served without its knobs."""
+    if path is None:
+        return decode_path(cfg)[0]
+    if path not in ("ragged", "gather"):
+        raise ValueError(f"unknown decode path {path!r}")
+    if path == "ragged" and decode_path(cfg)[0] != "ragged":
+        raise ValueError(f"model {cfg.name!r} cannot decode through the "
+                         f"ragged kernel: {decode_path(cfg)[1]}")
+    return path
+
+
 def decode_forward(
     params: Params,
     cfg: ModelConfig,
@@ -427,16 +483,33 @@ def decode_forward(
     positions: torch.Tensor,     # [B] — absolute position of this token
     valid: Optional[torch.Tensor] = None,  # [B] bool, real (non-pad) slots
     with_aux: bool = False,
+    window: Optional[tuple] = None,  # the gather window's split KV view
+    path: Optional[str] = None,      # "ragged" | "gather" (decode_path)
 ) -> tuple:
     """Deferred-write decode step: the KV cache is READ-ONLY.
 
     Returns (last_logits [B, V] f32, k_new [L, B, Hkv, hd],
     v_new [L, B, Hkv, hd]), plus the aux dict with with_aux (the MoE
     dispatch's summed counts); the caller scatters the new kv rows into the
-    cache in one update per step. Attention is the ragged kernel in prefix
-    mode over the cached prefix plus an explicit self-term for the current
-    token (combine_self_attention), exact because decode is causal. An MoE
-    dispatch routes only the `valid` rows."""
+    cache in one update per step. Attention over the cached prefix plus an
+    explicit self-term for the current token, exact because decode is
+    causal, takes one of three branches (JAX :328-441):
+
+    - `window` = (k_base, v_base [L, Hkv, B, Lb, hd], k_win, v_win [L, Hkv,
+      B, Nw, hd], base_lens [B], win_lens [B]): the gather window's split
+      view, `decode_attention_split` (the caller gathered each slot's valid
+      prefix once a window, its V rows past base_lens zeroed, and keeps
+      this window's rows in the buffer);
+    - path "ragged": the ragged kernel in prefix mode plus
+      `combine_self_attention`;
+    - path "gather" without a window: `decode_attention_deferred`, the
+      pages gathered every step (an int8 cache dequantized after the
+      gather).
+
+    The gather branches pass each layer's window (`layer_windows`), the
+    attention soft-cap and the query scale. An MoE dispatch routes only the
+    `valid` rows."""
+    path = _resolved(cfg, path)
     lp = params["layers"]
     # ids validated at admission (engine._validate_prompt); decode feeds
     # only sampled ids  # dynalint: disable-next-line=R1
@@ -445,16 +518,35 @@ def decode_forward(
     # int8 caches hand the kernel the whole scale stacks; it folds them
     # into its scores and probabilities
     ks, vs = cache.get("k_scale"), cache.get("v_scale")
+    lw = cfg.layer_windows()
+    knobs = dict(softcap=cfg.attn_softcap, q_scale=cfg.query_scale)
     token_valid = None if valid is None else valid[:, None]
     k_news, v_news, drops = [], [], []
     for l in range(cfg.num_layers):
+        wnd = None if lw is None else lw[l]
         q, k, v = _qkv(x, lp, l, cfg, pos)
         k_new, v_new = k[:, 0], v[:, 0]                  # [B, Hkv, hd]
-        # dynalint: kv-codec — the kernel reads int8 pages with their scales
-        acc, m, lsum = decode_paged_attention_prefix(
-            q[:, 0].contiguous(), cache["k"], cache["v"], l, page_table,
-            prefix_lens, ks, vs)
-        attn = combine_self_attention(q[:, 0], k_new, v_new, acc, m, lsum)
+        if window is not None:
+            kb, vb, kw, vw, base_lens, win_lens = window
+            attn = decode_attention_split(
+                q[:, 0], kb[l], vb[l], kw[l], vw[l], k_new, v_new,
+                base_lens, win_lens, window=wnd, **knobs)
+        elif path == "ragged":
+            # the kernel reads int8 pages with their scales
+            # dynalint: kv-codec
+            acc, m, lsum = decode_paged_attention_prefix(
+                q[:, 0].contiguous(), cache["k"], cache["v"], l, page_table,
+                prefix_lens, ks, vs)
+            attn = combine_self_attention(q[:, 0], k_new, v_new, acc, m,
+                                          lsum)
+        else:
+            # per-layer views; the gather dequantizes an int8 layer's
+            # pages with their scale rows  # dynalint: kv-codec
+            attn = decode_attention_deferred(
+                q[:, 0], cache["k"][l], cache["v"][l], k_new, v_new,
+                page_table, prefix_lens, window=wnd,
+                k_scale=None if ks is None else ks[l],
+                v_scale=None if vs is None else vs[l], **knobs)
         x, d = _block_tail(x, attn[:, None], lp, l, cfg, token_valid)
         k_news.append(k_new)
         v_news.append(v_new)
@@ -473,19 +565,25 @@ def forward(
     meta: AttnMetadata,
     last_idx: Optional[torch.Tensor] = None,  # [B]: logits of one column
     with_aux: bool = False,
+    path: Optional[str] = None,      # "ragged" | "gather" (decode_path)
 ) -> tuple:
     """One paged forward step; writes this step's kv into the cache in
     place. Returns (logits, cache), plus the aux dict with with_aux (the
     MoE dispatch's summed counts): logits [B, Tq, V] f32, or [B, V] for
     column last_idx[b] of each row when last_idx is given (the engine's
     step samples one position per row, and the full [B, Tq, V] block of a
-    128k vocabulary is gigabytes). An MoE dispatch routes only the real
+    128k vocabulary is gigabytes). A single-token step (Tq == 1) on the
+    ragged path runs the kernel in inclusive mode; every other step runs
+    `paged_attention` with the layer's window, the attention soft-cap and
+    the query scale (JAX :536-610). An MoE dispatch routes only the real
     positions (write_idx >= 0)."""
     b, tq = tokens.shape
+    use_kernel = tq == 1 and _resolved(cfg, path) == "ragged"
     lp = params["layers"]
     # admission validated the ids  # dynalint: disable-next-line=R1
     x = scale_embeds(params["embed"][tokens.long()], cfg)  # [B, Tq, D]
     quant = is_quantized_cache(cache)
+    lw = cfg.layer_windows()
     # real (non-padding) positions: padding slots carry write_idx < 0
     token_valid = meta.write_idx >= 0
     drops = []
@@ -502,13 +600,16 @@ def forward(
         else:
             ksc = vsc = None
             write_kv_pages(kc, vc, k, v, meta.write_idx)
-        if tq == 1:
+        if use_kernel:
             attn = decode_paged_attention(
                 q[:, 0].contiguous(), kc, vc, meta.page_table,
                 meta.kv_lens, ksc, vsc)[:, None]
         else:
-            attn = paged_attention(q, kc, vc, meta.page_table, meta.kv_lens,
-                                   meta.positions, ksc, vsc)
+            attn = paged_attention(
+                q, kc, vc, meta.page_table, meta.kv_lens, meta.positions,
+                ksc, vsc, softcap=cfg.attn_softcap,
+                window=None if lw is None else lw[l],
+                q_scale=cfg.query_scale)
         x, d = _block_tail(x, attn, lp, l, cfg, token_valid)
         if d is not None:
             drops.append(d)

@@ -82,14 +82,16 @@ def config_from_hf(hf: Dict[str, Any], name: str = "") -> ModelConfig:
             f"without rope scaling (e.g. the base-context variant)")
     max_len = int(hf.get("max_position_embeddings", 2048))
     sliding = 0
+    sliding_pattern = "alternate"
     if gemma2 and hf.get("sliding_window"):
+        # per-layer sliding / global alternation, served by the gather
+        # decode (models/llama.decode_path)
         sliding = int(hf["sliding_window"])
         types = hf.get("layer_types")
-        # the port serves no sliding window (check_supported refuses it),
-        # so which layers slide is not recorded; the patterns JAX refuses
-        # are refused here too
-        if types is not None and not all(t == "sliding_attention"
-                                         for t in types) and types != [
+        if types is not None and all(t == "sliding_attention"
+                                     for t in types):
+            sliding_pattern = "all"
+        elif types is not None and types != [
                 "sliding_attention" if i % 2 == 0 else "full_attention"
                 for i in range(hf["num_hidden_layers"])]:
             raise ValueError(
@@ -128,6 +130,7 @@ def config_from_hf(hf: Dict[str, Any], name: str = "") -> ModelConfig:
         query_scale=float(hf.get("query_pre_attn_scalar", 0)) ** -0.5
         if gemma2 and hf.get("query_pre_attn_scalar") else 0.0,
         sliding_window=sliding,
+        sliding_pattern=sliding_pattern,
         num_experts=int(hf.get("num_local_experts", 0)) if moe else 0,
         num_experts_per_tok=int(hf.get("num_experts_per_tok", 2)),
     )

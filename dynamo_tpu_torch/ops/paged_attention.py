@@ -8,7 +8,10 @@ flash state in f32): the wrapper takes it only for CPU tensors, which is
 how the CPU tests run; for CUDA tensors it launches the kernel or raises.
 
 The kernel is split-KV over whole pages: one block per (run of pages, kv
-head, row) writes a partial flash state, and a second small kernel merges
+head, row) writes a partial flash state (a kv head whose GQA group is
+larger than 8 takes ceil(G / 8) blocks, each for 8 of its query heads and
+each reading its pages: head dims 32, 64, 96, 128 and 256, groups up to
+16), and a second small kernel merges
 each row's partials (both launched by the one C call). The host picks the
 run length from shapes only (`_pages_per_split`), never from lens, so a call
 needs no host sync and can be captured in a CUDA graph. `_ragged_split_plain`
@@ -53,8 +56,24 @@ KERNEL_LAUNCHES = 0
 CAPTURED_CALLS = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_KERNEL_HEAD_DIMS = (32, 64, 128)
-_G_MAX = 8
+_KERNEL_HEAD_DIMS = (32, 64, 96, 128, 256)
+# the largest GQA group the kernel takes, and the query heads one block
+# serves: a kv head's group of more than _G_BLOCK heads is split over
+# ceil(G / _G_BLOCK) blocks, each reading the kv head's pages
+_G_MAX = 16
+_G_BLOCK = 8
+
+
+def kernel_geometry_reason(head_dim: int, group: int):
+    """Why the kernel cannot take a model's head dim or GQA group, or None
+    when it can (the decode path's resolution, models/llama.decode_path)."""
+    if head_dim not in _KERNEL_HEAD_DIMS:
+        return (f"head_dim {head_dim}: the ragged kernel takes head dims "
+                f"{_KERNEL_HEAD_DIMS}")
+    if group > _G_MAX:
+        return (f"GQA group {group}: the ragged kernel takes groups of at "
+                f"most {_G_MAX}")
+    return None
 
 
 def _ragged_plain(q, k_cache, v_cache, layer: int, page_table, lens,
@@ -154,8 +173,10 @@ _BLOCKS_PER_SM = 4
 def _pages_per_split(s: int, hkv: int, pb: int, sm_count: int) -> int:
     """Pages one split block walks, from shapes only (never from lens, so
     the call needs no host sync): enough splits of each row's Pb pages that
-    S * Hkv * splits reaches ~_BLOCKS_PER_SM blocks per SM, each split at
-    least one page. The grid's splits = ceil(Pb / result) cover every page."""
+    S * hkv * splits reaches ~_BLOCKS_PER_SM blocks per SM, each split at
+    least one page (`hkv`: the blocks along the head axis, kv heads times
+    their head blocks). The grid's splits = ceil(Pb / result) cover every
+    page."""
     want = -(-_BLOCKS_PER_SM * sm_count // max(s * hkv, 1))
     splits = max(1, min(pb, want))
     return -(-pb // splits)
@@ -175,9 +196,9 @@ def _ring_smem_bytes(q_dtype, cache_dtype, hd: int, pps: int) -> int:
     nwarp = ct // 8                      # 8 tokens a warp
     stage = 2 * ct * (hd * esz + 16) + (2 * ct * 4 if esz == 1 else 0)
     q_s = (hd * 16 if q_dtype == torch.bfloat16      # q's A fragments
-           else _G_MAX * (hd + 4) * 4)               # prescaled f32 q
-    fixed = (_RING_STAGES * stage + nwarp * _G_MAX * 8 * 4
-             + nwarp * _G_MAX * 4 + q_s)
+           else _G_BLOCK * (hd + 4) * 4)             # prescaled f32 q
+    fixed = (_RING_STAGES * stage + nwarp * _G_BLOCK * 8 * 4
+             + nwarp * _G_BLOCK * 4 + q_s)
     return fixed + -(-pps * 4 // 16) * 16
 
 
@@ -291,7 +312,9 @@ def _ragged_kernel(q, k_cache, v_cache, layer: int, page_table, lens,
     pb = page_table.shape[1]
     dev = q.device
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    pps = _pages_per_split(s, hkv, pb, _sm_count(index))
+    # blocks along the head axis: one per kv head and block of its group
+    heads = hkv * -(-(h // hkv) // _G_BLOCK)
+    pps = _pages_per_split(s, heads, pb, _sm_count(index))
     splits = -(-pb // pps)
     acc = torch.empty((s, h, hd), dtype=torch.float32, device=dev)
     m = torch.empty((s, h, 1), dtype=torch.float32, device=dev)

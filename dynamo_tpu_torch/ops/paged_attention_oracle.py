@@ -36,8 +36,14 @@ import functools
 import torch
 
 from dynamo_tpu_torch.ops.paged_attention import (
-    _DTYPE_CODE, _G_MAX, _KERNEL_HEAD_DIMS, NEG_INF, _check_scales, _ptr,
+    _DTYPE_CODE, NEG_INF, _check_scales, _ptr,
 )
+
+# the legacy kernel's geometries (legacy_decode_attention.cu), as the TPU
+# kernels it replaces serve them: hd 32 and 64 (packed) and 128, GQA groups
+# of at most 8
+_KERNEL_HEAD_DIMS = (32, 64, 128)
+_G_MAX = 8
 
 # launches of the CUDA kernel since import (or since a caller reset it)
 KERNEL_LAUNCHES = 0

@@ -5,8 +5,8 @@ on the same files, written here with transformers and `tokenizers`.
 - config_from_hf: every field as JAX's (the port also reads the model
   dtype from config.json), and the same refusals;
 - load_params_from_hf: every leaf bit-equal to the JAX loader's (compared
-  as f32) for llama, tied llama, qwen2, mixtral, gemma, gemma2 (whose
-  serving the port refuses by name) and phi3, from an f32 checkpoint at f32
+  as f32) for llama, tied llama, qwen2, mixtral, gemma, gemma2 and phi3,
+  from an f32 checkpoint at f32
   and at bf16 and from a bf16 checkpoint at bf16, sharded or not; with
   quant="int8" byte-equal to quantize_params of the bf16 tree;
 - forward logits in f32 within 1e-5 of JAX and 2e-4 of transformers (the
@@ -14,7 +14,8 @@ on the same files, written here with transformers and `tokenizers`.
 - the hand-written safetensors reader equal to `safe_open` on
   hypothesis-drawn shapes and dtypes;
 - engines on the same directory token-identical to the JAX engine in f32
-  (greedy, seeded-sampled, int8 weights greedy), chat templates rendered
+  (greedy, seeded-sampled, int8 weights greedy; Gemma-2 through the gather
+  window, its sliding window crossed), chat templates rendered
   as JAX renders them, `run.py in=batch` as a process equal to the JAX
   `run.py` on the same directory, and a served stream equal to
   transformers.generate (tools/real_ckpt_e2e.py's checkpoint).
@@ -146,10 +147,8 @@ def _f32(x):
 
 def _configs_equal(tcfg, jcfg):
     t, j = dataclasses.asdict(tcfg), dataclasses.asdict(jcfg)
-    # JAX knobs the port has no reader for (the port refuses every
-    # sliding window, so which layers slide is not kept)
-    for key in ("decode_kernel", "vision", "sliding_pattern"):
-        j.pop(key)
+    # the JAX knob the port has no reader for (vision comes with A11)
+    j.pop("vision")
     assert t == j
 
 
@@ -233,7 +232,7 @@ def _meta_t(t):
         write_idx=torch.arange(t, dtype=torch.int32)[None])
 
 
-@pytest.mark.parametrize("name", [f for f in FAMILIES if f != "gemma2"])
+@pytest.mark.parametrize("name", FAMILIES)
 def test_forward_logits(checkpoints, name):
     path, model = checkpoints[(name, "float32")]
     hf = _hf(path)
@@ -259,13 +258,33 @@ def test_forward_logits(checkpoints, name):
 
 
 def test_gemma2_serving_refused_by_name(checkpoints):
-    cfg = tloader.config_from_hf(_hf(checkpoints[("gemma2", "float32")][0]))
+    """Gemma-2, once refused by name, is served: its config resolves the
+    decode to the gather window with its knobs named, and an engine on the
+    checkpoint streams token-identical to the JAX engine at its default
+    decode_kernel="auto" (the gather window too), greedy, with prompts and
+    windows that cross the 6-token sliding window."""
+    path = checkpoints[("gemma2", "float32")][0]
+    hf = _hf(path)
+    cfg = tloader.config_from_hf(hf)
     assert cfg.post_norms and cfg.final_softcap == 30.0
-    with pytest.raises(NotImplementedError, match="soft-caps"):
-        check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="soft-caps"):
-        TNativeEngine(cfg, TEngineConfig(num_pages=8, page_size=8),
-                      device="cpu")
+    assert cfg.sliding_pattern == "alternate"
+    check_supported(cfg, "cuda")
+    assert tllama.decode_path(cfg) == (
+        "gather", "attn_softcap, sliding_window, query_scale set: the "
+        "ragged kernel has no hook for attention soft-caps, sliding "
+        "windows or query scales")
+    jcfg = dataclasses.replace(jconfig_from_hf(hf), dtype="float32")
+    tcfg = dataclasses.replace(cfg, dtype="float32")
+    jeng = JNativeEngine(jcfg, JEngineConfig(**ENGINE_KW),
+                         params=jload_params(path, jcfg))
+    teng = TNativeEngine(tcfg, TEngineConfig(**ENGINE_KW),
+                         params=tloader.load_params_from_hf(path, tcfg),
+                         device="cpu")
+    reqs = REQS["greedy"]
+    want = _drive(jeng, JRequest, JSamplingParams, reqs)
+    assert _drive(teng, TRequest, TSamplingParams, reqs) == want
+    assert all(len(v) > 3 for v in want.values())
+    assert teng.metrics().decode_path == "gather"
 
 
 @pytest.mark.parametrize("patch,match", [

@@ -192,6 +192,18 @@ def test_dropped_writes_land_in_the_scratch_page():
                                   dict(sliding_window=64),
                                   dict(query_scale=0.1)])
 def test_unservable_configs_are_refused(knob):
+    """The Gemma-2 attention knobs, once refused, are served now: the
+    decode resolves to the gather window with the knob named, and a
+    ragged path asked for such a config is refused rather than served
+    without the knob, as is an unknown decode_kernel."""
     cfg = dataclasses.replace(TCFG, **knob)
-    with pytest.raises(NotImplementedError):
-        tllama.init_params(cfg, "cpu")
+    tllama.init_params(cfg, "cpu")
+    path, reason = tllama.decode_path(cfg)
+    assert path == "gather" and next(iter(knob)) in reason
+    assert tllama.decode_path(dataclasses.replace(cfg, decode_kernel="off")
+                              ) == ("gather", "decode_kernel='off'")
+    with pytest.raises(ValueError, match="cannot decode through the ragged"):
+        tllama._resolved(cfg, "ragged")
+    with pytest.raises(ValueError, match="unknown decode_kernel"):
+        tllama.init_params(dataclasses.replace(cfg, decode_kernel="fast"),
+                           "cpu")

@@ -195,21 +195,31 @@ def test_init_params_new_leaves():
 
 @pytest.mark.parametrize("geometry,ok", [
     (dict(head_dim=128, num_heads=32, num_kv_heads=8), True),
-    (dict(head_dim=256, num_heads=8, num_kv_heads=1), False),
-    (dict(head_dim=96, num_heads=32, num_kv_heads=32), False),
-    (dict(head_dim=64, num_heads=32, num_kv_heads=2), False),
+    (dict(head_dim=256, num_heads=8, num_kv_heads=1), True),
+    (dict(head_dim=96, num_heads=32, num_kv_heads=32), True),
+    (dict(head_dim=64, num_heads=32, num_kv_heads=2), True),
+    (dict(head_dim=256, num_heads=16, num_kv_heads=8), True),
+    (dict(head_dim=128, num_heads=96, num_kv_heads=8), True),
+    (dict(head_dim=80, num_heads=32, num_kv_heads=8), False),
+    (dict(head_dim=64, num_heads=32, num_kv_heads=1), False),
 ])
 def test_kernel_geometry_refused_on_cuda_only(geometry, ok):
-    """A head dim or GQA group the ragged kernel cannot take is refused
-    for a CUDA engine, by name of the limits; the CPU serves it."""
+    """No geometry is refused any more, on any device: the ragged kernel
+    takes head dims 32, 64, 96, 128 and 256 and GQA groups up to 16; any
+    other head dim or group resolves the decode to the gather window, with
+    the limit named, on the CPU and the card alike."""
     cfg = TModelConfig(**geometry)
     check_supported(cfg, "cpu")
+    check_supported(cfg, "cuda")
+    path, reason = tllama.decode_path(cfg)
     if ok:
-        check_supported(cfg, "cuda")
+        assert (path, reason) == ("ragged", "decode_kernel='auto'")
     else:
-        with pytest.raises(NotImplementedError,
-                           match=r"head dims \(32, 64, 128\).*at most 8"):
-            check_supported(cfg, "cuda")
+        assert path == "gather"
+        assert reason in (
+            "head_dim 80: the ragged kernel takes head dims "
+            "(32, 64, 96, 128, 256)",
+            "GQA group 32: the ragged kernel takes groups of at most 16")
 
 
 def test_dtype_refused_on_cuda_only():

@@ -274,7 +274,7 @@ def test_ring_fits_shared_memory():
                      (torch.bfloat16, torch.bfloat16),
                      (torch.float32, torch.int8),
                      (torch.bfloat16, torch.int8)):
-        for hd in (32, 64, 128):
+        for hd in tpa._KERNEL_HEAD_DIMS:
             assert tpa._ring_smem_bytes(qdt, cdt, hd, 1024) <= tpa._SMEM_MAX
     # bf16 at hd 128: 3 stages of 64 rows of K and V, 272 bytes a row; 8
     # warps' probabilities and rescale factors; q's A fragments; 12 page ids
