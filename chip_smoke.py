@@ -177,10 +177,14 @@ Phases (any failed check exits non-zero; nothing is caught):
    points: `python -m dynamo_tpu_torch.runtime.transports.server --port 0`
    (READY control-plane=:<port>); two workers started together,
    `python -m dynamo_tpu_torch.run in=endpoint:dynamo.llm.generate
-   out=native llama3-8b --control-host 127.0.0.1 --control-port <port>`
-   (llama3-8b at full width and depth, the same bf16 weights from seed 0 in
-   both, bf16 KV pages, the default EngineConfig; each READY line names
-   the card it runs on, which must be this card); two frontends,
+   out=native llama3-8b --control-host 127.0.0.1 --control-port <port>
+   --mixed-token-budget 0 --max-prefill-batch 1` (llama3-8b at full width
+   and depth, the same bf16 weights from seed 0 in both, bf16 KV pages,
+   run.py's EngineConfig with prefill steps and decode windows
+   alternating and one sequence a prefill step, so that no stream's
+   arithmetic follows what arrived with it: 11k compares streams batched
+   apart; each READY line names the card it runs on, which must be this
+   card); two frontends,
    `python -m dynamo_tpu_torch.frontend.serve --port 0 --control-port
    <port>`, one KV-routed and one with --no-kv-routing, each listing
    llama3-8b with two instances. First a warm-up round through the
@@ -232,11 +236,17 @@ Phases (any failed check exits non-zero; nothing is caught):
    prompts of the same shapes (no prefix shared inside the wave, so that
    every stream is admitted and prefilled at once), max_tokens 128,
    logprobs with the top 8, through the KV-routed frontend, after a
-   warm-up wave of the same 8 requests: the router then sends each to the
-   worker that holds its prompt's pages, so every stream prefills one page
-   and all 8 decode together (a wave of fresh 1.2k-token prompts staggers
-   their starts by seconds, and the first streams end before the last
-   begin), and both workers hold the window graphs the wave replays. Once
+   warm-up of the same 8 requests, each sent twice through the
+   round-robin frontend (one request at a time until its first frame, so
+   a request's two copies are consecutive picks), so that both workers
+   hold every prompt's pages,
+   each prefilled alone (the router scores every prompt on both before
+   the wave): every stream prefills one page and all 8 decode together (a
+   wave of fresh 1.2k-token prompts staggers their starts by seconds, and
+   the first streams end before the last begin), both workers hold the
+   window graphs the wave replays, and a migrated stream and its replay
+   on the survivor read the same prompt KV, so they differ only where the
+   survivor re-prefilled the migrated stream's tail and tokens. Once
    every
    stream holds at least 8 tokens at the client (logprob entries), the
    router's decision log (GET /router/state, keyed by x-request-id, read
@@ -449,7 +459,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    never). Printed: write seconds, load seconds and GB/s (the page cache
    warm), RssAnon growth, READY seconds, TTFT p50 / p90
    (llm_ttft_seconds), the tokenizer's encode ms per 1k prompt tokens,
-   the int8 load's seconds and peak.
+   the int8 load's seconds and peak. 17c runs here, after the plain
+   run.py, on the same directory and chats.
 
 16. The gather decode windows and Gemma-2 (A5), under build/checkpoints
    (removed at the end).
@@ -497,9 +508,69 @@ Phases (any failed check exits non-zero; nothing is caught):
    the kernel's launches only on "auto"; each window's untraced ms per
    decode step with the 8 prompts decoding together.
 
+17. Speculative decoding (A8; engine/spec.py, the engine's verify), spec_k
+   4, greedy, MAX_TOKENS a chat, every stream held to a plain engine's on
+   the same weights: equal, or first differing where the plain engine's
+   top-1 less top-2 logprob is a near tie (`hold_ids`; NEAR_TIE in bf16).
+   a. llama3-8b bf16 (seed 0), EngineConfig(max_model_len=4096) plus
+   spec_decode="ngram": 8 chats of 512-2048 prompt tokens (template
+   included), each quoting one 128-256-byte paragraph three times and
+   asking for it restated, one at a time (each scheduled alike in both
+   engines), in a cold round (captures) and a warm one (the cost gate
+   reset before each). Every engine of 17a and 17b first serves each
+   prompt with max_tokens 1 (`prime`), so that every run prefills the same
+   tail over the same cached pages: the two rounds are then one
+   computation, and the warm one replays the cold one's graphs. Each
+   round: the ragged kernel launched target layers x (the decode steps of
+   the windows it committed, their token arrays' rows, + the verify blocks
+   it recorded) + the graphs' warm-ups, each verify graph holding one
+   ragged call a layer (the block's 8 x 5 rows attend their prefix through
+   the kernel: `block_attention`), one graph replay a verify block; verify
+   replays > 0 over the two rounds; no capture in the warm round. The
+   cost gate's decisions are reported (drafts passed on their cost, as a
+   probe, refused). Then the 8 together (a warm-up run, then the timed
+   one) with speculation and without (tok/s, reported). Then the kernels
+   on the inputs of the verify with the most live rows (its [8, 5] block's
+   40 rows, each slot's page table repeated 5 times, prefix lens its
+   positions[:, 0]; `hold_verify_attention`), on the engine's bf16 pages
+   and on int8 pages quantized from them, layers 0 and L - 1, q seeded:
+   the ragged kernel in prefix mode against its plain version (2e-3), and
+   `block_attention` (the f32 causal fold; on int8 pages the block's rows
+   dequantized) against ops/attention.paged_attention over positions
+   [0, prefix + j] at the block's real tokens (1e-2, outputs in bf16).
+   Then each verify graph's replay ms (CUDA events, its writes sent to
+   the scratch page) beside the plain engine's ms per decode step, as
+   window steps beside the price the gate gives a verify on the card
+   (engine/spec.VERIFY_STEPS). Then 2 chats with int8 weights: the
+   same stream gate, and the tensor-core launches outside the warm-ups
+   equal to those the prefill shapes and each verify block's [8, 5] shape
+   derive (7 L + 1 a block: its 40 rows pass GEMV_MAX_M), 0 dequantize.
+   b. llama3-1b at full width and depth in f32 with the draft the same
+   registry model and seed (spec_decode="draft"): 2 chats one at a time;
+   streams equal to the plain f32 engine's (a first difference only at a
+   top-1 less top-2 <= 1e-3), acceptance >= 0.99, the draft on the ragged
+   kernel, its proposal replays launching it draft layers x spec_k times
+   each; the kernels on the recorded verify's inputs as in (a), f32 pages
+   (1e-4 both); verify and propose replay ms.
+   c. Run by 15b, while its llama3-8b directory (seed 0, the weights of
+   (a)) is on disk: `python -m dynamo_tpu_torch.run in=http:0 out=native
+   <dir> --spec-decode draft --spec-draft llama3-1b` as a process, 15b's 8
+   chats greedy, one at a time, 4 SSE and 4 unary, without logprobs (a
+   logprob plan never speculates). The directory's Llama-3-form tokenizer
+   decodes every id, so the wire's text carries every token: each text
+   and token count equal to 15b's reference (the in-memory engine, run.py's
+   EngineConfig), or the first reference token whose text leaves the
+   served text with a near tie at it or at one of the two before it
+   (`hold_texts`); the EXIT $STATS carry spec_steps and
+   spec_proposed_tokens > 0, the draft's proposal replays launching the
+   ragged kernel draft layers x spec_k times each. Reported: acceptance,
+   verify and window steps, the host ms a verify and a propose, tok/s
+   against 15b's plain run.py (which asks for logprobs).
+
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
 worker process of 11 and 12, each engine's turns in 13, each run of 14,
-each card run and run.py process of 15, and each engine of 16) runs with
+each card run and run.py process of 15, each engine of 16, and each
+round, engine and run.py process of 17) runs with
 every kernel's launch count set to 0 just before it and read just after.
 The third line from the end of the output is one JSON object with the
 kernel records, the second from the end the nvidia-smi reading, and the
@@ -2809,6 +2880,11 @@ def phase_entry_point(model: str = "tiny") -> dict:
 
 DIST_EP = "dynamo.llm.generate"
 DIST_MAX_TOKENS = 32
+DIST_PAGE = 64            # the registry models' KV page size
+# phase 11's workers: prefill steps and decode windows alternate, one
+# sequence a prefill step, so no stream's arithmetic follows what else
+# arrived with it
+DIST_SCHEDULE = ("--mixed-token-budget", "0", "--max-prefill-batch", "1")
 
 
 class Child:
@@ -3465,23 +3541,47 @@ def first_difference_of(a: list, b: list):
     return None if len(a) == len(b) else min(len(a), len(b))
 
 
-async def drive_kill(fe_port: int, model: str, sys_len: int,
+async def drive_kill(fe_port: int, rr_port: int, model: str, sys_len: int,
                      workers: dict) -> dict:
     """Phase 11k (see the docstring at the top): the wave, the kill of the
     worker holding the most streams, the checks, the replay on the
-    survivor. `workers`: {worker id: Child}."""
+    survivor. `workers`: {worker id: Child}; `rr_port`: the round-robin
+    frontend, which places the warm-up."""
     name = "distributed path, worker killed mid-wave"
     reqs = {f"kill-p{p}": kill_body(model, p, p % 2, sys_len)
             for p in range(12, 20)}
-    # the warm-up wave, the same requests: their prompts' pages and the
-    # logprob window graphs are on the workers before the measured wave
+    # the warm-up, the same requests, each twice through the round-robin
+    # frontend, every request sent once the one before has its first frame
+    # (so its two copies are consecutive picks: one on each worker): both
+    # workers hold every prompt's pages, each prefilled alone, and the
+    # logprob window graphs the wave replays, so a migrated stream and its
+    # replay on the survivor read the same prompt KV
     t0 = time.perf_counter()
-    warm = await asyncio.gather(*(
-        _stream_into(fe_port, body, Stream(f"warm-{rid}"))
-        for rid, body in reqs.items()))
+    tasks = []
+    for rid, body in reqs.items():
+        for i in range(2):
+            first = asyncio.Event()
+            tasks.append(asyncio.create_task(_stream_into(
+                rr_port, body, Stream(f"warm-{rid}-{i}"), first.set)))
+            waiter = asyncio.create_task(first.wait())
+            await asyncio.wait({tasks[-1], waiter}, timeout=120,
+                               return_when=asyncio.FIRST_COMPLETED)
+            waiter.cancel()
+    warm = await asyncio.gather(*tasks)
     check(all(st.done and not st.errors for st in warm),
           f"{name}: the warm-up wave: "
           f"{[(st.rid, st.finish, st.errors[:1]) for st in warm]}")
+
+    async def on_both():
+        for body in reqs.values():
+            m = await _get_json(fe_port, "/router/match", {
+                "model": model, "messages": body["messages"]})
+            if sorted(m["scores"]) != sorted(workers) or min(
+                    m["scores"].values()) < (m["isl"] - 1) // DIST_PAGE:
+                return False
+        return True
+    await _poll(f"{name}: the router scoring every prompt's pages on both "
+                "workers", on_both, 60)
     warm_s = time.perf_counter() - t0
     text0 = (await _http(fe_port, "GET", "/metrics"))[2].decode()
     rel0 = reliability_counts(text0)
@@ -3674,7 +3774,7 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
         workers = [Child(f"worker {i}", [
             "dynamo_tpu_torch.run", f"in=endpoint:{DIST_EP}", "out=native",
             model, "--control-host", "127.0.0.1", "--control-port",
-            str(cp_port), *device_args]) for i in range(2)]
+            str(cp_port), *DIST_SCHEDULE, *device_args]) for i in range(2)]
         children += workers
         ready = [w.wait_line("READY endpoint=", 900) for w in workers]
         ready_s = time.perf_counter() - t0
@@ -3700,7 +3800,7 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
                  for line, w in zip(ready, workers)}
         t0 = time.perf_counter()
         rec["kill"] = asyncio.run(asyncio.wait_for(drive_kill(
-            fe_ports[0], model, sys_len, by_id), 900))
+            fe_ports[0], fe_ports[1], model, sys_len, by_id), 900))
         rec["kill"]["phase_s"] = time.perf_counter() - t0
         survivor = next(w for i, w in by_id.items()
                         if i != rec["kill"]["killed"])
@@ -5797,7 +5897,7 @@ def serve_checkpoint(path: str, bodies: list, extra=(), name="",
     process: READY seconds, the bodies' results (served one at a time,
     `rounds` times), its EXIT stats line.
     "results" are the last round's, "rounds" each round's results, its
-    start (time.time()) and the /metrics text after it."""
+    start (time.time()), seconds and the /metrics text after it."""
     import signal
     t0 = time.perf_counter()
     proc = Child(name, ["dynamo_tpu_torch.run", "in=http:0", "out=native",
@@ -5808,12 +5908,13 @@ def serve_checkpoint(path: str, bodies: list, extra=(), name="",
         ready_s = time.perf_counter() - t0
         port = int(re.match(r"READY http=:(\d+)", line).group(1))
         for _ in range(rounds):
-            start = time.time()
+            start, t1 = time.time(), time.perf_counter()
             results = asyncio.run(asyncio.wait_for(
                 served_chats(port, bodies), 600))
+            took = time.perf_counter() - t1
             metrics = asyncio.run(_http(port, "GET", "/metrics"))[2].decode()
             per_round.append({"start": start, "results": results,
-                              "metrics": metrics})
+                              "seconds": took, "metrics": metrics})
         code = proc.stop(signal.SIGINT, 120)
         exits = [x for x in proc.lines if x.startswith("EXIT ")]
         check(code == 0 and len(exits) == 1, f"{name}: exit {code}, "
@@ -5853,12 +5954,13 @@ def served_config(card):
 
 
 def phase_checkpoint_8b(root: str, smi: str, cfg=None,
-                        device: str = "cuda") -> dict:
+                        device: str = "cuda", draft: str = "llama3-1b") -> dict:
     """15b (see the docstring at the top): llama3-8b at full width and
-    depth written to disk, loaded, and served by run.py as a process.
-    `cfg` and device "cpu" rehearse it on the CPU (a narrow model with
-    llama3-8b's vocabulary); the card-only checks (kernel launches, device
-    memory) are skipped there."""
+    depth written to disk, loaded, and served by run.py as a process, and
+    17c on the same directory (`draft` proposing). `cfg` and device "cpu"
+    rehearse it on the CPU (a narrow model with llama3-8b's vocabulary;
+    the draft there the directory itself); the card-only checks (kernel
+    launches, device memory) are skipped there."""
     import shutil
     import torch
     from dynamo_tpu_torch.engine.config import get_model_config
@@ -5971,6 +6073,9 @@ def phase_checkpoint_8b(root: str, smi: str, cfg=None,
               f"{rec['encode_ms_per_1k']:.2f} ms per 1k prompt tokens "
               f"(Python BPE on the host); ragged launches {k} [{smi}]",
               flush=True)
+        rec["spec_entry"] = phase_spec_entry(
+            smi, path, bodies, ref, tok, served["rounds"][-1]["seconds"],
+            draft if on_card else path, extra)
 
         # int8: quantized as it loads, below the bf16 tree's peak
         synchronize(device)
@@ -6607,6 +6712,767 @@ def phase_a5(smi: str) -> dict:
             "windows_ab_s": time.perf_counter() - t1}
 
 
+# -- phase 17: speculative decoding -------------------------------------------
+
+SPEC_K = 4
+SPEC_TIE_F32 = 1e-3   # a near tie of f32 logits (their rounding is ~1e-5)
+SPEC_WORDS = ("the server keeps each request on its pages while the router "
+              "scores prefixes and the worker streams tokens back to the "
+              "client over one connection ").split()
+
+
+def spec_chats(card, n: int = 8, lo: int = 512, hi: int = 2048,
+               seed: int = 17) -> list:
+    """17a's chats: n greedy user turns whose prompts (the chat template
+    included) take lo..hi byte-tokens, spread evenly, each quoting one
+    paragraph of 128-256 bytes three times between fillers and asking for
+    it restated; MAX_TOKENS each."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ask = " Restate the quoted paragraph word for word."
+    bare = {"model": card.name, "max_tokens": MAX_TOKENS,
+            "temperature": 0.0, "messages": [{"role": "user",
+                                              "content": ""}]}
+    overhead = len(chat_prompts(card, [bare])[0])
+    out = []
+    for i in range(n):
+        size = lo + (hi - lo) * i // max(1, n - 1) - overhead - len(ask)
+        para = ""
+        plen = int(rng.integers(128, min(256, size // 3 - 2) + 1))
+        while len(para) < plen:
+            para += SPEC_WORDS[int(rng.integers(len(SPEC_WORDS)))] + " "
+        para = para[:plen]
+        filler = prompt_text(size - 3 * (plen + 2), 100 + i)
+        third = len(filler) // 3
+        content = (f"{filler[:third]}\"{para}\"{filler[third:2 * third]}"
+                   f"\"{para}\"{filler[2 * third:]}\"{para}\"{ask}")
+        out.append(dict(bare, messages=[{"role": "user",
+                                         "content": content}]))
+    return out
+
+
+def chat_prompts(card, bodies: list) -> list:
+    """The token ids each chat body's prompt becomes (the card's
+    preprocessor and chat template)."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    pre = OpenAIPreprocessor(card)
+    return [pre.preprocess_chat(ChatCompletionRequest.from_json(b),
+                                f"p-{i}")[0].token_ids
+            for i, b in enumerate(bodies)]
+
+
+def drive_ids(engine, prompts: list, tag: str, together: bool = False,
+              top: int = 0) -> dict:
+    """The prompts (token ids) greedy, MAX_TOKENS each, through
+    engine.add_request / step: one at a time (each scheduled alike in
+    every engine), or all admitted together. With `top`, each token's top
+    logprobs ride along. Returns {"streams": [(ids, top-1 less top-2 per
+    token or None)], "seconds", "tokens"}."""
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest, SamplingParams
+    params = SamplingParams(max_tokens=MAX_TOKENS, temperature=0.0,
+                            logprobs=top or None)
+    streams = {}
+    t0 = time.perf_counter()
+
+    def run(rids):
+        while any(not streams[r][2] for r in rids):
+            for ev in engine.step():
+                ids, gaps, _ = streams[ev.request_id]
+                if ev.token is not None:
+                    ids.append(ev.token)
+                    tops = ev.top_logprobs or []
+                    gaps.append(tops[0][1] - tops[1][1] if len(tops) > 1
+                                else None)
+                if ev.finished:
+                    streams[ev.request_id] = (ids, gaps, True)
+    rids = [f"{tag}-{i}" for i in range(len(prompts))]
+    for rid, p in zip(rids, prompts):
+        streams[rid] = ([], [], False)
+        engine.add_request(EngineRequest(rid, list(p), params))
+        if not together:
+            run([rid])
+    run(rids)
+    engine._sync_stream()
+    took = time.perf_counter() - t0
+    out = [(streams[r][0], streams[r][1]) for r in rids]
+    return {"streams": out, "seconds": took,
+            "tokens": sum(len(ids) for ids, _ in out)}
+
+
+def prime(engine, prompts: list) -> None:
+    """Each prompt once with max_tokens 1, one at a time: its full pages
+    sealed in the prefix cache, so that every later run of it prefills
+    the same tail over the same cached pages (the same computation in
+    every engine and round)."""
+    from dynamo_tpu_torch.engine.scheduler import SamplingParams
+    for i, p in enumerate(prompts):
+        engine.generate(list(p), SamplingParams(max_tokens=1,
+                                                temperature=0.0),
+                        f"prime-{i}")
+
+
+def hold_ids(name: str, got: list, ref: list, tie: float = NEAR_TIE) -> list:
+    """Each stream (ids) against the reference's (ids, gaps): equal, or
+    first differing at a position where the reference's top-1 less top-2
+    is at most `tie` (an eos or stop there ends one stream early). Returns
+    the first differences [position, gap] (None where equal)."""
+    firsts = []
+    for i, ((ids, _), (rids, gaps)) in enumerate(zip(got, ref)):
+        d = next((j for j, (a, b) in enumerate(zip(ids, rids)) if a != b),
+                 None)
+        if d is None and len(ids) != len(rids):
+            d = min(len(ids), len(rids))
+        if d is None:
+            firsts.append(None)
+            continue
+        gap = gaps[d] if d < len(gaps) else None
+        check(gap is not None and gap <= tie,
+              f"{name}: stream {i} leaves the plain engine's at token {d} "
+              f"(of {len(rids)}), where its top-1 less top-2 is {gap} "
+              f"(a near tie is <= {tie})")
+        firsts.append([d, round(gap, 6)])
+    return firsts
+
+
+class SpecRecorder:
+    """Wraps an engine's window commit, verify and cost gate: the decode
+    steps of the windows it commits (the rows of each committed token
+    array), each verify block's shape (S, K + 1), drafts and committed
+    tokens, the gate's decisions (drafts passed on their cost, passed as a
+    probe, refused), and the input buffers of the verify with the most live
+    rows (cloned: `hold_verify_attention` runs the kernels on them)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.window_steps = 0
+        self.blocks = []
+        self.gate = {"cost": 0, "probe": 0, "refused": 0}
+        self.inputs, self._live = None, 0
+        commit, verify = engine._commit_window, engine._run_spec_decode
+        worthwhile, bound_ok = engine._spec_worthwhile, engine._spec_bound_ok
+
+        def committed(plan, toks, *a, **kw):
+            self.window_steps += toks.shape[0]
+            return commit(plan, toks, *a, **kw)
+
+        def verified(plan, drafts, counters, min_toks):
+            events = verify(plan, drafts, counters, min_toks)
+            s, kp1 = len(plan.seqs), engine.cfg.spec_k + 1
+            self.blocks.append({
+                "shape": (s, kp1), "drafts": sum(map(len, drafts)),
+                "tokens": sum(ev.token is not None for ev in events)})
+            live = sum(seq is not None for seq in plan.seqs)
+            if live >= self._live:
+                bufs = engine.graphs._inputs[
+                    ("verify", s, kp1, plan.page_table.shape[1])]
+                self.inputs = {n: bufs[n].clone() for n in
+                               ("positions", "page_table", "write_idx")}
+                self._live = live
+            return events
+
+        def gated(plan, d_total):
+            n_live, nw, window, price = engine._spec_gate_terms(plan)
+            cost = ((n_live + engine._spec_acc_ema * d_total) * window
+                    > n_live * nw * price)
+            ok = worthwhile(plan, d_total)
+            self.gate["cost" if cost else "probe" if ok else "refused"] += 1
+            return ok
+
+        def bounded(plan):
+            ok = bound_ok(plan)
+            if not ok and any(seq is not None for seq in plan.seqs):
+                self.gate["refused"] += 1
+            return ok
+        engine._commit_window = committed
+        engine._run_spec_decode = verified
+        engine._spec_worthwhile = gated
+        engine._spec_bound_ok = bounded
+
+    def reset(self) -> None:
+        self.window_steps = 0
+        self.blocks = []
+        self.gate = dict.fromkeys(self.gate, 0)
+
+    def detach(self) -> None:
+        for name in ("_commit_window", "_run_spec_decode",
+                     "_spec_worthwhile", "_spec_bound_ok"):
+            delattr(self.engine, name)
+
+
+def verify_product_launches(cfg, s: int, kp1: int) -> dict:
+    """The W8A16 launches one verify of an [S, K + 1] block makes on an
+    int8-weight dense model, from its shape and ops/quant.py's routes:
+    past GEMV_MAX_M rows each of a layer's 7 products and the head (all S
+    x (K + 1) rows: the verify reads every position's logits) is one
+    tensor-core launch, else the decode kernel's 4 a layer + 1."""
+    from dynamo_tpu_torch.ops import quant
+    if s * kp1 > quant.GEMV_MAX_M:
+        return {LARGE_M: 7 * cfg.num_layers + 1, W8A16: 0}
+    return {LARGE_M: 0, W8A16: decode_w8a16_launches(cfg)}
+
+
+def replay_ms(graphs, key, dead: str, n: int = 20) -> float:
+    """CUDA-event ms per replay of the graph at `key`, its `dead` input
+    filled with -1 first (every row's writes go to the scratch page; the
+    same launches and reads). Run after the gated runs: the inputs are
+    left so."""
+    import torch
+    graph = graphs._graphs[key][0]
+    for bufs in graphs._inputs.values():
+        if dead in bufs:
+            bufs[dead].fill_(-1)
+    with torch.cuda.stream(graphs.stream):
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            graph.replay()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def hold_verify_attention(name: str, engine, inputs: dict,
+                          quant: bool = False) -> list:
+    """The kernels of a verify on one verify's inputs as the engine ran
+    them (`SpecRecorder.inputs`: its S x (K + 1) rows, each slot's page
+    table repeated K + 1 times, prefix lens = positions[:, 0]), over the
+    engine's cache (`quant`: int8 pages and scales quantized from the
+    pages the verify reads, as an int8 cache stores them), layers 0 and
+    L - 1, q seeded:
+    (1) the ragged kernel in prefix mode on those rows against its plain
+    version (2e-3 with a bf16 q, 1e-4 f32);
+    (2) `block_attention`, the block's rows read back from the cache at
+    positions prefix + j, against ops/attention.paged_attention over
+    positions [0, prefix + j] on the same inputs, at the block's real
+    tokens (normalised in q's dtype: 1e-2 bf16, 1e-4 f32).
+    Not a path run: its launches are no path's. Returns the kernel's max
+    abs errors (acc, m, l) and block_attention's."""
+    import torch
+    from dynamo_tpu_torch.models.llama import torch_dtype
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops.kv_quant import dequantize_rows, quantize_rows
+    cfg, ps = engine.model_cfg, engine.cfg.page_size
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = engine.device
+    pt, widx = inputs["page_table"], inputs["write_idx"]
+    prefix = inputs["positions"][:, 0].contiguous()
+    s, t = widx.shape
+    real = widx >= 0
+    check(bool(real.any()), f"{name}: the recorded verify has no real row")
+    kc, vc = engine.cache["k"], engine.cache["v"]  # dynalint: kv-codec
+    qdt = torch_dtype(cfg)
+    g = torch.Generator(device=dev).manual_seed(17)
+    q = torch.randn((s, t, h, hd), generator=g, device=dev).to(qdt)
+    pos = prefix[:, None].long() + torch.arange(t, device=dev)[None, :]
+    if quant:
+        # the pages the verify reads, renumbered, as int8 pages
+        ids, inv = torch.unique(pt.long(), return_inverse=True)
+        lpt = inv.to(torch.int32)
+    else:
+        lpt = pt
+    col = torch.clamp(pos // ps, max=pt.shape[1] - 1)
+    slot = (lpt.long().gather(1, col) * ps + pos % ps).reshape(-1)
+    tol, btol = (2e-3, 1e-2) if qdt == torch.bfloat16 else (1e-4, 1e-4)
+    kind = "int8 pages" if quant else f"{str(kc.dtype)[6:]} pages"
+    errs, berrs = [], []
+    for layer in sorted({0, cfg.num_layers - 1}):
+        if quant:
+            (k8, ks), (v8, vs) = (quantize_rows(c[layer][:, ids])
+                                  for c in (kc, vc))
+            lk, lv, lks, lvs, li = k8[None], v8[None], ks[None], vs[None], 0
+        else:
+            lk, lv, lks, lvs, li = kc, vc, None, None, layer
+        rows = q.reshape(s * t, h, hd)
+        rpt = lpt.repeat_interleave(t, dim=0)
+        rlen = prefix.repeat_interleave(t).to(torch.int32)
+        got = pa.decode_paged_attention_prefix(rows, lk, lv, li, rpt, rlen,
+                                               lks, lvs)
+        want = pa._ragged_plain(rows, lk, lv, li, rpt, rlen, lks, lvs)
+        errs += compare(f"{name}: the ragged kernel on a verify's {s * t} "
+                        f"rows, {kind}, layer {layer}",
+                        zip(("acc", "m", "l"), got, want), tol)
+
+        def block(cache, scale):
+            r = cache[li].reshape(hkv, -1, hd)[:, slot]
+            r = r.reshape(hkv, s, t, hd).permute(1, 2, 0, 3)
+            if scale is not None:
+                sc = scale[li].reshape(hkv, -1)[:, slot]
+                r = dequantize_rows(r, sc.reshape(hkv, s, t).permute(1, 2, 0),
+                                    qdt)
+            return r.contiguous()
+        got = pa.block_attention(q, block(lk, lks), block(lv, lvs), lk, lv,
+                                 li, lpt, prefix, lks, lvs)
+        want = att.paged_attention(
+            q, lk[li], lv[li], lpt, prefix + real.sum(1).to(prefix.dtype),
+            pos.to(torch.int32), *((lks[li], lvs[li]) if quant else ()))
+        berrs += compare(f"{name}: block_attention on a verify's [{s}, {t}] "
+                         f"block, {kind}, layer {layer}",
+                         [("out", got[real], want[real])], btol)
+    print(f"{name}: a verify's inputs ([{s}, {t}] block, "
+          f"{int(real.any(1).sum())} live slots, prefixes "
+          f"{prefix.tolist()}), {kind}: the ragged kernel on its {s * t} "
+          f"rows vs plain, max_abs_err acc/m/l "
+          f"{' '.join(f'{e:.3g}' for e in errs)} (tol {tol}); "
+          f"block_attention vs paged_attention "
+          f"{' '.join(f'{e:.3g}' for e in berrs)} (tol {btol})", flush=True)
+    return [max(errs), max(berrs)]
+
+
+def spec_round(name: str, engine, rec, prompts: list, ref: list, tag: str,
+               device: str, tie: float = NEAR_TIE) -> dict:
+    """One gated round of a speculative engine over the prompts, one at a
+    time, with every launch count set to 0 before it: the streams held to
+    the plain engine's (`hold_ids`), every logit finite, each verify one
+    graph replay, and the ragged kernel launched target layers x (the
+    committed windows' decode steps + the verify blocks: a block's S x (K
+    + 1) rows attend their prefix in one launch a layer) + the graphs'
+    warm-ups + a draft model's:
+    draft layers x spec_k a proposal replay, draft layers a one-token
+    catch-up (the kernel's inclusive mode), its graphs' warm-ups."""
+    rec.reset()
+    reset_launch_counts()
+    gr = engine.graphs
+    cap0, rep0 = gr.captured, gr.replay_paths.get("verify", 0)
+    keys0 = set(gr._graphs)
+    draft = engine._draft
+    if draft is not None:
+        dg = draft.graphs
+        d0 = (dg.replays, dg.replay_launches[RAGGED],
+              dg.warmup_launches[RAGGED], draft.catchup_buckets.get(1, 0))
+    warm0 = dict(gr.warmup_launches)
+    spec0 = (engine.spec_steps, engine.spec_proposed_tokens,
+             engine.spec_accepted_tokens)
+    # the cost gate starts every round from the same state
+    engine._spec_acc_ema, engine._spec_gate_skips = 1.0, 0
+    run = drive_ids(engine, prompts, tag)
+    launches = launch_counts()
+    new_keys = [str(k) for k in gr._graphs if k not in keys0]
+    print(f"{name}: {len(rec.blocks)} verify blocks, {rec.window_steps} "
+          f"window steps, {run['tokens']} tokens in {run['seconds']:.2f} s; "
+          f"the cost gate {json.dumps(rec.gate)}; graphs captured "
+          f"{new_keys}", flush=True)
+    firsts = hold_ids(name, run["streams"], ref, tie)
+    check(engine.logits_nonfinite_steps() == 0, f"{name}: a non-finite "
+          "logit")
+    steps = engine.spec_steps - spec0[0]
+    proposed = engine.spec_proposed_tokens - spec0[1]
+    accepted = engine.spec_accepted_tokens - spec0[2]
+    replays = gr.replay_paths.get("verify", 0) - rep0
+    nl = engine.model_cfg.num_layers
+    want = nl * (rec.window_steps + len(rec.blocks)) + (
+        gr.warmup_launches[RAGGED] - warm0[RAGGED])
+    draft_ragged = draft_replays = 0
+    if draft is not None:
+        draft_replays = dg.replays - d0[0]
+        draft_ragged = dg.replay_launches[RAGGED] - d0[1]
+        if device == "cuda":
+            check(draft.path == "ragged" and draft_ragged
+                  == draft.cfg.num_layers * engine.cfg.spec_k * draft_replays,
+                  f"{name}: the draft ({draft.path}) launched the ragged "
+                  f"kernel {draft_ragged} times in {draft_replays} proposal "
+                  f"replays")
+        want += draft_ragged + dg.warmup_launches[RAGGED] - d0[2] + (
+            draft.cfg.num_layers * (draft.catchup_buckets.get(1, 0) - d0[3]))
+    verify_ragged = [c.get(RAGGED, 0) for k, c in gr.captured_calls().items()
+                     if k[0] == "verify"]
+    if device == "cuda":
+        check(replays == len(rec.blocks), f"{name}: {replays} verify "
+              f"replays for {len(rec.blocks)} verify blocks")
+        check(all(n == nl for n in verify_ragged), f"{name}: verify graphs "
+              f"hold {verify_ragged} ragged calls, not {nl} (a layer each)")
+        check(launches[RAGGED] == want, f"{name}: {launches[RAGGED]} ragged "
+              f"launches, derived {nl} layers x ({rec.window_steps} window "
+              f"steps + {len(rec.blocks)} verify blocks) + warm-ups = "
+              f"{want}")
+    decode_tokens = run["tokens"] - len(prompts)
+    check(sum(b["tokens"] for b in rec.blocks) <= decode_tokens,
+          f"{name}: the verify blocks committed more tokens than the run")
+    return {"streams": run["streams"], "seconds": run["seconds"],
+            "tokens": run["tokens"], "first_differences": firsts,
+            "verify_blocks": len(rec.blocks), "verify_replays": replays,
+            "draft_replays": draft_replays,
+            "draft_ragged_launches": draft_ragged,
+            "window_steps": rec.window_steps, "gate": dict(rec.gate),
+            "captured": gr.captured - cap0,
+            "captured_keys": new_keys,
+            "launches": launches, "spec_steps": steps,
+            "proposed": proposed, "accepted": accepted,
+            "acceptance": accepted / proposed if proposed else None,
+            "verify_tokens": sum(b["tokens"] for b in rec.blocks)}
+
+
+def phase_spec_ngram(smi: str, params, cfg, card, device: str = "cuda",
+                     n_int8: int = 2) -> dict:
+    """17a (see the docstring at the top)."""
+    from dynamo_tpu_torch.engine import spec as spec_mod
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    name = "17a spec ngram"
+    eos = set(card.eos_token_ids)
+    prompts = chat_prompts(card, spec_chats(card))
+    lens = [len(p) for p in prompts]
+    ecfg = EngineConfig(max_model_len=4096)
+    scfg = dataclasses.replace(ecfg, spec_decode="ngram", spec_k=SPEC_K)
+    t0 = time.perf_counter()
+    plain = NativeEngine(cfg, ecfg, params=params, eos_token_ids=eos,
+                         device=device)
+    prime(plain, prompts)
+    ref = drive_ids(plain, prompts, "ref", top=CKPT_TOP)
+    # the 8 together twice: the first run captures their window graphs
+    drive_ids(plain, prompts, "plain8w", together=True)
+    plain_together = drive_ids(plain, prompts, "plain8", together=True)
+    window_ms = steady_ms_per_step(plain, prompts) if device == "cuda" \
+        else None
+    plain.cache = None
+    del plain
+    empty_cache(device)
+    engine = NativeEngine(cfg, scfg, params=params, eos_token_ids=eos,
+                          device=device)
+    prime(engine, prompts)
+    rec = SpecRecorder(engine)
+    cold = spec_round(f"{name} cold", engine, rec, prompts,
+                      ref["streams"], "cold", device)
+    warm = spec_round(f"{name} warm", engine, rec, prompts,
+                      ref["streams"], "warm", device)
+    check(warm["captured"] == 0, f"{name}: {warm['captured']} graphs "
+          f"captured in the warm round: {warm['captured_keys']}")
+    if device == "cuda":
+        check(cold["verify_replays"] + warm["verify_replays"] > 0,
+              f"{name}: no verify ran in either round")
+    engine._spec_acc_ema, engine._spec_gate_skips = 1.0, 0
+    drive_ids(engine, prompts, "spec8w", together=True)
+    engine._spec_acc_ema, engine._spec_gate_skips = 1.0, 0
+    rec.reset()
+    together = drive_ids(engine, prompts, "spec8", together=True)
+    gate8 = dict(rec.gate)
+    rec.detach()
+    # the kernels on the recorded verify's inputs (its 8 x 5 rows once the
+    # 8 chats ran together), bf16 pages and int8 ones
+    verify_errs = [max(e) for e in zip(*(
+        hold_verify_attention(name, engine, rec.inputs, quant)
+        for quant in (False, True)))]
+    # each verify graph's replay: its page-table width sets the gather
+    vkeys = sorted(k for k in engine.graphs._graphs if k[0] == "verify")
+    verify_ms = {}
+    if device == "cuda":
+        verify_ms = {f"Pb {k[3]}": replay_ms(engine.graphs, k, "write_idx")
+                     for k in vkeys}
+    engine.cache = None
+    del engine
+    empty_cache(device)
+    # the gate's verify price on the card against this run's ratio
+    steps = {k: v / window_ms for k, v in verify_ms.items()} if window_ms \
+        else {}
+    out = {"prompt_tokens": [min(lens), max(lens)], "cold": cold,
+           "warm": warm, "window_ms_per_step": window_ms,
+           "verify_ms": verify_ms, "verify_window_steps": steps,
+           "gate_verify_steps": spec_mod.VERIFY_STEPS,
+           "gate_together": gate8, "verify_max_abs_err": verify_errs,
+           "tok_s_plain": plain_together["tokens"]
+           / plain_together["seconds"],
+           "tok_s_spec": together["tokens"] / together["seconds"]}
+    for r in (cold, warm):
+        del r["streams"]
+    print(f"{name} ({cfg.name} {cfg.dtype}, {len(prompts)} chats of "
+          f"{min(lens)}-{max(lens)} prompt tokens, one at a time): cold "
+          f"{json.dumps({k: cold[k] for k in ('verify_blocks', 'window_steps', 'proposed', 'accepted', 'acceptance', 'first_differences', 'gate', 'captured', 'seconds')})}; "
+          f"warm {json.dumps({k: warm[k] for k in ('verify_blocks', 'window_steps', 'proposed', 'accepted', 'acceptance', 'first_differences', 'gate', 'captured', 'seconds')})}; "
+          f"verify replay ms [8, 5] {json.dumps(verify_ms)}, window "
+          f"{window_ms} ms a decode step (8 slots): a verify "
+          f"{json.dumps({k: round(v, 3) for k, v in steps.items()})} window "
+          f"steps (the gate prices it at {spec_mod.VERIFY_STEPS}); 8 "
+          f"together (warm): {out['tok_s_spec']:.1f} tok/s with "
+          f"speculation (the gate {json.dumps(gate8)}), "
+          f"{out['tok_s_plain']:.1f} without ({time.perf_counter() - t0:.1f}"
+          f" s) [{smi}]", flush=True)
+    out["int8"] = spec_ngram_int8(smi, params, cfg, card, prompts[:n_int8],
+                                  device)
+    return out
+
+
+def spec_ngram_int8(smi: str, params, cfg, card, prompts: list,
+                    device: str) -> dict:
+    """17a's int8-weight leg: the plain and the ngram engine on int8
+    weights (quantized from the same bf16 ones), one at a time; the
+    streams held to the plain int8 engine's, and the tensor-core launches
+    as the prefill shapes and the verify blocks' shapes derive them."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.ops.quant import quantize_params
+    name = "17a spec ngram int8 weights"
+    eos = set(card.eos_token_ids)
+    qcfg = dataclasses.replace(cfg, quant="int8")
+    qparams = quantize_params(params)
+    ecfg = EngineConfig(max_model_len=4096)
+    plain = NativeEngine(qcfg, ecfg, params=qparams, eos_token_ids=eos,
+                         device=device)
+    prime(plain, prompts)
+    ref = drive_ids(plain, prompts, "ref", top=CKPT_TOP)
+    plain.cache = None
+    del plain
+    engine = NativeEngine(qcfg, dataclasses.replace(
+        ecfg, spec_decode="ngram", spec_k=SPEC_K), params=qparams,
+        eos_token_ids=eos, device=device)
+    prime(engine, prompts)
+    rec = SpecRecorder(engine)
+    shapes = StepShapes(engine)
+    warm0 = dict(engine.graphs.warmup_launches)
+    rep0 = dict(engine.graphs.replay_launches)
+    run = spec_round(name, engine, rec, prompts, ref["streams"], "q",
+                     device)
+    shapes.detach()
+    rec.detach()
+    gr = engine.graphs
+    derived = int8_product_launches(qcfg, shapes.shapes)
+    for b in rec.blocks:
+        for k, v in verify_product_launches(qcfg, *b["shape"]).items():
+            derived[k] = derived.get(k, 0) + v
+    got = run["launches"]
+    large = (got[LARGE_M] - (gr.warmup_launches[LARGE_M] - warm0[LARGE_M]))
+    if device == "cuda":
+        check(large == derived[LARGE_M] and got[DEQUANT] == 0,
+              f"{name}: {large} tensor-core launches outside the warm-ups "
+              f"(derived {derived[LARGE_M]}: prefill shapes "
+              f"{shapes.shapes}, {len(rec.blocks)} verify blocks), "
+              f"{got[DEQUANT]} dequantize launches")
+    engine.cache = None
+    del engine, qparams
+    empty_cache(device)
+    del run["streams"]
+    print(f"{name} ({len(prompts)} chats): "
+          f"{json.dumps({k: run[k] for k in ('verify_blocks', 'window_steps', 'proposed', 'accepted', 'first_differences', 'launches')})}; "
+          f"tensor-core launches {large} = derived {derived[LARGE_M]} "
+          f"[{smi}]", flush=True)
+    return {**run, "large_m_derived": derived[LARGE_M],
+            "large_m_replays": gr.replay_launches[LARGE_M] - rep0[LARGE_M]}
+
+
+def phase_spec_exact(smi: str, model: str = "llama3-1b",
+                     device: str = "cuda", n: int = 2) -> dict:
+    """17b (see the docstring at the top)."""
+    from dynamo_tpu_torch.engine import config as cfg_mod
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.run import build_card
+    name = "17b spec identical draft f32"
+    card = build_card(model)
+    reg = f"{model}-f32"
+    cfg = dataclasses.replace(card.model_config(), dtype="float32",
+                              name=reg)
+    cfg_mod._CONFIGS[reg] = cfg
+    eos = set(card.eos_token_ids)
+    prompts = chat_prompts(card, spec_chats(card, n=n))
+    ecfg = EngineConfig(max_model_len=4096)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, device, seed=0)
+    try:
+        plain = NativeEngine(cfg, ecfg, params=params, eos_token_ids=eos,
+                             device=device)
+        prime(plain, prompts)
+        ref = drive_ids(plain, prompts, "ref", top=CKPT_TOP)
+        plain.cache = None
+        del plain
+        engine = NativeEngine(cfg, dataclasses.replace(
+            ecfg, spec_decode="draft", spec_draft_model=reg, spec_k=SPEC_K),
+            params=params, eos_token_ids=eos, device=device, seed=0)
+        draft = engine._draft
+        check(draft.path == engine.decode_path == "ragged",
+              f"{name}: the draft decodes through {draft.path}")
+        prime(engine, prompts)
+        rec = SpecRecorder(engine)
+        dg = draft.graphs
+        run = spec_round(name, engine, rec, prompts, ref["streams"], "x",
+                         device, tie=SPEC_TIE_F32)
+        rec.detach()
+        acc = run["acceptance"]
+        check(acc is not None and acc >= 0.99, f"{name}: acceptance {acc} "
+              f"({run['accepted']} of {run['proposed']}): a stale draft row")
+        run["verify_max_abs_err"] = hold_verify_attention(name, engine,
+                                                          rec.inputs)
+        times = {}
+        if device == "cuda":
+            times = {"verify_ms": {
+                f"Pb {k[3]}": replay_ms(engine.graphs, k, "write_idx")
+                for k in sorted(engine.graphs._graphs) if k[0] == "verify"},
+                "propose_ms": {f"Pb {k[2]}": replay_ms(dg, k, "max_write")
+                               for k in sorted(dg._graphs)}}
+        engine.cache = None
+        del engine, draft
+    finally:
+        cfg_mod._CONFIGS.pop(reg, None)
+    del params
+    empty_cache(device)
+    del run["streams"]
+    print(f"{name} ({model} at full width and depth, {len(prompts)} chats, "
+          f"draft = target): "
+          f"{json.dumps({k: run[k] for k in ('verify_blocks', 'window_steps', 'proposed', 'accepted', 'acceptance', 'first_differences', 'gate')})}; "
+          f"draft ragged launches {run['draft_ragged_launches']} in "
+          f"{run['draft_replays']} proposal replays; {json.dumps(times)} "
+          f"({time.perf_counter() - t0:.1f} s) [{smi}]", flush=True)
+    return {**run, **times}
+
+
+async def spec_served(port: int, bodies: list) -> list:
+    """17c's chats over HTTP one at a time (no logprobs: a logprob plan
+    never speculates): [(text, completion tokens, finish reason)]."""
+    out = []
+    for i, body in enumerate(bodies):
+        if body.get("stream"):
+            st = await _stream_into(port, body, Stream(f"spec-{i}"))
+            check(st.done and not st.errors and len(st.finish) == 1
+                  and st.usage, f"17c: stream {i} ended {st.finish} "
+                  f"{st.errors} done={st.done}")
+            out.append((st.text, st.usage["completion_tokens"],
+                        st.finish[0]))
+            continue
+        status, _, raw = await _http(port, "POST", "/v1/chat/completions",
+                                     body)
+        check(status == 200, f"17c: request {i}: {status} {raw[:200]}")
+        res = json.loads(raw)
+        ch = res["choices"][0]
+        out.append((ch["message"]["content"],
+                    res["usage"]["completion_tokens"], ch["finish_reason"]))
+    return out
+
+
+def phase_spec_entry(smi: str, path: str, bodies: list, ref: list, tok,
+                     plain_s: float, draft: str = "llama3-1b",
+                     extra=()) -> dict:
+    """17c (see the docstring at the top), run by 15b while its llama3-8b
+    directory is on disk: run.py serves the directory with `draft`
+    proposing, through its Llama-3-form tokenizer (every id decodes), the
+    chats without logprobs; each held to 15b's reference (`hold_texts`).
+    `plain_s`: 15b's plain run.py over the same chats (with logprobs)."""
+    name = "17c run.py --spec-decode draft"
+    t0 = time.perf_counter()
+    plain = [{k: v for k, v in b.items()
+              if k not in ("logprobs", "top_logprobs")} for b in bodies]
+    srv = serve_spec(path, draft, plain, extra)
+    firsts = hold_texts(name, srv["results"], ref, tok)
+    st = srv["stats"]
+    dstats = st.get("draft", {})
+    on_card = "--device" not in extra
+    check(st.get("spec_steps", 0) > 0 and st.get("spec_proposed_tokens", 0) > 0
+          and (not on_card or dstats.get("replays", 0) > 0),
+          f"{name}: $STATS spec "
+          f"counters {[st.get(k) for k in ('spec_steps', 'spec_proposed_tokens', 'spec_accepted_tokens')]}, draft {dstats}")
+    draft_ragged = dstats["replay_launches"][RAGGED]
+    if on_card:
+        check(dstats["path"] == "ragged" and draft_ragged ==
+              dstats["layers"] * dstats["k"] * dstats["replays"],
+              f"{name}: the draft ({dstats['path']}) launched the ragged "
+              f"kernel {draft_ragged} times in {dstats['replays']} proposal "
+              f"replays of {dstats['layers']} layers x {dstats['k']} steps")
+    tokens = sum(n for _, n, _ in srv["results"])
+    phases = st.get("phases", {})
+
+    def per(phase):
+        p = phases.get(phase)
+        return p["seconds"] * 1e3 / p["count"] if p else None
+    out = {"first_differences": firsts, "ready_s": srv["ready_s"],
+           "spec_steps": st["spec_steps"],
+           "window_steps": st.get("decode_window_steps"),
+           "proposed": st["spec_proposed_tokens"],
+           "accepted": st["spec_accepted_tokens"],
+           "draft_replays": dstats["replays"],
+           "draft_ragged_launches": draft_ragged,
+           "verify_replays": st["graphs"]["replay_paths"].get("verify", 0),
+           "launches": st["kernel_launches"],
+           "verify_ms_host": per("verify"), "propose_ms_host": per("propose"),
+           "tok_s_spec": tokens / srv["seconds"],
+           "tok_s_plain_run_py": sum(len(ids) for _, _, ids in ref) / plain_s,
+           "seconds": time.perf_counter() - t0}
+    print(f"{name} ({path}, draft {draft}; {len(bodies)} chats one at a "
+          f"time, 4 SSE + 4 unary, no logprobs): {json.dumps(out)} [{smi}]",
+          flush=True)
+    return out
+
+
+def hold_texts(name: str, served: list, ref: list, tok,
+               lag: int = 2) -> list:
+    """Each served (text, completion tokens, finish) against the
+    reference's (entries, text, ids), through a tokenizer that decodes
+    every id: the text equal to DecodeStream over the reference's ids and
+    the token counts equal; else the first reference token whose text
+    leaves the served text (or that the served stream lacks) must have a
+    near tie (top-1 less top-2 <= NEAR_TIE) at it or at one of the `lag`
+    tokens before it (a BPE token's text can be a prefix of another's, so
+    the ids may part a token or two before the texts do). Returns the
+    first differences [token, gap] (None where equal)."""
+    from dynamo_tpu_torch.llm.tokenizer import DecodeStream
+    firsts = []
+    for i, ((text, n_tok, finish), (entries, _, ids)) in enumerate(
+            zip(served, ref)):
+        ds = DecodeStream(tok)
+        want = [ds.step(t) for t in ids]
+        if text == "".join(want) and n_tok == len(ids):
+            firsts.append(None)
+            continue
+        d, acc = 0, ""
+        while d < len(ids) and d < n_tok and text.startswith(acc + want[d]):
+            acc += want[d]
+            d += 1
+        gaps = [e[2][0] - e[2][1] for e in entries[max(0, d - lag):d + 1]]
+        check(gaps and min(gaps) <= NEAR_TIE, f"{name}: chat {i} ({n_tok} "
+              f"tokens, {finish}) leaves the reference's text by token {d} "
+              f"of {len(ids)}, with no near tie at it or the {lag} before "
+              f"it (top-1 less top-2 {[round(x, 5) for x in gaps]})")
+        firsts.append([d, round(min(gaps), 5)])
+    return firsts
+
+
+def serve_spec(path: str, draft: str, bodies: list, extra=()) -> dict:
+    """`python -m dynamo_tpu_torch.run in=http:0 out=native <path>
+    --spec-decode draft --spec-draft <draft>` as a process: READY, the
+    bodies one at a time, its EXIT stats."""
+    t0 = time.perf_counter()
+    proc = Child("17c run.py", ["dynamo_tpu_torch.run", "in=http:0",
+                                "out=native", path, "--spec-decode",
+                                "draft", "--spec-draft", draft,
+                                "--spec-k", str(SPEC_K), *extra])
+    try:
+        line = proc.wait_line("READY http=:", 600)
+        ready_s = time.perf_counter() - t0
+        port = int(re.match(r"READY http=:(\d+)", line).group(1))
+        t1 = time.perf_counter()
+        results = asyncio.run(asyncio.wait_for(spec_served(port, bodies),
+                                               600))
+        took = time.perf_counter() - t1
+        code = proc.stop(signal.SIGINT, 120)
+        exits = [x for x in proc.lines if x.startswith("EXIT ")]
+        check(code == 0 and len(exits) == 1, f"17c run.py: exit {code}, "
+              f"{exits or proc.tail()}")
+    finally:
+        proc.stop(signal.SIGKILL, 30)
+    m = re.match(r"EXIT logits_nonfinite_steps=(\d+) stats=(.*)$", exits[0])
+    check(m is not None and m.group(1) == "0", f"17c run.py: {exits[0][:300]}")
+    return {"ready_s": ready_s, "results": results, "seconds": took,
+            "stats": json.loads(m.group(2))}
+
+
+def phase_spec(smi: str, device: str = "cuda") -> dict:
+    """Phase 17: 17a on llama3-8b (seed 0, bf16), then 17b (17c runs in
+    15b)."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.run import build_card
+    t0 = time.perf_counter()
+    card = build_card("llama3-8b")
+    cfg = card.model_config()
+    params = llama.init_params(cfg, device, seed=0)
+    ngram = phase_spec_ngram(smi, params, cfg, card, device)
+    del params
+    empty_cache(device)
+    t1 = time.perf_counter()
+    exact = phase_spec_exact(smi, device=device)
+    return {"ngram": ngram, "ngram_s": t1 - t0, "exact": exact,
+            "exact_s": time.perf_counter() - t1}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6688,6 +7554,8 @@ def main() -> int:
     small = ckpt["small_launches"]
     a5 = phase_a5(smi)
     print(f"gather decode windows and gemma-2: {json.dumps(a5)}", flush=True)
+    spec = phase_spec(smi)
+    print(f"speculative decoding: {json.dumps(spec)}", flush=True)
 
     def ckpt_launches(kernel: str) -> dict:
         """A kernel's launches in phase 15's runs on the card: each small
@@ -6702,7 +7570,9 @@ def main() -> int:
               "replaces": "dynamo_tpu/ops/paged_attention.py:88",
               "launches": first["launches"],
               "max_abs_err": max(err_bf16, main_err, *(
-                  g["max_abs_err"] for g in geometries.values())), **timing,
+                  g["max_abs_err"] for g in geometries.values()),
+                  spec["ngram"]["verify_max_abs_err"][0],
+                  spec["exact"]["verify_max_abs_err"][0]), **timing,
               "distributed_launches": dist["launches"],
               "disagg_launches": disagg["launches"],
               "tiers_launches": {k: v["launches"]
@@ -6714,6 +7584,18 @@ def main() -> int:
                   **{f"llama3-8b {kv} auto window":
                      v["auto_ragged_launches"]
                      for kv, v in a5["windows_ab"].items()}},
+              "spec_launches": {
+                  "17a ngram cold (target windows and verify blocks)":
+                      spec["ngram"]["cold"]["launches"][RAGGED],
+                  "17a ngram warm": spec["ngram"]["warm"]["launches"][RAGGED],
+                  "17b draft proposals (llama3-1b heads, f32)":
+                      spec["exact"]["draft_ragged_launches"],
+                  "17b, all (target windows, draft proposals and "
+                  "catch-ups)": spec["exact"]["launches"][RAGGED],
+                  "17c run.py draft proposals (llama3-1b heads)":
+                      ckpt["spec_entry"]["draft_ragged_launches"],
+                  "17c run.py, all":
+                      ckpt["spec_entry"]["launches"][RAGGED]},
               "geometries": geometries,
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),
@@ -6762,6 +7644,11 @@ def main() -> int:
         "launches": first_http["launches"][LARGE_M],
         "moe_launches": moe["launches"][LARGE_M],
         "checkpoint_launches": ckpt_launches(LARGE_M),
+        "spec_verify_launches": {
+            "17a int8 verify blocks [8, 5] (replays)":
+                spec["ngram"]["int8"]["large_m_replays"],
+            "17a int8 run, all (derived)":
+                spec["ngram"]["int8"]["large_m_derived"]},
         **large_m, "max_abs_err": max(large_m["max_abs_err"],
                                       moe["large_m"]["max_abs_err"]),
         "mixtral_chunk": moe["large_m"]})

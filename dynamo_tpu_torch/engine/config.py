@@ -5,7 +5,8 @@ slices serve: Llama-family models on one device, dense or mixture-of-
 experts (Mixtral-style top-k routing, ops/moe.py). The model registry keeps
 the dense Llama geometries and the MoE ones (`tiny-moe`, `mixtral-8x7b`);
 the engine knobs keep paging,
-batching, the decode window, mixed steps and int8 KV pages (`kv_quant`).
+batching, the decode window, mixed steps, int8 KV pages (`kv_quant`) and
+speculative decoding (`spec_*`, engine/spec.py).
 `quant` keeps the JAX meaning (weight-only int8, ops/quant.py).
 The architecture knobs the checkpoint loaders set (models/loader.py,
 llm/gguf.py) keep the JAX meanings and defaults: q/k/v bias (Qwen2), the
@@ -196,6 +197,23 @@ class EngineConfig:
     # repetition-penalty plans never pipeline. Values > 2 only deepen the
     # scheduler's page lookahead.
     pipeline_depth: int = 2
+    # speculative decoding ("" = off; "ngram" = prompt-lookup drafts;
+    # "draft" = a small draft model proposes, engine/spec.py): greedy plans
+    # verify up to spec_k draft tokens in one target forward, and the
+    # output is token for token the plain greedy output (exact in f32; in
+    # bf16 the verify and the window sum in other orders). Sampled,
+    # logprob and penalty plans take the decode window; a spec engine
+    # never pipelines.
+    spec_decode: str = ""
+    spec_k: int = 4                     # draft tokens verified per forward
+    # "draft" mode: a registry name (random weights from the engine seed)
+    # or an HF checkpoint directory; its vocabulary must be the target's
+    spec_draft_model: str = ""
+    # the cost gate (engine._spec_worthwhile; its terms and the n-gram
+    # lengths are engine/spec.py's constants) refuses drafts that would not
+    # beat the window; every spec_probe_every-th refusal forces a probe
+    # that refreshes the acceptance ema
+    spec_probe_every: int = 32
 
 
 # -- named architectures ------------------------------------------------------

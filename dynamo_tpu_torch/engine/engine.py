@@ -16,7 +16,7 @@ counter, seen, alive) on the device and derives each step's attended
 prefix and write slot there; the cache is read-only inside each step. The
 ragged path's body (the kernel-mode body) runs the ragged kernel in prefix
 mode plus combine_self_attention and scatters each step's new kv rows into
-the cache in place (`_scatter_new_kv`; on an int8 cache the rows quantize
+the cache in place (`scatter_new_kv`; on an int8 cache the rows quantize
 there). The gather path's body (the pregather body) gathers each slot's
 valid pages into a base once a window (`_gather_base`; int8 pages
 dequantized there), keeps the window's rows in full precision in a small
@@ -83,9 +83,22 @@ page leaves its pinned slot in one DMA on the onboard stream, and its slot
 stays pinned until that copy is done. The pipeline does not start or
 continue a window while offloads, onboards or pool injects are pending.
 
-Left out of this slice: speculative decoding, pipeline/tensor/expert
-parallelism, streaming, vision and the tp shard inject
-(`inject_pages_shard`).
+Speculative decoding (dynamo_tpu/engine/engine.py:379-433, :917-945,
+:1335-1490, :2379-2420; engine/spec.py): with `spec_decode` set, a greedy
+decode plan without logprobs or penalties may verify drafts instead of
+running its window, when the cost gate (`_spec_worthwhile`, an acceptance
+EMA with a probe cadence) says the drafts beat the window. The drafts come
+from prompt lookup ("ngram") or a draft model ("draft", spec.DraftModel,
+over the target's page table). The verify is one forward over each slot's
+[last token, drafts] block with a greedy argmax at every position under
+the min-tokens eos ban (`_engine_verify_step`; on the ragged path the
+block attends its prefix through the ragged kernel), on the card one
+graph replay a block shape (engine/window_graph.py); the longest matching
+prefix plus the model's own token commit through `commit_decode_token` /
+`_postprocess`. A spec engine never pipelines.
+
+Left out of this slice: pipeline/tensor/expert parallelism, streaming,
+vision and the tp shard inject (`inject_pages_shard`).
 """
 from __future__ import annotations
 
@@ -93,13 +106,15 @@ import contextlib
 import dataclasses
 import logging
 import math
+import os
 from typing import Dict, List, Optional, Set
 
 import numpy as np
 import torch
 
+from dynamo_tpu_torch.engine import spec
 from dynamo_tpu_torch.engine.config import (
-    EngineConfig, ModelConfig, check_supported,
+    EngineConfig, ModelConfig, check_supported, get_model_config,
 )
 from dynamo_tpu_torch.engine.kv_cache import SequenceState
 from dynamo_tpu_torch.engine.offload import CopyStream, HostKvPool
@@ -114,11 +129,10 @@ from dynamo_tpu_torch.engine.scheduler import (
 from dynamo_tpu_torch.engine.window_graph import HostCopies, WindowGraphs
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.llama import AttnMetadata
-from dynamo_tpu_torch.ops.attention import write_slots
+from dynamo_tpu_torch.ops.attention import scatter_new_kv, write_slots
 from dynamo_tpu_torch.observability.metrics import PhaseTimer
 from dynamo_tpu_torch.ops.kv_quant import (
-    dequantize_rows, is_quantized_cache, page_bytes, quantize_rows,
-    validate_mode,
+    dequantize_rows, is_quantized_cache, page_bytes, validate_mode,
 )
 from dynamo_tpu_torch.ops.quant import (
     is_quantized, quantize_params, validate_mode as validate_quant,
@@ -160,6 +174,7 @@ class NativeEngine:
         eos_token_ids: Optional[Set[int]] = None,
         seed: int = 0,
         device="cuda",
+        draft_params=None,
     ):
         self.device = resolve_device(device)
         check_supported(model_cfg, self.device)
@@ -274,6 +289,16 @@ class NativeEngine:
         self.pipeline_fallbacks = 0   # follow-ups discarded at reconcile
         self.mixed_steps = 0
         self.decode_stall_steps = 0
+        # speculative decoding: verify forwards run, drafts proposed and
+        # accepted; the acceptance EMA starts optimistic, and the gate's
+        # rejections since its last probe
+        self.spec_steps = 0
+        self.spec_proposed_tokens = 0
+        self.spec_accepted_tokens = 0
+        self._spec_acc_ema = 1.0
+        self._spec_gate_skips = 0
+        self._draft = None
+        self._spec = self._build_spec(draft_params, seed)
         # MoE capacity accounting: (token, expert) pairs the dispatch routed
         # and dropped over capacity, summed from committed programs
         self.moe_dropped_tokens = 0.0
@@ -287,6 +312,48 @@ class NativeEngine:
         if self._stream is not None:
             # the weights, cache and counter were made on the caller's stream
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def _build_spec(self, draft_params, seed: int) -> bool:
+        """Check the spec_* knobs (the JAX engine's refusals,
+        dynamo_tpu/engine/engine.py:387-433) and build the draft model for
+        "draft" mode; True when speculative decoding is on. The JAX refusal
+        of sequence parallelism has nothing to refuse here: the port runs
+        no sp mesh."""
+        ecfg = self.cfg
+        if not ecfg.spec_decode:
+            return False
+        if ecfg.spec_decode not in ("ngram", "draft"):
+            raise ValueError(
+                f"unknown spec_decode mode {ecfg.spec_decode!r} "
+                "(supported: 'ngram', 'draft')")
+        if ecfg.spec_k < 1:
+            raise ValueError("spec_decode requires spec_k >= 1")
+        if ecfg.spec_decode != "draft":
+            return True
+        name = ecfg.spec_draft_model
+        if not name:
+            raise ValueError(
+                "spec_decode='draft' requires spec_draft_model "
+                "(a registry name or an HF checkpoint dir)")
+        if os.path.isdir(name):
+            from dynamo_tpu_torch.models.loader import load_model_dir
+            dcfg, loaded = load_model_dir(name, device=self.device)
+            if draft_params is None:
+                draft_params = loaded
+        else:
+            dcfg = get_model_config(name)
+        if dcfg.vocab_size != self.model_cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target vocab "
+                f"{self.model_cfg.vocab_size}: the draft's token ids feed "
+                "the target's verify block verbatim")
+        check_supported(dcfg, self.device)
+        self._draft = spec.DraftModel(dcfg, ecfg, self.device,
+                                      params=draft_params, seed=seed,
+                                      stream=self._stream)
+        # the draft's captures exclude the threads the engine's exclude
+        self._draft.graphs.capture_lock = self.graphs.capture_lock
+        return True
 
     @property
     def cache(self):
@@ -333,6 +400,8 @@ class NativeEngine:
         self.scheduler.add_request(self._validate_prompt(req))
 
     def abort(self, request_id: str) -> bool:
+        if self._draft is not None:
+            self._draft.forget(request_id)
         return self.scheduler.abort(request_id)
 
     def close(self) -> None:
@@ -431,6 +500,9 @@ class NativeEngine:
         m.pipeline_fallbacks = self.pipeline_fallbacks
         m.mixed_steps = self.mixed_steps
         m.decode_stall_steps = self.decode_stall_steps
+        m.spec_steps = self.spec_steps
+        m.spec_proposed_tokens = self.spec_proposed_tokens
+        m.spec_accepted_tokens = self.spec_accepted_tokens
         m.decode_path = self.decode_path
         m.decode_path_reason = self.decode_path_reason
         m.decode_kernel_tag = self.decode_kernel_tag
@@ -905,11 +977,17 @@ class NativeEngine:
         return events
 
     def _run_decode(self, plan: DecodePlan) -> List[StepOutput]:
-        """The synchronous decode window: stage, dispatch, fetch, commit."""
+        """The synchronous decode window: stage, dispatch, fetch, commit;
+        or, with speculative decoding, a verify of drafts when the cost
+        gate passes them."""
         samp = self._sampling_arrays(plan.seqs)
         rp = self._rep_penalty_arrays(plan.seqs)
         with_lp = self._wants_logprobs(plan.seqs)
         greedy = self._samp_cache.all_greedy
+        if self._spec and greedy and not with_lp and rp is None:
+            events = self._try_spec(plan, samp[4], samp[5])
+            if events is not None:
+                return events
         # the top_p-free sampling tail when every row has top_p disabled;
         # logprob plans keep the full tail
         fused = (not greedy and not with_lp
@@ -1090,6 +1168,8 @@ class NativeEngine:
         if self.cfg.pipeline_depth < 2 or sch.waiting or sch.pending_onboards \
                 or sch.pending_pool_injects or self._pending_offloads:
             return False
+        if self._spec:
+            return False   # the verify handoff stays synchronous
         if self._wants_logprobs(plan.seqs) \
                 or self._rep_penalty_arrays(plan.seqs) is not None:
             return False
@@ -1208,6 +1288,195 @@ class NativeEngine:
             self._dec_state = None
         return events
 
+    # -- speculative decoding (engine/spec.py) -------------------------------
+
+    def _try_spec(self, plan: DecodePlan, counters, min_toks):
+        """The JAX dispatch ahead of the window (dynamo_tpu/engine/
+        engine.py:923-945): verify drafts when the cost gate passes them;
+        None sends the plan to the window."""
+        if self._draft is not None:
+            # the draft model's budget is known up front: the gate runs
+            # before any draft compute
+            caps = self._draft.caps(plan)
+            if sum(caps) and self._spec_worthwhile(plan, sum(caps)):
+                with self.phases.phase("propose"):
+                    drafts = self._draft.propose(plan, caps)
+                return self._run_spec_decode(plan, drafts, counters,
+                                             min_toks)
+        elif self._spec_bound_ok(plan):
+            drafts = self._gather_drafts(plan)
+            if any(drafts):
+                if self._spec_worthwhile(plan, sum(len(d) for d in drafts)):
+                    return self._run_spec_decode(plan, drafts, counters,
+                                                 min_toks)
+            elif self._spec_gate_skips >= self.cfg.spec_probe_every:
+                # a probe-granted scan that found no drafts spends the
+                # probe, or the precheck would admit the scan every step
+                self._spec_gate_skips = 0
+        return None
+
+    def _gather_drafts(self, plan: DecodePlan) -> list:
+        """Per-slot prompt-lookup proposals, clamped to the shared
+        draft_cap budget (page allocation and max_tokens) and truncated to
+        in-vocab ids."""
+        ps = self.cfg.page_size
+        drafts: list = []
+        for i, seq in enumerate(plan.seqs):
+            d_max = (spec.draft_cap(seq, plan.max_pos[i], ps,
+                                    self.cfg.spec_k)
+                     if seq is not None else 0)
+            if d_max <= 0:
+                drafts.append([])
+                continue
+            drafts.append(spec.ngram_propose(
+                seq.all_tokens, d_max,
+                vocab_size=self.model_cfg.vocab_size))
+        return drafts
+
+    def _spec_gate_terms(self, plan: DecodePlan):
+        """(n_live, nw, window, verify) for the speculation cost gate: the
+        window's rung and the two programs' prices (spec.gate_costs)."""
+        n_live = sum(1 for s in plan.seqs if s is not None)
+        nw = self._window_rung(plan)
+        return (n_live, nw) + spec.gate_costs(nw, self.device.type)
+
+    def _spec_bound_ok(self, plan: DecodePlan) -> bool:
+        """Cheap precheck before the per-slot n-gram scans: with spec_k
+        drafts a live slot the gate reads (1 + ema * spec_k) * window >
+        nw * verify; when even that fails no draft set can pass
+        `_spec_worthwhile`, so the scan is skipped, unless a probe is due
+        (the skip counts toward the probe cadence)."""
+        n_live, nw, window, verify = self._spec_gate_terms(plan)
+        if n_live == 0:
+            return False
+        if (1 + self._spec_acc_ema * self.cfg.spec_k) * window \
+                > nw * verify:
+            return True
+        self._spec_gate_skips += 1
+        # left at the threshold: _spec_worthwhile's probe branch resets it
+        # when the probe dispatches
+        return self._spec_gate_skips >= self.cfg.spec_probe_every
+
+    def _spec_worthwhile(self, plan: DecodePlan, d_total: int) -> bool:
+        """The cost gate: with `window` and `verify` the two programs'
+        times (spec.gate_costs: JAX's dispatch-based prices off the card,
+        the measured verify / window-step ratio on it) and ema the recent
+        acceptance rate, speculation wins iff
+
+            (n_live + ema * d_total) * window > n_live * nw * verify
+
+        (at nw == 1 it always does off the card). The ema moves only when a
+        verify runs, so every spec_probe_every-th rejection forces a
+        probe."""
+        n_live, nw, window, verify = self._spec_gate_terms(plan)
+        if ((n_live + self._spec_acc_ema * d_total) * window
+                > n_live * nw * verify):
+            self._spec_gate_skips = 0
+            return True
+        self._spec_gate_skips += 1
+        if self._spec_gate_skips >= self.cfg.spec_probe_every:
+            self._spec_gate_skips = 0
+            return True
+        return False
+
+    def _verify_program(self):
+        """The verify as a function of its input buffers, for
+        WindowGraphs.run."""
+        def program(b):
+            return _engine_verify_step(
+                self.model_cfg, self._eos_vec, self.params, self.cache,
+                b["tokens"], b["positions"], b["page_table"], b["kv_lens"],
+                b["write_idx"], b["counters"], b["min_tokens"],
+                nonfinite=b["nonfinite"], path=self.decode_path)
+        return program
+
+    def _run_spec_decode(self, plan: DecodePlan, drafts: list, counters,
+                         min_toks) -> List[StepOutput]:
+        """Verify the drafts in one target forward (JAX `_run_spec_decode`,
+        dynamo_tpu/engine/engine.py:1405-1490).
+
+        Each slot's block row is [last token, drafts...] laid out like a
+        prefill chunk; the verify's per-position argmax replays the greedy
+        choice at every draft position. The longest matching prefix plus
+        the model's own token at the first mismatch commit through
+        commit_decode_token + _postprocess (stop, eos and max_tokens there),
+        a slot stopping at its first finished event. On the card the verify
+        is one replay of the graph of its block shape, from static input
+        buffers, its predictions copied out after it."""
+        ps = self.cfg.page_size
+        s_count, pb = plan.page_table.shape
+        kp1 = self.cfg.spec_k + 1
+        tokens = np.zeros((s_count, kp1), np.int32)
+        positions = np.zeros((s_count, kp1), np.int32)
+        write_idx = np.full((s_count, kp1), -1, np.int32)
+        kv_lens = np.zeros((s_count,), np.int32)
+        for i, seq in enumerate(plan.seqs):
+            if seq is None:
+                continue
+            d = drafts[i]
+            n = 1 + len(d)
+            pos0 = seq.total_len - 1
+            tokens[i, 0] = plan.tokens[i, 0]
+            if d:
+                tokens[i, 1:n] = d
+            positions[i, :] = pos0 + n - 1
+            positions[i, :n] = np.arange(pos0, pos0 + n)
+            for j in range(n):
+                write_idx[i, j] = seq.flat_index(pos0 + j, ps)
+            kv_lens[i] = pos0 + n
+        i32 = torch.int32
+        key = ("verify", s_count, kp1, pb)
+        bufs = self.graphs.inputs(key, {
+            "tokens": ((s_count, kp1), i32),
+            "positions": ((s_count, kp1), i32),
+            "page_table": ((s_count, pb), i32), "kv_lens": ((s_count,), i32),
+            "write_idx": ((s_count, kp1), i32),
+            "counters": ((s_count,), i32), "min_tokens": ((s_count,), i32)})
+        bufs["nonfinite"] = self._nonfinite
+        for name, arr in (("tokens", tokens), ("positions", positions),
+                          ("page_table", plan.page_table),
+                          ("kv_lens", kv_lens), ("write_idx", write_idx),
+                          ("counters", counters), ("min_tokens", min_toks)):
+            bufs[name].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+        with self.phases.phase("verify"):
+            outs = self.graphs.run(key, self._verify_program(), bufs,
+                                   "verify", dead="write_idx")
+            pred, moe = HostCopies.wait(
+                self._host_copies.copy_async(outs, self._stream))
+        if moe is not None:
+            self._account_moe(moe)
+        # the verify advanced positions and KV outside the window: the
+        # window's staged buffers and carry are stale
+        self._dec_state = None
+        events: List[StepOutput] = []
+        for i, seq in enumerate(plan.seqs):
+            if seq is None:
+                continue
+            d = drafts[i]
+            m = 0
+            while m < len(d) and int(pred[i, m]) == d[m]:
+                m += 1
+            self.spec_proposed_tokens += len(d)
+            self.spec_accepted_tokens += m
+            if d:
+                self._spec_acc_ema = (0.8 * self._spec_acc_ema
+                                      + 0.2 * (m / len(d)))
+            emitted, finished = 0, False
+            for tok in list(d[:m]) + [int(pred[i, m])]:
+                self.scheduler.commit_decode_token(seq, tok)
+                emitted += 1
+                ev = self._postprocess(seq, seq.output[-1])
+                events.append(ev)
+                if ev.finished:
+                    finished = True
+                    break
+            if self._draft is not None and not finished:
+                # a FINISHED request was forgotten by _postprocess:
+                # recording it again would leak its entry
+                self._draft.committed(seq, m, emitted)
+        self.spec_steps += 1
+        return events
+
     def _commit_window(self, plan: DecodePlan, toks: np.ndarray, lps=None,
                        top_ids=None, top_lps=None) -> List[StepOutput]:
         """Unpack a [N, S] window of sampled tokens step-major so each
@@ -1262,6 +1531,8 @@ class NativeEngine:
             finish = "length"
         if finish is not None:
             self.scheduler.finish(seq)
+            if self._draft is not None:
+                self._draft.forget(seq.request_id)
         ev = StepOutput(seq.request_id, emit, finish is not None, finish)
         if p.logprobs is not None and emit is not None and lp is not None:
             ev.logprob = lp
@@ -1275,27 +1546,6 @@ def _tree_bytes(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
     return tree.numel() * tree.element_size()
-
-
-def _scatter_new_kv(cache, k_news, v_news, write_idx):
-    """One in-place scatter of all layers' new kv rows (deferred write).
-
-    cache {k, v[, k_scale, v_scale]}: [L, Hkv, P, ps, hd] (+ [L, Hkv, P,
-    ps] scales); k_news/v_news [L, S, Hkv, hd] full-precision rows;
-    write_idx [S] flat token slots (<0 = dropped: those rows land in the
-    cache's last page, the scratch page no page table references). On an
-    int8 cache the rows quantize here and the int8 values and f32 scales
-    scatter together."""
-    l, hkv, p, ps, hd = cache["k"].shape  # dynalint: kv-codec (shape only)
-    idx = write_slots(write_idx, p, ps)
-    for key, new in (("k", k_news), ("v", v_news)):
-        flat = cache[key].view(l, hkv, p * ps, hd)
-        if is_quantized_cache(cache):
-            new, scale = quantize_rows(new)   # [L,S,Hkv,hd] / [L,S,Hkv]
-            cache[f"{key}_scale"].view(l, hkv, p * ps).index_copy_(
-                2, idx, scale.permute(0, 2, 1))
-        flat.index_copy_(2, idx, new.permute(0, 2, 1, 3).to(flat.dtype))
-    return cache
 
 
 def _engine_step(cfg: ModelConfig, eos, params, cache, tokens,
@@ -1320,6 +1570,42 @@ def _engine_step(cfg: ModelConfig, eos, params, cache, tokens,
                          counters, min_tokens, seen=seen,
                          rep_penalty=rep_penalty, with_lp=with_lp,
                          greedy=greedy) + (_moe_counts(aux),)
+
+
+def _engine_verify_step(cfg: ModelConfig, eos, params, cache, tokens,
+                        positions, page_table, kv_lens, write_idx, counters,
+                        min_tokens, nonfinite=None, path=None):
+    """Speculative-decoding verify (JAX `_engine_verify_step`,
+    dynamo_tpu/engine/engine.py:2379-2420): one forward over each slot's
+    [last token, drafts...] block, returning the greedy token at EVERY
+    position ([S, K+1] int32) and the MoE counts (or None). Position j's
+    argmax is what sample_logits(greedy) gives for generated token
+    counters + j, the min-tokens eos ban included, so the host's
+    acceptance is exact. The block's KV rows are written during the
+    forward; rejected rows lie past the committed length, where nothing
+    reads them and the next write overwrites them. Block token j sits at
+    position positions[:, 0] + j: on the ragged path the block attends that
+    prefix through the ragged kernel, one kernel row a block token
+    (ops/paged_attention.block_attention), where the JAX verify gathers
+    the pages into a prefill-shaped attention (the same function in
+    another summation order). No host copy and no data-dependent shape:
+    the verify is captured whole in one graph."""
+    meta = AttnMetadata(positions=positions, page_table=page_table,
+                        kv_lens=kv_lens, write_idx=write_idx,
+                        prefix_lens=positions[:, 0])
+    logits, _, aux = llama.forward(params, cfg, tokens, cache, meta,
+                                   with_aux=True, path=path)
+    if nonfinite is not None:
+        nonfinite += (~torch.isfinite(logits)).any()
+    if eos is not None:
+        # position j emits generated token counters + j
+        j = torch.arange(tokens.shape[1], dtype=counters.dtype,
+                         device=counters.device)[None, :]
+        ban = (counters[:, None] + j) < min_tokens[:, None]   # [S, K+1]
+        logits = logits.masked_fill(ban[:, :, None] & eos[None, None, :],
+                                    -1e30)
+    pred = logits.argmax(dim=-1).to(torch.int32)
+    return pred, _moe_counts(aux)
 
 
 def _moe_counts(aux: dict):
@@ -1388,7 +1674,7 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
 
     - "ragged", or "gather" without `window_bufs` (the per-token deferred
       gather): the JAX kernel-mode body. Each step's kv rows are scattered
-      into the cache in place at its write slot (`_scatter_new_kv`; an int8
+      into the cache in place at its write slot (`scatter_new_kv`; an int8
       cache quantizes them there).
     - "gather" with `window_bufs` = (k_base, v_base [L, Hkv, S, Pb_base *
       ps, hd], k_win, v_win [L, Hkv, S, n_steps, hd]), static buffers of
@@ -1452,7 +1738,7 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
             logits, k_news, v_news, aux = llama.decode_forward(
                 params, cfg, tok, cache, page_table, prefix, pos,
                 valid=writable, with_aux=True, path=path)
-            _scatter_new_kv(cache, k_news, v_news, write_idx)
+            scatter_new_kv(cache, k_news, v_news, write_idx)
         if aux:
             counts = _moe_counts(aux)
             moe = counts if moe is None else moe + counts
@@ -1478,8 +1764,8 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
         l, hkv, _, nw, hd = k_win.shape
         def rows_of(w):
             return w.permute(0, 2, 3, 1, 4).reshape(l, s * nw, hkv, hd)
-        _scatter_new_kv(cache, rows_of(k_win), rows_of(v_win),
-                        torch.stack(write_idxs, 1).reshape(-1))
+        scatter_new_kv(cache, rows_of(k_win), rows_of(v_win),
+                       torch.stack(write_idxs, 1).reshape(-1))
     toks = torch.stack([o[0] for o in outs])
     if not with_lp:
         return toks, None, None, None, moe, (tok, pos, ctr)

@@ -172,6 +172,12 @@ class EngineMetrics:
     pipeline_fallbacks: int = 0
     mixed_steps: int = 0
     decode_stall_steps: int = 0
+    # speculative decoding (engine/spec.py): verify forwards run, and the
+    # drafts proposed and accepted (accepted / proposed is the acceptance
+    # rate; all 0 when spec_decode is off)
+    spec_steps: int = 0
+    spec_proposed_tokens: int = 0
+    spec_accepted_tokens: int = 0
     # the decode attention path resolved at engine build ("ragged" |
     # "gather") and why, and the last window's path + sampling tail
     decode_path: str = ""

@@ -5,7 +5,12 @@ The port's counterpart of the JAX engine's `_decode_fns` jit dict
 variant, built on first use and dispatched once per window. PyTorch runs
 eagerly, so its device program is a CUDA graph. A window of N steps at
 llama3-8b is ~3500 kernel launches a step; replaying them as one graph
-takes the host's launch work out of the step.
+takes the host's launch work out of the step. Speculative decoding's
+programs are graphs of the same kind: the verify forward (the JAX
+`_verify_fn`, dynamo_tpu/engine/engine.py:405), keyed ("verify", S,
+spec_k + 1, Pb), and the draft model's K proposal steps (the JAX
+`_propose_fn`, dynamo_tpu/engine/spec.py:247-252), keyed ("propose", S,
+Pb) in the draft's own WindowGraphs.
 
 - Keys. A graph is keyed by the window's variant `(rp, lp, greedy, fused,
   nw)` plus every shape it closes over (S, Pb, the stop-id width K and the
@@ -136,18 +141,21 @@ class WindowGraphs:
         return buf
 
     def run(self, key: tuple, program: Callable,
-            bufs: Dict[str, torch.Tensor], path: str = ""):
-        """Run the window program `program(bufs)` keyed by `key` (the
-        decode `path` it runs): directly on the CPU (or with `eager`); on
-        the card as the replay of its graph, captured first if the key is
-        new. Returns the program's outputs (on the card, the graph's pool
-        tensors)."""
+            bufs: Dict[str, torch.Tensor], path: str = "",
+            dead: str = "max_pos"):
+        """Run the program `program(bufs)` keyed by `key` (the decode
+        `path` it runs, or "verify" / "propose" for speculative decoding):
+        directly on the CPU (or with `eager`); on the card as the replay of
+        its graph, captured first if the key is new. `dead` names the input
+        that, filled with -1, kills every row for the warm-up (a window's
+        max_pos, a verify's write_idx, a proposal's max_write). Returns the
+        program's outputs (on the card, the graph's pool tensors)."""
         if self.device.type != "cuda" or self.eager:
             return program(bufs)
         with torch.cuda.stream(self.stream):
             rec = self._graphs.get(key)
             if rec is None:
-                rec = self._capture(key, program, bufs)
+                rec = self._capture(key, program, bufs, dead)
             graph, outs, calls = rec
             graph.replay()
         for name, n in calls.items():
@@ -158,12 +166,13 @@ class WindowGraphs:
         self.replay_paths[path] = self.replay_paths.get(path, 0) + 1
         return outs
 
-    def _capture(self, key: tuple, program: Callable, bufs) -> tuple:
+    def _capture(self, key: tuple, program: Callable, bufs,
+                 dead: str = "max_pos") -> tuple:
         t0 = time.perf_counter()
         # warm-up on copies of the inputs with every row dead: same shapes
         # and launches, writes only the scratch page, changes no carry
         idle = {name: t.clone() for name, t in bufs.items()}
-        idle["max_pos"].fill_(-1)
+        idle[dead].fill_(-1)
         n0 = _counts(1)
         program(idle)
         self.stream.synchronize()

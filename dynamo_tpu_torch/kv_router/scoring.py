@@ -5,8 +5,8 @@ worker set with each worker's latest metrics (its load mean and spread,
 which nothing in the port reads, are left out), and `WorkerMetrics`, the
 reference's ForwardPassMetrics fields plus the counters the port's engine
 reports (engine/scheduler.EngineMetrics, which the worker publishes). The
-JAX record's KV-transfer, speculative, ledger, offload-tier and streaming
-fields are left out with the slices that bring those counters.
+JAX record's KV-transfer, ledger, offload-tier and streaming fields are
+left out with the slices that bring those counters.
 """
 from __future__ import annotations
 
@@ -39,6 +39,11 @@ class WorkerMetrics:
     pipeline_fallbacks: int = 0
     mixed_steps: int = 0
     decode_stall_steps: int = 0
+    # speculative decoding (JAX ForwardPassMetrics :33-35, and the verify
+    # count): acceptance = accepted / proposed
+    spec_steps: int = 0
+    spec_proposed_tokens: int = 0
+    spec_accepted_tokens: int = 0
     kv_page_bytes: int = 0
     kv_quant_bits: int = 0
     weight_bytes: int = 0

@@ -270,10 +270,25 @@ class NativeEngineWorker(AsyncEngine):
         (each wrapper's count, which the window graphs' replays add to,
         and the launches of the eager warm-ups before captures), the decode
         path the engine resolved and its window graphs' captures (with
-        their wall-clock times) and replays (by path)."""
+        their wall-clock times) and replays (by path: a speculative
+        engine's verify replays under "verify"), a draft model's proposal
+        graphs, and the host wall time of the decode loop's phases (with a
+        speculative engine's "verify" and "propose")."""
         from dynamo_tpu_torch.engine.window_graph import KERNELS
         graphs = self.engine.graphs
-        return {**self.metrics_publisher.stats_handler(),
+        out = {}
+        draft = getattr(self.engine, "_draft", None)
+        if draft is not None:
+            # the draft model's proposal graphs: their replays and the
+            # kernel launches the replays alone added
+            dg = draft.graphs
+            out["draft"] = {"model": draft.cfg.name, "path": draft.path,
+                            "layers": draft.cfg.num_layers, "k": draft.k,
+                            "captured": dg.captured, "replays": dg.replays,
+                            "replay_launches": dict(dg.replay_launches),
+                            "warmup_launches": dict(dg.warmup_launches),
+                            "catchup_buckets": dict(draft.catchup_buckets)}
+        return {**self.metrics_publisher.stats_handler(), **out,
                 "decode_window_steps": self.engine.decode_window_steps,
                 "decode_path": self.engine.decode_path,
                 "decode_path_reason": self.engine.decode_path_reason,
@@ -281,6 +296,7 @@ class NativeEngineWorker(AsyncEngine):
                     name: getattr(mod, attr)
                     for name, (mod, attr, _) in KERNELS.items()},
                 "graph_warmup_launches": dict(graphs.warmup_launches),
+                "phases": self.engine.phases.split(),
                 "graphs": {"captured": graphs.captured,
                            "capture_times": list(graphs.capture_times),
                            "replays": graphs.replays,

@@ -45,8 +45,9 @@ Decode attention takes the path `decode_path` resolves from the config
 (the port's `_decode_kernel_mode`, after dynamo_tpu/models/llama.py:45-83
 and dynamo_tpu/engine/engine.py:108-133): "ragged", the ragged decode
 kernel (ops/paged_attention.py; `decode_forward` in prefix mode plus
-`combine_self_attention`, `forward` with Tq == 1 in inclusive mode; on CPU
-tensors the kernel's wrapper runs its plain version), or "gather", the
+`combine_self_attention`, `forward` with Tq == 1 in inclusive mode, a
+speculative verify's block through `block_attention`; on CPU tensors the
+kernel's wrapper runs its plain version), or "gather", the
 plain gather attention of ops/attention.py that carries Gemma-2's attention
 soft-cap, sliding windows and query scale (`decode_forward` with a window's
 base + buffer, `decode_attention_split`, or without, the per-step
@@ -69,10 +70,12 @@ from dynamo_tpu_torch.ops.attention import (
     decode_attention_deferred, decode_attention_split, paged_attention,
     write_kv_pages, write_kv_pages_quant,
 )
-from dynamo_tpu_torch.ops.kv_quant import is_quantized_cache, validate_mode
+from dynamo_tpu_torch.ops.kv_quant import (
+    dequantize_rows, is_quantized_cache, quantize_rows, validate_mode,
+)
 from dynamo_tpu_torch.ops.moe import moe_dispatch_mlp, top_k
 from dynamo_tpu_torch.ops.paged_attention import (
-    combine_self_attention, decode_paged_attention,
+    block_attention, combine_self_attention, decode_paged_attention,
     decode_paged_attention_prefix, kernel_geometry_reason,
 )
 from dynamo_tpu_torch.ops.quant import (
@@ -137,6 +140,10 @@ class AttnMetadata:
     page_table: torch.Tensor   # [B, Pb] int32
     kv_lens: torch.Tensor      # [B] int32 (valid kv length AFTER this step)
     write_idx: torch.Tensor    # [B, Tq] int32 flat slot indices (<0 = pad)
+    # [B] int32 valid kv BEFORE a block of consecutive tokens (a speculative
+    # verify's), or None: on the ragged path such a block attends its
+    # prefix through the kernel and itself causally (block_attention)
+    prefix_lens: Optional[torch.Tensor] = None
 
 
 # -- init ---------------------------------------------------------------------
@@ -575,10 +582,16 @@ def forward(
     128k vocabulary is gigabytes). A single-token step (Tq == 1) on the
     ragged path runs the kernel in inclusive mode; every other step runs
     `paged_attention` with the layer's window, the attention soft-cap and
-    the query scale (JAX :536-610). An MoE dispatch routes only the real
-    positions (write_idx >= 0)."""
+    the query scale (JAX :536-610). A block of consecutive tokens with
+    `meta.prefix_lens` (a speculative verify) on the ragged path attends
+    through the kernel instead (`block_attention`: its prefix in prefix
+    mode, the block causally; the block's rows as the cache stores them,
+    so an int8 cache's rows are quantized first). An MoE dispatch routes
+    only the real positions (write_idx >= 0)."""
     b, tq = tokens.shape
-    use_kernel = tq == 1 and _resolved(cfg, path) == "ragged"
+    ragged = _resolved(cfg, path) == "ragged"
+    use_kernel = tq == 1 and ragged
+    use_block = tq > 1 and ragged and meta.prefix_lens is not None
     lp = params["layers"]
     # admission validated the ids  # dynalint: disable-next-line=R1
     x = scale_embeds(params["embed"][tokens.long()], cfg)  # [B, Tq, D]
@@ -604,6 +617,16 @@ def forward(
             attn = decode_paged_attention(
                 q[:, 0].contiguous(), kc, vc, meta.page_table,
                 meta.kv_lens, ksc, vsc)[:, None]
+        elif use_block:
+            kb, vb = k, v
+            if quant:
+                kb, vb = (dequantize_rows(*quantize_rows(t), t.dtype)
+                          for t in (k, v))
+            # the kernel reads int8 pages with their scales
+            # dynalint: kv-codec
+            attn = block_attention(
+                q, kb, vb, cache["k"], cache["v"], l, meta.page_table,
+                meta.prefix_lens, cache.get("k_scale"), cache.get("v_scale"))
         else:
             attn = paged_attention(
                 q, kc, vc, meta.page_table, meta.kv_lens, meta.positions,

@@ -8,7 +8,9 @@ pages, then masked attention in f32), the gather decode's two forms,
 + the current token's self-term, one joint softmax) and
 `decode_attention_deferred` (the pages gathered every step + the
 self-term), `write_kv_pages` and its int8 twin `write_kv_pages_quant`
-(ops/kv_quant.py). None of these is a Pallas kernel in the JAX package, so
+(ops/kv_quant.py), and `scatter_new_kv`, the decode's one scatter of
+every layer's new rows (the engine's window and a draft model's
+proposals). None of these is a Pallas kernel in the JAX package, so
 they are plain torch ops here; the ragged decode kernel is
 ops/paged_attention.py.
 
@@ -39,7 +41,9 @@ from typing import Optional
 
 import torch
 
-from dynamo_tpu_torch.ops.kv_quant import gather_dequant, quantize_rows
+from dynamo_tpu_torch.ops.kv_quant import (
+    gather_dequant, is_quantized_cache, quantize_rows,
+)
 
 NEG_INF = -1e30
 
@@ -330,6 +334,27 @@ def write_kv_pages(
     flat_k.index_copy_(1, idx, kn)
     flat_v.index_copy_(1, idx, vn)
     return k_cache, v_cache
+
+
+def scatter_new_kv(cache, k_news, v_news, write_idx):
+    """One in-place scatter of all layers' new kv rows (deferred write).
+
+    cache {k, v[, k_scale, v_scale]}: [L, Hkv, P, ps, hd] (+ [L, Hkv, P,
+    ps] scales); k_news/v_news [L, S, Hkv, hd] full-precision rows;
+    write_idx [S] flat token slots (<0 = dropped: those rows land in the
+    cache's last page, the scratch page no page table references). On an
+    int8 cache the rows quantize here and the int8 values and f32 scales
+    scatter together."""
+    l, hkv, p, ps, hd = cache["k"].shape  # dynalint: kv-codec (shape only)
+    idx = write_slots(write_idx, p, ps)
+    for key, new in (("k", k_news), ("v", v_news)):
+        flat = cache[key].view(l, hkv, p * ps, hd)
+        if is_quantized_cache(cache):
+            new, scale = quantize_rows(new)   # [L,S,Hkv,hd] / [L,S,Hkv]
+            cache[f"{key}_scale"].view(l, hkv, p * ps).index_copy_(
+                2, idx, scale.permute(0, 2, 1))
+        flat.index_copy_(2, idx, new.permute(0, 2, 1, 3).to(flat.dtype))
+    return cache
 
 
 def write_kv_pages_quant(

@@ -400,6 +400,46 @@ def combine_self_attention(q, k_new, v_new, acc, m, l):
     return out.to(q.dtype)
 
 
+def block_attention(q, k_blk, v_blk, k_cache, v_cache, layer: int,
+                    page_table, prefix_lens, k_scale=None, v_scale=None):
+    """Causal attention of a block of T consecutive tokens a row over its
+    cached prefix and itself: a speculative verify's [last token, drafts]
+    block.
+
+    q [S, T, H, hd]; k_blk / v_blk [S, T, Hkv, hd], the block's own rows as
+    the cache stores them; prefix_lens [S], the valid kv BEFORE the block
+    (block token j sits at position prefix_lens + j). Every block token is
+    one row of the ragged kernel in prefix mode (S x T rows over their
+    row's pages: no page gather), and the block's causal part (token i
+    attends tokens j <= i) is folded into that flash state in f32, as
+    combine_self_attention folds one token. The same function as
+    ops/attention.paged_attention over positions [0, prefix_lens + j] in
+    another summation order. Returns [S, T, H, hd] in q.dtype; no host
+    read, so a verify can be captured in a graph."""
+    s, t, h, hd = q.shape
+    hkv = k_blk.shape[2]
+    g = h // hkv
+    acc, m, l = decode_paged_attention_prefix(
+        q.reshape(s * t, h, hd).contiguous(), k_cache, v_cache, layer,
+        page_table.repeat_interleave(t, dim=0),
+        prefix_lens.repeat_interleave(t).to(torch.int32), k_scale, v_scale)
+    qf = q.float().reshape(s, t, hkv, g, hd) * (hd ** -0.5)
+    sc = torch.einsum("sikgd,sjkd->sikgj", qf, k_blk.float())
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    sc = torch.where(causal[None, :, None, None, :], sc,
+                     torch.full((), NEG_INF, device=q.device))
+    sc = sc.reshape(s * t, h, t)
+    # every block token attends itself, so the joint max is finite even
+    # where the prefix is empty (m = -1e30 there)
+    m2 = torch.maximum(m, sc.amax(-1, keepdim=True))
+    a = torch.exp(m - m2)
+    p = torch.exp(sc - m2)                                 # [S * T, H, T]
+    pv = torch.einsum("sikgj,sjkd->sikgd", p.reshape(s, t, hkv, g, t),
+                      v_blk.float()).reshape(s * t, h, hd)
+    out = (acc * a + pv) / (l * a + p.sum(-1, keepdim=True))
+    return out.reshape(s, t, h, hd).to(q.dtype)
+
+
 def decode_paged_attention(q, k_cache, v_cache, page_table, kv_lens,
                            k_scale=None, v_scale=None):
     """Inclusive-mode view of the ragged kernel: [S, H, hd] attention of

@@ -46,7 +46,11 @@ products the grouped W8A16 kernel), which is how mixtral-8x7b fits one
 H100; `--kv-quant int8` stores the KV cache as int8 pages with per-row
 scales; `--host-pages N` gives the engine a host-DRAM KV tier of N pages
 (pinned on the card: at llama3-8b 8,388,608 bytes a bf16 page, 4,325,376
-an int8 one). A frontend for endpoint workers is `python -m
+an int8 one); `--spec-decode ngram|draft [--spec-k K] [--spec-draft
+MODEL]` verifies K prompt-lookup or draft-model tokens a target forward on
+greedy plans (engine/spec.py; the draft a registry name with random
+weights from seed 0, or an HF directory, of the served model's
+vocabulary). A frontend for endpoint workers is `python -m
 dynamo_tpu_torch.frontend.serve`.
 """
 from __future__ import annotations
@@ -123,8 +127,12 @@ async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
     eng_cfg = EngineConfig(
         page_size=card.kv_page_size, num_pages=args.num_pages,
         max_slots=args.max_slots, max_prefill_chunk=args.max_prefill_chunk,
+        mixed_token_budget=args.mixed_token_budget,
+        max_prefill_batch=args.max_prefill_batch,
         max_model_len=min(card.context_length, model_cfg.max_model_len),
-        host_pages=args.host_pages, kv_quant=args.kv_quant)
+        host_pages=args.host_pages, kv_quant=args.kv_quant,
+        spec_decode=args.spec_decode, spec_k=args.spec_k,
+        spec_draft_model=args.spec_draft)
     engine = NativeEngine(model_cfg, eng_cfg, params=params,
                           eos_token_ids=set(card.eos_token_ids),
                           device=args.device)
@@ -250,6 +258,15 @@ async def amain(argv=None) -> None:
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--max-slots", type=int, default=8)
     p.add_argument("--max-prefill-chunk", type=int, default=512)
+    p.add_argument("--mixed-token-budget", type=int,
+                   default=EngineConfig.mixed_token_budget,
+                   help="device tokens a mixed prefill + decode step holds "
+                        "(rows x token bucket); 0 alternates prefill steps "
+                        "and decode windows")
+    p.add_argument("--max-prefill-batch", type=int,
+                   default=EngineConfig.max_prefill_batch,
+                   help="sequences one prefill step may hold; 1 prefills "
+                        "each alone")
     p.add_argument("--quant", default="", choices=("", "int8"),
                    help="weight-only quantization: int8 projections and "
                         "head with per-output-channel f32 scales, half "
@@ -263,6 +280,19 @@ async def amain(argv=None) -> None:
                    help="host-DRAM KV tier in pages (0 = off): evicted KV "
                         "pages spill to pinned host memory and come back on "
                         "prefix hits (engine/offload.py)")
+    p.add_argument("--spec-decode", default="",
+                   choices=("", "ngram", "draft"),
+                   help="speculative decoding: 'ngram' verifies "
+                        "prompt-lookup drafts, 'draft' a small draft "
+                        "model's tokens, in one target forward (greedy "
+                        "plans; the plain greedy output)")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="draft tokens verified per forward with "
+                        "--spec-decode")
+    p.add_argument("--spec-draft", default="",
+                   help="draft model for --spec-decode draft: a registry "
+                        "name or an HF checkpoint dir (its vocabulary must "
+                        "be the served model's)")
     p.add_argument("--echo-delay", type=float, default=0.0)
     p.add_argument("--control-host", default="127.0.0.1")
     p.add_argument("--control-port", type=int, default=5550)

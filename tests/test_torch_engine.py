@@ -283,6 +283,29 @@ def test_run_batch_cpu(tmp_path, capsys):
                for x in lines)
 
 
+def test_run_scheduler_flags_reach_the_engine(monkeypatch):
+    """run.py's --mixed-token-budget and --max-prefill-batch set the
+    engine's EngineConfig (their defaults are EngineConfig's)."""
+    import dynamo_tpu_torch.engine.engine as engine_mod
+    from dynamo_tpu_torch.run import amain
+    built = []
+
+    class Recording(engine_mod.NativeEngine):
+        def __init__(self, model_cfg, cfg, *a, **kw):
+            built.append(cfg)
+            super().__init__(model_cfg, cfg, *a, **kw)
+    monkeypatch.setattr(engine_mod, "NativeEngine", Recording)
+    for extra, want in (((), (512, 8)),
+                        (("--mixed-token-budget", "0",
+                          "--max-prefill-batch", "1"), (0, 1))):
+        asyncio.run(amain(["in=none", "out=native", "tiny", "--device",
+                           "cpu", "--num-pages", "16", *extra]))
+        cfg = built[-1]
+        assert (cfg.mixed_token_budget, cfg.max_prefill_batch) == want
+    assert want != (TEngineConfig().mixed_token_budget,
+                    TEngineConfig().max_prefill_batch) == (512, 8)
+
+
 def test_engine_requires_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
