@@ -21,12 +21,14 @@ Phases (any failed check exits non-zero; nothing is caught):
       at Pb 32, GQA groups of 1, 4 and 8, and an all-empty batch (m = -1e30
       and l = ps exactly on every empty row); since PR 15 also 8 rows at
       the heads of Gemma-7B (16 / 16 x 256), Phi-3-mini (32 / 32 x 96),
-      Gemma-2-9B (16 / 8 x 256) and GQA groups of 12 and 16 (hd 128);
-      recycled page tails filled with NaN. Both compute the f32 state, so
-      only summation order differs: rtol = atol = 1e-4 for f32 caches and
-      2e-3 for bf16 caches. The prefix fold and the inclusive division are
-      compared in f32, before the one cast to q's dtype that both sides
-      share (fold_f32). At those five geometries the kernel is then timed
+      Gemma-2-9B (16 / 8 x 256) and GQA groups of 12 and 16 (hd 128), and
+      at Qwen2-VL-7B's (28 / 4 x 128: a group of 7, one head block with a
+      masked eighth row); recycled page tails filled with NaN. Both compute
+      the f32 state, so only summation order differs: rtol = atol = 1e-4
+      for f32 caches and 2e-3 for bf16 caches. The prefix fold and the
+      inclusive division are compared in f32, before the one cast to q's
+      dtype that both sides share (fold_f32). At those six geometries the
+      kernel is then timed
       (CUDA events over a replayed graph) at 8 rows of 400 tokens with bf16
       and int8 pages beside its bound (K + V bytes over 3.35 TB/s), its
       plain version and the library yardstick (gather + SDPA);
@@ -336,7 +338,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    output goes to build/disagg_supervisor.log.
 
 13. The KV tiers at full width (engine/offload.py, engine/kv_pool.py): one
-   set of llama3-8b weights from seed 0 shared by every engine, bf16, page
+   set of llama3-8b weights from seed 0 shared by every engine, at 8 of
+   its 32 layers (TIER_LAYERS; the widths, page size and traffic
+   unchanged, the gates count pages, hits and layers x steps; the cut
+   keeps the script inside its time limit), bf16, page
    64, 8 slots, max_model_len 4096. Engines: T (num_pages 160, host_pages
    48 pinned, disk_pages 256 under build/kv_tiers), O (num_pages 512, no
    tier: every turn-2 prefix is an HBM hit) and R (num_pages 160, no tier:
@@ -464,8 +469,10 @@ Phases (any failed check exits non-zero; nothing is caught):
 
 16. The gather decode windows and Gemma-2 (A5), under build/checkpoints
    (removed at the end).
-   a. gemma-2-9b at full width and depth (google/gemma-2-9b's published
-   config.json: 42 layers, d 3584, 16 / 8 heads of 256, vocab 256000,
+   a. gemma-2-9b at full width and 14 of its 42 layers (GEMMA_LAYERS:
+   the cut keeps the script inside its time limit; google/gemma-2-9b's
+   published config.json otherwise: d 3584, 16 / 8 heads of 256, vocab
+   256000,
    tied, GeGLU, sliding window 4096 on alternating layers, soft-caps 50 /
    30, query_pre_attn_scalar 256; random bf16 weights from seed 0),
    written by this script as a 4-shard HF directory with a Gemma-form
@@ -473,13 +480,13 @@ Phases (any failed check exits non-zero; nothing is caught):
    fallback) and Gemma's chat template. Traffic: 8 chats of 4.6k-7.4k
    prompt tokens, greedy, 64 tokens, top-8 logprobs, 4 SSE and 4 unary,
    one at a time (8 slots, 1024 pages), so that each is scheduled alike
-   in every run. The reference gate (run last), in f32 at full width and
-   depth (one slot, 125 pages; random f32 weights from seed 0): the
+   in every run. The reference gate (run last), in f32 at the same width
+   and depth (one slot, 125 pages; random f32 weights from seed 0): the
    gather window against the same engine with `pregather = False` and
    eager windows, the per-token deferred gather with no window buffer and
    no graph, on the two longest chats: equal, or first differing at a
    near tie (in
-   bf16 their summation-order difference, carried through 42 random
+   bf16 their summation-order difference, carried through tens of random
    layers, drifts past any tie rule: PERF.md §6). Then the bf16 engine on
    run.py's EngineConfig serves the 8 chats (0 ragged launches), gives the
    untraced ms per decode step with the 8 prompts decoding together, the
@@ -499,7 +506,8 @@ Phases (any failed check exits non-zero; nothing is caught):
    captured in the measured round. Printed: write / load / READY s, TTFT
    p50 / p90 cold and warm, ms per decode step, the base gather's ms,
    peak memory.
-   b. The two windows at llama3-8b (random weights, seed 0): decode_kernel
+   b. The two windows at llama3-8b (random weights, seed 0; at 8 of its
+   32 layers, AB_LAYERS, for the time limit): decode_kernel
    "off" (the gather window) against "auto" (the kernel window), bf16 and
    int8 pages, 8 slots, the 4 longest of phase 4's chats one at a time,
    greedy with top-8 logprobs: on bf16 pages token-identical or first
@@ -567,14 +575,63 @@ Phases (any failed check exits non-zero; nothing is caught):
    verify and window steps, the host ms a verify and a propose, tok/s
    against 15b's plain run.py (which asks for logprobs).
 
+18. Vision (A11): qwen2-vl-7b at full width and depth (28 layers, d 3584,
+   28 / 4 heads of 128, vocab 152064; its ViT tower 32 layers of d 1280
+   over 1024 patches of a 448 x 448 image), random weights from seed 0.
+   a. The tower: f32 on the card against f32 on the CPU at full width and
+   2 of its layers (rtol = atol = 1e-4); the same draws in bf16 against
+   f32 on the card at full depth (every patch row's cosine >= 0.999, max
+   |diff| reported); the bf16 encode of one image and of 4 (CUDA events)
+   beside the FLOP bound.
+   b. `python -m dynamo_tpu_torch.run in=http:0 out=native qwen2-vl-7b` as
+   a process (bf16, run.py's EngineConfig): 8 chats, each a text part, one
+   image as an .npy data URL and a question, 64 greedy tokens, top-8
+   logprobs, 4 SSE and 4 unary, one at a time, twice (cold, measured).
+   The images: 5 distinct at 448 x 448 (noise, two ramps, a checkerboard
+   and a flat colour, since a random tower averages noise images of one
+   distribution to nearly the same embeds; chat 5, the flat colour, with
+   chat 1's exact text), one at 300 x 500 (the preprocessor resizes it),
+   one in 0-255 (it normalises it), chat 1's image again with another
+   question. Gates:
+   every stream 64 tokens; chat 1 and chat 5 stream differently (their
+   logprob entries; the first token that differs is reported); the
+   prefix pages run.py hit equal those the prompts' identities give (token
+   ids, each image position as its image's digest and index; cold: the
+   repeated image's pages of its common prefix with chat 1 and chat 5's
+   pages before its image and no more; measured: each prompt's own
+   pages); the decode path ragged; ragged launches = 28 x decode steps +
+   warm-ups, the steps at least the decoded tokens and less than a window
+   more a chat; one replay a window; no capture in the measured round.
+   Reported: READY s, TTFT p50 / p90 cold and warm, weight_bytes. Then in
+   process on run.py's EngineConfig and the bf16 weights: chat 1, the
+   repeated image and chat 5 one at a time, each one's prefix pages equal
+   to the identities' (exact, per chat); chat 1's time to its first token
+   (encode + a prefill of three chunks), ms per decode step at one slot,
+   peak memory.
+   d. Disaggregated, in process: a DisaggDecodeWorker and a PrefillWorker
+   on the bf16 weights (one tree), a memory plane and the chunked KV
+   transfer server, max_local_prefill_length 256; chat 2 with
+   mm_transfer="pixels" and chat 3 with "embeds" (the prefill engine's
+   tower replaced by a function that fails the run). Each: 1 remote
+   prefill, pages received = verified = the prompt's uncached pages, 0
+   mismatches, 64 tokens equal to a fresh aggregated engine's on the same
+   weights or first differing at a near tie (NEAR_TIE). Reported: the
+   queue payload's bytes, the remote TTFT.
+   c. f32 at full width and depth (the bf16 weights freed first): chat 1
+   with 32 greedy tokens under max_prefill_chunk 512 (the span's rows in
+   three chunks) and 2048 (one chunk): token-identical, or first
+   differing where the one-chunk run's top-1 less top-2 logprob is under
+   1e-3.
+
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
 worker process of 11 and 12, each engine's turns in 13, each run of 14,
-each card run and run.py process of 15, each engine of 16, and each
-round, engine and run.py process of 17) runs with
-every kernel's launch count set to 0 just before it and read just after.
-The third line from the end of the output is one JSON object with the
-kernel records, the second from the end the nvidia-smi reading, and the
-last line
+each card run and run.py process of 15, each engine of 16, each round,
+engine and run.py process of 17, and the run.py process and each
+in-process part of 18) runs with every kernel's launch count set to 0
+just before it and read just after. Each phase prints its wall-clock
+seconds on a line `phase seconds: <phase> <s>`. The third line from the
+end of the output is one JSON object with the kernel records, the second
+from the end the nvidia-smi reading, and the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -726,10 +783,11 @@ def ragged_cases() -> list:
 
 
 # the ragged kernel's geometries past llama's (hd 96 and 256, GQA groups
-# over 8): (name, q heads, kv heads, head dim)
+# over 8, qwen2-vl-7b's group of 7: one head block with a masked eighth
+# row): (name, q heads, kv heads, head dim)
 GEOMETRIES = (("gemma-7b", 16, 16, 256), ("phi3-mini", 32, 32, 96),
               ("gemma-2-9b", 16, 8, 256), ("GQA 12", 96, 8, 128),
-              ("GQA 16", 128, 8, 128))
+              ("GQA 16", 128, 8, 128), ("qwen2-vl-7b", 28, 4, 128))
 
 
 def phase_kernel_geometries() -> dict:
@@ -4612,9 +4670,18 @@ def phase_failed_capture(engine, vocab: int) -> dict:
     return out
 
 
+# depth cuts that keep the script inside its time limit: the layers of
+# llama3-8b that phase 13's tier engines and 16b's window A/B run (widths
+# unchanged; their gates count pages, hits and layers x steps)
+TIER_LAYERS = 8
+AB_LAYERS = 8
+
+
 def phase_tiers(smi: str, model: str = "llama3-8b", device: str = "cuda",
-                scale: float = 1.0, device_name: str = None) -> dict:
-    """Phase 13 (see the docstring at the top)."""
+                scale: float = 1.0, device_name: str = None,
+                layers: int = TIER_LAYERS) -> dict:
+    """Phase 13 (see the docstring at the top), at `layers` of the model's
+    depth when that cuts it (0: all)."""
     import shutil
     import torch
     from dynamo_tpu_torch.engine.config import EngineConfig
@@ -4627,6 +4694,8 @@ def phase_tiers(smi: str, model: str = "llama3-8b", device: str = "cuda",
     sz = tier_sizes(scale)
     card = build_card(model)
     cfg = card.model_config()
+    if 0 < layers < cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     vocab = cfg.vocab_size
     root = os.path.dirname(os.path.abspath(__file__))
     disk_root = os.path.join(root, "build", "kv_tiers")
@@ -5927,8 +5996,10 @@ def serve_checkpoint(path: str, bodies: list, extra=(), name="",
     loads = [float(x.group(1)) for x in (
         re.search(r"loaded .* in ([0-9.]+) s$", ln) for ln in proc.lines)
         if x]
-    check(len(loads) == 1, f"{name}: run.py logged {len(loads)} loads")
-    return {"ready_s": ready_s, "load_s": loads[0],
+    # a registry model's weights are drawn, not loaded
+    check(len(loads) == int(os.path.exists(path)),
+          f"{name}: run.py logged {len(loads)} loads")
+    return {"ready_s": ready_s, "load_s": loads[0] if loads else None,
             "results": per_round[-1]["results"],
             "metrics": per_round[-1]["metrics"], "rounds": per_round,
             "stats": json.loads(m.group(2))}
@@ -6014,7 +6085,7 @@ def phase_checkpoint_8b(root: str, smi: str, cfg=None,
         from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
         from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
         pre = OpenAIPreprocessor(card, tok)
-        prompts = [pre._render_chat(ChatCompletionRequest.from_json(b))
+        prompts = [pre._render_chat(ChatCompletionRequest.from_json(b))[0]
                    for b in bodies]
         t0 = time.perf_counter()
         n_tok = sum(len(tok.encode(p)) for p in prompts)
@@ -6148,6 +6219,10 @@ def phase_checkpoints(smi: str) -> dict:
 
 # -- phase 16: the gather decode windows and Gemma-2 (A5) -----------------------
 
+# the layers of gemma-2-9b that 16a writes, loads and serves (its widths
+# unchanged): a depth cut that keeps the script inside its time limit
+GEMMA_LAYERS = 14
+
 # google/gemma-2-9b's published config.json (its architecture, widths,
 # vocabulary, soft-caps, query scale and sliding window), named here and not
 # fetched; the weights are random
@@ -6280,7 +6355,7 @@ def long_chats(card, tok, lo: int = 4600, hi: int = 7400,
                     "top_logprobs": CKPT_TOP, "messages": [
                         {"role": "user", "content": " ".join(words)}]}
             n = len(tok.encode(pre._render_chat(
-                ChatCompletionRequest.from_json(body))))
+                ChatCompletionRequest.from_json(body))[0]))
             if abs(n - target) <= target // 50:
                 break
             keep = max(1, int(len(words) * target / n))
@@ -6371,7 +6446,7 @@ def sensitivity(engine, prompt: list, tol: float) -> dict:
 def phase_gemma2(root: str, smi: str, device: str = "cuda", hf=None,
                  lo: int = 4600, hi: int = 7400) -> dict:
     """16a (see the docstring at the top): gemma-2-9b at full width and
-    depth written to disk with its tokenizer and chat template; the gather
+    GEMMA_LAYERS of its depth (`hf` overrides) written to disk with its tokenizer and chat template; the gather
     window held to the same engine's eager per-token deferred gather in
     f32; the bf16 serving engine's step, base gather, memory and knobs;
     then run.py serving the 8 long chats three rounds as a process, held
@@ -6387,7 +6462,7 @@ def phase_gemma2(root: str, smi: str, device: str = "cuda", hf=None,
     from dynamo_tpu_torch.models.loader import config_from_hf, load_model_dir
     from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
     on_card = device == "cuda"
-    hf = hf or GEMMA2_9B_HF
+    hf = hf or dict(GEMMA2_9B_HF, num_hidden_layers=GEMMA_LAYERS)
     cfg = config_from_hf(hf)
     name = f"gemma-2 ({cfg.name})"
     pages = 1024
@@ -6556,11 +6631,11 @@ def gather_window_f32(card, bodies: list, prompt_tokens: list, device: str,
                       smi: str) -> dict:
     """16a's reference gate: the gather window against the same engine's
     eager per-token deferred gather (`pregather = False`, eager windows:
-    no window buffer, no graph), at full width and depth in f32 (random
+    no window buffer, no graph), at the served width and depth in f32 (random
     f32 weights from seed 0; one slot, so that the weights, the cache and
     the base fit beside each other). In f32 the two differ by summation
     order alone, so every stream must be equal or first differ at a near
-    tie; in bf16 that order difference, carried through 42 random layers,
+    tie; in bf16 that order difference, carried through tens of random layers,
     moves the logprobs past two bf16 ulps within tens of tokens (PR 15's
     call 5), a drift no tie rule separates from a fault. The window runs
     first, the reference second; the cache holds one chat, so each chat's
@@ -6588,7 +6663,8 @@ def gather_window_f32(card, bodies: list, prompt_tokens: list, device: str,
     engine.cache = None
     del engine, params
     empty_cache(device)
-    print(f"gemma-2 (gemma2) f32, full width and depth, one slot, {pages} "
+    print(f"gemma-2 (gemma2) f32, {card.model_config().num_layers} layers, "
+          f"one slot, {pages} "
           f"pages: the gather window against the eager per-token deferred "
           f"gather on {len(bodies)} chats of {prompt_tokens} prompt tokens:"
           f" first differences {firsts} ({took:.1f} s) [{smi}]", flush=True)
@@ -6619,7 +6695,8 @@ def ab_entries(name: str, a: list, b: list, gate: bool = True) -> list:
 
 def phase_decode_windows_ab(smi: str, params=None,
                             model: str = "llama3-8b",
-                            device: str = "cuda") -> dict:
+                            device: str = "cuda",
+                            layers: int = AB_LAYERS) -> dict:
     """16b: the gather window (decode_kernel="off") against the ragged
     kernel window ("auto") at `model` on the same weights, bf16 and int8
     KV pages, 8 slots: the 4 longest of phase 4's 8 chats one at a time
@@ -6633,7 +6710,8 @@ def phase_decode_windows_ab(smi: str, params=None,
     until its end and reads the base dequantized to the model dtype, as
     the JAX package's gather window does: ROADMAP.md §C), so their first
     differences and gaps are reported, not gated; every stream must still
-    end, and every logit be finite."""
+    end, and every logit be finite. At `layers` of the model's depth when
+    that cuts it (0: all)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.engine.engine import NativeEngine
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
@@ -6641,6 +6719,8 @@ def phase_decode_windows_ab(smi: str, params=None,
     from dynamo_tpu_torch.run import build_card
     card = build_card(model)
     cfg = card.model_config()
+    if 0 < layers < cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     if params is None:
         params = llama.init_params(cfg, device, seed=0)
     reqs = chat_requests(card.name, sampled=False)
@@ -7473,6 +7553,603 @@ def phase_spec(smi: str, device: str = "cuda") -> dict:
             "exact_s": time.perf_counter() - t1}
 
 
+# -- phase 18: vision (A11) ------------------------------------------------------
+
+VL_MODEL = "qwen2-vl-7b"
+VL_TOP = 8
+
+
+def vl_pixels(seed: int, h: int = 448, w: int = 448):
+    import numpy as np
+    return np.random.default_rng(seed).random((h, w, 3), dtype=np.float32)
+
+
+def npy_url(px) -> str:
+    """An image as the preprocessor takes it: a base64 .npy data URL."""
+    import base64
+    import io
+
+    import numpy as np
+    buf = io.BytesIO()
+    np.save(buf, px)
+    return "data:application/x-npy;base64," + base64.b64encode(
+        buf.getvalue()).decode()
+
+
+def vl_body(lead: str, px, ask: str, stream: bool) -> dict:
+    body = {"model": VL_MODEL, "max_tokens": MAX_TOKENS, "temperature": 0.0,
+            "logprobs": True, "top_logprobs": VL_TOP, "messages": [{
+                "role": "user", "content": [
+                    {"type": "text", "text": lead},
+                    {"type": "image_url", "image_url": {"url": npy_url(px)}},
+                    {"type": "text", "text": ask}]}]}
+    if stream:
+        body.update(stream=True, stream_options={"include_usage": True})
+    return body
+
+
+# 18b's chats by role: chat 4 has chat 0's exact text with another image,
+# chat 7 chat 0's image and leading text with another question
+VL_LABELS = ("noise", "horizontal ramp", "vertical ramp", "checkerboard",
+             "chat 1's text, a flat colour", "300 x 500", "0-255",
+             "chat 1's image again, another question")
+VL_OTHER_IMAGE, VL_SAME_IMAGE = 4, 7
+
+
+def vl_images() -> list:
+    """18b's 8 images, f32 [H, W, 3]: 5 distinct 448 x 448 ones (noise, a
+    horizontal and a vertical ramp under noise, a checkerboard of 56-pixel
+    squares, a flat colour), a 300 x 500 one (noise on a grey), one in 0-255
+    (a diagonal ramp), then the first again."""
+    import numpy as np
+    yy, xx = np.mgrid[0:448, 0:448].astype(np.float32) / 448.0
+    noise = vl_pixels(1801) * 0.2
+    board = ((np.mgrid[0:448, 0:448] // 56).sum(0) % 2).astype(np.float32)
+    out = [vl_pixels(1800),
+           np.stack([xx, 1 - xx, xx * 0.5], -1) * 0.8 + noise,
+           np.stack([yy, yy * 0.5, 1 - yy], -1) * 0.8 + noise,
+           np.repeat(board[..., None], 3, -1),
+           np.broadcast_to(np.float32([0.85, 0.25, 0.4]), (448, 448, 3)),
+           0.25 + 0.5 * vl_pixels(1805, 300, 500),
+           np.round(np.repeat(((xx + yy) / 2)[..., None], 3, -1) * 255.0)]
+    out.append(out[0])
+    return [np.ascontiguousarray(x, np.float32) for x in out]
+
+
+def vl_chats() -> list:
+    """18b's 8 image chats: a text part (150-213 bytes), one image of
+    vl_images (an .npy data URL), a question (40-61 bytes); greedy,
+    MAX_TOKENS, top-8 logprobs; even ones streamed. Chat 4 has chat 0's
+    text, chat 7 chat 0's image and leading text with another question;
+    the 300 x 500 image (chat 5) the preprocessor resizes, the 0-255 one
+    (chat 6) it normalises."""
+    lead = [prompt_text(150 + 9 * i, 1800 + i) for i in range(8)]
+    ask = [prompt_text(40 + 3 * i, 1900 + i) for i in range(8)]
+    lead[VL_OTHER_IMAGE], ask[VL_OTHER_IMAGE] = lead[0], ask[0]
+    lead[VL_SAME_IMAGE] = lead[0]
+    images = vl_images()
+    return [vl_body(lead[i], images[i], ask[i], i % 2 == 0)
+            for i in range(8)]
+
+
+def vl_preprocessed(card, bodies: list) -> list:
+    """Each body as the port's preprocessor makes it (token ids with the
+    placeholders, image parts)."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    pre = OpenAIPreprocessor(card)
+    return [pre.preprocess_chat(ChatCompletionRequest.from_json(
+        {k: v for k, v in b.items() if k not in ("stream",
+                                                 "stream_options")}),
+        f"vl-{i}")[0] for i, b in enumerate(bodies)]
+
+
+def vl_identities(pre, n_patch: int) -> list:
+    """A prompt as identities: its token ids, each image position as (the
+    image bytes' digest, its index in the span). A position's KV is the same
+    in two prompts when its identity and every one before it are."""
+    import hashlib
+    ids = list(pre.token_ids)
+    for p in pre.mm_parts or ():
+        digest = hashlib.sha256(p.data).hexdigest()
+        for j in range(n_patch):
+            ids[p.offset + j] = (digest, j)
+    return ids
+
+
+def expected_prefix_pages(prompts: list, page: int, seen=()) -> list:
+    """Each prompt's prefix-cache hits in pages when the prompts arrive one
+    at a time after `seen`: the whole pages of its longest common prefix
+    with an earlier prompt (inside that prompt), at most (len - 1) // page
+    (the last token is always computed). From the identities alone."""
+    out, before = [], list(seen)
+    for ids in prompts:
+        best = 0
+        for old in before:
+            n = 0
+            for a, b in zip(ids, old):
+                if a != b:
+                    break
+                n += 1
+            best = max(best, min(n, len(old)) // page)
+        out.append(min(best, (len(ids) - 1) // page))
+        before.append(ids)
+    return out
+
+
+def tree_cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: tree_cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def phase_vision_tower(smi: str) -> dict:
+    """18a: qwen2-vl-7b's tower, f32 draws from seed 0: on the card
+    against the CPU at full width and 2 of its layers (rtol = atol =
+    1e-4); the same draws in bf16 against f32 on the card at full depth
+    (every patch row's cosine >= 0.999); the bf16 encode time of one image
+    and of 4 beside the FLOP bound."""
+    import torch
+    from dynamo_tpu_torch.engine.config import get_model_config
+    from dynamo_tpu_torch.models import vision
+    name = "phase 18a (the vision tower)"
+    cfg = get_model_config(VL_MODEL)
+    vc = cfg.vision
+    rec = {}
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    two = dataclasses.replace(f32, vision=dataclasses.replace(
+        vc, num_layers=2))
+    shallow = vision.init_params(
+        two, "cuda", torch.Generator(device="cuda").manual_seed(0))
+    px = torch.from_numpy(vl_pixels(1800)[None])
+    card_out = vision.encode(shallow, two, px.cuda()).cpu()
+    cpu_out = vision.encode(tree_to(shallow, "cpu"), two, px)
+    rec["f32_card_vs_cpu_max_abs_err"] = compare(
+        f"{name}: f32, 2 layers, card vs CPU", [("embeds", card_out,
+                                                 cpu_out)], 1e-4)[0]
+    del shallow, card_out, cpu_out
+    full = vision.init_params(
+        f32, "cuda", torch.Generator(device="cuda").manual_seed(0))
+    half = tree_cast(full, torch.bfloat16)
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    want = vision.encode(full, f32, px.cuda())[0]
+    got = vision.encode(half, bf, px.cuda())[0].float()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    rec["bf16_vs_f32_min_cos"] = float(cos.min())
+    rec["bf16_vs_f32_max_abs_diff"] = float((got - want).abs().max())
+    rec["f32_max_abs"] = float(want.abs().max())
+    check(bool(torch.isfinite(got).all())
+          and rec["bf16_vs_f32_min_cos"] >= 0.999,
+          f"{name}: bf16 against f32 at full depth: min patch-row cosine "
+          f"{rec['bf16_vs_f32_min_cos']:.6f} (gate >= 0.999)")
+    del full, want, got
+    n = vision.num_patches(vc)
+    d, f = vc.hidden_size, vc.intermediate_size
+    # q, k, v, o, the two MLP products and P.V / scores, the patch embed
+    # and the projection, 2 FLOPs a multiply-add
+    rec["flop_per_image"] = 2 * n * (
+        vc.num_layers * (4 * d * d + 2 * n * d + 2 * d * f)
+        + vc.patch_size ** 2 * 3 * d + d * cfg.hidden_size)
+    for b in (1, 4):
+        x = torch.rand((b, vc.image_size, vc.image_size, 3),
+                       generator=torch.Generator(device="cuda").manual_seed(b),
+                       device="cuda")
+        rec[f"encode_ms_{b}"] = cuda_ms(
+            lambda i: vision.encode(half, bf, x), 5, warmup=2)
+        rec[f"bound_ms_{b}"] = b * rec["flop_per_image"] / PEAK_FLOPS[
+            "bfloat16"] * 1e3
+    print(f"{name}: f32 card vs CPU at 2 layers max_abs_err "
+          f"{rec['f32_card_vs_cpu_max_abs_err']:.3g} (tol 1e-4); bf16 vs f32 "
+          f"at {vc.num_layers} layers min patch-row cosine "
+          f"{rec['bf16_vs_f32_min_cos']:.6f} (gate 0.999), max |diff| "
+          f"{rec['bf16_vs_f32_max_abs_diff']:.4g} (f32 max |x| "
+          f"{rec['f32_max_abs']:.4g}); bf16 encode {rec['encode_ms_1']:.2f} "
+          f"ms an image, {rec['encode_ms_4']:.2f} ms a batch of 4 "
+          f"({rec['flop_per_image'] / 1e12:.3f} TFLOP an image; bound "
+          f"{rec['bound_ms_1']:.3f} / {rec['bound_ms_4']:.3f} ms at 989 "
+          f"TFLOP/s) [{smi}]", flush=True)
+    del half
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_vision_http(smi: str, card, bodies: list, prompts: list) -> dict:
+    """18b: `run.py in=http:0 out=native qwen2-vl-7b` as a process (bf16,
+    seed 0, run.py's EngineConfig) serves the 8 image chats one at a time,
+    twice (a cold round, then a measured one)."""
+    name = "phase 18b (image chats over HTTP)"
+    cfg = card.model_config()
+    page = card.kv_page_size
+    served = serve_checkpoint(VL_MODEL, bodies, name=f"{name} (run.py)",
+                              rounds=2)
+    st, rounds = served["stats"], served["rounds"]
+    rec = {"ready_s": served["ready_s"]}
+    for k, rnd in enumerate(rounds):
+        for i, (entries, _) in enumerate(rnd["results"]):
+            check(len(entries) == MAX_TOKENS, f"{name}: round {k} chat {i} "
+                  f"({VL_LABELS[i]}): {len(entries)} tokens, not "
+                  f"{MAX_TOKENS} (max_tokens)")
+    # the same text with another image: the streams (tokens, logprobs and
+    # top logprobs) must differ; an image that never reached the prefill
+    # leaves them equal, bit for bit
+    cold = [entries for entries, _ in rounds[0]["results"]]
+    check(cold[0] != cold[VL_OTHER_IMAGE], f"{name}: chat 1 and chat "
+          f"{VL_OTHER_IMAGE + 1} (its text, another image) streamed the "
+          f"same entries")
+    pairs = list(zip(cold[0], cold[VL_OTHER_IMAGE]))
+    rec["other_image_first_token_difference"] = next(
+        (j for j, (a, b) in enumerate(pairs) if a[0] != b[0]), None)
+    rec["other_image_max_logprob_difference"] = max(
+        abs(a[1] - b[1]) for a, b in pairs)
+    # the prefix hits, from the prompts' identities: in the cold round the
+    # repeated image's pages of its common prefix with chat 1 and the other
+    # image's pages before its offset (no other chat shares a page); in the
+    # measured round each prompt's own pages
+    want_cold = expected_prefix_pages(prompts, page)
+    want_warm = expected_prefix_pages(prompts, page, prompts)
+    offset = 0
+    while prompts[0][offset] == prompts[VL_OTHER_IMAGE][offset]:
+        offset += 1
+    check(want_cold[VL_OTHER_IMAGE] == offset // page
+          and want_cold[VL_SAME_IMAGE] > offset // page + 1
+          and sum(want_cold) == want_cold[VL_OTHER_IMAGE]
+          + want_cold[VL_SAME_IMAGE],
+          f"{name}: the traffic's prefix structure {want_cold} (image "
+          f"offset {offset})")
+    hits = st["gpu_prefix_cache_hits"]
+    check(hits == sum(want_cold) + sum(want_warm),
+          f"{name}: run.py hit {hits} prefix pages; the prompts' identities "
+          f"give {want_cold} cold + {want_warm} warm")
+    check(st["decode_path"] == "ragged", f"{name}: run.py decoded through "
+          f"{st['decode_path']} ({st['decode_path_reason']})")
+    steps = st["decode_window_steps"]
+    tokens = sum(len(e) for rnd in rounds for e, _ in rnd["results"])
+    k = st["kernel_launches"][RAGGED]
+    warm = st["graph_warmup_launches"].get(RAGGED, 0)
+    # each chat decodes its tokens but the prefill's first, in windows of
+    # 8 at most: at least that many steps, fewer than one window more
+    n_chats = 2 * len(bodies)
+    check(tokens - n_chats <= steps < tokens - n_chats
+          + n_chats * served_config(card).decode_steps,
+          f"{name}: {steps} decode steps for "
+          f"{tokens} tokens in {n_chats} chats")
+    check(k == cfg.num_layers * steps + warm > 0, f"{name}: run.py launched "
+          f"the ragged kernel {k} times over {steps} decode steps x "
+          f"{cfg.num_layers} layers + {warm} in warm-ups")
+    g = st["graphs"]
+    check(g["replays"] == st["decode_windows"] == st["decode_dispatches"]
+          == g["replay_paths"].get("ragged", 0) > 0,
+          f"{name}: {g['replays']} replays ({g['replay_paths']}) for "
+          f"{st['decode_windows']} windows")
+    late = [t for t in g["capture_times"] if t >= rounds[1]["start"]]
+    check(not late, f"{name}: {len(late)} window graphs captured in the "
+          f"measured round")
+    rec.update(
+        cold=_ttft_quantiles(rounds[0]["metrics"]),
+        warm=_ttft_quantiles(rounds[1]["metrics"], rounds[0]["metrics"]),
+        prefix_pages={"cold": want_cold, "warm": want_warm, "run.py": hits},
+        launches=st["kernel_launches"], decode_window_steps=steps,
+        warmup_launches=warm, captured=g["captured"],
+        weight_bytes=st["weight_bytes"], rounds_s=[r["seconds"]
+                                                   for r in rounds])
+    print(f"{name}: run.py READY in {rec['ready_s']:.1f} s; 2 rounds of the "
+          f"8 chats (4 SSE, 4 unary) one at a time, every stream "
+          f"{MAX_TOKENS} tokens; chat 1 and chat {VL_OTHER_IMAGE + 1} "
+          f"differ (their first different token at "
+          f"{rec['other_image_first_token_difference']}, their tokens' "
+          f"logprobs by up to "
+          f"{rec['other_image_max_logprob_difference']:.4f}); prefix pages {hits} = cold {want_cold} + warm "
+          f"{want_warm}; path ragged, {k} launches = {cfg.num_layers} x "
+          f"{steps} steps + {warm}; {g['replays']} replays = windows, "
+          f"{g['captured']} graphs, none in the measured round; TTFT p50 / "
+          f"p90 cold {rec['cold']['ttft_p50_ms']:.1f} / "
+          f"{rec['cold']['ttft_p90_ms']:.1f} ms, warm "
+          f"{rec['warm']['ttft_p50_ms']:.1f} / "
+          f"{rec['warm']['ttft_p90_ms']:.1f} ms; weight_bytes "
+          f"{rec['weight_bytes']} [{smi}]", flush=True)
+    return rec
+
+
+def vl_run(engine, pre, rid: str, logprobs=None) -> tuple:
+    """One preprocessed chat through the engine alone: (ids, each token's
+    top logprobs [(id, logprob)] best first or None, seconds to the first
+    token)."""
+    from dynamo_tpu_torch.llm.worker import to_engine_request
+    req = to_engine_request(dataclasses.replace(pre, request_id=rid))
+    if logprobs is not None:
+        req.params = dataclasses.replace(req.params, logprobs=logprobs)
+    t0 = time.perf_counter()
+    engine.add_request(req)
+    ids, tops, first, done = [], [], None, False
+    while not done:
+        for ev in engine.step():
+            if ev.request_id != rid:
+                continue
+            if ev.token is not None:
+                first = first or time.perf_counter() - t0
+                ids.append(ev.token)
+                tops.append(ev.top_logprobs)
+            done |= ev.finished
+    return ids, tops, first
+
+
+def phase_vision_engine(smi: str, card, params, pres: list,
+                        prompts: list, device: str = "cuda") -> dict:
+    """18b in process, on run.py's EngineConfig and the bf16 weights
+    (seed 0): chat 1, the repeated image and the other image one at a
+    time, each one's prefix hits equal to its pages derived from the
+    prompts' identities; chat 1's time to its first token (encode and a
+    prefill of three chunks), ms per decode step, peak memory."""
+    import torch
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    name = "phase 18b (in process)"
+    page = card.kv_page_size
+    engine = NativeEngine(card.model_config(), served_config(card),
+                          params=params, device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    order = [0, VL_SAME_IMAGE, VL_OTHER_IMAGE]
+    want = expected_prefix_pages([prompts[i] for i in order], page)
+    rec = {"prefix_pages": {}, "ttft_s": {}}
+    sch = engine.scheduler
+    for i, w in zip(order, want):
+        h0 = sch._prefix_hits
+        ids, _, first = vl_run(engine, pres[i], f"vl-agg-{i}")
+        got = sch._prefix_hits - h0
+        check(got == w and len(ids) == MAX_TOKENS,
+              f"{name}: chat {i + 1} ({VL_LABELS[i]}) hit {got} prefix "
+              f"pages, its prompt's identities give {w}; {len(ids)} tokens")
+        rec["prefix_pages"][VL_LABELS[i]] = got
+        rec["ttft_s"][VL_LABELS[i]] = first
+    rec["ms_per_step"] = steady_ms_per_step(engine, [pres[1].token_ids])
+    rec["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                       if device == "cuda" else 0.0)
+    rec["weight_bytes"] = engine.metrics().weight_bytes
+    rec["prompt_tokens"] = len(pres[0].token_ids)
+    print(f"{name}: prefix pages {rec['prefix_pages']} (derived {want}); "
+          f"chat 1 ({rec['prompt_tokens']} prompt tokens, 1024 of them "
+          f"image) to its first token {rec['ttft_s'][VL_LABELS[0]] * 1e3:.1f}"
+          f" ms (encode + a 3-chunk prefill, cold); one slot "
+          f"{rec['ms_per_step']:.2f} ms per decode step; peak "
+          f"{rec['peak_gib']:.2f} GiB; weight_bytes {rec['weight_bytes']} "
+          f"[{smi}]", flush=True)
+    engine.cache = None
+    del engine
+    empty_cache(device)
+    return rec
+
+
+def phase_vision_disagg(smi: str, card, params, pres: list,
+                        prompts: list, device: str = "cuda") -> dict:
+    """18d: a DisaggDecodeWorker and a PrefillWorker over one memory plane
+    and one bf16 params tree, the KV pages over the chunked transfer server,
+    max_local_prefill_length below the prompts' lengths; one image chat in
+    each mm_transfer mode (chat 2 in "pixels", chat 3 in "embeds", where
+    the prefill engine's tower raises). Each takes the remote path (1
+    remote prefill), its pages received = verified with no mismatch, and
+    its stream equals a fresh engine's aggregated run on the same weights,
+    or first differs at a near tie."""
+    import torch
+    from dynamo_tpu_torch.disagg.queue import PrefillQueue
+    from dynamo_tpu_torch.disagg.remote_transfer import (
+        KvTransferServer, RemoteTransferBackend,
+    )
+    from dynamo_tpu_torch.disagg.router import DisaggregatedRouter
+    from dynamo_tpu_torch.disagg.worker import (
+        DisaggDecodeWorker, PrefillWorker,
+    )
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.engine.sampler import TOP_LOGPROBS
+    from dynamo_tpu_torch.llm.worker import NativeEngineWorker
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.integrity import STATS as INTEGRITY
+    from dynamo_tpu_torch.runtime.transports.codec import packb
+    from dynamo_tpu_torch.runtime.transports.memory import MemoryPlane
+    name = "phase 18d (disaggregated image chats)"
+    mcfg, ecfg = card.model_config(), served_config(card)
+    page = card.kv_page_size
+    dec_eng = NativeEngine(mcfg, ecfg, params=params, device=device)
+    pre_eng = NativeEngine(mcfg, ecfg, params=params, device=device)
+    rec = {}
+
+    async def one(mode: str, pre) -> dict:
+        plane = MemoryPlane()
+        queue = PrefillQueue(plane.messaging, "ns", VL_MODEL)
+        shipped = []
+        enqueue = queue.enqueue
+
+        async def counted(req):
+            shipped.append(len(packb(req.to_json())))
+            return await enqueue(req)
+        queue.enqueue = counted
+        router = DisaggregatedRouter(max_local_prefill_length=256,
+                                     max_prefill_queue_size=8,
+                                     model=VL_MODEL)
+        decode = DisaggDecodeWorker(dec_eng, plane.messaging, router, queue,
+                                    worker_id=f"dec-{mode}",
+                                    prefill_timeout_s=120.0,
+                                    mm_transfer=mode)
+        server = await KvTransferServer(decode, f"dec-{mode}").start()
+        await server.register(plane.kv)
+        transfer = RemoteTransferBackend(plane.kv)
+        prefill = PrefillWorker(NativeEngineWorker(pre_eng), queue, transfer,
+                                plane.messaging)
+        await decode.start()
+        await prefill.start()
+        v0, m0 = INTEGRITY.pages_verified, INTEGRITY.mismatches
+        toks, first = [], None
+        try:
+            t0 = time.perf_counter()
+            async for f in decode.generate(pre, Context(pre.request_id)):
+                if f.token_ids and first is None:
+                    first = time.perf_counter() - t0
+                toks.extend(f.token_ids)
+            seconds = time.perf_counter() - t0
+        finally:
+            await prefill.stop()
+            await decode.stop()
+            await transfer.close()
+            await server.stop()
+        return {"tokens": toks, "remote_prefills": decode.remote_prefills,
+                "received_pages": server.received_pages,
+                "verified": INTEGRITY.pages_verified - v0,
+                "mismatches": INTEGRITY.mismatches - m0,
+                "queue_bytes": shipped, "ttft_s": first, "seconds": seconds}
+
+    ref_eng = NativeEngine(mcfg, ecfg, params=params, device=device)
+    seen = []   # the prompts the decode engine holds pages of
+    for mode, i in (("pixels", 1), ("embeds", 2)):
+        pre = dataclasses.replace(pres[i], request_id=f"vl-{mode}")
+        if mode == "embeds":
+            def tower_ran(*a, **k):
+                check(False, f"{name}: the prefill engine's tower ran in "
+                      "embeds mode")
+            pre_eng.encode_image = tower_ran
+        r = asyncio.run(asyncio.wait_for(one(mode, pre), 300))
+        pre_eng.__dict__.pop("encode_image", None)
+        want_pages = -(-len(pre.token_ids) // page) - expected_prefix_pages(
+            [prompts[i]], page, seen)[0]
+        seen.append(prompts[i])
+        check(r["remote_prefills"] == 1, f"{name}: {mode}: "
+              f"{r['remote_prefills']} remote prefills")
+        check(r["received_pages"] == r["verified"] == want_pages
+              and r["mismatches"] == 0, f"{name}: {mode}: received "
+              f"{r['received_pages']} pages, verified {r['verified']}, the "
+              f"prompt's {want_pages}, mismatches {r['mismatches']}")
+        ids, tops, _ = vl_run(ref_eng, pres[i], f"vl-ref-{mode}",
+                              TOP_LOGPROBS)
+        d = divergence(r["tokens"], ids, tops)
+        check(len(r["tokens"]) == MAX_TOKENS and (d is None
+                                                  or d[1] <= NEAR_TIE),
+              f"{name}: {mode}: the stream leaves the aggregated run at "
+              f"{d} ({len(r['tokens'])} tokens; near tie <= {NEAR_TIE})")
+        r["first_difference"] = d
+        r["tokens"] = len(r["tokens"])
+        rec[mode] = r
+        print(f"{name}: {mode}: 1 remote prefill, {r['received_pages']} "
+              f"pages received = verified, 0 mismatches; queue payload "
+              f"{r['queue_bytes']} bytes; remote TTFT {r['ttft_s'] * 1e3:.1f}"
+              f" ms; against the aggregated run: "
+              f"{'equal' if d is None else d} [{smi}]", flush=True)
+    for e in (dec_eng, pre_eng, ref_eng):
+        e.cache = None
+    empty_cache(device)
+    return rec
+
+
+def phase_vision_chunks(smi: str, card, pre, device: str = "cuda") -> dict:
+    """18c: one image chat (1024 patches, ~200 text tokens) in f32 at full
+    width and depth (seed 0), 32 greedy tokens, with max_prefill_chunk 512
+    (the span over three chunks) and 2048 (one chunk): token-identical, or
+    first differing where the one-chunk run's top-1 less top-2 logprob is
+    under 1e-3 (the one-chunk run's logprob of its token less that of the
+    chunked run's, `divergence`)."""
+    import torch
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.engine.sampler import TOP_LOGPROBS
+    from dynamo_tpu_torch.models import llama
+    name = "phase 18c (the span across prefill chunks, f32)"
+    cfg = dataclasses.replace(card.model_config(), dtype="float32")
+    params = llama.init_params(cfg, device, seed=0)
+    pre = dataclasses.replace(pre, stop=dataclasses.replace(
+        pre.stop, max_tokens=32))
+    out = {}
+    for chunk in (512, 2048):
+        ecfg = EngineConfig(page_size=card.kv_page_size, num_pages=64,
+                            max_slots=1, max_model_len=2048,
+                            max_prefill_chunk=chunk,
+                            prefill_buckets=(16, 32, 64, 128, 256, 512,
+                                             1024, 2048))
+        engine = NativeEngine(cfg, ecfg, params=params, device=device)
+        chunks = []
+        build = engine.scheduler._build_prefill
+
+        def spy(batch, tb, decode_rows=(), build=build, chunks=chunks):
+            plan = build(batch, tb, decode_rows)
+            if plan.mm_mask is not None:
+                chunks.append(int(plan.mm_mask.sum()))
+            return plan
+        engine.scheduler._build_prefill = spy
+        ids, tops, _ = vl_run(engine, pre, f"vl-f32-{chunk}", TOP_LOGPROBS)
+        check(engine.logits_nonfinite_steps() == 0 and len(ids) == 32,
+              f"{name}: chunk {chunk}: {len(ids)} tokens, "
+              f"{engine.logits_nonfinite_steps()} non-finite steps")
+        out[chunk] = {"ids": ids, "tops": tops, "span_rows": chunks}
+        engine.cache = None
+        del engine
+        empty_cache(device)
+    n_patch = sum(out[2048]["span_rows"])
+    check(len(out[512]["span_rows"]) >= 2 and sum(out[512]["span_rows"])
+          == n_patch == 1024 and len(out[2048]["span_rows"]) == 1,
+          f"{name}: the span's rows by chunk {out[512]['span_rows']} / "
+          f"{out[2048]['span_rows']}")
+    d = divergence(out[512]["ids"], out[2048]["ids"], out[2048]["tops"])
+    check(d is None or d[1] < 1e-3, f"{name}: the chunked stream leaves the "
+          f"one-chunk stream at {d} (an f32 near tie is < 1e-3)")
+    del params
+    empty_cache(device)
+    rec = {"span_rows": {k: v["span_rows"] for k, v in out.items()},
+           "first_difference": d}
+    print(f"{name}: the span's rows by chunk {rec['span_rows']}; 32 greedy "
+          f"tokens {'identical' if d is None else f'first differ at {d}'} "
+          f"[{smi}]", flush=True)
+    return rec
+
+
+def phase_vision(smi: str) -> dict:
+    """Phase 18: 18a, 18b (the process, then in process), 18d, 18c; each
+    part's seconds."""
+    import torch
+    from dynamo_tpu_torch.models import llama, vision
+    from dynamo_tpu_torch.run import build_card
+    rec, secs = {}, {}
+    t0 = time.perf_counter()
+    rec["tower"] = phase_vision_tower(smi)
+    secs["18a"] = time.perf_counter() - t0
+    card = build_card(VL_MODEL)
+    bodies = vl_chats()
+    pres = vl_preprocessed(card, bodies)
+    n_patch = vision.num_patches(card.model_config().vision)
+    prompts = [vl_identities(p, n_patch) for p in pres]
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rec["http"] = phase_vision_http(smi, card, bodies, prompts)
+    secs["18b run.py"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = llama.init_params(card.model_config(), "cuda", seed=0)
+    reset_launch_counts()
+    rec["engine"] = phase_vision_engine(smi, card, params, pres, prompts)
+    rec["engine"]["launches"] = launch_counts()
+    secs["18b in process"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rec["disagg"] = phase_vision_disagg(smi, card, params, pres, prompts)
+    rec["disagg"]["launches"] = launch_counts()
+    secs["18d"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rec["chunks"] = phase_vision_chunks(smi, card, pres[0])
+    rec["chunks"]["launches"] = launch_counts()
+    secs["18c"] = time.perf_counter() - t0
+    rec["seconds"] = secs
+    for part, s in secs.items():
+        print(f"phase seconds: {part} {s:.1f}", flush=True)
+    return rec
+
+
+def timed(name: str, fn, *args, **kw):
+    """fn(*args, **kw), its wall-clock seconds printed on a line of its
+    own (the time limit's budget by phase)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase seconds: {name} {time.perf_counter() - t0:.1f}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7483,6 +8160,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
     smi = nvidia_smi()
     print(f"device: {smi}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
@@ -7490,17 +8168,19 @@ def main() -> int:
     logs = build.build()
     print(f"build: {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase seconds: 1 {time.perf_counter() - t0:.1f}", flush=True)
     for name, log in logs.items():
         for line in ptxas_lines(log):
             print(f"  {name}: {line}", flush=True)
             check(" 0 bytes spill stores" in line or "spill" not in line,
                   f"{name}: ptxas spills: {line}")
 
-    err_bf16 = phase_kernel()
-    err_int8 = phase_kernel_int8()
-    geometries = phase_kernel_geometries()
-    err_legacy = phase_legacy()
-    err_w8, w8_timing, dequant_timing, large_m = phase_w8a16()
+    err_bf16 = timed("2a", phase_kernel)
+    err_int8 = timed("2b", phase_kernel_int8)
+    geometries = timed("2a geometries", phase_kernel_geometries)
+    err_legacy = timed("2c", phase_legacy)
+    err_w8, w8_timing, dequant_timing, large_m = timed("2d", phase_w8a16)
+    t0 = time.perf_counter()
     phase_small_reference()
     phase_small_reference("int8")
     f32_int8 = phase_small_reference(quant="int8")
@@ -7510,52 +8190,63 @@ def main() -> int:
           "tensor-core kernel")
     phase_small_reference(model="tiny-moe")
     phase_small_reference(quant="int8", model="tiny-moe")
-    engine, first, _ = asyncio.run(serve_main_path(smi))
+    print(f"phase seconds: 3 {time.perf_counter() - t0:.1f}", flush=True)
+    engine, first, _ = timed("4", lambda: asyncio.run(serve_main_path(smi)))
     bf16_ref = {"weight_bytes": engine.metrics().weight_bytes,
                 "peak_gib": first["stats"]["peak_gib"]}
-    graph_bf16 = phase_graph_vs_eager(engine, "bf16")
-    main_err, timing, leg_err, legacy_full = phase_timing(
-        engine, first["n_prompt"], MAX_TOKENS)
+    graph_bf16 = timed("4b", phase_graph_vs_eager, engine, "bf16")
+    main_err, timing, leg_err, legacy_full = timed(
+        "6", phase_timing, engine, first["n_prompt"], MAX_TOKENS)
     # the other engines share the weights; the bf16 cache goes first, so
     # their runs' peak memory is their own
     engine.cache = None
     torch.cuda.empty_cache()
-    phase_depth_one(smi, engine.params, first)
-    engine_q, first_q, _ = asyncio.run(
-        serve_main_path(smi, "int8", params=engine.params))
-    graph_int8 = phase_graph_vs_eager(engine_q, "int8")
-    main_err_q, timing_q, leg_err_q, _ = phase_timing(
-        engine_q, first_q["n_prompt"], MAX_TOKENS)
+    timed("4c", phase_depth_one, smi, engine.params, first)
+    engine_q, first_q, _ = timed("5", lambda: asyncio.run(
+        serve_main_path(smi, "int8", params=engine.params)))
+    graph_int8 = timed("5 (4b)", phase_graph_vs_eager, engine_q, "int8")
+    main_err_q, timing_q, leg_err_q, _ = timed(
+        "5 (6)", phase_timing, engine_q, first_q["n_prompt"], MAX_TOKENS)
     print(f"window graphs: {json.dumps({'bf16': graph_bf16, 'int8': graph_int8})}",
           flush=True)
     err_legacy = max(err_legacy, leg_err, leg_err_q)
     del engine_q
     torch.cuda.empty_cache()
-    legacy = {model: phase_legacy_timing(model)
-              for model in ("llama3-8b", "llama3-1b")}
-    phase_parity(engine)
+    legacy = timed("6 legacy", lambda: {
+        model: phase_legacy_timing(model)
+        for model in ("llama3-8b", "llama3-1b")})
+    timed("7", phase_parity, engine)
     del engine
     torch.cuda.empty_cache()
-    ab = {model: phase_ab(model) for model in ("llama3-8b", "llama3-1b")}
-    http = asyncio.run(phase_http(smi, bf16_ref))
-    entry = {model: phase_entry_point(model) for model in ("tiny", "tiny-moe")}
+    ab = timed("8", lambda: {model: phase_ab(model)
+                             for model in ("llama3-8b", "llama3-1b")})
+    http = timed("9", lambda: asyncio.run(phase_http(smi, bf16_ref)))
+    entry = timed("10", lambda: {model: phase_entry_point(model)
+                                 for model in ("tiny", "tiny-moe")})
     print(f"HTTP path: {json.dumps({'runs': http, 'entry_point': entry})}",
           flush=True)
-    dist = phase_distributed(smi, device_name=torch.cuda.get_device_name(0))
+    dist = timed("11", phase_distributed, smi,
+                 device_name=torch.cuda.get_device_name(0))
     print(f"distributed path: {json.dumps(dist)}", flush=True)
-    disagg = phase_disagg(smi, device_name=torch.cuda.get_device_name(0))
+    disagg = timed("12", phase_disagg, smi,
+                   device_name=torch.cuda.get_device_name(0))
     print(f"disaggregated deployment: {json.dumps(disagg)}", flush=True)
-    tiers = phase_tiers(smi, device_name=torch.cuda.get_device_name(0))
+    tiers = timed("13", phase_tiers, smi,
+                  device_name=torch.cuda.get_device_name(0))
     print(f"KV tiers: {json.dumps(tiers)}", flush=True)
-    moe = phase_moe_child()
+    moe = timed("14", phase_moe_child)
     print(f"mixture of experts: {json.dumps(moe)}", flush=True)
-    ckpt = phase_checkpoints(smi)
+    ckpt = timed("15", phase_checkpoints, smi)
     print(f"checkpoints: {json.dumps(ckpt)}", flush=True)
     small = ckpt["small_launches"]
-    a5 = phase_a5(smi)
+    a5 = timed("16", phase_a5, smi)
     print(f"gather decode windows and gemma-2: {json.dumps(a5)}", flush=True)
-    spec = phase_spec(smi)
+    spec = timed("17", phase_spec, smi)
     print(f"speculative decoding: {json.dumps(spec)}", flush=True)
+    vl = timed("18", phase_vision, smi)
+    print(f"vision: {json.dumps(vl)}", flush=True)
+    print(f"phase seconds: all {time.perf_counter() - t_all:.1f}",
+          flush=True)
 
     def ckpt_launches(kernel: str) -> dict:
         """A kernel's launches in phase 15's runs on the card: each small
@@ -7596,6 +8287,14 @@ def main() -> int:
                       ckpt["spec_entry"]["draft_ragged_launches"],
                   "17c run.py, all":
                       ckpt["spec_entry"]["launches"][RAGGED]},
+              "vision_launches": {
+                  "18b run.py (qwen2-vl-7b heads, 28 / 4 x 128)":
+                      vl["http"]["launches"][RAGGED],
+                  "18b in process": vl["engine"]["launches"][RAGGED],
+                  "18d decode worker, both modes":
+                      vl["disagg"]["launches"][RAGGED],
+                  "18c f32, both chunkings":
+                      vl["chunks"]["launches"][RAGGED]},
               "geometries": geometries,
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),

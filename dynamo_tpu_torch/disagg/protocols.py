@@ -3,8 +3,8 @@
 Copied from dynamo_tpu/disagg/protocols.py as dataclasses (see
 protocols/common.py). `to_json()` gives the dict the JAX models'
 `model_dump()` gives (None fields included), and `from_json(d)` rebuilds
-a dataclass from it, unknown keys ignored. The multimodal parts and the
-trace context are left out with the slices that carry them.
+a dataclass from it, unknown keys ignored, nested ImageParts included.
+The trace context is left out with the slice that carries it.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import json
 from typing import List, Optional
 
 from dynamo_tpu_torch.protocols.common import (
-    SamplingOptions, StopConditions, _known,
+    ImagePart, SamplingOptions, StopConditions, _known, image_parts_from_wire,
 )
 
 
@@ -55,6 +55,9 @@ class RemotePrefillRequest(_Json):
     # the client deadline as a unix time: an item dequeued after it is
     # dropped instead of prefilled
     deadline_unix: Optional[float] = None
+    # multimodal: pixels the prefill worker's tower encodes, or (a decode
+    # worker's mm_transfer="embeds") its tower's output with the salts
+    mm_parts: Optional[List[ImagePart]] = None
     enqueued_unix: Optional[float] = None   # enqueue instant (time.time())
     qos: str = ""             # multi-tenant QoS class ("" = default)
 
@@ -63,7 +66,8 @@ class RemotePrefillRequest(_Json):
         d = dataclasses.asdict(self)
         order = ("engine_id", "request_id", "token_ids", "sampling", "stop",
                  "page_ids", "num_cached_tokens", "page_size", "alloc_epoch",
-                 "notify_subject", "deadline_unix", "enqueued_unix", "qos")
+                 "notify_subject", "deadline_unix", "mm_parts",
+                 "enqueued_unix", "qos")
         return {k: d[k] for k in order}
 
     @classmethod
@@ -73,6 +77,7 @@ class RemotePrefillRequest(_Json):
             **_known(SamplingOptions, d.get("sampling") or {}))
         d["stop"] = StopConditions(
             **_known(StopConditions, d.get("stop") or {}))
+        d["mm_parts"] = image_parts_from_wire(d.get("mm_parts"))
         return cls(**d)
 
 

@@ -23,8 +23,15 @@ completion, ack. A cancel broadcast drops a queued item or aborts a running
 one; an item whose client deadline passed is dropped at dequeue; `drain`
 stops consuming and leaves unfinished items to their leases.
 
-Left out: the multimodal transfer modes, tracing spans, the pool-claim
-lease touch (KV tiers) and the drain counters of the reliability slice.
+Multimodal requests (JAX :54, :72-80, :203-225, :258-269, :861-864): the
+decode worker's `mm_transfer` picks what the queue carries. "pixels" (the
+default) ships the request's image parts and the prefill worker's tower
+encodes them; "embeds" encodes once on the decode side (its allocation
+needs the salts anyway) and ships the projected patch embeds with their
+salts, so the prefill side never runs its tower.
+
+Left out: tracing spans, the pool-claim lease touch (KV tiers) and the
+drain counters of the reliability slice.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ import dataclasses
 import logging
 import time
 from collections import OrderedDict
+
+import numpy as np
 
 from dynamo_tpu_torch.disagg.protocols import (
     PrefillCancel, PrefillCompletion, RemotePrefillRequest, cancel_subject,
@@ -44,7 +53,8 @@ from dynamo_tpu_torch.disagg.transfer import TransferBackend
 from dynamo_tpu_torch.engine.scheduler import EngineRequest
 from dynamo_tpu_torch.llm.worker import NativeEngineWorker, to_engine_request
 from dynamo_tpu_torch.protocols.common import (
-    EngineOutput, FinishReason, PreprocessedRequest, preprocessed_from_wire,
+    EngineOutput, FinishReason, ImagePart, PreprocessedRequest,
+    preprocessed_from_wire,
 )
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.integrity import STATS as INTEGRITY, XFER_STATS
@@ -76,7 +86,8 @@ class DisaggDecodeWorker(NativeEngineWorker):
 
     def __init__(self, engine, messaging, disagg_router: DisaggregatedRouter,
                  prefill_queue: PrefillQueue, worker_id: str = "",
-                 prefill_timeout_s: float = 120.0, early_decode: bool = True):
+                 prefill_timeout_s: float = 120.0, early_decode: bool = True,
+                 mm_transfer: str = "pixels"):
         super().__init__(engine)
         self.messaging = messaging
         self.disagg_router = disagg_router
@@ -88,6 +99,13 @@ class DisaggDecodeWorker(NativeEngineWorker):
         # an attached KvTransferServer; otherwise the early notify is
         # ignored and the final completion activates)
         self.early_decode = early_decode
+        # multimodal payload on the prefill queue: "pixels" re-encodes on
+        # the prefill side; "embeds" ships this worker's tower output and
+        # the salts, so the tower runs once a request
+        if mm_transfer not in ("pixels", "embeds"):
+            raise ValueError(f"mm_transfer must be 'pixels' or 'embeds', "
+                             f"got {mm_transfer!r}")
+        self.mm_transfer = mm_transfer
         self.notify_subject = completion_subject(self.engine_id)
         self._completions: dict[str, asyncio.Future] = {}
         self._notify_task: asyncio.Task | None = None
@@ -208,6 +226,17 @@ class DisaggDecodeWorker(NativeEngineWorker):
     async def _generate_remote(self, pre: PreprocessedRequest,
                                req: EngineRequest, context: Context):
         rid = req.request_id
+        mm_parts = pre.mm_parts
+        if self.mm_transfer == "embeds" and req.mm_pixels:
+            # encode once here (allocate_remote would, for the salts), then
+            # ship the embeds and salts: the prefill side skips its tower
+            req = await self.submit(lambda eng: eng._resolve_mm(req))
+            mm_parts = [
+                ImagePart(offset=int(off), shape=list(emb.shape),
+                          dtype="float32", kind="embeds", salt=int(salt),
+                          data=np.ascontiguousarray(
+                              emb, np.float32).tobytes())
+                for off, emb, salt in req.mm_spans or []]
         try:
             alloc = await self.submit(lambda eng: eng.allocate_remote(req))
         except ValueError as e:
@@ -239,6 +268,7 @@ class DisaggDecodeWorker(NativeEngineWorker):
                 notify_subject=self.notify_subject,
                 deadline_unix=(time.time() + remaining
                                if remaining is not None else None),
+                mm_parts=mm_parts,
                 enqueued_unix=time.time(), qos=qos_of(context.baggage)))
             stop_task = asyncio.create_task(context.wait_stopped())
             try:
@@ -701,7 +731,8 @@ class PrefillWorker:
             try:
                 er = to_engine_request(PreprocessedRequest(
                     request_id=rid, token_ids=req.token_ids,
-                    sampling=req.sampling, stop=req.stop), qos=req.qos)
+                    sampling=req.sampling, stop=req.stop,
+                    mm_parts=req.mm_parts), qos=req.qos)
                 er.prefill_only = True
                 self.worker._pending_adds.append(er)
                 self.worker._wake.set()

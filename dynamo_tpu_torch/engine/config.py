@@ -2,9 +2,11 @@
 
 Copied from dynamo_tpu/engine/config.py and trimmed to what the port's
 slices serve: Llama-family models on one device, dense or mixture-of-
-experts (Mixtral-style top-k routing, ops/moe.py). The model registry keeps
-the dense Llama geometries and the MoE ones (`tiny-moe`, `mixtral-8x7b`);
-the engine knobs keep paging,
+experts (Mixtral-style top-k routing, ops/moe.py), with or without a ViT
+vision tower (`VisionConfig`, models/vision.py). The model registry is the
+JAX registry: the dense Llama geometries, the MoE ones (`tiny-moe`,
+`mixtral-8x7b`) and the vision ones (`tiny-vl`, `qwen2-vl-7b`); the engine
+knobs keep paging,
 batching, the decode window, mixed steps, int8 KV pages (`kv_quant`) and
 speculative decoding (`spec_*`, engine/spec.py).
 `quant` keeps the JAX meaning (weight-only int8, ops/quant.py).
@@ -85,6 +87,9 @@ class ModelConfig:
     # config, else the gather window; "off" = the gather window
     # (models/llama.decode_path)
     decode_kernel: str = "auto"
+    # multimodal: the vision tower whose projected patch embeds replace the
+    # token embeds at image positions (models/vision.py); None = text-only
+    vision: Optional["VisionConfig"] = None
 
     @property
     def q_per_kv(self) -> int:
@@ -106,6 +111,19 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    """Vision encoder config (ViT-style) for multimodal models; the tower
+    projects hidden_size into the text model's hidden size."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 128
+    intermediate_size: int = 256
+    num_layers: int = 2
+    num_heads: int = 4
 
 
 MOE_IMPLS = ("dispatch", "dense")
@@ -225,6 +243,10 @@ _CONFIGS = {
         name="tiny-moe", num_experts=4, num_experts_per_tok=2,
         intermediate_size=256,
     ),
+    "tiny-vl": ModelConfig(
+        name="tiny-vl", dtype="float32",
+        vision=VisionConfig(image_size=28, patch_size=14, hidden_size=32,
+                            intermediate_size=64, num_layers=2, num_heads=2)),
     # Llama-3.2-1B-class
     "llama3-1b": ModelConfig(
         name="llama3-1b", vocab_size=128256, hidden_size=2048,
@@ -247,6 +269,14 @@ _CONFIGS = {
         intermediate_size=14336, num_layers=32, num_heads=32, num_kv_heads=8,
         head_dim=128, rope_theta=1e6, max_model_len=16384,
         num_experts=8, num_experts_per_tok=2,
+    ),
+    "qwen2-vl-7b": ModelConfig(
+        name="qwen2-vl-7b", vocab_size=152064, hidden_size=3584,
+        intermediate_size=18944, num_layers=28, num_heads=28, num_kv_heads=4,
+        head_dim=128, rope_theta=1e6, max_model_len=16384,
+        vision=VisionConfig(image_size=448, patch_size=14, hidden_size=1280,
+                            intermediate_size=3420, num_layers=32,
+                            num_heads=16),
     ),
 }
 

@@ -97,8 +97,20 @@ graph replay a block shape (engine/window_graph.py); the longest matching
 prefix plus the model's own token commit through `commit_decode_token` /
 `_postprocess`. A spec engine never pipelines.
 
-Left out of this slice: pipeline/tensor/expert parallelism, streaming,
-vision and the tp shard inject (`inject_pages_shard`).
+Vision (dynamo_tpu/engine/engine.py:461-468, :503-564, :582, :793-807,
+:1702-1713): a multimodal model's tower (models/vision.py) runs at
+admission, the "vision prefill": `_resolve_mm` encodes a request's raw
+pixels (`encode_image`, one eager call on the engine's stream; f32 embeds
+on the host, where JAX hands back the model dtype as an ml_dtypes array
+and the scheduler widens it to f32) and salts each span from the pixels'
+bytes (kv_cache.content_salt). The scheduler rewrites the span's
+placeholder ids to the salts and slices each prefill chunk's rows of the
+span into the plan (`mm_embeds` / `mm_mask`), which the prefill and mixed
+steps hand to `llama.forward`. `_validate_prompt` exempts span positions
+from the vocabulary check.
+
+Left out of this slice: pipeline/tensor/expert parallelism, streaming
+and the tp shard inject (`inject_pages_shard`).
 """
 from __future__ import annotations
 
@@ -116,7 +128,7 @@ from dynamo_tpu_torch.engine import spec
 from dynamo_tpu_torch.engine.config import (
     EngineConfig, ModelConfig, check_supported, get_model_config,
 )
-from dynamo_tpu_torch.engine.kv_cache import SequenceState
+from dynamo_tpu_torch.engine.kv_cache import SequenceState, content_salt
 from dynamo_tpu_torch.engine.offload import CopyStream, HostKvPool
 from dynamo_tpu_torch.engine.sampler import (
     RepPenaltyCache, SamplingArrayCache, eos_mask, sample_logits,
@@ -127,7 +139,7 @@ from dynamo_tpu_torch.engine.scheduler import (
     Scheduler, next_bucket, pow2_buckets, window_ladder,
 )
 from dynamo_tpu_torch.engine.window_graph import HostCopies, WindowGraphs
-from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.models import llama, vision
 from dynamo_tpu_torch.models.llama import AttnMetadata
 from dynamo_tpu_torch.ops.attention import scatter_new_kv, write_slots
 from dynamo_tpu_torch.observability.metrics import PhaseTimer
@@ -383,12 +395,48 @@ class NativeEngine:
 
     # -- public API ----------------------------------------------------------
 
+    def encode_image(self, pixels: np.ndarray) -> np.ndarray:
+        """pixels [H, W, 3] or [B, H, W, 3] float in [0, 1] ->
+        [n_patches, D_text] (or [B, n_patches, D_text]) f32 embeds on the
+        host: the tower's output in the model dtype, widened."""
+        if self.model_cfg.vision is None:
+            raise ValueError(f"model {self.model_cfg.name!r} has no vision "
+                             "encoder configured")
+        px = np.asarray(pixels, np.float32)
+        single = px.ndim == 3
+        if single:
+            px = px[None]
+        with self._on_stream():
+            emb = vision.encode(self.params["vision"], self.model_cfg,
+                                self._dev(px))
+            out = emb.float().cpu().numpy()
+        return out[0] if single else out
+
+    def _resolve_mm(self, req: EngineRequest) -> EngineRequest:
+        """Encode a request's raw pixels into text-space embeds (the
+        "vision prefill"). The salts derive from the PIXEL bytes, not the
+        embeds, so both sides of a disaggregated pair compute the same page
+        hashes whatever their towers' numerics."""
+        if not req.mm_pixels:
+            return req
+        spans = list(req.mm_spans or [])
+        for off, px in req.mm_pixels:
+            px = np.asarray(px, np.float32)
+            spans.append((int(off), self.encode_image(px),
+                          content_salt(px.tobytes())))
+        return dataclasses.replace(req, mm_spans=spans, mm_pixels=None)
+
     def _validate_prompt(self, req: EngineRequest) -> EngineRequest:
         """Reject out-of-vocab token ids at admission: an OOV id would
-        index past the embedding table."""
+        index past the embedding table. Multimodal span positions are
+        exempt: their placeholder ids become content salts that never
+        feed the embedding table (scheduler._admit)."""
         vocab = self.model_cfg.vocab_size
         ids = np.asarray(req.prompt, dtype=np.int64)
         bad = (ids < 0) | (ids >= vocab)
+        for item in req.mm_spans or ():
+            off, n = int(item[0]), np.asarray(item[1]).shape[0]
+            bad[off:off + n] = False
         if bad.any():
             i = int(np.argmax(bad))
             raise ValueError(
@@ -397,7 +445,8 @@ class NativeEngine:
         return req
 
     def add_request(self, req: EngineRequest) -> None:
-        self.scheduler.add_request(self._validate_prompt(req))
+        self.scheduler.add_request(
+            self._validate_prompt(self._resolve_mm(req)))
 
     def abort(self, request_id: str) -> bool:
         if self._draft is not None:
@@ -559,7 +608,8 @@ class NativeEngine:
 
     def allocate_remote(self, req: EngineRequest):
         """Decode side: allocate a remote prefill's pages up front."""
-        return self.scheduler.add_remote(self._validate_prompt(req))
+        return self.scheduler.add_remote(
+            self._validate_prompt(self._resolve_mm(req)))
 
     def activate_remote(self, request_id: str, first_token: int) -> None:
         self.scheduler.activate_remote(request_id, first_token)
@@ -899,6 +949,7 @@ class NativeEngine:
             self._sampling_arrays(reqs, mixed=mixed)
         rp = self._rep_penalty_arrays(reqs, mixed=mixed)
         with_lp = self._wants_logprobs(reqs)
+        mm = plan.mm_embeds is not None
         toks, lp, top_ids, top_lps, moe = _engine_step(
             self.model_cfg, self._eos_vec, self.params, self.cache,
             self._dev(plan.tokens), self._dev(plan.positions),
@@ -909,7 +960,9 @@ class NativeEngine:
             hist=None if rp is None else self._dev(rp[0]),
             rep_penalty=None if rp is None else self._dev(rp[1]),
             with_lp=with_lp, greedy=bool(np.all(temp <= 0.0)),
-            nonfinite=self._nonfinite, path=self.decode_path)
+            nonfinite=self._nonfinite, path=self.decode_path,
+            mm_embeds=self._dev(plan.mm_embeds) if mm else None,
+            mm_mask=self._dev(plan.mm_mask) if mm else None)
         out = toks.cpu().numpy()
         if moe is not None:
             # read after the tokens' copy, which waited for the step
@@ -1552,16 +1605,19 @@ def _engine_step(cfg: ModelConfig, eos, params, cache, tokens,
                  positions, page_table, kv_lens, write_idx, last_idx,
                  temperature, top_k, top_p, seeds, counters, min_tokens,
                  hist=None, rep_penalty=None, with_lp=False, greedy=False,
-                 nonfinite=None, path=None):
+                 nonfinite=None, path=None, mm_embeds=None, mm_mask=None):
     """forward + last-position logits + sample for one prefill or mixed
     step (eos: the engine's [V] eos mask or None). Returns (tokens [B]
     int32, sampled_lp, top_ids, top_lps, moe), the lp outputs None unless
     with_lp, moe the MoE dispatch's [dropped, routed] f32 counts or None.
-    The cache is updated in place."""
+    A multimodal plan's mm_embeds [B, Tq, D] / mm_mask [B, Tq] mix into
+    the token embeds. The cache is updated in place."""
     meta = AttnMetadata(positions=positions, page_table=page_table,
                         kv_lens=kv_lens, write_idx=write_idx)
     last, _, aux = llama.forward(params, cfg, tokens, cache, meta,
-                                 last_idx=last_idx, with_aux=True, path=path)
+                                 last_idx=last_idx, with_aux=True, path=path,
+                                 input_embeds=mm_embeds,
+                                 embeds_mask=mm_mask)
     if nonfinite is not None:
         nonfinite += (~torch.isfinite(last)).any()
     seen = (seen_token_mask(hist, cfg.vocab_size)

@@ -1,7 +1,7 @@
 """Host-side paged KV cache bookkeeping: page allocator + per-sequence state.
 
-Copied from dynamo_tpu/engine/kv_cache.py, trimmed to the slice: the
-multimodal salts are left out. `on_evict(pid, seq_hash)` (the host tier's
+Copied from dynamo_tpu/engine/kv_cache.py, with the multimodal content
+salts (`content_salt`, `SequenceState.mm_spans`). `on_evict(pid, seq_hash)` (the host tier's
 hook, engine/offload.py) fires when a reusable page is recycled, before
 its hash is dropped. Free pages are
 reclaimable by content hash (prefix cache); in-flight pages are ref-counted
@@ -21,7 +21,9 @@ content-only page hash (BLAKE2b-64 under its own key) that keys the
 router's radix tree; the port's router computes it from query tokens with
 the same function (kv_router/protocols.compute_page_hashes). Neither
 hash matches the JAX package's, so a port worker and a JAX router never
-agree on hashes.
+agree on hashes. `content_salt`, the hash that salts an image span's
+placeholder ids, is BLAKE2b-64 under a third key where JAX's is xxh3-64, so
+a port engine and a JAX engine salt the same image differently.
 """
 from __future__ import annotations
 
@@ -51,6 +53,14 @@ def tokens_hash(tokens: Sequence[int]) -> int:
     """Content-only (unchained) page hash: computable from query tokens
     alone, it keys the router's radix tree."""
     return _hash64((_token_bytes(tokens),), key=b"dynamo-tokens-1337")
+
+
+def content_salt(data: bytes) -> int:
+    """Hash of raw content bytes that salts a multimodal span's placeholder
+    ids (engine._resolve_mm from pixels, scheduler._admit from embeds as a
+    fallback). One definition: both sides of a disaggregated pair must
+    derive the same salts, or their page hashes disagree."""
+    return _hash64((data,), key=b"dynamo-salt-1337")
 
 
 @dataclasses.dataclass
@@ -189,6 +199,10 @@ class SequenceState:
     # slots by (request_id, epoch))
     epoch: int = 0
     prefill_only: bool = False  # park after prefill instead of decoding
+    # multimodal: [(prompt_offset, embeds [n, D])], kept on the sequence so
+    # chunked prefill and a preempted sequence's recompute rebuild the
+    # embed rows
+    mm_spans: list = dataclasses.field(default_factory=list)
     # multi-tenant QoS (runtime/qos.py): class name + resolved priority,
     # queue-bypass count (bounded by the aging limit) and the preemptor's
     # class while this sequence waits as a preemption victim

@@ -8,8 +8,12 @@ prefill sides, :844-845 abort, :987 the slot a prefill-only row does not
 take, :1065-1069 the memory dead end, :1220-1222 parking), and so are the KV
 tier hooks (:335-350 `host_pool` / `settle_hashes`, :690-805 the tiered
 prefix walk, `_pool_claim`, the host and pool branches of `_match_prefix`,
-the onboard and pool-inject queues). Tiered-KV streaming, sequence
-parallelism and multimodal spans are left out. Planning is otherwise the JAX package's, decision for decision,
+the onboard and pool-inject queues), and so are the multimodal spans (:74-85
+`mm_spans` / `mm_pixels`, :131-132 the plan's `mm_embeds` / `mm_mask`,
+:438-463 the content salts at admission, :1190-1198 each chunk's slice of
+a span). Tiered-KV streaming and sequence parallelism are left out (the
+JAX refusal of a multimodal streamed sequence, :482, comes with
+streaming). Planning is otherwise the JAX package's, decision for decision,
 so both engines plan the same steps for the same requests:
 
 - every device step has a bucketed shape: prefill chunk lengths from
@@ -36,7 +40,7 @@ import numpy as np
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.kv_cache import (
-    PageAllocator, SequenceState, page_hash,
+    PageAllocator, SequenceState, content_salt, page_hash,
 )
 from dynamo_tpu_torch.runtime.qos import (
     DEFAULT_POLICY, QOS_STATS, QosPolicy, select_victim,
@@ -71,6 +75,17 @@ class EngineRequest:
     # the sequence (pages held) instead of taking a decode slot: the
     # prefill half of disaggregated serving
     prefill_only: bool = False
+    # multimodal: [(prompt_offset, embeds [n, D_text])] spans whose
+    # positions take vision-tower output instead of token embeds; the
+    # prompt carries placeholder ids there, rewritten to content salts at
+    # admission so the prefix cache tells images apart. An item may be
+    # (offset, embeds, salt_base): a salt hashed from the pixels, the same
+    # on both sides of a disaggregated pair
+    mm_spans: Optional[list] = None
+    # raw pixels [(prompt_offset, [H, W, 3] float array)], encoded into
+    # mm_spans by the engine's vision tower at admission
+    # (NativeEngine._resolve_mm)
+    mm_pixels: Optional[list] = None
     # multi-tenant QoS class name (runtime/qos.py); "" = the policy default
     qos: str = ""
 
@@ -102,6 +117,10 @@ class PrefillPlan:
     last_idx: np.ndarray    # [Bb] index of last valid token in the chunk
     n_valid: List[int] = dataclasses.field(default_factory=list)   # per row
     is_last_chunk: List[bool] = dataclasses.field(default_factory=list)
+    # multimodal rows: embeds to mix in at masked positions (None = all
+    # text)
+    mm_embeds: Optional[np.ndarray] = None  # [Bb, Tb, D] f32
+    mm_mask: Optional[np.ndarray] = None    # [Bb, Tb] bool
 
 
 @dataclasses.dataclass
@@ -305,11 +324,31 @@ class Scheduler:
                 f"request {req.request_id}: len {len(req.prompt)} + "
                 f"max_tokens {req.params.max_tokens} exceeds max_model_len "
                 f"{self.cfg.max_model_len}")
+        prompt = list(req.prompt)
+        spans = []
+        for item in req.mm_spans or ():
+            # placeholder ids become content salts: page hashes (the prefix
+            # cache, the router's events) run over token ids, and one
+            # placeholder id for different images would alias their pages.
+            # The salts never reach the embedding table (llama.forward's
+            # embeds_mask)
+            off, emb = int(item[0]), np.asarray(item[1])
+            if off < 0 or off + emb.shape[0] > len(prompt):
+                # a ValueError: the worker's add path turns it into this
+                # request's error frame
+                raise ValueError(
+                    f"request {req.request_id}: image span "
+                    f"[{off}, {off + emb.shape[0]}) outside prompt of "
+                    f"{len(prompt)} tokens")
+            spans.append((off, emb))
+            base = item[2] if len(item) > 2 else content_salt(emb.tobytes())
+            for j in range(emb.shape[0]):
+                prompt[off + j] = int((base + j) % 0x7FFFFFF0) + 1
         qos_cls = self.qos_policy.resolve(req.qos or None)
         seq = SequenceState(request_id=req.request_id,
-                            prompt=list(req.prompt),
+                            prompt=prompt,
                             epoch=next(self._epoch_seq),
-                            prefill_only=req.prefill_only,
+                            prefill_only=req.prefill_only, mm_spans=spans,
                             qos=req.qos or "", qos_prio=qos_cls.priority)
         self.params[req.request_id] = req.params
         self._admitted += 1
@@ -804,6 +843,7 @@ class Scheduler:
         seqs: List[Optional[SequenceState]] = [None] * bb
         n_valid, is_last = [0] * bb, [False] * bb
         is_decode = [False] * bb
+        mm_embeds = mm_mask = None
         for i, seq in enumerate(decode_rows):
             # one-token causal decode row: feed the last sampled token at
             # its position; padding columns carry the same position and
@@ -832,10 +872,22 @@ class Scheduler:
             page_table[i, :len(seq.pages)] = seq.pages
             kv_lens[i] = start + n
             last[i] = n - 1
+            # multimodal rows: each image span's overlap with this chunk's
+            # [start, start + n) goes into the plan's embed rows
+            for off, emb in seq.mm_spans:
+                lo, hi = max(off, start), min(off + emb.shape[0], start + n)
+                if lo >= hi:
+                    continue
+                if mm_embeds is None:
+                    mm_embeds = np.zeros((bb, tb, emb.shape[1]), np.float32)
+                    mm_mask = np.zeros((bb, tb), bool)
+                mm_embeds[i, lo - start:hi - start] = emb[lo - off:hi - off]
+                mm_mask[i, lo - start:hi - start] = True
         kw = dict(
             seqs=seqs, tokens=tokens, positions=positions,
             page_table=page_table, kv_lens=kv_lens, write_idx=write_idx,
-            last_idx=last, n_valid=n_valid, is_last_chunk=is_last)
+            last_idx=last, n_valid=n_valid, is_last_chunk=is_last,
+            mm_embeds=mm_embeds, mm_mask=mm_mask)
         if nd:
             return MixedPlan(is_decode=is_decode, **kw)
         return PrefillPlan(**kw)

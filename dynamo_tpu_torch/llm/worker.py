@@ -15,14 +15,19 @@ The publishers run on the event loop, after the executor step returns:
 the events come from the host allocator, so draining them adds no device
 sync to a decode window. The worker drains the events after every step
 whether or not a publisher is wired, so a worker serving a local pipeline
-does not accumulate them. Tracing, the profiler hook, multimodal parts
-and the shared KV pool's publisher are left out.
+does not accumulate them. A request's multimodal parts (JAX :44-64)
+become the engine request's raw pixels, which the engine encodes at
+admission, or, for the embeds a disaggregated decode worker ships, its
+spans with their salts. Tracing, the profiler hook and the shared KV
+pool's publisher are left out.
 """
 from __future__ import annotations
 
 import asyncio
 import logging
 from typing import Dict, Optional
+
+import numpy as np
 
 from dynamo_tpu_torch.engine.scheduler import EngineRequest, SamplingParams
 from dynamo_tpu_torch.kv_router.publisher import (
@@ -43,9 +48,25 @@ def to_engine_request(pre: PreprocessedRequest,
     # resume from a prefix: the committed tokens ride in token_ids and are
     # charged against the original budgets
     resume = pre.resume_committed or 0
+    mm_pixels = mm_spans = None
+    if pre.mm_parts:
+        mm_pixels, mm_spans = [], []
+        for p in pre.mm_parts:
+            arr = (np.frombuffer(p.data, dtype=np.dtype(p.dtype))
+                   .reshape(p.shape).astype(np.float32))
+            if p.kind == "embeds" and p.salt is not None:
+                # pre-encoded patch embeds + the pixels' salt (disagg
+                # mm_transfer="embeds"): no vision tower runs here
+                mm_spans.append((p.offset, arr, int(p.salt)))
+            else:
+                mm_pixels.append((p.offset, arr))
+        mm_pixels = mm_pixels or None
+        mm_spans = mm_spans or None
     return EngineRequest(
         request_id=pre.request_id,
         prompt=list(pre.token_ids),
+        mm_pixels=mm_pixels,
+        mm_spans=mm_spans,
         qos=qos,
         params=SamplingParams(
             max_tokens=max(1, (st.max_tokens or 16) - resume),

@@ -32,6 +32,11 @@ grouped W8A16 kernel) or `_moe_mlp` (moe_impl="dense": every expert on
 every token, the exact oracle). `valid` masks padding out of the routing,
 and with_aux returns the dispatch's summed (dropped, routed) pair counts.
 
+A multimodal model (`cfg.vision`) carries the ViT tower's tree under
+"vision" (models/vision.py; never quantized), and `forward` mixes its
+projected patch embeds into the token embeds at the image positions
+(`input_embeds` / `embeds_mask`, JAX :521-539).
+
 The KV cache is {"k", "v"}: [L, Hkv, P, ps, hd] and is updated IN PLACE
 (the JAX functions return updated copies). With `cfg.kv_quant == "int8"`
 it is {"k", "v", "k_scale", "v_scale"}: int8 values and one f32 scale per
@@ -90,6 +95,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
 
 _EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+# the vision tower's generator seed is this XOR the model seed
+_VISION_SEED = 0x5649
 _BIAS_KEYS = (("wq_b", "wq"), ("wk_b", "wk"), ("wv_b", "wv"))
 
 
@@ -233,6 +240,14 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
     if not cfg.tie_word_embeddings:
         head = dense((cfg.hidden_size, cfg.vocab_size), cfg.hidden_size)
         params["lm_head"] = quantize_int8(head) if quant else head
+    if cfg.vision is not None:
+        from dynamo_tpu_torch.models import vision
+        # the tower (never quantized, as in JAX) draws from a generator of
+        # its own, seeded from `seed`, after the text draws: a text model's
+        # weights are the same with or without a tower
+        vgen = torch.Generator(device=device).manual_seed(
+            _VISION_SEED ^ seed)
+        params["vision"] = vision.init_params(cfg, device, vgen)
     return params
 
 
@@ -282,6 +297,21 @@ def params_from_jax(tree: Params, cfg: ModelConfig, device="cpu") -> Params:
     }
     if not cfg.tie_word_embeddings:
         out["lm_head"] = conv(tree["lm_head"])
+    if cfg.vision is not None:
+        from dynamo_tpu_torch.models import vision
+        if "vision" not in tree:
+            raise ValueError(f"{cfg.name!r} has a vision tower but the tree "
+                             f"carries no 'vision' subtree")
+        shapes = vision.param_shapes(cfg)
+
+        def move(sub, want):
+            if isinstance(want, dict):
+                return {k: move(sub[k], w) for k, w in want.items()}
+            if tuple(np.shape(sub)) != want:
+                raise ValueError(f"vision leaf of shape {np.shape(sub)}; "
+                                 f"{cfg.name!r} needs {want}")
+            return conv(sub)
+        out["vision"] = move(tree["vision"], shapes)
     return out
 
 
@@ -573,6 +603,8 @@ def forward(
     last_idx: Optional[torch.Tensor] = None,  # [B]: logits of one column
     with_aux: bool = False,
     path: Optional[str] = None,      # "ragged" | "gather" (decode_path)
+    input_embeds: Optional[torch.Tensor] = None,  # [B, Tq, D]
+    embeds_mask: Optional[torch.Tensor] = None,   # [B, Tq] bool
 ) -> tuple:
     """One paged forward step; writes this step's kv into the cache in
     place. Returns (logits, cache), plus the aux dict with with_aux (the
@@ -587,14 +619,35 @@ def forward(
     through the kernel instead (`block_attention`: its prefix in prefix
     mode, the block causally; the block's rows as the cache stores them,
     so an int8 cache's rows are quantized first). An MoE dispatch routes
-    only the real positions (write_idx >= 0)."""
+    only the real positions (write_idx >= 0).
+
+    A multimodal step (JAX :521-536) passes `input_embeds` with
+    `embeds_mask`: masked positions take those rows (the vision tower's
+    projected patch embeds), cast to the model dtype, the others their
+    token embeds; the ids at masked positions are the scheduler's content
+    salts, never looked up. `input_embeds` alone replaces every token
+    embed. The embedding scale applies to whatever enters the first layer
+    (HF Gemma scales inputs_embeds too)."""
     b, tq = tokens.shape
     ragged = _resolved(cfg, path) == "ragged"
     use_kernel = tq == 1 and ragged
     use_block = tq > 1 and ragged and meta.prefix_lens is not None
     lp = params["layers"]
-    # admission validated the ids  # dynalint: disable-next-line=R1
-    x = scale_embeds(params["embed"][tokens.long()], cfg)  # [B, Tq, D]
+    if input_embeds is None:
+        # admission validated the ids  # dynalint: disable-next-line=R1
+        x = params["embed"][tokens.long()]
+    elif embeds_mask is not None:
+        # salted span positions read row 0, which the where drops (JAX's
+        # take fills NaN there and drops it the same way); admission
+        # validated the text ids
+        ids = torch.where(embeds_mask, 0, tokens).long()
+        x = torch.where(embeds_mask[..., None],
+                        input_embeds.to(torch_dtype(cfg)),
+                        # dynalint: disable-next-line=R1
+                        params["embed"][ids])
+    else:
+        x = input_embeds.to(torch_dtype(cfg))
+    x = scale_embeds(x, cfg)  # [B, Tq, D]
     quant = is_quantized_cache(cache)
     lw = cfg.layer_windows()
     # real (non-padding) positions: padding slots carry write_idx < 0

@@ -3,8 +3,9 @@
 Copied from dynamo_tpu/protocols/common.py. The JAX package declares these
 as pydantic models because they double as a wire schema; the port's first
 slice runs frontend, worker and engine in one process and depends on
-nothing beyond torch and numpy, so they are dataclasses here. Multimodal
-parts come with the slice that uses them.
+nothing beyond torch and numpy, so they are dataclasses here. An
+`ImagePart`'s `data` is bytes, which the port's codec packs as msgpack bin,
+as msgpack packs the JAX model's dump.
 """
 from __future__ import annotations
 
@@ -49,6 +50,26 @@ class OutputOptions:
 
 
 @dataclasses.dataclass
+class ImagePart:
+    """One image's payload, positioned in the token stream.
+
+    `offset` points at the first of the image's placeholder ids in
+    token_ids. kind="pixels": `data` is the raw float32 pixel buffer
+    [H, W, 3] in [0, 1], which the receiving engine's vision tower
+    encodes. kind="embeds": `data` is the projected patch-embed buffer
+    [n_patches, D_text] float32 and `salt` the pixel-content hash the page
+    hashes need (a disaggregated decode worker's mm_transfer="embeds"
+    mode, so the prefill side never runs its tower)."""
+
+    offset: int
+    shape: List[int]          # [H, W, 3] pixels | [n_patches, D] embeds
+    dtype: str = "float32"
+    data: bytes = dataclasses.field(kw_only=True)
+    kind: str = "pixels"      # "pixels" | "embeds"
+    salt: Optional[int] = None  # pixel-content hash (embeds kind)
+
+
+@dataclasses.dataclass
 class PreprocessedRequest:
     """What the frontend/processor sends to a worker (token-level request):
     token ids, sampling and stop options, eos ids, the card checksum."""
@@ -63,6 +84,8 @@ class PreprocessedRequest:
     model: str = ""
     mdc_sum: str = ""
     annotations: List[str] = dataclasses.field(default_factory=list)
+    # multimodal: images to mix into the prefill at placeholder positions
+    mm_parts: Optional[List[ImagePart]] = None
     # resume from a prefix: token_ids holds the prompt plus the last
     # `resume_committed` tokens already emitted to the client, which are
     # charged against the original stop budgets (the disagg early-decode
@@ -94,8 +117,8 @@ class EngineOutput:
 
 def to_wire(obj):
     """The dict form of a protocol dataclass, None fields left out at every
-    depth (pydantic's exclude_none), enums as their values; anything else
-    passes through."""
+    depth (pydantic's exclude_none), lists item by item, enums as their
+    values; anything else passes through."""
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         out = {}
         for f in dataclasses.fields(obj):
@@ -105,6 +128,8 @@ def to_wire(obj):
         return out
     if isinstance(obj, enum.Enum):
         return obj.value
+    if isinstance(obj, list):
+        return [to_wire(v) for v in obj]
     return obj
 
 
@@ -115,12 +140,21 @@ def _known(cls, d: dict) -> dict:
     return {k: v for k, v in d.items() if k in names}
 
 
+def image_parts_from_wire(parts) -> Optional[List[ImagePart]]:
+    """ImageParts from their dict forms."""
+    if parts is None:
+        return None
+    return [ImagePart(**_known(ImagePart, p)) for p in parts]
+
+
 def preprocessed_from_wire(d: dict) -> PreprocessedRequest:
     d = _known(PreprocessedRequest, d)
     for name, cls in (("sampling", SamplingOptions), ("stop", StopConditions),
                       ("output", OutputOptions)):
         if name in d:
             d[name] = cls(**_known(cls, d[name]))
+    if "mm_parts" in d:
+        d["mm_parts"] = image_parts_from_wire(d["mm_parts"])
     return PreprocessedRequest(**d)
 
 

@@ -213,11 +213,11 @@ def test_prefill_queue_roundtrip_matches_jax_payload():
     req, got, empty, raw = asyncio.run(main())
     assert got == req and empty is None
     # the JAX queue's payload for the same item: equal apart from the
-    # fields the port leaves out (multimodal parts, trace context)
+    # field the port leaves out (the trace context)
     jreq = JRemoteRequest(sampling=JSampling(temperature=0.5, seed=4),
                           stop=JStop(max_tokens=7, ignore_eos=True), **kw)
     jdump = jreq.model_dump()
-    for left_out in ("mm_parts", "trace"):
+    for left_out in ("trace",):
         assert jdump.pop(left_out) is None
     assert unpackb(raw) == jdump
     assert JQueue(None, "ns", "model-a").name == \

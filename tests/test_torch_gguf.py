@@ -206,8 +206,6 @@ def test_config_flags_match_jax(files, name):
     j, t = _open(files[name])
     jc, tc = jg.config_from_gguf(j), tg.config_from_gguf(t)
     jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
-    # the JAX knob the port has no reader for (vision comes with A11)
-    jd.pop("vision")
     assert td == jd
     j.close()
     t.close()

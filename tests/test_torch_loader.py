@@ -147,8 +147,6 @@ def _f32(x):
 
 def _configs_equal(tcfg, jcfg):
     t, j = dataclasses.asdict(tcfg), dataclasses.asdict(jcfg)
-    # the JAX knob the port has no reader for (vision comes with A11)
-    j.pop("vision")
     assert t == j
 
 

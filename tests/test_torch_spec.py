@@ -8,8 +8,9 @@ runs the same requests through the JAX spec engine and the port's, and
 holds the port to the JAX engine's token streams AND its counters
 `spec_steps`, `spec_proposed_tokens` and `spec_accepted_tokens`, and to the
 port's plain greedy engine (speculative greedy output is the plain greedy
-output). Left out: the two pp cases (A10) and the multimodal span case
-(A11). The draft decodes through the ragged kernel's plain version here
+output). Left out: the two pp cases (A10). The multimodal span case runs
+each engine on its own content salts (the port's are BLAKE2b, JAX's xxh3).
+The draft decodes through the ragged kernel's plain version here
 (models/llama.decode_path), the JAX draft through its gather path; the
 identical-draft cases still accept every draft, as in JAX. The n-gram
 proposer and the draft budget are held id for id to the JAX functions on
@@ -788,3 +789,73 @@ def test_spec_draft_from_hf_dir(tmp_path, plain_port):
     assert got == want == plain_port(reqs)
     assert teng.spec_steps > 0
     assert _counters(teng) == _counters(jeng)
+
+
+def test_spec_exact_when_draft_crosses_mm_span(monkeypatch):
+    """tests/test_spec_decode.py's case: a multimodal request whose
+    proposals cross the image span (two correct tokens, then the
+    sequence's own salt ids) speculates token-identically to plain greedy
+    in both packages: the salts are cut from the proposals
+    (truncate_to_vocab), never fed to the verify. Streams and spec
+    counters equal JAX's."""
+    from dynamo_tpu.engine.config import VisionConfig as JVisionConfig
+    from dynamo_tpu_torch.engine.config import VisionConfig
+
+    vision = dict(image_size=28, patch_size=14, hidden_size=32,
+                  intermediate_size=64, num_layers=2, num_heads=2)
+    jcfg = JModelConfig(dtype="float32", max_model_len=256,
+                        vision=JVisionConfig(**vision))
+    tcfg = dataclasses.replace(_tcfg(dataclasses.replace(jcfg, vision=None)),
+                               vision=VisionConfig(**vision))
+    n_patch = 4
+    prompt = [5, 6, 7, 8] + [0] * n_patch + [9, 10, 11, 12]
+    kw = dict(max_tokens=8, temperature=0.0, ignore_eos=True)
+    ekw = dict(ENGINE_KW, max_slots=2, max_model_len=256)
+    img = np.random.RandomState(3).rand(28, 28, 3).astype(np.float32)
+    jtree = None
+
+    def make(port: bool, **extra):
+        nonlocal jtree
+        cfg = dict(ekw, **extra)
+        if not port:
+            eng = JNativeEngine(jcfg, JEngineConfig(**cfg), seed=0)
+            jtree = jax.device_get(eng.params)
+            return eng
+        return TNativeEngine(tcfg, TEngineConfig(**cfg),
+                             params=params_from_jax(jtree, tcfg),
+                             device="cpu")
+
+    def gen(eng, port: bool, rid):
+        req, sp = (TRequest, TSamplingParams) if port else (
+            JRequest, JSamplingParams)
+        eng.add_request(req(rid, prompt, sp(**kw),
+                            mm_spans=[(4, eng.encode_image(img))]))
+        seq = next(s for s in eng.scheduler.waiting if s.request_id == rid)
+        salts = list(seq.prompt[4:4 + n_patch])
+        out = []
+        while eng.has_work():
+            for ev in eng.step():
+                if ev.token is not None:
+                    out.append(ev.token)
+        return out, salts
+
+    runs = {}
+    for port in (False, True):
+        plain, salts = gen(make(port), port, "plain")
+        assert any(not 0 <= x < jcfg.vocab_size for x in salts), \
+            "admission must salt the span with out-of-vocab ids"
+        mod = tspec if port else jspec
+
+        def crossing(tokens, k, min_ngram=2, max_ngram=4, max_scan=4096,
+                     vocab_size=None, plain=plain, salts=salts, mod=mod):
+            done = len(tokens) - len(prompt)
+            cont = plain[done:done + 2] + salts
+            return mod.truncate_to_vocab(cont, vocab_size)[:k]
+        monkeypatch.setattr(mod, "ngram_propose", crossing)
+        eng = make(port, spec_decode="ngram", spec_k=4)
+        spec, _ = gen(eng, port, "spec")
+        assert spec == plain
+        assert eng.spec_accepted_tokens > 0, \
+            "truncated drafts must still exercise the verify path"
+        runs[port] = (plain, _counters(eng))
+    assert runs[True] == runs[False]
