@@ -369,7 +369,15 @@ Phases (any failed check exits non-zero; nothing is caught):
    them again from its own HBM; P2 serves the same 4, fetching from the
    pool: its streams equal P1's second run's (the same prefix hits and
    tail), it fetched sum((len - 1) // 64) pages, and the pool quarantined
-   and rejected nothing. Tentpole 0 on T (`phase_failed_capture`): a
+   and rejected nothing. The pool service (engine/pool_service.py): P3
+   publishes the same 4 histories into a ClusterKvPool of 3 in-process
+   pool hosts at R = 2, and P4 serves them, fetching from the cluster,
+   with one pool host killed mid-fetch (after P4's 8th page fetch; the
+   watch delete not landed, so the host is still a ring member): P4's
+   streams equal P1's repeat, every matched page is fetched (R = 2 leaves
+   one live replica of each), at least one fetch failed over, none
+   exhausted its replicas, and every request finishes its 32 tokens (0
+   dropped streams). Tentpole 0 on T (`phase_failed_capture`): a
    window program that raises inside its capture, then one that breaks the
    capture with a host sync, each through `engine.graphs.run`: each raises,
    leaves no graph and no pool taking the stream's allocations; the real
@@ -623,12 +631,41 @@ Phases (any failed check exits non-zero; nothing is caught):
    differing where the one-chunk run's top-1 less top-2 logprob is under
    1e-3.
 
+19. Streaming past the HBM page budget (A7; engine/streaming.py): the
+   llama3-8b card at full width and 8 of its 32 layers (TIER_LAYERS),
+   random weights from seed 0, page 64. S streams (num_pages 64,
+   host_pages 256 pinned, stream_pages 8, stream_resident_pages 8,
+   stream_hot_pages 2); O is the ordinary engine on the same weights
+   (num_pages 512, nothing streamed). First the kernel-form partials on the
+   card at the streamed decode's shapes (one query row over 9 resident pages
+   with a partial tail, and a staged half of 8 slots holding 7 pages; bf16
+   and int8) against `_pages_partial` as torch ops: within 2e-3 (1e-2 with
+   int8 pages, whose torch form rounds the dequantized rows to bf16 where
+   the kernel folds the scales in f32). Traffic, one
+   request at a time: 2 greedy chats of 4096 random token ids (64 pages; at
+   decode 56-57 of them cold), 32 tokens each (ignore_eos), in bf16, then
+   with int8 pages (S and O both int8). Gates: each stream equals O's or
+   first differs at a near tie (O's logprob of the streamed token within
+   NEAR_TIE of its top); every request is streamed and its stream_steps =
+   prompt chunks + decode steps; prefetch hits + lates = layers x segments
+   summed over the steps and ragged launches = (layers - 1) x (1 +
+   segments) summed over the decode steps, the segments derived from the
+   cold page count of each step (sealed pages less the resident ones: 8,
+   or 7 beside the unsealed tail page); no quarantine in a clean run.
+   Then a 1024-token chat (16 pages, 8 cold) clean, and again with one
+   armed `offload.read_tier` rot after 4 tokens: exactly 1 quarantine and
+   1 recompute, the stream equal to the clean run's. Then f32 at the same depth, one
+   slot, a 1024-token chat (16 pages, 8 cold), 16 tokens: S's stream
+   identical to O's. Reported: ms per streamed decode step beside O's ms
+   per decode token, the prefetch hit share, host-to-device GB/s of the
+   window fills, stall steps, the phase's seconds.
+
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
 worker process of 11 and 12, each engine's turns in 13, each run of 14,
 each card run and run.py process of 15, each engine of 16, each round,
-engine and run.py process of 17, and the run.py process and each
-in-process part of 18) runs with every kernel's launch count set to 0
-just before it and read just after. Each phase prints its wall-clock
+engine and run.py process of 17, the run.py process and each in-process
+part of 18, and each streamed run of 19) runs with every kernel's launch
+count set to 0 just before it and read just after. Each phase prints its wall-clock
 seconds on a line `phase seconds: <phase> <s>`. The third line from the
 end of the output is one JSON object with the kernel records, the second
 from the end the nvidia-smi reading, and the last line
@@ -4670,6 +4707,76 @@ def phase_failed_capture(engine, vocab: int) -> dict:
     return out
 
 
+def phase_pool_service(build, hists: list, expect: list, ps: int,
+                       num_pages: int, kill_after: int = 8) -> dict:
+    """Phase 13's pool-service run (see the docstring at the top): P3
+    publishes `hists` into a ClusterKvPool of 3 hosts at R = 2, P4 serves
+    them from it with one host killed after `kill_after` page fetches;
+    `expect` are P1's repeat streams."""
+    from dynamo_tpu_torch.engine.kv_pool import POOL_STATS
+    from dynamo_tpu_torch.engine.pool_service import (
+        REMOTE_STATS, RING_STATS, ClusterKvPool, KvPoolHost,
+    )
+    t0 = time.perf_counter()
+    POOL_STATS.reset()
+    REMOTE_STATS.reset()
+    RING_STATS.reset()
+    cl = ClusterKvPool(replicas=2)
+    for i in range(3):
+        cl.add_host(KvPoolHost(f"ph{i}", capacity_pages=4 * 64))
+    cl.run_rebalance()
+    p3 = build(num_pages)
+    p3.attach_kv_pool(cl, "P3")
+    for i, h in enumerate(hists):
+        tier_serve(p3, f"P3-{i}", h)
+    p3.drain_kv_events()
+    p3._pool_stream.drain()
+    published = len(cl)
+    p3.close()
+    del p3
+    killed = {}
+    fetch = cl.fetch
+
+    def fetch_then_kill(seq_hash, mode=""):
+        out = fetch(seq_hash, mode)
+        if not killed and REMOTE_STATS.fetch_pages >= kill_after:
+            # the host dies; its watch delete has not landed yet
+            victim = max(cl._hosts.values(), key=len)
+            victim.kill()
+            killed["host"] = victim.host_id
+            killed["after_pages"] = REMOTE_STATS.fetch_pages
+        return out
+    cl.fetch = fetch_then_kill
+    p4 = build(num_pages)
+    p4.attach_kv_pool(cl, "P4", publish=False)
+    served = [tier_serve(p4, f"P4-{i}", h) for i, h in enumerate(hists)]
+    want = sum((len(h) - 1) // ps for h in hists)
+    rs = REMOTE_STATS.snapshot()
+    for i, r in enumerate(served):
+        check(len(r["tokens"]) == TIER_MAX_TOKENS,
+              f"pool service: P4 request {i} ended after "
+              f"{len(r['tokens'])} tokens (a dropped stream)")
+        check(r["tokens"] == expect[i],
+              f"pool service: P4 request {i}: stream differs from P1's at "
+              f"{first_difference(r['tokens'], expect[i])}")
+    check(killed and p4.scheduler.pool_fetched_pages == want
+          and rs["fetch_failovers"] >= 1 and rs["fetch_exhausted"] == 0
+          and rs["stale_epoch_landed"] == 0,
+          f"pool service: P4 fetched {p4.scheduler.pool_fetched_pages} "
+          f"pages, expected {want}; killed {killed}; remote {rs}")
+    p4.close()
+    out = {"published_pages": published, "fetched": want, "killed": killed,
+           "remote": rs, "ring": RING_STATS.snapshot(),
+           "p4_ttft": quantiles([x["ttft_s"] for x in served]),
+           "seconds": time.perf_counter() - t0}
+    print(f"pool service: 3 hosts, R = 2, {published} pages published; "
+          f"{killed['host']} killed after {killed['after_pages']} fetches; "
+          f"P4 fetched {want} pages with {rs['fetch_failovers']} failovers, "
+          f"0 dropped streams, streams equal P1's; "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # depth cuts that keep the script inside its time limit: the layers of
 # llama3-8b that phase 13's tier engines and 16b's window A/B run (widths
 # unchanged; their gates count pages, hits and layers x steps)
@@ -4833,7 +4940,10 @@ def phase_tiers(smi: str, model: str = "llama3-8b", device: str = "cuda",
                    "p1_first_ttft": quantiles([x["ttft_s"] for x in first])}
     p1.close()
     p2.close()
-    del p1, p2, pool, params
+    del p1, p2, pool
+    rec["pool_service"] = phase_pool_service(
+        build, p_hists, [a["tokens"] for a in again], ps, sz["p_pages"])
+    del params
     shutil.rmtree(disk_root, ignore_errors=True)
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -8140,6 +8250,345 @@ def phase_vision(smi: str) -> dict:
     return rec
 
 
+# -- phase 19: streaming past the HBM page budget ------------------------------
+
+# llama3-8b on the card: S's HBM and host pages, its window halves, resident
+# budget and hot prefix, the chats' prompt tokens, and the f32 check's
+# prompt and tokens; a CPU rehearsal passes smaller ones
+STREAM_SIZES = dict(num_pages=64, host=256, window=8, resident=8, hot=2,
+                    prompt=4096, chats=2, f32_prompt=1024, f32_tokens=16)
+
+
+def stream_counts(n_prompt: int, max_tokens: int, ps: int, budget: int,
+                  window: int, layers: int) -> tuple:
+    """(stream steps, prefetch takes, ragged launches) of one streamed
+    request, derived from its lengths and the residency rules: a step that
+    starts at token `start` attends start // ps sealed pages, of which
+    min(sealed, budget) stay resident (budget - 1 beside an unsealed tail
+    page); the rest are cold, in ceil(cold / window) segments a layer. A
+    prefill chunk runs every partial as torch ops; a decode step launches
+    the ragged kernel for the resident pages and each segment in every
+    layer but layer 0."""
+    def segments(start):
+        sealed = start // ps
+        tail = 1 if start % ps else 0
+        return -(-(sealed - min(sealed, budget - tail)) // window)
+    steps = takes = ragged = 0
+    start = 0
+    while start < n_prompt:
+        takes += layers * segments(start)
+        start += min(ps - start % ps, n_prompt - start)
+        steps += 1
+    for j in range(max_tokens - 1):
+        n = segments(n_prompt + j)
+        takes += layers * n
+        ragged += (layers - 1) * (1 + n)
+        steps += 1
+    return steps, takes, ragged
+
+
+def stream_serve(engine, rid: str, prompt: list, max_tokens: int,
+                 arm=None) -> dict:
+    """One greedy request alone on the engine (ignore_eos), with the ragged
+    kernel's launch count set to 0 just before and read just after: its
+    tokens, TTFT, ms per decode step (first token to last, host clock),
+    whether it streamed, and the STREAM_STATS delta. `arm` = (n, fn): fn()
+    once the n-th token arrived."""
+    import torch
+    from dynamo_tpu_torch.engine.scheduler import (
+        EngineRequest, SamplingParams,
+    )
+    from dynamo_tpu_torch.engine.streaming import STREAM_STATS
+    from dynamo_tpu_torch.ops import paged_attention
+    s0 = STREAM_STATS.snapshot()
+    paged_attention.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    engine.add_request(EngineRequest(rid, list(prompt), SamplingParams(
+        max_tokens=max_tokens, temperature=0.0, ignore_eos=True)))
+    streamed = any(q.request_id == rid
+                   for q in engine.scheduler.stream_active)
+    out, stamps, done = [], [], False
+    while not done:
+        for ev in engine.step():
+            if ev.request_id != rid:
+                continue
+            if ev.token is not None:
+                out.append(ev.token)
+                stamps.append(time.perf_counter())
+                if arm is not None and len(out) == arm[0]:
+                    arm[1]()
+            done |= ev.finished
+    while engine.has_work():
+        engine.step()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = paged_attention.KERNEL_LAUNCHES
+    s1 = STREAM_STATS.snapshot()
+    return {"tokens": out, "ttft_s": stamps[0] - t0,
+            "ms_per_step": ((stamps[-1] - stamps[0]) / max(1, len(out) - 1)
+                            * 1e3),
+            "streamed": streamed, "launches": launches,
+            "stats": {k: s1[k] - s0[k] for k in s0}}
+
+
+def near_tie_gap(engine, rid: str, context: list, token: int) -> float:
+    """The engine's top logprob less its logprob of `token` after `context`
+    (one greedy step with the top-8 logprobs; inf when `token` is not among
+    them)."""
+    from dynamo_tpu_torch.engine.scheduler import (
+        EngineRequest, SamplingParams,
+    )
+    engine.add_request(EngineRequest(rid, list(context), SamplingParams(
+        max_tokens=1, temperature=0.0, ignore_eos=True, logprobs=8)))
+    top = None
+    while engine.has_work():
+        for ev in engine.step():
+            if ev.request_id == rid and ev.top_logprobs is not None:
+                top = dict(ev.top_logprobs)
+    check(top is not None, f"near tie: no logprobs for {rid}")
+    if token not in top:
+        return float("inf")
+    return max(top.values()) - top[token]
+
+
+def stream_partial_check(cfg, device: str = "cuda") -> dict:
+    """The kernel-form partials at the streamed decode's shapes against
+    `_pages_partial` as torch ops on the same inputs: one query row (the
+    model's heads) over 9 resident pages, the last holding 37 tokens, and a
+    staged half of 8 slots holding 7 pages, with bf16 and int8 pages. The
+    normalised output and m within 2e-3, l within 2e-3 relative; with int8
+    pages 1e-2, since the torch form rounds the dequantized rows to bf16
+    (the JAX form) where the kernel folds the scales in f32. Returns the
+    largest differences."""
+    import torch
+    from dynamo_tpu_torch.engine import streaming as st
+    from dynamo_tpu_torch.ops.kv_quant import dequantize_rows, quantize_rows
+    hkv, hd, ps = cfg.num_kv_heads, cfg.head_dim, 64
+    h = cfg.num_heads
+    g = torch.Generator().manual_seed(19)
+    dt = torch.bfloat16
+    q = torch.randn((1, h, hd), generator=g).to(device, dt)
+    k = torch.randn((2, hkv, 20, ps, hd), generator=g).to(device, dt)
+    v = torch.randn((2, hkv, 20, ps, hd), generator=g).to(device, dt)
+    table = torch.tensor([3, 11, 5, 7, 1, 9, 14, 2, 17], device=device)
+    lens = torch.tensor([ps] * 8 + [37], dtype=torch.int32, device=device)
+    out = {}
+    for quant in (False, True):
+        cache = {"k": k, "v": v}
+        if quant:
+            kq, ks = quantize_rows(k)
+            vq, vs = quantize_rows(v)
+            cache = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        kp = cache["k"][1].index_select(1, table)
+        vp = cache["v"][1].index_select(1, table)
+        if quant:
+            kp = dequantize_rows(kp, cache["k_scale"][1].index_select(
+                1, table), dt)
+            vp = dequantize_rows(vp, cache["v_scale"][1].index_select(
+                1, table), dt)
+        want = st._pages_partial(q, kp, vp, lens, hd ** -0.5, False)
+        got = st._kernel_partial(
+            q, cache["k"], cache["v"], 1, table[None].to(torch.int32),
+            lens.sum()[None].to(torch.int32), cache.get("k_scale"),
+            cache.get("v_scale"))
+        w = 8
+        staged = (cache["k"][0][:, :w].contiguous(),
+                  cache["v"][0][:, :w].contiguous(),
+                  cache["k_scale"][0][:, :w].contiguous() if quant else None,
+                  cache["v_scale"][0][:, :w].contiguous() if quant else None,
+                  torch.tensor([ps] * 7 + [0], dtype=torch.int32,
+                               device=device),
+                  torch.tensor([7 * ps], dtype=torch.int32, device=device),
+                  torch.arange(w, dtype=torch.int32, device=device)[None])
+        g_ = h // hkv
+        zero = (torch.zeros((1, hkv, g_, hd), device=device),
+                torch.full((1, hkv, g_), -1e30, device=device),
+                torch.zeros((1, hkv, g_), device=device))
+        seg_want = st._stream_seg_merge(cfg, False, q, staged, *zero)
+        seg_got = st._stream_seg_merge(cfg, False, q, staged, *zero,
+                                       kernel=True)
+        for name, a, b in (("resident", got, want),
+                           ("segment", seg_got, seg_want)):
+            o_err = float(((a[0] / a[2][..., None])
+                           - (b[0] / b[2][..., None])).abs().max())
+            m_err = float((a[1] - b[1]).abs().max())
+            l_err = float(((a[2] - b[2]).abs() / b[2]).max())
+            label = f"{name} {'int8' if quant else 'bf16'}"
+            tol = 1e-2 if quant else 2e-3
+            check(o_err <= tol and m_err <= tol and l_err <= tol,
+                  f"streamed partial, {label}: the kernel form differs from "
+                  f"the torch ops by {o_err} (out), {m_err} (m), {l_err} "
+                  "(l, relative)")
+            out[label] = max(o_err, m_err, l_err)
+    print(f"streamed partials: the kernel form against the torch ops at "
+          f"{h} / {hkv} heads of {hd}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_streaming(smi: str, model: str = "llama3-8b", device: str = "cuda",
+                    layers: int = TIER_LAYERS, sizes: dict = None) -> dict:
+    """Phase 19 (see the docstring at the top), at `layers` of the model's
+    depth when that cuts it (0: all)."""
+    import torch
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.run import build_card
+    from dynamo_tpu_torch.runtime import faults
+    t_phase = time.perf_counter()
+    sz = dict(STREAM_SIZES, **(sizes or {}))
+    card = build_card(model)
+    cfg = card.model_config()
+    if 0 < layers < cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    ps = card.kv_page_size
+    n_tok = TIER_MAX_TOKENS
+    rec = {"sizes": sz, "layers": cfg.num_layers,
+           "partials": stream_partial_check(cfg, device)}
+    prompts = [tier_tokens(sz["prompt"], 1900 + i, cfg.vocab_size)
+               for i in range(sz["chats"])]
+    max_len = (-(-(sz["prompt"] + n_tok) // ps) + 2) * ps
+
+    def build(c, params, kv_quant="", stream=True):
+        kw = dict(page_size=ps, kv_quant=kv_quant, max_model_len=max_len)
+        if stream:
+            kw.update(num_pages=sz["num_pages"], host_pages=sz["host"],
+                      stream_pages=sz["window"],
+                      stream_resident_pages=sz["resident"],
+                      stream_hot_pages=sz["hot"])
+        else:
+            kw.update(num_pages=512)
+        return NativeEngine(c, EngineConfig(**kw), params=params,
+                            eos_token_ids=set(card.eos_token_ids),
+                            device=device)
+
+    def gate(label, got, ref, o, prompt, counts):
+        steps, takes, ragged = counts
+        st = got["stats"]
+        check(got["streamed"] and len(got["tokens"]) == len(ref["tokens"]),
+              f"{label}: streamed {got['streamed']}, "
+              f"{len(got['tokens'])} tokens")
+        check(st["stream_steps"] == steps
+              and st["prefetch_hit"] + st["prefetch_late"] == takes
+              and st["pages_quarantined"] == 0,
+              f"{label}: stream steps {st['stream_steps']} (expected "
+              f"{steps}), prefetch hits + lates {st['prefetch_hit']} + "
+              f"{st['prefetch_late']} (expected {takes}), stats {st}")
+        if device == "cuda":
+            check(got["launches"] == ragged,
+                  f"{label}: {got['launches']} ragged launches, expected "
+                  f"{ragged} ((layers - 1) x (1 + segments) a decode step)")
+        j = first_difference(got["tokens"], ref["tokens"])
+        gap = 0.0
+        if j is not None:
+            gap = near_tie_gap(o, f"{label}-tie", prompt + ref["tokens"][:j],
+                               got["tokens"][j])
+            check(gap <= NEAR_TIE,
+                  f"{label}: stream leaves the ordinary engine's at token "
+                  f"{j} with a logprob gap of {gap} (> {NEAR_TIE})")
+        return {"first_difference": j, "gap": gap}
+
+    budget = max(2, sz["resident"])
+    counts = stream_counts(len(prompts[0]), n_tok, ps, budget, sz["window"],
+                           cfg.num_layers)
+    params = llama.init_params(cfg, device, 0)
+    for kv in ("", "int8"):
+        label = kv or "bf16"
+        o = build(cfg, params, kv, stream=False)
+        s_eng = build(cfg, params, kv)
+        runs = []
+        for i, prompt in enumerate(prompts):
+            ref = stream_serve(o, f"O-{label}-{i}", prompt, n_tok)
+            got = stream_serve(s_eng, f"S-{label}-{i}", prompt, n_tok)
+            cmp = gate(f"streamed {label} chat {i}", got, ref, o, prompt,
+                       counts)
+            runs.append({"ms_per_step": got["ms_per_step"],
+                         "ordinary_ms_per_token": ref["ms_per_step"],
+                         "ttft_s": got["ttft_s"],
+                         "ordinary_ttft_s": ref["ttft_s"],
+                         "launches": got["launches"], "stats": got["stats"],
+                         **cmp, "tokens": got["tokens"]})
+        pool = s_eng._streamer.pool
+        entry = {"runs": runs, "expected": dict(zip(
+            ("stream_steps", "prefetch_takes", "ragged_launches"), counts)),
+                 "h2d_gb_s": (pool.h2d_bytes / pool.h2d_s / 1e9
+                              if pool.h2d_s else None),
+                 "h2d_bytes": pool.h2d_bytes, "fills": pool.fills}
+        if not kv:
+            # one rotten tier read during a shorter chat, run clean first
+            def arm():
+                faults.REGISTRY.arm("offload.read_tier", faults.FaultSchedule(
+                    0, [faults.FaultSpec("corrupt", p=1.0, n=1)]))
+            short = tier_tokens(sz["f32_prompt"], 1950, cfg.vocab_size)
+            clean = stream_serve(s_eng, "S-clean", short, n_tok)
+            try:
+                rot = stream_serve(s_eng, "S-rot", short, n_tok, arm=(4, arm))
+            finally:
+                faults.REGISTRY.disarm()
+            st = rot["stats"]
+            check(st["pages_quarantined"] == 1 and st["pages_recomputed"] == 1
+                  and rot["tokens"] == clean["tokens"],
+                  f"streamed rot: {st['pages_quarantined']} quarantined, "
+                  f"{st['pages_recomputed']} recomputed, stream differs at "
+                  f"{first_difference(rot['tokens'], clean['tokens'])}")
+            entry["rot"] = {"quarantined": 1, "recomputed": 1,
+                            "ms_per_step": rot["ms_per_step"]}
+        rec[label] = entry
+        o.close()
+        s_eng.close()
+        del o, s_eng
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # f32, one slot, at the same depth: identical streams
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = llama.init_params(cfg32, device, 0)
+    prompt = tier_tokens(sz["f32_prompt"], 1950, cfg.vocab_size)
+    o = build(cfg32, params, stream=False)
+    s_eng = build(cfg32, params)
+    ref = stream_serve(o, "O-f32", prompt, sz["f32_tokens"])
+    got = stream_serve(s_eng, "S-f32", prompt, sz["f32_tokens"])
+    counts32 = stream_counts(len(prompt), sz["f32_tokens"], ps, budget,
+                             sz["window"], cfg.num_layers)
+    gate("streamed f32", got, ref, o, prompt, counts32)
+    check(got["tokens"] == ref["tokens"],
+          f"streamed f32: stream differs from the ordinary engine's at "
+          f"{first_difference(got['tokens'], ref['tokens'])}")
+    rec["f32"] = {"tokens": len(got["tokens"]), "launches": got["launches"],
+                  "ms_per_step": got["ms_per_step"]}
+    o.close()
+    s_eng.close()
+    del o, s_eng, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    b = rec["bf16"]
+    hits = sum(r["stats"]["prefetch_hit"] for r in b["runs"])
+    lates = sum(r["stats"]["prefetch_late"] for r in b["runs"])
+    rec["hit_share"] = hits / max(1, hits + lates)
+    rec["stall_steps"] = sum(r["stats"]["stall_steps"] for r in b["runs"])
+    print(f"streaming [{smi}]: {sz['prompt']}-token chats through a "
+          f"{sz['num_pages']}-page budget ({cfg.num_layers} layers): ms per "
+          f"streamed decode step "
+          + ", ".join(f"{k} {[round(r['ms_per_step'], 3) for r in rec[k]['runs']]}"
+                      f" (ordinary "
+                      f"{[round(r['ordinary_ms_per_token'], 3) for r in rec[k]['runs']]}"
+                      " ms a token)" for k in ("bf16", "int8"))
+          + f"; prefetch hit share {rec['hit_share']:.4f}; window fills "
+          f"{b['h2d_gb_s']} GB/s host to device; stall steps "
+          f"{rec['stall_steps']}; ragged launches "
+          f"{[r['launches'] for r in b['runs']]} (expected "
+          f"{b['expected']['ragged_launches']} each); rot: 1 quarantined, 1 "
+          f"recomputed, stream unchanged; f32 identical; phase "
+          f"{rec['phase_s']:.1f} s", flush=True)
+    for k in ("bf16", "int8"):
+        for r in rec[k]["runs"]:
+            del r["tokens"]
+    return rec
+
+
 def timed(name: str, fn, *args, **kw):
     """fn(*args, **kw), its wall-clock seconds printed on a line of its
     own (the time limit's budget by phase)."""
@@ -8245,6 +8694,8 @@ def main() -> int:
     print(f"speculative decoding: {json.dumps(spec)}", flush=True)
     vl = timed("18", phase_vision, smi)
     print(f"vision: {json.dumps(vl)}", flush=True)
+    stream = timed("19", phase_streaming, smi)
+    print(f"streaming: {json.dumps(stream)}", flush=True)
     print(f"phase seconds: all {time.perf_counter() - t_all:.1f}",
           flush=True)
 
@@ -8262,6 +8713,7 @@ def main() -> int:
               "launches": first["launches"],
               "max_abs_err": max(err_bf16, main_err, *(
                   g["max_abs_err"] for g in geometries.values()),
+                  *stream["partials"].values(),
                   spec["ngram"]["verify_max_abs_err"][0],
                   spec["exact"]["verify_max_abs_err"][0]), **timing,
               "distributed_launches": dist["launches"],
@@ -8295,6 +8747,11 @@ def main() -> int:
                       vl["disagg"]["launches"][RAGGED],
                   "18c f32, both chunkings":
                       vl["chunks"]["launches"][RAGGED]},
+              "stream_launches": {
+                  f"19 streamed {kv} chat {i} ((layers - 1) x (1 + "
+                  "segments) a decode step)": r["launches"]
+                  for kv in ("bf16", "int8")
+                  for i, r in enumerate(stream[kv]["runs"])},
               "geometries": geometries,
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),

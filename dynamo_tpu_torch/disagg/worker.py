@@ -30,8 +30,13 @@ encodes them; "embeds" encodes once on the decode side (its allocation
 needs the salts anyway) and ships the projected patch embeds with their
 salts, so the prefill side never runs its tower.
 
-Left out: tracing spans, the pool-claim lease touch (KV tiers) and the
-drain counters of the reliability slice.
+With a shared or cross-host KV pool attached to the prefill engine, an
+item whose prompt matches two or more pool pages re-arms its lease before
+the engine claims them (`_touch_for_pool_claim`, JAX :945-972): a ladder of
+verified remote fetches, each possibly failing over, may outlast the lease,
+and a redelivery mid-fetch would start a second sender.
+
+Left out: tracing spans and the drain counters of the reliability slice.
 """
 from __future__ import annotations
 
@@ -719,6 +724,30 @@ class PrefillWorker:
 
             task.add_done_callback(done)
 
+    async def _touch_for_pool_claim(self, req: RemotePrefillRequest,
+                                    token: str) -> bool:
+        """Re-arm the lease before a long pool claim: when the attached pool
+        holds a multi-page prefix of this prompt, the engine's claim ladder
+        (page-by-page verified fetches, each possibly failing over across
+        replicas) may outlast `lease_s`; a touch here keeps the queue from
+        redelivering the item mid-fetch. A one-page (or no) match keeps the
+        normal lease. True when the lease was re-armed (False: no pool, a
+        short match, or the lease already expired, in which case whichever
+        sender finishes first wins: chunk commits are idempotent)."""
+        try:
+            eng = self.worker.engine
+            pool = getattr(eng, "kv_pool", None)
+            if pool is None:
+                return False
+            from dynamo_tpu_torch.engine.kv_pool import matched_pool_pages
+            matched = matched_pool_pages(pool, req.token_ids,
+                                         eng.cfg.page_size)
+        except Exception:  # noqa: BLE001 — the re-arm is best effort; the
+            return False   # lease covers the default case
+        if matched < 2:
+            return False
+        return await self.queue.touch(token, self.lease_s)
+
     async def _handle(self, req: RemotePrefillRequest, token: str) -> None:
         rid = req.request_id
         try:
@@ -726,6 +755,7 @@ class PrefillWorker:
             if req.page_size != eng_ps:
                 raise ValueError(f"page size mismatch: decode "
                                  f"{req.page_size} != prefill {eng_ps}")
+            await self._touch_for_pool_claim(req, token)
             q: asyncio.Queue = asyncio.Queue()
             self.worker._queues[rid] = q
             try:

@@ -7,8 +7,9 @@ vision tower (`VisionConfig`, models/vision.py). The model registry is the
 JAX registry: the dense Llama geometries, the MoE ones (`tiny-moe`,
 `mixtral-8x7b`) and the vision ones (`tiny-vl`, `qwen2-vl-7b`); the engine
 knobs keep paging,
-batching, the decode window, mixed steps, int8 KV pages (`kv_quant`) and
-speculative decoding (`spec_*`, engine/spec.py).
+batching, the decode window, mixed steps, int8 KV pages (`kv_quant`),
+speculative decoding (`spec_*`, engine/spec.py) and KV streaming past the
+page budget (`stream_*`, engine/streaming.py).
 `quant` keeps the JAX meaning (weight-only int8, ops/quant.py).
 The architecture knobs the checkpoint loaders set (models/loader.py,
 llm/gguf.py) keep the JAX meanings and defaults: q/k/v bias (Qwen2), the
@@ -191,6 +192,15 @@ class EngineConfig:
     # back up. Requires host_pages > 0. disk_dir None = a temp directory.
     disk_pages: int = 0
     disk_dir: Optional[str] = None
+    # decode-time KV streaming past the HBM page budget (engine/
+    # streaming.py): a request whose admission-time page count exceeds
+    # stream_resident_pages keeps that many pages resident and attends the
+    # rest from the host tier through a double-buffered window pool of
+    # stream_pages slots a half (0 = streaming off; requires host_pages >
+    # 0). The first stream_hot_pages logical pages are never spilled.
+    stream_pages: int = 0
+    stream_resident_pages: int = 8
+    stream_hot_pages: int = 2
     # decode steps run per window: the sampled token feeds the next step on
     # the device, and the window's tokens cross to the host in one copy
     decode_steps: int = 8

@@ -109,8 +109,17 @@ span into the plan (`mm_embeds` / `mm_mask`), which the prefill and mixed
 steps hand to `llama.forward`. `_validate_prompt` exempts span positions
 from the vocabulary check.
 
-Left out of this slice: pipeline/tensor/expert parallelism, streaming
-and the tp shard inject (`inject_pages_shard`).
+Streaming past the page budget (dynamo_tpu/engine/engine.py:469-501,
+:648-649, :764-787, :1152, :1924-1932; engine/streaming.py): with
+`stream_pages > 0` a request whose pages exceed `stream_resident_pages`
+runs through the StreamingDecoder, one prefill chunk or one token a
+`StreamPlan` step (`_run_stream`), and no pipeline starts while one is
+active. The JAX refusals stand where the port has the knob: no host tier,
+spec_decode, an MoE dispatch, attention soft-caps or sliding windows.
+
+Left out of this slice: pipeline/tensor/expert parallelism, the tp shard
+inject (`inject_pages_shard`) and, with A14, the streamed step's ledger
+sample.
 """
 from __future__ import annotations
 
@@ -136,7 +145,7 @@ from dynamo_tpu_torch.engine.sampler import (
 )
 from dynamo_tpu_torch.engine.scheduler import (
     DecodePlan, EngineRequest, MixedPlan, PrefillPlan, SamplingParams,
-    Scheduler, next_bucket, pow2_buckets, window_ladder,
+    Scheduler, StreamPlan, next_bucket, pow2_buckets, window_ladder,
 )
 from dynamo_tpu_torch.engine.window_graph import HostCopies, WindowGraphs
 from dynamo_tpu_torch.models import llama, vision
@@ -321,6 +330,7 @@ class NativeEngine:
         # only: it defeats the overlap it measures)
         self.phases = PhaseTimer()
         self.profile_sync = False
+        self._streamer = self._build_streamer()
         if self._stream is not None:
             # the weights, cache and counter were made on the caller's stream
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -366,6 +376,38 @@ class NativeEngine:
         # the draft's captures exclude the threads the engine's exclude
         self._draft.graphs.capture_lock = self.graphs.capture_lock
         return True
+
+    def _build_streamer(self):
+        """The StreamingDecoder when stream_pages > 0, after the JAX
+        engine's refusals (dynamo_tpu/engine/engine.py:469-501; the port runs
+        no pp / sp mesh, so that one has nothing to refuse)."""
+        ecfg, mcfg = self.cfg, self.model_cfg
+        if ecfg.stream_pages <= 0:
+            return None
+        if ecfg.host_pages <= 0:
+            raise ValueError(
+                "stream_pages > 0 requires host_pages > 0: cold "
+                "pages live in the host/disk offload tiers")
+        if ecfg.spec_decode:
+            raise ValueError(
+                "tiered-KV streaming does not compose with "
+                "spec_decode (the streamed step has no verify "
+                "block); disable one of them")
+        if mcfg.is_moe and mcfg.moe_impl == "dispatch":
+            raise ValueError(
+                "tiered-KV streaming requires moe_impl='dense' on "
+                "MoE models (the streamed per-layer loop uses the "
+                "dense-compute MLP path)")
+        if mcfg.attn_softcap or mcfg.sliding_window:
+            raise ValueError(
+                "tiered-KV streaming supports full attention only "
+                "(no attn_softcap / sliding_window): a sliding "
+                "window never exceeds the resident budget anyway")
+        from dynamo_tpu_torch.engine.streaming import StreamingDecoder
+        streamer = StreamingDecoder(self)
+        self.scheduler.stream_enabled = True
+        self.scheduler.on_stream_finish = streamer.release
+        return streamer
 
     @property
     def cache(self):
@@ -484,6 +526,7 @@ class NativeEngine:
             # that applies the injects, before planning
             s.poll_overlap_gates()
         return (self._pipeline is not None or bool(s.waiting)
+                or bool(s.stream_active)
                 or any(x is not None for x in s.running))
 
     def step(self) -> List[StepOutput]:
@@ -505,6 +548,8 @@ class NativeEngine:
             self._process_pool_injects()  # shared-pool pages it may read
             if plan is None:
                 return []
+            if isinstance(plan, StreamPlan):
+                return self._run_stream(plan)
             if isinstance(plan, MixedPlan):
                 return self._run_mixed(plan)
             if isinstance(plan, PrefillPlan):
@@ -572,6 +617,15 @@ class NativeEngine:
             if self.host_pool.disk is not None:
                 m.kv_disk_pages_used = self.host_pool.disk.used
                 m.kv_disk_pages_total = self.host_pool.disk.capacity
+        if self._streamer is not None:
+            from dynamo_tpu_torch.engine.streaming import STREAM_STATS
+            m.kv_stream_steps = int(STREAM_STATS.stream_steps)
+            m.kv_stream_prefetch_hit = int(STREAM_STATS.prefetch_hit)
+            m.kv_stream_prefetch_late = int(STREAM_STATS.prefetch_late)
+            m.kv_stream_pages_spilled = int(STREAM_STATS.pages_spilled)
+            m.kv_stream_pages_quarantined = int(
+                STREAM_STATS.pages_quarantined)
+            m.kv_stream_stall_steps = int(STREAM_STATS.stall_steps)
         return m
 
     def moe_drop_rate(self) -> float:
@@ -989,6 +1043,18 @@ class NativeEngine:
             events.append(self._postprocess_row(seq, tok, lps, i))
         return events
 
+    def _run_stream(self, plan: StreamPlan) -> List[StepOutput]:
+        """One streamed step (engine/streaming.py): a prefill chunk or one
+        decoded token of a sequence whose context exceeds the resident page
+        budget; this wrapper owns the event."""
+        seq = plan.seq
+        tok, _ = self._streamer.step(seq)
+        events: List[StepOutput] = []
+        if tok is not None:
+            seq.output.append(tok)
+            events.append(self._postprocess(seq, tok))
+        return events
+
     def _postprocess_row(self, seq, tok, lps, i) -> StepOutput:
         if seq.prefill_only:
             # disaggregated prefill: the first token goes to the transfer
@@ -1223,6 +1289,8 @@ class NativeEngine:
             return False
         if self._spec:
             return False   # the verify handoff stays synchronous
+        if sch.stream_active:
+            return False   # streamed steps interleave; don't lock them out
         if self._wants_logprobs(plan.seqs) \
                 or self._rep_penalty_arrays(plan.seqs) is not None:
             return False

@@ -210,6 +210,11 @@ class SequenceState:
     qos_prio: int = 0
     qos_bypassed: int = 0
     preempted_by: Optional[str] = None
+    # streaming past the page budget (engine/streaming.py): set at admission
+    # when the whole page footprint exceeds stream_resident_pages. A
+    # streamed sequence never holds seq.pages: its residency lives in the
+    # StreamingDecoder's StreamSeq record
+    streamed: bool = False
 
     @property
     def total_len(self) -> int:

@@ -24,10 +24,10 @@ stored representation, int8 values + f32 scales on an int8 cache) and
 checksums are `runtime/integrity.tensor_checksum`; the publish copies run
 on a stream of their own after the extraction's "ready" event, holding the
 engine's `capture_lock` for every CUDA call, and a failed publish is
-logged and counted (`PoolPublishStream.failed`). The fault-injection
-failpoint at the fetch (JAX :331-332) waits for the port's
-`runtime/faults.py`; the cross-host pool service (engine/pool_service.py)
-and the router's pool sources wait for later slices.
+logged and counted (`PoolPublishStream.failed`). The fetch fires the
+`pool.fetch` failpoint (JAX :331-332, runtime/faults.py) on its copy. The
+cross-host pool service is engine/pool_service.py (`ClusterKvPool`, the
+same interface); the router's pool sources are kv_router/router.py's.
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import torch
 
 from dynamo_tpu_torch.engine.offload import LEAVES
+from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.integrity import (
     STATS as INTEGRITY, tensor_checksum,
 )
@@ -246,6 +247,8 @@ class SharedKvPool:
             # eviction of the entry
             arrays = tuple(a.clone() for a in e.arrays)
             sum_ = e.sum_
+        if faults.REGISTRY.enabled:   # rot surfacing on the fetch path
+            faults.REGISTRY.corrupt_array("pool.fetch", arrays[0])
         if tensor_checksum(*arrays) != sum_:
             INTEGRITY.mismatches += 1
             INTEGRITY.quarantined += 1

@@ -37,8 +37,11 @@ What differs from the JAX module:
   but it is logged by name and counted (`OffloadStats.failed`).
 - `TierTimes` records where the tiers' time goes (verify, copies, settle,
   spill, promote); the JAX module has no counterpart.
-- The fault-injection failpoints (JAX :127-128, :153-154, :258-260,
-  :350-352) wait for the port's `runtime/faults.py`.
+- The failpoints are JAX's (:127-128, :153-154, :258-260, :350-352, on
+  runtime/faults.py): `offload.write_tier` after a slot is written (DRAM
+  and disk), `offload.read_tier` at every verify of a DRAM slot and at a
+  disk take. A read-tier corruption drops the slot's remembered verify, so
+  the bytes it flipped are hashed.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.integrity import (
     STATS as INTEGRITY, tensor_checksum,
 )
@@ -257,6 +261,9 @@ class DiskKvPool:
             slab[slot].copy_(page)
         self._memo.written(slot)
         self._sum_at[slot] = sum_
+        if faults.REGISTRY.enabled:   # at-rest rot in the disk tier
+            faults.REGISTRY.corrupt_array("offload.write_tier",
+                                          self.k_slab[slot])
         self._by_hash[seq_hash] = slot
         self._hash_at[slot] = seq_hash
         self._lru[slot] = None
@@ -274,9 +281,11 @@ class DiskKvPool:
         self._lru.pop(slot, None)
         self._free.append(slot)
         pages = tuple(slab[slot].clone() for slab in self._slabs())
+        rot = (faults.REGISTRY.enabled and   # rot surfacing on the read path
+               faults.REGISTRY.corrupt_array("offload.read_tier", pages[0]))
         sum_ = self._sum_at[slot]
         self._sum_at[slot] = None
-        verified = self._memo.consume(slot)
+        verified = self._memo.consume(slot) and not rot
         self._memo.written(slot)
         if sum_ is not None and not verified \
                 and tensor_checksum(*pages) != sum_:
@@ -407,8 +416,12 @@ class HostKvPool:
             return True
 
     def _verify(self, slot: int) -> bool:
-        """Lock held: check the slot's bytes against its capture checksum
-        (done already when `preverify` or a promotion remembered it)."""
+        """Lock held: fire the read-tier failpoint and check the slot's
+        bytes against its capture checksum (done already when `preverify`
+        or a promotion remembered it and nothing flipped them since)."""
+        if faults.REGISTRY.enabled and faults.REGISTRY.corrupt_array(
+                "offload.read_tier", self.k_slab[slot]):
+            self._memo.written(slot)   # rot surfacing on the read path
         sum_ = self._sum_at[slot]
         if sum_ is None:
             return True
@@ -503,7 +516,10 @@ class HostKvPool:
         for dst, src in zip(self._slot_arrays(slot), pages):
             dst.copy_(src)
         self._memo.written(slot)
-        if verified:
+        rot = (faults.REGISTRY.enabled and   # at-rest rot in the DRAM tier
+               faults.REGISTRY.corrupt_array("offload.write_tier",
+                                             self.k_slab[slot]))
+        if verified and not rot:
             self._memo.mark(slot)
         self._sum_at[slot] = sum_
         self._by_hash[seq_hash] = slot

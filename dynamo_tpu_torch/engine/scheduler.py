@@ -11,10 +11,11 @@ prefix walk, `_pool_claim`, the host and pool branches of `_match_prefix`,
 the onboard and pool-inject queues), and so are the multimodal spans (:74-85
 `mm_spans` / `mm_pixels`, :131-132 the plan's `mm_embeds` / `mm_mask`,
 :438-463 the content salts at admission, :1190-1198 each chunk's slice of
-a span). Tiered-KV streaming and sequence parallelism are left out (the
-JAX refusal of a multimodal streamed sequence, :482, comes with
-streaming). Planning is otherwise the JAX package's, decision for decision,
-so both engines plan the same steps for the same requests:
+a span), and so are the tiered-KV streaming hooks (:187-193 `StreamPlan`,
+:365-370 `stream_active`, :467-502 `_stream_admissible`, :808-812 and
+:837 finish and abort, :915 and :954-970 `_maybe_stream_plan`). Sequence
+parallelism is left out. Planning is otherwise the JAX package's, decision
+for decision, so both engines plan the same steps for the same requests:
 
 - every device step has a bucketed shape: prefill chunk lengths from
   `prefill_buckets`, page-table widths from `page_bucket_ladder`, decode
@@ -156,6 +157,17 @@ class DecodePlan:
 
 
 @dataclasses.dataclass
+class StreamPlan:
+    """One streamed step (engine/streaming.py) of a single sequence whose
+    context exceeds the resident page budget. Streamed sequences hold no
+    decode slot and ride no AttnMetadata (the StreamingDecoder owns their
+    residency), so the plan is the dispatch token the engine routes to
+    `_run_stream`."""
+
+    seq: SequenceState
+
+
+@dataclasses.dataclass
 class EngineMetrics:
     """Snapshot published to the router (the reference's
     ForwardPassMetrics fields) plus the engine's window and mixed-step
@@ -216,6 +228,15 @@ class EngineMetrics:
     kv_host_pages_total: int = 0
     kv_disk_pages_used: int = 0
     kv_disk_pages_total: int = 0
+    # streaming past the page budget (engine/streaming.py): streamed steps,
+    # prefetch outcomes, spilled / quarantined pages and stalled steps (0
+    # with stream_pages 0)
+    kv_stream_steps: int = 0
+    kv_stream_prefetch_hit: int = 0
+    kv_stream_prefetch_late: int = 0
+    kv_stream_pages_spilled: int = 0
+    kv_stream_pages_quarantined: int = 0
+    kv_stream_stall_steps: int = 0
 
 
 def window_ladder(decode_steps: int) -> List[int]:
@@ -282,6 +303,14 @@ class Scheduler:
         self._pool_quant_logged = False
         self.waiting: deque[SequenceState] = deque()
         self.running: List[Optional[SequenceState]] = [None] * cfg.max_slots
+        # streaming past the page budget: sequences too long for the
+        # resident budget run one step at a time through the window pool
+        # instead of decode slots; the engine turns it on and wires
+        # on_stream_finish to StreamingDecoder.release
+        self.stream_enabled = False
+        self.stream_active: List[SequenceState] = []
+        self.on_stream_finish = None
+        self._stream_turn = 0
         self.params: Dict[str, SamplingParams] = {}
         # disaggregation state: decode-side sequences awaiting a remote
         # prefill, and prefill-side sequences parked (prefill done, pages
@@ -352,12 +381,42 @@ class Scheduler:
                             qos=req.qos or "", qos_prio=qos_cls.priority)
         self.params[req.request_id] = req.params
         self._admitted += 1
+        if self._stream_admissible(seq, req):
+            # streamed sequences never touch the prefix cache: their pages
+            # live under the StreamingDecoder's residency plan, not
+            # seq.pages, so a prefix share would dangle
+            seq.streamed = True
+            return seq
         self._match_prefix(seq)
         return seq
 
+    def _stream_admissible(self, seq: SequenceState,
+                           req: EngineRequest) -> bool:
+        """Route to the streamed path when the request's whole page
+        footprint exceeds the resident budget. Multimodal and prefill-only
+        requests stay on the slot path; logprobs and repetition penalties
+        are refused (the streamed sampler tail does not thread them)."""
+        if not self.stream_enabled or seq.mm_spans or seq.prefill_only:
+            return False
+        pages = -(-(len(seq.prompt) + req.params.max_tokens)
+                  // self.cfg.page_size)
+        if pages <= self.cfg.stream_resident_pages:
+            return False
+        if req.params.logprobs is not None \
+                or req.params.repetition_penalty != 1.0:
+            raise ValueError(
+                f"request {req.request_id}: logprobs/repetition_penalty "
+                "are not supported on the streamed long-context path "
+                f"({pages} pages > stream_resident_pages="
+                f"{self.cfg.stream_resident_pages})")
+        return True
+
     def add_request(self, req: EngineRequest) -> SequenceState:
         seq = self._admit(req)
-        self._queue_insert(seq)
+        if seq.streamed:
+            self.stream_active.append(seq)
+        else:
+            self._queue_insert(seq)
         return seq
 
     def _queue_insert(self, seq: SequenceState) -> None:
@@ -598,6 +657,13 @@ class Scheduler:
         return out
 
     def finish(self, seq: SequenceState) -> None:
+        if seq.streamed:
+            if seq in self.stream_active:
+                self.stream_active.remove(seq)
+            if self.on_stream_finish is not None:
+                self.on_stream_finish(seq)   # frees the streamed residency
+            self.params.pop(seq.request_id, None)
+            return
         if seq.preempted_by:
             # a victim that terminates without resuming still settles the
             # preemptor class's qos debt
@@ -618,6 +684,10 @@ class Scheduler:
                 return True
         for seq in self.running:
             if seq is not None and seq.request_id == request_id:
+                self.finish(seq)
+                return True
+        for seq in list(self.stream_active):
+            if seq.request_id == request_id:
                 self.finish(seq)
                 return True
         if request_id in self.remote:
@@ -661,7 +731,11 @@ class Scheduler:
             seq.page_hashes.append(h)
 
     def schedule(self):
-        """Return a MixedPlan, PrefillPlan, DecodePlan, or None (idle)."""
+        """Return a StreamPlan, MixedPlan, PrefillPlan, DecodePlan, or None
+        (idle)."""
+        plan = self._maybe_stream_plan()
+        if plan is not None:
+            return plan
         if self.mixed_token_budget > 0:
             decode_active = any(s is not None for s in self.running)
             if self.waiting and decode_active:
@@ -694,6 +768,22 @@ class Scheduler:
             return plan
         self._prefill_streak = 0
         return self._schedule_decode()
+
+    def _maybe_stream_plan(self) -> Optional[StreamPlan]:
+        """Interleave streamed steps with the slot path: when both kinds
+        of work exist, streamed sequences take every other schedule() call;
+        round-robin across streamed sequences."""
+        if not self.stream_active:
+            return None
+        slot_work = bool(self.waiting) \
+            or any(s is not None for s in self.running)
+        self._stream_turn ^= 1
+        if slot_work and not self._stream_turn:
+            return None
+        seq = self.stream_active[0]
+        if len(self.stream_active) > 1:
+            self.stream_active.append(self.stream_active.pop(0))
+        return StreamPlan(seq=seq)
 
     def _prefill_admissible(self, seq: SequenceState, slots_left: int,
                             chunk_cap: Optional[int] = None):

@@ -58,9 +58,13 @@ GET /health and /live answer 200 with the served models; the JAX service's
 health-gauge dict is assigned over its `_health` handler, so it answers
 500 there (ROADMAP §C), and the port keeps the gauges under another name.
 
+The cross-host pool's `llm_kv_pool_remote_*` / `llm_pool_ring_*`
+(engine/pool_service.py REMOTE_STATS / RING_STATS, JAX :186-199) and the
+streamed decode's `llm_kv_stream_*` (engine/streaming.py STREAM_STATS, JAX
+:252-260) are folded at render the same way.
+
 Left out, each with the later slice that brings its module: the
-per-stream transfer, cross-host pool (`llm_kv_pool_remote_*`,
-`llm_pool_ring_*`), streaming-decode, ledger and autoscaler gauges.
+per-stream transfer, ledger and autoscaler gauges.
 Reference equivalent: the axum HttpService (reference:
 lib/llm/src/http/service/service_v2.rs:23-130, openai.rs:132-540).
 """
@@ -76,6 +80,10 @@ from dynamo_tpu_torch.frontend.http import (
     HttpError, HttpServer, Request, Response, StreamingResponse,
 )
 from dynamo_tpu_torch.engine.kv_pool import POOL_STATS, KvPoolStats
+from dynamo_tpu_torch.engine.pool_service import (
+    REMOTE_STATS, RING_STATS, PoolRingStats, RemotePoolStats,
+)
+from dynamo_tpu_torch.engine.streaming import STREAM_STATS, StreamStats
 from dynamo_tpu_torch.frontend.reliability import (
     AdmissionShed, ReliabilityMetrics,
 )
@@ -207,6 +215,20 @@ class HttpService:
             name: m.gauge(f"llm_kv_pool_{name}",
                           f"shared kv pool: {name.replace('_', ' ')}")
             for name in KvPoolStats.FIELDS}
+        # the cross-host pool service (engine/pool_service.py) and the
+        # streamed decode (engine/streaming.py), folded at render
+        self._kv_pool_remote = {
+            name: m.gauge(f"llm_kv_pool_remote_{name}",
+                          f"cross-host kv pool: {name.replace('_', ' ')}")
+            for name in RemotePoolStats.FIELDS}
+        self._pool_ring = {
+            name: m.gauge(f"llm_pool_ring_{name}",
+                          f"pool placement ring: {name.replace('_', ' ')}")
+            for name in PoolRingStats.FIELDS}
+        self._kv_stream = {
+            name: m.gauge(f"llm_kv_stream_{name}",
+                          f"tiered-kv streaming: {name.replace('_', ' ')}")
+            for name in StreamStats.FIELDS}
         # failpoint hits and injections, drains, and the fail-slow plane's
         # detection and hedging counters, folded at render
         self._fault_hits = m.gauge(
@@ -265,6 +287,9 @@ class HttpService:
         for gauges, stats in ((self._integrity, INTEGRITY),
                               (self._kv_xfer, XFER_STATS),
                               (self._kv_pool, POOL_STATS),
+                              (self._kv_pool_remote, REMOTE_STATS),
+                              (self._pool_ring, RING_STATS),
+                              (self._kv_stream, STREAM_STATS),
                               (self._drain, DRAIN_STATS),
                               (self._health_gauges, HEALTH_STATS)):
             for name, value in stats.snapshot().items():

@@ -13,8 +13,12 @@ events carry chained block hashes. Two hash kinds:
   (engine/kv_cache.page_hash), unique per prefix; it keys the per-worker
   lookup that applies Removed events.
 
-The pool-source ids (`pool:{worker_id}`, protocols.py:33-52) are left out
-with the KV tiers they index.
+A shared pool's Stored / Removed events ride the same plane under the
+source id `pool:{worker_id}` (protocols.py:33-52): the radix tree indexes
+pool-resident prefixes next to worker-resident ones, the router splits
+the two at schedule time (a pool score is a fetchable prefix, not a
+resident one), and the id embeds the publishing worker, so the watch
+eviction that purges a dead worker purges its pool entries too.
 """
 from __future__ import annotations
 
@@ -26,7 +30,25 @@ from dynamo_tpu_torch.engine.kv_cache import tokens_hash
 __all__ = [
     "tokens_hash", "compute_page_hashes", "KvCacheStoredBlockData",
     "KvCacheStoreData", "KvCacheRemoveData", "KvCacheEvent", "RouterEvent",
+    "POOL_SOURCE_PREFIX", "pool_source_id", "is_pool_source",
+    "pool_source_worker",
 ]
+
+POOL_SOURCE_PREFIX = "pool:"
+
+
+def pool_source_id(worker_id: str) -> str:
+    return f"{POOL_SOURCE_PREFIX}{worker_id}"
+
+
+def is_pool_source(worker_id: str) -> bool:
+    return worker_id.startswith(POOL_SOURCE_PREFIX)
+
+
+def pool_source_worker(worker_id: str) -> str:
+    """The source worker behind a pool: id (a plain id is its own)."""
+    return worker_id[len(POOL_SOURCE_PREFIX):] \
+        if is_pool_source(worker_id) else worker_id
 
 
 def compute_page_hashes(tokens: Sequence[int], page_size: int) -> List[int]:

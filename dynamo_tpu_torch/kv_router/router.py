@@ -12,11 +12,16 @@ scoring and, through the client's draining ids, out of the candidates.
 The selector defaults to `DefaultWorkerSelector` (prefix overlap and load).
 The JAX default, `TransferAwareSelector`, ranks the same while no KV
 transfer link has been measured, which is always so in an aggregated
-deployment; it comes with the disaggregated data plane. Left out with the
-KV tiers: the pool-source scores and the pool-membership and pool-host
-branches (router.py:111-160, runtime/placement.py); with the fail-slow
-plane: the health-score eviction; with QoS: the class weight; and the
-per-decision `kv-hit-rate` events, which no JAX caller turns on.
+deployment; it comes with the disaggregated data plane. The shared pool's
+sources (router.py:111-160, :261-297): `pool:{worker}` scores leave the
+resident score map at schedule time and fold into one fetchable depth
+(`_split_pool_scores`, the decision's `pool_blocks`), never a live
+worker's resident overlap; a dead worker's pool entries go with its watch
+delete; a `pool-host:` instance event feeds `pool_membership`
+(runtime/placement.py), and with no live pool host the depth is 0. Left
+out: the pricing of that depth (TransferAwareSelector, A14); with the
+fail-slow plane: the health-score eviction; with QoS: the class weight;
+and the per-decision `kv-hit-rate` events, which no JAX caller turns on.
 
 `decisions` keeps the last DECISION_LOG decisions (request id, the winner,
 its matched and required pages, every worker's score, and every
@@ -34,7 +39,8 @@ from typing import Optional, Sequence
 
 from dynamo_tpu_torch.kv_router.indexer import KvIndexer, MatchResult
 from dynamo_tpu_torch.kv_router.protocols import (
-    RouterEvent, compute_page_hashes,
+    RouterEvent, compute_page_hashes, is_pool_source, pool_source_id,
+    pool_source_worker,
 )
 from dynamo_tpu_torch.kv_router.publisher import (
     KV_EVENTS_SUBJECT, KvMetricsAggregator,
@@ -46,6 +52,7 @@ from dynamo_tpu_torch.runtime.component import (
     STATUS_DRAINING, instance_status,
 )
 from dynamo_tpu_torch.runtime.cpstats import CP_STATS
+from dynamo_tpu_torch.runtime.placement import is_pool_host_instance
 
 log = logging.getLogger("dynamo_tpu_torch.kv_router")
 
@@ -68,13 +75,14 @@ class KvRouter:
 
     def __init__(self, component, worker_client, block_size: int,
                  selector: Optional[WorkerSelector] = None,
-                 scrape_interval_s: float = 0.5):
+                 scrape_interval_s: float = 0.5, pool_membership=None):
         self.component = component
         self.client = worker_client
         self.block_size = block_size
         self.indexer = KvIndexer(block_size)
         self.scheduler = KvScheduler(block_size, selector)
         self.aggregator = KvMetricsAggregator(worker_client, scrape_interval_s)
+        self.pool_membership = pool_membership
         self.degraded = False
         self.degraded_entries = 0
         self._degraded_since = 0.0
@@ -103,13 +111,22 @@ class KvRouter:
             self.indexer.remove_worker(worker_id)
         for worker_id in endpoints.workers:
             self.indexer.revive_worker(worker_id)
+            # a restarted worker's pool publishes must not stay tombstoned
+            # behind its old generation's eviction
+            self.indexer.revive_worker(pool_source_id(worker_id))
 
     def _on_instance(self, kind, worker_id, info) -> None:
         """Watch-event-time eviction: the moment discovery drops an
-        instance its cached-prefix scores and endpoint entry go, not at
-        the next metrics scrape."""
+        instance its cached-prefix scores, its pool-source entries and its
+        endpoint entry go, not at the next metrics scrape. A pool host's
+        instance event feeds the pool membership instead."""
+        if is_pool_host_instance(worker_id):
+            if self.pool_membership is not None:
+                self.pool_membership.on_instance(kind, worker_id, info)
+            return
         if kind == "delete":
             self.indexer.remove_worker(worker_id)
+            self.indexer.remove_worker(pool_source_id(worker_id))
             self.scheduler.remove_worker(worker_id)
         elif kind == "put" and instance_status(info) == STATUS_DRAINING:
             # drain fence: keep the worker out of prefix scoring so cached
@@ -196,6 +213,28 @@ class KvRouter:
         return self.indexer.find_matches(
             compute_page_hashes(tokens, self.block_size))
 
+    def _split_pool_scores(self, overlap: MatchResult) -> int:
+        """Strip the `pool:{worker}` entries out of the match scores and
+        fold them into ONE fetchable-prefix depth, the deepest live-sourced
+        pool match: a candidate must fetch those pages, so they never rank
+        a worker as if it held them. A source missing from the live
+        instance set is never counted (a Stored event racing the watch
+        eviction can re-add a dead worker's edge), and with a pool
+        membership wired and no live pool host the depth is 0."""
+        pool_matched = 0
+        dead_pool = (self.pool_membership is not None
+                     and not self.pool_membership.live_hosts())
+        instances = getattr(self.client, "instances", None)
+        for wid in [w for w in overlap.scores if is_pool_source(w)]:
+            score = overlap.scores.pop(wid)
+            if dead_pool:
+                continue   # no live pool host can serve any fetch
+            src = pool_source_worker(wid)
+            if instances is not None and src not in instances:
+                continue   # a dead source: never count a fetch from it
+            pool_matched = max(pool_matched, score)
+        return pool_matched
+
     async def schedule(self, tokens: Sequence[int], exclude=(),
                        request_id: str = "") -> str:
         """Pick the best worker for this token sequence; returns its id.
@@ -206,6 +245,7 @@ class KvRouter:
         if drains:
             exclude = set(exclude) | set(drains)
         overlap = self.find_matches_for_tokens(tokens)
+        pool_matched = self._split_pool_scores(overlap)
         sel = self.scheduler.schedule(len(tokens), overlap, exclude=exclude)
         SERVING.schedule.observe(value=time.monotonic() - t0)
         sources = self.aggregator.snapshot_source
@@ -213,6 +253,7 @@ class KvRouter:
             "request_id": request_id, "worker_id": sel.worker_id,
             "overlap_blocks": sel.overlap_blocks,
             "required_blocks": sel.required_blocks,
+            "pool_blocks": pool_matched,
             "scores": dict(overlap.scores),
             "candidates": [
                 {**c, "snapshot": sources.get(c["worker_id"], "unknown")}

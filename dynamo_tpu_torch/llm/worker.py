@@ -18,8 +18,12 @@ whether or not a publisher is wired, so a worker serving a local pipeline
 does not accumulate them. A request's multimodal parts (JAX :44-64)
 become the engine request's raw pixels, which the engine encodes at
 admission, or, for the embeds a disaggregated decode worker ships, its
-spans with their salts. Tracing, the profiler hook and the shared KV
-pool's publisher are left out.
+spans with their salts. With a shared KV pool attached to the engine
+(JAX :128-132, :264-280) the drain runs after every step even without a
+router (it also tees sealed pages into the pool), and the pool's Stored /
+Removed events for this worker's pages go out under the source id
+`pool:{worker_id}` (`pool_publisher`, wired with the event publisher).
+Tracing and the profiler hook are left out.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from dynamo_tpu_torch.engine.scheduler import EngineRequest, SamplingParams
+from dynamo_tpu_torch.kv_router.protocols import pool_source_id
 from dynamo_tpu_torch.kv_router.publisher import (
     KvEventPublisher, KvMetricsPublisher,
 )
@@ -126,6 +131,9 @@ class NativeEngineWorker(AsyncEngine):
         self.metrics_publisher = KvMetricsPublisher()
         # wired by serve_llm_worker once the worker has a runtime identity
         self.event_publisher: Optional[KvEventPublisher] = None
+        # the shared pool's events for this worker's pages, under the
+        # `pool:{worker_id}` source (wired with event_publisher)
+        self.pool_publisher: Optional[KvEventPublisher] = None
         self._queues: Dict[str, asyncio.Queue] = {}
         self._wake = asyncio.Event()
         self._loop_task: Optional[asyncio.Task] = None
@@ -229,6 +237,11 @@ class NativeEngineWorker(AsyncEngine):
             events = self.engine.drain_kv_events()
             if self.event_publisher is not None and events:
                 await self.event_publisher.publish_allocator_events(events)
+            pool = getattr(self.engine, "kv_pool", None)
+            if pool is not None and self.pool_publisher is not None:
+                pev = pool.drain_events(self.engine.kv_pool_source)
+                if pev:
+                    await self.pool_publisher.publish_allocator_events(pev)
 
     # -- AsyncEngine ----------------------------------------------------------
 
@@ -339,6 +352,8 @@ async def serve_llm_worker(runtime, namespace: str, component: str,
     ep = comp.endpoint(endpoint)
     if getattr(engine, "event_publisher", "absent") is None:
         engine.event_publisher = KvEventPublisher(comp, runtime.worker_id)
+        engine.pool_publisher = KvEventPublisher(
+            comp, pool_source_id(runtime.worker_id))
     stats = getattr(engine, "stats_handler", None)
     # the serving role on the instance key (llm/worker.py:383-393): the
     # disagg workers describe themselves, aggregated ones carry none

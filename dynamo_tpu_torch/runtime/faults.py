@@ -10,8 +10,12 @@ The port's transports carry the control-plane and transport sites
 memory.py, tcp.py). The data-plane sites of the KV tiers, the transfer
 plane and the shared pool (`offload.*`, `transfer.link`,
 `remote_transfer.fetch_page`, `pool.*`, `queue.dequeue`) stay in the site
-catalog, so a recorded JAX plan arms here unchanged, but nothing in the
-port fires them yet (ROADMAP A7 and A9).
+catalog, so a recorded JAX plan arms here unchanged. The KV tiers fire
+theirs: `offload.write_tier` / `offload.read_tier` (engine/offload.py),
+`pool.fetch` (engine/kv_pool.py), `pool.remote_fetch` and `pool.rebalance`
+(engine/pool_service.py); the transfer plane's and the queue's wait for
+ROADMAP A9. `corrupt_array` takes numpy arrays and CPU torch tensors (the
+port's tier slabs) alike.
 
 Fault kinds: `drop` (the op raises FaultInjected, a ConnectionError, so
 the recovery layers treat it as any transport death), `delay` (seeded
@@ -313,8 +317,12 @@ class FaultRegistry:
         out = self._decide(site)
         if out is None or not out.corrupt:
             return False
-        import numpy as np
-        flat = arr.reshape(-1).view(np.uint8)
+        if hasattr(arr, "untyped_storage"):      # a CPU torch tensor
+            import torch
+            flat = arr.reshape(-1).view(torch.uint8)
+        else:
+            import numpy as np
+            flat = arr.reshape(-1).view(np.uint8)
         sched = self._schedules[site]
         for pos in sched.corrupt_positions(flat.shape[0], out.nbytes):
             flat[pos] ^= 0xFF

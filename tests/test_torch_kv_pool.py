@@ -18,9 +18,14 @@ the admission prefetcher, source eviction, per-source removed events, and
 the HTTP service with a prefetcher rendering `llm_kv_pool_*` under the JAX
 names and values.
 
-The selector and router cases (:338-439) wait for the router's pool
-sources; the seeded mid-fetch death (:131-156) waits for the port's
-`runtime/faults.py`.
+Also the seeded mid-fetch death (:131-156, the `pool.fetch` failpoint on
+both packages), the router's pool sources without a selector (:393-460:
+`_split_pool_scores` fencing dead sources and dead pool hosts, the watch
+delete evicting a dead worker's pool entries at event time), the worker's
+pool publisher, and the gather decode window (`decode_kernel="off"`)
+reading a page onboarded from the host tier and a page fetched from the
+pool, token-identical to the JAX gather window with the same tiers. The
+selector cases (:338-392) price pool fetches and wait for A14's selector.
 """
 import asyncio
 import re
@@ -37,6 +42,7 @@ from dynamo_tpu.engine.config import (
 from dynamo_tpu.engine.engine import NativeEngine as JNativeEngine
 from dynamo_tpu.engine.kv_cache import page_hash as jpage_hash
 from dynamo_tpu.engine.scheduler import SamplingParams as JSamplingParams
+from dynamo_tpu.runtime import faults as jfaults
 from dynamo_tpu.runtime.integrity import STATS as JINTEGRITY
 from dynamo_tpu_torch.engine import kv_pool as tkv_pool
 from dynamo_tpu_torch.engine.config import (
@@ -48,6 +54,7 @@ from dynamo_tpu_torch.engine.scheduler import (
     SamplingParams as TSamplingParams,
 )
 from dynamo_tpu_torch.models.llama import params_from_jax
+from dynamo_tpu_torch.runtime import faults as tfaults
 from dynamo_tpu_torch.runtime.integrity import STATS as TINTEGRITY
 
 from tests.http_client import request
@@ -74,6 +81,7 @@ class Side:
         self.params = params
         jax_side = name == "jax"
         self.mod = jkv_pool if jax_side else tkv_pool
+        self.faults = jfaults if jax_side else tfaults
         self.stats = self.mod.POOL_STATS
         self.integrity = JINTEGRITY if jax_side else TINTEGRITY
         self.page_hash = jpage_hash if jax_side else tpage_hash
@@ -111,6 +119,8 @@ class Side:
     def reset(self):
         self.stats.reset()
         self.integrity.__init__()
+        self.faults.REGISTRY.disarm()
+        self.faults.REGISTRY.reset_counters()
 
 
 @pytest.fixture(scope="module")
@@ -257,6 +267,33 @@ def test_pool_entry_rot_quarantined_and_recomputed_not_served(sides):
         assert b.scheduler.pool_fetched_pages == 0
         b.close()
         return got
+
+    jg, tg = both(sides, run)
+    assert tg == jg
+
+
+def test_seeded_mid_fetch_death_salvages_to_recompute(sides):
+    """Page 2 of the fetch chain dies (a corruption at the pool.fetch
+    failpoint): the walk keeps the committed page and recomputes the tail,
+    zero dropped streams, greedy and seeded-sampled alike."""
+    def run(s):
+        oracle = s.engine()
+        out = []
+        for i, params in enumerate((GREEDY, SAMPLED)):
+            expect = s.gen(oracle, PROMPT, f"o{i}", params)
+            s.stats.reset()
+            pool = s.seeded_pool()
+            s.faults.REGISTRY.arm("pool.fetch", s.faults.FaultSchedule(
+                0, [s.faults.FaultSpec("corrupt", p=1.0, n=1, skip=1)]))
+            b = s.engine(pool, f"B{i}")
+            got = s.gen(b, PROMPT, f"b{i}", params)
+            assert got == expect
+            assert b.scheduler.pool_fetched_pages == 1
+            assert s.stats.quarantined == 1
+            s.faults.REGISTRY.disarm()
+            b.close()
+            out.append(got)
+        return out
 
     jg, tg = both(sides, run)
     assert tg == jg
@@ -503,3 +540,245 @@ def test_service_prefetcher_renders_pool_gauges(sides):
     assert tg == jg
     assert tg["llm_kv_pool_prefetch_pages"] == 4
     assert tg["llm_kv_pool_prefetch_late"] == 1
+
+
+# -- routing: pool sources ------------------------------------------------------
+
+class FakeClient:
+    def __init__(self, instances):
+        self.instances = instances
+
+
+def _routers():
+    from dynamo_tpu.kv_router.indexer import MatchResult as JMatch
+    from dynamo_tpu.kv_router.router import KvRouter as JRouter
+    from dynamo_tpu.runtime import placement as jplacement
+    from dynamo_tpu_torch.kv_router.indexer import MatchResult as TMatch
+    from dynamo_tpu_torch.kv_router.router import KvRouter as TRouter
+    from dynamo_tpu_torch.runtime import placement as tplacement
+    return ((JRouter, JMatch, jplacement), (TRouter, TMatch, tplacement))
+
+
+def test_router_split_pool_scores_fences_corpse_sources():
+    """pool:{w} scores leave the resident score map and fold into ONE
+    fetchable depth; a source missing from the live instances is never
+    counted. The port's answers are the JAX router's."""
+    out = []
+    for router_cls, match, _ in _routers():
+        router = router_cls(object(), FakeClient({"w1": {}, "w2": {}}),
+                            block_size=4)
+        overlap = match(scores={"w1": 1, "pool:w1": 3, "pool:dead": 5})
+        out.append((router._split_pool_scores(overlap), overlap.scores))
+    assert out[1] == out[0] == (3, {"w1": 1})
+
+
+def test_router_split_pool_scores_fences_dead_pool_hosts():
+    """Pool-host liveness: while one member lives the depth still counts;
+    the last pool host's watch delete zeroes it at event time."""
+    out = []
+    for router_cls, match, pl in _routers():
+        m = pl.PoolMembership()
+        router = router_cls(object(), FakeClient({"w1": {}}), block_size=4,
+                            pool_membership=m)
+        m.on_instance("put", pl.pool_host_instance_id("ph0"), {})
+        m.on_instance("put", pl.pool_host_instance_id("ph1"), {})
+        res = [set(m.live_hosts())]
+        for gone in ("ph0", "ph1"):
+            overlap = match(scores={"w1": 1, "pool:w1": 3})
+            res.append(router._split_pool_scores(overlap))
+            m.on_instance("delete", pl.pool_host_instance_id(gone), {})
+        overlap = match(scores={"w1": 1, "pool:w1": 3})
+        res += [router._split_pool_scores(overlap), overlap.scores]
+        out.append(res)
+    assert out[1] == out[0] == [{"ph0", "ph1"}, 3, 3, 0, {"w1": 1}]
+
+
+def test_watch_delete_evicts_pool_source_entries_at_event_time():
+    """A dead worker's POOL-source index entries go at watch-delete time:
+    before the delete the published prefix scores as `pool:w2` (and as the
+    decision's fetchable `pool_blocks`, never as resident overlap), after
+    it nothing scores, with no metrics scrape between."""
+    from dynamo_tpu_torch.engine.kv_cache import (
+        page_hash, tokens_hash,
+    )
+    from dynamo_tpu_torch.kv_router.protocols import pool_source_id
+    from dynamo_tpu_torch.kv_router.publisher import (
+        KvEventPublisher, KvMetricsPublisher,
+    )
+    from dynamo_tpu_torch.kv_router.router import KvRouter
+    from dynamo_tpu_torch.kv_router.scoring import WorkerMetrics
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.transports.memory import MemoryPlane
+
+    async def main():
+        plane = MemoryPlane()
+        worker_rts, comps = [], {}
+        for wid in ("w1", "w2"):
+            rt = await DistributedRuntime.create_local(plane, wid)
+            comp = rt.namespace("ns").component("worker")
+            mpub = KvMetricsPublisher()
+            mpub.update(WorkerMetrics(
+                request_active_slots=0, request_total_slots=8,
+                kv_active_blocks=0, kv_total_blocks=100))
+
+            async def engine(request, context, wid=wid):
+                yield {"worker": wid}
+
+            await comp.endpoint("generate").serve(
+                engine, stats_handler=mpub.stats_handler)
+            comps[wid] = comp
+            worker_rts.append(rt)
+        rrt = await DistributedRuntime.create_local(plane, "router")
+        comp = rrt.namespace("ns").component("worker")
+        client = comp.endpoint("generate").client()
+        await client.start()
+        await client.wait_for_instances()
+        router = await KvRouter(comp, client, block_size=4,
+                                scrape_interval_s=60.0).start()
+        await router.aggregator.scrape_once()
+        # w2 publishes two prefix pages into the pool namespace
+        toks = list(range(100, 116))
+        pool = tkv_pool.SharedKvPool(capacity_pages=8)
+        page = (torch.zeros((1, 1, 2, 2)),) * 2
+        parent = 0
+        for i in range(2):
+            ptoks = toks[i * 4:(i + 1) * 4]
+            h = page_hash(parent, ptoks)
+            pool.publish("w2", h, parent, tokens_hash(ptoks), page)
+            parent = h
+        await KvEventPublisher(comps["w2"], pool_source_id("w2")) \
+            .publish_allocator_events(pool.drain_events("w2"))
+        for _ in range(100):
+            if router.find_matches_for_tokens(toks).scores:
+                break
+            await asyncio.sleep(0.01)
+        try:
+            assert router.find_matches_for_tokens(toks).scores == {
+                "pool:w2": 2}
+            await router.schedule(toks)
+            assert router.decisions[-1]["pool_blocks"] == 2
+            assert router.decisions[-1]["scores"] == {}
+            await worker_rts[1].shutdown()     # w2 dies
+            for _ in range(100):
+                if "w2" not in client.instances:
+                    break
+                await asyncio.sleep(0.01)
+            assert router.find_matches_for_tokens(toks).scores == {}
+            await router.schedule(toks)
+            assert router.decisions[-1]["pool_blocks"] == 0
+        finally:
+            await router.stop()
+            await rrt.shutdown()
+            await worker_rts[0].shutdown()
+
+    asyncio.run(asyncio.wait_for(main(), 60))
+
+
+def test_worker_pool_publisher_sends_pool_events():
+    """The worker's step loop drains the attached pool's events for its
+    engine's pages into its pool publisher (the `pool:{worker_id}` source
+    serve_llm_worker wires)."""
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest
+    from dynamo_tpu_torch.llm.worker import NativeEngineWorker
+
+    class Recorder:
+        def __init__(self):
+            self.events = []
+
+        async def publish_allocator_events(self, events):
+            self.events.extend(events)
+            return len(events)
+
+    async def main():
+        pool = tkv_pool.SharedKvPool(capacity_pages=64)
+        eng = TNativeEngine(TCFG, TEngineConfig(
+            page_size=PAGE, num_pages=32, max_slots=2, max_prefill_chunk=32,
+            prefill_buckets=(8, 16, 32), max_model_len=256), device="cpu")
+        eng.attach_kv_pool(pool, "A")
+        worker = await NativeEngineWorker(eng).start()
+        worker.pool_publisher = rec = Recorder()
+        try:
+            q = asyncio.Queue()
+            worker._queues["r"] = q
+            worker._pending_adds.append(EngineRequest(
+                "r", PROMPT, TSamplingParams(**GREEDY)))
+            worker._wake.set()
+            while True:
+                frame = await q.get()
+                if frame.finish_reason is not None:
+                    break
+            eng._pool_stream.drain()
+            for _ in range(200):          # the loop drains after a step
+                if len(rec.events) >= 4:
+                    break
+                worker._wake.set()
+                await asyncio.sleep(0.01)
+        finally:
+            await worker.stop()
+        return rec.events
+
+    events = asyncio.run(asyncio.wait_for(main(), 60))
+    assert [e[0] for e in events] == ["stored"] * 4
+
+
+def test_gather_window_reads_onboarded_and_pool_pages(sides):
+    """The gather decode window (`decode_kernel="off"`, the port's
+    `_gather_base`) over pages fetched from the shared pool, and over pages
+    onboarded from the host tier: streams token-identical to the JAX
+    engine's gather window with the same tiers. Two engines: with a host
+    tier the prefix walk claims no pool page, in JAX as in the port (the
+    host rung's `pin` ends the walk at a pool-only page; ROADMAP §C)."""
+    import dynamo_tpu_torch.engine.engine as tengine_mod
+    other = [(500 + i) % 250 + 1 for i in range(48)]   # 6 pages
+
+    def engine(s, **kw):
+        kw = dict(page_size=PAGE, num_pages=8, max_slots=2,
+                  max_prefill_chunk=32, prefill_buckets=(8, 16, 32),
+                  max_model_len=256, **kw)
+        if s.name == "jax":
+            return JNativeEngine(JCFG, JEngineConfig(**kw), params=s.params,
+                                 seed=0)
+        eng = TNativeEngine(
+            TModelConfig(dtype="float32", max_model_len=256,
+                         decode_kernel="off"),
+            TEngineConfig(**kw), params=s.params, device="cpu")
+        assert eng.decode_path == "gather"
+        return eng
+
+    def run(s):
+        pool = s.seeded_pool()
+        b = engine(s)
+        b.attach_kv_pool(pool, "B")
+        got = [s.gen(b, PROMPT, "p1", GREEDY)]        # pool fetches
+        fetched = b.scheduler.pool_fetched_pages
+        b.close()
+        h = engine(s, host_pages=16)
+        cs = h._copy_stream
+        submit = cs.submit
+
+        def sync_submit(*args):
+            submit(*args)
+            cs.drain()
+        cs.submit = sync_submit
+        got.append(s.gen(h, PROMPT, "p1", GREEDY))
+        got.append(s.gen(h, other, "x", GREEDY))      # evicts to the host
+        got.append(s.gen(h, PROMPT, "p2", GREEDY))    # host onboards
+        onboarded = h.host_pool.stats.onboarded
+        h.close()
+        return got, fetched, onboarded
+
+    calls = []
+    real = tengine_mod._gather_base
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    tengine_mod._gather_base = counted
+    try:
+        (jg, jf, jo), (tg, tf, to) = both(sides, run)
+    finally:
+        tengine_mod._gather_base = real
+    assert tg == jg
+    assert (tf, to) == (jf, jo)
+    assert tf == 3 and to > 0
+    assert calls, "the gather window never ran"

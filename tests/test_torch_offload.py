@@ -19,8 +19,9 @@ pipeline_depth 1 and 2 and to the JAX engine at depth 2 with an onboard
 admitted while a window is in flight; a slab entry corrupted in place is
 quarantined and recomputed, never served; a failed offload copy is counted
 and logged; disk_pages without host_pages is refused.
-The JAX cases that need `runtime/faults.py` wait for the port's faults
-module.
+The tier failpoints (`offload.write_tier`, `offload.read_tier` on the
+DRAM and disk tiers) quarantine as the JAX package's do, with its
+integrity counters.
 """
 import dataclasses
 import time
@@ -527,3 +528,63 @@ def test_tiered_engine_pipeline_depths_match_jax(jax_params, port_params):
         if depth == 2:
             assert t.pipeline_windows > 0
         t.close()
+
+
+@pytest.mark.parametrize("site,tier", [("offload.write_tier", "dram"),
+                                       ("offload.read_tier", "dram"),
+                                       ("offload.write_tier", "disk"),
+                                       ("offload.read_tier", "disk")])
+def test_tier_failpoints_quarantine_as_jax(site, tier, tmp_path):
+    """The tier failpoints (runtime/faults.py): a write-tier rot flips the
+    stored bytes, a read-tier rot the bytes a verify reads; either way the
+    entry is quarantined on read and never served, with the JAX package's
+    outcomes and integrity counters on the same pages."""
+    from dynamo_tpu.engine.offload import DiskKvPool as JDiskKvPool
+    from dynamo_tpu.runtime import faults as jfaults
+    from dynamo_tpu.runtime.integrity import STATS as JINTEGRITY
+    from dynamo_tpu_torch.engine.offload import DiskKvPool
+    from dynamo_tpu_torch.runtime import faults as tfaults
+
+    page = np.arange(16, dtype=np.float32).reshape(2, 8)
+    out = []
+    for name, faults, integrity in (("jax", jfaults, JINTEGRITY),
+                                    ("torch", tfaults, INTEGRITY)):
+        faults.REGISTRY.disarm()
+        integrity.__init__()
+        arm = (lambda: faults.REGISTRY.arm(site, faults.FaultSchedule(
+            0, [faults.FaultSpec("corrupt", p=1.0, n=1)])))
+        conv = ((lambda a: a) if name == "jax"
+                else (lambda a: torch.from_numpy(a.copy())))
+        try:
+            if tier == "dram":
+                pool = (JHostKvPool(4, (2, 8), np.float32) if name == "jax"
+                        else HostKvPool(4, (2, 8), torch.float32))
+                if site == "offload.write_tier":
+                    arm()
+                pool.put(0xAB, conv(page), conv(page + 1))
+                if site == "offload.read_tier":
+                    arm()
+                res = [pool.get(0xAB) is None, pool.get(0xAB) is None]
+            else:
+                d = f"{tmp_path}/{name}"
+                pool = (JDiskKvPool(4, (2, 8), np.float32, d)
+                        if name == "jax" else
+                        DiskKvPool(4, (2, 8), torch.float32, d))
+                if site == "offload.write_tier":
+                    arm()
+                pool.put(0x1, conv(page), conv(page + 1))
+                if site == "offload.read_tier":
+                    arm()
+                res = [pool.take(0x1) is None]
+                pool.put(0x2, conv(page * 2), conv(page * 3))
+                got = pool.take(0x2)
+                res.append(None if got is None
+                           else np.asarray(got[0]).tolist())
+            out.append((res, integrity.quarantined, integrity.mismatches,
+                        faults.REGISTRY.snapshot()))
+        finally:
+            faults.REGISTRY.disarm()
+            faults.REGISTRY.reset_counters()
+            integrity.__init__()
+    assert out[1] == out[0]
+    assert out[1][0][0] is True and out[1][1] == 1
