@@ -108,7 +108,15 @@ Phases (any failed check exits non-zero; nothing is caught):
    fused). One greedy request served twice must give the same tokens.
    Prints TTFT, decode tokens/s, peak memory, graphs captured, capture
    seconds, the graph pool's bytes and the engine's host-phase split, per
-   run.
+   run. Then the step ledger's A/B on the same engine (`phase_ledger_ab`,
+   `phase seconds: 4 ledger`): the 8 requests admitted together and
+   stepped on the calling thread, once to settle, once with the ledger off
+   (`engine.ledger.configure(enabled=False)`) and once with it on: equal
+   tokens and equal pipeline counters; the disabled ledger records
+   nothing; each decode sample charges rows x a window rung, the rungs add
+   up to the committed window steps, and each step's sample counts the
+   token events that step emitted (the rest of the streams' tokens came
+   out of the prefill and mixed steps). Prints ms a decode step both ways.
 4b. Graph vs eager, on the main path's engine: for the greedy variant (the
    8 requests all greedy) and the fused one (the main path's mix), the next
    decode window of all 8 runs once as the graph replay and once as the
@@ -186,10 +194,15 @@ Phases (any failed check exits non-zero; nothing is caught):
    alternating and one sequence a prefill step, so that no stream's
    arithmetic follows what arrived with it: 11k compares streams batched
    apart; each READY line names the card it runs on, which must be this
-   card); two frontends,
+   card; the workers run with DYN_PEAK_TFLOPS = 989, the H100 SXM dense
+   bf16 peak, for the step ledger's MFU); the standalone router service
+   `python -m dynamo_tpu_torch.kv_router.main` (READY router) and exporter
+   `python -m dynamo_tpu_torch.observability.exporter --port 0` (READY
+   metrics=:<port>) over the workers' endpoint; two frontends,
    `python -m dynamo_tpu_torch.frontend.serve --port 0 --control-port
    <port>`, one KV-routed and one with --no-kv-routing, each listing
-   llama3-8b with two instances. First a warm-up round through the
+   llama3-8b with two instances. The KV-routed frontend's router runs the
+   JAX serving default, TransferAwareSelector. First a warm-up round through the
    KV-routed frontend, the traffic below on 4 other system prompts, so
    that the window graphs are captured before the measured rounds. Traffic
    through the KV-routed frontend:
@@ -209,9 +222,14 @@ Phases (any failed check exits non-zero; nothing is caught):
    prefix (a wave-2 request shares 16 pages with its prefix's wave-1
    request; another worker holds them only after an earlier wave-2
    request of that prefix went there, and may then read 0 or 16), and
-   (b) the chosen worker is an arg-max of the reference selector's
-   2 x overlap - kv_usage - active, recomputed from the recorded terms
-   (any of the maxima where they tie); llm_router_fallbacks is 0; (c) the
+   (b) every candidate's whole logit under the JAX serving default,
+   2 x overlap - kv_usage - active - min(4, cost / 0.25) - (1 - health),
+   recomputed with cost = the pages it lacks x 8 MiB (a bf16 llama3-8b
+   page, from the config) over the 1e9 B/s cold prior, equals the
+   recorded one within the selector's rounding (2e-4), the recorded
+   overlap, transfer bytes and seconds equal the derived ones, and the
+   chosen worker has the highest recorded logit; llm_router_fallbacks is
+   0; (c) the
    workers' own counters, their $STATS scraped over the control plane
    before and after the traffic, sum to the prefix hits and lookups
    derived from where each request went (`routed_prefix_hits`;
@@ -234,6 +252,18 @@ Phases (any failed check exits non-zero; nothing is caught):
    one greedy request twice through the router (logprobs on): equal
    bodies apart from id / created. The frontends dispatch through the
    reliability layer (frontend/reliability.py), as every frontend does.
+   The ledger (`ledger_gate`): each worker's $STATS carry engine_steps >
+   0, engine_recompiles (new JAX program keys, not graph captures)
+   unchanged across the routed round, and engine_mfu
+   = engine_tok_s x F / peak (F = 2 x (32 x (attention + MLP) + d x
+   vocab) + 5 x vocab = 1.501e10 FLOP a token, from the config). With both
+   workers idle (`standalone_gates`, `phase seconds: 11 services`): the
+   router service answers `route` for each system prompt with a worker
+   that holds at least its 16 pages; the exporter's per-worker
+   llm_requests_total_slots, llm_kv_blocks_total and llm_kv_blocks_active
+   equal the workers' $STATS; a FleetRollup in this process records
+   worker/{w}/{field} series equal to the same $STATS and
+   fleet/workers_live 2.
 11k. A worker killed mid-wave: 8 greedy streamed chats on 8 fresh system
    prompts of the same shapes (no prefix shared inside the wave, so that
    every stream is admitted and prefilled at once), max_tokens 128,
@@ -377,7 +407,14 @@ Phases (any failed check exits non-zero; nothing is caught):
    streams equal P1's repeat, every matched page is fetched (R = 2 leaves
    one live replica of each), at least one fetch failed over, none
    exhausted its replicas, and every request finishes its 32 tokens (0
-   dropped streams). Tentpole 0 on T (`phase_failed_capture`): a
+   dropped streams). Then the pricing of those fetches (`pool_pricing`,
+   `phase seconds: 13 pool pricing`): the transfer cost model holds one
+   `pool:{host}` link for each host that served P4 a page, its samples
+   that host's pages, summing to the pages fetched; a
+   TransferAwareSelector scoring a request with the fetchable depth on two
+   workers with unmeasured links prices each worker's pages at the links'
+   median EWMA (the cold prior), with pool_fetch_bytes = fetchable pages x
+   the page bytes derived from the config. Tentpole 0 on T (`phase_failed_capture`): a
    window program that raises inside its capture, then one that breaks the
    capture with a host sync, each through `engine.graphs.run`: each raises,
    leaves no graph and no pool taking the stream's allocations; the real
@@ -651,7 +688,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    summed over the steps and ragged launches = (layers - 1) x (1 +
    segments) summed over the decode steps, the segments derived from the
    cold page count of each step (sealed pages less the resident ones: 8,
-   or 7 beside the unsealed tail page); no quarantine in a clean run.
+   or 7 beside the unsealed tail page); no quarantine in a clean run; the
+   engine ledger's "stream" samples number the stream steps and their
+   stream_hit + stream_late sum to the prefetch takes.
    Then a 1024-token chat (16 pages, 8 cold) clean, and again with one
    armed `offload.read_tier` rot after 4 tokens: exactly 1 quarantine and
    1 recompute, the stream equal to the clean run's. Then f32 at the same depth, one
@@ -2155,6 +2194,123 @@ async def serve_main_path(smi: str, kv_quant: str = "", params=None,
     return engine, first, warm
 
 
+# -- phase 4 ledger: the depth-2 window with the step ledger off and on ------
+
+def ledger_drive(engine, ers: list) -> tuple:
+    """The engine requests admitted together and stepped to the end on the
+    calling thread (no worker: the same plans every run): ({request id:
+    tokens}, [(new ledger samples, token events) a step], the COUNTERS
+    deltas, seconds)."""
+    import torch
+    before = {k: getattr(engine, k) for k in COUNTERS}
+    for er in ers:
+        engine.add_request(er)
+    toks = {er.request_id: [] for er in ers}
+    per_step, n0 = [], len(engine.ledger)
+    t0 = time.perf_counter()
+    while engine.has_work():
+        evs = engine.step()
+        n = len(engine.ledger)
+        per_step.append((n - n0, sum(e.token is not None for e in evs)))
+        n0 = n
+        for e in evs:
+            if e.token is not None:
+                toks[e.request_id].append(e.token)
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return toks, per_step, {k: getattr(engine, k) - v
+                            for k, v in before.items()}, secs
+
+
+def phase_ledger_ab(engine, smi: str, model: str = "llama3-8b") -> dict:
+    """Phase 4's ledger A/B on the phase-4 engine (pipeline_depth 2, warm):
+    the 8 main-path requests (the same request ids every run) driven
+    together once to settle, once with the ledger off
+    (`engine.ledger.configure(enabled=False)`) and once with it on. The
+    tokens and the pipeline counters of the two must be equal; with the
+    ledger off it records nothing; with it on, each decode sample charges
+    rows x n steps (n a rung of the window ladder) and the n add up to the
+    committed windows' steps, and each step's sample counts as useful the
+    token events that step emitted, derived from the streams. Prints ms a
+    decode step both ways (run seconds over window steps)."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.worker import to_engine_request
+    from dynamo_tpu_torch.run import build_card
+    name = "main path ledger A/B"
+    pre = OpenAIPreprocessor(build_card(model))
+
+    def requests():
+        return [to_engine_request(pre.preprocess_chat(r, f"ledger-{i}")[0])
+                for i, r in enumerate(chat_requests(model))]
+    led = engine.ledger
+    led.configure(enabled=True)
+    ledger_drive(engine, requests())              # settle the prefix cache
+    led.drain()
+    led.configure(enabled=False)
+    off = ledger_drive(engine, requests())
+    check(len(led) == 0 and all(n == 0 for n, _ in off[1]),
+          f"{name}: the disabled ledger recorded {len(led)} samples")
+    led.configure(enabled=True)
+    on = ledger_drive(engine, requests())
+    samples = led.drain()
+    check(on[0] == off[0], f"{name}: tokens differ with the ledger on: "
+          + "; ".join(f"{rid} at {first_difference(on[0][rid], t)}"
+                      for rid, t in off[0].items() if on[0][rid] != t))
+    check(on[2] == off[2], f"{name}: pipeline counters {on[2]} with the "
+          f"ledger on, {off[2]} off")
+    check(len(samples) == sum(n for n, _ in on[1])
+          and all(n in (0, 1) for n, _ in on[1]),
+          f"{name}: {len(samples)} samples drained; the steps added "
+          f"{[n for n, _ in on[1]]} (one commit a step at most)")
+    ladder = set(engine._window_sizes)
+    steps, it = 0, iter(samples)
+    for n, events in on[1]:
+        for _ in range(n):
+            r = next(it)
+            if r["kind"] != "decode":
+                continue
+            nw, rem = divmod(r["tokens_padded"], r["rows"])
+            check(rem == 0 and nw in ladder,
+                  f"{name}: a decode sample charges {r['tokens_padded']} "
+                  f"tokens over {r['rows']} rows, not rows x a rung of "
+                  f"{sorted(ladder)}")
+            steps += nw
+            # one commit a step: the sample's useful tokens are the token
+            # events that step emitted
+            check(n == 1 and r["tokens_useful"] == events,
+                  f"{name}: a decode sample counts {r['tokens_useful']} "
+                  f"useful tokens; its step emitted {events}")
+    d = on[2]
+    check(d["pipeline_fallbacks"] > 0 or steps == d["decode_window_steps"],
+          f"{name}: the decode samples' steps add up to {steps}; the "
+          f"engine ran {d['decode_window_steps']} window steps")
+    check(steps <= d["decode_window_steps"],
+          f"{name}: {steps} committed steps of "
+          f"{d['decode_window_steps']} dispatched")
+    emitted = sum(len(t) for t in on[0].values())
+    useful = sum(r["tokens_useful"] for r in samples if r["kind"] == "decode")
+    # the rest of the tokens came out of the prefill and mixed steps
+    other = sum(ev for (n, ev), r in zip(
+        [x for x in on[1] if x[0]], samples) if r["kind"] != "decode")
+    check(useful > 0 and useful + other == emitted,
+          f"{name}: decode samples count {useful} useful tokens, the other "
+          f"steps emitted {other}; the streams hold {emitted}")
+    ms = {k: v[3] / max(1, v[2]["decode_window_steps"]) * 1e3
+          for k, v in (("off", off), ("on", on))}
+    rec = {"tokens": emitted, "decode_useful": useful,
+           "samples": len(samples), "decode_steps": steps,
+           "counters": d, "ms_per_decode_step": ms,
+           "recompiles": sum(r["recompiles"] for r in samples)}
+    print(f"{name} [{smi}]: 8 requests at pipeline_depth 2, ledger off "
+          f"then on: identical tokens ({emitted}), identical pipeline "
+          f"counters {json.dumps(d)}; {len(samples)} samples, the decode "
+          f"ones charging {steps} window steps and {useful} useful tokens; "
+          f"ms a decode step (run seconds over window steps) off "
+          f"{ms['off']:.3f}, on {ms['on']:.3f}", flush=True)
+    return rec
+
+
 # -- phase 4b: one window as a graph replay and as the eager function ---------
 
 def cache_diff(a: dict, b: dict) -> float:
@@ -3130,11 +3286,30 @@ def _prompt_pages(toks: list, page: int) -> set:
     return {tuple(toks[:(i + 1) * page]) for i in range(len(toks) // page)}
 
 
+# the JAX serving default's constants (dynamo_tpu/kv_router/scheduler.py
+# TransferAwareSelector, observability/fleet.py TransferCostModel): a link
+# no transfer has measured prices at the 1e9 B/s prior; the cost is
+# normalized by a 0.25 s horizon and capped at 4; the standard QoS class
+# (a request without a class) weighs it 1.0
+COLD_PRIOR_BPS = 1e9
+HORIZON_S = 0.25
+MAX_PENALTY = 4.0
+STANDARD_WEIGHT = 1.0
+
+
+def kv_page_bytes(cfg, page: int) -> int:
+    """Bytes of one unquantized KV page (k and v over every layer), from
+    the model config: 8 MiB a bf16 page at llama3-8b."""
+    item = {"bfloat16": 2, "float32": 4}[cfg.dtype]
+    return 2 * cfg.num_layers * cfg.num_kv_heads * page * cfg.head_dim * item
+
+
 def routing_gate(name: str, tokens: dict, decisions: list,
-                 page: int) -> tuple:
-    """Phase 11's routing gate: what the reference's selector
-    (kv_router/scheduler.py DefaultWorkerSelector) promises, for each of
-    the routed round's 16 decisions in the order the router made them:
+                 page: int, page_bytes: int) -> tuple:
+    """Phase 11's routing gate: what the JAX serving default
+    (kv_router/scheduler.py TransferAwareSelector over the cold transfer
+    cost model) promises, for each of the routed round's 16 decisions in
+    the order the router made them:
     (a) each candidate's recorded matched_blocks equal the pages of the
         request's prompt that candidate holds, derived from the token ids:
         a wave-1 prefix is fresh (0 everywhere); a wave-2 request shares
@@ -3142,10 +3317,18 @@ def routing_gate(name: str, tokens: dict, decisions: list,
         that served that request holds; another worker holds them only
         once an earlier wave-2 request of the same prefix went there, and
         then the router may not have applied its events yet (0 or them);
-    (b) the chosen worker is an arg-max of 2 x overlap - kv_usage - active,
-        recomputed here from the recorded matched pages, the prompt's
-        length and the recorded load terms (any of the maxima where they
-        tie), and each recorded logit equals the recomputed one.
+    (b) the whole logit, recomputed here for every candidate:
+        2 x overlap - kv_usage - active - w x min(4, cost / 0.25)
+        - (1 - health), with overlap = matched x page / isl, cost = the
+        pages the candidate lacks (ceil(isl / page) - matched) x
+        `page_bytes` (derived from the model) over the 1e9 B/s cold prior,
+        w the standard class's weight 1.0 and health the recorded one;
+        the recorded overlap, transfer bytes and seconds equal the derived
+        ones (rounded as the selector rounds them), every link is cold,
+        each recorded logit equals the recomputed one within the
+        selector's 4-digit rounding of it and of kv_usage, active and
+        health (4 x 5e-5 = 2e-4), and the chosen worker has the highest
+        recorded logit.
     Returns (how many wave-2 requests went to their prefix's worker, the
     sorted set of pages a wave-2 request shares with its prefix)."""
     went, held, on_prefix, shared = {}, {}, 0, set()
@@ -3161,24 +3344,45 @@ def routing_gate(name: str, tokens: dict, decisions: list,
         check(len(cands) == 2, f"{name}: {d['request_id']} was scored on "
               f"{len(cands)} candidates")
         isl = max(len(toks), 1)
-        logits = {}
+        required = -(-isl // page)
+        logits, recorded = {}, {}
         for cand in cands:
             w = cand["worker_id"]
             allowed = ({0} if u == 0 else {c} if w == prefix_w
                        else {0, c} if w in held.get(p, ()) else {0})
-            check(cand["matched_blocks"] in allowed,
+            m = cand["matched_blocks"]
+            check(m in allowed,
                   f"{name}: {d['request_id']}: the router matched "
-                  f"{cand['matched_blocks']} pages on {w}; the token ids "
+                  f"{m} pages on {w}; the token ids "
                   f"and where its prefix went derive {sorted(allowed)}: "
                   f"{json.dumps(d)}")
-            logits[w] = (2.0 * (cand["matched_blocks"] * page / isl)
-                         - cand["kv_usage"] - cand["active"])
-            check(logits[w] == cand["logit"], f"{name}: {d['request_id']}"
-                  f": recorded logit {cand['logit']} on {w}, recomputed "
-                  f"{logits[w]}")
-        check(logits.get(d["worker_id"]) == max(logits.values()),
+            overlap = m * page / isl
+            nbytes = max(0, required - m) * page_bytes
+            cost = nbytes / COLD_PRIOR_BPS
+            norm = min(MAX_PENALTY, cost / HORIZON_S)
+            health = cand["health"]
+            check(cand["qos"] == "standard"
+                  and cand["qos_weight"] == STANDARD_WEIGHT
+                  and cand["cold"] is True and 0.0 < health <= 1.0
+                  and cand["overlap"] == round(overlap, 4)
+                  and cand["transfer_bytes"] == nbytes
+                  and cand["pool_blocks"] == 0
+                  and cand["transfer_s"] == round(cost, 6)
+                  and cand["transfer_norm"] == round(norm, 4),
+                  f"{name}: {d['request_id']} on {w}: recorded {cand}; "
+                  f"derived overlap {overlap:.6f}, {nbytes} bytes to move "
+                  f"({required} pages less {m}), {cost:.6f} s at the cold "
+                  "prior, the standard class")
+            logits[w] = (2.0 * overlap - cand["kv_usage"] - cand["active"]
+                         - STANDARD_WEIGHT * norm - (1.0 - health))
+            recorded[w] = cand["logit"]
+            check(abs(logits[w] - cand["logit"]) <= 2e-4,
+                  f"{name}: {d['request_id']}: recorded logit "
+                  f"{cand['logit']} on {w}, recomputed {logits[w]:.6f}")
+        check(recorded.get(d["worker_id"]) == max(recorded.values()),
               f"{name}: {d['request_id']} went to {d['worker_id']}, not "
-              f"an arg-max of the selector's logits {json.dumps(logits)}")
+              f"an arg-max of the selector's logits {json.dumps(recorded)}"
+              f" (recomputed {json.dumps(logits)})")
         went[(p, u)] = d["worker_id"]
         held.setdefault(p, set()).add(d["worker_id"])
         if u:
@@ -3328,11 +3532,14 @@ async def _waves(port: int, reqs: list, model: str, tag: str) -> tuple:
 
 async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
                             model: str, sys_len: int, n_layers: int,
-                            smi: str, on_card: bool = True) -> dict:
+                            smi: str, on_card: bool = True,
+                            exporter_port: int = 0) -> dict:
     """Phase 11's traffic and checks against running processes (see the
     phase docstring). `on_card=False` (workers on the CPU, a rehearsal of
     the phase) skips the kernel-launch checks: CPU tensors take the
-    kernels' plain versions."""
+    kernels' plain versions. `exporter_port`: the standalone exporter's
+    /metrics; the standalone router service serves `dynamo.router.route`."""
+    from dynamo_tpu_torch.engine.config import get_model_config
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
@@ -3393,7 +3600,9 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
             for p, u, b in routed}
         decisions = [d for d in state["models"][model]["decisions"]
                      if d["request_id"] in order]
-        on_prefix, shared = routing_gate(name, tokens, decisions, page)
+        mcfg = get_model_config(model)
+        on_prefix, shared = routing_gate(name, tokens, decisions, page,
+                                         kv_page_bytes(mcfg, page))
         # the selector's margin on each decision: the winner's logit less
         # the best other candidate's, and where each load snapshot came
         # from (scraped this cycle, carried forward, defaulted)
@@ -3456,6 +3665,9 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
         check(strip[0] == strip[1], f"{name}: one greedy request twice "
               f"gave {strip[0]} and {strip[1]}")
         s4 = await _scrape(client, 2)
+        ledger = ledger_gate(name, s0, s1, s4, mcfg, smi)
+        services = await standalone_gates(name, rt, client, tokens,
+                                          exporter_port, page)
         await client.stop()
     finally:
         await rt.shutdown()
@@ -3482,15 +3694,17 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
            "launches": launches, "decode_window_steps": {
                w: st["decode_window_steps"] for w, st in s4.items()},
            "decode_windows": {w: st["decode_windows"]
-                              for w, st in s4.items()}}
+                              for w, st in s4.items()},
+           "ledger": ledger, "services": services}
     print(f"{name}: after a warm-up round of the same shapes "
           f"({warm_s:.3f} s), 16 chat requests (8 SSE, 8 unary; 8 greedy, "
           f"8 sampled) over 4 system prompts of {sys_len} byte-tokens "
           f"answered in {wall:.3f} s; requests per worker {json.dumps(per_worker)}; "
           f"{on_prefix} of 12 wave-2 requests on their prefix's worker "
-          f"({shared} pages shared with it), every decision the selector's "
-          f"arg-max over its recorded terms with the matched pages derived "
-          f"from the token ids; prefix hits {hits} of {lookups} (derived "
+          f"({shared} pages shared with it), every decision the JAX default "
+          f"selector's arg-max, its whole logit (transfer and health terms "
+          f"included) recomputed with the matched pages derived from the "
+          f"token ids; prefix hits {hits} of {lookups} (derived "
           f"from where each went: {sorted(want)}); router fall-backs 0; "
           f"ragged launches {json.dumps(launches)}",
           flush=True)
@@ -3503,6 +3717,136 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
           f"ms, p90 {rr_q['ttft_p90_ms']:.1f} ms (llm_ttft_seconds)",
           flush=True)
     return rec
+
+
+# the card's dense bf16 peak (NVIDIA's H100 SXM data sheet, no sparsity),
+# which phase 11's workers get as DYN_PEAK_TFLOPS for the ledger's MFU
+PEAK_BF16_TFLOPS = 989.0
+
+
+def ledger_flops_per_token(cfg) -> float:
+    """The MFU numerator's FLOPs a decoded token, from the model config:
+    2 x (layers x (attention projections + MLP, active experts only) +
+    d x vocab) for the matmuls, plus 5 x vocab for the sampling tail;
+    1.501e10 at llama3-8b."""
+    d = cfg.hidden_size
+    q = cfg.num_heads * cfg.head_dim
+    kv = cfg.num_kv_heads * cfg.head_dim
+    mlp = 3 * d * cfg.intermediate_size * (
+        cfg.num_experts_per_tok if cfg.num_experts else 1)
+    return (2.0 * (cfg.num_layers * (2 * d * q + 2 * d * kv + mlp)
+                   + d * cfg.vocab_size) + 5.0 * cfg.vocab_size)
+
+
+def ledger_gate(name: str, s0: dict, s1: dict, s4: dict, cfg,
+                smi: str) -> dict:
+    """Phase 11's ledger gate on each worker's $STATS (the workers run with
+    DYN_PEAK_TFLOPS = PEAK_BF16_TFLOPS): steps recorded, no new program
+    key across the measured round (s0 before it, s1 after), and
+    engine_mfu = engine_tok_s x F / peak to the rounding of both figures
+    (F from `ledger_flops_per_token`). The keys are the JAX engine's: on
+    the ragged path its window key holds the gather base width and not
+    the penalty history's width that the window graph's key holds, so an
+    unchanged count says no new JAX program key, not that no graph was
+    captured (observability/ledger.py)."""
+    flops = ledger_flops_per_token(cfg)
+    peak = PEAK_BF16_TFLOPS * 1e12
+    out = {}
+    for w, st in s4.items():
+        want = st["engine_tok_s"] * flops / peak
+        check(st["engine_steps"] > 0 and st["engine_tok_s"] > 0,
+              f"{name}: worker {w} ledger: {st['engine_steps']} steps, "
+              f"{st['engine_tok_s']} tok/s")
+        new_keys = s1[w]["engine_recompiles"] - s0[w]["engine_recompiles"]
+        check(new_keys == 0, f"{name}: worker {w} saw {new_keys} new "
+              "program keys in the measured round")
+        check(abs(st["engine_mfu"] - want) <= 1e-6,
+              f"{name}: worker {w} engine_mfu {st['engine_mfu']}, "
+              f"engine_tok_s {st['engine_tok_s']} x {flops:.6g} FLOP / "
+              f"{peak:.4g} = {want:.8f}")
+        out[w] = {k: st[k] for k in ("engine_steps", "engine_recompiles",
+                                     "engine_tok_s", "engine_mfu",
+                                     "engine_pad_frac")}
+    print(f"{name} [{smi}; DYN_PEAK_TFLOPS {PEAK_BF16_TFLOPS}, the H100 SXM "
+          f"dense bf16 peak]: each worker's step ledger "
+          f"{json.dumps(out)}; {flops:.6g} FLOP a token; no new program "
+          "key in the measured round", flush=True)
+    return out
+
+
+async def standalone_gates(name: str, rt, client, tokens: dict,
+                           exporter_port: int, page: int) -> dict:
+    """With both workers idle: the standalone router service answers
+    `route` for each system prompt with a worker that holds at least its
+    16 pages; the standalone exporter's per-worker llm_requests_total_slots
+    / llm_kv_blocks_total / llm_kv_blocks_active equal the workers' $STATS;
+    a FleetRollup here records worker/{w}/{field} series equal to the same
+    $STATS and fleet/workers_live 2."""
+    from dynamo_tpu_torch.observability.fleet import (
+        WORKER_FIELDS, FleetRollup, parse_prometheus_text,
+    )
+    t0 = time.perf_counter()
+    rclient = await rt.namespace("dynamo").component("router").endpoint(
+        "route").client().start()
+    await rclient.wait_for_instances(60)
+    routes = {}
+    for (p, u), toks in sorted(tokens.items()):
+        if u != 1:
+            continue
+        frames = [f async for f in await rclient.generate(
+            {"token_ids": list(toks)})]
+        check(len(frames) == 1 and frames[0].get("worker_id") in client
+              .instances and frames[0]["overlap_blocks"] >= 16,
+              f"{name}: the router service routed prefix {p} as {frames}")
+        routes[p] = frames[0]
+    await rclient.stop()
+
+    async def exporter_equal():
+        st = await client.scrape_stats(timeout=10.0)
+        text = (await _http(exporter_port, "GET", "/metrics"))[2].decode()
+        fams = parse_prometheus_text(text)
+        for w, row in st.items():
+            for fam, key in (("llm_requests_total_slots",
+                              "request_total_slots"),
+                             ("llm_kv_blocks_total", "kv_total_blocks"),
+                             ("llm_kv_blocks_active", "kv_active_blocks")):
+                if fams.get(fam, {}).get(f'{{worker="{w}"}}') != row[key]:
+                    return None
+        return len(st) == 2 and {w: {k: row[k] for k in (
+            "request_total_slots", "kv_total_blocks", "kv_active_blocks")}
+            for w, row in st.items()}
+    exported = await _poll(f"{name}: the exporter's gauges equal to $STATS",
+                           exporter_equal, 60)
+
+    rollup = FleetRollup(client, interval_s=1.0)
+
+    async def rollup_equal():
+        ts = time.time()
+        snap = await rollup.scrape_once(ts=ts)
+        st = await client.scrape_stats(timeout=10.0)
+        store = rollup.store
+        if snap["workers"] != 2 or len(st) != 2 \
+                or store.get("fleet/workers_live").latest() != 2.0:
+            return None
+        for w, row in st.items():
+            for f in WORKER_FIELDS:
+                got = store.get(f"worker/{w}/{f}")
+                if got is None or got.latest() != float(row.get(f, 0)):
+                    return None
+        return snap
+    await _poll(f"{name}: the fleet rollup's series equal to $STATS",
+                rollup_equal, 60)
+    out = {"routes": routes, "exported": exported,
+           "rollup_series": len(rollup.store),
+           "seconds": time.perf_counter() - t0}
+    print(f"{name}: standalone router service routed the 4 system prompts "
+          f"to {json.dumps({p: [r['worker_id'], r['overlap_blocks']] for p, r in routes.items()})}"
+          f" (worker, matched pages); standalone exporter's per-worker "
+          f"gauges equal $STATS {json.dumps(exported)}; a FleetRollup "
+          f"recorded {len(rollup.store)} series equal to $STATS, "
+          f"fleet/workers_live 2; {out['seconds']:.2f} s", flush=True)
+    print(f"phase seconds: 11 services {out['seconds']:.1f}", flush=True)
+    return out
 
 
 def reliability_counts(text: str) -> dict:
@@ -3869,10 +4213,30 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
         workers = [Child(f"worker {i}", [
             "dynamo_tpu_torch.run", f"in=endpoint:{DIST_EP}", "out=native",
             model, "--control-host", "127.0.0.1", "--control-port",
-            str(cp_port), *DIST_SCHEDULE, *device_args]) for i in range(2)]
+            str(cp_port), *DIST_SCHEDULE, *device_args],
+            env={"DYN_PEAK_TFLOPS": str(PEAK_BF16_TFLOPS)})
+            for i in range(2)]
         children += workers
         ready = [w.wait_line("READY endpoint=", 900) for w in workers]
         ready_s = time.perf_counter() - t0
+        # the standalone router service and exporter over the workers'
+        # endpoint, started before any traffic so that the router service
+        # applies every stored page's event
+        coord = f"127.0.0.1:{cp_port}"
+        ns, comp, ep = DIST_EP.split(".")
+        services = [
+            Child("router service", [
+                "dynamo_tpu_torch.kv_router.main", "--coordinator", coord,
+                "--namespace", ns, "--component", comp, "--endpoint", ep,
+                "--block-size", "64"]),
+            Child("exporter", [
+                "dynamo_tpu_torch.observability.exporter", "--coordinator",
+                coord, "--namespace", ns, "--component", comp,
+                "--endpoint", ep, "--port", "0"])]
+        children += services
+        services[0].wait_line("READY router", 120)
+        exporter_port = int(services[1].wait_line("READY metrics=:", 120)
+                            .rsplit(":", 1)[1])
         for line in ready:
             dev = line.split(" device=", 1)[1]
             check(dev == device_name, f"worker on {dev!r}, expected "
@@ -3888,8 +4252,10 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
         rec = asyncio.run(asyncio.wait_for(drive_distributed(
             cp_port, fe_ports[0], fe_ports[1], model, sys_len,
             get_model_config(model).num_layers, smi,
-            on_card=device_name != "cpu"), 900))
+            on_card=device_name != "cpu", exporter_port=exporter_port), 900))
         rec["ready_s"] = ready_s
+        for svc in services:
+            svc.stop(signal.SIGTERM, 30)
         # 11k: SIGKILL the worker holding the most of a wave's streams
         by_id = {line.split(" worker=", 1)[1].split()[0]: w
                  for line, w in zip(ready, workers)}
@@ -4712,15 +5078,18 @@ def phase_pool_service(build, hists: list, expect: list, ps: int,
     """Phase 13's pool-service run (see the docstring at the top): P3
     publishes `hists` into a ClusterKvPool of 3 hosts at R = 2, P4 serves
     them from it with one host killed after `kill_after` page fetches;
-    `expect` are P1's repeat streams."""
+    `expect` are P1's repeat streams. Then the router's pricing of those
+    fetches (`pool_pricing`)."""
     from dynamo_tpu_torch.engine.kv_pool import POOL_STATS
     from dynamo_tpu_torch.engine.pool_service import (
         REMOTE_STATS, RING_STATS, ClusterKvPool, KvPoolHost,
     )
+    from dynamo_tpu_torch.observability.fleet import TRANSFER_MODEL
     t0 = time.perf_counter()
     POOL_STATS.reset()
     REMOTE_STATS.reset()
     RING_STATS.reset()
+    TRANSFER_MODEL.reset()
     cl = ClusterKvPool(replicas=2)
     for i in range(3):
         cl.add_host(KvPoolHost(f"ph{i}", capacity_pages=4 * 64))
@@ -4736,9 +5105,28 @@ def phase_pool_service(build, hists: list, expect: list, ps: int,
     del p3
     killed = {}
     fetch = cl.fetch
+    # the pages each host served to P4's replica walks, counted here
+    served_by: dict = {}
+    walking = []
+
+    def counting(host):
+        inner = host.fetch_page
+
+        def fetch_page(seq_hash, mode=""):
+            arrays = inner(seq_hash, mode)
+            if walking and arrays is not None:
+                served_by[host.host_id] = served_by.get(host.host_id, 0) + 1
+            return arrays
+        host.fetch_page = fetch_page
+    for host in cl._hosts.values():
+        counting(host)
 
     def fetch_then_kill(seq_hash, mode=""):
-        out = fetch(seq_hash, mode)
+        walking.append(1)
+        try:
+            out = fetch(seq_hash, mode)
+        finally:
+            walking.pop()
         if not killed and REMOTE_STATS.fetch_pages >= kill_after:
             # the host dies; its watch delete has not landed yet
             victim = max(cl._hosts.values(), key=len)
@@ -4764,9 +5152,15 @@ def phase_pool_service(build, hists: list, expect: list, ps: int,
           and rs["stale_epoch_landed"] == 0,
           f"pool service: P4 fetched {p4.scheduler.pool_fetched_pages} "
           f"pages, expected {want}; killed {killed}; remote {rs}")
+    page_bytes = kv_page_bytes(p4.model_cfg, ps)
+    check(p4.metrics().kv_page_bytes == page_bytes,
+          f"pool service: P4 reports {p4.metrics().kv_page_bytes} bytes a "
+          f"page; its config derives {page_bytes}")
     p4.close()
+    pricing = pool_pricing(served_by, rs["fetch_pages"], page_bytes,
+                           (len(hists[0]) - 1) // ps, len(hists[0]), ps)
     out = {"published_pages": published, "fetched": want, "killed": killed,
-           "remote": rs, "ring": RING_STATS.snapshot(),
+           "remote": rs, "ring": RING_STATS.snapshot(), "pricing": pricing,
            "p4_ttft": quantiles([x["ttft_s"] for x in served]),
            "seconds": time.perf_counter() - t0}
     print(f"pool service: 3 hosts, R = 2, {published} pages published; "
@@ -4774,6 +5168,67 @@ def phase_pool_service(build, hists: list, expect: list, ps: int,
           f"P4 fetched {want} pages with {rs['fetch_failovers']} failovers, "
           f"0 dropped streams, streams equal P1's; "
           f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def pool_pricing(served_by: dict, fetched: int, page_bytes: int,
+                 fetchable: int, isl: int, ps: int) -> dict:
+    """Phase 13's pricing gate: after P4's fetches the process-global
+    transfer cost model holds one `pool:{host}` link for each host that
+    served P4 a page (`served_by`, counted around the hosts' fetch_page),
+    with as many samples as that host served, summing to the pages fetched.
+    A TransferAwareSelector scoring a request of `isl` tokens whose first
+    `fetchable` pages sit in the pool, on two workers that hold none of
+    them (their own links unmeasured), prices each fetch at those EWMAs:
+    the cold prior is the median of the measured links, so each worker's
+    transfer seconds are (pages to move + fetchable) x page_bytes over that
+    median, and its pool_fetch_bytes are fetchable x page_bytes."""
+    import random
+    from dynamo_tpu_torch.kv_router.indexer import MatchResult
+    from dynamo_tpu_torch.kv_router.scheduler import (
+        SchedulingRequest, TransferAwareSelector,
+    )
+    from dynamo_tpu_torch.kv_router.scoring import (
+        ProcessedEndpoints, WorkerMetrics,
+    )
+    from dynamo_tpu_torch.observability.fleet import TRANSFER_MODEL
+    t0 = time.perf_counter()
+    snap = TRANSFER_MODEL.snapshot()
+    links = {k: v["samples"] for k, v in snap.items()
+             if k.startswith("pool:")}
+    check(links == {f"pool:{h}": n for h, n in served_by.items()}
+          and sum(links.values()) == fetched > 0,
+          f"pool pricing: transfer links {links}, hosts served "
+          f"{served_by}, {fetched} pages fetched")
+    bws = sorted(TRANSFER_MODEL.bandwidth_bytes_per_s(k) for k in links)
+    median = bws[len(bws) // 2]
+    sel = TransferAwareSelector(rng=random.Random(0),
+                                health_of=lambda w: 1.0)
+    eps = ProcessedEndpoints({w: WorkerMetrics(
+        request_total_slots=8, kv_total_blocks=1000, kv_page_bytes=page_bytes,
+        request_active_slots=i) for i, w in enumerate(("wa", "wb"))})
+    sel.select_worker(eps, SchedulingRequest(isl, MatchResult(),
+                                             pool_matched=fetchable), ps)
+    required = -(-isl // ps)
+    for w, c in sel.last_components.items():
+        want_s = required * page_bytes / max(1.0, median)
+        check(c["pool_blocks"] == fetchable
+              and c["pool_fetch_bytes"] == fetchable * page_bytes
+              and c["transfer_bytes"] == (required - fetchable) * page_bytes
+              and c["cold"] and c["transfer_s"] == round(want_s, 6),
+              f"pool pricing: {w} scored {c}; derived {fetchable} fetchable "
+              f"pages of {page_bytes} bytes, {required} required, "
+              f"{want_s:.6f} s at the pool links' median {median:.1f} B/s")
+    out = {"links": links, "median_bytes_per_s": median,
+           "page_bytes": page_bytes, "fetchable": fetchable,
+           "components": sel.last_components}
+    print(f"pool pricing: {len(links)} pool:{{host}} links, samples "
+          f"{json.dumps(links)} = {fetched} pages fetched; a request of "
+          f"{isl} tokens with {fetchable} pool pages prices "
+          f"{fetchable * page_bytes} fetch bytes a worker at the links' "
+          f"median {median:.4g} B/s", flush=True)
+    print(f"phase seconds: 13 pool pricing {time.perf_counter() - t0:.1f}",
+          flush=True)
     return out
 
 
@@ -8292,8 +8747,9 @@ def stream_serve(engine, rid: str, prompt: list, max_tokens: int,
     """One greedy request alone on the engine (ignore_eos), with the ragged
     kernel's launch count set to 0 just before and read just after: its
     tokens, TTFT, ms per decode step (first token to last, host clock),
-    whether it streamed, and the STREAM_STATS delta. `arm` = (n, fn): fn()
-    once the n-th token arrived."""
+    whether it streamed, the STREAM_STATS delta and the engine ledger's
+    "stream" samples of the run (their count and their summed prefetch
+    hits and lates). `arm` = (n, fn): fn() once the n-th token arrived."""
     import torch
     from dynamo_tpu_torch.engine.scheduler import (
         EngineRequest, SamplingParams,
@@ -8301,6 +8757,7 @@ def stream_serve(engine, rid: str, prompt: list, max_tokens: int,
     from dynamo_tpu_torch.engine.streaming import STREAM_STATS
     from dynamo_tpu_torch.ops import paged_attention
     s0 = STREAM_STATS.snapshot()
+    engine.ledger.drain()
     paged_attention.KERNEL_LAUNCHES = 0
     t0 = time.perf_counter()
     engine.add_request(EngineRequest(rid, list(prompt), SamplingParams(
@@ -8324,11 +8781,14 @@ def stream_serve(engine, rid: str, prompt: list, max_tokens: int,
         torch.cuda.synchronize()
     launches = paged_attention.KERNEL_LAUNCHES
     s1 = STREAM_STATS.snapshot()
+    samples = [r for r in engine.ledger.drain() if r["kind"] == "stream"]
     return {"tokens": out, "ttft_s": stamps[0] - t0,
             "ms_per_step": ((stamps[-1] - stamps[0]) / max(1, len(out) - 1)
                             * 1e3),
             "streamed": streamed, "launches": launches,
-            "stats": {k: s1[k] - s0[k] for k in s0}}
+            "stats": {k: s1[k] - s0[k] for k in s0},
+            "ledger": {"stream_samples": len(samples), "prefetch_takes": sum(
+                r["stream_hit"] + r["stream_late"] for r in samples)}}
 
 
 def near_tie_gap(engine, rid: str, context: list, token: int) -> float:
@@ -8474,6 +8934,12 @@ def phase_streaming(smi: str, model: str = "llama3-8b", device: str = "cuda",
               f"{label}: stream steps {st['stream_steps']} (expected "
               f"{steps}), prefetch hits + lates {st['prefetch_hit']} + "
               f"{st['prefetch_late']} (expected {takes}), stats {st}")
+        # the engine ledger: one "stream" sample a streamed step, whose
+        # prefetch deltas add up to the derived takes
+        check(got["ledger"] == {"stream_samples": steps,
+                                "prefetch_takes": takes},
+              f"{label}: the ledger's stream samples {got['ledger']}, "
+              f"expected {steps} samples and {takes} prefetch takes")
         if device == "cuda":
             check(got["launches"] == ragged,
                   f"{label}: {got['launches']} ragged launches, expected "
@@ -8641,6 +9107,7 @@ def main() -> int:
     phase_small_reference(quant="int8", model="tiny-moe")
     print(f"phase seconds: 3 {time.perf_counter() - t0:.1f}", flush=True)
     engine, first, _ = timed("4", lambda: asyncio.run(serve_main_path(smi)))
+    ledger_ab = timed("4 ledger", phase_ledger_ab, engine, smi)
     bf16_ref = {"weight_bytes": engine.metrics().weight_bytes,
                 "peak_gib": first["stats"]["peak_gib"]}
     graph_bf16 = timed("4b", phase_graph_vs_eager, engine, "bf16")

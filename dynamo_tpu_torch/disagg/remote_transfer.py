@@ -57,6 +57,7 @@ import torch
 from dynamo_tpu_torch.disagg.transfer import (
     TransferBackend, _page_sums, check_pending, hash_pool,
 )
+from dynamo_tpu_torch.observability.fleet import TRANSFER_MODEL
 from dynamo_tpu_torch.observability.serving import SERVING
 from dynamo_tpu_torch.runtime.integrity import (
     CHECKSUM_ALGORITHM, STATS as INTEGRITY, SUMS_KEY, XFER_STATS,
@@ -506,16 +507,43 @@ class RemoteTransferBackend(TransferBackend):
             return
         t0 = time.monotonic()
         deadline = t0 + budget_s if budget_s is not None else None
+        # the transfer cost model's feed (JAX :867-929): the pre-send byte
+        # estimate is this link's in-flight backlog while the send runs,
+        # and a committed send is one delivered-goodput sample of the link
+        # (unique payload bytes: a chunk re-sent after a resume counts once)
+        est_bytes = self._payload_bytes(k_pages, v_pages, k_scale, len(ids))
+        unique_bytes: Dict[int, int] = {}
+        failed = True
+        TRANSFER_MODEL.note_inflight(engine_id, est_bytes)
         try:
             await self._send_pages_locked(
                 engine_id, request_id, ids, k_pages, v_pages, k_scale,
-                v_scale, alloc_epoch, deadline, ready)
+                v_scale, alloc_epoch, deadline, ready, unique_bytes)
+            failed = False
         finally:
-            SERVING.kv_transfer.observe(value=time.monotonic() - t0)
+            TRANSFER_MODEL.note_done(engine_id, est_bytes)
+            dt = time.monotonic() - t0
+            SERVING.kv_transfer.observe(value=dt)
+            if not failed:
+                TRANSFER_MODEL.observe(engine_id, sum(unique_bytes.values()),
+                                       dt)
+
+    @staticmethod
+    def _payload_bytes(k_pages, v_pages, k_scale, n: int) -> int:
+        """Approximate unique payload bytes of shipping `n` pages of this
+        stack (k + v + scales), for the in-flight backlog term; the exact
+        figure lands per chunk."""
+        nb = max(1, k_pages.shape[2])
+        per_page = (k_pages.numel() * k_pages.element_size()
+                    + v_pages.numel() * v_pages.element_size()) / nb
+        if k_scale is not None:
+            per_page += 2 * k_scale.numel() * k_scale.element_size() / nb
+        return int(per_page * n)
 
     async def _send_pages_locked(self, engine_id: str, request_id: str,
                                  ids, k_pages, v_pages, k_scale, v_scale,
-                                 alloc_epoch, deadline, ready) -> None:
+                                 alloc_epoch, deadline, ready,
+                                 unique_bytes=None) -> None:
         lock = self._locks.setdefault(engine_id, asyncio.Lock())
         async with lock:
             refetches = resumes = 0
@@ -523,7 +551,8 @@ class RemoteTransferBackend(TransferBackend):
                 try:
                     await self._send_chunks(
                         engine_id, request_id, ids, k_pages, v_pages,
-                        k_scale, v_scale, alloc_epoch, deadline, ready)
+                        k_scale, v_scale, alloc_epoch, deadline, ready,
+                        unique_bytes)
                     return
                 except IntegrityRejected:
                     # the connection may hold unread acks of the window:
@@ -618,12 +647,14 @@ class RemoteTransferBackend(TransferBackend):
     async def _send_chunks(self, engine_id: str, request_id: str, ids,
                            k_pages, v_pages, k_scale=None, v_scale=None,
                            alloc_epoch: int = 0, deadline=None,
-                           ready=None) -> int:
+                           ready=None, unique_bytes=None) -> int:
         """Windowed chunk-committed streaming: up to window_chunks frames in
         flight before the oldest ack is awaited. Opens with the frontier
         handshake and skips every chunk below the frontier, which is both
         the resume after a link failure and the replacement sender's path.
-        Returns the payload bytes sent by this attempt."""
+        Returns the payload bytes sent by this attempt; `unique_bytes`
+        (chunk index -> payload) collects each chunk once across
+        attempts."""
         reader, writer = await self._connect(engine_id, deadline)
         n = len(ids)
         dtype_name = _NAMES[k_pages.dtype]
@@ -683,6 +714,8 @@ class RemoteTransferBackend(TransferBackend):
             await self._write(writer, frame, deadline)
             XFER_STATS.bytes_sent += payload
             XFER_STATS.pages_sent += count
+            if unique_bytes is not None:
+                unique_bytes[chunk_idx] = payload
             total_bytes += payload
             in_flight.append(count)
             if len(in_flight) >= self.window_chunks:

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from dynamo_tpu_torch.observability.fleet import TRANSFER_MODEL
 from dynamo_tpu_torch.observability.serving import SERVING
 from dynamo_tpu_torch.runtime.integrity import XFER_STATS
 
@@ -139,6 +140,11 @@ class LocalTransferBackend(TransferBackend):
         try:
             await worker.submit(inject)
         finally:
-            SERVING.kv_transfer.observe(value=time.monotonic() - t0)
+            dt = time.monotonic() - t0
+            SERVING.kv_transfer.observe(value=dt)
         XFER_STATS.bytes_sent += nbytes
         XFER_STATS.pages_sent += len(ids)
+        # a per-link bandwidth sample for the transfer cost model, the
+        # remote backend's feed, so router scoring sees local moves too
+        # (JAX :129-130)
+        TRANSFER_MODEL.observe(engine_id, nbytes, dt)

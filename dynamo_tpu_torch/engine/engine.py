@@ -117,9 +117,20 @@ runs through the StreamingDecoder, one prefill chunk or one token a
 active. The JAX refusals stand where the port has the knob: no host tier,
 spec_decode, an MoE dispatch, attention soft-caps or sliding windows.
 
-Left out of this slice: pipeline/tensor/expert parallelism, the tp shard
-inject (`inject_pages_shard`) and, with A14, the streamed step's ledger
-sample.
+The per-step ledger (dynamo_tpu/engine/engine.py:202-220, :732-785;
+observability/ledger.py): every committed device step records one host-
+int sample at its commit site (prefill, mixed, each committed decode
+window, a spec verify, a streamed step), and the dispatch sites note each
+(program, bucket) key on the JAX engine's keys (`_note_program`: "step",
+"window", "verify"); a first-seen key counts as a recompile on the next
+sample. On the card a first-seen window or verify key is, as a rule, a
+graph capture. A window discarded at a pipeline reconcile is never
+committed and records nothing, as in JAX. `metrics()` carries the
+ledger's figures as `engine_*` (the worker's $STATS). `DYN_LEDGER=0`
+turns the ledger off; the streams are the same either way.
+
+Left out of this slice: pipeline/tensor/expert parallelism and the tp shard
+inject (`inject_pages_shard`).
 """
 from __future__ import annotations
 
@@ -151,6 +162,9 @@ from dynamo_tpu_torch.engine.window_graph import HostCopies, WindowGraphs
 from dynamo_tpu_torch.models import llama, vision
 from dynamo_tpu_torch.models.llama import AttnMetadata
 from dynamo_tpu_torch.ops.attention import scatter_new_kv, write_slots
+from dynamo_tpu_torch.observability.ledger import (
+    StepLedger, model_flops_per_token, sampler_flops_per_token,
+)
 from dynamo_tpu_torch.observability.metrics import PhaseTimer
 from dynamo_tpu_torch.ops.kv_quant import (
     dequantize_rows, is_quantized_cache, page_bytes, validate_mode,
@@ -158,6 +172,7 @@ from dynamo_tpu_torch.ops.kv_quant import (
 from dynamo_tpu_torch.ops.quant import (
     is_quantized, quantize_params, validate_mode as validate_quant,
 )
+from dynamo_tpu_torch.runtime.integrity import XFER_STATS
 
 
 @dataclasses.dataclass
@@ -330,6 +345,16 @@ class NativeEngine:
         # only: it defeats the overlap it measures)
         self.phases = PhaseTimer()
         self.profile_sync = False
+        # the per-step ledger: a bounded ring of host-int samples recorded
+        # at the commit sites; the MFU numerator counts the model's matmuls
+        # and the sampling tail's vocab-sized work
+        self.ledger = StepLedger(
+            flops_per_token=model_flops_per_token(model_cfg)
+            + sampler_flops_per_token(model_cfg))
+        # (program, bucket) keys already dispatched: a key's first
+        # dispatch counts as a recompile on the next ledger sample
+        self._seen_programs: set = set()
+        self._pending_recompiles = 0
         self._streamer = self._build_streamer()
         if self._stream is not None:
             # the weights, cache and counter were made on the caller's stream
@@ -611,6 +636,19 @@ class NativeEngine:
         # (int8 values + f32 scales where quantized) and the bit width
         m.weight_bytes = _tree_bytes(self.params)
         m.weight_quant_bits = 8 if self.quant == "int8" else 0
+        m.kv_transfer_bytes = XFER_STATS.bytes_sent
+        m.kv_transfer_fetches = XFER_STATS.fetches
+        m.kv_transfer_resumes = XFER_STATS.resumes
+        m.kv_transfer_salvaged_pages = XFER_STATS.salvaged_pages
+        m.kv_transfer_stale_chunks = XFER_STATS.stale_chunks
+        m.kv_transfer_link_timeouts = XFER_STATS.link_timeouts
+        # the ledger's figures, per engine (the shared LEDGER_STATS fold is
+        # process-cumulative)
+        m.engine_steps = self.ledger.steps
+        m.engine_recompiles = self.ledger.recompiles_total
+        m.engine_tok_s = round(self.ledger.tok_s, 3)
+        m.engine_mfu = round(self.ledger.mfu, 6)
+        m.engine_pad_frac = round(self.ledger.pad_fraction(), 4)
         if self.host_pool is not None:
             m.kv_host_pages_used = self.host_pool.used
             m.kv_host_pages_total = self.host_pool.capacity
@@ -996,6 +1034,35 @@ class NativeEngine:
                    self.scheduler.params[seq.request_id].logprobs is not None
                    for seq in reqs)
 
+    def _note_program(self, key: tuple) -> None:
+        """The first dispatch of a (program, bucket-shape) key counts as a
+        recompile; pending counts attach to the next ledger sample."""
+        if key not in self._seen_programs:
+            self._seen_programs.add(key)
+            self._pending_recompiles += 1
+
+    def _ledger_record(self, kind: str, rows: int, rows_live: int,
+                       useful: int, padded: int, **stream_kw) -> None:
+        """One ledger sample at a commit site, from host state only
+        (allocator counters, the host tier's counts, the waiting queue):
+        nothing here reads a device tensor. `stream_kw` carries a streamed
+        step's window-pool deltas."""
+        if not self.ledger.enabled:
+            return
+        alloc = self.scheduler.allocator
+        hp = self.host_pool
+        host_used = hp.used if hp is not None else 0
+        host_total = hp.capacity if hp is not None else 0
+        disk = hp.disk if hp is not None else None
+        disk_used = disk.used if disk is not None else 0
+        disk_total = disk.capacity if disk is not None else 0
+        rc, self._pending_recompiles = self._pending_recompiles, 0
+        self.ledger.record_step(
+            kind, rows, rows_live, useful, padded,
+            alloc.num_pages - alloc.num_free, alloc.num_pages,
+            host_used, host_total, disk_used, disk_total,
+            len(self.scheduler.waiting), rc, **stream_kw)
+
     def _run_device_step(self, plan, reqs, mixed: bool = False):
         """forward + last-position logits + sample for a prefill or mixed
         plan; returns the sampled tokens as a numpy array."""
@@ -1004,6 +1071,9 @@ class NativeEngine:
         rp = self._rep_penalty_arrays(reqs, mixed=mixed)
         with_lp = self._wants_logprobs(reqs)
         mm = plan.mm_embeds is not None
+        self._note_program(("step", rp is not None, with_lp, mm,
+                            plan.tokens.shape, plan.page_table.shape[1],
+                            None if rp is None else rp[0].shape[1]))
         toks, lp, top_ids, top_lps, moe = _engine_step(
             self.model_cfg, self._eos_vec, self.params, self.cache,
             self._dev(plan.tokens), self._dev(plan.positions),
@@ -1041,18 +1111,33 @@ class NativeEngine:
             if tok is None:
                 continue
             events.append(self._postprocess_row(seq, tok, lps, i))
+        self._ledger_record(
+            "prefill", len(plan.seqs),
+            sum(1 for q in plan.seqs if q is not None),
+            sum(plan.n_valid), int(plan.tokens.size))
         return events
 
     def _run_stream(self, plan: StreamPlan) -> List[StepOutput]:
         """One streamed step (engine/streaming.py): a prefill chunk or one
         decoded token of a sequence whose context exceeds the resident page
-        budget; this wrapper owns the event."""
+        budget; this wrapper owns the event and the ledger sample
+        (kind "stream", with the step's prefetch hit / late / spill / stall
+        deltas)."""
+        from dynamo_tpu_torch.engine.streaming import STREAM_STATS
         seq = plan.seq
+        st0 = (STREAM_STATS.prefetch_hit, STREAM_STATS.prefetch_late,
+               STREAM_STATS.pages_spilled, STREAM_STATS.stall_steps)
         tok, _ = self._streamer.step(seq)
         events: List[StepOutput] = []
         if tok is not None:
             seq.output.append(tok)
             events.append(self._postprocess(seq, tok))
+        st1 = (STREAM_STATS.prefetch_hit, STREAM_STATS.prefetch_late,
+               STREAM_STATS.pages_spilled, STREAM_STATS.stall_steps)
+        self._ledger_record(
+            "stream", 1, 1, 1 if tok is not None else 0, 1,
+            stream_hit=st1[0] - st0[0], stream_late=st1[1] - st0[1],
+            stream_spilled=st1[2] - st0[2], stream_stalls=st1[3] - st0[3])
         return events
 
     def _postprocess_row(self, seq, tok, lps, i) -> StepOutput:
@@ -1093,6 +1178,10 @@ class NativeEngine:
         # carry of the last window is stale
         self._dec_state = None
         self.mixed_steps += 1
+        self._ledger_record(
+            "mixed", len(plan.seqs),
+            sum(1 for q in plan.seqs if q is not None),
+            sum(plan.n_valid), int(plan.tokens.size))
         return events
 
     def _run_decode(self, plan: DecodePlan) -> List[StepOutput]:
@@ -1189,6 +1278,12 @@ class NativeEngine:
                         np.ascontiguousarray(arr)))
             self.decode_plan_uploads += 1
         nw = self._window_rung(plan)
+        # the JAX engine's window key: its variant, every bucketed dim and
+        # the base bucket, which JAX computes on every path
+        self._note_program(("window", rp is not None, with_lp, greedy,
+                            fused, nw, s, pb,
+                            base_pb if self.pregather else self._base_pb(plan),
+                            k_stops))
         staged = {"sig": sig, "bufs": bufs, "nw": nw,
                   "key": (rp is not None, with_lp, greedy, fused, nw)
                   + shapes + (base_pb,),
@@ -1546,6 +1641,7 @@ class NativeEngine:
                 write_idx[i, j] = seq.flat_index(pos0 + j, ps)
             kv_lens[i] = pos0 + n
         i32 = torch.int32
+        self._note_program(("verify", tokens.shape, pb))
         key = ("verify", s_count, kp1, pb)
         bufs = self.graphs.inputs(key, {
             "tokens": ((s_count, kp1), i32),
@@ -1596,6 +1692,11 @@ class NativeEngine:
                 # recording it again would leak its entry
                 self._draft.committed(seq, m, emitted)
         self.spec_steps += 1
+        # the verify block charges [S, k + 1] bucket tokens; the accepted
+        # drafts and the model's own tokens are the useful part
+        self._ledger_record(
+            "spec", s_count, sum(1 for q in plan.seqs if q is not None),
+            len(events), s_count * kp1)
         return events
 
     def _commit_window(self, plan: DecodePlan, toks: np.ndarray, lps=None,
@@ -1633,6 +1734,10 @@ class NativeEngine:
         self.window_slot_steps += n_steps * n_live
         self.window_wasted_steps += sum(n_steps - 1 - s
                                         for s in finish_step.values())
+        # the bucket charge is every (step, slot) pair of the window; the
+        # useful part is the tokens that committed
+        self._ledger_record("decode", len(plan.seqs), n_live,
+                            len(events), n_steps * len(plan.seqs))
         return events
 
     def _postprocess(self, seq: SequenceState, tok: int,

@@ -34,10 +34,10 @@ The failpoints `pool.remote_fetch` (one decision per replica attempt) and
 
 What differs from the JAX module: pages are CPU torch tensors and
 checksums `runtime/integrity.tensor_checksum`; a host's NVMe tier defaults
-to a fresh temporary directory. Left out: the per-host transfer-link feed
-of the router's cost model (`TRANSFER_MODEL.observe`, JAX :754-777) and the
-`pool.fetch.remote` / `pool.rebalance` trace spans, with A14
-(observability/fleet.py and the tracer's scope spans).
+to a fresh temporary directory. Each served page feeds the router's cost
+model on the `pool:{host}` link (`TRANSFER_MODEL.observe`, JAX :754-777).
+Left out: the `pool.fetch.remote` / `pool.rebalance` trace spans, with the
+tracer's scope spans (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -53,6 +53,7 @@ import torch
 from dynamo_tpu_torch.engine.kv_pool import (
     POOL_STATS, PoolEntry, PoolQuantMismatch,
 )
+from dynamo_tpu_torch.observability.fleet import TRANSFER_MODEL
 from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.integrity import (
     STATS as INTEGRITY, tensor_checksum,
@@ -733,12 +734,16 @@ class ClusterKvPool:
         exhausted walk returns None: the prefix walk keeps its committed
         pages and recomputes the tail (latency, never tokens). The engine
         claims ONE page a call, so a host dying mid-stream costs exactly
-        the failed page's retry on the next replica."""
+        the failed page's retry on the next replica. Each served page is
+        one sample of the `pool:{host}` link of the transfer cost model
+        (JAX :754-777), so the router prices replica fetches from
+        measurements (a cold link answers from the fleet-median prior)."""
         hosts = self._live_owner_objs(seq_hash)
         if not hosts:
             POOL_STATS.fetch_misses += 1
             return None
         for i, host in enumerate(hosts):
+            t0 = time.perf_counter()
             try:
                 arrays = host.fetch_page(seq_hash, mode)
             except PoolHostUnavailable:
@@ -749,6 +754,9 @@ class ClusterKvPool:
                 # an independently verified copy
                 REMOTE_STATS.fetch_failovers += 1
                 continue
+            TRANSFER_MODEL.observe(f"pool:{host.host_id}",
+                                   sum(a.nbytes for a in arrays),
+                                   max(time.perf_counter() - t0, 1e-9))
             POOL_STATS.fetch_hits += 1
             REMOTE_STATS.fetch_pages += 1
             if i > 0:

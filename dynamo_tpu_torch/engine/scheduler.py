@@ -222,6 +222,23 @@ class EngineMetrics:
     # tree (int8 values + f32 scales where quantized) and the bit width
     weight_bytes: int = 0
     weight_quant_bits: int = 0
+    # KV transfer volume and the chunk-committed stream's counters of the
+    # engine's process (runtime/integrity.XFER_STATS)
+    kv_transfer_bytes: int = 0
+    kv_transfer_fetches: int = 0
+    kv_transfer_resumes: int = 0
+    kv_transfer_salvaged_pages: int = 0
+    kv_transfer_stale_chunks: int = 0
+    kv_transfer_link_timeouts: int = 0
+    # the per-step ledger (observability/ledger.py): committed device
+    # steps, recompile events (first dispatch of a new (program, bucket)
+    # key), EWMA useful tok/s, MFU estimate (0 without a configured peak)
+    # and the cumulative padding-waste fraction
+    engine_steps: int = 0
+    engine_recompiles: int = 0
+    engine_tok_s: float = 0.0
+    engine_mfu: float = 0.0
+    engine_pad_frac: float = 0.0
     # KV tier occupancy (engine/offload.py): host-DRAM and disk pages held
     # and their capacities (0 with the tier off)
     kv_host_pages_used: int = 0

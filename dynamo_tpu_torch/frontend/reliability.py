@@ -36,12 +36,12 @@ runtime `Client` (and an optional KvRouter) with:
   the first frame wins and the loser is cancelled, so exactly one attempt
   ever commits tokens.
 
-The port's KvRouter takes no QoS class, so the router's class latency
-weighting waits for the fail-slow routing slice (ROADMAP A14); a routing
+The request's QoS class (its baggage) goes to KvRouter.schedule, whose
+selector scales the transfer cost by the class's latency weight; a routing
 failure falls back to the load-balancing pick and adds one to
 ROUTER_STATS.fallbacks (/metrics: llm_router_fallbacks), as the raw sink
-does. The snapshot publisher feeds a standalone exporter, which the port
-does not have yet: the frontend's own /metrics shows the counters.
+does. The snapshot publisher feeds the standalone exporter
+(observability/exporter.py, `llm_reliability_*{source}`).
 """
 from __future__ import annotations
 
@@ -617,9 +617,12 @@ class ReliableClient:
             try:
                 # the decision log is keyed by the engine-level id: a
                 # retry or migration clone logs as {id}~a{n}
+                # the QoS class rides the baggage: the selector scales its
+                # transfer cost by the class's latency weight
                 wid = await self.router.schedule(pre.token_ids,
                                                  exclude=exclude,
-                                                 request_id=pre.request_id)
+                                                 request_id=pre.request_id,
+                                                 qos=qos_of(ctx.baggage))
                 if wid not in exclude or required:
                     return wid
                 # the router's all-excluded fallback handed back an

@@ -63,8 +63,12 @@ The cross-host pool's `llm_kv_pool_remote_*` / `llm_pool_ring_*`
 streamed decode's `llm_kv_stream_*` (engine/streaming.py STREAM_STATS, JAX
 :252-260) are folded at render the same way.
 
+The engine ledger's `llm_engine_*` (observability/ledger.py LEDGER_STATS,
+JAX :200-208, :339-341) is folded the same way, and `llm_router_*` carries
+the transfer-aware selector's fields (kv_router/stats.py, JAX :169-177).
+
 Left out, each with the later slice that brings its module: the
-per-stream transfer, ledger and autoscaler gauges.
+per-stream transfer and autoscaler gauges.
 Reference equivalent: the axum HttpService (reference:
 lib/llm/src/http/service/service_v2.rs:23-130, openai.rs:132-540).
 """
@@ -90,6 +94,7 @@ from dynamo_tpu_torch.frontend.reliability import (
 from dynamo_tpu_torch.kv_router.stats import (
     ROUTER_STATS, RouterScoringStats,
 )
+from dynamo_tpu_torch.observability.ledger import LEDGER_STATS, LedgerStats
 from dynamo_tpu_torch.llm.tool_calls import (
     TOOL_CALL_TAG, apply_tool_calls, could_be_tool_call_prefix,
     parse_tool_calls, tag_hold_len,
@@ -229,6 +234,14 @@ class HttpService:
             name: m.gauge(f"llm_kv_stream_{name}",
                           f"tiered-kv streaming: {name.replace('_', ' ')}")
             for name in StreamStats.FIELDS}
+        # the per-step engine ledger (observability/ledger.py
+        # LEDGER_STATS, JAX :200-208): step counts by kind, recompiles,
+        # padding waste, KV tier and batch occupancy, queue depth, EWMA
+        # tok/s and the MFU estimate
+        self._engine = {
+            name: m.gauge(f"llm_engine_{name}",
+                          f"engine step ledger: {name.replace('_', ' ')}")
+            for name in LedgerStats.FIELDS}
         # failpoint hits and injections, drains, and the fail-slow plane's
         # detection and hedging counters, folded at render
         self._fault_hits = m.gauge(
@@ -290,6 +303,7 @@ class HttpService:
                               (self._kv_pool_remote, REMOTE_STATS),
                               (self._pool_ring, RING_STATS),
                               (self._kv_stream, STREAM_STATS),
+                              (self._engine, LEDGER_STATS),
                               (self._drain, DRAIN_STATS),
                               (self._health_gauges, HEALTH_STATS)):
             for name, value in stats.snapshot().items():

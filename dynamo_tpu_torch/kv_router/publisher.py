@@ -24,6 +24,8 @@ from dynamo_tpu_torch.kv_router.scoring import ProcessedEndpoints, WorkerMetrics
 log = logging.getLogger("dynamo_tpu_torch.kv_router")
 
 KV_EVENTS_SUBJECT = "kv_events"
+# one event a routing decision (KvRouter with publish_hit_events=True)
+KV_HIT_RATE_SUBJECT = "kv-hit-rate"
 
 
 class KvEventPublisher:

@@ -9,25 +9,34 @@ answers `schedule(tokens) -> worker_id`. An instance that leaves discovery
 when its watch event arrives; a DRAINING instance is fenced out of prefix
 scoring and, through the client's draining ids, out of the candidates.
 
-The selector defaults to `DefaultWorkerSelector` (prefix overlap and load).
-The JAX default, `TransferAwareSelector`, ranks the same while no KV
-transfer link has been measured, which is always so in an aggregated
-deployment; it comes with the disaggregated data plane. The shared pool's
-sources (router.py:111-160, :261-297): `pool:{worker}` scores leave the
-resident score map at schedule time and fold into one fetchable depth
-(`_split_pool_scores`, the decision's `pool_blocks`), never a live
-worker's resident overlap; a dead worker's pool entries go with its watch
-delete; a `pool-host:` instance event feeds `pool_membership`
-(runtime/placement.py), and with no live pool host the depth is 0. Left
-out: the pricing of that depth (TransferAwareSelector, A14); with the
-fail-slow plane: the health-score eviction; with QoS: the class weight;
-and the per-decision `kv-hit-rate` events, which no JAX caller turns on.
+The selector defaults to `TransferAwareSelector`, the JAX serving default
+(router.py:61-67): prefix overlap and load, plus the transfer cost of the
+pages a candidate lacks at the process-global TransferCostModel
+(observability/fleet.py) and the fail-slow health penalty. The cost term
+is live even when no link has been measured (the cold prior prices every
+missing page), so it can pick another worker than `DefaultWorkerSelector`
+would on the same inputs; the degraded mode freezes it (`freeze_cost`).
+The shared pool's sources (router.py:111-160, :261-297): `pool:{worker}`
+scores leave the resident score map at schedule time and fold into one
+fetchable depth (`_split_pool_scores`, the decision's `pool_blocks`),
+which the selector prices as a fetch, never as a live worker's resident
+overlap; a dead worker's pool entries, its health evidence and its
+endpoint entry go with its watch delete; a `pool-host:` instance event
+feeds `pool_membership` (runtime/placement.py), and with no live pool host
+the depth is 0. `schedule(..., qos=)` resolves the request's class through
+runtime/qos.DEFAULT_POLICY and passes its latency weight. With
+publish_hit_events=True (the standalone router service,
+kv_router/main.py) every decision's `kv-hit-rate` event is published on
+the router's component.
 
 `decisions` keeps the last DECISION_LOG decisions (request id, the winner,
-its matched and required pages, every worker's score, and every
-candidate's selector terms: matched pages, overlap share, kv_usage, active
-share, logit, and whether its load snapshot was scraped, carried forward
-or defaulted) for inspection.
+its matched and required pages, the pool depth, the QoS class, every
+worker's score, and every candidate's selector terms, with whether its
+load snapshot was scraped, carried forward or defaulted) for inspection;
+with the default selector a candidate's terms are its matched pages and
+the JAX selector's components (overlap share, kv_usage, active share,
+transfer bytes and seconds, pool blocks, health, logit; rounded as JAX
+rounds them).
 """
 from __future__ import annotations
 
@@ -43,16 +52,20 @@ from dynamo_tpu_torch.kv_router.protocols import (
     pool_source_worker,
 )
 from dynamo_tpu_torch.kv_router.publisher import (
-    KV_EVENTS_SUBJECT, KvMetricsAggregator,
+    KV_EVENTS_SUBJECT, KV_HIT_RATE_SUBJECT, KvMetricsAggregator,
 )
-from dynamo_tpu_torch.kv_router.scheduler import KvScheduler, WorkerSelector
+from dynamo_tpu_torch.kv_router.scheduler import (
+    KvScheduler, TransferAwareSelector, WorkerSelector,
+)
 from dynamo_tpu_torch.observability.serving import SERVING
 from dynamo_tpu_torch.runtime.backoff import Backoff
 from dynamo_tpu_torch.runtime.component import (
     STATUS_DRAINING, instance_status,
 )
 from dynamo_tpu_torch.runtime.cpstats import CP_STATS
+from dynamo_tpu_torch.runtime.health import HEALTH
 from dynamo_tpu_torch.runtime.placement import is_pool_host_instance
+from dynamo_tpu_torch.runtime.qos import DEFAULT_POLICY
 
 log = logging.getLogger("dynamo_tpu_torch.kv_router")
 
@@ -75,12 +88,16 @@ class KvRouter:
 
     def __init__(self, component, worker_client, block_size: int,
                  selector: Optional[WorkerSelector] = None,
-                 scrape_interval_s: float = 0.5, pool_membership=None):
+                 scrape_interval_s: float = 0.5, pool_membership=None,
+                 publish_hit_events: bool = False):
         self.component = component
         self.client = worker_client
         self.block_size = block_size
         self.indexer = KvIndexer(block_size)
-        self.scheduler = KvScheduler(block_size, selector)
+        self.scheduler = KvScheduler(
+            block_size, selector if selector is not None
+            else TransferAwareSelector())
+        self.publish_hit_events = publish_hit_events
         self.aggregator = KvMetricsAggregator(worker_client, scrape_interval_s)
         self.pool_membership = pool_membership
         self.degraded = False
@@ -128,6 +145,9 @@ class KvRouter:
             self.indexer.remove_worker(worker_id)
             self.indexer.remove_worker(pool_source_id(worker_id))
             self.scheduler.remove_worker(worker_id)
+            # a dead worker's latency evidence must not bias a reused
+            # instance name
+            HEALTH.forget(worker_id)
         elif kind == "put" and instance_status(info) == STATUS_DRAINING:
             # drain fence: keep the worker out of prefix scoring so cached
             # overlap cannot pull new streams onto it
@@ -200,6 +220,11 @@ class KvRouter:
         CP_STATS.event_backlog = backlog
         CP_STATS.router_degraded = int(self.degraded)
         CP_STATS.router_degraded_entries = self.degraded_entries
+        # while the snapshot is stale the transfer cost freezes at its
+        # last-good per-worker values instead of recomputing from it
+        freeze = getattr(self.scheduler.selector, "freeze_cost", None)
+        if freeze is not None:
+            freeze(self.degraded)
 
     async def stop(self) -> None:
         if self._event_task:
@@ -235,27 +260,44 @@ class KvRouter:
             pool_matched = max(pool_matched, score)
         return pool_matched
 
+    @property
+    def last_score_components(self) -> dict:
+        """Per-worker score components of the last decision (transfer-
+        aware selectors only; {} otherwise)."""
+        return getattr(self.scheduler.selector, "last_components", {})
+
     async def schedule(self, tokens: Sequence[int], exclude=(),
-                       request_id: str = "") -> str:
+                       request_id: str = "", qos: str = "") -> str:
         """Pick the best worker for this token sequence; returns its id.
         `exclude` drops instances from scoring unless that would leave no
-        candidates; DRAINING instances join the exclusion the same way."""
+        candidates; DRAINING instances join the exclusion the same way.
+        `qos`: the request's QoS class; its latency weight scales the
+        transfer-aware selector's cost term."""
         t0 = time.monotonic()
         drains = self.client.draining_ids()
         if drains:
             exclude = set(exclude) | set(drains)
         overlap = self.find_matches_for_tokens(tokens)
         pool_matched = self._split_pool_scores(overlap)
-        sel = self.scheduler.schedule(len(tokens), overlap, exclude=exclude)
+        qos_cls = DEFAULT_POLICY.resolve(qos or None)
+        sel = self.scheduler.schedule(
+            len(tokens), overlap, exclude=exclude, pool_matched=pool_matched,
+            qos=qos_cls.name, qos_weight=qos_cls.latency_weight)
         SERVING.schedule.observe(value=time.monotonic() - t0)
         sources = self.aggregator.snapshot_source
         self.decisions.append({
             "request_id": request_id, "worker_id": sel.worker_id,
             "overlap_blocks": sel.overlap_blocks,
             "required_blocks": sel.required_blocks,
-            "pool_blocks": pool_matched,
+            "pool_blocks": pool_matched, "qos": qos_cls.name,
             "scores": dict(overlap.scores),
             "candidates": [
                 {**c, "snapshot": sources.get(c["worker_id"], "unknown")}
                 for c in sel.candidates]})
+        hits = self.scheduler.drain_hit_events()
+        if self.publish_hit_events:
+            for ev in hits:
+                await self.component.publish(KV_HIT_RATE_SUBJECT, {
+                    "worker_id": ev.worker_id, "isl_blocks": ev.isl_blocks,
+                    "overlap_blocks": ev.overlap_blocks})
         return sel.worker_id

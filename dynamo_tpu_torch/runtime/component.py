@@ -74,6 +74,16 @@ def instance_status(info: Optional[Dict[str, Any]]) -> str:
     return info.get("status", STATUS_READY)
 
 
+def instance_role(info: Optional[Dict[str, Any]]) -> Optional[str]:
+    """Serving role carried in the instance-key JSON ("role": "prefill" /
+    "decode" on disaggregated fleets; JAX component.py:67). Absent =>
+    None: a role-less instance serves everything, so role-filtered
+    callers (observability/fleet.FleetRollup) treat None as a wildcard."""
+    if not info:
+        return None
+    return info.get("role")
+
+
 def instance_key(ns: str, comp: str, endpoint: str, worker_id: str) -> str:
     return f"{ns}/components/{comp}/{endpoint}:{worker_id}"
 

@@ -19,11 +19,12 @@ hysteresis:
   every transition is appended to `timeline`.
 
 The breaker's latency-tripped SLOW state and the hedge trigger consume it
-(frontend/reliability.py); /metrics folds HEALTH_STATS and HEDGE_STATS as
-`llm_health_*` / `llm_hedge_*` (frontend/service.py). The router's health
-logit and the transfer plane's link-error evidence wait for the fail-slow
-routing slice (ROADMAP A14); `observe_link_err` is kept so the scorer's
-arithmetic stays the JAX package's.
+(frontend/reliability.py), and so does the router's logit
+(kv_router/scheduler.TransferAwareSelector pays HEALTH_WEIGHT * (1 -
+score)); /metrics folds HEALTH_STATS and HEDGE_STATS as `llm_health_*` /
+`llm_hedge_*` (frontend/service.py). The transfer plane's link-error
+evidence waits for its slice (ROADMAP A14); `observe_link_err` is kept so
+the scorer's arithmetic stays the JAX package's.
 """
 from __future__ import annotations
 

@@ -25,8 +25,10 @@ counters.
   tokens) within a class.
 
 Pure stdlib: the engine scheduler, the frontend and the reliability layer
-all import it. The class-weighted prefill queue and the router's latency
-weighting wait for their slices (ROADMAP A14).
+all import it. The router scales its transfer cost by the class's
+`latency_weight` (kv_router/router.KvRouter.schedule), and the SLO
+watchdog's per-class specs take the class targets. The class-weighted
+prefill queue waits for its slice (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -44,17 +46,20 @@ STRIDE_K = 10_000.0
 
 @dataclasses.dataclass(frozen=True)
 class QosClass:
-    """One tenant class and its budgets.
+    """One tenant class and its budgets and targets.
 
     `priority` orders classes for preemption and queue bypass (higher
     preempts lower); `weight` sets the weighted-fair admission share;
     `rate_per_s`/`burst` are the admission token bucket (0 = unlimited);
     `max_concurrency` caps simultaneously admitted requests of this class
-    (0 = no cap); `preempt_budget` bounds OUTSTANDING cross-class
-    preemptions this class may cause (debt repaid when a victim resumes —
-    0 means the class may never preempt anyone). The JAX table's SLO
-    targets and router latency weight come with their readers, the SLO
-    watchdog and the router's latency weighting (ROADMAP A14)."""
+    (0 = no cap); `ttft_target_s`/`itl_target_s` feed the per-class
+    SloSpecs the watchdog pages on (observability/slo.qos_slo_specs);
+    `preempt_budget` bounds OUTSTANDING cross-class preemptions this
+    class may cause (debt repaid when a victim resumes — 0 means the
+    class may never preempt anyone); `latency_weight` scales the router's
+    transfer / backlog cost term (kv_router/scheduler.py
+    TransferAwareSelector: latency-sensitive classes avoid backlogged
+    links first)."""
 
     name: str
     priority: int
@@ -62,13 +67,22 @@ class QosClass:
     rate_per_s: float = 0.0
     burst: float = 0.0
     max_concurrency: int = 0
+    ttft_target_s: float = 2.0
+    itl_target_s: float = 0.25
     preempt_budget: int = 0
+    latency_weight: float = 1.0
 
 
 DEFAULT_CLASSES: Tuple[QosClass, ...] = (
-    QosClass("interactive", priority=2, weight=8.0, preempt_budget=4),
-    QosClass("standard", priority=1, weight=3.0, preempt_budget=1),
-    QosClass("batch", priority=0, weight=1.0, preempt_budget=0),
+    QosClass("interactive", priority=2, weight=8.0, ttft_target_s=0.5,
+             itl_target_s=0.1, preempt_budget=4, latency_weight=2.0),
+    QosClass("standard", priority=1, weight=3.0, ttft_target_s=2.0,
+             itl_target_s=0.25, preempt_budget=1, latency_weight=1.0),
+    # the batch TTFT target sits inside the serving histogram's bucket
+    # ladder (top finite bound 30 s): the bucket quantile cannot exceed
+    # the largest finite bound, so a target at the top could never fire
+    QosClass("batch", priority=0, weight=1.0, ttft_target_s=20.0,
+             itl_target_s=1.0, preempt_budget=0, latency_weight=0.5),
 )
 
 
@@ -97,6 +111,11 @@ class QosPolicy:
 
     def resolve(self, name: Optional[str]) -> QosClass:
         return self.classes.get(name or "", self.classes[self.default])
+
+    def names(self) -> List[str]:
+        """Class names, highest priority first."""
+        return sorted(self.classes,
+                      key=lambda n: -self.classes[n].priority)
 
     def priority_of(self, name: Optional[str]) -> int:
         return self.resolve(name).priority

@@ -25,7 +25,8 @@ delete evicting a dead worker's pool entries at event time), the worker's
 pool publisher, and the gather decode window (`decode_kernel="off"`)
 reading a page onboarded from the host tier and a page fetched from the
 pool, token-identical to the JAX gather window with the same tiers. The
-selector cases (:338-392) price pool fetches and wait for A14's selector.
+selector cases (:338-392): the transfer-aware selector prices a pool
+depth on both packages, with equal picks, components and router counters.
 """
 import asyncio
 import re
@@ -782,3 +783,84 @@ def test_gather_window_reads_onboarded_and_pool_pages(sides):
     assert (tf, to) == (jf, jo)
     assert tf == 3 and to > 0
     assert calls, "the gather window never ran"
+
+
+# -- routing: fetchable prefixes priced (JAX :338-392) ------------------------
+
+def _pool_case(pkg: str, bw: dict, workers: dict, isl: int, scores: dict,
+               pool_matched: int):
+    """One package's KvScheduler over a TransferAwareSelector with a
+    private cost model seeded with `bw` (the JAX test's _sched / _model):
+    (pick, last_components, the JAX router counters)."""
+    import random
+    if pkg == "jax":
+        from dynamo_tpu.kv_router import indexer, scheduler, scoring, stats
+        from dynamo_tpu.observability.fleet import TransferCostModel
+    else:
+        from dynamo_tpu_torch.kv_router import (
+            indexer, scheduler, scoring, stats,
+        )
+        from dynamo_tpu_torch.observability.fleet import TransferCostModel
+    model = TransferCostModel()
+    for link, bytes_per_s in bw.items():
+        model.observe(link, int(bytes_per_s), 1.0)
+    stats.ROUTER_STATS.reset()
+    sel = scheduler.TransferAwareSelector(
+        cost_model=model, rng=random.Random(0), health_of=lambda w: 1.0)
+    if pkg == "jax":
+        sel.default_block_bytes = 1 << 20
+    else:
+        sel.DEFAULT_BLOCK_BYTES = 1 << 20
+    sched = scheduler.KvScheduler(block_size=16, selector=sel)
+    sched.update_endpoints(scoring.ProcessedEndpoints({
+        w: scoring.WorkerMetrics(**kw) for w, kw in workers.items()}))
+    pick = sched.schedule(isl, indexer.MatchResult(scores=dict(scores)),
+                          pool_matched=pool_matched)
+    snap = stats.ROUTER_STATS.snapshot()
+    return (getattr(pick, "worker_id", pick),
+            sched.selector.last_components,
+            {k: snap[k] for k in ("transfer_scored", "cold_scored",
+                                  "pool_scored", "last_pool_fetch_blocks",
+                                  "last_transfer_est_s",
+                                  "last_transfer_bytes")})
+
+
+def _pool_both(*args):
+    want = _pool_case("jax", *args)
+    got = _pool_case("torch", *args)
+    assert got == want
+    return got
+
+
+POOL_LOAD = dict(request_total_slots=8, kv_total_blocks=100)
+
+
+def test_selector_pool_blocks_reduce_bytes_to_move_and_join_overlap():
+    _, comps, st = _pool_both(dict(w1=1 << 28, w2=1 << 28),
+                              dict(w1=POOL_LOAD, w2=POOL_LOAD), 160, {}, 6)
+    for w in ("w1", "w2"):
+        assert comps[w]["pool_blocks"] == 6
+        assert comps[w]["transfer_bytes"] == 4 * (1 << 20)
+        assert comps[w]["pool_fetch_bytes"] == 6 * (1 << 20)
+        assert comps[w]["overlap"] == pytest.approx(6 * 16 / 160)
+    assert st["pool_scored"] >= 1
+    assert st["last_pool_fetch_blocks"] == 6
+
+
+def test_selector_resident_beats_fetchable_at_equal_depth():
+    picked, comps, _ = _pool_both(
+        dict(holder=1 << 26, fetcher=1 << 26),
+        dict(holder=POOL_LOAD, fetcher=POOL_LOAD), 160, {"holder": 6}, 6)
+    assert picked == "holder"
+    assert comps["holder"]["pool_blocks"] == 0
+    assert comps["fetcher"]["pool_blocks"] == 6
+    assert comps["fetcher"]["transfer_s"] > comps["holder"]["transfer_s"]
+
+
+def test_selector_pool_match_beats_no_reuse_on_fast_links():
+    picked, comps, _ = _pool_both(
+        dict(w1=1 << 30, w2=1 << 30),
+        dict(w1=POOL_LOAD, w2=dict(POOL_LOAD, request_active_slots=1)),
+        160, {}, 8)
+    assert picked == "w1"
+    assert comps["w1"]["overlap"] > 0

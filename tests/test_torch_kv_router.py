@@ -371,3 +371,428 @@ def test_aggregator_records_each_snapshot_source():
                                    "w2": "defaulted"}
     assert agg.endpoints.workers["w1"].kv_active_blocks == 0
     assert agg.endpoints.workers["w2"].kv_total_blocks == 1
+
+
+# -- the transfer-aware selector (JAX tests/test_kv_router.py:188-306) -------
+
+def _sel_pkg(name: str) -> dict:
+    if name == "jax":
+        from dynamo_tpu.kv_router import indexer, scheduler, scoring, stats
+        from dynamo_tpu.observability import fleet
+    else:
+        from dynamo_tpu_torch.kv_router import (
+            indexer, scheduler, scoring, stats,
+        )
+        from dynamo_tpu_torch.observability import fleet
+    return {"indexer": indexer, "scheduler": scheduler, "scoring": scoring,
+            "stats": stats, "fleet": fleet}
+
+
+JAX_STATS = ("transfer_scored", "cold_scored", "frozen_scored",
+             "last_transfer_est_s", "last_transfer_bytes", "est_err_abs_frac",
+             "pool_scored", "last_pool_fetch_blocks", "health_scored",
+             "last_pick_health")
+
+
+@pytest.fixture(autouse=True)
+def _reset_router_state():
+    """Both packages' process-global cost models, health scorers and
+    router counters start each case empty."""
+    for name in ("jax", "torch"):
+        m = _sel_pkg(name)
+        m["fleet"].TRANSFER_MODEL.reset()
+        m["stats"].ROUTER_STATS.reset()
+    from dynamo_tpu.runtime.health import HEALTH as JH
+    from dynamo_tpu_torch.runtime.health import HEALTH as TH
+    JH.reset()
+    TH.reset()
+    yield
+    for name in ("jax", "torch"):
+        _sel_pkg(name)["fleet"].TRANSFER_MODEL.reset()
+
+
+def set_block_bytes(sel, nbytes):
+    """The page bytes a selector charges for a worker that reports no
+    kv_page_bytes: a JAX constructor option, the port's class constant
+    (set on this instance)."""
+    if hasattr(sel, "DEFAULT_BLOCK_BYTES"):
+        sel.DEFAULT_BLOCK_BYTES = nbytes
+    else:
+        sel.default_block_bytes = nbytes
+
+
+class SelectorCase:
+    """One package's KvScheduler over a TransferAwareSelector with a
+    private seeded cost model (the JAX test's helpers)."""
+
+    def __init__(self, name, bw, block_size=16, block_bytes=1 << 20,
+                 **kw):
+        self.m = m = _sel_pkg(name)
+        self.model = m["fleet"].TransferCostModel()
+        for link, bytes_per_s in bw.items():
+            self.model.observe(link, int(bytes_per_s), 1.0)
+        kw.setdefault("rng", random.Random(0))
+        self.sel = m["scheduler"].TransferAwareSelector(
+            cost_model=self.model, **kw)
+        set_block_bytes(self.sel, block_bytes)
+        self.sched = m["scheduler"].KvScheduler(block_size=block_size,
+                                                selector=self.sel)
+
+    def endpoints(self, **workers):
+        sc = self.m["scoring"]
+        self.sched.update_endpoints(sc.ProcessedEndpoints({
+            w: sc.WorkerMetrics(**kw) for w, kw in workers.items()}))
+
+    def schedule(self, isl, scores=None, **kw):
+        out = self.sched.schedule(
+            isl, self.m["indexer"].MatchResult(scores=dict(scores or {})),
+            **kw)
+        return getattr(out, "worker_id", out)
+
+    def stats(self):
+        snap = self.m["stats"].ROUTER_STATS.snapshot()
+        return {k: snap[k] for k in JAX_STATS}
+
+
+def _both_selectors(script):
+    """script(case) -> result on each package; results, last components
+    and the JAX router counters must be equal. Returns the port's case
+    and result."""
+    out = {}
+    for name in ("jax", "torch"):
+        _sel_pkg(name)["stats"].ROUTER_STATS.reset()
+        case, res = script(name)
+        out[name] = (case, res, case.sel.last_components,
+                     case.sel.last_pick, case.stats())
+    (_, jres, jcomp, jpick, jst), (tcase, tres, tcomp, tpick, tst) = \
+        out["jax"], out["torch"]
+    assert tres == jres
+    assert tcomp == jcomp
+    assert tpick == jpick
+    assert tst == jst
+    return tcase, tres
+
+
+LOAD = dict(request_total_slots=8, kv_total_blocks=100)
+
+
+def test_transfer_slow_link_loses_at_equal_overlap_and_load():
+    def script(name):
+        c = SelectorCase(name, dict(fast=1 << 30, slow=1 << 22))
+        c.endpoints(fast=LOAD, slow=LOAD)
+        return c, c.schedule(160)
+    c, pick = _both_selectors(script)
+    assert pick == "fast"
+    comps = c.sel.last_components
+    assert comps["slow"]["transfer_s"] > comps["fast"]["transfer_s"]
+    assert not comps["fast"]["cold"] and not comps["slow"]["cold"]
+
+
+def test_transfer_overlap_shrinks_bytes_to_move():
+    def script(name):
+        c = SelectorCase(name, dict(warm=1 << 28, cold_w=1 << 28))
+        c.endpoints(warm=LOAD, cold_w=LOAD)
+        return c, c.schedule(160, {"warm": 8})
+    c, pick = _both_selectors(script)
+    assert pick == "warm"
+    comps = c.sel.last_components
+    assert comps["warm"]["transfer_bytes"] < comps["cold_w"]["transfer_bytes"]
+
+
+def test_transfer_cold_link_neither_free_nor_infinite():
+    def script(name):
+        c = SelectorCase(name, dict(measured=1 << 24))
+        c.endpoints(measured=LOAD, never_seen=LOAD)
+        return c, c.schedule(160)
+    c, _ = _both_selectors(script)
+    comp = c.sel.last_components["never_seen"]
+    assert comp["cold"] is True
+    assert 0.0 < comp["transfer_s"] < float("inf")
+    assert comp["transfer_s"] == pytest.approx(
+        c.sel.last_components["measured"]["transfer_s"])
+    assert comp["transfer_norm"] <= c.sel.MAX_PENALTY
+    assert c.stats()["cold_scored"] >= 1
+
+
+def test_transfer_degraded_freeze_pins_cost_term():
+    def script(name):
+        c = SelectorCase(name, dict(a=1 << 30, b=1 << 30))
+        c.endpoints(a=LOAD, b=LOAD)
+        c.schedule(160)
+        live_a = c.sel.last_components["a"]["transfer_s"]
+        c.sel.freeze_cost(True)
+        for _ in range(8):
+            c.model.observe("a", 1 << 10, 1.0)
+        c.schedule(160)
+        frozen = dict(c.sel.last_components["a"])
+        c.sel.freeze_cost(False)
+        c.schedule(160)
+        return c, (live_a, frozen)
+    c, (live_a, frozen) = _both_selectors(script)
+    assert frozen["frozen"] is True
+    assert frozen["transfer_s"] == pytest.approx(live_a)
+    thawed = c.sel.last_components["a"]
+    assert thawed["frozen"] is False
+    assert thawed["transfer_s"] > live_a
+
+
+def test_transfer_router_stats_and_components_exposed():
+    def script(name):
+        c = SelectorCase(name, dict(w1=1 << 28))
+        c.endpoints(w1=LOAD)
+        return c, c.schedule(64)
+    c, _ = _both_selectors(script)
+    assert c.stats()["transfer_scored"] == 1
+    assert c.sel.last_pick["worker_id"] == "w1"
+    for key in ("overlap", "kv_usage", "active", "transfer_s",
+                "transfer_norm", "cold", "frozen", "logit"):
+        assert key in c.sel.last_pick
+
+
+def _fleet(seed: int):
+    """A seeded fleet: 4 workers with distinct loads (no ties), some
+    measured links, llama3-8b's 8 MiB pages or tiny pages, overlaps."""
+    rng = np.random.default_rng(seed)
+    active = rng.permutation(400)[:4]
+    page = int(rng.choice([8 << 20, 64 << 10, 0]))
+    workers = {f"w{i}": dict(request_active_slots=int(rng.integers(0, 8)),
+                             request_total_slots=8,
+                             kv_active_blocks=int(active[i]),
+                             kv_total_blocks=512, kv_page_bytes=page)
+               for i in range(4)}
+    bw = {f"w{i}": float(rng.choice([1e8, 1e9, 1e10]))
+          for i in range(4) if rng.random() < 0.5}
+    scores = {f"w{i}": int(rng.integers(0, 17)) for i in range(4)
+              if rng.random() < 0.6}
+    return workers, bw, scores, rng
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("variant", ["plain", "pool", "qos", "frozen",
+                                     "health"])
+def test_transfer_components_equal_jax_on_seeded_fleets(seed, variant):
+    """The selector's components equal the JAX selector's on seeded fleets
+    with and without a pool depth, QoS weights, a frozen cost and a
+    degraded worker's health."""
+    workers, bw, scores, rng = _fleet(seed)
+    pool = int(rng.integers(1, 17)) if variant == "pool" else 0
+    qos = [("batch", 0.5), ("interactive", 2.0)][seed % 2] \
+        if variant == "qos" else ("", 1.0)
+    health = {"w1": 0.4} if variant == "health" else {}
+
+    def script(name):
+        c = SelectorCase(name, bw, block_size=64,
+                         health_of=lambda w: health.get(w, 1.0),
+                         block_bytes=64 << 10)
+        c.endpoints(**workers)
+        picks = [c.schedule(1088, scores, pool_matched=pool, qos=qos[0],
+                            qos_weight=qos[1])]
+        if variant == "frozen":
+            c.sel.freeze_cost(True)
+            c.model.observe("w0", 1 << 10, 1.0)
+            picks.append(c.schedule(1088, scores))
+        return c, picks
+    c, _ = _both_selectors(script)
+    assert len(c.sel.last_components) == 4
+    if variant == "frozen":
+        assert all(v["frozen"] for v in c.sel.last_components.values())
+
+
+# -- the fault: the default router is the JAX default router -----------------
+
+AB_PAGE = 64
+AB_PAGE_BYTES = 64 * 32 * 8 * 128 * 2 * 2     # llama3-8b bf16: 8 MiB
+
+
+def _fill_pages(kv_cache, alloc, tokens, page):
+    parent, pages = 0, []
+    for i in range(len(tokens) // page):
+        chunk = tokens[i * page:(i + 1) * page]
+        pid = alloc.allocate()
+        parent = alloc.seal(pid, parent, chunk)
+        pages.append(pid)
+    for pid in pages:
+        alloc.free(pid)
+
+
+async def _default_router_picks(pkg: str, fleets: list) -> list:
+    """For each (workers' $STATS, {worker: held prefix tokens}, query,
+    qos) a fresh plane, workers that publish their held pages, and a
+    KvRouter with NO selector argument: the package's default. Returns
+    each decision's worker and the selector's components."""
+    m = _pkg(pkg)
+    DRT = m["distributed"].DistributedRuntime
+    out = []
+    for stats, held, query, qos in fleets:
+        plane = m["memory"].MemoryPlane()
+        rts, comps = [], {}
+        for wid, st in stats.items():
+            rt = await DRT.create_local(plane, wid)
+            rts.append(rt)
+            comps[wid] = rt.namespace("ns").component("w")
+
+            async def engine(request, context):
+                yield {}
+            await comps[wid].endpoint("gen").serve(
+                engine, stats_handler=lambda st=st: dict(st))
+        frt = await DRT.create_local(plane, "frontend")
+        rts.append(frt)
+        fcomp = frt.namespace("ns").component("w")
+        client = fcomp.endpoint("gen").client()
+        await client.start()
+        router = m["router"].KvRouter(fcomp, client, AB_PAGE,
+                                      scrape_interval_s=3600.0)
+        await router.start()
+        try:
+            published = 0
+            for wid, toks in held.items():
+                if len(toks) < AB_PAGE:
+                    continue
+                alloc = m["kv_cache"].PageAllocator(64, AB_PAGE)
+                _fill_pages(m["kv_cache"], alloc, toks, AB_PAGE)
+                pub = m["publisher"].KvEventPublisher(comps[wid], wid)
+                published += await pub.publish_allocator_events(
+                    alloc.drain_events())
+            while len(router.scheduler.endpoints.workers) < len(stats) \
+                    or router.events_applied < published:
+                await asyncio.sleep(0.005)
+            kw = {"qos": qos} if qos else {}
+            wid = await router.schedule(query, **kw)
+            out.append((wid, router.last_score_components))
+        finally:
+            await router.stop()
+            for rt in rts:
+                await rt.shutdown()
+    return out
+
+
+def _ab_case():
+    rng = np.random.default_rng(11)
+    prompt = [int(t) for t in rng.integers(3, 30000, 1088)]
+    stats = {"A": dict(request_active_slots=4, request_total_slots=8,
+                       kv_active_blocks=0, kv_total_blocks=1000,
+                       kv_page_bytes=AB_PAGE_BYTES),
+             "B": dict(request_active_slots=0, request_total_slots=8,
+                       kv_active_blocks=0, kv_total_blocks=1000,
+                       kv_page_bytes=AB_PAGE_BYTES)}
+    return stats, {"A": prompt[:4 * AB_PAGE]}, prompt, ""
+
+
+def _seeded_fleet(seed: int):
+    rng = np.random.default_rng(100 + seed)
+    docs = [[int(t) for t in rng.integers(3, 30000, 1600)]
+            for _ in range(2)]
+    busy = rng.permutation(8)[:3]
+    kv = rng.permutation(900)[:3]
+    stats = {f"w{i}": dict(request_active_slots=int(busy[i]),
+                           request_total_slots=8,
+                           kv_active_blocks=int(kv[i]),
+                           kv_total_blocks=1000,
+                           kv_page_bytes=AB_PAGE_BYTES)
+             for i in range(3)}
+    held = {f"w{i}": docs[int(rng.integers(0, 2))][
+        :AB_PAGE * int(rng.integers(0, 12))] for i in range(3)}
+    q = docs[int(rng.integers(0, 2))][:int(rng.integers(200, 1600))]
+    qos = ["", "interactive", "batch", "standard"][seed % 4]
+    return stats, held, q, qos
+
+
+def test_default_router_picks_the_jax_default_routers_worker():
+    """The A/B case: llama3-8b pages of 8 MiB, a 1088-token prompt, A
+    holds 4 of its pages with 4 of 8 slots busy, B is idle. The JAX
+    default router (TransferAwareSelector) picks A (logits A -0.4656, B
+    -0.5704); the prefix-and-load formula alone would pick B. The port's
+    default router must pick A with the same components. Then seeded
+    fleets with QoS classes."""
+    fleets = [_ab_case()] + [_seeded_fleet(s) for s in range(6)]
+
+    async def go():
+        return (await _default_router_picks("jax", fleets),
+                await _default_router_picks("torch", fleets))
+    want, got = asyncio.run(asyncio.wait_for(go(), 120))
+    assert got == want
+    wid, comps = got[0]
+    assert wid == "A"
+    assert comps["A"]["logit"] == -0.4656 and comps["B"]["logit"] == -0.5704
+    # the prefix-and-load formula alone ranks B first on these inputs
+    assert (2 * comps["A"]["overlap"] - comps["A"]["kv_usage"]
+            - comps["A"]["active"]) < (2 * comps["B"]["overlap"]
+                                       - comps["B"]["kv_usage"]
+                                       - comps["B"]["active"])
+    assert all(c["cold"] for c in comps.values())
+    assert {q for _, _, _, q in fleets[1:]} >= {"interactive", "batch"}
+    assert {c["qos"] for _, cs in got[1:] for c in cs.values()} \
+        >= {"interactive", "batch", "standard"}
+
+
+# -- the standalone router service (kv_router/main.py) -----------------------
+
+async def _router_service_replies(pkg: str) -> tuple:
+    """Two workers, one holding a 3-page prefix (its allocator's events on
+    the event plane), the package's RouterService, and `route` queries over
+    the request plane: the replies and the kv-hit-rate events published."""
+    m = _pkg(pkg)
+    if pkg == "jax":
+        from dynamo_tpu.kv_router.main import RouterService
+    else:
+        from dynamo_tpu_torch.kv_router.main import RouterService
+    DRT = m["distributed"].DistributedRuntime
+    plane = m["memory"].MemoryPlane()
+    rts = []
+
+    async def fake_worker(request, context):
+        yield {"ok": True}
+    for wid in ("w0", "w1"):
+        rt = await DRT.create_local(plane, wid)
+        await rt.namespace("ns").component("worker").endpoint(
+            "generate").serve(fake_worker, stats_handler=lambda: {
+                "request_active_slots": 0, "request_total_slots": 4,
+                "kv_active_blocks": 0, "kv_total_blocks": 16})
+        rts.append(rt)
+    rrt = await DRT.create_local(plane, "router")
+    rts.append(rrt)
+    svc = RouterService(rrt, "ns", "worker", block_size=4)
+    await svc.start()
+    hits = await rrt.namespace("ns").component("worker").subscribe(
+        "kv-hit-rate")
+    try:
+        tokens = list(range(1, 13))
+        alloc = m["kv_cache"].PageAllocator(8, 4)
+        _fill_pages(m["kv_cache"], alloc, tokens, 4)
+        pub = m["publisher"].KvEventPublisher(
+            rts[1].namespace("ns").component("worker"), "w1")
+        n = await pub.publish_allocator_events(alloc.drain_events())
+        while svc.router.events_applied < n \
+                or len(svc.router.scheduler.endpoints.workers) < 2:
+            await asyncio.sleep(0.005)
+        crt = await DRT.create_local(plane, "client")
+        rts.append(crt)
+        client = crt.namespace("ns").component("router").endpoint(
+            "route").client()
+        await client.start()
+        await client.wait_for_instances()
+        replies = []
+        for req in ({"token_ids": tokens}, {"token_ids": tokens[:8]},
+                    {"token_ids": list(range(50, 60))}, {}):
+            replies.append([f async for f in await client.generate(req)])
+        # (subject, decoded payload) items
+        events = [(await asyncio.wait_for(hits.__anext__(), 5))[-1]
+                  for _ in range(3)]
+        return replies, events
+    finally:
+        await svc.stop()
+        for rt in rts:
+            await rt.shutdown()
+
+
+def test_router_service_replies_equal_jax():
+    async def go():
+        return (await _router_service_replies("jax"),
+                await _router_service_replies("torch"))
+    (jrep, jev), (rep, ev) = asyncio.run(asyncio.wait_for(go(), 60))
+    assert rep == jrep
+    assert rep[0][0]["worker_id"] == "w1"
+    assert rep[0][0]["overlap_blocks"] == 3
+    assert rep[3] == [{"error": "token_ids required"}]
+    assert ev == jev
+    assert ev[0]["isl_blocks"] == 3 and ev[0]["overlap_blocks"] == 3

@@ -298,3 +298,122 @@ def test_seeded_arrivals_admission_control_equal():
     assert got[1:] == want[1:]
     assert got[1] == 0
     assert any(e[1] == "shed" for e in got[0])
+
+
+# -- the class table's targets and the router's class weighting ---------------
+
+def test_default_classes_carry_jax_targets_and_latency_weights():
+    (jq, _), (tq, _) = PKGS
+    for j, t in zip(jq.DEFAULT_CLASSES, tq.DEFAULT_CLASSES):
+        assert (t.name, t.ttft_target_s, t.itl_target_s, t.latency_weight) \
+            == (j.name, j.ttft_target_s, j.itl_target_s, j.latency_weight)
+    assert tq.DEFAULT_POLICY.names() == jq.DEFAULT_POLICY.names()
+
+
+def test_qos_baggage_helpers_and_router_weighting():
+    """The class latency weight scales the transfer cost term: the slow
+    link holds a big resident prefix, batch (x0.5) keeps the prefix win,
+    interactive (x2.0) routes to the fast link; on both packages with the
+    same components."""
+    import random
+
+    def case(Q, R):
+        if Q is jqos:
+            from dynamo_tpu.kv_router import indexer, scheduler, scoring
+            from dynamo_tpu.observability.fleet import TransferCostModel
+        else:
+            from dynamo_tpu_torch.kv_router import (
+                indexer, scheduler, scoring,
+            )
+            from dynamo_tpu_torch.observability.fleet import (
+                TransferCostModel,
+            )
+        assert Q.qos_of({"qos": "batch"}) == "batch"
+        assert Q.qos_of(None) == "" and Q.qos_of({}) == ""
+        assert Q.qos_label({"qos": "interactive"}) == "interactive"
+        assert Q.qos_label({}) == "standard"
+        assert Q.qos_label({"qos": "bogus"}) == "standard"
+        model = TransferCostModel()
+        model.observe("slow", 2_000_000, 1.0)
+        model.observe("fast", 100_000_000, 0.1)
+        load = dict(kv_active_blocks=0, kv_total_blocks=100,
+                    request_active_slots=0, request_total_slots=8)
+        eps = scoring.ProcessedEndpoints(workers={
+            "slow": scoring.WorkerMetrics(**load),
+            "fast": scoring.WorkerMetrics(**load)})
+        sel = scheduler.TransferAwareSelector(
+            rng=random.Random(0), cost_model=model,
+            health_of=lambda w: 1.0)
+        overlap = indexer.MatchResult(scores={"slow": 64})
+        out = []
+        for cls in ("batch", "interactive"):
+            w = Q.DEFAULT_POLICY.resolve(cls).latency_weight
+            pick = sel.select_worker(eps, scheduler.SchedulingRequest(
+                640, overlap, qos=cls, qos_weight=w), 8)
+            out.append((pick.worker_id, sel.last_components))
+        return out, sel.last_pick
+    (batch, inter), pick = both(case)
+    assert batch[0] == "slow"
+    assert inter[0] == "fast"
+    assert pick["qos"] == "interactive"
+
+
+def test_per_class_histograms_feed_rollup_series_and_slo_specs():
+    """Per-class serving histograms -> the rollup's qos/{class}/* series
+    -> the per-class SloSpecs; the same series, summary and alerts on
+    both packages."""
+    def case(Q, R):
+        if Q is jqos:
+            from dynamo_tpu.observability.fleet import FleetRollup
+            from dynamo_tpu.observability.serving import SERVING
+            from dynamo_tpu.observability.slo import (
+                SloWatchdog, qos_slo_specs,
+            )
+            from dynamo_tpu.observability.timeseries import SeriesStore
+        else:
+            from dynamo_tpu_torch.observability.fleet import FleetRollup
+            from dynamo_tpu_torch.observability.serving import SERVING
+            from dynamo_tpu_torch.observability.slo import (
+                SloWatchdog, qos_slo_specs,
+            )
+            from dynamo_tpu_torch.observability.timeseries import (
+                SeriesStore,
+            )
+        SERVING.reset()
+        try:
+            for _ in range(6):
+                SERVING.ttft.observe("m", "interactive", value=0.02)
+                SERVING.ttft.observe("m", "batch", value=28.0)
+                SERVING.itl.observe("m", "batch", value=0.01)
+            SERVING.queue_wait.observe("batch", value=0.5)
+
+            class _Client:
+                async def scrape_stats(self):
+                    return {}
+
+            store = SeriesStore(interval_s=1.0, capacity=64)
+            rollup = FleetRollup(_Client(), store=store, interval_s=1.0)
+            for t in (100.0, 101.0, 102.0):
+                asyncio.run(rollup.scrape_once(ts=t))
+            series = {n: store.get(n).window(10.0, 102.0)
+                      for n in store.names("qos/")}
+            specs = qos_slo_specs(short_window_s=2.0, long_window_s=3.0,
+                                  min_samples=2)
+            wd = SloWatchdog(store, specs, degraded_fn=lambda: False)
+            events = wd.evaluate(102.0)
+            return (series, rollup.summary(ts=102.0)["qos"],
+                    [vars(s) for s in specs], events)
+        finally:
+            SERVING.reset()
+    series, qos, specs, events = both(case)
+    assert series["qos/interactive/ttft_p95"][-1] < 0.1
+    assert series["qos/batch/ttft_p95"][-1] > 1.0
+    assert "qos/batch/itl_p99" in series
+    assert "qos/batch/queue_wait_p95" in series
+    assert "batch" in qos
+    assert {"ttft_p95/interactive", "ttft_p95/batch",
+            "itl_p99/batch"} <= {s["name"] for s in specs}
+    assert all(s["degraded_exempt"] for s in specs)
+    fired = {e["slo"] for e in events if e["event"] == "fire"}
+    assert "ttft_p95/batch" in fired
+    assert "ttft_p95/interactive" not in fired
