@@ -117,6 +117,19 @@ Phases (any failed check exits non-zero; nothing is caught):
    up to the committed window steps, and each step's sample counts the
    token events that step emitted (the rest of the streams' tokens came
    out of the prefill and mixed steps). Prints ms a decode step both ways.
+   Then the budget tuner's leg on the same engine (`phase_budget_tuner`,
+   `phase seconds: 4 tuner`): 10 short greedy prompts of 6-17 token ids,
+   max_tokens 5-8, one admitted every 3 steps under the default mixed-step
+   budget (512), so the mixed and prefill steps pad most of their
+   [rows, bucket] tokens; after each step a MixedBudgetTuner
+   (runtime/autoscaler.py; pad_lo 0.10, pad_hi 0.30, step_frac 0.25,
+   bounds 128-4096, cooldown 4 s, hysteresis 2 windows, at least 64 padded
+   tokens a window) ticks on a virtual clock of 2.5 s a step, and every
+   adjustment is recomputed here (`TunerRule`) from the ledger's
+   useful_total / padded_total read at that tick, without reading the
+   tuner's state: the applied budgets must equal the recomputed ones, at
+   least one adjustment happens, the budget never reaches 0, every stream
+   ends with its max_tokens, no non-finite logits; the budget is restored.
 4b. Graph vs eager, on the main path's engine: for the greedy variant (the
    8 requests all greedy) and the fused one (the main path's mix), the next
    decode window of all 8 runs once as the graph replay and once as the
@@ -184,10 +197,15 @@ Phases (any failed check exits non-zero; nothing is caught):
    streamed chat ending in [DONE], then the subprocess is stopped; then the
    same for `tiny-moe --quant int8`.
 11. The distributed path at full width, as processes through the entry
-   points: `python -m dynamo_tpu_torch.runtime.transports.server --port 0`
-   (READY control-plane=:<port>); two workers started together,
+   points, over an HA control-plane pair: a durable primary, `python -m
+   dynamo_tpu_torch.runtime.transports.server --port 0 --data-dir A`
+   (READY control-plane=:<port>), and its hot standby (`--data-dir B
+   --standby-of 127.0.0.1:<port>`), which must answer the role probe
+   `standby`, synced, epoch 1 before any worker starts; every child then
+   names the pair in the comma form "127.0.0.1:<p>,127.0.0.1:<s>"
+   (`--control-host` / `--coordinator`). Two workers started together,
    `python -m dynamo_tpu_torch.run in=endpoint:dynamo.llm.generate
-   out=native llama3-8b --control-host 127.0.0.1 --control-port <port>
+   out=native llama3-8b --control-host <pair> --control-port <port>
    --mixed-token-budget 0 --max-prefill-batch 1` (llama3-8b at full width
    and depth, the same bf16 weights from seed 0 in both, bf16 KV pages,
    run.py's EngineConfig with prefill steps and decode windows
@@ -196,7 +214,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    apart; each READY line names the card it runs on, which must be this
    card; the workers run with DYN_PEAK_TFLOPS = 989, the H100 SXM dense
    bf16 peak, for the step ledger's MFU); the standalone router service
-   `python -m dynamo_tpu_torch.kv_router.main` (READY router) and exporter
+   `python -m dynamo_tpu_torch.kv_router.main` (READY router
+   indexer=native: its index runs the C++ radix tree, built with g++ from
+   dynamo_tpu_torch/native/kv_indexer.cpp) and exporter
    `python -m dynamo_tpu_torch.observability.exporter --port 0` (READY
    metrics=:<port>) over the workers' endpoint; two frontends,
    `python -m dynamo_tpu_torch.frontend.serve --port 0 --control-port
@@ -263,7 +283,13 @@ Phases (any failed check exits non-zero; nothing is caught):
    llm_requests_total_slots, llm_kv_blocks_total and llm_kv_blocks_active
    equal the workers' $STATS; a FleetRollup in this process records
    worker/{w}/{field} series equal to the same $STATS and
-   fleet/workers_live 2.
+   fleet/workers_live 2; the router service's `state` endpoint and the
+   frontend's /router/state name the native tree; the exporter's and both
+   frontends' /metrics carry every llm_autoscaler_* gauge, equal to that
+   process's AUTOSCALER_STATS (no controller runs there: all 0). Last, 11h's
+   reference: the 4 H11 chats (phase 11's shapes on 4 fresh system
+   prompts, greedy, max_tokens 32, the top 8 logprobs, streamed) one at a
+   time through the KV-routed frontend.
 11k. A worker killed mid-wave: 8 greedy streamed chats on 8 fresh system
    prompts of the same shapes (no prefix shared inside the wave, so that
    every stream is admitted and prefilled at once), max_tokens 128,
@@ -311,14 +337,45 @@ Phases (any failed check exits non-zero; nothing is caught):
    200 and the in-flight gauge is back to 0.
    Then SIGTERM to the survivor: it drains, deregisters (both first
    frontends' instance counts fall to 0), prints `EXIT ...
-   logits_nonfinite_steps=0` and exits 0; the frontends and the server
-   then exit 0 on SIGINT. Each worker process is its own path: its launch
-   counts start at 0 with the process and are read from its $STATS.
+   logits_nonfinite_steps=0` and exits 0. Each worker process is its own
+   path: its launch counts start at 0 with the process and are read from
+   its $STATS.
+11h. The control plane's failover (`phase_h11`, `phase seconds: 11h`), in
+   this order: (1) 64 unleased keys and 16 queue items written through a
+   comma-form client (enrolled with the primary at epoch 1), each
+   acknowledged; (2) the standby's own journal (read from its data
+   directory) holds every one of them (replication is asynchronous: the
+   window before that is the design's, not gated); (3) the primary is
+   SIGKILLed; (4) the standby prints PROMOTED and answers the role probe
+   primary at epoch 2 (the time from the kill is printed); (5) the three
+   frontends, still enrolled with the dead primary, lose their leases
+   (leases are not replicated) and end their runtimes: each exits 0 with
+   `EXIT frontend lease_lost=True` within the lease TTL (30 s) plus 15 s of
+   the kill; (6) a fresh comma-form client, on the promoted member at epoch
+   2, reads every key back and pops every item in order; (7) a fresh
+   llama3-8b worker (full width and depth, seed-0 weights, the phase's
+   schedule; READY with epoch=2) and a fresh KV-routed frontend (ENROLLED
+   epoch=2) start with the comma form; (8) the 4 H11 chats, one at a time
+   over HTTP; (9) each streams 32 tokens with no error frame and finite
+   logprobs, and equals phase 11's stream of the same chat or first
+   differs at a near tie (NEAR_TIE, as 11k); the worker's decode steps
+   equal those derived from the streamed tokens (each chat alone with
+   logprobs: no pipelined window; the first token is the prefill's, each
+   window the smallest rung of 8, 2, 1 covering what remains), and its
+   ragged launches = 32 x those steps + its warm-ups; (10) the dead primary
+   restarts from its data directory with --standby-of the promoted
+   member, answers standby, synced, epoch 2, and 3 s later still has not
+   promoted; (11) printed: the time to promotion, the journals' records
+   and bytes, and phase 11's routed TTFT with the journal on. Then the
+   worker drains on SIGTERM (exit 0, logits_nonfinite_steps=0) and the
+   frontend and both servers exit 0 on SIGINT.
 
 12. The disaggregated deployment at full width, as processes through the
    SDK's one command: `python -m dynamo_tpu_torch.sdk.serve
    dynamo_tpu_torch.examples.disagg.graph:Frontend -f <config>
-   --start-control-plane --control-port 0`, the config being
+   --start-control-plane --control-port 0 --control-data-dir <dir>` (the
+   control plane journals its state, the prefill queue among it, with
+   fsync), the config being
    dynamo_tpu_torch/examples/disagg/config.json (llama3-8b at full width
    and depth, bf16 weights from seed 0 in both workers, bf16 KV pages, ps
    64, max_model_len 16384; decode max_slots 16, max_local_prefill_length
@@ -358,7 +415,11 @@ Phases (any failed check exits non-zero; nothing is caught):
    the reliability layer); the prefill worker launched the ragged
    kernel 0 times, the decode worker layers x decode steps + warm-up
    launches times, one replay per decode window, no graph reset, and no
-   new graph during rounds A and B. Then SIGTERM to the supervisor: the frontend
+   new graph during rounds A and B. The journal (`journal_push_latency`):
+   200 pushes of a 256-byte item, one at a time, each timed from request
+   to acknowledgement (sent once the record is fsync'd), popped back in
+   order; the journal holds the prefill queue's pushes; printed: push p50,
+   p90 and max, the records and bytes. Then SIGTERM to the supervisor: the frontend
    stops, each worker drains (EXIT lines with logits_nonfinite_steps=0),
    every service and the supervisor exit 0. Reported: TTFT of round A
    (client), round B's llm_ttft_seconds p50 / p90 and the client TTFT of
@@ -368,7 +429,7 @@ Phases (any failed check exits non-zero; nothing is caught):
    output goes to build/disagg_supervisor.log.
 
 13. The KV tiers at full width (engine/offload.py, engine/kv_pool.py): one
-   set of llama3-8b weights from seed 0 shared by every engine, at 8 of
+   set of llama3-8b weights from seed 0 shared by every engine, at 4 of
    its 32 layers (TIER_LAYERS; the widths, page size and traffic
    unchanged, the gates count pages, hits and layers x steps; the cut
    keeps the script inside its time limit), bf16, page
@@ -514,7 +575,7 @@ Phases (any failed check exits non-zero; nothing is caught):
 
 16. The gather decode windows and Gemma-2 (A5), under build/checkpoints
    (removed at the end).
-   a. gemma-2-9b at full width and 14 of its 42 layers (GEMMA_LAYERS:
+   a. gemma-2-9b at full width and 8 of its 42 layers (GEMMA_LAYERS:
    the cut keeps the script inside its time limit; google/gemma-2-9b's
    published config.json otherwise: d 3584, 16 / 8 heads of 256, vocab
    256000,
@@ -669,7 +730,7 @@ Phases (any failed check exits non-zero; nothing is caught):
    1e-3.
 
 19. Streaming past the HBM page budget (A7; engine/streaming.py): the
-   llama3-8b card at full width and 8 of its 32 layers (TIER_LAYERS),
+   llama3-8b card at full width and 4 of its 32 layers (TIER_LAYERS),
    random weights from seed 0, page 64. S streams (num_pages 64,
    host_pages 256 pinned, stream_pages 8, stream_resident_pages 8,
    stream_hot_pages 2); O is the ordinary engine on the same weights
@@ -2311,6 +2372,142 @@ def phase_ledger_ab(engine, smi: str, model: str = "llama3-8b") -> dict:
     return rec
 
 
+# -- phase 4 tuner: the ledger-driven mixed-step budget ----------------------
+
+# the MixedBudgetTuner's documented rule (runtime/autoscaler.py) with the
+# evidence floor, cooldown and hysteresis of its fleet_storm leg, on a
+# virtual clock of TUNER_TICK_S a step
+TUNER = dict(pad_lo=0.10, pad_hi=0.30, step_frac=0.25, min_budget=128,
+             max_budget=4096, cooldown_s=4.0, hysteresis_ticks=2,
+             min_tokens=64)
+TUNER_TICK_S = 2.5
+TUNER_REQUESTS = 10
+
+
+class TunerRule:
+    """The tuner's rule recomputed from the ledger's running totals alone
+    (no state read from the tuner): the windowed padding waste since the
+    last consumed window, the direction, its streak, the cooldown and the
+    clamped step."""
+
+    def __init__(self, useful: int, padded: int, floor: int):
+        self.u0, self.p0, self.floor = useful, padded, floor
+        self.direction, self.streak, self.last_ts = None, 0, None
+
+    def tick(self, useful: int, padded: int, budget: int, ts: float):
+        c = TUNER
+        dp = padded - self.p0
+        if dp < c["min_tokens"]:
+            return None
+        pad = max(0.0, 1.0 - (useful - self.u0) / dp)
+        self.u0, self.p0 = useful, padded
+        if budget <= 0:
+            return None
+        direction = ("shrink" if pad > c["pad_hi"]
+                     else "grow" if pad < c["pad_lo"] else None)
+        if direction is None:
+            self.direction, self.streak = None, 0
+        elif direction == self.direction:
+            self.streak += 1
+        else:
+            self.direction, self.streak = direction, 1
+        if direction is None or self.streak < c["hysteresis_ticks"]:
+            return None
+        if self.last_ts is not None \
+                and ts - self.last_ts < c["cooldown_s"]:
+            return None
+        if direction == "shrink":
+            target = max(c["min_budget"], int(budget * (1 - c["step_frac"])))
+        else:
+            target = min(c["max_budget"], int(budget * (1 + c["step_frac"])))
+        if target == budget:
+            return None
+        self.last_ts = ts
+        return max(self.floor, target)
+
+
+def phase_budget_tuner(engine, smi: str) -> dict:
+    """Phase 4's tuner leg on the phase-4 engine (see the docstring at the
+    top): TUNER_REQUESTS staggered short greedy prompts under the default
+    budget, one admitted every 3 steps, a MixedBudgetTuner tick after each
+    step on the virtual clock; every adjustment recomputed here
+    (TunerRule) from the ledger's totals read at that tick. The budget is
+    restored after the leg."""
+    import random
+    from dynamo_tpu_torch.engine.scheduler import (
+        EngineRequest, SamplingParams,
+    )
+    from dynamo_tpu_torch.runtime.autoscaler import (
+        AutoscalerStats, MixedBudgetTuner,
+    )
+    name = "main path budget tuner"
+    t0 = time.perf_counter()
+    sch, led = engine.scheduler, engine.ledger
+    budget0, enabled0 = sch.mixed_token_budget, led.enabled
+    led.configure(enabled=True)
+    stats = AutoscalerStats()
+    tuner = MixedBudgetTuner(sch, led, stats=stats, **TUNER)
+    rule = TunerRule(led.useful_total, led.padded_total,
+                     2 * min(engine.cfg.prefill_buckets))
+    nonfinite0 = engine.logits_nonfinite_steps()
+    rng = random.Random(13)
+    want = {}
+    pending = []
+    for i in range(TUNER_REQUESTS):
+        rid = f"tune-{i}"
+        want[rid] = 5 + (i % 4)
+        pending.append(EngineRequest(rid, [
+            rng.randrange(3, 250) for _ in range(rng.randrange(6, 18))],
+            SamplingParams(max_tokens=want[rid], temperature=0.0,
+                           ignore_eos=True)))
+    got = {rid: [] for rid in want}
+    engine.add_request(pending.pop(0))
+    steps, vts, budgets, expected, applied = 0, 0.0, [], [], []
+    while engine.has_work() or pending:
+        if pending and steps % 3 == 1:
+            engine.add_request(pending.pop(0))
+        for ev in engine.step():
+            if ev.token is not None:
+                got[ev.request_id].append(ev.token)
+        steps += 1
+        vts += TUNER_TICK_S
+        exp = rule.tick(led.useful_total, led.padded_total,
+                        sch.mixed_token_budget, vts)
+        out = tuner.tick(vts)
+        check(out == exp and (exp is None or sch.mixed_token_budget == exp),
+              f"{name}: at virtual {vts:.1f} s the tuner applied {out} "
+              f"(budget {sch.mixed_token_budget}); the rule recomputed "
+              f"from the ledger gives {exp}")
+        check(sch.mixed_token_budget > 0, f"{name}: the budget reached 0")
+        budgets.append(sch.mixed_token_budget)
+        if exp is not None:
+            expected.append([round(vts, 1), exp])
+        if out is not None:
+            applied.append([round(vts, 1), out])
+    nonfinite = engine.logits_nonfinite_steps() - nonfinite0
+    check(all(len(got[r]) == n for r, n in want.items()) and nonfinite == 0,
+          f"{name}: tokens {dict((r, len(t)) for r, t in got.items())} "
+          f"of {want}; non-finite logit steps {nonfinite}")
+    check(len(applied) >= 1 and applied == expected,
+          f"{name}: adjustments {applied}, recomputed {expected}")
+    check(stats.budget_adjustments == len(applied),
+          f"{name}: AutoscalerStats counts {stats.budget_adjustments}")
+    sch.set_mixed_token_budget(budget0)
+    led.configure(enabled=enabled0)
+    rec = {"budget_initial": budget0, "adjustments": applied,
+           "budget_min": min(budgets), "steps": steps,
+           "pad_frac": round(led.pad_fraction(), 4),
+           "tokens": sum(map(len, got.values())),
+           "seconds": time.perf_counter() - t0}
+    print(f"{name} [{smi}]: {TUNER_REQUESTS} staggered short greedy "
+          f"prompts over {steps} steps under the default budget {budget0}:"
+          f" adjustments (virtual s, budget) {json.dumps(applied)}, each the"
+          f" rule's recomputation from the ledger's totals; lowest budget "
+          f"{min(budgets)}; every stream at its max_tokens, 0 non-finite "
+          f"logit steps; budget restored to {budget0}", flush=True)
+    return rec
+
+
 # -- phase 4b: one window as a graph replay and as the eager function ---------
 
 def cache_diff(a: dict, b: dict) -> float:
@@ -3138,6 +3335,10 @@ DIST_PAGE = 64            # the registry models' KV page size
 DIST_SCHEDULE = ("--mixed-token-budget", "0", "--max-prefill-batch", "1")
 
 
+# the lease TTL of every child process (seconds)
+CHILD_LEASE_TTL_S = "30"
+
+
 class Child:
     """A subprocess of the phase (`python -m <args>` from the checkout's
     root) whose merged output a thread drains into a queue."""
@@ -3150,7 +3351,8 @@ class Child:
         self.lines: list = []
         self._q: queue.Queue = queue.Queue()
         root = os.path.dirname(os.path.abspath(__file__))
-        env = {**os.environ, "DYN_LEASE_TTL_S": "30", **(env or {})}
+        env = {**os.environ, "DYN_LEASE_TTL_S": CHILD_LEASE_TTL_S,
+               **(env or {})}
         # session: a process group of its own, so that kill() also reaches
         # the processes it started (a supervisor's services)
         self.session = session
@@ -3530,20 +3732,23 @@ async def _waves(port: int, reqs: list, model: str, tag: str) -> tuple:
     return res, [rid(p, u) for p, u, _ in first + rest]
 
 
-async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
+async def drive_distributed(coord: str, fe_port: int, fe2_port: int,
                             model: str, sys_len: int, n_layers: int,
                             smi: str, on_card: bool = True,
                             exporter_port: int = 0) -> dict:
     """Phase 11's traffic and checks against running processes (see the
-    phase docstring). `on_card=False` (workers on the CPU, a rehearsal of
-    the phase) skips the kernel-launch checks: CPU tensors take the
-    kernels' plain versions. `exporter_port`: the standalone exporter's
-    /metrics; the standalone router service serves `dynamo.router.route`."""
+    phase docstring). `coord`: the control-plane pair in the comma form.
+    `on_card=False` (workers on the CPU, a rehearsal of the phase) skips
+    the kernel-launch checks: CPU tensors take the kernels' plain
+    versions. `exporter_port`: the standalone exporter's /metrics; the
+    standalone router service serves `dynamo.router.route` and
+    `dynamo.router.state`. Ends with 11h's reference streams: the 4
+    H11 chats, one at a time, through the KV-routed frontend."""
     from dynamo_tpu_torch.engine.config import get_model_config
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
-    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.distributed import connect_coordinator
     name = "distributed path"
     card = ModelDeploymentCard(name=model, arch=model)
     pre = OpenAIPreprocessor(card)
@@ -3558,7 +3763,7 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
         await _poll(f"frontend :{port} listing {model} with 2 instances",
                     lambda: models_listed(port), 120)
 
-    rt = await DistributedRuntime.connect("127.0.0.1", cp_port)
+    rt = await connect_coordinator(coord)
     try:
         client = await rt.namespace("dynamo").component("llm").endpoint(
             "generate").client().start()
@@ -3668,7 +3873,16 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
         ledger = ledger_gate(name, s0, s1, s4, mcfg, smi)
         services = await standalone_gates(name, rt, client, tokens,
                                           exporter_port, page)
+        services["autoscaler_gauges"] = await autoscaler_gauges_gate(
+            name, {"frontend": fe_port, "round-robin frontend": fe2_port,
+                   "exporter": exporter_port})
+        fst = await _get_json(fe_port, "/router/state")
+        check(fst["models"][model]["indexer"] == "native",
+              f"{name}: the frontend's router runs the "
+              f"{fst['models'][model]['indexer']} radix tree")
         await client.stop()
+        h11_reference = [await h11_stream(fe_port, body, f"h11-ref-{i}")
+                         for i, body in enumerate(h11_chats(model, sys_len))]
     finally:
         await rt.shutdown()
     launches = {}
@@ -3695,7 +3909,8 @@ async def drive_distributed(cp_port: int, fe_port: int, fe2_port: int,
                w: st["decode_window_steps"] for w, st in s4.items()},
            "decode_windows": {w: st["decode_windows"]
                               for w, st in s4.items()},
-           "ledger": ledger, "services": services}
+           "ledger": ledger, "services": services,
+           "h11_reference": h11_reference}
     print(f"{name}: after a warm-up round of the same shapes "
           f"({warm_s:.3f} s), 16 chat requests (8 SSE, 8 unary; 8 greedy, "
           f"8 sampled) over 4 system prompts of {sys_len} byte-tokens "
@@ -3800,6 +4015,15 @@ async def standalone_gates(name: str, rt, client, tokens: dict,
               f"{name}: the router service routed prefix {p} as {frames}")
         routes[p] = frames[0]
     await rclient.stop()
+    # the router service's `state`: the native radix tree, every event
+    sclient = await rt.namespace("dynamo").component("router").endpoint(
+        "state").client().start()
+    await sclient.wait_for_instances(60)
+    rstate = [f async for f in await sclient.generate({})]
+    await sclient.stop()
+    check(len(rstate) == 1 and rstate[0]["indexer"] == "native"
+          and sorted(rstate[0]["instances"]) == sorted(client.instances),
+          f"{name}: the router service's state {rstate}")
 
     async def exporter_equal():
         st = await client.scrape_stats(timeout=10.0)
@@ -3837,6 +4061,7 @@ async def standalone_gates(name: str, rt, client, tokens: dict,
     await _poll(f"{name}: the fleet rollup's series equal to $STATS",
                 rollup_equal, 60)
     out = {"routes": routes, "exported": exported,
+           "router_state": rstate[0],
            "rollup_series": len(rollup.store),
            "seconds": time.perf_counter() - t0}
     print(f"{name}: standalone router service routed the 4 system prompts "
@@ -3844,7 +4069,9 @@ async def standalone_gates(name: str, rt, client, tokens: dict,
           f" (worker, matched pages); standalone exporter's per-worker "
           f"gauges equal $STATS {json.dumps(exported)}; a FleetRollup "
           f"recorded {len(rollup.store)} series equal to $STATS, "
-          f"fleet/workers_live 2; {out['seconds']:.2f} s", flush=True)
+          f"fleet/workers_live 2; the router service's index runs the "
+          f"{rstate[0]['indexer']} radix tree ({rstate[0]['events_applied']}"
+          f" events applied); {out['seconds']:.2f} s", flush=True)
     print(f"phase seconds: 11 services {out['seconds']:.1f}", flush=True)
     return out
 
@@ -4092,23 +4319,9 @@ async def drive_kill(fe_port: int, rr_port: int, model: str, sys_len: int,
         a, b = streams[rid].entries, replays[rid].entries
         check(replays[rid].done and len(b) == KILL_TOKENS,
               f"{name}: the replay of {rid} gave {len(b)} entries")
-        d = first_difference_of(a, b)
-        firsts[rid] = None
-        if d is None:
-            continue
-        # the tokens differ at d: d itself is the tie. Only the values
-        # differ (equal strings): two ids of one string were picked at
-        # d - 1, which is the tie. Either way both streams must see it
-        case = "token" if a[d][0] != b[d][0] else "context"
-        at = d if case == "token" else d - 1
-        check(at >= 0, f"{name}: {rid} differs from its replay in the "
-              "values of its first token")
-        tie = max(x[2][0] - x[2][1] for x in (a[at], b[at]))
-        check(tie <= NEAR_TIE, f"{name}: {rid} leaves its replay at "
-              f"position {d} ({case} differs), and position {at} is no "
-              f"near tie in both streams (top-1 less top-2 up to "
-              f"{tie:.4f} > {NEAR_TIE}); killed at {at_kill[rid]}")
-        firsts[rid] = [d, case, round(tie, 5)]
+        firsts[rid] = near_tie_difference(
+            name, f"{rid} (killed at {at_kill[rid]}) against its replay",
+            a, b)
     rel2 = reliability_counts(
         (await _http(fe_port, "GET", "/metrics"))[2].decode())
     import numpy as np
@@ -4192,6 +4405,355 @@ async def drive_shed(port: int, model: str, sys_len: int) -> dict:
             "retry_after": [h.get("retry-after") for _, h, _ in shed]}
 
 
+# -- phase 11h: the control plane's failover ------------------------------------
+
+H11_KEYS = 64         # unleased keys written before the primary dies
+H11_ITEMS = 16        # queue items pushed before it dies
+H11_QUEUE = "chip.h11"
+H11_PROMPTS = range(24, 28)   # prefix seeds no other phase-11 chat uses
+# a frontend of the dead primary must end its runtime within its lease TTL
+# (the children's DYN_LEASE_TTL_S) plus this margin
+H11_EXIT_MARGIN_S = 15.0
+
+
+def h11_chats(model: str, sys_len: int) -> list:
+    """11h's 4 chats: phase 11's shapes (a system prompt of sys_len
+    byte-tokens and a user turn), greedy, DIST_MAX_TOKENS tokens, streamed
+    with the top KILL_TOP logprobs, on prefixes no other chat of the phase
+    caches."""
+    return [dict(kill_body(model, p, p % 4, sys_len),
+                 max_tokens=DIST_MAX_TOKENS) for p in H11_PROMPTS]
+
+
+async def h11_stream(port: int, body: dict, rid: str) -> list:
+    """One H11 chat through the frontend at `port`: checked to its
+    max_tokens with no error frame; returns its logprob entries."""
+    st = await _stream_into(port, body, Stream(rid))
+    check(st.done and not st.errors and st.finish == ["length"]
+          and len(st.entries) == body["max_tokens"]
+          and st.usage["completion_tokens"] == body["max_tokens"]
+          and all(math.isfinite(e[1]) and all(map(math.isfinite, e[2]))
+                  for e in st.entries),
+          f"{rid}: errors {st.errors[:2]}, [DONE] {st.done}, finish "
+          f"{st.finish}, {len(st.entries)} entries, usage {st.usage}")
+    return [list(e[:2]) + [list(e[2])] for e in st.entries]
+
+
+def near_tie_difference(name: str, rid: str, a: list, b: list):
+    """None when two streams' logprob entries agree throughout, else
+    [position, what differs, top-1 less top-2 there]; fails the run unless
+    the first difference sits at a near tie in both streams (NEAR_TIE)."""
+    d = first_difference_of(a, b)
+    if d is None:
+        return None
+    # the tokens differ at d: d itself is the tie. Only the values differ
+    # (equal strings): two ids of one string were picked at d - 1, which
+    # is the tie. Either way both streams must see it
+    case = "token" if a[d][0] != b[d][0] else "context"
+    at = d if case == "token" else d - 1
+    check(at >= 0, f"{name}: {rid} differs in the values of its first "
+          "token")
+    tie = max(x[2][0] - x[2][1] for x in (a[at], b[at]))
+    check(tie <= NEAR_TIE, f"{name}: {rid} differs at position {d} "
+          f"({case} differs), and position {at} is no near tie in both "
+          f"streams (top-1 less top-2 up to {tie:.4f} > {NEAR_TIE})")
+    return [d, case, round(tie, 5)]
+
+
+def window_steps(tokens: int) -> int:
+    """Decode steps a worker runs for one request alone whose stream held
+    `tokens` tokens with logprobs (no pipelined follow-up window): the
+    first token is its prefill's, and each window takes the smallest rung
+    of the ladder covering what remains, else the largest."""
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.scheduler import window_ladder
+    ladder = window_ladder(EngineConfig().decode_steps)
+    steps, left = 0, tokens - 1
+    while left > 0:
+        w = next((r for r in reversed(ladder) if r >= left), ladder[0])
+        steps += w
+        left -= w
+    return steps
+
+
+async def autoscaler_gauges_gate(name: str, ports: dict) -> dict:
+    """Every llm_autoscaler_* gauge on each process's /metrics, equal to
+    that process's AUTOSCALER_STATS: none of them hosts a controller, so
+    the counters of a fresh AutoscalerStats (all 0)."""
+    from dynamo_tpu_torch.runtime.autoscaler import AutoscalerStats
+    want = AutoscalerStats().snapshot()
+    out = {}
+    for what, port in ports.items():
+        text = (await _http(port, "GET", "/metrics"))[2].decode()
+        got = {}
+        for field in want:
+            m = re.search(rf"^llm_autoscaler_{field} (\S+)$", text, re.M)
+            check(m is not None, f"{name}: the {what}'s /metrics has no "
+                  f"llm_autoscaler_{field}")
+            got[field] = float(m.group(1))
+        check(got == {k: float(v) for k, v in want.items()},
+              f"{name}: the {what}'s llm_autoscaler_* {got}, its "
+              f"AUTOSCALER_STATS {want}")
+        out[what] = len(got)
+    return out
+
+
+def cp_role(port: int) -> dict:
+    """A control-plane member's role probe ({role, synced, epoch}); an
+    unreachable member gives {}."""
+    from dynamo_tpu_torch.runtime.transports.wire import oneshot_request
+    try:
+        return asyncio.run(oneshot_request("127.0.0.1", port,
+                                           {"op": "role"}, 3.0))
+    except (OSError, ConnectionError, asyncio.IncompleteReadError,
+            asyncio.TimeoutError):
+        return {}
+
+
+def wait_role(what: str, port: int, timeout: float, **want) -> dict:
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cp_role(port)
+        if all(got.get(k) == v for k, v in want.items()):
+            return got
+        check(time.monotonic() < deadline, f"{what}: role {got}, not "
+              f"{want}, within {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def journal_stats(data_dir: str) -> dict:
+    """A member's journal: its records (length-prefixed, read as the
+    server replays them) and the bytes of its journal and snapshot."""
+    from dynamo_tpu_torch.runtime.transports.journal import _read_records
+    path = os.path.join(data_dir, "journal.bin")
+    recs = list(_read_records(path)) if os.path.exists(path) else []
+    size = sum(os.path.getsize(os.path.join(data_dir, f))
+               for f in ("journal.bin", "snapshot.bin")
+               if os.path.exists(os.path.join(data_dir, f)))
+    return {"records": recs, "bytes": size}
+
+
+async def h11_writes(coord: str) -> dict:
+    """Step 1: H11_KEYS unleased keys and H11_ITEMS queue items through a
+    comma-form client, every one acknowledged."""
+    from dynamo_tpu_torch.runtime.transports.tcp import (
+        ControlPlaneClient, parse_addrs,
+    )
+    c = await ControlPlaneClient(addrs=parse_addrs(coord)).connect()
+    try:
+        for i in range(H11_KEYS):
+            await c.put(f"chip/h11/key{i:03d}", f"value-{i}".encode())
+        for i in range(H11_ITEMS):
+            await c.queue_push(H11_QUEUE, f"item-{i:02d}".encode())
+        return {"epoch": c.epoch, "port": c.port}
+    finally:
+        await c.close()
+
+
+async def h11_read_back(coord: str) -> dict:
+    """Step 6: a fresh comma-form client on the promoted member reads every
+    key back and pops every item, in order."""
+    from dynamo_tpu_torch.runtime.transports.tcp import (
+        ControlPlaneClient, parse_addrs,
+    )
+    c = await ControlPlaneClient(addrs=parse_addrs(coord)).connect(60.0)
+    try:
+        vals = [await c.get(f"chip/h11/key{i:03d}") for i in range(H11_KEYS)]
+        items = [await c.queue_pop(H11_QUEUE, 5.0) for _ in range(H11_ITEMS)]
+        return {"epoch": c.epoch, "port": c.port,
+                "keys_ok": vals == [f"value-{i}".encode()
+                                    for i in range(H11_KEYS)],
+                "items_ok": items == [f"item-{i:02d}".encode()
+                                      for i in range(H11_ITEMS)],
+                "depth_after": await c.queue_depth(H11_QUEUE)}
+    finally:
+        await c.close()
+
+
+def phase_h11(smi: str, model: str, sys_len: int, ctx: dict,
+              device_args=(), device_name: str = None) -> dict:
+    """Phase 11h (see the docstring at the top), after 11s and the
+    survivor's drain: acknowledged writes, the standby's copy of them, the
+    primary SIGKILLed, the promotion at epoch 2, the old frontends' runtimes
+    ending on their lost leases, the writes read back, a fresh llama3-8b
+    worker and frontend serving the 4 H11 chats against phase 11's
+    streams, and the dead primary rejoining as a standby. `ctx`: phase
+    11's children and ports (primary, standby, coord, data dirs, the
+    frontends, the reference streams, the routed TTFT)."""
+    from dynamo_tpu_torch.engine.config import get_model_config
+    from dynamo_tpu_torch.runtime.distributed import connect_coordinator
+    name = "control-plane failover"
+    t_phase = time.perf_counter()
+    primary, standby = ctx["primary"], ctx["standby"]
+    coord, p_port, s_port = ctx["coord"], ctx["p_port"], ctx["s_port"]
+    children = ctx["children"]
+    # 1. acknowledged writes through the comma form (the primary, epoch 1)
+    w = asyncio.run(asyncio.wait_for(h11_writes(coord), 60))
+    check(w == {"epoch": 1, "port": p_port}, f"{name}: the writer "
+          f"enrolled with {w}, not the primary at epoch 1")
+
+    # 2. the standby has applied them: its own journal holds every put and
+    # push (replication is asynchronous; the window is not gated)
+    def applied():
+        recs = journal_stats(ctx["s_dir"])["records"]
+        keys = [r["key"] for r in recs if r.get("op") == "put"
+                and r["key"].startswith("chip/h11/")]
+        items = [r["payload"] for r in recs if r.get("op") == "qpush"
+                 and r["queue"] == H11_QUEUE]
+        return len(keys) == H11_KEYS and len(items) == H11_ITEMS
+    deadline = time.monotonic() + 30
+    while not applied():
+        check(time.monotonic() < deadline, f"{name}: the standby's journal "
+              f"lacks the writes after 30 s")
+        time.sleep(0.1)
+    primary_journal = journal_stats(ctx["p_dir"])
+    # 3. SIGKILL the primary
+    t_kill = time.perf_counter()
+    primary.proc.send_signal(signal.SIGKILL)
+    check(primary.proc.wait(timeout=60) == -signal.SIGKILL,
+          f"{name}: the primary exited {primary.proc.returncode}")
+    # 4. the standby answers as primary at epoch 2
+    standby.wait_line("PROMOTED control-plane=:", 60)
+    role = wait_role(f"{name}: the standby", s_port, 30, role="primary",
+                     epoch=2)
+    promote_s = time.perf_counter() - t_kill
+    # 5. every frontend still enrolled with the dead primary ends its
+    # runtime (its lease is gone) within the lease TTL plus a margin
+    ttl = float(CHILD_LEASE_TTL_S)
+    ended = {}
+    for f in ctx["frontends"]:
+        left = ttl + H11_EXIT_MARGIN_S - (time.perf_counter() - t_kill)
+        try:
+            f.proc.wait(timeout=max(0.1, left))
+        except subprocess.TimeoutExpired:
+            check(False, f"{name}: {f.name} still running "
+                  f"{ttl + H11_EXIT_MARGIN_S:.0f} s after the primary's "
+                  f"death:\n{f.tail()}")
+        f.stop(None, 10)
+        exits = [x for x in f.lines if x.startswith("EXIT frontend ")]
+        check(f.proc.returncode == 0 and exits == [
+            "EXIT frontend lease_lost=True"], f"{name}: {f.name} exited "
+            f"{f.proc.returncode} with {exits}:\n{f.tail()}")
+        ended[f.name] = round(time.perf_counter() - t_kill, 3)
+    # 6. a fresh comma-form client reads every write back, in order
+    back = asyncio.run(asyncio.wait_for(h11_read_back(coord), 90))
+    check(back == {"epoch": 2, "port": s_port, "keys_ok": True,
+                   "items_ok": True, "depth_after": 0},
+          f"{name}: read back from the promoted member: {back}")
+    # 7. a fresh worker and a fresh KV-routed frontend enroll at epoch 2
+    t0 = time.perf_counter()
+    worker = Child("worker (after failover)", [
+        "dynamo_tpu_torch.run", f"in=endpoint:{DIST_EP}", "out=native",
+        model, "--control-host", coord, "--control-port", str(s_port),
+        *DIST_SCHEDULE, *device_args],
+        env={"DYN_PEAK_TFLOPS": str(PEAK_BF16_TFLOPS)})
+    children.append(worker)
+    ready = worker.wait_line("READY endpoint=", 900)
+    check(" epoch=2 " in ready and ready.split(" device=", 1)[1]
+          == device_name, f"{name}: {ready}")
+    worker_id = ready.split(" worker=", 1)[1].split()[0]
+    front = Child("frontend (after failover)", [
+        "dynamo_tpu_torch.frontend.serve", "--host", "127.0.0.1",
+        "--port", "0", "--control-host", coord])
+    children.append(front)
+    enrolled = front.wait_line("ENROLLED epoch=", 120)
+    check(enrolled == "ENROLLED epoch=2", f"{name}: the frontend {enrolled}")
+    fe_port = int(front.wait_line("READY http=:", 120).rsplit(":", 1)[1])
+    ready_s = time.perf_counter() - t0
+
+    # 8-9. the 4 chats, one at a time; each stream against phase 11's
+    async def serve():
+        async def listed():
+            st = await _get_json(fe_port, "/router/state")
+            m = st["models"].get(model, {})
+            return list(m.get("instances", {})) == [worker_id] \
+                and m.get("indexer") == "native"
+        await _poll(f"{name}: the new frontend listing the new worker",
+                    listed, 120)
+        streams = [await h11_stream(fe_port, body, f"h11-{i}")
+                   for i, body in enumerate(h11_chats(model, sys_len))]
+        rt = await connect_coordinator(coord)
+        try:
+            client = await rt.namespace("dynamo").component("llm").endpoint(
+                "generate").client().start()
+            st = (await _scrape(client, 1))[worker_id]
+            await client.stop()
+        finally:
+            await rt.shutdown()
+        text = (await _http(fe_port, "GET", "/metrics"))[2].decode()
+        return streams, st, _ttft_quantiles(text)
+    streams, st, ttft = asyncio.run(asyncio.wait_for(serve(), 900))
+    firsts = {f"h11-{i}": near_tie_difference(name, f"h11-{i}", ref, got)
+              for i, (ref, got) in enumerate(zip(ctx["h11_reference"],
+                                                 streams))}
+    n_layers = get_model_config(model).num_layers
+    steps = sum(window_steps(len(x)) for x in streams)
+    k = st["kernel_launches"][RAGGED]
+    warm = st["graph_warmup_launches"][RAGGED]
+    check(st["decode_window_steps"] == steps,
+          f"{name}: the new worker ran {st['decode_window_steps']} decode "
+          f"steps; the streams' tokens derive {steps}")
+    check(device_name == "cpu" or (k == n_layers * steps + warm and k > 0),
+          f"{name}: the new worker launched the ragged kernel {k} times; "
+          f"{n_layers} x {steps} derived decode steps + {warm} in warm-ups")
+    # 10. the dead primary, restarted from its data dir as the promoted
+    # member's standby, rejoins at epoch 2 and does not promote
+    t0 = time.perf_counter()
+    reborn = Child("control plane (old primary, rejoined)", [
+        "dynamo_tpu_torch.runtime.transports.server", "--host", "127.0.0.1",
+        "--port", str(p_port), "--data-dir", ctx["p_dir"],
+        "--standby-of", f"127.0.0.1:{s_port}"])
+    children.append(reborn)
+    reborn.wait_line("READY control-plane=:", 120)
+    rejoined = wait_role(f"{name}: the old primary", p_port, 60,
+                         role="standby", synced=True, epoch=2)
+    time.sleep(3.0)
+    check(cp_role(p_port) == rejoined and cp_role(s_port)["role"]
+          == "primary" and not any(x.startswith("PROMOTED")
+                                   for x in reborn.lines),
+          f"{name}: 3 s after rejoining: old primary {cp_role(p_port)}, "
+          f"promoted member {cp_role(s_port)}")
+    rejoin_s = time.perf_counter() - t0
+    # stop: the worker drains (SIGTERM, exit 0), the rest on SIGINT
+    worker.proc.send_signal(signal.SIGTERM)
+    code = worker.stop(None, 120)
+    exits = [x for x in worker.lines if x.startswith("EXIT ")]
+    check(code == 0 and len(exits) == 1
+          and " logits_nonfinite_steps=0 " in exits[0],
+          f"{name}: the new worker exited {code}: {exits or worker.tail()}")
+    rest = [c.stop(signal.SIGINT, 60) for c in (front, reborn, standby)]
+    check(rest == [0, 0, 0], f"{name}: frontend and servers exited {rest}")
+    promoted = journal_stats(ctx["s_dir"])
+    rec = {"promote_s": promote_s, "role_after": role,
+           "frontends_ended_s": ended, "read_back": back,
+           "worker_ready_s": ready_s, "ragged_launches": k,
+           "derived_decode_steps": steps, "warmup_launches": warm,
+           "first_difference": firsts, "rejoin_s": rejoin_s,
+           "journal": {
+               "primary_records": len(primary_journal["records"]),
+               "primary_bytes": primary_journal["bytes"],
+               "promoted_records": len(promoted["records"]),
+               "promoted_bytes": promoted["bytes"]},
+           "ttft_after_failover": ttft,
+           "routed_ttft_with_journal": ctx["routed_ttft"],
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"{name} [{smi}]: {H11_KEYS} keys and {H11_ITEMS} queue items "
+          f"acknowledged and on the standby's journal; primary SIGKILLed; "
+          f"standby primary at epoch 2 in {promote_s:.3f} s; the old "
+          f"frontends' runtimes ended at {json.dumps(ended)} s (lease TTL "
+          f"{ttl:.0f} s); every key and item read back in order; a fresh "
+          f"{model} worker READY in {ready_s:.1f} s served the 4 chats "
+          f"(first difference from phase 11's streams "
+          f"{json.dumps(firsts)}, null: equal throughout), ragged launches "
+          f"{k} = {n_layers} x {steps} derived decode steps + {warm}; the "
+          f"old primary rejoined as a standby at epoch 2 in "
+          f"{rejoin_s:.1f} s and did not promote; journal records / bytes "
+          f"{json.dumps(rec['journal'])}; routed TTFT p50 with the journal "
+          f"{ctx['routed_ttft']['ttft_p50_ms']:.1f} ms", flush=True)
+    print(f"phase seconds: 11h {rec['phase_s']:.1f}", flush=True)
+    return rec
+
+
 def phase_distributed(smi: str, model: str = "llama3-8b",
                       sys_len: int = 1024, device_args=(),
                       device_name: str = None) -> dict:
@@ -4200,19 +4762,38 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
     traffic and the checks, 11k (one worker SIGKILLed mid-wave) and 11s (a
     third, shedding frontend), then SIGTERM to the survivor (it drains,
     deregisters and exits 0). Every child is stopped in the `finally`."""
+    import shutil
+    import tempfile
     from dynamo_tpu_torch.engine.config import get_model_config
     children = []
     t0 = time.perf_counter()
+    # the control plane: a durable primary and its hot standby, each
+    # journaling into a data directory of its own
+    data = tempfile.mkdtemp(prefix="chip_smoke_cp_")
     try:
-        server = Child("control plane", [
+        p_dir, s_dir = os.path.join(data, "a"), os.path.join(data, "b")
+        server = Child("control plane (primary)", [
             "dynamo_tpu_torch.runtime.transports.server", "--host",
-            "127.0.0.1", "--port", "0"])
+            "127.0.0.1", "--port", "0", "--data-dir", p_dir])
         children.append(server)
         cp_port = int(server.wait_line("READY control-plane=:", 120)
                       .rsplit(":", 1)[1])
+        standby = Child("control plane (standby)", [
+            "dynamo_tpu_torch.runtime.transports.server", "--host",
+            "127.0.0.1", "--port", "0", "--data-dir", s_dir,
+            "--standby-of", f"127.0.0.1:{cp_port}"])
+        children.append(standby)
+        s_port = int(standby.wait_line("READY control-plane=:", 120)
+                     .rsplit(":", 1)[1])
+        pair = wait_role("the standby before any worker", s_port, 60,
+                         role="standby", synced=True, epoch=1)
+        coord = f"127.0.0.1:{cp_port},127.0.0.1:{s_port}"
+        print(f"distributed path: control plane primary :{cp_port} "
+              f"(journaled), standby :{s_port} {json.dumps(pair)}",
+              flush=True)
         workers = [Child(f"worker {i}", [
             "dynamo_tpu_torch.run", f"in=endpoint:{DIST_EP}", "out=native",
-            model, "--control-host", "127.0.0.1", "--control-port",
+            model, "--control-host", coord, "--control-port",
             str(cp_port), *DIST_SCHEDULE, *device_args],
             env={"DYN_PEAK_TFLOPS": str(PEAK_BF16_TFLOPS)})
             for i in range(2)]
@@ -4222,7 +4803,6 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
         # the standalone router service and exporter over the workers'
         # endpoint, started before any traffic so that the router service
         # applies every stored page's event
-        coord = f"127.0.0.1:{cp_port}"
         ns, comp, ep = DIST_EP.split(".")
         services = [
             Child("router service", [
@@ -4234,7 +4814,9 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
                 coord, "--namespace", ns, "--component", comp,
                 "--endpoint", ep, "--port", "0"])]
         children += services
-        services[0].wait_line("READY router", 120)
+        rline = services[0].wait_line("READY router", 120)
+        check(rline == "READY router indexer=native",
+              f"router service: {rline}")
         exporter_port = int(services[1].wait_line("READY metrics=:", 120)
                             .rsplit(":", 1)[1])
         for line in ready:
@@ -4243,14 +4825,14 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
                   f"{device_name!r}: {line}")
         fronts = [Child(f"frontend{tag}", [
             "dynamo_tpu_torch.frontend.serve", "--host", "127.0.0.1",
-            "--port", "0", "--control-host", "127.0.0.1", "--control-port",
-            str(cp_port), *extra]) for tag, extra in (
+            "--port", "0", "--control-host", coord, *extra])
+            for tag, extra in (
                 ("", ()), (" (no KV routing)", ("--no-kv-routing",)))]
         children += fronts
         fe_ports = [int(f.wait_line("READY http=:", 120).rsplit(":", 1)[1])
                     for f in fronts]
         rec = asyncio.run(asyncio.wait_for(drive_distributed(
-            cp_port, fe_ports[0], fe_ports[1], model, sys_len,
+            coord, fe_ports[0], fe_ports[1], model, sys_len,
             get_model_config(model).num_layers, smi,
             on_card=device_name != "cpu", exporter_port=exporter_port), 900))
         rec["ready_s"] = ready_s
@@ -4269,8 +4851,8 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
         t0 = time.perf_counter()
         shedding = Child("frontend (shedding)", [
             "dynamo_tpu_torch.frontend.serve", "--host", "127.0.0.1",
-            "--port", "0", "--control-host", "127.0.0.1", "--control-port",
-            str(cp_port)], env={"DYN_MAX_INFLIGHT": "2",
+            "--port", "0", "--control-host", coord],
+            env={"DYN_MAX_INFLIGHT": "2",
                                 "DYN_ADMISSION_QUEUE": "0",
                                 "DYN_RETRY_AFTER_S": "1"})
         children.append(shedding)
@@ -4297,16 +4879,21 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
                 await _poll(f"frontend :{port} dropping both instances",
                             lambda: empty(port), 60)
         asyncio.run(deregistered())
-        rest = [c.stop(signal.SIGINT, 60) for c in fronts + [server]]
-        check(rest == [0] * len(rest), f"frontends and server exited {rest}")
         print(f"distributed path: workers READY in {ready_s:.1f} s; one "
               f"killed mid-wave (-9), the survivor drained on SIGTERM and "
               f"exited {codes[0]}; the routing frontends showed 0 "
-              f"instances; frontends and server exited {rest}", flush=True)
+              f"instances", flush=True)
+        rec["failover"] = phase_h11(smi, model, sys_len, {
+            "primary": server, "standby": standby, "coord": coord,
+            "p_port": cp_port, "s_port": s_port, "p_dir": p_dir,
+            "s_dir": s_dir, "frontends": fronts, "children": children,
+            "h11_reference": rec.pop("h11_reference"),
+            "routed_ttft": rec["kv_routed"]}, device_args, device_name)
         return rec
     finally:
         for c in reversed(children):
             c.stop(signal.SIGKILL, 30)
+        shutil.rmtree(data, ignore_errors=True)
 
 
 # -- phase 12: the disaggregated deployment --------------------------------------
@@ -4708,6 +5295,51 @@ def disagg_reference(engine, rid: str, req) -> list:
     return out
 
 
+JOURNAL_PUSHES = 200   # queue pushes timed against phase 12's journal
+
+
+async def journal_push_latency(cp_port: int, data_dir: str) -> dict:
+    """Phase 12's journal: JOURNAL_PUSHES sequential pushes of a 256-byte
+    item to a queue of their own, each timed from the request to its
+    acknowledgement (which the server sends once the record is fsync'd),
+    then popped again; the prefill queue's own records beside them."""
+    from dynamo_tpu_torch.runtime.transports.tcp import ControlPlaneClient
+    c = await ControlPlaneClient("127.0.0.1", cp_port).connect()
+    try:
+        lat = []
+        for i in range(JOURNAL_PUSHES):
+            t0 = time.perf_counter()
+            await c.queue_push("chip.journal_probe",
+                               i.to_bytes(4, "little") * 64)
+            lat.append(time.perf_counter() - t0)
+        popped = [await c.queue_pop("chip.journal_probe", 5.0)
+                  for _ in range(JOURNAL_PUSHES)]
+        check(popped == [i.to_bytes(4, "little") * 64
+                         for i in range(JOURNAL_PUSHES)],
+              "phase 12's journal: the probe items came back out of order")
+    finally:
+        await c.close()
+    js = journal_stats(data_dir)
+    ops = {}
+    for r in js["records"]:
+        key = f"{r['op']} {r.get('queue', '')}".strip()
+        ops[key] = ops.get(key, 0) + 1
+    q = quantiles(lat)
+    out = {"push_p50_ms": q["p50_ms"], "push_p90_ms": q["p90_ms"],
+           "push_max_ms": max(lat) * 1e3, "records": len(js["records"]),
+           "bytes": js["bytes"], "ops": ops}
+    prefill = sum(n for k, n in ops.items()
+                  if k.startswith("qpush ") and "prefill" in k)
+    check(prefill > 0, f"phase 12's journal holds no prefill-queue push: "
+          f"{ops}")
+    print(f"disaggregated deployment: the control plane's journal (fsync "
+          f"on) acknowledged {JOURNAL_PUSHES} pushes in p50 "
+          f"{out['push_p50_ms']:.3f} ms, p90 {out['push_p90_ms']:.3f} ms, "
+          f"max {out['push_max_ms']:.3f} ms; it holds {out['records']} "
+          f"records ({out['bytes']} bytes): {json.dumps(ops)}", flush=True)
+    return out
+
+
 def phase_disagg(smi: str, model: str = "llama3-8b", device: str = "cuda",
                  scale: float = 1.0, device_name: str = None,
                  max_model_len: int = 0) -> dict:
@@ -4761,10 +5393,16 @@ def phase_disagg(smi: str, model: str = "llama3-8b", device: str = "cuda",
     if device == "cuda":
         torch.cuda.empty_cache()
     children = []
+    import shutil
+    import tempfile
+    cp_dir = tempfile.mkdtemp(prefix="chip_smoke_disagg_cp_")
     try:
+        # the control plane journals its state (the prefill queue among
+        # it) into cp_dir, fsync'd: a push is acknowledged once durable
         sup = Child("disagg supervisor", [
             "dynamo_tpu_torch.sdk.serve", DISAGG_GRAPH, "-f", path,
-            "--start-control-plane", "--control-port", "0"], session=True)
+            "--start-control-plane", "--control-port", "0",
+            "--control-data-dir", cp_dir], session=True)
         children.append(sup)
         ready = sup.wait_line("READY graph=", 900)
         ready_s = time.perf_counter() - t_phase
@@ -4781,6 +5419,8 @@ def phase_disagg(smi: str, model: str = "llama3-8b", device: str = "cuda",
             get_model_config(model).num_layers, reference, pre,
             card.kv_page_size, cfg["DecodeWorker"][
                 "max_local_prefill_length"], smi, device == "cuda"), 900))
+        rec["journal"] = asyncio.run(asyncio.wait_for(
+            journal_push_latency(cp_port, cp_dir), 120))
         sup.proc.send_signal(signal.SIGTERM)
         code = sup.stop(None, 300)
         exits = [x for x in sup.lines if x.startswith("EXIT service=")]
@@ -4807,6 +5447,7 @@ def phase_disagg(smi: str, model: str = "llama3-8b", device: str = "cuda",
             with open(os.path.join(root, "build", "disagg_supervisor.log"),
                       "w") as f:
                 f.write("\n".join(children[0].lines) + "\n")
+        shutil.rmtree(cp_dir, ignore_errors=True)
 
 
 # -- phase 13: the KV tiers -----------------------------------------------------
@@ -5233,9 +5874,10 @@ def pool_pricing(served_by: dict, fetched: int, page_bytes: int,
 
 
 # depth cuts that keep the script inside its time limit: the layers of
-# llama3-8b that phase 13's tier engines and 16b's window A/B run (widths
-# unchanged; their gates count pages, hits and layers x steps)
-TIER_LAYERS = 8
+# llama3-8b that phases 13 and 19 (TIER_LAYERS) and 16b's window A/B
+# (AB_LAYERS) run (widths unchanged; their gates count pages, hits and
+# layers x steps)
+TIER_LAYERS = 4
 AB_LAYERS = 8
 
 
@@ -6786,7 +7428,7 @@ def phase_checkpoints(smi: str) -> dict:
 
 # the layers of gemma-2-9b that 16a writes, loads and serves (its widths
 # unchanged): a depth cut that keeps the script inside its time limit
-GEMMA_LAYERS = 14
+GEMMA_LAYERS = 8
 
 # google/gemma-2-9b's published config.json (its architecture, widths,
 # vocabulary, soft-caps, query scale and sliding window), named here and not
@@ -9108,6 +9750,7 @@ def main() -> int:
     print(f"phase seconds: 3 {time.perf_counter() - t0:.1f}", flush=True)
     engine, first, _ = timed("4", lambda: asyncio.run(serve_main_path(smi)))
     ledger_ab = timed("4 ledger", phase_ledger_ab, engine, smi)
+    timed("4 tuner", phase_budget_tuner, engine, smi)
     bf16_ref = {"weight_bytes": engine.metrics().weight_bytes,
                 "peak_gib": first["stats"]["peak_gib"]}
     graph_bf16 = timed("4b", phase_graph_vs_eager, engine, "bf16")

@@ -349,6 +349,10 @@ class Scheduler:
         self._admitted = 0
         self._prefill_streak = 0
         self.mixed_token_budget = cfg.mixed_token_budget
+        # floor for runtime budget actuation (set_mixed_token_budget, JAX
+        # :397): the smallest prefill bucket must still fit one chunk row
+        # next to a decode row, or the budget silently starves prefill
+        self._mixed_budget_floor = 2 * min(cfg.prefill_buckets)
         # QoS class table + per-class outstanding cross-class-preemption
         # debt (charged in _preempt_for, repaid when the victim decodes)
         self.qos_policy: QosPolicy = DEFAULT_POLICY
@@ -746,6 +750,18 @@ class Scheduler:
             h = self.allocator.seal(seq.pages[i], parent,
                                     all_tokens[i * ps:(i + 1) * ps])
             seq.page_hashes.append(h)
+
+    def set_mixed_token_budget(self, budget: int) -> int:
+        """Runtime actuation point of the mixed-step token budget (JAX
+        :881), what the autoscaler's MixedBudgetTuner adjusts as padding
+        waste shifts with the traffic shape. Clamped: a positive request
+        never lands below the floor where the smallest prefill chunk row
+        no longer fits next to a decode row; 0 (or less) is the explicit
+        switch to alternating steps. Returns the applied value."""
+        budget = int(budget)
+        applied = max(self._mixed_budget_floor, budget) if budget > 0 else 0
+        self.mixed_token_budget = applied
+        return applied
 
     def schedule(self):
         """Return a StreamPlan, MixedPlan, PrefillPlan, DecodePlan, or None

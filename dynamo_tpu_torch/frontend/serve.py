@@ -22,7 +22,10 @@ also by `run.py in=http`:
 Usage:
   python -m dynamo_tpu_torch.frontend.serve --port 0 \\
       --control-host 127.0.0.1 --control-port <port>
-(prints `READY http=:<port>`).
+(prints `ENROLLED epoch=<n>`, then `READY http=:<port>`). An HA pair is
+given in the comma form, `--control-host h1:p1,h2:p2`. The process ends
+with its runtime: when its lease is lost (the primary it enrolled with
+died), it prints `EXIT frontend lease_lost=True` and exits.
 """
 from __future__ import annotations
 
@@ -90,13 +93,17 @@ async def amain(argv=None) -> None:
         args.control_host, args.control_port, args.worker_id)
     service = await run_frontend(runtime, args.host, args.port,
                                  kv_routing=not args.no_kv_routing)
+    # the fencing epoch of the control-plane member it enrolled with
+    print(f"ENROLLED epoch={runtime.epoch}", flush=True)
     print(f"READY http=:{service.port}", flush=True)
     try:
-        await asyncio.Event().wait()
+        # the process ends with its runtime (a lost lease shuts it down)
+        await runtime.shutdown_event.wait()
     finally:
         await service.watcher.stop()
         await service.stop()
         await runtime.shutdown()
+    print(f"EXIT frontend lease_lost={runtime.lease_lost}", flush=True)
 
 
 def main() -> None:

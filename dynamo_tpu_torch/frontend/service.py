@@ -67,8 +67,13 @@ The engine ledger's `llm_engine_*` (observability/ledger.py LEDGER_STATS,
 JAX :200-208, :339-341) is folded the same way, and `llm_router_*` carries
 the transfer-aware selector's fields (kv_router/stats.py, JAX :169-177).
 
-Left out, each with the later slice that brings its module: the
-per-stream transfer and autoscaler gauges.
+The closed-loop autoscaler's `llm_autoscaler_*` (runtime/autoscaler.py
+AUTOSCALER_STATS, JAX :209-217, :345-347) are folded the same way.
+GET /router/state names each KV-routed model's radix tree (`indexer`:
+"native" or "python").
+
+Left out, with the later slice that brings its module: the per-stream
+transfer gauges.
 Reference equivalent: the axum HttpService (reference:
 lib/llm/src/http/service/service_v2.rs:23-130, openai.rs:132-540).
 """
@@ -111,6 +116,9 @@ from dynamo_tpu_torch.protocols.openai import (
     ValidationError,
 )
 from dynamo_tpu_torch.runtime import faults
+from dynamo_tpu_torch.runtime.autoscaler import (
+    AUTOSCALER_STATS, AutoscalerStats,
+)
 from dynamo_tpu_torch.runtime.component import DRAIN_STATS
 from dynamo_tpu_torch.runtime.cpstats import CP_STATS, ControlPlaneStats
 from dynamo_tpu_torch.runtime.health import (
@@ -242,6 +250,13 @@ class HttpService:
             name: m.gauge(f"llm_engine_{name}",
                           f"engine step ledger: {name.replace('_', ' ')}")
             for name in LedgerStats.FIELDS}
+        # the closed-loop autoscaler (AUTOSCALER_STATS): decisions by kind,
+        # cooldown / hysteresis suppressions, do-no-harm refusals,
+        # degraded-freeze ticks, last-decision age and the budget tuner
+        self._autoscaler = {
+            name: m.gauge(f"llm_autoscaler_{name}",
+                          f"fleet autoscaler: {name.replace('_', ' ')}")
+            for name in AutoscalerStats.FIELDS}
         # failpoint hits and injections, drains, and the fail-slow plane's
         # detection and hedging counters, folded at render
         self._fault_hits = m.gauge(
@@ -304,6 +319,7 @@ class HttpService:
                               (self._pool_ring, RING_STATS),
                               (self._kv_stream, STREAM_STATS),
                               (self._engine, LEDGER_STATS),
+                              (self._autoscaler, AUTOSCALER_STATS),
                               (self._drain, DRAIN_STATS),
                               (self._health_gauges, HEALTH_STATS)):
             for name, value in stats.snapshot().items():
@@ -355,6 +371,7 @@ class HttpService:
             router = p.router
             models[p.card.name] = {
                 "kv_routed": router is not None,
+                "indexer": router.indexer.kind if router else None,
                 "instances": {w: info.get("status", "ready")
                               for w, info in p.client.instances.items()},
                 "events_applied": router.events_applied if router else 0,

@@ -10,13 +10,24 @@ dead or draining worker's pages incrementally, and `revive_worker` accepts
 a worker back. The tree is owned by the asyncio loop (single-threaded by
 construction); `KvIndexer` is the event-fed wrapper.
 
-Left out: the native C++ tree (dynamo_tpu/native/kv_indexer.cpp, the JAX
-`KvIndexer(native="auto")` default, which answers the same) and the
-hash-sharded `KvIndexerSharded` (indexer.py:346-383).
+`KvIndexer(native="auto")` (:249-266) uses the native C++ tree
+(native/kv_indexer.cpp, built with g++ at first use) when frequency
+tracking is off and the build succeeds, and the Python tree otherwise;
+`native=True` insists on it, False never uses it. `KvIndexer.kind` says
+which is in use ("native" or "python"): the router service prints it on its
+READY line and answers it on its `state` endpoint, and the frontend's GET
+/router/state shows it per model. `KvIndexerSharded` (:327-383) shards
+workers across independent indexers by a hash of the worker id and merges
+their matches (scores, summed frequencies), evictions and backlogs. The
+shard hash is BLAKE2b (8 bytes, key 1337) where JAX takes xxh3-64 at seed
+1337, so a worker may land in another shard than in JAX; merged results do
+not depend on placement.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import logging
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
@@ -25,6 +36,8 @@ from dynamo_tpu_torch.kv_router.protocols import (
     KvCacheRemoveData, KvCacheStoreData, RouterEvent, compute_page_hashes,
 )
 from dynamo_tpu_torch.runtime.cpstats import CP_STATS
+
+log = logging.getLogger("dynamo_tpu_torch.indexer")
 
 # incremental-eviction budgets: a dead 100k-node worker must not stall
 # find_matches for the whole purge. remove_worker() processes one
@@ -222,15 +235,41 @@ class RadixTree:
         # refresh over a 100k-node tree cannot afford the full walk)
         return self.node_count
 
+    def worker_block_count(self, worker: str) -> int:
+        return len(self.lookup.get(worker, {}))
+
 
 class KvIndexer:
     """Event-fed index: subscribe to `{ns}.{component}.kv_events` and answer
     overlap queries (reference indexer.rs:499-668)."""
 
     def __init__(self, block_size: int,
-                 expiration_duration_s: Optional[float] = None):
+                 expiration_duration_s: Optional[float] = None,
+                 native: object = "auto"):
         self.block_size = block_size
-        self.tree = RadixTree(expiration_duration_s)
+        # native C++ tree when available; the Python tree is the fallback
+        # and the frequency-tracking path
+        self.tree = None
+        if native and expiration_duration_s is None:
+            # lazy: native.radix imports MatchResult from this module
+            from dynamo_tpu_torch.native import NATIVE_STATS, radix
+            try:
+                if radix.available():
+                    self.tree = radix.NativeRadixTree()
+            except Exception as e:  # noqa: BLE001 — counted in NATIVE_STATS
+                NATIVE_STATS.build_failures += 1
+                NATIVE_STATS.last_error = f"kv_indexer: start: {e!r}"
+                if native is True:
+                    raise
+                log.exception("native kv indexer failed to start; using "
+                              "the Python tree")
+        if self.tree is None:
+            if native is True:
+                raise RuntimeError("native kv indexer requested but "
+                                   "unavailable")
+            self.tree = RadixTree(expiration_duration_s)
+        self.kind = "python" if isinstance(self.tree, RadixTree) \
+            else "native"
         self.events_applied = 0
         # tombstones: in-flight events from a removed worker must not
         # resurrect it (they'd leak ghost nodes forever, since a worker
@@ -251,7 +290,9 @@ class KvIndexer:
         generation, so the find_matches eviction filter cannot hide the
         revived worker's fresh pages."""
         self._removed.discard(worker)
-        self.tree.finish_eviction(worker)
+        finish = getattr(self.tree, "finish_eviction", None)
+        if finish is not None:
+            finish(worker)
 
     def find_matches(self, page_hashes: Sequence[int]) -> MatchResult:
         return self.tree.find_matches(page_hashes)
@@ -265,9 +306,82 @@ class KvIndexer:
         self.tree.remove_worker(worker)
         self._refresh_cp_stats()
 
+    def process_evictions(self, budget: int = EVICT_CHUNK) -> int:
+        """Drain pending incremental evictions (no-op on the native tree,
+        whose remove_worker is synchronous)."""
+        proc = getattr(self.tree, "process_evictions", None)
+        done = proc(budget) if proc is not None else 0
+        if done:
+            self._refresh_cp_stats()
+        return done
+
+    def eviction_backlog(self) -> int:
+        backlog = getattr(self.tree, "eviction_backlog", None)
+        return backlog() if backlog is not None else 0
+
     def num_nodes(self) -> int:
         return self.tree.num_nodes()
 
     def _refresh_cp_stats(self) -> None:
         CP_STATS.indexer_nodes = self.tree.num_nodes()
-        CP_STATS.indexer_eviction_backlog = self.tree.eviction_backlog()
+        CP_STATS.indexer_eviction_backlog = self.eviction_backlog()
+
+
+def shard_hash(worker: str) -> int:
+    """The shard key of a worker id: stable across processes and restarts
+    (Python's hash() is salted per process)."""
+    return int.from_bytes(hashlib.blake2b(
+        worker.encode("utf-8"), digest_size=8,
+        key=(1337).to_bytes(8, "little")).digest(), "little")
+
+
+class KvIndexerSharded:
+    """Shards workers across independent indexers (reference
+    indexer.rs:677-900). Queries fan out to every shard and merge; events
+    touch exactly one shard."""
+
+    def __init__(self, block_size: int, num_shards: int = 4,
+                 expiration_duration_s: Optional[float] = None,
+                 native: object = "auto"):
+        self.block_size = block_size
+        self.shards = [KvIndexer(block_size, expiration_duration_s, native)
+                       for _ in range(num_shards)]
+        self.kind = self.shards[0].kind
+
+    def _shard_for(self, worker: str) -> KvIndexer:
+        return self.shards[shard_hash(worker) % len(self.shards)]
+
+    def apply_event(self, event: RouterEvent) -> None:
+        self._shard_for(event.worker_id).apply_event(event)
+
+    def find_matches(self, page_hashes: Sequence[int]) -> MatchResult:
+        merged = MatchResult()
+        for shard in self.shards:
+            res = shard.find_matches(page_hashes)
+            merged.scores.update(res.scores)
+            # per-depth use counts sum across shards (each shard tracks its
+            # own matched path; total recent uses of depth i is the sum)
+            for i, f in enumerate(res.frequencies):
+                if i < len(merged.frequencies):
+                    merged.frequencies[i] += f
+                else:
+                    merged.frequencies.append(f)
+        return merged
+
+    def find_matches_for_tokens(self, tokens: Sequence[int]) -> MatchResult:
+        return self.find_matches(compute_page_hashes(tokens, self.block_size))
+
+    def remove_worker(self, worker: str) -> None:
+        self._shard_for(worker).remove_worker(worker)
+
+    def revive_worker(self, worker: str) -> None:
+        self._shard_for(worker).revive_worker(worker)
+
+    def process_evictions(self, budget: int = EVICT_CHUNK) -> int:
+        return sum(shard.process_evictions(budget) for shard in self.shards)
+
+    def eviction_backlog(self) -> int:
+        return sum(s.eviction_backlog() for s in self.shards)
+
+    def num_nodes(self) -> int:
+        return sum(s.num_nodes() for s in self.shards)

@@ -14,8 +14,13 @@ folds into `llm_router_kv_hit_rate`.
 Run: python -m dynamo_tpu_torch.kv_router.main \\
         --coordinator 127.0.0.1:<control port> --namespace ns \\
         --component worker [--router-component router] [--block-size 64]
-(prints `READY router`). A request is `{"token_ids": [...]}`; the reply is
-`{"worker_id", "overlap_blocks", "best_overlap_blocks"}` or `{"error"}`.
+(prints `READY router indexer=<native|python>`). A request is
+`{"token_ids": [...]}`; the reply is `{"worker_id", "overlap_blocks",
+"best_overlap_blocks"}` or `{"error"}`. A second endpoint, `state`, answers
+any request with `{"indexer", "events_applied", "instances"}`: which radix
+tree the index runs on, the events it applied and the live instances. The
+coordinator may be an HA pair, "h1:p1,h2:p2"; the process ends with its
+runtime (a lost lease: `EXIT router lease_lost=True`).
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ class RouterService:
         self.router: KvRouter = None
         self._endpoint_name = endpoint
         self._served = None
+        self._served_state = None
 
     async def start(self) -> "RouterService":
         self._client = self._worker_comp.endpoint(
@@ -57,15 +63,23 @@ class RouterService:
         await self.router.start()
         self._served = await self._router_comp.endpoint("route").serve(
             self._route)
+        self._served_state = await self._router_comp.endpoint(
+            "state").serve(self._state)
         return self
 
     async def stop(self) -> None:
-        if self._served is not None:
-            await self._served.shutdown()
+        for served in (self._served, self._served_state):
+            if served is not None:
+                await served.shutdown()
         if self.router is not None:
             await self.router.stop()
         if self._client is not None:
             await self._client.stop()
+
+    async def _state(self, request, context):
+        yield {"indexer": self.router.indexer.kind,
+               "events_applied": self.router.events_applied,
+               "instances": sorted(self._client.instances)}
 
     async def _route(self, request, context):
         tokens = list(request.get("token_ids", ()))
@@ -87,9 +101,8 @@ class RouterService:
 
 
 async def _amain(args) -> None:
-    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
-    host, port = args.coordinator.rsplit(":", 1)
-    runtime = await DistributedRuntime.connect(host, int(port), "kv-router")
+    from dynamo_tpu_torch.runtime.distributed import connect_coordinator
+    runtime = await connect_coordinator(args.coordinator, "kv-router")
     svc = RouterService(runtime, args.namespace, args.component,
                         block_size=args.block_size,
                         router_component=args.router_component,
@@ -97,14 +110,18 @@ async def _amain(args) -> None:
     await svc.start()
     log.info("router serving %s/%s/route over %s/%s", args.namespace,
              args.router_component, args.namespace, args.component)
-    print("READY router", flush=True)
-    await asyncio.Event().wait()
+    print(f"READY router indexer={svc.router.indexer.kind}", flush=True)
+    # the process ends with its runtime (a lost lease shuts it down)
+    await runtime.shutdown_event.wait()
+    await svc.stop()
+    print(f"EXIT router lease_lost={runtime.lease_lost}", flush=True)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="dynamo-tpu standalone router")
     ap.add_argument("--coordinator", default="127.0.0.1:6230",
-                    help="control plane host:port")
+                    help="control plane host:port, or an HA pair "
+                         "h1:p1,h2:p2")
     ap.add_argument("--namespace", required=True)
     ap.add_argument("--component", required=True,
                     help="worker component to route over")

@@ -13,8 +13,12 @@ the namespace's event plane for the router's `kv-hit-rate` events
 router, shared-pool, pool-service and fail-slow counters at render. A
 departed or draining worker's series go at its watch event.
 
-Left out: the autoscaler's `llm_autoscaler_*` gauges, with the autoscaler
-(ROADMAP A14).
+The closed-loop autoscaler's `llm_autoscaler_*` (runtime/autoscaler.py
+AUTOSCALER_STATS, JAX :206-212, :449-451) are folded the same way: when
+this process hosts the controller they are its decision health, otherwise
+they render 0. The coordinator may be an HA pair, "h1:p1,h2:p2"; the
+process ends with its runtime (a lost lease: `EXIT exporter
+lease_lost=True`).
 
 Run: python -m dynamo_tpu_torch.observability.exporter \
         --coordinator 127.0.0.1:<control port> --namespace ns \
@@ -212,6 +216,13 @@ class MetricsExporter:
             name: r.gauge(f"{PREFIX}_router_{name}",
                           f"router scoring: {name.replace('_', ' ')}")
             for name in RouterScoringStats.FIELDS}
+        # closed-loop autoscaler counters (runtime/autoscaler.py), same
+        # render-time refresh
+        from dynamo_tpu_torch.runtime.autoscaler import AutoscalerStats
+        self.g_autoscaler = {
+            name: r.gauge(f"{PREFIX}_autoscaler_{name}",
+                          f"fleet autoscaler: {name.replace('_', ' ')}")
+            for name in AutoscalerStats.FIELDS}
         # cluster-wide shared KV pool counters (engine/kv_pool.py), same
         # render-time refresh — when this process hosts the pool (or a
         # publishing/fetching engine) these are its reuse health
@@ -445,6 +456,9 @@ class MetricsExporter:
         from dynamo_tpu_torch.kv_router.stats import ROUTER_STATS
         for name, value in ROUTER_STATS.snapshot().items():
             self.g_router[name].set(value=float(value))
+        from dynamo_tpu_torch.runtime.autoscaler import AUTOSCALER_STATS
+        for name, value in AUTOSCALER_STATS.snapshot().items():
+            self.g_autoscaler[name].set(value=float(value))
         from dynamo_tpu_torch.engine.kv_pool import POOL_STATS
         for name, value in POOL_STATS.snapshot().items():
             self.g_kv_pool[name].set(value=float(value))
@@ -500,10 +514,8 @@ class MetricsExporter:
 
 
 async def _amain(args) -> None:
-    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
-    host, port = args.coordinator.rsplit(":", 1)
-    runtime = await DistributedRuntime.connect(host, int(port),
-                                               "metrics-exporter")
+    from dynamo_tpu_torch.runtime.distributed import connect_coordinator
+    runtime = await connect_coordinator(args.coordinator, "metrics-exporter")
     exporter = MetricsExporter(
         runtime, args.namespace, args.component, endpoint=args.endpoint,
         port=args.port, scrape_interval_s=args.interval)
@@ -511,13 +523,17 @@ async def _amain(args) -> None:
     log.info("metrics exporter on :%d scraping %s/%s/%s", exporter.port,
              args.namespace, args.component, args.endpoint)
     print(f"READY metrics=:{exporter.port}", flush=True)
-    await asyncio.Event().wait()
+    # the process ends with its runtime (a lost lease shuts it down)
+    await runtime.shutdown_event.wait()
+    await exporter.stop()
+    print(f"EXIT exporter lease_lost={runtime.lease_lost}", flush=True)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="dynamo-tpu metrics exporter")
     ap.add_argument("--coordinator", default="127.0.0.1:6230",
-                    help="control plane host:port")
+                    help="control plane host:port, or an HA pair "
+                         "h1:p1,h2:p2")
     ap.add_argument("--namespace", required=True)
     ap.add_argument("--component", required=True)
     ap.add_argument("--endpoint", default="generate")

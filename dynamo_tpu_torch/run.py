@@ -178,14 +178,16 @@ async def run_endpoint(engine, card, spec: str, args) -> None:
             import torch
             device = torch.cuda.get_device_name(dev)
     print(f"READY endpoint={spec} model={card.name} "
-          f"worker={runtime.worker_id} device={device}", flush=True)
+          f"worker={runtime.worker_id} epoch={runtime.epoch} "
+          f"device={device}", flush=True)
     await runtime.shutdown_event.wait()
     if isinstance(engine, NativeEngineWorker):
         m = engine.engine.metrics()
         print(f"EXIT worker={runtime.worker_id} "
               f"logits_nonfinite_steps="
               f"{engine.engine.logits_nonfinite_steps()} "
-              f"requests_admitted={m.requests_admitted}", flush=True)
+              f"requests_admitted={m.requests_admitted} "
+              f"lease_lost={runtime.lease_lost}", flush=True)
 
 
 async def _stream_chat(pipe: LocalPipeline, card, prompt: str,

@@ -18,8 +18,11 @@ Frames an engine yields may be dataclasses (the port's protocol objects):
 they cross the wire as their dict forms (protocols/common.to_wire), as the
 JAX package sends `model_dump(exclude_none=True)`.
 
-Left out: `re_role` and the role caches behind `ids_for_role` (:363, the
-autoscaler's actuation), and the tracing spans (runtime/tracing.py).
+`ServedEndpoint.re_role` (:363-405) re-registers a live instance under a
+new serving role through the DRAINING fence (the autoscaler's actuation on
+a real worker), and `Client.ids_for_role` / `draining_ids` (:600-628) read
+the watch-maintained role caches. Left out: the tracing spans
+(runtime/tracing.py).
 """
 from __future__ import annotations
 
@@ -299,6 +302,47 @@ class ServedEndpoint:
         return {"worker_id": self.worker_id, "inflight_at_start":
                 started_with, "cancelled": cancelled}
 
+    async def re_role(self, role: str, drain_timeout_s: float = 30.0,
+                      poll_s: float = 0.05) -> dict:
+        """Re-register this LIVE instance under a new serving role: the
+        real-worker leg of the autoscaler's "this decode worker becomes a
+        prefill worker" actuation (runtime/autoscaler.py).
+
+        Fence ordering: the instance key is re-put with status=DRAINING
+        first, so every watching client and router drops it from
+        `ids_for_role(old_role)` the moment that event is applied; then
+        in-flight response streams get up to `drain_timeout_s` to finish
+        (they are NOT cancelled: a role change is planned maintenance of
+        the routing table, not of the streams); only then does the ready
+        re-put under the NEW role land. Between the two puts the instance
+        is schedulable for neither role."""
+        rt = self.endpoint._rt
+        from_role = self.info.get("role")
+        started_with = len(self.inflight)
+        try:
+            await self.mark_draining()
+        except Exception:  # dynalint: swallow-ok=re-role-proceeds-without-fence
+            log.exception("re_role: marking %s draining failed; "
+                          "re-roling anyway", self.worker_id)
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + drain_timeout_s
+        while self.inflight and loop.time() < deadline:
+            await asyncio.sleep(poll_s)
+        lingering = len(self.inflight)
+        if lingering:
+            log.warning("re_role %s: %d stream(s) still in flight at the "
+                        "drain deadline; re-roling around them",
+                        self.worker_id, lingering)
+        self.info["role"] = role
+        self.info.pop("status", None)
+        self.draining = False
+        await rt.kv.put(self.endpoint.key_for(self.worker_id),
+                        json.dumps(self.info).encode(),
+                        rt.lease.id if rt.lease else 0)
+        return {"worker_id": self.worker_id, "from_role": from_role,
+                "to_role": role, "inflight_at_start": started_with,
+                "lingering": lingering}
+
     async def shutdown(self):
         # idempotent and ordered: the instance KEY goes first so watching
         # routers stop picking this instance BEFORE the request subject
@@ -333,6 +377,11 @@ class Client:
         self._ids_dirty = True
         self._ready_cache: List[str] = []
         self._draining_cache: List[str] = []
+        # per-role dispatchable ids (the re-role fence reads them); role-less
+        # instances are wildcards kept apart, so an aggregated fleet
+        # answers every role without a scan per call
+        self._role_cache: Dict[str, List[str]] = {}
+        self._roleless_cache: List[str] = []
 
     def add_listener(self,
                      cb: Callable[[str, str, Optional[dict]], None]) -> None:
@@ -442,12 +491,22 @@ class Client:
     def _recompute_ids(self) -> None:
         ready: List[str] = []
         draining: List[str] = []
+        roleless: List[str] = []
+        by_role: Dict[str, List[str]] = {}
         for w in sorted(self.instances):
-            if instance_status(self.instances[w]) == STATUS_DRAINING:
+            info = self.instances[w]
+            if instance_status(info) == STATUS_DRAINING:
                 draining.append(w)
+                continue
+            ready.append(w)
+            role = instance_role(info)
+            if role is not None:
+                by_role.setdefault(role, []).append(w)
             else:
-                ready.append(w)
+                roleless.append(w)
         self._ready_cache, self._draining_cache = ready, draining
+        self._role_cache = by_role
+        self._roleless_cache = roleless
         self._ids_dirty = False
 
     def instance_ids(self) -> List[str]:
@@ -464,7 +523,21 @@ class Client:
             self._recompute_ids()
         return self._draining_cache
 
-    # -- routing -------------------------------------------------------------
+    def ids_for_role(self, role: str) -> List[str]:
+        """Dispatchable instance ids serving `role`: the re-role fence. A
+        worker flipped to DRAINING (the first leg of `re_role` /
+        `SimWorker.set_role`) leaves this list the moment its watch event
+        is APPLIED, and only re-enters under its NEW role's list with the
+        ready re-put. Role-less instances count for every role. Returns the
+        watch-maintained cache: callers must not mutate it."""
+        if self._ids_dirty:
+            self._recompute_ids()
+        declared = self._role_cache.get(role, [])
+        if not self._roleless_cache:
+            return declared
+        if not declared:
+            return self._roleless_cache
+        return sorted(declared + self._roleless_cache)
 
     def _pick_random(self) -> str:
         return random.choice(self.instance_ids())

@@ -5,8 +5,11 @@ Copied from dynamo_tpu/runtime/distributed.py: the control-plane clients
 shutdown, shutdown => lease revoked), a lazily started data-plane server
 for call-home response streams, and the namespace registry.
 `create_local` (:51) runs on an in-process memory plane, `connect` (:62)
-on the standalone server (transports/server.py). The HA address list of
-`connect` is left out with the standby.
+on the standalone server (transports/server.py), or on an HA pair given as
+`addrs=[(h1, p1), (h2, p2)]` or as the comma form "h1:p1,h2:p2" in `host`
+(:61-80). As in JAX (:84-91), a lost lease shuts the runtime down: leases
+are not replicated, so after a standby's promotion every runtime that held
+a lease on the dead primary ends (its process restarts and enrolls anew).
 
 The lease TTL is read from DYN_LEASE_TTL_S when a runtime is made (default
 10 s): a heavily loaded host can starve the heartbeat task past TTL/3, so
@@ -26,6 +29,17 @@ from dynamo_tpu_torch.runtime.transports.base import KVStore, Lease, Messaging
 from dynamo_tpu_torch.runtime.transports.memory import MemoryPlane
 
 log = logging.getLogger("dynamo_tpu_torch.runtime")
+
+
+async def connect_coordinator(text: str, worker_id: Optional[str] = None
+                              ) -> "DistributedRuntime":
+    """A runtime on the control plane named by a `--coordinator` flag:
+    "host:port", or an HA pair "h1:p1,h2:p2"."""
+    from dynamo_tpu_torch.runtime.transports.tcp import parse_addrs
+    addrs = parse_addrs(text)
+    host, port = addrs[0]
+    return await DistributedRuntime.connect(
+        host, port, worker_id, addrs=addrs if len(addrs) > 1 else None)
 
 
 def lease_ttl_s() -> float:
@@ -49,6 +63,8 @@ class DistributedRuntime:
         self._namespaces: Dict[str, Namespace] = {}
         self._client = None
         self._shutting_down = False
+        # set when the lease watch ended the runtime (not a caller)
+        self.lease_lost = False
 
     # -- constructors --------------------------------------------------------
 
@@ -65,11 +81,17 @@ class DistributedRuntime:
     @classmethod
     async def connect(cls, host: str = "127.0.0.1", port: int = 6230,
                       worker_id: Optional[str] = None,
-                      advertise_host: str = "127.0.0.1"
-                      ) -> "DistributedRuntime":
-        """Connect to a standalone control-plane server."""
-        from dynamo_tpu_torch.runtime.transports.tcp import ControlPlaneClient
-        client = await ControlPlaneClient(host, port).connect()
+                      advertise_host: str = "127.0.0.1",
+                      addrs=None) -> "DistributedRuntime":
+        """Connect to a standalone control-plane server, or to the primary
+        of an HA pair (`addrs`, or a comma list "h1:p1,h2:p2" in `host`),
+        riding out a failover window."""
+        from dynamo_tpu_torch.runtime.transports.tcp import (
+            ControlPlaneClient, parse_addrs,
+        )
+        if addrs is None and "," in host:
+            addrs = parse_addrs(host, port)
+        client = await ControlPlaneClient(host, port, addrs=addrs).connect()
         rt = cls(client, client, worker_id, advertise_host)
         rt._client = client
         await rt._init_lease()
@@ -83,6 +105,7 @@ class DistributedRuntime:
             await self.lease.lost.wait()
             log.warning("primary lease lost; shutting down runtime %s",
                         self.worker_id)
+            self.lease_lost = True
             await self.shutdown()
 
         self._tasks.append(asyncio.create_task(watch()))
@@ -103,6 +126,12 @@ class DistributedRuntime:
         if name not in self._namespaces:
             self._namespaces[name] = Namespace(self, name)
         return self._namespaces[name]
+
+    @property
+    def epoch(self) -> Optional[int]:
+        """The fencing epoch of the control-plane member this runtime
+        enrolled with (None on an in-process plane)."""
+        return getattr(self._client, "epoch", None)
 
     async def data_plane(self) -> DataPlaneServer:
         # lock: a concurrent caller must not see the server pre-start (its

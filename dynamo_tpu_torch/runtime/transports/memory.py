@@ -10,9 +10,13 @@ fires `transport.send` and `discovery.store`, a lease keep-alive
 force-expires the lease), a request `transport.send`, and a publish
 `transport.send` once and, for each subscriber, `transport.recv` and
 `event.plane` (a delay there reorders, a drop loses the event, a duplicate
-doubles it). Disarmed, each site costs one attribute read. Left out: the
-injected `LatencyModel` and the journal's restore helpers, whose one user
-is the durable server (transports/journal.py, ROADMAP A14).
+doubles it). Disarmed, each site costs one attribute read.
+
+`LatencyModel` (:37) is the injected delay of a simulated network hop: the
+stores await it before each KV op (put, create, get, get_prefix, delete;
+create awaits it again through put), request, publish and queue push, as
+the JAX plane does. Neither package sets a delay outside the tests. `_data_restore` / `_data_drop` are the journal's recovery
+path (transports/journal.py): no journaling, no watcher notify.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import logging
 import time
 import uuid
 from collections import defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.transports.base import (
@@ -43,14 +47,34 @@ async def _lossy_fire(site: str):
         return None
 
 
+class LatencyModel:
+    """Optional injected delay for simulating network hops in tests."""
+
+    def __init__(self, delay_s: float = 0.0):
+        self.delay_s = delay_s
+
+    async def apply(self) -> None:
+        if self.delay_s > 0:
+            await asyncio.sleep(self.delay_s)
+
+
 class MemoryKVStore(KVStore):
-    def __init__(self):
+    def __init__(self, latency: Optional[LatencyModel] = None):
         self._data: Dict[str, KVEntry] = {}
         self._watchers: List[Tuple[str, asyncio.Queue]] = []
         self._lease_seq = itertools.count(1)
         self._lease_keys: Dict[int, set] = defaultdict(set)
         self._lease_tasks: Dict[int, asyncio.Task] = {}
         self._lease_deadline: Dict[int, float] = {}
+        self._latency = latency or LatencyModel()
+
+    def _data_restore(self, key: str, value: bytes) -> None:
+        """Recovery-path set: no journaling, no watcher notify (recovery
+        runs before any watcher can exist)."""
+        self._data[key] = KVEntry(key, value, 0)
+
+    def _data_drop(self, key: str) -> None:
+        self._data.pop(key, None)
 
     def _notify(self, ev: WatchEvent) -> None:
         for prefix, q in list(self._watchers):
@@ -58,8 +82,9 @@ class MemoryKVStore(KVStore):
                 q.put_nowait(ev)
 
     async def _op(self) -> None:
-        """The failpoints of one KV op (a drop raises a ConnectionError
-        into the caller)."""
+        """The injected delay and the failpoints of one KV op (a drop
+        raises a ConnectionError into the caller)."""
+        await self._latency.apply()
         if faults.REGISTRY.enabled:
             await faults.REGISTRY.fire("transport.send")
             await faults.REGISTRY.fire("discovery.store")
@@ -72,6 +97,7 @@ class MemoryKVStore(KVStore):
         self._notify(WatchEvent("put", key, value))
 
     async def create(self, key: str, value: bytes, lease_id: int = 0) -> bool:
+        await self._latency.apply()
         if key in self._data:
             return False
         await self.put(key, value, lease_id)
@@ -164,7 +190,7 @@ class MemoryMessaging(Messaging):
     # redeliveries per item before it is dropped as poison
     MAX_REDELIVERIES = 5
 
-    def __init__(self):
+    def __init__(self, latency: Optional[LatencyModel] = None):
         self._handlers: Dict[str, callable] = {}
         self._subs: List[Tuple[str, asyncio.Queue]] = []
         self._queues: Dict[str, asyncio.Queue] = defaultdict(asyncio.Queue)
@@ -173,6 +199,7 @@ class MemoryMessaging(Messaging):
         # (queue, payload) -> redeliveries so far; survives pop/lease cycles
         self._delivery_counts: Dict[Tuple[str, bytes], int] = {}
         self.redeliveries = 0
+        self._latency = latency or LatencyModel()
 
     async def serve(self, subject, handler):
         self._handlers[subject] = handler
@@ -184,6 +211,7 @@ class MemoryMessaging(Messaging):
         return unsubscribe
 
     async def request(self, subject, payload, timeout: float = 30.0):
+        await self._latency.apply()
         if faults.REGISTRY.enabled:   # a drop: ConnectionError, retried by
             await faults.REGISTRY.fire("transport.send")  # the reliability layer
         handler = self._handlers.get(subject)
@@ -192,6 +220,7 @@ class MemoryMessaging(Messaging):
         return await asyncio.wait_for(handler(payload), timeout)
 
     async def publish(self, subject, payload):
+        await self._latency.apply()
         send_dup = False
         if faults.REGISTRY.enabled:
             out = await _lossy_fire("transport.send")
@@ -242,6 +271,7 @@ class MemoryMessaging(Messaging):
         return QueueStream(q, on_close=on_close)
 
     async def queue_push(self, queue, payload):
+        await self._latency.apply()
         self._queues[queue].put_nowait(payload)
 
     async def queue_pop(self, queue, timeout=None):
@@ -313,6 +343,6 @@ class MemoryMessaging(Messaging):
 class MemoryPlane:
     """Bundle of both planes, shared by components within one process."""
 
-    def __init__(self):
-        self.kv = MemoryKVStore()
-        self.messaging = MemoryMessaging()
+    def __init__(self, latency: Optional[LatencyModel] = None):
+        self.kv = MemoryKVStore(latency)
+        self.messaging = MemoryMessaging(latency)

@@ -4,10 +4,19 @@ socket.
 Copied from dynamo_tpu/runtime/transports/tcp.py (`ControlPlaneClient`,
 :26): one multiplexed connection carries KV ops, watches, leases with
 keep-alive, addressed request/reply, pub/sub and queue ops. The frames are
-the JAX package's, so this client also talks to the JAX server. Left out
-with the HA standby: the list of member addresses, the role probe and the
-promotion-epoch echo (fencing); `connect` dials the one server and retries
-until its deadline.
+the JAX package's, so this client also talks to the JAX server.
+
+HA (:26-110): `addrs` lists the members of a control-plane pair. `connect`
+probes each member's role (wire.oneshot_request), enrolls with the primary
+of the HIGHEST fencing epoch (a deposed primary that survived a partition
+is never chosen), adopts the probe's connection, and retries every 0.5 s
+until its deadline, so a standby that still refuses (mid-failover) or a
+member that is not up yet is ridden out. Every op then echoes the enrolled
+epoch: the server refuses an older one and steps down on a newer one.
+Once the read loop has seen the connection end, every op raises a
+ConnectionError at once (JAX sends it and waits out its timeout), so a
+lease keep-alive finds a dead primary within one keep-alive interval
+(TTL / 3), not TTL / 3 + TTL.
 
 Fault injection (runtime/faults.py): every frame sent fires
 `transport.send` (a drop raises a ConnectionError into the caller;
@@ -32,14 +41,35 @@ from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.transports.base import (
     KVEntry, KVStore, Lease, Messaging, QueueStream, WatchEvent, WatchStream,
 )
-from dynamo_tpu_torch.runtime.transports.wire import read_frame, write_frame
+from dynamo_tpu_torch.runtime.transports.wire import (
+    oneshot_request, read_frame, write_frame,
+)
 
 log = logging.getLogger("dynamo_tpu_torch.transports.tcp")
 
 
+def parse_addrs(text: str, default_port: int = 6230) -> list:
+    """"h1:p1,h2:p2" as [(h1, p1), (h2, p2)] (the comma form of an HA
+    pair); a part without a port takes `default_port`, ":p" the host
+    127.0.0.1."""
+    addrs = []
+    for part in text.split(","):
+        h, sep, p = part.strip().rpartition(":")
+        if not sep:
+            h, p = p, ""
+        addrs.append((h or "127.0.0.1", int(p) if p else default_port))
+    return addrs
+
+
 class ControlPlaneClient(KVStore, Messaging):
-    def __init__(self, host: str = "127.0.0.1", port: int = 6230):
+    def __init__(self, host: str = "127.0.0.1", port: int = 6230,
+                 addrs=None):
+        """addrs: optional [(host, port), ...], an HA control-plane pair;
+        connect() follows whichever member is primary at the highest
+        epoch."""
         self.host, self.port = host, port
+        self.addrs = list(addrs) if addrs else [(host, port)]
+        self.epoch: Optional[int] = None
         self._reader = None
         self._writer = None
         self._ids = itertools.count(1)
@@ -51,6 +81,7 @@ class ControlPlaneClient(KVStore, Messaging):
         self._keepalive_tasks: Dict[int, asyncio.Task] = {}
         self._tasks: set = set()
         self._write_lock = asyncio.Lock()
+        self.closed = asyncio.Event()
 
     def _spawn(self, coro) -> asyncio.Task:
         task = asyncio.create_task(coro)
@@ -59,22 +90,46 @@ class ControlPlaneClient(KVStore, Messaging):
         return task
 
     async def connect(self, timeout_s: float = 20.0) -> "ControlPlaneClient":
-        """Dial the server, retrying every 0.5 s until the deadline (the
-        server may still be starting)."""
+        """Connect to the primary member of `addrs`, retrying until the
+        deadline: a dead member is skipped, a standby is probed and
+        skipped, and a mid-failover window (old primary dead, standby not
+        yet promoted) is ridden out by the retry loop. With several
+        primaries visible the HIGHEST promotion epoch wins. The winning
+        probe connection is adopted as the client connection."""
         loop = asyncio.get_running_loop()
         deadline = loop.time() + timeout_s
+        last_err: Optional[Exception] = None
         while True:
-            try:
-                self._reader, self._writer = await asyncio.wait_for(
-                    asyncio.open_connection(self.host, self.port), 5.0)
-                break
-            except (OSError, asyncio.TimeoutError) as e:
-                if loop.time() >= deadline:
-                    raise ConnectionError(
-                        f"no control plane at {self.host}:{self.port}") from e
-                await asyncio.sleep(0.5)
-        self._reader_task = self._spawn(self._read_loop())
-        return self
+            best = None  # (epoch, host, port, reader, writer)
+            for host, port in self.addrs:
+                try:
+                    info, reader, writer = await oneshot_request(
+                        host, port, {"op": "role"}, 5.0, keep_open=True)
+                except Exception as e:  # noqa: BLE001 — try the next member
+                    last_err = e
+                    continue
+                role = info.get("role", "primary")
+                if role == "primary":
+                    cand = (info.get("epoch", 1), host, port, reader, writer)
+                    if best is None or cand[0] > best[0]:
+                        if best is not None:
+                            best[4].close()
+                        best = cand
+                        continue
+                else:
+                    last_err = ConnectionError(f"{host}:{port} is {role}")
+                writer.close()
+            if best is not None:
+                epoch, host, port, reader, writer = best
+                self._reader, self._writer = reader, writer
+                self._reader_task = self._spawn(self._read_loop())
+                self.host, self.port, self.epoch = host, port, epoch
+                return self
+            if loop.time() >= deadline:
+                raise ConnectionError(
+                    f"no primary control plane among {self.addrs}"
+                ) from last_err
+            await asyncio.sleep(0.5)
 
     async def close(self):
         for t in self._keepalive_tasks.values():
@@ -83,6 +138,7 @@ class ControlPlaneClient(KVStore, Messaging):
             t.cancel()
         if self._writer:
             self._writer.close()
+        self.closed.set()
 
     # -- plumbing ------------------------------------------------------------
 
@@ -96,10 +152,19 @@ class ControlPlaneClient(KVStore, Messaging):
             await asyncio.wait_for(self._writer.drain(), 30.0)
 
     async def _rpc(self, msg, timeout: float = 60.0):
+        if self.closed.is_set():
+            # the read loop saw the connection end: a frame written now may
+            # still land in the socket's buffer without an error, and its
+            # reply would never come (JAX waits out `timeout` here)
+            raise ConnectionError("control plane lost")
         rid = next(self._ids)
         fut = asyncio.get_running_loop().create_future()
         self._pending[rid] = fut
         try:
+            # every op echoes the enrolled promotion epoch (fencing): the
+            # server refuses older-epoch ops and steps down on newer ones
+            if self.epoch is not None and "epoch" not in msg:
+                msg = {"epoch": self.epoch, **msg}
             await self._send({"id": rid, **msg})
             reply = await asyncio.wait_for(fut, timeout)
         finally:
@@ -135,6 +200,7 @@ class ControlPlaneClient(KVStore, Messaging):
                 asyncio.CancelledError):
             pass
         finally:
+            self.closed.set()
             for fut in self._pending.values():
                 if not fut.done():
                     fut.set_exception(ConnectionError("control plane lost"))

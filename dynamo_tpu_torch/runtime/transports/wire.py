@@ -8,8 +8,8 @@ package's are the same bytes. A frame is written as a list of buffers
 (`codec.pack_parts`), so a KV page frame's payloads reach the socket
 without being copied into one body first, and `read_frame(...,
 zero_copy=True)` hands its bin payloads out as views of the frame's body.
-`oneshot_request` (the HA role probe and fencing dial) is left out with
-the standby it serves.
+`oneshot_request` (:50-84) is the HA role probe and fencing dial: connect,
+one request and its reply under one deadline.
 """
 from __future__ import annotations
 
@@ -63,3 +63,40 @@ def write_frame(writer: asyncio.StreamWriter, msg: Dict[str, Any]) -> None:
     if size > MAX_FRAME:
         raise ValueError(f"frame of {size} bytes exceeds max {MAX_FRAME}")
     writer.writelines([struct.pack(">I", size), *parts])
+
+
+async def oneshot_request(host: str, port: int, msg: Dict[str, Any],
+                          timeout: float = 5.0, keep_open: bool = False):
+    """Open a connection, send one id-tagged frame, await the matching
+    reply. Shared by role probes and HA fencing
+    (tcp.ControlPlaneClient.connect, server._primary_alive,
+    server._fence_peer). Both the connect and the
+    reply read sit under `timeout`, so a blackholed or wedged peer costs
+    seconds, not the OS connect timeout's minutes. With keep_open=True
+    returns (reply, reader, writer) for the caller to adopt as a live
+    connection; otherwise closes and returns the reply alone."""
+    async def _go():
+        # the whole _go() body (connect included) runs under the single
+        # wait_for(timeout) below
+        # dynalint: disable-next-line=R7
+        reader, writer = await asyncio.open_connection(host, port)
+        try:
+            write_frame(writer, {"id": 1, **msg})
+            # dynalint: unbounded-io-ok=whole-_go-body-under-one-wait_for
+            await writer.drain()
+            while True:
+                # dynalint: unbounded-io-ok=whole-_go-body-under-one-wait_for
+                m = await read_frame(reader)
+                if m.get("id") == 1:
+                    return m, reader, writer
+        except BaseException:  # incl. the deadline's CancelledError
+            writer.close()
+            raise
+
+    # ONE deadline spans connect + request + reply (a peer that accepts
+    # slowly and then never replies costs `timeout` total, not 2x)
+    reply, reader, writer = await asyncio.wait_for(_go(), timeout)
+    if keep_open:
+        return reply, reader, writer
+    writer.close()
+    return reply

@@ -13,9 +13,13 @@ the control plane), each given up to two minutes to exit, and prints `EXIT servi
 supervisor exits 0 when it was stopped by a signal and every child exited
 0, and 1 when a child died on its own.
 
+`--control-data-dir DIR` starts that control plane durable (its
+`--data-dir`: unleased KV and the work queues, the disaggregated prefill
+queue among them, are journaled there; transports/journal.py).
+
 Usage:
   python -m dynamo_tpu_torch.sdk.serve my.graph:Frontend -f config.json \\
-      --start-control-plane --control-port 0
+      --start-control-plane --control-port 0 [--control-data-dir DIR]
 """
 from __future__ import annotations
 
@@ -77,6 +81,8 @@ async def amain(argv=None) -> int:
     p.add_argument("--control-host", default="127.0.0.1")
     p.add_argument("--control-port", type=int, default=5550)
     p.add_argument("--start-control-plane", action="store_true")
+    p.add_argument("--control-data-dir", default=None,
+                   help="journal the started control plane's state here")
     p.add_argument("--gpus", type=int, default=0,
                    help="cards for resources={'gpu': n} services; a "
                         "service that asks for none shares card 0")
@@ -108,7 +114,9 @@ async def amain(argv=None) -> int:
         if args.start_control_plane:
             ready = await spawn(
                 ["-m", "dynamo_tpu_torch.runtime.transports.server",
-                 "--host", args.control_host, "--port", str(port)],
+                 "--host", args.control_host, "--port", str(port),
+                 *(("--data-dir", args.control_data_dir)
+                   if args.control_data_dir else ())],
                 "control-plane")
             port = int(ready.rsplit(":", 1)[1])
         for spec in specs:

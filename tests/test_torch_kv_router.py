@@ -796,3 +796,129 @@ def test_router_service_replies_equal_jax():
     assert rep[3] == [{"error": "token_ids required"}]
     assert ev == jev
     assert ev[0]["isl_blocks"] == 3 and ev[0]["overlap_blocks"] == 3
+
+
+# -- the hash-sharded indexer (JAX indexer.py:327-383) --------------------------
+
+def _stored_ev(protocols, worker, blocks, eid=0):
+    return protocols.RouterEvent(worker, protocols.KvCacheEvent(
+        eid, protocols.KvCacheStoreData(parent_hash=None, blocks=[
+            protocols.KvCacheStoredBlockData(b, t) for b, t in blocks])))
+
+
+def _indexers(**kw):
+    """(JAX KvIndexerSharded, port KvIndexerSharded) and the two
+    packages' protocols."""
+    from dynamo_tpu.kv_router import indexer as jidx
+    from dynamo_tpu.kv_router import protocols as jp
+    from dynamo_tpu_torch.kv_router import indexer as tidx
+    from dynamo_tpu_torch.kv_router import protocols as tp
+    return jidx, tidx, jp, tp
+
+
+def test_sharded_matches_unsharded():
+    """JAX tests/test_kv_router.py:118 on both packages: the same seeded
+    stored events through each package's KvIndexerSharded (3 shards) and
+    the port's unsharded KvIndexer give the same per-worker scores, before
+    and after a worker's removal. The shard a worker lands in differs
+    (BLAKE2b in the port, xxh3 in JAX); the merged scores do not."""
+    jidx, tidx, jp, tp = _indexers()
+    idx = tidx.KvIndexer(block_size=2)
+    jsh = jidx.KvIndexerSharded(block_size=2, num_shards=3)
+    tsh = tidx.KvIndexerSharded(block_size=2, num_shards=3)
+    rng = random.Random(0)
+    workers = [f"w{i}" for i in range(8)]
+    for eid in range(200):
+        w = rng.choice(workers)
+        chain = [(rng.randrange(1 << 30), rng.randrange(8))
+                 for _ in range(rng.randrange(1, 4))]
+        idx.apply_event(_stored_ev(tp, w, chain, eid))
+        tsh.apply_event(_stored_ev(tp, w, chain, eid))
+        jsh.apply_event(_stored_ev(jp, w, chain, eid))
+    for phase in range(2):
+        for _ in range(50 if phase == 0 else 20):
+            q = [rng.randrange(8) for _ in range(rng.randrange(1, 5))]
+            want = jsh.find_matches(q).scores
+            assert tsh.find_matches(q).scores == want
+            assert idx.find_matches(q).scores == want
+        for x in (idx, jsh, tsh):
+            x.remove_worker("w3")
+    # node counts depend on placement (a prefix shared by workers of two
+    # shards is a node in each), so they are not compared
+    placement = {w: tsh.shards.index(tsh._shard_for(w)) for w in workers}
+    assert len(set(placement.values())) > 1
+
+
+def test_sharded_merges_frequencies():
+    """JAX tests/test_kv_router.py:346 on both packages: with frequency
+    tracking (the Python tree in every shard) the merged result carries
+    both workers and the per-depth use counts summed over the shards. Each
+    shard counts its own walk, so the sum depends on placement: the two
+    workers are picked so that they sit in different shards in both
+    packages, and then the results are equal."""
+    jidx, tidx, jp, tp = _indexers()
+    shs = [(jidx.KvIndexerSharded(block_size=4, num_shards=2,
+                                  expiration_duration_s=60.0), jp),
+           (tidx.KvIndexerSharded(block_size=4, num_shards=2,
+                                  expiration_duration_s=60.0), tp)]
+    names = [f"w{i}" for i in range(64)]
+
+    def apart(a, b):
+        return all(sh._shard_for(a) is not sh._shard_for(b)
+                   for sh, _ in shs)
+    wa, wb = next((a, b) for a in names for b in names if apart(a, b))
+    out = []
+    for sh, proto in shs:
+        sh.apply_event(_stored_ev(proto, wa, [(101, 1)]))
+        sh.apply_event(_stored_ev(proto, wb, [(201, 1)]))
+        sh.apply_event(_stored_ev(proto, wa, [(102, 1), (103, 2)]))
+        res = [sh.find_matches([1, 2]) for _ in range(3)]
+        out.append([(r.scores, r.frequencies) for r in res])
+    assert out[0] == out[1]
+    scores, freqs = out[1][-1]
+    assert scores == {wa: 2, wb: 1}
+    assert freqs and freqs[0] >= 2
+    from dynamo_tpu_torch.kv_router.indexer import RadixTree
+    assert all(isinstance(s.tree, RadixTree) for s in shs[1][0].shards)
+
+
+def test_sharded_parity_under_interleaved_churn():
+    """JAX tests/test_kv_router.py:577 on both packages: under interleaved
+    apply_event / remove_worker / revive_worker churn, including while
+    evictions are mid-backlog, the port's sharded indexer answers as the
+    JAX one and as an unsharded Python-tree KvIndexer do."""
+    jidx, tidx, jp, tp = _indexers()
+    idx = tidx.KvIndexer(block_size=2, native=False)
+    jsh = jidx.KvIndexerSharded(block_size=2, num_shards=3)
+    tsh = tidx.KvIndexerSharded(block_size=2, num_shards=3)
+    rng = random.Random(7)
+    workers = [f"w{i}" for i in range(6)]
+    for eid in range(600):
+        op = rng.random()
+        w = rng.choice(workers)
+        if op < 0.70:
+            chain = [(rng.randrange(1 << 30), rng.randrange(16))
+                     for _ in range(rng.randrange(1, 4))]
+            idx.apply_event(_stored_ev(tp, w, chain, eid))
+            tsh.apply_event(_stored_ev(tp, w, chain, eid))
+            jsh.apply_event(_stored_ev(jp, w, chain, eid))
+        elif op < 0.85:
+            for x in (idx, jsh, tsh):
+                x.remove_worker(w)
+        else:
+            for x in (idx, jsh, tsh):
+                x.revive_worker(w)
+        if eid % 20 == 0:
+            for _ in range(10):
+                q = [rng.randrange(16) for _ in range(3)]
+                want = jsh.find_matches(q).scores
+                assert tsh.find_matches(q).scores == want, (eid, q)
+                assert idx.find_matches(q).scores == want, (eid, q)
+    for x in (idx, jsh, tsh):
+        x.process_evictions(1 << 30)
+    assert tsh.eviction_backlog() == jsh.eviction_backlog() == 0
+    for _ in range(50):
+        q = [rng.randrange(16) for _ in range(4)]
+        want = jsh.find_matches(q).scores
+        assert tsh.find_matches(q).scores == want
+        assert idx.find_matches(q).scores == want

@@ -623,3 +623,82 @@ def test_graceful_drain_finishes_inflight_then_deregisters():
         await crt.shutdown()
 
     run(main())
+
+
+def _re_role_trace(pkg: str) -> list:
+    """tests/test_runtime.py:580's script on one package: a live served
+    instance re-roles decode -> prefill through the DRAINING fence beside a
+    role-less wildcard, then drains again; the watching client's role lists
+    at each checkpoint, in order."""
+    if pkg == "jax":
+        from dynamo_tpu.runtime.distributed import DistributedRuntime as RT
+        from dynamo_tpu.runtime.transports.memory import MemoryPlane as MP
+
+        async def engine(request, context):
+            for i in range(request.get("n", 3)):
+                yield {"i": i, "text": request.get("text", "")}
+    else:
+        RT, MP, engine = DistributedRuntime, MemoryPlane, echo_engine
+
+    async def main():
+        plane = MP()
+        wrt = await RT.create_local(plane, "w-roled")
+        art = await RT.create_local(plane, "w-any")
+        crt = await RT.create_local(plane, "cl")
+        ep = wrt.namespace("ns").component("gen").endpoint("generate")
+        served = await ep.serve(engine, metadata={"role": "decode"})
+        await art.namespace("ns").component("gen").endpoint(
+            "generate").serve(engine)     # role-less wildcard
+        client = crt.namespace("ns").component("gen").endpoint(
+            "generate").client()
+        await client.start()
+        await client.wait_for_instances()
+        trace = []
+
+        async def wait_for(pred, timeout=5.0):
+            deadline = asyncio.get_running_loop().time() + timeout
+            while not pred():
+                assert asyncio.get_running_loop().time() < deadline, \
+                    "condition never held"
+                await asyncio.sleep(0.01)
+
+        def snap(tag):
+            trace.append((tag, list(client.ids_for_role("decode")),
+                          list(client.ids_for_role("prefill")),
+                          list(client.draining_ids())))
+
+        await wait_for(lambda: "w-roled" in client.ids_for_role("decode"))
+        snap("start")
+        res = await served.re_role("prefill", drain_timeout_s=1.0)
+        trace.append(("re_role", res["from_role"], res["to_role"],
+                      res["inflight_at_start"], res["lingering"]))
+        await wait_for(lambda: "w-roled" in client.ids_for_role("prefill"))
+        snap("re-roled")
+        frames = [f async for f in await client.generate(
+            {"n": 2, "text": "post-re-role"}, instance="w-roled")]
+        trace.append(("direct", [f["i"] for f in frames]))
+        await served.mark_draining()
+        await wait_for(
+            lambda: "w-roled" not in client.ids_for_role("prefill"))
+        snap("draining")
+        await crt.shutdown()
+        await art.shutdown()
+        await wrt.shutdown()
+        return trace
+
+    return run(main())
+
+
+def test_served_endpoint_re_role_fence_and_role_routing():
+    """JAX tests/test_runtime.py:580 on the port, traced beside the JAX
+    run: the role-less instance serves every role, the re-roled one leaves
+    the decode list and joins the prefill list only after the ready
+    re-put, requests still route to it, and a draining re-put removes it
+    from both lists. The port's trace equals the JAX one."""
+    got = _re_role_trace("port")
+    assert got == _re_role_trace("jax")
+    assert got[0] == ("start", ["w-any", "w-roled"], ["w-any"], [])
+    assert got[1] == ("re_role", "decode", "prefill", 0, 0)
+    assert got[2] == ("re-roled", ["w-any"], ["w-any", "w-roled"], [])
+    assert got[3] == ("direct", [0, 1])
+    assert got[4] == ("draining", ["w-any"], ["w-any"], ["w-roled"])
