@@ -380,8 +380,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    and depth, bf16 weights from seed 0 in both workers, bf16 KV pages, ps
    64, max_model_len 16384; decode max_slots 16, max_local_prefill_length
    1000, max_prefill_queue_size 2; prefill max_slots 8; max_prefill_chunk
-   512) with one cut: num_pages 1024 per engine in place of 2048, two
-   engines sharing one card. The supervisor starts the control plane, the
+   512) with two cuts: num_pages 1024 per engine in place of 2048, two
+   engines sharing one card, and num_layers 4 of the 32 (DISAGG_LAYERS,
+   for the time limit; phase 20 serves the whole depth disaggregated),
+   every gate derived from the 4. The supervisor starts the control plane, the
    PrefillWorker, the DecodeWorker (each printing the card it runs on,
    which must be this card) and the KV-routed Frontend. Before that, an
    aggregated NativeEngine with the decode worker's config on the same
@@ -760,11 +762,66 @@ Phases (any failed check exits non-zero; nothing is caught):
    per decode token, the prefetch hit share, host-to-device GB/s of the
    window fills, stall steps, the phase's seconds.
 
+20. Traced disaggregation under a link-cut storm (A14; runtime/tracing.py,
+   disagg/*, tools/torch_trace_explain.py): llama3-8b at full width and
+   depth, bf16, seed-0 weights, one tree shared by a decode engine and a
+   prefill engine in process on phase 12's decode and prefill configs
+   (max_local_prefill_length 1000) with 512 pages each; the port's
+   HttpService and ReliableClient over a memory control plane, a
+   PrefillQueue and the TCP transfer plane (RemoteTransferBackend ->
+   KvTransferServer on 127.0.0.1, chunk_pages 4). The reference: the
+   decode engine serving each chat aggregated, alone, with its top
+   logprobs, before the workers start.
+   T, traced and clean: TRACER on at sample 1.0, 4 SSE chats of ROUND_A's
+   lengths one at a time, 32 greedy tokens each; the spans drained to
+   build/trace_p20.jsonl (+ .chrome.json) and summarized by the explain
+   tool. Gates: exactly 4 request traces, each one tree rooted at
+   http.request with every parent in the trace, holding schedule, attempt,
+   worker.generate, prefill.remote, queue.wait, prefill.run, kv.transfer,
+   kv.transfer.chunk, kv.inject and decode.emit; kv.transfer's pages = the
+   prompt's pages (ceil(tokens / 64)) and its bytes = the pages on the
+   wire (each chunk padded to a power of two, the JAX chunk layout) x 2 x
+   32 x 8 x 64 x 128 x 2; ceil(pages / 4) chunk spans; the decode.emit n's add up
+   to the tokens served; scope:engine records present; each stream equal
+   to the reference or first differing at a near tie (NEAR_TIE).
+   Reported: each request's queue wait, prefill run, transfer ms and GB/s
+   beside the router's pre-send est_s, inject ms and first-emit offset.
+   S, under a storm: `transfer.link` (seed 53, drop p 0.12: the transfer
+   storm's plan without its 30 s stall), `queue.dequeue` (seed 353, delay
+   p 0.5, 10 ms) and one `remote_transfer.fetch_page` corruption; 4 fresh
+   chats of the same lengths, through a stop-and-wait sender (window 1, as
+   the JAX storm's: at a cut the frontier is the chunks acked). Gates: 32
+   tokens and "length" each, no error frame, each equal to the reference
+   or first differing at a near tie; every drop that fired absorbed by a
+   reconnect of its sender (the successful transfers' resumes, plus
+   link_retries + 1 a transfer that gave up); XFER_STATS.resumes >= 1 and
+   equal to the kv.transfer.resume events; pages injected = the prompts'
+   pages (less what a salvage kept off the wire), each verified; exactly 1
+   integrity mismatch, refused and re-sent; 0 frontend migrations or
+   retries; a salvage only for a transfer that gave up, else 0; everything
+   disarmed afterwards. W, the same plan re-armed over 4 more fresh chats
+   through the serving sender (a window of 4 chunks): the gates that hold
+   at any window (every gate of S but resumes >= 1 and the one re-send, as
+   a cut can land before any ack and a refused chunk's nack unread), so no
+   committed page lands twice when a reconnected handshake reads the
+   frontier while the cut connection's chunks still inject.
+   L, the local staging hop: a LocalTransferBackend between the same two
+   engines with one `remote_transfer.fetch_page` corruption, one chat of
+   1100: 1 page set re-fetched, the prompt's pages verified before their
+   inject, the stream equal to the reference (or a near tie).
+   P, the profiler hook: a fresh NativeEngineWorker on the decode engine
+   with DYN_TORCH_PROFILE_DIR set serves one 105-token chat of 32 tokens
+   and stops: its chrome trace loads and names ragged_split_kernel
+   (reported: its kernel events beside the derived launches).
+   Over the phase: decode-engine ragged launches = 32 x the decode steps
+   derived from the streams + its graphs' warm-ups; the prefill engine
+   launches none.
+
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
 worker process of 11 and 12, each engine's turns in 13, each run of 14,
 each card run and run.py process of 15, each engine of 16, each round,
 engine and run.py process of 17, the run.py process and each in-process
-part of 18, and each streamed run of 19) runs with every kernel's launch
+part of 18, each streamed run of 19, and phase 20) runs with every kernel's launch
 count set to 0 just before it and read just after. Each phase prints its wall-clock
 seconds on a line `phase seconds: <phase> <s>`. The third line from the
 end of the output is one JSON object with the kernel records, the second
@@ -4901,6 +4958,7 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
 DISAGG_NS = "dynamo-demo"
 DISAGG_GRAPH = "dynamo_tpu_torch.examples.disagg.graph:Frontend"
 DISAGG_PAGES = 1024   # per engine; the reference deployment gives each 2048
+DISAGG_LAYERS = 4     # phase 12's depth of 32 (phase 20 runs all 32)
 # chat user-turn lengths in bytes (byte tokens; the template adds 25). A
 # decode window's graph is keyed by its rows' variant (all greedy, or
 # sampled), the page bucket of its longest row (admission-time pages of
@@ -5358,6 +5416,9 @@ def phase_disagg(smi: str, model: str = "llama3-8b", device: str = "cuda",
     from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
     t_phase = time.perf_counter()
     cfg = disagg_config(model, device, scale, max_model_len)
+    n_layers = min(DISAGG_LAYERS, get_model_config(model).num_layers)
+    for svc in ("DecodeWorker", "PrefillWorker"):
+        cfg[svc]["num_layers"] = n_layers
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
     path = os.path.join(root, "build", "disagg_config.json")
@@ -5415,8 +5476,7 @@ def phase_disagg(smi: str, model: str = "llama3-8b", device: str = "cuda",
             check(dev == device_name, f"{tag} worker on {dev!r}, expected "
                   f"{device_name!r}: {line}")
         rec = asyncio.run(asyncio.wait_for(drive_disagg(
-            cp_port, fe_port, model, scale,
-            get_model_config(model).num_layers, reference, pre,
+            cp_port, fe_port, model, scale, n_layers, reference, pre,
             card.kv_page_size, cfg["DecodeWorker"][
                 "max_local_prefill_length"], smi, device == "cuda"), 900))
         rec["journal"] = asyncio.run(asyncio.wait_for(
@@ -9697,6 +9757,523 @@ def phase_streaming(smi: str, model: str = "llama3-8b", device: str = "cuda",
     return rec
 
 
+# -- phase 20: traced disaggregation under a link-cut storm -----------------------
+
+TRACED_PAGES = 512        # per engine: two engines and one weight tree
+TRACED_CHUNK_PAGES = 4
+TRACED_LEGS = ("schedule", "attempt", "worker.generate", "prefill.remote",
+               "queue.wait", "prefill.run", "kv.transfer",
+               "kv.transfer.chunk", "kv.inject", "decode.emit")
+# the transfer storm's link plan without its 30 s stall, and its queue
+# jitter (tools/torch_chaos.py TRANSFER_STORM_PLAN)
+STORM_PLAN = {
+    "transfer.link": {"seed": 53, "specs": [{"kind": "drop", "p": 0.12}]},
+    "queue.dequeue": {"seed": 353, "specs": [
+        {"kind": "delay", "p": 0.5, "delay_s": 0.01}]},
+    "remote_transfer.fetch_page": {"seed": 0, "specs": [
+        {"kind": "corrupt", "p": 1.0, "n": 1}]},
+}
+PROFILE_TURN = 80         # P's user turn in bytes: a 105-token prompt
+
+
+def wire_pages(pages: int, chunk: int) -> int:
+    """Pages a transfer of `pages` puts on the wire: each chunk padded with
+    zero pages to a power of two (the JAX `_stage_chunk` layout)."""
+    out = 0
+    for start in range(0, pages, chunk):
+        n = min(chunk, pages - start)
+        out += 1 << (n - 1).bit_length()
+    return out
+
+
+def request_traces(spans: list) -> dict:
+    """trace id -> its spans, the scope:* pseudo-traces left out."""
+    out = {}
+    for s in spans:
+        if not s["trace_id"].startswith("scope:"):
+            out.setdefault(s["trace_id"], []).append(s)
+    return out
+
+
+def traced_split(mine: list) -> dict:
+    """One request trace's legs in ms: queue wait, prefill run, transfer
+    (and its GB/s beside the router's pre-send estimate), injects, and the
+    first emit's offset from the HTTP root."""
+    def named(n):
+        return [s for s in mine if s["name"] == n]
+    root = named("http.request")[0]
+    (x,) = named("kv.transfer")
+    emits = sorted(named("decode.emit"), key=lambda s: s["ts"])
+    return {"queue_wait_ms": sum(s["dur"] for s in named("queue.wait")) * 1e3,
+            "prefill_run_ms": sum(s["dur"] for s in named("prefill.run")) * 1e3,
+            "transfer_ms": x["dur"] * 1e3,
+            "transfer_gb_s": x["attrs"]["bytes"] / x["dur"] / 1e9,
+            "est_ms": x["attrs"]["est_s"] * 1e3,
+            "est_cold": x["attrs"]["est_cold"],
+            "inject_ms": sum(s["dur"] for s in named("kv.inject")) * 1e3,
+            "first_emit_ms": (emits[0]["ts"] - root["ts"]) * 1e3}
+
+
+def write_spans(path: str, spans: list) -> None:
+    from dynamo_tpu_torch.runtime.tracing import chrome_trace
+    with open(path, "w") as f:
+        f.writelines(json.dumps(s) + "\n" for s in spans)
+    with open(path + ".chrome.json", "w") as f:
+        json.dump(chrome_trace(spans), f)
+
+
+def phase_traced_disagg(smi: str, model: str = "llama3-8b",
+                        device: str = "cuda", scale: float = 1.0,
+                        device_name: str = None,
+                        max_model_len: int = 0) -> dict:
+    """Phase 20 (see the docstring at the top); a rehearsal on the CPU
+    (`device` "cpu", a small model) shrinks the prompts and the threshold
+    together by `scale`, may set the engines' max_model_len, and ships
+    one-page chunks to give the storm as many chunks to cut."""
+    return asyncio.run(asyncio.wait_for(_traced_disagg(
+        smi, model, device, scale, device_name, max_model_len), 600))
+
+
+async def _traced_disagg(smi, model, device, scale, device_name,
+                         max_model_len) -> dict:
+    import torch
+    from dynamo_tpu_torch.disagg.queue import PrefillQueue
+    from dynamo_tpu_torch.disagg.remote_transfer import (
+        KvTransferServer, RemoteTransferBackend,
+    )
+    from dynamo_tpu_torch.disagg.router import DisaggregatedRouter
+    from dynamo_tpu_torch.disagg.transfer import LocalTransferBackend
+    from dynamo_tpu_torch.disagg.worker import (
+        DisaggDecodeWorker, PrefillWorker,
+    )
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.engine.scheduler import Scheduler
+    from dynamo_tpu_torch.examples.disagg.graph import _build, _device_name
+    from dynamo_tpu_torch.frontend.discovery import (
+        ModelWatcher, register_model,
+    )
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.llm import worker as llm_worker
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.runtime import faults
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.integrity import (
+        STATS as INTEGRITY, XFER_STATS,
+    )
+    from dynamo_tpu_torch.runtime.tracing import TRACER
+    from dynamo_tpu_torch.runtime.transports.memory import MemoryPlane
+    from tools.torch_trace_explain import summarize
+    name = "traced disaggregation"
+    t_phase = time.perf_counter()
+    chunk_pages = TRACED_CHUNK_PAGES if device == "cuda" else 1
+    cfg = disagg_config(model, device, scale, max_model_len)
+    for svc in ("DecodeWorker", "PrefillWorker"):
+        cfg[svc]["num_pages"] = TRACED_PAGES
+    card, dec_eng = _build(cfg["DecodeWorker"])
+    check(device_name is None or _device_name(dec_eng) == device_name,
+          f"traced disaggregation: the decode engine on "
+          f"{_device_name(dec_eng)!r}, expected {device_name!r}")
+    pc = cfg["PrefillWorker"]
+    pre_eng = NativeEngine(dec_eng.model_cfg, EngineConfig(
+        page_size=int(pc["page_size"]), num_pages=TRACED_PAGES,
+        max_slots=int(pc["max_slots"]),
+        max_prefill_chunk=int(pc["max_prefill_chunk"]),
+        max_model_len=int(pc["max_model_len"])),
+        params=dec_eng.params, eos_token_ids=set(card.eos_token_ids),
+        device=device)
+    mcfg, ps = dec_eng.model_cfg, card.kv_page_size
+    page_bytes = (2 * mcfg.num_layers * mcfg.num_kv_heads * ps
+                  * mcfg.head_dim * torch.empty((), dtype=getattr(
+                      torch, mcfg.dtype)).element_size())
+    threshold = cfg["DecodeWorker"]["max_local_prefill_length"]
+    pre = OpenAIPreprocessor(card)
+    n_tok = DIST_MAX_TOKENS
+
+    def body(n, seed, stream=True):
+        return disagg_body(model, n, seed, False, stream, scale, n_tok)
+
+    chats = {"T": [body(n, 2000 + i) for i, n in enumerate(ROUND_A)],
+             "S": [body(n, 2100 + i) for i, n in enumerate(ROUND_A)],
+             "W": [body(n, 2400 + i) for i, n in enumerate(ROUND_A)],
+             "L": [body(ROUND_A[0], 2200, False)],
+             "P": [body(PROFILE_TURN, 2300, False)]}
+    # the references: the decode engine serving each chat alone
+    reference = []
+    for rnd, bodies in chats.items():
+        for i, b in enumerate(bodies):
+            p, _ = pre.preprocess_chat(ChatCompletionRequest.from_json(b),
+                                       request_id=f"{rnd}-{i}")
+            req = llm_worker.to_engine_request(p)
+            check(len(req.prompt) > threshold or rnd == "P",
+                  f"{name}: chat {rnd}-{i} of {len(req.prompt)} tokens "
+                  f"stays local (threshold {threshold})")
+            toks, tops = aggregated_run(dec_eng, f"ref-{rnd}-{i}", req)
+            reference.append({"round": rnd, "prompt": req.prompt, "pre": p,
+                              "tokens": toks, "tops": tops,
+                              "pages": -(-len(req.prompt) // ps)})
+    # a fresh page allocator: no prefix of the references is reused
+    dec_eng.scheduler = Scheduler(dec_eng.cfg)
+    dec_eng._dec_state = None
+    refs = {r: [x for x in reference if x["round"] == r] for r in chats}
+    ref_s = time.perf_counter() - t_phase
+
+    def hold(label, toks, ref):
+        d = divergence(toks, ref["tokens"], ref["tops"])
+        check(d is None or d[1] <= NEAR_TIE, f"{name}: {label} left the "
+              f"reference stream at (position, logprob gap) {d}, past a "
+              f"near tie ({NEAR_TIE}): {toks} against {ref['tokens']}")
+        return d
+
+    class Tapped(DisaggDecodeWorker):
+        """The decode worker, recording each served stream's token ids in
+        arrival order (the SSE carries text)."""
+
+        async def generate(self, request, context):
+            toks = []
+            self.streams.append(toks)
+            async for frame in super().generate(request, context):
+                toks.extend(frame.token_ids or ())
+                yield frame
+
+    reset_launch_counts()
+    steps0 = dec_eng.decode_window_steps
+    warm0 = {k: dict(e.graphs.warmup_launches)
+             for k, e in (("decode", dec_eng), ("prefill", pre_eng))}
+    replay0 = {k: dict(e.graphs.replay_launches)
+               for k, e in (("decode", dec_eng), ("prefill", pre_eng))}
+    saved_trace = (TRACER.enabled, TRACER.sample_rate)
+    TRACER.configure(enabled=True, sample_rate=1.0)
+    TRACER.reset()
+    plane = MemoryPlane()
+    ns = DISAGG_NS
+    wrt = await DistributedRuntime.create_local(plane, "dec-0")
+    queue = PrefillQueue(plane.messaging, ns, model)
+    router = DisaggregatedRouter(
+        threshold, cfg["DecodeWorker"]["max_prefill_queue_size"], model)
+    decode = Tapped(dec_eng, plane.messaging, router, queue,
+                    worker_id="dec-0", prefill_timeout_s=300.0)
+    decode.streams = []
+    server = await KvTransferServer(decode, "dec-0").start()
+    await server.register(plane.kv)
+    tx = RemoteTransferBackend(plane.kv, chunk_pages=chunk_pages)
+    tx_s = RemoteTransferBackend(plane.kv, chunk_pages=chunk_pages,
+                                 window_chunks=1)
+    prefill = PrefillWorker(llm_worker.NativeEngineWorker(pre_eng), queue,
+                            tx, plane.messaging, dequeue_timeout_s=0.05)
+    await decode.start()
+    await prefill.start()
+    await llm_worker.serve_llm_worker(wrt, ns, "backend", decode)
+    frt = await DistributedRuntime.create_local(plane, "frontend")
+    svc = await HttpService("127.0.0.1", 0).start()
+    watcher = await ModelWatcher(
+        frt, svc.models, reliability_metrics=svc.reliability).start()
+    await register_model(frt.kv, model, ns, "backend", card,
+                         model_type="chat")
+    rec = {"reference_s": ref_s}
+    try:
+        async def listed():
+            return model in svc.models.chat
+        await _poll(f"{name}: the frontend listing {model}", listed, 60,
+                    0.02)
+
+        async def serve(rnd):
+            out = []
+            for i, b in enumerate(chats[rnd]):
+                n0 = len(decode.streams)
+                frames, done, _, _ = await _sse(svc.port, b)
+                check(len(decode.streams) == n0 + 1, f"{name}: {rnd}-{i} "
+                      f"reached the decode worker "
+                      f"{len(decode.streams) - n0} times")
+                usage = [f["usage"] for f in frames if f.get("usage")]
+                finish = [c.get("finish_reason") for f in frames
+                          for c in f.get("choices", [])
+                          if c.get("finish_reason")]
+                check(done and finish == ["length"] and usage
+                      and usage[-1]["completion_tokens"] == n_tok
+                      and not any("error" in f for f in frames),
+                      f"{name}: {rnd}-{i} ended {finish}, usage {usage}, "
+                      f"[DONE] {done}")
+                toks = decode.streams[-1]
+                check(len(toks) == n_tok, f"{name}: {rnd}-{i} served "
+                      f"{len(toks)} tokens")
+                out.append({"tokens": toks, "divergence": hold(
+                    f"{rnd}-{i}", toks, refs[rnd][i])})
+            return out
+
+        # T: traced and clean
+        t0 = time.perf_counter()
+        streams_t = await serve("T")
+        rec["round_t_s"] = time.perf_counter() - t0
+        spans_t = TRACER.drain()
+        root = os.path.dirname(os.path.abspath(__file__))
+        os.makedirs(os.path.join(root, "build"), exist_ok=True)
+        write_spans(os.path.join(root, "build", "trace_p20.jsonl"), spans_t)
+        traces = request_traces(spans_t)
+        check(len(traces) == len(chats["T"]), f"{name}: {len(traces)} "
+              f"request traces for {len(chats['T'])} chats")
+        split = {}
+        by_rid = {}
+        for tid, mine in traces.items():
+            ids = {s["span_id"] for s in mine}
+            roots = [s["name"] for s in mine if s["parent_id"] not in ids]
+            check(roots == ["http.request"] and all(
+                s["parent_id"] in ids for s in mine
+                if s["name"] != "http.request"),
+                f"{name}: trace {tid} is no single tree under http.request "
+                f"(roots {roots})")
+            names = {s["name"] for s in mine}
+            missing = [n for n in TRACED_LEGS if n not in names]
+            check(not missing, f"{name}: trace {tid} lacks {missing}")
+            rid = next(s for s in mine if s["name"] == "prefill.remote"
+                       )["attrs"]["request_id"]
+            by_rid[rid] = mine
+        for i, got in enumerate(streams_t):
+            ref = refs["T"][i]
+            mine = next(m for m in by_rid.values() if any(
+                s["name"] == "prefill.run"
+                and s["attrs"]["tokens"] == len(ref["prompt"]) for s in m))
+            xs = [s for s in mine if s["name"] == "kv.transfer"]
+            chunks = [s for s in mine if s["name"] == "kv.transfer.chunk"]
+            emitted = sum(s["attrs"]["n"] for s in mine
+                          if s["name"] == "decode.emit")
+            pages = ref["pages"]
+            nbytes = wire_pages(pages, chunk_pages) * page_bytes
+            check(len(xs) == 1 and xs[0]["attrs"]["pages"] == pages
+                  and xs[0]["attrs"]["bytes"] == nbytes
+                  and len(chunks) == -(-pages // chunk_pages)
+                  and emitted == len(got["tokens"]),
+                  f"{name}: T-{i}: transfers {[x['attrs'] for x in xs]}, "
+                  f"{len(chunks)} chunk spans, emits of {emitted} tokens; "
+                  f"derived {pages} pages, {nbytes} bytes on the wire, "
+                  f"{-(-pages // chunk_pages)} chunks, "
+                  f"{len(got['tokens'])} tokens")
+            split[f"T-{i}"] = dict(traced_split(mine), pages=pages,
+                                   tokens=len(ref["prompt"]))
+        check(any(s["trace_id"] == "scope:engine" for s in spans_t),
+              f"{name}: no scope:engine record in round T")
+        rec["round_t"] = {"split": split, "divergence": [
+            g["divergence"] for g in streams_t], "spans": len(spans_t)}
+        print(f"{name} [{smi}]: round T, 4 traced chats one at a time in "
+              f"{rec['round_t_s']:.3f} s ({len(spans_t)} spans, "
+              f"build/trace_p20.jsonl): per request "
+              f"{json.dumps(split)}", flush=True)
+        print("\n".join(f"  {line}" for line in
+                        summarize(spans_t).splitlines()), flush=True)
+
+        async def storm(rnd, sender):
+            """The chats of `rnd` under STORM_PLAN through `sender`: the
+            gates that hold at any window."""
+            metrics0 = (await _http(svc.port, "GET", "/metrics"))[2].decode()
+            x0, i0 = XFER_STATS.snapshot(), INTEGRITY.snapshot()
+            recv0, salv0 = server.received_pages, decode.salvaged_prefills
+            full0 = decode.full_reprefills
+            faults.REGISTRY.reset_counters()
+            faults.REGISTRY.arm_from_dict(STORM_PLAN)
+            prefill.transfer = sender
+            try:
+                t0 = time.perf_counter()
+                streams = await serve(rnd)
+                secs = time.perf_counter() - t0
+            finally:
+                snap = faults.REGISTRY.snapshot()
+                faults.REGISTRY.disarm()
+                prefill.transfer = tx
+            spans = TRACER.drain()
+            write_spans(os.path.join(root, "build",
+                                     f"trace_p20_storm_{rnd}.jsonl"), spans)
+            metrics1 = (await _http(svc.port, "GET", "/metrics"))[2].decode()
+            xd = {k: v - x0[k] for k, v in XFER_STATS.snapshot().items()}
+            idl = {k: v - i0[k] for k, v in INTEGRITY.snapshot().items()}
+            xfer = [s for s in spans if s["name"] == "kv.transfer"]
+            gave_up = [s for s in xfer if s["error"]]
+            absorbed = (sum(s["attrs"].get("resumes", 0) for s in xfer
+                            if not s["error"])
+                        + len(gave_up) * (sender.link_retries + 1))
+            drops = snap["injected"].get("transfer.link", 0)
+            resume_events = sum(s["name"] == "kv.transfer.resume"
+                                for s in spans)
+            salvaged = decode.salvaged_prefills - salv0
+            received = server.received_pages - recv0
+            want_pages = sum(r["pages"] for r in refs[rnd])
+            rel = {k: reliability_counts(metrics1)[k]
+                   - reliability_counts(metrics0)[k]
+                   for k in ("migrations", "retries")}
+            label = f"{name} {rnd} (window {sender.window_chunks})"
+            check(drops == absorbed, f"{label}: {drops} transfer.link "
+                  f"drops fired, {absorbed} absorbed by reconnects "
+                  f"({len(gave_up)} transfers gave up)")
+            check(xd["resumes"] == resume_events,
+                  f"{label}: XFER_STATS.resumes {xd['resumes']}, "
+                  f"{resume_events} kv.transfer.resume events")
+            # a transfer that gave up keeps its committed pages (salvaged),
+            # and its decode side prefills only the rest; no committed
+            # page lands twice, whatever the window
+            want_injected = (want_pages - sum(s["attrs"]["pages"]
+                                              for s in gave_up)
+                             + xd["salvaged_pages"])
+            check(salvaged == len(gave_up)
+                  and decode.full_reprefills == full0
+                  and received == want_injected,
+                  f"{label}: {received} pages injected for {want_pages} "
+                  f"derived, {salvaged} salvages for {len(gave_up)} "
+                  f"transfers given up, {decode.full_reprefills - full0} "
+                  f"full re-prefills, {xd['salvaged_pages']} pages "
+                  "salvaged")
+            check(idl["mismatches"] == 1
+                  and idl["pages_verified"] == received,
+                  f"{label}: integrity deltas {idl} for {received} pages "
+                  "injected, expected 1 mismatch refused and every "
+                  "injected page verified")
+            check(rel == {"migrations": 0, "retries": 0},
+                  f"{label}: the frontend's reliability counters moved: "
+                  f"{rel}")
+            check(not faults.REGISTRY.enabled, f"{label}: faults still "
+                  "armed")
+            out = {"faults": snap, "xfer": xd, "integrity": idl,
+                   "salvaged": salvaged, "gave_up": len(gave_up),
+                   "resume_events": resume_events, "pages": received,
+                   "seconds": secs, "divergence": [g["divergence"]
+                                                   for g in streams]}
+            print(f"{label} [{smi}]: under the storm in {secs:.3f} s: "
+                  f"{drops} link drops absorbed ({len(gave_up)} transfers "
+                  f"gave up, {salvaged} salvages), {xd['resumes']} resumes "
+                  f"= resume events, {received} pages injected of "
+                  f"{want_pages}, integrity {json.dumps(idl)}, queue "
+                  f"delays {snap['injected'].get('queue.dequeue', 0)}, 0 "
+                  f"migrations, 0 retries; first differences "
+                  f"{out['divergence']}", flush=True)
+            return streams, out
+
+        # S: the same under a storm, through a stop-and-wait sender as the
+        # JAX storm's: at a cut the committed frontier is the chunks acked,
+        # so a cut past the first chunk resumes and a refused chunk's nack
+        # is read before the next chunk is sent
+        streams_s, rec["round_s"] = await storm("S", tx_s)
+        xs, ids = rec["round_s"]["xfer"], rec["round_s"]["integrity"]
+        check(xs["resumes"] >= 1 and ids["refetches"] == 1,
+              f"{name}: round S resumed {xs['resumes']} time(s) and "
+              f"re-sent {ids['refetches']} chunk(s); expected a resume and "
+              "the refused chunk re-sent once")
+        # W: the serving sender (a window of 4) under the same plan: a cut
+        # can land before any ack, and the reconnected handshake can read
+        # the frontier while the cut connection's chunks still inject
+        streams_w, rec["round_w"] = await storm("W", tx)
+    finally:
+        faults.REGISTRY.disarm()
+        await watcher.stop()
+        await svc.stop()
+        await prefill.stop()
+        await decode.stop()
+        await server.stop()
+        await tx.close()
+        await tx_s.close()
+        await frt.shutdown()
+        await wrt.shutdown()
+
+    # L: the local backend's staging hop between the same two engines
+    queue_l = PrefillQueue(plane.messaging, ns, model + "-local")
+    dec_l = DisaggDecodeWorker(dec_eng, plane.messaging, router, queue_l,
+                               worker_id="dec-L", prefill_timeout_s=300.0)
+    local = LocalTransferBackend()
+    local.register("dec-L", dec_l)
+    pre_l = PrefillWorker(llm_worker.NativeEngineWorker(pre_eng), queue_l,
+                          local, plane.messaging, dequeue_timeout_s=0.05)
+    i0 = INTEGRITY.snapshot()
+    await dec_l.start()
+    await pre_l.start()
+    faults.REGISTRY.arm_from_dict({"remote_transfer.fetch_page":
+                                   STORM_PLAN["remote_transfer.fetch_page"]})
+    try:
+        ref = refs["L"][0]
+        toks = []
+        async for f in dec_l.generate(ref["pre"], Context("L-0")):
+            check(f.finish_reason is None or f.finish_reason.value in (
+                "length", "stop"), f"{name}: L-0 ended {f}")
+            toks.extend(f.token_ids or ())
+    finally:
+        faults.REGISTRY.disarm()
+        await pre_l.stop()
+        await dec_l.stop()
+    idl = {k: v - i0[k] for k, v in INTEGRITY.snapshot().items()}
+    check(idl["refetches"] == 1 and idl["mismatches"] >= 1
+          and idl["pages_verified"] == ref["pages"]
+          and dec_l.remote_prefills == 1 and dec_l.full_reprefills == 0,
+          f"{name}: L-0 integrity {idl} for {ref['pages']} pages, remote "
+          f"{dec_l.remote_prefills}, full re-prefills "
+          f"{dec_l.full_reprefills}")
+    rec["round_l"] = {"integrity": idl, "divergence": hold("L-0", toks, ref),
+                      "tokens": len(toks)}
+
+    # P: the profiler hook on a fresh worker over the decode engine
+    prof_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "torch_profile_p20")
+    os.environ[llm_worker.PROFILE_DIR_ENV] = prof_dir
+    try:
+        w = await llm_worker.NativeEngineWorker(dec_eng).start()
+        check(w.profile_path is not None, f"{name}: the worker did not "
+              "start the profiler")
+        ref = refs["P"][0]
+        toks_p = []
+        try:
+            async for f in w.generate(ref["pre"], Context("P-0")):
+                toks_p.extend(f.token_ids or ())
+        finally:
+            await w.stop()
+    finally:
+        os.environ.pop(llm_worker.PROFILE_DIR_ENV, None)
+    with open(w.profile_path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"
+            and "ragged_split_kernel" in e.get("name", "")]
+    n_layers = mcfg.num_layers
+    derived_p = n_layers * window_steps(len(toks_p))
+    check(device != "cuda" or kern, f"{name}: the profiler's trace "
+          f"({len(events)} events) names no ragged_split_kernel")
+    rec["round_p"] = {"trace": os.path.relpath(w.profile_path, root),
+                      "events": len(events), "ragged_kernel_events":
+                      len(kern), "derived_launches": derived_p,
+                      "tokens": len(toks_p)}
+    print(f"{name} [{smi}]: round L re-fetched {idl['refetches']} time(s), "
+          f"{idl['pages_verified']} pages verified before their inject, "
+          f"stream {rec['round_l']['divergence'] or 'identical'}; round P "
+          f"profiled {len(toks_p)} tokens: {len(events)} trace events, "
+          f"{len(kern)} ragged_split_kernel events beside {derived_p} "
+          f"derived launches ({n_layers} x {window_steps(len(toks_p))} "
+          "steps)", flush=True)
+    TRACER.configure(enabled=saved_trace[0], sample_rate=saved_trace[1])
+    TRACER.reset()
+
+    # the launches over the phase
+    got = launch_counts()[RAGGED]
+    served = ([len(g["tokens"]) for g in streams_t + streams_s + streams_w]
+              + [len(toks)])
+    steps = sum(window_steps(n - 1) for n in served) \
+        + window_steps(len(toks_p))
+    warm = dec_eng.graphs.warmup_launches[RAGGED] - warm0["decode"][RAGGED]
+    pre_launches = (pre_eng.graphs.warmup_launches[RAGGED]
+                    - warm0["prefill"][RAGGED]
+                    + pre_eng.graphs.replay_launches[RAGGED]
+                    - replay0["prefill"][RAGGED])
+    ran = dec_eng.decode_window_steps - steps0
+    check(ran == steps, f"{name}: the decode engine ran {ran} decode "
+          f"steps, the streams derive {steps}")
+    check(device != "cuda" or (got == n_layers * steps + warm
+                               and pre_launches == 0),
+          f"{name}: {got} ragged launches; {n_layers} x {steps} derived "
+          f"decode steps + {warm} in warm-ups; the prefill engine's "
+          f"{pre_launches}")
+    rec["launches"] = {"decode": got, "prefill": pre_launches,
+                       "derived_steps": steps, "warmup": warm}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    del dec_eng, pre_eng
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
 def timed(name: str, fn, *args, **kw):
     """fn(*args, **kw), its wall-clock seconds printed on a line of its
     own (the time limit's budget by phase)."""
@@ -9806,6 +10383,9 @@ def main() -> int:
     print(f"vision: {json.dumps(vl)}", flush=True)
     stream = timed("19", phase_streaming, smi)
     print(f"streaming: {json.dumps(stream)}", flush=True)
+    traced = timed("20", phase_traced_disagg, smi,
+                   device_name=torch.cuda.get_device_name(0))
+    print(f"traced disaggregation: {json.dumps(traced)}", flush=True)
     print(f"phase seconds: all {time.perf_counter() - t_all:.1f}",
           flush=True)
 
@@ -9862,6 +10442,10 @@ def main() -> int:
                   "segments) a decode step)": r["launches"]
                   for kv in ("bf16", "int8")
                   for i, r in enumerate(stream[kv]["runs"])},
+              "traced_disagg_launches": {
+                  "20 decode engine (32 x derived steps + warm-ups)":
+                      traced["launches"]["decode"],
+                  "20 prefill engine": traced["launches"]["prefill"]},
               "geometries": geometries,
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),

@@ -4,7 +4,6 @@ Copied from dynamo_tpu/disagg/protocols.py as dataclasses (see
 protocols/common.py). `to_json()` gives the dict the JAX models'
 `model_dump()` gives (None fields included), and `from_json(d)` rebuilds
 a dataclass from it, unknown keys ignored, nested ImageParts included.
-The trace context is left out with the slice that carries it.
 """
 from __future__ import annotations
 
@@ -58,7 +57,13 @@ class RemotePrefillRequest(_Json):
     # multimodal: pixels the prefill worker's tower encodes, or (a decode
     # worker's mm_transfer="embeds") its tower's output with the salts
     mm_parts: Optional[List[ImagePart]] = None
-    enqueued_unix: Optional[float] = None   # enqueue instant (time.time())
+    # the decode worker's prefill.remote span context in wire form: the
+    # prefill side's queue-wait, run and transfer spans land in the
+    # request's trace across the queue hop
+    trace: Optional[dict] = None
+    # enqueue instant (time.time()): the dequeuing worker derives the
+    # queue wait from it (the processes share no monotonic clock)
+    enqueued_unix: Optional[float] = None
     qos: str = ""             # multi-tenant QoS class ("" = default)
 
     def to_json(self) -> dict:
@@ -66,7 +71,7 @@ class RemotePrefillRequest(_Json):
         d = dataclasses.asdict(self)
         order = ("engine_id", "request_id", "token_ids", "sampling", "stop",
                  "page_ids", "num_cached_tokens", "page_size", "alloc_epoch",
-                 "notify_subject", "deadline_unix", "mm_parts",
+                 "notify_subject", "deadline_unix", "mm_parts", "trace",
                  "enqueued_unix", "qos")
         return {k: d[k] for k in order}
 

@@ -6,7 +6,9 @@ runtime's leased queues (the memory plane in one process, the control-plane
 server across processes). `dequeue_leased` hands an item out under a
 redelivery lease and `ack` settles it, so an item whose prefill worker dies
 before the ack is redelivered to another. Payloads are MessagePack, as in
-the JAX package. The class-aware QoS sub-queues wait for the QoS slice;
+the JAX package. The `queue.dequeue` failpoint fires before the pop in
+`dequeue` and `dequeue_leased` (JAX :84-107), so an injected drop or delay
+never loses an item. The class-aware QoS sub-queues wait for ROADMAP A9;
 without a policy the JAX queue is this FIFO.
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from dynamo_tpu_torch.disagg.protocols import RemotePrefillRequest
+from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.transports.codec import packb, unpackb
 
 
@@ -29,11 +32,23 @@ class PrefillQueue:
     async def enqueue(self, req: RemotePrefillRequest) -> None:
         await self.messaging.queue_push(self.name, packb(req.to_json()))
 
+    async def dequeue(self, timeout: Optional[float] = None
+                      ) -> Optional[RemotePrefillRequest]:
+        """At-most-once dequeue (no lease)."""
+        if faults.REGISTRY.enabled:  # before the pop: a fault loses nothing
+            await faults.REGISTRY.fire("queue.dequeue")
+        payload = await self.messaging.queue_pop(self.name, timeout=timeout)
+        if payload is None:
+            return None
+        return RemotePrefillRequest.from_json(unpackb(payload))
+
     async def dequeue_leased(
             self, timeout: Optional[float] = None, lease_s: float = 30.0
     ) -> Optional[Tuple[RemotePrefillRequest, str]]:
         """Dequeue under a redelivery lease: (request, lease token). The
         item is queued again unless `ack(token)` arrives within lease_s."""
+        if faults.REGISTRY.enabled:  # before the pop: a fault loses nothing
+            await faults.REGISTRY.fire("queue.dequeue")
         got = await self.messaging.queue_pop_leased(
             self.name, timeout=timeout, lease_s=lease_s)
         if got is None:

@@ -36,10 +36,22 @@ BLAKE2b-64 under their own key (runtime/integrity.SUMS_KEY): a chunk that
 carries only the JAX key `sums` (xxh3-64) is refused with IntegrityRejected
 and never injected unverified.
 
+Tracing (JAX :429, :867-921, :1194, :1220): the sender records one
+`kv.transfer` span a transfer, with the transfer cost model's pre-send
+estimate beside it (`est_s`, `est_cold`, `n_streams`), a
+`kv.transfer.chunk` span a chunk sent and a `kv.transfer.resume` instant
+when a (re)connected stream finds pages already committed; every chunk
+frame carries the trace context, so the receiver's `kv.inject` spans land
+in the sender's trace. Failpoints: `transfer.link` in `_chunk_gate` (a
+drop is a cut link, taking the resume path; a delay a stalled socket),
+and `remote_transfer.fetch_page`'s corruption of a chunk's value bytes
+after the capture checksum, which the receiver refuses and the sender
+re-stages. The transfer cost model's single-stream feed comes from each
+committed send.
+
 Left out: the sharded parallel streams (`ShardedKvTransferGroup`, tp and
-multi-host), the transfer-cost model's bandwidth feed (router work),
-tracing spans and the fault-injection failpoints; `_chunk_gate` stays as
-the per-chunk seam that tests override.
+multi-host), their `kv.transfer.stream` spans and their per-stream cost
+model feed (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -55,16 +67,18 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.disagg.transfer import (
-    TransferBackend, _page_sums, check_pending, hash_pool,
+    TransferBackend, _page_sums, check_pending, hash_pool, host_view,
 )
 from dynamo_tpu_torch.observability.fleet import TRANSFER_MODEL
 from dynamo_tpu_torch.observability.serving import SERVING
+from dynamo_tpu_torch.runtime import faults
 from dynamo_tpu_torch.runtime.integrity import (
     CHECKSUM_ALGORITHM, STATS as INTEGRITY, SUMS_KEY, XFER_STATS,
     IntegrityError,
 )
 from dynamo_tpu_torch.runtime.transports.base import KVStore
 from dynamo_tpu_torch.runtime.transports.codec import packb, unpackb
+from dynamo_tpu_torch.runtime.tracing import TRACE_KEY, TRACER, TraceContext
 from dynamo_tpu_torch.runtime.transports.wire import read_frame, write_frame
 
 log = logging.getLogger("dynamo_tpu_torch.disagg.transfer")
@@ -106,14 +120,6 @@ def _pow2_pad(n: int) -> int:
     return p
 
 
-def host_view(t: torch.Tensor) -> np.ndarray:
-    """A CPU tensor's bytes as a numpy array of the same shape (bfloat16 as
-    int16), sharing its memory."""
-    if t.dtype == torch.bfloat16:
-        t = t.view(torch.int16)
-    return t.numpy()
-
-
 class _Staging:
     """What a side of the transfer stages chunks with: the checksum thread
     pool and one copy stream per device, made at first use and released by
@@ -139,11 +145,15 @@ class TransferSession:
     alloc_epoch). `committed_pages` is the frontier: the leading pages of
     the transfer list verified, injected and acked. Chunks commit in frame
     order on one connection, so the committed region is a prefix, and a
-    resuming sender skips by page count alone."""
+    resuming sender skips by page count alone. `lock` serialises the
+    frontier check, inject and commit across connections: a reconnected
+    sender's handshake can read the frontier while the cut connection's
+    queued chunks still inject, and the chunk both send must land once."""
 
     request_id: str
     alloc_epoch: int
     committed_pages: int = 0
+    lock: asyncio.Lock = dataclasses.field(default_factory=asyncio.Lock)
 
 
 class KvTransferServer:
@@ -307,31 +317,38 @@ class KvTransferServer:
         chunk_idx = int(frame.get("chunk_idx", 0))
         base = int(frame.get("base", 0))
         sess = self._session(rid, epoch)
-        if base + len(page_ids) <= sess.committed_pages:
-            # a re-delivery below the frontier (a lost ack, or a
-            # replacement sender's older view): ack, touch nothing
-            return {"ok": True, "chunk_idx": chunk_idx, "dup": True,
+        async with sess.lock:
+            if base + len(page_ids) <= sess.committed_pages:
+                # a re-delivery below the frontier (a lost ack, or a
+                # replacement sender's older view): ack, touch nothing
+                return {"ok": True, "chunk_idx": chunk_idx, "dup": True,
+                        "committed": sess.committed_pages}
+            if base > sess.committed_pages:
+                # a gap: an earlier chunk of this window was refused (its
+                # sender re-stages from the frontier on a new connection),
+                # so this one must not commit past it
+                raise RuntimeError(
+                    f"chunk {chunk_idx} of {rid!r} starts at page {base}, "
+                    f"past the committed frontier {sess.committed_pages}")
+            # the sender shipped its trace context beside the page bytes
+            trace = TraceContext.from_wire(frame.get(TRACE_KEY))
+            with TRACER.span("kv.inject", trace, request_id=rid,
+                             pages=len(page_ids), chunk=chunk_idx,
+                             stream=0) as isp:
+                await self._inject_frame_inner(frame, rid, page_ids, epoch,
+                                               isp)
+            # committed only now: verified, on the card, past the guards
+            sess.committed_pages = base + len(page_ids)
+            # early decode: the step loop's gate polls the frontier; wake it
+            # so the advance is seen now, not at its idle timeout
+            wake = getattr(self.worker, "_wake", None)
+            if wake is not None:
+                wake.set()
+            return {"ok": True, "chunk_idx": chunk_idx, "dup": False,
                     "committed": sess.committed_pages}
-        if base > sess.committed_pages:
-            # a gap: an earlier chunk of this window was refused (its
-            # sender re-stages from the frontier on a new connection), so
-            # this one must not commit past it
-            raise RuntimeError(
-                f"chunk {chunk_idx} of {rid!r} starts at page {base}, past "
-                f"the committed frontier {sess.committed_pages}")
-        await self._inject_frame_inner(frame, rid, page_ids, epoch)
-        # committed only now: verified, on the card, past the guards
-        sess.committed_pages = base + len(page_ids)
-        # early decode: the step loop's gate polls the frontier; wake it
-        # so the advance is seen now, not at its idle timeout
-        wake = getattr(self.worker, "_wake", None)
-        if wake is not None:
-            wake.set()
-        return {"ok": True, "chunk_idx": chunk_idx, "dup": False,
-                "committed": sess.committed_pages}
 
     async def _inject_frame_inner(self, frame: Dict, rid: str,
-                                  page_ids: list, epoch: int) -> None:
+                                  page_ids: list, epoch: int, isp) -> None:
         shape = tuple(int(x) for x in frame["shape"])
         name = frame["dtype"]
         if name not in _WIRE:
@@ -378,6 +395,7 @@ class KvTransferServer:
         self.received_pages += len(page_ids)
         XFER_STATS.fetches += 1
         XFER_STATS.bytes_fetched += payload
+        isp.set(bytes=payload)
 
     def _to_device(self, arrays: Dict[str, np.ndarray], value_dtype, eng):
         """Frame arrays -> tensors on the engine's device: on the card
@@ -500,7 +518,7 @@ class RemoteTransferBackend(TransferBackend):
 
     async def send_pages(self, engine_id: str, request_id: str, dst_page_ids,
                          k_pages, v_pages, k_scale=None, v_scale=None,
-                         alloc_epoch: int = 0, budget_s=None,
+                         trace=None, alloc_epoch: int = 0, budget_s=None,
                          ready=None) -> None:
         ids = list(dst_page_ids)
         if not ids:
@@ -512,15 +530,27 @@ class RemoteTransferBackend(TransferBackend):
         # and a committed send is one delivered-goodput sample of the link
         # (unique payload bytes: a chunk re-sent after a resume counts once)
         est_bytes = self._payload_bytes(k_pages, v_pages, k_scale, len(ids))
+        # the router's view of this transfer rides the span, so a trace
+        # holds estimated beside actual (`cold`: the fleet-median prior)
+        est = TRANSFER_MODEL.estimate(engine_id, est_bytes)
+        span = TRACER.begin_span("kv.transfer", trace,
+                                 request_id=request_id, pages=len(ids),
+                                 backend="remote", engine_id=engine_id,
+                                 est_s=round(est.seconds, 6),
+                                 est_cold=est.cold, n_streams=1)
         unique_bytes: Dict[int, int] = {}
         failed = True
         TRANSFER_MODEL.note_inflight(engine_id, est_bytes)
         try:
             await self._send_pages_locked(
                 engine_id, request_id, ids, k_pages, v_pages, k_scale,
-                v_scale, alloc_epoch, deadline, ready, unique_bytes)
+                v_scale, alloc_epoch, deadline, ready, unique_bytes,
+                trace, span)
+            if span is not None:
+                span.set(bytes=sum(unique_bytes.values()))
             failed = False
         finally:
+            TRACER.end_span(span, error=failed)
             TRANSFER_MODEL.note_done(engine_id, est_bytes)
             dt = time.monotonic() - t0
             SERVING.kv_transfer.observe(value=dt)
@@ -543,7 +573,8 @@ class RemoteTransferBackend(TransferBackend):
     async def _send_pages_locked(self, engine_id: str, request_id: str,
                                  ids, k_pages, v_pages, k_scale, v_scale,
                                  alloc_epoch, deadline, ready,
-                                 unique_bytes=None) -> None:
+                                 unique_bytes=None, trace=None,
+                                 span=None) -> None:
         lock = self._locks.setdefault(engine_id, asyncio.Lock())
         async with lock:
             refetches = resumes = 0
@@ -552,7 +583,9 @@ class RemoteTransferBackend(TransferBackend):
                     await self._send_chunks(
                         engine_id, request_id, ids, k_pages, v_pages,
                         k_scale, v_scale, alloc_epoch, deadline, ready,
-                        unique_bytes)
+                        unique_bytes, trace)
+                    if span is not None:
+                        span.set(refetches=refetches, resumes=resumes)
                     return
                 except IntegrityRejected:
                     # the connection may hold unread acks of the window:
@@ -600,8 +633,13 @@ class RemoteTransferBackend(TransferBackend):
                     raise
 
     async def _chunk_gate(self, chunk_idx: int) -> None:
-        """Per-chunk seam before each chunk is staged (tests override it to
-        cut the link or stall the sender at a chosen chunk)."""
+        """Per-chunk seam before each chunk is staged: the `transfer.link`
+        failpoint models a cut link (a drop raises a ConnectionError into
+        the resume path) or a stalled socket (a delay) at seeded chunk
+        indices; tests also override it to cut the link or stall the
+        sender at a chosen chunk."""
+        if faults.REGISTRY.enabled:
+            await faults.REGISTRY.fire("transfer.link")
 
     def _stage_chunk(self, k_pages, v_pages, k_scale, v_scale, start: int,
                      count: int, ready=None):
@@ -647,17 +685,18 @@ class RemoteTransferBackend(TransferBackend):
     async def _send_chunks(self, engine_id: str, request_id: str, ids,
                            k_pages, v_pages, k_scale=None, v_scale=None,
                            alloc_epoch: int = 0, deadline=None,
-                           ready=None, unique_bytes=None) -> int:
+                           ready=None, unique_bytes=None,
+                           trace=None) -> None:
         """Windowed chunk-committed streaming: up to window_chunks frames in
         flight before the oldest ack is awaited. Opens with the frontier
         handshake and skips every chunk below the frontier, which is both
         the resume after a link failure and the replacement sender's path.
-        Returns the payload bytes sent by this attempt; `unique_bytes`
-        (chunk index -> payload) collects each chunk once across
-        attempts."""
+        `unique_bytes` (chunk index -> payload) collects each chunk once
+        across attempts."""
         reader, writer = await self._connect(engine_id, deadline)
         n = len(ids)
         dtype_name = _NAMES[k_pages.dtype]
+        trace_wire = trace.to_wire() if trace is not None else None
         await self._write(writer, {"op": "resume", "request_id": request_id,
                                    "alloc_epoch": alloc_epoch}, deadline)
         reply = await self._read(reader, deadline)
@@ -667,10 +706,14 @@ class RemoteTransferBackend(TransferBackend):
                 f"{reply.get('error', 'unknown error')}")
         committed = int(reply.get("committed", 0))
         if committed > 0:
+            # a chunk-level resume: this attempt continues a transfer an
+            # earlier one (or a dead sender) part-committed
             XFER_STATS.resumes += 1
+            TRACER.event("kv.transfer.resume", trace,
+                         request_id=request_id, committed_pages=committed,
+                         stream=0)
             log.info("kv transfer for %s resumes from page %d/%d",
                      request_id, committed, n)
-        total_bytes = 0
         in_flight: list = []  # chunk sizes awaiting ack, oldest first
 
         async def retire_oldest():
@@ -690,36 +733,46 @@ class RemoteTransferBackend(TransferBackend):
             if start + count <= committed:
                 continue  # committed decode-side: skip
             await self._chunk_gate(chunk_idx)
-            k_np, v_np, ks_np, vs_np, sums = await asyncio.to_thread(
-                self._stage_chunk, k_pages, v_pages, k_scale, v_scale,
-                start, count, ready)
-            frame = {
-                "request_id": request_id,
-                "alloc_epoch": alloc_epoch,
-                "chunk_idx": chunk_idx,
-                "base": start,
-                "total": n,
-                "page_ids": ids[start:start + count],
-                "shape": list(k_np.shape),
-                "dtype": dtype_name,
-                "k": k_np.data,
-                "v": v_np.data,
-                SUMS_KEY: sums,
-            }
-            payload = k_np.nbytes + v_np.nbytes
-            if ks_np is not None:
-                frame["k_scale"] = ks_np.data
-                frame["v_scale"] = vs_np.data
-                payload += ks_np.nbytes + vs_np.nbytes
-            await self._write(writer, frame, deadline)
+            with TRACER.span("kv.transfer.chunk", trace,
+                             request_id=request_id, chunk=chunk_idx,
+                             pages=count, stream=0) as csp:
+                k_np, v_np, ks_np, vs_np, sums = await asyncio.to_thread(
+                    self._stage_chunk, k_pages, v_pages, k_scale, v_scale,
+                    start, count, ready)
+                k_bytes = k_np.data
+                if faults.REGISTRY.enabled:
+                    # the wire-corruption failpoint: bytes flipped after the
+                    # capture checksum, as a bad transport would
+                    k_bytes = faults.REGISTRY.corrupt_bytes(
+                        "remote_transfer.fetch_page", k_np.tobytes())
+                frame = {
+                    "request_id": request_id,
+                    "alloc_epoch": alloc_epoch,
+                    "chunk_idx": chunk_idx,
+                    "base": start,
+                    "total": n,
+                    "page_ids": ids[start:start + count],
+                    "shape": list(k_np.shape),
+                    "dtype": dtype_name,
+                    "k": k_bytes,
+                    "v": v_np.data,
+                    SUMS_KEY: sums,
+                }
+                payload = k_np.nbytes + v_np.nbytes
+                if ks_np is not None:
+                    frame["k_scale"] = ks_np.data
+                    frame["v_scale"] = vs_np.data
+                    payload += ks_np.nbytes + vs_np.nbytes
+                if trace_wire is not None:
+                    frame[TRACE_KEY] = trace_wire
+                await self._write(writer, frame, deadline)
+                csp.set(bytes=payload)
             XFER_STATS.bytes_sent += payload
             XFER_STATS.pages_sent += count
             if unique_bytes is not None:
                 unique_bytes[chunk_idx] = payload
-            total_bytes += payload
             in_flight.append(count)
             if len(in_flight) >= self.window_chunks:
                 await retire_oldest()
         while in_flight:
             await retire_oldest()
-        return total_bytes

@@ -8,8 +8,14 @@ is no longer pending there or its allocation epoch changed.
 - LocalTransferBackend: both engines in this process (on one card, or both
   on the CPU): the pages go device to device, one `index_copy_` per cache
   leaf on the decode engine's stream after the prefill engine's "ready"
-  event. The JAX backend's chaos-mode staging hop (the fault-injection
-  failpoints) waits for the fault-injection slice.
+  event. Each send records a `kv.transfer` span (pages, bytes) under the
+  request's trace. While `remote_transfer.fetch_page` is armed (chaos
+  mode, JAX :136-145, :196-235) the pages take a staging hop instead:
+  device -> host with checksums at capture, the failpoint's corruption,
+  verification, and up to `max_refetch` re-fetches from the device pages;
+  past that budget the send raises IntegrityError and the decode side
+  prefills again. int8 pages are checksummed in their stored form (values
+  and scales), bfloat16 pages as their raw bytes (a 16-bit integer view).
 - RemoteTransferBackend (disagg/remote_transfer.py): the engines in
   separate processes; pages move through host memory over a TCP data plane
   to the decode worker's KvTransferServer.
@@ -17,6 +23,7 @@ is no longer pending there or its allocation epoch changed.
 from __future__ import annotations
 
 import abc
+import asyncio
 import hashlib
 import logging
 import os
@@ -25,10 +32,15 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from dynamo_tpu_torch.observability.fleet import TRANSFER_MODEL
 from dynamo_tpu_torch.observability.serving import SERVING
-from dynamo_tpu_torch.runtime.integrity import XFER_STATS
+from dynamo_tpu_torch.runtime import faults
+from dynamo_tpu_torch.runtime.integrity import (
+    STATS as INTEGRITY, XFER_STATS, IntegrityError,
+)
+from dynamo_tpu_torch.runtime.tracing import TRACER
 
 log = logging.getLogger("dynamo_tpu_torch.disagg.transfer")
 
@@ -64,6 +76,14 @@ def _page_sums(k_np, v_np, ks_np, vs_np, count: int,
     return list((pool.map if pool is not None else map)(one, range(count)))
 
 
+def host_view(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's bytes as a numpy array of the same shape (bfloat16 as
+    int16), sharing its memory."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy()
+
+
 def hash_pool() -> ThreadPoolExecutor:
     """A thread pool for `_page_sums` (its threads start at first use)."""
     return ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1),
@@ -93,15 +113,17 @@ class TransferBackend(abc.ABC):
     @abc.abstractmethod
     async def send_pages(self, engine_id: str, request_id: str, dst_page_ids,
                          k_pages, v_pages, k_scale=None, v_scale=None,
-                         alloc_epoch: int = 0, budget_s=None,
+                         trace=None, alloc_epoch: int = 0, budget_s=None,
                          ready=None) -> None:
         """Inject pages (k/v [L, Hkv, Nb, ps, hd] tensors as extracted; an
         int8 cache's senders also pass the [L, Hkv, Nb, ps] scales) into
         the target engine's cache at dst_page_ids. `ready` is the
         extraction's event on the prefill engine's stream (None on the
-        CPU). A nonzero `alloc_epoch` fences the write against a changed
-        allocation; `budget_s` bounds the whole transfer's wall time.
-        Raises when the request is no longer pending on the target."""
+        CPU). `trace` is the request's TraceContext: the backend records a
+        "kv.transfer" span under it. A nonzero `alloc_epoch` fences the
+        write against a changed allocation; `budget_s` bounds the whole
+        transfer's wall time. Raises when the request is no longer pending
+        on the target."""
 
 
 class LocalTransferBackend(TransferBackend):
@@ -119,27 +141,49 @@ class LocalTransferBackend(TransferBackend):
 
     async def send_pages(self, engine_id: str, request_id: str, dst_page_ids,
                          k_pages, v_pages, k_scale=None, v_scale=None,
-                         alloc_epoch: int = 0, budget_s=None,
+                         trace=None, alloc_epoch: int = 0, budget_s=None,
                          ready=None) -> None:
-        worker = self._receivers.get(engine_id)
-        if worker is None:
+        if engine_id not in self._receivers:
             raise KeyError(f"unknown decode engine {engine_id!r}")
         ids = list(dst_page_ids)
         leaves = [t for t in (k_pages, v_pages, k_scale, v_scale)
                   if t is not None]
         nbytes = sum(t.numel() * t.element_size() for t in leaves)
         t0 = time.monotonic()
-
-        def inject(eng):
-            check_pending(eng, engine_id, request_id, alloc_epoch)
-            eng.inject_pages(ids, k_pages, v_pages, k_scale, v_scale,
-                             ready=ready)
-            XFER_STATS.fetches += 1
-            XFER_STATS.bytes_fetched += nbytes
-
+        span = TRACER.begin_span("kv.transfer", trace,
+                                 request_id=request_id, pages=len(ids),
+                                 backend="local")
+        failed = True
         try:
+            if faults.REGISTRY.enabled \
+                    and faults.REGISTRY.armed("remote_transfer.fetch_page"):
+                # chaos mode: a host hop with real bytes to corrupt (the
+                # fast path never leaves the device)
+                k_pages, v_pages, k_scale, v_scale = \
+                    await self._verified_stage(request_id, ids, k_pages,
+                                               v_pages, k_scale, v_scale,
+                                               ready)
+                ready = None
+            # the receiver is read after the staging hop's awaits: an engine
+            # that deregistered meanwhile is never written to
+            worker = self._receivers.get(engine_id)
+            if worker is None:
+                raise KeyError(f"decode engine {engine_id!r} deregistered "
+                               "during transfer staging")
+
+            def inject(eng):
+                check_pending(eng, engine_id, request_id, alloc_epoch)
+                eng.inject_pages(ids, k_pages, v_pages, k_scale, v_scale,
+                                 ready=ready)
+                XFER_STATS.fetches += 1
+                XFER_STATS.bytes_fetched += nbytes
+
             await worker.submit(inject)
+            if span is not None:
+                span.set(bytes=nbytes)
+            failed = False
         finally:
+            TRACER.end_span(span, error=failed)
             dt = time.monotonic() - t0
             SERVING.kv_transfer.observe(value=dt)
         XFER_STATS.bytes_sent += nbytes
@@ -148,3 +192,45 @@ class LocalTransferBackend(TransferBackend):
         # remote backend's feed, so router scoring sees local moves too
         # (JAX :129-130)
         TRANSFER_MODEL.observe(engine_id, nbytes, dt)
+
+    @staticmethod
+    async def _verified_stage(request_id: str, ids, k_pages, v_pages,
+                              k_scale=None, v_scale=None, ready=None,
+                              max_refetch: int = 2):
+        """The chaos-mode staging hop: device -> host (checksums at
+        capture) -> the `remote_transfer.fetch_page` failpoint -> verify.
+        A mismatch re-fetches from the still-authoritative device pages;
+        past `max_refetch` the transfer is abandoned (IntegrityError) and
+        the decode side prefills again. Returns the verified host tensors
+        (the engine's inject moves them to its device)."""
+        leaves = [k_pages, v_pages, k_scale, v_scale]
+
+        def capture():
+            if ready is not None:
+                ready.synchronize()
+            return [t.to("cpu") if t is not None else None for t in leaves]
+
+        for attempt in range(max_refetch + 1):
+            host = await asyncio.to_thread(capture)
+            arrays = [host_view(h) if h is not None else None for h in host]
+            sums = _page_sums(*arrays, len(ids))
+            INTEGRITY.pages_hashed += len(ids)
+            k_np = arrays[0]
+            k_bytes = faults.REGISTRY.corrupt_bytes(
+                "remote_transfer.fetch_page", k_np.tobytes())
+            arrays[0] = np.frombuffer(k_bytes, k_np.dtype).reshape(
+                k_np.shape)
+            bad = [ids[i] for i, s in enumerate(_page_sums(*arrays, len(ids)))
+                   if s != sums[i]]
+            if not bad:
+                INTEGRITY.pages_verified += len(ids)
+                return host
+            INTEGRITY.mismatches += len(bad)
+            if attempt < max_refetch:
+                INTEGRITY.refetches += 1
+                log.warning("local kv transfer integrity mismatch for %s; "
+                            "re-fetch %d/%d", request_id, attempt + 1,
+                            max_refetch)
+        INTEGRITY.quarantined += len(ids)
+        INTEGRITY.reprefills += 1
+        raise IntegrityError(f"local transfer for {request_id!r}", bad)

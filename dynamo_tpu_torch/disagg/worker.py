@@ -36,7 +36,15 @@ the engine claims them (`_touch_for_pool_claim`, JAX :945-972): a ladder of
 verified remote fetches, each possibly failing over, may outlast the lease,
 and a redelivery mid-fetch would start a second sender.
 
-Left out: tracing spans and the drain counters of the reliability slice.
+Tracing (JAX :254-534, :838-921): the decode side's `prefill.remote`
+span covers enqueue -> completion or timeout, and its context rides the
+queued item (`RemotePrefillRequest.trace`), so the prefill side's
+`queue.wait` (derived from `enqueued_unix`: the processes share no
+monotonic clock), `prefill.run` and transfer spans land in the same trace.
+Each emitted frame records a `decode.emit` instant (`first`, `early` on the
+first token) and a salvage a `kv.salvage` instant. A drain counts on
+DRAIN_STATS as the JAX drain does (`drains_started`, `cancelled_streams`
+for the items left to their leases, `drains_completed`).
 """
 from __future__ import annotations
 
@@ -61,9 +69,11 @@ from dynamo_tpu_torch.protocols.common import (
     EngineOutput, FinishReason, ImagePart, PreprocessedRequest,
     preprocessed_from_wire,
 )
+from dynamo_tpu_torch.runtime.component import DRAIN_STATS
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.integrity import STATS as INTEGRITY, XFER_STATS
 from dynamo_tpu_torch.runtime.qos import qos_of
+from dynamo_tpu_torch.runtime.tracing import TRACER, TraceContext
 
 log = logging.getLogger("dynamo_tpu_torch.disagg")
 
@@ -263,26 +273,36 @@ class DisaggDecodeWorker(NativeEngineWorker):
             self._completions[rid] = fut
             remaining = context.time_remaining()
             t_enqueue = time.monotonic()
-            await self.prefill_queue.enqueue(RemotePrefillRequest(
-                engine_id=self.engine_id, request_id=rid,
-                token_ids=list(pre.token_ids), sampling=pre.sampling,
-                stop=pre.stop, page_ids=alloc.page_ids,
-                num_cached_tokens=alloc.num_cached_tokens,
-                page_size=self.engine.cfg.page_size,
-                alloc_epoch=alloc.alloc_epoch,
-                notify_subject=self.notify_subject,
-                deadline_unix=(time.time() + remaining
-                               if remaining is not None else None),
-                mm_parts=mm_parts,
-                enqueued_unix=time.time(), qos=qos_of(context.baggage)))
-            stop_task = asyncio.create_task(context.wait_stopped())
-            try:
-                await asyncio.wait({asyncio.ensure_future(fut), stop_task},
-                                   timeout=self.prefill_timeout_s,
-                                   return_when=asyncio.FIRST_COMPLETED)
-            finally:
-                stop_task.cancel()
-            self._completions.pop(rid, None)
+            # "prefill.remote" covers enqueue -> completion or timeout; the
+            # queued item carries its context, so the prefill side's spans
+            # nest under it in the request's one trace
+            with TRACER.span("prefill.remote", context.trace,
+                             request_id=rid, pages=len(alloc.page_ids),
+                             cached_tokens=alloc.num_cached_tokens) as rsp:
+                rtc = rsp.context()
+                await self.prefill_queue.enqueue(RemotePrefillRequest(
+                    engine_id=self.engine_id, request_id=rid,
+                    token_ids=list(pre.token_ids), sampling=pre.sampling,
+                    stop=pre.stop, page_ids=alloc.page_ids,
+                    num_cached_tokens=alloc.num_cached_tokens,
+                    page_size=self.engine.cfg.page_size,
+                    alloc_epoch=alloc.alloc_epoch,
+                    notify_subject=self.notify_subject,
+                    deadline_unix=(time.time() + remaining
+                                   if remaining is not None else None),
+                    mm_parts=mm_parts,
+                    trace=rtc.to_wire() if rtc is not None else None,
+                    enqueued_unix=time.time(), qos=qos_of(context.baggage)))
+                stop_task = asyncio.create_task(context.wait_stopped())
+                try:
+                    await asyncio.wait(
+                        {asyncio.ensure_future(fut), stop_task},
+                        timeout=self.prefill_timeout_s,
+                        return_when=asyncio.FIRST_COMPLETED)
+                finally:
+                    stop_task.cancel()
+                self._completions.pop(rid, None)
+                rsp.set(completed=fut.done(), stopped=context.is_stopped)
             if context.is_stopped:
                 await self._broadcast_cancel(rid)
                 yield EngineOutput(finish_reason=FinishReason.CANCELLED)
@@ -324,8 +344,11 @@ class DisaggDecodeWorker(NativeEngineWorker):
                     XFER_STATS.salvaged_pages += frontier
                     q = self._register(rid)
                     try:
-                        await self.submit(lambda eng: eng.salvage_remote(
-                            rid, valid_pages))
+                        salvaged = await self.submit(
+                            lambda eng: eng.salvage_remote(rid, valid_pages))
+                        TRACER.event("kv.salvage", context.trace,
+                                     request_id=rid, pages=frontier,
+                                     tokens=salvaged)
                         async for frame in self._stream(rid, context, q):
                             yield frame
                         holding = False
@@ -357,11 +380,14 @@ class DisaggDecodeWorker(NativeEngineWorker):
                 await self.submit(lambda eng: eng.release_remote(rid))
                 holding = False
                 if not (hidden_stop or eos):
+                    TRACER.event("decode.emit", context.trace, n=1,
+                                 first=True)
                     yield EngineOutput(token_ids=[first])
                 yield EngineOutput(finish_reason=(
                     FinishReason.STOP if (hidden_stop or eos)
                     else FinishReason.LENGTH))
                 return
+            TRACER.event("decode.emit", context.trace, n=1, first=True)
             yield EngineOutput(token_ids=[first])
             q = self._register(rid)
             try:
@@ -438,12 +464,17 @@ class DisaggDecodeWorker(NativeEngineWorker):
             await self.submit(lambda eng: eng.release_remote(rid))
             hold[0] = False
             if not (hidden_stop or eos):
+                TRACER.event("decode.emit", context.trace, n=1,
+                             first=True, early=True)
                 yield EngineOutput(token_ids=[first])
             yield EngineOutput(finish_reason=(
                 FinishReason.STOP if (hidden_stop or eos)
                 else FinishReason.LENGTH))
             return
+        # the first token is emitted while the KV tail is still in flight
         self.early_first_emits += 1
+        TRACER.event("decode.emit", context.trace, n=1, first=True,
+                     early=True)
         yield EngineOutput(token_ids=[first])
         srv = self.kv_transfer_server
         epoch = alloc.alloc_epoch
@@ -465,6 +496,9 @@ class DisaggDecodeWorker(NativeEngineWorker):
                 rid, first, needed, frontier))
             kind, val = await self._overlap_wait(rid, context, q)
             if kind == "frame":
+                if val.token_ids:
+                    TRACER.event("decode.emit", context.trace,
+                                 n=len(val.token_ids))
                 yield val
                 if val.finish_reason is not None:
                     hold[0] = False   # the engine already finished it
@@ -508,8 +542,10 @@ class DisaggDecodeWorker(NativeEngineWorker):
                             frontier_now)
                 self.salvaged_prefills += 1
                 XFER_STATS.salvaged_pages += frontier_now
-                await self.submit(lambda eng: eng.salvage_remote(
+                salvaged = await self.submit(lambda eng: eng.salvage_remote(
                     rid, start_page + frontier_now, first_token=first))
+                TRACER.event("kv.salvage", context.trace, request_id=rid,
+                             pages=frontier_now, tokens=salvaged)
                 async for f2 in self._stream(rid, context, q):
                     yield f2
                 hold[0] = False
@@ -632,6 +668,7 @@ class PrefillWorker:
         the other consumers), give in-flight items up to timeout_s to
         finish and ack, then stop. Items unacked at the deadline are
         cancelled without an ack: their leases redeliver them."""
+        DRAIN_STATS.drains_started += 1
         if self._loop_task:
             self._loop_task.cancel()
             try:
@@ -647,7 +684,9 @@ class PrefillWorker:
         if releasing:
             log.warning("prefill drain: %d item(s) past the deadline; "
                         "leases will redeliver them", releasing)
+        DRAIN_STATS.cancelled_streams += releasing
         await self.stop()
+        DRAIN_STATS.drains_completed += 1
         return {"re_leased": releasing}
 
     def _note_cancelled(self, rid: str) -> None:
@@ -750,25 +789,34 @@ class PrefillWorker:
 
     async def _handle(self, req: RemotePrefillRequest, token: str) -> None:
         rid = req.request_id
+        # the decode side's prefill.remote context, across the queue hop
+        trace = TraceContext.from_wire(req.trace)
+        if req.enqueued_unix is not None:
+            # the leased-queue wait, from the wall-clock enqueue instant
+            TRACER.record_span(
+                "queue.wait", trace,
+                max(0.0, time.time() - req.enqueued_unix), request_id=rid)
         try:
             eng_ps = self.worker.engine.cfg.page_size
             if req.page_size != eng_ps:
                 raise ValueError(f"page size mismatch: decode "
                                  f"{req.page_size} != prefill {eng_ps}")
             await self._touch_for_pool_claim(req, token)
-            q: asyncio.Queue = asyncio.Queue()
-            self.worker._queues[rid] = q
-            try:
-                er = to_engine_request(PreprocessedRequest(
-                    request_id=rid, token_ids=req.token_ids,
-                    sampling=req.sampling, stop=req.stop,
-                    mm_parts=req.mm_parts), qos=req.qos)
-                er.prefill_only = True
-                self.worker._pending_adds.append(er)
-                self.worker._wake.set()
-                frame: EngineOutput = await q.get()
-            finally:
-                self.worker._queues.pop(rid, None)
+            with TRACER.span("prefill.run", trace, request_id=rid,
+                             tokens=len(req.token_ids)):
+                q: asyncio.Queue = asyncio.Queue()
+                self.worker._queues[rid] = q
+                try:
+                    er = to_engine_request(PreprocessedRequest(
+                        request_id=rid, token_ids=req.token_ids,
+                        sampling=req.sampling, stop=req.stop,
+                        mm_parts=req.mm_parts), qos=req.qos)
+                    er.prefill_only = True
+                    self.worker._pending_adds.append(er)
+                    self.worker._wake.set()
+                    frame: EngineOutput = await q.get()
+                finally:
+                    self.worker._queues.pop(rid, None)
             if frame.finish_reason != FinishReason.PREFILL_DONE:
                 raise RuntimeError(
                     f"prefill ended with {frame.finish_reason}: {frame.text}")
@@ -800,7 +848,7 @@ class PrefillWorker:
             await self.transfer.send_pages(
                 req.engine_id, rid, dst, pages["k"], pages["v"],
                 k_scale=pages.get("k_scale"), v_scale=pages.get("v_scale"),
-                alloc_epoch=req.alloc_epoch, budget_s=budget_s,
+                trace=trace, alloc_epoch=req.alloc_epoch, budget_s=budget_s,
                 ready=pages.get("ready"))
             nb = pages["k"].shape[2]
             page_bytes = sum(t.numel() * t.element_size()

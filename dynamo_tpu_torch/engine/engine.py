@@ -344,6 +344,9 @@ class NativeEngine:
         # profile_sync isolates device time from fetch (attribution runs
         # only: it defeats the overlap it measures)
         self.phases = PhaseTimer()
+        # the legs double as spans of the "engine" scope (tracing's
+        # deferred recorder; one branch while tracing is off)
+        self.phases.trace_scope = "engine"
         self.profile_sync = False
         # the per-step ledger: a bounded ring of host-int samples recorded
         # at the commit sites; the MFU numerator counts the model's matmuls

@@ -36,8 +36,9 @@ What differs from the JAX module: pages are CPU torch tensors and
 checksums `runtime/integrity.tensor_checksum`; a host's NVMe tier defaults
 to a fresh temporary directory. Each served page feeds the router's cost
 model on the `pool:{host}` link (`TRANSFER_MODEL.observe`, JAX :754-777).
-Left out: the `pool.fetch.remote` / `pool.rebalance` trace spans, with the
-tracer's scope spans (ROADMAP A14).
+A replica walk records a `pool.fetch.remote` span and a rebalance pass a
+`pool.rebalance` span, both under the tracer's `scope:pool` (JAX :761,
+:873).
 """
 from __future__ import annotations
 
@@ -59,6 +60,7 @@ from dynamo_tpu_torch.runtime.integrity import (
     STATS as INTEGRITY, tensor_checksum,
 )
 from dynamo_tpu_torch.runtime.placement import HashRing, PoolMembership
+from dynamo_tpu_torch.runtime.tracing import TRACER
 
 log = logging.getLogger("dynamo_tpu_torch.pool_service")
 
@@ -742,27 +744,30 @@ class ClusterKvPool:
         if not hosts:
             POOL_STATS.fetch_misses += 1
             return None
-        for i, host in enumerate(hosts):
-            t0 = time.perf_counter()
-            try:
-                arrays = host.fetch_page(seq_hash, mode)
-            except PoolHostUnavailable:
-                REMOTE_STATS.fetch_failovers += 1
-                continue
-            if arrays is None:
-                # miss or replica-local quarantine: the next replica holds
-                # an independently verified copy
-                REMOTE_STATS.fetch_failovers += 1
-                continue
-            TRANSFER_MODEL.observe(f"pool:{host.host_id}",
-                                   sum(a.nbytes for a in arrays),
-                                   max(time.perf_counter() - t0, 1e-9))
-            POOL_STATS.fetch_hits += 1
-            REMOTE_STATS.fetch_pages += 1
-            if i > 0:
-                log.info("pool fetch %x failed over to replica %s "
-                         "(%d hop(s))", seq_hash, host.host_id, i)
-            return arrays
+        with TRACER.scope_span("pool.fetch.remote", "pool",
+                               seq_hash=f"{seq_hash:x}",
+                               replicas=len(hosts)):
+            for i, host in enumerate(hosts):
+                t0 = time.perf_counter()
+                try:
+                    arrays = host.fetch_page(seq_hash, mode)
+                except PoolHostUnavailable:
+                    REMOTE_STATS.fetch_failovers += 1
+                    continue
+                if arrays is None:
+                    # miss or replica-local quarantine: the next replica holds
+                    # an independently verified copy
+                    REMOTE_STATS.fetch_failovers += 1
+                    continue
+                TRANSFER_MODEL.observe(f"pool:{host.host_id}",
+                                       sum(a.nbytes for a in arrays),
+                                       max(time.perf_counter() - t0, 1e-9))
+                POOL_STATS.fetch_hits += 1
+                REMOTE_STATS.fetch_pages += 1
+                if i > 0:
+                    log.info("pool fetch %x failed over to replica %s "
+                             "(%d hop(s))", seq_hash, host.host_id, i)
+                return arrays
         REMOTE_STATS.fetch_exhausted += 1
         POOL_STATS.fetch_misses += 1
         return None
@@ -851,48 +856,50 @@ class ClusterKvPool:
         RING_STATS.rebalances += 1
         epoch = self.membership.epoch
         copied = fenced = skipped = 0
-        with self._mu:
-            hosts = {hid: h for hid, h in self._hosts.items()}
-        resident: Set[int] = set()
-        for h in hosts.values():
-            if h.alive and not h.partitioned:
-                resident.update(h.hashes())
-        for sh in sorted(resident):
-            if copied >= budget:
-                break
-            owners = self.membership.owners_for(sh)
-            holders = [hid for hid in owners
-                       if hid in hosts and hosts[hid].alive
-                       and not hosts[hid].partitioned
-                       and hosts[hid].contains(sh)]
-            missing = [hid for hid in owners
-                       if hid in hosts and hid not in holders]
-            if not missing or not holders:
-                continue
-            src_host = hosts[holders[0]]
-            page = src_host.read_page(sh)
-            if page is None:
-                continue
-            parent, tokens_hash, mode, arrays, sum_, sources = page
-            source = next(iter(sources), f"rebalance:{src_host.host_id}")
-            for hid in missing:
+        with TRACER.scope_span("pool.rebalance", "pool",
+                               epoch=epoch, changes=len(pending)):
+            with self._mu:
+                hosts = {hid: h for hid, h in self._hosts.items()}
+            resident: Set[int] = set()
+            for h in hosts.values():
+                if h.alive and not h.partitioned:
+                    resident.update(h.hashes())
+            for sh in sorted(resident):
                 if copied >= budget:
                     break
-                try:
-                    if faults.REGISTRY.enabled:
-                        faults.REGISTRY.fire_sync("pool.rebalance")
-                    r = hosts[hid].publish_page(
-                        source, sh, parent, tokens_hash, arrays,
-                        mode=mode, sum_=sum_, ring_epoch=epoch)
-                except (faults.FaultInjected, PoolHostUnavailable):
-                    skipped += 1   # next pass re-finds the gap
+                owners = self.membership.owners_for(sh)
+                holders = [hid for hid in owners
+                           if hid in hosts and hosts[hid].alive
+                           and not hosts[hid].partitioned
+                           and hosts[hid].contains(sh)]
+                missing = [hid for hid in owners
+                           if hid in hosts and hid not in holders]
+                if not missing or not holders:
                     continue
-                if r == "stale-epoch":
-                    fenced += 1    # membership moved under us
+                src_host = hosts[holders[0]]
+                page = src_host.read_page(sh)
+                if page is None:
                     continue
-                if r in ("new", "dup"):
-                    copied += 1
-                    REMOTE_STATS.repair_pages += 1
+                parent, tokens_hash, mode, arrays, sum_, sources = page
+                source = next(iter(sources), f"rebalance:{src_host.host_id}")
+                for hid in missing:
+                    if copied >= budget:
+                        break
+                    try:
+                        if faults.REGISTRY.enabled:
+                            faults.REGISTRY.fire_sync("pool.rebalance")
+                        r = hosts[hid].publish_page(
+                            source, sh, parent, tokens_hash, arrays,
+                            mode=mode, sum_=sum_, ring_epoch=epoch)
+                    except (faults.FaultInjected, PoolHostUnavailable):
+                        skipped += 1   # next pass re-finds the gap
+                        continue
+                    if r == "stale-epoch":
+                        fenced += 1    # membership moved under us
+                        continue
+                    if r in ("new", "dup"):
+                        copied += 1
+                        REMOTE_STATS.repair_pages += 1
         with self._mu:
             still_pending = len(self._pending_rebalance)
         under = len(self.under_replicated())

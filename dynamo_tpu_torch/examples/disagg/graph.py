@@ -17,7 +17,9 @@ max_local_prefill_length 1000, max_prefill_queue_size 2). The engines run
 on the card (random weights from seed 0); a config section with
 `"device": "cpu"` runs its engine on the CPU (`config.cpu.json`: the tiny
 model and a threshold of 10 tokens, so a short chat already prefills
-remotely).
+remotely). A section's `num_layers` cuts the model's depth (its first
+`num_layers` layers at full width), as a smoke run that must fit a time
+limit does.
 
 Run (one command):
   python -m dynamo_tpu_torch.sdk.serve \\
@@ -66,6 +68,9 @@ def _build(cfg: dict):
     default would cut a longer prompt's completion to one token."""
     card = build_card(cfg.get("model", "tiny"))
     model_cfg = card.model_config()
+    if "num_layers" in cfg:
+        model_cfg = dataclasses.replace(model_cfg,
+                                        num_layers=int(cfg["num_layers"]))
     max_len = int(cfg.get("max_model_len",
                           min(card.context_length, model_cfg.max_model_len)))
     card = dataclasses.replace(card, context_length=max_len)

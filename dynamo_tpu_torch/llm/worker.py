@@ -23,12 +23,22 @@ spans with their salts. With a shared KV pool attached to the engine
 router (it also tees sealed pages into the pool), and the pool's Stored /
 Removed events for this worker's pages go out under the source id
 `pool:{worker_id}` (`pool_publisher`, wired with the event publisher).
-Tracing and the profiler hook are left out.
+
+Tracing: every frame with tokens records a `decode.emit` instant (`n`
+tokens) under the request's trace (JAX :313-316). The profiler hook (JAX
+:31-32, :157-190) is the JAX feature on torch's profiler: with
+`DYN_TORCH_PROFILE_DIR` set, the first worker started in a process runs
+`torch.profiler` (CPU activity, and CUDA when the card is there) until it
+stops, then writes a chrome trace `worker-<pid>-<n>.pt.trace.json` into
+that directory. The profiler is process-global, so only that first worker
+starts it and only it stops it.
 """
 from __future__ import annotations
 
 import asyncio
+import itertools
 import logging
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -43,8 +53,14 @@ from dynamo_tpu_torch.protocols.common import (
 )
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context
 from dynamo_tpu_torch.runtime.qos import qos_of
+from dynamo_tpu_torch.runtime.tracing import TRACER
 
 log = logging.getLogger("dynamo_tpu_torch.worker")
+
+PROFILE_DIR_ENV = "DYN_TORCH_PROFILE_DIR"
+# the process-wide torch profiler session's owner (NativeEngineWorker.start)
+_PROFILE_OWNER = None
+_PROFILE_SEQ = itertools.count()
 
 
 def to_engine_request(pre: PreprocessedRequest,
@@ -143,8 +159,25 @@ class NativeEngineWorker(AsyncEngine):
         self._pending_adds: list = []
         self._pending_aborts: list = []
         self._pending_ops: list = []
+        self._profiler = None
+        self.profile_path: Optional[str] = None
 
     async def start(self) -> "NativeEngineWorker":
+        global _PROFILE_OWNER
+        trace_dir = os.environ.get(PROFILE_DIR_ENV)
+        if trace_dir and _PROFILE_OWNER is None:
+            import torch
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            os.makedirs(trace_dir, exist_ok=True)
+            self._profiler = torch.profiler.profile(activities=acts)
+            self._profiler.start()
+            _PROFILE_OWNER = self
+            self.profile_path = os.path.join(
+                trace_dir, f"worker-{os.getpid()}-{next(_PROFILE_SEQ)}"
+                ".pt.trace.json")
+            log.info("torch profiler tracing to %s", self.profile_path)
         self._loop_task = asyncio.create_task(self._step_loop())
         return self
 
@@ -157,6 +190,13 @@ class NativeEngineWorker(AsyncEngine):
                 pass
             self._loop_task = None
         self.engine.close()
+        global _PROFILE_OWNER
+        if self._profiler is not None and _PROFILE_OWNER is self:
+            prof, self._profiler = self._profiler, None
+            _PROFILE_OWNER = None
+            prof.stop()
+            prof.export_chrome_trace(self.profile_path)
+            log.info("torch profiler trace written to %s", self.profile_path)
 
     def submit(self, fn) -> asyncio.Future:
         """Stage `fn(engine)` to run between device steps; returns a future
@@ -250,6 +290,7 @@ class NativeEngineWorker(AsyncEngine):
         """Drain a request's frame queue, honoring client-side stop."""
         stop = asyncio.create_task(context.wait_stopped())
         get = None
+        trace = context.trace
         try:
             while True:
                 get = asyncio.create_task(q.get())
@@ -264,6 +305,11 @@ class NativeEngineWorker(AsyncEngine):
                     return
                 frame: EngineOutput = get.result()
                 get = None
+                if frame.token_ids:
+                    # a per-emit instant (the explain tool's decode gaps);
+                    # one branch while tracing is off
+                    TRACER.event("decode.emit", trace,
+                                 n=len(frame.token_ids))
                 yield frame
                 if frame.finish_reason is not None:
                     return

@@ -25,11 +25,18 @@ class PhaseTimer:
     `with timer.phase(name):` (plan, upload, dispatch, device under
     profile_sync, fetch, commit); tools/torch_decode_profile.py reads the
     accumulated split. Overhead is two perf_counter() calls per phase,
-    always on."""
+    always on.
+
+    With `trace_scope` set (the engine sets "engine"), each phase is also
+    recorded as a span through the tracer's deferred recorder
+    (runtime/tracing.py `defer_phase`): one branch when tracing is off,
+    one tuple append when on. Host-only: it reads no device value and
+    records nothing inside a captured graph."""
 
     def __init__(self):
         self.seconds: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
+        self.trace_scope: Optional[str] = None
 
     def add(self, name: str, dt: float) -> None:
         self.seconds[name] = self.seconds.get(name, 0.0) + dt
@@ -41,7 +48,11 @@ class PhaseTimer:
         try:
             yield
         finally:
-            self.add(name, time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.add(name, dt)
+            if self.trace_scope is not None:
+                from dynamo_tpu_torch.runtime.tracing import TRACER
+                TRACER.defer_phase(self.trace_scope, name, dt)
 
     def reset(self) -> None:
         self.seconds.clear()

@@ -21,8 +21,9 @@ JAX package sends `model_dump(exclude_none=True)`.
 `ServedEndpoint.re_role` (:363-405) re-registers a live instance under a
 new serving role through the DRAINING fence (the autoscaler's actuation on
 a real worker), and `Client.ids_for_role` / `draining_ids` (:600-628) read
-the watch-maintained role caches. Left out: the tracing spans
-(runtime/tracing.py).
+the watch-maintained role caches. Every served dispatch records a
+`worker.generate` span (:236-254) under the wire-carried trace, and the
+engine's own spans nest under it.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from dynamo_tpu_torch.runtime.backoff import Backoff
 from dynamo_tpu_torch.runtime.cpstats import CP_STATS
 from dynamo_tpu_torch.runtime.deadline import with_deadline
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context, FnEngine
+from dynamo_tpu_torch.runtime.tracing import TRACER
 from dynamo_tpu_torch.runtime.transports.codec import packb, unpackb
 
 log = logging.getLogger("dynamo_tpu_torch.component")
@@ -197,15 +199,27 @@ class Endpoint:
             req = unpackb(env["payload"])
 
             async def run():
+                # one span a served dispatch, parented under the
+                # dispatching attempt by the wire-carried trace; the
+                # engine's spans nest under it through ctx.trace
+                span = TRACER.begin_span("worker.generate", ctx.trace,
+                                         request_id=ctx.id, subject=subject)
+                if span is not None:
+                    ctx.trace = span.context()
+                failed = True
                 try:
-                    gen = engine.generate(req, ctx)
-                except Exception as e:  # noqa: BLE001 — engine rejected
-                    log.exception("engine failure on %s", subject)
-                    await dataplane.close_with_error(
-                        writer, f"{type(e).__name__}: {e}")
-                    return
-                # generator-time failures are forwarded by pump_stream
-                await dataplane.pump_stream(writer, _packed(gen), ctx)
+                    try:
+                        gen = engine.generate(req, ctx)
+                    except Exception as e:  # noqa: BLE001 — engine rejected
+                        log.exception("engine failure on %s", subject)
+                        await dataplane.close_with_error(
+                            writer, f"{type(e).__name__}: {e}")
+                        return
+                    # generator-time failures are forwarded by pump_stream
+                    await dataplane.pump_stream(writer, _packed(gen), ctx)
+                    failed = False
+                finally:
+                    TRACER.end_span(span, error=failed)
 
             task = asyncio.create_task(run())
             inflight.add(task)

@@ -9,12 +9,14 @@ The port's transports carry the control-plane and transport sites
 `discovery.heartbeat`, `lease.expiry`, `event.plane`: transports/base.py,
 memory.py, tcp.py). The data-plane sites of the KV tiers, the transfer
 plane and the shared pool (`offload.*`, `transfer.link`,
-`remote_transfer.fetch_page`, `pool.*`, `queue.dequeue`) stay in the site
+`remote_transfer.fetch_page`, `pool.*`, `queue.dequeue`) are in the same
 catalog, so a recorded JAX plan arms here unchanged. The KV tiers fire
 theirs: `offload.write_tier` / `offload.read_tier` (engine/offload.py),
 `pool.fetch` (engine/kv_pool.py), `pool.remote_fetch` and `pool.rebalance`
-(engine/pool_service.py); the transfer plane's and the queue's wait for
-ROADMAP A9. `corrupt_array` takes numpy arrays and CPU torch tensors (the
+(engine/pool_service.py); the disaggregation fires `queue.dequeue`
+(disagg/queue.py), `transfer.link` and `remote_transfer.fetch_page`
+(disagg/remote_transfer.py, and the local backend's staging hop in
+disagg/transfer.py). `corrupt_array` takes numpy arrays and CPU torch tensors (the
 port's tier slabs) alike.
 
 Fault kinds: `drop` (the op raises FaultInjected, a ConnectionError, so

@@ -22,9 +22,9 @@ The breaker's latency-tripped SLOW state and the hedge trigger consume it
 (frontend/reliability.py), and so does the router's logit
 (kv_router/scheduler.TransferAwareSelector pays HEALTH_WEIGHT * (1 -
 score)); /metrics folds HEALTH_STATS and HEDGE_STATS as `llm_health_*` /
-`llm_hedge_*` (frontend/service.py). The transfer plane's link-error
-evidence waits for its slice (ROADMAP A14); `observe_link_err` is kept so
-the scorer's arithmetic stays the JAX package's.
+`llm_hedge_*` (frontend/service.py). Nothing feeds `observe_link_err` in
+either package (the JAX package calls it only from its tests); it is kept
+so the scorer's arithmetic stays the JAX package's.
 """
 from __future__ import annotations
 

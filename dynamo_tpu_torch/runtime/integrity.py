@@ -88,6 +88,10 @@ class IntegrityStats:
     def snapshot(self) -> Dict[str, int]:
         return dataclasses.asdict(self)
 
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, f.default)
+
 
 STATS = IntegrityStats()
 

@@ -26,8 +26,9 @@ pure function of the seed (`pick_storm_targets`), failpoint schedules are
 `FaultSchedule`s, and re-registration jitter draws from per-worker seeded
 rngs. The synthetic events carry the port's page hashes (BLAKE2b, where
 JAX takes xxh3): the router's overlap scores differ from JAX's in value,
-never the autoscale storm, whose traffic model hashes nothing. Left out
-with tracing's rest: the `router.schedule` span of each decision.
+never the autoscale storm, whose traffic model hashes nothing. Each
+schedule decision records a `router.schedule` span under the tracer's
+`scope:router` (JAX :411).
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ from dynamo_tpu_torch.runtime.cpstats import CP_STATS
 from dynamo_tpu_torch.runtime.transports.codec import packb
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.transports.memory import MemoryPlane
+from dynamo_tpu_torch.runtime.tracing import TRACER
 
 log = logging.getLogger("dynamo_tpu_torch.simcluster")
 
@@ -408,14 +410,20 @@ class SimCluster:
     async def schedule_once(self, stream_idx: int) -> Optional[str]:
         toks = self._stream_tokens(stream_idx)
         t0 = time.perf_counter()
-        try:
-            pick = await self.router.schedule(toks)
-        except Exception:
-            self.schedule_errors += 1
-            log.exception("schedule failed for stream %d", stream_idx)
-            return None
-        finally:
-            self.schedule_calls += 1
+        # one span a decision under the "router" scope (a no-op while
+        # tracing is off, so the capacity numbers are unaffected)
+        with TRACER.scope_span("router.schedule", "router",
+                               stream=stream_idx) as sp:
+            try:
+                pick = await self.router.schedule(toks)
+            except Exception:
+                self.schedule_errors += 1
+                log.exception("schedule failed for stream %d", stream_idx)
+                sp.set(error_pick=True)
+                return None
+            finally:
+                self.schedule_calls += 1
+            sp.set(instance=pick)
         self.latencies_us.append((time.perf_counter() - t0) * 1e6)
         # contract: the fence reflects APPLIED watch events; a pick
         # inside it means the router routed onto a known corpse

@@ -1,34 +1,41 @@
 """Per-request tracing: spans recorded into bounded per-thread rings.
 
-Copied from dynamo_tpu/runtime/tracing.py (:57-320), the part the
-reliability layer and the HTTP frontend use: `TRACE_KEY`, `TraceContext`
-with its wire form, the bounded ring, the no-op span and `Tracer`
-(`configure`, `start_trace`, `span`, `begin_span` / `end_span`,
-`record_span`, `event`, `drain`). One process-global `TRACER` owns
-per-thread append-only rings: recording takes no lock and never syncs a
-device. `drain` is the one reader until the export is ported
+Copied from dynamo_tpu/runtime/tracing.py: `TRACE_KEY`, `TraceContext`
+with its wire form, the bounded ring, the no-op span, `Tracer` and the
+chrome-trace export. One process-global `TRACER` owns per-thread
+append-only rings: recording takes no lock and never syncs a device;
+export (`drain()` + `chrome_trace()`) runs off the serving path, and
+tools/torch_trace_explain.py renders a drained file
 (tests/test_torch_tracing.py holds the spans against the JAX tracer's).
 
-- Disabled (the default; `configure(enabled=True)` enables): every
-  recording entry point is one branch, and `span()` returns a shared
-  no-op object.
+- Disabled (the default; `DYN_TRACE=1` or `configure(enabled=True)`
+  enables; `DYN_TRACE_SAMPLE`, `DYN_TRACE_SEED` and `DYN_TRACE_RING` set
+  the sample rate, its seed and the ring size): every recording entry
+  point is one branch, and `span()` returns a shared no-op object.
 - Enabled, trace sampled out: spans run but record only when they
   errored.
 - Enabled and sampled: one small object and one tuple appended to the
-  thread's ring; rings are bounded (oldest records overwritten).
+  thread's ring; rings are bounded (oldest records overwritten, `dropped`
+  counted).
+- Hot-path regions: `defer_phase()` appends an already-measured (scope,
+  name, duration) with no span object; the engine's PhaseTimer legs
+  become spans of the pseudo-trace `scope:engine` this way. Spans off
+  any request (pool fetches, rebalances, the simulated router) are
+  `scope_span`s.
 
 The trace context rides `runtime.engine.Context.baggage` under
 `TRACE_KEY`, so it crosses the wire with every dispatch envelope. Sampling
 is a pure function of (seed, trace_id).
 
-Left out until the tracing slice (ROADMAP A14): the chrome-trace export,
-the explain tool, the DYN_TRACE / DYN_TRACE_SAMPLE / DYN_TRACE_SEED /
-DYN_TRACE_RING knobs that switch recording on for it, scope spans and the
-engine's deferred phase recorder.
+Span schema (one record per span after `drain()`): {"trace_id",
+"span_id", "parent_id", "name", "ts", "dur", "attrs", "error", "thread"};
+`ts` is the process-local time.monotonic() start in seconds, `dur` in
+seconds.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
 import uuid
@@ -80,12 +87,13 @@ class TraceContext:
 class _Ring:
     """Bounded append-only record buffer; single-writer (its thread)."""
 
-    __slots__ = ("recs", "cap", "pos")
+    __slots__ = ("recs", "cap", "pos", "dropped")
 
     def __init__(self, cap: int):
         self.recs: List[tuple] = []
         self.cap = cap
         self.pos = 0
+        self.dropped = 0
 
     def append(self, rec: tuple) -> None:
         if len(self.recs) < self.cap:
@@ -93,6 +101,7 @@ class _Ring:
         else:
             self.recs[self.pos] = rec
             self.pos = (self.pos + 1) % self.cap
+            self.dropped += 1
 
     def snapshot(self) -> List[tuple]:
         return self.recs[self.pos:] + self.recs[:self.pos]
@@ -168,14 +177,14 @@ class _Span:
 
 class Tracer:
     """Process-global span recorder. See the module docstring for the
-    overhead contract; knobs via `configure()` (the JAX tracer's
-    defaults)."""
+    overhead contract; knobs via env (DYN_TRACE / DYN_TRACE_SAMPLE /
+    DYN_TRACE_SEED / DYN_TRACE_RING) or `configure()`."""
 
     def __init__(self):
-        self.enabled = False
-        self.sample_rate = 1.0
-        self.seed = 0
-        self.ring_capacity = 65536
+        self.enabled = os.environ.get("DYN_TRACE", "") not in ("", "0")
+        self.sample_rate = float(os.environ.get("DYN_TRACE_SAMPLE", "1.0"))
+        self.seed = int(os.environ.get("DYN_TRACE_SEED", "0"))
+        self.ring_capacity = int(os.environ.get("DYN_TRACE_RING", "65536"))
         self._local = threading.local()
         self._rings: List[tuple] = []        # (thread_name, _Ring)
         self._rings_lock = threading.Lock()
@@ -195,6 +204,13 @@ class Tracer:
         if ring_capacity is not None:
             self.ring_capacity = ring_capacity
         return self
+
+    def reset(self) -> None:
+        """Drop every recorded span (all threads' rings). Rings stay
+        registered, so live threads keep their fast path."""
+        with self._rings_lock:
+            for _name, ring in self._rings:
+                ring.clear()
 
     # -- sampling -------------------------------------------------------------
 
@@ -244,6 +260,15 @@ class Tracer:
             return NOOP_SPAN
         return _Span(self, name, trace, attrs or None)
 
+    def scope_span(self, name: str, scope: str, **attrs) -> "_Span | _NoopSpan":
+        """A span outside any request trace (pool fetches, rebalances, the
+        simulated router): recorded under the pseudo-trace
+        `scope:<scope>`."""
+        if not self.enabled:
+            return NOOP_SPAN
+        return _Span(self, name, TraceContext(f"scope:{scope}"),
+                     attrs or None)
+
     def begin_span(self, name: str, trace: Optional[TraceContext],
                    **attrs) -> Optional[_Span]:
         """Manual-lifecycle span: MUST be paired with `end_span` on every
@@ -281,7 +306,21 @@ class Tracer:
                              trace.span_id, name, now - max(0.0, duration_s),
                              now, attrs or None, False))
 
+    def defer_phase(self, scope: str, name: str, dt_s: float) -> None:
+        """The hot-path deferred recorder: the caller already measured the
+        phase (PhaseTimer), and this appends (scope, name, dt) with no
+        span object and no trace lookup."""
+        if not self.enabled:
+            return
+        now = time.monotonic()
+        self._ring().append((f"scope:{scope}", _new_span_id(), "",
+                             name, now - dt_s, now, None, False))
+
     # -- export (off the serving path) ----------------------------------------
+
+    def dropped(self) -> int:
+        with self._rings_lock:
+            return sum(ring.dropped for _n, ring in self._rings)
 
     def drain(self, clear: bool = True) -> List[Dict[str, Any]]:
         """Collect every recorded span from every thread's ring, oldest
@@ -299,6 +338,36 @@ class Tracer:
                  "name": r[3], "ts": r[4], "dur": r[5] - r[4],
                  "attrs": r[6], "error": r[7], "thread": r[8]}
                 for r in recs]
+
+
+def chrome_trace(spans: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Drained spans as a chrome://tracing / Perfetto trace (JSON object
+    format, "X" complete events and "i" instants). Threads map to tids;
+    the trace id rides in args."""
+    if not spans:
+        return {"traceEvents": []}
+    t_base = min(s["ts"] for s in spans)
+    tids: Dict[str, int] = {}
+    events = []
+    for s in spans:
+        tid = tids.setdefault(s.get("thread", "main"), len(tids) + 1)
+        args = dict(s.get("attrs") or {})
+        args["trace_id"] = s["trace_id"]
+        args["span_id"] = s["span_id"]
+        if s.get("parent_id"):
+            args["parent_id"] = s["parent_id"]
+        if s.get("error"):
+            args["error"] = True
+        ev = {"name": s["name"], "pid": 1, "tid": tid,
+              "ts": round((s["ts"] - t_base) * 1e6, 3), "args": args}
+        if s["dur"] <= 0.0:
+            ev.update(ph="i", s="t")
+        else:
+            ev.update(ph="X", dur=round(s["dur"] * 1e6, 3))
+        events.append(ev)
+    return {"traceEvents": events,
+            "displayTimeUnit": "ms",
+            "metadata": {"source": "dynamo_tpu_torch.runtime.tracing"}}
 
 
 TRACER = Tracer()

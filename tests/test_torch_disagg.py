@@ -192,7 +192,8 @@ def test_prefill_queue_roundtrip_matches_jax_payload():
     kw = dict(engine_id="e1", request_id="r1", token_ids=[1, 2, 3],
               page_ids=[4, 5], num_cached_tokens=8, page_size=8,
               alloc_epoch=3, notify_subject="disagg.prefill_done.e1",
-              deadline_unix=123.5, enqueued_unix=100.25)
+              deadline_unix=123.5, enqueued_unix=100.25,
+              trace={"tid": "t1", "sid": "s1", "s": 1})
 
     async def main():
         plane = MemoryPlane()
@@ -212,13 +213,11 @@ def test_prefill_queue_roundtrip_matches_jax_payload():
 
     req, got, empty, raw = asyncio.run(main())
     assert got == req and empty is None
-    # the JAX queue's payload for the same item: equal apart from the
-    # field the port leaves out (the trace context)
+    # the JAX queue's payload for the same item, its trace context included
     jreq = JRemoteRequest(sampling=JSampling(temperature=0.5, seed=4),
                           stop=JStop(max_tokens=7, ignore_eos=True), **kw)
     jdump = jreq.model_dump()
-    for left_out in ("trace",):
-        assert jdump.pop(left_out) is None
+    assert jdump["trace"] == kw["trace"]
     assert unpackb(raw) == jdump
     assert JQueue(None, "ns", "model-a").name == \
         PrefillQueue(None, "ns", "model-a").name
@@ -842,3 +841,61 @@ def test_prefill_worker_death_or_drain_releases_item(port_params, how):
     assert completed == 1 and redelivered >= 1
     if how == "drain":
         assert summary == {"re_leased": 1}
+
+
+def test_prefill_drain_counts_as_jax(jax_params, port_params):
+    """Both packages' prefill workers drained past their deadline with one
+    item in flight (held at the transfer): the DRAIN_STATS deltas are
+    equal (one drain started and completed, one stream left to its
+    lease)."""
+    from dynamo_tpu.runtime.component import DRAIN_STATS as JDRAIN
+    from dynamo_tpu_torch.runtime.component import DRAIN_STATS as TDRAIN
+
+    class JHold(JLocalTransfer):
+        async def send_pages(self, *a, **k):
+            await asyncio.Event().wait()
+
+    async def run(jax_side):
+        stats = JDRAIN if jax_side else TDRAIN
+        before = stats.snapshot()
+        if jax_side:
+            plane = JPlane()
+            queue = JQueue(plane.messaging, "ns", "tiny")
+            decode = JDecodeWorker(
+                jax_engine(jax_params), plane.messaging,
+                JRouter(max_local_prefill_length=4,
+                        max_prefill_queue_size=16, model="tiny"),
+                queue, worker_id="dec-0", prefill_timeout_s=60.0)
+            prefill = JPrefillWorker(
+                JWorker(jax_engine(jax_params)), queue, JHold(),
+                plane.messaging, dequeue_timeout_s=0.1, lease_s=30.0)
+            gen = decode.generate(j_pre("r1", PROMPT), JContext("r1"))
+        else:
+            plane = MemoryPlane()
+            decode, prefill, queue = _t_stack(
+                plane, port_params, transfer=_HoldTransfer(),
+                prefill_timeout_s=60.0, dequeue_timeout_s=0.1,
+                lease_s=30.0)
+            gen = decode.generate(t_pre("r1", PROMPT), Context("r1"))
+        await decode.start()
+        await prefill.start()
+        task = asyncio.create_task((j_drive if jax_side else t_drive)(gen))
+        deadline = time.monotonic() + 30
+        while "r1" not in prefill._handling:
+            assert time.monotonic() < deadline
+            await asyncio.sleep(0.02)
+        summary = await prefill.drain(timeout_s=0.2, poll_s=0.02)
+        task.cancel()
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+        await decode.stop()
+        after = stats.snapshot()
+        return summary, {k: after[k] - before[k] for k in after}
+
+    got = asyncio.run(asyncio.wait_for(run(False), 120))
+    assert got == asyncio.run(asyncio.wait_for(run(True), 120))
+    assert got[0] == {"re_leased": 1}
+    assert got[1]["drains_started"] == got[1]["drains_completed"] == 1
+    assert got[1]["cancelled_streams"] == 1

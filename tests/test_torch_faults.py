@@ -16,6 +16,20 @@ against the JAX package's, and the failpoints of the port's transports.
 (c) The TCP client's failpoints: `transport.send` on a frame sent to the
     port's control-plane server, `discovery.heartbeat` on its keep-alive
     loop (every round lost: the lease is lost).
+(d) The disaggregation's failpoints, each site's decisions under one
+    seeded schedule equal to the JAX site's, with its outcome counters:
+    `queue.dequeue` (delay and drop fire before the pop: no item lost),
+    `transfer.link` in `_chunk_gate` (a drop resumes from the acked
+    frontier and re-ships no committed page), the wire corruption of
+    `remote_transfer.fetch_page` (the chunk is refused, re-sent, never
+    injected) and the local backend's staging hop (re-fetch within its
+    budget, IntegrityError past it and a local re-prefill on the decode
+    side; int8 pages verified in their stored form). The end-to-end
+    cases drive one request through each package's disaggregated stack
+    on the same weights under the same armed schedule: equal tokens and
+    counters, and the stream equals the JAX single engine's.
+(e) tools/torch_chaos_replay.py: --list equals the port's SCENARIOS and
+    --dump-plan the JAX plans.
 """
 import asyncio
 import dataclasses
@@ -377,3 +391,400 @@ def test_tcp_transport_send_and_heartbeat():
     snap = tfaults.REGISTRY.snapshot()
     assert snap["injected"]["transport.send"] == 1
     assert snap["injected"]["discovery.heartbeat"] >= 1
+
+
+# -- (d) the disaggregation's failpoints ---------------------------------------
+
+def _queues():
+    from dynamo_tpu.disagg.protocols import RemotePrefillRequest as JReq
+    from dynamo_tpu.disagg.queue import PrefillQueue as JQueue
+    from dynamo_tpu_torch.disagg.protocols import RemotePrefillRequest as TReq
+    from dynamo_tpu_torch.disagg.queue import PrefillQueue as TQueue
+    return {jfaults: (JQueue, JReq, jmemory), tfaults: (TQueue, TReq, tmemory)}
+
+
+@pytest.mark.parametrize("kind", ["drop", "delay"])
+def test_queue_dequeue_fires_before_the_pop(kind):
+    """Six items through a leased and a plain dequeue under a seeded
+    schedule: the same outcome sequence in both packages, every item
+    delivered once, and the registry's counts equal."""
+    spec = ({"kind": "drop", "p": 0.5} if kind == "drop"
+            else {"kind": "delay", "p": 0.5, "delay_s": 0.01})
+
+    def case(F, M):
+        Queue, Req, _ = _queues()[F]
+
+        async def main():
+            plane = M.MemoryPlane()
+            q = Queue(plane.messaging, "ns", "m")
+            for i in range(6):
+                await q.enqueue(Req(engine_id="e", request_id=f"r{i}",
+                                    token_ids=[i], page_ids=[i]))
+            arm(F, "queue.dequeue", spec, seed=353)
+            seen, outcomes = [], []
+            while len(seen) < 6:
+                leased = len(seen) % 2 == 0
+                try:
+                    if leased:
+                        got = await q.dequeue_leased(timeout=0.5)
+                        req, token = got
+                        await q.ack(token)
+                    else:
+                        req = await q.dequeue(timeout=0.5)
+                except F.FaultInjected:
+                    outcomes.append("drop")
+                    continue
+                outcomes.append(req.request_id)
+                seen.append(req.request_id)
+            return (outcomes, sorted(seen), await q.depth(),
+                    F.REGISTRY.snapshot())
+        return asyncio.run(asyncio.wait_for(main(), T))
+
+    outcomes, seen, depth, snap = both(case)
+    assert seen == [f"r{i}" for i in range(6)] and depth == 0
+    fired = snap["injected"].get("queue.dequeue", 0)
+    assert fired > 0
+    if kind == "drop":
+        assert outcomes.count("drop") == fired
+
+
+def test_transfer_link_gate_decisions_equal_to_jax():
+    """The `transfer.link` site of each package's sender under one seeded
+    schedule (drops and a bounded stall): the same chunks are cut."""
+    from dynamo_tpu.disagg.remote_transfer import (
+        RemoteTransferBackend as JBackend,
+    )
+    from dynamo_tpu_torch.disagg.remote_transfer import (
+        RemoteTransferBackend as TBackend,
+    )
+
+    def case(F, M):
+        backend = (JBackend if F is jfaults else TBackend)(
+            M.MemoryPlane().kv)
+        arm(F, "transfer.link", {"kind": "delay", "p": 1.0, "n": 1,
+                                 "skip": 2, "delay_s": 0.01,
+                                 "delay_min_s": 0.01},
+            {"kind": "drop", "p": 0.3}, seed=53)
+
+        async def main():
+            cut = []
+            for i in range(24):
+                try:
+                    await backend._chunk_gate(i)
+                except F.FaultInjected:
+                    cut.append(i)
+            return cut, F.REGISTRY.snapshot()
+        return asyncio.run(asyncio.wait_for(main(), T))
+
+    cut, snap = both(case)
+    assert cut and snap["injected"]["transfer.link"] == len(cut) + 1
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    """Each package's disaggregated stack on the same weights: the JAX
+    package's tiny float32 engines (seed 0) and the port's on those
+    weights (params_from_jax). `oracle(prompt)`: the JAX single engine's
+    greedy tokens."""
+    import types
+
+    import jax
+
+    from dynamo_tpu import disagg as jdisagg
+    from dynamo_tpu.engine.config import (
+        EngineConfig as JEngineConfig, ModelConfig as JModelConfig,
+    )
+    from dynamo_tpu.engine.engine import NativeEngine as JNativeEngine
+    from dynamo_tpu.engine.scheduler import SamplingParams as JSamplingParams
+    from dynamo_tpu.llm import worker as jworker
+    from dynamo_tpu.runtime import engine as jengine, integrity as jintegrity
+    from dynamo_tpu_torch.disagg.queue import PrefillQueue
+    from dynamo_tpu_torch.disagg.remote_transfer import (
+        KvTransferServer, RemoteTransferBackend,
+    )
+    from dynamo_tpu_torch.disagg.router import DisaggregatedRouter
+    from dynamo_tpu_torch.disagg.transfer import LocalTransferBackend
+    from dynamo_tpu_torch.disagg.worker import (
+        DisaggDecodeWorker, PrefillWorker,
+    )
+    from dynamo_tpu_torch.llm import worker as tworker
+    from dynamo_tpu_torch.models.llama import params_from_jax
+    from dynamo_tpu_torch.runtime import (
+        engine as tengine, integrity as tintegrity,
+    )
+    from tools.torch_chaos import CFG, ENGINE_KW, ChaosEnv, pre_request
+    import test_chaos as jchaos
+
+    tdisagg = types.SimpleNamespace(
+        PrefillQueue=PrefillQueue, KvTransferServer=KvTransferServer,
+        RemoteTransferBackend=RemoteTransferBackend,
+        DisaggregatedRouter=DisaggregatedRouter,
+        LocalTransferBackend=LocalTransferBackend,
+        DisaggDecodeWorker=DisaggDecodeWorker, PrefillWorker=PrefillWorker)
+    jcfg = JModelConfig(dtype="float32", max_model_len=512,
+                        decode_kernel="off")
+
+    def jengine_of():
+        return JNativeEngine(jcfg, JEngineConfig(**ENGINE_KW), seed=0)
+    oracle_engine = jengine_of()
+    tenv = ChaosEnv(params_from_jax(jax.device_get(oracle_engine.params),
+                                    CFG, "cpu"))
+
+    def stack(F, M, d, worker, engine, integrity, engine_of, request):
+        return types.SimpleNamespace(
+            F=F, M=M, d=d, Worker=worker.NativeEngineWorker,
+            Context=engine.Context, integrity=integrity,
+            engine=engine_of, request=request)
+
+    def oracle(prompt):
+        return oracle_engine.generate(list(prompt), JSamplingParams(
+            max_tokens=4, temperature=0.0, ignore_eos=True), "o")
+    return types.SimpleNamespace(
+        jax=stack(jfaults, jmemory, jdisagg, jworker, jengine, jintegrity,
+                  jengine_of, jchaos.pre_request),
+        torch=stack(tfaults, tmemory, tdisagg, tworker, tengine, tintegrity,
+                    tenv.engine, pre_request),
+        oracle=oracle)
+
+
+def both_stacks(stacks, case):
+    want, got = case(stacks.jax), case(stacks.torch)
+    assert got == want
+    return got
+
+
+def _stats(S):
+    """The integrity and transfer counters the port carries (JAX's
+    `parallel_transfers` belongs to the sharded streams, ROADMAP A9)."""
+    from dynamo_tpu_torch.runtime import integrity
+    return {f.name: getattr(getattr(S.integrity, name), f.name)
+            for name in ("STATS", "XFER_STATS")
+            for f in dataclasses.fields(getattr(integrity, name))}
+
+
+async def _disagg_one(S, prompt, transfer, remote_server=False):
+    """One request through package S's decode worker, fed by its prefill
+    worker over `transfer` (the TCP plane when `remote_server`):
+    (tokens, decode worker, transfer server or None)."""
+    from tools.torch_chaos import as_dict
+    d = S.d
+    plane = S.M.MemoryPlane()
+    queue = d.PrefillQueue(plane.messaging, "ns", "tiny")
+    decode = d.DisaggDecodeWorker(
+        S.engine(), plane.messaging, d.DisaggregatedRouter(4, 8), queue,
+        worker_id="dec-0", prefill_timeout_s=60.0)
+    server = None
+    if remote_server:
+        server = await d.KvTransferServer(decode, "dec-0").start()
+        await server.register(plane.kv)
+        tx = transfer(plane.kv)
+    else:
+        tx = transfer()
+        tx.register("dec-0", decode)
+    prefill = d.PrefillWorker(S.Worker(S.engine()), queue, tx,
+                              plane.messaging, dequeue_timeout_s=0.05)
+    await decode.start()
+    await prefill.start()
+    try:
+        toks = []
+        async for f in decode.generate(S.request("r0", prompt, 4),
+                                       S.Context("r0")):
+            f = as_dict(f)
+            assert f.get("finish_reason") != "error", f
+            toks.extend(f.get("token_ids", ()))
+        return toks, decode, server
+    finally:
+        await prefill.stop()
+        await decode.stop()
+        if server is not None:
+            await server.stop()
+            await tx.close()
+
+
+PROMPT = [(11 * 3 + j) % 200 + 3 for j in range(30)]   # 4 pages of 8
+TX = 120.0     # the first request of a package builds its engines' graphs
+
+
+def _remote_case(site, spec):
+    """A case of both_stacks: one request over the TCP transfer plane
+    (one-page chunks, stop-and-wait) with `site` armed: its tokens, the
+    site's injections, the counters' deltas, the pages the server took
+    in and the decode side's salvages."""
+    def case(S):
+        arm(S.F, site, spec)
+        before = _stats(S)
+
+        def tx(kv):
+            return S.d.RemoteTransferBackend(kv, chunk_pages=1,
+                                             window_chunks=1, link_retries=3)
+        toks, decode, server = asyncio.run(asyncio.wait_for(
+            _disagg_one(S, PROMPT, tx, remote_server=True), TX))
+        delta = {k: v - before[k] for k, v in _stats(S).items()}
+        return (toks, S.F.REGISTRY.snapshot()["injected"], delta,
+                server.received_pages, decode.salvaged_prefills)
+    return case
+
+
+def test_transfer_link_drop_resumes_from_the_acked_frontier(stacks):
+    """One link cut after the first chunk's ack: both packages resume
+    from the acked frontier, re-ship no committed page and serve the
+    JAX single engine's tokens, with equal counters."""
+    # hits: chunk 0 passes, chunk 1 is cut, then the resume's chunks pass
+    toks, injected, d, received, salvaged = both_stacks(stacks, _remote_case(
+        "transfer.link", {"kind": "fail_n", "n": 1, "skip": 1}))
+    assert toks == stacks.oracle(PROMPT)
+    assert injected == {"transfer.link": 1}
+    assert d["resumes"] == 1                  # one page was committed
+    assert d["pages_sent"] == 4 and received == 4   # none re-sent
+    assert salvaged == 0
+
+
+def test_corrupted_chunk_refused_and_resent(stacks):
+    """One chunk corrupted on the wire: both packages' receivers refuse
+    it, the sender re-sends it and it is never injected; equal counters
+    and the JAX single engine's tokens."""
+    toks, injected, d, received, salvaged = both_stacks(stacks, _remote_case(
+        "remote_transfer.fetch_page",
+        {"kind": "corrupt", "p": 1.0, "n": 1, "skip": 1}))
+    assert toks == stacks.oracle(PROMPT)
+    assert injected == {"remote_transfer.fetch_page": 1}
+    assert d["mismatches"] == 1 and d["refetches"] == 1
+    assert d["pages_verified"] == 4           # the bad chunk never landed
+    assert received == 4 and salvaged == 0
+
+
+@pytest.mark.parametrize("cut", [1, 2, 3])
+def test_windowed_link_drop_injects_each_page_once(stacks, cut):
+    """The port's serving sender (a window of 4 one-page chunks) cut at
+    chunk `cut` before it reads an ack: the reconnected sender's
+    handshake can read the frontier while the cut connection's queued
+    chunks still inject, and the chunk both send lands once. The drop is
+    absorbed and the stream is the JAX single engine's."""
+    S = stacks.torch
+    arm(S.F, "transfer.link", {"kind": "fail_n", "n": 1, "skip": cut})
+
+    def tx(kv):
+        return S.d.RemoteTransferBackend(kv, chunk_pages=1, window_chunks=4,
+                                         link_retries=3)
+    toks, decode, server = asyncio.run(asyncio.wait_for(
+        _disagg_one(S, PROMPT, tx, remote_server=True), TX))
+    assert toks == stacks.oracle(PROMPT)
+    assert S.F.REGISTRY.snapshot()["injected"] == {"transfer.link": 1}
+    assert server.received_pages == 4 and decode.salvaged_prefills == 0
+
+
+def _stage_inputs(kind, F):
+    rng = np.random.default_rng(5)
+    shape = (2, 2, 3, 8, 4)
+    if kind == "int8":
+        k = rng.integers(-127, 127, shape, dtype=np.int8)
+        v = rng.integers(-127, 127, shape, dtype=np.int8)
+        ks = rng.random(shape[:-1], dtype=np.float32)
+        vs = rng.random(shape[:-1], dtype=np.float32)
+        arrs = [k, v, ks, vs]
+    else:
+        arrs = [rng.standard_normal(shape).astype(np.float32)
+                for _ in range(2)] + [None, None]
+    if F is tfaults:
+        import torch
+        arrs = [torch.from_numpy(a.copy()) if a is not None else None
+                for a in arrs]
+        if kind == "bf16":
+            arrs[:2] = [a.to(torch.bfloat16) for a in arrs[:2]]
+    elif kind == "bf16":
+        import jax.numpy as jnp
+        arrs[:2] = [jnp.asarray(a, jnp.bfloat16) for a in arrs[:2]]
+    return arrs
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("corruptions", [1, 3])
+def test_local_staging_hop_equal_to_jax(kind, corruptions):
+    """The local backend's chaos staging hop on the same pages: within
+    the re-fetch budget the pages come back intact after as many
+    re-fetches as corruptions; past it (3 corruptions, 2 re-fetches)
+    IntegrityError. The integrity counters move as JAX's."""
+    from dynamo_tpu.disagg.transfer import LocalTransferBackend as JLocal
+    from dynamo_tpu.runtime.integrity import STATS as JINTEGRITY
+    from dynamo_tpu_torch.disagg.transfer import (
+        LocalTransferBackend as TLocal, host_view,
+    )
+    from dynamo_tpu_torch.runtime.integrity import STATS as TINTEGRITY
+
+    def case(F, M):
+        local, stats = ((JLocal, JINTEGRITY) if F is jfaults
+                        else (TLocal, TINTEGRITY))
+        arrs = _stage_inputs(kind, F)
+        arm(F, "remote_transfer.fetch_page",
+            {"kind": "corrupt", "p": 1.0, "n": corruptions}, seed=7)
+        before = stats.snapshot()
+
+        async def main():
+            try:
+                out = await local._verified_stage("r", [5, 6, 7], *arrs)
+            except Exception as e:  # noqa: BLE001 — the outcome compared
+                return type(e).__name__
+            got = [np.asarray(host_view(o) if F is tfaults else o)
+                   if o is not None else None for o in out]
+            want = [np.asarray(host_view(a) if F is tfaults else a)
+                    if a is not None else None for a in arrs]
+            return all((g is None and w is None) or (
+                g.tobytes() == w.tobytes()) for g, w in zip(got, want))
+        res = asyncio.run(asyncio.wait_for(main(), T))
+        return res, {k: v - before[k] for k, v in stats.snapshot().items()}
+
+    res, delta = both(case)
+    if corruptions == 1:
+        assert res is True and delta["refetches"] == 1
+        assert delta["pages_verified"] == 3
+    else:
+        assert res == "IntegrityError" and delta["reprefills"] == 1
+        assert delta["quarantined"] == 3 and delta["pages_verified"] == 0
+
+
+@pytest.mark.parametrize("corruptions", [1, 3])
+def test_local_backend_refetch_or_reprefill(stacks, corruptions):
+    """A disaggregated request over each package's local backend with the
+    staging hop armed: one corruption is re-fetched and injected
+    verified; past the budget the decode side prefills locally. Equal
+    tokens and counters in both packages, and the JAX single engine's
+    stream either way."""
+    def case(S):
+        arm(S.F, "remote_transfer.fetch_page",
+            {"kind": "corrupt", "p": 1.0, "n": corruptions})
+        before = _stats(S)
+        toks, decode, _ = asyncio.run(asyncio.wait_for(
+            _disagg_one(S, PROMPT, S.d.LocalTransferBackend), TX))
+        delta = {k: v - before[k] for k, v in _stats(S).items()}
+        return toks, delta, decode.full_reprefills, decode.remote_prefills
+
+    toks, d, reprefills, remote = both_stacks(stacks, case)
+    assert toks == stacks.oracle(PROMPT) and remote == 1
+    if corruptions == 1:
+        assert d["refetches"] == 1 and d["pages_verified"] == 4
+        assert reprefills == 0
+    else:
+        assert d["pages_verified"] == 0 and d["reprefills"] == 1
+        assert reprefills == 1
+
+
+# -- (e) the replay tool -------------------------------------------------------
+
+def test_torch_chaos_replay_list_and_plans():
+    import json
+    import subprocess
+    import sys
+
+    import test_chaos as jchaos
+    from tools import torch_chaos
+    out = subprocess.run(
+        [sys.executable, "tools/torch_chaos_replay.py", "--list"],
+        capture_output=True, text=True, check=True)
+    assert out.stdout.split() == list(torch_chaos.SCENARIOS) \
+        == list(jchaos.SCENARIOS)
+    for name, (_fn, jplan) in jchaos.SCENARIOS.items():
+        dump = subprocess.run(
+            [sys.executable, "tools/torch_chaos_replay.py", name,
+             "--dump-plan"], capture_output=True, text=True, check=True)
+        jplan = {k: v for k, v in jplan.items() if k != "sharded"}
+        assert json.loads(dump.stdout) == jplan, name
