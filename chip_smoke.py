@@ -623,6 +623,42 @@ Phases (any failed check exits non-zero; nothing is caught):
    different functions by design, the first differences are reported;
    the kernel's launches only on "auto"; each window's untraced ms per
    decode step with the 8 prompts decoding together.
+   c. (inside 16a, on its in-process bf16 tree, before run.py; 16a's
+   engine, on a fresh allocator, is the aggregated reference: each chat
+   alone, with its top-8 logprobs) The gather window on the distributed
+   path, in three rounds (`phase_gemma2_distributed`).
+   R: two gather engines on 16a's EngineConfig (8 slots, 1024 pages),
+   each served as an endpoint over a memory control plane, behind the KV
+   router (the default TransferAwareSelector), HttpService and the
+   ReliableClient; 8 SSE chats over 2 shared prompts of ~4700 tokens (past
+   the 4096-token window) with user turns of 40-200 tokens, two waves of
+   4, 32 greedy tokens. Gates: each wave-2 chat on a worker that served its
+   prompt in wave 1, with matched pages >= the sealed pages its token ids
+   share with that worker's chats; 0 router fall-backs; every stream equal
+   to the reference or first differing at a near tie; both engines on the
+   gather path, 0 ragged launches, one replay a window, no capture in
+   wave 2. D: a prefill engine and a gather decode engine on (h)'s
+   configs (local prefill up to 1000, decode 16 slots; 1024 pages each),
+   the TCP transfer plane (chunk_pages 4, window 4) and a PrefillQueue
+   over the default QosPolicy; 16a's four longest chats, then two of 125
+   and 625 tokens, one at a time, 32 tokens. Gates: remote / local as
+   prefill_remote(len, 0, 0) decides; pages received = uncached pages =
+   pages verified, 0 mismatches, salvages, re-prefills, timeouts; each
+   stream equal to the decode engine's own disaggregation hooks (run first,
+   one at a time: its warm-up) and to the reference or a near tie; 0
+   ragged launches; no capture after the warm-up. Q: with the prefill
+   worker not consuming, 4 batch remote chats then 1 interactive one
+   (classes through set_qos in the baggage); the dequeue order equals the
+   order recomputed from the enqueue list, the policy's weights,
+   priorities and aging limit (`stride_order`). Then a 2-slot decode
+   engine holds two batch streams of 512 tokens (long enough to still
+   decode when the remote chat's prefill and transfer land; 128 ended
+   first on the card) and an interactive remote
+   chat arrives: exactly one preemption of a batch stream (both slots
+   batch, the arrival of priority 2 with a budget of 4), every stream at
+   max_tokens, each batch stream equal to its unpreempted run or a near
+   tie. Printed: R's routed TTFT p50 / p90; D's TTFT, transfer MiB, ms
+   and GB/s, ms a token from the second on; Q's TTFTs by class.
 
 17. Speculative decoding (A8; engine/spec.py, the engine's verify), spec_k
    4, greedy, MAX_TOKENS a chat, every stream held to a plain engine's on
@@ -5280,13 +5316,16 @@ async def drive_disagg(cp_port: int, fe_port: int, model: str, scale: float,
     return rec
 
 
-def aggregated_run(engine, rid: str, req) -> tuple:
+def aggregated_run(engine, rid: str, req, tops: bool = True) -> tuple:
     """The plain aggregated engine's stream for `req`, with each token's
-    top logprobs ([(token id, logprob)], best first)."""
+    top logprobs ([(token id, logprob)], best first); `tops` False keeps
+    the request's own sampling parameters (the windows a served request
+    replays)."""
     from dynamo_tpu_torch.engine.sampler import TOP_LOGPROBS
     from dynamo_tpu_torch.engine.scheduler import EngineRequest
-    engine.add_request(EngineRequest(rid, req.prompt, dataclasses.replace(
-        req.params, logprobs=TOP_LOGPROBS)))
+    params = (dataclasses.replace(req.params, logprobs=TOP_LOGPROBS)
+              if tops else req.params)
+    engine.add_request(EngineRequest(rid, req.prompt, params))
     toks, tops, done = [], [], False
     while not done:
         for ev in engine.step():
@@ -7826,8 +7865,12 @@ def phase_gemma2(root: str, smi: str, device: str = "cuda", hf=None,
               f"past the window the logits move by {rec['sensitivity']} "
               f"without the windows / the attention soft-cap (gate > "
               f"{SAME_CONTEXT}) [{smi}]", flush=True)
+        del kb, vb
+        # 16c on this tree, the engine its aggregated reference
+        rec["distributed"] = phase_gemma2_distributed(
+            smi, card, tok, params, served_cfg, engine, bodies, device)
         engine.cache = None
-        del engine, kb, vb, params
+        del engine, params
         empty_cache(device)
 
         # run.py: a cold round (prefill, captures), a warm-up round on the
@@ -7891,6 +7934,575 @@ def phase_gemma2(root: str, smi: str, device: str = "cuda", hf=None,
                                        rec["prompt_tokens"][-2:], device, smi)
     finally:
         shutil.rmtree(path, ignore_errors=True)
+    return rec
+
+
+# -- phase 16c: Gemma-2 routed and disaggregated on the gather window ---------
+
+# R's shared system prompts: past gemma-2-9b's 4096-token window, or 3/5 of
+# a narrower config's context
+GEMMA_DIST_SYS = 4700
+GEMMA_DIST_TOKENS = 32
+GEMMA_Q_TOKENS = 8
+# long enough that both batch streams still decode when the interactive
+# chat's remote prefill lands (~0.5 s on the card; a step ~5-6 ms)
+GEMMA_PREEMPT_TOKENS = 512
+GEMMA_DIST_NS = "gemma-dist"
+
+
+def sized_text(tok, target: int, seed: int) -> str:
+    """Words of LONG_WORDS (numpy seed `seed`) that the tokenizer encodes to
+    `target` tokens, within 2%."""
+    import numpy as np
+    words = list(np.random.default_rng(seed).choice(LONG_WORDS, target))
+    text = " ".join(words)
+    for _ in range(8):
+        n = len(tok.encode(text))
+        if abs(n - target) <= max(2, target // 50):
+            break
+        words = (words * 2)[:max(1, int(len(words) * target / n))]
+        text = " ".join(words)
+    return text
+
+
+def gemma_chat(model: str, text: str, max_tokens: int,
+               stream: bool = True) -> dict:
+    body = {"model": model, "max_tokens": max_tokens, "temperature": 0.0,
+            "messages": [{"role": "user", "content": text}]}
+    if stream:
+        body.update(stream=True, stream_options={"include_usage": True})
+    return body
+
+
+def stride_order(classes: list, policy) -> list:
+    """The order a class-aware queue owes items enqueued with `classes`
+    (FIFO within a class), recomputed from the policy's weights,
+    priorities and aging limit: the backlogged class with the lowest
+    virtual pass goes next (the higher priority, then the name, on a tie),
+    its pass advancing by 1 / weight; a class skipped aging_limit times in
+    a row goes first."""
+    left = {}
+    for i, c in enumerate(classes):
+        left.setdefault(c, []).append(i)
+    passes, skipped, out = {}, {}, []
+    while any(left.values()):
+        backlog = [c for c, q in left.items() if q]
+        floor = min(passes.values()) if passes else 0.0
+        for c in backlog:
+            passes[c] = max(passes.get(c, floor), floor)
+            skipped.setdefault(c, 0)
+
+        def key(c):
+            return (passes[c], -policy.classes[c].priority, c)
+        aged = sorted((c for c in backlog
+                       if skipped[c] >= policy.aging_limit), key=key)
+        c = (aged or sorted(backlog, key=key))[0]
+        out.append(left[c].pop(0))
+        passes[c] += 1.0 / policy.classes[c].weight
+        skipped[c] = 0
+        for o in backlog:
+            if o != c:
+                skipped[o] += 1
+    return out
+
+
+def phase_gemma2_distributed(smi: str, card, tok, params, served_cfg,
+                             ref_engine, bodies: list,
+                             device: str = "cuda") -> dict:
+    """16c (see the docstring at the top): 16a's tree routed (R),
+    disaggregated (D) and under the class-aware queue and a cross-class
+    preemption (Q); `ref_engine` is 16a's in-process engine, the
+    aggregated reference. On the CPU (a narrow config) the card-only
+    checks are skipped."""
+    return asyncio.run(asyncio.wait_for(_gemma2_distributed(
+        smi, card, tok, params, served_cfg, ref_engine, bodies, device),
+        900))
+
+
+async def _gemma2_distributed(smi, card, tok, params, served_cfg,
+                              ref_engine, bodies, device) -> dict:
+    import torch
+    from dynamo_tpu_torch.disagg.queue import PrefillQueue
+    from dynamo_tpu_torch.disagg.remote_transfer import (
+        KvTransferServer, RemoteTransferBackend,
+    )
+    from dynamo_tpu_torch.disagg.router import DisaggregatedRouter
+    from dynamo_tpu_torch.disagg.worker import (
+        DisaggDecodeWorker, PrefillWorker,
+    )
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.engine.scheduler import Scheduler
+    from dynamo_tpu_torch.frontend.discovery import (
+        ModelWatcher, register_model,
+    )
+    from dynamo_tpu_torch.frontend.service import HttpService
+    from dynamo_tpu_torch.kv_router.router import KvRouter
+    from dynamo_tpu_torch.llm import worker as llm_worker
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.runtime.integrity import (
+        STATS as INTEGRITY, XFER_STATS,
+    )
+    from dynamo_tpu_torch.runtime.qos import (
+        QOS_STATS, QosPolicy, set_qos,
+    )
+    from dynamo_tpu_torch.runtime.transports.memory import MemoryPlane
+    name = "16c"
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    model = card.name
+    ps = served_cfg.page_size
+    pre = OpenAIPreprocessor(card, tok)
+    mcfg = card.model_config()
+    eos = set(card.eos_token_ids)
+    rec = {}
+
+    def prep(body, rid):
+        p, _ = pre.preprocess_chat(ChatCompletionRequest.from_json(
+            {k: v for k, v in body.items()
+             if k not in ("stream", "stream_options")}), rid)
+        return p
+
+    def engine(cfg):
+        e = NativeEngine(mcfg, cfg, params=params, eos_token_ids=eos,
+                         device=device)
+        check(e.decode_path == "gather" and e.pregather, f"{name}: an "
+              f"engine resolved {e.decode_path} ({e.decode_path_reason})")
+        return e
+
+    def free(*engines):
+        for e in engines:
+            e.cache = None
+        empty_cache(device)
+
+    # the aggregated reference: 16a's engine on a fresh allocator, each
+    # chat alone, with its top logprobs
+    ref_engine.scheduler = Scheduler(ref_engine.cfg)
+    ref_engine._dec_state = None
+    refs = {}
+
+    def reference(rid, p):
+        refs[rid] = aggregated_run(ref_engine, f"ref-{rid}",
+                                   llm_worker.to_engine_request(p))
+        return refs[rid]
+
+    def hold(label, toks, rid):
+        d = divergence(toks, *refs[rid])
+        check(d is None or d[1] <= NEAR_TIE, f"{name}: {label} left the "
+              f"aggregated reference at (position, logprob gap) {d}, past "
+              f"a near tie ({NEAR_TIE})")
+        return d
+
+    # -- R: two gather workers behind the KV router ----------------------
+    t0 = time.perf_counter()
+    sys_len = min(GEMMA_DIST_SYS, served_cfg.max_model_len * 3 // 5)
+    systems = [sized_text(tok, sys_len, 1600 + s) for s in range(2)]
+    chats = []      # (wave, system, rid, body)
+    for w in range(2):
+        for k in range(4):
+            s = k % 2
+            user = sized_text(tok, 40 + (160 * (4 * w + k)) // 7,
+                              1700 + 4 * w + k)
+            chats.append((w, s, f"R{w}{k}", gemma_chat(
+                model, systems[s] + "\n\n" + user, GEMMA_DIST_TOKENS)))
+    prompts = {rid: prep(b, rid) for _, _, rid, b in chats}
+    for rid, p in prompts.items():
+        reference(rid, p)
+    rec["reference_s"] = time.perf_counter() - t0
+
+    class Tap(llm_worker.NativeEngineWorker):
+        """Records each served stream's token ids by its prompt."""
+
+        async def generate(self, request, context):
+            ids = tuple(request["token_ids"] if isinstance(request, dict)
+                        else request.token_ids)
+            toks = self.streams.setdefault(ids, [])
+            async for frame in super().generate(request, context):
+                toks.extend((frame.get("token_ids") or ())
+                            if isinstance(frame, dict)
+                            else (frame.token_ids or ()))
+                yield frame
+
+    r_engines = [engine(served_cfg) for _ in range(2)]
+    plane = MemoryPlane()
+    rts, workers = [], {}
+    reset_launch_counts()
+    for i, e in enumerate(r_engines):
+        w = await Tap(e).start()
+        w.streams = {}
+        rt = await DistributedRuntime.create_local(plane, f"g{i}")
+        await llm_worker.serve_llm_worker(rt, GEMMA_DIST_NS, "gemma", w)
+        rts.append(rt)
+        workers[f"g{i}"] = w
+    frt = await DistributedRuntime.create_local(plane, "frontend")
+    rts.append(frt)
+    svc = await HttpService("127.0.0.1", 0).start()
+
+    async def make_router(component, client, card_):
+        return await KvRouter(component, client,
+                              block_size=card_.kv_page_size).start()
+    svc.watcher = await ModelWatcher(
+        frt, svc.models, make_router=make_router,
+        reliability_metrics=svc.reliability).start()
+    await register_model(frt.kv, model, GEMMA_DIST_NS, "gemma", card,
+                         model_type="chat", kv_routed=True)
+    try:
+        async def ready():
+            st = await _get_json(svc.port, "/router/state")
+            m = st["models"].get(model)
+            return m is not None and len(m["instances"]) == 2
+        await _poll(f"{name}: the router seeing both workers", ready, 60,
+                    0.05)
+        fb0 = (await _get_json(svc.port, "/router/state"))["router"][
+            "fallbacks"]
+        res = {}
+        wave1 = [(rid, b) for w, _, rid, b in chats if w == 0]
+        wave2 = [(rid, b) for w, _, rid, b in chats if w == 1]
+        res.update(zip([r for r, _ in wave1], await asyncio.gather(
+            *(_dist_send(svc.port, b, r) for r, b in wave1))))
+
+        async def scored():
+            for _, b in wave2:
+                m = await _get_json(svc.port, "/router/match", {
+                    "model": model, "messages": b["messages"]})
+                if not m["scores"]:
+                    return False
+            return True
+        await _poll(f"{name}: the router scoring every prompt", scored, 60,
+                    0.05)
+        captured1 = [e.graphs.captured for e in r_engines]
+        res.update(zip([r for r, _ in wave2], await asyncio.gather(
+            *(_dist_send(svc.port, b, r) for r, b in wave2))))
+        state = await _get_json(svc.port, "/router/state")
+    finally:
+        await svc.watcher.stop()
+        await svc.stop()
+        for rt in rts:
+            await rt.shutdown()
+        for w in workers.values():
+            await w.stop()
+    decs = {d["request_id"]: d for d in state["models"][model]["decisions"]}
+    check(set(decs) >= set(prompts), f"{name}: R's router decided "
+          f"{sorted(decs)} of {sorted(prompts)}")
+    went = {}
+    wave2_pages = []
+    for w, s, rid, _ in chats:
+        d = decs[rid]
+        if w == 1:
+            homes = {went[r] for ww, ss, r, _ in chats
+                     if ww == 0 and ss == s}
+            check(d["worker_id"] in homes, f"{name}: {rid} went to "
+                  f"{d['worker_id']}, its prompt's wave-1 chats to {homes}")
+            ids = prompts[rid].token_ids
+            derived = max(
+                len(os.path.commonprefix([ids, prompts[r].token_ids])) // ps
+                for ww, ss, r, _ in chats
+                if ww == 0 and ss == s and went[r] == d["worker_id"])
+            got = d["scores"].get(d["worker_id"], 0)
+            check(got >= derived > 0, f"{name}: {rid} matched {got} pages "
+                  f"on {d['worker_id']}, its sealed prefix holds {derived}")
+            wave2_pages.append((got, derived))
+        went[rid] = d["worker_id"]
+    fallbacks = state["router"]["fallbacks"] - fb0
+    check(fallbacks == 0, f"{name}: {fallbacks} router fall-backs")
+    r_div = {}
+    for rid, p in prompts.items():
+        served = workers[went[rid]].streams.get(tuple(p.token_ids))
+        check(served is not None and len(served) == res[rid]["tokens"],
+              f"{name}: {rid}'s stream not found on {went[rid]}")
+        r_div[rid] = hold(rid, served, rid)
+    ragged = launch_counts()[RAGGED]
+    check(ragged == 0, f"{name}: R launched the ragged kernel {ragged} "
+          f"times")
+    for i, e in enumerate(r_engines):
+        g = e.graphs
+        check(not on_card or g.replays == e.decode_dispatches
+              == g.replay_paths.get("gather", 0), f"{name}: worker g{i}: "
+              f"{g.replays} replays ({g.replay_paths}) for "
+              f"{e.decode_dispatches} windows")
+    captured2 = [e.graphs.captured for e in r_engines]
+    check(captured2 == captured1, f"{name}: graphs captured in wave 2 "
+          f"({captured1} -> {captured2})")
+    rec["R"] = {"picks": went, "wave2_pages": wave2_pages,
+                "divergence": r_div,
+                "ttft": quantiles([r["ttft_s"] for r in res.values()]),
+                "captured": captured2, "ragged_launches": ragged,
+                "seconds": time.perf_counter() - t0}
+    print(f"{name} R [{smi}]: 8 SSE chats of "
+          f"{[len(p.token_ids) for p in prompts.values()]} tokens over 2 "
+          f"shared prompts, two waves of 4 through the KV router: picks "
+          f"{went}, wave 2 matched / derived pages {wave2_pages}, 0 "
+          f"fall-backs, streams against the aggregated engine {r_div}, "
+          f"path gather on both, ragged launches 0, graphs {captured2} "
+          f"(none in wave 2), routed TTFT p50 / p90 "
+          f"{rec['R']['ttft']['p50_ms']:.1f} / "
+          f"{rec['R']['ttft']['p90_ms']:.1f} ms", flush=True)
+    free(*r_engines)
+    del r_engines, workers
+
+    # -- D: a prefill worker feeding a gather decode worker -------------------
+    t0 = time.perf_counter()
+    threshold = 1000
+    dcfg = dataclasses.replace(served_cfg, max_slots=16, num_pages=1024,
+                               max_prefill_chunk=512)
+    pcfg = dataclasses.replace(served_cfg, max_slots=8, num_pages=1024,
+                               max_prefill_chunk=512)
+    dec_eng, pre_eng = engine(dcfg), engine(pcfg)
+    longs = [dict(b, max_tokens=GEMMA_DIST_TOKENS) for b in bodies[-4:]]
+    shorts = [gemma_chat(model, sized_text(tok, n, 1800 + n),
+                         GEMMA_DIST_TOKENS, False) for n in (125, 625)]
+    d_pre = {f"D{i}": prep(b, f"D{i}")
+             for i, b in enumerate(longs + shorts)}
+    want_remote = {rid: DisaggregatedRouter(threshold, 2).prefill_remote(
+        len(p.token_ids), 0, 0) for rid, p in d_pre.items()}
+    check([want_remote[f"D{i}"] for i in range(6)]
+          == [True] * 4 + [False] * 2, f"{name}: D's chats decide "
+          f"{want_remote} (lengths {[len(p.token_ids) for p in d_pre.values()]})")
+    # the decode engine's own disaggregation hooks (remote chats) or an
+    # aggregated run (local ones), one at a time: its window graphs for
+    # these shapes, and the streams the served ones must equal
+    own = {}
+    for rid, p in d_pre.items():
+        reference(rid, p)
+        req = llm_worker.to_engine_request(p)
+        own[rid] = (disagg_reference(dec_eng, f"own-{rid}", req)
+                    if want_remote[rid] else
+                    aggregated_run(dec_eng, f"own-{rid}", req,
+                                   tops=False)[0])
+    dec_eng.scheduler = Scheduler(dec_eng.cfg)
+    dec_eng._dec_state = None
+    rec["d_reference_s"] = time.perf_counter() - t0
+
+    qplane = MemoryPlane()
+    queue = PrefillQueue(qplane.messaging, GEMMA_DIST_NS, model,
+                         qos_policy=QosPolicy())
+    router = DisaggregatedRouter(threshold, 2, model)
+    decode = DisaggDecodeWorker(dec_eng, qplane.messaging, router, queue,
+                                worker_id="gdec-0", prefill_timeout_s=300.0)
+    server = await KvTransferServer(decode, "gdec-0").start()
+    await server.register(qplane.kv)
+    tx = RemoteTransferBackend(qplane.kv, chunk_pages=4)
+    prefill = PrefillWorker(llm_worker.NativeEngineWorker(pre_eng), queue,
+                            tx, qplane.messaging, dequeue_timeout_s=0.05)
+    x0, i0 = XFER_STATS.snapshot(), INTEGRITY.snapshot()
+    reset_launch_counts()
+    keys0 = set(dec_eng.graphs.captured_calls())
+    d_out, d_ttft, d_itl = {}, {}, {}
+    await decode.start()
+    await prefill.start()
+    try:
+        for rid, p in d_pre.items():
+            ts = time.perf_counter()
+            toks, stamps = [], []
+            async for f in decode.generate(p, Context(rid)):
+                for t in f.token_ids or ():
+                    toks.append(t)
+                    stamps.append(time.perf_counter() - ts)
+            d_out[rid], d_ttft[rid] = toks, stamps[0]
+            # from the second token on (a remote chat's second token waits
+            # for its transfer): one step of the gather window a token
+            d_itl[rid] = ((stamps[-1] - stamps[1])
+                          / max(1, len(stamps) - 2) * 1e3)
+    finally:
+        await prefill.stop()
+    st = decode.stats_handler()["disagg"]
+    xfers = dict(prefill.transfers)
+    xd = {k: v - x0[k] for k, v in XFER_STATS.snapshot().items()}
+    idl = {k: v - i0[k] for k, v in INTEGRITY.snapshot().items()}
+    remote = [rid for rid in d_pre if want_remote[rid]]
+    for rid in d_pre:
+        check(st["decisions"][rid]["remote"] == want_remote[rid],
+              f"{name}: {rid} went {st['decisions'][rid]}, prefill_remote "
+              f"says remote={want_remote[rid]}")
+        check(d_out[rid] == own[rid], f"{name}: {rid} served {d_out[rid]} "
+              f"where the decode engine's own hooks gave {own[rid]}")
+    d_div = {rid: hold(rid, d_out[rid], rid) for rid in d_pre}
+    uncached = sum(-(-len(d_pre[r].token_ids) // ps) for r in remote)
+    check(st["received_pages"] == uncached == idl["pages_verified"]
+          and idl["mismatches"] == 0, f"{name}: pages received "
+          f"{st['received_pages']}, derived {uncached}, integrity {idl}")
+    check(st["salvaged_prefills"] == st["full_reprefills"]
+          == st["prefill_timeouts"] == 0, f"{name}: D's salvages / "
+          f"re-prefills / timeouts {st}")
+    check((st["remote_prefills"], st["local_prefills"]) == (4, 2),
+          f"{name}: {st['remote_prefills']} remote / "
+          f"{st['local_prefills']} local prefills")
+    ragged = launch_counts()[RAGGED]
+    check(ragged == 0, f"{name}: D launched the ragged kernel {ragged} "
+          f"times")
+    late = set(dec_eng.graphs.captured_calls()) - keys0
+    check(not late, f"{name}: the decode engine captured {sorted(late)} "
+          f"after its warm-up")
+    nbytes = sum(xfers[r]["bytes"] for r in remote)
+    xfer_ms = sum(xfers[r]["ms"] for r in remote)
+    mib = nbytes / 2 ** 20
+    rec["D"] = {"decisions": want_remote, "divergence": d_div,
+                "ttft_ms": {r: d_ttft[r] * 1e3 for r in d_pre},
+                "pages": uncached, "transfers": {r: xfers[r]
+                                                 for r in remote},
+                "transfer_mib": mib, "transfer_ms": xfer_ms,
+                "transfer_gbs": nbytes / max(xfer_ms, 1e-9) / 1e6,
+                "kv_transfer": xd, "integrity": idl,
+                "ms_per_token": d_itl, "ragged_launches": ragged,
+                "seconds": time.perf_counter() - t0}
+    print(f"{name} D [{smi}]: 6 chats of "
+          f"{[len(p.token_ids) for p in d_pre.values()]} tokens one at a "
+          f"time: remote {remote} as prefill_remote decides, {uncached} "
+          f"pages received = verified, 0 mismatches / salvages / "
+          f"re-prefills / timeouts, streams equal the decode engine's own "
+          f"hooks and against the aggregated engine {d_div}; TTFT "
+          f"{ {r: round(v * 1e3, 1) for r, v in d_ttft.items()} } ms; "
+          f"transfers {mib:.1f} MiB in {xfer_ms:.1f} ms "
+          f"({rec['D']['transfer_gbs']:.3f} GB/s); ms a token from the "
+          f"second on (a gather window step, one slot live) "
+          f"{ {r: round(v, 2) for r, v in d_itl.items()} }; ragged "
+          f"launches 0, no capture after the warm-up", flush=True)
+
+    # -- Q: the class-aware queue and one cross-class preemption ---------------
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    policy = queue.qos_policy
+    # the queue holds all five before the prefill worker consumes: a depth
+    # bound of 2 (D's) would send the third one local
+    router = decode.disagg_router = DisaggregatedRouter(threshold, 8, model)
+    q_bodies = [gemma_chat(model, sized_text(tok, 1100 + 40 * i, 1900 + i),
+                           GEMMA_Q_TOKENS, False) for i in range(5)]
+    classes = ["batch"] * 4 + ["interactive"]
+    q_pre = [prep(b, f"Q{i}") for i, b in enumerate(q_bodies)]
+    order = []
+    dequeue = queue.dequeue_leased
+
+    async def recording(*a, **kw):
+        got = await dequeue(*a, **kw)
+        if got is not None:
+            order.append(got[0].request_id)
+        return got
+    queue.dequeue_leased = recording
+    prefill_q = PrefillWorker(llm_worker.NativeEngineWorker(pre_eng), queue,
+                              tx, qplane.messaging, dequeue_timeout_s=0.05)
+    q_first = {}
+
+    async def one(i):
+        ctx = Context(f"Q{i}")
+        set_qos(ctx.baggage, classes[i])
+        toks = []
+        async for f in decode.generate(q_pre[i], ctx):
+            if f.token_ids and f"Q{i}" not in q_first:
+                q_first[f"Q{i}"] = time.perf_counter()
+            toks.extend(f.token_ids or ())
+        return toks
+    tasks = []
+    for i in range(5):
+        tasks.append(asyncio.create_task(one(i)))
+
+        async def queued(n=i + 1):
+            return await queue.depth() >= n
+        await _poll(f"{name}: Q{i} queued", queued, 60, 0.01)
+    t_start = time.perf_counter()
+    await prefill_q.start()
+    try:
+        q_out = await asyncio.wait_for(asyncio.gather(*tasks), 300)
+    finally:
+        await prefill_q.stop()
+        queue.dequeue_leased = dequeue
+    want_order = [f"Q{i}" for i in stride_order(classes, policy)]
+    check(order == want_order, f"{name}: dequeued {order}, the policy "
+          f"owes {want_order}")
+    check(all(len(t) == GEMMA_Q_TOKENS for t in q_out), f"{name}: Q's "
+          f"streams {[len(t) for t in q_out]} tokens")
+    q_ttft = {r: (q_first[r] - t_start) * 1e3 for r in q_first}
+
+    # one cross-class preemption on a 2-slot decode engine
+    await decode.stop()
+    await server.stop()
+    free(dec_eng)
+    p_eng = engine(dataclasses.replace(served_cfg, max_slots=2,
+                                       num_pages=1024))
+    p_bodies = [gemma_chat(model, sized_text(tok, n, 2000 + n),
+                           GEMMA_PREEMPT_TOKENS, False) for n in (150, 260)]
+    p_pre = [prep(b, f"P{i}") for i, b in enumerate(p_bodies)]
+    i_pre = prep(gemma_chat(model, sized_text(tok, 1150, 2100),
+                            GEMMA_DIST_TOKENS, False), "Pi")
+    p_ref = {f"P{i}": aggregated_run(p_eng, f"pref-{i}",
+                                     llm_worker.to_engine_request(p))
+             for i, p in enumerate(p_pre)}
+    p_eng.scheduler = Scheduler(p_eng.cfg)
+    p_eng._dec_state = None
+    pdecode = DisaggDecodeWorker(p_eng, qplane.messaging, router, queue,
+                                 worker_id="gdec-1", prefill_timeout_s=300.0)
+    pserver = await KvTransferServer(pdecode, "gdec-1").start()
+    await pserver.register(qplane.kv)
+    prefill_p = PrefillWorker(llm_worker.NativeEngineWorker(pre_eng), queue,
+                              tx, qplane.messaging, dequeue_timeout_s=0.05)
+    pre0 = QOS_STATS.preemptions_total
+    by0 = dict(QOS_STATS.preempted_by_class)
+    progress = {}
+
+    async def stream(p, rid, cls):
+        ctx = Context(rid)
+        set_qos(ctx.baggage, cls)
+        toks = progress.setdefault(rid, [])
+        async for f in pdecode.generate(p, ctx):
+            toks.extend(f.token_ids or ())
+        return toks
+    await pdecode.start()
+    await prefill_p.start()
+    try:
+        batch = [asyncio.create_task(stream(p, f"P{i}", "batch"))
+                 for i, p in enumerate(p_pre)]
+
+        async def both_decoding():
+            return all(len(progress.get(f"P{i}", ())) >= 8
+                       for i in range(2))
+        await _poll(f"{name}: both batch streams decoding", both_decoding,
+                    120, 0.01)
+        inter = await asyncio.wait_for(stream(i_pre, "Pi", "interactive"),
+                                       300)
+        p_out = await asyncio.wait_for(asyncio.gather(*batch), 300)
+    finally:
+        await prefill_p.stop()
+        await pdecode.stop()
+        await pserver.stop()
+        await tx.close()
+    preempts = QOS_STATS.preemptions_total - pre0
+    victims = {k: v - by0.get(k, 0)
+               for k, v in QOS_STATS.preempted_by_class.items()}
+    # 2 slots both held by batch, an interactive arrival of priority 2
+    # with a budget of 4: exactly one batch stream gives up its slot
+    check(preempts == 1 and victims.get("batch") == 1, f"{name}: "
+          f"{preempts} preemptions ({victims}), derived 1 of a batch "
+          f"stream")
+    check(len(inter) == GEMMA_DIST_TOKENS and all(
+        len(t) == GEMMA_PREEMPT_TOKENS for t in p_out), f"{name}: the "
+          f"streams ended with {len(inter)} / {[len(t) for t in p_out]} "
+          f"tokens")
+    p_div = {}
+    for i, toks in enumerate(p_out):
+        d = divergence(toks, *p_ref[f"P{i}"])
+        check(d is None or d[1] <= NEAR_TIE, f"{name}: P{i} left its "
+              f"unpreempted run at {d}")
+        p_div[f"P{i}"] = d
+    ragged = launch_counts()[RAGGED]
+    check(ragged == 0, f"{name}: Q launched the ragged kernel {ragged} "
+          f"times")
+    rec["Q"] = {"order": order, "want": want_order, "ttft_ms": q_ttft,
+                "preemptions": preempts, "divergence": p_div,
+                "ragged_launches": ragged,
+                "seconds": time.perf_counter() - t0}
+    print(f"{name} Q [{smi}]: 4 batch then 1 interactive remote chats "
+          f"queued before the prefill worker started: dequeued {order} = "
+          f"the policy's {want_order}; TTFT from the start "
+          f"{ {r: round(v, 1) for r, v in q_ttft.items()} } ms "
+          f"(interactive Q4 beside batch Q0-Q3); a 2-slot decode engine "
+          f"with two batch streams of {GEMMA_PREEMPT_TOKENS} tokens: "
+          f"{preempts} preemption of a batch stream by the interactive "
+          f"chat, every stream at max_tokens, the batch streams against "
+          f"their unpreempted runs {p_div}", flush=True)
+    free(p_eng, pre_eng)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase seconds: 16c {rec['seconds']:.1f}", flush=True)
     return rec
 
 
@@ -10414,6 +11026,9 @@ def main() -> int:
               "a5_launches": {
                   "gemma-2-9b run.py (gather)":
                       a5["gemma2"]["launches"][RAGGED],
+                  **{f"gemma-2-9b 16c {k} (gather)":
+                     a5["gemma2"]["distributed"][k]["ragged_launches"]
+                     for k in ("R", "D", "Q")},
                   **{f"llama3-8b {kv} auto window":
                      v["auto_ragged_launches"]
                      for kv, v in a5["windows_ab"].items()}},

@@ -70,6 +70,18 @@ Padded page ids point at the scratch page (`num_pages`): extract reads
 the last real page there, as the JAX engine clamps, and inject writes the
 padding into the scratch page where the JAX engine drops it.
 
+On the gather window the distributed path needs nothing of its own: every
+window gathers its base anew from the cache (`_gather_base`) into the
+static buffers all window graphs share, so a slot an inject filled is read
+from its injected pages in the next window, never from a stale base; an
+early-decode sequence (`preactivate_remote`) joins the windows only once
+its pages are committed, while the windows of the others go on; a salvage
+or a preemption frees pages whose stale rows the next owner's base zeroes
+(V past each slot's length, once a window) and masks (K); and the epoch a
+preemption bumps keeps a window in flight from being re-dispatched over
+the victim. tests/test_torch_gather_distributed.py holds each against the
+JAX package.
+
 The KV tiers (dynamo_tpu/engine/engine.py:136-166, :1635-1698,
 :1942-2080): with `host_pages > 0` a page the allocator recycles is queued
 (`_offload_page`) and its extraction enqueued on the engine's stream at the

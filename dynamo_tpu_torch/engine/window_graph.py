@@ -27,7 +27,11 @@ Pb) in the draft's own WindowGraphs.
   in the process) does not invalidate it, and holds `capture_lock`: code
   that stages device memory for this engine from another thread (the KV
   receiver's host-to-device copies) takes it too, so none of its
-  allocations overlaps a capture.
+  allocations overlaps a capture. It also holds the process-wide
+  `CAPTURES`: a capture's set-up synchronizes the device and empties the
+  allocator's cache, which fails while another engine's capture is in
+  progress on another thread and invalidates that capture (two engines
+  that capture in one process: chip_smoke.py phase 16c's routed pair).
 - Buffers. Inputs are static buffers, one set per shape (`inputs`), shared
   by the variants of that shape; the engine uploads a plan into them.
   Buffers that every graph shares whatever its shapes (`static`: the gather
@@ -83,6 +87,10 @@ KERNELS = {
 def _counts(which: int) -> Dict[str, int]:
     """{kernel: its launch count (which=1) or captured calls (which=2)}."""
     return {name: getattr(k[0], k[which]) for name, k in KERNELS.items()}
+
+
+# one capture at a time in the process (see "Capture" above)
+CAPTURES = threading.Lock()
 
 
 class WindowGraphs:
@@ -186,7 +194,7 @@ class WindowGraphs:
         c0 = _counts(2)
         # torch.cuda.graph's entry, spelled out so that a capture that fails
         # can be taken apart (_discard)
-        with self.capture_lock:
+        with CAPTURES, self.capture_lock:
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")

@@ -28,7 +28,8 @@ Pure stdlib: the engine scheduler, the frontend and the reliability layer
 all import it. The router scales its transfer cost by the class's
 `latency_weight` (kv_router/router.KvRouter.schedule), and the SLO
 watchdog's per-class specs take the class targets. The class-weighted
-prefill queue (dynamo_tpu/disagg/queue.py:118-163) waits for ROADMAP A9.
+prefill queue (disagg/queue.PrefillQueue with a policy) orders its dequeues
+with StridePicker.
 """
 from __future__ import annotations
 

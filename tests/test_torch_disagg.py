@@ -21,6 +21,13 @@ On the `tiny` config in float32 with the JAX weights carried over by
 - an inject keeps the decode engine's window graphs, its staged inputs and
   the device carry (the same objects after it).
 
+The remote inject / activate case, the inject-keeps-graphs case and the
+workers end to end run on each of the port's decode paths
+(tests/torch_decode_paths.py): "ragged" (the kernel's plain version, JAX on
+the gather window), "gather" (`decode_kernel="off"` in both) and a tiny
+Gemma-2 (its knobs resolve the port to the gather window; JAX at its
+default), each JAX side on the same config and weights.
+
 Tolerances: token identity for streams; byte equality for extracted pages;
 the cache after an inject equal to the JAX cache (|diff| <= 1e-6, in fact
 0) outside the port's scratch page.
@@ -80,6 +87,7 @@ from dynamo_tpu_torch.protocols.common import (
 from dynamo_tpu_torch.runtime.engine import Context
 from dynamo_tpu_torch.runtime.transports.codec import unpackb
 from dynamo_tpu_torch.runtime.transports.memory import MemoryPlane
+from tests import torch_decode_paths as paths
 
 torch.set_num_threads(1)
 
@@ -417,16 +425,23 @@ def _prefill_only(eng, rid, prompt, params_cls, req_cls, **kw):
     return outs[0].token
 
 
+@pytest.mark.parametrize("path", paths.PATHS)
 @pytest.mark.parametrize("depth", [1, 2])
-def test_remote_inject_activate_matches_local_and_jax(jax_params,
-                                                      port_params, depth):
+def test_remote_inject_activate_matches_local_and_jax(depth, path):
     """The port's remote path (prefill-only engine -> extract -> decode
     engine's up-front allocation -> inject -> activate) gives the local
     engine's tokens and the JAX engine's doing the same. A second request
     decodes meanwhile on the decode engine, so that at depth 2 the remote
     sequence activates while a decode window is in flight."""
+    jcfg, tcfg, jax_params, port_params = paths.env(path)
     other = list(range(10, 30))
-    params = dict(max_tokens=12, temperature=0.0, ignore_eos=True)
+    # the gather window's follow-up needs its staged base to cover the
+    # next window: a longer request gets one in flight there (both
+    # packages at the same steps)
+    n_other = 12 if path == "ragged" else 40
+    params = dict(max_tokens=n_other, temperature=0.0, ignore_eos=True)
+
+    at = []   # the step of the activation: the port's, then JAX's too
 
     def run(eng, req_cls, params_cls, pre_eng, move):
         first = _prefill_only(pre_eng, "r", PROMPT, params_cls, req_cls)
@@ -435,14 +450,23 @@ def test_remote_inject_activate_matches_local_and_jax(jax_params,
         steps = 0
         activated = False
         while eng.has_work() or not activated:
-            if not activated and steps == 3:
-                pending = eng._pipeline is not None
+            pending = eng._pipeline is not None
+            # from step 3, at the first step with a window in flight at
+            # depth 2 (the gather window's follow-up also needs its staged
+            # base to cover the next window, so that step varies by path)
+            due = (steps == at[0] if at else
+                   steps >= 3 and (pending or depth == 1 or steps > 12))
+            if not activated and due:
+                at[:] = [steps]
                 alloc = eng.allocate_remote(
                     req_cls("r", PROMPT, params_cls(**GREEDY)))
                 move(pre_eng, eng, alloc)
                 eng.activate_remote("r", first)
                 activated = True
-                if depth == 2 and hasattr(eng, "graphs"):
+                # JAX runs the gather window, whose follow-up rule the
+                # port's gather paths share and its ragged path does not
+                if depth == 2 and (hasattr(eng, "graphs")
+                                   or path != "ragged"):
                     assert pending, "no window in flight at activation"
             for ev in eng.step():
                 if ev.token is not None:
@@ -463,47 +487,57 @@ def test_remote_inject_activate_matches_local_and_jax(jax_params,
                          jax.device_put(pages["v"], dst.cache_sharding))
         src.release_parked("r")
 
-    tout = run(port_engine(port_params, pipeline_depth=depth), TRequest,
-               TSamplingParams, port_engine(port_params), t_move)
-    jout = run(jax_engine(jax_params, pipeline_depth=depth), JRequest,
-               JSamplingParams, jax_engine(jax_params), j_move)
+    teng = port_engine(port_params, tcfg, pipeline_depth=depth)
+    paths.check_path(teng, path)
+    tout = run(teng, TRequest, TSamplingParams,
+               port_engine(port_params, tcfg), t_move)
+    jout = run(jax_engine(jax_params, jcfg, pipeline_depth=depth), JRequest,
+               JSamplingParams, jax_engine(jax_params, jcfg), j_move)
     assert tout == jout
-    local = port_engine(port_params).generate(
+    local = port_engine(port_params, tcfg).generate(
         PROMPT, TSamplingParams(**GREEDY), "local")
     assert tout["r"] == local
-    assert len(tout["o"]) == 12
+    assert len(tout["o"]) == n_other
 
 
-def test_inject_keeps_window_graphs_and_carry(port_params):
+@pytest.mark.parametrize("path", paths.PATHS)
+def test_inject_keeps_window_graphs_and_carry(path):
     """An inject writes the cache in place: the decode engine's window
-    graphs, their staged input buffers, the cache tensors and the device
-    carry are the same objects afterwards, and the next window re-uses the
-    staged plan (no upload)."""
+    graphs, their staged input buffers (on the gather path also the static
+    base and window buffers), the cache tensors and the device carry are
+    the same objects afterwards, and the next window re-uses the staged
+    plan (no upload)."""
+    _, tcfg, _, port_params = paths.env(path)
     # one 64-token page holds the whole request: the staged plan is reused
     # window after window (tests/test_torch_pipeline.py's geometry)
     geo = dict(page_size=64, num_pages=32, decode_steps=4)
-    eng = port_engine(port_params, pipeline_depth=1, **geo)
+    eng = port_engine(port_params, tcfg, pipeline_depth=1, **geo)
+    paths.check_path(eng, path)
     eng.add_request(TRequest("o", list(range(10, 30)),
                              TSamplingParams(max_tokens=40,
                                              ignore_eos=True)))
     for _ in range(4):
         eng.step()
     assert eng._dec_state is not None
-    before = (eng.graphs, dict(eng.graphs._inputs), eng._dec_state,
-              {k: v.data_ptr() for k, v in eng.cache.items()})
+    def held():
+        return (eng.graphs, dict(eng.graphs._inputs), eng._dec_state,
+                {k: v.data_ptr() for k, v in eng.cache.items()},
+                {k: v.data_ptr() for k, v in eng.graphs._static.items()})
+
+    before = held()
+    assert bool(before[4]) == (path != "ragged")
     uploads = eng.decode_plan_uploads
     alloc = eng.allocate_remote(TRequest("r", PROMPT,
                                          TSamplingParams(**GREEDY)))
-    pre = port_engine(port_params, **geo)
+    pre = port_engine(port_params, tcfg, **geo)
     _prefill_only(pre, "r", PROMPT, TSamplingParams, TRequest)
     pages = pre.extract_pages(pre.scheduler.parked["r"].pages)
     eng.inject_pages(alloc.page_ids, pages["k"], pages["v"])
-    after = (eng.graphs, dict(eng.graphs._inputs), eng._dec_state,
-             {k: v.data_ptr() for k, v in eng.cache.items()})
+    after = held()
     assert after[0] is before[0] and after[2] is before[2]
     assert after[1].keys() == before[1].keys() and all(
         after[1][k] is before[1][k] for k in before[1])
-    assert after[3] == before[3]
+    assert after[3] == before[3] and after[4] == before[4]
     eng.step()   # the next window of "o": the staged plan, no upload
     assert eng.decode_plan_uploads == uploads
     for key in ("k", "v"):
@@ -515,33 +549,36 @@ def test_inject_keeps_window_graphs_and_carry(port_params):
 # -- the workers ---------------------------------------------------------------
 
 def _t_stack(plane, port_params, local_threshold=4, transfer=None,
-             prefill_timeout_s=30.0, **prefill_kw):
+             prefill_timeout_s=30.0, cfg=TCFG, **prefill_kw):
     queue = PrefillQueue(plane.messaging, "ns", "tiny")
     router = DisaggregatedRouter(max_local_prefill_length=local_threshold,
                                  max_prefill_queue_size=16, model="tiny")
     decode = DisaggDecodeWorker(
-        port_engine(port_params), plane.messaging, router, queue,
+        port_engine(port_params, cfg), plane.messaging, router, queue,
         worker_id="dec-0", prefill_timeout_s=prefill_timeout_s)
     if transfer is None:
         transfer = LocalTransferBackend()
     if isinstance(transfer, LocalTransferBackend):
         transfer.register("dec-0", decode)
     prefill = PrefillWorker(
-        NativeEngineWorker(port_engine(port_params)), queue, transfer,
+        NativeEngineWorker(port_engine(port_params, cfg)), queue, transfer,
         plane.messaging, **prefill_kw)
     return decode, prefill, queue
 
 
-def test_disagg_workers_match_aggregated_and_jax(jax_params, port_params):
+@pytest.mark.parametrize("path", paths.PATHS)
+def test_disagg_workers_match_aggregated_and_jax(path):
     """Two remote requests (greedy, seeded-sampled) and a local one through
     the port's workers: the aggregated port engine's tokens, and the JAX
-    disagg workers' on the same weights."""
+    disagg workers' on the same weights and config."""
+    jcfg, tcfg, jax_params, port_params = paths.env(path)
     reqs = [("g", PROMPT, {}), ("s", list(range(60, 85)), SAMPLED),
             ("l", [3, 4, 5], {})]
 
     async def port():
         plane = MemoryPlane()
-        decode, prefill, _ = _t_stack(plane, port_params)
+        decode, prefill, _ = _t_stack(plane, port_params, cfg=tcfg)
+        paths.check_path(decode.engine, path)
         await decode.start()
         await prefill.start()
         try:
@@ -562,12 +599,12 @@ def test_disagg_workers_match_aggregated_and_jax(jax_params, port_params):
         router = JRouter(max_local_prefill_length=4,
                          max_prefill_queue_size=16, model="tiny")
         transfer = JLocalTransfer()
-        decode = JDecodeWorker(jax_engine(jax_params), plane.messaging,
-                               router, queue, worker_id="dec-0",
-                               prefill_timeout_s=30.0)
+        decode = JDecodeWorker(jax_engine(jax_params, jcfg),
+                               plane.messaging, router, queue,
+                               worker_id="dec-0", prefill_timeout_s=30.0)
         transfer.register("dec-0", decode)
-        prefill = JPrefillWorker(JWorker(jax_engine(jax_params)), queue,
-                                 transfer, plane.messaging)
+        prefill = JPrefillWorker(JWorker(jax_engine(jax_params, jcfg)),
+                                 queue, transfer, plane.messaging)
         await decode.start()
         await prefill.start()
         try:
@@ -584,7 +621,7 @@ def test_disagg_workers_match_aggregated_and_jax(jax_params, port_params):
     tout, counts = asyncio.run(asyncio.wait_for(port(), 120))
     assert counts == (2, 1, 2, 0, 0)
     assert tout == asyncio.run(asyncio.wait_for(jax_side(), 120))
-    agg = port_engine(port_params)
+    agg = port_engine(port_params, tcfg)
     for rid, prompt, kw in reqs:
         assert tout[rid] == (agg.generate(
             prompt, TSamplingParams(**dict(GREEDY, **kw)), rid), "length")

@@ -8,8 +8,22 @@ observed is equal. Then one seeded arrival sequence (numpy, seed 29) of
 arrivals, releases and clock steps goes through both AdmissionStates and
 both class-aware AdmissionControls: every admit / queue / displace / shed
 decision, every grant and every retry-after value is equal.
+
+tests/test_qos.py's scheduler and queue cases run on both packages too:
+select_victim, the waiting queue's class bypass and aging pin, the
+cross-class preemption budget, and preempt / resume token-identical to the
+uninterrupted run, aggregated and disaggregated, greedy and seeded-sampled
+in f32, on each of the port's decode paths (tests/torch_decode_paths.py:
+the ragged kernel's plain version, the gather window, a tiny Gemma-2), the
+streams and QOS_STATS equal to JAX's. The class-aware prefill queue
+(disagg/queue.py with a policy): sub-queues, the weighted dequeue, FIFO
+without a policy, seeded enqueue / dequeue sequences (dequeue order, lease
+routing, depth, aging promotions equal) and the failpoint before any pop.
+The QoS storm of tools/torch_fleet_storm.py replays JAX's qos_storm_once
+and the committed QOS_r14.json.
 """
 import asyncio
+import os
 
 import numpy as np
 import pytest
@@ -18,7 +32,9 @@ from dynamo_tpu.frontend import reliability as jrel
 from dynamo_tpu.runtime import qos as jqos
 from dynamo_tpu_torch.frontend import reliability as trel
 from dynamo_tpu_torch.runtime import qos as tqos
+from tests import torch_decode_paths as paths
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKGS = ((jqos, jrel), (tqos, trel))
 T = 30.0
 
@@ -417,3 +433,486 @@ def test_per_class_histograms_feed_rollup_series_and_slo_specs():
     fired = {e["slo"] for e in events if e["event"] == "fire"}
     assert "ttft_p95/batch" in fired
     assert "ttft_p95/interactive" not in fired
+
+
+# -- victims, the waiting queue's class bypass, the preemption budget ---------
+
+class _Seq:
+    def __init__(self, qos, computed):
+        self.qos = qos
+        self.num_computed = computed
+
+
+def test_select_victim_lowest_class_then_youngest():
+    def case(Q, R):
+        running = [_Seq("interactive", 2), _Seq("batch", 50),
+                   _Seq("batch", 10), None, _Seq("standard", 1)]
+        v = Q.select_victim(running)
+        assert v.qos == "batch" and v.num_computed == 10
+        same = [_Seq("standard", 9), _Seq("standard", 3),
+                _Seq("standard", 7)]
+        assert Q.select_victim(same).num_computed == 3
+        assert Q.select_victim([_Seq("interactive", 1)],
+                               below_prio=2) is None
+        return running.index(v), same.index(Q.select_victim(same))
+    both(case)
+
+
+def _sched_modules(Q):
+    if Q is jqos:
+        from dynamo_tpu.engine import scheduler
+        from dynamo_tpu.engine.config import EngineConfig
+    else:
+        from dynamo_tpu_torch.engine import scheduler
+        from dynamo_tpu_torch.engine.config import EngineConfig
+    return scheduler, EngineConfig
+
+
+def _sched(Q, num_pages=64):
+    S, EngineConfig = _sched_modules(Q)
+    return S, S.Scheduler(EngineConfig(
+        page_size=8, num_pages=num_pages, max_slots=2,
+        max_prefill_chunk=16, prefill_buckets=(8, 16), max_model_len=128,
+        decode_steps=4))
+
+
+def test_waiting_queue_class_bypass_with_aging_pin():
+    def case(Q, R):
+        S, s = _sched(Q)
+        s.qos_policy = Q.QosPolicy(aging_limit=2)
+
+        def add(rid, qos):
+            s.add_request(S.EngineRequest(
+                rid, list(range(3, 12)), S.SamplingParams(max_tokens=2),
+                qos=qos))
+            return [x.request_id for x in s.waiting]
+
+        for i in range(3):
+            add(f"b{i}", "batch")
+        add("i0", "interactive")
+        assert add("i1", "interactive") == ["i0", "i1", "b0", "b1", "b2"]
+        assert add("i2", "interactive") == \
+            ["i0", "i1", "b0", "b1", "b2", "i2"]
+        assert all(x.qos_bypassed <= 2 for x in s.waiting)
+        assert Q.QOS_STATS.sched_aging_pins >= 1
+        return ([(x.request_id, x.qos_bypassed) for x in s.waiting],
+                Q.QOS_STATS.snapshot())
+    both(case)
+
+
+def test_cross_class_preempt_charged_and_budget_bounded():
+    def case(Q, R):
+        S, s = _sched(Q, num_pages=4)
+        s.qos_policy = Q.QosPolicy((
+            Q.QosClass("interactive", priority=2, weight=8.0,
+                       preempt_budget=1),
+            Q.QosClass("standard", priority=1, weight=3.0),
+            Q.QosClass("batch", priority=0, weight=1.0),
+        ), default="standard")
+
+        def req(rid, lo, qos):
+            return S.EngineRequest(
+                rid, list(range(lo, lo + 9)),
+                S.SamplingParams(max_tokens=5, ignore_eos=True), qos=qos)
+
+        for i in range(2):
+            s.add_request(req(f"b{i}", 3, "batch"))
+        while s.waiting:
+            plan = s.schedule()
+            for r in range(len(plan.seqs)):
+                if plan.seqs[r] is not None:
+                    s.commit_prefill_row(plan, r, 7)
+        assert sum(1 for x in s.running if x is not None) == 2
+        s.add_request(req("hi", 3, "interactive"))
+        plan = s.schedule()
+        assert plan is not None
+        assert s._qos_preempt_debt == {"interactive": 1}
+        assert Q.QOS_STATS.preempt_by_class == {"interactive": 1}
+        assert Q.QOS_STATS.preempted_by_class == {"batch": 1}
+        s.add_request(req("hi2", 20, "interactive"))
+        before = Q.QOS_STATS.preemptions_total
+        s._preempt_for(next(x for x in s.waiting
+                            if x.request_id == "hi2"))
+        assert Q.QOS_STATS.preemptions_total == before
+        assert Q.QOS_STATS.preempt_denied_budget >= 1
+        victims = [x.request_id for x in s.waiting if x.qos == "batch"]
+        assert victims and victims[0].startswith("b")
+        return ([x.request_id if x else None for x in s.running],
+                [(x.request_id, x.epoch) for x in s.waiting],
+                dict(s._qos_preempt_debt), Q.QOS_STATS.snapshot())
+    both(case)
+
+
+# -- preempt / resume, both packages, on each of the port's decode paths ------
+
+ENGINE_KW = dict(page_size=8, max_prefill_chunk=32,
+                 prefill_buckets=(8, 16, 32), max_model_len=512)
+
+
+def _engines(path):
+    """(JAX engine maker, port engine maker) on `path`'s config and
+    weights (tests/torch_decode_paths.py)."""
+    from dynamo_tpu.engine.config import EngineConfig as JEC
+    from dynamo_tpu.engine.engine import NativeEngine as JEngine
+    from dynamo_tpu_torch.engine.config import EngineConfig as TEC
+    from dynamo_tpu_torch.engine.engine import NativeEngine as TEngine
+    jcfg, tcfg, tree, tparams = paths.env(path)
+
+    def jmake(num_pages=64, max_slots=4):
+        return JEngine(jcfg, JEC(num_pages=num_pages, max_slots=max_slots,
+                                 **ENGINE_KW),
+                       params=paths.jax_params(tree), seed=0)
+
+    def tmake(num_pages=64, max_slots=4):
+        eng = TEngine(tcfg, TEC(num_pages=num_pages, max_slots=max_slots,
+                                **ENGINE_KW), params=tparams, device="cpu")
+        paths.check_path(eng, path)
+        return eng
+    return jmake, tmake
+
+
+def _req_mod(eng):
+    if type(eng).__module__.startswith("dynamo_tpu_torch"):
+        from dynamo_tpu_torch.engine import scheduler
+    else:
+        from dynamo_tpu.engine import scheduler
+    return scheduler
+
+
+def _to_end(eng, want):
+    toks = {rid: [] for rid in want}
+    while eng.has_work():
+        for ev in eng.step():
+            if ev.request_id in toks and ev.token is not None:
+                toks[ev.request_id].append(ev.token)
+    return toks
+
+
+def _preempt_aggregated(make, Q, temperature):
+    alone = make(max_slots=1)
+    S = _req_mod(alone)
+    prompt_b, prompt_i = list(range(3, 33)), list(range(40, 60))
+    # 40 tokens on one slot (tests/test_qos.py has 10 on 5 pages): the
+    # port's ragged path overlaps a follow-up window, and a 10-token
+    # request would finish before the arrival needed its pages; with one
+    # slot the arrival can only run by preempting the batch decode
+    pb = dict(max_tokens=40, temperature=temperature, seed=7,
+              ignore_eos=True)
+    pi = dict(max_tokens=6, temperature=temperature, seed=11,
+              ignore_eos=True)
+    # each alone, in turn, on one engine (the prompts share no page)
+    expect_b = alone.generate(prompt_b, S.SamplingParams(**pb), "b")
+    expect_i = alone.generate(prompt_i, S.SamplingParams(**pi), "i")
+    alone.close()
+    eng = make(max_slots=1)
+    eng.add_request(S.EngineRequest("b", prompt_b, S.SamplingParams(**pb),
+                                    qos="batch"))
+    emitted = []
+    while len(emitted) < 3:
+        for ev in eng.step():
+            if ev.token is not None:
+                emitted.append(ev.token)
+    seq_b = next(x for x in eng.scheduler.running if x is not None)
+    epoch = seq_b.epoch
+    eng.add_request(S.EngineRequest("i", prompt_i, S.SamplingParams(**pi),
+                                    qos="interactive"))
+    toks = _to_end(eng, ("b", "i"))
+    assert Q.QOS_STATS.preemptions_total >= 1
+    assert seq_b.epoch > epoch
+    assert emitted + toks["b"] == expect_b
+    assert toks["i"] == expect_i
+    eng.close()
+    return (emitted + toks["b"], toks["i"], seq_b.epoch - epoch,
+            Q.QOS_STATS.snapshot(), dict(Q.QOS_STATS.preempt_by_class))
+
+
+@pytest.mark.parametrize("path", paths.PATHS)
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_preempt_resume_token_identical_aggregated(temperature, path):
+    """A batch decode preempted mid-decode by an interactive arrival (no
+    free page) resumes token-identically to its run alone, its epoch
+    bumped, in each package; the streams and QOS_STATS equal JAX's."""
+    jmake, tmake = _engines(path)
+    want = _preempt_aggregated(jmake, jqos, temperature)
+    for q, _ in PKGS:
+        q.QOS_STATS.reset()
+    assert _preempt_aggregated(tmake, tqos, temperature) == want
+
+
+def _preempt_disagg(make, Q, temperature):
+    """A remotely prefilled decode (allocate, inject, activate) on a
+    one-slot decode engine, preempted by an interactive arrival and
+    resumed from its committed prefix."""
+    probe = make(max_slots=1)
+    S = _req_mod(probe)
+    port = type(probe).__module__.startswith("dynamo_tpu_torch")
+    prompt, prompt_i = list(range(40, 60)), list(range(10, 30))
+    p = dict(max_tokens=24, temperature=temperature, seed=5,
+             ignore_eos=True)
+    pi = dict(max_tokens=4, temperature=temperature, seed=9,
+              ignore_eos=True)
+    # each alone, in turn, on one engine (the prompts share no page)
+    expect = probe.generate(prompt, S.SamplingParams(**p), "direct")
+    expect_i = probe.generate(prompt_i, S.SamplingParams(**pi), "i")
+    probe.close()
+    pre, dec = make(max_slots=1), make(max_slots=1)
+    alloc = dec.allocate_remote(S.EngineRequest(
+        "r", prompt, S.SamplingParams(**p), qos="batch"))
+    assert alloc is not None
+    pre.add_request(S.EngineRequest("r", prompt, S.SamplingParams(**p),
+                                    prefill_only=True))
+    outs = []
+    while pre.has_work():
+        outs.extend(pre.step())
+    first = outs[0].token
+    pages = pre.extract_pages(pre.scheduler.parked["r"].pages)
+    if port:
+        dec.inject_pages(alloc.page_ids, pages["k"], pages["v"],
+                         ready=pages["ready"])
+    else:
+        import jax
+        dec.inject_pages(alloc.page_ids,
+                         jax.device_put(pages["k"], dec.cache_sharding),
+                         jax.device_put(pages["v"], dec.cache_sharding))
+    pre.release_parked("r")
+    dec.activate_remote("r", first)
+    toks = [first]
+    while len(toks) < 3:
+        for ev in dec.step():
+            if ev.token is not None:
+                toks.append(ev.token)
+    dec.add_request(S.EngineRequest("i", prompt_i, S.SamplingParams(**pi),
+                                    qos="interactive"))
+    done = _to_end(dec, ("r", "i"))
+    assert Q.QOS_STATS.preemptions_total >= 1
+    assert toks + done["r"] == expect
+    assert done["i"] == expect_i
+    pre.close()
+    dec.close()
+    return toks + done["r"], done["i"], Q.QOS_STATS.snapshot()
+
+
+@pytest.mark.parametrize("path", paths.PATHS)
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_preempt_resume_token_identical_disagg(temperature, path):
+    """The same on the disaggregated path: the resume recomputes from the
+    committed prefix of a sequence whose first pages were injected."""
+    jmake, tmake = _engines(path)
+    want = _preempt_disagg(jmake, jqos, temperature)
+    for q, _ in PKGS:
+        q.QOS_STATS.reset()
+    assert _preempt_disagg(tmake, tqos, temperature) == want
+
+
+# -- the class-aware prefill queue ---------------------------------------------
+
+def _queue_modules(Q):
+    if Q is jqos:
+        from dynamo_tpu.disagg import PrefillQueue, RemotePrefillRequest
+        from dynamo_tpu.runtime import faults
+        from dynamo_tpu.runtime.transports.memory import MemoryPlane
+    else:
+        from dynamo_tpu_torch.disagg.protocols import RemotePrefillRequest
+        from dynamo_tpu_torch.disagg.queue import PrefillQueue
+        from dynamo_tpu_torch.runtime import faults
+        from dynamo_tpu_torch.runtime.transports.memory import MemoryPlane
+    return PrefillQueue, RemotePrefillRequest, MemoryPlane, faults
+
+
+def _item(RPR, rid, qos):
+    return RPR(engine_id="e", request_id=rid, token_ids=[1, 2, 3],
+               page_ids=[0], page_size=8, qos=qos)
+
+
+def test_prefill_queue_class_subqueues_weighted_dequeue_and_ack():
+    def case(Q, R):
+        PQ, RPR, Plane, _ = _queue_modules(Q)
+
+        async def main():
+            plane = Plane()
+            q = PQ(plane.messaging, "ns", "m",
+                   qos_policy=Q.QosPolicy(aging_limit=4))
+            for i in range(4):
+                await q.enqueue(_item(RPR, f"b{i}", "batch"))
+            await q.enqueue(_item(RPR, "i0", "interactive"))
+            assert await q.depth() == 5
+            # the sub-queue the items went to
+            assert await plane.messaging.queue_depth(
+                "ns.prefill_queue.m.q.batch") == 4
+            got, tok = await q.dequeue_leased(timeout=1.0, lease_s=5.0)
+            assert got.request_id == "i0" and got.qos == "interactive"
+            await q.ack(tok)
+            seen = []
+            for _ in range(4):
+                got, tok = await q.dequeue_leased(timeout=1.0, lease_s=5.0)
+                seen.append(got.request_id)
+                await q.ack(tok)
+            assert sorted(seen) == ["b0", "b1", "b2", "b3"]
+            assert await q.depth() == 0
+            assert await q.dequeue_leased(timeout=0.12) is None
+            return seen, dict(q._picker.served)
+        return asyncio.run(asyncio.wait_for(main(), T))
+    both(case)
+
+
+def test_prefill_queue_without_policy_is_fifo():
+    def case(Q, R):
+        PQ, RPR, Plane, _ = _queue_modules(Q)
+
+        async def main():
+            plane = Plane()
+            q = PQ(plane.messaging, "ns", "m")
+            for i in range(3):
+                await q.enqueue(_item(RPR, f"r{i}",
+                                      "interactive" if i == 2 else "batch"))
+            assert await plane.messaging.queue_depth(
+                "ns.prefill_queue.m") == 3
+            order = []
+            for _ in range(3):
+                got, tok = await q.dequeue_leased(timeout=1.0)
+                order.append(got.request_id)
+                await q.ack(tok)
+            assert order == ["r0", "r1", "r2"]
+            return order
+        return asyncio.run(asyncio.wait_for(main(), T))
+    both(case)
+
+
+def _seeded_ops(seed, n=160):
+    """Seeded enqueue / dequeue events over the three classes, the unknown
+    class (the default) and the legacy base queue."""
+    rng = np.random.default_rng(seed)
+    classes = ("interactive", "standard", "batch", "bogus", "base")
+    weights = (0.15, 0.2, 0.5, 0.05, 0.1)
+    ops = []
+    for i in range(n):
+        if rng.random() < 0.55:
+            ops.append(("enq", f"q{i}",
+                        classes[int(rng.choice(5, p=weights))]))
+        else:
+            ops.append(("deq", int(rng.integers(0, 3)), ""))
+    return ops
+
+
+def _queue_run(Q, seed, aging):
+    """The seeded events through one queue: the dequeue order, the lease
+    routing (an ack, a touch or a nack-by-expiry on the item's own
+    sub-queue), depth after each event and the aging promotions."""
+    PQ, RPR, Plane, _ = _queue_modules(Q)
+
+    async def main():
+        plane = Plane()
+        q = PQ(plane.messaging, "ns", "m",
+               qos_policy=Q.QosPolicy(aging_limit=aging))
+        legacy = PQ(plane.messaging, "ns", "m")   # a policy-less enqueuer
+        log = []
+        for kind, a, cls in _seeded_ops(seed):
+            if kind == "enq":
+                if cls == "base":
+                    await legacy.enqueue(_item(RPR, a, "batch"))
+                else:
+                    await q.enqueue(_item(RPR, a, cls))
+            else:
+                got = await q.dequeue_leased(timeout=0.01, lease_s=30.0)
+                if got is None:
+                    log.append(("empty",))
+                    continue
+                req, tok = got
+                if a == 1:
+                    assert await q.touch(tok, lease_s=30.0)
+                await q.ack(tok)
+                log.append((req.request_id, req.qos))
+            log.append(await q.depth())
+        return (log, dict(q._picker.served), q._picker.aging_promotions,
+                Q.QOS_STATS.queue_aging_promotions, q._lease_queues)
+    return asyncio.run(asyncio.wait_for(main(), T))
+
+
+@pytest.mark.parametrize("seed,aging", [(3, 2), (17, 4), (41, 16)])
+def test_prefill_queue_seeded_dequeue_order_equal(seed, aging):
+    want = _queue_run(jqos, seed, aging)
+    got = _queue_run(tqos, seed, aging)
+    assert got == want
+    if aging <= 4:
+        assert got[2] > 0 and got[3] == got[2]
+    assert got[4] == {}     # every lease settled
+
+
+def test_prefill_queue_classed_failpoint_fires_before_any_pop():
+    """An armed `queue.dequeue` drop raises before any sub-queue pop, so
+    the item stays queued, in both packages."""
+    def case(Q, R):
+        PQ, RPR, Plane, faults = _queue_modules(Q)
+
+        async def main():
+            plane = Plane()
+            q = PQ(plane.messaging, "ns", "m", qos_policy=Q.QosPolicy())
+            await q.enqueue(_item(RPR, "b0", "batch"))
+            faults.REGISTRY.arm_from_dict({"queue.dequeue": {
+                "seed": 0, "specs": [{"kind": "drop", "n": 1}]}})
+            try:
+                with pytest.raises(faults.FaultInjected):
+                    await q.dequeue_leased(timeout=0.2)
+                depth = await q.depth()
+                got, tok = await q.dequeue_leased(timeout=1.0)
+                await q.ack(tok)
+            finally:
+                faults.REGISTRY.disarm()
+            return depth, got.request_id
+        return asyncio.run(asyncio.wait_for(main(), T))
+    assert both(case) == (1, "b0")
+
+
+# -- the QoS storm ------------------------------------------------------------
+
+def _storms():
+    import importlib
+    import os
+    import sys
+    tools = os.path.join(REPO, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return (importlib.import_module("fleet_storm"),
+            importlib.import_module("torch_fleet_storm"))
+
+
+def test_qos_storm_replays_jax_and_committed_artifact():
+    """tools/torch_fleet_storm.py's storm on the port's QoS machinery: its
+    timeline, per-class outcomes, aging promotions and SLO alerts equal
+    JAX's qos_storm_once on the same shapes (QoS and FIFO), and the
+    committed QOS_r14.json's."""
+    import json
+    import os
+    jstorm, tstorm = _storms()
+    with open(os.path.join(REPO, "QOS_r14.json")) as f:
+        plan = json.load(f)
+    keys = ("timeline", "per_class", "aging_promotions", "slo_alerts",
+            "admission_displaced", "requests")
+    shape = tstorm.TenantShape.from_dict(plan["shape"])
+    mine = tstorm.qos_storm_once(shape, True, ticks=plan["ticks"])
+    for k in keys:
+        assert mine[k] == plan["qos"][k], k
+    fifo = tstorm.qos_storm_once(shape, False, ticks=plan["ticks"])
+    for k in keys:
+        assert fifo[k] == plan["fifo"][k], k
+    for seed, mult in ((3, 9.0), (21, 20.0)):
+        kw = dict(seed=seed, crowd_mult=mult)
+        for on in (True, False):
+            want = jstorm.qos_storm_once(jstorm.TenantShape(**kw), on,
+                                         ticks=160)
+            got = tstorm.qos_storm_once(tstorm.TenantShape(**kw), on,
+                                        ticks=160)
+            for k in keys:
+                assert got[k] == want[k], (seed, on, k)
+
+
+def test_qos_storm_contracts_and_exit_code(capsys):
+    """The tool's contracts hold on the default storm (exit 0), and a bound
+    the storm cannot meet exits 1, as tools/fleet_storm.py --mode qos."""
+    _, tstorm = _storms()
+    report = tstorm.run_qos_storm()
+    assert all(report["contracts"].values()), report["contracts"]
+    assert tstorm.main(["--mode", "qos", "--no-artifact"]) == 0
+    assert tstorm.main(["--mode", "qos", "--no-artifact",
+                        "--interactive-bound-s", "0.5"]) == 1
+    capsys.readouterr()

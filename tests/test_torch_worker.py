@@ -19,6 +19,11 @@ JAX weights carried over by `params_from_jax`.
     the process exits 0 — `install_graceful_drain`.
 (e) The worker's $STATS reply: the engine's metrics and the kernel
     launch counts.
+
+(a) runs on each of the port's decode paths (tests/torch_decode_paths.py):
+"ragged" (the kernel's plain version, JAX on the gather window), "gather"
+(`decode_kernel="off"` in both) and a tiny Gemma-2 (its knobs resolve the
+port to the gather window), each JAX worker on the same config and weights.
 """
 import asyncio
 import os
@@ -45,6 +50,7 @@ from dynamo_tpu_torch.engine.scheduler import (
     EngineRequest as TRequest, SamplingParams as TSamplingParams,
 )
 from dynamo_tpu_torch.models.llama import params_from_jax
+from tests import torch_decode_paths as paths
 
 torch.set_num_threads(1)
 
@@ -168,14 +174,25 @@ async def _token_streams(pkg: str, engine, kind: str, remote: bool):
         await worker.stop()
 
 
+@pytest.mark.parametrize("path", paths.PATHS)
 @pytest.mark.parametrize("kind", ["greedy", "sampled"])
-def test_remote_streams_equal_local_and_jax(jax_params, kind):
+def test_remote_streams_equal_local_and_jax(kind, path):
+    jcfg, tcfg, tree, tparams = paths.env(path)
+
+    def tengine():
+        eng = TNativeEngine(tcfg, TEngineConfig(**ENGINE_KW),
+                            eos_token_ids=EOS, device="cpu", params=tparams)
+        paths.check_path(eng, path)
+        return eng
+
     async def main():
-        remote = await _token_streams("torch", _tengine(jax_params), kind,
-                                      True)
-        local = await _token_streams("torch", _tengine(jax_params), kind,
-                                     False)
-        jax_remote = await _token_streams("jax", _jengine(), kind, True)
+        remote = await _token_streams("torch", tengine(), kind, True)
+        local = await _token_streams("torch", tengine(), kind, False)
+        jax_remote = await _token_streams(
+            "jax", JNativeEngine(jcfg, JEngineConfig(**ENGINE_KW),
+                                 eos_token_ids=EOS, seed=0,
+                                 params=paths.jax_params(tree)),
+            kind, True)
         return remote, local, jax_remote
     remote, local, jax_remote = asyncio.run(asyncio.wait_for(main(), T))
     assert remote[:2] == local[:2] == jax_remote[:2]
