@@ -194,12 +194,15 @@ Phases (any failed check exits non-zero; nothing is caught):
    memory and weight_bytes against phase 4's bf16 engine.
 10. The entry point: `python -m dynamo_tpu_torch.run in=http:0 out=native
    tiny --quant int8` as a subprocess on the card; its READY line, one
-   streamed chat ending in [DONE], then the subprocess is stopped; then the
-   same for `tiny-moe --quant int8`.
+   streamed chat ending in [DONE], then the subprocess is stopped; the same
+   for `tiny-moe --quant int8` at the same time (phase 21's storms run
+   beside both).
 11. The distributed path at full width, as processes through the entry
    points, over an HA control-plane pair: a durable primary, `python -m
-   dynamo_tpu_torch.runtime.transports.server --port 0 --data-dir A`
-   (READY control-plane=:<port>), and its hot standby (`--data-dir B
+   dynamo_tpu_torch.runtime.transports.server --port 0` whose host and
+   data directory A come from a DYN_CONFIG TOML file the phase writes
+   (READY control-plane=:<port>), and its hot standby (the same file,
+   DYN_CONTROL_PLANE__DATA_DIR=B over the file's A, `--port 0
    --standby-of 127.0.0.1:<port>`), which must answer the role probe
    `standby`, synced, epoch 1 before any worker starts; every child then
    names the pair in the comma form "127.0.0.1:<p>,127.0.0.1:<s>"
@@ -216,9 +219,12 @@ Phases (any failed check exits non-zero; nothing is caught):
    bf16 peak, for the step ledger's MFU); the standalone router service
    `python -m dynamo_tpu_torch.kv_router.main` (READY router
    indexer=native: its index runs the C++ radix tree, built with g++ from
-   dynamo_tpu_torch/native/kv_indexer.cpp) and exporter
+   dynamo_tpu_torch/native/kv_indexer.cpp; its coordinator from the file,
+   DYN_ROUTER__BLOCK_SIZE=64 over the file's 32) and exporter
    `python -m dynamo_tpu_torch.observability.exporter --port 0` (READY
-   metrics=:<port>) over the workers' endpoint; two frontends,
+   metrics=:<port>; its coordinator from the file, DYN_METRICS__INTERVAL
+   =0.25 over the file's 0.5, the flag's port over the file's 9091) over
+   the workers' endpoint; two frontends,
    `python -m dynamo_tpu_torch.frontend.serve --port 0 --control-port
    <port>`, one KV-routed and one with --no-kv-routing, each listing
    llama3-8b with two instances. The KV-routed frontend's router runs the
@@ -268,7 +274,9 @@ Phases (any failed check exits non-zero; nothing is caught):
    the --no-kv-routing frontend over 4 fresh prefixes of the same shapes
    (round-robin), both frontends' prefix hit shares and TTFT p50 / p90
    from llm_ttft_seconds (the bucket counts each round added), labelled
-   as two replicas sharing one H100. Then
+   as two replicas sharing one H100, and the routed round's ITL p50 / p90
+   from llm_itl_seconds (every frame goes through the pipeline graph's
+   Segment, llm/pipeline.py). Then
    one greedy request twice through the router (logprobs on): equal
    bodies apart from id / created. The frontends dispatch through the
    reliability layer (frontend/reliability.py), as every frontend does.
@@ -290,6 +298,38 @@ Phases (any failed check exits non-zero; nothing is caught):
    reference: the 4 H11 chats (phase 11's shapes on 4 fresh system
    prompts, greedy, max_tokens 32, the top 8 logprobs, streamed) one at a
    time through the KV-routed frontend.
+11g. Settings, logging, llmctl and the C API (A13; `phase_g11`, `phase
+   seconds: 11g`). Settings: each server, the router service and the
+   exporter log the settings they took (`settings {...}`): each value
+   equals the layer that should win (the file, a DYN_* variable over the
+   file, a flag over both), the servers log `control plane listening on
+   127.0.0.1:<port> (primary | standby)`, opened their data directories,
+   and neither server nor the exporter listens on the file's port.
+   Logging: every child of phase 11 (11k, 11s and 11h included) runs
+   with DYN_LOG=info,<one port module>=debug (the servers'
+   dynamo_tpu_torch.controlplane, every other child's
+   dynamo_tpu_torch.runtime), DYN_LOGGING_JSONL=1 and a DYN_LOG_FILE of
+   its own; after the phase every line of every file is one JSON record
+   with ts, level, target and message, and its DEBUG records come from
+   the named target, and only from it. After the gates above read their
+   counts and before 11k: `python -m dynamo_tpu_torch.llmctl
+   --control-host <pair> add llama3-8b-alias dynamo.llm.generate --arch
+   llama3-8b --kv-routed`; `list` shows it; once the KV-routed frontend
+   lists the alias, one greedy chat (a fresh system prompt of phase 11's
+   shape, 32 tokens, the top 8 logprobs, streamed) twice under llama3-8b
+   (a cold prefill, then a prefix hit on the same worker) and once under
+   the alias: its stream equals, token strings and top-8 values within
+   SAME_CONTEXT, the run that took its path (the prefix hit where the
+   alias's router picked that worker, else the cold one); `remove`, and
+   the alias answers 404 "model
+   'llama3-8b-alias' not found", as JAX's frontend does. The C API
+   (native/capi.cpp, built with g++ into build/dynamo_tpu_torch/ and
+   driven through native/capi_py.py): dyn_tokens_hash equals tokens_hash
+   on every full page of another fresh prompt; dyn_llm_init joins the
+   primary as one live worker's id; Stored events for those pages make
+   the frontend's /router/match and the router service's `route` score
+   that worker with the prompt's full page count; Removed events take
+   both back to 0.
 11k. A worker killed mid-wave: 8 greedy streamed chats on 8 fresh system
    prompts of the same shapes (no prefix shared inside the wave, so that
    every stream is admitted and prefilled at once), max_tokens 128,
@@ -540,17 +580,27 @@ Phases (any failed check exits non-zero; nothing is caught):
    the CPU and on the card (the HF directories' configs equal the written
    ones and every leaf is bit-equal to it; the GGUF trees equal across the
    devices) and is held to phase 3's rule (`device_reference`: the same
-   greedy tokens, decode logits within 1e-3); llama and qwen2 also load
+   greedy tokens, decode logits within 1e-3). The GGUF's SentencePiece
+   vocab (`spm_vocab`: byte tokens, characters and seeded merged pieces
+   with tied scores) tokenizes through the native encoder
+   (native/spm_bpe.cpp, built with g++; `native_spm_gate`): the card's
+   preprocessor holds it with 0 build failures; 15b's 8 chats through the
+   card's template and 2000 seeded strings give the Python encoder's ids;
+   printed: encode microseconds per 1k tokens, native and Python, on this
+   host. llama and qwen2 also load
    with quant="int8" (quantized on each device as they load; the trees
    equal across devices) and run the same rule; gemma's engine (bf16 on
    the card, the default EngineConfig) runs phase 4b on its checkpoint
    (graph and eager windows give identical tokens).
-   b. llama3-8b at full width and depth, from disk: with at least 17 GB
-   free under the phase's directory (else it fails with the bytes
-   needed), init_params(llama3-8b, seed 0) on the card is written tensor
+   b. llama3-8b at full width and 16 of its 32 layers (CKPT_LAYERS: with
+   all 32 the whole script passed 1100 s on the card), from disk: with at
+   least 17 GB free under the phase's directory (else it fails with the
+   bytes needed), init_params(llama3-8b cut so, seed 0) on the card is
+   written tensor
    by tensor (one D2H at a time) as a bf16 HF directory in 4 shards with
    model.safetensors.index.json, config.json (LlamaForCausalLM, the
-   registry geometry, no rope_scaling, bos 128000, eos 128009), a
+   registry widths at that depth, no rope_scaling, bos 128000, eos
+   128009), a
    tokenizer.json of the Llama-3 form (byte-level BPE on the Llama-3 split
    with ignore_merges, merges learned from a fixed corpus, the Llama-3
    specials at 128000+) and tokenizer_config.json with Llama-3's chat
@@ -565,9 +615,10 @@ Phases (any failed check exits non-zero; nothing is caught):
    first differing at a near tie (phase 11k's rule, printed), its text
    equal to DecodeStream over the reference's ids; the ragged kernel
    launched layers x decode steps + warm-ups times (the process's EXIT
-   line). Then quant="int8": the load's peak device memory under 16.06
-   GB, the tree byte-equal to init_params(llama3-8b, seed 0,
-   quant="int8"), and `run.py ... --quant int8` serving one chat held to
+   line). Then quant="int8": the load's peak device memory under the
+   written bf16 tree's bytes (9.08 GB; 16.06 at 32 layers), the tree
+   byte-equal to init_params(the same config, seed 0, quant="int8"), and
+   `run.py ... --quant int8` serving one chat held to
    that tree's engine the same way (W8A16 launched, the dequantize entry
    never). Printed: write seconds, load seconds and GB/s (the page cache
    warm), RssAnon growth, READY seconds, TTFT p50 / p90
@@ -577,8 +628,9 @@ Phases (any failed check exits non-zero; nothing is caught):
 
 16. The gather decode windows and Gemma-2 (A5), under build/checkpoints
    (removed at the end).
-   a. gemma-2-9b at full width and 8 of its 42 layers (GEMMA_LAYERS:
-   the cut keeps the script inside its time limit; google/gemma-2-9b's
+   a. gemma-2-9b at full width and 4 of its 42 layers (GEMMA_LAYERS: the
+   cut keeps the script inside its time limit; the 4
+   keep both of its alternating attention patterns; google/gemma-2-9b's
    published config.json otherwise: d 3584, 16 / 8 heads of 256, vocab
    256000,
    tied, GeGLU, sliding window 4096 on alternating layers, soft-caps 50 /
@@ -852,6 +904,15 @@ Phases (any failed check exits non-zero; nothing is caught):
    Over the phase: decode-engine ragged launches = 32 x the decode steps
    derived from the streams + its graphs' warm-ups; the prefill engine
    launches none.
+
+21. The fleet storms (A13): `python tools/torch_fleet_storm.py --mode slo
+   --quick` (a live tiny engine's step ledger on the card, a 16-worker
+   simulated fleet's rollup, the SLO fire -> clear storm with its alerts
+   on the event plane) and `--mode autoscale --quick` (the static split,
+   the FleetAutoscaler and its replay over the simulated cluster, the
+   MixedBudgetTuner on a live tiny engine on the card), as two processes
+   at once, started just before phase 10 and run beside it (its run.py
+   processes): each exits 0 with every contract met.
 
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
 worker process of 11 and 12, each engine's turns in 13, each run of 14,
@@ -3432,6 +3493,32 @@ DIST_SCHEDULE = ("--mixed-token-budget", "0", "--max-prefill-batch", "1")
 CHILD_LEASE_TTL_S = "30"
 
 
+# 11g: while CHILD_LOGS["dir"] is set (phase 11), every Child runs with
+# DYN_LOG naming one port module at debug, JSONL records and a
+# DYN_LOG_FILE of its own there (utils/logconfig.py); `files` lists them
+CHILD_LOGS = {"dir": None, "files": []}
+SERVER_MODULE = "dynamo_tpu_torch.runtime.transports.server"
+# the module a child's DYN_LOG names: the server's connection records, and
+# every other child's runtime (its connect and lease records)
+DEBUG_TARGET = {"server": "dynamo_tpu_torch.controlplane",
+                "client": "dynamo_tpu_torch.runtime"}
+
+
+def child_log_env(name: str, module: str) -> tuple:
+    """(11g's logging environment for a child, its log file): empty and
+    None outside phase 11."""
+    if CHILD_LOGS["dir"] is None:
+        return {}, None
+    target = DEBUG_TARGET["server" if module == SERVER_MODULE else "client"]
+    slug = re.sub(r"[^a-z0-9]+", "-", name.lower()).strip("-")
+    path = os.path.join(CHILD_LOGS["dir"],
+                        f"{len(CHILD_LOGS['files']):02d}-{slug}.jsonl")
+    CHILD_LOGS["files"].append({"child": name, "path": path,
+                                "target": target})
+    return {"DYN_LOG": f"info,{target}=debug", "DYN_LOGGING_JSONL": "1",
+            "DYN_LOG_FILE": path}, path
+
+
 class Child:
     """A subprocess of the phase (`python -m <args>` from the checkout's
     root) whose merged output a thread drains into a queue."""
@@ -3444,8 +3531,9 @@ class Child:
         self.lines: list = []
         self._q: queue.Queue = queue.Queue()
         root = os.path.dirname(os.path.abspath(__file__))
+        log_env, self.log_file = child_log_env(name, args[0])
         env = {**os.environ, "DYN_LEASE_TTL_S": CHILD_LEASE_TTL_S,
-               **(env or {})}
+               **log_env, **(env or {})}
         # session: a process group of its own, so that kill() also reaches
         # the processes it started (a supervisor's services)
         self.session = session
@@ -3711,29 +3799,32 @@ def routed_prefix_hits(tokens: dict, decisions: list, page: int) -> set:
     return totals
 
 
-def _ttft_buckets(text: str) -> dict:
-    """{upper bound: cumulative count} of a /metrics text's
-    llm_ttft_seconds buckets, summed over its label series."""
+def _ttft_buckets(text: str, family: str = "llm_ttft_seconds") -> dict:
+    """{upper bound: cumulative count} of a /metrics text's histogram
+    buckets of `family`, summed over its label series."""
     cum: dict = {}
-    for m in re.finditer(r'^llm_ttft_seconds_bucket\{[^}]*le="([^"]+)"\} '
+    for m in re.finditer(rf'^{family}_bucket\{{[^}}]*le="([^"]+)"\}} '
                          r'(\d+)$', text, re.M):
         le = float(m.group(1))
         cum[le] = cum.get(le, 0) + int(m.group(2))
     return cum
 
 
-def _ttft_quantiles(after: str, before: str = "") -> dict:
-    """TTFT p50 / p90 (ms) of the requests observed between two /metrics
-    texts of one frontend, from the llm_ttft_seconds bucket counts (the
-    registry's estimator)."""
+def _ttft_quantiles(after: str, before: str = "",
+                    family: str = "llm_ttft_seconds",
+                    key: str = "ttft") -> dict:
+    """TTFT (or, by `family`, ITL) p50 / p90 (ms) of the requests observed
+    between two /metrics texts of one frontend, from the histogram's
+    bucket counts (the registry's estimator)."""
     from dynamo_tpu_torch.observability.metrics import _bucket_quantile
-    old = _ttft_buckets(before)
-    cum = {le: n - old.get(le, 0) for le, n in _ttft_buckets(after).items()}
+    old = _ttft_buckets(before, family)
+    cum = {le: n - old.get(le, 0)
+           for le, n in _ttft_buckets(after, family).items()}
     bounds = sorted(cum)
     counts = [cum[b] - (cum[bounds[i - 1]] if i else 0)
               for i, b in enumerate(bounds)]
     total = cum[bounds[-1]] if bounds else 0
-    return {f"ttft_p{int(q * 100)}_ms":
+    return {f"{key}_p{int(q * 100)}_ms":
             _bucket_quantile(bounds, counts, total, q) * 1e3
             for q in (0.5, 0.9)}
 
@@ -3939,7 +4030,8 @@ async def drive_distributed(coord: str, fe_port: int, fe2_port: int,
             check(st["decode_dispatches"] == st["decode_windows"],
                   f"{name}: worker {w} ran {st['decode_windows']} decode "
                   f"windows in {st['decode_dispatches']} dispatches")
-        routed_q = _ttft_quantiles(text, text0)
+        routed_q = {**_ttft_quantiles(text, text0), **_ttft_quantiles(
+            text, text0, "llm_itl_seconds", "itl")}
 
         # the contrast: the other frontend, round-robin, fresh prefixes
         s2 = s1
@@ -4019,7 +4111,10 @@ async def drive_distributed(coord: str, fe_port: int, fe2_port: int,
     print(f"{name} [two replicas sharing one card: {smi}]: KV-routed "
           f"frontend prefix hit share {hits / lookups:.4f}, TTFT p50 "
           f"{routed_q['ttft_p50_ms']:.1f} ms, p90 "
-          f"{routed_q['ttft_p90_ms']:.1f} ms; round-robin frontend "
+          f"{routed_q['ttft_p90_ms']:.1f} ms, ITL p50 "
+          f"{routed_q['itl_p50_ms']:.1f} ms, p90 "
+          f"{routed_q['itl_p90_ms']:.1f} ms (through the pipeline graph's "
+          f"Segment); round-robin frontend "
           f"(--no-kv-routing, 4 fresh prefixes) hit share "
           f"{rr_hits / rr_lookups:.4f}, TTFT p50 {rr_q['ttft_p50_ms']:.1f} "
           f"ms, p90 {rr_q['ttft_p90_ms']:.1f} ms (llm_ttft_seconds)",
@@ -4847,6 +4942,261 @@ def phase_h11(smi: str, model: str, sys_len: int, ctx: dict,
     return rec
 
 
+# -- phase 11g: settings, logging, llmctl and the C API -------------------------
+
+G11_PROMPTS = (32, 33)   # prefix seeds no other phase-11 chat uses
+
+
+def write_toml(path: str, tables: dict) -> None:
+    """A DYN_CONFIG file of {table: {key: str | int | float | bool}}."""
+    lines = []
+    for table, keys in tables.items():
+        lines.append(f"[{table}]")
+        for k, v in keys.items():
+            lines.append(f"{k} = " + ("true" if v is True else "false"
+                                      if v is False else json.dumps(v)))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def log_records(child: "Child") -> list:
+    """The JSONL records of a child's DYN_LOG_FILE so far."""
+    with open(child.log_file) as f:
+        return [json.loads(x) for x in f if x.strip()]
+
+
+def settings_gate(name: str, want: dict) -> dict:
+    """11g: each launch binary's effective settings, from the `settings
+    {...}` record it logs at start, equal the layer that should win ({child:
+    (its logger, the expected dict)})."""
+    out = {}
+    for child, (target, expect) in want.items():
+        got = [json.loads(r["message"][len("settings "):])
+               for r in log_records(child) if r["target"] == target
+               and r["message"].startswith("settings ")]
+        check(got == [expect], f"{name}: {child.name} took the settings "
+              f"{got}; the file, the DYN_* variables and the flags give "
+              f"{expect}")
+        out[child.name] = expect
+    return out
+
+
+def child_log_gate(name: str) -> dict:
+    """11g's logging gate over every phase-11 child's DYN_LOG_FILE: each
+    line one JSON record with ts, level, target and message, and DEBUG
+    records present and from the target DYN_LOG named alone (everything
+    else stays at info). Returns {child: {level: records}}."""
+    out = {}
+    for f in CHILD_LOGS["files"]:
+        check(os.path.exists(f["path"]), f"{name}: {f['child']} wrote no "
+              f"log file ({f['path']})")
+        with open(f["path"]) as fh:
+            lines = fh.read().splitlines()
+        levels, debug = {}, set()
+        for i, line in enumerate(lines):
+            try:
+                r = json.loads(line)
+            except ValueError:
+                r = None
+            check(isinstance(r, dict)
+                  and {"ts", "level", "target", "message"} <= set(r)
+                  and str(r["ts"]).endswith("Z"),
+                  f"{name}: {f['child']}'s log line {i + 1} is no JSONL "
+                  f"record: {line[:200]!r}")
+            levels[r["level"]] = levels.get(r["level"], 0) + 1
+            if r["level"] == "DEBUG":
+                debug.add(r["target"])
+        check(debug == {f["target"]}, f"{name}: {f['child']}'s DEBUG "
+              f"records come from {sorted(debug)}; DYN_LOG named "
+              f"{f['target']} alone")
+        out[f["child"]] = levels
+    return out
+
+
+def page_chain_of(tokens: list, page: int) -> list:
+    """[(chained page hash, page tokens)] of a prompt's full pages, as a
+    worker's allocator chains them (engine/kv_cache.py page_hash)."""
+    from dynamo_tpu_torch.engine.kv_cache import page_hash
+    out, parent = [], 0
+    for i in range(len(tokens) // page):
+        toks = list(tokens[i * page:(i + 1) * page])
+        parent = page_hash(parent, toks)
+        out.append((parent, toks))
+    return out
+
+
+def llmctl(coord: str, *argv) -> list:
+    """One `python -m dynamo_tpu_torch.llmctl` call as a child: its printed
+    lines (the JSONL log records on its stderr left out)."""
+    c = Child(f"llmctl {argv[0]}", ["dynamo_tpu_torch.llmctl",
+                                    "--control-host", coord, *argv])
+    code = c.stop(None, 120)
+    check(code == 0, f"llmctl {' '.join(argv)} exited {code}:\n"
+          + c.tail())
+    return [x for x in c.lines if not x.startswith("{")]
+
+
+async def drive_g11_alias(fe_port: int, model: str, alias: str,
+                          sys_len: int) -> dict:
+    """11g's llmctl chats: once the KV-routed frontend lists the alias, one
+    greedy chat (fresh system prompt, 32 tokens, the top 8 logprobs,
+    streamed) twice under the model's own name, the first a cold prefill
+    and the second a prefix hit on the same worker (the router's pick),
+    then once under the alias. The alias's reference is the run that took
+    its path: the second where the alias landed on that worker (a prefix
+    hit), else the first (a cold prefill on the other worker)."""
+    async def listed():
+        got = await _get_json(fe_port, "/v1/models")
+        return alias in [m["id"] for m in got["data"]]
+    await _poll(f"the frontend listing {alias}", listed, 60)
+    body = dict(kill_body(model, G11_PROMPTS[0], 0, sys_len),
+                max_tokens=DIST_MAX_TOKENS)
+    own = [await h11_stream(fe_port, body, f"g11-own-{i}") for i in range(2)]
+    via = await h11_stream(fe_port, dict(body, model=alias), "g11-alias")
+    state = await _get_json(fe_port, "/router/state")
+    went = {rid: next((d["worker_id"] for d in state["models"][m]["decisions"]
+                       if d["request_id"] == rid), None)
+            for m, rid in ((model, "g11-own-0"), (model, "g11-own-1"),
+                           (alias, "g11-alias"))}
+    check(went["g11-own-1"] == went["g11-own-0"], f"distributed path "
+          f"(11g): the repeated chat left its prefix's worker: {went}")
+    ref = own[1] if went["g11-alias"] == went["g11-own-0"] else own[0]
+    return {"reference": ref, "alias": via, "workers": went,
+            "prefix_hit": ref is own[1]}
+
+
+async def drive_g11_capi(coord: str, cp_port: int, fe_port: int, model: str,
+                         sys_len: int, wid: str) -> dict:
+    """11g's C API: the library built with g++ joins the control plane under
+    the live worker `wid`, publishes Stored events for the full pages of a
+    prompt neither worker holds, then Removed events for them; the
+    frontend's router (/router/match) and the router service (`route`)
+    score that worker with the prompt's page count, then 0."""
+    from dynamo_tpu_torch import native
+    from dynamo_tpu_torch.engine.kv_cache import tokens_hash
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.native.capi_py import CApi
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    from dynamo_tpu_torch.runtime.distributed import connect_coordinator
+    name = "distributed path (11g C API)"
+    api = CApi()
+    check(native.NATIVE_STATS.build_failures == 0 and
+          native.library_path("capi").exists(),
+          f"{name}: {native.NATIVE_STATS.last_error}")
+    body = kill_body(model, G11_PROMPTS[1], 0, sys_len)
+    pre = OpenAIPreprocessor(ModelDeploymentCard(name=model, arch=model))
+    toks = pre.preprocess_chat(ChatCompletionRequest.from_json(body))[0] \
+        .token_ids
+    page = 64
+    blocks = page_chain_of(toks, page)
+    n = len(blocks)
+    hashes = [api.tokens_hash(t) == tokens_hash(t) for _, t in blocks]
+    check(all(hashes), f"{name}: dyn_tokens_hash differs from tokens_hash "
+          f"on pages {[i for i, ok in enumerate(hashes) if not ok]}")
+    match_body = {"model": model, "messages": body["messages"]}
+    rt = await connect_coordinator(coord)
+    try:
+        rclient = await rt.namespace("dynamo").component("router").endpoint(
+            "route").client().start()
+        await rclient.wait_for_instances(60)
+
+        async def scores():
+            m = await _get_json(fe_port, "/router/match", match_body)
+            frames = [f async for f in await rclient.generate(
+                {"token_ids": list(toks)})]
+            return m["scores"], frames[0]
+        fe0, svc0 = await scores()
+        check(not any(fe0.values()) and svc0["best_overlap_blocks"] == 0,
+              f"{name}: the fresh prompt is held already: frontend "
+              f"{fe0}, router service {svc0}")
+        await asyncio.to_thread(api.init, "dynamo", "llm", wid, page,
+                                "127.0.0.1", cp_port)
+        await asyncio.to_thread(api.publish_stored, 1 << 32, None, blocks)
+
+        async def stored():
+            fe, svc = await scores()
+            return (fe == {wid: n} and svc["worker_id"] == wid
+                    and svc["overlap_blocks"] == n) and (fe, svc)
+        fe1, svc1 = await _poll(f"{name}: {n} stored pages scored on {wid}",
+                                stored, 30)
+        await asyncio.to_thread(api.publish_removed, (1 << 32) + 1,
+                                [bh for bh, _ in blocks])
+
+        async def removed():
+            fe, svc = await scores()
+            return (not fe.get(wid) and svc["best_overlap_blocks"] == 0) \
+                and (fe, svc)
+        fe2, svc2 = await _poll(f"{name}: the removed pages unscored",
+                                removed, 30)
+        api.shutdown()
+        await rclient.stop()
+    finally:
+        await rt.shutdown()
+    return {"worker": wid, "pages": n, "tokens": len(toks),
+            "hashes_equal": len(hashes), "stored": [fe1, svc1],
+            "removed": [fe2, svc2]}
+
+
+def phase_g11(coord: str, cp_port: int, fe_port: int, model: str,
+              sys_len: int, wid: str) -> dict:
+    """11g (see the docstring at the top): llmctl add / list / chat /
+    remove against phase 11's control plane, then the C API."""
+    name = "distributed path (11g)"
+    t0 = time.perf_counter()
+    alias = f"{model}-alias"
+    added = llmctl(coord, "add", alias, DIST_EP, "--arch", model,
+                   "--kv-routed")
+    check(f"added chat model {alias} -> {DIST_EP}" in added,
+          f"{name}: llmctl add printed {added}")
+    listed = llmctl(coord, "list")
+    check(f"chat/{alias}\t{DIST_EP}\tkv_routed=True" in listed,
+          f"{name}: llmctl list printed {listed}")
+    chats = asyncio.run(asyncio.wait_for(drive_g11_alias(
+        fe_port, model, alias, sys_len), 300))
+    diff = first_difference_of(chats["reference"], chats["alias"])
+    check(diff is None, f"{name}: the alias's stream first differs from "
+          f"its reference at position {diff} (workers "
+          f"{json.dumps(chats['workers'])})")
+    removed = llmctl(coord, "remove", alias)
+    check(f"removed both model {alias}" in removed,
+          f"{name}: llmctl remove printed {removed}")
+
+    async def unknown():
+        async def gone():
+            got = await _get_json(fe_port, "/v1/models")
+            return alias not in [m["id"] for m in got["data"]]
+        await _poll(f"{name}: the frontend dropping {alias}", gone, 60)
+        return await _http(fe_port, "POST", "/v1/chat/completions", {
+            "model": alias, "max_tokens": 4,
+            "messages": [{"role": "user", "content": "hi"}]})
+    status, _, raw = asyncio.run(asyncio.wait_for(unknown(), 120))
+    check(status == 404 and json.loads(raw)["error"]["message"]
+          == f"model '{alias}' not found",
+          f"{name}: {alias} after llmctl remove: {status} {raw[:200]}")
+    t1 = time.perf_counter()
+    capi = asyncio.run(asyncio.wait_for(drive_g11_capi(
+        coord, cp_port, fe_port, model, sys_len, wid), 300))
+    out = {"alias": alias, "listed": listed, "workers": chats["workers"],
+           "alias_prefix_hit": chats["prefix_hit"], "unknown_status": status,
+           "capi": capi, "llmctl_s": t1 - t0,
+           "capi_s": time.perf_counter() - t1}
+    print(f"{name}: llmctl added {alias} -> {DIST_EP} (list: "
+          f"{json.dumps(listed)}); a greedy 32-token chat twice under "
+          f"{model} and once under {alias} (workers "
+          f"{json.dumps(chats['workers'])}): the alias's stream equals the "
+          f"{'prefix-hit' if chats['prefix_hit'] else 'cold'} run's "
+          f"throughout; after llmctl remove {alias} answers {status}; the "
+          f"C API on "
+          f"worker {wid}: {capi['hashes_equal']} dyn_tokens_hash values "
+          f"equal tokens_hash, {capi['pages']} stored pages of a "
+          f"{capi['tokens']}-token prompt scored on {wid} by the frontend "
+          f"and the router service, 0 after the removal; "
+          f"{out['llmctl_s']:.1f} s + {out['capi_s']:.1f} s", flush=True)
+    print(f"phase seconds: 11g {time.perf_counter() - t0:.1f}", flush=True)
+    return out
+
+
 def phase_distributed(smi: str, model: str = "llama3-8b",
                       sys_len: int = 1024, device_args=(),
                       device_name: str = None) -> dict:
@@ -4861,20 +5211,27 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
     children = []
     t0 = time.perf_counter()
     # the control plane: a durable primary and its hot standby, each
-    # journaling into a data directory of its own
+    # journaling into a data directory of its own; both start from the
+    # DYN_CONFIG file, the standby's data directory from a variable, their
+    # ports from the flag (11g); every child logs JSONL into logs/
     data = tempfile.mkdtemp(prefix="chip_smoke_cp_")
+    CHILD_LOGS.update(dir=os.path.join(data, "logs"), files=[])
+    os.makedirs(CHILD_LOGS["dir"])
     try:
         p_dir, s_dir = os.path.join(data, "a"), os.path.join(data, "b")
+        cfg_path = os.path.join(data, "dyn.toml")
+        cp_file = {"host": "127.0.0.1", "port": 6230, "data_dir": p_dir,
+                   "fsync": True}
+        write_toml(cfg_path, {"control_plane": cp_file})
         server = Child("control plane (primary)", [
-            "dynamo_tpu_torch.runtime.transports.server", "--host",
-            "127.0.0.1", "--port", "0", "--data-dir", p_dir])
+            SERVER_MODULE, "--port", "0"], env={"DYN_CONFIG": cfg_path})
         children.append(server)
         cp_port = int(server.wait_line("READY control-plane=:", 120)
                       .rsplit(":", 1)[1])
         standby = Child("control plane (standby)", [
-            "dynamo_tpu_torch.runtime.transports.server", "--host",
-            "127.0.0.1", "--port", "0", "--data-dir", s_dir,
-            "--standby-of", f"127.0.0.1:{cp_port}"])
+            SERVER_MODULE, "--port", "0", "--standby-of",
+            f"127.0.0.1:{cp_port}"],
+            env={"DYN_CONFIG": cfg_path, "DYN_CONTROL_PLANE__DATA_DIR": s_dir})
         children.append(standby)
         s_port = int(standby.wait_line("READY control-plane=:", 120)
                      .rsplit(":", 1)[1])
@@ -4895,23 +5252,63 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
         ready_s = time.perf_counter() - t0
         # the standalone router service and exporter over the workers'
         # endpoint, started before any traffic so that the router service
-        # applies every stored page's event
+        # applies every stored page's event; their coordinator from the
+        # DYN_CONFIG file, the router's page size and the exporter's scrape
+        # interval from variables over the file's, the exporter's port from
+        # its flag over the file's (11g)
         ns, comp, ep = DIST_EP.split(".")
+        write_toml(cfg_path, {
+            "control_plane": cp_file,
+            "router": {"coordinator": coord, "block_size": 32},
+            "metrics": {"coordinator": coord, "port": 9091,
+                        "interval": 0.5}})
         services = [
             Child("router service", [
-                "dynamo_tpu_torch.kv_router.main", "--coordinator", coord,
-                "--namespace", ns, "--component", comp, "--endpoint", ep,
-                "--block-size", "64"]),
+                "dynamo_tpu_torch.kv_router.main", "--namespace", ns,
+                "--component", comp, "--endpoint", ep],
+                env={"DYN_CONFIG": cfg_path, "DYN_ROUTER__BLOCK_SIZE": "64"}),
             Child("exporter", [
-                "dynamo_tpu_torch.observability.exporter", "--coordinator",
-                coord, "--namespace", ns, "--component", comp,
-                "--endpoint", ep, "--port", "0"])]
+                "dynamo_tpu_torch.observability.exporter", "--namespace",
+                ns, "--component", comp, "--endpoint", ep, "--port", "0"],
+                env={"DYN_CONFIG": cfg_path, "DYN_METRICS__INTERVAL": "0.25"})]
         children += services
         rline = services[0].wait_line("READY router", 120)
         check(rline == "READY router indexer=native",
               f"router service: {rline}")
         exporter_port = int(services[1].wait_line("READY metrics=:", 120)
                             .rsplit(":", 1)[1])
+        # 11g: each value in effect, from the layer that should win
+        listening = {c.name: [r["message"] for r in log_records(c)
+                              if r["message"].startswith("control plane "
+                                                         "listening on ")]
+                     for c in (server, standby)}
+        check(listening == {
+            server.name: [f"control plane listening on 127.0.0.1:{cp_port} "
+                          "(primary)"],
+            standby.name: [f"control plane listening on 127.0.0.1:{s_port} "
+                           "(standby)"]}
+              and os.path.isdir(p_dir) and os.path.isdir(s_dir)
+              and 6230 not in (cp_port, s_port) and exporter_port != 9091,
+              f"distributed path (11g): servers {listening}, data "
+              f"directories {os.listdir(data)}, exporter :{exporter_port}")
+        settings = settings_gate("distributed path (11g)", {
+            server: (DEBUG_TARGET["server"], {
+                "host": "127.0.0.1", "port": 0, "data_dir": p_dir,
+                "fsync": True, "standby_of": None}),
+            standby: (DEBUG_TARGET["server"], {
+                "host": "127.0.0.1", "port": 0, "data_dir": s_dir,
+                "fsync": True, "standby_of": f"127.0.0.1:{cp_port}"}),
+            services[0]: ("dynamo_tpu_torch.router_main", {
+                "coordinator": coord, "block_size": 64}),
+            services[1]: ("dynamo_tpu_torch.metrics_exporter", {
+                "coordinator": coord, "port": 0, "interval": 0.25})})
+        print(f"distributed path (11g): settings in effect "
+              f"{json.dumps(settings)} (DYN_CONFIG {cfg_path}; the "
+              f"standby's data_dir from DYN_CONTROL_PLANE__DATA_DIR, the "
+              f"router's block_size from DYN_ROUTER__BLOCK_SIZE and the "
+              f"exporter's interval from DYN_METRICS__INTERVAL over the "
+              f"file; the ports from the flags over the file's 6230 / "
+              f"9091)", flush=True)
         for line in ready:
             dev = line.split(" device=", 1)[1]
             check(dev == device_name, f"worker on {dev!r}, expected "
@@ -4929,11 +5326,15 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
             get_model_config(model).num_layers, smi,
             on_card=device_name != "cpu", exporter_port=exporter_port), 900))
         rec["ready_s"] = ready_s
+        rec["settings"] = settings
+        by_id = {line.split(" worker=", 1)[1].split()[0]: w
+                 for line, w in zip(ready, workers)}
+        # 11g: llmctl and the C API, after every count above was read
+        rec["g11"] = phase_g11(coord, cp_port, fe_ports[0], model, sys_len,
+                               sorted(by_id)[0])
         for svc in services:
             svc.stop(signal.SIGTERM, 30)
         # 11k: SIGKILL the worker holding the most of a wave's streams
-        by_id = {line.split(" worker=", 1)[1].split()[0]: w
-                 for line, w in zip(ready, workers)}
         t0 = time.perf_counter()
         rec["kill"] = asyncio.run(asyncio.wait_for(drive_kill(
             fe_ports[0], fe_ports[1], model, sys_len, by_id), 900))
@@ -4982,10 +5383,17 @@ def phase_distributed(smi: str, model: str = "llama3-8b",
             "s_dir": s_dir, "frontends": fronts, "children": children,
             "h11_reference": rec.pop("h11_reference"),
             "routed_ttft": rec["kv_routed"]}, device_args, device_name)
+        for c in reversed(children):
+            c.stop(signal.SIGKILL, 30)
+        rec["logs"] = child_log_gate("distributed path (11g)")
+        print(f"distributed path (11g): {len(rec['logs'])} children logged "
+              f"JSONL, DEBUG records from the target DYN_LOG named alone: "
+              f"{json.dumps(rec['logs'])}", flush=True)
         return rec
     finally:
         for c in reversed(children):
             c.stop(signal.SIGKILL, 30)
+        CHILD_LOGS.update(dir=None, files=[])
         shutil.rmtree(data, ignore_errors=True)
 
 
@@ -6958,8 +7366,7 @@ def write_llama_gguf(path: str, cfg, params) -> dict:
             put(f"blk.{i}.{name}.weight", lp[key][i].T, kind)
         put(f"blk.{i}.attn_norm.weight", lp["attn_norm"][i], "F32")
         put(f"blk.{i}.ffn_norm.weight", lp["mlp_norm"][i], "F32")
-    tokens = (["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
-              + [f"t{i}" for i in range(cfg.vocab_size - 259)])
+    tokens, scores = spm_vocab(cfg.vocab_size)
     write_gguf(path, {
         "general.architecture": (8, "llama"),
         "general.name": (8, "tiny-llama-gguf"),
@@ -6973,10 +7380,112 @@ def write_llama_gguf(path: str, cfg, params) -> dict:
         "llama.context_length": (4, cfg.max_model_len),
         "tokenizer.ggml.model": (8, "llama"),
         "tokenizer.ggml.tokens": (9, (8, tokens)),
+        "tokenizer.ggml.scores": (9, (6, scores)),
         "tokenizer.ggml.bos_token_id": (4, 1),
         "tokenizer.ggml.eos_token_id": (4, 2),
     }, tensors)
     return kinds
+
+
+SPM_CHARS = ["\u2581"] + list("abcdefghijklmnopqrstuvwxyz") + ["\u00e9",
+                                                              "\u4e2d"]
+
+
+def spm_vocab(n: int, seed: int = 15) -> tuple:
+    """(tokens, scores) of 15a's GGUF SentencePiece vocab, n entries:
+    <unk> <s> </s>, the 256 <0xXX> byte tokens, the space marker, a-z, e
+    acute and one CJK character, then pieces merged from two earlier ones
+    drawn from a seeded generator, scores integers in [-8, 8] (ties)."""
+    import random
+    rng = random.Random(seed)
+    tokens = (["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+              + SPM_CHARS)
+    pieces, seen = list(SPM_CHARS), set(tokens)
+    while len(tokens) < n:
+        merged = rng.choice(pieces) + rng.choice(pieces)
+        if len(merged) <= 8 and merged not in seen:
+            seen.add(merged)
+            pieces.append(merged)
+            tokens.append(merged)
+    scores = [0.0] * 259 + [float(rng.randint(-8, 8))
+                            for _ in range(n - 259)]
+    return tokens[:n], scores[:n]
+
+
+def spm_fuzz(n: int, pieces: list, seed: int = 1515) -> list:
+    """n seeded strings of 0-40 parts: the vocab's merged pieces (the space
+    marker as a space), its characters, spaces and characters it lacks
+    (upper case, punctuation, a newline, an emoji: byte fallback)."""
+    import random
+    rng = random.Random(seed)
+    alphabet = ([p.replace("\u2581", " ") for p in pieces]
+                + list("abcdefghijklmnopqrstuvwxyz") + [" "] * 8
+                + ["\u00e9", "\u4e2d", "Z", "Q", "!", ",", "\n",
+                   "\U0001f600", "\u00fc"])
+    return ["".join(rng.choice(alphabet) for _ in range(rng.randint(0, 40)))
+            for _ in range(n)]
+
+
+def native_spm_gate(path: str) -> dict:
+    """15a's native SentencePiece gate on the GGUF checkpoint's card: its
+    preprocessor's tokenizer encodes through the native library (built
+    with g++, 0 build failures); the card's chats (15b's, through the
+    template) tokenize to the same ids through the Python encoder, and so
+    do 2000 seeded strings; encode microseconds per 1k tokens, native and
+    Python, on this host."""
+    from dynamo_tpu_torch import native
+    from dynamo_tpu_torch.llm.gguf import _spm_encode
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
+    name = "checkpoints (15a native SentencePiece)"
+    card = ModelDeploymentCard.from_gguf(path)
+    pre = OpenAIPreprocessor(card)
+    tok = pre.tokenizer
+    check(tok._native is not None and native.NATIVE_STATS.build_failures == 0
+          and native.library_path("spm_bpe").exists(),
+          f"{name}: native encoder {tok._native}, build failures "
+          f"{native.NATIVE_STATS.build_failures} "
+          f"({native.NATIVE_STATS.last_error})")
+
+    def python(text):
+        return _spm_encode(text, tok._ids, tok._scores, tok._byte_ids,
+                           tok.unk_token_id, tok.SPACE, tok._add_prefix)
+    chats = [ChatCompletionRequest.from_json(b)
+             for b in checkpoint_chats(card.name)]
+    native_ids = [pre.preprocess_chat(c)[0].token_ids for c in chats]
+    enc, tok._native = tok._native, None
+    try:
+        python_ids = [pre.preprocess_chat(c)[0].token_ids for c in chats]
+    finally:
+        tok._native = enc
+    check(native_ids == python_ids, f"{name}: the card's chats tokenize "
+          "differently through the native and the Python encoder")
+    texts = spm_fuzz(2000, tok.tokens[259 + len(SPM_CHARS):])
+    bad = [t for t in texts if tok.encode(t) != python(t)]
+    check(not bad, f"{name}: {len(bad)} of {len(texts)} fuzz strings "
+          f"differ, first {bad[0]!r}" if bad else "")
+    ids = [tok.encode(t) for t in texts]
+    n_tok = sum(map(len, ids))
+    # ids of pieces merged from two or more characters
+    merged = sum(i >= 259 + len(SPM_CHARS) for x in ids for i in x)
+    times = {}
+    for label, fn in (("native", tok.encode), ("python", python)):
+        t0 = time.perf_counter()
+        for t in texts:
+            fn(t)
+        times[label] = (time.perf_counter() - t0) * 1e6 / (n_tok / 1e3)
+    out = {"chats": len(chats), "chat_tokens": sum(map(len, native_ids)),
+           "fuzz": len(texts), "fuzz_tokens": n_tok,
+           "us_per_1k_tokens": times}
+    print(f"{name} [this host's CPU]: the GGUF card's tokenizer encodes "
+          f"through the native library (0 build failures); {len(chats)} "
+          f"chats ({out['chat_tokens']} tokens) and {len(texts)} fuzz "
+          f"strings ({n_tok} tokens, {merged} of them merged pieces) "
+          f"id-equal to the Python encoder; encode "
+          f"{times['native']:.1f} us per 1k tokens native, "
+          f"{times['python']:.1f} Python", flush=True)
+    return out
 
 
 # 15a's families: each one's departures from SMALL_BASE
@@ -7066,6 +7575,7 @@ def phase_checkpoints_small(root: str, devices=("cpu", "cuda")) -> dict:
             check(same_trees(trees), "gguf: the trees loaded on "
                   f"{devices} differ")
             label = f"gguf ({json.dumps(kinds)})"
+            native_spm_gate(path)
         else:
             write_hf_dir(path, cfg, params, family.split("_")[0], 1, 2)
             trees = {}
@@ -7330,10 +7840,17 @@ def served_config(card):
         card.context_length, card.model_config().max_model_len))
 
 
+# the layers of llama3-8b that 15b writes, loads and serves (its widths and
+# vocabulary unchanged): a depth cut that keeps the script inside its time
+# limit
+CKPT_LAYERS = 16
+
+
 def phase_checkpoint_8b(root: str, smi: str, cfg=None,
                         device: str = "cuda", draft: str = "llama3-1b") -> dict:
     """15b (see the docstring at the top): llama3-8b at full width and
-    depth written to disk, loaded, and served by run.py as a process, and
+    CKPT_LAYERS of its depth written to disk, loaded, and served by run.py
+    as a process, and
     17c on the same directory (`draft` proposing). `cfg` and device "cpu"
     rehearse it on the CPU (a narrow model with llama3-8b's vocabulary;
     the draft there the directory itself); the card-only checks (kernel
@@ -7346,14 +7863,16 @@ def phase_checkpoint_8b(root: str, smi: str, cfg=None,
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.loader import load_model_dir
     on_card = device == "cuda"
-    cfg = cfg or get_model_config("llama3-8b")
+    cfg = cfg or dataclasses.replace(get_model_config("llama3-8b"),
+                                     num_layers=CKPT_LAYERS)
     name = f"checkpoints, {cfg.name}"
     extra = () if on_card else ("--device", "cpu")
     need = 17 * 10 ** 9 if on_card else 10 ** 9
     os.makedirs(root, exist_ok=True)
     free = shutil.disk_usage(root).free
     check(free >= need, f"{name}: {free} bytes free under {root}; the "
-          f"bf16 checkpoint needs {need} (16.06 GB and its tokenizer)")
+          f"bf16 checkpoint needs {need} (up to 16.06 GB and its "
+          "tokenizer)")
     path = os.path.join(root, "llama3-8b")
     rec = {}
     try:
@@ -7465,8 +7984,9 @@ def phase_checkpoint_8b(root: str, smi: str, cfg=None,
         rec["int8_load_s"] = time.perf_counter() - t0
         rec["int8_load_peak_bytes"] = (
             torch.cuda.max_memory_allocated() - base if on_card else 0)
-        check(rec["int8_load_peak_bytes"] < 16.06e9, f"{name}: int8 load "
-              f"peaked at {rec['int8_load_peak_bytes']} bytes")
+        check(rec["int8_load_peak_bytes"] < nbytes, f"{name}: int8 load "
+              f"peaked at {rec['int8_load_peak_bytes']} bytes, the bf16 "
+              f"tree {nbytes}")
         want = llama.init_params(dataclasses.replace(cfg, quant="int8"),
                                  device, seed=0)
         check(trees_equal(q8, want), f"{name}: the int8 load differs from "
@@ -7496,7 +8016,8 @@ def phase_checkpoint_8b(root: str, smi: str, cfg=None,
         print(f"{name} int8: load_model_dir(quant='int8') in "
               f"{rec['int8_load_s']:.2f} s, peak "
               f"{rec['int8_load_peak_bytes'] / 1e9:.2f} GB on the card "
-              f"(bf16 tree 16.06 GB), byte-equal to init_params(quant="
+              f"(bf16 tree {nbytes / 1e9:.2f} GB), byte-equal to "
+              f"init_params(quant="
               f"'int8'); run.py --quant int8 READY in "
               f"{rec['int8_ready_s']:.1f} s, one chat "
               f"{'token-identical' if same else 'within a near tie'} "
@@ -7527,7 +8048,7 @@ def phase_checkpoints(smi: str) -> dict:
 
 # the layers of gemma-2-9b that 16a writes, loads and serves (its widths
 # unchanged): a depth cut that keeps the script inside its time limit
-GEMMA_LAYERS = 8
+GEMMA_LAYERS = 4
 
 # google/gemma-2-9b's published config.json (its architecture, widths,
 # vocabulary, soft-caps, query scale and sliding window), named here and not
@@ -10886,6 +11407,51 @@ async def _traced_disagg(smi, model, device, scale, device_name,
     return rec
 
 
+# -- phase 21: the fleet storms ----------------------------------------------------
+
+def phase_storms(smi: str, device: str = "cuda", beside=None) -> tuple:
+    """21: `tools/torch_fleet_storm.py --mode slo --quick` and `--mode
+    autoscale --quick` as two processes at once, their live engines on
+    `device`: each exits 0 with every contract met. `beside()` (another
+    phase) runs in this process meanwhile. Returns (each mode's contracts
+    and seconds, what `beside()` returned)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = {mode: subprocess.Popen(
+        [sys.executable, os.path.join(root, "tools", "torch_fleet_storm.py"),
+         "--mode", mode, "--quick", "--no-artifact", "--device", device],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mode in ("slo", "autoscale")}
+    out = {}
+    try:
+        side = beside() if beside is not None else None
+        for mode, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            lines = stdout.splitlines()
+            start = lines.index("{") if "{" in lines else len(lines)
+            report = json.loads("\n".join(lines[start:]) or "{}")
+            contracts = report.get("contracts", {})
+            check(proc.returncode == 0 and contracts
+                  and all(contracts.values()),
+                  f"storms: --mode {mode} exited {proc.returncode} with "
+                  f"contracts {contracts}:\n{stdout[-1500:]}\n"
+                  f"{stderr[-1500:]}")
+            out[mode] = {"contracts": contracts,
+                         "seconds": time.perf_counter() - t0,
+                         "elapsed_s": report.get("elapsed_s")}
+            if mode == "autoscale":
+                out[mode]["budget_tuning"] = report["budget_tuning"]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    print(f"storms [{smi}; the live engines on {device}]: "
+          f"{json.dumps(out)}", flush=True)
+    print(f"phase seconds: 21 {time.perf_counter() - t0:.1f}", flush=True)
+    return out, side
+
+
 def timed(name: str, fn, *args, **kw):
     """fn(*args, **kw), its wall-clock seconds printed on a line of its
     own (the time limit's budget by phase)."""
@@ -10969,8 +11535,16 @@ def main() -> int:
     ab = timed("8", lambda: {model: phase_ab(model)
                              for model in ("llama3-8b", "llama3-1b")})
     http = timed("9", lambda: asyncio.run(phase_http(smi, bf16_ref)))
-    entry = timed("10", lambda: {model: phase_entry_point(model)
-                                 for model in ("tiny", "tiny-moe")})
+    # phase 21's storms run beside phase 10's run.py processes, and those
+    # two beside each other (a failed gate's SystemExit reaches this thread
+    # through the future)
+    def entry_points():
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(2) as ex:
+            futs = {m: ex.submit(phase_entry_point, m)
+                    for m in ("tiny", "tiny-moe")}
+            return {m: f.result() for m, f in futs.items()}
+    _, entry = phase_storms(smi, beside=lambda: timed("10", entry_points))
     print(f"HTTP path: {json.dumps({'runs': http, 'entry_point': entry})}",
           flush=True)
     dist = timed("11", phase_distributed, smi,

@@ -337,6 +337,9 @@ class NativeEngine:
         self.pipeline_fallbacks = 0   # follow-ups discarded at reconcile
         self.mixed_steps = 0
         self.decode_stall_steps = 0
+        # device steps run, a decode window counting as its N steps (JAX's
+        # engine.step_count)
+        self.step_count = 0
         # speculative decoding: verify forwards run, drafts proposed and
         # accepted; the acceptance EMA starts optimistic, and the gate's
         # rejections since its last probe
@@ -588,6 +591,7 @@ class NativeEngine:
             self._process_pool_injects()  # shared-pool pages it may read
             if plan is None:
                 return []
+            self.step_count += 1
             if isinstance(plan, StreamPlan):
                 return self._run_stream(plan)
             if isinstance(plan, MixedPlan):
@@ -1481,6 +1485,7 @@ class NativeEngine:
            committed position inside pages the staged table owned, and the
            re-run overwrites them."""
         pend, self._pipeline = self._pipeline, None
+        self.step_count += 1
         self._process_offloads()
         self._process_onboards()
         self._process_pool_injects()
@@ -1721,6 +1726,7 @@ class NativeEngine:
         sequence at its first finished token (later window tokens for it
         are garbage by construction)."""
         n_steps = toks.shape[0]
+        self.step_count += n_steps - 1         # a window counts as N steps
         events: List[StepOutput] = []
         done: Set[str] = set()
         finish_step: Dict[str, int] = {}

@@ -2,7 +2,8 @@
 
 Copied from dynamo_tpu/frontend/discovery.py: `register_model` (:29) writes
 the model -> endpoint mapping under `models/{type}/{name}`,
-`unregister_model` removes it, and `ModelWatcher` (:68-230) watches the
+`unregister_model` removes it, `list_registered_models` (:58) reads them
+all (llmctl's `list`), and `ModelWatcher` (:68-230) watches the
 registry and builds one `RemotePipeline` per registered model (a runtime
 Client plus, for a KV-routed model when the watcher has a router factory,
 a KvRouter), rebinding it on a re-registration and removing it on a
@@ -61,6 +62,17 @@ async def unregister_model(kv, name: str, model_type: str = "chat") -> None:
             await kv.delete(model_key(t, name))
     else:
         await kv.delete(model_key(model_type, name))
+
+
+async def list_registered_models(kv) -> Dict[str, dict]:
+    """Every registry entry: "{type}/{name}" -> its payload."""
+    out = {}
+    for e in await kv.get_prefix(MODELS_PREFIX):
+        try:
+            out[e.key[len(MODELS_PREFIX):]] = json.loads(e.value)
+        except (ValueError, TypeError):
+            continue
+    return out
 
 
 class ModelWatcher:

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import logging
 import os
 
 from dynamo_tpu_torch.frontend.discovery import ModelWatcher
@@ -40,6 +39,7 @@ from dynamo_tpu_torch.frontend.service import HttpService
 from dynamo_tpu_torch.kv_router.router import KvRouter
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.qos import DEFAULT_POLICY
+from dynamo_tpu_torch.utils.logconfig import configure_logging
 
 
 def service_options(env=None) -> dict:
@@ -87,7 +87,7 @@ async def amain(argv=None) -> None:
     p.add_argument("--worker-id", default=None)
     p.add_argument("--no-kv-routing", action="store_true")
     args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    configure_logging()
 
     runtime = await DistributedRuntime.connect(
         args.control_host, args.control_port, args.worker_id)

@@ -26,9 +26,12 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 
 from dynamo_tpu_torch.kv_router.router import KvRouter
+from dynamo_tpu_torch.utils.logconfig import configure_logging
+from dynamo_tpu_torch.utils.settings import load_settings
 
 log = logging.getLogger("dynamo_tpu_torch.router_main")
 
@@ -118,8 +121,12 @@ async def _amain(args) -> None:
 
 
 def main(argv=None) -> None:
+    # layered defaults <- DYN_CONFIG file <- DYN_* env <- CLI flags
+    # (utils/settings.py; e.g. DYN_ROUTER__BLOCK_SIZE=128)
+    s = load_settings({"router": {
+        "coordinator": "127.0.0.1:6230", "block_size": 64}}).router
     ap = argparse.ArgumentParser(description="dynamo-tpu standalone router")
-    ap.add_argument("--coordinator", default="127.0.0.1:6230",
+    ap.add_argument("--coordinator", default=s.coordinator,
                     help="control plane host:port, or an HA pair "
                          "h1:p1,h2:p2")
     ap.add_argument("--namespace", required=True)
@@ -127,9 +134,11 @@ def main(argv=None) -> None:
                     help="worker component to route over")
     ap.add_argument("--router-component", default="router")
     ap.add_argument("--endpoint", default="generate")
-    ap.add_argument("--block-size", type=int, default=64)
+    ap.add_argument("--block-size", type=int, default=s.block_size)
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    configure_logging()
+    log.info("settings %s", json.dumps({
+        "coordinator": args.coordinator, "block_size": args.block_size}))
     asyncio.run(_amain(args))
 
 

@@ -18,8 +18,9 @@ Copied from dynamo_tpu/llm/gguf.py:
   BPE of llm/bpe.py (the JAX package builds the same one with
   `tokenizers`) with the pre-tokenizer split selected by
   `tokenizer.ggml.pre`; "llama" vocabs the score-driven SentencePiece
-  bigram-merge encode with <0xXX> byte fallback, in Python (the JAX
-  package's native C++ twin of it is not ported).
+  bigram-merge encode with <0xXX> byte fallback, through the native C++
+  encoder (native/spm.py, built with g++ at first use) and in Python when
+  it does not build.
 
 GGUF is little-endian; v3 adds no layout changes we depend on.
 """
@@ -541,6 +542,7 @@ class GGUFTokenizer(BaseTokenizer):
             self._ids.get("<unk>", 0))
         if self.model == "gpt2":
             self._bpe = self._build_bpe(md)
+            self._native = None
         else:
             self._bpe = None
             self._byte_ids: Dict[int, int] = {}
@@ -557,6 +559,12 @@ class GGUFTokenizer(BaseTokenizer):
                 self._scores = [0.0] * len(self.tokens)
             self._add_prefix = bool(
                 md.get("tokenizer.ggml.add_space_prefix", True))
+            # the native C++ encoder when the toolchain builds it (exact
+            # parity with _spm_encode); None -> the Python path below, with
+            # the failure counted and logged by native.load
+            from dynamo_tpu_torch.native.spm import make_encoder
+            self._native = make_encoder(self.tokens, self._scores,
+                                        self._byte_ids, self.unk_token_id)
 
     def _build_bpe(self, md: Dict[str, Any]):
         """tokens + merges -> a byte-level BPE, the tokenizer.json the JAX
@@ -597,6 +605,9 @@ class GGUFTokenizer(BaseTokenizer):
     def encode(self, text: str) -> List[int]:
         if self._bpe is not None:
             return self._bpe.encode(text)
+        if self._native is not None:
+            return self._native.encode(
+                _spm_prepare(text, self.SPACE, self._add_prefix))
         return _spm_encode(text, self._ids, self._scores, self._byte_ids,
                            self.unk_token_id, self.SPACE, self._add_prefix)
 

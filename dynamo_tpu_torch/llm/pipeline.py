@@ -5,8 +5,12 @@ tokenize, stream token frames from an engine, incremental detokenisation
 with the stop-string jail, OpenAI delta chunks, the TTFT / ITL histograms
 observed at the frame boundary), `LocalPipeline` (the engine in-process)
 and `RemotePipeline` with its `RemoteEngineSink` (a worker endpoint on the
-control plane, optionally KV-routed; pipeline.py:276-347). The
-pipeline-graph segment is left out: the sink is called directly.
+control plane, optionally KV-routed; pipeline.py:276-347). Every token
+frame streams through a runtime.pipeline `Segment` (pipeline.py:96-111):
+`LocalPipeline` links a `LocalEngineSink`, `RemotePipeline` its
+`RemoteEngineSink`, callers may link Operators in front of the sink, and
+`pipeline.segment.set_sink(...)` swaps the sink in place (new requests see
+the new sink; a stream in flight keeps the one it started with).
 
 By default the remote sink runs every request through the reliability
 layer (frontend/reliability.ReliableClient: mid-stream migration, retries
@@ -41,6 +45,7 @@ from dynamo_tpu_torch.protocols.openai import (
     ChatCompletionRequest, CompletionRequest, Usage,
 )
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context
+from dynamo_tpu_torch.runtime.pipeline import Segment, Sink
 from dynamo_tpu_torch.runtime.qos import qos_label
 
 log = logging.getLogger("dynamo_tpu_torch.pipeline")
@@ -98,15 +103,18 @@ class _LogprobShaper:
 
 
 class Pipeline:
-    """Shared OpenAI-facing plumbing; subclasses supply `_token_stream`."""
+    """Shared OpenAI-facing plumbing over a composable node graph: the
+    token-frame flow is a runtime.pipeline Segment whose sink the
+    subclasses link."""
 
     def __init__(self, card: ModelDeploymentCard):
         self.card = card
         self.preprocessor = OpenAIPreprocessor(card)
+        self.segment = Segment()
 
     def _token_stream(self, pre: PreprocessedRequest,
                       context: Context) -> AsyncIterator[EngineOutput]:
-        raise NotImplementedError
+        return self.segment.generate(pre, context)
 
     # -- OpenAIEngine interface ----------------------------------------------
 
@@ -251,19 +259,27 @@ class Pipeline:
             yield gen.usage_chunk(usage)
 
 
+class LocalEngineSink(Sink):
+    """Sink node: an in-process AsyncEngine."""
+
+    def __init__(self, engine: AsyncEngine):
+        self.engine = engine
+
+    def generate(self, pre: PreprocessedRequest,
+                 context: Context) -> AsyncIterator[EngineOutput]:
+        return self.engine.generate(pre, context)
+
+
 class LocalPipeline(Pipeline):
-    """Engine lives in-process (`run in=batch:FILE out=native`)."""
+    """Engine lives in-process (`run in=http|batch:FILE out=native`)."""
 
     def __init__(self, card: ModelDeploymentCard, engine: AsyncEngine):
         super().__init__(card)
         self.engine = engine
-
-    def _token_stream(self, pre: PreprocessedRequest,
-                      context: Context) -> AsyncIterator[EngineOutput]:
-        return self.engine.generate(pre, context)
+        self.segment.link(LocalEngineSink(engine))
 
 
-class RemoteEngineSink:
+class RemoteEngineSink(Sink):
     """Sink: a remote worker endpoint, KV-aware routed when a router is
     given, round-robin otherwise.
 
@@ -307,7 +323,9 @@ class RemotePipeline(Pipeline):
     """Engine is a remote worker endpoint, optionally KV-aware routed: what
     the discovery watcher (frontend/discovery.py) builds per registered
     model, a runtime Client plus an optional KvRouter, through the
-    reliability layer unless `reliability=False`."""
+    reliability layer unless `reliability=False`. The sink is a graph
+    node, so the model can be rebound to another client and router with
+    `pipeline.segment.set_sink(...)` in place."""
 
     def __init__(self, card: ModelDeploymentCard, client, router=None,
                  reliability=None):
@@ -315,7 +333,4 @@ class RemotePipeline(Pipeline):
         self.client = client
         self.router = router
         self.sink = RemoteEngineSink(client, router, reliability=reliability)
-
-    def _token_stream(self, pre: PreprocessedRequest,
-                      context: Context) -> AsyncIterator[EngineOutput]:
-        return self.sink.generate(pre, context)
+        self.segment.link(self.sink)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 from typing import Optional
 
@@ -37,6 +38,8 @@ from dynamo_tpu_torch.kv_router.publisher import (
 )
 from dynamo_tpu_torch.observability.metrics import MetricsRegistry
 from dynamo_tpu_torch.runtime.transports.codec import unpackb
+from dynamo_tpu_torch.utils.logconfig import configure_logging
+from dynamo_tpu_torch.utils.settings import load_settings
 
 log = logging.getLogger("dynamo_tpu_torch.metrics_exporter")
 
@@ -530,19 +533,27 @@ async def _amain(args) -> None:
 
 
 def main(argv=None) -> None:
+    # layered defaults <- DYN_CONFIG file <- DYN_* env <- CLI flags
+    # (utils/settings.py; e.g. DYN_METRICS__PORT=9095)
+    s = load_settings({"metrics": {
+        "coordinator": "127.0.0.1:6230", "port": 9091,
+        "interval": 0.5}}).metrics
     ap = argparse.ArgumentParser(description="dynamo-tpu metrics exporter")
-    ap.add_argument("--coordinator", default="127.0.0.1:6230",
+    ap.add_argument("--coordinator", default=s.coordinator,
                     help="control plane host:port, or an HA pair "
                          "h1:p1,h2:p2")
     ap.add_argument("--namespace", required=True)
     ap.add_argument("--component", required=True)
     ap.add_argument("--endpoint", default="generate")
-    ap.add_argument("--port", type=int, default=9091,
+    ap.add_argument("--port", type=int, default=s.port,
                     help="HTTP port of /metrics (0: any free port)")
-    ap.add_argument("--interval", type=float, default=0.5,
+    ap.add_argument("--interval", type=float, default=s.interval,
                     help="seconds between $STATS scrapes")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    configure_logging()
+    log.info("settings %s", json.dumps({
+        "coordinator": args.coordinator, "port": args.port,
+        "interval": args.interval}))
     asyncio.run(_amain(args))
 
 

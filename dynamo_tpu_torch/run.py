@@ -70,6 +70,7 @@ from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.pipeline import LocalPipeline
 from dynamo_tpu_torch.llm.worker import EchoTokenEngine, NativeEngineWorker
 from dynamo_tpu_torch.protocols.delta import aggregate_chat_chunks
+from dynamo_tpu_torch.utils.logconfig import configure_logging
 from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
 from dynamo_tpu_torch.runtime.engine import Context
 
@@ -300,7 +301,7 @@ async def amain(argv=None) -> None:
     p.add_argument("--control-port", type=int, default=5550)
     p.add_argument("-v", "--verbose", action="store_true")
     args = p.parse_args(argv)
-    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO)
+    configure_logging("debug" if args.verbose else "info")
 
     in_spec, out_spec, model_spec = "text", "echo", "tiny"
     for tok in args.io:

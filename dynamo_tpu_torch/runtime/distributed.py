@@ -92,6 +92,7 @@ class DistributedRuntime:
         if addrs is None and "," in host:
             addrs = parse_addrs(host, port)
         client = await ControlPlaneClient(host, port, addrs=addrs).connect()
+        log.debug("connected to the control plane at %s:%s", host, port)
         rt = cls(client, client, worker_id, advertise_host)
         rt._client = client
         await rt._init_lease()
@@ -100,6 +101,8 @@ class DistributedRuntime:
     async def _init_lease(self):
         ttl = lease_ttl_s()
         self.lease = await self.kv.grant_lease(ttl)
+        log.debug("runtime %s holds lease %s (ttl %.1f s)", self.worker_id,
+                  self.lease.id, ttl)
 
         async def watch():
             await self.lease.lost.wait()

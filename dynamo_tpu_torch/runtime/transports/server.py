@@ -19,9 +19,14 @@ member's fence loop deposes the old primary, which, being durable, rejoins
 as its standby. Replication is asynchronous: a write acknowledged just
 before the primary dies may not have reached the standby. Leases are not
 replicated, so every client of a dead primary loses its lease (and its
-runtime: runtime/distributed.py). Left out: the layered settings file
-(utils/settings.py); the flags take its defaults. Every task the server
-starts is held until it ends (see transports/tcp.py on why).
+runtime: runtime/distributed.py). Every task the server starts is held
+until it ends (see transports/tcp.py on why).
+
+Settings (:667-684) layer as in JAX (utils/settings.py): the defaults, then
+the `[control_plane]` table of the `DYN_CONFIG` file (TOML, JSON or YAML;
+keys host, port, data_dir, fsync, standby_of), then `DYN_CONTROL_PLANE__*`
+variables, then the CLI flags. The effective values are logged at start
+(`settings {...}`); logging follows `DYN_LOG` (utils/logconfig.py).
 
 Run: python -m dynamo_tpu_torch.runtime.transports.server --port 0
   [--data-dir DIR [--no-fsync] [--standby-of HOST:PORT]]
@@ -33,6 +38,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import itertools
+import json
 import logging
 import uuid
 from typing import Dict
@@ -42,6 +48,8 @@ from dynamo_tpu_torch.runtime.transports.tcp import parse_addrs
 from dynamo_tpu_torch.runtime.transports.wire import (
     oneshot_request, read_frame, write_frame,
 )
+from dynamo_tpu_torch.utils.logconfig import configure_logging
+from dynamo_tpu_torch.utils.settings import load_settings
 
 log = logging.getLogger("dynamo_tpu_torch.controlplane")
 
@@ -610,10 +618,13 @@ class ControlPlaneServer:
     async def _on_connect(self, reader, writer):
         conn = _Conn(self, reader, writer)
         self._conns.add(conn)
+        peer = writer.get_extra_info("peername")
+        log.debug("connection from %s (%d open)", peer, len(self._conns))
         try:
             await conn.run()
         finally:
             self._conns.discard(conn)
+            log.debug("connection from %s closed", peer)
 
     async def stop(self):
         for task in (self._repl_task, self._fence_task):
@@ -644,22 +655,31 @@ class ControlPlaneServer:
 
 
 def main(argv=None) -> None:
+    # layered settings (utils/settings.py): defaults <- DYN_CONFIG file <-
+    # DYN_* env; CLI flags beat all of them. e.g.
+    # DYN_CONTROL_PLANE__PORT=7000 or a TOML [control_plane] section.
+    s = load_settings({"control_plane": {
+        "host": "0.0.0.0", "port": DEFAULT_PORT, "data_dir": None,
+        "fsync": True, "standby_of": None}}).control_plane
     ap = argparse.ArgumentParser(
         description="dynamo_tpu_torch control-plane server")
-    ap.add_argument("--host", default="0.0.0.0")
-    ap.add_argument("--port", type=int, default=DEFAULT_PORT,
+    ap.add_argument("--host", default=s.host)
+    ap.add_argument("--port", type=int, default=s.port,
                     help="0 picks a free port (printed on the READY line)")
-    ap.add_argument("--data-dir", default=None,
+    ap.add_argument("--data-dir", default=s.data_dir,
                     help="enable durability: journal KV + queues here")
-    ap.add_argument("--no-fsync", action="store_true",
+    ap.add_argument("--no-fsync", action="store_true", default=not s.fsync,
                     help="flush-only journal (faster pushes; an OS crash "
                          "may lose acknowledged writes)")
-    ap.add_argument("--standby-of", default=None, metavar="HOST:PORT",
+    ap.add_argument("--standby-of", default=s.standby_of, metavar="HOST:PORT",
                     help="run as a hot standby replicating this primary; "
                          "promotes itself when the link drops (needs "
                          "--data-dir)")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    configure_logging()
+    log.info("settings %s", json.dumps({
+        "host": args.host, "port": args.port, "data_dir": args.data_dir,
+        "fsync": not args.no_fsync, "standby_of": args.standby_of}))
     standby = parse_addrs(args.standby_of)[0] if args.standby_of else None
     try:
         asyncio.run(ControlPlaneServer(

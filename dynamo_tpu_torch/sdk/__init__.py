@@ -5,8 +5,9 @@ Copied from dynamo_tpu/sdk/__init__.py: a service is a plain class
 `depends()` edges resolve to runtime clients at start-up, `@async_on_start`
 hooks build engines, and the supervisor (`python -m
 dynamo_tpu_torch.sdk.serve`) starts one process per service against the
-control-plane server. The K8s manifest generator (`sdk/build.py`) and its
-reconciler (`sdk/reconcile.py`) wait for a later slice.
+control-plane server. `sdk/build.py` writes a docker-buildable bundle and
+renders the graph's K8s manifests, and `sdk/reconcile.py` keeps them
+applied.
 """
 from dynamo_tpu_torch.sdk.config import ServiceConfig
 from dynamo_tpu_torch.sdk.service import (

@@ -25,6 +25,7 @@ import sys
 
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.sdk.client import ServiceClient
+from dynamo_tpu_torch.utils.logconfig import configure_logging
 
 log = logging.getLogger("dynamo_tpu_torch.sdk")
 
@@ -88,7 +89,7 @@ async def amain(argv=None) -> None:
     p.add_argument("--control-host", default="127.0.0.1")
     p.add_argument("--control-port", type=int, default=5550)
     args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    configure_logging()
     cls = resolve(args.service)
     runtime = await DistributedRuntime.connect(
         args.control_host, args.control_port)

@@ -34,6 +34,7 @@ from dynamo_tpu_torch.sdk.allocator import CardAllocator
 from dynamo_tpu_torch.sdk.config import ServiceConfig, load_config_file
 from dynamo_tpu_torch.sdk.run_service import resolve
 from dynamo_tpu_torch.sdk.service import collect_graph
+from dynamo_tpu_torch.utils.logconfig import configure_logging
 
 log = logging.getLogger("dynamo_tpu_torch.sdk.serve")
 
@@ -87,7 +88,7 @@ async def amain(argv=None) -> int:
                    help="cards for resources={'gpu': n} services; a "
                         "service that asks for none shares card 0")
     args = p.parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    configure_logging()
 
     root = resolve(args.graph)
     specs = collect_graph(root)

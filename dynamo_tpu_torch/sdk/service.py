@@ -2,8 +2,10 @@
 
 Copied from dynamo_tpu/sdk/service.py: a service is a plain class,
 endpoints are async-generator methods, `depends()` edges resolve to
-runtime clients at start-up, and `collect_graph` orders a graph's services
-dependencies first (the launch order)."""
+runtime clients at start-up, `Service.link(Target)` / `unlink(Target)`
+add and remove such edges after the classes are defined (:59-114), and
+`collect_graph` orders a graph's services dependencies first (the launch
+order)."""
 from __future__ import annotations
 
 import dataclasses
@@ -60,6 +62,39 @@ def async_on_start(fn: Callable) -> Callable:
     return fn
 
 
+def _link(cls: Type, target: Type, attr: Optional[str] = None) -> Type:
+    """Dynamic graph composition (reference: sdk lib/service.py:173
+    `.link()`): add a dependency edge cls -> target at runtime — after
+    class definition, e.g. when a deploy script assembles Frontend ->
+    Processor -> Worker variants from one set of classes. Returns the
+    TARGET so chains compose left-to-right along the request path:
+    `Frontend.link(Processor).link(Worker)`. `attr` names the instance
+    attribute that receives the resolved client bundle (defaults to the
+    target's snake_cased service name; collisions raise)."""
+    spec = getattr(target, "__service_spec__", None)
+    if spec is None:
+        raise TypeError(f"{target!r} is not a @service class")
+    me: ServiceSpec = cls.__service_spec__
+    name = attr or "".join(
+        ("_" + c.lower()) if c.isupper() else c
+        for c in spec.name).lstrip("_")
+    existing = me.dependencies.get(name)
+    if existing is not None and existing is not target:
+        raise ValueError(
+            f"{me.name}.{name} already depends on {existing.__name__}; "
+            f"unlink first or pass a different attr")
+    me.dependencies[name] = target
+    return target
+
+
+def _unlink(cls: Type, target: Type) -> Type:
+    """Remove every dependency edge cls -> target (dynamic rewiring)."""
+    me: ServiceSpec = cls.__service_spec__
+    for attr in [a for a, t in me.dependencies.items() if t is target]:
+        del me.dependencies[attr]
+    return cls
+
+
 def service(name: Optional[str] = None, namespace: str = "dynamo",
             component: Optional[str] = None, workers: int = 1,
             resources: Optional[Dict[str, Any]] = None):
@@ -81,6 +116,8 @@ def service(name: Optional[str] = None, namespace: str = "dynamo",
             component=component or svc_name, workers=workers,
             resources=dict(resources or {}), endpoints=eps,
             dependencies=deps, start_hooks=hooks)
+        cls.link = classmethod(_link)
+        cls.unlink = classmethod(_unlink)
         return cls
     return wrap
 

@@ -549,7 +549,10 @@ def test_tier_failpoints_quarantine_as_jax(site, tier, tmp_path):
     out = []
     for name, faults, integrity in (("jax", jfaults, JINTEGRITY),
                                     ("torch", tfaults, INTEGRITY)):
+        # the registry is process-wide: start from clean counters, as an
+        # earlier test in this process may have left hits behind
         faults.REGISTRY.disarm()
+        faults.REGISTRY.reset_counters()
         integrity.__init__()
         arm = (lambda: faults.REGISTRY.arm(site, faults.FaultSchedule(
             0, [faults.FaultSpec("corrupt", p=1.0, n=1)])))
