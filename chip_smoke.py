@@ -23,11 +23,13 @@ Phases (any failed check exits non-zero; nothing is caught):
       the heads of Gemma-7B (16 / 16 x 256), Phi-3-mini (32 / 32 x 96),
       Gemma-2-9B (16 / 8 x 256) and GQA groups of 12 and 16 (hd 128), and
       at Qwen2-VL-7B's (28 / 4 x 128: a group of 7, one head block with a
-      masked eighth row); recycled page tails filled with NaN. Both compute
+      masked eighth row), and at one tensor-parallel rank's (llama3-70b at
+      tp 4: 16 / 2 x 128; llama3-8b at tp 2: 16 / 4 x 128; phase 22);
+      recycled page tails filled with NaN. Both compute
       the f32 state, so only summation order differs: rtol = atol = 1e-4
       for f32 caches and 2e-3 for bf16 caches. The prefix fold and the
       inclusive division are compared in f32, before the one cast to q's
-      dtype that both sides share (fold_f32). At those six geometries the
+      dtype that both sides share (fold_f32). At those eight geometries the
       kernel is then timed
       (CUDA events over a replayed graph) at 8 rows of 400 tokens with bf16
       and int8 pages beside its bound (K + V bytes over 3.35 TB/s), its
@@ -914,11 +916,37 @@ Phases (any failed check exits non-zero; nothing is caught):
    at once, started just before phase 10 and run beside it (its run.py
    processes): each exits 0 with every contract met.
 
+22. Tensor parallelism (A10 part 1; parallel/, the engine's lockstep),
+   each part in a child process of its own (`chip_smoke.py --phase-tp
+   22a|22b`, the two at once), its ranks processes of their own
+   (parallel/launch.py).
+   22a: llama3-8b at full width, TP_LAYERS = 8 of its 32 layers, bf16,
+   default EngineConfig, phase 4's chats one at a time with ignore_eos,
+   two rounds (capturing, measured), on an engine with no group and then
+   on the tp launcher's engine on an NCCL group of one: the streams
+   token-identical (an all-reduce of one rank is a copy); each round's
+   ragged launches = 8 x the decode steps derived from the streams + the
+   warm-ups'; one replay a window, no capture in the measured round; every
+   window graph of the group's engine holds (2 L + 1) x nw + 1 captured
+   all-reduce calls; the profiler's kernels in one replayed window and ms
+   a decode step of both reported. 22b: llama3-70b at full width, 8 of
+   its 80 layers, bf16, seed 0, phase 4's 8 chats together, 32 tokens,
+   half greedy and half seeded-sampled: first the whole tree on one
+   process (tp 1, ~18 GB), freed, then 4 rank processes on cuda:0 over
+   gloo (`tp_engine(..., backend="gloo")`); every stream equal to tp 1's
+   or first differing at a near tie, every rank's tokens rank 0's, each
+   rank's weight bytes those its config and specs give, its ragged
+   launches = 8 x its decode steps at 2 kv heads, window graphs "off
+   (gloo)"; ms a decode step and each rank's peak memory reported. NCCL
+   at world > 1 inside captured graphs, and the all-reduce's cost over
+   NVLink, need four cards: not run here.
+
 Each path (each run of 4, 4c, 5 and 9, the A/B at each geometry, each
 worker process of 11 and 12, each engine's turns in 13, each run of 14,
 each card run and run.py process of 15, each engine of 16, each round,
 engine and run.py process of 17, the run.py process and each in-process
-part of 18, each streamed run of 19, and phase 20) runs with every kernel's launch
+part of 18, each streamed run of 19, phase 20, and each round of 22a)
+runs with every kernel's launch
 count set to 0 just before it and read just after. Each phase prints its wall-clock
 seconds on a line `phase seconds: <phase> <s>`. The third line from the
 end of the output is one JSON object with the kernel records, the second
@@ -1078,7 +1106,11 @@ def ragged_cases() -> list:
 # row): (name, q heads, kv heads, head dim)
 GEOMETRIES = (("gemma-7b", 16, 16, 256), ("phi3-mini", 32, 32, 96),
               ("gemma-2-9b", 16, 8, 256), ("GQA 12", 96, 8, 128),
-              ("GQA 16", 128, 8, 128), ("qwen2-vl-7b", 28, 4, 128))
+              ("GQA 16", 128, 8, 128), ("qwen2-vl-7b", 28, 4, 128),
+              # one tensor-parallel rank's heads (phase 22): llama3-70b at
+              # tp 4, llama3-8b at tp 2
+              ("llama3-70b tp-4 rank", 16, 2, 128),
+              ("llama3-8b tp-2 rank", 16, 4, 128))
 
 
 def phase_kernel_geometries() -> dict:
@@ -2075,9 +2107,10 @@ def prompt_text(n_chars: int, seed: int) -> str:
     return "".join(rng.choice(letters, n_chars))
 
 
-def chat_requests(model: str, sampled: bool = True) -> list:
+def chat_requests(model: str, sampled: bool = True,
+                  max_tokens: int = MAX_TOKENS) -> list:
     """The main path's 8 chat requests: 100-600 byte-token prompts after
-    the chat template, MAX_TOKENS each; even ones greedy, odd ones sampled
+    the chat template, max_tokens each; even ones greedy, odd ones sampled
     (temperature 0.8, top_k 50, a seed each), or all greedy."""
     from dynamo_tpu_torch.protocols.openai import ChatCompletionRequest
     reqs = []
@@ -2086,7 +2119,7 @@ def chat_requests(model: str, sampled: bool = True) -> list:
         if sampled and i % 2:
             kw = dict(temperature=0.8, seed=1234 + i, ext={"top_k": 50})
         reqs.append(ChatCompletionRequest(
-            model=model, max_tokens=MAX_TOKENS,
+            model=model, max_tokens=max_tokens,
             messages=[{"role": "user", "content": prompt_text(n, i)}], **kw))
     return reqs
 
@@ -11452,6 +11485,474 @@ def phase_storms(smi: str, device: str = "cuda", beside=None) -> tuple:
     return out, side
 
 
+# -- phase 22: tensor parallelism ----------------------------------------------
+
+TP_RESULT = "PHASE22 "      # a child's result line: this prefix, then JSON
+TP_LAYERS = 8               # 22a's depth of llama3-8b's 32, 22b's of 70b's 80
+TP_RANKS = 4                # 22b: llama3-70b's tp-4 ranks, on one card
+TP_MAX_TOKENS = 32          # 22b's tokens a chat
+TP_SAMPLED_TOP_K = 50       # chat_requests' top_k on its sampled chats
+
+
+def tp_requests(card, max_tokens: int, logprobs=None,
+                ignore_eos: bool = False) -> list:
+    """Phase 4's 8 chats (even ones greedy, odd ones seeded-sampled) as
+    engine requests through the card's preprocessor and template."""
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.llm.worker import to_engine_request
+    pre = OpenAIPreprocessor(card)
+    out = []
+    for i, req in enumerate(chat_requests(card.name, max_tokens=max_tokens)):
+        er = to_engine_request(pre.preprocess_chat(req, f"tp-{i}")[0])
+        er.params = dataclasses.replace(er.params, logprobs=logprobs,
+                                        ignore_eos=ignore_eos)
+        out.append(er)
+    return out
+
+
+def tp_drive(engine, reqs: list, tag: str, together: bool) -> dict:
+    """The requests through engine.add_request / step, one at a time or
+    admitted together: each stream's ids and, with logprobs, its top-1 less
+    top-2 a token; the seconds."""
+    streams = {}
+
+    def run(rids):
+        while any(not streams[r][2] for r in rids):
+            for ev in engine.step():
+                ids, gaps, _ = streams[ev.request_id]
+                if ev.token is not None:
+                    ids.append(ev.token)
+                    tops = ev.top_logprobs or []
+                    gaps.append(tops[0][1] - tops[1][1] if len(tops) > 1
+                                else None)
+                if ev.finished:
+                    streams[ev.request_id] = (ids, gaps, True)
+    t0 = time.perf_counter()
+    rids = []
+    for i, er in enumerate(reqs):
+        rid = f"{tag}-{i}"
+        rids.append(rid)
+        streams[rid] = ([], [], False)
+        engine.add_request(dataclasses.replace(er, request_id=rid))
+        if not together:
+            run([rid])
+    run(rids)
+    engine._sync_stream()
+    return {"streams": [streams[r][:2] for r in rids],
+            "seconds": time.perf_counter() - t0}
+
+
+def traced_step(engine, prompts: list) -> dict:
+    """One steady decode step of the prompts (greedy, ignore_eos), the
+    window graph it replays traced by torch.profiler: the CUDA kernels the
+    trace names, by count."""
+    from torch.profiler import ProfilerActivity, profile
+    from dynamo_tpu_torch.engine.scheduler import EngineRequest, SamplingParams
+    for i, p in enumerate(prompts):
+        engine.add_request(EngineRequest(f"prof-{i}", list(p), SamplingParams(
+            max_tokens=8 * engine.cfg.decode_steps, temperature=0.0,
+            ignore_eos=True)))
+    while engine.scheduler.waiting or engine._pipeline is None:
+        engine.step()
+    engine._sync_stream()
+    for _ in range(4):     # a step whose follow-up window is refused
+        r0 = engine.graphs.replays   # replays none: trace the next one
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.step()
+            engine._sync_stream()
+        if engine.graphs.replays == r0 + 1:
+            break
+    check(engine.graphs.replays == r0 + 1, "the traced step replayed "
+          f"{engine.graphs.replays - r0} window graphs, expected 1")
+    names = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            names[e.key] = names.get(e.key, 0) + e.count
+    for i in range(len(prompts)):
+        engine.abort(f"prof-{i}")
+    while engine.has_work():
+        engine.step()
+    engine._sync_stream()
+    return names
+
+
+def phase_tp_one(smi: str) -> dict:
+    """22a: llama3-8b at full width (TP_LAYERS of its 32 layers), bf16,
+    default EngineConfig, phase 4's chats one at a time with ignore_eos
+    (every stream MAX_TOKENS long, so its decode steps follow from its
+    length), two rounds (capturing, measured), on an engine with no group
+    and then on the tp launcher's engine on an NCCL group of one. Gates:
+    the streams of the two engines token-identical; per round ragged
+    launches = layers x the steps derived from the streams + the warm-ups'
+    launches; one replay a window; no capture in the measured round; on
+    the group's engine every window graph holds (2 L + 1) x nw + 1
+    captured all-reduce calls (two a layer, the vocab gather a step, the
+    token check a window), and their replays add that many. Reported: the
+    profiler's kernels in one replayed window of each engine (at one rank
+    NCCL launches nothing for an in-place sum), ms a decode step of both."""
+    import gc
+    import torch
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.parallel.launch import tp_engine
+    from dynamo_tpu_torch.run import build_card
+    card = build_card("llama3-8b")
+    cfg = dataclasses.replace(card.model_config(), num_layers=TP_LAYERS)
+    reqs = tp_requests(card, MAX_TOKENS, ignore_eos=True)
+    prompts = [er.prompt for er in reqs]
+    n_l = cfg.num_layers
+    out = {}
+
+    def serve(engine, label: str) -> dict:
+        rec = {}
+        g = engine.graphs
+        for rnd in ("capture", "measured"):
+            cap0, rep0 = g.captured, g.replays
+            warm0 = g.warmup_launches[RAGGED]
+            coll0 = g.replay_collectives["tp_all_reduce"]
+            before = {k: getattr(engine, k) for k in COUNTERS}
+            reset_launch_counts()
+            res = tp_drive(engine, reqs, f"{label}-{rnd}", together=False)
+            launches = launch_counts()[RAGGED]
+            d = {k: getattr(engine, k) - v for k, v in before.items()}
+            lens = [len(ids) for ids, _ in res["streams"]]
+            check(lens == [MAX_TOKENS] * len(reqs),
+                  f"22a {label} {rnd}: stream lengths {lens}")
+            derived = sum(window_steps(n) for n in lens)
+            warm = g.warmup_launches[RAGGED] - warm0
+            check(d["decode_window_steps"] == derived,
+                  f"22a {label} {rnd}: {d['decode_window_steps']} decode "
+                  f"steps, derived from the streams {derived}")
+            check(launches == n_l * derived + warm,
+                  f"22a {label} {rnd}: ragged launches {launches}, expected "
+                  f"{n_l} x {derived} + {warm} of the warm-ups")
+            check(d["decode_dispatches"] == d["decode_windows"]
+                  == g.replays - rep0 > 0,
+                  f"22a {label} {rnd}: counters {d}, replays "
+                  f"{g.replays - rep0}")
+            if rnd == "measured":
+                check(g.captured == cap0, f"22a {label}: "
+                      f"{g.captured - cap0} graphs captured in the measured "
+                      "round")
+            rec[rnd] = {"streams": [ids for ids, _ in res["streams"]],
+                        "seconds": res["seconds"], "launches": launches,
+                        "derived_steps": derived, "warmup_launches": warm,
+                        "windows": d["decode_windows"],
+                        "collectives": g.replay_collectives[
+                            "tp_all_reduce"] - coll0}
+        if engine._comm is not None:
+            for key, calls in g.captured_collectives().items():
+                nw = key[4]
+                want = (2 * n_l + 1) * nw + 1
+                check(calls["tp_all_reduce"] == want,
+                      f"22a: the window graph {key} holds "
+                      f"{calls['tp_all_reduce']} all-reduce calls, expected "
+                      f"(2 x {n_l} + 1) x {nw} + 1 = {want}")
+        rec["ms_per_step"] = steady_ms_per_step(engine, prompts)
+        trace = traced_step(engine, prompts)
+        split = sum(n for k, n in trace.items() if "ragged_split_kernel" in k)
+        check(split > 0 and split % n_l == 0,
+              f"22a {label}: the traced window ran ragged_split_kernel "
+              f"{split} times, not a multiple of {n_l} layers")
+        rec["trace"] = {"kernels": sum(trace.values()),
+                        "ragged_split_kernel": split}
+        rec["nccl_kernels_in_trace"] = {k: v for k, v in trace.items()
+                                        if "nccl" in k.lower()}
+        rec["graphs_captured"] = g.captured
+        return rec
+
+    t0 = time.perf_counter()
+    engine = NativeEngine(cfg, EngineConfig(),
+                          eos_token_ids=set(card.eos_token_ids), seed=0,
+                          device="cuda")
+    out["no_group"] = serve(engine, "no group")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase seconds: 22a no group {time.perf_counter() - t0:.1f}",
+          flush=True)
+    t0 = time.perf_counter()
+    with tp_engine(cfg, EngineConfig(tp=1), device="cuda", seed=0,
+                   eos_token_ids=card.eos_token_ids) as engine:
+        check(engine._comm.backend == "nccl" and engine._comm.size == 1
+              and engine.window_graph_mode == "on",
+              f"22a: the launcher's engine holds {engine._comm.backend} x "
+              f"{engine._comm.size}, window graphs {engine.window_graph_mode}")
+        out["group_of_one"] = serve(engine, "NCCL group of one")
+        ranks = engine.tp_stats(sync=True)
+    print(f"phase seconds: 22a group of one {time.perf_counter() - t0:.1f}",
+          flush=True)
+    a, b = out["no_group"], out["group_of_one"]
+    for rnd in ("capture", "measured"):
+        check(a[rnd]["streams"] == b[rnd]["streams"],
+              f"22a {rnd}: the group of one's streams differ from the "
+              "engine's without a group")
+    check(a["measured"]["collectives"] == 0
+          and b["measured"]["collectives"] > 0,
+          f"22a: collectives replayed {a['measured']['collectives']} / "
+          f"{b['measured']['collectives']}")
+    check(ranks[0]["token_mismatches"] == 0, f"22a: {ranks}")
+    for label, r in out.items():
+        for rnd in ("capture", "measured"):
+            r[rnd].pop("streams")
+    print(f"22a [{smi}]: streams identical (2 rounds x 8 chats of "
+          f"{MAX_TOKENS} tokens); ms a decode step "
+          f"{a['ms_per_step']:.3f} without a group, "
+          f"{b['ms_per_step']:.3f} on the NCCL group of one; collectives "
+          f"replayed in the measured round {b['measured']['collectives']}; "
+          f"NCCL kernels the profiler saw in a replayed window "
+          f"{b['nccl_kernels_in_trace'] or 'none'}", flush=True)
+    return out
+
+
+def rank_weight_bytes(cfg, tp: int, rank: int) -> int:
+    """The bytes of rank's Megatron shard, from the config alone: q, k, v
+    and wo by heads, w_gate / w_up / w_down by the FFN width, lm_head by
+    ceil(V / tp) columns (the last rank's shorter), norms and embed whole."""
+    d, hd, f, v = (cfg.hidden_size, cfg.head_dim, cfg.intermediate_size,
+                   cfg.vocab_size)
+    h, hkv = cfg.num_heads // tp, max(1, cfg.num_kv_heads // tp)
+    per_layer = (2 * d + d * h * hd * 2 + d * hkv * hd * 2
+                 + 3 * d * (f // tp))
+    step = -(-v // tp)
+    cols = max(0, min(v, (rank + 1) * step) - rank * step)
+    head = 0 if cfg.tie_word_embeddings else d * cols
+    n = cfg.num_layers * per_layer + v * d + d + head
+    return n * (2 if cfg.dtype == "bfloat16" else 4)
+
+
+def sampled_gap(cfg, params, context: list, er, counter: int,
+                device: str = "cuda") -> float:
+    """Top-1 less top-2, in logit units, of the sampler's scores at the
+    last position of `context` (one plain forward of it on a cache of its
+    own): the scaled logits with top-k kept plus the Gumbel noise of
+    (seed, counter), times the temperature. A perturbation of the logits
+    smaller than this cannot change the sampled token."""
+    import torch
+    from dynamo_tpu_torch.engine.sampler import _uniform01, make_keys
+    from dynamo_tpu_torch.models import llama
+    n, ps = len(context), PS
+    pages = -(-n // ps)
+    cache = llama.init_cache(cfg, pages + 1, ps, device)
+    i32 = dict(dtype=torch.int32, device=device)
+    meta = llama.AttnMetadata(
+        positions=torch.arange(n, **i32)[None],
+        page_table=torch.arange(pages, **i32)[None],
+        kv_lens=torch.tensor([n], **i32),
+        write_idx=torch.arange(n, **i32)[None])
+    logits, _ = llama.forward(params, cfg, torch.tensor([context], **i32),
+                              cache, meta, last_idx=torch.tensor([n - 1],
+                                                                 **i32))
+    t = float(er.params.temperature)
+    scaled = logits[0].float() / t
+    keep = torch.topk(scaled, er.params.top_k).indices
+    keys = make_keys(torch.tensor([er.params.seed], **i32),
+                     torch.tensor([counter], **i32))
+    noise = -torch.log(-torch.log(_uniform01(keys, scaled.numel())[0]))
+    top2 = torch.topk((scaled + noise)[keep], 2).values
+    return float(top2[0] - top2[1]) * t
+
+
+def phase_tp_70b(smi: str, model: str = "llama3-70b", device: str = "cuda",
+                 layers: int = TP_LAYERS, tp: int = TP_RANKS,
+                 dtype: str = "") -> dict:
+    """22b: llama3-70b at full width (TP_LAYERS of its 80 layers), bf16,
+    seed 0, default EngineConfig; phase 4's 8 chats admitted together,
+    TP_MAX_TOKENS each, half greedy and half seeded-sampled, top-2
+    logprobs. First the whole tree on one process at tp 1 (the reference),
+    freed; then TP_RANKS rank processes on cuda:0 over gloo (the
+    launcher's backend argument: NCCL refuses two ranks on one card), each
+    drawing its shard of the same seeded draws. Gates: every stream equal
+    to the reference's or first differing at a near tie (greedy: the
+    reference's top-1 less top-2; sampled: the sampler's scores, recomputed
+    by `sampled_gap`); every rank's tokens rank 0's (no on-device mismatch,
+    equal digests); each rank's weight bytes those `rank_weight_bytes`
+    derives; each rank's ragged launches = layers x its decode steps
+    (eager windows: no warm-ups), its cache at Hkv / tp kv heads; window
+    graphs "off (gloo)" on every rank, every window eager. Reported: ms a
+    decode step at tp 4 (gloo) beside tp 1, each rank's peak memory (the
+    ranks share the card and its SMs). `model`, `device`, `layers`, `tp`
+    and `dtype` size a rehearsal on the CPU (gloo ranks there too)."""
+    import gc
+    import torch
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import NativeEngine
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.parallel.launch import tp_engine
+    from dynamo_tpu_torch.run import build_card
+    cuda = device == "cuda"
+    card = build_card(model)
+    cfg = dataclasses.replace(card.model_config(), num_layers=layers,
+                              dtype=dtype or card.model_config().dtype)
+    reqs = tp_requests(card, TP_MAX_TOKENS, logprobs=2)
+    prompts = [er.prompt for er in reqs]
+    n_prompt = [len(p) for p in prompts]
+    check(min(n_prompt) >= 100 and max(n_prompt) <= 600,
+          f"22b: prompt lengths {n_prompt} outside 100-600")
+    out = {"prompt_tokens": n_prompt}
+    t0 = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    engine = NativeEngine(cfg, EngineConfig(),
+                          eos_token_ids=set(card.eos_token_ids), seed=0,
+                          device=device)
+    ref = tp_drive(engine, reqs, "ref", together=True)
+    ref_ms = steady_ms_per_step(engine, prompts)
+    out["tp1"] = {"weight_bytes": engine.metrics().weight_bytes,
+                  "peak_bytes": (torch.cuda.max_memory_allocated() if cuda
+                                 else 0),
+                  "ms_per_step": ref_ms, "seconds": ref["seconds"]}
+    del engine
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        # rank 0's peak is its own, not the reference's
+        torch.cuda.reset_peak_memory_stats()
+    print(f"phase seconds: 22b tp 1 {time.perf_counter() - t0:.1f}",
+          flush=True)
+    t0 = time.perf_counter()
+    with tp_engine(cfg, EngineConfig(tp=tp), device=device, backend="gloo",
+                   devices=[f"{device}:0" if cuda else "cpu"] * tp, seed=0,
+                   eos_token_ids=card.eos_token_ids) as engine:
+        ready_s = time.perf_counter() - t0
+        s0 = engine.tp_stats(sync=True)
+        got = tp_drive(engine, reqs, "tp", together=True)
+        s1 = engine.tp_stats(sync=True)
+        tp_ms = steady_ms_per_step(engine, prompts)
+        mode = engine.window_graph_mode
+    print(f"phase seconds: 22b tp {tp} {time.perf_counter() - t0:.1f}",
+          flush=True)
+    want_mode = "off (gloo)" if cuda else "off (cpu)"
+    check(mode == want_mode, f"22b: window graphs {mode!r}")
+    firsts, params = [], None
+    for i, (er, (ids, _), (rids, gaps)) in enumerate(
+            zip(reqs, got["streams"], ref["streams"])):
+        d = next((j for j, (a, b) in enumerate(zip(ids, rids)) if a != b),
+                 None)
+        if d is None:
+            check(len(ids) == len(rids), f"22b: chat {i} holds {len(ids)} "
+                  f"tokens, the reference {len(rids)}")
+            firsts.append(None)
+            continue
+        if er.params.temperature <= 0:
+            gap = gaps[d]
+        else:
+            if params is None:
+                params = llama.init_params(cfg, device, 0)
+            gap = sampled_gap(cfg, params, list(er.prompt) + rids[:d], er, d,
+                              device)
+        check(gap is not None and gap <= NEAR_TIE,
+              f"22b: chat {i} at tp {tp} leaves the tp-1 stream at "
+              f"token {d}, where the top-1 less top-2 is {gap} (a near tie "
+              f"is <= {NEAR_TIE})")
+        firsts.append([d, round(gap, 6)])
+    del params
+    ranks = []
+    for a, b in zip(s0, s1):
+        r = b["rank"]
+        launches = (b["kernel_launches"][RAGGED]
+                    - a["kernel_launches"][RAGGED])
+        steps = b["decode_window_steps"] - a["decode_window_steps"]
+        windows = b["decode_windows"] - a["decode_windows"]
+        want_bytes = rank_weight_bytes(cfg, tp, r)
+        check(b["token_mismatches"] == 0
+              and b["token_digest"] == s1[0]["token_digest"],
+              f"22b: rank {r} sampled other tokens than rank 0: {b}")
+        check(b["weight_bytes"] == want_bytes,
+              f"22b: rank {r} holds {b['weight_bytes']} weight bytes, the "
+              f"config and the specs give {want_bytes}")
+        check(b["kv_heads"] == cfg.num_kv_heads // tp,
+              f"22b: rank {r}'s cache holds {b['kv_heads']} kv heads")
+        # the plain version (CPU tensors) counts no launch
+        check(steps == s1[0]["decode_window_steps"]
+              - s0[0]["decode_window_steps"] > 0
+              and launches == (cfg.num_layers * steps if cuda else 0),
+              f"22b: rank {r}: ragged launches {launches}, expected "
+              f"{cfg.num_layers} x {steps} decode steps (rank 0's "
+              f"{s1[0]['decode_window_steps'] - s0[0]['decode_window_steps']})")
+        check(b["window_graphs"] == want_mode
+              and b["eager_windows"] - a["eager_windows"] == windows > 0
+              and b["graphs_captured"] == 0,
+              f"22b: rank {r}: window graphs {b['window_graphs']}, "
+              f"{b['eager_windows'] - a['eager_windows']} eager of "
+              f"{windows} windows, {b['graphs_captured']} captured")
+        ranks.append({"rank": r, "ragged_launches": launches,
+                      "decode_steps": steps, "windows": windows,
+                      "all_reduces": b["all_reduces"] - a["all_reduces"],
+                      "weight_bytes": b["weight_bytes"],
+                      "peak_bytes": b.get("peak_bytes", 0),
+                      "kv_heads": b["kv_heads"]})
+    out.update(ranks=ranks, first_differences=firsts, ready_s=ready_s,
+               tp_ms_per_step=tp_ms, seconds=got["seconds"],
+               same=sum(f is None for f in firsts))
+    print(f"22b [{smi}]: {model} ({layers} layers) at tp "
+          f"{tp} over gloo on one card: {out['same']} of {len(reqs)} "
+          f"streams identical to tp 1, first differences {firsts}; every "
+          f"rank's tokens rank 0's; ragged launches "
+          f"{[x['ragged_launches'] for x in ranks]} = {cfg.num_layers} x "
+          f"{ranks[0]['decode_steps']} decode steps a rank at "
+          f"{ranks[0]['kv_heads']} kv heads; weight bytes "
+          f"{[x['weight_bytes'] for x in ranks]} (tp 1 "
+          f"{out['tp1']['weight_bytes']}); peak GiB a rank "
+          f"{[round(x['peak_bytes'] / 2**30, 2) for x in ranks]} (tp 1 "
+          f"{out['tp1']['peak_bytes'] / 2**30:.2f}); ms a decode step "
+          f"{tp_ms:.3f} at tp {tp} (gloo, eager windows, the ranks' "
+          f"processes sharing the card) beside {ref_ms:.3f} at tp 1 (graph "
+          f"windows); ranks ready in {ready_s:.1f} s", flush=True)
+    return out
+
+
+def tp_main(part: str) -> int:
+    """`chip_smoke.py --phase-tp 22a|22b`: that part of phase 22 alone, in
+    the process main() starts for it, on kernels main() has built; its
+    last line is the result (TP_RESULT + JSON)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --phase-tp: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn = {"22a": phase_tp_one, "22b": phase_tp_70b}[part]
+    rec = fn(nvidia_smi())
+    print(TP_RESULT + json.dumps(rec), flush=True)
+    return 0
+
+
+def phase_tp_child(part: str) -> dict:
+    """A part of phase 22 in a child process of its own (its ranks are
+    processes too): the engines of earlier phases keep device memory in
+    this one. The child's output passes through; a non-zero exit or a
+    missing result line fails the run."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase-tp", part],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    result, tail = None, []
+    try:
+        for line in proc.stdout:
+            if line.startswith(TP_RESULT):
+                result = json.loads(line[len(TP_RESULT):])
+            else:
+                print(line, end="", flush=True)
+                tail = (tail + [line.rstrip("\n")])[-25:]
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    check(rc == 0 and result is not None,
+          f"phase {part} (child process) exited {rc}"
+          f"{'' if result is not None else ' without its result line'}"
+          "; last output:\n" + "\n".join(tail))
+    return result
+
+
 def timed(name: str, fn, *args, **kw):
     """fn(*args, **kw), its wall-clock seconds printed on a line of its
     own (the time limit's budget by phase)."""
@@ -11572,6 +12073,14 @@ def main() -> int:
     traced = timed("20", phase_traced_disagg, smi,
                    device_name=torch.cuda.get_device_name(0))
     print(f"traced disaggregation: {json.dumps(traced)}", flush=True)
+    # 22a and 22b in two child processes at once (a failed gate's
+    # SystemExit reaches this thread through its future)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as ex:
+        futs = {part: ex.submit(timed, part, phase_tp_child, part)
+                for part in ("22a", "22b")}
+        tp = {part: f.result() for part, f in futs.items()}
+    print(f"tensor parallelism: {json.dumps(tp)}", flush=True)
     print(f"phase seconds: all {time.perf_counter() - t_all:.1f}",
           flush=True)
 
@@ -11635,6 +12144,17 @@ def main() -> int:
                   "20 decode engine (32 x derived steps + warm-ups)":
                       traced["launches"]["decode"],
                   "20 prefill engine": traced["launches"]["prefill"]},
+              "tp_launches": {
+                  **{f"22a llama3-8b ({TP_LAYERS} layers) {label}, "
+                     f"{rnd} round ({TP_LAYERS} x derived steps + "
+                     "warm-ups)": tp["22a"][key][rnd]["launches"]
+                     for key, label in (("no_group", "no group"),
+                                        ("group_of_one",
+                                         "NCCL group of one"))
+                     for rnd in ("capture", "measured")},
+                  **{f"22b llama3-70b tp-{TP_RANKS} rank {r['rank']} "
+                     f"({r['kv_heads']} kv heads, gloo, eager)":
+                     r["ragged_launches"] for r in tp["22b"]["ranks"]}},
               "geometries": geometries,
               "int8": {"launches": first_q["launches"],
                        "max_abs_err": max(err_int8, main_err_q),
@@ -11707,4 +12227,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(moe_main() if sys.argv[1:] == ["--phase-moe"] else main())
+    if sys.argv[1:] == ["--phase-moe"]:
+        sys.exit(moe_main())
+    if sys.argv[1:2] == ["--phase-tp"] and len(sys.argv) == 3:
+        sys.exit(tp_main(sys.argv[2]))
+    sys.exit(main())

@@ -201,6 +201,10 @@ class EngineConfig:
     stream_pages: int = 0
     stream_resident_pages: int = 8
     stream_hot_pages: int = 2
+    # the tensor-parallel mesh axis's size (parallel/): the engine of a
+    # group of tp ranks checks it against its mesh; run.py --tp spawns the
+    # ranks
+    tp: int = 1
     # decode steps run per window: the sampled token feeds the next step on
     # the device, and the window's tokens cross to the host in one copy
     decode_steps: int = 8

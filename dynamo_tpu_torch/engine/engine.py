@@ -141,8 +141,30 @@ committed and records nothing, as in JAX. `metrics()` carries the
 ledger's figures as `engine_*` (the worker's $STATS). `DYN_LEDGER=0`
 turns the ledger off; the streams are the same either way.
 
-Left out of this slice: pipeline/tensor/expert parallelism and the tp shard
-inject (`inject_pages_shard`).
+Tensor parallelism (dynamo_tpu/engine/engine.py:108-133, :263-299,
+:515-546, :2179; parallel/): an engine built with a `mesh` that holds a
+group (parallel/launch.py builds one process a rank) is one rank of a
+Megatron-sharded dense model. Its `model_cfg` is the rank's
+(llama.rank_config: its q heads, kv heads and FFN width), its weights the
+rank's shard of the same seeded draws at any tp (llama.init_params), its
+cache its kv heads. Rank 0 owns the scheduler and the page allocator;
+before each device launch (a prefill or mixed step, a decode window or its
+pipelined follow-up) it broadcasts the launch's inputs (`_mirror`: the
+step's packed arrays, or the window's key, shapes and uploaded arrays, or
+none when the window runs off the device carry), and the other ranks run
+the same launch as it comes (`follow`), sampler included: the logits are
+bit-equal on every rank, so every rank samples the same tokens and the
+window stays on the device; each launch checks that on the device
+(TpComm.check_tokens). Under NCCL the window graphs capture the
+collectives; gloo ops cannot be captured, so an engine on a gloo group
+runs its windows eagerly (`window_graph_mode` "off (gloo)", counted in
+`graphs.eager_runs`). A head count tp does not divide takes the gather
+window with the JAX engine's reason. `metrics()` and `tp_stats()` report
+tp, the rank, the backend, the window-graph mode and each rank's launches.
+What the slice leaves out is refused by name on a group: MoE, int8
+weights, vision, speculative decoding, the KV tiers and streaming (at tp >
+1 with the JAX engine's message), the shared pool and the disaggregated
+transfer (`inject_pages_shard` with it).
 """
 from __future__ import annotations
 
@@ -151,6 +173,8 @@ import dataclasses
 import logging
 import math
 import os
+import threading
+import time
 from typing import Dict, List, Optional, Set
 
 import numpy as np
@@ -185,6 +209,9 @@ from dynamo_tpu_torch.ops.quant import (
     is_quantized, quantize_params, validate_mode as validate_quant,
 )
 from dynamo_tpu_torch.runtime.integrity import XFER_STATS
+
+# metrics() refreshes a tp engine's per-rank figures at most this often
+TP_STATS_INTERVAL_S = 1.0
 
 
 @dataclasses.dataclass
@@ -223,6 +250,7 @@ class NativeEngine:
         seed: int = 0,
         device="cuda",
         draft_params=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         check_supported(model_cfg, self.device)
@@ -233,13 +261,41 @@ class NativeEngine:
                 model_cfg, kv_quant=validate_mode(engine_cfg.kv_quant))
         self.kv_quant = validate_mode(model_cfg.kv_quant)
         self.quant = validate_quant(model_cfg.quant)
-        self.model_cfg = model_cfg
+        # tensor parallelism: this rank's place on the mesh and its group
+        # (None: one process serves the whole model)
+        self.mesh = mesh
+        self._comm = mesh.comm if mesh is not None else None
+        self.tp = mesh.tp if mesh is not None else 1
+        self.tp_rank = mesh.rank if mesh is not None else 0
+        self._stopped = False
+        self._lockstep_lock = threading.RLock()
+        self._tp_cached: tuple = (0.0, [])
+        if self._comm is not None:
+            self._check_tp(model_cfg, engine_cfg)
+        elif engine_cfg.tp != 1:
+            raise ValueError(
+                f"EngineConfig.tp={engine_cfg.tp} needs the engine of a "
+                "tensor-parallel group (parallel/launch.tp_engine, run.py "
+                "--tp); this engine holds no group")
+        # the whole model's config; model_cfg is the part this rank runs
+        self.full_model_cfg = model_cfg
+        self.model_cfg = llama.rank_config(model_cfg, self.tp)
         # the decode attention path, resolved once here and never switched
         # after (models/llama.decode_path): "ragged" (the kernel) or
         # "gather" (the attention knobs, a geometry the kernel cannot
         # take, or decode_kernel="off"), with the reason
         self.decode_path, self.decode_path_reason = llama.decode_path(
             model_cfg)
+        h, hkv = model_cfg.num_heads, model_cfg.num_kv_heads
+        if self.decode_path == "ragged" and self.tp > 1 and (
+                h % self.tp or hkv % self.tp):
+            # the JAX engine's rule and reason (engine.py:108-133): its
+            # shard_map needs tp to divide the heads; here a rank holding
+            # one replicated kv head could run the kernel, but the path
+            # follows the reference
+            self.decode_path = "gather"
+            self.decode_path_reason = (f"num_heads={h} / num_kv_heads={hkv} "
+                                       f"not divisible by tp={self.tp}")
         if self.decode_path == "gather" and model_cfg.decode_kernel != "off":
             logging.getLogger(__name__).warning(
                 "model %r, decode_kernel=%r: %s; decoding through the gather "
@@ -276,8 +332,13 @@ class NativeEngine:
                 scale_shape=page_shape[:-1] if self.kv_quant else None,
                 pin=self.device.type == "cuda")
         self.scheduler = Scheduler(engine_cfg, host_pool=self.host_pool)
+        model_cfg = self.model_cfg
         if params is None:
-            params = llama.init_params(model_cfg, self.device, seed)
+            # at tp the rank's shard of the seeded draws (rank-invariant)
+            params = llama.init_params(self.full_model_cfg, self.device, seed,
+                                       mesh=mesh)
+        elif self._comm is not None:
+            self._check_shard(params)
         elif self.quant and not is_quantized(params["layers"]["wq"]):
             # a loader may hand an already-quantized tree; otherwise
             # quantize where the weights live, one layer slice at a time
@@ -288,6 +349,10 @@ class NativeEngine:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self.graphs = WindowGraphs(self.device, self._stream)
+        if self._comm is not None and self._comm.backend == "gloo":
+            # gloo's collectives cannot be captured in a CUDA graph: the
+            # windows run eagerly, and say so (window_graph_mode)
+            self.graphs.eager = True
         self._host_copies = HostCopies()
         # the KV tiers: offloads wait here until the next cache write
         # extracts them; onboard copies run on a stream of their own
@@ -420,6 +485,58 @@ class NativeEngine:
         self._draft.graphs.capture_lock = self.graphs.capture_lock
         return True
 
+    def _check_tp(self, mcfg: ModelConfig, ecfg: EngineConfig) -> None:
+        """Refuse what a tensor-parallel engine does not serve: a mesh axis
+        other than "tp" above 1, an EngineConfig.tp that is not the mesh's,
+        and, by name, what this slice of the port leaves out (the streaming
+        refusal at tp > 1 is the JAX engine's, engine.py:478-482, in its
+        order: after the streamer's own need of the host tier)."""
+        for axis, n in self.mesh.shape.items():
+            if axis != "tp" and n > 1:
+                raise ValueError(
+                    f"mesh axis {axis!r}={n}: this port runs tensor "
+                    "parallelism only (dp, pp, ep and sp meshes are not "
+                    "ported yet)")
+        if ecfg.tp != self.tp:
+            raise ValueError(f"engine tp={ecfg.tp} but the mesh's tp axis is "
+                             f"{self.tp}")
+        if self.tp > 1 and ecfg.stream_pages > 0 and ecfg.host_pages > 0:
+            raise ValueError(
+                "tiered-KV streaming runs single-device only for "
+                "now (the per-layer window-pool loop does not "
+                "compose with pp/sp/multi-chip meshes)")
+        left_out = (("an MoE model", mcfg.is_moe),
+                    ("int8 weights (quant='int8')", bool(mcfg.quant)),
+                    ("a vision tower", mcfg.vision is not None),
+                    ("speculative decoding (spec_decode)",
+                     bool(ecfg.spec_decode)),
+                    # streaming needs the host tier (its own refusal says
+                    # so), so this one refuses it too
+                    ("the KV host / disk tiers (host_pages, disk_pages)",
+                     ecfg.host_pages > 0 or ecfg.disk_pages > 0))
+        for what, on in left_out:
+            if on:
+                self._refuse_tp(what)
+        llama.check_tp(mcfg, self.tp)
+
+    def _refuse_tp(self, what: str) -> None:
+        if self._comm is not None:
+            raise ValueError(f"{what} is not served on a tensor-parallel "
+                             f"engine (tp={self.tp}) by this port yet")
+
+    def _check_shard(self, params) -> None:
+        """A tp engine's `params` are its rank's shard (llama.shard_params,
+        or init_params / params_from_jax given the mesh)."""
+        mc, lp = self.model_cfg, params["layers"]
+        want = {"wq": mc.num_heads * mc.head_dim,
+                "wk": mc.num_kv_heads * mc.head_dim,
+                "w_gate": mc.intermediate_size}
+        got = {k: int(lp[k].shape[-1]) for k in want}
+        if got != want:
+            raise ValueError(
+                f"params are not rank {self.tp_rank}'s shard at tp={self.tp}:"
+                f" columns {got}, the rank needs {want} (llama.shard_params)")
+
     def _build_streamer(self):
         """The StreamingDecoder when stream_pages > 0, after the JAX
         engine's refusals (dynamo_tpu/engine/engine.py:469-501; the port runs
@@ -459,7 +576,11 @@ class NativeEngine:
     @cache.setter
     def cache(self, value):
         """Rebinding (or freeing) the cache drops the window graphs captured
-        over the old one, and with them the device carry."""
+        over the old one, and with them the device carry. A tp engine's
+        ranks capture in lockstep, so its cache is not rebound: close it."""
+        if self.tp > 1 and getattr(self, "_cache", None) is not None:
+            raise ValueError("the cache of a tensor-parallel engine (tp="
+                             f"{self.tp}) is not rebound; close the engine")
         self._sync_stream()
         self._cache = value
         if self._stream is not None and value is not None:
@@ -530,6 +651,8 @@ class NativeEngine:
         return req
 
     def add_request(self, req: EngineRequest) -> None:
+        if req.prefill_only:
+            self._refuse_tp("a disaggregated prefill (prefill_only)")
         self.scheduler.add_request(
             self._validate_prompt(self._resolve_mm(req)))
 
@@ -541,7 +664,15 @@ class NativeEngine:
     def close(self) -> None:
         """Wait for the device work the engine enqueued (a discarded
         follow-up window may still run) and stop the tier threads (the
-        offload copies and the pool publisher drain first)."""
+        offload copies and the pool publisher drain first). Rank 0 of a tp
+        engine takes every rank's final figures (`tp_stats`) and releases
+        its followers (`follow` returns)."""
+        with self._lockstep():
+            if self._comm is not None and self.tp_rank == 0 \
+                    and not self._stopped:
+                self.tp_stats(sync=True)
+                self._mirror(("stop",))
+            self._stopped = True
         self._sync_stream()
         self._retire_onboards(wait=True)
         if self._copy_stream is not None:
@@ -580,7 +711,7 @@ class NativeEngine:
         arrays: the device carry feeds it), then fetches and commits the
         in-flight window's outputs while the follow-up executes. Events for
         a pipelined window arrive one step() call after its dispatch."""
-        with self._on_stream():
+        with self._lockstep(), self._on_stream():
             self._retire_onboards()
             if self._pipeline is not None:
                 return self._pipeline_step()
@@ -644,6 +775,12 @@ class NativeEngine:
         m.decode_path = self.decode_path
         m.decode_path_reason = self.decode_path_reason
         m.decode_kernel_tag = self.decode_kernel_tag
+        m.window_graphs = self.window_graph_mode
+        m.eager_windows = self.graphs.eager_runs
+        m.tp = self.tp
+        m.tp_rank = self.tp_rank
+        m.tp_backend = self._comm.backend if self._comm is not None else ""
+        m.tp_ranks = self._tp_ranks_cached()
         # KV representation: bytes one page occupies on the device (k + v,
         # plus scales when quantized) and the quantized bit width (0 = none)
         mc = self.model_cfg
@@ -715,10 +852,126 @@ class NativeEngine:
         with self._on_stream():
             return int(self._nonfinite.item())
 
+    # -- tensor parallelism: the ranks' lockstep ------------------------------
+
+    @property
+    def window_graph_mode(self) -> str:
+        """How decode windows run: "on" (one captured CUDA graph a window),
+        "off (gloo)" (a gloo group: its collectives cannot be captured),
+        "off (cpu)", or "off (eager)" (`graphs.eager` set by a caller)."""
+        if self.device.type != "cuda":
+            return "off (cpu)"
+        if self._comm is not None and self._comm.backend == "gloo":
+            return "off (gloo)"
+        return "off (eager)" if self.graphs.eager else "on"
+
+    def _mirroring(self) -> bool:
+        """Rank 0 of a group with followers: its launches are broadcast."""
+        return (self._comm is not None and self._comm.size > 1
+                and self.tp_rank == 0)
+
+    def _mirror(self, msg: tuple) -> None:
+        if self._mirroring():
+            self._comm.broadcast(msg)
+
+    def _lockstep(self):
+        """Held by rank 0 around everything that sends to the followers
+        (a step, the stats exchange, the release at close), which other
+        threads may call while a step runs."""
+        if self._comm is None:
+            return contextlib.nullcontext()
+        return self._lockstep_lock
+
+    def follow(self) -> None:
+        """A follower rank's loop (ranks > 0): run each launch rank 0
+        broadcasts, as it comes, until rank 0 closes the engine; then close
+        this rank's."""
+        if self._comm is None or self.tp_rank == 0:
+            raise RuntimeError("follow() runs on the ranks > 0 of a tensor-"
+                               "parallel engine")
+        while True:
+            msg = self._comm.broadcast()
+            kind = msg[0]
+            if kind == "stop":
+                break
+            with self._on_stream():
+                if kind == "step":
+                    self._device_step(msg[1])
+                elif kind == "window":
+                    self._follow_window(msg[1], msg[2])
+                elif kind == "stats":
+                    self._comm.gather(self._rank_stats(msg[1]))
+                else:
+                    raise RuntimeError(f"unknown lockstep message {kind!r}")
+        self._stopped = True
+        self.close()
+
+    def _rank_stats(self, sync: bool) -> dict:
+        """This rank's figures: its device, backend and window-graph mode,
+        the launches of each kernel and collective in its process, its
+        windows, weight bytes and peak device memory; with `sync` (a wait
+        for its stream) also its token mismatches and digest and its
+        non-finite logit steps."""
+        from dynamo_tpu_torch.engine.window_graph import KERNELS
+        from dynamo_tpu_torch.parallel import comm as tpc
+        g = self.graphs
+        out = {"rank": self.tp_rank, "device": str(self.device),
+               "backend": self._comm.backend,
+               "window_graphs": self.window_graph_mode,
+               "kernel_launches": {name: getattr(mod, attr) for name, (
+                   mod, attr, _) in KERNELS.items()},
+               "graph_warmup_launches": dict(g.warmup_launches),
+               "all_reduces": tpc.ALL_REDUCES,
+               "graphs_captured": g.captured, "graph_replays": g.replays,
+               "eager_windows": g.eager_runs,
+               "decode_windows": self.decode_windows,
+               "decode_window_steps": self.decode_window_steps,
+               "kv_heads": self.model_cfg.num_kv_heads,
+               "weight_bytes": _tree_bytes(self.params)}
+        if self.device.type == "cuda":
+            out["peak_bytes"] = torch.cuda.max_memory_allocated(self.device)
+        if sync:
+            self._sync_stream()
+            out.update(self._comm.token_stats(),
+                       nonfinite_steps=int(self._nonfinite.item()))
+        return out
+
+    def tp_stats(self, sync: bool = True) -> list:
+        """Every rank's `_rank_stats`, in rank order (rank 0 asks the
+        followers through the lockstep; [] without a group). After close,
+        the figures of the last exchange (close takes one with sync)."""
+        if self._comm is None:
+            return []
+        if self.tp_rank != 0:
+            return [self._rank_stats(sync)]
+        with self._lockstep():
+            if self._stopped:
+                return self._tp_cached[1]
+            mine = self._rank_stats(sync)
+            if self._comm.size > 1:
+                self._comm.broadcast(("stats", sync))
+                ranks = self._comm.gather(mine)
+            else:
+                ranks = [mine]
+            self._tp_cached = (time.monotonic(), ranks)
+            return ranks
+
+    def _tp_ranks_cached(self) -> list:
+        """metrics()'s per-rank figures: refreshed (without a device wait)
+        at most every TP_STATS_INTERVAL_S, else the last exchange's."""
+        if self._comm is None:
+            return []
+        t, ranks = self._tp_cached
+        if ranks and (self._stopped or time.monotonic() - t
+                      < TP_STATS_INTERVAL_S):
+            return ranks
+        return self.tp_stats(sync=False)
+
     # -- disaggregation ------------------------------------------------------
 
     def allocate_remote(self, req: EngineRequest):
         """Decode side: allocate a remote prefill's pages up front."""
+        self._refuse_tp("the disaggregated transfer (allocate_remote)")
         return self.scheduler.add_remote(
             self._validate_prompt(self._resolve_mm(req)))
 
@@ -765,6 +1018,7 @@ class NativeEngine:
         the scratch page is never read as data. "ready" is an event on the
         engine's stream after the gather (None on the CPU): a reader on
         another stream waits on it."""
+        self._refuse_tp("the disaggregated transfer (extract_pages)")
         ids = np.minimum(self._bucket_ids(page_ids), self.cfg.num_pages - 1)
         with self._on_stream():
             idx = self._dev(ids)
@@ -784,6 +1038,7 @@ class NativeEngine:
         scratch page. An int8 cache needs the scale stacks and an
         unquantized one refuses them: both sides of a transfer run the same
         kv_quant mode."""
+        self._refuse_tp("the disaggregated transfer (inject_pages)")
         if self.kv_quant and k_scale is None:
             raise ValueError(
                 "this engine stores int8 KV pages (kv_quant="
@@ -944,6 +1199,7 @@ class NativeEngine:
         host and disk tiers, and (publish=True) every full page this engine
         seals is published into it off the step loop."""
         from dynamo_tpu_torch.engine.kv_pool import PoolPublishStream
+        self._refuse_tp("the shared KV pool")
         self.kv_pool = pool
         self.kv_pool_source = source_id
         self.scheduler.kv_pool = pool
@@ -1093,19 +1349,20 @@ class NativeEngine:
         self._note_program(("step", rp is not None, with_lp, mm,
                             plan.tokens.shape, plan.page_table.shape[1],
                             None if rp is None else rp[0].shape[1]))
-        toks, lp, top_ids, top_lps, moe = _engine_step(
-            self.model_cfg, self._eos_vec, self.params, self.cache,
-            self._dev(plan.tokens), self._dev(plan.positions),
-            self._dev(plan.page_table), self._dev(plan.kv_lens),
-            self._dev(plan.write_idx), self._dev(plan.last_idx),
-            self._dev(temp), self._dev(top_k), self._dev(top_p),
-            self._dev(seeds), self._dev(counters), self._dev(min_toks),
-            hist=None if rp is None else self._dev(rp[0]),
-            rep_penalty=None if rp is None else self._dev(rp[1]),
-            with_lp=with_lp, greedy=bool(np.all(temp <= 0.0)),
-            nonfinite=self._nonfinite, path=self.decode_path,
-            mm_embeds=self._dev(plan.mm_embeds) if mm else None,
-            mm_mask=self._dev(plan.mm_mask) if mm else None)
+        # the step's packed inputs: what the followers of a tp engine run
+        inputs = {"tokens": plan.tokens, "positions": plan.positions,
+                  "page_table": plan.page_table, "kv_lens": plan.kv_lens,
+                  "write_idx": plan.write_idx, "last_idx": plan.last_idx,
+                  "temperature": temp, "top_k": top_k, "top_p": top_p,
+                  "seeds": seeds, "counters": counters,
+                  "min_tokens": min_toks,
+                  "hist": None if rp is None else rp[0],
+                  "rep_penalty": None if rp is None else rp[1],
+                  "mm_embeds": plan.mm_embeds if mm else None,
+                  "mm_mask": plan.mm_mask if mm else None,
+                  "with_lp": with_lp, "greedy": bool(np.all(temp <= 0.0))}
+        self._mirror(("step", inputs))
+        toks, lp, top_ids, top_lps, moe = self._device_step(inputs)
         out = toks.cpu().numpy()
         if moe is not None:
             # read after the tokens' copy, which waited for the step
@@ -1113,6 +1370,23 @@ class NativeEngine:
         self._last_logprobs = ((lp.cpu().numpy(), top_ids.cpu().numpy(),
                                 top_lps.cpu().numpy()) if with_lp else None)
         return out
+
+    def _device_step(self, a: dict):
+        """Launch one prefill / mixed step from its packed host inputs
+        (`_run_device_step`'s, or rank 0's on a follower)."""
+        def dev(name):
+            return None if a[name] is None else self._dev(a[name])
+        return _engine_step(
+            self.model_cfg, self._eos_vec, self.params, self.cache,
+            *(dev(n) for n in ("tokens", "positions", "page_table",
+                               "kv_lens", "write_idx", "last_idx",
+                               "temperature", "top_k", "top_p", "seeds",
+                               "counters", "min_tokens")),
+            hist=dev("hist"), rep_penalty=dev("rep_penalty"),
+            with_lp=a["with_lp"], greedy=a["greedy"],
+            nonfinite=self._nonfinite, path=self.decode_path,
+            mm_embeds=dev("mm_embeds"), mm_mask=dev("mm_mask"),
+            comm=self._comm)
 
     def _run_prefill(self, plan: PrefillPlan) -> List[StepOutput]:
         sampled = self._run_device_step(plan, plan.seqs)
@@ -1278,6 +1552,7 @@ class NativeEngine:
             spec.update(hist=((s, hb), i32), rep_penalty=((s,), f32))
         bufs = self.graphs.inputs(shapes, spec)
         bufs["nonfinite"] = self._nonfinite
+        host = None
         if self._dec_state != sig or rp is not None:
             with self.phases.phase("upload"):
                 ign = np.array([
@@ -1307,7 +1582,12 @@ class NativeEngine:
                   "key": (rp is not None, with_lp, greedy, fused, nw)
                   + shapes + (base_pb,),
                   # which attention path + sampling tail the window runs
-                  "tag": self.decode_path + ("+fused" if fused else "")}
+                  "tag": self.decode_path + ("+fused" if fused else ""),
+                  # what a tp engine's followers need to run the same
+                  # window: its buffers' spec and the arrays uploaded into
+                  # them (None: the window runs off the device carry)
+                  "shapes": shapes, "spec": spec, "base_pb": base_pb,
+                  "host": host}
         if self.pregather:
             staged["window_bufs"] = self._window_bufs(s, base_pb, nw)
         return staged
@@ -1348,7 +1628,7 @@ class NativeEngine:
                 hist=b.get("hist"), rep_penalty=b.get("rep_penalty"),
                 with_lp=with_lp, greedy=greedy, fused=fused,
                 nonfinite=b["nonfinite"], path=self.decode_path,
-                window_bufs=window_bufs)
+                window_bufs=window_bufs, comm=self._comm)
             for name, t in zip(("tokens", "positions", "counters"), carry):
                 b[name].copy_(t)
             return tuple(outs)
@@ -1357,7 +1637,12 @@ class NativeEngine:
     def _dispatch_staged(self, staged: dict):
         """Dispatch one decode window from its staged buffers (the carry
         included): one graph replay on the card. Returns its outputs, still
-        on the device."""
+        on the device. Rank 0 of a tp engine first broadcasts the window
+        (its uploaded arrays only with its first dispatch)."""
+        if self._mirroring():
+            self._mirror(("window", {k: staged[k] for k in (
+                "key", "nw", "tag", "shapes", "spec", "base_pb")},
+                staged.pop("host", None)))
         with self.phases.phase("dispatch"):
             outs = self.graphs.run(staged["key"], self._window_program(staged),
                                    staged["bufs"], self.decode_path)
@@ -1372,6 +1657,21 @@ class NativeEngine:
             with self.phases.phase("device"):
                 self._sync_stream()
         return outs
+
+    def _follow_window(self, desc: dict, host) -> None:
+        """A follower's window: rank 0's arrays (if it uploaded any) into
+        this rank's buffers of the same shapes, then the same dispatch
+        (a graph replay, captured at the same first use as rank 0's)."""
+        bufs = self.graphs.inputs(desc["shapes"], desc["spec"])
+        bufs["nonfinite"] = self._nonfinite
+        if host is not None:
+            for name, arr in host.items():
+                bufs[name].copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+        staged = dict(desc, bufs=bufs)
+        if self.pregather:
+            staged["window_bufs"] = self._window_bufs(
+                desc["shapes"][0], desc["base_pb"], desc["nw"])
+        self._dispatch_staged(staged)
 
     def _copy_outs_async(self, outs):
         """Start the device->host copy of a window's outputs right after its
@@ -1799,27 +2099,33 @@ def _engine_step(cfg: ModelConfig, eos, params, cache, tokens,
                  positions, page_table, kv_lens, write_idx, last_idx,
                  temperature, top_k, top_p, seeds, counters, min_tokens,
                  hist=None, rep_penalty=None, with_lp=False, greedy=False,
-                 nonfinite=None, path=None, mm_embeds=None, mm_mask=None):
+                 nonfinite=None, path=None, mm_embeds=None, mm_mask=None,
+                 comm=None):
     """forward + last-position logits + sample for one prefill or mixed
     step (eos: the engine's [V] eos mask or None). Returns (tokens [B]
     int32, sampled_lp, top_ids, top_lps, moe), the lp outputs None unless
     with_lp, moe the MoE dispatch's [dropped, routed] f32 counts or None.
     A multimodal plan's mm_embeds [B, Tq, D] / mm_mask [B, Tq] mix into
-    the token embeds. The cache is updated in place."""
+    the token embeds. The cache is updated in place. Under a tp `comm` the
+    forward runs the rank's shard and the ranks' tokens are checked
+    against each other (TpComm.check_tokens)."""
     meta = AttnMetadata(positions=positions, page_table=page_table,
                         kv_lens=kv_lens, write_idx=write_idx)
     last, _, aux = llama.forward(params, cfg, tokens, cache, meta,
                                  last_idx=last_idx, with_aux=True, path=path,
                                  input_embeds=mm_embeds,
-                                 embeds_mask=mm_mask)
+                                 embeds_mask=mm_mask, comm=comm)
     if nonfinite is not None:
         nonfinite += (~torch.isfinite(last)).any()
     seen = (seen_token_mask(hist, cfg.vocab_size)
             if rep_penalty is not None else None)
-    return sample_logits(last, eos, temperature, top_k, top_p, seeds,
-                         counters, min_tokens, seen=seen,
-                         rep_penalty=rep_penalty, with_lp=with_lp,
-                         greedy=greedy) + (_moe_counts(aux),)
+    out = sample_logits(last, eos, temperature, top_k, top_p, seeds,
+                        counters, min_tokens, seen=seen,
+                        rep_penalty=rep_penalty, with_lp=with_lp,
+                        greedy=greedy)
+    if comm is not None:
+        comm.check_tokens(out[0])
+    return out + (_moe_counts(aux),)
 
 
 def _engine_verify_step(cfg: ModelConfig, eos, params, cache, tokens,
@@ -1905,7 +2211,7 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
                           page_size: int, hist=None, rep_penalty=None,
                           with_lp=False, greedy=False, fused=False,
                           nonfinite=None, path: str = "ragged",
-                          window_bufs: Optional[tuple] = None):
+                          window_bufs: Optional[tuple] = None, comm=None):
     """N decode iterations, the sampled token feeding the next on the
     device: the JAX package's window bodies
     (dynamo_tpu/engine/engine.py:2236-2371).
@@ -1943,7 +2249,10 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
     with_lp; moe is the MoE dispatch's [dropped, routed] f32 counts summed
     over the window's steps (each step routes its writable rows), or None.
     Nothing here copies between host and device or waits on the device, so
-    the window can be captured in a CUDA graph."""
+    the window can be captured in a CUDA graph. Under a tp `comm` every
+    step runs the rank's shard (its collectives inside the window) and the
+    window's tokens are checked against the other ranks' once, at its
+    end."""
     s = tokens.shape[0]
     rows = torch.arange(s, device=tokens.device)
     seen = (seen_token_mask(hist, cfg.vocab_size)
@@ -1977,7 +2286,8 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
                       prefix - base_len)
             logits, k_news, v_news, aux = llama.decode_forward(
                 params, cfg, tok, cache, page_table, prefix, pos,
-                valid=writable, with_aux=True, window=window, path=path)
+                valid=writable, with_aux=True, window=window, path=path,
+                comm=comm)
             # this step's rows land at index t for every slot; a slot that
             # may not write stores garbage there, but its win_len stops
             # growing (or it is dead) and its writeback is dropped
@@ -1987,7 +2297,7 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
         else:
             logits, k_news, v_news, aux = llama.decode_forward(
                 params, cfg, tok, cache, page_table, prefix, pos,
-                valid=writable, with_aux=True, path=path)
+                valid=writable, with_aux=True, path=path, comm=comm)
             scatter_new_kv(cache, k_news, v_news, write_idx)
         if aux:
             counts = _moe_counts(aux)
@@ -2017,6 +2327,8 @@ def _engine_decode_window(cfg: ModelConfig, eos, params, cache, tokens,
         scatter_new_kv(cache, rows_of(k_win), rows_of(v_win),
                        torch.stack(write_idxs, 1).reshape(-1))
     toks = torch.stack([o[0] for o in outs])
+    if comm is not None:
+        comm.check_tokens(toks)
     if not with_lp:
         return toks, None, None, None, moe, (tok, pos, ctr)
     return (toks, torch.stack([o[1] for o in outs]),

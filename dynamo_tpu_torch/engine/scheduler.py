@@ -214,6 +214,18 @@ class EngineMetrics:
     decode_path: str = ""
     decode_path_reason: str = ""
     decode_kernel_tag: str = ""
+    # how decode windows run ("on": one CUDA-graph replay a window; "off
+    # (gloo)", "off (cpu)", "off (eager)": the program run directly) and
+    # the windows so run
+    window_graphs: str = ""
+    eager_windows: int = 0
+    # tensor parallelism (parallel/): tp, this rank, the group's backend
+    # ("" without a group) and every rank's figures (engine.tp_stats:
+    # launches by kernel, collectives, windows, weight bytes)
+    tp: int = 1
+    tp_rank: int = 0
+    tp_backend: str = ""
+    tp_ranks: list = dataclasses.field(default_factory=list)
     # KV representation (ops/kv_quant.py): bytes one page occupies on the
     # device (k + v + scales) and the quantized bit width (0 = unquantized)
     kv_page_bytes: int = 0

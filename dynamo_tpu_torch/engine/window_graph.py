@@ -49,6 +49,10 @@ Pb) in the draft's own WindowGraphs.
   (`KERNELS` names them). The replays are also counted by the decode path
   their programs run ("ragged" or "gather": `replay_paths`); a gather
   graph holds no ragged call.
+- Collectives. A tensor-parallel window's all-reduces are counted the same
+  way (`COLLECTIVES`: parallel/comm.py's counters; `replay_collectives`,
+  `captured_collectives()`): under NCCL a graph captures them; a gloo
+  engine's windows run eagerly (`eager`), as gloo cannot be captured.
 - Outputs of MoE windows include the window's summed expert-dispatch
   counts; like the tokens they are copied out after each replay, so a
   warm-up or a replay whose outputs are never read counts nothing.
@@ -58,7 +62,8 @@ function eagerly, as a kernel's wrapper takes its plain version for CPU
 tensors. On the card every window is one replay; a capture or replay that
 fails raises, and nothing falls back to eager. `eager = True` runs every
 window directly on the card too, graphs aside: a reference for the graph
-windows, which serving never sets. A failed capture is taken
+windows, and the mode of an engine on a gloo group; `eager_runs` counts
+the windows so run (every window on the CPU). A failed capture is taken
 apart before it raises (the pool no longer takes the stream's allocations,
 the half-built graph is dropped), so the next `run` captures afresh.
 """
@@ -72,6 +77,7 @@ import torch
 
 from dynamo_tpu_torch.ops import paged_attention as pa
 from dynamo_tpu_torch.ops import quant
+from dynamo_tpu_torch.parallel import comm
 
 # every kernel a window program can launch: name -> (its wrapper's module,
 # the launch counter, the captured-call counter)
@@ -84,9 +90,15 @@ KERNELS = {
 }
 
 
-def _counts(which: int) -> Dict[str, int]:
+# the collectives a tensor-parallel window calls, counted like the kernels
+COLLECTIVES = {
+    "tp_all_reduce": (comm, "ALL_REDUCES", "ALL_REDUCES_CAPTURED"),
+}
+
+
+def _counts(which: int, table: dict = KERNELS) -> Dict[str, int]:
     """{kernel: its launch count (which=1) or captured calls (which=2)}."""
-    return {name: getattr(k[0], k[which]) for name, k in KERNELS.items()}
+    return {name: getattr(k[0], k[which]) for name, k in table.items()}
 
 
 # one capture at a time in the process (see "Capture" above)
@@ -102,7 +114,8 @@ class WindowGraphs:
         # the engine's stream: warm-up, capture and every replay run on it
         self.stream = stream
         self._inputs: Dict[tuple, Dict[str, torch.Tensor]] = {}
-        # key -> (graph, outs, {kernel: calls captured})
+        # key -> (graph, outs, {kernel: calls captured}, {collective:
+        # calls captured})
         self._graphs: Dict[tuple, tuple] = {}
         self._pool = None
         self._pools = set()     # every pool the held graphs live in
@@ -119,8 +132,10 @@ class WindowGraphs:
         self.warmup_launches = {name: 0 for name in KERNELS}
         self.replay_launches = {name: 0 for name in KERNELS}
         self.replay_paths: Dict[str, int] = {}   # decode path -> replays
+        self.replay_collectives = {name: 0 for name in COLLECTIVES}
         self._static: Dict[str, torch.Tensor] = {}
-        self.eager = False   # run windows directly (a reference; see above)
+        self.eager = False   # run windows directly (see above)
+        self.eager_runs = 0  # programs run directly (CPU, or eager)
 
     def inputs(self, shapes: tuple,
                spec: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
@@ -159,17 +174,21 @@ class WindowGraphs:
         max_pos, a verify's write_idx, a proposal's max_write). Returns the
         program's outputs (on the card, the graph's pool tensors)."""
         if self.device.type != "cuda" or self.eager:
+            self.eager_runs += 1
             return program(bufs)
         with torch.cuda.stream(self.stream):
             rec = self._graphs.get(key)
             if rec is None:
                 rec = self._capture(key, program, bufs, dead)
-            graph, outs, calls = rec
+            graph, outs, calls, colls = rec
             graph.replay()
-        for name, n in calls.items():
-            mod, attr = KERNELS[name][:2]
-            setattr(mod, attr, getattr(mod, attr) + n)
-            self.replay_launches[name] += n
+        for table, got, added in ((KERNELS, calls, self.replay_launches),
+                                  (COLLECTIVES, colls,
+                                   self.replay_collectives)):
+            for name, n in got.items():
+                mod, attr = table[name][:2]
+                setattr(mod, attr, getattr(mod, attr) + n)
+                added[name] += n
         self.replays += 1
         self.replay_paths[path] = self.replay_paths.get(path, 0) + 1
         return outs
@@ -192,6 +211,7 @@ class WindowGraphs:
                 else torch.cuda.graph_pool_handle())
         graph = torch.cuda.CUDAGraph()
         c0 = _counts(2)
+        k0 = _counts(2, COLLECTIVES)
         # torch.cuda.graph's entry, spelled out so that a capture that fails
         # can be taken apart (_discard)
         with CAPTURES, self.capture_lock:
@@ -211,8 +231,10 @@ class WindowGraphs:
                 raise
         self._pool = pool
         self._pools.add(pool)
-        rec = (graph, outs, {name: n - c0[name]
-                             for name, n in _counts(2).items()})
+        rec = (graph, outs,
+               {name: n - c0[name] for name, n in _counts(2).items()},
+               {name: n - k0[name]
+                for name, n in _counts(2, COLLECTIVES).items()})
         self._graphs[key] = rec
         self.captured += 1
         self.capture_times.append(time.time())
@@ -246,6 +268,10 @@ class WindowGraphs:
     def captured_calls(self) -> Dict[tuple, Dict[str, int]]:
         """{graph key: {kernel: calls its graph holds}} of the graphs held."""
         return {key: dict(rec[2]) for key, rec in self._graphs.items()}
+
+    def captured_collectives(self) -> Dict[tuple, Dict[str, int]]:
+        """{graph key: {collective: calls its graph holds}}."""
+        return {key: dict(rec[3]) for key, rec in self._graphs.items()}
 
     def pool_bytes(self) -> int:
         """Device bytes held by the graphs' memory pools."""

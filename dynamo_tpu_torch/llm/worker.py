@@ -353,7 +353,10 @@ class NativeEngineWorker(AsyncEngine):
         their wall-clock times) and replays (by path: a speculative
         engine's verify replays under "verify"), a draft model's proposal
         graphs, and the host wall time of the decode loop's phases (with a
-        speculative engine's "verify" and "propose")."""
+        speculative engine's "verify" and "propose"); under tensor
+        parallelism tp, this rank, the backend, the window-graph mode and
+        every rank's figures as of the engine's last exchange
+        (engine.tp_stats: each rank's kernel launches and collectives)."""
         from dynamo_tpu_torch.engine.window_graph import KERNELS
         graphs = self.engine.graphs
         out = {}
@@ -380,7 +383,21 @@ class NativeEngineWorker(AsyncEngine):
                 "graphs": {"captured": graphs.captured,
                            "capture_times": list(graphs.capture_times),
                            "replays": graphs.replays,
-                           "replay_paths": dict(graphs.replay_paths)}}
+                           "replay_paths": dict(graphs.replay_paths),
+                           "mode": self.engine.window_graph_mode,
+                           "eager_runs": graphs.eager_runs},
+                "tp": self._tp_stats()}
+
+    def _tp_stats(self) -> dict:
+        """The engine's tensor-parallel figures without a collective (the
+        handler runs beside the step loop): its last exchange's."""
+        eng = self.engine
+        comm = getattr(eng, "_comm", None)
+        return {"tp": getattr(eng, "tp", 1),
+                "rank": getattr(eng, "tp_rank", 0),
+                "backend": comm.backend if comm is not None else "",
+                "window_graphs": eng.window_graph_mode,
+                "ranks": list(eng._tp_cached[1]) if comm is not None else []}
 
 
 async def serve_llm_worker(runtime, namespace: str, component: str,

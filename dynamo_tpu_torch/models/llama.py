@@ -58,6 +58,25 @@ soft-cap, sliding windows and query scale (`decode_forward` with a window's
 base + buffer, `decode_attention_split`, or without, the per-step
 `decode_attention_deferred`; `forward` through `paged_attention`). Callers
 that resolved the path once (the engine) pass it as `path`.
+
+Tensor parallelism (JAX :161-238, `param_shardings` and the cache specs):
+a rank holds the Megatron shard of a dense bf16 / f32 tree that
+`param_specs` names leaf by leaf as JAX does (q, k and v columns and their
+biases split by heads, `wo` and `w_down` rows, `w_gate` and `w_up`
+columns, `lm_head` by vocab unless the embeddings are tied; norms and
+`embed` replicated), cut by `shard_params` (or drawn so by `init_params`,
+or bridged so by `params_from_jax`, given a mesh), and runs the model on
+its own heads under `rank_config` (the head and FFN counts of one rank;
+`init_cache` of it is the rank's cache, its kv heads). Where tp divides
+neither way into the kv heads but is a multiple of them, each rank holds
+the one kv head its q heads read (the JAX tree splits those columns
+evenly, and XLA regathers them). `forward` and `decode_forward` take the
+rank's `comm` (parallel/comm.TpComm): an all-reduce of the attention output
+after `wo` and of the MLP output after `w_down` (the psums XLA inserts;
+with more than one rank the partial products summed in f32 and rounded
+once), and the vocab shards of the logits gathered on every rank,
+bit-equal.
+Without a comm the functions run the whole model as before.
 """
 from __future__ import annotations
 
@@ -175,7 +194,8 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return shapes
 
 
-def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
+def init_params(cfg: ModelConfig, device="cuda", seed: int = 0,
+                mesh=None) -> Params:
     """Random-init parameters (stacked over layers), drawn in the model
     dtype directly on `device` from an explicit torch.Generator, so no f32
     copy of the weights ever exists. Dense weights are N(0, 1/fan_in) and
@@ -187,8 +207,22 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
     expert stacks are drawn (and quantized) one (layer, expert) slice at a
     time into their stack, in both modes, so no model-dtype stack of them
     ever exists beside the int8 one (Mixtral's is 30.1 GB in bf16). Norm
-    weights are ones and q/k/v biases zeros, as in JAX."""
+    weights are ones and q/k/v biases zeros, as in JAX.
+
+    With a `mesh` (parallel/mesh.Mesh) of tp > 1 the tree is its rank's
+    shard (`shard_params`) of the same draws: every leaf is drawn whole,
+    in the unsharded order, and cut at once, so the values do not depend
+    on tp (the JAX engine draws unsharded and then places the tree,
+    dynamo_tpu/engine/engine.py:263-299) and a rank holds one whole leaf at
+    most beside its shards."""
     check_supported(cfg)
+    rank, tp = (mesh.rank, mesh.tp) if mesh is not None else (0, 1)
+    check_tp(cfg, tp)
+    specs = param_specs(cfg) if tp > 1 else None
+
+    def cut(key, leaf, spec):
+        return shard_leaf(key, leaf, spec, cfg, rank, tp) if specs else leaf
+
     quant = validate_quant(cfg.quant)
     dt = torch_dtype(cfg)
     device = torch.device(device)
@@ -229,6 +263,8 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
             continue
         else:
             layers[key] = dense((n,) + shape, shape[0])
+        if specs:
+            layers[key] = cut(key, layers[key], specs["layers"][key])
         if quant and key in QUANT_KEYS:
             layers[key] = quantize_int8(layers[key])
     params: Params = {
@@ -239,6 +275,8 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
     }
     if not cfg.tie_word_embeddings:
         head = dense((cfg.hidden_size, cfg.vocab_size), cfg.hidden_size)
+        if specs:
+            head = cut("lm_head", head, specs["lm_head"])
         params["lm_head"] = quantize_int8(head) if quant else head
     if cfg.vision is not None:
         from dynamo_tpu_torch.models import vision
@@ -251,7 +289,121 @@ def init_params(cfg: ModelConfig, device="cuda", seed: int = 0) -> Params:
     return params
 
 
-def params_from_jax(tree: Params, cfg: ModelConfig, device="cpu") -> Params:
+# -- tensor parallelism ---------------------------------------------------------
+
+def param_specs(cfg: ModelConfig) -> Params:
+    """The JAX package's `param_shardings` of a dense text model as tuples
+    of mesh axis names, one entry a dimension (None = not split): the
+    PartitionSpecs `shard_params` cuts by."""
+    rep2, cols, rows = (None, None), (None, None, "tp"), (None, "tp", None)
+    layers = {"attn_norm": rep2, "wq": cols, "wk": cols, "wv": cols,
+              "wo": rows, "mlp_norm": rep2, "w_gate": cols, "w_up": cols,
+              "w_down": rows}
+    if cfg.post_norms:
+        layers.update(post_attn_norm=rep2, post_mlp_norm=rep2)
+    if cfg.attn_bias:
+        layers.update({key: (None, "tp") for key, _ in _BIAS_KEYS})
+    out: Params = {"embed": (None, None), "layers": layers,
+                   "final_norm": (None,)}
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = (None, "tp")
+    return out
+
+
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Refuse a model that cannot be cut into `tp` Megatron shards: the
+    slice's tp serves dense text models in bf16 or f32, with whole q heads
+    on every rank, and kv heads split evenly or (tp a multiple of them)
+    one a rank; the FFN width splits evenly."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    for what, on in (("an MoE model", cfg.is_moe),
+                     ("int8 weights", bool(cfg.quant)),
+                     ("a vision tower", cfg.vision is not None)):
+        if on and tp > 1:
+            raise NotImplementedError(
+                f"model {cfg.name!r}: {what} is not served at tp > 1 (tp="
+                f"{tp}) by this port yet")
+    h, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+    if h % tp:
+        raise ValueError(f"model {cfg.name!r}: num_heads={h} is not "
+                         f"divisible by tp={tp}")
+    if hkv % tp and tp % hkv:
+        raise ValueError(f"model {cfg.name!r}: tp={tp} neither divides nor "
+                         f"is a multiple of num_kv_heads={hkv}")
+    if f % tp:
+        raise ValueError(f"model {cfg.name!r}: intermediate_size={f} is not "
+                         f"divisible by tp={tp}")
+
+
+def kv_heads_of(cfg: ModelConfig, rank: int, tp: int) -> tuple:
+    """(first kv head, count) that rank holds: Hkv / tp of them, or the
+    one kv head its q heads read when tp is a multiple of Hkv."""
+    hkv = cfg.num_kv_heads
+    if hkv % tp == 0:
+        return rank * (hkv // tp), hkv // tp
+    return rank * hkv // tp, 1
+
+
+def rank_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The model as one rank runs it: its q heads, kv heads and FFN width
+    (the vocab stays whole: the logits are gathered)."""
+    check_tp(cfg, tp)
+    if tp == 1:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tp,
+        num_kv_heads=kv_heads_of(cfg, 0, tp)[1],
+        intermediate_size=cfg.intermediate_size // tp)
+
+
+def _split_range(key: str, n: int, cfg: ModelConfig, rank: int,
+                 tp: int) -> tuple:
+    """[start, end) of rank's part of a split dimension of length n."""
+    if key in ("wk", "wv", "wk_b", "wv_b"):
+        first, count = kv_heads_of(cfg, rank, tp)
+        return first * cfg.head_dim, (first + count) * cfg.head_dim
+    if key == "lm_head":
+        from dynamo_tpu_torch.parallel.comm import vocab_range
+        return vocab_range(n, rank, tp)
+    step = n // tp
+    return rank * step, (rank + 1) * step
+
+
+def shard_leaf(key: str, leaf, spec: tuple, cfg: ModelConfig, rank: int,
+               tp: int, device=None):
+    """Rank's part of one leaf (a torch tensor or a numpy array) under its
+    spec, as a tensor of its own (no view of the whole leaf's storage), on
+    `device` when given."""
+    if "tp" in spec and tp > 1:
+        dim = spec.index("tp")
+        a, b = _split_range(key, leaf.shape[dim], cfg, rank, tp)
+        idx = (slice(None),) * dim + (slice(a, b),)
+        leaf = leaf[idx]
+        leaf = (leaf.clone() if isinstance(leaf, torch.Tensor)
+                else np.ascontiguousarray(leaf))
+    if device is not None and isinstance(leaf, torch.Tensor):
+        leaf = leaf.to(device)
+    return leaf
+
+
+def shard_params(params: Params, cfg: ModelConfig, rank: int, tp: int,
+                 device=None) -> Params:
+    """Rank's Megatron shard of a whole tree (torch tensors or numpy
+    arrays, the JAX layout), leaf by leaf (`param_specs`)."""
+    check_tp(cfg, tp)
+    specs = param_specs(cfg)
+    out: Params = {"layers": {
+        k: shard_leaf(k, params["layers"][k], specs["layers"][k], cfg, rank,
+                      tp, device) for k in specs["layers"]}}
+    for k, spec in specs.items():
+        if k != "layers":
+            out[k] = shard_leaf(k, params[k], spec, cfg, rank, tp, device)
+    return out
+
+
+def params_from_jax(tree: Params, cfg: ModelConfig, device="cpu",
+                    mesh=None) -> Params:
     """The weight bridge: the JAX package's stacked-over-layers parameter
     pytree (`dynamo_tpu/models/llama.py:init_params` layout), given as
     numpy arrays, -> the port's parameters on `device` in the model dtype.
@@ -259,9 +411,14 @@ def params_from_jax(tree: Params, cfg: ModelConfig, device="cpu") -> Params:
     tree's {"q": int8, "s": f32} leaves cross exactly, as torch int8 and
     f32. An MoE tree carries its router (in the model dtype) and its expert
     stacks; a tree whose experts do not match the config (a router on a
-    dense config, none on an MoE one, another expert count) is refused."""
+    dense config, none on an MoE one, another expert count) is refused.
+    With a `mesh` of tp > 1 the result is its rank's shard
+    (`shard_params`), cut from the numpy leaves before they move."""
     check_supported(cfg)
     dt = torch_dtype(cfg)
+    rank, tp = (mesh.rank, mesh.tp) if mesh is not None else (0, 1)
+    check_tp(cfg, tp)
+    specs = param_specs(cfg) if tp > 1 else None
 
     def conv(a):
         if is_quantized(a):
@@ -290,6 +447,9 @@ def params_from_jax(tree: Params, cfg: ModelConfig, device="cpu") -> Params:
             raise ValueError(f"layer leaf {k!r} has per-layer shape {got}; "
                              f"{cfg.name!r} ({kind} config, "
                              f"{cfg.num_experts} experts) needs {shape}")
+    if specs:
+        tree = shard_params({k: tree[k] for k in specs}, cfg, rank, tp)
+        layers = tree["layers"]
     out: Params = {
         "embed": conv(tree["embed"]),
         "layers": {k: conv(layers[k]) for k in shapes},
@@ -401,10 +561,14 @@ def _layer_w(lp: Params, key: str, l: int):
 
 
 def _dense_mlp(x: torch.Tensor, lp: Params, l: int,
-               cfg: ModelConfig) -> torch.Tensor:
+               cfg: ModelConfig, comm=None) -> torch.Tensor:
+    """The gated MLP; under a tp `comm` its row-sharded w_down product
+    summed over the ranks (TpComm.reduce_product)."""
     gate, up = linear_group(x, [_layer_w(lp, "w_gate", l),
                                 _layer_w(lp, "w_up", l)])
     act = mlp_activation(gate, cfg) * up
+    if comm is not None:
+        return comm.reduce_product(act, _layer_w(lp, "w_down", l))
     return linear(act, _layer_w(lp, "w_down", l))
 
 
@@ -431,11 +595,12 @@ def _moe_mlp(x: torch.Tensor, lp: Params, l: int,
     return out.to(x.dtype)
 
 
-def _mlp(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig, valid):
+def _mlp(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig, valid,
+         comm=None):
     """Layer l's MLP: (output, (dropped, routed) or None). The counts come
-    from the MoE dispatch only."""
+    from the MoE dispatch only. A tp `comm` serves dense models only."""
     if not cfg.is_moe:
-        return _dense_mlp(x, lp, l, cfg), None
+        return _dense_mlp(x, lp, l, cfg, comm), None
     if cfg.moe_impl == "dense":
         return _moe_mlp(x, lp, l, cfg), None
     layer = {key: _layer_w(lp, key, l) for key in ("router",) + _EXPERT_KEYS}
@@ -462,16 +627,24 @@ def _qkv(x: torch.Tensor, lp: Params, l: int, cfg: ModelConfig,
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _block_tail(x, attn, lp: Params, l: int, cfg: ModelConfig, valid=None):
+def _block_tail(x, attn, lp: Params, l: int, cfg: ModelConfig, valid=None,
+                comm=None):
     """Output projection + residual + MLP + residual for layer l; returns
-    (x, the MoE dispatch's (dropped, routed) or None)."""
+    (x, the MoE dispatch's (dropped, routed) or None). Under a tp `comm`
+    the row-sharded products (wo, w_down) are summed over the ranks before
+    the post-norms and the residuals (the psums of JAX's sharded program;
+    TpComm.reduce_product)."""
     b, t = x.shape[:2]
-    attn_out = linear(attn.reshape(b, t, -1), _layer_w(lp, "wo", l))
+    attn = attn.reshape(b, t, -1)
+    if comm is not None:
+        attn_out = comm.reduce_product(attn, _layer_w(lp, "wo", l))
+    else:
+        attn_out = linear(attn, _layer_w(lp, "wo", l))
     if cfg.post_norms:
         attn_out = _norm(attn_out, lp["post_attn_norm"][l], cfg)
     x = x + attn_out
     xn = _norm(x, lp["mlp_norm"][l], cfg)
-    mlp, drops = _mlp(xn, lp, l, cfg, valid)
+    mlp, drops = _mlp(xn, lp, l, cfg, valid, comm)
     if cfg.post_norms:
         mlp = _norm(mlp, lp["post_mlp_norm"][l], cfg)
     return x + mlp, drops
@@ -486,11 +659,16 @@ def _moe_aux(drops: list) -> dict:
             "moe_routed": torch.stack([r for _, r in drops]).sum()}
 
 
-def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor):
+def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor, comm=None):
+    """f32 logits over the whole vocab. Under a tp `comm` an untied head
+    holds this rank's vocab slice, gathered on every rank (a tied head is
+    the replicated embedding: every rank computes the whole vocab)."""
     x = _norm(x, params["final_norm"], cfg)
     head = (params["embed"].T if cfg.tie_word_embeddings
             else params["lm_head"])
     logits = linear(x, head).float()
+    if comm is not None and not cfg.tie_word_embeddings:
+        logits = comm.gather_vocab(logits, cfg.vocab_size)
     if cfg.final_softcap:
         return torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
@@ -522,6 +700,7 @@ def decode_forward(
     with_aux: bool = False,
     window: Optional[tuple] = None,  # the gather window's split KV view
     path: Optional[str] = None,      # "ragged" | "gather" (decode_path)
+    comm=None,                       # the rank's TpComm under tp
 ) -> tuple:
     """Deferred-write decode step: the KV cache is READ-ONLY.
 
@@ -584,12 +763,12 @@ def decode_forward(
                 page_table, prefix_lens, window=wnd,
                 k_scale=None if ks is None else ks[l],
                 v_scale=None if vs is None else vs[l], **knobs)
-        x, d = _block_tail(x, attn[:, None], lp, l, cfg, token_valid)
+        x, d = _block_tail(x, attn[:, None], lp, l, cfg, token_valid, comm)
         k_news.append(k_new)
         v_news.append(v_new)
         if d is not None:
             drops.append(d)
-    logits = _lm_head(params, cfg, x)[:, 0]
+    logits = _lm_head(params, cfg, x, comm)[:, 0]
     out = (logits, torch.stack(k_news), torch.stack(v_news))
     return out + (_moe_aux(drops),) if with_aux else out
 
@@ -605,6 +784,7 @@ def forward(
     path: Optional[str] = None,      # "ragged" | "gather" (decode_path)
     input_embeds: Optional[torch.Tensor] = None,  # [B, Tq, D]
     embeds_mask: Optional[torch.Tensor] = None,   # [B, Tq] bool
+    comm=None,                       # the rank's TpComm under tp
 ) -> tuple:
     """One paged forward step; writes this step's kv into the cache in
     place. Returns (logits, cache), plus the aux dict with with_aux (the
@@ -686,12 +866,12 @@ def forward(
                 ksc, vsc, softcap=cfg.attn_softcap,
                 window=None if lw is None else lw[l],
                 q_scale=cfg.query_scale)
-        x, d = _block_tail(x, attn, lp, l, cfg, token_valid)
+        x, d = _block_tail(x, attn, lp, l, cfg, token_valid, comm)
         if d is not None:
             drops.append(d)
     if last_idx is not None:
         x = x[torch.arange(b, device=x.device), last_idx.long()][:, None]
-        logits = _lm_head(params, cfg, x)[:, 0]
+        logits = _lm_head(params, cfg, x, comm)[:, 0]
     else:
-        logits = _lm_head(params, cfg, x)
+        logits = _lm_head(params, cfg, x, comm)
     return (logits, cache, _moe_aux(drops)) if with_aux else (logits, cache)

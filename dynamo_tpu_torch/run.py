@@ -50,13 +50,19 @@ an int8 one); `--spec-decode ngram|draft [--spec-k K] [--spec-draft
 MODEL]` verifies K prompt-lookup or draft-model tokens a target forward on
 greedy plans (engine/spec.py; the draft a registry name with random
 weights from seed 0, or an HF directory, of the served model's
-vocabulary). A frontend for endpoint workers is `python -m
+vocabulary). `--tp N` (N > 1) serves a dense model tensor-parallel over N
+ranks, one process a rank (parallel/launch.py): rank r on cuda:r over
+NCCL, or every rank on the CPU over gloo with `--device cpu`; fewer
+visible cards than ranks is refused. This process is rank 0 and runs the
+chosen `in=` mode; the others follow its steps. `--tp 1` (the default)
+holds no process group. A frontend for endpoint workers is `python -m
 dynamo_tpu_torch.frontend.serve`.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
 import logging
@@ -64,6 +70,7 @@ import os
 import sys
 import time
 import uuid
+from typing import Optional
 
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
@@ -113,8 +120,13 @@ def load_weights(card: ModelDeploymentCard, model_cfg, device):
     return params
 
 
-async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
+async def build_engine(out_spec: str, card: ModelDeploymentCard, args,
+                       stack: Optional[contextlib.ExitStack] = None):
+    """The worker of `out=`; at --tp > 1 rank 0's engine of a group whose
+    ranks live as long as `stack`."""
     if out_spec == "echo":
+        if args.tp > 1:
+            raise SystemExit("--tp needs out=native")
         return EchoTokenEngine(delay_s=args.echo_delay)
     if out_spec != "native":
         raise SystemExit(f"unknown out={out_spec!r}")
@@ -124,7 +136,6 @@ async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
         model_cfg = dataclasses.replace(model_cfg,
                                         quant=args.quant or model_cfg.quant,
                                         dtype=args.dtype or model_cfg.dtype)
-    params = load_weights(card, model_cfg, resolve_device(args.device))
     eng_cfg = EngineConfig(
         page_size=card.kv_page_size, num_pages=args.num_pages,
         max_slots=args.max_slots, max_prefill_chunk=args.max_prefill_chunk,
@@ -133,10 +144,23 @@ async def build_engine(out_spec: str, card: ModelDeploymentCard, args):
         max_model_len=min(card.context_length, model_cfg.max_model_len),
         host_pages=args.host_pages, kv_quant=args.kv_quant,
         spec_decode=args.spec_decode, spec_k=args.spec_k,
-        spec_draft_model=args.spec_draft)
-    engine = NativeEngine(model_cfg, eng_cfg, params=params,
-                          eos_token_ids=set(card.eos_token_ids),
-                          device=args.device)
+        spec_draft_model=args.spec_draft, tp=args.tp)
+    if args.tp > 1:
+        from dynamo_tpu_torch.models.loader import checkpoint_kind
+        from dynamo_tpu_torch.parallel.launch import rank_devices, tp_engine
+        try:
+            rank_devices(args.tp, args.device)
+        except ValueError as e:
+            raise SystemExit(f"run.py --tp {args.tp}: {e}")
+        ckpt = card.model_path if checkpoint_kind(card.model_path) else None
+        engine = stack.enter_context(tp_engine(
+            model_cfg, eng_cfg, device=args.device,
+            eos_token_ids=card.eos_token_ids, checkpoint=ckpt))
+    else:
+        params = load_weights(card, model_cfg, resolve_device(args.device))
+        engine = NativeEngine(model_cfg, eng_cfg, params=params,
+                              eos_token_ids=set(card.eos_token_ids),
+                              device=args.device)
     return await NativeEngineWorker(engine).start()
 
 
@@ -296,6 +320,10 @@ async def amain(argv=None) -> None:
                    help="draft model for --spec-decode draft: a registry "
                         "name or an HF checkpoint dir (its vocabulary must "
                         "be the served model's)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks, one process a rank (rank r "
+                        "on cuda:r over NCCL; with --device cpu on the CPU "
+                        "over gloo); dense bf16 / f32 models")
     p.add_argument("--echo-delay", type=float, default=0.0)
     p.add_argument("--control-host", default="127.0.0.1")
     p.add_argument("--control-port", type=int, default=5550)
@@ -313,7 +341,13 @@ async def amain(argv=None) -> None:
             model_spec = tok
 
     card = build_card(model_spec)
-    engine = await build_engine(out_spec, card, args)
+    with contextlib.ExitStack() as stack:
+        await _serve(in_spec, out_spec, card, args, stack)
+
+
+async def _serve(in_spec: str, out_spec: str, card, args,
+                 stack: contextlib.ExitStack) -> None:
+    engine = await build_engine(out_spec, card, args, stack)
     pipe = LocalPipeline(card, engine)
     try:
         if in_spec.startswith("endpoint:"):
@@ -336,13 +370,15 @@ async def amain(argv=None) -> None:
             raise SystemExit(f"unknown in={in_spec!r}")
     finally:
         if isinstance(engine, NativeEngineWorker):
+            # stopped first: a tp engine's close takes every rank's final
+            # figures for the stats below
+            await engine.stop()
             if in_spec.startswith("http"):
                 # what the served run did: the engine's metrics and the
                 # kernel launch counts (the $STATS an endpoint worker gives)
                 print(f"EXIT logits_nonfinite_steps="
                       f"{engine.engine.logits_nonfinite_steps()} stats="
                       f"{json.dumps(engine.stats_handler())}", flush=True)
-            await engine.stop()
 
 
 def main() -> None:
